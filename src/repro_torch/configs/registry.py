@@ -1,0 +1,27 @@
+"""Architecture registry of the port: the configurations its model code
+covers so far (the dense family). Mirrors ``repro/configs/registry.py``;
+the other architectures of the JAX registry are still to be ported
+(ROADMAP.md)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig, reduced
+
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "reduced"]
+
+ARCHS = {
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported yet (ported: "
+            f"{sorted(ARCHS)}); see ROADMAP.md")
+    return importlib.import_module(ARCHS[arch]).CONFIG
+
+
+def get_smoke_config(arch: str, **kw) -> ModelConfig:
+    return reduced(get_config(arch), **kw)

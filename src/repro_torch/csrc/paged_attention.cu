@@ -1,0 +1,213 @@
+// Paged (block-table) flash attention for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/paged_attention.py::_kernel
+// for fp32 and bf16 pools (the int8 branch is not ported yet). Contract, as
+// there:
+//
+//   q (B, Sq, H, D) model layout; k/v pools (P, ps, Hkv, D|Dv);
+//   block_tables (B, nb) int32: logical key block j of row b is physical
+//   page block_tables[b, j]; q_positions (B, Sq) int32 (-1 = masked row);
+//   kv_valid_len (B,) int32, clamped to nb * ps by the caller.
+//   Key col (a LOGICAL position, j * ps + t) is visible to query row i iff
+//   col < kv_valid_len[b] and, when causal, col <= q_positions[b, i].
+//   Online softmax in fp32 over key blocks of exactly one page; p is zeroed
+//   where invalid; p is rounded to the pool dtype before the P.V product,
+//   as the TPU kernel's p.astype(v.dtype) does; the flush divides by
+//   max(l, 1e-30), so a row that sees no key is exactly 0. Blocks past the
+//   valid length or beyond every row's causal frontier are skipped.
+//
+// Layout of the work: one CTA per (query tile, kv head g, batch row b).
+// Its rows are the query positions of the tile times the rep = H / Hkv
+// query heads that share kv head g (GQA folded into the CTA), so each page
+// of K and V is read from memory once per CTA and used by all its rows.
+// The CTA loads its own block-table entries (no scalar prefetch on Hopper).
+// Each of the 4 warps owns up to 4 rows; within a warp, lane t scores key t
+// of the page (page_size <= 32) and lane d accumulates output dims d, d+32,
+// ... (head_dim <= 128).
+//
+// What bounds it on an H100: the bytes of the visible K/V pages (decode
+// reads every populated page of every slot once per layer), so HBM
+// bandwidth. The arithmetic is fp32 FMA on the CUDA cores.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxRows = 16;            // rows (query position x head) per CTA
+constexpr int kRowsPerWarp = kMaxRows / kWarps;
+constexpr int kMaxPage = 32;            // page_size <= 32: one key per lane
+constexpr int kMaxD = 128;              // head_dim <= 128
+constexpr int kDPerLane = kMaxD / 32;
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// p.astype(v.dtype): identity for fp32 pools, round-to-nearest-even for bf16.
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                  const T* __restrict__ vp, const int* __restrict__ block_tables,
+                  const int* __restrict__ q_positions,
+                  const int* __restrict__ kv_valid_len, T* __restrict__ out,
+                  int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
+                  float scale, float soft_cap, int causal) {
+  const int tile = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int s0 = tile * qt;
+  const int n_rows = min(qt, Sq - s0) * rep;   // row r: s = s0 + r / rep, h = g * rep + r % rep
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  __shared__ float qs[kMaxRows][kMaxD];
+  __shared__ float ks[kMaxPage][kMaxD + 1];    // +1: lane t reads row t, no bank conflicts
+  __shared__ float vs[kMaxPage][kMaxD];
+  __shared__ int qpos_s[kMaxRows];
+
+  for (int e = tid; e < n_rows * D; e += kThreads) {
+    const int r = e / D, d = e % D;
+    const int s = s0 + r / rep, h = g * rep + r % rep;
+    qs[r][d] = to_f(q[((static_cast<size_t>(b) * Sq + s) * H + h) * D + d]);
+  }
+  for (int r = tid; r < n_rows; r += kThreads)
+    qpos_s[r] = q_positions[static_cast<size_t>(b) * Sq + s0 + r / rep];
+  __syncthreads();
+
+  const int kvlen = kv_valid_len[b];
+  int qmax = -1;
+  for (int r = 0; r < n_rows; ++r) qmax = max(qmax, qpos_s[r]);
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDPerLane];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kDPerLane; ++u) acc[i][u] = 0.f;
+  }
+
+  for (int j = 0; j < nb; ++j) {
+    const int col0 = j * ps;
+    // Block-uniform skips: every later block is past the valid length, or
+    // strictly in the future of every row of this CTA.
+    if (col0 >= kvlen) break;
+    if (causal && col0 > qmax) break;
+    const size_t page = static_cast<size_t>(block_tables[static_cast<size_t>(b) * nb + j]);
+    __syncthreads();                        // the previous page's readers are done
+    for (int e = tid; e < ps * D; e += kThreads) {
+      const int t = e / D, d = e % D;
+      ks[t][d] = to_f(kp[((page * ps + t) * Hkv + g) * D + d]);
+    }
+    for (int e = tid; e < ps * Dv; e += kThreads) {
+      const int t = e / Dv, d = e % Dv;
+      vs[t][d] = to_f(vp[((page * ps + t) * Hkv + g) * Dv + d]);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + i * kWarps;
+      if (r >= n_rows) continue;            // uniform across the warp
+      const int col = col0 + lane;
+      const bool valid = lane < ps && col < kvlen && (!causal || col <= qpos_s[r]);
+      float s = kNegInf;
+      if (valid) {
+        float dot = 0.f;
+        for (int d = 0; d < D; ++d) dot += qs[r][d] * ks[lane][d];
+        s = dot * scale;
+        if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
+      }
+      const float m_new = fmaxf(m[i], warp_max(s));
+      const float p = valid ? expf(s - m_new) : 0.f;
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + warp_sum(p);
+      const float pv = round_as(p, q);
+      float sum[kDPerLane];
+#pragma unroll
+      for (int u = 0; u < kDPerLane; ++u) sum[u] = 0.f;
+      for (int t = 0; t < ps; ++t) {
+        const float pt = __shfl_sync(kFull, pv, t);
+#pragma unroll
+        for (int u = 0; u < kDPerLane; ++u) {
+          const int d = lane + 32 * u;
+          if (d < Dv) sum[u] += pt * vs[t][d];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDPerLane; ++u) acc[i][u] = acc[i][u] * corr + sum[u];
+      m[i] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + i * kWarps;
+    if (r >= n_rows) continue;
+    const int s = s0 + r / rep, h = g * rep + r % rep;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* o = out + ((static_cast<size_t>(b) * Sq + s) * H + h) * Dv;
+#pragma unroll
+    for (int u = 0; u < kDPerLane; ++u) {
+      const int d = lane + 32 * u;
+      if (d < Dv) store(&o[d], acc[i][u] / denom);
+    }
+  }
+}
+
+}  // namespace
+
+// dtype_code: 0 = float32, 1 = bfloat16 (q, pools and output alike).
+// qt: query positions per CTA, with qt * (H / Hkv) <= 16.
+// soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on `stream`.
+extern "C" int paged_attention(int dtype_code, const void* q, const void* k_pages,
+                               const void* v_pages, const int* block_tables,
+                               const int* q_positions, const int* kv_valid_len,
+                               void* out, int B, int Sq, int H, int Hkv, int D,
+                               int Dv, int ps, int nb, int qt, float scale,
+                               float soft_cap, int causal, void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (ps > kMaxPage || D > kMaxD || Dv > kMaxD || qt * (H / Hkv) > kMaxRows || qt < 1)
+    return cudaErrorInvalidValue;
+  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype_code == 0) {
+    paged_attn_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_pages),
+        static_cast<const float*>(v_pages), block_tables, q_positions, kv_valid_len,
+        static_cast<float*>(out), Sq, H, Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal);
+  } else if (dtype_code == 1) {
+    paged_attn_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
+        static_cast<const __nv_bfloat16*>(v_pages), block_tables, q_positions, kv_valid_len,
+        static_cast<__nv_bfloat16*>(out), Sq, H, Hkv, D, Dv, ps, nb, qt, scale, soft_cap,
+        causal);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" const char* pa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

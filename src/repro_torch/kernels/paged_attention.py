@@ -1,0 +1,179 @@
+"""Paged (block-table) flash attention: wrapper of the CUDA kernel
+``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
+``repro/kernels/paged_attention.py::_kernel`` for fp32/bf16 pools.
+
+K/V live in a pool of fixed-size pages; each request owns a block table
+mapping its logical key blocks to physical pages. The key-block size IS the
+page size. ``cols`` are logical positions: the table redirects only the
+fetch, never the masking. For tensors on the CPU :func:`paged_attention`
+runs :func:`paged_attention_plain`, the same online-softmax recurrence in
+PyTorch, one page at a time; for CUDA tensors it launches the kernel or
+raises. ``launches`` counts the kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+# Limits of the kernel's tiling (csrc/paged_attention.cu).
+MAX_PAGE_SIZE = 32
+MAX_HEAD_DIM = 128
+MAX_ROWS = 16                      # query positions x rep heads per CTA
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("paged_attention")
+    if lib.paged_attention.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.paged_attention.argtypes = [
+            i, vp, vp, vp, vp, vp, vp, vp,
+            i, i, i, i, i, i, i, i, i, f, f, i, vp]
+        lib.paged_attention.restype = ctypes.c_int
+        lib.pa_error_string.argtypes = [i]
+        lib.pa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_tables, q_positions,
+                          kv_valid_len, *, causal: bool, scale: float,
+                          soft_cap: Optional[float]) -> torch.Tensor:
+    """The kernel's recurrence in PyTorch (the plain version).
+
+    Arguments as :func:`paged_attention` after its defaults are resolved
+    (``kv_valid_len`` clamped to nb * ps). Key block j is page
+    ``block_tables[:, j]``; fp32 online softmax, p zeroed where invalid,
+    p rounded to the pool dtype before P·V, flush by max(l, 1e-30).
+    """
+    B, Sq, H, D = q.shape
+    _, ps, Hkv, Dv = v_pages.shape
+    rep = H // Hkv
+    dev = q.device
+    qf = q.float().permute(0, 2, 1, 3)                      # (B, H, Sq, D)
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=dev)
+    l_sum = torch.zeros((B, H, Sq, 1), device=dev)
+    acc = torch.zeros((B, H, Sq, Dv), device=dev)
+    qpos = q_positions[:, None, :, None]                     # (B, 1, Sq, 1)
+    kvlen = kv_valid_len[:, None, None, None]
+    for j in range(block_tables.shape[1]):
+        pages = block_tables[:, j].long()
+        kb = k_pages[pages].repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+        vb = v_pages[pages].repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+        s = torch.matmul(qf, kb.float().transpose(-1, -2)) * scale
+        if soft_cap:
+            s = soft_cap * torch.tanh(s / soft_cap)
+        cols = j * ps + torch.arange(ps, device=dev)
+        valid = cols < kvlen
+        if causal:
+            valid = valid & (cols <= qpos)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l_sum = l_sum * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(v_pages.dtype).float(),
+                                        vb.float())
+        m = m_new
+    out = acc / torch.clamp(l_sum, min=1e-30)
+    return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def paged_attention(
+    q: torch.Tensor,             # (B, Sq, H, D) — model layout
+    k_pages: torch.Tensor,       # (P, page_size, Hkv, D)
+    v_pages: torch.Tensor,       # (P, page_size, Hkv, Dv)
+    block_tables: torch.Tensor,  # (B, n_blocks) int32 physical page per block
+    q_positions: Optional[torch.Tensor] = None,   # (B, Sq) int32; <0 → masked
+    kv_valid_len: Optional[torch.Tensor] = None,  # (B,) int32; None → all keys
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Flash attention reading K/V through a block table; returns
+    (B, Sq, H, Dv) in q's dtype.
+
+    Defaults as the TPU wrapper's: ``q_positions`` is ``arange(Sq)`` (NOT
+    bottom-right aligned), ``kv_valid_len`` is nb * page_size and is
+    clamped to it. An empty table (nb == 0) returns zeros without a launch.
+    Block-table entries must be valid page ids; entries past a row's valid
+    length are never read.
+    """
+    B, Sq, H, D = q.shape
+    P, ps, Hkv, Dv = v_pages.shape
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"H={H} query heads must be a multiple of Hkv={Hkv}")
+    if tuple(k_pages.shape[:3]) != (P, ps, Hkv):
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} and v_pages "
+                         f"{tuple(v_pages.shape)} disagree on (P, ps, Hkv)")
+    if k_pages.shape[3] != D:
+        raise ValueError(f"q has head_dim {D}, k_pages {k_pages.shape[3]}")
+    nb = block_tables.shape[1]
+    dev = q.device
+    if nb == 0:
+        return torch.zeros((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev).expand(B, Sq)
+    q_positions = q_positions.to(torch.int32)
+    if kv_valid_len is None:
+        kv_valid_len = torch.full((B,), nb * ps, device=dev)
+    kv_valid_len = torch.clamp(kv_valid_len.to(torch.int32), max=nb * ps)
+    block_tables = block_tables.to(torch.int32)
+    if dev.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                     q_positions, kv_valid_len, causal=causal,
+                                     scale=scale, soft_cap=soft_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"no paged attention kernel for device {dev}")
+    if q.dtype not in _DTYPE_CODES or {k_pages.dtype, v_pages.dtype} != {q.dtype}:
+        raise ValueError(f"the kernel takes fp32 or bf16 q and pools of one "
+                         f"dtype, got {q.dtype}, {k_pages.dtype}, "
+                         f"{v_pages.dtype}")
+    rep = H // Hkv
+    if ps > MAX_PAGE_SIZE or max(D, Dv) > MAX_HEAD_DIM or rep > MAX_ROWS:
+        raise ValueError(
+            f"page_size={ps}, head dims ({D}, {Dv}), rep={rep} exceed the "
+            f"kernel's limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM}, {MAX_ROWS})")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    block_tables = block_tables.to(dev).contiguous()
+    q_positions = q_positions.to(dev).contiguous()
+    kv_valid_len = kv_valid_len.to(dev).contiguous()
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    lib = _lib()
+    err = lib.paged_attention(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_tables.data_ptr(), q_positions.data_ptr(),
+        kv_valid_len.data_ptr(), out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps, nb,
+        MAX_ROWS // rep, float(scale), float(soft_cap or 0.0), int(causal),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_attention launch failed: "
+                           f"{lib.pa_error_string(err).decode()}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+
+def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,
+                 max_len: Optional[int] = None) -> torch.Tensor:
+    """Gather a (P, page_size, Hkv, D) pool back to dense (B, T, Hkv, D)
+    caches through the block tables — the inverse of the paged layout, for
+    tests and yardsticks; the serving path never calls it."""
+    P, ps, Hkv, D = pages.shape
+    B, nb = block_tables.shape
+    dense = pages[block_tables.long()].reshape(B, nb * ps, Hkv, D)
+    return dense if max_len is None else dense[:, :max_len]

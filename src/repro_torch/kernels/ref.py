@@ -1,0 +1,97 @@
+"""Plain PyTorch versions of the kernels: the ground truth the CUDA kernels
+are held against on the card, and what the kernel wrappers run for tensors
+on the CPU.
+
+``block_matmul_ref`` is the paper's Algorithm 1 over block-major operands,
+as ``repro/core/blockflow.py`` renders it: output block (i, j) accumulates
+A_bm[i, k] @ B_bm[j, k] with K innermost and is written once. Integer
+operands accumulate in float64, which is exact for int8 products summed
+over any K below 2**37, and works on both devices (CUDA has no integer
+matmul).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def acc_dtype_for(dtype: torch.dtype) -> torch.dtype:
+    """The paper's MAC accumulator policy: int32 for integers, else fp32."""
+    return torch.float32 if dtype.is_floating_point else torch.int32
+
+
+def _work_dtype(acc: torch.dtype) -> torch.dtype:
+    return torch.float32 if acc == torch.float32 else torch.float64
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C = A @ B on row-major operands with the accumulator policy."""
+    acc = acc_dtype_for(a.dtype)
+    work = _work_dtype(acc)
+    return torch.matmul(a.to(work), b.to(work)).to(out_dtype or acc)
+
+
+def block_matmul_ref(a_bm: torch.Tensor, b_bm: torch.Tensor, *,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C_bm = A_bm @ B_bm over block-major operands (Algorithm 1).
+
+    a_bm (nbm, nbk, bm, bk), b_bm (nbn, nbk, bk, bn) → C_bm (nbm, nbn, bm,
+    bn) in ``out_dtype`` (default: the accumulator dtype).
+    """
+    nbm, nbk, bm, bk = a_bm.shape
+    nbn, nbk2, bk2, bn = b_bm.shape
+    if (nbk, bk) != (nbk2, bk2):
+        raise ValueError(
+            f"block-major operands disagree on the K stream: a_bm "
+            f"{tuple(a_bm.shape)} vs b_bm {tuple(b_bm.shape)}")
+    acc = acc_dtype_for(a_bm.dtype)
+    work = _work_dtype(acc)
+    c = torch.zeros((nbm, nbn, bm, bn), dtype=work, device=a_bm.device)
+    for k in range(nbk):               # the K stream, innermost in Alg. 1
+        c += torch.einsum("iab,jbc->ijac", a_bm[:, k].to(work),
+                          b_bm[:, k].to(work))
+    return c.to(out_dtype or acc)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, scale: Optional[float] = None,
+            soft_cap: Optional[float] = None,
+            q_positions: Optional[torch.Tensor] = None,
+            kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reference grouped-query attention with an fp32 softmax
+    (``repro/kernels/ref.py::mha_ref``).
+
+    q (B, Sq, H, D); k, v (B, Sk, Hkv, D). Key j of row b is visible to
+    query i iff ``j < kv_valid_len[b]`` and, when causal,
+    ``j <= q_positions[b, i]``; default positions are bottom-right aligned
+    (``arange(Sq) + Sk - Sq``). A query row with no visible key is zeros.
+    """
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
+    rep = H // Hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = scale if scale is not None else D ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if soft_cap:
+        logits = soft_cap * torch.tanh(logits / soft_cap)
+    dev = q.device
+    if q_positions is None:
+        q_positions = (torch.arange(Sq, device=dev) + (Sk - Sq)).expand(B, Sq)
+    if kv_valid_len is None:
+        kv_valid_len = torch.full((B,), Sk, device=dev)
+    kv_pos = torch.arange(Sk, device=dev)[None, None, :]
+    valid = kv_pos < kv_valid_len[:, None, None]
+    if causal:
+        valid = valid & (kv_pos <= q_positions[:, :, None])
+    valid = valid.expand(B, Sq, Sk)[:, None]
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)

@@ -1,0 +1,121 @@
+"""Serving launcher of the port: batched generate plus page-bound
+continuous batching, on the GPU by default (``repro/launch/serve.py``).
+
+Usage:
+  python -m repro_torch.launch.serve --arch smollm-135m \
+      --n-requests 8 --prompt-len 16 --gen-len 24 --pack-weights
+  python -m repro_torch.launch.serve --arch smollm-135m --smoke \
+      --device cpu --max-len 64     # plain versions of the kernels, on CPU
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.core.plan import AttentionPolicy, GemmPolicy
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import ServeConfig, ServingEngine
+from repro_torch.serving.scheduler import Scheduler
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--n-requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--gemm-backend", default="auto",
+                    help="GEMM backend (auto|matrixflow|blockflow|torch)")
+    ap.add_argument("--gemm-mode", default="auto",
+                    choices=["auto", "dc", "dm"],
+                    help="paper access mode; auto = per-shape sysmodel pick")
+    ap.add_argument("--pack-weights", action="store_true",
+                    help="lay weights out block-major once (resident)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (the paged kernel's key block)")
+    ap.add_argument("--cache-pages", type=int, default=None,
+                    help="total pages in the KV pool; default = "
+                         "batch_slots * ceil(max_len / page_size). Smaller "
+                         "values oversubscribe (page-bound admission + "
+                         "preemption)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="tokens of prefill per engine step (chunked "
+                         "prefill); default: whole prompt at submit")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)
+    attn = AttentionPolicy(backend="paged", page_size=args.page_size)
+    scheduler = (Scheduler(prefill_chunk=args.prefill_chunk)
+                 if args.prefill_chunk else None)
+    params = T.init_model(cfg, seed=args.seed, device=args.device)
+    sc = ServeConfig(
+        batch_slots=args.batch_slots, max_len=args.max_len,
+        temperature=args.temperature, cache_dtype=cfg.dtype, gemm=policy,
+        attention=attn, pack_weights=args.pack_weights,
+        cache_pages=args.cache_pages, scheduler=scheduler,
+        device=args.device)
+    engine = ServingEngine(cfg, params, sc)
+    dev = engine.device
+    print(f"[serve] arch={cfg.name} device={dev} slots={args.batch_slots} "
+          f"max_len={args.max_len} gemm={policy.resolved_backend(dev)}/"
+          f"{policy.mode} attn=paged page_size={args.page_size} "
+          f"packed={args.pack_weights}")
+    gen = (torch.Generator().manual_seed(args.seed)
+           if args.temperature > 0 else None)
+
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (args.batch_slots, args.prompt_len))
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.gen_len, generator=gen)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    print(f"[serve] batched generate: {out.shape} in {dt:.2f}s "
+          f"({args.batch_slots * args.gen_len / dt:.1f} tok/s)")
+
+    lo = max(1, min(4, args.prompt_len))
+    pending = [rng.integers(0, cfg.vocab,
+                            rng.integers(lo, args.prompt_len + 1)).tolist()
+               for _ in range(args.n_requests)]
+    rids = []
+    done_tokens = 0
+    t0 = time.perf_counter()
+    while pending or engine.slot_live.any() or engine.wait:
+        while pending:
+            rid = engine.submit(pending[0], generator=gen)
+            if rid is None:
+                break
+            rids.append(rid)
+            pending.pop(0)
+        done_tokens += len(engine.step(generator=gen))
+        for rid in rids:
+            stream = engine.request_out.get(rid)
+            if stream is not None and len(stream) >= args.gen_len:
+                engine.cancel(rid)          # done: free its slot and pages
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    print(f"[serve] continuous batching: {args.n_requests} requests, "
+          f"{done_tokens} tokens in {dt:.2f}s "
+          f"({done_tokens / max(dt, 1e-9):.1f} tok/s)")
+    print(f"[serve] stats: {engine.stats()}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

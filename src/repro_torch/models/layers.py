@@ -1,0 +1,133 @@
+"""Transformer layers of the dense family: RMSNorm, RoPE, GQA attention over
+a paged KV cache, SwiGLU MLP (``repro/models/layers.py``).
+
+Every projection goes through ``core.api.linear`` under the active
+GemmPolicy (the MatrixFlow GEMM on the card); attention goes through
+``core.api.attention`` under the active AttentionPolicy (the paged kernel
+on the card).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import api
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import dense_init
+
+# ---------------------------------------------------------------------------
+# Norms and RoPE
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-half rotary embedding in fp32. x: (B, S, H, D) with even D;
+    positions: (B, S)."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    angles = positions[..., None].float() * freqs            # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention with a paged KV cache
+# ---------------------------------------------------------------------------
+
+def init_attention(gen, cfg: ModelConfig, dtype, device):
+    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": dense_init(gen, d, H * dh, dtype, device),
+            "wk": dense_init(gen, d, Hkv * dh, dtype, device),
+            "wv": dense_init(gen, d, Hkv * dh, dtype, device),
+            "wo": dense_init(gen, H * dh, d, dtype, device)}
+
+
+def init_paged_attention_cache(cfg: ModelConfig, batch: int, n_pages: int,
+                               page_size: int, dtype, device):
+    """K/V pools of ``n_pages`` pages shared by every batch row, plus one
+    more page at index ``n_pages`` that no block table names: the write
+    sink for masked positions (the TPU version drops those writes out of
+    range; torch has no dropping scatter, and a sink keeps the write free
+    of a host sync). ``len`` is per row, as in the contiguous cache."""
+    shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _paged_cache_update(cache, k, v, positions, block_tables):
+    """Scatter new K/V into the page pools through the block tables, in
+    place (the pools are the largest tensors of serving; the TPU version
+    returns updated copies).
+
+    Token (b, s) at position p lands in page ``block_tables[b, p // ps]``
+    at offset ``p % ps``; positions < 0 (masked rows, bucket padding) go to
+    the sink page and do not count: ``len`` advances by the written count.
+    """
+    B, S = positions.shape
+    P, ps, Hkv, dh = cache["kp"].shape
+    keep = positions >= 0
+    pos = positions.clamp(min=0).long()
+    page = torch.gather(block_tables.long(), 1, pos // ps)
+    flat = torch.where(keep, page * ps + pos % ps, (P - 1) * ps).reshape(-1)
+    cache["kp"].view(P * ps, Hkv, dh)[flat] = k.reshape(B * S, Hkv, dh)
+    cache["vp"].view(P * ps, Hkv, dh)[flat] = v.reshape(B * S, Hkv, dh)
+    cache["len"] += keep.sum(dim=1).to(cache["len"].dtype)
+    return cache
+
+
+def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
+              block_tables=None):
+    """x: (B, S, D). ``cache`` is a paged ``{"kp", "vp", "len"}`` pool (then
+    ``block_tables`` (B, n_blocks) is required) or None (self-attention
+    over x). Returns (y, cache); a paged cache is updated in place."""
+    B, S, _ = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = api.linear(x, p["wq"]).reshape(B, S, H, dh)
+    k = api.linear(x, p["wk"]).reshape(B, S, Hkv, dh)
+    v = api.linear(x, p["wv"]).reshape(B, S, Hkv, dh)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        kv_k, kv_v, bt = k, v, None
+        kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    else:
+        if "kp" not in cache:
+            raise NotImplementedError(
+                "only the paged KV cache is ported; contiguous caches are "
+                "still to do (ROADMAP.md)")
+        if block_tables is None:
+            raise ValueError("paged KV cache requires block_tables")
+        cache = _paged_cache_update(cache, k, v, positions, block_tables)
+        kv_k, kv_v, kv_valid, bt = (cache["kp"], cache["vp"], cache["len"],
+                                    block_tables)
+    out = api.attention(q, kv_k, kv_v, q_positions=positions,
+                        kv_valid_len=kv_valid, causal=cfg.causal,
+                        scale=1.0 / math.sqrt(dh), block_tables=bt)
+    return api.linear(out.reshape(B, S, H * dh), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, cfg: ModelConfig, dtype, device):
+    return {"wi": dense_init(gen, cfg.d_model, 2 * cfg.d_ff, dtype, device),
+            "wo": dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device)}
+
+
+def mlp(p, cfg: ModelConfig, x):
+    gate, up = api.linear(x, p["wi"]).chunk(2, dim=-1)
+    return api.linear(torch.nn.functional.silu(gate) * up, p["wo"])
