@@ -6,26 +6,46 @@
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit. Phases, each fatal on failure:
 
-1. build   — compile csrc/matrixflow_gemm.cu and csrc/paged_attention.cu
-             with nvcc for sm_90a, both at once.
+1. build   — compile csrc/matrixflow_gemm.cu, csrc/paged_attention.cu and
+             csrc/flash_attention.cu with nvcc for sm_90a, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes (full-width smollm-135m: every
-             projection at M = batch_slots and M = slots x prompt bucket,
-             bf16 and fp32; paged attention at H=9, Hkv=3, D=64, page 16,
-             decode and a bucketed prefill over shuffled block tables).
-             Times the kernel, the plain version and one PyTorch call for
-             the same function (torch.matmul; SDPA over gathered pages).
+             the main paths' shapes, bf16 and fp32 (TF32 off): the
+             MatrixFlow GEMM at every full-width smollm-135m projection
+             (M = batch_slots and M = slots x prompt bucket) and every
+             bert-base / vit-base projection (M = 8 x 128, 8 x 197); paged
+             attention at H=9, Hkv=3, D=64, page 16, decode and a bucketed
+             prefill over shuffled block tables; flash attention at the
+             encoders' shapes (bert-base S 128, vit-base S 197, vit-huge S
+             257 at D 80) and smollm's contiguous decode, prefill bucket,
+             chunked-prefill offset and bottom-right default. Times the
+             kernel, the plain version and one PyTorch call for the same
+             function (torch.matmul; SDPA) after an L2 flush.
 3. serving — full-width smollm-135m in bf16 from seeded random weights,
-             served through ServingEngine.submit/step: more requests than
-             slots, a pool small enough to preempt. Both kernels' launch
-             counters must grow and every request must complete. Then one
-             batched generate() on the same engine.
+             served through the paged engine's submit/step: more requests
+             than slots, a pool small enough to preempt. Both kernels'
+             launch counters must grow and every request must complete.
+             Then one batched generate() on the same engine.
 4. parity  — full width in fp32: the kernel path on the card against the
              plain path (the same code on the CPU, where every wrapper runs
              its plain version): prefill and first-decode logits within
              LOGIT_TOL, greedy streams equal or first diverging where the
              plain path's top-2 margin is below LOGIT_TOL.
+5. encoders — full-width bert-base (B 8 x S 128 tokens) and vit-base (B 8 x
+             197 stub patch embeddings, head 1000) in bf16 through
+             encoder_forward under the default policies: the MatrixFlow GEMM
+             and flash attention must both launch; logits finite. Then
+             bert-base in fp32, kernel path on the card against the plain
+             path on the CPU, logits within LOGIT_TOL.
+6. contiguous serving — full-width smollm-135m served from contiguous KV
+             caches (AttentionPolicy("fused")): 12 requests through
+             submit/step in bf16, all complete, the GEMM and flash kernels
+             launched; then generate(). In fp32 the same prompts' greedy
+             streams equal the paged engine's on the card and the CPU plain
+             path's, or first diverge where the plain top-2 margin is below
+             LOGIT_TOL.
 
+Every kernel counter is set to 0 just before each path (3, 5, 6) is driven
+and read just after; a kernel of the path that never launched fails it.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -58,7 +78,7 @@ LOGIT_TOL = 1e-3
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# The main path: full-width smollm-135m serving.
+# The serving paths: full-width smollm-135m.
 ARCH = "smollm-135m"
 SLOTS = 8
 MAX_LEN = 256
@@ -67,6 +87,11 @@ PROMPT_BUCKET = 64           # prompts of 16..64 tokens → a 64-column bucket
 N_REQUESTS = 12
 GEN_LEN = 32
 CACHE_PAGES = 24             # < 8 slots x 6 pages: decode growth preempts
+# The encoder path: the paper's models at full published width.
+ENC_BATCH = 8
+BERT_SEQ = 128
+VIT_SEQ = 197                # 196 patches + the class token
+PARITY_BATCH = 2             # bert-base fp32, card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -120,6 +145,31 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernel_wrappers():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matrixflow_gemm as MF
+    from repro_torch.kernels import paged_attention as PA
+    return {"matrixflow_gemm": MF.matrixflow_gemm_block_major,
+            "paged_attention": PA.paged_attention,
+            "flash_attention": FA.flash_attention}
+
+
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts(path: str, required) -> dict:
+    """The launch counts since reset_counts(); fails if a kernel of the
+    path never launched."""
+    counts = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    for name in required:
+        if counts[name] <= 0:
+            fail(f"{path}: kernel {name} was never launched")
+    return counts
+
+
 def check_close(name, got, want, atol, rtol):
     got, want = got.float(), want.float()
     err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -135,20 +185,30 @@ def check_close(name, got, want, atol, rtol):
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def gemm_cells(cfg):
-    """(name, M, K, N, uses per decode step) of every projection."""
+def gemm_cells(cfg, bert, vit):
+    """(name, M, K, N, path, uses per run of the path) of every projection
+    of the serving paths (smollm-135m) and the encoder paths."""
     d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab
     qd, kvd, L = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, cfg.n_layers
     layer = [("q/o", d, qd, 2 * L), ("k/v", d, kvd, 2 * L),
              ("mlp-in", d, 2 * f, L), ("mlp-out", f, d, L)]
-    cells = [(f"decode {n}", SLOTS, K, N, c) for n, K, N, c in layer]
-    cells.append(("head", SLOTS, d, V, 1))   # prefill reads last columns too
-    cells += [(f"prefill {n}", SLOTS * PROMPT_BUCKET, K, N, 0)
-              for n, K, N, _ in layer]
+    cells = [(f"decode {n}", SLOTS, K, N, "decode step", c)
+             for n, K, N, c in layer]
+    # prefill reads last columns only: the head runs at M = SLOTS too
+    cells.append(("head", SLOTS, d, V, "decode step", 1))
+    cells += [(f"prefill {n}", SLOTS * PROMPT_BUCKET, K, N, "prefill", c)
+              for n, K, N, c in layer]
+    for ecfg, M in ((bert, ENC_BATCH * BERT_SEQ),
+                    (vit, ENC_BATCH * VIT_SEQ)):
+        d, f, L = ecfg.d_model, ecfg.d_ff, ecfg.n_layers
+        path = f"{ecfg.name} forward"
+        cells += [(f"{ecfg.name} {n}", M, K, N, path, c) for n, K, N, c in
+                  (("q/k/v/o", d, d, 4 * L), ("mlp-in", d, f, L),
+                   ("mlp-out", f, d, L), ("head", d, ecfg.vocab, 1))]
     return cells
 
 
-def run_gemm_phase(timer, cfg):
+def run_gemm_phase(timer, cfg, bert, vit):
     from repro_torch.core import layout as L
     from repro_torch.core.plan import GemmPolicy, layout_for_packed, pack_weight
     from repro_torch.kernels import matrixflow_gemm as MF
@@ -158,7 +218,7 @@ def run_gemm_phase(timer, cfg):
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         atol, rtol = GEMM_TOLS[dtype_name]
-        for name, M, K, N, per_step in gemm_cells(cfg):
+        for name, M, K, N, path, uses in gemm_cells(cfg, bert, vit):
             a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
             w = (torch.randn((K, N), generator=gen, device="cuda")
                  / K ** 0.5).to(dt)
@@ -178,7 +238,7 @@ def run_gemm_phase(timer, cfg):
             b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, M=M, K=K, N=N,
                              block=[blk.bm, blk.bn, blk.bk],
-                             per_decode_step=per_step, max_abs_err=err,
+                             path=path, uses=uses, max_abs_err=err,
                              ms=t_k, plain_ms=t_p, library_ms=t_lib,
                              bound_ms=b_ms, bound_by=b_by))
             log(f"{cell}: blocks {blk.bm}x{blk.bn}x{blk.bk} max|d|={err:.2e} "
@@ -220,10 +280,10 @@ def run_attention_phase(timer, cfg):
         dec_lens = rng.integers(17, MAX_LEN, SLOTS).tolist()
         pf_lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS).tolist()
         cases = [
-            ("decode", 1, dec_lens, [n - 1 for n in dec_lens], cfg.n_layers),
-            ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, 0),
+            ("decode", 1, dec_lens, [n - 1 for n in dec_lens], "decode step"),
+            ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, "prefill"),
         ]
-        for name, Sq, lens, q_start, per_step in cases:
+        for name, Sq, lens, q_start, path in cases:
             q, kp, vp, bt, qpos, kvl = paged_case(
                 gen, dt, B=SLOTS, Sq=Sq, lens=lens, q_start=q_start,
                 H=H, Hkv=Hkv, D=D, ps=PAGE, nb=nb)
@@ -262,9 +322,119 @@ def run_attention_phase(timer, cfg):
             flops = float(vis.sum()) * H * 4 * D
             b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
-                             per_decode_step=per_step, max_abs_err=err,
+                             path=path, uses=cfg.n_layers, max_abs_err=err,
                              ms=t_k, plain_ms=t_p, library_ms=t_lib,
                              bound_ms=b_ms, bound_by=b_by))
+            log(f"{cell}: max|d|={err:.2e} kernel {t_k:.4f} ms plain "
+                f"{t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+def flash_cells(cfg, bert, vit, vit_huge, rng):
+    """(name, B, Sq, Sk, H, Hkv, D, causal, q_positions, kv_valid_len,
+    path, uses per run) at the encoder paths' and the contiguous serving
+    path's shapes. q_positions / kv_valid_len are numpy arrays or None (the
+    wrapper's bottom-right default / Sk)."""
+    H, Hkv, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    cells = [(e.name, ENC_BATCH, S, S, e.n_heads, e.n_kv_heads, e.head_dim,
+              False, None, None, f"{e.name} forward", e.n_layers)
+             for e, S in ((bert, BERT_SEQ), (vit, VIT_SEQ),
+                          (vit_huge, 257))]
+    # contiguous decode: ragged lengths, one masked row (position -1)
+    lens = rng.integers(17, MAX_LEN + 1, SLOTS)
+    lens[3] = 0
+    qpos = (lens - 1)[:, None].astype(np.int32)
+    cells.append(("smollm decode", SLOTS, 1, MAX_LEN, H, Hkv, D, True, qpos,
+                  lens.astype(np.int32), "decode step", L))
+    # the engine's single-slot prefill: one real row of a 64-column bucket,
+    # 40 real columns, every other row masked
+    qpos = np.full((SLOTS, PROMPT_BUCKET), -1, np.int32)
+    qpos[0, :40] = np.arange(40)
+    lens = np.zeros(SLOTS, np.int32)
+    lens[0] = 40
+    cells.append(("smollm prefill bucket", SLOTS, PROMPT_BUCKET, MAX_LEN, H,
+                  Hkv, D, True, qpos, lens, "prefill", L))
+    # chunked prefill: 32-column chunks continuing ragged caches
+    starts = rng.integers(0, MAX_LEN - 32, SLOTS)
+    qpos = (starts[:, None] + np.arange(32)).astype(np.int32)
+    cells.append(("chunked prefill offset", SLOTS, 32, MAX_LEN, H, Hkv, D,
+                  True, qpos, (starts + 32).astype(np.int32), "chunk", L))
+    cells.append(("bottom-right default", SLOTS, PROMPT_BUCKET, MAX_LEN, H,
+                  Hkv, D, True, None, None, "default", L))
+    return cells
+
+
+def run_flash_phase(timer, cells):
+    from repro_torch.kernels import flash_attention as FA
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        atol, rtol = ATTN_TOLS[dtype_name]
+        for (name, B, Sq, Sk, H, Hkv, D, causal, qpos_np, kvl_np, path,
+             uses) in cells:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                       for shape in ((B, Sq, H, D), (B, Sk, Hkv, D),
+                                     (B, Sk, Hkv, D)))
+            qpos = None if qpos_np is None else torch.from_numpy(qpos_np).cuda()
+            kvl = None if kvl_np is None else torch.from_numpy(kvl_np).cuda()
+            got = FA.flash_attention(q, k, v, qpos, kvl, causal=causal)
+            qpos_r = qpos if qpos is not None else (
+                torch.arange(Sq, device="cuda") + (Sk - Sq)).expand(
+                    B, Sq).to(torch.int32)
+            kvl_r = kvl if kvl is not None else torch.full(
+                (B,), Sk, dtype=torch.int32, device="cuda")
+            scale = D ** -0.5
+            want = FA.flash_attention_plain(q, k, v, qpos_r, kvl_r,
+                                            causal=causal, scale=scale,
+                                            soft_cap=None)
+            torch.cuda.synchronize()
+            cell = (f"flash_attention {name} B={B} Sq={Sq} Sk={Sk} H={H} "
+                    f"Hkv={Hkv} D={D} {dtype_name}")
+            err = check_close(cell, got, want, atol, rtol)
+            masked = qpos_r < 0
+            if causal and bool(masked.any()) \
+                    and float(got[masked].abs().max()) != 0.0:
+                fail(f"{cell}: masked query rows are not exactly zero")
+            # SDPA on (B, H, S, D) copies with K/V repeated per query head
+            # and the same visibility as a boolean mask (copies not timed)
+            rep = H // Hkv
+            qs = q.transpose(1, 2).contiguous()
+            ks, vs = (x.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+                      for x in (k, v))
+            cols = torch.arange(Sk, device="cuda")
+            vis = cols[None, None, :] < kvl_r[:, None, None]
+            if causal:
+                vis = vis & (cols[None, None, :] <= qpos_r[:, :, None])
+            mask = None if bool(vis.all()) else vis[:, None]
+            t_k = timer.ms(lambda: FA.flash_attention(q, k, v, qpos, kvl,
+                                                      causal=causal))
+            t_p = timer.ms(lambda: FA.flash_attention_plain(
+                q, k, v, qpos_r, kvl_r, causal=causal, scale=scale,
+                soft_cap=None))
+            t_lib = timer.ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
+            # what this run's data needs: each row's visible keys of K and V
+            # once per kv head, q and the output once; 4·D FLOPs per
+            # visible (query, head, key)
+            horizon = kvl_r.clamp(min=0)
+            if causal:
+                horizon = torch.minimum(horizon, qpos_r.max(dim=1).values + 1)
+            horizon = horizon.clamp(min=0)
+            nbytes = (2 * int(horizon.sum()) * Hkv * D + 2 * q.numel()) \
+                * dt.itemsize + 4 * (qpos_r.numel() + kvl_r.numel())
+            flops = 4.0 * D * H * float(vis.sum())
+            b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
+            rows.append(dict(cell=cell, dtype=dtype_name, path=path,
+                             uses=uses, max_abs_err=err, ms=t_k,
+                             plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
+                             bound_by=b_by))
             log(f"{cell}: max|d|={err:.2e} kernel {t_k:.4f} ms plain "
                 f"{t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
                 f"({b_by})")
@@ -275,10 +445,50 @@ def run_attention_phase(timer, cfg):
 # Phase 3: serving
 # ---------------------------------------------------------------------------
 
+def serve_requests(eng, prompts, limit_s):
+    """Drive submit/step until every prompt has GEN_LEN tokens, cancelling
+    each as it gets there. Handles are slot ids (contiguous) or request ids
+    (paged); the streams are returned in prompt order."""
+    pending, owner, streams = list(enumerate(prompts)), {}, {}
+    decode_deltas, n_tokens = [], 0
+    t0 = time.perf_counter()
+    while pending or eng.slot_live.any() or eng.wait:
+        while pending:
+            h = eng.submit(pending[0][1])
+            if h is None:
+                break
+            owner[h] = pending.pop(0)[0]
+            streams[owner[h]] = []
+        before = ({k: fn.launches for k, fn in kernel_wrappers().items()},
+                  eng.prefill_tokens)
+        out = eng.step()
+        if eng.prefill_tokens == before[1] and not eng.wait and out:
+            decode_deltas.append(tuple(
+                fn.launches - before[0][k]
+                for k, fn in kernel_wrappers().items()))
+        n_tokens += len(out)
+        for h, t in out.items():
+            streams[owner[h]].append(t)
+            if len(streams[owner[h]]) >= GEN_LEN:
+                eng.cancel(h)
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"serving did not finish within {limit_s} s")
+    got = [streams.get(i, []) for i in range(len(prompts))]
+    per_step = dict(zip(kernel_wrappers(), max(
+        set(decode_deltas), key=decode_deltas.count))) if decode_deltas \
+        else None
+    return got, n_tokens, per_step
+
+
+def check_streams(path, streams, vocab):
+    for i, toks in enumerate(streams):
+        if len(toks) < GEN_LEN or min(toks) < 0 or max(toks) >= vocab:
+            fail(f"{path}: request {i} incomplete or malformed: {toks}")
+
+
 def run_serving_phase(cfg):
     from repro_torch.core.plan import AttentionPolicy
     from repro_torch.kernels import matrixflow_gemm as MF
-    from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeConfig, ServingEngine
 
@@ -289,50 +499,19 @@ def run_serving_phase(cfg):
                      cache_pages=CACHE_PAGES, device="cuda")
     eng = ServingEngine(cfg, params, sc)
     rng = np.random.default_rng(2)
-    pending = [rng.integers(0, cfg.vocab, int(n)).tolist()
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(16, PROMPT_BUCKET + 1, N_REQUESTS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MF.matrixflow_gemm_block_major.launches = 0
-    PA.paged_attention.launches = 0
-    done, n_tokens, decode_deltas = {}, 0, []
+    reset_counts()
     t0 = time.perf_counter()
-    while pending or eng.slot_live.any() or eng.wait:
-        while pending:
-            rid = eng.submit(pending[0])
-            if rid is None:
-                break
-            pending.pop(0)
-        before = (MF.matrixflow_gemm_block_major.launches,
-                  PA.paged_attention.launches, eng.prefill_tokens)
-        out = eng.step()
-        if eng.prefill_tokens == before[2] and not eng.wait and out:
-            decode_deltas.append(
-                (MF.matrixflow_gemm_block_major.launches - before[0],
-                 PA.paged_attention.launches - before[1]))
-        n_tokens += len(out)
-        for rid in list(out):
-            if len(eng.request_out[rid]) >= GEN_LEN:
-                done[rid] = list(eng.request_out[rid])
-                eng.cancel(rid)
-        if time.perf_counter() - t0 > 300:
-            fail("serving phase did not finish within 300 s")
+    streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"matrixflow_gemm": MF.matrixflow_gemm_block_major.launches,
-                "paged_attention": PA.paged_attention.launches}
-    if len(done) != N_REQUESTS:
-        fail(f"serving: {len(done)} of {N_REQUESTS} requests completed")
+    launches = read_counts("serving", ("matrixflow_gemm", "paged_attention"))
+    check_streams("serving", streams, cfg.vocab)
     if eng.n_preemptions < 1:
         fail("serving: the pool never ran dry (no preemption)")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"serving: kernel {name} was never launched")
-    for rid, toks in done.items():
-        if len(toks) < GEN_LEN or min(toks) < 0 or max(toks) >= cfg.vocab:
-            fail(f"serving: request {rid} stream malformed: {toks}")
-    per_step = max(set(decode_deltas), key=decode_deltas.count) \
-        if decode_deltas else (None, None)
     # the batched entry point on the same engine: one 16-token prompt per
     # slot, whose 48-token horizons fill the 24-page pool exactly
     prompts = rng.integers(0, cfg.vocab, (SLOTS, 16))
@@ -349,8 +528,7 @@ def run_serving_phase(cfg):
                tokens_per_s=n_tokens / dt,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                preemptions=eng.n_preemptions, launches=launches,
-               launches_per_decode_step={"matrixflow_gemm": per_step[0],
-                                         "paged_attention": per_step[1]},
+               launches_per_decode_step=per_step,
                generate_tokens_per_s=SLOTS * GEN_LEN / gen_s,
                stats=eng.stats())
     log(f"serving: {N_REQUESTS} requests x {GEN_LEN} tokens, {n_tokens} "
@@ -434,12 +612,180 @@ def run_parity_phase(cfg):
     return res
 
 
-def aggregate(rows, dtype):
-    """Per decode step: each decode cell weighted by its uses per step."""
-    sel = [r for r in rows if r["dtype"] == dtype and r["per_decode_step"]]
-    tot = {k: sum(r[k] * r["per_decode_step"] for r in sel)
+# ---------------------------------------------------------------------------
+# Phase 5: the BERT/ViT encoders
+# ---------------------------------------------------------------------------
+
+def encoder_batch(ecfg, B, S, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if ecfg.family == "vit":      # stub patch embeddings, as the reference
+        return {"embeds": torch.randn((B, S, ecfg.d_model), generator=gen)
+                .to(device=device, dtype=dtype)}
+    return {"tokens": torch.randint(0, ecfg.vocab, (B, S), generator=gen)
+            .to(device)}
+
+
+def run_encoder_phase(bert, vit):
+    from repro_torch.core.api import pack_model_weights
+    from repro_torch.models import transformer as T
+
+    res = {}
+    for ecfg, S in ((bert, BERT_SEQ), (vit, VIT_SEQ)):
+        params = pack_model_weights(T.init_model(ecfg, seed=5, device="cuda"))
+        batch = encoder_batch(ecfg, ENC_BATCH, S, ecfg.param_dtype, "cuda", 5)
+        with torch.no_grad():
+            T.encoder_forward(params, ecfg, batch)       # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            logits = T.encoder_forward(params, ecfg, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts(f"encoder {ecfg.name}",
+                             ("matrixflow_gemm", "flash_attention"))
+        if tuple(logits.shape) != (ENC_BATCH, S, ecfg.vocab) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"encoder {ecfg.name}: logits {tuple(logits.shape)} "
+                 f"malformed or not finite")
+        res[ecfg.name] = dict(batch=ENC_BATCH, seq=S, dtype=ecfg.dtype,
+                              forward_wall_ms=wall_ms, launches=counts)
+        log(f"encoder {ecfg.name} {ecfg.dtype} B={ENC_BATCH} S={S}: forward "
+            f"{wall_ms:.3f} ms (host clock), launches {counts}")
+    # fp32 parity: the kernel path on the card against the plain path on
+    # the CPU, the same seeded weights
+    cfg32 = dataclasses.replace(bert, dtype="float32")
+    batch = encoder_batch(cfg32, PARITY_BATCH, BERT_SEQ, torch.float32,
+                          "cpu", 6)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = {}
+        for device in ("cuda", "cpu"):
+            params = pack_model_weights(T.init_model(cfg32, seed=6,
+                                                     device=device))
+            out[device] = T.encoder_forward(
+                params, cfg32, {k: v.to(device) for k, v in batch.items()}
+            ).cpu()
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    if not np.isfinite(err) or err > LOGIT_TOL:
+        fail(f"encoder parity: bert-base fp32 logits max |kernel - plain| = "
+             f"{err:.3e} > {LOGIT_TOL}")
+    res["parity"] = dict(arch=bert.name, batch=PARITY_BATCH, seq=BERT_SEQ,
+                         logit_max_abs_err=err,
+                         seconds=time.perf_counter() - t0)
+    log(f"encoder parity bert-base fp32 B={PARITY_BATCH} S={BERT_SEQ}: "
+        f"logits max|d| {err:.2e} (tolerance {LOGIT_TOL})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: serving from contiguous KV caches
+# ---------------------------------------------------------------------------
+
+def first_divergence(cfg32, params_cpu, prompt, a, b):
+    """None if streams a and b agree; else the step where they first
+    differ, failing unless the plain path's top-2 logit margin there is
+    below LOGIT_TOL (a near-tie that fp32 summation order may flip)."""
+    from repro_torch.models import transformer as T
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x == y:
+            continue
+        toks = torch.tensor([prompt + a[:i]])
+        with torch.no_grad():
+            logits, _ = T.forward(params_cpu, cfg32, {"tokens": toks})
+        top2 = logits[0, -1].float().topk(2).values
+        margin = float(top2[0] - top2[1])
+        if margin >= LOGIT_TOL:
+            fail(f"contiguous serving fp32: streams diverge at step {i} with "
+                 f"plain top-2 margin {margin:.3e} >= {LOGIT_TOL}")
+        return dict(step=i, margin=margin)
+    if len(a) != len(b):
+        fail(f"contiguous serving fp32: stream lengths {len(a)} != {len(b)}")
+    return None
+
+
+def run_contiguous_phase(cfg):
+    from repro_torch.core.api import pack_model_weights
+    from repro_torch.core.plan import FUSED, AttentionPolicy
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, PROMPT_BUCKET + 1, N_REQUESTS)]
+    eng = ServingEngine(cfg, T.init_model(cfg, seed=0, device="cuda"),
+                        ServeConfig(batch_slots=SLOTS, max_len=MAX_LEN,
+                                    cache_dtype=cfg.dtype, pack_weights=True,
+                                    attention=FUSED, device="cuda"))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts("contiguous serving",
+                           ("matrixflow_gemm", "flash_attention"))
+    check_streams("contiguous serving", streams, cfg.vocab)
+    gen_prompts = rng.integers(0, cfg.vocab, (SLOTS, 16))
+    reset_counts()
+    t1 = time.perf_counter()
+    gen_out = eng.generate(gen_prompts, GEN_LEN)
+    gen_s = time.perf_counter() - t1
+    gen_launches = read_counts("contiguous generate",
+                               ("matrixflow_gemm", "flash_attention"))
+    if gen_out.shape != (SLOTS, GEN_LEN) or gen_out.min() < 0 \
+            or gen_out.max() >= cfg.vocab:
+        fail(f"contiguous generate: malformed output {gen_out.shape}")
+    res = dict(requests=N_REQUESTS, tokens=n_tokens, seconds=dt,
+               tokens_per_s=n_tokens / dt, launches=launches,
+               launches_per_decode_step=per_step,
+               generate_tokens_per_s=SLOTS * GEN_LEN / gen_s,
+               generate_launches=gen_launches, stats=eng.stats())
+    log(f"contiguous serving: {N_REQUESTS} requests x {GEN_LEN} tokens, "
+        f"{n_tokens} tokens in {dt:.3f} s ({res['tokens_per_s']:.1f} tok/s), "
+        f"launches {launches}, per decode step {per_step}; generate() "
+        f"{SLOTS}x{GEN_LEN} tokens in {gen_s:.3f} s")
+    del eng
+
+    # fp32: the same prompts through the contiguous engine on the card, the
+    # paged engine on the card and the contiguous engine on the CPU (plain
+    # versions); greedy streams must agree
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.init_model(cfg32, seed=8, device="cpu")
+    runs = {}
+    t0 = time.perf_counter()
+    for name, device, attn in (
+            ("fused card", "cuda", FUSED),
+            ("paged card", "cuda", AttentionPolicy("paged", PAGE)),
+            ("fused cpu plain", "cpu", FUSED)):
+        e = ServingEngine(cfg32, params32, ServeConfig(
+            batch_slots=SLOTS, max_len=MAX_LEN, cache_dtype="float32",
+            pack_weights=True, attention=attn, device=device))
+        runs[name] = serve_requests(e, prompts, 600)[0]
+        del e
+    params_cpu = pack_model_weights(params32)
+    ties = {}
+    for other in ("paged card", "fused cpu plain"):
+        for i, p in enumerate(prompts):
+            d = first_divergence(cfg32, params_cpu, p, runs["fused card"][i],
+                                 runs[other][i])
+            if d is not None:
+                ties[f"{other} request {i}"] = d
+    res["fp32_streams"] = dict(equal=not ties, near_ties=ties,
+                               seconds=time.perf_counter() - t0)
+    log(f"contiguous serving fp32: streams of {N_REQUESTS} requests "
+        f"{'equal' if not ties else f'equal up to near-ties {ties}'} across "
+        f"fused card / paged card / CPU plain")
+    return res
+
+
+def aggregate(rows, dtype, path="decode step"):
+    """Per run of ``path`` (a decode step, an encoder forward): each of its
+    cells weighted by its uses per run."""
+    sel = [r for r in rows if r["dtype"] == dtype and r["path"] == path]
+    tot = {k: sum(r[k] * r["uses"] for r in sel)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by = sum(r["per_decode_step"] * r["bound_ms"] for r in sel
+    by = sum(r["uses"] * r["bound_ms"] for r in sel
              if r["bound_by"] == "bytes")
     tot["bound_by"] = "bytes" if by >= tot["bound_ms"] / 2 else "operations"
     tot["max_abs_err"] = max(r["max_abs_err"] for r in rows
@@ -477,25 +823,42 @@ def main() -> None:
     log(f"build: {sorted(build_logs) or 'cached'} in {report['build_s']:.1f} s")
 
     cfg = get_config(ARCH)
+    bert, vit = get_config("bert-base"), get_config("vit-base")
     timer = Timer()
-    report["gemm"] = run_gemm_phase(timer, cfg)
+    report["gemm"] = run_gemm_phase(timer, cfg, bert, vit)
     report["attention"] = run_attention_phase(timer, cfg)
+    report["flash"] = run_flash_phase(timer, flash_cells(
+        cfg, bert, vit, get_config("vit-huge"), np.random.default_rng(3)))
     report["serving"] = run_serving_phase(cfg)
     report["parity"] = run_parity_phase(cfg)
+    report["encoders"] = run_encoder_phase(bert, vit)
+    report["contiguous"] = run_contiguous_phase(cfg)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    launches = report["serving"]["launches"]
-    g, a = aggregate(report["gemm"], cfg.dtype), \
-        aggregate(report["attention"], cfg.dtype)
+    by_path = {"paged serving": report["serving"]["launches"],
+               **{f"{n} forward": report["encoders"][n]["launches"]
+                  for n in (bert.name, vit.name)},
+               "contiguous serving": report["contiguous"]["launches"]}
+
+    def entry(name, replaces, rows, path, other_paths):
+        launches = {p: c[name] for p, c in by_path.items() if c[name]}
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches, "times_per": path,
+                **aggregate(rows, "bfloat16", path),
+                "other_runs": {p: aggregate(rows, "bfloat16", p)
+                               for p in other_paths}}
+
     kernels = [
-        {"name": "matrixflow_gemm", "route": "cuda",
-         "source": "src/repro_torch/csrc/matrixflow_gemm.cu",
-         "replaces": "src/repro/kernels/matrixflow_gemm.py:137",
-         "launches": launches["matrixflow_gemm"], **g},
-        {"name": "paged_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:188",
-         "launches": launches["paged_attention"], **a},
+        entry("matrixflow_gemm", "src/repro/kernels/matrixflow_gemm.py:137",
+              report["gemm"], "decode step",
+              (f"{bert.name} forward", f"{vit.name} forward")),
+        entry("paged_attention", "src/repro/kernels/paged_attention.py:188",
+              report["attention"], "decode step", ()),
+        entry("flash_attention", "src/repro/kernels/flash_attention.py:199",
+              report["flash"], f"{bert.name} forward",
+              (f"{vit.name} forward", "decode step")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

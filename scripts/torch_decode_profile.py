@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Where a decode step of the PyTorch/CUDA port spends its time, on one GPU.
+"""Where a decode step — or an encoder forward — of the PyTorch/CUDA port
+spends its time, on one GPU.
 
     PYTHONPATH=src python3 scripts/torch_decode_profile.py [--steps 20]
+        [--attn-backend paged|fused]
+    PYTHONPATH=src python3 scripts/torch_decode_profile.py --encoder bert-base
 
-Serves full-width smollm-135m (bf16, seeded random weights, resident
-block-major weights, paged KV with page 16) through ServingEngine with
-every slot decoding, then:
+Decode (the default): serves full-width smollm-135m (bf16, seeded random
+weights, resident block-major weights; paged KV with page 16, or
+contiguous KV caches under ``--attn-backend fused``) through ServingEngine
+with every slot decoding. ``--encoder ARCH`` instead runs full-width
+``encoder_forward`` of bert-base (B 8 x S 128 tokens) or vit-base (B 8 x
+197 stub patch embeddings), bf16, default policies. Then:
 
-* times ``--steps`` decode-only ``step()`` calls on the host clock, each
-  ending in the sampled ids' copy to the host (a device sync);
-* profiles 5 more steps with torch.profiler and sums device time by kernel:
-  the MatrixFlow GEMM, the paged attention kernel, and everything else
-  (PyTorch's elementwise, copy and index kernels). Device busy time over
-  wall time gives the device's idle share.
+* times ``--steps`` decode-only ``step()`` calls (or forwards) on the host
+  clock, each ending in a device sync;
+* profiles 5 more with torch.profiler and sums device time by kernel: the
+  MatrixFlow GEMM, the paged and flash attention kernels, and everything
+  else (PyTorch's elementwise, copy and index kernels). Device busy time
+  over wall time gives the device's idle share.
 
-Writes chiprun_out/torch_decode_profile.json and prints one line per
-number, with the card's name and power limit first. Fails without a GPU.
+Writes chiprun_out/torch_decode_profile[_<arch>].json and prints one line
+per number, with the card's name and power limit first. Fails without a
+GPU.
 """
 from __future__ import annotations
 
@@ -38,12 +45,18 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--attn-backend", default="paged",
+                    choices=["paged", "fused"])
+    ap.add_argument("--encoder", default=None,
+                    choices=["bert-base", "vit-base"],
+                    help="profile encoder_forward instead of decode")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import pack_model_weights
     from repro_torch.core.plan import AttentionPolicy
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeConfig, ServingEngine
@@ -52,21 +65,43 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(card)
-    cfg = get_config("smollm-135m")
-    eng = ServingEngine(cfg, T.init_model(cfg, seed=0, device="cuda"),
-                        ServeConfig(batch_slots=args.slots, max_len=256,
-                                    cache_dtype=cfg.dtype, pack_weights=True,
-                                    attention=AttentionPolicy("paged", 16),
-                                    device="cuda"))
     rng = np.random.default_rng(0)
-    for _ in range(args.slots):
-        eng.submit(rng.integers(0, cfg.vocab, args.prompt_len).tolist())
+    if args.encoder:
+        cfg = get_config(args.encoder)
+        params = pack_model_weights(T.init_model(cfg, seed=0, device="cuda"))
+        B, S = 8, (128 if cfg.family == "bert" else 197)
+        batch = ({"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (B, S))).cuda()}
+            if cfg.family == "bert" else
+            {"embeds": torch.from_numpy(rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32)).to(
+                    "cuda", cfg.param_dtype)})
+        what = f"{cfg.name} encoder_forward, B {B} x S {S}, {cfg.dtype}"
+
+        def step():
+            with torch.no_grad():
+                T.encoder_forward(params, cfg, batch)
+            torch.cuda.synchronize()
+    else:
+        cfg = get_config("smollm-135m")
+        eng = ServingEngine(cfg, T.init_model(cfg, seed=0, device="cuda"),
+                            ServeConfig(
+                                batch_slots=args.slots, max_len=256,
+                                cache_dtype=cfg.dtype, pack_weights=True,
+                                attention=AttentionPolicy(args.attn_backend,
+                                                          16),
+                                device="cuda"))
+        for _ in range(args.slots):
+            eng.submit(rng.integers(0, cfg.vocab, args.prompt_len).tolist())
+        what = (f"smollm-135m decode step, {args.slots} slots, "
+                f"{args.attn_backend} attention")
+        step = eng.step
     for _ in range(3):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
 
@@ -75,7 +110,7 @@ def main(argv=None) -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n_prof):
-            eng.step()
+            step()
         torch.cuda.synchronize()
     by_kind = defaultdict(float)
     n_kernels = defaultdict(int)
@@ -84,23 +119,28 @@ def main(argv=None) -> int:
             continue
         kind = ("matrixflow_gemm" if "mf_gemm_kernel" in e.name else
                 "paged_attention" if "paged_attn_kernel" in e.name else
+                "flash_attention" if "flash_attn_kernel" in e.name else
                 "other")
         by_kind[kind] += e.time_range.elapsed_us() / 1e3 / n_prof
         n_kernels[kind] += 1
     busy_ms = sum(by_kind.values())
-    res = {"card": card, "torch": torch.__version__, "slots": args.slots,
-           "context": f"{args.prompt_len}+ tokens per slot",
-           "step_ms": step_ms,
-           "decode_tokens_per_s": args.slots / step_ms * 1e3,
-           "device_ms_per_step": dict(by_kind),
-           "device_ops_per_step": {k: v / n_prof for k, v in n_kernels.items()},
-           "device_busy_ms_per_step": busy_ms,
-           "device_idle_share": (1 - busy_ms / step_ms) if busy_ms else None}
+    res = {"card": card, "torch": torch.__version__, "what": what,
+           "step_ms": step_ms}
+    if not args.encoder:
+        res.update(context=f"{args.prompt_len}+ tokens per slot",
+                   decode_tokens_per_s=args.slots / step_ms * 1e3)
+    res.update(
+        device_ms_per_step=dict(by_kind),
+        device_ops_per_step={k: v / n_prof for k, v in n_kernels.items()},
+        device_busy_ms_per_step=busy_ms,
+        device_idle_share=(1 - busy_ms / step_ms) if busy_ms else None)
     for k, v in res.items():
         print(f"{k}: {v}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "torch_decode_profile.json").write_text(json.dumps(res, indent=1))
+    name = "torch_decode_profile" + (f"_{args.encoder}" if args.encoder else
+                                     f"_{args.attn_backend}")
+    (out / f"{name}.json").write_text(json.dumps(res, indent=1))
     return 0 if busy_ms > 0 else 1
 
 

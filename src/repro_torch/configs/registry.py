@@ -1,7 +1,7 @@
 """Architecture registry of the port: the configurations its model code
-covers so far (the dense family). Mirrors ``repro/configs/registry.py``;
-the other architectures of the JAX registry are still to be ported
-(ROADMAP.md)."""
+covers so far — the dense family and the paper's BERT/ViT encoders.
+Mirrors ``repro/configs/registry.py``; the other architectures of the JAX
+registry are still to be ported (ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
@@ -16,10 +16,16 @@ ARCHS = {
 
 
 def get_config(arch: str) -> ModelConfig:
+    """A registered architecture, or ``bert-{medium,base,large}`` /
+    ``vit-{base,large,huge}`` (``models/transformer.py``)."""
+    if arch.startswith("bert-") or arch.startswith("vit-"):
+        from repro_torch.models import transformer as T
+        kind, variant = arch.split("-", 1)
+        return (T.bert_config if kind == "bert" else T.vit_config)(variant)
     if arch not in ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ported: "
-            f"{sorted(ARCHS)}); see ROADMAP.md")
+            f"{sorted(ARCHS)}, bert-*, vit-*); see ROADMAP.md")
     return importlib.import_module(ARCHS[arch]).CONFIG
 
 

@@ -39,8 +39,10 @@ def _tree(node, fn):
 
 def from_jax_params(np_tree: Dict, cfg: ModelConfig, *,
                     device: Union[str, torch.device] = "cpu") -> Dict:
-    """The port's params from the JAX params of a dense-family model, as
-    ``jax.tree_util.tree_map(np.asarray, params)`` gives them."""
+    """The port's params from the JAX params of a ported model (the dense
+    family, BERT, ViT), as ``jax.tree_util.tree_map(np.asarray, params)``
+    gives them. Every leaf is carried, the LayerNorm biases and the GELU
+    MLP biases (``bi``, ``bo``) of the encoders included."""
     check_supported(cfg)
     device = resolve_device(device)
     out = {k: _tree(v, lambda a: to_tensor(a, device))

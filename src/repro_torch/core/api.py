@@ -14,10 +14,16 @@ Attention backends (:class:`~repro_torch.core.plan.AttentionPolicy`):
 
   "unfused"     the plain masked softmax over dense K/V (kernels/ref.py::
                 mha_ref); rejects paged caches.
+  "fused"       the offset-aware flash attention CUDA kernel over dense K/V
+                (kernels/flash_attention.py): the cache-less forward and
+                contiguous KV caches; rejects paged caches.
   "paged"       the block-table paged attention CUDA kernel
-                (kernels/paged_attention.py); on CPU tensors its wrapper
-                runs the plain version. Dense operands would need the flash
-                kernel, which is not ported yet.
+                (kernels/paged_attention.py); without a block table the
+                operands are dense and it falls back to the flash kernel
+                (the same contract), so one policy covers a model end to
+                end.
+
+On CPU tensors the kernel wrappers run their plain versions.
 
 Weights that persist across calls are packed block-major once
 (``pack_model_weights``); ``linear``/``matmul`` consume the PackedWeight's
@@ -37,6 +43,7 @@ from repro_torch.core.plan import (  # re-exported: the public policy surface
     AttentionPolicy, ExecutionPlan, GemmPolicy, PackedWeight,
     pack_model_weights, pack_weight, plan, register_attention_backend,
     register_backend)
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matrixflow_gemm as MF
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref, mha_ref
@@ -172,29 +179,40 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
 # Attention backends
 # ---------------------------------------------------------------------------
 
-def _unfused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
-                       soft_cap, block_tables=None):
+def _reject_paged(backend: str, block_tables) -> None:
     if block_tables is not None:
         raise ValueError(
-            "attention backend 'unfused' cannot consume a paged KV cache "
-            "(got a block table); use AttentionPolicy(backend='paged')")
+            f"attention backend {backend!r} cannot consume a paged KV cache "
+            f"(got a block table); use AttentionPolicy(backend='paged')")
+
+
+def _unfused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
+                       soft_cap, block_tables=None):
+    _reject_paged("unfused", block_tables)
     return mha_ref(q, k, v, causal=causal, scale=scale, soft_cap=soft_cap,
                    q_positions=q_positions, kv_valid_len=kv_valid_len)
 
 
+def _fused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
+                     soft_cap, block_tables=None):
+    _reject_paged("fused", block_tables)
+    return FA.flash_attention(q, k, v, q_positions, kv_valid_len,
+                              causal=causal, scale=scale, soft_cap=soft_cap)
+
+
 def _paged_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
                      soft_cap, block_tables=None):
-    if block_tables is None:
-        raise NotImplementedError(
-            "the paged backend on dense operands needs the flash-attention "
-            "kernel (repro/kernels/flash_attention.py), which is not ported "
-            "yet (ROADMAP.md); pass block tables, or use backend='unfused'")
+    if block_tables is None:       # dense operands: the flash kernel
+        return FA.flash_attention(q, k, v, q_positions, kv_valid_len,
+                                  causal=causal, scale=scale,
+                                  soft_cap=soft_cap)
     return PA.paged_attention(q, k, v, block_tables, q_positions,
                               kv_valid_len, causal=causal, scale=scale,
                               soft_cap=soft_cap)
 
 
 register_attention_backend("unfused", _unfused_attention)
+register_attention_backend("fused", _fused_attention)
 register_attention_backend("paged", _paged_attention)
 
 

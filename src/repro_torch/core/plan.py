@@ -25,7 +25,7 @@ from repro_torch.core import layout as L
 
 __all__ = [
     "GemmPolicy", "ExecutionPlan", "PackedWeight", "BackendSpec",
-    "AttentionPolicy", "AttentionBackendSpec",
+    "AttentionPolicy", "AttentionBackendSpec", "FUSED", "UNFUSED", "PAGED",
     "plan", "plan_cache_clear", "register_backend", "get_backend_spec",
     "resolve_backend", "register_attention_backend",
     "get_attention_backend_spec", "resolve_attention_backend",
@@ -67,7 +67,10 @@ class AttentionPolicy:
     """How attention executes.
 
     backend    registry name, or "auto" (``paged`` on a CUDA device,
-               ``unfused`` on the CPU).
+               ``unfused`` on the CPU). ``fused`` is the offset-aware flash
+               kernel over dense K/V (the cache-less forward and contiguous
+               KV caches); ``paged`` reads page pools through block tables
+               and falls back to the flash kernel on dense operands.
     page_size  tokens per KV page for the ``paged`` backend — the paged
                kernel's key-block size. Consumed by
                ``models/transformer.py::init_paged_caches`` and the serving
@@ -83,6 +86,12 @@ class AttentionPolicy:
 
     def resolved_backend(self, device: Device) -> str:
         return resolve_attention_backend(self.backend, device)
+
+
+# Common pinned policies (tests, CLI flags).
+FUSED = AttentionPolicy(backend="fused")
+UNFUSED = AttentionPolicy(backend="unfused")
+PAGED = AttentionPolicy(backend="paged")
 
 
 def resolve_backend(name: str, device: Device) -> str:

@@ -1,9 +1,11 @@
-"""Serving launcher of the port: batched generate plus page-bound
-continuous batching, on the GPU by default (``repro/launch/serve.py``).
+"""Serving launcher of the port: batched generate plus continuous
+batching, on the GPU by default (``repro/launch/serve.py``).
 
 Usage:
   python -m repro_torch.launch.serve --arch smollm-135m \
       --n-requests 8 --prompt-len 16 --gen-len 24 --pack-weights
+  python -m repro_torch.launch.serve --arch smollm-135m \
+      --attn-backend fused          # contiguous KV caches, flash kernel
   python -m repro_torch.launch.serve --arch smollm-135m --smoke \
       --device cpu --max-len 64     # plain versions of the kernels, on CPU
 """
@@ -46,10 +48,19 @@ def main(argv=None):
                     help="paper access mode; auto = per-shape sysmodel pick")
     ap.add_argument("--pack-weights", action="store_true",
                     help="lay weights out block-major once (resident)")
+    ap.add_argument("--attn-backend", default="paged",
+                    choices=["auto", "fused", "paged", "unfused"],
+                    help="paged = page-pool KV cache, page-bound admission "
+                         "and preemption (the paged kernel); fused = "
+                         "contiguous (slots, max_len) KV caches through the "
+                         "flash kernel, slot-bound admission; unfused = the "
+                         "plain masked softmax over contiguous caches; auto "
+                         "= paged on a GPU, unfused on the CPU")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page (the paged kernel's key block)")
+                    help="paged: tokens per KV page (the paged kernel's "
+                         "key block)")
     ap.add_argument("--cache-pages", type=int, default=None,
-                    help="total pages in the KV pool; default = "
+                    help="paged: total pages in the KV pool; default = "
                          "batch_slots * ceil(max_len / page_size). Smaller "
                          "values oversubscribe (page-bound admission + "
                          "preemption)")
@@ -60,7 +71,8 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)
-    attn = AttentionPolicy(backend="paged", page_size=args.page_size)
+    attn = AttentionPolicy(backend=args.attn_backend,
+                           page_size=args.page_size)
     scheduler = (Scheduler(prefill_chunk=args.prefill_chunk)
                  if args.prefill_chunk else None)
     params = T.init_model(cfg, seed=args.seed, device=args.device)
@@ -74,8 +86,8 @@ def main(argv=None):
     dev = engine.device
     print(f"[serve] arch={cfg.name} device={dev} slots={args.batch_slots} "
           f"max_len={args.max_len} gemm={policy.resolved_backend(dev)}/"
-          f"{policy.mode} attn=paged page_size={args.page_size} "
-          f"packed={args.pack_weights}")
+          f"{policy.mode} attn={attn.resolved_backend(dev)} "
+          f"page_size={args.page_size} packed={args.pack_weights}")
     gen = (torch.Generator().manual_seed(args.seed)
            if args.temperature > 0 else None)
 
@@ -93,21 +105,22 @@ def main(argv=None):
     pending = [rng.integers(0, cfg.vocab,
                             rng.integers(lo, args.prompt_len + 1)).tolist()
                for _ in range(args.n_requests)]
-    rids = []
+    streams = {}            # handle (request id, or slot id) → its tokens
     done_tokens = 0
     t0 = time.perf_counter()
     while pending or engine.slot_live.any() or engine.wait:
         while pending:
-            rid = engine.submit(pending[0], generator=gen)
-            if rid is None:
+            handle = engine.submit(pending[0], generator=gen)
+            if handle is None:
                 break
-            rids.append(rid)
+            streams[handle] = []
             pending.pop(0)
-        done_tokens += len(engine.step(generator=gen))
-        for rid in rids:
-            stream = engine.request_out.get(rid)
-            if stream is not None and len(stream) >= args.gen_len:
-                engine.cancel(rid)          # done: free its slot and pages
+        out = engine.step(generator=gen)
+        done_tokens += len(out)
+        for handle, tok in out.items():
+            streams[handle].append(tok)
+            if len(streams[handle]) >= args.gen_len:
+                engine.cancel(handle)       # done: free its slot (and pages)
     _sync(dev)
     dt = time.perf_counter() - t0
     print(f"[serve] continuous batching: {args.n_requests} requests, "

@@ -1,10 +1,11 @@
-"""Transformer layers of the dense family: RMSNorm, RoPE, GQA attention over
-a paged KV cache, SwiGLU MLP (``repro/models/layers.py``).
+"""Transformer layers of the dense family and the BERT/ViT encoders:
+RMSNorm and LayerNorm, RoPE, GQA attention over a paged or contiguous KV
+cache (or none), SwiGLU and GELU MLPs (``repro/models/layers.py``).
 
 Every projection goes through ``core.api.linear`` under the active
 GemmPolicy (the MatrixFlow GEMM on the card); attention goes through
-``core.api.attention`` under the active AttentionPolicy (the paged kernel
-on the card).
+``core.api.attention`` under the active AttentionPolicy (on the card: the
+paged kernel over page pools, the flash kernel over dense K/V).
 """
 from __future__ import annotations
 
@@ -28,6 +29,22 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 LayerNorm with the population variance (``jnp.var``) and an
+    optional bias."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Split-half rotary embedding in fp32. x: (B, S, H, D) with even D;
     positions: (B, S)."""
@@ -43,7 +60,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# GQA attention with a paged KV cache
+# GQA attention with a paged or contiguous KV cache
 # ---------------------------------------------------------------------------
 
 def init_attention(gen, cfg: ModelConfig, dtype, device):
@@ -52,6 +69,50 @@ def init_attention(gen, cfg: ModelConfig, dtype, device):
             "wk": dense_init(gen, d, Hkv * dh, dtype, device),
             "wv": dense_init(gen, d, Hkv * dh, dtype, device),
             "wo": dense_init(gen, H * dh, d, dtype, device)}
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                         device):
+    """Contiguous K/V of ``max_len`` positions per batch row, plus one more
+    column at index ``max_len`` that attention never reads: the write sink
+    for masked prefill positions (the TPU version drops those writes out of
+    range; torch has no dropping scatter, and a sink keeps the write free
+    of a host sync). ``len`` (B,) counts the positions written per row."""
+    shape = (batch, max_len + 1, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _written_per_row(positions: torch.Tensor, len_dtype) -> torch.Tensor:
+    """Tokens actually written per batch row: positions < 0 (masked rows
+    and bucket-padding columns) do not count."""
+    return (positions >= 0).sum(dim=1).to(len_dtype)
+
+
+def _contiguous_cache_update(cache, k, v, positions):
+    """Write new K/V into the contiguous cache at ``positions``.
+
+    Prefill (S > 1) scatters per (row, column) in place; position −1
+    columns go to the sink column. Decode (S == 1) writes each row's one
+    position by a one-hot select, as the reference does; a position −1
+    row matches no column and writes nothing. Either way a masked row
+    leaves its cache and ``len`` untouched."""
+    B, S = positions.shape
+    T = cache["k"].shape[1] - 1
+    if S > 1:
+        rows = torch.arange(B, device=positions.device)[:, None].expand(B, S)
+        cols = torch.where(positions >= 0, positions,
+                           torch.full_like(positions, T)).long()
+        cache["k"][rows, cols] = k
+        cache["v"][rows, cols] = v
+    else:
+        at_pos = (torch.arange(T + 1, device=positions.device)[None, :]
+                  == positions)[..., None, None]              # (B, T+1, 1, 1)
+        cache["k"] = torch.where(at_pos, k, cache["k"])
+        cache["v"] = torch.where(at_pos, v, cache["v"])
+    cache["len"] += _written_per_row(positions, cache["len"].dtype)
+    return cache
 
 
 def init_paged_attention_cache(cfg: ModelConfig, batch: int, n_pages: int,
@@ -84,15 +145,16 @@ def _paged_cache_update(cache, k, v, positions, block_tables):
     flat = torch.where(keep, page * ps + pos % ps, (P - 1) * ps).reshape(-1)
     cache["kp"].view(P * ps, Hkv, dh)[flat] = k.reshape(B * S, Hkv, dh)
     cache["vp"].view(P * ps, Hkv, dh)[flat] = v.reshape(B * S, Hkv, dh)
-    cache["len"] += keep.sum(dim=1).to(cache["len"].dtype)
+    cache["len"] += _written_per_row(positions, cache["len"].dtype)
     return cache
 
 
 def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
               block_tables=None):
     """x: (B, S, D). ``cache`` is a paged ``{"kp", "vp", "len"}`` pool (then
-    ``block_tables`` (B, n_blocks) is required) or None (self-attention
-    over x). Returns (y, cache); a paged cache is updated in place."""
+    ``block_tables`` (B, n_blocks) is required), a contiguous ``{"k", "v",
+    "len"}`` cache, or None (self-attention over x, causal per cfg).
+    Returns (y, cache); a cache is updated in place (its dict entries)."""
     B, S, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = api.linear(x, p["wq"]).reshape(B, S, H, dh)
@@ -103,16 +165,17 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     if cache is None:
         kv_k, kv_v, bt = k, v, None
         kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    else:
-        if "kp" not in cache:
-            raise NotImplementedError(
-                "only the paged KV cache is ported; contiguous caches are "
-                "still to do (ROADMAP.md)")
+    elif "kp" in cache:
         if block_tables is None:
             raise ValueError("paged KV cache requires block_tables")
         cache = _paged_cache_update(cache, k, v, positions, block_tables)
         kv_k, kv_v, kv_valid, bt = (cache["kp"], cache["vp"], cache["len"],
                                     block_tables)
+    else:
+        cache = _contiguous_cache_update(cache, k, v, positions)
+        T = cache["k"].shape[1] - 1            # the sink column stays unread
+        kv_k, kv_v = cache["k"][:, :T], cache["v"][:, :T]
+        kv_valid, bt = cache["len"], None
     out = api.attention(q, kv_k, kv_v, q_positions=positions,
                         kv_valid_len=kv_valid, causal=cfg.causal,
                         scale=1.0 / math.sqrt(dh), block_tables=bt)
@@ -120,14 +183,26 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU MLP
+# MLPs: SwiGLU (decoders) and GELU with biases (BERT/ViT)
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen, cfg: ModelConfig, dtype, device):
-    return {"wi": dense_init(gen, cfg.d_model, 2 * cfg.d_ff, dtype, device),
-            "wo": dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device)}
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act == "swiglu":
+        return {"wi": dense_init(gen, d, 2 * f, dtype, device),
+                "wo": dense_init(gen, f, d, dtype, device)}
+    return {"wi": dense_init(gen, d, f, dtype, device),
+            "bi": torch.zeros((f,), dtype=dtype, device=device),
+            "wo": dense_init(gen, f, d, dtype, device),
+            "bo": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def mlp(p, cfg: ModelConfig, x):
-    gate, up = api.linear(x, p["wi"]).chunk(2, dim=-1)
-    return api.linear(torch.nn.functional.silu(gate) * up, p["wo"])
+    if cfg.mlp_act == "swiglu":
+        gate, up = api.linear(x, p["wi"]).chunk(2, dim=-1)
+        h = torch.nn.functional.silu(gate) * up
+    else:
+        # jax.nn.gelu defaults to the tanh approximation; torch's to erf
+        h = torch.nn.functional.gelu(api.linear(x, p["wi"], p["bi"]),
+                                     approximate="tanh")
+    return api.linear(h, p["wo"], p.get("bo"))

@@ -28,6 +28,10 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
     return w.to(dtype).to(device)
 
 
-def norm_init(d: int, dtype: torch.dtype, device: torch.device):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def norm_init(d: int, dtype: torch.dtype, device: torch.device,
+              with_bias: bool = False):
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if with_bias:
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 

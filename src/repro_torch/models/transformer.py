@@ -1,9 +1,10 @@
-"""Model assembly for the dense decoder family (``repro/models/
-transformer.py``): init, token embedding, forward over a paged KV cache.
+"""Model assembly for the dense decoder family and the BERT/ViT encoders
+(``repro/models/transformer.py``): init, token embedding, forward over a
+paged or contiguous KV cache or none, and ``encoder_forward``.
 
 Layers are a Python loop over per-layer parameter dicts (the JAX package
-stacks them and scans). Other families — MoE, MLA, SSM, hybrid, the
-encoders — are not ported yet and raise.
+stacks them and scans). Other families — MoE, MLA, SSM, hybrid, audio,
+VLM — are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -17,15 +18,26 @@ from repro_torch.models import layers as Lyr
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.module import dense_init, embed_init, norm_init
 
+# What each ported family is: (norm, mlp_act, causal). The encoders are
+# the reference's BERT/ViT: LayerNorm, GELU MLP with biases, bidirectional.
+_FAMILIES = {"dense": ("rmsnorm", "swiglu", True),
+             "bert": ("layernorm", "gelu", False),
+             "vit": ("layernorm", "gelu", False)}
+
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported dense
-    family (plain GQA + RMSNorm + SwiGLU, untied head)."""
+    """Raise NotImplementedError for a config outside the ported families:
+    the dense decoder (plain GQA + RMSNorm + SwiGLU, causal, untied head)
+    and the BERT/ViT encoders (MHA + LayerNorm + GELU, bidirectional)."""
+    norm, act, causal = _FAMILIES.get(cfg.family, (None, None, None))
     unsupported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in _FAMILIES,
         "MLA": cfg.is_mla, "MoE": cfg.is_moe, "SSM": bool(cfg.ssm_state),
         "qk_norm": cfg.qk_norm, "qkv_bias": cfg.qkv_bias,
-        "norm": cfg.norm != "rmsnorm", "mlp_act": cfg.mlp_act != "swiglu",
+        "norm": norm is not None and cfg.norm != norm,
+        "mlp_act": act is not None and cfg.mlp_act != act,
+        "causal": causal is not None and cfg.causal != causal,
+        "GQA encoder": cfg.family != "dense" and cfg.n_kv_heads != cfg.n_heads,
         "n_codebooks": bool(cfg.n_codebooks),
         "first_dense_layers": bool(cfg.first_dense_layers),
         "tie_embeddings": cfg.tie_embeddings,
@@ -34,13 +46,15 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet; the port covers "
-            f"the dense decoder family (ROADMAP.md)")
+            f"the dense decoder family and the BERT/ViT encoders "
+            f"(ROADMAP.md)")
 
 
 def _init_block(gen, cfg: ModelConfig, dtype, device):
-    return {"attn_norm": norm_init(cfg.d_model, dtype, device),
+    bias = cfg.norm == "layernorm"
+    return {"attn_norm": norm_init(cfg.d_model, dtype, device, bias),
             "attn": Lyr.init_attention(gen, cfg, dtype, device),
-            "mlp_norm": norm_init(cfg.d_model, dtype, device),
+            "mlp_norm": norm_init(cfg.d_model, dtype, device, bias),
             "mlp": Lyr.init_mlp(gen, cfg, dtype, device)}
 
 
@@ -56,23 +70,34 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)}
     params["layers"] = [_init_block(gen, cfg, dtype, device)
                         for _ in range(cfg.n_layers)]
-    params["final_norm"] = norm_init(cfg.d_model, dtype, device)
+    params["final_norm"] = norm_init(cfg.d_model, dtype, device,
+                                     cfg.norm == "layernorm")
     params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype, device,
                                 scale=0.02)
     return params
 
 
 def embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Token embeddings, or ``batch["embeds"]`` (B, S, d_model) — the
+    reference's stubbed modality frontend, ViT's patch embeddings — when
+    given without tokens."""
+    if batch.get("embeds") is not None:
+        if batch.get("tokens") is not None:
+            raise NotImplementedError(
+                "embeds together with tokens (the VLM prefix) is not ported "
+                "yet (ROADMAP.md)")
+        return batch["embeds"]
     return params["embed"][batch["tokens"]]
 
 
 def forward(params, cfg: ModelConfig, batch, *,
             caches: Optional[List[Dict]] = None,
             last_cols: Optional[torch.Tensor] = None):
-    """Returns (logits, caches). ``batch``: tokens (B, S) [+ positions
-    (B, S), block_tables (B, n_blocks)]. ``caches`` — from
-    :func:`init_paged_caches`, updated in place — or None for full causal
-    self-attention. ``last_cols`` (B,) keeps only column ``last_cols[b]``
+    """Returns (logits, caches). ``batch``: tokens (B, S) or embeds (B, S,
+    d_model) [+ positions (B, S), block_tables (B, n_blocks)]. ``caches``
+    — from :func:`init_paged_caches` or :func:`init_caches`, updated in
+    place — or None for self-attention over the batch (causal per the
+    config). ``last_cols`` (B,) keeps only column ``last_cols[b]``
     of each row before the final norm and head, so logits are (B, 1,
     vocab): the serving prefill reads just each row's last real token."""
     x = embed_tokens(params, cfg, batch)
@@ -82,16 +107,31 @@ def forward(params, cfg: ModelConfig, batch, *,
         positions = torch.arange(S, device=x.device).expand(B, S)
     block_tables = batch.get("block_tables")
     for i, lp in enumerate(params["layers"]):
-        h, _ = Lyr.attention(lp["attn"], cfg, Lyr.rmsnorm(lp["attn_norm"], x),
+        h, _ = Lyr.attention(lp["attn"], cfg,
+                             Lyr.apply_norm(cfg, lp["attn_norm"], x),
                              positions=positions,
                              cache=None if caches is None else caches[i],
                              block_tables=block_tables)
         x = x + h
-        x = x + Lyr.mlp(lp["mlp"], cfg, Lyr.rmsnorm(lp["mlp_norm"], x))
+        x = x + Lyr.mlp(lp["mlp"], cfg,
+                        Lyr.apply_norm(cfg, lp["mlp_norm"], x))
     if last_cols is not None:
         x = x[torch.arange(B, device=x.device), last_cols][:, None]
-    x = Lyr.rmsnorm(params["final_norm"], x)
+    x = Lyr.apply_norm(cfg, params["final_norm"], x)
     return api.linear(x, params["head"]), caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                device) -> List[Dict]:
+    """One contiguous (batch, max_len) KV cache per layer
+    (``layers.init_attention_cache``); dense decoder family only."""
+    check_supported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: KV caches serve the decoder family; "
+                         f"family {cfg.family!r} is an encoder")
+    return [Lyr.init_attention_cache(cfg, batch, max_len, torch_dtype(dtype),
+                                     device)
+            for _ in range(cfg.n_layers)]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
@@ -102,3 +142,35 @@ def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
     return [Lyr.init_paged_attention_cache(cfg, batch, n_pages, page_size,
                                            torch_dtype(dtype), device)
             for _ in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# BERT / ViT (the paper's own evaluation models)
+# ---------------------------------------------------------------------------
+
+def bert_config(variant: str) -> ModelConfig:
+    dims = {"medium": (8, 512, 8), "base": (12, 768, 12),
+            "large": (24, 1024, 16)}[variant]
+    L, d, h = dims
+    return ModelConfig(
+        name=f"bert-{variant}", family="bert", n_layers=L, d_model=d,
+        n_heads=h, n_kv_heads=h, d_ff=4 * d, vocab=30522, causal=False,
+        mlp_act="gelu", norm="layernorm", source="arXiv:1810.04805")
+
+
+def vit_config(variant: str) -> ModelConfig:
+    dims = {"base": (12, 768, 12, 197), "large": (24, 1024, 16, 197),
+            "huge": (32, 1280, 16, 257)}[variant]
+    L, d, h, seq = dims
+    return ModelConfig(
+        name=f"vit-{variant}", family="vit", n_layers=L, d_model=d,
+        n_heads=h, n_kv_heads=h, d_ff=4 * d, vocab=1000, causal=False,
+        mlp_act="gelu", norm="layernorm", source="arXiv:2010.11929")
+
+
+def encoder_forward(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """BERT/ViT: the bidirectional encoder over the whole batch (no cache);
+    ViT consumes stubbed patch embeddings (``batch["embeds"]``). Returns
+    logits (B, S, vocab) — the head runs over every position."""
+    logits, _ = forward(params, cfg, batch)
+    return logits

@@ -1,22 +1,29 @@
-"""Paged serving engine on one device (``repro/serving/engine.py``).
+"""Serving engine on one device (``repro/serving/engine.py``); every
+projection and the LM head run the MatrixFlow GEMM.
 
-K/V live in a page pool (``serving/kv_pool.py``) read through per-request
-block tables by the paged attention kernel; every projection and the LM
-head run the MatrixFlow GEMM. Admission is **page-bound**: a request is
-admitted while free pages cover its prompt, decode steps allocate pages on
-demand, retirement returns them, and when the pool runs dry the
-scheduler's victim is preempted — parked host-side and later resumed by
-re-prefilling ``prompt + out``, with a token stream identical to an
-uninterrupted run. ``submit``/``step`` key results by request id.
+**Paged mode** (``AttentionPolicy(backend="paged")``, the default): K/V
+live in a page pool (``serving/kv_pool.py``) read through per-request
+block tables by the paged attention kernel. Admission is **page-bound**: a
+request is admitted while free pages cover its prompt, decode steps
+allocate pages on demand, retirement returns them, and when the pool runs
+dry the scheduler's victim is preempted — parked host-side and later
+resumed by re-prefilling ``prompt + out``, with a token stream identical
+to an uninterrupted run. ``submit``/``step`` key results by request id.
+
+**Contiguous mode** (any other backend: ``fused``, the flash kernel, or
+``unfused``): each slot owns a ``(max_len,)`` row of contiguous K/V
+caches. Admission is **slot-bound** (``submit`` returns None when no slot
+is free), nothing is preempted, and ``submit``/``step``/``cancel`` key
+requests by slot id, as the reference's non-paged engine does.
 
 Prefill is *masked*: every other batch row, and the padding columns of the
 power-of-two **bucketed prefill**, carry position −1 — they write no K/V
 and do not advance the valid length — so one slot's prefill cannot corrupt
 another's cache.
 
-Not ported yet, each rejected with NotImplementedError: contiguous KV
-caches, the prefix cache, speculative decoding, observability, int8 KV
-pages, W8A8 weights and tensor parallelism (ROADMAP.md).
+Not ported yet, each rejected with NotImplementedError: the prefix
+cache, speculative decoding, observability, int8 KV pages, W8A8 weights
+and tensor parallelism (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -49,8 +56,10 @@ class ServeConfig:
     gemm: Optional[GemmPolicy] = None   # None → the ambient/default policy
     pack_weights: bool = False          # resident block-major weights
     attention: Optional[AttentionPolicy] = None  # None → AttentionPolicy("paged")
+    # ("paged" pages the KV cache; "fused" — the flash kernel — and
+    # "unfused" serve from contiguous (batch_slots, max_len) caches)
     cache_pages: Optional[int] = None
-    # total pages in the KV pool. None → the contiguous-equivalent budget
+    # paged only: total pages in the KV pool. None → the contiguous-equivalent budget
     # batch_slots * ceil(max_len / page_size); smaller values make
     # admission page-bound (preemption engages).
     scheduler: Optional[Scheduler] = None   # None → Scheduler() (FIFO)
@@ -99,15 +108,11 @@ class ServingEngine:
         if torch_dtype(sc.cache_dtype) != cfg.param_dtype:
             raise NotImplementedError(
                 f"cache_dtype={sc.cache_dtype!r} differs from the model's "
-                f"{cfg.dtype!r}: the paged kernel reads q and the pools in "
-                f"one dtype; mixed dtypes are not ported (ROADMAP.md)")
+                f"{cfg.dtype!r}: the attention kernels read q and the cache "
+                f"in one dtype; mixed dtypes are not ported (ROADMAP.md)")
         self.device = resolve_device(sc.device)
         attn = sc.attn_policy()
-        if attn.resolved_backend(self.device) != "paged":
-            raise NotImplementedError(
-                f"attention backend {attn.backend!r}: only the paged KV "
-                f"cache is ported; contiguous caches are still to do "
-                f"(ROADMAP.md)")
+        self.paged = attn.resolved_backend(self.device) == "paged"
         params = _to_device(params, self.device)
         if sc.pack_weights:
             params = api.pack_model_weights(params, sc.gemm)
@@ -115,26 +120,31 @@ class ServingEngine:
         self.scheduler = sc.scheduler if sc.scheduler is not None \
             else Scheduler()
         B = sc.batch_slots
-        ps = attn.page_size
-        self.n_blocks = -(-sc.max_len // ps)
-        n_pages = (sc.cache_pages if sc.cache_pages is not None
-                   else B * self.n_blocks)
-        if n_pages < self.n_blocks:
-            raise ValueError(
-                f"cache_pages={n_pages} cannot back even one full-length "
-                f"request (ceil(max_len/page_size) = {self.n_blocks} pages); "
-                f"a preempted request could never resume")
-        self.pool = PagePool(n_pages, ps)
-        self.caches = T.init_paged_caches(cfg, B, n_pages, ps,
-                                          sc.cache_dtype, self.device)
-        self.block_tables = np.zeros((B, self.n_blocks), np.int32)
-        self.slot_tables: List[Optional[BlockTable]] = [None] * B
         self.slot_rid = np.full(B, -1, np.int64)
         self.wait: List[_Waiting] = []
-        # rid → the request's output stream; entries persist past
-        # retirement so the caller can read a finished stream.
+        # rid → the request's output stream (paged mode); entries persist
+        # past retirement so the caller can read a finished stream.
         self.request_out: Dict[int, List[int]] = {}
         self._next_rid = 0
+        self.block_tables = None
+        if self.paged:
+            ps = attn.page_size
+            self.n_blocks = -(-sc.max_len // ps)
+            n_pages = (sc.cache_pages if sc.cache_pages is not None
+                       else B * self.n_blocks)
+            if n_pages < self.n_blocks:
+                raise ValueError(
+                    f"cache_pages={n_pages} cannot back even one full-length "
+                    f"request (ceil(max_len/page_size) = {self.n_blocks} "
+                    f"pages); a preempted request could never resume")
+            self.pool = PagePool(n_pages, ps)
+            self.caches = T.init_paged_caches(cfg, B, n_pages, ps,
+                                              sc.cache_dtype, self.device)
+            self.block_tables = np.zeros((B, self.n_blocks), np.int32)
+            self.slot_tables: List[Optional[BlockTable]] = [None] * B
+        else:
+            self.caches = T.init_caches(cfg, B, sc.max_len, sc.cache_dtype,
+                                        self.device)
         self.slot_pos = np.zeros(B, np.int32)
         self.slot_live = np.zeros(B, bool)
         self.slot_out: List[List[int]] = [[] for _ in range(B)]
@@ -172,10 +182,11 @@ class ServingEngine:
     @torch.no_grad()
     def _forward(self, tokens: np.ndarray, positions: np.ndarray,
                  last_cols: Optional[np.ndarray] = None) -> torch.Tensor:
-        """One masked forward over the page pools: (B, vocab) logits of
+        """One masked forward over the KV caches: (B, vocab) logits of
         each row's column ``last_cols[b]`` (default: the last column)."""
-        batch = {"tokens": self._dev(tokens), "positions": self._dev(positions),
-                 "block_tables": self._dev(self.block_tables)}
+        batch = {"tokens": self._dev(tokens), "positions": self._dev(positions)}
+        if self.paged:
+            batch["block_tables"] = self._dev(self.block_tables)
         if last_cols is None:
             last_cols = np.full(tokens.shape[0], tokens.shape[1] - 1, np.int64)
         with self._scope():
@@ -201,7 +212,9 @@ class ServingEngine:
             c["len"][slots] = 0
 
     def _handle(self, slot: int) -> int:
-        return int(self.slot_rid[slot])
+        """What submit()/step() key results by: request id in paged mode
+        (requests migrate across slots under preemption), slot id else."""
+        return int(self.slot_rid[slot]) if self.paged else slot
 
     def _view(self, slot: int) -> RequestView:
         return RequestView(
@@ -226,9 +239,10 @@ class ServingEngine:
     def generate(self, prompts: np.ndarray, n_tokens: int,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """prompts: (B, S) int — B must equal batch_slots. Returns
-        (B, n_tokens) generated ids. The pool is reset (in-flight submit()
-        requests are dropped) and every row gets pages for its whole
-        S + n_tokens horizon up front."""
+        (B, n_tokens) generated ids. In-flight submit() requests are
+        dropped and every slot restarts from position 0; in paged mode
+        every row gets pages for its whole S + n_tokens horizon up
+        front."""
         B, S = prompts.shape
         if B != self.sc.batch_slots:
             raise ValueError(
@@ -238,18 +252,19 @@ class ServingEngine:
         if S + n_tokens > self.sc.max_len:
             raise ValueError(f"generate() horizon S+n_tokens = "
                              f"{S + n_tokens} exceeds max_len={self.sc.max_len}")
-        self._reset_paged_state()
-        need = self.pool.pages_needed(S + n_tokens)
-        if not self.pool.can_alloc(need * B):
-            raise ValueError(
-                f"batched generate needs {need * B} pages ({need}/row), pool "
-                f"holds {self.pool.n_pages}; raise cache_pages or use "
-                f"submit()/step() admission")
-        for s in range(B):
-            tbl = BlockTable(self.pool)
-            tbl.ensure(S + n_tokens)
-            self.slot_tables[s] = tbl
-            tbl.as_row(self.n_blocks, out=self.block_tables[s])
+        self._reset_state()
+        if self.paged:
+            need = self.pool.pages_needed(S + n_tokens)
+            if not self.pool.can_alloc(need * B):
+                raise ValueError(
+                    f"batched generate needs {need * B} pages ({need}/row), "
+                    f"pool holds {self.pool.n_pages}; raise cache_pages or "
+                    f"use submit()/step() admission")
+            for s in range(B):
+                tbl = BlockTable(self.pool)
+                tbl.ensure(S + n_tokens)
+                self.slot_tables[s] = tbl
+                tbl.as_row(self.n_blocks, out=self.block_tables[s])
         positions = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
         tok = self._sample(self._forward(prompts.astype(np.int64), positions),
                            generator)
@@ -259,13 +274,14 @@ class ServingEngine:
             pos = np.full((B, 1), S + i, np.int32)
             tok = self._sample(self._forward(tok[:, None].astype(np.int64),
                                              pos), generator)
-        self._reset_paged_state()
+        self._reset_state()
         return np.stack(out, axis=1)
 
-    def _reset_paged_state(self):
-        """Drop every in-flight request and return all pages to the pool."""
+    def _reset_state(self):
+        """Drop every in-flight request, zero every slot's cache length
+        and, in paged mode, return all pages to the pool."""
         for s in range(self.sc.batch_slots):
-            if self.slot_tables[s] is not None:
+            if self.paged and self.slot_tables[s] is not None:
                 self.slot_tables[s].free()
                 self.slot_tables[s] = None
             if self.slot_live[s]:
@@ -273,7 +289,8 @@ class ServingEngine:
         for w in self.wait:
             self.request_out.pop(w.rid, None)
         self._reset_lens(slice(None))
-        self.block_tables[:] = 0
+        if self.paged:
+            self.block_tables[:] = 0
         self.slot_rid[:] = -1
         self.slot_live[:] = False
         self.slot_drain[:] = False
@@ -289,14 +306,17 @@ class ServingEngine:
                generator: Optional[torch.Generator] = None, *,
                priority: int = 0,
                deadline: Optional[float] = None) -> Optional[int]:
-        """Admit a request; returns its request id, or None when neither a
-        free slot with enough free pages nor a preemptible victim exists.
+        """Admit a request; returns its handle (paged: request id,
+        contiguous: slot id), or None when it cannot be admitted now:
+        contiguous mode needs a free slot; paged mode a free slot with
+        enough free pages, or a preemptible victim.
 
         The prompt runs as a masked, bucketed prefill (whole, or its first
         chunk under ``Scheduler(prefill_chunk=N)``); its last-position
         logits seed the pending first token, which step() reports first.
         ``priority`` (0 = most urgent) and ``deadline`` feed the scheduler:
-        an incoming request may preempt a strictly less urgent live one.
+        in paged mode an incoming request may preempt a strictly less
+        urgent live one.
         """
         if not 0 < len(prompt) < self.sc.max_len:
             raise ValueError(
@@ -305,6 +325,15 @@ class ServingEngine:
         prompt = [int(t) for t in prompt]
         self.tick += 1
         arrival = self.tick
+        if not self.paged:
+            free = np.where(~self.slot_live)[0]
+            if free.size == 0:
+                return None
+            slot = int(free[0])
+            self._stage(slot, -1, prompt, prompt, generator=generator,
+                        priority=priority, deadline=deadline,
+                        arrival=arrival)
+            return slot
         incoming = RequestView(rid=self._next_rid, priority=priority,
                                deadline=deadline, arrival=arrival,
                                n_tokens=len(prompt))
@@ -342,6 +371,18 @@ class ServingEngine:
         tbl.ensure(len(tokens))
         self.slot_tables[slot] = tbl
         tbl.as_row(self.n_blocks, out=self.block_tables[slot])
+        self._stage(slot, rid, prompt, tokens, restore=restore,
+                    generator=generator, priority=priority,
+                    deadline=deadline, arrival=arrival)
+        return True
+
+    def _stage(self, slot: int, rid: int, prompt: List[int],
+               tokens: List[int], *, restore: Optional[_Waiting] = None,
+               generator: Optional[torch.Generator] = None,
+               priority: int = 0, deadline: Optional[float] = None,
+               arrival: int = 0) -> None:
+        """Stage ``tokens`` into ``slot`` and run the first masked prefill
+        chunk; a recycled slot restarts from position 0."""
         self.slot_rid[slot] = rid
         self.slot_prompt[slot] = prompt
         self.slot_priority[slot] = priority
@@ -357,10 +398,9 @@ class ServingEngine:
         self.slot_pf_restore[slot] = restore
         self.slot_pf_gen[slot] = generator
         self.slot_out[slot] = restore.out if restore is not None else []
-        if restore is None:
+        if restore is None and self.paged:
             self.request_out[rid] = self.slot_out[slot]
         self._prefill_slot_chunk(slot)
-        return True
 
     def _prefill_slot_chunk(self, slot: int) -> bool:
         """Run one masked, bucketed prefill chunk for ``slot``; True when
@@ -414,9 +454,10 @@ class ServingEngine:
         # slot_pos stays nonzero → the next admission resets this slot's lens
 
     def _release_slot(self, slot: int):
-        self.slot_tables[slot].free()
-        self.slot_tables[slot] = None
-        self.block_tables[slot] = 0
+        if self.paged:
+            self.slot_tables[slot].free()
+            self.slot_tables[slot] = None
+            self.block_tables[slot] = 0
         self.slot_rid[slot] = -1
         self.slot_live[slot] = False
         self.slot_drain[slot] = False
@@ -477,8 +518,14 @@ class ServingEngine:
                                        out=self.block_tables[s])
 
     def cancel(self, rid: int) -> bool:
-        """Abort a request by the id submit() returned, releasing its slot
-        and pages (or its wait-queue entry). Returns True if found."""
+        """Abort a request by the handle submit() returned (request id in
+        paged mode, slot id else), releasing its slot — and, when paged,
+        its pages (or its wait-queue entry). Returns True if found."""
+        if not self.paged:
+            if 0 <= rid < self.sc.batch_slots and self.slot_live[rid]:
+                self._release_slot(rid)
+                return True
+            return False
         for s in range(self.sc.batch_slots):
             if self.slot_live[s] and self.slot_rid[s] == rid:
                 self._release_slot(s)
@@ -505,7 +552,8 @@ class ServingEngine:
         is reported, then it retires.
         """
         self.tick += 1
-        self._try_resume()
+        if self.paged:
+            self._try_resume()
         if not self.slot_live.any():
             return {}
         pf = [s for s in range(self.sc.batch_slots)
@@ -514,7 +562,8 @@ class ServingEngine:
             s = min(pf, key=lambda t: (self.slot_priority[t],
                                        self.slot_arrival[t], t))
             self._prefill_slot_chunk(s)
-        self._grow_pages_for_decode()
+        if self.paged:
+            self._grow_pages_for_decode()
         decodable = (self.slot_live & ~self.slot_drain
                      & ~self.slot_prefilling)
         nxt = None
@@ -540,18 +589,21 @@ class ServingEngine:
         return out
 
     def stats(self) -> Dict[str, object]:
-        """Scheduling churn, prefill/decode token split and pool pressure."""
-        return {
+        """Scheduling churn, prefill/decode token split and, in paged mode,
+        pool pressure."""
+        d = {
             "tick": self.tick,
             "live_requests": int(self.slot_live.sum()),
             "waiting_requests": len(self.wait),
             "n_preemptions": self.n_preemptions,
             "prefill_tokens": self.prefill_tokens,
             "decode_tokens": self.decode_tokens,
-            "pool_pages": self.pool.n_pages,
-            "pool_free_pages": self.pool.free_pages,
-            "pool_high_water": self.pool.high_water,
         }
+        if self.paged:
+            d.update(pool_pages=self.pool.n_pages,
+                     pool_free_pages=self.pool.free_pages,
+                     pool_high_water=self.pool.high_water)
+        return d
 
 
 def _to_device(node, device: torch.device):

@@ -1,7 +1,7 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors, and the serving engine on the card
-against the same engine on the CPU (where the wrappers run the plain
-versions).
+version on the same CUDA tensors, and the serving engine (paged and
+contiguous) and the BERT/ViT encoders on the card against the same code on
+the CPU (where the wrappers run the plain versions).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -11,15 +11,19 @@ with the card and without JAX:
 
 The GEMM shapes are tests/parity.py's SHAPES (copied: importing parity
 would import JAX) plus two full-width smollm-135m projections; the
-attention tolerances are its ATTN_TOLS.
+attention tolerances are its ATTN_TOLS. The flash attention shapes are the
+full-width encoders' (bert-base S 128, vit-base S 197, vit-huge S 257 at
+head_dim 80) and smollm-135m's contiguous decode and prefill.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs.registry import get_smoke_config
+from repro_torch.core import api
 from repro_torch.core import layout as L
-from repro_torch.core.plan import AttentionPolicy
+from repro_torch.core.plan import FUSED, AttentionPolicy
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matrixflow_gemm as MF
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import transformer as T
@@ -180,3 +184,153 @@ def test_engine_on_card_matches_cpu_plain(cuda):
             assert MF.matrixflow_gemm_block_major.launches > launches[0]
             assert PA.paged_attention.launches > launches[1]
     assert streams[0] == streams[1]
+
+
+# B, Sq, Sk, H, Hkv, D, causal, first query position per row (None: the
+# bottom-right default; -1: masked row), valid keys per row (None: Sk)
+FLASH_CASES = {
+    "bert_base": (8, 128, 128, 12, 12, 64, False, None, None),
+    "vit_base": (8, 197, 197, 12, 12, 64, False, None, None),
+    "vit_huge_d80": (8, 257, 257, 16, 16, 80, False, None, None),
+    "decode_rep3_ragged_masked": (8, 1, 256, 9, 3, 64, True,
+                                  (16, 199, 63, -1, 32, 127, 255, 89),
+                                  (17, 200, 64, 0, 33, 128, 256, 90)),
+    "prefill_bucket_masked_rows": (4, 64, 256, 9, 3, 64, True,
+                                   (0, -1, 0, 0), (40, 0, 64, 1)),
+    "chunk_offset": (2, 8, 64, 9, 3, 64, True, (24, 40), (32, 48)),
+    "bottom_right_default": (2, 5, 40, 12, 12, 80, True, None, None),
+    "noncausal_ragged": (2, 17, 45, 16, 16, 80, False, None, (45, 29)),
+}
+
+
+def _flash_inputs(cuda, dtype, B, Sq, Sk, H, Hkv, D, starts, lens, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dt)
+               for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    qpos = kvl = None
+    if starts is not None:
+        pos = np.full((B, Sq), -1, np.int32)
+        for b in range(B):
+            if starts[b] >= 0:
+                pos[b] = starts[b] + np.arange(Sq)
+                if lens is not None:         # bucket padding past the keys
+                    pos[b, max(lens[b] - starts[b], 0):] = -1
+        qpos = torch.from_numpy(pos).to(cuda)
+    if lens is not None:
+        kvl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k, v, qpos, kvl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES), ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
+    B, Sq, Sk, H, Hkv, D, causal, starts, lens = FLASH_CASES[case]
+    q, k, v, qpos, kvl = _flash_inputs(cuda, dtype, B, Sq, Sk, H, Hkv, D,
+                                       starts, lens)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, qpos, kvl, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    qpos_r = qpos if qpos is not None else (
+        torch.arange(Sq, device=cuda) + (Sk - Sq)).expand(B, Sq).to(torch.int32)
+    kvl_r = kvl if kvl is not None else torch.full(
+        (B,), Sk, dtype=torch.int32, device=cuda)
+    want = FA.flash_attention_plain(q, k, v, qpos_r, kvl_r, causal=causal,
+                                    scale=D ** -0.5, soft_cap=None)
+    atol, rtol = ATTN_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if causal:
+        masked = qpos_r < 0
+        assert not bool(masked.any()) or float(got[masked].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_soft_cap_and_strided_cache(cuda):
+    """A soft-cap, and K/V read as views of a (B, T + 1, Hkv, D) contiguous
+    serving cache sliced to T (no copy): the same as contiguous operands."""
+    q, k, v, qpos, kvl = _flash_inputs(cuda, "float32", 3, 1, 96, 9, 3, 64,
+                                       (40, 95, 7), (41, 96, 8))
+    kc = torch.zeros((3, 97, 3, 64), device=cuda)
+    vc = torch.zeros_like(kc)
+    kc[:, :96], vc[:, :96] = k, v
+    got = FA.flash_attention(q * 8, kc[:, :96], vc[:, :96], qpos, kvl,
+                             soft_cap=5.0)
+    want = FA.flash_attention_plain(q * 8, k, v, qpos, kvl, causal=True,
+                                    scale=0.125, soft_cap=5.0)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+
+
+def _encoder_logits(cfg, params, batch, device):
+    batch = {k: v.to(device) for k, v in batch.items()}
+    with torch.no_grad():
+        return T.encoder_forward(api.pack_model_weights(
+            {k: v for k, v in params.items()}), cfg, batch).float().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("bert-base", dict(n_heads=2, n_kv_heads=2, d_head=64)),
+    ("vit-huge", dict(d_model=160, n_heads=2, n_kv_heads=2, d_head=80))],
+    ids=["bert_d64", "vit_d80"])
+def test_encoder_on_card_matches_cpu_plain(cuda, arch, kw):
+    """fp32 encoder_forward under the default policies: the card's path
+    (K1 and the paged policy's flash fallback, K3) against the CPU's plain
+    versions, within 1e-4 (fp32 GEMMs summed in other orders)."""
+    cfg = get_smoke_config(arch, dtype="float32", **kw)
+    params = T.init_model(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = ({"embeds": torch.randn((2, 37, cfg.d_model), generator=gen)}
+             if cfg.family == "vit" else
+             {"tokens": torch.randint(0, cfg.vocab, (2, 37), generator=gen)})
+    before = (MF.matrixflow_gemm_block_major.launches,
+              FA.flash_attention.launches)
+    got = _encoder_logits(cfg, {k: _to(v, cuda) for k, v in params.items()},
+                          batch, cuda)
+    assert MF.matrixflow_gemm_block_major.launches > before[0]
+    assert FA.flash_attention.launches == before[1] + cfg.n_layers
+    want = _encoder_logits(cfg, params, batch, "cpu")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _to(node, device):
+    if isinstance(node, dict):
+        return {k: _to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, device) for v in node]
+    return node.to(device)
+
+
+@pytest.mark.cuda
+def test_contiguous_engine_on_card_matches_cpu_plain(cuda):
+    """The fused (contiguous-cache) engine: submit/step with more requests
+    than slots, then generate(); fp32 greedy streams on the card (K1, K3)
+    equal the CPU's (plain versions)."""
+    cfg = get_smoke_config("smollm-135m", n_layers=2, vocab=64, d_head=64,
+                           dtype="float32")
+    params = T.init_model(cfg, seed=0, device="cpu")
+    results = []
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            batch_slots=2, max_len=24, cache_dtype="float32",
+            pack_weights=True, device=device, attention=FUSED))
+        before = FA.flash_attention.launches
+        pending, owner, streams = [[1, 2, 3], [4, 5, 6, 7], [8, 9]], {}, []
+        for _ in range(100):
+            while pending and (h := eng.submit(pending[0])) is not None:
+                owner[h] = len(streams)
+                streams.append([])
+                pending.pop(0)
+            for h, t in eng.step().items():
+                streams[owner[h]].append(t)
+            if not pending and not eng.slot_live.any():
+                break
+        gen = eng.generate(np.array([[3, 1, 4], [1, 5, 9]]), 6)
+        results.append((streams, gen.tolist()))
+        if device == "cuda":
+            assert FA.flash_attention.launches > before
+    assert results[0] == results[1]

@@ -121,16 +121,24 @@ def test_empty_block_table_returns_zeros():
 
 
 def test_paged_backend_rejects_dense_operands():
-    """Dense operands under the paged policy would need the flash kernel
-    (K3), which is not ported: the backend raises instead of guessing."""
+    """Dense operands under the paged policy are not read as page pools:
+    the backend hands them to the flash kernel (K3, the reference's dense
+    fallback), whose result is the JAX flash kernel's."""
+    from repro.kernels.ops import mha as jmha
     from repro_torch.core import api
     from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.kernels import flash_attention as FA
     q = torch.randn(1, 4, 2, 16)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="flash"):
-        api.attention(q, q, q, q_positions=pos,
-                      kv_valid_len=torch.tensor([4]),
-                      policy=AttentionPolicy(backend="paged"))
+    kvl = torch.tensor([4])
+    got = api.attention(q, q, q, q_positions=pos, kv_valid_len=kvl,
+                        policy=AttentionPolicy(backend="paged"))
+    assert torch.equal(got, FA.flash_attention(q, q, q, pos, kvl))
+    jq = jnp.asarray(q.numpy())
+    want = np.asarray(jmha(jq, jq, jq, q_positions=jnp.asarray(pos.numpy()),
+                           kv_valid_len=jnp.asarray(kvl.numpy()),
+                           impl="interpret"))
+    np.testing.assert_allclose(got.numpy(), want, *ATTN_TOLS["float32"])
 
 
 def test_gather_pages_inverts_the_paged_layout():

@@ -149,11 +149,15 @@ def test_unported_features_raise(setup):
     for kw in (dict(prefix_cache=True), dict(kv_dtype="int8"),
                dict(weight_dtype="int8"), dict(mesh=object()),
                dict(spec=object()), dict(obs=object()),
-               dict(attention=AttentionPolicy(backend="unfused")),
                dict(cache_dtype="bfloat16")):
         kw = {"cache_dtype": "float32", **kw}
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, ServeConfig(device="cpu", **kw))
+    # a dense backend is ported now: it serves from contiguous caches
+    eng = ServingEngine(cfg, params, ServeConfig(
+        device="cpu", cache_dtype="float32",
+        attention=AttentionPolicy(backend="unfused")))
+    assert not eng.paged
     with pytest.raises(ValueError, match="cache_pages"):
         ServingEngine(cfg, params, ServeConfig(
             device="cpu", batch_slots=2, max_len=32, cache_pages=3,
