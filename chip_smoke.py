@@ -43,9 +43,28 @@ CUDA toolkit. Phases, each fatal on failure:
              streams equal the paged engine's on the card and the CPU plain
              path's, or first diverge where the plain top-2 margin is below
              LOGIT_TOL.
+7. int8 serving — full-width smollm-135m in bf16 with weight_dtype="int8"
+             (every projection and the head through the W8A8 GEMM, K2) and
+             kv_dtype="int8" (int8 pages through K5): the same 12 requests x
+             32 tokens under the 24-page pool, all complete with preemption,
+             K2 and K5 launched, K1 and K4 not; a preempted request's stream
+             equals its solo stream. Then fp32 at full width, the card
+             against the CPU plain path: greedy streams equal, or parting
+             where the plain top-2 margin is below LOGIT_TOL or after an
+             int8 value the two runs rounded differently from an ulp apart
+             on a .5 tie (every quantization before it must agree to fp32
+             noise: W8A8 and the frozen KV page scales amplify one such
+             rounding into a whole quantization step).
 
-Every kernel counter is set to 0 just before each path (3, 5, 6) is driven
-and read just after; a kernel of the path that never launched fails it.
+The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
+plain version at smollm-135m's decode and prefill GEMMs and bert-base's
+1024-row GEMMs, with torch._int_mm plus the rescale as its yardstick, and
+paged attention over int8 pages (K5) at decode, the prefill bucket and a
+chunked prefill, with SDPA over the dequantized pages as its yardstick.
+
+Every kernel counter is set to 0 just before each path (3, 5, 6, 7) is
+driven and read just after; a kernel of the path that never launched fails
+it.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -76,7 +95,7 @@ LOGIT_TOL = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s per dtype.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # The serving paths: full-width smollm-135m.
 ARCH = "smollm-135m"
@@ -146,28 +165,37 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 
 
 def kernel_wrappers():
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    """Each kernel's wrapper and the attribute that counts its launches
+    (the paged wrapper launches K4 for fp pools and K5 for int8 pools, and
+    counts them apart)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import matrixflow_gemm as MF
     from repro_torch.kernels import paged_attention as PA
-    return {"matrixflow_gemm": MF.matrixflow_gemm_block_major,
-            "paged_attention": PA.paged_attention,
-            "flash_attention": FA.flash_attention}
+    return {"matrixflow_gemm": (MF.matrixflow_gemm_block_major, "launches"),
+            "paged_attention": (PA.paged_attention, "launches"),
+            "flash_attention": (FA.flash_attention, "launches"),
+            "matrixflow_gemm_dequant": (MF.matrixflow_gemm_dequant,
+                                        "launches"),
+            "paged_attention_int8": (PA.paged_attention, "launches_int8")}
+
+
+def counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in kernel_wrappers().items()}
 
 
 def reset_counts() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(path: str, required) -> dict:
     """The launch counts since reset_counts(); fails if a kernel of the
     path never launched."""
-    counts = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    counts_now = counts()
     for name in required:
-        if counts[name] <= 0:
+        if counts_now[name] <= 0:
             fail(f"{path}: kernel {name} was never launched")
-    return counts
+    return counts_now
 
 
 def check_close(name, got, want, atol, rtol):
@@ -442,6 +470,172 @@ def run_flash_phase(timer, cells):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2d: the W8A8 GEMM (K2) against its plain version
+# ---------------------------------------------------------------------------
+
+def run_quant_gemm_phase(timer, cfg, bert, vit):
+    """K2 at smollm-135m's decode (M = 8) and 64-column prefill GEMMs and
+    bert-base's 1024-row GEMMs, fp32 and bf16 out: bitwise equal to the
+    plain version. The activations are quantized per row as the W8A8
+    route does; the weights are packed as the engine packs them."""
+    from repro_torch.core import layout as L
+    from repro_torch.core import quant as Q
+    from repro_torch.core.plan import GemmPolicy, layout_for_packed, pack_weight
+    from repro_torch.kernels import matrixflow_gemm as MF
+
+    cells = [c for c in gemm_cells(cfg, bert, vit)
+             if c[4] != f"{vit.name} forward"]
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for name, M, K, N, path, uses in cells:
+            a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((K, N), generator=gen, device="cuda")
+                 / K ** 0.5).to(dt)
+            pw = pack_weight(w, GemmPolicy(), quantize="int8")
+            blk = layout_for_packed(M, pw)
+            aq, sa = Q.quantize_activations(a)
+            a_bm = L.to_block_major_a(aq, blk.bm, blk.bk)
+
+            def kernel():
+                return MF.matrixflow_gemm_dequant(a_bm, pw.data, sa,
+                                                  pw.scales, out_dtype=dt)
+
+            got = kernel()
+            want = MF.plain(a_bm, pw.data, out_dtype=dt, scale_a=sa,
+                            scale_b=pw.scales)
+            torch.cuda.synchronize()
+            cell = (f"matrixflow_gemm_dequant {name} M={M} K={K} N={N} "
+                    f"{dtype_name}")
+            if not torch.equal(got, want):
+                err = float((got.float() - want.float()).abs().max())
+                fail(f"{cell}: kernel and plain version differ (max |d| "
+                     f"{err:.3e}); the W8A8 GEMM must match bitwise")
+            # yardstick: torch._int_mm (cuBLASLt, needs M > 16 and K, N
+            # multiples of 8: decode rows padded to 32, N to a multiple of
+            # 8) followed by the rank-1 rescale
+            Mp, Np = max(M, 32), -(-N // 8) * 8
+            a_pad = torch.zeros((Mp, K), dtype=torch.int8, device="cuda")
+            a_pad[:M] = aq
+            w_pad = torch.zeros((K, Np), dtype=torch.int8, device="cuda")
+            w_pad[:, :N] = pw.unpack_quantized()
+            sa_pad = torch.ones(Mp, device="cuda")
+            sa_pad[:M] = sa
+            sb_pad = torch.ones(Np, device="cuda")
+            sb_pad[:N] = pw.scales
+
+            def library():
+                c = torch._int_mm(a_pad, w_pad).float()
+                return (c * sa_pad[:, None] * sb_pad[None, :]).to(dt)
+
+            t_k = timer.ms(kernel)
+            t_p = timer.ms(lambda: MF.plain(a_bm, pw.data, out_dtype=dt,
+                                            scale_a=sa, scale_b=pw.scales))
+            t_lib = timer.ms(library)
+            nbytes = M * K + K * N + 4 * (M + N) + M * N * dt.itemsize
+            b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, "int8")
+            rows.append(dict(cell=cell, dtype=dtype_name, M=M, K=K, N=N,
+                             block=[blk.bm, blk.bn, blk.bk], path=path,
+                             uses=uses, max_abs_err=0.0, ms=t_k,
+                             plain_ms=t_p, library_ms=t_lib,
+                             library_padding=[Mp - M, Np - N],
+                             bound_ms=b_ms, bound_by=b_by))
+            log(f"{cell}: blocks {blk.bm}x{blk.bn}x{blk.bk} bitwise kernel "
+                f"{t_k:.4f} ms plain {t_p:.4f} ms _int_mm+rescale "
+                f"{t_lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2e: paged attention over int8 pages (K5) against its plain version
+# ---------------------------------------------------------------------------
+
+def run_int8_attention_phase(timer, cfg):
+    """K5 at smollm-135m's decode, prefill bucket and chunked prefill, q in
+    bf16 and fp32, over int8 pools with per-(page, kv head) scales through
+    shuffled block tables; within ATTN_TOLS, masked rows exactly 0."""
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import paged_attention as PA
+
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nb = MAX_LEN // PAGE
+    rng = np.random.default_rng(11)
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        atol, rtol = ATTN_TOLS[dtype_name]
+        dec_lens = rng.integers(17, MAX_LEN, SLOTS).tolist()
+        pf_lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS).tolist()
+        starts = rng.integers(0, MAX_LEN - 32, SLOTS).tolist()
+        cases = [
+            ("decode", 1, dec_lens, [n - 1 for n in dec_lens], "decode step"),
+            ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, "prefill"),
+            ("chunked prefill", 32, [t + 32 for t in starts], starts,
+             "chunk"),
+        ]
+        for name, Sq, lens, q_start, path in cases:
+            q, kp, vp, bt, qpos, kvl = paged_case(
+                gen, torch.float32, B=SLOTS, Sq=Sq, lens=lens,
+                q_start=q_start, H=H, Hkv=Hkv, D=D, ps=PAGE, nb=nb)
+            q = q.to(dt)
+            (qk, ks), (qv, vs) = Q.quantize_kv_pages(kp), \
+                Q.quantize_kv_pages(vp)
+            scale = D ** -0.5
+
+            def kernel():
+                return PA.paged_attention(q, qk, qv, bt, qpos, kvl,
+                                          kv_scales=(ks, vs))
+
+            def plain():
+                return PA.paged_attention_plain(
+                    q, qk, qv, bt, qpos, kvl, causal=True, scale=scale,
+                    soft_cap=None, kv_scales=(ks, vs))
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            cell = (f"paged_attention_int8 {name} B={SLOTS} Sq={Sq} q "
+                    f"{dtype_name}")
+            err = check_close(cell, got, want, atol, rtol)
+            masked = qpos < 0
+            if bool(masked.any()) and float(got[masked].abs().max()) != 0.0:
+                fail(f"{cell}: masked query rows are not exactly zero")
+            # SDPA over the gathered, dequantized pages (not timed)
+            rep = H // Hkv
+            kd = PA.gather_pages(Q.dequantize_kv_pages(qk, ks, dt), bt)
+            vd = PA.gather_pages(Q.dequantize_kv_pages(qv, vs, dt), bt)
+            qs, kss, vss = (x.transpose(1, 2).contiguous() for x in (
+                q, kd.repeat_interleave(rep, 2), vd.repeat_interleave(rep, 2)))
+            cols = torch.arange(nb * PAGE, device="cuda")
+            mask = ((cols[None, None, :] < kvl[:, None, None])
+                    & (cols[None, None, :] <= qpos[:, :, None]))[:, None]
+            t_k = timer.ms(kernel)
+            t_p = timer.ms(plain)
+            t_lib = timer.ms(lambda: sdpa(qs, kss, vss, attn_mask=mask))
+            # what this run's data needs: each visible page of K and V once
+            # as int8 plus its two fp32 scales, q and the output, the
+            # tables; 4·D operations per visible (query, head, key)
+            qmax = qpos.max(dim=1).values
+            horizon = torch.minimum(kvl, qmax + 1).clamp(min=0)
+            pages = int((-(-horizon // PAGE)).sum())
+            nbytes = 2 * pages * (PAGE * Hkv * D + 4 * Hkv) \
+                + 2 * q.numel() * dt.itemsize + 4 * (bt.numel() + qpos.numel())
+            vis = torch.minimum(kvl[:, None], qpos + 1).clamp(min=0)
+            flops = float(vis.sum()) * H * 4 * D
+            b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
+            rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
+                             path=path, uses=cfg.n_layers, max_abs_err=err,
+                             ms=t_k, plain_ms=t_p, library_ms=t_lib,
+                             bound_ms=b_ms, bound_by=b_by))
+            log(f"{cell}: max|d|={err:.2e} kernel {t_k:.4f} ms plain "
+                f"{t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: serving
 # ---------------------------------------------------------------------------
 
@@ -459,13 +653,11 @@ def serve_requests(eng, prompts, limit_s):
                 break
             owner[h] = pending.pop(0)[0]
             streams[owner[h]] = []
-        before = ({k: fn.launches for k, fn in kernel_wrappers().items()},
-                  eng.prefill_tokens)
+        before = (counts(), eng.prefill_tokens)
         out = eng.step()
         if eng.prefill_tokens == before[1] and not eng.wait and out:
             decode_deltas.append(tuple(
-                fn.launches - before[0][k]
-                for k, fn in kernel_wrappers().items()))
+                n - before[0][k] for k, n in counts().items()))
         n_tokens += len(out)
         for h, t in out.items():
             streams[owner[h]].append(t)
@@ -543,14 +735,15 @@ def run_serving_phase(cfg):
 # Phase 4: kernel path (card) vs plain path (CPU), full width, fp32
 # ---------------------------------------------------------------------------
 
-def greedy_run(cfg, params, device, prompts, n_steps):
+def greedy_run(cfg, params, device, prompts, n_steps, kv_dtype=None):
     from repro_torch.core import api
     from repro_torch.core.plan import AttentionPolicy
     from repro_torch.models import transformer as T
 
     B, S = prompts.shape
     nb = MAX_LEN // PAGE
-    caches = T.init_paged_caches(cfg, B, B * nb, PAGE, "float32", device)
+    caches = T.init_paged_caches(cfg, B, B * nb, PAGE, "float32", device,
+                                 kv_dtype=kv_dtype)
     bt = torch.arange(B * nb, dtype=torch.int32).reshape(B, nb).to(device)
     logits_all, toks = [], []
     with torch.no_grad(), api.use_attention_policy(
@@ -779,6 +972,179 @@ def run_contiguous_phase(cfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: int8 serving (W8A8 weights through K2, int8 KV pages through K5)
+# ---------------------------------------------------------------------------
+
+class QuantRecorder:
+    """Every int8 quantization of a run — each W8A8 GEMM input and each KV
+    write — as (fp32 values, scale, int8 payload) on the host, in call
+    order."""
+
+    def __enter__(self):
+        from repro_torch.core import quant as Q
+        self.Q, self.calls = Q, []
+        self.saved = (Q.quantize_activations, Q.quantize_kv_rows)
+        qa, qkv = self.saved
+
+        def act(x):
+            out = qa(x)
+            self.calls.append((x.float().cpu(), out[1][..., None].cpu(),
+                               out[0].cpu()))
+            return out
+
+        def kv(rows, scales):
+            out = qkv(rows, scales)
+            self.calls.append((rows.float().cpu(),
+                               scales.float()[..., None].cpu(), out.cpu()))
+            return out
+
+        Q.quantize_activations, Q.quantize_kv_rows = act, kv
+        return self
+
+    def __exit__(self, *exc):
+        self.Q.quantize_activations, self.Q.quantize_kv_rows = self.saved
+
+
+def tie_flip(calls_a, calls_b):
+    """Where two int8 runs part: the first call whose int8 payloads
+    differ. Fails unless every quantization before it saw the same fp32
+    values and scales up to fp32 noise (1e-5 relative) and every differing
+    value there differs by one step on a .5 tie of the grid (x / s within
+    1e-3 of k + 0.5): an ulp of fp32 difference rounded to another int8
+    value, not a fault of the kernels."""
+    if len(calls_a) != len(calls_b):
+        fail(f"int8 parity: {len(calls_a)} vs {len(calls_b)} quantizations")
+    for g, ((ax, as_, aq), (bx, bs, bq)) in enumerate(zip(calls_a, calls_b)):
+        if ax.shape != bx.shape:
+            fail(f"int8 parity: call {g} shapes {ax.shape} vs {bx.shape}")
+        noise = 1e-5 * max(float(bx.abs().max()), 1.0)
+        if float((ax - bx).abs().max()) > noise or not torch.allclose(
+                as_, bs, rtol=1e-5, atol=0):
+            fail(f"int8 parity: quantization call {g} saw fp32 values "
+                 f"{float((ax - bx).abs().max()):.3e} apart before any int8 "
+                 f"value differed")
+        flips = aq != bq
+        if bool(flips.any()):
+            step = (aq[flips].int() - bq[flips].int()).abs()
+            scaled = (bx / bs).expand_as(bx)[flips]
+            off_tie = (scaled - scaled.trunc()).abs().sub(0.5).abs()
+            if bool((step != 1).any()) or float(off_tie.max()) >= 1e-3:
+                fail(f"int8 parity: call {g} rounds {int(flips.sum())} "
+                     f"values differently, not one step on a .5 tie "
+                     f"(largest distance from a tie {float(off_tie.max()):.3e})")
+            return dict(call=g, of=len(calls_a), values=int(flips.sum()),
+                        all_later=sum(int((a[2] != b[2]).sum()) for a, b in
+                                      zip(calls_a[g:], calls_b[g:])))
+    return None
+
+
+def run_int8_serving_phase(cfg):
+    """Full-width smollm-135m, bf16, paged, weight_dtype and kv_dtype int8:
+    12 requests through submit/step under a 24-page pool (preemption), K2
+    and K5 launched and K1 and K4 not; one preempted request's stream
+    equals its solo stream on the card; then fp32, the card against the
+    CPU plain path over greedy_run."""
+    from repro_torch.core.api import pack_model_weights
+    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    sc = ServeConfig(batch_slots=SLOTS, max_len=MAX_LEN, cache_dtype=cfg.dtype,
+                     attention=AttentionPolicy(backend="paged", page_size=PAGE),
+                     cache_pages=CACHE_PAGES, weight_dtype="int8",
+                     kv_dtype="int8", device="cuda")
+    params = T.init_model(cfg, seed=0, device="cuda")
+    eng = ServingEngine(cfg, params, sc)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, PROMPT_BUCKET + 1, N_REQUESTS)]
+    preempted = []
+    preempt = eng._preempt
+    eng._preempt = lambda slot: (preempted.append(int(eng.slot_rid[slot])),
+                                 preempt(slot))[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts("int8 serving", ("matrixflow_gemm_dequant",
+                                            "paged_attention_int8"))
+    if launches["matrixflow_gemm"] or launches["paged_attention"]:
+        fail(f"int8 serving: an fp kernel ran on the int8 path: {launches}")
+    check_streams("int8 serving", streams, cfg.vocab)
+    if not preempted:
+        fail("int8 serving: the pool never ran dry (no preemption)")
+    stats = eng.stats()
+    del eng
+    # request ids are given in submission order, which is prompt order
+    rid = preempted[0]
+    solo = ServingEngine(cfg, params, sc)
+    h = solo.submit(prompts[rid])
+    alone = []
+    while len(alone) < GEN_LEN:
+        alone.append(solo.step()[h])
+    del solo
+    if alone != streams[rid]:
+        fail(f"int8 serving: preempted request {rid}'s stream "
+             f"{streams[rid]} differs from its solo stream {alone}")
+    log(f"int8 serving: {N_REQUESTS} requests x {GEN_LEN} tokens, {n_tokens} "
+        f"tokens in {dt:.3f} s ({n_tokens / dt:.1f} tok/s), "
+        f"{len(preempted)} preemptions, launches {launches}, per decode "
+        f"step {per_step}; preempted request {rid} equals its solo stream; "
+        f"pool {stats['kv_page_bytes']} B/page ({stats['kv_dtype']})")
+    res = dict(requests=N_REQUESTS, tokens=n_tokens, seconds=dt,
+               tokens_per_s=n_tokens / dt,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               preemptions=len(preempted), launches=launches,
+               launches_per_decode_step=per_step, solo_checked_request=rid,
+               stats=stats)
+
+    # fp32: the card's int8 path against the CPU plain path
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    prompts2 = np.random.default_rng(13).integers(0, cfg.vocab, (2, 24))
+    n_steps = 8
+    runs = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        p32 = pack_model_weights(T.init_model(cfg32, seed=14, device=device),
+                                 quantize="int8")
+        with QuantRecorder() as rec:
+            toks, lg = greedy_run(cfg32, p32, device, prompts2, n_steps,
+                                  kv_dtype="int8")
+        runs[device] = (toks, lg, rec.calls)
+        del p32
+    (toks_g, lg_g, calls_g), (toks_c, lg_c, calls_c) = runs["cuda"], runs["cpu"]
+    errs = [float((a - b).abs().max()) for a, b in zip(lg_g, lg_c)]
+    if not all(np.isfinite(errs)):
+        fail(f"int8 parity: non-finite logits {errs}")
+    flip = tie_flip(calls_g, calls_c)
+    parted = None
+    for b in range(toks_g.shape[0]):
+        i = next((i for i in range(toks_g.shape[1])
+                  if int(toks_g[b, i]) != int(toks_c[b, i])), None)
+        if i is None:
+            continue
+        top2 = lg_c[i][b].topk(2).values
+        margin = float(top2[0] - top2[1])
+        if margin >= LOGIT_TOL and flip is None:
+            fail(f"int8 parity: greedy streams part at row {b} step {i} "
+                 f"with plain top-2 margin {margin:.3e} >= {LOGIT_TOL} and "
+                 f"no int8 value rounded differently")
+        parted = parted or dict(row=b, step=i, margin=margin)
+    res["fp32_parity"] = dict(logit_max_abs_err=errs,
+                              streams_equal=parted is None,
+                              first_divergence=parted, first_tie_flip=flip,
+                              seconds=time.perf_counter() - t0)
+    log(f"int8 parity fp32 full width (W8A8 + int8 KV): logits max|d| per "
+        f"step {[f'{e:.2e}' for e in errs]}; streams "
+        f"{'equal' if parted is None else f'part at {parted}'}; first int8 "
+        f"value rounded differently: {flip}")
+    return res
+
+
 def aggregate(rows, dtype, path="decode step"):
     """Per run of ``path`` (a decode step, an encoder forward): each of its
     cells weighted by its uses per run."""
@@ -829,21 +1195,25 @@ def main() -> None:
     report["attention"] = run_attention_phase(timer, cfg)
     report["flash"] = run_flash_phase(timer, flash_cells(
         cfg, bert, vit, get_config("vit-huge"), np.random.default_rng(3)))
+    report["quant_gemm"] = run_quant_gemm_phase(timer, cfg, bert, vit)
+    report["int8_attention"] = run_int8_attention_phase(timer, cfg)
     report["serving"] = run_serving_phase(cfg)
     report["parity"] = run_parity_phase(cfg)
     report["encoders"] = run_encoder_phase(bert, vit)
     report["contiguous"] = run_contiguous_phase(cfg)
+    report["int8_serving"] = run_int8_serving_phase(cfg)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],
                **{f"{n} forward": report["encoders"][n]["launches"]
                   for n in (bert.name, vit.name)},
-               "contiguous serving": report["contiguous"]["launches"]}
+               "contiguous serving": report["contiguous"]["launches"],
+               "int8 paged serving": report["int8_serving"]["launches"]}
 
-    def entry(name, replaces, rows, path, other_paths):
+    def entry(name, source, replaces, rows, path, other_paths):
         launches = {p: c[name] for p, c in by_path.items() if c[name]}
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/csrc/{name}.cu",
+                "source": f"src/repro_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches, "times_per": path,
                 **aggregate(rows, "bfloat16", path),
@@ -851,14 +1221,22 @@ def main() -> None:
                                for p in other_paths}}
 
     kernels = [
-        entry("matrixflow_gemm", "src/repro/kernels/matrixflow_gemm.py:137",
-              report["gemm"], "decode step",
-              (f"{bert.name} forward", f"{vit.name} forward")),
-        entry("paged_attention", "src/repro/kernels/paged_attention.py:188",
+        entry("matrixflow_gemm", "matrixflow_gemm",
+              "src/repro/kernels/matrixflow_gemm.py:137", report["gemm"],
+              "decode step", (f"{bert.name} forward", f"{vit.name} forward")),
+        entry("matrixflow_gemm_dequant", "matrixflow_gemm",
+              "src/repro/kernels/matrixflow_gemm.py:154",
+              report["quant_gemm"], "decode step",
+              ("prefill", f"{bert.name} forward")),
+        entry("flash_attention", "flash_attention",
+              "src/repro/kernels/flash_attention.py:199", report["flash"],
+              f"{bert.name} forward", (f"{vit.name} forward", "decode step")),
+        entry("paged_attention", "paged_attention",
+              "src/repro/kernels/paged_attention.py:188",
               report["attention"], "decode step", ()),
-        entry("flash_attention", "src/repro/kernels/flash_attention.py:199",
-              report["flash"], f"{bert.name} forward",
-              (f"{vit.name} forward", "decode step")),
+        entry("paged_attention_int8", "paged_attention",
+              "src/repro/kernels/paged_attention.py:222",
+              report["int8_attention"], "decode step", ("prefill", "chunk")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,24 +3,27 @@
 spends its time, on one GPU.
 
     PYTHONPATH=src python3 scripts/torch_decode_profile.py [--steps 20]
-        [--attn-backend paged|fused]
+        [--attn-backend paged|fused] [--weight-dtype int8] [--kv-dtype int8]
     PYTHONPATH=src python3 scripts/torch_decode_profile.py --encoder bert-base
 
 Decode (the default): serves full-width smollm-135m (bf16, seeded random
 weights, resident block-major weights; paged KV with page 16, or
 contiguous KV caches under ``--attn-backend fused``) through ServingEngine
-with every slot decoding. ``--encoder ARCH`` instead runs full-width
+with every slot decoding. ``--weight-dtype int8`` runs every projection
+through the W8A8 GEMM (weights quantized at pack time) and ``--kv-dtype
+int8`` stores the KV pages int8 (paged only). ``--encoder ARCH`` instead runs full-width
 ``encoder_forward`` of bert-base (B 8 x S 128 tokens) or vit-base (B 8 x
 197 stub patch embeddings), bf16, default policies. Then:
 
 * times ``--steps`` decode-only ``step()`` calls (or forwards) on the host
   clock, each ending in a device sync;
 * profiles 5 more with torch.profiler and sums device time by kernel: the
-  MatrixFlow GEMM, the paged and flash attention kernels, and everything
-  else (PyTorch's elementwise, copy and index kernels). Device busy time
+  MatrixFlow GEMM and its W8A8 variant, the paged attention kernel over fp
+  and int8 pages, the flash attention kernel, and everything else
+  (PyTorch's elementwise, copy, reduction and index kernels). Device busy time
   over wall time gives the device's idle share.
 
-Writes chiprun_out/torch_decode_profile[_<arch>].json and prints one line
+Writes chiprun_out/torch_decode_profile_<what>.json and prints one line
 per number, with the card's name and power limit first. Fails without a
 GPU.
 """
@@ -47,10 +50,14 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--attn-backend", default="paged",
                     choices=["paged", "fused"])
+    ap.add_argument("--weight-dtype", default=None, choices=["int8"])
+    ap.add_argument("--kv-dtype", default=None, choices=["int8"])
     ap.add_argument("--encoder", default=None,
                     choices=["bert-base", "vit-base"],
                     help="profile encoder_forward instead of decode")
     args = ap.parse_args(argv)
+    if args.kv_dtype and args.attn_backend != "paged":
+        ap.error("--kv-dtype needs --attn-backend paged")
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a GPU", file=sys.stderr)
         return 1
@@ -90,11 +97,13 @@ def main(argv=None) -> int:
                                 cache_dtype=cfg.dtype, pack_weights=True,
                                 attention=AttentionPolicy(args.attn_backend,
                                                           16),
-                                device="cuda"))
+                                weight_dtype=args.weight_dtype,
+                                kv_dtype=args.kv_dtype, device="cuda"))
         for _ in range(args.slots):
             eng.submit(rng.integers(0, cfg.vocab, args.prompt_len).tolist())
         what = (f"smollm-135m decode step, {args.slots} slots, "
-                f"{args.attn_backend} attention")
+                f"{args.attn_backend} attention, weights "
+                f"{args.weight_dtype or cfg.dtype}, KV {args.kv_dtype or cfg.dtype}")
         step = eng.step
     for _ in range(3):
         step()
@@ -118,8 +127,10 @@ def main(argv=None) -> int:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kind = ("matrixflow_gemm" if "mf_gemm_kernel" in e.name else
-                "paged_attention" if "paged_attn_kernel" in e.name else
-                "flash_attention" if "flash_attn_kernel" in e.name else
+                "matrixflow_gemm_dequant" if "mf_gemm_dequant_kernel" in e.name
+                else "paged_attention" if "paged_attn_kernel" in e.name else
+                "paged_attention_int8" if "paged_attn_int8_kernel" in e.name
+                else "flash_attention" if "flash_attn_kernel" in e.name else
                 "other")
         by_kind[kind] += e.time_range.elapsed_us() / 1e3 / n_prof
         n_kernels[kind] += 1
@@ -138,8 +149,10 @@ def main(argv=None) -> int:
         print(f"{k}: {v}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    name = "torch_decode_profile" + (f"_{args.encoder}" if args.encoder else
-                                     f"_{args.attn_backend}")
+    name = "torch_decode_profile" + (
+        f"_{args.encoder}" if args.encoder else f"_{args.attn_backend}"
+        + (f"_w{args.weight_dtype}" if args.weight_dtype else "")
+        + (f"_kv{args.kv_dtype}" if args.kv_dtype else ""))
     (out / f"{name}.json").write_text(json.dumps(res, indent=1))
     return 0 if busy_ms > 0 else 1
 

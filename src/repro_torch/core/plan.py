@@ -10,7 +10,9 @@ resident block-major weights — the port of ``repro/core/plan.py``.
   CUDA kernels on a CUDA device, the plain versions on the CPU;
 * :class:`PackedWeight` — a weight held resident in block-major form (the
   paper's Fig. 5 reuse): packed once at model build, consumed by every
-  GEMM without a re-layout.
+  GEMM without a re-layout; with ``quantize="int8"`` (or a policy's
+  ``weight_dtype``) a :class:`~repro_torch.core.quant.QuantizedPackedWeight`
+  instead — int8 blocks plus per-channel scales, the W8A8 route.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from repro_torch.core import layout as L
+from repro_torch.core import quant as Q
+from repro_torch.core.quant import QuantizedPackedWeight
 
 __all__ = [
     "GemmPolicy", "ExecutionPlan", "PackedWeight", "BackendSpec",
@@ -30,9 +34,15 @@ __all__ = [
     "resolve_backend", "register_attention_backend",
     "get_attention_backend_spec", "resolve_attention_backend",
     "pack_weight", "pack_model_weights", "layout_for_packed",
+    "QuantizedPackedWeight",
 ]
 
 Device = Union[str, torch.device]
+
+# Quantized weight dtypes the GEMM route understands (core/quant.py).
+_WEIGHT_DTYPES = (None, "int8")
+# KV-pool dtypes the paged attention route understands.
+_KV_DTYPES = (None, "int8")
 
 
 def _device_type(device: Device) -> str:
@@ -53,10 +63,21 @@ class GemmPolicy:
     mode         paper access mode: "dc" | "dm" | "auto" (per-shape choice
                  by the sysmodel). Blocks come from core/layout.py's
                  Hopper chooser.
+    weight_dtype None → weights execute in their stored dtype; "int8" →
+                 the W8A8 route (core/quant.py): per-channel int8 weights,
+                 dynamic per-row int8 activations, int32 accumulation, the
+                 dequant fused into the C-block flush.
     """
 
     backend: str = "auto"
     mode: str = "auto"
+    weight_dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.weight_dtype not in _WEIGHT_DTYPES:
+            raise ValueError(
+                f"unsupported weight_dtype {self.weight_dtype!r}; "
+                f"expected one of {_WEIGHT_DTYPES}")
 
     def resolved_backend(self, device: Device) -> str:
         return resolve_backend(self.backend, device)
@@ -75,14 +96,23 @@ class AttentionPolicy:
                kernel's key-block size. Consumed by
                ``models/transformer.py::init_paged_caches`` and the serving
                engine's PagePool.
+    kv_dtype   None → the KV pool stores the model's cache dtype; "int8" →
+               the ``paged`` backend stores int8 pages with one fp32 scale
+               per (page, kv head), dequantized inside the paged kernel's
+               page fetch. The dense backends reject it (core/api.py).
     """
 
     backend: str = "auto"
     page_size: int = 16
+    kv_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.kv_dtype not in _KV_DTYPES:
+            raise ValueError(
+                f"unsupported kv_dtype {self.kv_dtype!r}; "
+                f"expected one of {_KV_DTYPES}")
 
     def resolved_backend(self, device: Device) -> str:
         return resolve_attention_backend(self.backend, device)
@@ -267,23 +297,40 @@ class PackedWeight:
 
 
 def pack_weight(w: torch.Tensor, policy: Optional[GemmPolicy] = None, *,
-                m_hint: int = 512) -> PackedWeight:
+                m_hint: int = 512, quantize: Optional[str] = None
+                ) -> Union[PackedWeight, QuantizedPackedWeight]:
     """Lay a (K, N) weight out block-major exactly once. bk and bn do not
     depend on M (core/layout.py), so ``m_hint`` only feeds the sysmodel's
-    DC/DM choice under ``mode="auto"``."""
+    DC/DM choice under ``mode="auto"``.
+
+    ``quantize="int8"`` (default: the policy's ``weight_dtype``) quantizes
+    per output channel at pack time and returns a QuantizedPackedWeight;
+    the block geometry is then chosen for the int8 itemsize (the paper's
+    per-dtype MAC sizing, Table 2)."""
     policy = policy if policy is not None else GemmPolicy()
+    quantize = quantize if quantize is not None else policy.weight_dtype
+    if quantize not in _WEIGHT_DTYPES:
+        raise ValueError(f"unsupported quantize={quantize!r}; "
+                         f"expected one of {_WEIGHT_DTYPES}")
     K, N = w.shape
+    pack_dtype = torch.int8 if quantize == "int8" else w.dtype
     mode = policy.mode
     if mode == "auto":
-        mode = _auto_mode(m_hint, N, K, w.dtype)
-    blk = L.choose_layout(m_hint, N, K, w.dtype, mode=mode)
+        mode = _auto_mode(m_hint, N, K, pack_dtype)
+    blk = L.choose_layout(m_hint, N, K, pack_dtype, mode=mode)
+    if quantize == "int8":
+        q, scales = Q.quantize_weight(w)
+        return QuantizedPackedWeight(
+            L.to_block_major_b(q, blk.bk, blk.bn), scales, K, N, blk.bk,
+            blk.bn, blk.mode, str(w.dtype).removeprefix("torch."))
     return PackedWeight(L.to_block_major_b(w, blk.bk, blk.bn), K, N,
                         blk.bk, blk.bn, blk.mode)
 
 
-def layout_for_packed(M: int, pw: PackedWeight) -> L.BlockLayout:
-    """The BlockLayout for an (M, K) activation against a packed weight:
-    bk/bn are frozen by the pack, bm follows M."""
+def layout_for_packed(M: int, pw: Union[PackedWeight, QuantizedPackedWeight]
+                      ) -> L.BlockLayout:
+    """The BlockLayout for an (M, K) activation against a packed weight
+    (fp or int8): bk/bn are frozen by the pack, bm follows M."""
     return L.BlockLayout(L.bm_for(M), pw.bn, pw.bk, pw.mode)
 
 
@@ -293,10 +340,14 @@ _PACK_KEYS = frozenset({"wq", "wk", "wv", "wo", "wi", "head"})
 
 
 def pack_model_weights(params, policy: Optional[GemmPolicy] = None, *,
-                       m_hint: int = 512):
+                       m_hint: int = 512, quantize: Optional[str] = None):
     """Pack every GEMM weight of a model param tree into a PackedWeight
     (the paper's offline weight arrangement, Fig. 5); norms and embeddings
-    pass through."""
+    pass through. ``quantize="int8"`` (default: the policy's
+    ``weight_dtype``) makes every one a QuantizedPackedWeight, the
+    quantize-at-pack deployment shape."""
+    if quantize is None and policy is not None:
+        quantize = policy.weight_dtype
     def rec(node, key=None):
         if isinstance(node, dict):
             return {k: rec(v, k) for k, v in node.items()}
@@ -304,7 +355,7 @@ def pack_model_weights(params, policy: Optional[GemmPolicy] = None, *,
             return [rec(v) for v in node]
         if key in _PACK_KEYS and isinstance(node, torch.Tensor) \
                 and node.dim() == 2:
-            return pack_weight(node, policy, m_hint=m_hint)
+            return pack_weight(node, policy, m_hint=m_hint, quantize=quantize)
         return node
 
     return rec(params)

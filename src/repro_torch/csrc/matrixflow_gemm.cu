@@ -1,8 +1,10 @@
 // MatrixFlow blocked GEMM for Hopper (sm_90a): the paper's Algorithm 1.
 //
-// Replaces the Pallas TPU kernel repro/kernels/matrixflow_gemm.py::_kernel
-// (driven by matrixflow_gemm_block_major). It takes the block-major
-// operands as they are:
+// Replaces the Pallas TPU kernels repro/kernels/matrixflow_gemm.py::_kernel
+// (mf_gemm_kernel) and ::_kernel_fused_dequant (mf_gemm_dequant_kernel, the
+// W8A8 route: int8 operands, int32 accumulation, and the flush writes
+// float(acc) * s_a[m] * s_b[n] in the output dtype). Both take the
+// block-major operands as they are:
 //
 //   A_bm (nbm, nbk, bm, bk)   B_bm (nbn, nbk, bk, bn)   ->   C_bm (nbm, nbn, bm, bn)
 //   C_bm[i, j] = sum_k A_bm[i, k] @ B_bm[j, k]
@@ -22,7 +24,16 @@
 // it with plain FMA on the CUDA cores (fp32 accumulate; int32 for int8),
 // not on the tensor cores: wgmma and TMA are later work.
 //
-// Interface: a plain C function, loaded with ctypes
+// The dequant epilogue rounds the exact int32 sum to fp32 with
+// __int2float_rn and multiplies by s_a[m], then by s_b[n], each a separate
+// round-to-nearest product (__fmul_rn: never contracted), as the plain
+// version and the JAX reference do; an int8 GEMM at K = 1536 reaches
+// |acc| ~ 2.5e7 > 2^24, so that rounding is part of the contract. It is
+// bound like K1: HBM bytes at decode (half of bf16's, the weights being
+// int8), CUDA-core integer MACs at prefill; dp4a and the tensor cores'
+// s8 mma are later work.
+//
+// Interface: plain C functions, loaded with ctypes
 // (src/repro_torch/kernels/matrixflow_gemm.py checks every argument).
 
 #include <cuda_bf16.h>
@@ -45,10 +56,13 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ void store(int* p, int x) { *p = x; }
 
-template <typename T, typename Out, int BM, int BN>
-__global__ void __launch_bounds__(kThreads)
-mf_gemm_kernel(const T* __restrict__ a_bm, const T* __restrict__ b_bm,
-               Out* __restrict__ c_bm, int nbn, int nbk, int bk) {
+// One CTA's C block (i = blockIdx.y, j = blockIdx.x) accumulated over the
+// whole K stream into acc; thread (tx, ty) owns rows ty + 16 m and columns
+// tx + 16 n of the block.
+template <typename T, int BM, int BN>
+__device__ __forceinline__ void gemm_tile(
+    const T* __restrict__ a_bm, const T* __restrict__ b_bm, int nbk, int bk,
+    typename AccOf<T>::type (&acc)[BM / 16][BN / 16]) {
   using Acc = typename AccOf<T>::type;
   constexpr int kVec = 16 / sizeof(T);              // elements per 16-byte load
   constexpr int kRowVecs = kSlice / kVec;           // loads per A row slice
@@ -111,7 +125,6 @@ mf_gemm_kernel(const T* __restrict__ a_bm, const T* __restrict__ b_bm,
     }
   };
 
-  Acc acc[TM][TN];
 #pragma unroll
   for (int m = 0; m < TM; ++m)
 #pragma unroll
@@ -136,12 +149,48 @@ mf_gemm_kernel(const T* __restrict__ a_bm, const T* __restrict__ b_bm,
     }
     __syncthreads();
   }
+}
 
+template <typename T, typename Out, int BM, int BN>
+__global__ void __launch_bounds__(kThreads)
+mf_gemm_kernel(const T* __restrict__ a_bm, const T* __restrict__ b_bm,
+               Out* __restrict__ c_bm, int nbn, int nbk, int bk) {
+  typename AccOf<T>::type acc[BM / 16][BN / 16];
+  gemm_tile<T, BM, BN>(a_bm, b_bm, nbk, bk, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  Out* c_blk = c_bm + (static_cast<size_t>(blockIdx.y) * nbn + blockIdx.x) * BM * BN;
+#pragma unroll
+  for (int m = 0; m < BM / 16; ++m)
+#pragma unroll
+    for (int n = 0; n < BN / 16; ++n) store(&c_blk[(ty + 16 * m) * BN + tx + 16 * n], acc[m][n]);
+}
+
+// K2: K1's int8 instance with the dequant fused into the flush. sa holds
+// n_sa row scales and sb n_sb channel scales; rows and channels past them
+// (the block grid's padding, or a null pointer with n = 0) read a scale of 1.
+template <typename Out, int BM, int BN>
+__global__ void __launch_bounds__(kThreads)
+mf_gemm_dequant_kernel(const int8_t* __restrict__ a_bm, const int8_t* __restrict__ b_bm,
+                       const float* __restrict__ sa, int n_sa,
+                       const float* __restrict__ sb, int n_sb,
+                       Out* __restrict__ c_bm, int nbn, int nbk, int bk) {
+  int acc[BM / 16][BN / 16];
+  gemm_tile<int8_t, BM, BN>(a_bm, b_bm, nbk, bk, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int i = blockIdx.y, j = blockIdx.x;
   Out* c_blk = c_bm + (static_cast<size_t>(i) * nbn + j) * BM * BN;
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+  for (int m = 0; m < BM / 16; ++m) {
+    const int row = i * BM + ty + 16 * m;
+    const float s_m = row < n_sa ? sa[row] : 1.f;
 #pragma unroll
-    for (int n = 0; n < TN; ++n) store(&c_blk[(ty + 16 * m) * BN + tx + 16 * n], acc[m][n]);
+    for (int n = 0; n < BN / 16; ++n) {
+      const int col = j * BN + tx + 16 * n;
+      const float s_n = col < n_sb ? sb[col] : 1.f;
+      const float c = __fmul_rn(__fmul_rn(__int2float_rn(acc[m][n]), s_m), s_n);
+      store(&c_blk[(ty + 16 * m) * BN + tx + 16 * n], c);
+    }
+  }
 }
 
 template <typename T, typename Out>
@@ -153,6 +202,25 @@ cudaError_t launch(int bm, int bn, const void* a, const void* b, void* c,
     mf_gemm_kernel<T, Out, BM_, BN_><<<grid, kThreads, 0, s>>>(                \
         static_cast<const T*>(a), static_cast<const T*>(b),                    \
         static_cast<Out*>(c), nbn, nbk, bk);                                   \
+    return cudaGetLastError();                                                 \
+  }
+  MF_CASE(16, 32) MF_CASE(16, 64) MF_CASE(16, 128)
+  MF_CASE(32, 32) MF_CASE(32, 64) MF_CASE(32, 128)
+  MF_CASE(64, 32) MF_CASE(64, 64) MF_CASE(64, 128)
+#undef MF_CASE
+  return cudaErrorInvalidValue;
+}
+
+template <typename Out>
+cudaError_t launch_dequant(int bm, int bn, const void* a, const void* b, const float* sa,
+                           int n_sa, const float* sb, int n_sb, void* c, int nbm, int nbn,
+                           int nbk, int bk, cudaStream_t s) {
+  const dim3 grid(nbn, nbm);
+#define MF_CASE(BM_, BN_)                                                      \
+  if (bm == BM_ && bn == BN_) {                                                \
+    mf_gemm_dequant_kernel<Out, BM_, BN_><<<grid, kThreads, 0, s>>>(           \
+        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), sa, n_sa,\
+        sb, n_sb, static_cast<Out*>(c), nbn, nbk, bk);                         \
     return cudaGetLastError();                                                 \
   }
   MF_CASE(16, 32) MF_CASE(16, 64) MF_CASE(16, 128)
@@ -180,6 +248,27 @@ extern "C" int mf_gemm(int in_code, int out_code, int bm, int bn,
     return launch<__nv_bfloat16, float>(bm, bn, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, s);
   if (in_code == 2 && out_code == 2)
     return launch<int8_t, int>(bm, bn, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, s);
+  return cudaErrorInvalidValue;
+}
+
+// K2: int8 block-major operands, fp32 scales sa (n_sa <= nbm * bm rows)
+// and sb (n_sb <= nbn * bn channels), either null with n = 0 (all ones);
+// out_code 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+extern "C" int mf_gemm_dequant(int out_code, int bm, int bn, const void* a_bm,
+                               const void* b_bm, const float* sa, int n_sa,
+                               const float* sb, int n_sb, void* c_bm, int nbm, int nbn,
+                               int nbk, int bk, void* stream) {
+  if (nbm == 0 || nbn == 0) return 0;
+  if (bk % kSlice != 0 || n_sa < 0 || n_sb < 0 || (n_sa > 0 && sa == nullptr) ||
+      (n_sb > 0 && sb == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_code == 0)
+    return launch_dequant<float>(bm, bn, a_bm, b_bm, sa, n_sa, sb, n_sb, c_bm, nbm, nbn, nbk,
+                                 bk, s);
+  if (out_code == 1)
+    return launch_dequant<__nv_bfloat16>(bm, bn, a_bm, b_bm, sa, n_sa, sb, n_sb, c_bm, nbm,
+                                         nbn, nbk, bk, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
 // Paged (block-table) flash attention for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel repro/kernels/paged_attention.py::_kernel
-// for fp32 and bf16 pools (the int8 branch is not ported yet). Contract, as
-// there:
+// Replaces the Pallas TPU kernel repro/kernels/paged_attention.py::_kernel:
+// paged_attn_kernel for fp32 and bf16 pools (K4), paged_attn_int8_kernel
+// for its int8 branch (K5). Contract, as there:
 //
 //   q (B, Sq, H, D) model layout; k/v pools (P, ps, Hkv, D|Dv);
 //   block_tables (B, nb) int32: logical key block j of row b is physical
@@ -16,6 +16,15 @@
 //   max(l, 1e-30), so a row that sees no key is exactly 0. Blocks past the
 //   valid length or beyond every row's causal frontier are skipped.
 //
+// int8 pools (K5): k_scales / v_scales are fp32 (P, Hkv). The CTA reads
+// the scale of (page, g) — the page its block-table entry named, so the
+// scale rides the same indirection as the page — and stages each int8
+// element as float(x) * scale into the same fp32 shared tiles. The
+// recurrence is then K4's in fp32; as in the TPU kernel, which
+// dequantizes the page to fp32 before the block step, p is NOT rounded to
+// q's dtype before P.V (round_as is the identity for int8 pools, bf16 q
+// included).
+//
 // Layout of the work: one CTA per (query tile, kv head g, batch row b).
 // Its rows are the query positions of the tile times the rep = H / Hkv
 // query heads that share kv head g (GQA folded into the CTA), so each page
@@ -27,11 +36,15 @@
 //
 // What bounds it on an H100: the bytes of the visible K/V pages (decode
 // reads every populated page of every slot once per layer), so HBM
-// bandwidth. The arithmetic is fp32 FMA on the CUDA cores.
+// bandwidth; int8 pages halve them against bf16. The arithmetic is fp32
+// FMA on the CUDA cores. Both kernels stage a page element by element
+// (a 16-byte chunk fetch is later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -49,10 +62,19 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// p.astype(v.dtype): identity for fp32 pools, round-to-nearest-even for bf16.
+// p.astype(v.dtype): identity for fp32 pools and for int8 pools (their
+// pages are dequantized to fp32), round-to-nearest-even for bf16.
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const int8_t*) { return x; }
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
+}
+// A pool element as fp32: fp pools convert, int8 pools dequantize by the
+// (page, kv head) scale (one fp32 product, as x.astype(f32) * s).
+__device__ __forceinline__ float from_pool(float x, float) { return x; }
+__device__ __forceinline__ float from_pool(__nv_bfloat16 x, float) { return __bfloat162float(x); }
+__device__ __forceinline__ float from_pool(int8_t x, float s) {
+  return __fmul_rn(static_cast<float>(x), s);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -66,14 +88,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                  const T* __restrict__ vp, const int* __restrict__ block_tables,
-                  const int* __restrict__ q_positions,
-                  const int* __restrict__ kv_valid_len, T* __restrict__ out,
-                  int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
-                  float scale, float soft_cap, int causal) {
+// The CTA body; T is q's and the output's dtype, KV the pools'. k_scales
+// and v_scales are read only for int8 pools.
+template <typename T, typename KV>
+__device__ __forceinline__ void paged_attn_body(
+    const T* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+    const int* __restrict__ block_tables, const int* __restrict__ q_positions,
+    const int* __restrict__ kv_valid_len, T* __restrict__ out, int Sq, int H, int Hkv,
+    int D, int Dv, int ps, int nb, int qt, float scale, float soft_cap, int causal) {
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
   const int tile = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv;
   const int s0 = tile * qt;
@@ -114,14 +138,16 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     if (col0 >= kvlen) break;
     if (causal && col0 > qmax) break;
     const size_t page = static_cast<size_t>(block_tables[static_cast<size_t>(b) * nb + j]);
+    const float k_sc = kInt8 ? k_scales[page * Hkv + g] : 1.f;
+    const float v_sc = kInt8 ? v_scales[page * Hkv + g] : 1.f;
     __syncthreads();                        // the previous page's readers are done
     for (int e = tid; e < ps * D; e += kThreads) {
       const int t = e / D, d = e % D;
-      ks[t][d] = to_f(kp[((page * ps + t) * Hkv + g) * D + d]);
+      ks[t][d] = from_pool(kp[((page * ps + t) * Hkv + g) * D + d], k_sc);
     }
     for (int e = tid; e < ps * Dv; e += kThreads) {
       const int t = e / Dv, d = e % Dv;
-      vs[t][d] = to_f(vp[((page * ps + t) * Hkv + g) * Dv + d]);
+      vs[t][d] = from_pool(vp[((page * ps + t) * Hkv + g) * Dv + d], v_sc);
     }
     __syncthreads();
 
@@ -142,7 +168,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const float p = valid ? expf(s - m_new) : 0.f;
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + warp_sum(p);
-      const float pv = round_as(p, q);
+      const float pv = round_as(p, kp);
       float sum[kDPerLane];
 #pragma unroll
       for (int u = 0; u < kDPerLane; ++u) sum[u] = 0.f;
@@ -175,37 +201,85 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                  const T* __restrict__ vp, const int* __restrict__ block_tables,
+                  const int* __restrict__ q_positions,
+                  const int* __restrict__ kv_valid_len, T* __restrict__ out,
+                  int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
+                  float scale, float soft_cap, int causal) {
+  paged_attn_body<T, T>(q, kp, vp, nullptr, nullptr, block_tables, q_positions,
+                        kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+                        soft_cap, causal);
+}
+
+// K5: int8 pools, per-(page, kv head) fp32 scales.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kp,
+                       const int8_t* __restrict__ vp, const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales,
+                       const int* __restrict__ block_tables,
+                       const int* __restrict__ q_positions,
+                       const int* __restrict__ kv_valid_len, T* __restrict__ out,
+                       int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
+                       float scale, float soft_cap, int causal) {
+  paged_attn_body<T, int8_t>(q, kp, vp, k_scales, v_scales, block_tables, q_positions,
+                             kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+                             soft_cap, causal);
+}
+
+template <typename T>
+cudaError_t launch(int pool_code, const void* q, const void* kp, const void* vp,
+                   const float* ks, const float* vs, const int* block_tables,
+                   const int* q_positions, const int* kv_valid_len, void* out, int B,
+                   int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
+                   float scale, float soft_cap, int causal, cudaStream_t s) {
+  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
+  if (pool_code == 2) {
+    if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
+    paged_attn_int8_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(q), static_cast<const int8_t*>(kp),
+        static_cast<const int8_t*>(vp), ks, vs, block_tables, q_positions, kv_valid_len,
+        static_cast<T*>(out), Sq, H, Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal);
+  } else {
+    paged_attn_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+        block_tables, q_positions, kv_valid_len, static_cast<T*>(out), Sq, H, Hkv, D,
+        Dv, ps, nb, qt, scale, soft_cap, causal);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16 (q, pools and output alike).
-// qt: query positions per CTA, with qt * (H / Hkv) <= 16.
-// soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on `stream`.
-extern "C" int paged_attention(int dtype_code, const void* q, const void* k_pages,
-                               const void* v_pages, const int* block_tables,
-                               const int* q_positions, const int* kv_valid_len,
-                               void* out, int B, int Sq, int H, int Hkv, int D,
-                               int Dv, int ps, int nb, int qt, float scale,
+// q_code: 0 = float32, 1 = bfloat16 (q and output). pool_code: q_code for
+// pools of q's dtype (K4), 2 for int8 pools (K5, with k_scales/v_scales
+// fp32 (P, Hkv); null otherwise). qt: query positions per CTA, with
+// qt * (H / Hkv) <= 16. soft_cap <= 0 means none. Returns a cudaError_t;
+// asynchronous on `stream`.
+extern "C" int paged_attention(int q_code, int pool_code, const void* q,
+                               const void* k_pages, const void* v_pages,
+                               const float* k_scales, const float* v_scales,
+                               const int* block_tables, const int* q_positions,
+                               const int* kv_valid_len, void* out, int B, int Sq, int H,
+                               int Hkv, int D, int Dv, int ps, int nb, int qt, float scale,
                                float soft_cap, int causal, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (ps > kMaxPage || D > kMaxD || Dv > kMaxD || qt * (H / Hkv) > kMaxRows || qt < 1)
     return cudaErrorInvalidValue;
-  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
+  if (pool_code != q_code && pool_code != 2) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0) {
-    paged_attn_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages), block_tables, q_positions, kv_valid_len,
-        static_cast<float*>(out), Sq, H, Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal);
-  } else if (dtype_code == 1) {
-    paged_attn_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages), block_tables, q_positions, kv_valid_len,
-        static_cast<__nv_bfloat16*>(out), Sq, H, Hkv, D, Dv, ps, nb, qt, scale, soft_cap,
-        causal);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (q_code == 0)
+    return launch<float>(pool_code, q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                         q_positions, kv_valid_len, out, B, Sq, H, Hkv, D, Dv, ps, nb, qt,
+                         scale, soft_cap, causal, s);
+  if (q_code == 1)
+    return launch<__nv_bfloat16>(pool_code, q, k_pages, v_pages, k_scales, v_scales,
+                                 block_tables, q_positions, kv_valid_len, out, B, Sq, H,
+                                 Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* pa_error_string(int err) {

@@ -1,12 +1,15 @@
-"""MatrixFlow blocked GEMM (paper Algorithm 1): wrapper of the CUDA kernel
-``csrc/matrixflow_gemm.cu``, which replaces the Pallas TPU kernel
-``repro/kernels/matrixflow_gemm.py::_kernel``.
+"""MatrixFlow blocked GEMM (paper Algorithm 1): wrappers of the CUDA
+kernels in ``csrc/matrixflow_gemm.cu``, which replace the Pallas TPU kernels
+``repro/kernels/matrixflow_gemm.py::_kernel`` (K1) and
+``::_kernel_fused_dequant`` (K2, the W8A8 route).
 
-:func:`matrixflow_gemm_block_major` takes block-major operands — including a
-resident ``PackedWeight``'s blocks — and returns C block-major. For tensors
-on the CPU it runs the plain version (``kernels/ref.py::block_matmul_ref``);
-for CUDA tensors it launches the kernel or raises. ``launches`` counts the
-kernel launches.
+:func:`matrixflow_gemm_block_major` (K1) takes block-major operands —
+including a resident ``PackedWeight``'s blocks — and returns C block-major.
+:func:`matrixflow_gemm_dequant` (K2) takes int8 block-major operands and
+the row and channel scales, and returns C rescaled at the flush. For
+tensors on the CPU each runs its plain version
+(``kernels/ref.py::block_matmul_ref``); for CUDA tensors it launches its
+kernel or raises. Each counts its own launches (``.launches``).
 """
 from __future__ import annotations
 
@@ -19,11 +22,13 @@ from repro_torch.core import layout as L
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref
 
-# Plain version of the kernel (Algorithm 1, K innermost).
+# Plain version of the kernels (Algorithm 1, K innermost; with scales, K2).
 plain = block_matmul_ref
 
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+# Output dtypes of the dequant-fused kernel (K2).
+_DEQUANT_OUT = (torch.float32, torch.bfloat16)
 # (input dtype, output dtype) pairs the kernel instantiates.
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.bfloat16, torch.float32), (torch.int8, torch.int32)}
@@ -35,21 +40,15 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.mf_gemm.argtypes = [i, i, i, i, vp, vp, vp, i, i, i, i, vp]
         lib.mf_gemm.restype = ctypes.c_int
+        lib.mf_gemm_dequant.argtypes = [i, i, i, vp, vp, vp, i, vp, i, vp,
+                                        i, i, i, i, vp]
+        lib.mf_gemm_dequant.restype = ctypes.c_int
         lib.mf_error_string.argtypes = [i]
         lib.mf_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def matrixflow_gemm_block_major(
-    a_bm: torch.Tensor, b_bm: torch.Tensor, *,
-    out_dtype: Optional[torch.dtype] = None,
-) -> torch.Tensor:
-    """C_bm = A_bm @ B_bm over MatrixFlow block-major operands.
-
-    a_bm (nbm, nbk, bm, bk), b_bm (nbn, nbk, bk, bn) → C_bm (nbm, nbn, bm,
-    bn). Accumulates in fp32 (int32 for int8); ``out_dtype`` defaults to
-    the accumulator dtype, as in the TPU kernel.
-    """
+def _check_operands(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
     if a_bm.dim() != 4 or b_bm.dim() != 4:
         raise ValueError(f"block-major operands must be 4-D, got "
                          f"{tuple(a_bm.shape)} and {tuple(b_bm.shape)}")
@@ -64,15 +63,13 @@ def matrixflow_gemm_block_major(
         raise ValueError(f"operand dtypes differ: {a_bm.dtype} vs {b_bm.dtype}")
     if a_bm.device != b_bm.device:
         raise ValueError(f"operands on {a_bm.device} and {b_bm.device}")
-    out_dtype = out_dtype or acc_dtype_for(a_bm.dtype)
-    if a_bm.device.type == "cpu":
-        return plain(a_bm, b_bm, out_dtype=out_dtype)
+
+
+def _check_launch(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
+    """What the CUDA kernels take beyond :func:`_check_operands`."""
     if a_bm.device.type != "cuda":
         raise ValueError(f"no MatrixFlow GEMM for device {a_bm.device}")
-    if (a_bm.dtype, out_dtype) not in _PAIRS:
-        raise ValueError(f"the kernel takes {sorted(map(str, _PAIRS))} "
-                         f"(input, output) dtypes, not ({a_bm.dtype}, "
-                         f"{out_dtype})")
+    bm, bk, bn = a_bm.shape[2], a_bm.shape[3], b_bm.shape[3]
     if bm not in L.BM_CHOICES or bn not in L.BN_CHOICES or bk % L.K_SLICE:
         raise ValueError(
             f"block geometry (bm={bm}, bn={bn}, bk={bk}) is not one the "
@@ -83,18 +80,99 @@ def matrixflow_gemm_block_major(
         raise ValueError("block-major operands must be contiguous")
     if a_bm.data_ptr() % 16 or b_bm.data_ptr() % 16:
         raise ValueError("operands must be 16-byte aligned")
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.mf_error_string(err).decode()}")
+
+
+def matrixflow_gemm_block_major(
+    a_bm: torch.Tensor, b_bm: torch.Tensor, *,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """C_bm = A_bm @ B_bm over MatrixFlow block-major operands (K1).
+
+    a_bm (nbm, nbk, bm, bk), b_bm (nbn, nbk, bk, bn) → C_bm (nbm, nbn, bm,
+    bn). Accumulates in fp32 (int32 for int8); ``out_dtype`` defaults to
+    the accumulator dtype, as in the TPU kernel.
+    """
+    _check_operands(a_bm, b_bm)
+    out_dtype = out_dtype or acc_dtype_for(a_bm.dtype)
+    if a_bm.device.type == "cpu":
+        return plain(a_bm, b_bm, out_dtype=out_dtype)
+    _check_launch(a_bm, b_bm)
+    if (a_bm.dtype, out_dtype) not in _PAIRS:
+        raise ValueError(f"the kernel takes {sorted(map(str, _PAIRS))} "
+                         f"(input, output) dtypes, not ({a_bm.dtype}, "
+                         f"{out_dtype})")
+    nbm, nbk, bm, bk = a_bm.shape
+    nbn, bn = b_bm.shape[0], b_bm.shape[3]
     c_bm = torch.empty((nbm, nbn, bm, bn), dtype=out_dtype,
                        device=a_bm.device)
     lib = _lib()
-    err = lib.mf_gemm(_IN_CODES[a_bm.dtype], _OUT_CODES[out_dtype], bm, bn,
-                      a_bm.data_ptr(), b_bm.data_ptr(), c_bm.data_ptr(),
-                      nbm, nbn, nbk, bk,
-                      torch.cuda.current_stream(a_bm.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"matrixflow_gemm launch failed: "
-                           f"{lib.mf_error_string(err).decode()}")
+    _raise_on(lib.mf_gemm(_IN_CODES[a_bm.dtype], _OUT_CODES[out_dtype], bm,
+                          bn, a_bm.data_ptr(), b_bm.data_ptr(),
+                          c_bm.data_ptr(), nbm, nbn, nbk, bk,
+                          torch.cuda.current_stream(a_bm.device).cuda_stream),
+              lib, "matrixflow_gemm")
     matrixflow_gemm_block_major.launches += 1
     return c_bm
 
 
 matrixflow_gemm_block_major.launches = 0
+
+
+def matrixflow_gemm_dequant(
+    a_bm: torch.Tensor, b_bm: torch.Tensor,
+    scale_a: Optional[torch.Tensor], scale_b: Optional[torch.Tensor], *,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The W8A8 GEMM (K2): C_bm = (A_bm @ B_bm) · s_a[m] · s_b[n].
+
+    int8 a_bm (nbm, nbk, bm, bk) and b_bm (nbn, nbk, bk, bn); ``scale_a``
+    holds at most nbm·bm row scales and ``scale_b`` at most nbn·bn channel
+    scales (fp32; rows and channels past them, or all when None, scale by
+    1 — the kernel reads them in place, without a padded copy).
+    Accumulates in int32; each C block is written once, as
+    ``float(acc) * s_a[m] * s_b[n]`` in ``out_dtype`` (fp32 or bf16).
+    """
+    _check_operands(a_bm, b_bm)
+    if a_bm.dtype != torch.int8:
+        raise ValueError(f"the dequant GEMM takes int8 operands, got "
+                         f"{a_bm.dtype}")
+    nbm, nbk, bm, bk = a_bm.shape
+    nbn, bn = b_bm.shape[0], b_bm.shape[3]
+    for name, sc, n in (("scale_a", scale_a, nbm * bm),
+                        ("scale_b", scale_b, nbn * bn)):
+        if sc is not None and (sc.dim() != 1 or sc.shape[0] > n):
+            raise ValueError(f"{name} {tuple(sc.shape)} must be 1-D with at "
+                             f"most {n} entries (the block grid)")
+        if sc is not None and sc.device != a_bm.device:
+            raise ValueError(f"{name} is on {sc.device}, operands on "
+                             f"{a_bm.device}")
+    if a_bm.device.type == "cpu":
+        return plain(a_bm, b_bm, out_dtype=out_dtype, scale_a=scale_a,
+                     scale_b=scale_b)
+    _check_launch(a_bm, b_bm)
+    if out_dtype not in _DEQUANT_OUT:
+        raise ValueError(f"the dequant kernel writes {_DEQUANT_OUT}, not "
+                         f"{out_dtype}")
+    sa, sb = (None if sc is None else sc.float().contiguous()
+              for sc in (scale_a, scale_b))
+    c_bm = torch.empty((nbm, nbn, bm, bn), dtype=out_dtype,
+                       device=a_bm.device)
+    lib = _lib()
+    _raise_on(lib.mf_gemm_dequant(
+        _OUT_CODES[out_dtype], bm, bn, a_bm.data_ptr(), b_bm.data_ptr(),
+        None if sa is None else sa.data_ptr(), 0 if sa is None else len(sa),
+        None if sb is None else sb.data_ptr(), 0 if sb is None else len(sb),
+        c_bm.data_ptr(), nbm, nbn, nbk, bk,
+        torch.cuda.current_stream(a_bm.device).cuda_stream),
+        lib, "matrixflow_gemm_dequant")
+    matrixflow_gemm_dequant.launches += 1
+    return c_bm
+
+
+matrixflow_gemm_dequant.launches = 0

@@ -1,6 +1,8 @@
-"""Paged (block-table) flash attention: wrapper of the CUDA kernel
-``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
-``repro/kernels/paged_attention.py::_kernel`` for fp32/bf16 pools.
+"""Paged (block-table) flash attention: wrapper of the CUDA kernels in
+``csrc/paged_attention.cu``, which replace the Pallas TPU kernel
+``repro/kernels/paged_attention.py::_kernel`` — for fp32/bf16 pools (K4)
+and its int8 branch (K5: int8 pools with one fp32 scale per (page, kv
+head), dequantized as each page is staged).
 
 K/V live in a pool of fixed-size pages; each request owns a block table
 mapping its logical key blocks to physical pages. The key-block size IS the
@@ -8,7 +10,8 @@ page size. ``cols`` are logical positions: the table redirects only the
 fetch, never the masking. For tensors on the CPU :func:`paged_attention`
 runs :func:`paged_attention_plain`, the same online-softmax recurrence in
 PyTorch, one page at a time; for CUDA tensors it launches the kernel or
-raises. ``launches`` counts the kernel launches.
+raises. ``paged_attention.launches`` counts K4's launches (fp pools) and
+``paged_attention.launches_int8`` K5's (int8 pools).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ MAX_HEAD_DIM = 128
 MAX_ROWS = 16                      # query positions x rep heads per CTA
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8_POOL = 2     # the pool code of int8 pages (K5)
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,7 +38,7 @@ def _lib() -> ctypes.CDLL:
     if lib.paged_attention.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention.argtypes = [
-            i, vp, vp, vp, vp, vp, vp, vp,
+            i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
             i, i, i, i, i, i, i, i, i, f, f, i, vp]
         lib.paged_attention.restype = ctypes.c_int
         lib.pa_error_string.argtypes = [i]
@@ -44,13 +48,17 @@ def _lib() -> ctypes.CDLL:
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, q_positions,
                           kv_valid_len, *, causal: bool, scale: float,
-                          soft_cap: Optional[float]) -> torch.Tensor:
-    """The kernel's recurrence in PyTorch (the plain version).
+                          soft_cap: Optional[float],
+                          kv_scales=None) -> torch.Tensor:
+    """The kernels' recurrence in PyTorch (the plain version of K4 and K5).
 
     Arguments as :func:`paged_attention` after its defaults are resolved
     (``kv_valid_len`` clamped to nb * ps). Key block j is page
-    ``block_tables[:, j]``; fp32 online softmax, p zeroed where invalid,
-    p rounded to the pool dtype before P·V, flush by max(l, 1e-30).
+    ``block_tables[:, j]``; an int8 page is dequantized to fp32 by its
+    (page, kv head) scales from ``kv_scales``; fp32 online softmax, p
+    zeroed where invalid, p rounded to the dtype of the V block (the fp
+    pool's; fp32 for a dequantized int8 page) before P·V, flush by
+    max(l, 1e-30).
     """
     B, Sq, H, D = q.shape
     _, ps, Hkv, Dv = v_pages.shape
@@ -62,10 +70,15 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, q_positions,
     acc = torch.zeros((B, H, Sq, Dv), device=dev)
     qpos = q_positions[:, None, :, None]                     # (B, 1, Sq, 1)
     kvlen = kv_valid_len[:, None, None, None]
+    p_dtype = torch.float32 if kv_scales is not None else v_pages.dtype
     for j in range(block_tables.shape[1]):
         pages = block_tables[:, j].long()
-        kb = k_pages[pages].repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
-        vb = v_pages[pages].repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+        kb, vb = k_pages[pages], v_pages[pages]        # (B, ps, Hkv, D)
+        if kv_scales is not None:
+            kb = kb.float() * kv_scales[0][pages][:, None, :, None]
+            vb = vb.float() * kv_scales[1][pages][:, None, :, None]
+        kb = kb.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+        vb = vb.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
         s = torch.matmul(qf, kb.float().transpose(-1, -2)) * scale
         if soft_cap:
             s = soft_cap * torch.tanh(s / soft_cap)
@@ -78,8 +91,7 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, q_positions,
         p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
         corr = torch.exp(m - m_new)
         l_sum = l_sum * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.matmul(p.to(v_pages.dtype).float(),
-                                        vb.float())
+        acc = acc * corr + torch.matmul(p.to(p_dtype).float(), vb.float())
         m = m_new
     out = acc / torch.clamp(l_sum, min=1e-30)
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
@@ -93,6 +105,7 @@ def paged_attention(
     q_positions: Optional[torch.Tensor] = None,   # (B, Sq) int32; <0 → masked
     kv_valid_len: Optional[torch.Tensor] = None,  # (B,) int32; None → all keys
     *,
+    kv_scales=None,   # int8 pools: (k_scales, v_scales), fp32 (P, Hkv) each
     causal: bool = True,
     scale: Optional[float] = None,
     soft_cap: Optional[float] = None,
@@ -104,7 +117,9 @@ def paged_attention(
     bottom-right aligned), ``kv_valid_len`` is nb * page_size and is
     clamped to it. An empty table (nb == 0) returns zeros without a launch.
     Block-table entries must be valid page ids; entries past a row's valid
-    length are never read.
+    length are never read. int8 pools need ``kv_scales``: each page's
+    (page, kv head) scale rides the same block-table indirection as the
+    page, and the recurrence runs in fp32 on the dequantized values.
     """
     B, Sq, H, D = q.shape
     P, ps, Hkv, Dv = v_pages.shape
@@ -115,6 +130,23 @@ def paged_attention(
                          f"{tuple(v_pages.shape)} disagree on (P, ps, Hkv)")
     if k_pages.shape[3] != D:
         raise ValueError(f"q has head_dim {D}, k_pages {k_pages.shape[3]}")
+    quantized = k_pages.dtype == torch.int8
+    if quantized != (v_pages.dtype == torch.int8):
+        raise ValueError(f"k_pages/v_pages dtype mismatch: {k_pages.dtype} "
+                         f"vs {v_pages.dtype}")
+    if quantized:
+        if kv_scales is None:
+            raise ValueError(
+                "int8 k_pages/v_pages need kv_scales=(k_scales, v_scales) "
+                "per-page-per-head fp32 tensors of shape (P, Hkv)")
+        for name, sc in zip(("k_scales", "v_scales"), kv_scales):
+            if tuple(sc.shape) != (P, Hkv):
+                raise ValueError(f"{name} has shape {tuple(sc.shape)}, "
+                                 f"expected (P, Hkv) = {(P, Hkv)}")
+        kv_scales = tuple(sc.float() for sc in kv_scales)
+    elif kv_scales is not None:
+        raise ValueError(
+            f"kv_scales given but pages are {k_pages.dtype}, not int8")
     nb = block_tables.shape[1]
     dev = q.device
     if nb == 0:
@@ -130,42 +162,56 @@ def paged_attention(
     if dev.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      q_positions, kv_valid_len, causal=causal,
-                                     scale=scale, soft_cap=soft_cap)
+                                     scale=scale, soft_cap=soft_cap,
+                                     kv_scales=kv_scales)
     if dev.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {dev}")
-    if q.dtype not in _DTYPE_CODES or {k_pages.dtype, v_pages.dtype} != {q.dtype}:
-        raise ValueError(f"the kernel takes fp32 or bf16 q and pools of one "
-                         f"dtype, got {q.dtype}, {k_pages.dtype}, "
-                         f"{v_pages.dtype}")
+    if q.dtype not in _DTYPE_CODES or not (
+            quantized or {k_pages.dtype, v_pages.dtype} == {q.dtype}):
+        raise ValueError(f"the kernels take fp32 or bf16 q with pools of "
+                         f"q's dtype or int8, got {q.dtype}, "
+                         f"{k_pages.dtype}, {v_pages.dtype}")
     rep = H // Hkv
     if ps > MAX_PAGE_SIZE or max(D, Dv) > MAX_HEAD_DIM or rep > MAX_ROWS:
         raise ValueError(
             f"page_size={ps}, head dims ({D}, {Dv}), rep={rep} exceed the "
             f"kernel's limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM}, {MAX_ROWS})")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+    scales = kv_scales or ()
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    *zip(("k_scales", "v_scales"), scales)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    ks, vs = (sc.contiguous() for sc in scales) if quantized else (None, None)
     block_tables = block_tables.to(dev).contiguous()
     q_positions = q_positions.to(dev).contiguous()
     kv_valid_len = kv_valid_len.to(dev).contiguous()
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lib = _lib()
     err = lib.paged_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), block_tables.data_ptr(), q_positions.data_ptr(),
+        _DTYPE_CODES[q.dtype],
+        _INT8_POOL if quantized else _DTYPE_CODES[q.dtype], q.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(),
+        ks.data_ptr() if quantized else None,
+        vs.data_ptr() if quantized else None,
+        block_tables.data_ptr(), q_positions.data_ptr(),
         kv_valid_len.data_ptr(), out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps, nb,
         MAX_ROWS // rep, float(scale), float(soft_cap or 0.0), int(causal),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention launch failed: "
                            f"{lib.pa_error_string(err).decode()}")
-    paged_attention.launches += 1
+    if quantized:
+        paged_attention.launches_int8 += 1
+    else:
+        paged_attention.launches += 1
     return out
 
 
-paged_attention.launches = 0
+paged_attention.launches = 0        # K4: fp pools
+paged_attention.launches_int8 = 0   # K5: int8 pools
+
 
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,

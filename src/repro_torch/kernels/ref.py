@@ -7,7 +7,8 @@ as ``repro/core/blockflow.py`` renders it: output block (i, j) accumulates
 A_bm[i, k] @ B_bm[j, k] with K innermost and is written once. Integer
 operands accumulate in float64, which is exact for int8 products summed
 over any K below 2**37, and works on both devices (CUDA has no integer
-matmul).
+matmul). With ``scale_a``/``scale_b`` it is the W8A8 GEMM: the finished
+int32 block is rescaled at its flush (``core/quant.py``).
 """
 from __future__ import annotations
 
@@ -33,12 +34,30 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return torch.matmul(a.to(work), b.to(work)).to(out_dtype or acc)
 
 
+def _pad_scales(scale: Optional[torch.Tensor], n: int,
+               device) -> torch.Tensor:
+    """A (≤ n,) scale vector as fp32 (n,), padded with ones; all ones when
+    absent. Padded rows and channels multiply an accumulator of 0, and the
+    caller's un-blocking drops them."""
+    out = torch.ones((n,), dtype=torch.float32, device=device)
+    if scale is not None:
+        out[:scale.shape[0]] = scale.float()
+    return out
+
+
 def block_matmul_ref(a_bm: torch.Tensor, b_bm: torch.Tensor, *,
-                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     out_dtype: Optional[torch.dtype] = None,
+                     scale_a: Optional[torch.Tensor] = None,
+                     scale_b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C_bm = A_bm @ B_bm over block-major operands (Algorithm 1).
 
     a_bm (nbm, nbk, bm, bk), b_bm (nbn, nbk, bk, bn) → C_bm (nbm, nbn, bm,
     bn) in ``out_dtype`` (default: the accumulator dtype).
+
+    ``scale_a`` (≤ nbm·bm rows) / ``scale_b`` (≤ nbn·bn channels) make it
+    the dequant-fused int8 GEMM: the int32 accumulator becomes
+    ``float(c) * s_a[m] * s_b[n]``, the two fp32 products in that order,
+    then ``out_dtype`` (default fp32).
     """
     nbm, nbk, bm, bk = a_bm.shape
     nbn, nbk2, bk2, bn = b_bm.shape
@@ -52,7 +71,14 @@ def block_matmul_ref(a_bm: torch.Tensor, b_bm: torch.Tensor, *,
     for k in range(nbk):               # the K stream, innermost in Alg. 1
         c += torch.einsum("iab,jbc->ijac", a_bm[:, k].to(work),
                           b_bm[:, k].to(work))
-    return c.to(out_dtype or acc)
+    if scale_a is None and scale_b is None:
+        return c.to(out_dtype or acc)
+    if acc != torch.int32:
+        raise ValueError(f"scales take int8 operands, got {a_bm.dtype}")
+    sa = _pad_scales(scale_a, nbm * bm, c.device).reshape(nbm, 1, bm, 1)
+    sb = _pad_scales(scale_b, nbn * bn, c.device).reshape(1, nbn, 1, bn)
+    c = c.to(torch.int32).float() * sa * sb
+    return c.to(out_dtype or torch.float32)
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

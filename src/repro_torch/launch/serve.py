@@ -6,6 +6,8 @@ Usage:
       --n-requests 8 --prompt-len 16 --gen-len 24 --pack-weights
   python -m repro_torch.launch.serve --arch smollm-135m \
       --attn-backend fused          # contiguous KV caches, flash kernel
+  python -m repro_torch.launch.serve --arch smollm-135m \
+      --weight-dtype int8 --kv-dtype int8   # W8A8 GEMMs, int8 KV pages
   python -m repro_torch.launch.serve --arch smollm-135m --smoke \
       --device cpu --max-len 64     # plain versions of the kernels, on CPU
 """
@@ -48,6 +50,9 @@ def main(argv=None):
                     help="paper access mode; auto = per-shape sysmodel pick")
     ap.add_argument("--pack-weights", action="store_true",
                     help="lay weights out block-major once (resident)")
+    ap.add_argument("--weight-dtype", default=None, choices=["int8"],
+                    help="int8 → the W8A8 GEMM route: weights quantized "
+                         "per channel at pack time and held resident")
     ap.add_argument("--attn-backend", default="paged",
                     choices=["auto", "fused", "paged", "unfused"],
                     help="paged = page-pool KV cache, page-bound admission "
@@ -59,6 +64,10 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16,
                     help="paged: tokens per KV page (the paged kernel's "
                          "key block)")
+    ap.add_argument("--kv-dtype", default=None, choices=["int8"],
+                    help="paged only: int8 → int8 KV pages with one fp32 "
+                         "scale per (page, kv head), dequantized inside the "
+                         "paged kernel")
     ap.add_argument("--cache-pages", type=int, default=None,
                     help="paged: total pages in the KV pool; default = "
                          "batch_slots * ceil(max_len / page_size). Smaller "
@@ -68,6 +77,9 @@ def main(argv=None):
                     help="tokens of prefill per engine step (chunked "
                          "prefill); default: whole prompt at submit")
     args = ap.parse_args(argv)
+    if args.kv_dtype and args.attn_backend != "paged":
+        ap.error("--kv-dtype requires the paged attention backend "
+                 "(--attn-backend paged)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)
@@ -80,6 +92,7 @@ def main(argv=None):
         batch_slots=args.batch_slots, max_len=args.max_len,
         temperature=args.temperature, cache_dtype=cfg.dtype, gemm=policy,
         attention=attn, pack_weights=args.pack_weights,
+        weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype,
         cache_pages=args.cache_pages, scheduler=scheduler,
         device=args.device)
     engine = ServingEngine(cfg, params, sc)
@@ -87,7 +100,8 @@ def main(argv=None):
     print(f"[serve] arch={cfg.name} device={dev} slots={args.batch_slots} "
           f"max_len={args.max_len} gemm={policy.resolved_backend(dev)}/"
           f"{policy.mode} attn={attn.resolved_backend(dev)} "
-          f"page_size={args.page_size} packed={args.pack_weights}")
+          f"page_size={args.page_size} packed={args.pack_weights} "
+          f"weight_dtype={args.weight_dtype} kv_dtype={args.kv_dtype}")
     gen = (torch.Generator().manual_seed(args.seed)
            if args.temperature > 0 else None)
 

@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.core import api
+from repro_torch.core import quant as Q
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import dense_init
 
@@ -116,16 +117,28 @@ def _contiguous_cache_update(cache, k, v, positions):
 
 
 def init_paged_attention_cache(cfg: ModelConfig, batch: int, n_pages: int,
-                               page_size: int, dtype, device):
+                               page_size: int, dtype, device, kv_dtype=None):
     """K/V pools of ``n_pages`` pages shared by every batch row, plus one
     more page at index ``n_pages`` that no block table names: the write
     sink for masked positions (the TPU version drops those writes out of
     range; torch has no dropping scatter, and a sink keeps the write free
-    of a host sync). ``len`` is per row, as in the contiguous cache."""
-    shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
-            "vp": torch.zeros(shape, dtype=dtype, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    of a host sync). ``len`` is per row, as in the contiguous cache.
+
+    ``kv_dtype="int8"`` stores the pools int8 with fp32 ``k_scale`` /
+    ``v_scale`` of shape (n_pages + 1, Hkv), the sink page included, all
+    ones at first, so an unwritten page dequantizes to exact zeros."""
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+    Hkv = cfg.n_kv_heads
+    shape = (n_pages + 1, page_size, Hkv, cfg.head_dim)
+    pool_dtype = torch.int8 if kv_dtype == "int8" else dtype
+    cache = {"kp": torch.zeros(shape, dtype=pool_dtype, device=device),
+             "vp": torch.zeros(shape, dtype=pool_dtype, device=device),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if kv_dtype == "int8":
+        cache["k_scale"] = torch.ones((n_pages + 1, Hkv), device=device)
+        cache["v_scale"] = torch.ones((n_pages + 1, Hkv), device=device)
+    return cache
 
 
 def _paged_cache_update(cache, k, v, positions, block_tables):
@@ -136,13 +149,34 @@ def _paged_cache_update(cache, k, v, positions, block_tables):
     Token (b, s) at position p lands in page ``block_tables[b, p // ps]``
     at offset ``p % ps``; positions < 0 (masked rows, bucket padding) go to
     the sink page and do not count: ``len`` advances by the written count.
+
+    An int8 pool (``"k_scale" in cache``) quantizes on write: a page's
+    per-head scale is FROZEN when its first row (position % ps == 0) is
+    written (``quant.kv_write_scale``), and every row, the first included,
+    quantizes against the frozen scale. The engine writes a page's
+    positions in order, so a reused page's stale scale is overwritten
+    before any row depends on it, and the payload is a pure function of
+    the page's content — the same written token by token or in bulk, which
+    keeps streams identical across preempt/resume.
     """
     B, S = positions.shape
     P, ps, Hkv, dh = cache["kp"].shape
     keep = positions >= 0
     pos = positions.clamp(min=0).long()
     page = torch.gather(block_tables.long(), 1, pos // ps)
-    flat = torch.where(keep, page * ps + pos % ps, (P - 1) * ps).reshape(-1)
+    sink = P - 1
+    if "k_scale" in cache:
+        # first-row writes establish their page's scale; live block tables
+        # are disjoint, so those targets are unique (the rest hit the sink)
+        est = (keep & (pos % ps == 0)).reshape(-1)
+        est_page = torch.where(est, page.reshape(-1), sink)
+        new = []
+        for t, name in ((k, "k_scale"), (v, "v_scale")):
+            scales = cache[name]
+            scales[est_page] = Q.kv_write_scale(t.reshape(B * S, Hkv, dh))
+            new.append(Q.quantize_kv_rows(t, scales[page]))
+        k, v = new
+    flat = torch.where(keep, page * ps + pos % ps, sink * ps).reshape(-1)
     cache["kp"].view(P * ps, Hkv, dh)[flat] = k.reshape(B * S, Hkv, dh)
     cache["vp"].view(P * ps, Hkv, dh)[flat] = v.reshape(B * S, Hkv, dh)
     cache["len"] += _written_per_row(positions, cache["len"].dtype)
@@ -152,8 +186,9 @@ def _paged_cache_update(cache, k, v, positions, block_tables):
 def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
               block_tables=None):
     """x: (B, S, D). ``cache`` is a paged ``{"kp", "vp", "len"}`` pool (then
-    ``block_tables`` (B, n_blocks) is required), a contiguous ``{"k", "v",
-    "len"}`` cache, or None (self-attention over x, causal per cfg).
+    ``block_tables`` (B, n_blocks) is required; an int8 pool adds
+    ``"k_scale"`` and ``"v_scale"``), a contiguous ``{"k", "v", "len"}``
+    cache, or None (self-attention over x, causal per cfg).
     Returns (y, cache); a cache is updated in place (its dict entries)."""
     B, S, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -162,6 +197,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     v = api.linear(x, p["wv"]).reshape(B, S, Hkv, dh)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    kv_scales = None
     if cache is None:
         kv_k, kv_v, bt = k, v, None
         kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -171,6 +207,8 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
         cache = _paged_cache_update(cache, k, v, positions, block_tables)
         kv_k, kv_v, kv_valid, bt = (cache["kp"], cache["vp"], cache["len"],
                                     block_tables)
+        if "k_scale" in cache:     # int8 pool: the kernel dequantizes pages
+            kv_scales = (cache["k_scale"], cache["v_scale"])
     else:
         cache = _contiguous_cache_update(cache, k, v, positions)
         T = cache["k"].shape[1] - 1            # the sink column stays unread
@@ -178,7 +216,8 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
         kv_valid, bt = cache["len"], None
     out = api.attention(q, kv_k, kv_v, q_positions=positions,
                         kv_valid_len=kv_valid, causal=cfg.causal,
-                        scale=1.0 / math.sqrt(dh), block_tables=bt)
+                        scale=1.0 / math.sqrt(dh), block_tables=bt,
+                        kv_scales=kv_scales)
     return api.linear(out.reshape(B, S, H * dh), p["wo"]), cache
 
 

@@ -135,12 +135,16 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
-                      page_size: int, dtype, device) -> List[Dict]:
+                      page_size: int, dtype, device,
+                      kv_dtype=None) -> List[Dict]:
     """One paged KV cache per layer (``layers.init_paged_attention_cache``);
-    one (batch, n_blocks) block table addresses every layer's pool."""
+    one (batch, n_blocks) block table addresses every layer's pool.
+    ``kv_dtype="int8"`` stores every pool int8 with per-page-per-head fp32
+    scales."""
     check_supported(cfg)
     return [Lyr.init_paged_attention_cache(cfg, batch, n_pages, page_size,
-                                           torch_dtype(dtype), device)
+                                           torch_dtype(dtype), device,
+                                           kv_dtype=kv_dtype)
             for _ in range(cfg.n_layers)]
 
 

@@ -21,9 +21,15 @@ power-of-two **bucketed prefill**, carry position −1 — they write no K/V
 and do not advance the valid length — so one slot's prefill cannot corrupt
 another's cache.
 
+**int8**: ``weight_dtype="int8"`` quantizes every projection weight at
+pack time and runs the W8A8 GEMM route (the dequant-fused MatrixFlow
+kernel on the card); ``kv_dtype="int8"`` (paged mode only) stores the page
+pools int8 with one fp32 scale per (page, kv head), frozen at the page's
+first row, and the paged kernel dequantizes each page as it reads it.
+
 Not ported yet, each rejected with NotImplementedError: the prefix
-cache, speculative decoding, observability, int8 KV pages, W8A8 weights
-and tensor parallelism (ROADMAP.md).
+cache, speculative decoding, observability and tensor parallelism
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -64,17 +70,32 @@ class ServeConfig:
     # admission page-bound (preemption engages).
     scheduler: Optional[Scheduler] = None   # None → Scheduler() (FIFO)
     device: str = "cuda"
+    weight_dtype: Optional[str] = None  # "int8" → W8A8 GEMMs, int8 weights
+    # quantized at pack time (implies resident packed weights)
+    kv_dtype: Optional[str] = None  # paged only: "int8" → int8 KV pages with
+    # per-page-per-head fp32 scales, dequantized inside the paged kernel
     # Features of the reference engine not ported yet: setting any of these
     # raises NotImplementedError (ROADMAP.md lists them).
-    weight_dtype: Optional[str] = None
-    kv_dtype: Optional[str] = None
     mesh: Optional[object] = None
     prefix_cache: bool = False
     spec: Optional[object] = None
     obs: Optional[object] = None
 
+    def policy(self) -> Optional[GemmPolicy]:
+        """The effective GemmPolicy: ``gemm`` with ``weight_dtype`` folded
+        in (None → the ambient policy)."""
+        if self.weight_dtype is None:
+            return self.gemm
+        return dataclasses.replace(self.gemm or GemmPolicy(),
+                                   weight_dtype=self.weight_dtype)
+
     def attn_policy(self) -> AttentionPolicy:
-        return self.attention or AttentionPolicy(backend="paged")
+        """The effective AttentionPolicy: ``attention`` (default paged) with
+        ``kv_dtype`` folded in."""
+        attn = self.attention or AttentionPolicy(backend="paged")
+        if self.kv_dtype is None:
+            return attn
+        return dataclasses.replace(attn, kv_dtype=self.kv_dtype)
 
 
 @dataclasses.dataclass
@@ -97,7 +118,7 @@ class ServingEngine:
     """Greedy/temperature sampling with page-bound continuous batching."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig):
-        for name in ("weight_dtype", "kv_dtype", "mesh", "spec", "obs"):
+        for name in ("mesh", "spec", "obs"):
             if getattr(sc, name) is not None:
                 raise NotImplementedError(
                     f"ServeConfig.{name} is not ported yet (ROADMAP.md)")
@@ -111,11 +132,18 @@ class ServingEngine:
                 f"{cfg.dtype!r}: the attention kernels read q and the cache "
                 f"in one dtype; mixed dtypes are not ported (ROADMAP.md)")
         self.device = resolve_device(sc.device)
-        attn = sc.attn_policy()
+        attn = sc.attn_policy()       # validates kv_dtype
+        self.gemm = sc.policy()       # validates weight_dtype
         self.paged = attn.resolved_backend(self.device) == "paged"
+        if attn.kv_dtype is not None and not self.paged:
+            raise ValueError(
+                "ServeConfig.kv_dtype requires a paged attention policy "
+                "(backend 'paged'): only the page pool stores quantized K/V")
         params = _to_device(params, self.device)
-        if sc.pack_weights:
-            params = api.pack_model_weights(params, sc.gemm)
+        # Quantizing per call would redo the O(K·N) weight quantization on
+        # every step; weights are static, so weight_dtype quantizes at pack.
+        if sc.pack_weights or sc.weight_dtype is not None:
+            params = api.pack_model_weights(params, self.gemm)
         self.cfg, self.params, self.sc, self.attn = cfg, params, sc, attn
         self.scheduler = sc.scheduler if sc.scheduler is not None \
             else Scheduler()
@@ -139,7 +167,8 @@ class ServingEngine:
                     f"pages); a preempted request could never resume")
             self.pool = PagePool(n_pages, ps)
             self.caches = T.init_paged_caches(cfg, B, n_pages, ps,
-                                              sc.cache_dtype, self.device)
+                                              sc.cache_dtype, self.device,
+                                              kv_dtype=attn.kv_dtype)
             self.block_tables = np.zeros((B, self.n_blocks), np.int32)
             self.slot_tables: List[Optional[BlockTable]] = [None] * B
         else:
@@ -171,8 +200,8 @@ class ServingEngine:
     # -- device calls ---------------------------------------------------------
     def _scope(self):
         stack = contextlib.ExitStack()
-        if self.sc.gemm is not None:
-            stack.enter_context(api.use_policy(self.sc.gemm))
+        if self.gemm is not None:
+            stack.enter_context(api.use_policy(self.gemm))
         stack.enter_context(api.use_attention_policy(self.attn))
         return stack
 
@@ -588,9 +617,17 @@ class ServingEngine:
                 self.slot_drain[s] = True
         return out
 
+    def kv_page_bytes(self) -> int:
+        """Device bytes of one pool page, summed over layers and K/V — the
+        int8 pools' fp32 scale rows included."""
+        return sum(c[name][0].numel() * c[name].element_size()
+                   for c in self.caches
+                   for name in ("kp", "vp", "k_scale", "v_scale")
+                   if name in c)
+
     def stats(self) -> Dict[str, object]:
         """Scheduling churn, prefill/decode token split and, in paged mode,
-        pool pressure."""
+        pool pressure and the pool's bytes."""
         d = {
             "tick": self.tick,
             "live_requests": int(self.slot_live.sum()),
@@ -600,9 +637,15 @@ class ServingEngine:
             "decode_tokens": self.decode_tokens,
         }
         if self.paged:
+            page_bytes = self.kv_page_bytes()
             d.update(pool_pages=self.pool.n_pages,
                      pool_free_pages=self.pool.free_pages,
-                     pool_high_water=self.pool.high_water)
+                     pool_pages_in_use=self.pool.pages_in_use,
+                     pool_high_water=self.pool.high_water,
+                     kv_dtype=self.attn.kv_dtype or str(self.sc.cache_dtype),
+                     kv_page_bytes=page_bytes,
+                     kv_pool_bytes=page_bytes * self.pool.n_pages,
+                     kv_bytes_in_use=page_bytes * self.pool.pages_in_use)
         return d
 
 

@@ -171,11 +171,15 @@ def test_contiguous_caches_and_rejections(setup):
     caches = T.init_caches(cfg, 3, 16, "float32", "cpu")
     assert len(caches) == cfg.n_layers
     assert caches[0]["k"].shape == (3, 17, cfg.n_kv_heads, cfg.head_dim)
-    for kw in (dict(prefix_cache=True), dict(kv_dtype="int8"),
-               dict(spec=object())):
+    for kw in (dict(prefix_cache=True), dict(spec=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, ServeConfig(
                 device="cpu", cache_dtype="float32", attention=FUSED, **kw))
+    # int8 KV pages are ported, for page pools only (as the reference)
+    with pytest.raises(ValueError, match="paged"):
+        ServingEngine(cfg, params, ServeConfig(
+            device="cpu", cache_dtype="float32", attention=FUSED,
+            kv_dtype="int8"))
     eng = ServingEngine(cfg, params, ServeConfig(
         device="cpu", cache_dtype="float32", batch_slots=2, max_len=16,
         attention=AttentionPolicy(backend="unfused")))

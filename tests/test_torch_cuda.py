@@ -1,7 +1,8 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors, and the serving engine (paged and
-contiguous) and the BERT/ViT encoders on the card against the same code on
-the CPU (where the wrappers run the plain versions).
+version on the same CUDA tensors (the W8A8 GEMM, K2, bitwise; the int8
+paged kernel, K5, within ATTN_TOLS), and the serving engine (paged, int8
+and contiguous) and the BERT/ViT encoders on the card against the same
+code on the CPU (where the wrappers run the plain versions).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -18,10 +19,12 @@ head_dim 80) and smollm-135m's contiguous decode and prefill.
 import numpy as np
 import pytest
 import torch
+from int8_flips import Recorder, check_tie_flip
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.core import api
 from repro_torch.core import layout as L
+from repro_torch.core import quant as Q
 from repro_torch.core.plan import FUSED, AttentionPolicy
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matrixflow_gemm as MF
@@ -91,6 +94,36 @@ def test_gemm_kernel_matches_plain(cuda, dtype, out):
                     (name, M, K, N, mode, float(err.max()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_dequant_gemm_kernel_matches_plain_bitwise(cuda, out):
+    """K2 against its plain version on the card: bitwise, in fp32 and in
+    bf16. The int32 sums are exact; the rounding of a sum past 2^24 to
+    fp32 and the two scale products are the same operations in the same
+    order on both sides. Includes the LM head (N = 49152, bn padding) and
+    a large-sum case where every |acc| exceeds 2^24."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    odt = getattr(torch, out)
+    for M, K, N in SHAPES + ((8, 1536, 160),):
+        a = torch.randn((M, K), generator=gen, device=cuda)
+        w = torch.randn((K, N), generator=gen, device=cuda)
+        if K == 1536:
+            a, w = 1 + 0.01 * a, 1 + 0.01 * w
+        aq, sa = Q.quantize_activations(a)
+        wq, sw = Q.quantize_weight(w)
+        for mode in ("dc", "dm"):
+            blk = L.choose_layout(M, N, K, torch.int8, mode=mode)
+            a_bm = L.to_block_major_a(aq, blk.bm, blk.bk)
+            b_bm = L.to_block_major_b(wq, blk.bk, blk.bn)
+            before = MF.matrixflow_gemm_dequant.launches
+            got = MF.matrixflow_gemm_dequant(a_bm, b_bm, sa, sw, out_dtype=odt)
+            torch.cuda.synchronize()
+            assert MF.matrixflow_gemm_dequant.launches == before + 1
+            want = MF.plain(a_bm, b_bm, out_dtype=odt, scale_a=sa, scale_b=sw)
+            assert got.dtype == odt and torch.equal(got, want), \
+                (M, K, N, mode, float((got.float() - want.float()).abs().max()))
+
+
 def _paged_inputs(cuda, dtype, B, Sq, H, Hkv, D, ps, lens, starts, seed=0):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     nb = -(-max(lens) // ps) + 1
@@ -133,6 +166,40 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
     assert PA.paged_attention.launches == before + 1
     want = PA.paged_attention_plain(q, kp, vp, bt, qpos, kvl, causal=True,
                                     scale=D ** -0.5, soft_cap=None)
+    atol, rtol = ATTN_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    masked = qpos < 0
+    assert not bool(masked.any()) or float(got[masked].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    (8, 1, 9, 3, 64, 16, (17, 200, 64, 1, 33, 128, 255, 90),
+     (16, 199, 63, 0, 32, 127, 254, 89)),
+    (8, 64, 9, 3, 64, 16, (64, 16, 40, 1, 63, 0, 20, 64),
+     (0, 0, 0, 0, 0, -1, 0, 0)),
+    (3, 1, 4, 2, 16, 8, (6, 81, 0), (5, 80, -1)),
+    (2, 8, 4, 4, 16, 8, (32, 48), (24, 40)),
+], ids=["decode_full_width", "prefill_bucket_full_width", "decode_gqa2",
+        "chunk_offset"])
+def test_paged_attention_int8_kernel_matches_plain(cuda, dtype, case):
+    """K5: int8 pools with per-(page, kv head) scales, q in fp32 or bf16,
+    against the plain version within ATTN_TOLS; masked rows exactly 0."""
+    B, Sq, H, Hkv, D, ps, lens, starts = case
+    q, kp, vp, bt, qpos, kvl = _paged_inputs(cuda, "float32", B, Sq, H, Hkv,
+                                             D, ps, lens, starts, seed=2)
+    (qk, ks), (qv, vs) = Q.quantize_kv_pages(kp), Q.quantize_kv_pages(vp)
+    q = q.to(getattr(torch, dtype))
+    before = (PA.paged_attention.launches, PA.paged_attention.launches_int8)
+    got = PA.paged_attention(q, qk, qv, bt, qpos, kvl, kv_scales=(ks, vs))
+    torch.cuda.synchronize()
+    assert (PA.paged_attention.launches,
+            PA.paged_attention.launches_int8) == (before[0], before[1] + 1)
+    want = PA.paged_attention_plain(q, qk, qv, bt, qpos, kvl, causal=True,
+                                    scale=D ** -0.5, soft_cap=None,
+                                    kv_scales=(ks, vs))
     atol, rtol = ATTN_TOLS[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
@@ -184,6 +251,49 @@ def test_engine_on_card_matches_cpu_plain(cuda):
             assert MF.matrixflow_gemm_block_major.launches > launches[0]
             assert PA.paged_attention.launches > launches[1]
     assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(kv_dtype="int8"),
+                                dict(kv_dtype="int8", weight_dtype="int8")],
+                         ids=["int8_kv", "w8a8"])
+def test_int8_engine_on_card_matches_cpu_plain(cuda, kw):
+    """The int8 engine: submit/step with preemption under an int8 pool;
+    fp32 greedy streams on the card (K5, and K2 under W8A8) against the
+    CPU's, and the int8 kernels were launched. int8 KV alone: streams
+    equal. W8A8: equal, or parting only where a value the card and the CPU
+    computed an ulp apart crossed a .5 tie of the int8 grid
+    (tests/int8_flips.py shows it from both runs' quantizations)."""
+    cfg = get_smoke_config("smollm-135m", n_layers=2, vocab=64, d_head=64,
+                           dtype="float32")
+    params = T.init_model(cfg, seed=0, device="cpu")
+    streams, records = [], []
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, params, ServeConfig(
+            batch_slots=2, max_len=16, cache_dtype="float32",
+            cache_pages=2, device=device,
+            attention=AttentionPolicy(backend="paged", page_size=8), **kw))
+        before = (MF.matrixflow_gemm_dequant.launches,
+                  PA.paged_attention.launches_int8)
+        pending, rids = [[1, 2, 3], [4, 5, 6], [7, 8]], []
+        with Recorder() as rec:
+            for _ in range(100):
+                while pending and (rid := eng.submit(pending[0])) is not None:
+                    rids.append(rid)
+                    pending.pop(0)
+                eng.step()
+                if not pending and not eng.slot_live.any() and not eng.wait:
+                    break
+        records.append(rec.calls)
+        assert eng.n_preemptions > 0
+        streams.append([eng.request_out[r] for r in rids])
+        if device == "cuda":
+            assert PA.paged_attention.launches_int8 > before[1]
+            assert (MF.matrixflow_gemm_dequant.launches > before[0]) == \
+                ("weight_dtype" in kw)
+    if streams[0] != streams[1]:
+        assert "weight_dtype" in kw, streams
+        print("W8A8 card vs CPU:", check_tie_flip(*records))
 
 
 # B, Sq, Sk, H, Hkv, D, causal, first query position per row (None: the

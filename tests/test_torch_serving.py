@@ -146,13 +146,17 @@ def test_temperature_sampling_self_consistent(setup):
 
 def test_unported_features_raise(setup):
     jcfg, jparams, cfg, params = setup
-    for kw in (dict(prefix_cache=True), dict(kv_dtype="int8"),
-               dict(weight_dtype="int8"), dict(mesh=object()),
+    for kw in (dict(prefix_cache=True), dict(mesh=object()),
                dict(spec=object()), dict(obs=object()),
                dict(cache_dtype="bfloat16")):
         kw = {"cache_dtype": "float32", **kw}
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, ServeConfig(device="cpu", **kw))
+    # int8 KV pages and W8A8 weights are ported now
+    # (tests/test_torch_int8_serving.py)
+    for kw in (dict(kv_dtype="int8"), dict(weight_dtype="int8")):
+        ServingEngine(cfg, params, ServeConfig(device="cpu",
+                                               cache_dtype="float32", **kw))
     # a dense backend is ported now: it serves from contiguous caches
     eng = ServingEngine(cfg, params, ServeConfig(
         device="cpu", cache_dtype="float32",
