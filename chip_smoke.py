@@ -56,13 +56,39 @@ CUDA toolkit. Phases, each fatal on failure:
              noise: W8A8 and the frozen KV page scales amplify one such
              rounding into a whole quantization step).
 
+8. SSM serving — full-width mamba2-1.3b (48 layers, d_model 2048, 64 SSD
+             heads x 64, N 128) in bf16 from contiguous caches under the
+             fused policy: generate() of 8 prompts x 384 tokens (Q 128, the
+             state carried over 3 chunks) x 16 tokens; then a single-slot
+             engine: a 200-token prompt (Q 100) through submit/step equals
+             generate() of it, and a 131-token request (Q 1) on the
+             recycled slot equals its solo run on a fresh engine (conv and
+             SSD state zeroed). K1 and the SSD scan (K6) launched, the
+             paged kernels (K4, K5) not.
+9. hybrid serving — full-width zamba2-2.7b (54 SSD layers, d_model 2560,
+             one shared attention block every 6 at head_dim 80) in bf16:
+             generate() of 8 prompts x 64 tokens x 16 tokens under the fused
+             policy; K1, K3 and K6 launched, K4 and K5 not.
+10. SSM parity — fp32, full width cut in depth (mamba2 to 4 layers, zamba2
+             to 6, one attention group): the card against the CPU plain
+             path, prefill of 2 prompts (200 and 64 tokens) and 8 decode
+             steps fed the same tokens, logits within LOGIT_TOL at every
+             step, greedy tokens equal or differing only where the plain
+             top-2 margin is below LOGIT_TOL.
+
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
 1024-row GEMMs, with torch._int_mm plus the rescale as its yardstick, and
 paged attention over int8 pages (K5) at decode, the prefill bucket and a
-chunked prefill, with SDPA over the dequantized pages as its yardstick.
+chunked prefill, with SDPA over the dequantized pages as its yardstick;
+the SSD scan (K6) against its plain version at the SSM paths' prefills
+(mamba2 B 8 x S 384 and 64, B 1 x S 200, 131 and 4096, B 2 x S 1000;
+zamba2 B 8 x S 64), fp32 y and state within (1e-4, 1e-4), bf16 y within
+TOLS["bfloat16"] (no single PyTorch call computes the scan: no yardstick);
+K1 at the SSM models' decode GEMMs and mamba2's prefill GEMMs; K3 at
+zamba2's head_dim-80 prefill and decode.
 
-Every kernel counter is set to 0 just before each path (3, 5, 6, 7) is
+Every kernel counter is set to 0 just before each path (3, 5-9) is
 driven and read just after; a kernel of the path that never launched fails
 it.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
@@ -92,6 +118,15 @@ ATTN_TOLS = {"float32": (3e-5, 3e-5), "bfloat16": (3e-2, 3e-2)}
 # Full-width fp32 logits, kernel path on the card vs plain path on the CPU:
 # 30 layers of fp32 GEMMs summed in another order, random weights.
 LOGIT_TOL = 1e-3
+# The SSD scan (K6) against its plain version: fp32 within the reference's
+# ssd_chunked tolerance (tests/test_ssm.py), bf16 y within parity's TOLS.
+# The SSM models' fp32 logits, card vs CPU, are held to LOGIT_TOL as the
+# other full-width paths are: K1 sums each fp32 dot product in one running
+# sum, and at zamba2's K = 10240 (its shared MLP) that parts the logits
+# (up to ~4.6) from the CPU's by ~2e-4 on an H100, where torch.matmul
+# parts them by ~4e-5 (scripts/torch_fp32_backend_diff.py); parity's
+# TOLS["float32"] (1e-4, 1e-5) is below both.
+SSD_TOLS = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s per dtype.
 HBM_BYTES_S = 3.35e12
@@ -111,6 +146,16 @@ ENC_BATCH = 8
 BERT_SEQ = 128
 VIT_SEQ = 197                # 196 patches + the class token
 PARITY_BATCH = 2             # bert-base fp32, card vs CPU
+# The SSM paths: full-width mamba2-1.3b and zamba2-2.7b, contiguous caches.
+MAMBA, ZAMBA = "mamba2-1.3b", "zamba2-2.7b"
+SSM_SLOTS = 8
+SSM_MAX_LEN = 512
+SSM_GEN = 16
+MAMBA_PROMPT = 384           # Q 128: the state carried over three chunks
+SOLO_PROMPTS = (200, 131)    # Q 100 over two chunks; Q 1 over 131
+ZAMBA_PROMPT = 64
+SSM_PARITY = {MAMBA: (4, 200), ZAMBA: (6, 64)}   # layers, prompt tokens
+SSM_PARITY_STEPS = 8
 
 
 def fail(msg: str) -> None:
@@ -171,12 +216,14 @@ def kernel_wrappers():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import matrixflow_gemm as MF
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_scan as K6
     return {"matrixflow_gemm": (MF.matrixflow_gemm_block_major, "launches"),
             "paged_attention": (PA.paged_attention, "launches"),
             "flash_attention": (FA.flash_attention, "launches"),
             "matrixflow_gemm_dequant": (MF.matrixflow_gemm_dequant,
                                         "launches"),
-            "paged_attention_int8": (PA.paged_attention, "launches_int8")}
+            "paged_attention_int8": (PA.paged_attention, "launches_int8"),
+            "ssd_scan": (K6.ssd_scan, "launches")}
 
 
 def counts() -> dict:
@@ -213,9 +260,10 @@ def check_close(name, got, want, atol, rtol):
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def gemm_cells(cfg, bert, vit):
+def gemm_cells(cfg, bert, vit, ssm_cfgs=()):
     """(name, M, K, N, path, uses per run of the path) of every projection
-    of the serving paths (smollm-135m) and the encoder paths."""
+    of the serving paths (smollm-135m; the SSM models' decode steps and
+    mamba2's prefill) and the encoder paths."""
     d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab
     qd, kvd, L = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, cfg.n_layers
     layer = [("q/o", d, qd, 2 * L), ("k/v", d, kvd, 2 * L),
@@ -226,6 +274,21 @@ def gemm_cells(cfg, bert, vit):
     cells.append(("head", SLOTS, d, V, "decode step", 1))
     cells += [(f"prefill {n}", SLOTS * PROMPT_BUCKET, K, N, "prefill", c)
               for n, K, N, c in layer]
+    for scfg in ssm_cfgs:
+        d, di, L = scfg.d_model, scfg.d_inner, scfg.n_layers
+        ssd = [("z/x", d, di, 2 * L), ("B/C", d, scfg.ssm_state, 2 * L),
+               ("dt", d, scfg.ssm_heads, L), ("out", di, d, L)]
+        if scfg.attn_every:        # the shared block, once per group
+            g, hd = L // scfg.attn_every, scfg.n_heads * scfg.head_dim
+            ssd += [("shared q/k/v/o", d, hd, 4 * g),
+                    ("shared mlp-in", d, 2 * scfg.d_ff, g),
+                    ("shared mlp-out", scfg.d_ff, d, g)]
+        step = f"{scfg.name} decode step"
+        cells += [(f"{scfg.name} decode {n}", SSM_SLOTS, K, N, step, c)
+                  for n, K, N, c in ssd + [("head", d, scfg.vocab, 1)]]
+        if not scfg.attn_every:    # mamba2's generate prefill, 8 x 384 rows
+            cells += [(f"{scfg.name} prefill {n}", SSM_SLOTS * MAMBA_PROMPT,
+                       K, N, f"{scfg.name} prefill", c) for n, K, N, c in ssd]
     for ecfg, M in ((bert, ENC_BATCH * BERT_SEQ),
                     (vit, ENC_BATCH * VIT_SEQ)):
         d, f, L = ecfg.d_model, ecfg.d_ff, ecfg.n_layers
@@ -236,7 +299,7 @@ def gemm_cells(cfg, bert, vit):
     return cells
 
 
-def run_gemm_phase(timer, cfg, bert, vit):
+def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs):
     from repro_torch.core import layout as L
     from repro_torch.core.plan import GemmPolicy, layout_for_packed, pack_weight
     from repro_torch.kernels import matrixflow_gemm as MF
@@ -246,7 +309,8 @@ def run_gemm_phase(timer, cfg, bert, vit):
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         atol, rtol = GEMM_TOLS[dtype_name]
-        for name, M, K, N, path, uses in gemm_cells(cfg, bert, vit):
+        for name, M, K, N, path, uses in gemm_cells(cfg, bert, vit,
+                                                    ssm_cfgs):
             a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
             w = (torch.randn((K, N), generator=gen, device="cuda")
                  / K ** 0.5).to(dt)
@@ -363,7 +427,7 @@ def run_attention_phase(timer, cfg):
 # Phase 2c: flash attention against its plain version
 # ---------------------------------------------------------------------------
 
-def flash_cells(cfg, bert, vit, vit_huge, rng):
+def flash_cells(cfg, bert, vit, vit_huge, zamba, rng):
     """(name, B, Sq, Sk, H, Hkv, D, causal, q_positions, kv_valid_len,
     path, uses per run) at the encoder paths' and the contiguous serving
     path's shapes. q_positions / kv_valid_len are numpy arrays or None (the
@@ -394,6 +458,19 @@ def flash_cells(cfg, bert, vit, vit_huge, rng):
                   True, qpos, (starts + 32).astype(np.int32), "chunk", L))
     cells.append(("bottom-right default", SLOTS, PROMPT_BUCKET, MAX_LEN, H,
                   Hkv, D, True, None, None, "default", L))
+    # zamba2's shared block (head_dim 80) over its contiguous caches: the
+    # generate prefill and a decode step, once per attention group
+    z, G = zamba, zamba.n_layers // zamba.attn_every
+    qpos = np.broadcast_to(np.arange(ZAMBA_PROMPT, dtype=np.int32),
+                           (SSM_SLOTS, ZAMBA_PROMPT)).copy()
+    cells.append(("zamba2 prefill", SSM_SLOTS, ZAMBA_PROMPT, SSM_MAX_LEN,
+                  z.n_heads, z.n_kv_heads, z.head_dim, True, qpos,
+                  np.full(SSM_SLOTS, ZAMBA_PROMPT, np.int32), "zamba2 prefill",
+                  G))
+    pos = ZAMBA_PROMPT + rng.integers(0, SSM_GEN, SSM_SLOTS).astype(np.int32)
+    cells.append(("zamba2 decode", SSM_SLOTS, 1, SSM_MAX_LEN, z.n_heads,
+                  z.n_kv_heads, z.head_dim, True, pos[:, None], pos + 1,
+                  "zamba2 decode step", G))
     return cells
 
 
@@ -632,6 +709,87 @@ def run_int8_attention_phase(timer, cfg):
             log(f"{cell}: max|d|={err:.2e} kernel {t_k:.4f} ms plain "
                 f"{t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
                 f"({b_by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2f: the SSD scan (K6) against its plain version
+# ---------------------------------------------------------------------------
+
+def ssd_cells(mamba, zamba):
+    """(name, B, S, cfg, path) of the SSD scans the SSM paths run (one per
+    SSD layer of a prefill), plus mamba2 at B 8 x S 64 (one chunk), a
+    4096-token prompt (32 chunks) and B 2 x S 1000 (Q 125)."""
+    return [(f"{mamba.name} generate prefill", SSM_SLOTS, MAMBA_PROMPT, mamba),
+            (f"{mamba.name} submit prefill", 1, SOLO_PROMPTS[0], mamba),
+            (f"{mamba.name} recycled-slot prefill", 1, SOLO_PROMPTS[1], mamba),
+            (f"{mamba.name} prefill", SSM_SLOTS, 64, mamba),
+            (f"{mamba.name} long prefill", 1, 4096, mamba),
+            (f"{mamba.name} prefill", 2, 1000, mamba),
+            (f"{zamba.name} generate prefill", SSM_SLOTS, ZAMBA_PROMPT, zamba)]
+
+
+def ssd_bound(B, S, H, P, N, dtype_name):
+    """Bytes of x, dt, A, B, C, y and the final state, each moved once;
+    operations of this run's chunks: C Bᵀ over each chunk's lower triangle
+    once per (row, chunk) — it is shared by the heads — then per head the
+    decay-masked product with dt x, C hᵀ for every chunk after the first
+    (the state is zero before it) and the state update."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_size
+
+    Q = ssd_chunk_size(S, 128)
+    nc, tri = S // Q, Q * (Q + 1) / 2
+    item = torch.finfo(getattr(torch, dtype_name)).bits // 8
+    nbytes = (2 * B * S * H * P + 2 * B * S * N) * item \
+        + 4 * (B * S * H + H + B * H * P * N)
+    flops = B * nc * tri * 2 * N + B * H * (
+        nc * (tri * (2 * P + 1) + 2 * Q * P * N + 3 * Q * P)
+        + (nc - 1) * 2 * Q * N * P)
+    return bound_ms(nbytes, flops, dtype_name)
+
+
+def run_ssd_phase(timer, mamba, zamba):
+    from repro_torch.kernels import ssd_scan as K6
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for dtype_name in ("bfloat16", "float32"):
+        dt_ = getattr(torch, dtype_name)
+        atol, rtol = SSD_TOLS[dtype_name]
+        for name, B, S, scfg in ssd_cells(mamba, zamba):
+            H, P, N = scfg.ssm_heads, scfg.ssm_head_dim, scfg.ssm_state
+            # the distributions of tests/test_flash_ssd_kernels.py, which
+            # the fp32 tolerance was set for: the error of a sum in another
+            # order grows with the terms' scale, and with unscaled B and C
+            # (C·B ~ 11 at N 128) kernel and plain part by ~1e-3 on outputs
+            # near 0, 1e-5 of the terms summed
+            x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dt_)
+            dt = torch.nn.functional.softplus(torch.randn(
+                (B, S, H), generator=gen, device="cuda"))
+            A = -torch.exp(0.5 * torch.randn((H,), generator=gen,
+                                             device="cuda"))
+            Bc, Cc = ((0.5 * torch.randn((B, S, N), generator=gen,
+                                         device="cuda")).to(dt_)
+                      for _ in range(2))
+            y, h = K6.ssd_scan(x, dt, A, Bc, Cc)
+            want_y, want_h = K6.ssd_scan_plain(x, dt, A, Bc, Cc)
+            torch.cuda.synchronize()
+            Q = K6.ssd_chunk_size(S, 128)
+            cell = (f"ssd_scan {name} B={B} S={S} H={H} P={P} N={N} Q={Q} "
+                    f"{dtype_name}")
+            err = check_close(cell, y, want_y, atol, rtol)
+            err_h = check_close(f"{cell} final state", h, want_h, 1e-4, 1e-4)
+            t_k = timer.ms(lambda: K6.ssd_scan(x, dt, A, Bc, Cc))
+            t_p = timer.ms(lambda: K6.ssd_scan_plain(x, dt, A, Bc, Cc))
+            b_ms, b_by = ssd_bound(B, S, H, P, N, dtype_name)
+            rows.append(dict(cell=cell, dtype=dtype_name, B=B, S=S, Q=Q,
+                             path=f"{name} B{B}xS{S}", uses=scfg.n_layers,
+                             max_abs_err=err, state_max_abs_err=err_h,
+                             ms=t_k, plain_ms=t_p, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by))
+            log(f"{cell}: max|d| y {err:.2e} state {err_h:.2e} kernel "
+                f"{t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by}); no library call")
     return rows
 
 
@@ -1145,12 +1303,163 @@ def run_int8_serving_phase(cfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-10: the SSM families (Mamba-2, the Zamba-2 hybrid)
+# ---------------------------------------------------------------------------
+
+def ssm_engine(cfg, params, slots):
+    from repro_torch.core.plan import FUSED
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    return ServingEngine(cfg, params, ServeConfig(
+        batch_slots=slots, max_len=SSM_MAX_LEN, cache_dtype=cfg.dtype,
+        pack_weights=True, attention=FUSED, device="cuda"))
+
+
+def solo_stream(eng, prompt):
+    h = eng.submit(prompt)
+    out = [eng.step()[h] for _ in range(SSM_GEN)]
+    eng.cancel(h)
+    return out
+
+
+def run_ssm_serving_phase(cfg, prompt_len, required, single_slot):
+    """generate() of SSM_SLOTS prompts x SSM_GEN tokens at full width; with
+    ``single_slot``, then the single-slot submit/step checks. Counters are
+    reset before and read after the whole path."""
+    from repro_torch.models import transformer as T
+
+    params = T.init_model(cfg, seed=20, device="cuda")
+    rng = np.random.default_rng(21)
+    prompts = rng.integers(0, cfg.vocab, (SSM_SLOTS, prompt_len))
+    eng = ssm_engine(cfg, params, SSM_SLOTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, SSM_GEN)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del eng
+    if out.shape != (SSM_SLOTS, SSM_GEN) or out.min() < 0 \
+            or out.max() >= cfg.vocab:
+        fail(f"{cfg.name} generate: malformed output {out.shape}")
+    res = dict(slots=SSM_SLOTS, prompt=prompt_len, tokens=SSM_GEN,
+               generate_s=gen_s, generate_tokens_per_s=out.size / gen_s)
+    if single_slot:
+        first, second = (rng.integers(0, cfg.vocab, n).tolist()
+                         for n in SOLO_PROMPTS)
+        one = ssm_engine(cfg, params, 1)
+        want = one.generate(np.asarray([first]), SSM_GEN)[0].tolist()
+        got = solo_stream(one, first)
+        if got != want:
+            fail(f"{cfg.name}: the {len(first)}-token prompt's submit/step "
+                 f"stream {got} differs from generate()'s {want}")
+        recycled = solo_stream(one, second)
+        del one
+        fresh = solo_stream(ssm_engine(cfg, params, 1), second)
+        if recycled != fresh:
+            fail(f"{cfg.name}: the request on the recycled slot gave "
+                 f"{recycled}, its solo run on a fresh engine {fresh}")
+        res.update(solo_prompts=list(SOLO_PROMPTS), submit_equals_generate=True,
+                   recycled_equals_fresh=True)
+    torch.cuda.synchronize()
+    launches = read_counts(f"{cfg.name} serving", required)
+    if launches["paged_attention"] or launches["paged_attention_int8"]:
+        fail(f"{cfg.name} serving: a paged kernel ran: {launches}")
+    res.update(launches=launches,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"{cfg.name} serving bf16: generate() {SSM_SLOTS}x{prompt_len} "
+        f"prompts x {SSM_GEN} tokens in {gen_s:.3f} s "
+        f"({res['generate_tokens_per_s']:.1f} tok/s)"
+        + (f"; single-slot submit of {SOLO_PROMPTS[0]} tokens equals "
+           f"generate(), the {SOLO_PROMPTS[1]}-token request on the recycled "
+           f"slot equals its fresh solo run" if single_slot else "")
+        + f"; launches {launches}; peak {res['peak_mem_gib']:.2f} GiB")
+    return res
+
+
+def ssm_greedy_run(cfg, params, device, prompts, n_steps, feed=None):
+    """Prefill then ``n_steps`` decode steps over contiguous caches (fused
+    policy). Each step is fed ``feed[:, i]`` when given (the same tokens on
+    both devices), else its own argmax. Returns (argmax (B, n_steps + 1),
+    the last-position logits of every step on the CPU)."""
+    from repro_torch.core import api
+    from repro_torch.core.plan import FUSED
+    from repro_torch.models import transformer as T
+
+    B, S = prompts.shape
+    caches = T.init_caches(cfg, B, S + n_steps + 1, "float32", device)
+    toks, logits_all = [], []
+    with torch.no_grad(), api.use_attention_policy(FUSED):
+        batch = {"tokens": torch.from_numpy(prompts).to(device),
+                 "positions": torch.arange(S).expand(B, S).to(device)}
+        logits, _ = T.forward(params, cfg, batch, caches=caches,
+                              last_cols=torch.full((B,), S - 1, device=device))
+        for i in range(n_steps + 1):
+            lg = logits[:, -1].float().cpu()
+            logits_all.append(lg)
+            toks.append(lg.argmax(-1))
+            if i == n_steps:
+                break
+            nxt = toks[-1] if feed is None else feed[:, i]
+            batch = {"tokens": nxt[:, None].to(device),
+                     "positions": torch.full((B, 1), S + i).to(device)}
+            logits, _ = T.forward(params, cfg, batch, caches=caches)
+    return torch.stack(toks, 1), logits_all
+
+
+def run_ssm_parity_phase(cfg):
+    """fp32, full width cut in depth: the card's kernels against the CPU's
+    plain versions on the same seeded weights and tokens."""
+    from repro_torch.core.api import pack_model_weights
+    from repro_torch.models import transformer as T
+
+    n_layers, S = SSM_PARITY[cfg.name]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=n_layers)
+    prompts = np.random.default_rng(22).integers(0, cfg.vocab, (2, S))
+    t0 = time.perf_counter()
+    params = pack_model_weights(T.init_model(cfg32, seed=23, device="cpu"))
+    toks_c, lg_c = ssm_greedy_run(cfg32, params, "cpu", prompts,
+                                  SSM_PARITY_STEPS)
+    params = pack_model_weights(T.init_model(cfg32, seed=23, device="cuda"))
+    toks_g, lg_g = ssm_greedy_run(cfg32, params, "cuda", prompts,
+                                  SSM_PARITY_STEPS, feed=toks_c)
+    del params
+    errs, ties = [], []
+    for i, (g, c) in enumerate(zip(lg_g, lg_c)):
+        errs.append(float((g - c).abs().max()))
+        if not np.isfinite(errs[-1]) or errs[-1] > LOGIT_TOL:
+            fail(f"{cfg.name} parity fp32: step {i} logits max |card - plain| "
+                 f"= {errs[-1]:.3e} > {LOGIT_TOL}")
+        for b in range(g.shape[0]):
+            if int(toks_g[b, i]) != int(toks_c[b, i]):
+                top2 = c[b].topk(2).values
+                margin = float(top2[0] - top2[1])
+                if margin >= LOGIT_TOL:
+                    fail(f"{cfg.name} parity fp32: greedy tokens differ at row "
+                         f"{b} step {i} with plain top-2 margin {margin:.3e} "
+                         f">= {LOGIT_TOL}")
+                ties.append(dict(row=b, step=i, margin=margin))
+    res = dict(layers=n_layers, prompt=S, steps=SSM_PARITY_STEPS,
+               logit_max_abs_err=errs, streams_equal=not ties, near_ties=ties,
+               seconds=time.perf_counter() - t0)
+    log(f"{cfg.name} parity fp32, {n_layers} layers at full width, 2 x {S} "
+        f"tokens + {SSM_PARITY_STEPS} steps: logits max|d| per step "
+        f"{[f'{e:.2e}' for e in errs]}; greedy streams "
+        f"{'equal' if not ties else f'equal but at near-ties {ties}'}")
+    return res
+
+
 def aggregate(rows, dtype, path="decode step"):
     """Per run of ``path`` (a decode step, an encoder forward): each of its
     cells weighted by its uses per run."""
     sel = [r for r in rows if r["dtype"] == dtype and r["path"] == path]
     tot = {k: sum(r[k] * r["uses"] for r in sel)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in sel]
+    tot["library_ms"] = None if None in lib else sum(
+        t * r["uses"] for t, r in zip(lib, sel))
     by = sum(r["uses"] * r["bound_ms"] for r in sel
              if r["bound_by"] == "bytes")
     tot["bound_by"] = "bytes" if by >= tot["bound_ms"] / 2 else "operations"
@@ -1190,25 +1499,38 @@ def main() -> None:
 
     cfg = get_config(ARCH)
     bert, vit = get_config("bert-base"), get_config("vit-base")
+    mamba, zamba = get_config(MAMBA), get_config(ZAMBA)
     timer = Timer()
-    report["gemm"] = run_gemm_phase(timer, cfg, bert, vit)
+    report["gemm"] = run_gemm_phase(timer, cfg, bert, vit, (mamba, zamba))
     report["attention"] = run_attention_phase(timer, cfg)
     report["flash"] = run_flash_phase(timer, flash_cells(
-        cfg, bert, vit, get_config("vit-huge"), np.random.default_rng(3)))
+        cfg, bert, vit, get_config("vit-huge"), zamba,
+        np.random.default_rng(3)))
     report["quant_gemm"] = run_quant_gemm_phase(timer, cfg, bert, vit)
     report["int8_attention"] = run_int8_attention_phase(timer, cfg)
+    report["ssd"] = run_ssd_phase(timer, mamba, zamba)
+    del timer
     report["serving"] = run_serving_phase(cfg)
     report["parity"] = run_parity_phase(cfg)
     report["encoders"] = run_encoder_phase(bert, vit)
     report["contiguous"] = run_contiguous_phase(cfg)
     report["int8_serving"] = run_int8_serving_phase(cfg)
+    report["mamba2_serving"] = run_ssm_serving_phase(
+        mamba, MAMBA_PROMPT, ("matrixflow_gemm", "ssd_scan"), True)
+    report["zamba2_serving"] = run_ssm_serving_phase(
+        zamba, ZAMBA_PROMPT, ("matrixflow_gemm", "flash_attention",
+                              "ssd_scan"), False)
+    report["ssm_parity"] = {c.name: run_ssm_parity_phase(c)
+                            for c in (mamba, zamba)}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],
                **{f"{n} forward": report["encoders"][n]["launches"]
                   for n in (bert.name, vit.name)},
                "contiguous serving": report["contiguous"]["launches"],
-               "int8 paged serving": report["int8_serving"]["launches"]}
+               "int8 paged serving": report["int8_serving"]["launches"],
+               f"{MAMBA} serving": report["mamba2_serving"]["launches"],
+               f"{ZAMBA} serving": report["zamba2_serving"]["launches"]}
 
     def entry(name, source, replaces, rows, path, other_paths):
         launches = {p: c[name] for p, c in by_path.items() if c[name]}
@@ -1220,23 +1542,31 @@ def main() -> None:
                 "other_runs": {p: aggregate(rows, "bfloat16", p)
                                for p in other_paths}}
 
+    ssd_paths = sorted({r["path"] for r in report["ssd"]})
+    main_ssd = f"{MAMBA} generate prefill B{SSM_SLOTS}xS{MAMBA_PROMPT}"
     kernels = [
         entry("matrixflow_gemm", "matrixflow_gemm",
               "src/repro/kernels/matrixflow_gemm.py:137", report["gemm"],
-              "decode step", (f"{bert.name} forward", f"{vit.name} forward")),
+              "decode step", (f"{bert.name} forward", f"{vit.name} forward",
+                              f"{MAMBA} decode step", f"{MAMBA} prefill",
+                              f"{ZAMBA} decode step")),
         entry("matrixflow_gemm_dequant", "matrixflow_gemm",
               "src/repro/kernels/matrixflow_gemm.py:154",
               report["quant_gemm"], "decode step",
               ("prefill", f"{bert.name} forward")),
         entry("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:199", report["flash"],
-              f"{bert.name} forward", (f"{vit.name} forward", "decode step")),
+              f"{bert.name} forward", (f"{vit.name} forward", "decode step",
+                                       "zamba2 prefill", "zamba2 decode step")),
         entry("paged_attention", "paged_attention",
               "src/repro/kernels/paged_attention.py:188",
               report["attention"], "decode step", ()),
         entry("paged_attention_int8", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
               report["int8_attention"], "decode step", ("prefill", "chunk")),
+        entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:117",
+              report["ssd"], main_ssd,
+              [p for p in ssd_paths if p != main_ssd]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,23 +5,30 @@ spends its time, on one GPU.
     PYTHONPATH=src python3 scripts/torch_decode_profile.py [--steps 20]
         [--attn-backend paged|fused] [--weight-dtype int8] [--kv-dtype int8]
     PYTHONPATH=src python3 scripts/torch_decode_profile.py --encoder bert-base
+    PYTHONPATH=src python3 scripts/torch_decode_profile.py --arch mamba2-1.3b \
+        --attn-backend fused --prompt-len 384
 
 Decode (the default): serves full-width smollm-135m (bf16, seeded random
 weights, resident block-major weights; paged KV with page 16, or
 contiguous KV caches under ``--attn-backend fused``) through ServingEngine
 with every slot decoding. ``--weight-dtype int8`` runs every projection
 through the W8A8 GEMM (weights quantized at pack time) and ``--kv-dtype
-int8`` stores the KV pages int8 (paged only). ``--encoder ARCH`` instead runs full-width
+int8`` stores the KV pages int8 (paged only). ``--arch mamba2-1.3b`` or
+``zamba2-2.7b`` (contiguous caches, ``--attn-backend fused``) runs the
+model's serving forward on every slot at once, as the engine's generate()
+does (its submit() takes one slot for these families): first the prefill
+of ``--prompt-len`` tokens per slot into fresh caches (their zeroing
+included), then decode steps. ``--encoder ARCH`` instead runs full-width
 ``encoder_forward`` of bert-base (B 8 x S 128 tokens) or vit-base (B 8 x
-197 stub patch embeddings), bf16, default policies. Then:
+197 stub patch embeddings), bf16, default policies. Then, for each:
 
-* times ``--steps`` decode-only ``step()`` calls (or forwards) on the host
-  clock, each ending in a device sync;
+* times ``--steps`` decode-only ``step()`` calls (or forwards; 5
+  prefills) on the host clock, each ending in a device sync;
 * profiles 5 more with torch.profiler and sums device time by kernel: the
   MatrixFlow GEMM and its W8A8 variant, the paged attention kernel over fp
-  and int8 pages, the flash attention kernel, and everything else
-  (PyTorch's elementwise, copy, reduction and index kernels). Device busy time
-  over wall time gives the device's idle share.
+  and int8 pages, the flash attention kernel, the SSD scan, and everything
+  else (PyTorch's elementwise, copy, reduction and index kernels). Device
+  busy time over wall time gives the device's idle share.
 
 Writes chiprun_out/torch_decode_profile_<what>.json and prints one line
 per number, with the card's name and power limit first. Fails without a
@@ -52,19 +59,26 @@ def main(argv=None) -> int:
                     choices=["paged", "fused"])
     ap.add_argument("--weight-dtype", default=None, choices=["int8"])
     ap.add_argument("--kv-dtype", default=None, choices=["int8"])
+    ap.add_argument("--arch", default="smollm-135m",
+                    choices=["smollm-135m", "mamba2-1.3b", "zamba2-2.7b"])
     ap.add_argument("--encoder", default=None,
                     choices=["bert-base", "vit-base"],
                     help="profile encoder_forward instead of decode")
     args = ap.parse_args(argv)
     if args.kv_dtype and args.attn_backend != "paged":
         ap.error("--kv-dtype needs --attn-backend paged")
+    ssm = args.arch != "smollm-135m"
+    if ssm and (args.attn_backend != "fused" or args.kv_dtype):
+        ap.error(f"{args.arch} serves from contiguous caches: "
+                 f"--attn-backend fused, no --kv-dtype")
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import api
     from repro_torch.core.api import pack_model_weights
-    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.core.plan import FUSED, AttentionPolicy, GemmPolicy
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServeConfig, ServingEngine
 
@@ -73,6 +87,7 @@ def main(argv=None) -> int:
                           text=True).stdout.strip().splitlines()[0]
     print(card)
     rng = np.random.default_rng(0)
+    runs = {}
     if args.encoder:
         cfg = get_config(args.encoder)
         params = pack_model_weights(T.init_model(cfg, seed=0, device="cuda"))
@@ -89,6 +104,41 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 T.encoder_forward(params, cfg, batch)
             torch.cuda.synchronize()
+        runs[what] = (step, args.steps)
+    elif ssm:
+        cfg = get_config(args.arch)
+        params = pack_model_weights(
+            T.init_model(cfg, seed=0, device="cuda"),
+            GemmPolicy(weight_dtype=args.weight_dtype))
+        B, S = args.slots, args.prompt_len
+        max_len = S + args.steps + 16
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).cuda()
+        run = {}
+
+        def forward(tokens, positions, last_cols=None):
+            with torch.no_grad(), api.use_attention_policy(FUSED):
+                logits, _ = T.forward(params, cfg, {
+                    "tokens": tokens, "positions": positions},
+                    caches=run["caches"], last_cols=last_cols)
+            run["tok"] = torch.argmax(logits[:, -1], dim=-1)
+            torch.cuda.synchronize()
+
+        def prefill():
+            run["caches"] = T.init_caches(cfg, B, max_len, cfg.dtype, "cuda")
+            run["pos"] = S
+            forward(prompts, torch.arange(S, device="cuda").expand(B, S),
+                    torch.full((B,), S - 1, device="cuda"))
+
+        def decode():
+            forward(run["tok"][:, None],
+                    torch.full((B, 1), run["pos"], device="cuda"))
+            run["pos"] += 1
+
+        tag = (f"{B} slots, fused attention, weights "
+               f"{args.weight_dtype or cfg.dtype}")
+        runs[f"{cfg.name} prefill, {S} tokens per slot, {tag}"] = (prefill, 5)
+        runs[f"{cfg.name} decode step after {S} tokens, {tag}"] = (
+            decode, args.steps)
     else:
         cfg = get_config("smollm-135m")
         eng = ServingEngine(cfg, T.init_model(cfg, seed=0, device="cuda"),
@@ -105,14 +155,41 @@ def main(argv=None) -> int:
                 f"{args.attn_backend} attention, weights "
                 f"{args.weight_dtype or cfg.dtype}, KV {args.kv_dtype or cfg.dtype}")
         step = eng.step
+        runs[what] = (step, args.steps)
+
+    results = [measure(step, n) for step, n in runs.values()]
+    res = {"card": card, "torch": torch.__version__}
+    if len(runs) == 1:
+        res.update(what=next(iter(runs)), **results[0])
+        if not args.encoder:
+            res.update(context=f"{args.prompt_len}+ tokens per slot",
+                       decode_tokens_per_s=args.slots / res["step_ms"] * 1e3)
+    else:
+        res["runs"] = dict(zip(runs, results))
+    for k, v in res.items():
+        print(f"{k}: {v}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    name = "torch_decode_profile" + (
+        f"_{args.encoder}" if args.encoder else
+        (f"_{args.arch}" if ssm else "") + f"_{args.attn_backend}"
+        + (f"_w{args.weight_dtype}" if args.weight_dtype else "")
+        + (f"_kv{args.kv_dtype}" if args.kv_dtype else ""))
+    (out / f"{name}.json").write_text(json.dumps(res, indent=1))
+    return 0 if all(r["device_busy_ms_per_step"] > 0 for r in results) else 1
+
+
+def measure(step, n_steps: int) -> dict:
+    """Host wall time per call over ``n_steps`` calls (after 3 warm-up
+    calls), then device time by kernel over 5 profiled calls."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(args.steps):
+    for _ in range(n_steps):
         step()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
 
     n_prof = 5
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -131,30 +208,15 @@ def main(argv=None) -> int:
                 else "paged_attention" if "paged_attn_kernel" in e.name else
                 "paged_attention_int8" if "paged_attn_int8_kernel" in e.name
                 else "flash_attention" if "flash_attn_kernel" in e.name else
-                "other")
+                "ssd_scan" if "ssd_scan_kernel" in e.name else "other")
         by_kind[kind] += e.time_range.elapsed_us() / 1e3 / n_prof
         n_kernels[kind] += 1
     busy_ms = sum(by_kind.values())
-    res = {"card": card, "torch": torch.__version__, "what": what,
-           "step_ms": step_ms}
-    if not args.encoder:
-        res.update(context=f"{args.prompt_len}+ tokens per slot",
-                   decode_tokens_per_s=args.slots / step_ms * 1e3)
-    res.update(
-        device_ms_per_step=dict(by_kind),
-        device_ops_per_step={k: v / n_prof for k, v in n_kernels.items()},
-        device_busy_ms_per_step=busy_ms,
-        device_idle_share=(1 - busy_ms / step_ms) if busy_ms else None)
-    for k, v in res.items():
-        print(f"{k}: {v}")
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    name = "torch_decode_profile" + (
-        f"_{args.encoder}" if args.encoder else f"_{args.attn_backend}"
-        + (f"_w{args.weight_dtype}" if args.weight_dtype else "")
-        + (f"_kv{args.kv_dtype}" if args.kv_dtype else ""))
-    (out / f"{name}.json").write_text(json.dumps(res, indent=1))
-    return 0 if busy_ms > 0 else 1
+    return dict(step_ms=step_ms, device_ms_per_step=dict(by_kind),
+                device_ops_per_step={k: v / n_prof
+                                     for k, v in n_kernels.items()},
+                device_busy_ms_per_step=busy_ms,
+                device_idle_share=(1 - busy_ms / step_ms) if busy_ms else None)
 
 
 if __name__ == "__main__":

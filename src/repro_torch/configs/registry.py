@@ -1,5 +1,6 @@
 """Architecture registry of the port: the configurations its model code
-covers so far — the dense family and the paper's BERT/ViT encoders.
+covers so far — the dense family, Mamba-2, the Zamba-2 hybrid and the
+paper's BERT/ViT encoders.
 Mirrors ``repro/configs/registry.py``; the other architectures of the JAX
 registry are still to be ported (ROADMAP.md)."""
 from __future__ import annotations
@@ -11,7 +12,9 @@ from repro_torch.models.config import ModelConfig, reduced
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "reduced"]
 
 ARCHS = {
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 

@@ -336,7 +336,8 @@ def layout_for_packed(M: int, pw: Union[PackedWeight, QuantizedPackedWeight]
 
 # Keys that name GEMM right-hand sides in the model parameter trees
 # (models/layers.py, models/transformer.py).
-_PACK_KEYS = frozenset({"wq", "wk", "wv", "wo", "wi", "head"})
+_PACK_KEYS = frozenset({"wq", "wk", "wv", "wo", "wi", "w_z", "w_x", "w_B",
+                        "w_C", "w_dt", "w_out", "head"})
 
 
 def pack_model_weights(params, policy: Optional[GemmPolicy] = None, *,

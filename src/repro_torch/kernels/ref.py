@@ -9,6 +9,9 @@ operands accumulate in float64, which is exact for int8 products summed
 over any K below 2**37, and works on both devices (CUDA has no integer
 matmul). With ``scale_a``/``scale_b`` it is the W8A8 GEMM: the finished
 int32 block is rescaled at its flush (``core/quant.py``).
+
+``ssd_ref`` is the Mamba-2 SSD recurrence one step at a time, the oracle;
+``ssd_chunked_ref`` is the chunked scan the SSD kernel computes.
 """
 from __future__ import annotations
 
@@ -121,3 +124,92 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(valid, p, torch.zeros_like(p))
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) scan
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bc: torch.Tensor, Cc: torch.Tensor) -> torch.Tensor:
+    """Sequential-scan oracle of the SSD recurrence
+    (``repro/kernels/ref.py::ssd_ref``), one time step at a time:
+
+        h_t = exp(A · dt_t) · h_{t-1} + dt_t · x_t B_tᵀ ;  y_t = h_t C_t
+
+    x (B, S, H, P), dt (B, S, H), A (H,), Bc/Cc (B, S, N); fp32 state
+    (B, H, P, N) from zeros; returns y (B, S, H, P) in x's dtype.
+    """
+    Bsz, S, H, P = x.shape
+    N = Bc.shape[-1]
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, Bc, Cc))
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(A.float()[None, :] * dtf[:, t])[..., None, None]
+        dbx = (dtf[:, t, :, None] * xf[:, t])[..., None] \
+            * bf[:, t, None, None, :]
+        h = decay * h + dbx
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunk_size(S: int, chunk: int) -> int:
+    """The SSD scan's chunk (``repro/kernels/ssd_scan.py::ssd_chunk_size``):
+    the largest divisor of S that is at most ``chunk``."""
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    return Q
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bc: torch.Tensor, Cc: torch.Tensor, *, chunk: int = 128,
+                    final_state: bool = True):
+    """The chunked SSD scan, chunk after chunk with the fp32 (P, N) state
+    carried along: the plain version of the SSD kernel (K6), in the order
+    the TPU kernel computes each chunk (``repro/kernels/ssd_scan.py::
+    _kernel``; ``repro/models/ssm.py::ssd_chunked`` is the same algorithm).
+
+    Per chunk of Q = ``ssd_chunk_size(S, chunk)`` steps: the cumulative
+    log-decay ``cum`` of a = dt·A; ``L[i, j] = exp(cum_i − cum_j)`` for
+    j ≤ i, 0 above the diagonal (masked in the exponent, never evaluated
+    there, where it overflows); y = (L ∘ C Bᵀ)(dt x) + exp(cum) ∘ (C hᵀ);
+    then h ← exp(cum_Q) h + (exp(cum_Q − cum) ∘ dt x)ᵀ B. ``cum`` is summed
+    in fp64 and its differences rounded to fp32 before each exp: in fp32,
+    differences of two sums near −100 keep ~1e-4 relative error, as much
+    as the reference's tolerance (the JAX package sums it in fp32).
+
+    x (B, S, H, P), dt (B, S, H) fp32, A (H,) fp32, Bc/Cc (B, S, N).
+    Returns (y (B, S, H, P) in x's dtype, the state after the last chunk
+    (B, H, P, N) fp32, or None when ``final_state`` is False).
+    """
+    Bsz, S, H, P = x.shape
+    N = Bc.shape[-1]
+    Q = ssd_chunk_size(S, chunk)
+    dev = x.device
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev)
+    below = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float64, device=dev)
+    ys = []
+    for c0 in range(0, S, Q):
+        dtc = dt[:, c0:c0 + Q].float()                          # (B, Q, H)
+        dtx = (x[:, c0:c0 + Q].float() * dtc[..., None]).transpose(1, 2)
+        bq = Bc[:, c0:c0 + Q].float()                           # (B, Q, N)
+        cq = Cc[:, c0:c0 + Q].float()
+        cum = torch.cumsum((dtc * A.float()).transpose(1, 2).double(),
+                           dim=-1)                              # (B, H, Q)
+        diff = cum[..., :, None] - cum[..., None, :]            # (B, H, Q, Q)
+        L = torch.exp(torch.where(below, diff, neg_inf).float())
+        cb = torch.matmul(cq, bq.transpose(1, 2))[:, None]      # (B, 1, Q, Q)
+        y = torch.matmul(L * cb, dtx)                           # (B, H, Q, P)
+        y = y + torch.matmul(cq[:, None], h.transpose(-1, -2)) \
+            * torch.exp(cum.float())[..., None]
+        ys.append(y)
+        if final_state or c0 + Q < S:
+            decay_end = torch.exp((cum[..., -1:] - cum).float())  # (B, H, Q)
+            h = h * torch.exp(cum[..., -1].float())[..., None, None] \
+                + torch.matmul((dtx * decay_end[..., None]).transpose(-1, -2),
+                               bq[:, None])
+    y = torch.cat(ys, dim=2).transpose(1, 2).to(x.dtype).contiguous()
+    return y, (h if final_state else None)

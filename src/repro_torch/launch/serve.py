@@ -10,6 +10,8 @@ Usage:
       --weight-dtype int8 --kv-dtype int8   # W8A8 GEMMs, int8 KV pages
   python -m repro_torch.launch.serve --arch smollm-135m --smoke \
       --device cpu --max-len 64     # plain versions of the kernels, on CPU
+  python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      --attn-backend fused --batch-slots 1   # Mamba-2 (the SSD kernel)
 """
 from __future__ import annotations
 
@@ -115,6 +117,12 @@ def main(argv=None):
     print(f"[serve] batched generate: {out.shape} in {dt:.2f}s "
           f"({args.batch_slots * args.gen_len / dt:.1f} tok/s)")
 
+    # slot admission needs position-masked cache updates; SSM/hybrid
+    # recurrent state has none, so multi-slot submit() is refused
+    if cfg.family in T.SSD_FAMILIES and args.batch_slots > 1:
+        print("[serve] continuous batching skipped: ssm/hybrid families "
+              "support slot admission only with --batch-slots 1")
+        return 0
     lo = max(1, min(4, args.prompt_len))
     pending = [rng.integers(0, cfg.vocab,
                             rng.integers(lo, args.prompt_len + 1)).tolist()

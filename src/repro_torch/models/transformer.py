@@ -1,10 +1,12 @@
-"""Model assembly for the dense decoder family and the BERT/ViT encoders
-(``repro/models/transformer.py``): init, token embedding, forward over a
-paged or contiguous KV cache or none, and ``encoder_forward``.
+"""Model assembly for the dense decoder family, the Mamba-2 (``ssm``) and
+Zamba-2 (``hybrid``) families and the BERT/ViT encoders
+(``repro/models/transformer.py``): init, token embedding, forward over
+paged or contiguous caches or none, and ``encoder_forward``.
 
 Layers are a Python loop over per-layer parameter dicts (the JAX package
-stacks them and scans). Other families — MoE, MLA, SSM, hybrid, audio,
-VLM — are not ported yet and raise.
+stacks them and scans). A hybrid applies its one weight-shared attention
+block after every ``attn_every`` SSD layers. Other families — MoE, MLA,
+audio, VLM — are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -15,29 +17,43 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import api
 from repro_torch.models import layers as Lyr
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.module import dense_init, embed_init, norm_init
 
 # What each ported family is: (norm, mlp_act, causal). The encoders are
 # the reference's BERT/ViT: LayerNorm, GELU MLP with biases, bidirectional.
+# ssm layers are SSD blocks; hybrid adds the shared attention + MLP block.
 _FAMILIES = {"dense": ("rmsnorm", "swiglu", True),
+             "ssm": ("rmsnorm", "swiglu", True),
+             "hybrid": ("rmsnorm", "swiglu", True),
              "bert": ("layernorm", "gelu", False),
              "vit": ("layernorm", "gelu", False)}
+SSD_FAMILIES = ("ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config outside the ported families:
-    the dense decoder (plain GQA + RMSNorm + SwiGLU, causal, untied head)
-    and the BERT/ViT encoders (MHA + LayerNorm + GELU, bidirectional)."""
+    the dense decoder (plain GQA + RMSNorm + SwiGLU, causal, untied head),
+    Mamba-2 (SSD blocks only), the Zamba-2 hybrid (SSD blocks and one
+    shared attention block every ``attn_every`` layers) and the BERT/ViT
+    encoders (MHA + LayerNorm + GELU, bidirectional)."""
     norm, act, causal = _FAMILIES.get(cfg.family, (None, None, None))
+    ssd = cfg.family in SSD_FAMILIES
     unsupported = {
         "family": cfg.family not in _FAMILIES,
-        "MLA": cfg.is_mla, "MoE": cfg.is_moe, "SSM": bool(cfg.ssm_state),
+        "MLA": cfg.is_mla, "MoE": cfg.is_moe,
+        "SSM outside the ssm/hybrid families": bool(cfg.ssm_state) != ssd,
+        "attn_every outside the hybrid family":
+            bool(cfg.attn_every) != (cfg.family == "hybrid"),
+        "n_layers not a multiple of attn_every":
+            bool(cfg.attn_every) and cfg.n_layers % cfg.attn_every != 0,
         "qk_norm": cfg.qk_norm, "qkv_bias": cfg.qkv_bias,
         "norm": norm is not None and cfg.norm != norm,
         "mlp_act": act is not None and cfg.mlp_act != act,
         "causal": causal is not None and cfg.causal != causal,
-        "GQA encoder": cfg.family != "dense" and cfg.n_kv_heads != cfg.n_heads,
+        "GQA encoder": cfg.family in ("bert", "vit")
+        and cfg.n_kv_heads != cfg.n_heads,
         "n_codebooks": bool(cfg.n_codebooks),
         "first_dense_layers": bool(cfg.first_dense_layers),
         "tie_embeddings": cfg.tie_embeddings,
@@ -46,11 +62,14 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet; the port covers "
-            f"the dense decoder family and the BERT/ViT encoders "
-            f"(ROADMAP.md)")
+            f"the dense decoder family, Mamba-2, the Zamba-2 hybrid and the "
+            f"BERT/ViT encoders (ROADMAP.md)")
 
 
-def _init_block(gen, cfg: ModelConfig, dtype, device):
+def _init_block(gen, cfg: ModelConfig, dtype, device, kind: str = "attn"):
+    if kind == "ssd":
+        return {"mix_norm": norm_init(cfg.d_model, dtype, device),
+                "ssd": SSM.init_ssd(gen, cfg, dtype, device)}
     bias = cfg.norm == "layernorm"
     return {"attn_norm": norm_init(cfg.d_model, dtype, device, bias),
             "attn": Lyr.init_attention(gen, cfg, dtype, device),
@@ -68,7 +87,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     dtype = cfg.param_dtype
     gen = torch.Generator().manual_seed(seed)
     params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)}
-    params["layers"] = [_init_block(gen, cfg, dtype, device)
+    if cfg.attn_every:         # zamba-style hybrid: the shared attention block
+        params["shared_attn"] = _init_block(gen, cfg, dtype, device)
+    kind = "ssd" if cfg.family in SSD_FAMILIES else "attn"
+    params["layers"] = [_init_block(gen, cfg, dtype, device, kind)
                         for _ in range(cfg.n_layers)]
     params["final_norm"] = norm_init(cfg.d_model, dtype, device,
                                      cfg.norm == "layernorm")
@@ -90,6 +112,21 @@ def embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
     return params["embed"][batch["tokens"]]
 
 
+def _apply_block(p, cfg: ModelConfig, x, *, positions, cache=None,
+                 block_tables=None) -> torch.Tensor:
+    """One layer, residuals included: an SSD block (``"ssd" in p``) or
+    attention + MLP. A cache is updated in place."""
+    if "ssd" in p:
+        h, _ = SSM.ssd_block(p["ssd"], cfg, Lyr.rmsnorm(p["mix_norm"], x),
+                             cache=cache)
+        return x + h
+    h, _ = Lyr.attention(p["attn"], cfg, Lyr.apply_norm(cfg, p["attn_norm"], x),
+                         positions=positions, cache=cache,
+                         block_tables=block_tables)
+    x = x + h
+    return x + Lyr.mlp(p["mlp"], cfg, Lyr.apply_norm(cfg, p["mlp_norm"], x))
+
+
 def forward(params, cfg: ModelConfig, batch, *,
             caches: Optional[List[Dict]] = None,
             last_cols: Optional[torch.Tensor] = None):
@@ -97,24 +134,29 @@ def forward(params, cfg: ModelConfig, batch, *,
     d_model) [+ positions (B, S), block_tables (B, n_blocks)]. ``caches``
     — from :func:`init_paged_caches` or :func:`init_caches`, updated in
     place — or None for self-attention over the batch (causal per the
-    config). ``last_cols`` (B,) keeps only column ``last_cols[b]``
-    of each row before the final norm and head, so logits are (B, 1,
-    vocab): the serving prefill reads just each row's last real token."""
+    config; SSD blocks scan the batch from a zero state). ``last_cols``
+    (B,) keeps only column ``last_cols[b]`` of each row before the final
+    norm and head, so logits are (B, 1, vocab): the serving prefill reads
+    just each row's last real token."""
     x = embed_tokens(params, cfg, batch)
     B, S = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    block_tables = batch.get("block_tables")
-    for i, lp in enumerate(params["layers"]):
-        h, _ = Lyr.attention(lp["attn"], cfg,
-                             Lyr.apply_norm(cfg, lp["attn_norm"], x),
-                             positions=positions,
-                             cache=None if caches is None else caches[i],
-                             block_tables=block_tables)
-        x = x + h
-        x = x + Lyr.mlp(lp["mlp"], cfg,
-                        Lyr.apply_norm(cfg, lp["mlp_norm"], x))
+    kw = dict(positions=positions, block_tables=batch.get("block_tables"))
+    layers = params["layers"]
+    L = len(layers)
+
+    def cache(i):
+        return None if caches is None else caches[i]
+
+    for i, lp in enumerate(layers):
+        x = _apply_block(lp, cfg, x, cache=cache(i), **kw)
+        if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+            # the hybrid's shared block closes each group; its caches
+            # follow the L layer caches, one per group
+            x = _apply_block(params["shared_attn"], cfg, x,
+                             cache=cache(L + i // cfg.attn_every), **kw)
     if last_cols is not None:
         x = x[torch.arange(B, device=x.device), last_cols][:, None]
     x = Lyr.apply_norm(cfg, params["final_norm"], x)
@@ -123,15 +165,25 @@ def forward(params, cfg: ModelConfig, batch, *,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device) -> List[Dict]:
-    """One contiguous (batch, max_len) KV cache per layer
-    (``layers.init_attention_cache``); dense decoder family only."""
+    """Decoder caches, one per layer: a contiguous (batch, max_len) KV cache
+    (``layers.init_attention_cache``) for an attention layer, the conv and
+    SSD states (``ssm.init_ssd_cache``) for an SSD layer. A hybrid's list
+    holds its SSD layers' caches, then one KV cache per group for the
+    shared attention block (the reference's ``{"scan": (ssm, attn)}``)."""
     check_supported(cfg)
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: KV caches serve the decoder family; "
+    if cfg.family in ("bert", "vit"):
+        raise ValueError(f"{cfg.name}: KV caches serve the decoder families; "
                          f"family {cfg.family!r} is an encoder")
-    return [Lyr.init_attention_cache(cfg, batch, max_len, torch_dtype(dtype),
-                                     device)
-            for _ in range(cfg.n_layers)]
+    dtype = torch_dtype(dtype)
+    if cfg.family == "dense":
+        return [Lyr.init_attention_cache(cfg, batch, max_len, dtype, device)
+                for _ in range(cfg.n_layers)]
+    caches = [SSM.init_ssd_cache(cfg, batch, dtype, device)
+              for _ in range(cfg.n_layers)]
+    n_groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    return caches + [Lyr.init_attention_cache(cfg, batch, max_len, dtype,
+                                              device)
+                     for _ in range(n_groups)]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
@@ -140,8 +192,14 @@ def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
     """One paged KV cache per layer (``layers.init_paged_attention_cache``);
     one (batch, n_blocks) block table addresses every layer's pool.
     ``kv_dtype="int8"`` stores every pool int8 with per-page-per-head fp32
-    scales."""
+    scales. Pure attention stacks only: SSD and conv state has no
+    positions to page."""
     check_supported(cfg)
+    if cfg.family in SSD_FAMILIES:
+        raise NotImplementedError(
+            f"paged KV caches require pure-attention layer stacks; family="
+            f"{cfg.family!r} attn_every={cfg.attn_every} carries SSD "
+            f"recurrent state (docs/serving.md)")
     return [Lyr.init_paged_attention_cache(cfg, batch, n_pages, page_size,
                                            torch_dtype(dtype), device,
                                            kv_dtype=kv_dtype)

@@ -21,6 +21,14 @@ power-of-two **bucketed prefill**, carry position −1 — they write no K/V
 and do not advance the valid length — so one slot's prefill cannot corrupt
 another's cache.
 
+**Mamba-2 / Zamba-2** (families ``ssm``, ``hybrid``) serve in contiguous
+mode only: SSD and conv state carries no positions, so it cannot be paged,
+masked per slot or continued by a later prefill chunk. As in the
+reference, ``submit`` admits them only with ``batch_slots=1`` and their
+prefill is unpadded; a recycled slot's SSD state is zeroed. A chunked
+prefill (``Scheduler(prefill_chunk=N)``) would drop the earlier chunks'
+state, so the engine refuses it for these families.
+
 **int8**: ``weight_dtype="int8"`` quantizes every projection weight at
 pack time and runs the W8A8 GEMM route (the dequant-fused MatrixFlow
 kernel on the card); ``kv_dtype="int8"`` (paged mode only) stores the page
@@ -147,6 +155,14 @@ class ServingEngine:
         self.cfg, self.params, self.sc, self.attn = cfg, params, sc, attn
         self.scheduler = sc.scheduler if sc.scheduler is not None \
             else Scheduler()
+        self.ssd = cfg.family in T.SSD_FAMILIES
+        if self.ssd and self.scheduler.prefill_chunk:
+            raise NotImplementedError(
+                f"chunked prefill (prefill_chunk="
+                f"{self.scheduler.prefill_chunk}) of an SSM family: a prefill "
+                f"with a cache starts the SSD state from zero, so every chunk "
+                f"after the first would drop the earlier chunks' state; "
+                f"prefill SSM prompts whole (ROADMAP.md)")
         B = sc.batch_slots
         self.slot_rid = np.full(B, -1, np.int64)
         self.wait: List[_Waiting] = []
@@ -236,9 +252,17 @@ class ServingEngine:
             return torch.multinomial(probs, 1, generator=generator)[:, 0].numpy()
         return torch.argmax(logits, dim=-1).cpu().numpy()
 
-    def _reset_lens(self, slots) -> None:
+    def _reset_slot_caches(self, slots) -> None:
+        """Restart ``slots`` (an index or a slice) from position 0: zero
+        their KV caches' valid lengths and, in SSD layers, their conv and
+        SSD states, which carry no lengths."""
         for c in self.caches:
-            c["len"][slots] = 0
+            if "state" in c:
+                c["state"][slots] = 0
+                for t in c["conv"].values():
+                    t[slots] = 0
+            else:
+                c["len"][slots] = 0
 
     def _handle(self, slot: int) -> int:
         """What submit()/step() key results by: request id in paged mode
@@ -317,7 +341,7 @@ class ServingEngine:
                 self.request_out.pop(int(self.slot_rid[s]), None)
         for w in self.wait:
             self.request_out.pop(w.rid, None)
-        self._reset_lens(slice(None))
+        self._reset_slot_caches(slice(None))
         if self.paged:
             self.block_tables[:] = 0
         self.slot_rid[:] = -1
@@ -347,6 +371,13 @@ class ServingEngine:
         in paged mode an incoming request may preempt a strictly less
         urgent live one.
         """
+        if self.ssd and self.sc.batch_slots > 1:
+            raise NotImplementedError(
+                "slot-based submit() requires position-masked cache updates; "
+                "SSD/conv recurrent states carry no positions, so a masked "
+                "single-slot prefill cannot leave other slots' SSM state "
+                "untouched. Use generate(), or batch_slots=1 where no other "
+                "slot exists.")
         if not 0 < len(prompt) < self.sc.max_len:
             raise ValueError(
                 f"prompt length {len(prompt)} out of range for "
@@ -418,7 +449,7 @@ class ServingEngine:
         self.slot_deadline[slot] = deadline
         self.slot_arrival[slot] = arrival
         if self.slot_pos[slot]:          # recycled slot: restart from pos 0
-            self._reset_lens(slot)
+            self._reset_slot_caches(slot)
             self.slot_pos[slot] = 0
         self.slot_live[slot] = True
         self.slot_drain[slot] = False
@@ -439,7 +470,9 @@ class ServingEngine:
         p0 = int(self.slot_pos[slot])
         n = min(self.scheduler.prefill_chunk or (L - p0), L - p0)
         B = self.sc.batch_slots
-        Sb = min(_next_pow2(n), max(self.sc.max_len, n))
+        # bucket padding columns carry position -1, a mask SSD/conv state
+        # knows nothing of: those families prefill unpadded
+        Sb = n if self.ssd else min(_next_pow2(n), max(self.sc.max_len, n))
         tok = np.zeros((B, Sb), np.int64)
         tok[slot, :n] = tokens[p0:p0 + n]
         pos = np.full((B, Sb), -1, np.int32)
@@ -480,7 +513,7 @@ class ServingEngine:
             arrival=int(self.slot_arrival[slot])))
         self.n_preemptions += 1
         self._release_slot(slot)
-        # slot_pos stays nonzero → the next admission resets this slot's lens
+        # slot_pos stays nonzero → the next admission resets this slot's caches
 
     def _release_slot(self, slot: int):
         if self.paged:

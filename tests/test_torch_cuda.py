@@ -1,8 +1,9 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (the W8A8 GEMM, K2, bitwise; the int8
-paged kernel, K5, within ATTN_TOLS), and the serving engine (paged, int8
-and contiguous) and the BERT/ViT encoders on the card against the same
-code on the CPU (where the wrappers run the plain versions).
+paged kernel, K5, within ATTN_TOLS; the SSD scan, K6, within 1e-4 in
+fp32), and the serving engine (paged, int8, contiguous, and the SSM
+families) and the BERT/ViT encoders on the card against the same code on
+the CPU (where the wrappers run the plain versions).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -29,6 +30,7 @@ from repro_torch.core.plan import FUSED, AttentionPolicy
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matrixflow_gemm as MF
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import ssd_scan as K6
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
@@ -443,4 +445,103 @@ def test_contiguous_engine_on_card_matches_cpu_plain(cuda):
         results.append((streams, gen.tolist()))
         if device == "cuda":
             assert FA.flash_attention.launches > before
+    assert results[0] == results[1]
+
+
+# (B, S, H, P, N, chunk): tests/test_flash_ssd_kernels.py's SSD_CASES
+# (copied: importing it would import JAX), then Mamba-2's serving prefill
+# (Q 64, one chunk; 8 of its 64 heads), a prime length (Q 1), Q 125 over 8
+# chunks and Zamba-2's N 64 over two chunks of 100
+SSD_CARD_CASES = ((1, 16, 1, 4, 8, 4), (2, 32, 3, 8, 16, 8),
+                  (1, 64, 2, 16, 32, 16), (2, 48, 2, 8, 16, 16),
+                  (1, 128, 4, 64, 128, 64), (2, 64, 8, 64, 128, 128),
+                  (1, 131, 2, 64, 128, 128), (1, 1000, 2, 64, 128, 128),
+                  (2, 200, 3, 64, 64, 128))
+SSD_TOLS = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)}
+
+
+def _ssd_inputs(cuda, dtype, B, S, H, P, N, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(dt_)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=cuda) * 0.5)
+    Bc, Cc = ((torch.randn((B, S, N), generator=gen, device=cuda) * 0.5)
+              .to(dt_) for _ in range(2))
+    return x, dt, A, Bc, Cc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CARD_CASES,
+                         ids=lambda c: "B{}S{}H{}P{}N{}q{}".format(*c))
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, case):
+    """K6 against its plain version on the same CUDA tensors: y within
+    tests/test_ssm.py's 1e-4 in fp32 (parity's TOLS in bf16, y rounded
+    once), the fp32 final state within 1e-4 either way."""
+    B, S, H, P, N, chunk = case
+    x, dt, A, Bc, Cc = _ssd_inputs(cuda, dtype, B, S, H, P, N, seed=S)
+    before = K6.ssd_scan.launches
+    y, h = K6.ssd_scan(x, dt, A, Bc, Cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K6.ssd_scan.launches == before + 1
+    want_y, want_h = K6.ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk)
+    atol, rtol = SSD_TOLS[dtype]
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(h, want_h, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_strided_views_decay_extremes_and_rejections(cuda):
+    """x, B and C read as views of wider tensors (the model layout's
+    slices) give the contiguous result; dt = 20 with A = −8 stays finite;
+    final_state=False writes no state; what the kernel does not take
+    raises."""
+    x, dt, A, Bc, Cc = _ssd_inputs(cuda, "float32", 2, 96, 3, 16, 32)
+    wide = torch.randn((2, 96, 3, 40), device=cuda)
+    wide[..., :16] = x
+    bc_wide = torch.randn((2, 96, 80), device=cuda)
+    bc_wide[..., :32], bc_wide[..., 40:72] = Bc, Cc
+    y, none = K6.ssd_scan(wide[..., :16], dt, A, bc_wide[..., :32],
+                          bc_wide[..., 40:72], chunk=32, final_state=False)
+    assert none is None
+    want, _ = K6.ssd_scan_plain(x, dt, A, Bc, Cc, chunk=32)
+    torch.testing.assert_close(y, want, atol=1e-4, rtol=1e-4)
+    y, h = K6.ssd_scan(x, torch.full_like(dt, 20.0), torch.full_like(A, -8.0),
+                       Bc, Cc, chunk=32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    with pytest.raises(ValueError, match="dtype"):
+        K6.ssd_scan(x, dt, A, Bc.bfloat16(), Cc)
+    x, dt, A, Bc, Cc = _ssd_inputs(cuda, "float32", 1, 192, 1, 4, 8)
+    with pytest.raises(ValueError, match="exceeds"):
+        K6.ssd_scan(x, dt, A, Bc, Cc, chunk=192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [("mamba2-1.3b", {}),
+                                     ("zamba2-2.7b", dict(d_head=64))])
+def test_ssm_engine_on_card_matches_cpu_plain(cuda, arch, kw):
+    """The SSM families under the fused policy, fp32: generate() and a
+    single-slot submit/step stream on the card (K1, K6, and K3 for the
+    hybrid's shared block) equal the CPU's (plain versions)."""
+    cfg = get_smoke_config(arch, vocab=64, dtype="float32", **kw)
+    params = T.init_model(cfg, seed=0, device="cpu")
+    results = []
+    for device in ("cuda", "cpu"):
+        before = K6.ssd_scan.launches
+        eng = ServingEngine(cfg, params, ServeConfig(
+            batch_slots=2, max_len=48, cache_dtype="float32",
+            pack_weights=True, device=device, attention=FUSED))
+        gen = eng.generate(np.array([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]]), 8)
+        solo = ServingEngine(cfg, params, ServeConfig(
+            batch_slots=1, max_len=48, cache_dtype="float32",
+            pack_weights=True, device=device, attention=FUSED))
+        h = solo.submit(list(range(1, 38)))          # Q 37: one chunk
+        stream = [solo.step()[h] for _ in range(6)]
+        results.append((gen.tolist(), stream))
+        if device == "cuda":
+            assert K6.ssd_scan.launches == before + 2 * cfg.n_layers
     assert results[0] == results[1]
