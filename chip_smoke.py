@@ -6,8 +6,9 @@
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit. Phases, each fatal on failure:
 
-1. build   — compile csrc/matrixflow_gemm.cu, csrc/paged_attention.cu and
-             csrc/flash_attention.cu with nvcc for sm_90a, all at once.
+1. build   — compile csrc/matrixflow_gemm.cu, paged_attention.cu,
+             flash_attention.cu and ssd_scan.cu with nvcc for sm_90a, all
+             at once.
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main paths' shapes, bf16 and fp32 (TF32 off): the
              MatrixFlow GEMM at every full-width smollm-135m projection
@@ -19,7 +20,11 @@ CUDA toolkit. Phases, each fatal on failure:
              257 at D 80) and smollm's contiguous decode, prefill bucket,
              chunked-prefill offset and bottom-right default. Times the
              kernel, the plain version and one PyTorch call for the same
-             function (torch.matmul; SDPA) after an L2 flush.
+             function (torch.matmul; SDPA) after an L2 flush. Each GEMM
+             cell records the route K1 took (its per-route launch
+             counters): a bf16 cell must run on the tensor cores (wgmma at
+             bm 64, mma.sync at bm 16 and 32), an fp32 cell on the CUDA
+             cores.
 3. serving — full-width smollm-135m in bf16 from seeded random weights,
              served through the paged engine's submit/step: more requests
              than slots, a pool small enough to preempt. Both kernels'
@@ -58,7 +63,7 @@ CUDA toolkit. Phases, each fatal on failure:
 
 8. SSM serving — full-width mamba2-1.3b (48 layers, d_model 2048, 64 SSD
              heads x 64, N 128) in bf16 from contiguous caches under the
-             fused policy: generate() of 8 prompts x 384 tokens (Q 128, the
+             default ServeConfig, whose policy resolves to fused: generate() of 8 prompts x 384 tokens (Q 128, the
              state carried over 3 chunks) x 16 tokens; then a single-slot
              engine: a 200-token prompt (Q 100) through submit/step equals
              generate() of it, and a 131-token request (Q 1) on the
@@ -90,7 +95,8 @@ zamba2's head_dim-80 prefill and decode.
 
 Every kernel counter is set to 0 just before each path (3, 5-9) is
 driven and read just after; a kernel of the path that never launched fails
-it.
+it. K1 is counted per route too: every bf16 path must have launched it on
+both tensor-core routes (the encoders: wgmma) and never on the CUDA cores.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -99,6 +105,7 @@ GPU or outside a checkout.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -172,8 +179,9 @@ class Timer:
     L2 flush (the serving path meets its weights cold: 270 MB of bf16
     weights per decode step against a 50 MB L2). Before each timed call
     the card spins for twice the host time the call takes to enqueue its
-    work, so the start event fires only once all of it is queued: the
-    interval is device time, not host overhead."""
+    work plus ~1 ms, with Python's garbage collector paused, so the start
+    event fires only once all of it is queued even when the shared host
+    stalls: the interval is device time, not host overhead."""
 
     def __init__(self, iters: int = 20):
         self.iters = iters
@@ -188,19 +196,25 @@ class Timer:
         fn()
         enqueue_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        spin_cycles = int(2 * enqueue_s * 2e9) + 100_000   # ~2 GHz SM clock
-        total = 0.0
-        for _ in range(self.iters):
-            self.flush_buf.zero_()
-            torch.cuda._sleep(spin_cycles)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
+        spin_cycles = int(2 * enqueue_s * 2e9) + 2_000_000  # ~2 GHz SM clock
+        gc.disable()
+        try:
+            total = sum(self._timed(fn, spin_cycles)
+                        for _ in range(self.iters))
+        finally:
+            gc.enable()
         return total / self.iters
+
+    def _timed(self, fn, spin_cycles: int) -> float:
+        self.flush_buf.zero_()
+        torch.cuda._sleep(spin_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
 
 
 def bound_ms(n_bytes: float, flops: float, dtype: str):
@@ -217,7 +231,13 @@ def kernel_wrappers():
     from repro_torch.kernels import matrixflow_gemm as MF
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ssd_scan as K6
-    return {"matrixflow_gemm": (MF.matrixflow_gemm_block_major, "launches"),
+    k1 = MF.matrixflow_gemm_block_major
+    return {"matrixflow_gemm": (k1, "launches"),
+            # K1 by route: bf16 on the tensor cores (wgmma at bm 64, mma.sync
+            # at bm 16/32), fp32 and int8 on the CUDA cores
+            "matrixflow_gemm_wgmma": (k1, "wgmma_launches"),
+            "matrixflow_gemm_mma": (k1, "mma_launches"),
+            "matrixflow_gemm_cuda_core": (k1, "cuda_core_launches"),
             "paged_attention": (PA.paged_attention, "launches"),
             "flash_attention": (FA.flash_attention, "launches"),
             "matrixflow_gemm_dequant": (MF.matrixflow_gemm_dequant,
@@ -235,13 +255,22 @@ def reset_counts() -> None:
         setattr(fn, attr, 0)
 
 
+# What a bf16 path that prefills (or encodes) and decodes must launch: K1
+# on both tensor-core routes, never on the CUDA cores.
+K1_BF16 = ("matrixflow_gemm", "matrixflow_gemm_wgmma", "matrixflow_gemm_mma")
+
+
 def read_counts(path: str, required) -> dict:
     """The launch counts since reset_counts(); fails if a kernel of the
-    path never launched."""
+    path never launched, or if K1 ran on the CUDA cores (every path read
+    here is bf16 or int8, and neither may take that route)."""
     counts_now = counts()
     for name in required:
         if counts_now[name] <= 0:
             fail(f"{path}: kernel {name} was never launched")
+    if counts_now["matrixflow_gemm_cuda_core"]:
+        fail(f"{path}: K1 ran {counts_now['matrixflow_gemm_cuda_core']} "
+             f"times on the CUDA cores")
     return counts_now
 
 
@@ -317,10 +346,22 @@ def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs):
             pw = pack_weight(w, GemmPolicy())          # as the engine packs
             blk = layout_for_packed(M, pw)
             a_bm = L.to_block_major_a(a, blk.bm, blk.bk)
+            before = counts()
             got = MF.matrixflow_gemm_block_major(a_bm, pw.data, out_dtype=dt)
+            after = counts()
             want = MF.plain(a_bm, pw.data, out_dtype=dt)
             torch.cuda.synchronize()
             cell = f"matrixflow_gemm {name} M={M} K={K} N={N} {dtype_name}"
+            route = [r for r in ("wgmma", "mma", "cuda_core")
+                     if after[f"matrixflow_gemm_{r}"]
+                     > before[f"matrixflow_gemm_{r}"]]
+            allowed = (("wgmma", "mma") if dtype_name == "bfloat16"
+                       else ("cuda_core",))
+            if len(route) != 1 or route[0] not in allowed:
+                fail(f"{cell}: ran route {route}, expected one of {allowed}")
+            tile = (MF.tc_tile(blk.bm, blk.bn, a_bm.shape[0],
+                               pw.data.shape[0], a_bm.shape[1], blk.bk)
+                    if route[0] != "cuda_core" else None)
             err = check_close(cell, got, want, atol, rtol)
             t_k = timer.ms(lambda: MF.matrixflow_gemm_block_major(
                 a_bm, pw.data, out_dtype=dt))
@@ -329,11 +370,12 @@ def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs):
             nbytes = (M * K + K * N + M * N) * dt.itemsize
             b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, M=M, K=K, N=N,
-                             block=[blk.bm, blk.bn, blk.bk],
-                             path=path, uses=uses, max_abs_err=err,
+                             block=[blk.bm, blk.bn, blk.bk], route=route[0],
+                             tile=tile, path=path, uses=uses, max_abs_err=err,
                              ms=t_k, plain_ms=t_p, library_ms=t_lib,
                              bound_ms=b_ms, bound_by=b_by))
-            log(f"{cell}: blocks {blk.bm}x{blk.bn}x{blk.bk} max|d|={err:.2e} "
+            log(f"{cell}: blocks {blk.bm}x{blk.bn}x{blk.bk} route {route[0]} "
+                f"tile {tile} max|d|={err:.2e} "
                 f"kernel {t_k:.4f} ms plain {t_p:.4f} ms matmul {t_lib:.4f} "
                 f"ms bound {b_ms:.4f} ms ({b_by})")
     return rows
@@ -858,7 +900,7 @@ def run_serving_phase(cfg):
     streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_counts("serving", ("matrixflow_gemm", "paged_attention"))
+    launches = read_counts("serving", K1_BF16 + ("paged_attention",))
     check_streams("serving", streams, cfg.vocab)
     if eng.n_preemptions < 1:
         fail("serving: the pool never ran dry (no preemption)")
@@ -993,7 +1035,8 @@ def run_encoder_phase(bert, vit):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts(f"encoder {ecfg.name}",
-                             ("matrixflow_gemm", "flash_attention"))
+                             ("matrixflow_gemm", "matrixflow_gemm_wgmma",
+                              "flash_attention"))
         if tuple(logits.shape) != (ENC_BATCH, S, ecfg.vocab) \
                 or not bool(torch.isfinite(logits).all()):
             fail(f"encoder {ecfg.name}: logits {tuple(logits.shape)} "
@@ -1075,7 +1118,7 @@ def run_contiguous_phase(cfg):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts("contiguous serving",
-                           ("matrixflow_gemm", "flash_attention"))
+                           K1_BF16 + ("flash_attention",))
     check_streams("contiguous serving", streams, cfg.vocab)
     gen_prompts = rng.integers(0, cfg.vocab, (SLOTS, 16))
     reset_counts()
@@ -1083,7 +1126,7 @@ def run_contiguous_phase(cfg):
     gen_out = eng.generate(gen_prompts, GEN_LEN)
     gen_s = time.perf_counter() - t1
     gen_launches = read_counts("contiguous generate",
-                               ("matrixflow_gemm", "flash_attention"))
+                               K1_BF16 + ("flash_attention",))
     if gen_out.shape != (SLOTS, GEN_LEN) or gen_out.min() < 0 \
             or gen_out.max() >= cfg.vocab:
         fail(f"contiguous generate: malformed output {gen_out.shape}")
@@ -1308,12 +1351,17 @@ def run_int8_serving_phase(cfg):
 # ---------------------------------------------------------------------------
 
 def ssm_engine(cfg, params, slots):
-    from repro_torch.core.plan import FUSED
+    """The SSM engine under the default policy, which resolves to the
+    contiguous ``fused`` backend on the card for the SSD families."""
     from repro_torch.serving.engine import ServeConfig, ServingEngine
 
-    return ServingEngine(cfg, params, ServeConfig(
+    eng = ServingEngine(cfg, params, ServeConfig(
         batch_slots=slots, max_len=SSM_MAX_LEN, cache_dtype=cfg.dtype,
-        pack_weights=True, attention=FUSED, device="cuda"))
+        pack_weights=True, device="cuda"))
+    if eng.attn.backend != "fused":
+        fail(f"{cfg.name}: the default policy resolved to "
+             f"{eng.attn.backend!r}, not 'fused'")
+    return eng
 
 
 def solo_stream(eng, prompt):
@@ -1516,10 +1564,9 @@ def main() -> None:
     report["contiguous"] = run_contiguous_phase(cfg)
     report["int8_serving"] = run_int8_serving_phase(cfg)
     report["mamba2_serving"] = run_ssm_serving_phase(
-        mamba, MAMBA_PROMPT, ("matrixflow_gemm", "ssd_scan"), True)
+        mamba, MAMBA_PROMPT, K1_BF16 + ("ssd_scan",), True)
     report["zamba2_serving"] = run_ssm_serving_phase(
-        zamba, ZAMBA_PROMPT, ("matrixflow_gemm", "flash_attention",
-                              "ssd_scan"), False)
+        zamba, ZAMBA_PROMPT, K1_BF16 + ("flash_attention", "ssd_scan"), False)
     report["ssm_parity"] = {c.name: run_ssm_parity_phase(c)
                             for c in (mamba, zamba)}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -1544,12 +1591,26 @@ def main() -> None:
 
     ssd_paths = sorted({r["path"] for r in report["ssd"]})
     main_ssd = f"{MAMBA} generate prefill B{SSM_SLOTS}xS{MAMBA_PROMPT}"
+    def on_route(route):
+        return [r for r in report["gemm"] if r["route"] == route]
+
+    k1 = entry("matrixflow_gemm", "matrixflow_gemm",
+               "src/repro/kernels/matrixflow_gemm.py:137", report["gemm"],
+               "decode step", (f"{bert.name} forward", f"{vit.name} forward",
+                               f"{MAMBA} decode step", f"{MAMBA} prefill",
+                               f"{ZAMBA} decode step"))
+    k1["launches_by_route"] = {
+        r: sum(c[f"matrixflow_gemm_{r}"] for c in by_path.values())
+        for r in ("wgmma", "mma", "cuda_core")}
     kernels = [
-        entry("matrixflow_gemm", "matrixflow_gemm",
-              "src/repro/kernels/matrixflow_gemm.py:137", report["gemm"],
-              "decode step", (f"{bert.name} forward", f"{vit.name} forward",
-                              f"{MAMBA} decode step", f"{MAMBA} prefill",
-                              f"{ZAMBA} decode step")),
+        k1,
+        entry("matrixflow_gemm_wgmma", "matrixflow_gemm",
+              "src/repro/kernels/matrixflow_gemm.py:137", on_route("wgmma"),
+              f"{bert.name} forward", (f"{vit.name} forward", "prefill",
+                                       f"{MAMBA} prefill")),
+        entry("matrixflow_gemm_mma", "matrixflow_gemm",
+              "src/repro/kernels/matrixflow_gemm.py:137", on_route("mma"),
+              "decode step", (f"{MAMBA} decode step", f"{ZAMBA} decode step")),
         entry("matrixflow_gemm_dequant", "matrixflow_gemm",
               "src/repro/kernels/matrixflow_gemm.py:154",
               report["quant_gemm"], "decode step",

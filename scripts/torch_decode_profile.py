@@ -25,10 +25,13 @@ included), then decode steps. ``--encoder ARCH`` instead runs full-width
 * times ``--steps`` decode-only ``step()`` calls (or forwards; 5
   prefills) on the host clock, each ending in a device sync;
 * profiles 5 more with torch.profiler and sums device time by kernel: the
-  MatrixFlow GEMM and its W8A8 variant, the paged attention kernel over fp
-  and int8 pages, the flash attention kernel, the SSD scan, and everything
-  else (PyTorch's elementwise, copy, reduction and index kernels). Device
-  busy time over wall time gives the device's idle share.
+  MatrixFlow GEMM by route (``matrixflow_gemm_wgmma`` and
+  ``matrixflow_gemm_mma`` on the tensor cores for bf16,
+  ``matrixflow_gemm`` on the CUDA cores) and its W8A8 variant, the paged
+  attention kernel over fp and int8 pages, the flash attention kernel,
+  the SSD scan, and everything else (PyTorch's elementwise, copy,
+  reduction and index kernels). Device busy time over wall time gives the
+  device's idle share.
 
 Writes chiprun_out/torch_decode_profile_<what>.json and prints one line
 per number, with the card's name and power limit first. Fails without a
@@ -55,8 +58,10 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
-    ap.add_argument("--attn-backend", default="paged",
-                    choices=["paged", "fused"])
+    ap.add_argument("--attn-backend", default=None,
+                    choices=["paged", "fused"],
+                    help="default: paged for smollm-135m, fused for the "
+                         "SSM archs")
     ap.add_argument("--weight-dtype", default=None, choices=["int8"])
     ap.add_argument("--kv-dtype", default=None, choices=["int8"])
     ap.add_argument("--arch", default="smollm-135m",
@@ -65,9 +70,10 @@ def main(argv=None) -> int:
                     choices=["bert-base", "vit-base"],
                     help="profile encoder_forward instead of decode")
     args = ap.parse_args(argv)
+    ssm = args.arch != "smollm-135m"
+    args.attn_backend = args.attn_backend or ("fused" if ssm else "paged")
     if args.kv_dtype and args.attn_backend != "paged":
         ap.error("--kv-dtype needs --attn-backend paged")
-    ssm = args.arch != "smollm-135m"
     if ssm and (args.attn_backend != "fused" or args.kv_dtype):
         ap.error(f"{args.arch} serves from contiguous caches: "
                  f"--attn-backend fused, no --kv-dtype")
@@ -204,6 +210,8 @@ def measure(step, n_steps: int) -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kind = ("matrixflow_gemm" if "mf_gemm_kernel" in e.name else
+                "matrixflow_gemm_wgmma" if "mf_gemm_wgmma_kernel" in e.name else
+                "matrixflow_gemm_mma" if "mf_gemm_mma_kernel" in e.name else
                 "matrixflow_gemm_dequant" if "mf_gemm_dequant_kernel" in e.name
                 else "paged_attention" if "paged_attn_kernel" in e.name else
                 "paged_attention_int8" if "paged_attn_int8_kernel" in e.name

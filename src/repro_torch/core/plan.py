@@ -88,10 +88,12 @@ class AttentionPolicy:
     """How attention executes.
 
     backend    registry name, or "auto" (``paged`` on a CUDA device,
-               ``unfused`` on the CPU). ``fused`` is the offset-aware flash
-               kernel over dense K/V (the cache-less forward and contiguous
-               KV caches); ``paged`` reads page pools through block tables
-               and falls back to the flash kernel on dense operands.
+               ``unfused`` on the CPU; for a model whose recurrent state
+               cannot be paged, ``fused`` on a CUDA device). ``fused`` is
+               the offset-aware flash kernel over dense K/V (the cache-less
+               forward and contiguous KV caches); ``paged`` reads page
+               pools through block tables and falls back to the flash
+               kernel on dense operands.
     page_size  tokens per KV page for the ``paged`` backend — the paged
                kernel's key-block size. Consumed by
                ``models/transformer.py::init_paged_caches`` and the serving
@@ -114,8 +116,10 @@ class AttentionPolicy:
                 f"unsupported kv_dtype {self.kv_dtype!r}; "
                 f"expected one of {_KV_DTYPES}")
 
-    def resolved_backend(self, device: Device) -> str:
-        return resolve_attention_backend(self.backend, device)
+    def resolved_backend(self, device: Device, *,
+                         pageable: bool = True) -> str:
+        return resolve_attention_backend(self.backend, device,
+                                         pageable=pageable)
 
 
 # Common pinned policies (tests, CLI flags).
@@ -130,10 +134,16 @@ def resolve_backend(name: str, device: Device) -> str:
     return "matrixflow" if _device_type(device) == "cuda" else "blockflow"
 
 
-def resolve_attention_backend(name: str, device: Device) -> str:
+def resolve_attention_backend(name: str, device: Device, *,
+                              pageable: bool = True) -> str:
+    """``auto`` → ``paged`` on a CUDA device, ``unfused`` on the CPU; a
+    model whose state cannot be paged (``pageable=False``: the SSD
+    families) gets the contiguous ``fused`` kernel on a CUDA device."""
     if name != "auto":
         return name
-    return "paged" if _device_type(device) == "cuda" else "unfused"
+    if _device_type(device) != "cuda":
+        return "unfused"
+    return "paged" if pageable else "fused"
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,22 @@ the row and channel scales, and returns C rescaled at the flush. For
 tensors on the CPU each runs its plain version
 (``kernels/ref.py::block_matmul_ref``); for CUDA tensors it launches its
 kernel or raises. Each counts its own launches (``.launches``).
+
+K1 has three routes on the card, by operand dtype and row tile, each
+counted on the wrapper apart:
+
+  ``wgmma``      bf16, bm = 64 (prefill, encoders): wgmma on the tensor
+                 cores, CTA tiles of grouped C blocks (``.wgmma_launches``)
+  ``mma``        bf16, bm = 16 or 32 (decode): mma.sync on the tensor
+                 cores, K split across warps and cluster CTAs
+                 (``.mma_launches``)
+  ``cuda_core``  fp32 (TF32 stays off) and int8 → int32: FMA and integer
+                 MACs on the CUDA cores (``.cuda_core_launches``)
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,13 +36,63 @@ from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref
 # Plain version of the kernels (Algorithm 1, K innermost; with scales, K2).
 plain = block_matmul_ref
 
-_IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_IN_CODES = {torch.float32: 0, torch.int8: 2}    # the CUDA-core routine
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 # Output dtypes of the dequant-fused kernel (K2).
 _DEQUANT_OUT = (torch.float32, torch.bfloat16)
 # (input dtype, output dtype) pairs the kernel instantiates.
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.bfloat16, torch.float32), (torch.int8, torch.int32)}
+# Operand dtypes of the tensor-core routes.
+_TC_DTYPES = (torch.bfloat16,)
+# Streaming multiprocessors of an H100 SXM: the CTA count one wave fills.
+SMS = 132
+# CTAs of one cluster that may share a C block on the mma route.
+MAX_SPLITS = 8
+# wgmma CTA tiles, largest first: (C blocks along M, columns, the waves of
+# SMS CTAs its grid must give to be taken).
+WGMMA_TILES = ((2, 256, 2.0), (2, 128, 1.0), (1, 128, 0.5), (1, 64, 0.0))
+# CTAs a split mma launch aims at: timed at every decode GEMM of the served
+# models on an H100 (scripts/torch_gemm_tiles.py), the splits ran fastest
+# near 160-200 CTAs, not at the 264 that two resident CTAs an SM hold.
+MMA_TARGET_CTAS = 192
+
+
+def route_for(dtype: torch.dtype, bm: int) -> str:
+    """The route K1 takes on the card for operands of ``dtype`` in row
+    tiles of ``bm``: ``wgmma``, ``mma`` or ``cuda_core``."""
+    if dtype not in _TC_DTYPES:
+        return "cuda_core"
+    return "wgmma" if bm == L.BM_CHOICES[-1] else "mma"
+
+
+def tc_tile(bm: int, bn: int, nbm: int, nbn: int, nbk: int,
+            bk: int) -> Tuple[int, int, int]:
+    """(gm, tn, splits) of a tensor-core launch over an (nbm, nbn) grid of
+    C blocks, with nbk K blocks of depth bk.
+
+    wgmma (bm = 64): a CTA owns gm C blocks along M by tn / bn along N, the
+    first of :data:`WGMMA_TILES` whose grid gives its waves of :data:`SMS`
+    CTAs. A larger tile reads fewer bytes from L2 per product, but fewer
+    of its CTAs fit an SM (128 x 256 one, 64 x 64 five) and a small grid
+    leaves SMs idle: bert-base's 768-wide projections at bn = 32 take
+    64 x 128, mamba2's 3,072 x 4,096 prefill 128 x 256.
+
+    mma (bm = 16, 32): one C block a CTA; when those are fewer than
+    :data:`SMS`, K is split over up to :data:`MAX_SPLITS` CTAs of a
+    cluster, about :data:`MMA_TARGET_CTAS` in all, each with at least one
+    four-slice chunk of K to stream."""
+    if bm == L.BM_CHOICES[-1]:
+        for gm, tn, waves in WGMMA_TILES:
+            if tn % bn == 0 and \
+                    L.cdiv(nbm, gm) * L.cdiv(nbn, tn // bn) >= waves * SMS:
+                return gm, tn, 1
+    ctas = nbm * nbn
+    if ctas >= SMS:
+        return 1, bn, 1
+    most = L.cdiv(nbk * bk // L.K_SLICE, 4)
+    return 1, bn, max(1, min(MAX_SPLITS, most,
+                             round(MMA_TARGET_CTAS / ctas)))
 
 
 def _lib() -> ctypes.CDLL:
@@ -40,6 +101,9 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.mf_gemm.argtypes = [i, i, i, i, vp, vp, vp, i, i, i, i, vp]
         lib.mf_gemm.restype = ctypes.c_int
+        lib.mf_gemm_tc.argtypes = [i, i, i, i, i, i, vp, vp, vp, i, i, i, i,
+                                   vp]
+        lib.mf_gemm_tc.restype = ctypes.c_int
         lib.mf_gemm_dequant.argtypes = [i, i, i, vp, vp, vp, i, vp, i, vp,
                                         i, i, i, i, vp]
         lib.mf_gemm_dequant.restype = ctypes.c_int
@@ -96,7 +160,8 @@ def matrixflow_gemm_block_major(
 
     a_bm (nbm, nbk, bm, bk), b_bm (nbn, nbk, bk, bn) → C_bm (nbm, nbn, bm,
     bn). Accumulates in fp32 (int32 for int8); ``out_dtype`` defaults to
-    the accumulator dtype, as in the TPU kernel.
+    the accumulator dtype, as in the TPU kernel. On the card bf16 operands
+    run on the tensor cores (:func:`route_for`), others on the CUDA cores.
     """
     _check_operands(a_bm, b_bm)
     out_dtype = out_dtype or acc_dtype_for(a_bm.dtype)
@@ -112,16 +177,28 @@ def matrixflow_gemm_block_major(
     c_bm = torch.empty((nbm, nbn, bm, bn), dtype=out_dtype,
                        device=a_bm.device)
     lib = _lib()
-    _raise_on(lib.mf_gemm(_IN_CODES[a_bm.dtype], _OUT_CODES[out_dtype], bm,
+    stream = torch.cuda.current_stream(a_bm.device).cuda_stream
+    route = route_for(a_bm.dtype, bm)
+    if route == "cuda_core":
+        err = lib.mf_gemm(_IN_CODES[a_bm.dtype], _OUT_CODES[out_dtype], bm,
                           bn, a_bm.data_ptr(), b_bm.data_ptr(),
-                          c_bm.data_ptr(), nbm, nbn, nbk, bk,
-                          torch.cuda.current_stream(a_bm.device).cuda_stream),
-              lib, "matrixflow_gemm")
-    matrixflow_gemm_block_major.launches += 1
+                          c_bm.data_ptr(), nbm, nbn, nbk, bk, stream)
+    else:
+        gm, tn, splits = tc_tile(bm, bn, nbm, nbn, nbk, bk)
+        err = lib.mf_gemm_tc(_OUT_CODES[out_dtype], bm, bn, gm, tn, splits,
+                             a_bm.data_ptr(), b_bm.data_ptr(),
+                             c_bm.data_ptr(), nbm, nbn, nbk, bk, stream)
+    _raise_on(err, lib, f"matrixflow_gemm ({route} route)")
+    fn = matrixflow_gemm_block_major
+    fn.launches += 1
+    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
     return c_bm
 
 
 matrixflow_gemm_block_major.launches = 0
+matrixflow_gemm_block_major.wgmma_launches = 0
+matrixflow_gemm_block_major.mma_launches = 0
+matrixflow_gemm_block_major.cuda_core_launches = 0
 
 
 def matrixflow_gemm_dequant(

@@ -11,7 +11,7 @@ Usage:
   python -m repro_torch.launch.serve --arch smollm-135m --smoke \
       --device cpu --max-len 64     # plain versions of the kernels, on CPU
   python -m repro_torch.launch.serve --arch mamba2-1.3b \
-      --attn-backend fused --batch-slots 1   # Mamba-2 (the SSD kernel)
+      --batch-slots 1               # Mamba-2 (the SSD kernel), contiguous
 """
 from __future__ import annotations
 
@@ -55,14 +55,16 @@ def main(argv=None):
     ap.add_argument("--weight-dtype", default=None, choices=["int8"],
                     help="int8 → the W8A8 GEMM route: weights quantized "
                          "per channel at pack time and held resident")
-    ap.add_argument("--attn-backend", default="paged",
+    ap.add_argument("--attn-backend", default=None,
                     choices=["auto", "fused", "paged", "unfused"],
                     help="paged = page-pool KV cache, page-bound admission "
                          "and preemption (the paged kernel); fused = "
                          "contiguous (slots, max_len) KV caches through the "
                          "flash kernel, slot-bound admission; unfused = the "
                          "plain masked softmax over contiguous caches; auto "
-                         "= paged on a GPU, unfused on the CPU")
+                         "= paged on a GPU (fused for SSM/hybrid archs), "
+                         "unfused on the CPU. Default: paged, or auto for "
+                         "the SSM/hybrid archs, whose state cannot be paged")
     ap.add_argument("--page-size", type=int, default=16,
                     help="paged: tokens per KV page (the paged kernel's "
                          "key block)")
@@ -79,14 +81,15 @@ def main(argv=None):
                     help="tokens of prefill per engine step (chunked "
                          "prefill); default: whole prompt at submit")
     args = ap.parse_args(argv)
-    if args.kv_dtype and args.attn_backend != "paged":
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    pageable = cfg.family not in T.SSD_FAMILIES
+    backend = args.attn_backend or ("paged" if pageable else "auto")
+    if args.kv_dtype and backend != "paged":
         ap.error("--kv-dtype requires the paged attention backend "
                  "(--attn-backend paged)")
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)
-    attn = AttentionPolicy(backend=args.attn_backend,
-                           page_size=args.page_size)
+    attn = AttentionPolicy(backend=backend, page_size=args.page_size)
     scheduler = (Scheduler(prefill_chunk=args.prefill_chunk)
                  if args.prefill_chunk else None)
     params = T.init_model(cfg, seed=args.seed, device=args.device)
@@ -101,7 +104,7 @@ def main(argv=None):
     dev = engine.device
     print(f"[serve] arch={cfg.name} device={dev} slots={args.batch_slots} "
           f"max_len={args.max_len} gemm={policy.resolved_backend(dev)}/"
-          f"{policy.mode} attn={attn.resolved_backend(dev)} "
+          f"{policy.mode} attn={engine.attn.backend} "
           f"page_size={args.page_size} packed={args.pack_weights} "
           f"weight_dtype={args.weight_dtype} kv_dtype={args.kv_dtype}")
     gen = (torch.Generator().manual_seed(args.seed)

@@ -22,7 +22,9 @@ and do not advance the valid length — so one slot's prefill cannot corrupt
 another's cache.
 
 **Mamba-2 / Zamba-2** (families ``ssm``, ``hybrid``) serve in contiguous
-mode only: SSD and conv state carries no positions, so it cannot be paged,
+mode only (their default policy is ``auto``, which resolves to ``fused``
+on the card and ``unfused`` on the CPU; an explicit ``paged`` policy
+raises): SSD and conv state carries no positions, so it cannot be paged,
 masked per slot or continued by a later prefill chunk. As in the
 reference, ``submit`` admits them only with ``batch_slots=1`` and their
 prefill is unpadded; a recycled slot's SSD state is zeroed. A chunked
@@ -69,7 +71,8 @@ class ServeConfig:
     cache_dtype: str = "bfloat16"
     gemm: Optional[GemmPolicy] = None   # None → the ambient/default policy
     pack_weights: bool = False          # resident block-major weights
-    attention: Optional[AttentionPolicy] = None  # None → AttentionPolicy("paged")
+    attention: Optional[AttentionPolicy] = None  # None → AttentionPolicy("paged"),
+    # or "auto" (contiguous) for the SSD families
     # ("paged" pages the KV cache; "fused" — the flash kernel — and
     # "unfused" serve from contiguous (batch_slots, max_len) caches)
     cache_pages: Optional[int] = None
@@ -97,10 +100,12 @@ class ServeConfig:
         return dataclasses.replace(self.gemm or GemmPolicy(),
                                    weight_dtype=self.weight_dtype)
 
-    def attn_policy(self) -> AttentionPolicy:
-        """The effective AttentionPolicy: ``attention`` (default paged) with
-        ``kv_dtype`` folded in."""
-        attn = self.attention or AttentionPolicy(backend="paged")
+    def attn_policy(self, pageable: bool = True) -> AttentionPolicy:
+        """The effective AttentionPolicy: ``attention`` (default paged; for
+        a model whose state cannot be paged, ``pageable=False``, default
+        ``auto``) with ``kv_dtype`` folded in."""
+        attn = self.attention or AttentionPolicy(
+            backend="paged" if pageable else "auto")
         if self.kv_dtype is None:
             return attn
         return dataclasses.replace(attn, kv_dtype=self.kv_dtype)
@@ -140,9 +145,12 @@ class ServingEngine:
                 f"{cfg.dtype!r}: the attention kernels read q and the cache "
                 f"in one dtype; mixed dtypes are not ported (ROADMAP.md)")
         self.device = resolve_device(sc.device)
-        attn = sc.attn_policy()       # validates kv_dtype
-        self.gemm = sc.policy()       # validates weight_dtype
-        self.paged = attn.resolved_backend(self.device) == "paged"
+        pageable = cfg.family not in T.SSD_FAMILIES
+        attn = sc.attn_policy(pageable)   # validates kv_dtype
+        self.gemm = sc.policy()           # validates weight_dtype
+        attn = dataclasses.replace(attn, backend=attn.resolved_backend(
+            self.device, pageable=pageable))
+        self.paged = attn.backend == "paged"
         if attn.kv_dtype is not None and not self.paged:
             raise ValueError(
                 "ServeConfig.kv_dtype requires a paged attention policy "

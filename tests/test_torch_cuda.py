@@ -1,7 +1,8 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors (the W8A8 GEMM, K2, bitwise; the int8
-paged kernel, K5, within ATTN_TOLS; the SSD scan, K6, within 1e-4 in
-fp32), and the serving engine (paged, int8, contiguous, and the SSM
+version on the same CUDA tensors (K1's tensor-core routes at every tile and
+K split their chooser emits, within the fp32 dot-product bound, bitwise
+repeatable; the W8A8 GEMM, K2, bitwise; the int8 paged kernel, K5, within
+ATTN_TOLS; the SSD scan, K6, within 1e-4 in fp32), and the serving engine (paged, int8, contiguous, and the SSM
 families) and the BERT/ViT encoders on the card against the same code on
 the CPU (where the wrappers run the plain versions).
 
@@ -94,6 +95,80 @@ def test_gemm_kernel_matches_plain(cuda, dtype, out):
                 err = (c.double() - exact).abs()
                 assert bool((err <= bound + 1e-30).all()), \
                     (name, M, K, N, mode, float(err.max()))
+
+
+# (M, K, N, bm, bn, bk, (gm, tn, splits) that kernels/matrixflow_gemm.py::
+# tc_tile picks): every tile and route of the tensor-core instances of K1.
+# bk 192, 352 and 704 are multiples of 32 and not of 64; nbk > 1 in all
+# but the head; ragged groups at the grid's edge along N (N = 80, 300,
+# 65) and M (nbm = 25 under 2-block groups).
+TC_CASES = (
+    (8, 576, 576, 16, 32, 192, (1, 32, 5)),        # smollm q/o decode
+    (8, 2560, 5120, 16, 64, 256, (1, 64, 2)),      # zamba2 z/x decode
+    (8, 576, 49152, 16, 128, 576, (1, 128, 1)),    # smollm head: no split
+    (8, 2560, 32000, 16, 128, 512, (1, 128, 1)),   # zamba2 head
+    (8, 2048, 64, 16, 32, 256, (1, 32, 8)),        # mamba2 dt: 8 splits
+    (20, 1536, 576, 32, 32, 256, (1, 32, 8)),
+    (32, 96, 200, 32, 64, 32, (1, 64, 1)),
+    (17, 704, 1000, 32, 128, 352, (1, 128, 6)),
+    (1024, 768, 768, 64, 32, 256, (1, 128, 1)),    # bert-base q/k/v/o
+    (200, 704, 300, 64, 32, 352, (1, 64, 1)),
+    (33, 17, 65, 64, 32, 32, (1, 64, 1)),
+    (512, 576, 3072, 64, 64, 192, (1, 128, 1)),    # smollm mlp-in prefill
+    (1600, 768, 2048, 64, 64, 256, (2, 128, 1)),
+    (1024, 768, 30522, 64, 128, 384, (2, 256, 1)),  # bert-base head
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_gemm_tensor_core_routes_match_plain(cuda, case, out):
+    """bf16 K1 on the tensor cores at each tile the chooser emits: within
+    the fp32 dot-product bound of the float64 product (see
+    test_gemm_kernel_matches_plain), counted on its route and not on the
+    others, and two launches bitwise equal (every sum in a fixed order)."""
+    M, K, N, bm, bn, bk, tile = case
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn((K, N), generator=gen, device=cuda).to(torch.bfloat16)
+    a_bm = L.to_block_major_a(a, bm, bk)
+    b_bm = L.to_block_major_b(b, bk, bn)
+    nbm, nbk, nbn = a_bm.shape[0], a_bm.shape[1], b_bm.shape[0]
+    assert MF.tc_tile(bm, bn, nbm, nbn, nbk, bk) == tile
+    route = MF.route_for(a.dtype, bm)
+    assert route == ("wgmma" if bm == 64 else "mma")
+    odt = getattr(torch, out)
+    fn = MF.matrixflow_gemm_block_major
+    before = {r: getattr(fn, f"{r}_launches")
+              for r in ("wgmma", "mma", "cuda_core")}
+    got = fn(a_bm, b_bm, out_dtype=odt)
+    again = fn(a_bm, b_bm, out_dtype=odt)
+    torch.cuda.synchronize()
+    for r, n in before.items():
+        assert getattr(fn, f"{r}_launches") == n + (2 if r == route else 0)
+    assert got.dtype == odt and torch.equal(got, again)
+    exact = torch.einsum("ikab,jkbc->ijac", a_bm.double(), b_bm.double())
+    bound = K * 2.0 ** -24 * torch.einsum(
+        "ikab,jkbc->ijac", a_bm.double().abs(), b_bm.double().abs())
+    if odt == torch.bfloat16:
+        bound += 2.0 ** -8 * (exact.abs() + bound)
+    want = MF.plain(a_bm, b_bm, out_dtype=odt)
+    for name, c in (("kernel", got), ("plain", want)):
+        ratio = (c.double() - exact).abs() / (bound + 1e-30)
+        assert float(ratio.max()) <= 1.0, (name, float(ratio.max()))
+
+
+@pytest.mark.cuda
+def test_gemm_tensor_core_route_rejects(cuda):
+    """No fallback: a bf16 geometry the tensor-core kernels do not take
+    raises, and never runs the CUDA-core routine."""
+    a = torch.zeros((1, 1, 16, 48), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros((1, 1, 48, 32), dtype=torch.bfloat16, device=cuda)
+    n = MF.matrixflow_gemm_block_major.cuda_core_launches
+    with pytest.raises(ValueError, match="multiple of 32"):
+        MF.matrixflow_gemm_block_major(a, b)
+    assert MF.matrixflow_gemm_block_major.cuda_core_launches == n
 
 
 @pytest.mark.cuda

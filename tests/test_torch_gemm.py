@@ -123,3 +123,55 @@ def test_wrapper_rejects_mismatched_k_stream():
     with pytest.raises(ValueError, match="K stream"):
         MF.matrixflow_gemm_block_major(a, b)
 
+
+
+def test_route_by_dtype_and_row_tile():
+    """bf16 takes the tensor cores (wgmma at bm 64, mma.sync at 16/32);
+    fp32 (TF32 stays off) and int8 the CUDA-core routine."""
+    for bm in L.BM_CHOICES:
+        assert MF.route_for(torch.bfloat16, bm) == \
+            ("wgmma" if bm == 64 else "mma")
+        assert MF.route_for(torch.float32, bm) == "cuda_core"
+        assert MF.route_for(torch.int8, bm) == "cuda_core"
+
+
+# (M, K, N) of every projection of the served and encoded models, at the
+# block geometry the engine packs them in (chip_smoke.py::gemm_cells).
+_PATH_GEMMS = ((8, 576, 576), (8, 576, 192), (8, 1536, 576), (8, 576, 49152),
+               (512, 576, 3072), (8, 2048, 4096), (8, 2048, 64),
+               (8, 4096, 2048), (3072, 2048, 4096), (3072, 2048, 128),
+               (8, 10240, 2560), (8, 2560, 20480), (1024, 768, 768),
+               (1024, 3072, 768), (1576, 768, 30522), (20, 704, 1000),
+               (33, 17, 65))
+
+
+@pytest.mark.parametrize("mkn", _PATH_GEMMS, ids=str)
+def test_tc_tile_is_one_the_kernels_take(mkn):
+    """kernels/matrixflow_gemm.py::tc_tile: a tile csrc/matrixflow_gemm.cu
+    instantiates (wgmma: 1 x 64, 1 x 128, 2 x 128, 2 x 256, whole C blocks
+    per CTA; mma: one C block, 1-8 K splits, each split with K to walk),
+    and split K only where the C blocks alone leave SMs idle."""
+    M, K, N = mkn
+    blk = L.choose_layout(M, N, K, torch.bfloat16)
+    nbm, nbn, nbk = L.cdiv(M, blk.bm), L.cdiv(N, blk.bn), L.cdiv(K, blk.bk)
+    gm, tn, splits = MF.tc_tile(blk.bm, blk.bn, nbm, nbn, nbk, blk.bk)
+    if blk.bm == 64:
+        assert (gm, tn) in {(g, t) for g, t, _ in MF.WGMMA_TILES}
+        assert tn % blk.bn == 0 and splits == 1
+    else:
+        assert (gm, tn) == (1, blk.bn) and 1 <= splits <= MF.MAX_SPLITS
+        assert splits <= nbk * blk.bk // L.K_SLICE
+        assert splits == 1 or nbm * nbn < MF.SMS
+
+
+def test_wrapper_counts_no_launch_on_the_cpu():
+    """On CPU tensors the wrapper runs the plain version: no route counts."""
+    fn = MF.matrixflow_gemm_block_major
+    before = (fn.launches, fn.wgmma_launches, fn.mma_launches,
+              fn.cuda_core_launches)
+    a = L.to_block_major_a(torch.ones(8, 64, dtype=torch.bfloat16), 16, 32)
+    b = L.to_block_major_b(torch.ones(64, 32, dtype=torch.bfloat16), 32, 32)
+    c = fn(a, b, out_dtype=torch.bfloat16)
+    assert bool((L.from_block_major_c(c, 8, 32).float() == 64).all())
+    assert (fn.launches, fn.wgmma_launches, fn.mma_launches,
+            fn.cuda_core_launches) == before
