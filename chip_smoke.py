@@ -24,7 +24,14 @@ CUDA toolkit. Phases, each fatal on failure:
              cell records the route K1 took (its per-route launch
              counters): a bf16 cell must run on the tensor cores (wgmma at
              bm 64, mma.sync at bm 16 and 32), an fp32 cell on the CUDA
-             cores.
+             cores. So too each attention cell: K3 and K4 in bf16 on the
+             tensor-core route their chooser names (rows, or split at
+             decode), in fp32 on the CUDA cores; every cell is launched
+             twice and the two results must be bitwise equal. The paged
+             cells' block tables hold an out-of-range page id in every
+             entry past a slot's valid keys (the kernels must never read
+             one; the plain version reads a valid copy), and a decode cell
+             has slots of 0, 1, 128 (a page boundary) and 255 keys.
 3. serving — full-width smollm-135m in bf16 from seeded random weights,
              served through the paged engine's submit/step: more requests
              than slots, a pool small enough to preempt. Both kernels'
@@ -95,8 +102,9 @@ zamba2's head_dim-80 prefill and decode.
 
 Every kernel counter is set to 0 just before each path (3, 5-9) is
 driven and read just after; a kernel of the path that never launched fails
-it. K1 is counted per route too: every bf16 path must have launched it on
-both tensor-core routes (the encoders: wgmma) and never on the CUDA cores.
+it. K1, K3 and K4 are counted per route too: every bf16 path must have
+launched K1 on both tensor-core routes (the encoders: wgmma), K3 or K4 on
+both of theirs (the encoders: rows), and none of them on the CUDA cores.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -107,6 +115,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -175,13 +184,16 @@ def log(msg: str) -> None:
 
 
 class Timer:
-    """Device time of one call, averaged over `iters` calls, each after an
+    """Device time of one call, the median of `iters` calls, each after an
     L2 flush (the serving path meets its weights cold: 270 MB of bf16
     weights per decode step against a 50 MB L2). Before each timed call
     the card spins for twice the host time the call takes to enqueue its
     work plus ~1 ms, with Python's garbage collector paused, so the start
     event fires only once all of it is queued even when the shared host
-    stalls: the interval is device time, not host overhead."""
+    stalls: the interval is device time, not host overhead. A stall longer
+    than the spin still lets the card idle inside one call's interval (a
+    10.8 us kernel once read 0.47 ms as a mean of 20); the median drops
+    that call."""
 
     def __init__(self, iters: int = 20):
         self.iters = iters
@@ -199,11 +211,10 @@ class Timer:
         spin_cycles = int(2 * enqueue_s * 2e9) + 2_000_000  # ~2 GHz SM clock
         gc.disable()
         try:
-            total = sum(self._timed(fn, spin_cycles)
-                        for _ in range(self.iters))
+            times = [self._timed(fn, spin_cycles) for _ in range(self.iters)]
         finally:
             gc.enable()
-        return total / self.iters
+        return statistics.median(times)
 
     def _timed(self, fn, spin_cycles: int) -> float:
         self.flush_buf.zero_()
@@ -223,55 +234,84 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+ATTN_ROUTES = ("rows", "split", "cuda_cores")
+
+
 def kernel_wrappers():
-    """Each kernel's wrapper and the attribute that counts its launches
-    (the paged wrapper launches K4 for fp pools and K5 for int8 pools, and
-    counts them apart)."""
+    """Each kernel's launch counter: (the wrapper, its attribute) or (a
+    dict of counts by route, its key). The paged wrapper launches K4 for fp
+    pools and K5 for int8 pools, and counts them apart."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import matrixflow_gemm as MF
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ssd_scan as K6
     k1 = MF.matrixflow_gemm_block_major
+    fa, pa = FA.flash_attention, PA.paged_attention
     return {"matrixflow_gemm": (k1, "launches"),
             # K1 by route: bf16 on the tensor cores (wgmma at bm 64, mma.sync
             # at bm 16/32), fp32 and int8 on the CUDA cores
             "matrixflow_gemm_wgmma": (k1, "wgmma_launches"),
             "matrixflow_gemm_mma": (k1, "mma_launches"),
             "matrixflow_gemm_cuda_core": (k1, "cuda_core_launches"),
-            "paged_attention": (PA.paged_attention, "launches"),
-            "flash_attention": (FA.flash_attention, "launches"),
+            "paged_attention": (pa, "launches"),
+            "flash_attention": (fa, "launches"),
+            # K3 and K4 by route: bf16 on the tensor cores (rows: more than
+            # 16 rows a CTA; split: decode), fp32 on the CUDA cores
+            **{f"flash_attention_{r}": (fa.launches_by_route, r)
+               for r in ATTN_ROUTES},
+            **{f"paged_attention_{r}": (pa.launches_by_route, r)
+               for r in ATTN_ROUTES},
             "matrixflow_gemm_dequant": (MF.matrixflow_gemm_dequant,
                                         "launches"),
-            "paged_attention_int8": (PA.paged_attention, "launches_int8"),
+            "paged_attention_int8": (pa, "launches_int8"),
             "ssd_scan": (K6.ssd_scan, "launches")}
 
 
 def counts() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in kernel_wrappers().items()}
+    return {k: c[key] if isinstance(c, dict) else getattr(c, key)
+            for k, (c, key) in kernel_wrappers().items()}
 
 
 def reset_counts() -> None:
-    for fn, attr in kernel_wrappers().values():
-        setattr(fn, attr, 0)
+    for c, key in kernel_wrappers().values():
+        if isinstance(c, dict):
+            c[key] = 0
+        else:
+            setattr(c, key, 0)
 
 
 # What a bf16 path that prefills (or encodes) and decodes must launch: K1
-# on both tensor-core routes, never on the CUDA cores.
+# on both tensor-core routes, never on the CUDA cores; so too K3 or K4.
 K1_BF16 = ("matrixflow_gemm", "matrixflow_gemm_wgmma", "matrixflow_gemm_mma")
+K3_BF16 = ("flash_attention", "flash_attention_rows", "flash_attention_split")
+K4_BF16 = ("paged_attention", "paged_attention_rows", "paged_attention_split")
+CUDA_CORE_COUNTERS = ("matrixflow_gemm_cuda_core", "flash_attention_cuda_cores",
+                      "paged_attention_cuda_cores")
 
 
 def read_counts(path: str, required) -> dict:
     """The launch counts since reset_counts(); fails if a kernel of the
-    path never launched, or if K1 ran on the CUDA cores (every path read
-    here is bf16 or int8, and neither may take that route)."""
+    path never launched, or if K1, K3 or K4 ran on the CUDA cores (every
+    path read here is bf16 or int8, and neither may take that route)."""
     counts_now = counts()
     for name in required:
         if counts_now[name] <= 0:
             fail(f"{path}: kernel {name} was never launched")
-    if counts_now["matrixflow_gemm_cuda_core"]:
-        fail(f"{path}: K1 ran {counts_now['matrixflow_gemm_cuda_core']} "
-             f"times on the CUDA cores")
+    for name in CUDA_CORE_COUNTERS:
+        if counts_now[name]:
+            fail(f"{path}: {name} counted {counts_now[name]} launches on "
+                 f"the CUDA cores")
     return counts_now
+
+
+def route_taken(before: dict, after: dict, kernel: str) -> str:
+    """The one route of ``kernel`` whose counter grew between two counts()
+    snapshots; fails unless exactly one did."""
+    grew = [r for r in ATTN_ROUTES
+            if after[f"{kernel}_{r}"] > before[f"{kernel}_{r}"]]
+    if len(grew) != 1:
+        fail(f"{kernel}: routes {grew} counted launches, expected one")
+    return grew[0]
 
 
 def check_close(name, got, want, atol, rtol):
@@ -384,7 +424,10 @@ def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs):
 def paged_case(gen, dt, *, B, Sq, lens, q_start, H, Hkv, D, ps, nb):
     """Shuffled block tables over a pool with garbage distractor pages;
     row b holds lens[b] keys; its queries sit at q_start[b] + s (-1 past
-    the row's real queries, as bucketed prefill pads)."""
+    the row's real queries, as bucketed prefill pads). Returns the tables
+    twice: valid page ids everywhere (for the plain version, which gathers
+    every entry), and with every entry past a row's valid keys out of the
+    pool's range (for the kernels, which must never read one)."""
     P = B * nb + 5
     kp = torch.randn((P, ps, Hkv, D), generator=gen, device="cuda").to(dt) * 3
     vp = torch.randn((P, ps, Hkv, D), generator=gen, device="cuda").to(dt) * 3
@@ -397,7 +440,10 @@ def paged_case(gen, dt, *, B, Sq, lens, q_start, H, Hkv, D, ps, nb):
         qpos[b, :n_real] = q_start[b] + np.arange(n_real)
     qpos = torch.from_numpy(qpos).cuda()
     kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    return q, kp, vp, tables, qpos, kvl
+    dead = torch.arange(nb, device="cuda")[None] >= -(-kvl[:, None] // ps)
+    poisoned = torch.where(dead, torch.full_like(tables, P + (1 << 20)),
+                           tables)
+    return q, kp, vp, tables, poisoned, qpos, kvl
 
 
 def run_attention_phase(timer, cfg):
@@ -413,21 +459,36 @@ def run_attention_phase(timer, cfg):
         atol, rtol = ATTN_TOLS[dtype_name]
         dec_lens = rng.integers(17, MAX_LEN, SLOTS).tolist()
         pf_lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS).tolist()
+        # a slot with no key (its row masked), one key, keys ending exactly
+        # on a page boundary, and the longest a 256-token slot decodes
+        edge_lens = [0, 1, 8 * PAGE, MAX_LEN - 1] + \
+            rng.integers(17, MAX_LEN, SLOTS - 4).tolist()
         cases = [
             ("decode", 1, dec_lens, [n - 1 for n in dec_lens], "decode step"),
+            ("decode edge lengths", 1, edge_lens,
+             [n - 1 for n in edge_lens], "decode step, edge lengths"),
             ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, "prefill"),
         ]
         for name, Sq, lens, q_start, path in cases:
-            q, kp, vp, bt, qpos, kvl = paged_case(
+            q, kp, vp, bt, dead_bt, qpos, kvl = paged_case(
                 gen, dt, B=SLOTS, Sq=Sq, lens=lens, q_start=q_start,
                 H=H, Hkv=Hkv, D=D, ps=PAGE, nb=nb)
             scale = D ** -0.5
-            got = PA.paged_attention(q, kp, vp, bt, qpos, kvl)
+            before = counts()
+            got = PA.paged_attention(q, kp, vp, dead_bt, qpos, kvl)
+            again = PA.paged_attention(q, kp, vp, dead_bt, qpos, kvl)
+            route = route_taken(before, counts(), "paged_attention")
             want = PA.paged_attention_plain(q, kp, vp, bt, qpos, kvl,
                                             causal=True, scale=scale,
                                             soft_cap=None)
             torch.cuda.synchronize()
             cell = f"paged_attention {name} B={SLOTS} Sq={Sq} {dtype_name}"
+            expect = PA.route_for(dt, Sq, H // Hkv)
+            if route != expect or (dtype_name == "float32") != (
+                    route == "cuda_cores"):
+                fail(f"{cell}: ran route {route}, the chooser names {expect}")
+            if not torch.equal(got, again):
+                fail(f"{cell}: two launches differ")
             err = check_close(cell, got, want, atol, rtol)
             masked = qpos < 0
             if bool(masked.any()) and float(got[masked].abs().max()) != 0.0:
@@ -440,7 +501,8 @@ def run_attention_phase(timer, cfg):
             mask = ((cols[None, None, :] < kvl[:, None, None])
                     & (cols[None, None, :] <= qpos[:, :, None]))[:, None]
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            t_k = timer.ms(lambda: PA.paged_attention(q, kp, vp, bt, qpos, kvl))
+            t_k = timer.ms(lambda: PA.paged_attention(q, kp, vp, dead_bt,
+                                                      qpos, kvl))
             t_p = timer.ms(lambda: PA.paged_attention_plain(
                 q, kp, vp, bt, qpos, kvl, causal=True, scale=scale,
                 soft_cap=None))
@@ -456,10 +518,10 @@ def run_attention_phase(timer, cfg):
             flops = float(vis.sum()) * H * 4 * D
             b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
-                             path=path, uses=cfg.n_layers, max_abs_err=err,
-                             ms=t_k, plain_ms=t_p, library_ms=t_lib,
-                             bound_ms=b_ms, bound_by=b_by))
-            log(f"{cell}: max|d|={err:.2e} kernel {t_k:.4f} ms plain "
+                             path=path, uses=cfg.n_layers, route=route,
+                             max_abs_err=err, ms=t_k, plain_ms=t_p,
+                             library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
+            log(f"{cell}: route {route} max|d|={err:.2e} kernel {t_k:.4f} ms plain "
                 f"{t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
                 f"({b_by})")
     return rows
@@ -532,7 +594,10 @@ def run_flash_phase(timer, cells):
                                      (B, Sk, Hkv, D)))
             qpos = None if qpos_np is None else torch.from_numpy(qpos_np).cuda()
             kvl = None if kvl_np is None else torch.from_numpy(kvl_np).cuda()
+            before = counts()
             got = FA.flash_attention(q, k, v, qpos, kvl, causal=causal)
+            again = FA.flash_attention(q, k, v, qpos, kvl, causal=causal)
+            route = route_taken(before, counts(), "flash_attention")
             qpos_r = qpos if qpos is not None else (
                 torch.arange(Sq, device="cuda") + (Sk - Sq)).expand(
                     B, Sq).to(torch.int32)
@@ -545,6 +610,12 @@ def run_flash_phase(timer, cells):
             torch.cuda.synchronize()
             cell = (f"flash_attention {name} B={B} Sq={Sq} Sk={Sk} H={H} "
                     f"Hkv={Hkv} D={D} {dtype_name}")
+            expect = FA.route_for(dt, Sq, H // Hkv)
+            if route != expect or (dtype_name == "float32") != (
+                    route == "cuda_cores"):
+                fail(f"{cell}: ran route {route}, the chooser names {expect}")
+            if not torch.equal(got, again):
+                fail(f"{cell}: two launches differ")
             err = check_close(cell, got, want, atol, rtol)
             masked = qpos_r < 0
             if causal and bool(masked.any()) \
@@ -579,10 +650,10 @@ def run_flash_phase(timer, cells):
             flops = 4.0 * D * H * float(vis.sum())
             b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, path=path,
-                             uses=uses, max_abs_err=err, ms=t_k,
-                             plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
-                             bound_by=b_by))
-            log(f"{cell}: max|d|={err:.2e} kernel {t_k:.4f} ms plain "
+                             uses=uses, route=route, max_abs_err=err,
+                             ms=t_k, plain_ms=t_p, library_ms=t_lib,
+                             bound_ms=b_ms, bound_by=b_by))
+            log(f"{cell}: route {route} max|d|={err:.2e} kernel {t_k:.4f} ms plain "
                 f"{t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
                 f"({b_by})")
     return rows
@@ -696,7 +767,7 @@ def run_int8_attention_phase(timer, cfg):
              "chunk"),
         ]
         for name, Sq, lens, q_start, path in cases:
-            q, kp, vp, bt, qpos, kvl = paged_case(
+            q, kp, vp, bt, _, qpos, kvl = paged_case(
                 gen, torch.float32, B=SLOTS, Sq=Sq, lens=lens,
                 q_start=q_start, H=H, Hkv=Hkv, D=D, ps=PAGE, nb=nb)
             q = q.to(dt)
@@ -900,7 +971,7 @@ def run_serving_phase(cfg):
     streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_counts("serving", K1_BF16 + ("paged_attention",))
+    launches = read_counts("serving", K1_BF16 + K4_BF16)
     check_streams("serving", streams, cfg.vocab)
     if eng.n_preemptions < 1:
         fail("serving: the pool never ran dry (no preemption)")
@@ -1036,7 +1107,7 @@ def run_encoder_phase(bert, vit):
             wall_ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts(f"encoder {ecfg.name}",
                              ("matrixflow_gemm", "matrixflow_gemm_wgmma",
-                              "flash_attention"))
+                              "flash_attention", "flash_attention_rows"))
         if tuple(logits.shape) != (ENC_BATCH, S, ecfg.vocab) \
                 or not bool(torch.isfinite(logits).all()):
             fail(f"encoder {ecfg.name}: logits {tuple(logits.shape)} "
@@ -1117,16 +1188,14 @@ def run_contiguous_phase(cfg):
     streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_counts("contiguous serving",
-                           K1_BF16 + ("flash_attention",))
+    launches = read_counts("contiguous serving", K1_BF16 + K3_BF16)
     check_streams("contiguous serving", streams, cfg.vocab)
     gen_prompts = rng.integers(0, cfg.vocab, (SLOTS, 16))
     reset_counts()
     t1 = time.perf_counter()
     gen_out = eng.generate(gen_prompts, GEN_LEN)
     gen_s = time.perf_counter() - t1
-    gen_launches = read_counts("contiguous generate",
-                               K1_BF16 + ("flash_attention",))
+    gen_launches = read_counts("contiguous generate", K1_BF16 + K3_BF16)
     if gen_out.shape != (SLOTS, GEN_LEN) or gen_out.min() < 0 \
             or gen_out.max() >= cfg.vocab:
         fail(f"contiguous generate: malformed output {gen_out.shape}")
@@ -1566,7 +1635,7 @@ def main() -> None:
     report["mamba2_serving"] = run_ssm_serving_phase(
         mamba, MAMBA_PROMPT, K1_BF16 + ("ssd_scan",), True)
     report["zamba2_serving"] = run_ssm_serving_phase(
-        zamba, ZAMBA_PROMPT, K1_BF16 + ("flash_attention", "ssd_scan"), False)
+        zamba, ZAMBA_PROMPT, K1_BF16 + K3_BF16 + ("ssd_scan",), False)
     report["ssm_parity"] = {c.name: run_ssm_parity_phase(c)
                             for c in (mamba, zamba)}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -1591,8 +1660,8 @@ def main() -> None:
 
     ssd_paths = sorted({r["path"] for r in report["ssd"]})
     main_ssd = f"{MAMBA} generate prefill B{SSM_SLOTS}xS{MAMBA_PROMPT}"
-    def on_route(route):
-        return [r for r in report["gemm"] if r["route"] == route]
+    def on_route(route, phase="gemm"):
+        return [r for r in report[phase] if r["route"] == route]
 
     k1 = entry("matrixflow_gemm", "matrixflow_gemm",
                "src/repro/kernels/matrixflow_gemm.py:137", report["gemm"],
@@ -1602,6 +1671,10 @@ def main() -> None:
     k1["launches_by_route"] = {
         r: sum(c[f"matrixflow_gemm_{r}"] for c in by_path.values())
         for r in ("wgmma", "mma", "cuda_core")}
+    k3_k4_by_route = {
+        k: {r: sum(c[f"{k}_{r}"] for c in by_path.values())
+            for r in ATTN_ROUTES}
+        for k in ("flash_attention", "paged_attention")}
     kernels = [
         k1,
         entry("matrixflow_gemm_wgmma", "matrixflow_gemm",
@@ -1619,9 +1692,25 @@ def main() -> None:
               "src/repro/kernels/flash_attention.py:199", report["flash"],
               f"{bert.name} forward", (f"{vit.name} forward", "decode step",
                                        "zamba2 prefill", "zamba2 decode step")),
+        entry("flash_attention_rows", "flash_attention",
+              "src/repro/kernels/flash_attention.py:199",
+              on_route("rows", "flash"), f"{bert.name} forward",
+              (f"{vit.name} forward", "vit-huge forward", "prefill", "chunk",
+               "zamba2 prefill")),
+        entry("flash_attention_split", "flash_attention",
+              "src/repro/kernels/flash_attention.py:199",
+              on_route("split", "flash"), "decode step",
+              ("zamba2 decode step",)),
         entry("paged_attention", "paged_attention",
               "src/repro/kernels/paged_attention.py:188",
-              report["attention"], "decode step", ()),
+              report["attention"], "decode step", ("prefill",)),
+        entry("paged_attention_rows", "paged_attention",
+              "src/repro/kernels/paged_attention.py:188",
+              on_route("rows", "attention"), "prefill", ()),
+        entry("paged_attention_split", "paged_attention",
+              "src/repro/kernels/paged_attention.py:188",
+              on_route("split", "attention"), "decode step",
+              ("decode step, edge lengths",)),
         entry("paged_attention_int8", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
               report["int8_attention"], "decode step", ("prefill", "chunk")),
@@ -1629,6 +1718,9 @@ def main() -> None:
               report["ssd"], main_ssd,
               [p for p in ssd_paths if p != main_ssd]),
     ]
+    for k in kernels:
+        if k["name"] in k3_k4_by_route:
+            k["launches_by_route"] = k3_k4_by_route[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,10 @@ included), then decode steps. ``--encoder ARCH`` instead runs full-width
   MatrixFlow GEMM by route (``matrixflow_gemm_wgmma`` and
   ``matrixflow_gemm_mma`` on the tensor cores for bf16,
   ``matrixflow_gemm`` on the CUDA cores) and its W8A8 variant, the paged
-  attention kernel over fp and int8 pages, the flash attention kernel,
+  attention kernel by route (``paged_attention_split`` and ``_rows`` on
+  the tensor cores for bf16 pools, ``paged_attention`` on the CUDA cores
+  for fp32) and over int8 pages, the flash attention kernel by route
+  (``flash_attention_split``, ``_rows``; ``flash_attention`` for fp32),
   the SSD scan, and everything else (PyTorch's elementwise, copy,
   reduction and index kernels). Device busy time over wall time gives the
   device's idle share.
@@ -51,6 +54,24 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# (substring of a device kernel's name, what it is counted as): K1 and
+# K3/K4 by route (bf16 on the tensor cores, fp32 and int8 on the CUDA
+# cores), K2, K5, K6; every other kernel is "other".
+KERNEL_KINDS = (
+    ("mf_gemm_kernel", "matrixflow_gemm"),
+    ("mf_gemm_wgmma_kernel", "matrixflow_gemm_wgmma"),
+    ("mf_gemm_mma_kernel", "matrixflow_gemm_mma"),
+    ("mf_gemm_dequant_kernel", "matrixflow_gemm_dequant"),
+    ("paged_attn_rows_kernel", "paged_attention_rows"),
+    ("paged_attn_split_kernel", "paged_attention_split"),
+    ("paged_attn_kernel", "paged_attention"),
+    ("paged_attn_int8_kernel", "paged_attention_int8"),
+    ("flash_attn_rows_kernel", "flash_attention_rows"),
+    ("flash_attn_split_kernel", "flash_attention_split"),
+    ("flash_attn_kernel", "flash_attention"),
+    ("ssd_scan_kernel", "ssd_scan"),
+)
 
 
 def main(argv=None) -> int:
@@ -209,14 +230,8 @@ def measure(step, n_steps: int) -> dict:
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        kind = ("matrixflow_gemm" if "mf_gemm_kernel" in e.name else
-                "matrixflow_gemm_wgmma" if "mf_gemm_wgmma_kernel" in e.name else
-                "matrixflow_gemm_mma" if "mf_gemm_mma_kernel" in e.name else
-                "matrixflow_gemm_dequant" if "mf_gemm_dequant_kernel" in e.name
-                else "paged_attention" if "paged_attn_kernel" in e.name else
-                "paged_attention_int8" if "paged_attn_int8_kernel" in e.name
-                else "flash_attention" if "flash_attn_kernel" in e.name else
-                "ssd_scan" if "ssd_scan_kernel" in e.name else "other")
+        kind = next((k for sub, k in KERNEL_KINDS if sub in e.name),
+                    "other")
         by_kind[kind] += e.time_range.elapsed_us() / 1e3 / n_prof
         n_kernels[kind] += 1
     busy_ms = sum(by_kind.values())

@@ -1,4 +1,4 @@
-// Offset-aware flash attention over dense K/V for Hopper (sm_90a).
+// Offset-aware flash attention over dense K/V for Hopper (sm_90a): K3.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::_kernel
 // (the cache-less forward, the BERT/ViT encoders, and serving from
@@ -16,35 +16,52 @@
 //   that sees no key is exactly 0. Key blocks past every valid key, or
 //   beyond the furthest causal position of the CTA's rows, are skipped.
 //
-// Layout of the work: the TPU walks its key blocks along a sequential grid
-// axis with the running max, denominator and accumulator in VMEM scratch.
-// Hopper blocks run in no order, so one CTA owns one (query tile, kv head
-// g, batch row b) and walks the keys in a loop, writing its output once.
-// Its rows are the query positions of the tile times the rep = H / Hkv
-// query heads that share kv head g (GQA folded into the CTA, at most 16
-// rows), so each K/V tile is read once per CTA and used by every row.
-// Ragged Sq and Sk are bounds-checked here; nothing is padded in memory.
-//
-// Each key block of 32 keys is staged in shared memory as fp32. Threads
-// fetch K and V in 16-byte chunks (the wrapper guarantees the alignment),
-// and the next block's chunks are fetched into registers while the current
-// block is scored, so memory latency is paid once per CTA, not per block. Each of the 4 warps owns up to 4 rows and scores them
-// together: lane t takes key t, reading q (broadcast) and k in 16-byte
-// vectors, so one k load serves four rows. The rows' p values go through
-// shared memory as one float4 per key, and lane d accumulates output dims
-// d, d + 32, d + 64 of all four rows.
-//
 // What bounds it on an H100: the encoders' attention (S <= 257) does
 // 4 * S * S * D FLOPs per head over 4 * S * D elements, so it is bound by
-// operations; this kernel runs them as fp32 FMAs on the CUDA cores (no
-// tensor cores yet), far below the bf16 tensor-core peak. Decode (Sq = 1)
-// reads each cache row's valid keys once: bytes, at few CTAs.
+// operations; decode (Sq = 1) reads each cache row's valid keys once, so
+// it is bound by bytes, and by how many SMs share that read.
+//
+// bf16 runs on the tensor cores, through the warp tile of attn_mma.cuh
+// (mma.sync m16n8k16, Q held in registers as A fragments, P fed back from
+// the S accumulators as A fragments of P.V), on one of two routes picked
+// by rows = query positions x rep (kernels/flash_attention.py::route_for):
+//
+// * flash_attn_rows_kernel (rows > 16: encoders, prefill buckets, chunks):
+//   one CTA per (64 rows, kv head g, batch row b), 16 rows a warp, walking
+//   64-key stages of K and V through a two-stage cp.async ring. At
+//   bert-base that is 192 CTAs, each reading K and V of its (b, g) once
+//   for 64 rows, where a CUDA-core CTA of 16 rows read them 8 times.
+// * flash_attn_split_kernel (rows <= 16: decode): one m16 row tile per
+//   (g, b), its keys split over the 4 warps and, for caches of 512 keys
+//   and more, over up to 8 CTAs of a thread-block cluster, merged in warp
+//   and rank order (no atomics). At smollm-135m's 256-key decode one CTA
+//   per (b, g) runs fastest (a cluster's merge costs more than it saves;
+//   kernels/flash_attention.py::split_count, scripts/torch_attn_sweep.py).
+//
+// fp32 (TF32 stays off, and ATTN_TOLS["float32"] = 3e-5 cannot hold with
+// it) keeps the CUDA-core kernel flash_attn_kernel: one CTA owns one
+// (query tile, kv head g, batch row b), its rows the query positions of
+// the tile times the rep = H / Hkv query heads that share kv head g (GQA
+// folded into the CTA, at most 16 rows), so each K/V tile is read once per
+// CTA and used by every row. Each key block of 32 keys is staged in shared
+// memory as fp32; threads fetch K and V in 16-byte chunks, and the next
+// block's chunks are fetched into registers while the current block is
+// scored. Each of the 4 warps owns up to 4 rows and scores them together:
+// lane t takes key t, reading q (broadcast) and k in 16-byte vectors, so
+// one k load serves four rows. The rows' p values go through shared memory
+// as one float4 per key, and lane d accumulates output dims d, d + 32,
+// d + 64 of all four rows. Ragged Sq and Sk are bounds-checked on both
+// paths; nothing is padded in memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
+
 namespace {
+
+namespace am = attn_mma;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -55,14 +72,9 @@ constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// p.astype(v.dtype): identity for fp32, round-to-nearest-even for bf16.
+// p.astype(v.dtype): the identity for fp32.
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -79,8 +91,8 @@ struct Strides {          // element strides of a (B, S, heads, D) operand
   long long b, s, h;
 };
 
-// One key block's (kBlockK, D) tiles of K and V move in 16-byte chunks (8
-// bf16 or 4 fp32 values); thread tid takes chunks tid + i * kThreads.
+// One key block's (kBlockK, D) tiles of K and V move in 16-byte chunks (4
+// fp32 values); thread tid takes chunks tid + i * kThreads.
 template <typename T, int D>
 struct Tile {
   static constexpr int kVec = 16 / sizeof(T);
@@ -111,13 +123,6 @@ __device__ __forceinline__ void fetch_block(const T* __restrict__ kb,
 // A 16-byte chunk as fp32, written to dst[0 .. kVec) (16-byte aligned).
 __device__ __forceinline__ void unpack(uint4 x, float* dst, const float*) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&x);
-}
-__device__ __forceinline__ void unpack(uint4 x, float* dst, const __nv_bfloat16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
 template <typename T, int D>
@@ -275,13 +280,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
   return cudaGetLastError();
 }
 
+// The bf16 instances: the attention of attn_mma.cuh over a dense cache.
+template <int D, bool kSplit>
+__device__ __forceinline__ void flash_attn_tc(const am::Params& p, const am::bf16* k,
+                                              const am::bf16* v, Strides kst, Strides vst) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int g = blockIdx.y, b = blockIdx.z;
+  am::DenseKV src{k + b * kst.b + g * kst.h, v + b * vst.b + g * vst.h, kst.s, vst.s};
+  am::attend<D, kSplit>(p, src, smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(am::kThreads)
+flash_attn_rows_kernel(am::Params p, const am::bf16* k, const am::bf16* v, Strides kst,
+                       Strides vst) {
+  flash_attn_tc<D, false>(p, k, v, kst, vst);
+}
+
+template <int D>
+__global__ void __launch_bounds__(am::kThreads)
+flash_attn_split_kernel(am::Params p, const am::bf16* k, const am::bf16* v, Strides kst,
+                        Strides vst) {
+  flash_attn_tc<D, true>(p, k, v, kst, vst);
+}
+
+template <int D, bool kSplit>
+cudaError_t launch_tc(const am::Params& p, const void* k, const void* v, int B, int splits,
+                      Strides ks, Strides vs, cudaStream_t stream) {
+  constexpr int smem = am::Smem<D, kSplit>::kBytes;
+  auto kernel = flash_attn_rows_kernel<D>;
+  if constexpr (kSplit) kernel = flash_attn_split_kernel<D>;
+  static int granted = 0;
+  const cudaError_t attr = am::reserve_smem(kernel, smem, granted);
+  if (attr != cudaSuccess) return attr;
+  const int qt = am::kRowsTile / (p.H / p.Hkv);
+  const dim3 grid(kSplit ? splits : (p.Sq + qt - 1) / qt, p.Hkv, B);
+  return am::launch_grid(kernel, grid, kSplit ? splits : 1, smem, stream, p,
+                         static_cast<const am::bf16*>(k), static_cast<const am::bf16*>(v),
+                         ks, vs);
+}
+
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16 (q, k, v and the output alike).
+// The fp32 instance (the CUDA cores); bf16 takes flash_attention_tc.
 // head_dim: 64 or 80. Strides are in elements; the output is a contiguous
 // (B, Sq, H, head_dim) tensor. H / Hkv must be an integer <= 16.
-// soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on `stream`.
-extern "C" int flash_attention(int dtype_code, int head_dim, const void* q,
+// soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on
+// `stream`.
+extern "C" int flash_attention(int head_dim, const void* q,
                                const void* k, const void* v,
                                const int* q_positions, const int* kv_valid_len,
                                void* out, int B, int Sq, int Sk, int H, int Hkv,
@@ -297,11 +343,42 @@ extern "C" int flash_attention(int dtype_code, int head_dim, const void* q,
 #define FA_LAUNCH(T, D)                                                         \
   return launch<T, D>(q, k, v, q_positions, kv_valid_len, out, B, Sq, Sk, H, \
                       Hkv, qs, ks, vs, scale, soft_cap, causal, s)
-  if (dtype_code == 0 && head_dim == 64) FA_LAUNCH(float, 64);
-  if (dtype_code == 0 && head_dim == 80) FA_LAUNCH(float, 80);
-  if (dtype_code == 1 && head_dim == 64) FA_LAUNCH(__nv_bfloat16, 64);
-  if (dtype_code == 1 && head_dim == 80) FA_LAUNCH(__nv_bfloat16, 80);
+  if (head_dim == 64) FA_LAUNCH(float, 64);
+  if (head_dim == 80) FA_LAUNCH(float, 80);
 #undef FA_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// The bf16 instances (the tensor cores). splits = 0 takes the rows route
+// (any Sq); splits = 1..8 the split route, which needs Sq * H / Hkv <= 16
+// and puts `splits` CTAs of one cluster on each (kv head, batch row).
+// head_dim: 64 or 80; H / Hkv <= 16. q_positions may be null (the
+// bottom-right default, s + Sk - Sq) and kv_valid_len null (Sk); a given
+// kv_valid_len is clamped to Sk here. Strides, output and return as for
+// flash_attention.
+extern "C" int flash_attention_tc(int head_dim, int splits, const void* q, const void* k,
+                                  const void* v, const int* q_positions,
+                                  const int* kv_valid_len, void* out, int B, int Sq, int Sk,
+                                  int H, int Hkv, long long q_sb, long long q_ss,
+                                  long long q_sh, long long k_sb, long long k_ss,
+                                  long long k_sh, long long v_sb, long long v_ss,
+                                  long long v_sh, float scale, float soft_cap, int causal,
+                                  void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (Hkv < 1 || H % Hkv || H / Hkv > am::kSplitRows) return cudaErrorInvalidValue;
+  if (splits < 0 || splits > am::kMaxSplits || (splits > 0 && Sq * (H / Hkv) > am::kSplitRows))
+    return cudaErrorInvalidValue;
+  const am::Params p{static_cast<const am::bf16*>(q), q_sb, q_ss, q_sh, q_positions,
+                     kv_valid_len, static_cast<am::bf16*>(out), Sq, H, Hkv, Sk, Sk - Sq,
+                     scale, soft_cap, causal};
+  const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return splits ? launch_tc<64, true>(p, k, v, B, splits, ks, vs, s)
+                  : launch_tc<64, false>(p, k, v, B, 0, ks, vs, s);
+  if (head_dim == 80)
+    return splits ? launch_tc<80, true>(p, k, v, B, splits, ks, vs, s)
+                  : launch_tc<80, false>(p, k, v, B, 0, ks, vs, s);
   return cudaErrorInvalidValue;
 }
 

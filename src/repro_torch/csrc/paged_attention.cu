@@ -1,8 +1,9 @@
-// Paged (block-table) flash attention for Hopper (sm_90a).
+// Paged (block-table) flash attention for Hopper (sm_90a): K4 and K5.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py::_kernel:
-// paged_attn_kernel for fp32 and bf16 pools (K4), paged_attn_int8_kernel
-// for its int8 branch (K5). Contract, as there:
+// paged_attn_rows_kernel / paged_attn_split_kernel for bf16 pools and
+// paged_attn_kernel for fp32 pools (K4), paged_attn_int8_kernel for its
+// int8 branch (K5). Contract, as there:
 //
 //   q (B, Sq, H, D) model layout; k/v pools (P, ps, Hkv, D|Dv);
 //   block_tables (B, nb) int32: logical key block j of row b is physical
@@ -10,35 +11,48 @@
 //   kv_valid_len (B,) int32, clamped to nb * ps by the caller.
 //   Key col (a LOGICAL position, j * ps + t) is visible to query row i iff
 //   col < kv_valid_len[b] and, when causal, col <= q_positions[b, i].
-//   Online softmax in fp32 over key blocks of exactly one page; p is zeroed
-//   where invalid; p is rounded to the pool dtype before the P.V product,
-//   as the TPU kernel's p.astype(v.dtype) does; the flush divides by
-//   max(l, 1e-30), so a row that sees no key is exactly 0. Blocks past the
-//   valid length or beyond every row's causal frontier are skipped.
-//
-// int8 pools (K5): k_scales / v_scales are fp32 (P, Hkv). The CTA reads
-// the scale of (page, g) — the page its block-table entry named, so the
-// scale rides the same indirection as the page — and stages each int8
-// element as float(x) * scale into the same fp32 shared tiles. The
-// recurrence is then K4's in fp32; as in the TPU kernel, which
-// dequantizes the page to fp32 before the block step, p is NOT rounded to
-// q's dtype before P.V (round_as is the identity for int8 pools, bf16 q
-// included).
-//
-// Layout of the work: one CTA per (query tile, kv head g, batch row b).
-// Its rows are the query positions of the tile times the rep = H / Hkv
-// query heads that share kv head g (GQA folded into the CTA), so each page
-// of K and V is read from memory once per CTA and used by all its rows.
-// The CTA loads its own block-table entries (no scalar prefetch on Hopper).
-// Each of the 4 warps owns up to 4 rows; within a warp, lane t scores key t
-// of the page (page_size <= 32) and lane d accumulates output dims d, d+32,
-// ... (head_dim <= 128).
+//   Online softmax in fp32; p is zeroed where invalid; p is rounded to the
+//   pool dtype before the P.V product, as the TPU kernel's
+//   p.astype(v.dtype) does; the flush divides by max(l, 1e-30), so a row
+//   that sees no key is exactly 0. Keys past the valid length or beyond
+//   every row's causal frontier are skipped, and the block-table entries
+//   that name them are never read: they may hold any value.
 //
 // What bounds it on an H100: the bytes of the visible K/V pages (decode
 // reads every populated page of every slot once per layer), so HBM
-// bandwidth; int8 pages halve them against bf16. The arithmetic is fp32
-// FMA on the CUDA cores. Both kernels stage a page element by element
-// (a 16-byte chunk fetch is later work).
+// bandwidth, and how many SMs share that read; int8 pages halve them
+// against bf16.
+//
+// bf16 pools (K4) run on the tensor cores, through the warp tile of
+// attn_mma.cuh, with keys fetched through the block table (PagedKV): the
+// CTA copies the table entries of its keys into shared memory once, and
+// each key's row of one kv head (D * 2 contiguous bytes of the (P, ps,
+// Hkv, D) pool) arrives by 16-byte cp.async into a two-stage ring of 64
+// keys, the next 64 in flight while these are multiplied: at ps 16 and D
+// 64 a page is 128 chunks, one per thread. A 16-key tile of the warp tile
+// is one page of 16, half a page of 32, or two pages of 8. Two routes,
+// picked by rows = query positions x rep (kernels/flash_attention.py::
+// route_for, shared with K3):
+//
+// * paged_attn_split_kernel (rows <= 16: decode): the keys of each (g, b)
+//   split over the 4 warps, a page of 16 each, and for caches of 512 keys
+//   and more over up to 8 CTAs of a cluster, merged in warp and rank
+//   order. At smollm-135m's decode a CTA takes a slot's 16 pages four at
+//   a time with the next four in flight, where the CUDA-core kernel
+//   staged them one at a time in 16 serial rounds.
+// * paged_attn_rows_kernel (rows > 16: the prefill buckets, chunks): 64
+//   rows a CTA, 16 a warp, walking every visible page.
+//
+// fp32 pools (K4, TF32 off) and int8 pools (K5) keep the CUDA-core body
+// paged_attn_body: one CTA per (query tile, kv head g, batch row b), GQA
+// folded into the CTA (at most 16 rows), each page staged element by
+// element into fp32 shared tiles (an int8 element as float(x) * scale, the
+// (page, g) scale riding the same indirection as the page), lane t
+// scoring key t of the page (page_size <= 32) and lane d accumulating
+// output dims d, d + 32, ... (head_dim <= 128). As in the TPU kernel,
+// which dequantizes a page to fp32 before the block step, an int8 pool's
+// p is NOT rounded to q's dtype before P.V (round_as is the identity for
+// int8 pools, bf16 q included).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +60,11 @@
 
 #include <type_traits>
 
+#include "attn_mma.cuh"
+
 namespace {
+
+namespace am = attn_mma;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -62,17 +80,13 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// p.astype(v.dtype): identity for fp32 pools and for int8 pools (their
-// pages are dequantized to fp32), round-to-nearest-even for bf16.
+// p.astype(v.dtype): the identity for fp32 pools and for int8 pools
+// (their pages are dequantized to fp32).
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 __device__ __forceinline__ float round_as(float x, const int8_t*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 // A pool element as fp32: fp pools convert, int8 pools dequantize by the
 // (page, kv head) scale (one fp32 product, as x.astype(f32) * s).
 __device__ __forceinline__ float from_pool(float x, float) { return x; }
-__device__ __forceinline__ float from_pool(__nv_bfloat16 x, float) { return __bfloat162float(x); }
 __device__ __forceinline__ float from_pool(int8_t x, float s) {
   return __fmul_rn(static_cast<float>(x), s);
 }
@@ -243,20 +257,84 @@ cudaError_t launch(int pool_code, const void* q, const void* kp, const void* vp,
         static_cast<const T*>(q), static_cast<const int8_t*>(kp),
         static_cast<const int8_t*>(vp), ks, vs, block_tables, q_positions, kv_valid_len,
         static_cast<T*>(out), Sq, H, Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal);
-  } else {
+  } else if constexpr (std::is_same<T, float>::value) {
     paged_attn_kernel<T><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
         block_tables, q_positions, kv_valid_len, static_cast<T*>(out), Sq, H, Hkv, D,
         Dv, ps, nb, qt, scale, soft_cap, causal);
+  } else {
+    return cudaErrorInvalidValue;   // bf16 pools take paged_attention_tc
   }
   return cudaGetLastError();
 }
 
+// The bf16 instances: the attention of attn_mma.cuh over the pools through
+// the block-table row of b.
+template <int D, bool kSplit>
+__device__ __forceinline__ void paged_attn_tc(const am::Params& p, const am::bf16* kp,
+                                              const am::bf16* vp, const int* block_tables,
+                                              int nb, int lg_ps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int g = blockIdx.y, b = blockIdx.z;
+  am::PagedKV src{kp + g * D, vp + g * D, block_tables + static_cast<long long>(b) * nb,
+                  static_cast<long long>(p.Hkv) * D, lg_ps, 0, nullptr};
+  am::attend<D, kSplit>(p, src, smem);
+}
+
+template <int D>
+__global__ void __launch_bounds__(am::kThreads)
+paged_attn_rows_kernel(am::Params p, const am::bf16* kp, const am::bf16* vp,
+                       const int* block_tables, int nb, int lg_ps) {
+  paged_attn_tc<D, false>(p, kp, vp, block_tables, nb, lg_ps);
+}
+
+template <int D>
+__global__ void __launch_bounds__(am::kThreads)
+paged_attn_split_kernel(am::Params p, const am::bf16* kp, const am::bf16* vp,
+                        const int* block_tables, int nb, int lg_ps) {
+  paged_attn_tc<D, true>(p, kp, vp, block_tables, nb, lg_ps);
+}
+
+template <int D, bool kSplit>
+cudaError_t launch_tc(const am::Params& p, const void* kp, const void* vp,
+                      const int* block_tables, int B, int nb, int lg_ps, int splits,
+                      cudaStream_t stream) {
+  // the attention's shared memory, then the block-table entries of a CTA's keys
+  const int smem = am::Smem<D, kSplit>::kBytes + 4 * nb;
+  auto kernel = paged_attn_rows_kernel<D>;
+  if constexpr (kSplit) kernel = paged_attn_split_kernel<D>;
+  static int granted = 0;
+  const cudaError_t attr = am::reserve_smem(kernel, smem, granted);
+  if (attr != cudaSuccess) return attr;
+  const int qt = am::kRowsTile / (p.H / p.Hkv);
+  const dim3 grid(kSplit ? splits : (p.Sq + qt - 1) / qt, p.Hkv, B);
+  return am::launch_grid(kernel, grid, kSplit ? splits : 1, smem, stream, p,
+                         static_cast<const am::bf16*>(kp), static_cast<const am::bf16*>(vp),
+                         block_tables, nb, lg_ps);
+}
+
+template <bool kSplit>
+cudaError_t launch_tc_d(int D, const am::Params& p, const void* kp, const void* vp,
+                        const int* bt, int B, int nb, int lg_ps, int splits, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_tc<16, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    case 32: return launch_tc<32, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    case 48: return launch_tc<48, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    case 64: return launch_tc<64, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    case 80: return launch_tc<80, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    case 96: return launch_tc<96, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    case 112: return launch_tc<112, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    case 128: return launch_tc<128, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q_code: 0 = float32, 1 = bfloat16 (q and output). pool_code: q_code for
-// pools of q's dtype (K4), 2 for int8 pools (K5, with k_scales/v_scales
-// fp32 (P, Hkv); null otherwise). qt: query positions per CTA, with
+// The CUDA-core instances. q_code: 0 = float32, 1 = bfloat16 (q and
+// output). pool_code: 0 for fp32 pools with fp32 q (K4), 2 for int8 pools
+// (K5, with k_scales/v_scales fp32 (P, Hkv); null otherwise); bf16 pools
+// take paged_attention_tc. qt: query positions per CTA, with
 // qt * (H / Hkv) <= 16. soft_cap <= 0 means none. Returns a cudaError_t;
 // asynchronous on `stream`.
 extern "C" int paged_attention(int q_code, int pool_code, const void* q,
@@ -280,6 +358,37 @@ extern "C" int paged_attention(int q_code, int pool_code, const void* q,
                                  block_tables, q_positions, kv_valid_len, out, B, Sq, H,
                                  Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal, s);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 instances of K4 (the tensor cores): bf16 q, pools and output,
+// contiguous; head_dim a multiple of 16 up to 128 (Dv = D); page_size 8,
+// 16 or 32; H / Hkv <= 16. q_positions may be null (the default, s) and
+// kv_valid_len null (nb * ps); a given kv_valid_len is clamped to nb * ps
+// here. splits = 0 takes the rows route (any Sq);
+// splits = 1..8 the split route, which needs Sq * H / Hkv <= 16 and puts
+// `splits` CTAs of one cluster on each (kv head, batch row). Returns a
+// cudaError_t; asynchronous on `stream`.
+extern "C" int paged_attention_tc(int D, int ps, int splits, const void* q,
+                                  const void* k_pages, const void* v_pages,
+                                  const int* block_tables, const int* q_positions,
+                                  const int* kv_valid_len, void* out, int B, int Sq, int H,
+                                  int Hkv, int nb, float scale, float soft_cap, int causal,
+                                  void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (Hkv < 1 || H % Hkv || H / Hkv > am::kSplitRows) return cudaErrorInvalidValue;
+  if (splits < 0 || splits > am::kMaxSplits || (splits > 0 && Sq * (H / Hkv) > am::kSplitRows))
+    return cudaErrorInvalidValue;
+  const int lg_ps = ps == 8 ? 3 : ps == 16 ? 4 : ps == 32 ? 5 : -1;
+  if (lg_ps < 0 || nb < 1) return cudaErrorInvalidValue;
+  const long long q_ss = static_cast<long long>(H) * D;
+  const am::Params p{static_cast<const am::bf16*>(q), Sq * q_ss, q_ss, D, q_positions,
+                     kv_valid_len, static_cast<am::bf16*>(out), Sq, H, Hkv, nb * ps, 0,
+                     scale, soft_cap, causal};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return splits ? launch_tc_d<true>(D, p, k_pages, v_pages, block_tables, B, nb, lg_ps,
+                                    splits, s)
+                : launch_tc_d<false>(D, p, k_pages, v_pages, block_tables, B, nb, lg_ps, 0,
+                                     s);
 }
 
 extern "C" const char* pa_error_string(int err) {

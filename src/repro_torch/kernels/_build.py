@@ -3,8 +3,10 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, which :func:`load` opens with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root under a name
-that carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. A build writes to a temporary
+that carries a hash of the source, of every ``csrc`` header it includes
+(``#include "x.cuh"``, followed into the headers' own includes) and of the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. A build writes to a temporary
 name and renames it into place, so two processes building at once never
 load a half-written library.
 
@@ -15,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -45,11 +48,30 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes by a quoted
+    ``#include``, directly or through another such file, in a fixed
+    order."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes()) if (CSRC / inc.decode()).is_file()]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:

@@ -9,8 +9,22 @@ It carries every attention without a paged cache: the cache-less forward
 view (a cache sliced to its valid columns) needs no copy. For tensors on
 the CPU :func:`flash_attention` runs :func:`flash_attention_plain`, the
 same online-softmax recurrence in PyTorch over the kernel's key blocks;
-for CUDA tensors it launches the kernel or raises. ``launches`` counts the
-kernel launches.
+for CUDA tensors it launches the kernel or raises.
+
+On the card the kernel takes one of three routes (:func:`route_for`),
+each counted in ``flash_attention.launches_by_route``, their sum in
+``flash_attention.launches``:
+
+  ``rows``        bf16, rows = Sq x rep > 16 (encoders, prefill buckets,
+                  chunks): mma.sync on the tensor cores, 64 rows a CTA
+  ``split``       bf16, rows <= 16 (decode): mma.sync, one m16 row tile
+                  whose keys are split over 4 warps and up to
+                  :data:`MAX_SPLITS` CTAs of a cluster (:func:`split_count`)
+  ``cuda_cores``  fp32 (TF32 stays off): FMA on the CUDA cores
+
+:func:`route_for` and :func:`split_count` also pick the routes of the
+paged kernel's bf16 instances (``kernels/paged_attention.py``), which run
+on the same warp tile (``csrc/attn_mma.cuh``).
 """
 from __future__ import annotations
 
@@ -29,7 +43,44 @@ BLOCK_K = 32
 MAX_ROWS = 16
 HEAD_DIMS = (64, 80)
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("rows", "split", "cuda_cores")
+# The tensor-core routes (csrc/attn_mma.cuh): rows of the split route's one
+# m16 tile, CTAs of one cluster that may share it.
+SPLIT_ROWS = 16
+MAX_SPLITS = 8
+# Streaming multiprocessors of an H100 SXM, and the CTAs a split launch
+# aims at (as K1's mma route, kernels/matrixflow_gemm.py), each with at
+# least MIN_SPLIT_KEYS keys of the cache to read: timed on an H100
+# (scripts/torch_attn_sweep.py), a cluster's merge costs more than a
+# walk of 256 keys saves (smollm-135m's decode ran fastest unsplit), and
+# 8 CTAs of 256 keys each were the fastest at 2,048 keys.
+SMS = 132
+SPLIT_TARGET_CTAS = 192
+MIN_SPLIT_KEYS = 256
+
+
+def route_for(dtype: torch.dtype, Sq: int, rep: int) -> str:
+    """The route the attention kernels (K3, and K4 over fp pools) take on
+    the card for ``Sq`` query positions of ``rep`` heads per kv head:
+    ``split`` (bf16, one m16 tile holds them all), ``rows`` (bf16) or
+    ``cuda_cores`` (fp32)."""
+    if dtype != torch.bfloat16:
+        return "cuda_cores"
+    return "split" if Sq * rep <= SPLIT_ROWS else "rows"
+
+
+def split_count(B: int, Hkv: int, n_keys: int) -> int:
+    """CTAs of one cluster that share the keys of each (batch row, kv head)
+    on the split route, from shapes alone (never kv_valid_len: reading it
+    would synchronise the host): enough to bring the B x Hkv pairs near
+    SPLIT_TARGET_CTAS, at most MAX_SPLITS, none when the pairs alone fill
+    the SMs, and each with MIN_SPLIT_KEYS of the ``n_keys`` in memory."""
+    pairs = B * Hkv
+    if pairs >= SMS:
+        return 1
+    most = max(1, -(-n_keys // MIN_SPLIT_KEYS))
+    return max(1, min(MAX_SPLITS, most, round(SPLIT_TARGET_CTAS / pairs)))
+
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,10 +88,12 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention.argtypes is None:
         vp, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                         ctypes.c_longlong)
-        lib.flash_attention.argtypes = [
-            i, i, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-            ll, ll, ll, ll, ll, ll, ll, ll, ll, f, f, i, vp]
+        common = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                  ll, ll, ll, ll, ll, ll, ll, ll, ll, f, f, i, vp]
+        lib.flash_attention.argtypes = [i, *common]        # head_dim
+        lib.flash_attention_tc.argtypes = [i, i, *common]  # head_dim, splits
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_tc.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [i]
         lib.fa_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,6 +141,18 @@ def flash_attention_plain(q, k, v, q_positions, kv_valid_len, *,
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
+def _resolve(q_positions, kv_valid_len, B: int, Sq: int, Sk: int, dev):
+    """``q_positions`` and ``kv_valid_len`` as int32, a missing one at its
+    default (bottom-right aligned positions; Sk), ``kv_valid_len`` clamped
+    to Sk."""
+    if q_positions is None:
+        q_positions = (torch.arange(Sq, device=dev) + (Sk - Sq)).expand(B, Sq)
+    if kv_valid_len is None:
+        kv_valid_len = torch.full((B,), Sk, device=dev)
+    return (q_positions.to(torch.int32),
+            torch.clamp(kv_valid_len.to(torch.int32), max=Sk))
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernel can read it in 16-byte chunks (last dim
     contiguous, start and every other stride 16-byte aligned), else a
@@ -128,21 +193,16 @@ def flash_attention(
                          f"{tuple(v.shape)} disagree on (B, Sk, Hkv, D)")
     dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    if q_positions is None:
-        q_positions = (torch.arange(Sq, device=dev) + (Sk - Sq)).expand(B, Sq)
-    q_positions = q_positions.to(torch.int32)
-    if kv_valid_len is None:
-        kv_valid_len = torch.full((B,), Sk, device=dev)
-    kv_valid_len = torch.clamp(kv_valid_len.to(torch.int32), max=Sk)
     if Sk == 0:
         return torch.zeros((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, q_positions, kv_valid_len,
-                                     causal=causal, scale=scale,
-                                     soft_cap=soft_cap)
+        return flash_attention_plain(
+            q, k, v, *_resolve(q_positions, kv_valid_len, B, Sq, Sk, dev),
+            causal=causal, scale=scale, soft_cap=soft_cap)
     if dev.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {dev}")
-    if q.dtype not in _DTYPE_CODES or {k.dtype, v.dtype} != {q.dtype}:
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or {k.dtype, v.dtype} != {q.dtype}:
         raise ValueError(f"the kernel takes fp32 or bf16 q, k and v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS or Dv != D:
@@ -155,22 +215,39 @@ def flash_attention(
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    route = route_for(q.dtype, Sq, H // Hkv)
+    splits = split_count(B, Hkv, Sk) if route == "split" else 0
+    if route == "split" and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"split count {splits} outside 1..{MAX_SPLITS}")
+    if route == "cuda_cores":
+        q_positions, kv_valid_len = _resolve(q_positions, kv_valid_len, B, Sq,
+                                             Sk, dev)
+    # the tensor-core kernels take a missing q_positions or kv_valid_len as
+    # its default, and clamp kv_valid_len themselves
+    qpos, kvl = (None if t is None else
+                 t.to(device=dev, dtype=torch.int32).contiguous()
+                 for t in (q_positions, kv_valid_len))
     q, k, v = (_aligned(t) for t in (q, k, v))
-    q_positions = q_positions.to(dev).contiguous()
-    kv_valid_len = kv_valid_len.to(dev).contiguous()
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lib = _lib()
-    err = lib.flash_attention(
-        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_positions.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, H, Hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), float(soft_cap or 0.0), int(causal),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if qpos is None else qpos.data_ptr(),
+            None if kvl is None else kvl.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, Hkv,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
+            float(soft_cap or 0.0), int(causal),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if route == "cuda_cores":
+        err = lib.flash_attention(D, *args)
+    else:
+        err = lib.flash_attention_tc(D, splits, *args)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: "
+        raise RuntimeError(f"flash_attention launch failed ({route} route): "
                            f"{lib.fa_error_string(err).decode()}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

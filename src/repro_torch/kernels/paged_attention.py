@@ -12,6 +12,14 @@ runs :func:`paged_attention_plain`, the same online-softmax recurrence in
 PyTorch, one page at a time; for CUDA tensors it launches the kernel or
 raises. ``paged_attention.launches`` counts K4's launches (fp pools) and
 ``paged_attention.launches_int8`` K5's (int8 pools).
+
+K4 takes the routes of K3 (``kernels/flash_attention.py::route_for``, on
+the same tensor-core warp tile, ``csrc/attn_mma.cuh``), counted in
+``paged_attention.launches_by_route``: bf16 pools on ``split`` (decode:
+the keys of each (batch row, kv head) split over warps and cluster CTAs,
+:func:`~repro_torch.kernels.flash_attention.split_count`) or ``rows``
+(prefill buckets, chunks), fp32 pools on ``cuda_cores``. int8 pools (K5)
+keep their CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -22,12 +30,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (MAX_SPLITS, ROUTES,
+                                                 _aligned, route_for,
+                                                 split_count)
 
 NEG_INF = -1e30
-# Limits of the kernel's tiling (csrc/paged_attention.cu).
+# Limits of the kernels' tiling (csrc/paged_attention.cu).
 MAX_PAGE_SIZE = 32
 MAX_HEAD_DIM = 128
 MAX_ROWS = 16                      # query positions x rep heads per CTA
+# The tensor-core instances (bf16 pools): page sizes, head dims a multiple
+# of TC_HEAD_DIM_STEP up to MAX_HEAD_DIM, block-table entries a CTA copies.
+TC_PAGE_SIZES = (8, 16, 32)
+TC_HEAD_DIM_STEP = 16
+MAX_TABLE = 4096
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_POOL = 2     # the pool code of int8 pages (K5)
@@ -41,6 +57,9 @@ def _lib() -> ctypes.CDLL:
             i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
             i, i, i, i, i, i, i, i, i, f, f, i, vp]
         lib.paged_attention.restype = ctypes.c_int
+        lib.paged_attention_tc.argtypes = [
+            i, i, i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, f, f, i, vp]
+        lib.paged_attention_tc.restype = ctypes.c_int
         lib.pa_error_string.argtypes = [i]
         lib.pa_error_string.restype = ctypes.c_char_p
     return lib
@@ -152,18 +171,20 @@ def paged_attention(
     if nb == 0:
         return torch.zeros((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    if q_positions is None:
-        q_positions = torch.arange(Sq, device=dev).expand(B, Sq)
-    q_positions = q_positions.to(torch.int32)
-    if kv_valid_len is None:
-        kv_valid_len = torch.full((B,), nb * ps, device=dev)
-    kv_valid_len = torch.clamp(kv_valid_len.to(torch.int32), max=nb * ps)
     block_tables = block_tables.to(torch.int32)
+
+    def resolve():
+        qp = q_positions if q_positions is not None else \
+            torch.arange(Sq, device=dev).expand(B, Sq)
+        kvl = kv_valid_len if kv_valid_len is not None else \
+            torch.full((B,), nb * ps, device=dev)
+        return qp.to(torch.int32), torch.clamp(kvl.to(torch.int32),
+                                               max=nb * ps)
+
     if dev.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
-                                     q_positions, kv_valid_len, causal=causal,
-                                     scale=scale, soft_cap=soft_cap,
-                                     kv_scales=kv_scales)
+                                     *resolve(), causal=causal, scale=scale,
+                                     soft_cap=soft_cap, kv_scales=kv_scales)
     if dev.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {dev}")
     if q.dtype not in _DTYPE_CODES or not (
@@ -176,6 +197,19 @@ def paged_attention(
         raise ValueError(
             f"page_size={ps}, head dims ({D}, {Dv}), rep={rep} exceed the "
             f"kernel's limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM}, {MAX_ROWS})")
+    route = "int8" if quantized else route_for(q.dtype, Sq, rep)
+    tc = route in ("rows", "split")       # the tensor-core instances
+    if tc and (
+            ps not in TC_PAGE_SIZES or D % TC_HEAD_DIM_STEP or Dv != D
+            or nb > MAX_TABLE):
+        raise ValueError(
+            f"page_size={ps}, head dims ({D}, {Dv}), {nb} table entries: the "
+            f"bf16 kernels take page_size in {TC_PAGE_SIZES}, equal head dims "
+            f"a multiple of {TC_HEAD_DIM_STEP} up to {MAX_HEAD_DIM} and at "
+            f"most {MAX_TABLE} entries")
+    splits = split_count(B, Hkv, nb * ps) if route == "split" else 0
+    if route == "split" and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"split count {splits} outside 1..{MAX_SPLITS}")
     scales = kv_scales or ()
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     *zip(("k_scales", "v_scales"), scales)):
@@ -183,33 +217,49 @@ def paged_attention(
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    if tc:                               # read in 16-byte chunks
+        q, k_pages, v_pages = (_aligned(t) for t in (q, k_pages, v_pages))
     ks, vs = (sc.contiguous() for sc in scales) if quantized else (None, None)
     block_tables = block_tables.to(dev).contiguous()
-    q_positions = q_positions.to(dev).contiguous()
-    kv_valid_len = kv_valid_len.to(dev).contiguous()
+    # the tensor-core kernels take a missing q_positions or kv_valid_len as
+    # its default, and clamp kv_valid_len themselves
+    qpos, kvl = (q_positions, kv_valid_len) if tc else resolve()
+    qpos, kvl = (None if t is None else
+                 t.to(device=dev, dtype=torch.int32).contiguous()
+                 for t in (qpos, kvl))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lib = _lib()
-    err = lib.paged_attention(
-        _DTYPE_CODES[q.dtype],
-        _INT8_POOL if quantized else _DTYPE_CODES[q.dtype], q.data_ptr(),
-        k_pages.data_ptr(), v_pages.data_ptr(),
-        ks.data_ptr() if quantized else None,
-        vs.data_ptr() if quantized else None,
-        block_tables.data_ptr(), q_positions.data_ptr(),
-        kv_valid_len.data_ptr(), out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps, nb,
-        MAX_ROWS // rep, float(scale), float(soft_cap or 0.0), int(causal),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tc:
+        err = lib.paged_attention_tc(
+            D, ps, splits, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), None if qpos is None else qpos.data_ptr(),
+            None if kvl is None else kvl.data_ptr(), out.data_ptr(), B, Sq, H,
+            Hkv, nb, float(scale), float(soft_cap or 0.0), int(causal), stream)
+    else:
+        err = lib.paged_attention(
+            _DTYPE_CODES[q.dtype],
+            _INT8_POOL if quantized else _DTYPE_CODES[q.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(),
+            ks.data_ptr() if quantized else None,
+            vs.data_ptr() if quantized else None,
+            block_tables.data_ptr(), qpos.data_ptr(), kvl.data_ptr(),
+            out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps,
+            nb, MAX_ROWS // rep, float(scale), float(soft_cap or 0.0),
+            int(causal), stream)
     if err:
-        raise RuntimeError(f"paged_attention launch failed: "
+        raise RuntimeError(f"paged_attention launch failed ({route} route): "
                            f"{lib.pa_error_string(err).decode()}")
     if quantized:
         paged_attention.launches_int8 += 1
     else:
         paged_attention.launches += 1
+        paged_attention.launches_by_route[route] += 1
     return out
 
 
 paged_attention.launches = 0        # K4: fp pools
+paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 paged_attention.launches_int8 = 0   # K5: int8 pools
 
 

@@ -1,7 +1,9 @@
 """Card tests of the port: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (K1's tensor-core routes at every tile and
 K split their chooser emits, within the fp32 dot-product bound, bitwise
-repeatable; the W8A8 GEMM, K2, bitwise; the int8 paged kernel, K5, within
+repeatable; K3's and K4's bf16 tensor-core routes at every split count,
+page size, head dim and GQA group they take, within ATTN_TOLS, bitwise
+repeatable, through block tables whose dead entries are out of range; the W8A8 GEMM, K2, bitwise; the int8 paged kernel, K5, within
 ATTN_TOLS; the SSD scan, K6, within 1e-4 in fp32), and the serving engine (paged, int8, contiguous, and the SSM
 families) and the BERT/ViT encoders on the card against the same code on
 the CPU (where the wrappers run the plain versions).
@@ -234,13 +236,22 @@ def _paged_inputs(cuda, dtype, B, Sq, H, Hkv, D, ps, lens, starts, seed=0):
 ], ids=["decode_full_width", "prefill_bucket_full_width", "decode_gqa2",
         "chunk_offset", "mqa_d128_page32"])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
+    """K4 against its plain version: bf16 pools on the tensor-core route
+    the chooser names (two launches bitwise equal), fp32 pools on the CUDA
+    cores."""
     B, Sq, H, Hkv, D, ps, lens, starts = case
     q, kp, vp, bt, qpos, kvl = _paged_inputs(cuda, dtype, B, Sq, H, Hkv, D,
                                              ps, lens, starts)
+    route = PA.route_for(q.dtype, Sq, H // Hkv)
     before = PA.paged_attention.launches
+    by_route = dict(PA.paged_attention.launches_by_route)
     got = PA.paged_attention(q, kp, vp, bt, qpos, kvl)
     torch.cuda.synchronize()
     assert PA.paged_attention.launches == before + 1
+    assert PA.paged_attention.launches_by_route == {
+        r: n + (r == route) for r, n in by_route.items()}
+    if route != "cuda_cores":
+        assert torch.equal(got, PA.paged_attention(q, kp, vp, bt, qpos, kvl))
     want = PA.paged_attention_plain(q, kp, vp, bt, qpos, kvl, causal=True,
                                     scale=D ** -0.5, soft_cap=None)
     atol, rtol = ATTN_TOLS[dtype]
@@ -413,13 +424,22 @@ def _flash_inputs(cuda, dtype, B, Sq, Sk, H, Hkv, D, starts, lens, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(FLASH_CASES), ids=str)
 def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
+    """K3 against its plain version: bf16 on the tensor-core route the
+    chooser names (two launches bitwise equal), fp32 on the CUDA cores."""
     B, Sq, Sk, H, Hkv, D, causal, starts, lens = FLASH_CASES[case]
     q, k, v, qpos, kvl = _flash_inputs(cuda, dtype, B, Sq, Sk, H, Hkv, D,
                                        starts, lens)
+    route = FA.route_for(q.dtype, Sq, H // Hkv)
     before = FA.flash_attention.launches
+    by_route = dict(FA.flash_attention.launches_by_route)
     got = FA.flash_attention(q, k, v, qpos, kvl, causal=causal)
     torch.cuda.synchronize()
     assert FA.flash_attention.launches == before + 1
+    assert FA.flash_attention.launches_by_route == {
+        r: n + (r == route) for r, n in by_route.items()}
+    if route != "cuda_cores":
+        assert torch.equal(got, FA.flash_attention(q, k, v, qpos, kvl,
+                                                   causal=causal))
     qpos_r = qpos if qpos is not None else (
         torch.arange(Sq, device=cuda) + (Sk - Sq)).expand(B, Sq).to(torch.int32)
     kvl_r = kvl if kvl is not None else torch.full(
@@ -450,6 +470,198 @@ def test_flash_attention_soft_cap_and_strided_cache(cuda):
     torch.testing.assert_close(got, want, atol=3e-5, rtol=3e-5)
     with pytest.raises(ValueError, match="head_dim"):
         FA.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+
+
+def _check_tc(got, want, again, qpos, causal=True):
+    """A bf16 tensor-core result: within ATTN_TOLS of the plain version,
+    bitwise equal to a second launch, rows at position -1 exactly 0."""
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOLS["bfloat16"][0],
+                               rtol=ATTN_TOLS["bfloat16"][1])
+    assert torch.equal(got, again)
+    masked = qpos < 0
+    if causal and bool(masked.any()):
+        assert float(got[masked].abs().max()) == 0.0
+
+
+# kernel, B, Sq, Sk (flash) or table entries x page (paged), H, Hkv, D, ps,
+# valid keys per row (0: an all-masked slot), first query position per row
+_SPLIT_FORCED = {
+    "flash_decode": ("flash", 4, 1, 256, 9, 3, 64, 0, (0, 1, 128, 255),
+                     (-1, 0, 127, 254)),
+    "flash_chunk_d80": ("flash", 2, 4, 96, 4, 1, 80, 0, (96, 7), (92, 3)),
+    "paged_decode": ("paged", 4, 1, 256, 9, 3, 64, 16, (0, 1, 128, 255),
+                     (-1, 0, 127, 254)),
+    "paged_chunk_ps8": ("paged", 2, 8, 96, 4, 2, 16, 8, (96, 41), (88, 33)),
+}
+
+
+def _tc_case(cuda, kind, B, Sq, Sk, H, Hkv, D, ps, lens, starts, seed=0,
+             soft_cap=None, causal=True):
+    """(wrapper call, plain call, q_positions) of one bf16 case; the paged
+    tables are shuffled, with entries past each row's valid keys out of the
+    pool's range (the kernel must not read them; the plain version, which
+    gathers every entry, reads a valid copy)."""
+    if kind == "flash":
+        pos = np.full((B, Sq), -1, np.int32)
+        for b in range(B):
+            if starts[b] >= 0:
+                n = min(Sq, lens[b] - starts[b])
+                pos[b, :n] = starts[b] + np.arange(n)
+        pos = torch.from_numpy(pos).to(cuda)
+        q, k, v, _, _ = _flash_inputs(cuda, "bfloat16", B, Sq, Sk, H, Hkv, D,
+                                      None, None, seed=seed)
+        kvl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        kw = dict(causal=causal, soft_cap=soft_cap)
+        return (lambda: FA.flash_attention(q, k, v, pos, kvl, **kw),
+                lambda: FA.flash_attention_plain(q, k, v, pos, kvl,
+                                                 scale=D ** -0.5, **kw), pos)
+    q, kp, vp, bt, pos, kvl = _paged_inputs(cuda, "bfloat16", B, Sq, H, Hkv,
+                                            D, ps, lens, starts, seed=seed)
+    nb = Sk // ps
+    bt = torch.cat([bt, bt[:, :1].expand(B, nb - bt.shape[1])], 1) \
+        if bt.shape[1] < nb else bt[:, :nb]
+    dead = torch.arange(nb, device=cuda)[None] >= -(-kvl[:, None] // ps)
+    poisoned = torch.where(dead, torch.full_like(bt, 1 << 30), bt)
+    kw = dict(causal=causal, soft_cap=soft_cap)
+    return (lambda: PA.paged_attention(q, kp, vp, poisoned, pos, kvl, **kw),
+            lambda: PA.paged_attention_plain(q, kp, vp, bt, pos, kvl,
+                                             scale=D ** -0.5, **kw), pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(_SPLIT_FORCED), ids=str)
+def test_split_route_at_forced_split_counts(cuda, monkeypatch, case, splits):
+    """The split route at 1, 2, 4 and 8 CTAs a cluster (forced through the
+    chooser): every count gives the plain version's result within
+    ATTN_TOLS, the same bits on a second launch, and exactly 0 for the
+    all-masked slot; the slots at 1, 128 (a page boundary) and 255 keys
+    leave some CTAs of the cluster empty."""
+    kind, *shape = _SPLIT_FORCED[case]
+    mod = FA if kind == "flash" else PA
+    monkeypatch.setattr(mod, "split_count", lambda *a: splits)
+    kernel, plain, pos = _tc_case(cuda, kind, *shape)
+    fn = FA.flash_attention if kind == "flash" else PA.paged_attention
+    before = fn.launches_by_route["split"]
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert fn.launches_by_route["split"] == before + 2
+    _check_tc(got, plain(), again, pos)
+
+
+# kernel, B, Sq, Sk, H, Hkv, D, ps, lens, starts: page sizes 8/16/32, head
+# dims 16/64/80/128 where the route takes them, GQA groups 1/3/4/16, both
+# routes, each with an all-masked slot.
+_TC_GEOMETRIES = {
+    "paged_ps8_d16_rep1_decode": ("paged", 3, 1, 64, 2, 2, 16, 8,
+                                  (0, 17, 64), (-1, 16, 63)),
+    "paged_ps32_d128_rep4_split": ("paged", 3, 4, 128, 8, 2, 128, 32,
+                                   (70, 0, 128), (66, -1, 124)),
+    "paged_ps16_d80_rep16_decode": ("paged", 3, 1, 96, 16, 1, 80, 16,
+                                    (96, 0, 33), (95, -1, 32)),
+    "paged_ps32_d128_rep1_rows": ("paged", 2, 40, 96, 2, 2, 128, 32,
+                                  (96, 0), (56, -1)),
+    "paged_ps8_d16_rep16_rows": ("paged", 2, 3, 48, 16, 1, 16, 8,
+                                 (48, 0), (45, -1)),
+    "paged_ps16_d64_rep3_rows": ("paged", 3, 64, 128, 9, 3, 64, 16,
+                                 (64, 0, 100), (0, -1, 36)),
+    "flash_d64_rep4_split": ("flash", 3, 4, 80, 8, 2, 64, 0,
+                             (80, 0, 9), (76, -1, 5)),
+    "flash_d80_rep16_decode": ("flash", 3, 1, 300, 16, 1, 80, 0,
+                               (300, 0, 1), (299, -1, 0)),
+    "flash_d80_rep3_rows": ("flash", 2, 70, 200, 6, 2, 80, 0,
+                            (200, 0), (130, -1)),
+    "flash_d64_rep16_rows": ("flash", 2, 9, 64, 16, 1, 64, 0, (64, 0),
+                             (55, -1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_TC_GEOMETRIES), ids=str)
+def test_tensor_core_routes_at_each_geometry(cuda, case):
+    kind, B, Sq, Sk, H, Hkv, D, ps, lens, starts = _TC_GEOMETRIES[case]
+    fn = FA.flash_attention if kind == "flash" else PA.paged_attention
+    route = FA.route_for(torch.bfloat16, Sq, H // Hkv)
+    assert route == ("split" if Sq * H // Hkv <= 16 else "rows")
+    kernel, plain, pos = _tc_case(cuda, kind, B, Sq, Sk, H, Hkv, D, ps,
+                                  lens, starts, seed=1)
+    before = dict(fn.launches_by_route)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert fn.launches_by_route == {r: n + 2 * (r == route)
+                                    for r, n in before.items()}
+    _check_tc(got, plain(), again, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,Sq", [("flash", 1), ("flash", 40),
+                                     ("paged", 1), ("paged", 40)])
+def test_tensor_core_routes_soft_cap_and_noncausal(cuda, kind, Sq):
+    """A soft cap of 2 (the logits reach past it), causal and not, on both
+    routes."""
+    for causal in (True, False):
+        kernel, plain, pos = _tc_case(
+            cuda, kind, 3, Sq, 96, 6, 2, 64, 16, (96, 50, 0), (56, 10, -1),
+            seed=2, soft_cap=2.0, causal=causal)
+        got = kernel()
+        _check_tc(got, plain(), kernel(), pos, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [5, 40])
+def test_tensor_core_routes_default_positions_and_lengths(cuda, Sq):
+    """No q_positions and no kv_valid_len: the tensor-core kernels compute
+    the wrappers' defaults on the card (K3 bottom-right aligned, K4
+    arange; every key in memory), and a kv_valid_len past the keys in
+    memory is clamped by the kernel as the plain version's caller clamps
+    it."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    bf = torch.bfloat16
+    B, H, Hkv, D, ps, nb = 2, 6, 2, 64, 16, 6
+    Sk = nb * ps
+    q = torch.randn((B, Sq, H, D), generator=gen, device=cuda).to(bf)
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=gen, device=cuda).to(bf)
+            for _ in range(2))
+    full = torch.full((B,), Sk, dtype=torch.int32, device=cuda)
+    huge = torch.full((B,), 10_000, dtype=torch.int32, device=cuda)
+    pos = (torch.arange(Sq, device=cuda) + Sk - Sq).expand(B, Sq).to(
+        torch.int32)
+    want = FA.flash_attention_plain(q, k, v, pos, full, causal=True,
+                                    scale=D ** -0.5, soft_cap=None)
+    got = FA.flash_attention(q, k, v)
+    _check_tc(got, want, FA.flash_attention(q, k, v, pos, huge), pos)
+    kp, vp = (x.reshape(B * nb, ps, Hkv, D) for x in (k, v))
+    bt = torch.arange(B * nb, dtype=torch.int32, device=cuda).reshape(B, nb)
+    pos = torch.arange(Sq, device=cuda).expand(B, Sq).to(torch.int32)
+    want = PA.paged_attention_plain(q, kp, vp, bt, pos, full, causal=True,
+                                    scale=D ** -0.5, soft_cap=None)
+    got = PA.paged_attention(q, kp, vp, bt)
+    _check_tc(got, want, PA.paged_attention(q, kp, vp, bt, pos, huge), pos)
+
+
+@pytest.mark.cuda
+def test_tensor_core_routes_reject(cuda):
+    """No fallback: a CUDA bf16 geometry the tensor-core kernels do not take
+    raises before anything launches."""
+    bf = torch.bfloat16
+    flash, paged = dict(FA.flash_attention.launches_by_route), \
+        dict(PA.paged_attention.launches_by_route)
+    q = torch.zeros((1, 1, 4, 32), dtype=bf, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):     # D 32: K3 takes 64, 80
+        FA.flash_attention(q, q, q)
+    q = torch.zeros((1, 1, 17, 64), dtype=bf, device=cuda)
+    with pytest.raises(ValueError, match="GQA group"):
+        FA.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    for P, ps, D, Dv in ((2, 4, 64, 64), (2, 16, 24, 24), (2, 16, 64, 32)):
+        q = torch.zeros((1, 1, 2, D), dtype=bf, device=cuda)
+        kp = torch.zeros((P, ps, 1, D), dtype=bf, device=cuda)
+        vp = torch.zeros((P, ps, 1, Dv), dtype=bf, device=cuda)
+        with pytest.raises(ValueError, match="bf16 kernels take"):
+            PA.paged_attention(q, kp, vp, bt)
+    assert FA.flash_attention.launches_by_route == flash
+    assert PA.paged_attention.launches_by_route == paged
 
 
 def _encoder_logits(cfg, params, batch, device):

@@ -10,7 +10,9 @@ ragged keys — in fp32 and bf16 within its ATTN_TOLS, plus the
 bottom-right default positions, a soft-cap, masked rows that are exactly
 zero, and the head dims the kernel is built for (64, and 80 for
 ViT-huge). The CUDA kernel is held against the plain version on the card
-by tests/test_torch_cuda.py.
+by tests/test_torch_cuda.py; here the pure functions of shapes that pick
+its routes on the card (``route_for``, ``split_count``) and the build's
+hash of its shared header are checked.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -167,3 +169,92 @@ def test_fused_rejects_block_tables_and_bad_devices():
         FA.flash_attention(*(x.to("meta") for x in (q, q, q)))
     empty = FA.flash_attention(q, q[:, :0], q[:, :0])
     assert empty.shape == q.shape and not empty.any()
+
+
+# dtype, Sq, rep, the route the kernels take on the card: bf16 rows of one
+# CTA (Sq x rep) that fit one m16 tile split their keys (decode, short
+# chunks); more rows take the rows route (encoders, prefill buckets); fp32
+# stays on the CUDA cores (TF32 off).
+_ROUTE_CASES = [
+    ("bfloat16", 128, 1, "rows"),        # bert-base
+    ("bfloat16", 197, 1, "rows"),        # vit-base
+    ("bfloat16", 64, 3, "rows"),         # smollm's prefill bucket
+    ("bfloat16", 17, 1, "rows"),
+    ("bfloat16", 6, 3, "rows"),          # 18 rows
+    ("bfloat16", 1, 3, "split"),         # smollm decode
+    ("bfloat16", 1, 1, "split"),         # zamba2 decode
+    ("bfloat16", 1, 16, "split"),
+    ("bfloat16", 5, 3, "split"),         # 15 rows
+    ("bfloat16", 8, 2, "split"),         # 16 rows
+    ("float32", 1, 3, "cuda_cores"),
+    ("float32", 128, 1, "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("case", _ROUTE_CASES, ids=str)
+def test_route_for(case):
+    dtype, Sq, rep, route = case
+    assert FA.route_for(getattr(torch, dtype), Sq, rep) == route
+    assert route in FA.ROUTES
+
+
+# B, Hkv, keys in memory, the split count: the B x Hkv pairs brought near
+# SPLIT_TARGET_CTAS CTAs, at most MAX_SPLITS, none once the pairs fill the
+# SMs, and at least MIN_SPLIT_KEYS (256) keys a CTA.
+_SPLIT_CASES = [
+    (8, 3, 256, 1),          # smollm decode: a merge costs more than it saves
+    (8, 3, 512, 2),
+    (8, 3, 1024, 4),
+    (8, 3, 2048, 8),         # 24 pairs x 8 = 192 CTAs of 256 keys
+    (2, 12, 4096, 8),
+    (4, 12, 4096, 4),        # 48 pairs
+    (8, 12, 2048, 2),        # 96 pairs
+    (16, 8, 1024, 2),        # 128 pairs, just short of the SMs
+    (8, 32, 512, 1),         # zamba2 decode: 256 pairs fill the SMs
+    (3, 2, 88, 1),
+]
+
+
+@pytest.mark.parametrize("case", _SPLIT_CASES, ids=str)
+def test_split_count(case):
+    """kernels/flash_attention.py::split_count, a pure function of shapes
+    (never of kv_valid_len): a count csrc/attn_mma.cuh takes (1..8 CTAs of
+    a cluster), each with a non-empty even share of the 16-key tiles."""
+    B, Hkv, n_keys, splits = case
+    got = FA.split_count(B, Hkv, n_keys)
+    assert got == splits
+    assert 1 <= got <= FA.MAX_SPLITS
+    assert got <= -(-n_keys // 16)           # every share holds a tile
+    assert got == 1 or B * Hkv < FA.SMS
+
+
+def test_cpu_call_counts_no_route():
+    """On CPU tensors the wrapper runs the plain version: no route counts."""
+    before = dict(FA.flash_attention.launches_by_route)
+    q, k, v = _to_port(*_operands(2, 1, 40, 6, 2, 64, "bfloat16", seed=6))
+    FA.flash_attention(q, k, v)
+    assert FA.flash_attention.launches_by_route == before
+    assert set(before) == set(FA.ROUTES)
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """kernels/_build.py: a kernel's library name hashes its source and
+    every csrc header it includes (through other headers too), so an
+    edited header rebuilds instead of reusing a stale library."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// not included\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// edited\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("libk-")
+    # the port's attention sources include their shared warp tile
+    monkeypatch.undo()
+    for name in ("flash_attention", "paged_attention"):
+        assert "attn_mma.cuh" in [p.name for p in _build.sources(name)]

@@ -7,7 +7,9 @@ break — shuffled block tables over garbage distractor pages, decode
 (Sq = 1), a bucketed prefill with position −1 padding columns and masked
 rows, GQA (rep 2 and the full-width rep 3), dead tail entries, and an empty
 table — within tests/parity.py's ATTN_TOLS. The CUDA kernel is held
-against the plain version on the card by tests/test_torch_cuda.py.
+against the plain version on the card by tests/test_torch_cuda.py; here
+the routes its bf16 pools take on the card (a pure function of shapes)
+are checked.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -151,3 +153,40 @@ def test_gather_pages_inverts_the_paged_layout():
     dense = PA.gather_pages(*_to_port(kp, bt), max_len=T)
     np.testing.assert_array_equal(dense.numpy(), k)
 
+
+
+# B, Sq, H, Hkv, page size, table entries: the route bf16 pools take on the
+# card (K3's chooser, on the same warp tile) and the split count over the
+# nb x page_size keys in memory (never the valid lengths).
+_ROUTE_CASES = [
+    (8, 1, 9, 3, 16, 16, "split", 1),     # smollm decode, 256 keys a slot
+    (8, 64, 9, 3, 16, 16, "rows", 0),     # smollm's 64-column prefill
+    (8, 32, 9, 3, 16, 16, "rows", 0),     # a 32-column chunk
+    (8, 1, 9, 3, 16, 128, "split", 8),    # 2,048 keys: 24 pairs x 8
+    (3, 1, 4, 2, 8, 64, "split", 2),      # 512 keys of 8-token pages
+    (2, 8, 4, 4, 32, 32, "split", 4),     # chunk of 8 rows, 1,024 keys
+    (2, 5, 4, 1, 32, 4, "rows", 0),       # MQA rep 4: 20 rows
+    (4, 1, 16, 1, 16, 8, "split", 1),     # rep 16: one full m16 tile
+]
+
+
+@pytest.mark.parametrize("case", _ROUTE_CASES, ids=str)
+def test_route_and_split_count(case):
+    B, Sq, H, Hkv, ps, nb, route, splits = case
+    assert PA.route_for(torch.bfloat16, Sq, H // Hkv) == route
+    assert PA.route_for(torch.float32, Sq, H // Hkv) == "cuda_cores"
+    if route == "split":
+        assert PA.split_count(B, Hkv, nb * ps) == splits
+    assert ps in PA.TC_PAGE_SIZES
+
+
+def test_cpu_call_counts_no_route():
+    """On CPU tensors the wrapper runs the plain version: no launch, no
+    route counted, fp or int8 pools."""
+    case = CASES[1]
+    q, kp, vp, bt, qpos, kvl = _to_port(*_operands(case, "bfloat16"))
+    before = (PA.paged_attention.launches, PA.paged_attention.launches_int8,
+              dict(PA.paged_attention.launches_by_route))
+    PA.paged_attention(q, kp, vp, bt, qpos, kvl)
+    assert (PA.paged_attention.launches, PA.paged_attention.launches_int8,
+            PA.paged_attention.launches_by_route) == before
