@@ -59,7 +59,9 @@ CUDA toolkit. Phases, each fatal on failure:
              (every projection and the head through the W8A8 GEMM, K2) and
              kv_dtype="int8" (int8 pages through K5): the same 12 requests x
              32 tokens under the 24-page pool, all complete with preemption,
-             K2 and K5 launched, K1 and K4 not; a preempted request's stream
+             K2 launched on both tensor-core routes (wgmma at prefill, mma
+             at decode) and K5 on both (rows, split), neither on the CUDA
+             cores, K1 and K4 not; a preempted request's stream
              equals its solo stream. Then fp32 at full width, the card
              against the CPU plain path: greedy streams equal, or parting
              where the plain top-2 margin is below LOGIT_TOL or after an
@@ -90,9 +92,12 @@ CUDA toolkit. Phases, each fatal on failure:
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
-1024-row GEMMs, with torch._int_mm plus the rescale as its yardstick, and
-paged attention over int8 pages (K5) at decode, the prefill bucket and a
-chunked prefill, with SDPA over the dequantized pages as its yardstick;
+1024-row GEMMs, each on the tensor-core route its chooser names, with
+torch._int_mm plus the rescale as its yardstick, and paged attention
+over int8 pages (K5) at decode, the prefill bucket and a chunked prefill
+(bf16 q on the tensor-core route its chooser names, fp32 q on the CUDA
+cores; tables poisoned past the valid keys, two launches bitwise equal),
+with SDPA over the dequantized pages as its yardstick;
 the SSD scan (K6) against its plain version at the SSM paths' prefills
 (mamba2 B 8 x S 384 and 64, B 1 x S 200, 131 and 4096, B 2 x S 1000;
 zamba2 B 8 x S 64), fp32 y and state within (1e-4, 1e-4), bf16 y within
@@ -102,9 +107,10 @@ zamba2's head_dim-80 prefill and decode.
 
 Every kernel counter is set to 0 just before each path (3, 5-9) is
 driven and read just after; a kernel of the path that never launched fails
-it. K1, K3 and K4 are counted per route too: every bf16 path must have
-launched K1 on both tensor-core routes (the encoders: wgmma), K3 or K4 on
-both of theirs (the encoders: rows), and none of them on the CUDA cores.
+it. K1-K5 are counted per route too: every bf16 path must have launched
+K1 (or, with int8 weights, K2) on both tensor-core routes (the encoders:
+wgmma), K3, K4 or K5 on both of theirs (the encoders: rows), and none of
+them on the CUDA cores.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -235,6 +241,7 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 
 
 ATTN_ROUTES = ("rows", "split", "cuda_cores")
+K2_ROUTES = ("wgmma", "mma")
 
 
 def kernel_wrappers():
@@ -263,7 +270,14 @@ def kernel_wrappers():
                for r in ATTN_ROUTES},
             "matrixflow_gemm_dequant": (MF.matrixflow_gemm_dequant,
                                         "launches"),
+            # K2 by route: wgmma at bm 64, mma.sync at bm 16/32
+            **{f"matrixflow_gemm_dequant_{r}": (MF.matrixflow_gemm_dequant,
+                                                f"{r}_launches")
+               for r in K2_ROUTES},
             "paged_attention_int8": (pa, "launches_int8"),
+            # K5 by route: bf16 q on the tensor cores, fp32 q on the CUDA cores
+            **{f"paged_attention_int8_{r}": (pa.launches_int8_by_route, r)
+               for r in ATTN_ROUTES},
             "ssd_scan": (K6.ssd_scan, "launches")}
 
 
@@ -285,14 +299,19 @@ def reset_counts() -> None:
 K1_BF16 = ("matrixflow_gemm", "matrixflow_gemm_wgmma", "matrixflow_gemm_mma")
 K3_BF16 = ("flash_attention", "flash_attention_rows", "flash_attention_split")
 K4_BF16 = ("paged_attention", "paged_attention_rows", "paged_attention_split")
+K2_K5_BF16 = ("matrixflow_gemm_dequant", "matrixflow_gemm_dequant_wgmma",
+              "matrixflow_gemm_dequant_mma", "paged_attention_int8",
+              "paged_attention_int8_rows", "paged_attention_int8_split")
 CUDA_CORE_COUNTERS = ("matrixflow_gemm_cuda_core", "flash_attention_cuda_cores",
-                      "paged_attention_cuda_cores")
+                      "paged_attention_cuda_cores",
+                      "paged_attention_int8_cuda_cores")
 
 
 def read_counts(path: str, required) -> dict:
     """The launch counts since reset_counts(); fails if a kernel of the
-    path never launched, or if K1, K3 or K4 ran on the CUDA cores (every
-    path read here is bf16 or int8, and neither may take that route)."""
+    path never launched, or if K1, K3, K4 or K5 ran on the CUDA cores
+    (every path read here is bf16 or int8 with bf16 activations, and none
+    may take that route; K2 has no CUDA-core route)."""
     counts_now = counts()
     for name in required:
         if counts_now[name] <= 0:
@@ -304,10 +323,11 @@ def read_counts(path: str, required) -> dict:
     return counts_now
 
 
-def route_taken(before: dict, after: dict, kernel: str) -> str:
+def route_taken(before: dict, after: dict, kernel: str,
+                routes=ATTN_ROUTES) -> str:
     """The one route of ``kernel`` whose counter grew between two counts()
     snapshots; fails unless exactly one did."""
-    grew = [r for r in ATTN_ROUTES
+    grew = [r for r in routes
             if after[f"{kernel}_{r}"] > before[f"{kernel}_{r}"]]
     if len(grew) != 1:
         fail(f"{kernel}: routes {grew} counted launches, expected one")
@@ -666,8 +686,10 @@ def run_flash_phase(timer, cells):
 def run_quant_gemm_phase(timer, cfg, bert, vit):
     """K2 at smollm-135m's decode (M = 8) and 64-column prefill GEMMs and
     bert-base's 1024-row GEMMs, fp32 and bf16 out: bitwise equal to the
-    plain version. The activations are quantized per row as the W8A8
-    route does; the weights are packed as the engine packs them."""
+    plain version, on the tensor-core route its chooser names (wgmma at bm
+    64, mma.sync at bm 16/32). The activations are quantized per row as
+    the W8A8 route does; the weights are packed as the engine packs
+    them."""
     from repro_torch.core import layout as L
     from repro_torch.core import quant as Q
     from repro_torch.core.plan import GemmPolicy, layout_for_packed, pack_weight
@@ -692,12 +714,20 @@ def run_quant_gemm_phase(timer, cfg, bert, vit):
                 return MF.matrixflow_gemm_dequant(a_bm, pw.data, sa,
                                                   pw.scales, out_dtype=dt)
 
+            before = counts()
             got = kernel()
+            route = route_taken(before, counts(), "matrixflow_gemm_dequant",
+                                K2_ROUTES)
             want = MF.plain(a_bm, pw.data, out_dtype=dt, scale_a=sa,
                             scale_b=pw.scales)
             torch.cuda.synchronize()
             cell = (f"matrixflow_gemm_dequant {name} M={M} K={K} N={N} "
                     f"{dtype_name}")
+            expect = MF.route_for(torch.int8, blk.bm, dequant=True)
+            if route != expect:
+                fail(f"{cell}: ran route {route}, the chooser names {expect}")
+            tile = MF.tc_tile(blk.bm, blk.bn, a_bm.shape[0], pw.data.shape[0],
+                              a_bm.shape[1], blk.bk)
             if not torch.equal(got, want):
                 err = float((got.float() - want.float()).abs().max())
                 fail(f"{cell}: kernel and plain version differ (max |d| "
@@ -726,12 +756,14 @@ def run_quant_gemm_phase(timer, cfg, bert, vit):
             nbytes = M * K + K * N + 4 * (M + N) + M * N * dt.itemsize
             b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, "int8")
             rows.append(dict(cell=cell, dtype=dtype_name, M=M, K=K, N=N,
-                             block=[blk.bm, blk.bn, blk.bk], path=path,
+                             block=[blk.bm, blk.bn, blk.bk], route=route,
+                             tile=tile, path=path,
                              uses=uses, max_abs_err=0.0, ms=t_k,
                              plain_ms=t_p, library_ms=t_lib,
                              library_padding=[Mp - M, Np - N],
                              bound_ms=b_ms, bound_by=b_by))
-            log(f"{cell}: blocks {blk.bm}x{blk.bn}x{blk.bk} bitwise kernel "
+            log(f"{cell}: blocks {blk.bm}x{blk.bn}x{blk.bk} route {route} "
+                f"tile {tile} bitwise kernel "
                 f"{t_k:.4f} ms plain {t_p:.4f} ms _int_mm+rescale "
                 f"{t_lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     return rows
@@ -744,7 +776,11 @@ def run_quant_gemm_phase(timer, cfg, bert, vit):
 def run_int8_attention_phase(timer, cfg):
     """K5 at smollm-135m's decode, prefill bucket and chunked prefill, q in
     bf16 and fp32, over int8 pools with per-(page, kv head) scales through
-    shuffled block tables; within ATTN_TOLS, masked rows exactly 0."""
+    shuffled block tables whose entries past a slot's valid keys are out
+    of range (the kernels read neither those pages nor their scales);
+    within ATTN_TOLS, masked rows exactly 0, two launches bitwise equal,
+    on the route the chooser names (bf16 q: split at decode, rows above 16
+    rows a CTA; fp32 q: the CUDA cores)."""
     from repro_torch.core import quant as Q
     from repro_torch.kernels import paged_attention as PA
 
@@ -767,7 +803,7 @@ def run_int8_attention_phase(timer, cfg):
              "chunk"),
         ]
         for name, Sq, lens, q_start, path in cases:
-            q, kp, vp, bt, _, qpos, kvl = paged_case(
+            q, kp, vp, bt, dead_bt, qpos, kvl = paged_case(
                 gen, torch.float32, B=SLOTS, Sq=Sq, lens=lens,
                 q_start=q_start, H=H, Hkv=Hkv, D=D, ps=PAGE, nb=nb)
             q = q.to(dt)
@@ -776,7 +812,7 @@ def run_int8_attention_phase(timer, cfg):
             scale = D ** -0.5
 
             def kernel():
-                return PA.paged_attention(q, qk, qv, bt, qpos, kvl,
+                return PA.paged_attention(q, qk, qv, dead_bt, qpos, kvl,
                                           kv_scales=(ks, vs))
 
             def plain():
@@ -784,10 +820,19 @@ def run_int8_attention_phase(timer, cfg):
                     q, qk, qv, bt, qpos, kvl, causal=True, scale=scale,
                     soft_cap=None, kv_scales=(ks, vs))
 
-            got, want = kernel(), plain()
+            before = counts()
+            got, again = kernel(), kernel()
+            route = route_taken(before, counts(), "paged_attention_int8")
+            want = plain()
             torch.cuda.synchronize()
             cell = (f"paged_attention_int8 {name} B={SLOTS} Sq={Sq} q "
                     f"{dtype_name}")
+            expect = PA.route_for(dt, Sq, H // Hkv)
+            if route != expect or (dtype_name == "float32") != (
+                    route == "cuda_cores"):
+                fail(f"{cell}: ran route {route}, the chooser names {expect}")
+            if not torch.equal(got, again):
+                fail(f"{cell}: two launches differ")
             err = check_close(cell, got, want, atol, rtol)
             masked = qpos < 0
             if bool(masked.any()) and float(got[masked].abs().max()) != 0.0:
@@ -816,10 +861,11 @@ def run_int8_attention_phase(timer, cfg):
             flops = float(vis.sum()) * H * 4 * D
             b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
-                             path=path, uses=cfg.n_layers, max_abs_err=err,
+                             path=path, uses=cfg.n_layers, route=route,
+                             max_abs_err=err,
                              ms=t_k, plain_ms=t_p, library_ms=t_lib,
                              bound_ms=b_ms, bound_by=b_by))
-            log(f"{cell}: max|d|={err:.2e} kernel {t_k:.4f} ms plain "
+            log(f"{cell}: route {route} max|d|={err:.2e} kernel {t_k:.4f} ms plain "
                 f"{t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
                 f"({b_by})")
     return rows
@@ -1312,9 +1358,11 @@ def tie_flip(calls_a, calls_b):
 def run_int8_serving_phase(cfg):
     """Full-width smollm-135m, bf16, paged, weight_dtype and kv_dtype int8:
     12 requests through submit/step under a 24-page pool (preemption), K2
-    and K5 launched and K1 and K4 not; one preempted request's stream
-    equals its solo stream on the card; then fp32, the card against the
-    CPU plain path over greedy_run."""
+    and K5 launched on both tensor-core routes each (K2: wgmma at
+    prefill, mma at decode; K5: rows, split), none on the CUDA cores, and
+    K1 and K4 not; one preempted request's stream equals its solo stream
+    on the card; then fp32, the card against the CPU plain path over
+    greedy_run."""
     from repro_torch.core.api import pack_model_weights
     from repro_torch.core.plan import AttentionPolicy
     from repro_torch.models import transformer as T
@@ -1340,8 +1388,7 @@ def run_int8_serving_phase(cfg):
     streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_counts("int8 serving", ("matrixflow_gemm_dequant",
-                                            "paged_attention_int8"))
+    launches = read_counts("int8 serving", K2_K5_BF16)
     if launches["matrixflow_gemm"] or launches["paged_attention"]:
         fail(f"int8 serving: an fp kernel ran on the int8 path: {launches}")
     check_streams("int8 serving", streams, cfg.vocab)
@@ -1671,10 +1718,12 @@ def main() -> None:
     k1["launches_by_route"] = {
         r: sum(c[f"matrixflow_gemm_{r}"] for c in by_path.values())
         for r in ("wgmma", "mma", "cuda_core")}
-    k3_k4_by_route = {
-        k: {r: sum(c[f"{k}_{r}"] for c in by_path.values())
-            for r in ATTN_ROUTES}
-        for k in ("flash_attention", "paged_attention")}
+    by_route = {
+        k: {r: sum(c[f"{k}_{r}"] for c in by_path.values()) for r in routes}
+        for k, routes in (("flash_attention", ATTN_ROUTES),
+                          ("paged_attention", ATTN_ROUTES),
+                          ("paged_attention_int8", ATTN_ROUTES),
+                          ("matrixflow_gemm_dequant", K2_ROUTES))}
     kernels = [
         k1,
         entry("matrixflow_gemm_wgmma", "matrixflow_gemm",
@@ -1688,6 +1737,13 @@ def main() -> None:
               "src/repro/kernels/matrixflow_gemm.py:154",
               report["quant_gemm"], "decode step",
               ("prefill", f"{bert.name} forward")),
+        entry("matrixflow_gemm_dequant_wgmma", "matrixflow_gemm",
+              "src/repro/kernels/matrixflow_gemm.py:154",
+              on_route("wgmma", "quant_gemm"), f"{bert.name} forward",
+              ("prefill",)),
+        entry("matrixflow_gemm_dequant_mma", "matrixflow_gemm",
+              "src/repro/kernels/matrixflow_gemm.py:154",
+              on_route("mma", "quant_gemm"), "decode step", ()),
         entry("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:199", report["flash"],
               f"{bert.name} forward", (f"{vit.name} forward", "decode step",
@@ -1714,13 +1770,19 @@ def main() -> None:
         entry("paged_attention_int8", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
               report["int8_attention"], "decode step", ("prefill", "chunk")),
+        entry("paged_attention_int8_split", "paged_attention",
+              "src/repro/kernels/paged_attention.py:222",
+              on_route("split", "int8_attention"), "decode step", ()),
+        entry("paged_attention_int8_rows", "paged_attention",
+              "src/repro/kernels/paged_attention.py:222",
+              on_route("rows", "int8_attention"), "prefill", ("chunk",)),
         entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:117",
               report["ssd"], main_ssd,
               [p for p in ssd_paths if p != main_ssd]),
     ]
     for k in kernels:
-        if k["name"] in k3_k4_by_route:
-            k["launches_by_route"] = k3_k4_by_route[k["name"]]
+        if k["name"] in by_route:
+            k["launches_by_route"] = by_route[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,10 +27,12 @@ included), then decode steps. ``--encoder ARCH`` instead runs full-width
 * profiles 5 more with torch.profiler and sums device time by kernel: the
   MatrixFlow GEMM by route (``matrixflow_gemm_wgmma`` and
   ``matrixflow_gemm_mma`` on the tensor cores for bf16,
-  ``matrixflow_gemm`` on the CUDA cores) and its W8A8 variant, the paged
-  attention kernel by route (``paged_attention_split`` and ``_rows`` on
-  the tensor cores for bf16 pools, ``paged_attention`` on the CUDA cores
-  for fp32) and over int8 pages, the flash attention kernel by route
+  ``matrixflow_gemm`` on the CUDA cores) and its W8A8 variant by route
+  (``matrixflow_gemm_dequant_wgmma``, ``_mma``), the paged attention
+  kernel by route (``paged_attention_split`` and ``_rows`` on the tensor
+  cores for bf16 pools, ``paged_attention`` on the CUDA cores for fp32)
+  and over int8 pages (``paged_attention_int8_split``, ``_rows``; on the
+  CUDA cores ``paged_attention_int8``), the flash attention kernel by route
   (``flash_attention_split``, ``_rows``; ``flash_attention`` for fp32),
   the SSD scan, and everything else (PyTorch's elementwise, copy,
   reduction and index kernels). Device busy time over wall time gives the
@@ -55,17 +57,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# (substring of a device kernel's name, what it is counted as): K1 and
-# K3/K4 by route (bf16 on the tensor cores, fp32 and int8 on the CUDA
-# cores), K2, K5, K6; every other kernel is "other".
+# (substring of a device kernel's name, what it is counted as): K1-K5 by
+# route (bf16 and K2's int8 on the tensor cores, fp32 and K1's int8 on the
+# CUDA cores), K6; every other kernel is "other".
 KERNEL_KINDS = (
     ("mf_gemm_kernel", "matrixflow_gemm"),
     ("mf_gemm_wgmma_kernel", "matrixflow_gemm_wgmma"),
     ("mf_gemm_mma_kernel", "matrixflow_gemm_mma"),
-    ("mf_gemm_dequant_kernel", "matrixflow_gemm_dequant"),
+    ("mf_gemm_dequant_wgmma_kernel", "matrixflow_gemm_dequant_wgmma"),
+    ("mf_gemm_dequant_mma_kernel", "matrixflow_gemm_dequant_mma"),
     ("paged_attn_rows_kernel", "paged_attention_rows"),
     ("paged_attn_split_kernel", "paged_attention_split"),
     ("paged_attn_kernel", "paged_attention"),
+    ("paged_attn_int8_rows_kernel", "paged_attention_int8_rows"),
+    ("paged_attn_int8_split_kernel", "paged_attention_int8_split"),
     ("paged_attn_int8_kernel", "paged_attention_int8"),
     ("flash_attn_rows_kernel", "flash_attention_rows"),
     ("flash_attn_split_kernel", "flash_attention_split"),

@@ -41,7 +41,8 @@
 //   64 rows, 16 each (64 / rep query positions), and each warp walks every
 //   64-key stage. A warp skips a stage past its own rows' last visible key
 //   (bitwise the same as computing it: every p there is 0 and the max is
-//   unchanged).
+//   unchanged). Over int8 keys a rows-route CTA holds one m16 tile and
+//   walks its keys as a split-route CTA does (below).
 // * split (Sq x rep <= 16: decode): one m16 row tile. The keys are cut in
 //   16-key tiles; the CTAs of a thread-block cluster (up to 8, one per
 //   blockIdx.x) take even shares of them, and within a stage warp w takes
@@ -60,6 +61,40 @@
 // same relative error (2^-9), and the merge rescales it by the exact fp32
 // factor exp(m_part - m); the result stays within ATTN_TOLS["bfloat16"]
 // of the plain version (tests/test_torch_cuda.py).
+//
+// int8 pools (K5, bf16 q): the key source is PagedKV<int8_t>. A key's row
+// of one kv head is D contiguous bytes and arrives as it is, by 16-byte
+// cp.async, into a ring of int8 stages (half the bytes of a bf16 stage).
+// ldmatrix moves 16-bit elements only, so each landed stage is converted
+// once, in shared memory, into one bf16 stage of the padded layout above
+// (an int8 value is exact in bf16), and the Q.K^T and P.V code reads it
+// as it reads bf16 pools. A pass in shared memory and not a conversion in
+// registers: the B fragments of both products then come from ldmatrix
+// unchanged (V's by .trans, which a register conversion would have to
+// redo byte by byte), and the pass costs one read and two writes of 16
+// bytes a thread per 16 keys of a row, beside a 64-key stage of mma work.
+// The (page, kv head) scales ride the block-table entries prepare()
+// copies (clipped to the visible keys like them): a 16-key tile is one
+// page at ps 16, half a page at ps 32 and two pages at ps 8, so scales are
+// looked up per 8-key n8 tile, which always lies in one page. Each S
+// column is multiplied by its k scale after the exact product; the v
+// scale is folded into p after the row sum, before P.V. p is not rounded
+// to bf16 (the reference dequantizes pages to fp32, so p.astype(v.dtype)
+// is the identity): p' = p * v_scale is split into hi = bf16(p') and
+// lo = bf16(p' - hi), and P.V runs two mma a k16 step, which carries p' to
+// 2^-18 relative (the product with an int8 V is exact).
+//
+// int8 pools: a row's result must not depend on the route. A request that
+// is preempted is re-prefilled (rows) over keys it decoded (split), and the
+// int8 KV write keeps its stream identical to a solo run's only if each
+// row's attention is the same bits either way. So on the rows route a CTA
+// over int8 pools takes one m16 tile of rows (16 / rep query positions) and
+// walks its keys as the split route does, a stage's keys over the four
+// warps, merged in warp order: per row the same products, maxima,
+// exponentials and sums in the same order. With one CTA per (kv head, batch
+// row) on the split route (split_count 1, caches under 512 keys) the two
+// routes agree bitwise; the CTAs of a cluster (from 512 keys) merge their
+// partials in rank order as for bf16.
 
 #pragma once
 
@@ -89,12 +124,23 @@ template <int D> struct Geo {
   static constexpr int kRowBytes = 2 * D + 16;      // padded: an odd number of chunks
   static constexpr int kTileBytes = kBlockN * kRowBytes;
   static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
+  static constexpr int kInt8TileBytes = kBlockN * D;  // int8 keys as they arrive, unpadded
 };
 
-template <int D, bool kSplit> struct Smem {
-  static constexpr int kQRows = kSplit ? kSplitRows : kRowsTile;
+// Rows a CTA holds: one m16 tile on the split route and for int8 keys (see
+// header), kRowsTile on the rows route over bf16 keys.
+template <bool kSplit, bool kInt8> __host__ __device__ constexpr int cta_rows() {
+  return kSplit || kInt8 ? kSplitRows : kRowsTile;
+}
+
+// kInt8: the ring holds kStages int8 stages, then the one bf16 stage they
+// are converted into.
+template <int D, bool kSplit, bool kInt8 = false> struct Smem {
+  static constexpr int kQRows = cta_rows<kSplit, kInt8>();
   static constexpr int kQBytes = kQRows * Geo<D>::kRowBytes;
-  static constexpr int kRingBytes = kStages * Geo<D>::kStageBytes;
+  static constexpr int kRingBytes =
+      kInt8 ? kStages * 2 * Geo<D>::kInt8TileBytes + Geo<D>::kStageBytes
+            : kStages * Geo<D>::kStageBytes;
   // What the attention uses; a key source may append its own (PagedKV's
   // block-table entries) at this offset.
   static constexpr int kBytes = kQBytes + kRingBytes + kQRows * 4;
@@ -153,6 +199,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
+// p' as the sum of two bf16x2 A-fragment registers, hi = bf16(p') and
+// lo = bf16(p' - hi): together p' to 2^-18 relative.
+__device__ __forceinline__ void split_bf16(float lo_col, float hi_col, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(lo_col, hi_col);
+  lo = pack_bf16(lo_col - __uint_as_float(hi << 16), hi_col - __uint_as_float(hi & 0xffff0000u));
+}
+// 16 int8 values (one 16-byte chunk) as 16 bf16 (two chunks), exactly: a
+// float of an int8 has its low 16 mantissa bits zero, so its high half is
+// the bf16.
+__device__ __forceinline__ void int8x16_to_bf16(const int4 in, int4 (&out)[2]) {
+  const uint32_t w[4] = {static_cast<uint32_t>(in.x), static_cast<uint32_t>(in.y),
+                         static_cast<uint32_t>(in.z), static_cast<uint32_t>(in.w)};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t x = w[i / 2] >> (16 * (i % 2));
+    const float a = static_cast<float>(static_cast<int8_t>(x & 0xffu));
+    const float b = static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu));
+    o[i] = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+  }
+  out[0] = make_int4(o[0], o[1], o[2], o[3]);
+  out[1] = make_int4(o[4], o[5], o[6], o[7]);
+}
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
   return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
@@ -167,51 +237,84 @@ struct DenseKV {
   const bf16* k;
   const bf16* v;
   long long k_ss, v_ss;
-  static constexpr bool kTable = false;
-  __device__ __forceinline__ void prepare(int, int, int*) {}
+  static constexpr bool kTable = false, kInt8 = false;
+  __device__ __forceinline__ void prepare(int, int, void*) {}
   __device__ __forceinline__ const bf16* k_row(int col) const { return k + col * k_ss; }
   __device__ __forceinline__ const bf16* v_row(int col) const { return v + col * v_ss; }
 };
 
-// Keys of (P, ps, Hkv, D) page pools through the block-table row of b.
-// prepare() copies the entries of keys [lo, hi) into shared memory once;
-// entries past the last visible key are never read, so they may hold any
+// Keys of (P, ps, Hkv, D) page pools (T = bf16, or int8 with fp32 (P, Hkv)
+// scales) through the block-table row of b. prepare() copies the entries
+// of keys [lo, hi) into shared memory once, with, for int8 pools, each
+// entry's k and v scales of kv head g; entries past the last visible key
+// are never read, nor are the scales of their pages, so they may hold any
 // value.
-struct PagedKV {
-  const bf16* kp;                 // pools offset to kv head g
-  const bf16* vp;
+template <class T> struct PagedKV {
+  const T* kp;                    // pools offset to kv head g
+  const T* vp;
+  const float* ks;                // int8: scales offset to kv head g (stride Hkv)
+  const float* vs;
   const int* table;               // block_tables[b]
   long long token_stride;         // Hkv * D: elements between a page's tokens
-  int lg_ps, j0;
+  int lg_ps, nb, Hkv, j0;         // nb: entries a table row holds
   const int* tab;                 // the copied entries, from page j0
+  const float* ksc;               // int8: their scales
+  const float* vsc;
   static constexpr bool kTable = true;
-  __device__ __forceinline__ void prepare(int lo, int hi, int* tab_s) {
+  static constexpr bool kInt8 = sizeof(T) == 1;
+  // Shared memory the copies take beyond Smem<...>::kBytes.
+  static constexpr int shared_bytes(int nb) { return (kInt8 ? 12 : 4) * nb; }
+  __device__ __forceinline__ void prepare(int lo, int hi, void* shared) {
+    int* tab_s = static_cast<int*>(shared);
+    float* ksc_s = reinterpret_cast<float*>(tab_s + nb);
+    float* vsc_s = ksc_s + nb;
     tab = tab_s;
+    ksc = ksc_s;
+    vsc = vsc_s;
     j0 = lo >> lg_ps;
     if (hi <= lo) return;
     const int n = ((hi - 1) >> lg_ps) - j0 + 1;
-    for (int j = threadIdx.x; j < n; j += kThreads) tab_s[j] = table[j0 + j];
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      const int page = table[j0 + j];
+      tab_s[j] = page;
+      if constexpr (kInt8) {
+        ksc_s[j] = ks[static_cast<long long>(page) * Hkv];
+        vsc_s[j] = vs[static_cast<long long>(page) * Hkv];
+      }
+    }
   }
   __device__ __forceinline__ long long token(int col) const {
     const long long page = tab[(col >> lg_ps) - j0];
     return ((page << lg_ps) + (col & ((1 << lg_ps) - 1))) * token_stride;
   }
-  __device__ __forceinline__ const bf16* k_row(int col) const { return kp + token(col); }
-  __device__ __forceinline__ const bf16* v_row(int col) const { return vp + token(col); }
+  __device__ __forceinline__ const T* k_row(int col) const { return kp + token(col); }
+  __device__ __forceinline__ const T* v_row(int col) const { return vp + token(col); }
+  // the scales of the page holding visible key col
+  __device__ __forceinline__ float k_scale(int col) const { return ksc[(col >> lg_ps) - j0]; }
+  __device__ __forceinline__ float v_scale(int col) const { return vsc[(col >> lg_ps) - j0]; }
 };
 
 // The CTA (x, g = blockIdx.y, b = blockIdx.z): x is the query tile on the
 // rows route, the split rank on the split route (gridDim.x CTAs of one
-// cluster). `smem` holds Smem<D, kSplit>::kBytes, then the key source's.
+// cluster). `smem` holds Smem<D, kSplit, Src::kInt8>::kBytes, then the key
+// source's.
 template <int D, bool kSplit, class Src>
 __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem) {
   using G = Geo<D>;
-  using S = Smem<D, kSplit>;
-  constexpr int NT = kSplit ? 2 : 8;            // n8 key tiles a warp takes from a stage
+  constexpr bool kI8 = Src::kInt8;
+  using S = Smem<D, kSplit, kI8>;
+  // A staged key row: bf16 padded for ldmatrix, int8 as it arrives.
+  constexpr int kSrcChunks = kI8 ? D / 16 : G::kChunks;
+  constexpr int kSrcRowBytes = kI8 ? D : G::kRowBytes;
+  constexpr int kSrcTileBytes = kBlockN * kSrcRowBytes;
+  // One m16 row tile a CTA, a stage's keys split over the warps: the split
+  // route, and the rows route over int8 keys (see header).
+  constexpr bool kTile = cta_rows<kSplit, kI8>() == kSplitRows;
+  constexpr int NT = kTile ? 2 : 8;             // n8 key tiles a warp takes from a stage
   const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
   const int g = blockIdx.y, b = blockIdx.z;
   const int rep = p.H / p.Hkv;
-  const int qt = kSplit ? p.Sq : kRowsTile / rep;     // query positions of the CTA
+  const int qt = kSplit ? p.Sq : cta_rows<kSplit, kI8>() / rep;  // query positions of the CTA
   const int s0 = kSplit ? 0 : blockIdx.x * qt;
   const int n_rows = min(qt, p.Sq - s0) * rep;  // row r: s0 + r / rep, head g * rep + r % rep
   const int z = kSplit ? blockIdx.x : 0, nz = kSplit ? gridDim.x : 1;
@@ -256,33 +359,34 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
   }
   const int n_tiles = hi > lo ? (hi - lo + kBlockN - 1) / kBlockN : 0;
 
-  src.prepare(lo, hi, reinterpret_cast<int*>(smem + S::kBytes));
+  src.prepare(lo, hi, smem + S::kBytes);
   if constexpr (Src::kTable) __syncthreads();            // the key source's shared entries are in place
 
   auto load = [&](int t, int stage) {
-    uint8_t* kst = ring + stage * G::kStageBytes;
-    uint8_t* vst = kst + G::kTileBytes;
+    uint8_t* kst = ring + stage * 2 * kSrcTileBytes;
+    uint8_t* vst = kst + kSrcTileBytes;
     const int col0 = lo + t * kBlockN;
 #pragma unroll
-    for (int i = 0; i < kBlockN * G::kChunks / kThreads; ++i) {
+    for (int i = 0; i < (kBlockN * kSrcChunks + kThreads - 1) / kThreads; ++i) {
       const int c = tid + i * kThreads;
-      const int key = c / G::kChunks, ch = c % G::kChunks;
+      if (c >= kBlockN * kSrcChunks) break;
+      const int key = c / kSrcChunks, ch = c % kSrcChunks;
       const bool ok = col0 + key < hi;
-      const bf16* kf = p.q;
-      const bf16* vf = p.q;
+      const uint8_t* kf = reinterpret_cast<const uint8_t*>(p.q);
+      const uint8_t* vf = kf;
       if (ok) {
-        kf = src.k_row(col0 + key) + ch * 8;
-        vf = src.v_row(col0 + key) + ch * 8;
+        kf = reinterpret_cast<const uint8_t*>(src.k_row(col0 + key)) + ch * 16;
+        vf = reinterpret_cast<const uint8_t*>(src.v_row(col0 + key)) + ch * 16;
       }
-      cp_async16(smem_u32(kst + key * G::kRowBytes + ch * 16), kf, ok);
-      cp_async16(smem_u32(vst + key * G::kRowBytes + ch * 16), vf, ok);
+      cp_async16(smem_u32(kst + key * kSrcRowBytes + ch * 16), kf, ok);
+      cp_async16(smem_u32(vst + key * kSrcRowBytes + ch * 16), vf, ok);
     }
   };
 
   // This thread's rows (a, b = a + 8) of the warp's m16 tile, and the keys
   // of a stage the warp takes: all 64 (rows), or 16 w .. 16 w + 15 (split).
-  const int r0 = kSplit ? 0 : 16 * w;
-  const int kb = kSplit ? 16 * w : 0;
+  const int r0 = kTile ? 0 : 16 * w;
+  const int kb = kTile ? 16 * w : 0;
   const int gq = l >> 2, tq = l & 3;
   const bool ok_a = r0 + gq < n_rows, ok_b = r0 + gq + 8 < n_rows;
   // keys [lo, end) are visible to row a, b: past the row's position none is
@@ -314,9 +418,27 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
         ldsm_x4(smem_u32(qs + (r0 + (l & 15)) * G::kRowBytes + (2 * kk + (l >> 4)) * 16),
                 qf[kk]);
     }
+    const uint8_t* kst = ring + (t % kStages) * G::kStageBytes;
+    if constexpr (kI8) {
+      // int8 stage t -> the bf16 stage after the ring, in ldmatrix's layout
+      uint8_t* work = ring + kStages * 2 * kSrcTileBytes;
+      const uint8_t* st8 = ring + (t % kStages) * 2 * kSrcTileBytes;
+      for (int c = tid; c < 2 * kBlockN * kSrcChunks; c += kThreads) {
+        const int half = c / (kBlockN * kSrcChunks), r = c % (kBlockN * kSrcChunks);
+        const int key = r / kSrcChunks, ch = r % kSrcChunks;
+        int4 o[2];
+        int8x16_to_bf16(*reinterpret_cast<const int4*>(st8 + half * kSrcTileBytes + key * D + ch * 16),
+                        o);
+        int4* dst = reinterpret_cast<int4*>(work + half * G::kTileBytes + key * G::kRowBytes +
+                                            ch * 32);
+        dst[0] = o[0];
+        dst[1] = o[1];
+      }
+      __syncthreads();                          // the converted stage is in place
+      kst = work;
+    }
     const int c0 = lo + t * kBlockN + kb;       // the warp's first key of the stage
     if (c0 < w_end) {
-      const uint8_t* kst = ring + (t % kStages) * G::kStageBytes;
       const uint8_t* vst = kst + G::kTileBytes;
       float s[NT][4];
 #pragma unroll
@@ -335,6 +457,16 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
           mma_bf16(s[2 * jp], qf[kk], r[0], r[1]);
           mma_bf16(s[2 * jp + 1], qf[kk], r[2], r[3]);
         }
+      // int8 pools: each n8 key tile (8 keys of one page) by its k scale;
+      // a tile past the last visible key reads no scale
+      if constexpr (kI8) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float sc = c0 + 8 * j < hi ? src.k_scale(c0 + 8 * j) : 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= sc;
+        }
+      }
       // the scale, and the soft cap behind one warp-uniform branch
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -382,13 +514,25 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
         acc[j][2] *= corr[1];
         acc[j][3] *= corr[1];
       }
-      // P V: p in bf16 as the A fragment of each k16 step of keys
+      // P V: p in bf16 as the A fragment of each k16 step of keys; int8
+      // pools: p' = p * v scale as hi + lo, two products a step
+      if constexpr (kI8) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float sc = c0 + 8 * j < hi ? src.v_scale(c0 + 8 * j) : 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= sc;
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < NT / 2; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t a[4], a_lo[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const float* f = s[2 * kk + (x >> 1)] + 2 * (x & 1);
+          if constexpr (kI8) split_bf16(f[0], f[1], a[x], a_lo[x]);
+          else a[x] = pack_bf16(f[0], f[1]);
+        }
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t r[4];
@@ -397,6 +541,10 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
                         r);
           mma_bf16(acc[2 * dp], a, r[0], r[1]);
           mma_bf16(acc[2 * dp + 1], a, r[2], r[3]);
+          if constexpr (kI8) {
+            mma_bf16(acc[2 * dp], a_lo, r[0], r[1]);
+            mma_bf16(acc[2 * dp + 1], a_lo, r[2], r[3]);
+          }
         }
       }
     }
@@ -412,7 +560,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
     const int s = s0 + r / rep, h = g * rep + r % rep;
     return p.out + ((static_cast<long long>(b) * p.Sq + s) * p.H + h) * D;
   };
-  if (!kSplit) {
+  if (!kTile) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (!(i ? ok_b : ok_a)) continue;
@@ -427,7 +575,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
     return;
   }
 
-  // Split route: the warps' partials, merged in warp order.
+  // One row tile: the warps' partials, merged in warp order.
   float* red = reinterpret_cast<float*>(ring);  // [warp][row][D]
   float* red_m = red + 4 * 16 * D;              // [warp][row]
   float* red_l = red_m + 64;

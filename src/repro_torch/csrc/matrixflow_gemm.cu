@@ -45,17 +45,41 @@
 // in fp32 (their internal rounding of a k16 group is not round-to-
 // nearest, tests/test_torch_cuda.py states the bound it is held to).
 //
-// fp32 and int8 operands keep the CUDA-core routine (gemm_tile): one CTA
-// per C block walks K with plain FMA (TF32 stays off, so fp32 sums are
-// full fp32) or integer MACs (int8 -> int32, exact, as K2 requires).
+// The W8A8 GEMM (K2) takes the same two routes with int8 operands and an
+// exact int32 sum (1,979 TOP/s int8 dense; at decode half of bf16's bytes):
 //
-// The dequant epilogue (K2) rounds the exact int32 sum to fp32 with
-// __int2float_rn and multiplies by s_a[m], then by s_b[n], each a separate
-// round-to-nearest product (__fmul_rn: never contracted), as the plain
-// version and the JAX reference do; an int8 GEMM at K = 1536 reaches
-// |acc| ~ 2.5e7 > 2^24, so that rounding is part of the contract. At
-// decode it is bound by HBM bytes (half of bf16's), at prefill by its
-// CUDA-core integer MACs; the tensor cores' s8 mma is later work.
+// * bm = 64: mf_gemm_dequant_wgmma_kernel, wgmma.mma_async m64nTNk32
+//   (.s32.s8.s8), the CTA tiles, ring and batch in flight of the bf16
+//   route. A 32-deep K slice of int8 is 32 bytes, so A's slice is one
+//   32-byte row per M row in wgmma's 32-byte swizzle.
+// * bm = 16 or 32: mf_gemm_dequant_mma_kernel, mma.sync m16n8k32 (s8 ->
+//   s32) with K split over the four warps and up to eight cluster CTAs as
+//   on the bf16 route, A by ldmatrix (a b16 pair is two int8 of a row).
+//
+// B_bm is N-contiguous, and neither route can read that for 8-bit types:
+// wgmma takes K-major 8-bit operands only, ldmatrix (.trans too) moves 16-
+// bit elements, and the s8 B fragment wants four consecutive K bytes of
+// one column in a register. So B's bytes arrive as they lie, by cp.async,
+// into a raw slice laid out by 16-column chunk (conflict-free 32-bit reads
+// of four K rows at one column word), and are transposed in registers
+// four by four with byte permutes (prmt): on the mma route straight into
+// the B fragments, where each lane's four columns become one column of
+// four n8 tiles (the C columns are permuted back at the flush); on the
+// wgmma route into a K-major B tile of TN rows x 32 bytes (32-byte
+// swizzle, double-buffered), one pass per K slice that runs beside the
+// previous slice's wgmma batch.
+//
+// fp32 and K1's int8 -> int32 instance keep the CUDA-core routine
+// (gemm_tile): one CTA per C block walks K with plain FMA (TF32 stays off,
+// so fp32 sums are full fp32) or integer MACs.
+//
+// K2's flush rounds the exact int32 sum (after the warp and cluster sums)
+// to fp32 with __int2float_rn and multiplies by s_a[m], then by s_b[n],
+// each a separate round-to-nearest product (__fmul_rn: never contracted),
+// as the plain version and the JAX reference do; an int8 GEMM at K = 1536
+// reaches |acc| ~ 2.5e7 > 2^24, so that rounding is part of the contract,
+// and every route is bitwise the plain version. Rows past n_sa and columns
+// past n_sb (the block grid's padding) read a scale of 1.
 //
 // Interface: plain C functions, loaded with ctypes
 // (src/repro_torch/kernels/matrixflow_gemm.py checks every argument and
@@ -197,34 +221,6 @@ mf_gemm_kernel(const T* __restrict__ a_bm, const T* __restrict__ b_bm,
     for (int n = 0; n < BN / 16; ++n) store(&c_blk[(ty + 16 * m) * BN + tx + 16 * n], acc[m][n]);
 }
 
-// K2: K1's int8 instance with the dequant fused into the flush. sa holds
-// n_sa row scales and sb n_sb channel scales; rows and channels past them
-// (the block grid's padding, or a null pointer with n = 0) read a scale of 1.
-template <typename Out, int BM, int BN>
-__global__ void __launch_bounds__(kThreads)
-mf_gemm_dequant_kernel(const int8_t* __restrict__ a_bm, const int8_t* __restrict__ b_bm,
-                       const float* __restrict__ sa, int n_sa,
-                       const float* __restrict__ sb, int n_sb,
-                       Out* __restrict__ c_bm, int nbn, int nbk, int bk) {
-  int acc[BM / 16][BN / 16];
-  gemm_tile<int8_t, BM, BN>(a_bm, b_bm, nbk, bk, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i = blockIdx.y, j = blockIdx.x;
-  Out* c_blk = c_bm + (static_cast<size_t>(i) * nbn + j) * BM * BN;
-#pragma unroll
-  for (int m = 0; m < BM / 16; ++m) {
-    const int row = i * BM + ty + 16 * m;
-    const float s_m = row < n_sa ? sa[row] : 1.f;
-#pragma unroll
-    for (int n = 0; n < BN / 16; ++n) {
-      const int col = j * BN + tx + 16 * n;
-      const float s_n = col < n_sb ? sb[col] : 1.f;
-      const float c = __fmul_rn(__fmul_rn(__int2float_rn(acc[m][n]), s_m), s_n);
-      store(&c_blk[(ty + 16 * m) * BN + tx + 16 * n], c);
-    }
-  }
-}
-
 template <typename T, typename Out>
 cudaError_t launch(int bm, int bn, const void* a, const void* b, void* c,
                    int nbm, int nbn, int nbk, int bk, cudaStream_t s) {
@@ -242,26 +238,6 @@ cudaError_t launch(int bm, int bn, const void* a, const void* b, void* c,
 #undef MF_CASE
   return cudaErrorInvalidValue;
 }
-
-template <typename Out>
-cudaError_t launch_dequant(int bm, int bn, const void* a, const void* b, const float* sa,
-                           int n_sa, const float* sb, int n_sb, void* c, int nbm, int nbn,
-                           int nbk, int bk, cudaStream_t s) {
-  const dim3 grid(nbn, nbm);
-#define MF_CASE(BM_, BN_)                                                      \
-  if (bm == BM_ && bn == BN_) {                                                \
-    mf_gemm_dequant_kernel<Out, BM_, BN_><<<grid, kThreads, 0, s>>>(           \
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), sa, n_sa,\
-        sb, n_sb, static_cast<Out*>(c), nbn, nbk, bk);                         \
-    return cudaGetLastError();                                                 \
-  }
-  MF_CASE(16, 32) MF_CASE(16, 64) MF_CASE(16, 128)
-  MF_CASE(32, 32) MF_CASE(32, 64) MF_CASE(32, 128)
-  MF_CASE(64, 32) MF_CASE(64, 64) MF_CASE(64, 128)
-#undef MF_CASE
-  return cudaErrorInvalidValue;
-}
-
 
 // ---------------------------------------------------------------------------
 // Tensor-core routes: bf16 operands
@@ -676,13 +652,11 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int nbm, int nbn
   return cudaGetLastError();
 }
 
-template <typename Out, int BM, int BN>
-cudaError_t launch_mma(const void* a, const void* b, void* c, int nbm, int nbn, int nbk,
-                       int bk, int splits, cudaStream_t s) {
-  constexpr int smem = MmaShape<BM, BN>::kSmem;
-  auto kernel = mf_gemm_mma_kernel<Out, BM, BN>;
-  static const cudaError_t attr = allow_smem(kernel, smem);
-  if (attr != cudaSuccess) return attr;
+// Launch an mma-route kernel on (nbn, nbm, splits) CTAs of 128 threads,
+// the `splits` CTAs of one C block forming a cluster.
+template <class Kernel, class... Args>
+cudaError_t launch_split(Kernel kernel, int nbm, int nbn, int splits, int smem, cudaStream_t s,
+                         Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nbn, nbm, splits);
   cfg.blockDim = dim3(128);
@@ -695,10 +669,19 @@ cudaError_t launch_mma(const void* a, const void* b, void* c, int nbm, int nbn, 
   cluster[0].val.clusterDim.z = splits;
   cfg.attrs = cluster;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(a),
-                                             static_cast<const bf16*>(b), static_cast<Out*>(c),
-                                             nbn, nbk, bk);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename Out, int BM, int BN>
+cudaError_t launch_mma(const void* a, const void* b, void* c, int nbm, int nbn, int nbk,
+                       int bk, int splits, cudaStream_t s) {
+  constexpr int smem = MmaShape<BM, BN>::kSmem;
+  auto kernel = mf_gemm_mma_kernel<Out, BM, BN>;
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  return launch_split(kernel, nbm, nbn, splits, smem, s, static_cast<const bf16*>(a),
+                      static_cast<const bf16*>(b), static_cast<Out*>(c), nbn, nbk, bk);
 }
 
 template <typename Out>
@@ -718,6 +701,481 @@ cudaError_t launch_tc(int bm, int bn, int gm, int tn, int splits, const void* a,
   MF_CASE(16, 32) MF_CASE(16, 64) MF_CASE(16, 128)
   MF_CASE(32, 32) MF_CASE(32, 64) MF_CASE(32, 128)
 #undef MF_CASE
+  return cudaErrorInvalidValue;
+}
+
+
+// ---------------------------------------------------------------------------
+// Tensor-core routes: int8 operands, dequant flush (K2)
+// ---------------------------------------------------------------------------
+
+// Byte offset of 16-byte chunk c (0, 1) of 32-byte row r in wgmma's 32-byte
+// swizzle (8 rows x 32 bytes an atom, 256-byte aligned): the chunk index is
+// XORed with address bit 7, which ldmatrix also reads without conflicts.
+__device__ __forceinline__ uint32_t swz32(int r, int c) {
+  return static_cast<uint32_t>(r * 32 + ((c ^ ((r >> 2) & 1)) << 4));
+}
+
+// A raw int8 B slice: 32 K rows as they lie in B_bm, by 16-column chunk c
+// (512 bytes each), K row k of chunk c at 16-byte slot ((k >> 2) & 3) +
+// 4 (k >> 4) + 8 (k & 3), XOR 4 for odd c. The four K rows 4 t .. 4 t + 3
+// of one column word then sit in distinct bank groups for t = 0..3 and for
+// both chunks of a 32-column group, so the reads below are conflict-free.
+__device__ __forceinline__ uint32_t raw_b_off(int k, int c) {
+  const int slot = (((k >> 2) & 3) | ((k >> 4) << 2) | ((k & 3) << 3)) ^ ((c & 1) << 2);
+  return static_cast<uint32_t>(c * 512 + slot * 16);
+}
+
+// A 4 x 4 byte transpose by byte permutes: byte r of out[x] is byte x of
+// in[r].
+__device__ __forceinline__ void transpose4(const uint32_t (&in)[4], uint32_t (&out)[4]) {
+  const uint32_t t0 = __byte_perm(in[0], in[1], 0x5140), t1 = __byte_perm(in[0], in[1], 0x7362);
+  const uint32_t t2 = __byte_perm(in[2], in[3], 0x5140), t3 = __byte_perm(in[2], in[3], 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);
+  out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Byte offset of the 32-bit word holding columns 4 nw .. 4 nw + 3 of K row
+// k of a raw slice.
+__device__ __forceinline__ uint32_t raw_b_word(int k, int nw) {
+  return raw_b_off(k, nw >> 2) + 4 * (nw & 3);
+}
+
+// Columns 4 nw .. 4 nw + 3 of K rows k0 .. k0 + 3 of a raw slice: out[x]
+// holds K rows k0 .. k0 + 3 (lowest byte first) of column 4 nw + x.
+__device__ __forceinline__ void raw_b_cols(const uint8_t* raw, int k0, int nw,
+                                           uint32_t (&out)[4]) {
+  uint32_t in[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    in[r] = *reinterpret_cast<const uint32_t*>(raw + raw_b_word(k0 + r, nw));
+  transpose4(in, out);
+}
+
+// The flush: float(acc) * s_m, then * s_n, each rounded to nearest.
+__device__ __forceinline__ float dequant(int acc, float s_m, float s_n) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_m), s_n);
+}
+__device__ __forceinline__ float scale_at(const float* s, int n_s, int x) {
+  return x < n_s ? s[x] : 1.f;
+}
+
+// wgmma shared-memory matrix descriptor, 32-byte swizzle, K-major: 8-row
+// groups of 32-byte rows 256 bytes apart (the leading offset is unused).
+__device__ __forceinline__ uint64_t wg_desc32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
+// D (64 x N, s32, in registers) += A (64 x 32, K-major) B (32 x N, K-major).
+__device__ __forceinline__ void wgmma_s8_m64n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_s8_m64n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int TN> __device__ __forceinline__ void wgmma_s8_tile(
+    int (&d)[TN / 2], uint64_t da, uint64_t db) {
+  if constexpr (TN == 256) wgmma_s8_m64n256(d, da, db);
+  else if constexpr (TN == 128) wgmma_s8_m64n128(d, da, db);
+  else wgmma_s8_m64n64(d, da, db);
+}
+template <int N> __device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) asm volatile("" : "+r"(d[x]) :: "memory");
+}
+
+// bm = 64: the CTA tiles of mf_gemm_wgmma_kernel. A stage holds GM * 64 A
+// rows of one 32-deep K slice (32-byte swizzle) and the raw B slice of TN
+// columns; after it lands, the CTA transposes its B into one of two
+// K-major B tiles while the previous slice's wgmma batch runs on.
+template <typename Out, int GM, int TN>
+__global__ void __launch_bounds__(128 * GM)
+mf_gemm_dequant_wgmma_kernel(const int8_t* __restrict__ a_bm, const int8_t* __restrict__ b_bm,
+                             const float* __restrict__ sa, int n_sa,
+                             const float* __restrict__ sb, int n_sb, Out* __restrict__ c_bm,
+                             int nbm, int nbn, int nbk, int bk, int bn) {
+  constexpr int BM = 64, kT = 128 * GM;
+  constexpr int A_BYTES = GM * BM * 32, STAGE = A_BYTES + 32 * TN, BT_BYTES = TN * 32;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int lg_cpr = __ffs(bn) - 1 - 4;          // log2 of 16-byte chunks per B row
+  const int gn = TN / bn;
+  const int i0 = blockIdx.y * GM, j0 = blockIdx.x * gn;
+  const int spb = bk / kTcSlice, steps = nbk * spb;
+
+  auto load = [&](int step, int stage) {
+    const int kb = step / spb, kc = (step - kb * spb) * kTcSlice;
+    const uint32_t sa_s = base + stage * STAGE, sb_s = sa_s + A_BYTES;
+    {                                                  // A: GM * 64 rows x 2 chunks
+      const int r = tid >> 1, c = tid & 1;
+      const int i = i0 + (r >> 6);
+      const bool ok = i < nbm;
+      const int8_t* src = a_bm + ((static_cast<size_t>(ok ? i : 0) * nbk + kb) * BM + (r & 63)) *
+                                     static_cast<size_t>(bk) + kc + c * 16;
+      cp_async16(sa_s + swz32(r, c), src, ok);
+    }
+#pragma unroll
+    for (int t = 0; t < 2 * TN / kT; ++t) {            // B: 32 rows x TN / 16 chunks
+      const int q = tid + t * kT;
+      const int jj = q >> (5 + lg_cpr), off = q & ((32 << lg_cpr) - 1);
+      const int kr = off >> lg_cpr, c16 = off & ((1 << lg_cpr) - 1);
+      const int j = j0 + jj;
+      const bool ok = j < nbn;
+      const int8_t* src = b_bm + ((static_cast<size_t>(ok ? j : 0) * nbk + kb) * bk + kc + kr) *
+                                     static_cast<size_t>(bn) + c16 * 16;
+      cp_async16(sb_s + raw_b_off(kr, (jj << lg_cpr) + c16), src, ok);
+    }
+  };
+  // The raw B slice of `stage` into K-major tile `buf`: thread q takes the
+  // 4 x 4 bytes of K rows 4 (q % 8) .. + 3 at column word q / 8, the same
+  // ones every slice, so its offsets are computed once. The four lane
+  // groups of a warp (nw % 4) store their columns in rotated order (each
+  // row word rotated by nw % 4 bytes before the transpose), so the stores,
+  // like the loads, fall on distinct banks.
+  constexpr int kBlocks = 2 * TN / kT;            // 4 x 4 byte blocks a thread moves a slice
+  uint32_t src_off[kBlocks][4], dst_off[kBlocks][4];
+  const uint32_t rot = (0x3210u + 0x1111u * ((tid >> 3) & 3)) & 0x3333u;  // nibble c: (c + nw) % 4
+#pragma unroll
+  for (int t = 0; t < kBlocks; ++t) {
+    const int q = tid + t * kT, kg = q & 7, nw = q >> 3;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      src_off[t][r] = raw_b_word(4 * kg + r, nw);
+      dst_off[t][r] = swz32(4 * nw + ((r + nw) & 3), kg >> 2) + 4 * (kg & 3);
+    }
+  }
+  auto transpose = [&](int stage, int buf) {
+    const uint8_t* raw = base_ptr + stage * STAGE + A_BYTES;
+    uint8_t* bt = base_ptr + kWgStages * STAGE + buf * BT_BYTES;
+#pragma unroll
+    for (int t = 0; t < kBlocks; ++t) {
+      uint32_t in[4], o[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        in[r] = __byte_perm(*reinterpret_cast<const uint32_t*>(raw + src_off[t][r]), 0, rot);
+      transpose4(in, o);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) *reinterpret_cast<uint32_t*>(bt + dst_off[t][x]) = o[x];
+    }
+  };
+
+  int acc[TN / 2];
+#pragma unroll
+  for (int x = 0; x < TN / 2; ++x) acc[x] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kWgStages - 2; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kWgStages - 3>();
+    __syncthreads();          // stage s landed; every warpgroup is done with batch s - 2
+    const int nx = s + kWgStages - 2;
+    if (nx < steps) load(nx, nx % kWgStages);
+    cp_async_commit();
+    transpose(s % kWgStages, s & 1);
+    fence_proxy_async();
+    __syncthreads();          // B tile s & 1 (and A of stage s) in place for the async proxy
+    const uint32_t a_s = base + (s % kWgStages) * STAGE + wg * BM * 32;
+    const uint32_t b_s = base + kWgStages * STAGE + (s & 1) * BT_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+    wgmma_s8_tile<TN>(acc, wg_desc32(a_s), wg_desc32(b_s));
+    wgmma_commit();
+    wgmma_wait<1>();          // batch s - 1 is done; batch s runs on
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // Accumulator layout as on the bf16 route.
+  const int i = i0 + wg;
+  if (i >= nbm) return;
+  const int w = (tid >> 5) & 3, l = tid & 31;
+  const int r0 = 16 * w + (l >> 2);
+  const float s_a0 = scale_at(sa, n_sa, i * BM + r0), s_a1 = scale_at(sa, n_sa, i * BM + r0 + 8);
+#pragma unroll
+  for (int t = 0; t < TN / 8; ++t) {
+    const int n = 8 * t + 2 * (l & 3);
+    const int j = j0 + n / bn, cc = n % bn;
+    if (j >= nbn) continue;
+    const float s_n0 = scale_at(sb, n_sb, j * bn + cc), s_n1 = scale_at(sb, n_sb, j * bn + cc + 1);
+    Out* blk = c_bm + (static_cast<size_t>(i) * nbn + j) * BM * bn;
+    store2(blk + static_cast<size_t>(r0) * bn + cc, dequant(acc[4 * t], s_a0, s_n0),
+           dequant(acc[4 * t + 1], s_a0, s_n1));
+    store2(blk + static_cast<size_t>(r0 + 8) * bn + cc, dequant(acc[4 * t + 2], s_a1, s_n0),
+           dequant(acc[4 * t + 3], s_a1, s_n1));
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int BM, int BN> struct MmaS8Shape {
+  static constexpr int kStages = BN == 128 ? 4 : 6;
+  static constexpr int kABytes = BM * 32;                // a warp's A slice (32-byte swizzle)
+  static constexpr int kSliceBytes = kABytes + 32 * BN;  // then its raw B slice
+  static constexpr int kStage = 4 * kSliceBytes;         // four warps' slices
+  static constexpr int kRed = 4 * BM * BN * 4;           // the warps' int32 partial tiles
+  static constexpr int kSmem =
+      1024 + (kStages * kStage > kRed ? kStages * kStage : kRed);
+};
+
+// bm = 16 or 32: the CTA, warp and cluster split of mf_gemm_mma_kernel.
+// Lane (g, t) of a warp builds the B fragments of a 32-column group from
+// column word g: its four columns 4 g .. 4 g + 3 become column g of the
+// group's four n8 tiles, so n8 tile x of group u holds real columns
+// 32 u + 4 v + x (v = 0..7).
+template <typename Out, int BM, int BN>
+__global__ void __launch_bounds__(128)
+mf_gemm_dequant_mma_kernel(const int8_t* __restrict__ a_bm, const int8_t* __restrict__ b_bm,
+                           const float* __restrict__ sa, int n_sa,
+                           const float* __restrict__ sb, int n_sb, Out* __restrict__ c_bm,
+                           int nbn, int nbk, int bk) {
+  using S = MmaS8Shape<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+  const int gq = l >> 2, tq = l & 3;
+  const int j = blockIdx.x, i = blockIdx.y, z = blockIdx.z, nz = gridDim.z;
+  const int spb = bk / kTcSlice, total = nbk * spb;
+  const int lo = static_cast<int>(static_cast<long long>(total) * z / nz);
+  const int hi = static_cast<int>(static_cast<long long>(total) * (z + 1) / nz);
+  const int chunks = (hi - lo + 3) / 4;
+  const int8_t* a_i = a_bm + static_cast<size_t>(i) * nbk * BM * bk;
+  const int8_t* b_j = b_bm + static_cast<size_t>(j) * nbk * bk * BN;
+
+  auto load = [&](int chunk, int stage) {
+    const uint32_t st = base + stage * S::kStage;
+#pragma unroll
+    for (int t = 0; t < BM / 16; ++t) {                // A: 4 slices x BM rows x 2 chunks
+      const int q = tid + t * 128;
+      const int ws = q / (BM * 2), r = (q >> 1) % BM, c = q & 1;
+      const int g = lo + 4 * chunk + ws;
+      const bool ok = g < hi;
+      const int kb = ok ? g / spb : 0, kc = ok ? (g - kb * spb) * kTcSlice : 0;
+      const int8_t* src = a_i + (static_cast<size_t>(kb) * BM + r) * bk + kc + c * 16;
+      cp_async16(st + ws * S::kSliceBytes + swz32(r, c), src, ok);
+    }
+#pragma unroll
+    for (int t = 0; t < BN / 16; ++t) {                // B: 4 slices x 32 rows x BN / 16 chunks
+      const int q = tid + t * 128;
+      const int ws = q / (2 * BN), off = q % (2 * BN);
+      const int kr = off / (BN / 16), c16 = off % (BN / 16);
+      const int g = lo + 4 * chunk + ws;
+      const bool ok = g < hi;
+      const int kb = ok ? g / spb : 0, kc = ok ? (g - kb * spb) * kTcSlice : 0;
+      const int8_t* src = b_j + (static_cast<size_t>(kb) * bk + kc + kr) * BN + c16 * 16;
+      cp_async16(st + ws * S::kSliceBytes + S::kABytes + raw_b_off(kr, c16), src, ok);
+    }
+  };
+
+  int acc[BM / 16][BN / 8][4];
+#pragma unroll
+  for (int m = 0; m < BM / 16; ++m)
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[m][n][x] = 0;
+
+#pragma unroll
+  for (int s = 0; s < S::kStages - 1; ++s) {
+    if (s < chunks) load(s, s);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<S::kStages - 2>();
+    __syncthreads();          // chunk c landed; every warp is done with c - 1
+    const int nx = c + S::kStages - 1;
+    if (nx < chunks) load(nx, nx % S::kStages);
+    cp_async_commit();
+    if (lo + 4 * c + w >= hi) continue;           // this warp's slice is past the share
+    const int off = (c % S::kStages) * S::kStage + w * S::kSliceBytes;
+    uint32_t af[BM / 16][4];
+#pragma unroll
+    for (int m = 0; m < BM / 16; ++m)               // rows 16 m + l % 16, k chunk l / 16
+      ldsm_x4(base + off + swz32(16 * m + (l & 15), l >> 4), af[m]);
+    const uint8_t* raw = base_ptr + off + S::kABytes;
+#pragma unroll
+    for (int u = 0; u < BN / 32; ++u) {
+      uint32_t b0[4], b1[4];                        // K rows 4 t.., and 16 + 4 t..
+      raw_b_cols(raw, 4 * tq, 8 * u + gq, b0);
+      raw_b_cols(raw, 16 + 4 * tq, 8 * u + gq, b1);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int m = 0; m < BM / 16; ++m) mma_s8(acc[m][4 * u + x], af[m], b0[x], b1[x]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();            // the ring is free: it becomes the reduction buffer
+
+  // The four warps' partial tiles at their real columns, then their sum in
+  // warp order (int32: exact in any order; the order is fixed all the same).
+  int* red = reinterpret_cast<int*>(base_ptr);
+#pragma unroll
+  for (int m = 0; m < BM / 16; ++m)
+#pragma unroll
+    for (int u = 0; u < BN / 32; ++u)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int* v = acc[m][4 * u + x];
+        int* p = red + w * BM * BN + (16 * m + gq) * BN + 32 * u + 8 * tq + x;
+        p[0] = v[0];
+        p[4] = v[1];
+        p[8 * BN] = v[2];
+        p[8 * BN + 4] = v[3];
+      }
+  __syncthreads();
+  Out* c_blk = c_bm + (static_cast<size_t>(i) * nbn + j) * BM * BN;
+  constexpr int E = BM * BN;
+  auto flush = [&](int e, int v) {
+    store(&c_blk[e], dequant(v, scale_at(sa, n_sa, i * BM + e / BN),
+                             scale_at(sb, n_sb, j * BN + e % BN)));
+  };
+  if (nz == 1) {
+    for (int e = tid; e < E; e += 128)
+      flush(e, ((red[e] + red[E + e]) + red[2 * E + e]) + red[3 * E + e]);
+    return;
+  }
+  for (int e = tid; e < E; e += 128)
+    red[e] = ((red[e] + red[E + e]) + red[2 * E + e]) + red[3 * E + e];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();             // every rank's partial tile is in its shared memory
+  const int e_lo = E * z / nz, e_hi = E * (z + 1) / nz;
+  for (int e = e_lo + tid; e < e_hi; e += 128) {
+    int v = cluster.map_shared_rank(red, 0)[e];
+    for (int r = 1; r < nz; ++r) v += cluster.map_shared_rank(red, r)[e];
+    flush(e, v);
+  }
+  cluster.sync();             // no rank leaves while another still reads it
+}
+
+template <typename Out, int GM, int TN>
+cudaError_t launch_dq_wgmma(const void* a, const void* b, const float* sa, int n_sa,
+                            const float* sb, int n_sb, void* c, int nbm, int nbn, int nbk,
+                            int bk, int bn, cudaStream_t s) {
+  constexpr int smem = 1024 + kWgStages * (GM * 64 * 32 + 32 * TN) + 2 * TN * 32;
+  auto kernel = mf_gemm_dequant_wgmma_kernel<Out, GM, TN>;
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((nbn + TN / bn - 1) / (TN / bn), (nbm + GM - 1) / GM);
+  kernel<<<grid, 128 * GM, smem, s>>>(static_cast<const int8_t*>(a),
+                                      static_cast<const int8_t*>(b), sa, n_sa, sb, n_sb,
+                                      static_cast<Out*>(c), nbm, nbn, nbk, bk, bn);
+  return cudaGetLastError();
+}
+
+template <typename Out, int BM, int BN>
+cudaError_t launch_dq_mma(const void* a, const void* b, const float* sa, int n_sa,
+                          const float* sb, int n_sb, void* c, int nbm, int nbn, int nbk, int bk,
+                          int splits, cudaStream_t s) {
+  constexpr int smem = MmaS8Shape<BM, BN>::kSmem;
+  auto kernel = mf_gemm_dequant_mma_kernel<Out, BM, BN>;
+  static const cudaError_t attr = allow_smem(kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  return launch_split(kernel, nbm, nbn, splits, smem, s, static_cast<const int8_t*>(a),
+                      static_cast<const int8_t*>(b), sa, n_sa, sb, n_sb, static_cast<Out*>(c),
+                      nbn, nbk, bk);
+}
+
+template <typename Out>
+cudaError_t launch_dq(int bm, int bn, int gm, int tn, int splits, const void* a, const void* b,
+                      const float* sa, int n_sa, const float* sb, int n_sb, void* c, int nbm,
+                      int nbn, int nbk, int bk, cudaStream_t s) {
+  if (bm == 64) {
+    if (splits != 1 || tn % bn != 0) return cudaErrorInvalidValue;
+#define DQ_WG(GM_, TN_)                                                                   \
+    if (gm == GM_ && tn == TN_)                                                           \
+      return launch_dq_wgmma<Out, GM_, TN_>(a, b, sa, n_sa, sb, n_sb, c, nbm, nbn, nbk, bk, \
+                                            bn, s);
+    DQ_WG(2, 256) DQ_WG(2, 128) DQ_WG(1, 128) DQ_WG(1, 64)
+#undef DQ_WG
+    return cudaErrorInvalidValue;
+  }
+  if (gm != 1 || tn != bn || splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
+#define DQ_MMA(BM_, BN_)                                                                 \
+  if (bm == BM_ && bn == BN_)                                                            \
+    return launch_dq_mma<Out, BM_, BN_>(a, b, sa, n_sa, sb, n_sb, c, nbm, nbn, nbk, bk,   \
+                                        splits, s);
+  DQ_MMA(16, 32) DQ_MMA(16, 64) DQ_MMA(16, 128)
+  DQ_MMA(32, 32) DQ_MMA(32, 64) DQ_MMA(32, 128)
+#undef DQ_MMA
   return cudaErrorInvalidValue;
 }
 
@@ -757,24 +1215,26 @@ extern "C" int mf_gemm_tc(int out_code, int bm, int bn, int gm, int tn, int spli
   return cudaErrorInvalidValue;
 }
 
-// K2: int8 block-major operands, fp32 scales sa (n_sa <= nbm * bm rows)
-// and sb (n_sb <= nbn * bn channels), either null with n = 0 (all ones);
-// out_code 0 = float32, 1 = bfloat16. Returns a cudaError_t.
-extern "C" int mf_gemm_dequant(int out_code, int bm, int bn, const void* a_bm,
-                               const void* b_bm, const float* sa, int n_sa,
+// K2 on the tensor cores: int8 block-major operands, fp32 scales sa (n_sa
+// <= nbm * bm rows) and sb (n_sb <= nbn * bn channels), either null with
+// n = 0 (all ones); out_code 0 = float32, 1 = bfloat16. The tiles and
+// splits as mf_gemm_tc's: bm = 64 takes the wgmma route, bm = 16 or 32
+// the mma route. Returns a cudaError_t; asynchronous on `stream`.
+extern "C" int mf_gemm_dequant(int out_code, int bm, int bn, int gm, int tn, int splits,
+                               const void* a_bm, const void* b_bm, const float* sa, int n_sa,
                                const float* sb, int n_sb, void* c_bm, int nbm, int nbn,
                                int nbk, int bk, void* stream) {
   if (nbm == 0 || nbn == 0) return 0;
-  if (bk % kSlice != 0 || n_sa < 0 || n_sb < 0 || (n_sa > 0 && sa == nullptr) ||
+  if (bk % kTcSlice != 0 || n_sa < 0 || n_sb < 0 || (n_sa > 0 && sa == nullptr) ||
       (n_sb > 0 && sb == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_code == 0)
-    return launch_dequant<float>(bm, bn, a_bm, b_bm, sa, n_sa, sb, n_sb, c_bm, nbm, nbn, nbk,
-                                 bk, s);
+    return launch_dq<float>(bm, bn, gm, tn, splits, a_bm, b_bm, sa, n_sa, sb, n_sb, c_bm, nbm,
+                            nbn, nbk, bk, s);
   if (out_code == 1)
-    return launch_dequant<bf16>(bm, bn, a_bm, b_bm, sa, n_sa, sb, n_sb, c_bm, nbm,
-                                         nbn, nbk, bk, s);
+    return launch_dq<bf16>(bm, bn, gm, tn, splits, a_bm, b_bm, sa, n_sa, sb, n_sb, c_bm, nbm,
+                           nbn, nbk, bk, s);
   return cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py::_kernel:
 // paged_attn_rows_kernel / paged_attn_split_kernel for bf16 pools and
-// paged_attn_kernel for fp32 pools (K4), paged_attn_int8_kernel for its
-// int8 branch (K5). Contract, as there:
+// paged_attn_kernel for fp32 pools (K4); paged_attn_int8_rows_kernel /
+// paged_attn_int8_split_kernel for its int8 branch with bf16 q and
+// paged_attn_int8_kernel with fp32 q (K5). Contract, as there:
 //
 //   q (B, Sq, H, D) model layout; k/v pools (P, ps, Hkv, D|Dv);
 //   block_tables (B, nb) int32: logical key block j of row b is physical
@@ -13,7 +14,8 @@
 //   col < kv_valid_len[b] and, when causal, col <= q_positions[b, i].
 //   Online softmax in fp32; p is zeroed where invalid; p is rounded to the
 //   pool dtype before the P.V product, as the TPU kernel's
-//   p.astype(v.dtype) does; the flush divides by max(l, 1e-30), so a row
+//   p.astype(v.dtype) does (an int8 page is dequantized to fp32 first, so
+//   there p is not rounded); the flush divides by max(l, 1e-30), so a row
 //   that sees no key is exactly 0. Keys past the valid length or beyond
 //   every row's causal frontier are skipped, and the block-table entries
 //   that name them are never read: they may hold any value.
@@ -23,42 +25,46 @@
 // bandwidth, and how many SMs share that read; int8 pages halve them
 // against bf16.
 //
-// bf16 pools (K4) run on the tensor cores, through the warp tile of
-// attn_mma.cuh, with keys fetched through the block table (PagedKV): the
-// CTA copies the table entries of its keys into shared memory once, and
-// each key's row of one kv head (D * 2 contiguous bytes of the (P, ps,
-// Hkv, D) pool) arrives by 16-byte cp.async into a two-stage ring of 64
-// keys, the next 64 in flight while these are multiplied: at ps 16 and D
-// 64 a page is 128 chunks, one per thread. A 16-key tile of the warp tile
-// is one page of 16, half a page of 32, or two pages of 8. Two routes,
-// picked by rows = query positions x rep (kernels/flash_attention.py::
-// route_for, shared with K3):
+// bf16 pools (K4) and int8 pools with bf16 q (K5) run on the tensor cores,
+// through the warp tile of attn_mma.cuh, with keys fetched through the
+// block table (PagedKV<bf16>, PagedKV<int8_t>): the CTA copies the table
+// entries of its keys into shared memory once (for int8 pools with each
+// page's k and v scales), and each key's row of one kv head (D * 2
+// contiguous bytes of a bf16 pool, D bytes of an int8 one) arrives by
+// 16-byte cp.async into a two-stage ring of 64 keys, the next 64 in flight
+// while these are multiplied: at ps 16 and D 64 a bf16 page is 128 chunks,
+// one per thread. An int8 stage is converted to bf16 in shared memory once
+// it lands (attn_mma.cuh's header says where the scales go and how p
+// escapes rounding). A 16-key tile of the warp tile is one page of 16, half
+// a page of 32, or two pages of 8. Two routes, picked by rows = query
+// positions x rep (kernels/flash_attention.py::route_for, shared with K3):
 //
-// * paged_attn_split_kernel (rows <= 16: decode): the keys of each (g, b)
-//   split over the 4 warps, a page of 16 each, and for caches of 512 keys
-//   and more over up to 8 CTAs of a cluster, merged in warp and rank
-//   order. At smollm-135m's decode a CTA takes a slot's 16 pages four at
-//   a time with the next four in flight, where the CUDA-core kernel
-//   staged them one at a time in 16 serial rounds.
+// * paged_attn_split_kernel, paged_attn_int8_split_kernel (rows <= 16:
+//   decode): the keys of each (g, b) split over the 4 warps, a page of 16
+//   each, and for caches of 512 keys and more over up to 8 CTAs of a
+//   cluster, merged in warp and rank order. At smollm-135m's decode a CTA
+//   takes a slot's 16 pages four at a time with the next four in flight,
+//   where the CUDA-core kernel staged them one at a time in 16 serial
+//   rounds.
 // * paged_attn_rows_kernel (rows > 16: the prefill buckets, chunks): 64
 //   rows a CTA, 16 a warp, walking every visible page.
+//   paged_attn_int8_rows_kernel: one m16 tile of rows a CTA, its keys
+//   walked as on the split route, so that a row's result is the same bits
+//   on both routes (attn_mma.cuh's header says why serving needs that).
 //
-// fp32 pools (K4, TF32 off) and int8 pools (K5) keep the CUDA-core body
-// paged_attn_body: one CTA per (query tile, kv head g, batch row b), GQA
-// folded into the CTA (at most 16 rows), each page staged element by
-// element into fp32 shared tiles (an int8 element as float(x) * scale, the
-// (page, g) scale riding the same indirection as the page), lane t
-// scoring key t of the page (page_size <= 32) and lane d accumulating
-// output dims d, d + 32, ... (head_dim <= 128). As in the TPU kernel,
-// which dequantizes a page to fp32 before the block step, an int8 pool's
-// p is NOT rounded to q's dtype before P.V (round_as is the identity for
-// int8 pools, bf16 q included).
+// fp32 q (K4 over fp32 pools, TF32 off; K5 over int8 pools) keeps the
+// CUDA-core body paged_attn_body: one CTA per (query tile, kv head g, batch
+// row b), GQA folded into the CTA (at most 16 rows), each page staged
+// element by element into fp32 shared tiles (an int8 element as float(x) *
+// scale, the (page, g) scale riding the same indirection as the page), lane
+// t scoring key t of the page (page_size <= 32) and lane d accumulating
+// output dims d, d + 32, ... (head_dim <= 128). As in the TPU kernel, which
+// dequantizes a page to fp32 before the block step, an int8 pool's p is NOT
+// rounded before P.V.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "attn_mma.cuh"
 
@@ -76,15 +82,7 @@ constexpr int kDPerLane = kMaxD / 32;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// p.astype(v.dtype): the identity for fp32 pools and for int8 pools
-// (their pages are dequantized to fp32).
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const int8_t*) { return x; }
-// A pool element as fp32: fp pools convert, int8 pools dequantize by the
+// A pool element as fp32: fp32 pools are, int8 pools dequantize by the
 // (page, kv head) scale (one fp32 product, as x.astype(f32) * s).
 __device__ __forceinline__ float from_pool(float x, float) { return x; }
 __device__ __forceinline__ float from_pool(int8_t x, float s) {
@@ -102,16 +100,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The CTA body; T is q's and the output's dtype, KV the pools'. k_scales
-// and v_scales are read only for int8 pools.
-template <typename T, typename KV>
+// The CTA body: fp32 q and output; KV the pools' dtype. k_scales and
+// v_scales are read only for int8 pools.
+template <typename KV>
 __device__ __forceinline__ void paged_attn_body(
-    const T* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
+    const float* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
     const int* __restrict__ block_tables, const int* __restrict__ q_positions,
-    const int* __restrict__ kv_valid_len, T* __restrict__ out, int Sq, int H, int Hkv,
+    const int* __restrict__ kv_valid_len, float* __restrict__ out, int Sq, int H, int Hkv,
     int D, int Dv, int ps, int nb, int qt, float scale, float soft_cap, int causal) {
-  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  constexpr bool kInt8 = sizeof(KV) == 1;
   const int tile = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv;
   const int s0 = tile * qt;
@@ -126,7 +124,7 @@ __device__ __forceinline__ void paged_attn_body(
   for (int e = tid; e < n_rows * D; e += kThreads) {
     const int r = e / D, d = e % D;
     const int s = s0 + r / rep, h = g * rep + r % rep;
-    qs[r][d] = to_f(q[((static_cast<size_t>(b) * Sq + s) * H + h) * D + d]);
+    qs[r][d] = q[((static_cast<size_t>(b) * Sq + s) * H + h) * D + d];
   }
   for (int r = tid; r < n_rows; r += kThreads)
     qpos_s[r] = q_positions[static_cast<size_t>(b) * Sq + s0 + r / rep];
@@ -182,12 +180,11 @@ __device__ __forceinline__ void paged_attn_body(
       const float p = valid ? expf(s - m_new) : 0.f;
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + warp_sum(p);
-      const float pv = round_as(p, kp);
       float sum[kDPerLane];
 #pragma unroll
       for (int u = 0; u < kDPerLane; ++u) sum[u] = 0.f;
       for (int t = 0; t < ps; ++t) {
-        const float pt = __shfl_sync(kFull, pv, t);
+        const float pt = __shfl_sync(kFull, p, t);
 #pragma unroll
         for (int u = 0; u < kDPerLane; ++u) {
           const int d = lane + 32 * u;
@@ -206,163 +203,151 @@ __device__ __forceinline__ void paged_attn_body(
     if (r >= n_rows) continue;
     const int s = s0 + r / rep, h = g * rep + r % rep;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<size_t>(b) * Sq + s) * H + h) * Dv;
+    float* o = out + ((static_cast<size_t>(b) * Sq + s) * H + h) * Dv;
 #pragma unroll
     for (int u = 0; u < kDPerLane; ++u) {
       const int d = lane + 32 * u;
-      if (d < Dv) store(&o[d], acc[i][u] / denom);
+      if (d < Dv) o[d] = acc[i][u] / denom;
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                  const T* __restrict__ vp, const int* __restrict__ block_tables,
+paged_attn_kernel(const float* __restrict__ q, const float* __restrict__ kp,
+                  const float* __restrict__ vp, const int* __restrict__ block_tables,
                   const int* __restrict__ q_positions,
-                  const int* __restrict__ kv_valid_len, T* __restrict__ out,
+                  const int* __restrict__ kv_valid_len, float* __restrict__ out,
                   int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
                   float scale, float soft_cap, int causal) {
-  paged_attn_body<T, T>(q, kp, vp, nullptr, nullptr, block_tables, q_positions,
-                        kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
-                        soft_cap, causal);
+  paged_attn_body<float>(q, kp, vp, nullptr, nullptr, block_tables, q_positions,
+                         kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+                         soft_cap, causal);
 }
 
-// K5: int8 pools, per-(page, kv head) fp32 scales.
-template <typename T>
+// K5 with fp32 q: int8 pools, per-(page, kv head) fp32 scales.
 __global__ void __launch_bounds__(kThreads)
-paged_attn_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kp,
+paged_attn_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ kp,
                        const int8_t* __restrict__ vp, const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ q_positions,
-                       const int* __restrict__ kv_valid_len, T* __restrict__ out,
+                       const int* __restrict__ kv_valid_len, float* __restrict__ out,
                        int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
                        float scale, float soft_cap, int causal) {
-  paged_attn_body<T, int8_t>(q, kp, vp, k_scales, v_scales, block_tables, q_positions,
-                             kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
-                             soft_cap, causal);
+  paged_attn_body<int8_t>(q, kp, vp, k_scales, v_scales, block_tables, q_positions,
+                          kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+                          soft_cap, causal);
 }
 
-template <typename T>
-cudaError_t launch(int pool_code, const void* q, const void* kp, const void* vp,
-                   const float* ks, const float* vs, const int* block_tables,
-                   const int* q_positions, const int* kv_valid_len, void* out, int B,
-                   int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
-                   float scale, float soft_cap, int causal, cudaStream_t s) {
-  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
-  if (pool_code == 2) {
-    if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
-    paged_attn_int8_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const int8_t*>(kp),
-        static_cast<const int8_t*>(vp), ks, vs, block_tables, q_positions, kv_valid_len,
-        static_cast<T*>(out), Sq, H, Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal);
-  } else if constexpr (std::is_same<T, float>::value) {
-    paged_attn_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-        block_tables, q_positions, kv_valid_len, static_cast<T*>(out), Sq, H, Hkv, D,
-        Dv, ps, nb, qt, scale, soft_cap, causal);
-  } else {
-    return cudaErrorInvalidValue;   // bf16 pools take paged_attention_tc
-  }
-  return cudaGetLastError();
-}
-
-// The bf16 instances: the attention of attn_mma.cuh over the pools through
-// the block-table row of b.
-template <int D, bool kSplit>
-__device__ __forceinline__ void paged_attn_tc(const am::Params& p, const am::bf16* kp,
-                                              const am::bf16* vp, const int* block_tables,
-                                              int nb, int lg_ps) {
+// The tensor-core instances: the attention of attn_mma.cuh over the pools
+// (T = bf16, K4; T = int8_t with its scales, K5) through the block-table
+// row of b.
+template <int D, bool kSplit, class T>
+__device__ __forceinline__ void paged_attn_tc(const am::Params& p, const T* kp, const T* vp,
+                                              const float* ks, const float* vs,
+                                              const int* block_tables, int nb, int lg_ps) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int g = blockIdx.y, b = blockIdx.z;
-  am::PagedKV src{kp + g * D, vp + g * D, block_tables + static_cast<long long>(b) * nb,
-                  static_cast<long long>(p.Hkv) * D, lg_ps, 0, nullptr};
+  am::PagedKV<T> src{kp + g * D, vp + g * D, ks ? ks + g : nullptr, vs ? vs + g : nullptr,
+                     block_tables + static_cast<long long>(b) * nb,
+                     static_cast<long long>(p.Hkv) * D, lg_ps, nb, p.Hkv};
   am::attend<D, kSplit>(p, src, smem);
 }
 
-template <int D>
-__global__ void __launch_bounds__(am::kThreads)
-paged_attn_rows_kernel(am::Params p, const am::bf16* kp, const am::bf16* vp,
-                       const int* block_tables, int nb, int lg_ps) {
-  paged_attn_tc<D, false>(p, kp, vp, block_tables, nb, lg_ps);
+#define PA_TC_KERNEL(NAME, SPLIT, T)                                                   \
+  template <int D>                                                                    \
+  __global__ void __launch_bounds__(am::kThreads)                                     \
+  NAME(am::Params p, const T* kp, const T* vp, const float* ks, const float* vs,      \
+       const int* block_tables, int nb, int lg_ps) {                                  \
+    paged_attn_tc<D, SPLIT, T>(p, kp, vp, ks, vs, block_tables, nb, lg_ps);           \
+  }
+PA_TC_KERNEL(paged_attn_rows_kernel, false, am::bf16)
+PA_TC_KERNEL(paged_attn_split_kernel, true, am::bf16)
+PA_TC_KERNEL(paged_attn_int8_rows_kernel, false, int8_t)
+PA_TC_KERNEL(paged_attn_int8_split_kernel, true, int8_t)
+#undef PA_TC_KERNEL
+
+// The kernel of a (D, route, pool dtype).
+template <int D, bool kSplit, class T> auto tc_kernel() {
+  if constexpr (sizeof(T) == 1)
+    return kSplit ? paged_attn_int8_split_kernel<D> : paged_attn_int8_rows_kernel<D>;
+  else
+    return kSplit ? paged_attn_split_kernel<D> : paged_attn_rows_kernel<D>;
 }
 
-template <int D>
-__global__ void __launch_bounds__(am::kThreads)
-paged_attn_split_kernel(am::Params p, const am::bf16* kp, const am::bf16* vp,
-                        const int* block_tables, int nb, int lg_ps) {
-  paged_attn_tc<D, true>(p, kp, vp, block_tables, nb, lg_ps);
-}
-
-template <int D, bool kSplit>
-cudaError_t launch_tc(const am::Params& p, const void* kp, const void* vp,
-                      const int* block_tables, int B, int nb, int lg_ps, int splits,
-                      cudaStream_t stream) {
-  // the attention's shared memory, then the block-table entries of a CTA's keys
-  const int smem = am::Smem<D, kSplit>::kBytes + 4 * nb;
-  auto kernel = paged_attn_rows_kernel<D>;
-  if constexpr (kSplit) kernel = paged_attn_split_kernel<D>;
+template <int D, bool kSplit, class T>
+cudaError_t launch_tc(const am::Params& p, const void* kp, const void* vp, const float* ks,
+                      const float* vs, const int* block_tables, int B, int nb, int lg_ps,
+                      int splits, cudaStream_t stream) {
+  // the attention's shared memory, then the block-table entries of a CTA's
+  // keys (and, for int8 pools, their scales)
+  const int smem =
+      am::Smem<D, kSplit, sizeof(T) == 1>::kBytes + am::PagedKV<T>::shared_bytes(nb);
+  const auto kernel = tc_kernel<D, kSplit, T>();
   static int granted = 0;
   const cudaError_t attr = am::reserve_smem(kernel, smem, granted);
   if (attr != cudaSuccess) return attr;
-  const int qt = am::kRowsTile / (p.H / p.Hkv);
+  const int qt = am::cta_rows<kSplit, sizeof(T) == 1>() / (p.H / p.Hkv);
   const dim3 grid(kSplit ? splits : (p.Sq + qt - 1) / qt, p.Hkv, B);
   return am::launch_grid(kernel, grid, kSplit ? splits : 1, smem, stream, p,
-                         static_cast<const am::bf16*>(kp), static_cast<const am::bf16*>(vp),
+                         static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
                          block_tables, nb, lg_ps);
 }
 
-template <bool kSplit>
+template <bool kSplit, class T>
 cudaError_t launch_tc_d(int D, const am::Params& p, const void* kp, const void* vp,
-                        const int* bt, int B, int nb, int lg_ps, int splits, cudaStream_t s) {
+                        const float* ks, const float* vs, const int* bt, int B, int nb,
+                        int lg_ps, int splits, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_tc<16, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
-    case 32: return launch_tc<32, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
-    case 48: return launch_tc<48, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
-    case 64: return launch_tc<64, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
-    case 80: return launch_tc<80, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
-    case 96: return launch_tc<96, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
-    case 112: return launch_tc<112, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
-    case 128: return launch_tc<128, kSplit>(p, kp, vp, bt, B, nb, lg_ps, splits, s);
+#define PA_CASE(D_) \
+    case D_: return launch_tc<D_, kSplit, T>(p, kp, vp, ks, vs, bt, B, nb, lg_ps, splits, s);
+    PA_CASE(16) PA_CASE(32) PA_CASE(48) PA_CASE(64)
+    PA_CASE(80) PA_CASE(96) PA_CASE(112) PA_CASE(128)
+#undef PA_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The CUDA-core instances. q_code: 0 = float32, 1 = bfloat16 (q and
-// output). pool_code: 0 for fp32 pools with fp32 q (K4), 2 for int8 pools
-// (K5, with k_scales/v_scales fp32 (P, Hkv); null otherwise); bf16 pools
-// take paged_attention_tc. qt: query positions per CTA, with
-// qt * (H / Hkv) <= 16. soft_cap <= 0 means none. Returns a cudaError_t;
-// asynchronous on `stream`.
-extern "C" int paged_attention(int q_code, int pool_code, const void* q,
-                               const void* k_pages, const void* v_pages,
-                               const float* k_scales, const float* v_scales,
-                               const int* block_tables, const int* q_positions,
-                               const int* kv_valid_len, void* out, int B, int Sq, int H,
-                               int Hkv, int D, int Dv, int ps, int nb, int qt, float scale,
-                               float soft_cap, int causal, void* stream) {
+// The CUDA-core instances, fp32 q and output. pool_code: 0 for fp32 pools
+// (K4), 2 for int8 pools (K5, with k_scales/v_scales fp32 (P, Hkv); null
+// otherwise); bf16 q takes paged_attention_tc. qt: query positions per
+// CTA, with qt * (H / Hkv) <= 16. soft_cap <= 0 means none. Returns a
+// cudaError_t; asynchronous on `stream`.
+extern "C" int paged_attention(int pool_code, const void* q, const void* k_pages,
+                               const void* v_pages, const float* k_scales,
+                               const float* v_scales, const int* block_tables,
+                               const int* q_positions, const int* kv_valid_len, void* out,
+                               int B, int Sq, int H, int Hkv, int D, int Dv, int ps, int nb,
+                               int qt, float scale, float soft_cap, int causal, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (ps > kMaxPage || D > kMaxD || Dv > kMaxD || qt * (H / Hkv) > kMaxRows || qt < 1)
     return cudaErrorInvalidValue;
-  if (pool_code != q_code && pool_code != 2) return cudaErrorInvalidValue;
+  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_code == 0)
-    return launch<float>(pool_code, q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                         q_positions, kv_valid_len, out, B, Sq, H, Hkv, D, Dv, ps, nb, qt,
-                         scale, soft_cap, causal, s);
-  if (q_code == 1)
-    return launch<__nv_bfloat16>(pool_code, q, k_pages, v_pages, k_scales, v_scales,
-                                 block_tables, q_positions, kv_valid_len, out, B, Sq, H,
-                                 Hkv, D, Dv, ps, nb, qt, scale, soft_cap, causal, s);
-  return cudaErrorInvalidValue;
+  const float* qf = static_cast<const float*>(q);
+  float* of = static_cast<float*>(out);
+  if (pool_code == 0) {
+    paged_attn_kernel<<<grid, kThreads, 0, s>>>(
+        qf, static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
+        block_tables, q_positions, kv_valid_len, of, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+        soft_cap, causal);
+  } else if (pool_code == 2 && k_scales != nullptr && v_scales != nullptr) {
+    paged_attn_int8_kernel<<<grid, kThreads, 0, s>>>(
+        qf, static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),
+        k_scales, v_scales, block_tables, q_positions, kv_valid_len, of, Sq, H, Hkv, D, Dv,
+        ps, nb, qt, scale, soft_cap, causal);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
-// The bf16 instances of K4 (the tensor cores): bf16 q, pools and output,
-// contiguous; head_dim a multiple of 16 up to 128 (Dv = D); page_size 8,
-// 16 or 32; H / Hkv <= 16. q_positions may be null (the default, s) and
+// The tensor-core instances: bf16 q and output, contiguous; bf16 pools
+// (K4, k_scales = v_scales = null) or int8 pools with fp32 (P, Hkv) scales
+// (K5); head_dim a multiple of 16 up to 128 (Dv = D); page_size 8, 16 or
+// 32; H / Hkv <= 16. q_positions may be null (the default, s) and
 // kv_valid_len null (nb * ps); a given kv_valid_len is clamped to nb * ps
 // here. splits = 0 takes the rows route (any Sq);
 // splits = 1..8 the split route, which needs Sq * H / Hkv <= 16 and puts
@@ -370,6 +355,7 @@ extern "C" int paged_attention(int q_code, int pool_code, const void* q,
 // cudaError_t; asynchronous on `stream`.
 extern "C" int paged_attention_tc(int D, int ps, int splits, const void* q,
                                   const void* k_pages, const void* v_pages,
+                                  const float* k_scales, const float* v_scales,
                                   const int* block_tables, const int* q_positions,
                                   const int* kv_valid_len, void* out, int B, int Sq, int H,
                                   int Hkv, int nb, float scale, float soft_cap, int causal,
@@ -380,15 +366,24 @@ extern "C" int paged_attention_tc(int D, int ps, int splits, const void* q,
     return cudaErrorInvalidValue;
   const int lg_ps = ps == 8 ? 3 : ps == 16 ? 4 : ps == 32 ? 5 : -1;
   if (lg_ps < 0 || nb < 1) return cudaErrorInvalidValue;
+  const bool int8 = k_scales != nullptr;
+  if (int8 != (v_scales != nullptr)) return cudaErrorInvalidValue;
   const long long q_ss = static_cast<long long>(H) * D;
   const am::Params p{static_cast<const am::bf16*>(q), Sq * q_ss, q_ss, D, q_positions,
                      kv_valid_len, static_cast<am::bf16*>(out), Sq, H, Hkv, nb * ps, 0,
                      scale, soft_cap, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return splits ? launch_tc_d<true>(D, p, k_pages, v_pages, block_tables, B, nb, lg_ps,
-                                    splits, s)
-                : launch_tc_d<false>(D, p, k_pages, v_pages, block_tables, B, nb, lg_ps, 0,
-                                     s);
+  const float *ks = k_scales, *vs = v_scales;
+  const int* bt = block_tables;
+  if (int8)
+    return splits ? launch_tc_d<true, int8_t>(D, p, k_pages, v_pages, ks, vs, bt, B, nb, lg_ps,
+                                              splits, s)
+                  : launch_tc_d<false, int8_t>(D, p, k_pages, v_pages, ks, vs, bt, B, nb,
+                                               lg_ps, 0, s);
+  return splits ? launch_tc_d<true, am::bf16>(D, p, k_pages, v_pages, ks, vs, bt, B, nb, lg_ps,
+                                              splits, s)
+                : launch_tc_d<false, am::bf16>(D, p, k_pages, v_pages, ks, vs, bt, B, nb,
+                                               lg_ps, 0, s);
 }
 
 extern "C" const char* pa_error_string(int err) {

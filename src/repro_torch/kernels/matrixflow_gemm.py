@@ -21,6 +21,11 @@ counted on the wrapper apart:
                  (``.mma_launches``)
   ``cuda_core``  fp32 (TF32 stays off) and int8 → int32: FMA and integer
                  MACs on the CUDA cores (``.cuda_core_launches``)
+
+K2 takes the two tensor-core routes with int8 operands (s8 ``wgmma`` at
+bm = 64, s8 ``mma.sync`` at bm = 16 and 32, the same tiles and splits,
+:func:`tc_tile`), counted on its wrapper as ``.wgmma_launches`` and
+``.mma_launches``; it has no CUDA-core route.
 """
 from __future__ import annotations
 
@@ -58,10 +63,12 @@ WGMMA_TILES = ((2, 256, 2.0), (2, 128, 1.0), (1, 128, 0.5), (1, 64, 0.0))
 MMA_TARGET_CTAS = 192
 
 
-def route_for(dtype: torch.dtype, bm: int) -> str:
-    """The route K1 takes on the card for operands of ``dtype`` in row
-    tiles of ``bm``: ``wgmma``, ``mma`` or ``cuda_core``."""
-    if dtype not in _TC_DTYPES:
+def route_for(dtype: torch.dtype, bm: int, *, dequant: bool = False) -> str:
+    """The route K1 (or, with ``dequant``, K2) takes on the card for
+    operands of ``dtype`` in row tiles of ``bm``: ``wgmma``, ``mma`` or
+    ``cuda_core``. bf16, and int8 with the dequant flush, run on the
+    tensor cores; K1's int8 → int32 instance and fp32 on the CUDA cores."""
+    if dtype not in _TC_DTYPES and not (dequant and dtype == torch.int8):
         return "cuda_core"
     return "wgmma" if bm == L.BM_CHOICES[-1] else "mma"
 
@@ -81,12 +88,14 @@ def tc_tile(bm: int, bn: int, nbm: int, nbn: int, nbk: int,
     mma (bm = 16, 32): one C block a CTA; when those are fewer than
     :data:`SMS`, K is split over up to :data:`MAX_SPLITS` CTAs of a
     cluster, about :data:`MMA_TARGET_CTAS` in all, each with at least one
-    four-slice chunk of K to stream."""
+    four-slice chunk of K to stream. The same tiles serve K1 in bf16 and
+    K2 in int8."""
     if bm == L.BM_CHOICES[-1]:
-        for gm, tn, waves in WGMMA_TILES:
-            if tn % bn == 0 and \
-                    L.cdiv(nbm, gm) * L.cdiv(nbn, tn // bn) >= waves * SMS:
+        fits = [t for t in WGMMA_TILES if t[1] % bn == 0]
+        for gm, tn, waves in fits:
+            if L.cdiv(nbm, gm) * L.cdiv(nbn, tn // bn) >= waves * SMS:
                 return gm, tn, 1
+        return fits[-1][0], fits[-1][1], 1   # bn 128 on a small grid
     ctas = nbm * nbn
     if ctas >= SMS:
         return 1, bn, 1
@@ -104,8 +113,8 @@ def _lib() -> ctypes.CDLL:
         lib.mf_gemm_tc.argtypes = [i, i, i, i, i, i, vp, vp, vp, i, i, i, i,
                                    vp]
         lib.mf_gemm_tc.restype = ctypes.c_int
-        lib.mf_gemm_dequant.argtypes = [i, i, i, vp, vp, vp, i, vp, i, vp,
-                                        i, i, i, i, vp]
+        lib.mf_gemm_dequant.argtypes = [i, i, i, i, i, i, vp, vp, vp, i,
+                                        vp, i, vp, i, i, i, i, vp]
         lib.mf_gemm_dequant.restype = ctypes.c_int
         lib.mf_error_string.argtypes = [i]
         lib.mf_error_string.restype = ctypes.c_char_p
@@ -213,7 +222,9 @@ def matrixflow_gemm_dequant(
     scales (fp32; rows and channels past them, or all when None, scale by
     1 — the kernel reads them in place, without a padded copy).
     Accumulates in int32; each C block is written once, as
-    ``float(acc) * s_a[m] * s_b[n]`` in ``out_dtype`` (fp32 or bf16).
+    ``float(acc) * s_a[m] * s_b[n]`` in ``out_dtype`` (fp32 or bf16). On
+    the card it runs on the tensor cores (:func:`route_for` with
+    ``dequant=True``, :func:`tc_tile`), bitwise equal to the plain version.
     """
     _check_operands(a_bm, b_bm)
     if a_bm.dtype != torch.int8:
@@ -240,16 +251,23 @@ def matrixflow_gemm_dequant(
               for sc in (scale_a, scale_b))
     c_bm = torch.empty((nbm, nbn, bm, bn), dtype=out_dtype,
                        device=a_bm.device)
+    route = route_for(a_bm.dtype, bm, dequant=True)
+    gm, tn, splits = tc_tile(bm, bn, nbm, nbn, nbk, bk)
     lib = _lib()
     _raise_on(lib.mf_gemm_dequant(
-        _OUT_CODES[out_dtype], bm, bn, a_bm.data_ptr(), b_bm.data_ptr(),
+        _OUT_CODES[out_dtype], bm, bn, gm, tn, splits, a_bm.data_ptr(),
+        b_bm.data_ptr(),
         None if sa is None else sa.data_ptr(), 0 if sa is None else len(sa),
         None if sb is None else sb.data_ptr(), 0 if sb is None else len(sb),
         c_bm.data_ptr(), nbm, nbn, nbk, bk,
         torch.cuda.current_stream(a_bm.device).cuda_stream),
-        lib, "matrixflow_gemm_dequant")
-    matrixflow_gemm_dequant.launches += 1
+        lib, f"matrixflow_gemm_dequant ({route} route)")
+    fn = matrixflow_gemm_dequant
+    fn.launches += 1
+    setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
     return c_bm
 
 
 matrixflow_gemm_dequant.launches = 0
+matrixflow_gemm_dequant.wgmma_launches = 0
+matrixflow_gemm_dequant.mma_launches = 0

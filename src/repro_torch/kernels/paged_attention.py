@@ -2,7 +2,7 @@
 ``csrc/paged_attention.cu``, which replace the Pallas TPU kernel
 ``repro/kernels/paged_attention.py::_kernel`` — for fp32/bf16 pools (K4)
 and its int8 branch (K5: int8 pools with one fp32 scale per (page, kv
-head), dequantized as each page is staged).
+head)).
 
 K/V live in a pool of fixed-size pages; each request owns a block table
 mapping its logical key blocks to physical pages. The key-block size IS the
@@ -13,13 +13,15 @@ PyTorch, one page at a time; for CUDA tensors it launches the kernel or
 raises. ``paged_attention.launches`` counts K4's launches (fp pools) and
 ``paged_attention.launches_int8`` K5's (int8 pools).
 
-K4 takes the routes of K3 (``kernels/flash_attention.py::route_for``, on
-the same tensor-core warp tile, ``csrc/attn_mma.cuh``), counted in
-``paged_attention.launches_by_route``: bf16 pools on ``split`` (decode:
-the keys of each (batch row, kv head) split over warps and cluster CTAs,
-:func:`~repro_torch.kernels.flash_attention.split_count`) or ``rows``
-(prefill buckets, chunks), fp32 pools on ``cuda_cores``. int8 pools (K5)
-keep their CUDA-core kernel.
+K4 and K5 take the routes of K3 (``kernels/flash_attention.py::
+route_for``, on the same tensor-core warp tile, ``csrc/attn_mma.cuh``) by
+q's dtype, counted in ``paged_attention.launches_by_route`` (K4) and
+``paged_attention.launches_int8_by_route`` (K5): bf16 q on ``split``
+(decode: the keys of each (batch row, kv head) split over warps and
+cluster CTAs, :func:`~repro_torch.kernels.flash_attention.split_count`)
+or ``rows`` (prefill buckets, chunks), fp32 q on ``cuda_cores``. Over int8
+pools the tensor-core kernels stage the int8 rows as they are and convert
+them to bf16 in shared memory; p is not rounded before P·V.
 """
 from __future__ import annotations
 
@@ -45,8 +47,7 @@ TC_PAGE_SIZES = (8, 16, 32)
 TC_HEAD_DIM_STEP = 16
 MAX_TABLE = 4096
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_INT8_POOL = 2     # the pool code of int8 pages (K5)
+_INT8_POOL = 2     # the CUDA-core kernel's pool code of int8 pages (K5)
 
 
 def _lib() -> ctypes.CDLL:
@@ -54,11 +55,12 @@ def _lib() -> ctypes.CDLL:
     if lib.paged_attention.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention.argtypes = [
-            i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+            i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
             i, i, i, i, i, i, i, i, i, f, f, i, vp]
         lib.paged_attention.restype = ctypes.c_int
         lib.paged_attention_tc.argtypes = [
-            i, i, i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, f, f, i, vp]
+            i, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, f, f,
+            i, vp]
         lib.paged_attention_tc.restype = ctypes.c_int
         lib.pa_error_string.argtypes = [i]
         lib.pa_error_string.restype = ctypes.c_char_p
@@ -114,6 +116,20 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, q_positions,
         m = m_new
     out = acc / torch.clamp(l_sum, min=1e-30)
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def check_tc_geometry(route: str, ps: int, D: int, Dv: int, nb: int) -> None:
+    """Raise unless the tensor-core kernels (K4 over bf16 pools, K5 over
+    int8 pools, both with bf16 q) take this geometry; any geometry passes
+    on ``cuda_cores``. No fallback: a bf16 call they refuse raises."""
+    if route in ("rows", "split") and (
+            ps not in TC_PAGE_SIZES or D % TC_HEAD_DIM_STEP or Dv != D
+            or nb > MAX_TABLE):
+        raise ValueError(
+            f"page_size={ps}, head dims ({D}, {Dv}), {nb} table entries: the "
+            f"bf16 kernels take page_size in {TC_PAGE_SIZES}, equal head dims "
+            f"a multiple of {TC_HEAD_DIM_STEP} up to {MAX_HEAD_DIM} and at "
+            f"most {MAX_TABLE} entries")
 
 
 def paged_attention(
@@ -187,7 +203,7 @@ def paged_attention(
                                      soft_cap=soft_cap, kv_scales=kv_scales)
     if dev.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {dev}")
-    if q.dtype not in _DTYPE_CODES or not (
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
             quantized or {k_pages.dtype, v_pages.dtype} == {q.dtype}):
         raise ValueError(f"the kernels take fp32 or bf16 q with pools of "
                          f"q's dtype or int8, got {q.dtype}, "
@@ -197,16 +213,9 @@ def paged_attention(
         raise ValueError(
             f"page_size={ps}, head dims ({D}, {Dv}), rep={rep} exceed the "
             f"kernel's limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM}, {MAX_ROWS})")
-    route = "int8" if quantized else route_for(q.dtype, Sq, rep)
+    route = route_for(q.dtype, Sq, rep)
     tc = route in ("rows", "split")       # the tensor-core instances
-    if tc and (
-            ps not in TC_PAGE_SIZES or D % TC_HEAD_DIM_STEP or Dv != D
-            or nb > MAX_TABLE):
-        raise ValueError(
-            f"page_size={ps}, head dims ({D}, {Dv}), {nb} table entries: the "
-            f"bf16 kernels take page_size in {TC_PAGE_SIZES}, equal head dims "
-            f"a multiple of {TC_HEAD_DIM_STEP} up to {MAX_HEAD_DIM} and at "
-            f"most {MAX_TABLE} entries")
+    check_tc_geometry(route, ps, D, Dv, nb)
     splits = split_count(B, Hkv, nb * ps) if route == "split" else 0
     if route == "split" and not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"split count {splits} outside 1..{MAX_SPLITS}")
@@ -220,6 +229,8 @@ def paged_attention(
     if tc:                               # read in 16-byte chunks
         q, k_pages, v_pages = (_aligned(t) for t in (q, k_pages, v_pages))
     ks, vs = (sc.contiguous() for sc in scales) if quantized else (None, None)
+    ks_ptr, vs_ptr = (None, None) if ks is None else (ks.data_ptr(),
+                                                      vs.data_ptr())
     block_tables = block_tables.to(dev).contiguous()
     # the tensor-core kernels take a missing q_positions or kv_valid_len as
     # its default, and clamp kv_valid_len themselves
@@ -233,25 +244,25 @@ def paged_attention(
     if tc:
         err = lib.paged_attention_tc(
             D, ps, splits, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), None if qpos is None else qpos.data_ptr(),
+            ks_ptr, vs_ptr, block_tables.data_ptr(),
+            None if qpos is None else qpos.data_ptr(),
             None if kvl is None else kvl.data_ptr(), out.data_ptr(), B, Sq, H,
             Hkv, nb, float(scale), float(soft_cap or 0.0), int(causal), stream)
     else:
         err = lib.paged_attention(
-            _DTYPE_CODES[q.dtype],
-            _INT8_POOL if quantized else _DTYPE_CODES[q.dtype], q.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(),
-            ks.data_ptr() if quantized else None,
-            vs.data_ptr() if quantized else None,
+            _INT8_POOL if quantized else 0, q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), ks_ptr, vs_ptr,
             block_tables.data_ptr(), qpos.data_ptr(), kvl.data_ptr(),
             out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps,
             nb, MAX_ROWS // rep, float(scale), float(soft_cap or 0.0),
             int(causal), stream)
     if err:
-        raise RuntimeError(f"paged_attention launch failed ({route} route): "
-                           f"{lib.pa_error_string(err).decode()}")
+        kind = "int8 pools, " if quantized else ""
+        raise RuntimeError(f"paged_attention launch failed ({kind}{route} "
+                           f"route): {lib.pa_error_string(err).decode()}")
     if quantized:
         paged_attention.launches_int8 += 1
+        paged_attention.launches_int8_by_route[route] += 1
     else:
         paged_attention.launches += 1
         paged_attention.launches_by_route[route] += 1
@@ -261,6 +272,7 @@ def paged_attention(
 paged_attention.launches = 0        # K4: fp pools
 paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 paged_attention.launches_int8 = 0   # K5: int8 pools
+paged_attention.launches_int8_by_route = dict.fromkeys(ROUTES, 0)
 
 
 

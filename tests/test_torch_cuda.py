@@ -3,8 +3,12 @@ version on the same CUDA tensors (K1's tensor-core routes at every tile and
 K split their chooser emits, within the fp32 dot-product bound, bitwise
 repeatable; K3's and K4's bf16 tensor-core routes at every split count,
 page size, head dim and GQA group they take, within ATTN_TOLS, bitwise
-repeatable, through block tables whose dead entries are out of range; the W8A8 GEMM, K2, bitwise; the int8 paged kernel, K5, within
-ATTN_TOLS; the SSD scan, K6, within 1e-4 in fp32), and the serving engine (paged, int8, contiguous, and the SSM
+repeatable, through block tables whose dead entries are out of range; the
+W8A8 GEMM, K2, bitwise on both tensor-core routes at every tile and split;
+the int8 paged kernel, K5, within ATTN_TOLS on both tensor-core routes at
+every head dim, page size, GQA group and split count, with p carried
+unrounded into P·V; the SSD scan, K6, within 1e-4 in fp32), and the
+serving engine (paged, int8, contiguous, and the SSM
 families) and the BERT/ViT encoders on the card against the same code on
 the CPU (where the wrappers run the plain versions).
 
@@ -203,6 +207,73 @@ def test_dequant_gemm_kernel_matches_plain_bitwise(cuda, out):
                 (M, K, N, mode, float((got.float() - want.float()).abs().max()))
 
 
+# (M, K, N, bm, bn, bk, (gm, tn, splits)): TC_CASES, whose tiles K2 shares
+# with K1, and two whose every |int32 sum| exceeds 2^24 (K = 1536), on
+# each route.
+DQ_CASES = TC_CASES + ((8, 1536, 160, 16, 32, 256, (1, 32, 8)),
+                       (128, 1536, 256, 64, 64, 256, (1, 64, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scales", ["per_row_and_channel", "none"])
+@pytest.mark.parametrize("case", DQ_CASES, ids=str)
+def test_dequant_gemm_tensor_core_routes_bitwise(cuda, case, scales):
+    """K2 at each tile and K split the chooser emits (wgmma at bm 64, mma
+    at bm 16/32): bitwise equal to the plain version in fp32 and bf16, two
+    launches bitwise equal, counted on its route only. M and N not
+    multiples of the blocks leave padded rows and columns, which read a
+    scale of 1 (``scale_a`` holds M rows, ``scale_b`` N channels); with no
+    scales (n_sa = n_sb = 0) the flush is float(acc) itself."""
+    M, K, N, bm, bn, bk, tile = case
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=gen, device=cuda)
+    w = torch.randn((K, N), generator=gen, device=cuda)
+    if K == 1536:
+        a, w = 1 + 0.01 * a, 1 + 0.01 * w
+    aq, sa = Q.quantize_activations(a)
+    wq, sw = Q.quantize_weight(w)
+    if K == 1536:
+        acc = aq.double() @ wq.double()            # exact: |acc| < 2^53
+        assert float(acc.abs().min()) > 2 ** 24
+    if scales == "none":
+        sa = sw = None
+    a_bm = L.to_block_major_a(aq, bm, bk)
+    b_bm = L.to_block_major_b(wq, bk, bn)
+    nbm, nbk, nbn = a_bm.shape[0], a_bm.shape[1], b_bm.shape[0]
+    assert MF.tc_tile(bm, bn, nbm, nbn, nbk, bk) == tile
+    route = MF.route_for(torch.int8, bm, dequant=True)
+    assert route == ("wgmma" if bm == 64 else "mma")
+    fn = MF.matrixflow_gemm_dequant
+    for odt in (torch.float32, torch.bfloat16):
+        before = {r: getattr(fn, f"{r}_launches") for r in ("wgmma", "mma")}
+        got = fn(a_bm, b_bm, sa, sw, out_dtype=odt)
+        again = fn(a_bm, b_bm, sa, sw, out_dtype=odt)
+        torch.cuda.synchronize()
+        for r, n in before.items():
+            assert getattr(fn, f"{r}_launches") == n + 2 * (r == route)
+        want = MF.plain(a_bm, b_bm, out_dtype=odt, scale_a=sa, scale_b=sw)
+        assert got.dtype == odt and torch.equal(got, again)
+        assert torch.equal(got, want), \
+            float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+def test_dequant_gemm_rejects(cuda):
+    """No fallback: an int8 geometry neither tensor-core route takes
+    raises before anything launches."""
+    fn = MF.matrixflow_gemm_dequant
+    before = (fn.launches, fn.wgmma_launches, fn.mma_launches)
+    a = torch.zeros((1, 1, 16, 48), dtype=torch.int8, device=cuda)
+    b = torch.zeros((1, 1, 48, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fn(a, b, None, None)
+    a = torch.zeros((1, 1, 48, 32), dtype=torch.int8, device=cuda)
+    b = torch.zeros((1, 1, 32, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="bm in"):
+        fn(a, b, None, None)
+    assert (fn.launches, fn.wgmma_launches, fn.mma_launches) == before
+
+
 def _paged_inputs(cuda, dtype, B, Sq, H, Hkv, D, ps, lens, starts, seed=0):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     nb = -(-max(lens) // ps) + 1
@@ -274,17 +345,24 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
         "chunk_offset"])
 def test_paged_attention_int8_kernel_matches_plain(cuda, dtype, case):
     """K5: int8 pools with per-(page, kv head) scales, q in fp32 or bf16,
-    against the plain version within ATTN_TOLS; masked rows exactly 0."""
+    against the plain version within ATTN_TOLS, on the route its chooser
+    names (bf16 q on the tensor cores, fp32 q on the CUDA cores); masked
+    rows exactly 0."""
     B, Sq, H, Hkv, D, ps, lens, starts = case
     q, kp, vp, bt, qpos, kvl = _paged_inputs(cuda, "float32", B, Sq, H, Hkv,
                                              D, ps, lens, starts, seed=2)
     (qk, ks), (qv, vs) = Q.quantize_kv_pages(kp), Q.quantize_kv_pages(vp)
     q = q.to(getattr(torch, dtype))
+    route = PA.route_for(q.dtype, Sq, H // Hkv)
+    assert (route == "cuda_cores") == (dtype == "float32")
     before = (PA.paged_attention.launches, PA.paged_attention.launches_int8)
+    by_route = dict(PA.paged_attention.launches_int8_by_route)
     got = PA.paged_attention(q, qk, qv, bt, qpos, kvl, kv_scales=(ks, vs))
     torch.cuda.synchronize()
     assert (PA.paged_attention.launches,
             PA.paged_attention.launches_int8) == (before[0], before[1] + 1)
+    assert PA.paged_attention.launches_int8_by_route == {
+        r: n + (r == route) for r, n in by_route.items()}
     want = PA.paged_attention_plain(q, qk, qv, bt, qpos, kvl, causal=True,
                                     scale=D ** -0.5, soft_cap=None,
                                     kv_scales=(ks, vs))
@@ -662,6 +740,218 @@ def test_tensor_core_routes_reject(cuda):
             PA.paged_attention(q, kp, vp, bt)
     assert FA.flash_attention.launches_by_route == flash
     assert PA.paged_attention.launches_by_route == paged
+
+
+def _int8_case(cuda, B, Sq, Sk, H, Hkv, D, ps, lens, starts, seed=0,
+               positive_v=False, **kw):
+    """(wrapper call, plain call, q_positions, pools) of one bf16-q case
+    over int8 pools. Page p's values are scaled by 1 + p % 5 before they
+    are quantized, so neighbouring pages (the two of a ps-8 key tile) have
+    scales up to 5x apart; the tables are shuffled and their entries past
+    each row's valid keys are out of the pool's range (the kernels read
+    neither those pages nor their scales)."""
+    q, kp, vp, bt, pos, kvl = _paged_inputs(cuda, "float32", B, Sq, H, Hkv,
+                                            D, ps, lens, starts, seed=seed)
+    q = q.to(torch.bfloat16)
+    nb = Sk // ps
+    bt = torch.cat([bt, bt[:, :1].expand(B, nb - bt.shape[1])], 1) \
+        if bt.shape[1] < nb else bt[:, :nb]
+    spread = 1 + torch.arange(kp.shape[0], device=cuda)[:, None, None,
+                                                        None] % 5
+    if positive_v:
+        vp = vp.abs() + 0.5
+    (qk, ks), (qv, vs) = (Q.quantize_kv_pages(x * spread) for x in (kp, vp))
+    dead = torch.arange(nb, device=cuda)[None] >= -(-kvl[:, None] // ps)
+    poisoned = torch.where(dead, torch.full_like(bt, 1 << 30), bt)
+    kw = dict(kw, kv_scales=(ks, vs))
+    return (lambda: PA.paged_attention(q, qk, qv, poisoned, pos, kvl, **kw),
+            lambda: PA.paged_attention_plain(
+                q, qk, qv, bt, pos, kvl, scale=D ** -0.5,
+                causal=kw.get("causal", True),
+                soft_cap=kw.get("soft_cap"), kv_scales=(ks, vs)),
+            pos, (q, qk, qv, ks, vs, bt, kvl))
+
+
+def _int8_launch(kernel, route):
+    """Two launches of a K5 case, counted on ``route`` only."""
+    fn = PA.paged_attention
+    before = dict(fn.launches_int8_by_route)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    assert fn.launches_int8_by_route == {r: n + 2 * (r == route)
+                                         for r, n in before.items()}
+    return got, again
+
+
+# B, Sq, key slots (nb x ps), H, Hkv, D, ps, valid keys per row (0: an
+# all-masked slot), first query position per row: every head dim of the
+# tensor-core instances on both routes, page sizes 8/16/32 and GQA groups
+# 1..16 among them.
+_INT8_GEOMETRIES = {
+    "split_d16_ps8_rep1": (3, 1, 96, 2, 2, 16, 8, (0, 41, 96), (-1, 40, 95)),
+    "split_d32_ps16_rep4": (3, 4, 128, 8, 2, 32, 16, (77, 0, 128),
+                            (73, -1, 124)),
+    "split_d48_ps32_rep16": (2, 1, 160, 16, 1, 48, 32, (160, 0), (159, -1)),
+    "split_d64_ps8_rep3": (3, 5, 256, 9, 3, 64, 8, (0, 100, 256),
+                           (-1, 95, 251)),
+    "split_d80_ps16_rep2": (2, 8, 96, 4, 2, 80, 16, (96, 9), (88, 1)),
+    "split_d96_ps32_rep8": (3, 2, 128, 8, 1, 96, 32, (33, 128, 0),
+                            (31, 126, -1)),
+    "split_d112_ps8_rep5": (2, 3, 64, 10, 2, 112, 8, (64, 0), (61, -1)),
+    "split_d128_ps16_rep1": (2, 16, 96, 2, 2, 128, 16, (96, 17), (80, 1)),
+    "rows_d16_ps32_rep16": (2, 3, 96, 16, 1, 16, 32, (96, 0), (93, -1)),
+    "rows_d32_ps8_rep1": (2, 40, 64, 2, 2, 32, 8, (64, 0), (24, -1)),
+    "rows_d48_ps16_rep3": (3, 64, 128, 6, 2, 48, 16, (64, 0, 100),
+                           (0, -1, 36)),
+    "rows_d64_ps32_rep2": (2, 33, 128, 4, 2, 64, 32, (128, 40), (95, 7)),
+    "rows_d80_ps8_rep4": (2, 20, 80, 8, 2, 80, 8, (80, 0), (60, -1)),
+    "rows_d96_ps16_rep6": (2, 11, 96, 6, 1, 96, 16, (96, 11), (85, 0)),
+    "rows_d112_ps32_rep8": (2, 9, 64, 8, 1, 112, 32, (64, 0), (55, -1)),
+    "rows_d128_ps8_rep12": (2, 7, 48, 12, 1, 128, 8, (48, 30), (41, 23)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_INT8_GEOMETRIES), ids=str)
+def test_int8_tensor_core_routes_at_each_geometry(cuda, case):
+    """K5 with bf16 q at each head dim of the tensor-core instances, on
+    the route its chooser names: within ATTN_TOLS of the plain version,
+    two launches bitwise equal, all-masked rows exactly 0."""
+    B, Sq, Sk, H, Hkv, D, ps, lens, starts = _INT8_GEOMETRIES[case]
+    route = PA.route_for(torch.bfloat16, Sq, H // Hkv)
+    assert route == case.split("_")[0]
+    kernel, plain, pos, _ = _int8_case(cuda, B, Sq, Sk, H, Hkv, D, ps, lens,
+                                       starts, seed=5)
+    got, again = _int8_launch(kernel, route)
+    _check_tc(got, plain(), again, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", list(range(1, 9)))
+@pytest.mark.parametrize("case", ["decode_ps8", "chunk_ps32"])
+def test_int8_split_route_at_forced_split_counts(cuda, monkeypatch, case,
+                                                 splits):
+    """K5's split route at 1..8 CTAs a cluster (forced through the
+    chooser): the plain version's result within ATTN_TOLS, the same bits
+    on a second launch; slots at 0, 1, 128 and 255 keys leave some CTAs
+    of the cluster empty."""
+    monkeypatch.setattr(PA, "split_count", lambda *a: splits)
+    shape = {"decode_ps8": (4, 1, 256, 9, 3, 64, 8, (0, 1, 128, 255),
+                            (-1, 0, 127, 254)),
+             "chunk_ps32": (2, 8, 256, 4, 2, 32, 32, (256, 41),
+                            (248, 33))}[case]
+    kernel, plain, pos, _ = _int8_case(cuda, *shape, seed=6)
+    got, again = _int8_launch(kernel, "split")
+    _check_tc(got, plain(), again, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 40])
+def test_int8_tensor_core_routes_soft_cap_and_noncausal(cuda, Sq):
+    """A soft cap of 2, causal and not, on both routes of K5."""
+    route = PA.route_for(torch.bfloat16, Sq, 3)
+    for causal in (True, False):
+        kernel, plain, pos, _ = _int8_case(
+            cuda, 3, Sq, 96, 6, 2, 64, 16, (96, 50, 0), (56, 10, -1),
+            seed=7, soft_cap=2.0, causal=causal)
+        got, again = _int8_launch(kernel, route)
+        _check_tc(got, plain(), again, pos, causal)
+
+
+def _off_midpoint(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values farther than 2^-16 relative from a bf16 rounding
+    midpoint (their low 16 bits 0x8000): the values whose single rounding
+    to bf16 an error below 2^-16 relative cannot change."""
+    bits = x.contiguous().view(torch.int32)
+    mid = ((bits & ~0xFFFF) | 0x8000).view(torch.float32)
+    return (x.double() - mid.double()).abs() > 2.0 ** -16 * x.double().abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 40])
+def test_int8_tensor_core_routes_do_not_round_p(cuda, Sq):
+    """The reference dequantizes int8 pages to fp32 before the block step,
+    so p is not rounded to bf16 before P·V. With bf16 q, every output
+    element of K5 equals the plain fp32 recurrence (on the same bf16 q
+    values) rounded once to bf16, except where that fp32 value lies
+    within 2^-16 relative of a bf16 rounding midpoint. V is positive, so
+    an output is a weighted mean without cancellation and its relative
+    error is that of p. The same attention with p rounded once to bf16
+    (what K4's tile does for bf16 pools) misses the criterion: the test
+    tells the two apart."""
+    B, H, Hkv, D, ps = 8, 9, 3, 64, 16
+    lens = (256, 17, 200, 64, 1, 128, 255, 90)
+    starts = tuple(n - Sq if n >= Sq else 0 for n in lens)
+    kernel, _, pos, (q, qk, qv, ks, vs, bt, kvl) = _int8_case(
+        cuda, B, Sq, 256, H, Hkv, D, ps, lens, starts, seed=8,
+        positive_v=True)
+    route = PA.route_for(torch.bfloat16, Sq, H // Hkv)
+    got, _ = _int8_launch(kernel, route)
+    ref = PA.paged_attention_plain(q.float(), qk, qv, bt, pos, kvl,
+                                   causal=True, scale=D ** -0.5,
+                                   soft_cap=None, kv_scales=(ks, vs))
+    live = (pos >= 0)[:, :, None, None].expand_as(ref)
+    check = live & _off_midpoint(ref)
+    assert int(check.sum()) > 0.9 * int(live.sum())
+    assert torch.equal(got[check], ref.to(torch.bfloat16)[check])
+    # p rounded once, on the same dequantized pages
+    kd = PA.gather_pages(Q.dequantize_kv_pages(qk, ks, torch.float32), bt)
+    vd = PA.gather_pages(Q.dequantize_kv_pages(qv, vs, torch.float32), bt)
+    rep = H // Hkv
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     kd.repeat_interleave(rep, 2)) * D ** -0.5
+    cols = torch.arange(kd.shape[1], device=cuda)
+    vis = (cols[None, None, :] < kvl[:, None, None]) \
+        & (cols[None, None, :] <= pos[:, :, None])
+    s = torch.where(vis[:, None], s, torch.full_like(s, -1e30))
+    p = torch.where(vis[:, None], torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros_like(s))
+    rounded = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(),
+                           vd.repeat_interleave(rep, 2)) \
+        / p.sum(-1).clamp(min=1e-30).permute(0, 2, 1)[..., None]
+    assert not torch.equal(rounded.to(torch.bfloat16)[check],
+                           ref.to(torch.bfloat16)[check])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D,ps", [(9, 3, 64, 16), (2, 2, 128, 8),
+                                        (8, 1, 32, 32)])
+def test_int8_split_and_rows_routes_agree_bitwise(cuda, H, Hkv, D, ps):
+    """A row's K5 result does not depend on the route: each position of a
+    64-token prefill (rows route) equals, bit for bit, a decode step at
+    that position over the same pool (split route, one CTA per (kv head,
+    batch row)). A preempted int8 request is re-prefilled over tokens it
+    decoded, and its stream equals its solo stream only so."""
+    B, Sq = 2, 64
+    lens, starts = (64, 64), (0, 0)
+    kernel, _, pos, (q, qk, qv, ks, vs, bt, kvl) = _int8_case(
+        cuda, B, Sq, 128, H, Hkv, D, ps, lens, starts, seed=9)
+    assert PA.route_for(torch.bfloat16, Sq, H // Hkv) == "rows"
+    assert PA.route_for(torch.bfloat16, 1, H // Hkv) == "split"
+    assert PA.split_count(B, Hkv, bt.shape[1] * ps) == 1
+    prefill, _ = _int8_launch(kernel, "rows")
+    for t in (0, 1, 15, 16, 40, 63, ps - 1, ps):
+        step = PA.paged_attention(q[:, t:t + 1], qk, qv, bt, pos[:, t:t + 1],
+                                  torch.full_like(kvl, t + 1),
+                                  kv_scales=(ks, vs))
+        assert torch.equal(step[:, 0], prefill[:, t]), t
+
+
+@pytest.mark.cuda
+def test_int8_tensor_core_routes_reject(cuda):
+    """No fallback: an int8-pool geometry the tensor-core kernels do not
+    take with bf16 q raises before anything launches."""
+    bf = torch.bfloat16
+    before = dict(PA.paged_attention.launches_int8_by_route)
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    for P, ps, D, Dv in ((2, 4, 64, 64), (2, 16, 24, 24), (2, 16, 64, 32)):
+        q = torch.zeros((1, 1, 2, D), dtype=bf, device=cuda)
+        kp = torch.zeros((P, ps, 1, D), dtype=torch.int8, device=cuda)
+        vp = torch.zeros((P, ps, 1, Dv), dtype=torch.int8, device=cuda)
+        sc = torch.ones((P, 1), device=cuda)
+        with pytest.raises(ValueError, match="bf16 kernels take"):
+            PA.paged_attention(q, kp, vp, bt, kv_scales=(sc, sc))
+    assert PA.paged_attention.launches_int8_by_route == before
 
 
 def _encoder_logits(cfg, params, batch, device):

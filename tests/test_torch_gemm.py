@@ -142,7 +142,7 @@ _PATH_GEMMS = ((8, 576, 576), (8, 576, 192), (8, 1536, 576), (8, 576, 49152),
                (8, 4096, 2048), (3072, 2048, 4096), (3072, 2048, 128),
                (8, 10240, 2560), (8, 2560, 20480), (1024, 768, 768),
                (1024, 3072, 768), (1576, 768, 30522), (20, 704, 1000),
-               (33, 17, 65))
+               (33, 17, 65), (40, 576, 8192))
 
 
 @pytest.mark.parametrize("mkn", _PATH_GEMMS, ids=str)

@@ -120,6 +120,56 @@ def test_int8_wrapper_validation():
                       kv_scales=(ks, vs), policy=PAGED_INT8)
 
 
+
+# B, Sq, H, Hkv, ps, table entries, the route bf16 q takes over int8 pools
+# (K3's chooser, shared with K4) and its split count: smollm-135m's decode
+# step, 64-column prefill and 32-column chunk, and a long cache.
+_INT8_ROUTES = [
+    (8, 1, 9, 3, 16, 16, "split", 1),
+    (8, 64, 9, 3, 16, 16, "rows", 0),
+    (8, 32, 9, 3, 16, 16, "rows", 0),
+    (8, 1, 9, 3, 8, 256, "split", 8),
+    (2, 5, 6, 2, 32, 8, "split", 1),
+]
+
+
+@pytest.mark.parametrize("case", _INT8_ROUTES, ids=str)
+def test_int8_routes_reuse_the_attention_choosers(case):
+    """K5 takes K4's routes by q's dtype: bf16 q on split or rows, fp32 q
+    on the CUDA cores, with the same split count."""
+    B, Sq, H, Hkv, ps, nb, route, splits = case
+    assert PA.route_for(torch.bfloat16, Sq, H // Hkv) == route
+    assert PA.route_for(torch.float32, Sq, H // Hkv) == "cuda_cores"
+    if route == "split":
+        assert PA.split_count(B, Hkv, nb * ps) == splits
+    PA.check_tc_geometry(route, ps, 64, 64, nb)
+
+
+@pytest.mark.parametrize("ps,D,Dv,nb", [(4, 64, 64, 2), (64, 64, 64, 2),
+                                        (16, 24, 24, 2), (16, 64, 32, 2),
+                                        (16, 64, 64, PA.MAX_TABLE + 1)])
+def test_tc_geometry_refusals(ps, D, Dv, nb):
+    """The geometries the tensor-core kernels refuse (K4 over bf16 pools,
+    K5 over int8 pools) raise on both of their routes; the CUDA-core
+    route takes them (within its own limits, checked by the wrapper)."""
+    for route in ("split", "rows"):
+        with pytest.raises(ValueError, match="bf16 kernels take"):
+            PA.check_tc_geometry(route, ps, D, Dv, nb)
+    PA.check_tc_geometry("cuda_cores", ps, D, Dv, nb)
+
+
+def test_int8_cpu_call_counts_no_route():
+    """On CPU tensors K5's wrapper runs the plain version: no launch, no
+    route counted."""
+    q, qk, qv, ks, vs, bt, qpos, kvl = _port(
+        *_int8_cell(ATTN_CASES[0], "bfloat16")[:8])
+    before = (PA.paged_attention.launches_int8,
+              dict(PA.paged_attention.launches_int8_by_route))
+    PA.paged_attention(q, qk, qv, bt, qpos, kvl, kv_scales=(ks, vs))
+    assert (PA.paged_attention.launches_int8,
+            PA.paged_attention.launches_int8_by_route) == before
+    assert set(before[1]) == {"rows", "split", "cuda_cores"}
+
 def _configs():
     kw = dict(n_layers=2, vocab=64, dtype="float32")
     return jget_smoke_config("smollm-135m", **kw), \

@@ -139,3 +139,55 @@ def test_dequant_wrapper_refuses_what_it_does_not_take():
     b_bm = torch.randint(-127, 128, (3, 1, 32, 32), dtype=torch.int8)
     got = MF.matrixflow_gemm_dequant(a_bm, b_bm, None, None)
     assert torch.equal(got, MF.matrixflow_gemm_block_major(a_bm, b_bm).float())
+
+
+def test_dequant_route_by_row_tile():
+    """K2 runs on the tensor cores at every row tile (s8 wgmma at bm 64,
+    s8 mma.sync at 16 and 32); K1's int8 -> int32 instance stays on the
+    CUDA cores."""
+    for bm in L.BM_CHOICES:
+        assert MF.route_for(torch.int8, bm, dequant=True) == \
+            ("wgmma" if bm == 64 else "mma")
+        assert MF.route_for(torch.int8, bm) == "cuda_core"
+
+
+# (M, K, N) of the W8A8 GEMMs on the served paths: smollm-135m's decode
+# and 64-column prefill projections and head, bert-base's forward, the
+# SSM families' decode steps.
+_W8A8_GEMMS = ((8, 576, 576), (8, 576, 192), (8, 576, 3072), (8, 1536, 576),
+               (8, 576, 49152), (512, 576, 576), (512, 576, 3072),
+               (512, 1536, 576), (1024, 768, 768), (1024, 3072, 768),
+               (1024, 768, 30522), (8, 2048, 8192), (8, 2560, 10240),
+               (40, 576, 8192))
+
+
+@pytest.mark.parametrize("mkn", _W8A8_GEMMS, ids=str)
+def test_dequant_tile_is_one_the_kernels_take(mkn):
+    """The int8 block geometry the engine packs (choose_layout with int8:
+    deeper K blocks than bf16's) gets a tile csrc/matrixflow_gemm.cu
+    instantiates for K2: wgmma 1 x 64, 1 x 128, 2 x 128 or 2 x 256 whole
+    C blocks a CTA at bm 64; one C block and 1-8 K splits at bm 16/32,
+    each split with K to walk."""
+    M, K, N = mkn
+    blk = L.choose_layout(M, N, K, torch.int8)
+    nbm, nbn, nbk = L.cdiv(M, blk.bm), L.cdiv(N, blk.bn), L.cdiv(K, blk.bk)
+    assert blk.bk % L.K_SLICE == 0
+    gm, tn, splits = MF.tc_tile(blk.bm, blk.bn, nbm, nbn, nbk, blk.bk)
+    if blk.bm == 64:
+        assert (gm, tn) in {(g, t) for g, t, _ in MF.WGMMA_TILES}
+        assert tn % blk.bn == 0 and splits == 1
+    else:
+        assert (gm, tn) == (1, blk.bn) and 1 <= splits <= MF.MAX_SPLITS
+        assert splits <= nbk * blk.bk // L.K_SLICE
+        assert splits == 1 or nbm * nbn < MF.SMS
+
+
+def test_dequant_cpu_call_counts_no_route():
+    """On CPU tensors K2's wrapper runs the plain version: no route
+    counts."""
+    fn = MF.matrixflow_gemm_dequant
+    before = (fn.launches, fn.wgmma_launches, fn.mma_launches)
+    a_bm = torch.randint(-127, 128, (1, 1, 64, 32), dtype=torch.int8)
+    b_bm = torch.randint(-127, 128, (1, 1, 32, 32), dtype=torch.int8)
+    fn(a_bm, b_bm, torch.ones(64), torch.ones(32))
+    assert (fn.launches, fn.wgmma_launches, fn.mma_launches) == before
