@@ -77,12 +77,13 @@ CUDA toolkit. Phases, each fatal on failure:
              engine: a 200-token prompt (Q 100) through submit/step equals
              generate() of it, and a 131-token request (Q 1) on the
              recycled slot equals its solo run on a fresh engine (conv and
-             SSD state zeroed). K1 and the SSD scan (K6) launched, the
+             SSD state zeroed). K1 and the SSD scan (K6) launched, K6 on
+             its tensor-core walk route and never on the CUDA cores, the
              paged kernels (K4, K5) not.
 9. hybrid serving — full-width zamba2-2.7b (54 SSD layers, d_model 2560,
              one shared attention block every 6 at head_dim 80) in bf16:
              generate() of 8 prompts x 64 tokens x 16 tokens under the fused
-             policy; K1, K3 and K6 launched, K4 and K5 not.
+             policy; K1, K3 and K6 (walk) launched, K4 and K5 not.
 10. SSM parity — fp32, full width cut in depth (mamba2 to 4 layers, zamba2
              to 6, one attention group): the card against the CPU plain
              path, prefill of 2 prompts (200 and 64 tokens) and 8 decode
@@ -101,16 +102,20 @@ with SDPA over the dequantized pages as its yardstick;
 the SSD scan (K6) against its plain version at the SSM paths' prefills
 (mamba2 B 8 x S 384 and 64, B 1 x S 200, 131 and 4096, B 2 x S 1000;
 zamba2 B 8 x S 64), fp32 y and state within (1e-4, 1e-4), bf16 y within
-TOLS["bfloat16"] (no single PyTorch call computes the scan: no yardstick);
+TOLS["bfloat16"] and its fp32 state within (1e-4, 1e-4), each on the
+route its chooser names (bf16: walk, or chunks from 513 steps; fp32: the
+CUDA cores), two launches bitwise equal, timed per call and, from
+torch.profiler, per kernel of the route (no single PyTorch call computes
+the scan: no yardstick);
 K1 at the SSM models' decode GEMMs and mamba2's prefill GEMMs; K3 at
 zamba2's head_dim-80 prefill and decode.
 
 Every kernel counter is set to 0 just before each path (3, 5-9) is
 driven and read just after; a kernel of the path that never launched fails
-it. K1-K5 are counted per route too: every bf16 path must have launched
+it. K1-K6 are counted per route too: every bf16 path must have launched
 K1 (or, with int8 weights, K2) on both tensor-core routes (the encoders:
-wgmma), K3, K4 or K5 on both of theirs (the encoders: rows), and none of
-them on the CUDA cores.
+wgmma), K3, K4 or K5 on both of theirs (the encoders: rows), K6 on a
+tensor-core route, and none of them on the CUDA cores.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -242,6 +247,8 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 
 ATTN_ROUTES = ("rows", "split", "cuda_cores")
 K2_ROUTES = ("wgmma", "mma")
+SSD_ROUTES = ("walk", "chunks", "cuda_cores")
+SSD_TC_ROUTES = ("walk", "chunks")
 
 
 def kernel_wrappers():
@@ -278,7 +285,11 @@ def kernel_wrappers():
             # K5 by route: bf16 q on the tensor cores, fp32 q on the CUDA cores
             **{f"paged_attention_int8_{r}": (pa.launches_int8_by_route, r)
                for r in ATTN_ROUTES},
-            "ssd_scan": (K6.ssd_scan, "launches")}
+            "ssd_scan": (K6.ssd_scan, "launches"),
+            # K6 by route: bf16 on the tensor cores (walk: a row's tiles in
+            # one CTA; chunks: segments over CTAs), fp32 on the CUDA cores
+            **{f"ssd_scan_{r}": (K6.ssd_scan.launches_by_route, r)
+               for r in SSD_ROUTES}}
 
 
 def counts() -> dict:
@@ -299,17 +310,19 @@ def reset_counts() -> None:
 K1_BF16 = ("matrixflow_gemm", "matrixflow_gemm_wgmma", "matrixflow_gemm_mma")
 K3_BF16 = ("flash_attention", "flash_attention_rows", "flash_attention_split")
 K4_BF16 = ("paged_attention", "paged_attention_rows", "paged_attention_split")
+# K6 at the SSM paths' prefills (S <= 512): the walk route
+K6_BF16 = ("ssd_scan", "ssd_scan_walk")
 K2_K5_BF16 = ("matrixflow_gemm_dequant", "matrixflow_gemm_dequant_wgmma",
               "matrixflow_gemm_dequant_mma", "paged_attention_int8",
               "paged_attention_int8_rows", "paged_attention_int8_split")
 CUDA_CORE_COUNTERS = ("matrixflow_gemm_cuda_core", "flash_attention_cuda_cores",
                       "paged_attention_cuda_cores",
-                      "paged_attention_int8_cuda_cores")
+                      "paged_attention_int8_cuda_cores", "ssd_scan_cuda_cores")
 
 
 def read_counts(path: str, required) -> dict:
     """The launch counts since reset_counts(); fails if a kernel of the
-    path never launched, or if K1, K3, K4 or K5 ran on the CUDA cores
+    path never launched, or if K1, K3, K4, K5 or K6 ran on the CUDA cores
     (every path read here is bf16 or int8 with bf16 activations, and none
     may take that route; K2 has no CUDA-core route)."""
     counts_now = counts()
@@ -907,7 +920,39 @@ def ssd_bound(B, S, H, P, N, dtype_name):
     return bound_ms(nbytes, flops, dtype_name)
 
 
+# K6's kernels by phase (csrc/ssd_scan.cu): the chunks route launches all
+# three, the walk route the last one; fp32 runs ssd_scan_kernel.
+SSD_PHASES = (("ssd_segment_state_kernel", "segment states"),
+              ("ssd_segment_pass_kernel", "segment pass"),
+              ("ssd_walk_kernel", "walk"), ("ssd_scan_kernel", "cuda cores"))
+
+
+def ssd_phase_ms(fn, n=5):
+    """Device time per call of each of K6's kernels over ``n`` calls, from
+    torch.profiler (L2 warm: the calls run back to back)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for sub, phase in SSD_PHASES:
+            if sub in e.name:
+                out[phase] = out.get(phase, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3 / n
+    return out
+
+
 def run_ssd_phase(timer, mamba, zamba):
+    """K6 at every SSM path's prefill shape, bf16 and fp32: the route its
+    chooser names (bf16 on a tensor-core route, fp32 on the CUDA cores),
+    two launches bitwise equal, y and the fp32 state against the plain
+    version, the time per call and, per route, per kernel (phase)."""
     from repro_torch.kernels import ssd_scan as K6
 
     rows = []
@@ -930,25 +975,40 @@ def run_ssd_phase(timer, mamba, zamba):
             Bc, Cc = ((0.5 * torch.randn((B, S, N), generator=gen,
                                          device="cuda")).to(dt_)
                       for _ in range(2))
+            before = counts()
             y, h = K6.ssd_scan(x, dt, A, Bc, Cc)
+            y2, h2 = K6.ssd_scan(x, dt, A, Bc, Cc)
+            torch.cuda.synchronize()
+            route = route_taken(before, counts(), "ssd_scan", SSD_ROUTES)
+            want_route = K6.route_for(dt_, S, P, N)
+            if route != want_route or (route in SSD_TC_ROUTES) != (
+                    dtype_name == "bfloat16"):
+                fail(f"ssd_scan {name} B={B} S={S} {dtype_name}: ran on "
+                     f"{route}, the chooser names {want_route}")
             want_y, want_h = K6.ssd_scan_plain(x, dt, A, Bc, Cc)
             torch.cuda.synchronize()
             Q = K6.ssd_chunk_size(S, 128)
             cell = (f"ssd_scan {name} B={B} S={S} H={H} P={P} N={N} Q={Q} "
-                    f"{dtype_name}")
+                    f"{dtype_name} ({route})")
+            if not (torch.equal(y, y2) and torch.equal(h, h2)):
+                fail(f"{cell}: two launches differ")
             err = check_close(cell, y, want_y, atol, rtol)
             err_h = check_close(f"{cell} final state", h, want_h, 1e-4, 1e-4)
             t_k = timer.ms(lambda: K6.ssd_scan(x, dt, A, Bc, Cc))
             t_p = timer.ms(lambda: K6.ssd_scan_plain(x, dt, A, Bc, Cc))
+            phases = ssd_phase_ms(lambda: K6.ssd_scan(x, dt, A, Bc, Cc))
             b_ms, b_by = ssd_bound(B, S, H, P, N, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, B=B, S=S, Q=Q,
-                             path=f"{name} B{B}xS{S}", uses=scfg.n_layers,
-                             max_abs_err=err, state_max_abs_err=err_h,
-                             ms=t_k, plain_ms=t_p, library_ms=None,
+                             route=route, path=f"{name} B{B}xS{S}",
+                             uses=scfg.n_layers, max_abs_err=err,
+                             state_max_abs_err=err_h, ms=t_k, plain_ms=t_p,
+                             phase_ms_warm_l2=phases, library_ms=None,
                              bound_ms=b_ms, bound_by=b_by))
             log(f"{cell}: max|d| y {err:.2e} state {err_h:.2e} kernel "
-                f"{t_k:.4f} ms plain {t_p:.4f} ms bound {b_ms:.4f} ms "
-                f"({b_by}); no library call")
+                f"{t_k:.4f} ms (by kernel, L2 warm: "
+                f"{', '.join(f'{k} {v:.4f}' for k, v in phases.items())}) "
+                f"plain {t_p:.4f} ms bound {b_ms:.4f} ms ({b_by}); no "
+                f"library call")
     return rows
 
 
@@ -1531,6 +1591,11 @@ def run_ssm_serving_phase(cfg, prompt_len, required, single_slot):
     launches = read_counts(f"{cfg.name} serving", required)
     if launches["paged_attention"] or launches["paged_attention_int8"]:
         fail(f"{cfg.name} serving: a paged kernel ran: {launches}")
+    on_tc = sum(launches[f"ssd_scan_{r}"] for r in SSD_TC_ROUTES)
+    if on_tc != launches["ssd_scan"]:
+        fail(f"{cfg.name} serving: {launches['ssd_scan'] - on_tc} of "
+             f"{launches['ssd_scan']} K6 launches were off the tensor-core "
+             f"routes {SSD_TC_ROUTES}")
     res.update(launches=launches,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(f"{cfg.name} serving bf16: generate() {SSM_SLOTS}x{prompt_len} "
@@ -1680,9 +1745,9 @@ def main() -> None:
     report["contiguous"] = run_contiguous_phase(cfg)
     report["int8_serving"] = run_int8_serving_phase(cfg)
     report["mamba2_serving"] = run_ssm_serving_phase(
-        mamba, MAMBA_PROMPT, K1_BF16 + ("ssd_scan",), True)
+        mamba, MAMBA_PROMPT, K1_BF16 + K6_BF16, True)
     report["zamba2_serving"] = run_ssm_serving_phase(
-        zamba, ZAMBA_PROMPT, K1_BF16 + K3_BF16 + ("ssd_scan",), False)
+        zamba, ZAMBA_PROMPT, K1_BF16 + K3_BF16 + K6_BF16, False)
     report["ssm_parity"] = {c.name: run_ssm_parity_phase(c)
                             for c in (mamba, zamba)}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -1723,7 +1788,8 @@ def main() -> None:
         for k, routes in (("flash_attention", ATTN_ROUTES),
                           ("paged_attention", ATTN_ROUTES),
                           ("paged_attention_int8", ATTN_ROUTES),
-                          ("matrixflow_gemm_dequant", K2_ROUTES))}
+                          ("matrixflow_gemm_dequant", K2_ROUTES),
+                          ("ssd_scan", SSD_ROUTES))}
     kernels = [
         k1,
         entry("matrixflow_gemm_wgmma", "matrixflow_gemm",
@@ -1783,6 +1849,18 @@ def main() -> None:
     for k in kernels:
         if k["name"] in by_route:
             k["launches_by_route"] = by_route[k["name"]]
+    # K6 per route: ms per run of each path the route takes, and per kernel
+    # (phase) of a call, bf16
+    k6 = next(k for k in kernels if k["name"] == "ssd_scan")
+    k6["ms_by_route"] = {
+        r: {p: aggregate(sel, "bfloat16", p)["ms"]
+            for p in sorted({row["path"] for row in sel})}
+        for r in SSD_TC_ROUTES
+        for sel in [[row for row in report["ssd"] if row["route"] == r
+                     and row["dtype"] == "bfloat16"]]}
+    k6["phase_ms_per_call_warm_l2"] = {
+        row["path"]: row["phase_ms_warm_l2"] for row in report["ssd"]
+        if row["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

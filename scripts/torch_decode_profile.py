@@ -34,8 +34,9 @@ included), then decode steps. ``--encoder ARCH`` instead runs full-width
   and over int8 pages (``paged_attention_int8_split``, ``_rows``; on the
   CUDA cores ``paged_attention_int8``), the flash attention kernel by route
   (``flash_attention_split``, ``_rows``; ``flash_attention`` for fp32),
-  the SSD scan, and everything else (PyTorch's elementwise, copy,
-  reduction and index kernels). Device busy time over wall time gives the
+  the SSD scan by kernel (``ssd_scan_walk``, ``ssd_scan_chunks_state`` and
+  ``_pass`` on the tensor cores; ``ssd_scan`` for fp32), and everything
+  else (PyTorch's elementwise, copy, reduction and index kernels). Device busy time over wall time gives the
   device's idle share.
 
 Writes chiprun_out/torch_decode_profile_<what>.json and prints one line
@@ -57,9 +58,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# (substring of a device kernel's name, what it is counted as): K1-K5 by
+# (substring of a device kernel's name, what it is counted as): K1-K6 by
 # route (bf16 and K2's int8 on the tensor cores, fp32 and K1's int8 on the
-# CUDA cores), K6; every other kernel is "other".
+# CUDA cores; K6's chunks route by kernel: segment states, the pass, and
+# the walk it shares with the walk route); every other kernel is "other".
 KERNEL_KINDS = (
     ("mf_gemm_kernel", "matrixflow_gemm"),
     ("mf_gemm_wgmma_kernel", "matrixflow_gemm_wgmma"),
@@ -75,6 +77,9 @@ KERNEL_KINDS = (
     ("flash_attn_rows_kernel", "flash_attention_rows"),
     ("flash_attn_split_kernel", "flash_attention_split"),
     ("flash_attn_kernel", "flash_attention"),
+    ("ssd_walk_kernel", "ssd_scan_walk"),
+    ("ssd_segment_state_kernel", "ssd_scan_chunks_state"),
+    ("ssd_segment_pass_kernel", "ssd_scan_chunks_pass"),
     ("ssd_scan_kernel", "ssd_scan"),
 )
 

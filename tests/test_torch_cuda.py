@@ -7,7 +7,9 @@ repeatable, through block tables whose dead entries are out of range; the
 W8A8 GEMM, K2, bitwise on both tensor-core routes at every tile and split;
 the int8 paged kernel, K5, within ATTN_TOLS on both tensor-core routes at
 every head dim, page size, GQA group and split count, with p carried
-unrounded into P·V; the SSD scan, K6, within 1e-4 in fp32), and the
+unrounded into P·V; the SSD scan, K6, on its tensor-core routes (walk,
+chunks) and the CUDA cores, the fp32 state within 1e-4 either way, a
+row's bits independent of the batch), and the
 serving engine (paged, int8, contiguous, and the SSM
 families) and the BERT/ViT encoders on the card against the same code on
 the CPU (where the wrappers run the plain versions).
@@ -1095,6 +1097,160 @@ def test_ssd_scan_strided_views_decay_extremes_and_rejections(cuda):
     x, dt, A, Bc, Cc = _ssd_inputs(cuda, "float32", 1, 192, 1, 4, 8)
     with pytest.raises(ValueError, match="exceeds"):
         K6.ssd_scan(x, dt, A, Bc, Cc, chunk=192)
+
+
+def _ssd_launch(args, route, chunk=128):
+    """One K6 call and a second on the same inputs, with the counters'
+    growth checked against ``route``; returns both results."""
+    before = dict(K6.ssd_scan.launches_by_route)
+    n = K6.ssd_scan.launches
+    got = K6.ssd_scan(*args, chunk=chunk)
+    again = K6.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K6.ssd_scan.launches == n + 2
+    assert K6.ssd_scan.launches_by_route == {
+        r: c + 2 * (r == route) for r, c in before.items()}
+    return got, again
+
+
+def _ssd_check(args, got, again, dtype, chunk=128):
+    want_y, want_h = K6.ssd_scan_plain(*args, chunk=chunk)
+    atol, rtol = SSD_TOLS[dtype]
+    torch.testing.assert_close(got[0].float(), want_y.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(got[1], want_h, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_tiles", [K6.SEG_TILES, 2, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CARD_CASES,
+                         ids=lambda c: "B{}S{}H{}P{}N{}q{}".format(*c))
+def test_ssd_routes_match_plain(cuda, monkeypatch, case, dtype, seg_tiles):
+    """Every route at every case: bf16 on the tensor cores — walk, or
+    chunks with segments of 1, 2 or SEG_TILES tiles forced through the plan
+    (so the 64-step tiles of Q 4 .. 128, and of S 131 and 1000, cross
+    segment boundaries) — and fp32 on the CUDA cores, each within SSD_TOLS
+    for y and (1e-4, 1e-4) for the fp32 state, the same bits on a second
+    launch."""
+    monkeypatch.setattr(K6, "SEG_TILES", seg_tiles)
+    B, S, H, P, N, chunk = case
+    args = _ssd_inputs(cuda, dtype, B, S, H, P, N, seed=S + seg_tiles)
+    route = K6.route_for(args[0].dtype, S, P, N)
+    if dtype == "float32":
+        assert route == "cuda_cores"
+    else:
+        tiles = -(-S // K6.TILE)
+        assert route == ("walk" if tiles <= seg_tiles else "chunks")
+    got, again = _ssd_launch(args, route, chunk)
+    _ssd_check(args, got, again, dtype, chunk)
+
+
+# full width: mamba2-1.3b (H 64, P 64, N 128) at its served prefills and a
+# 4096-step prompt, zamba2-2.7b (H 80, N 64) at its 8 x 64 prefill
+SSD_FULL_WIDTH = {"mamba2_8x384": (8, 384, 64, 64, 128, "walk"),
+                  "mamba2_1x4096": (1, 4096, 64, 64, 128, "chunks"),
+                  "mamba2_2x1000": (2, 1000, 64, 64, 128, "chunks"),
+                  "mamba2_1x131": (1, 131, 64, 64, 128, "walk"),
+                  "zamba2_8x64": (8, 64, 80, 64, 64, "walk")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(SSD_FULL_WIDTH))
+def test_ssd_tensor_core_routes_at_full_width(cuda, cell):
+    B, S, H, P, N, route = SSD_FULL_WIDTH[cell]
+    args = _ssd_inputs(cuda, "bfloat16", B, S, H, P, N, seed=B + S)
+    assert K6.route_for(torch.bfloat16, S, P, N) == route
+    got, again = _ssd_launch(args, route)
+    _ssd_check(args, got, again, "bfloat16")
+
+
+def _state_rounded_once(x, dt, A, Bc, Cc, Q):
+    """The final state of the chunk recurrence with its fp32 operand,
+    exp(cum_Q − cum) ∘ dt x, rounded once to bf16 before the product with
+    (bf16, exact) B: the state a single-rounded tensor-core product gives."""
+    Bsz, S, H, P = x.shape
+    h = torch.zeros((Bsz, H, P, Bc.shape[-1]), device=x.device)
+    for c0 in range(0, S, Q):
+        dtc = dt[:, c0:c0 + Q]
+        dtx = (x[:, c0:c0 + Q].float() * dtc[..., None]).transpose(1, 2)
+        cum = torch.cumsum((dtc * A).transpose(1, 2).double(), dim=-1)
+        w = dtx * torch.exp((cum[..., -1:] - cum).float())[..., None]
+        h = h * torch.exp(cum[..., -1].float())[..., None, None] \
+            + torch.matmul(w.bfloat16().float().transpose(-1, -2),
+                           Bc[:, c0:c0 + Q].float()[:, None])
+    return h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(8, 384), (1, 1000)])
+def test_ssd_state_needs_unrounded_operands(cuda, B, S):
+    """The bf16 routes carry exp(cum_Q − cum) ∘ dt x into the state product
+    as bf16 hi + lo: the kernel's state holds (1e-4, 1e-4) against the
+    plain version, and the same recurrence with that operand rounded once
+    to bf16 does not (the test tells the two apart)."""
+    args = _ssd_inputs(cuda, "bfloat16", B, S, 64, 64, 128, seed=3)
+    _, h = K6.ssd_scan(*args)
+    _, want = K6.ssd_scan_plain(*args)
+    torch.testing.assert_close(h, want, atol=1e-4, rtol=1e-4)
+    once = _state_rounded_once(*args, K6.ssd_chunk_size(S, 128))
+    assert not torch.allclose(once, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,route", [(384, "walk"), (1000, "chunks"),
+                                     (131, "walk")])
+def test_ssd_row_does_not_depend_on_batch(cuda, S, route):
+    """A row's y and state are the same bits alone (B 1) and inside a
+    batch of 8, on either tensor-core route: the route and its segments
+    depend on S, never on B, and no CTA sums another row's work."""
+    args = _ssd_inputs(cuda, "bfloat16", 8, S, 64, 64, 128, seed=S)
+    assert K6.route_for(torch.bfloat16, S, 64, 128) == route
+    y, h = K6.ssd_scan(*args)
+    for b in (0, 5):
+        yb, hb = K6.ssd_scan(*(t[b:b + 1] if t.dim() > 1 else t
+                               for t in args))
+        assert torch.equal(yb[0], y[b]) and torch.equal(hb[0], h[b]), b
+
+
+@pytest.mark.cuda
+def test_ssd_tensor_core_strided_views_and_decay_extremes(cuda):
+    """bf16 x, B and C read as unaligned views of wider tensors (no 16-byte
+    loads) give the bits of contiguous copies, on both routes; dt = 20
+    with A = −8 stays finite; final_state=False writes no state."""
+    for S in (200, 1000):
+        x, dt, A, Bc, Cc = _ssd_inputs(cuda, "bfloat16", 2, S, 3, 16, 32)
+        wide = torch.zeros((2, S, 3, 21), device=cuda, dtype=torch.bfloat16)
+        wide[..., 1:17] = x
+        bc = torch.zeros((2, S, 67), device=cuda, dtype=torch.bfloat16)
+        bc[..., 1:33], bc[..., 34:66] = Bc, Cc
+        y, h = K6.ssd_scan(wide[..., 1:17], dt, A, bc[..., 1:33],
+                           bc[..., 34:66])
+        want_y, want_h = K6.ssd_scan(x, dt, A, Bc, Cc)
+        assert torch.equal(y, want_y) and torch.equal(h, want_h)
+        y2, none = K6.ssd_scan(x, dt, A, Bc, Cc, final_state=False)
+        assert none is None and torch.equal(y2, want_y)
+        y, h = K6.ssd_scan(x, torch.full_like(dt, 20.0),
+                           torch.full_like(A, -8.0), Bc, Cc)
+        assert bool(torch.isfinite(y.float()).all())
+        assert bool(torch.isfinite(h).all())
+
+
+@pytest.mark.cuda
+def test_ssd_tensor_core_route_rejects(cuda):
+    """No fallback: a bf16 geometry no tensor-core route takes (P above 64,
+    N above 128) raises before anything launches; fp32 takes it on the
+    CUDA cores."""
+    before = dict(K6.ssd_scan.launches_by_route)
+    for P, N in ((80, 64), (64, 256)):
+        args = _ssd_inputs(cuda, "bfloat16", 1, 64, 2, P, N)
+        with pytest.raises(ValueError, match="no tensor-core"):
+            K6.ssd_scan(*args)
+    assert K6.ssd_scan.launches_by_route == before
+    args = _ssd_inputs(cuda, "float32", 1, 64, 2, 80, 64)
+    got, again = _ssd_launch(args, "cuda_cores")
+    _ssd_check(args, got, again, "float32")
 
 
 @pytest.mark.cuda
