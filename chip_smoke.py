@@ -90,6 +90,29 @@ CUDA toolkit. Phases, each fatal on failure:
              steps fed the same tokens, logits within LOGIT_TOL at every
              step, greedy tokens equal or differing only where the plain
              top-2 margin is below LOGIT_TOL.
+11. serving features — full-width smollm-135m, bf16, paged (page 16), 8
+             slots: (a) the prefix cache (12 requests on one 48-token
+             system prompt, two parting inside its third page; a 24-page
+             pool with watermark 2), in bf16 and with int8 KV: hits, COW
+             forks and evictions all > 0, the pool and cache consistent,
+             every request complete, each fork bitwise equal to its donor
+             right after _copy_page and every shared page (int8 scale rows
+             included) bitwise unchanged after a borrower's tail prefill;
+             (b) speculative decoding with NGramDrafter on prompts that
+             repeat a 6-token pattern: k = 4 (verify at Sq 5, K4 split)
+             and k = 8 (Sq 9, K4 rows) on paged caches, k = 4 on fused
+             contiguous caches (K3) and with int8 KV (K5); accepted
+             tokens and rolled-back pages > 0, the pool ends full,
+             tokens/s with and without printed; then a full-width
+             DraftModelDrafter drafting for itself (its acceptance rate
+             printed); (c) 12 concurrent AsyncServingEngine streams over
+             the 8 slots, all complete, slo_report printed; (d) (a)'s bf16
+             run with Observability(): the trace and the metrics snapshot
+             validate, each request trace holds exactly its stream across
+             preemption, the decode step's host wall time with obs and
+             with NULL_OBS printed. Then fp32 at full width: prefix-on
+             streams equal prefix-off, spec streams equal non-spec, or
+             first part where the plain top-2 margin is below LOGIT_TOL.
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
@@ -108,9 +131,14 @@ CUDA cores), two launches bitwise equal, timed per call and, from
 torch.profiler, per kernel of the route (no single PyTorch call computes
 the scan: no yardstick);
 K1 at the SSM models' decode GEMMs and mamba2's prefill GEMMs; K3 at
-zamba2's head_dim-80 prefill and decode.
+zamba2's head_dim-80 prefill and decode; K4 and K5 at phase 11's shapes
+(a speculative verify at Sq 5 and 9 whose slots trim their drafts to
+their own counts, the rest of their rows at position -1, one slot masked
+whole; a tail prefill from position 53, mid-page) and K3 at the Sq-5
+verify over contiguous caches.
 
-Every kernel counter is set to 0 just before each path (3, 5-9) is
+Every kernel counter is set to 0 just before each path (3, 5-9, each
+run of 11) is
 driven and read just after; a kernel of the path that never launched fails
 it. K1-K6 are counted per route too: every bf16 path must have launched
 K1 (or, with int8 weights, K2) on both tensor-core routes (the encoders:
@@ -123,6 +151,7 @@ GPU or outside a checkout.
 """
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import gc
 import json
@@ -168,6 +197,7 @@ PROMPT_BUCKET = 64           # prompts of 16..64 tokens → a 64-column bucket
 N_REQUESTS = 12
 GEN_LEN = 32
 CACHE_PAGES = 24             # < 8 slots x 6 pages: decode growth preempts
+SPEC_K, SPEC_K8 = 4, 8       # draft budgets: verify at Sq 5 (split), 9 (rows)
 # The encoder path: the paper's models at full published width.
 ENC_BATCH = 8
 BERT_SEQ = 128
@@ -479,6 +509,45 @@ def paged_case(gen, dt, *, B, Sq, lens, q_start, H, Hkv, D, ps, nb):
     return q, kp, vp, tables, poisoned, qpos, kvl
 
 
+def verify_rows(rng, k):
+    """A speculative verify batch at Sq = 1 + k: slot b holds p_b keys
+    before the step and m_b <= k drafts (trimmed per slot, some to 0), so
+    it writes p_b + 1 + m_b keys and queries positions p_b..p_b + m_b; the
+    rest of its k + 1 rows sit at position -1; the last slot is masked
+    whole (not decodable this step). Returns (lens, q_start)."""
+    p = rng.integers(17, MAX_LEN - k - 1, SLOTS)
+    m = rng.integers(0, k + 1, SLOTS)
+    m[:3] = (k, 0, k // 2)
+    lens = (p + 1 + m).tolist()
+    q_start = p.tolist()
+    lens[-1], q_start[-1] = 0, 0
+    return lens, q_start
+
+
+def tail_prefill_rows(rng):
+    """A prefix-hit tail prefill: slot 0 borrowed 3 cached pages and 5 rows
+    of a forked fourth (positions 0..52 resident), and prefills its
+    19-token tail from position 53, mid-page, in a 32-column bucket; every
+    other slot holds keys and is masked (no queries)."""
+    lens = rng.integers(17, MAX_LEN, SLOTS)
+    lens[0] = 53 + 19
+    q_start = lens.copy()
+    q_start[0] = 53
+    return lens.tolist(), q_start.tolist()
+
+
+def serving_feature_cases(rng):
+    """The serving features' attention shapes (phase 11's paths): verify
+    at k = 4 (Sq 5, 15 rows a CTA: the split route) and k = 8 (Sq 9, 27
+    rows: the rows route), and a tail prefill starting mid-page."""
+    return [("verify k4", SPEC_K + 1, *verify_rows(rng, SPEC_K),
+             "verify step k4"),
+            ("verify k8", SPEC_K8 + 1, *verify_rows(rng, SPEC_K8),
+             "verify step k8"),
+            ("tail prefill mid-page", 32, *tail_prefill_rows(rng),
+             "tail prefill")]
+
+
 def run_attention_phase(timer, cfg):
     from repro_torch.kernels import paged_attention as PA
 
@@ -501,7 +570,7 @@ def run_attention_phase(timer, cfg):
             ("decode edge lengths", 1, edge_lens,
              [n - 1 for n in edge_lens], "decode step, edge lengths"),
             ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, "prefill"),
-        ]
+        ] + serving_feature_cases(rng)
         for name, Sq, lens, q_start, path in cases:
             q, kp, vp, bt, dead_bt, qpos, kvl = paged_case(
                 gen, dt, B=SLOTS, Sq=Sq, lens=lens, q_start=q_start,
@@ -595,6 +664,16 @@ def flash_cells(cfg, bert, vit, vit_huge, zamba, rng):
                   True, qpos, (starts + 32).astype(np.int32), "chunk", L))
     cells.append(("bottom-right default", SLOTS, PROMPT_BUCKET, MAX_LEN, H,
                   Hkv, D, True, None, None, "default", L))
+    # speculative verify on contiguous caches at k = 4: Sq 5, each slot's
+    # drafts trimmed to its own count (rows past them at position -1)
+    lens, q_start = verify_rows(rng, SPEC_K)
+    qpos = np.full((SLOTS, SPEC_K + 1), -1, np.int32)
+    for b in range(SLOTS):
+        n = lens[b] - q_start[b]
+        qpos[b, :n] = q_start[b] + np.arange(n)
+    cells.append(("smollm verify k4", SLOTS, SPEC_K + 1, MAX_LEN, H, Hkv, D,
+                  True, qpos, np.asarray(lens, np.int32), "verify step k4",
+                  L))
     # zamba2's shared block (head_dim 80) over its contiguous caches: the
     # generate prefill and a decode step, once per attention group
     z, G = zamba, zamba.n_layers // zamba.attn_every
@@ -814,7 +893,7 @@ def run_int8_attention_phase(timer, cfg):
             ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, "prefill"),
             ("chunked prefill", 32, [t + 32 for t in starts], starts,
              "chunk"),
-        ]
+        ] + serving_feature_cases(rng)
         for name, Sq, lens, q_start, path in cases:
             q, kp, vp, bt, dead_bt, qpos, kvl = paged_case(
                 gen, torch.float32, B=SLOTS, Sq=Sq, lens=lens,
@@ -1049,9 +1128,9 @@ def serve_requests(eng, prompts, limit_s):
     return got, n_tokens, per_step
 
 
-def check_streams(path, streams, vocab):
+def check_streams(path, streams, vocab, gen_len=GEN_LEN):
     for i, toks in enumerate(streams):
-        if len(toks) < GEN_LEN or min(toks) < 0 or max(toks) >= vocab:
+        if len(toks) < gen_len or min(toks) < 0 or max(toks) >= vocab:
             fail(f"{path}: request {i} incomplete or malformed: {toks}")
 
 
@@ -1252,10 +1331,12 @@ def run_encoder_phase(bert, vit):
 # Phase 6: serving from contiguous KV caches
 # ---------------------------------------------------------------------------
 
-def first_divergence(cfg32, params_cpu, prompt, a, b):
+def first_divergence(cfg32, params_cpu, prompt, a, b,
+                     label="contiguous serving fp32"):
     """None if streams a and b agree; else the step where they first
-    differ, failing unless the plain path's top-2 logit margin there is
-    below LOGIT_TOL (a near-tie that fp32 summation order may flip)."""
+    differ, failing unless the plain path's top-2 logit margin after
+    ``prompt + a[:step]`` is below LOGIT_TOL (a near-tie that fp32
+    summation order may flip)."""
     from repro_torch.models import transformer as T
 
     for i, (x, y) in enumerate(zip(a, b)):
@@ -1267,11 +1348,11 @@ def first_divergence(cfg32, params_cpu, prompt, a, b):
         top2 = logits[0, -1].float().topk(2).values
         margin = float(top2[0] - top2[1])
         if margin >= LOGIT_TOL:
-            fail(f"contiguous serving fp32: streams diverge at step {i} with "
-                 f"plain top-2 margin {margin:.3e} >= {LOGIT_TOL}")
+            fail(f"{label}: streams diverge at step {i} with plain top-2 "
+                 f"margin {margin:.3e} >= {LOGIT_TOL}")
         return dict(step=i, margin=margin)
     if len(a) != len(b):
-        fail(f"contiguous serving fp32: stream lengths {len(a)} != {len(b)}")
+        fail(f"{label}: stream lengths {len(a)} != {len(b)}")
     return None
 
 
@@ -1680,6 +1761,410 @@ def run_ssm_parity_phase(cfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving features (prefix cache, speculative decoding, the
+# streaming frontend, observability)
+# ---------------------------------------------------------------------------
+
+def feature_engine(cfg, params, *, attn="paged", cache_pages=None, **kw):
+    """Full-width smollm-135m, 8 slots, max_len 256, page 16, packed
+    weights; ``kw`` adds the serving features."""
+    from repro_torch.core.plan import FUSED, AttentionPolicy
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    policy = FUSED if attn == "fused" else AttentionPolicy("paged", PAGE)
+    return ServingEngine(cfg, params, ServeConfig(
+        batch_slots=SLOTS, max_len=MAX_LEN, cache_dtype=cfg.dtype,
+        pack_weights=True, attention=policy, cache_pages=cache_pages,
+        device="cuda", **kw))
+
+
+def serve_features(eng, prompts, limit_s, gen_len=GEN_LEN):
+    """Drive submit/step until every prompt has ``gen_len`` tokens (a
+    speculative burst past it is cut), cancelling each as it gets there.
+    Returns (streams in prompt order, every token each request reported,
+    tokens, seconds, host wall time of each decode-only step()), the last
+    a step that prefilled nothing."""
+    pending, owner, streams, reported = list(enumerate(prompts)), {}, {}, {}
+    step_s, n_tokens = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pending or eng.slot_live.any() or eng.wait:
+        while pending:
+            h = eng.submit(pending[0][1])
+            if h is None:
+                break
+            owner[h] = pending.pop(0)[0]
+            streams[owner[h]], reported[owner[h]] = [], []
+        pf = eng.prefill_tokens
+        ts = time.perf_counter()
+        out = eng.step()
+        te = time.perf_counter() - ts
+        if out and eng.prefill_tokens == pf:
+            step_s.append(te)
+        for h, t in out.items():
+            burst = t if isinstance(t, list) else [t]
+            s = streams[owner[h]]
+            reported[owner[h]] += burst
+            n_tokens += len(burst)
+            s += burst[:gen_len - len(s)]
+            if len(s) >= gen_len:
+                eng.cancel(h)
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"serving features: not done within {limit_s} s")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return ([streams.get(i, []) for i in range(len(prompts))],
+            [reported.get(i, []) for i in range(len(prompts))],
+            n_tokens, dt, step_s)
+
+
+def page_rows(eng, page: int) -> dict:
+    """One page's rows of every layer's pools (and int8 scales), stacked
+    over layers: {name: (layers, ...)}, a copy."""
+    return {n: torch.stack([c[n][page] for c in eng.caches])
+            for n in ("kp", "vp", "k_scale", "v_scale") if n in eng.caches[0]}
+
+
+def same_rows(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def watch_cow(eng, tag: str) -> dict:
+    """Wrap the engine's COW copy and admission: a fork must equal its
+    donor bitwise right after _copy_page (int8 scale rows included), and
+    every page a borrower shares (its borrowed full pages and its fork's
+    donor) must be bitwise unchanged after the borrower's tail prefill."""
+    seen = {"forks_checked": 0, "shared_pages_checked": 0, "donor": None}
+    copy, admit = eng._copy_page, eng._begin_admit
+
+    def copy_page(src, dst):
+        copy(src, dst)
+        if not same_rows(page_rows(eng, src), page_rows(eng, dst)):
+            fail(f"{tag}: fork {dst} differs from its donor {src} right "
+                 f"after _copy_page")
+        seen["forks_checked"] += 1
+        seen["donor"] = src
+
+    def begin_admit(slot, rid, prompt, tokens, *, start=0, **kw):
+        shared = []
+        if start:
+            shared = list(eng.slot_tables[slot].pages[:start // PAGE])
+            if seen["donor"] is not None:
+                shared.append(seen["donor"])
+        seen["donor"] = None
+        before = {p: page_rows(eng, p) for p in shared}
+        admit(slot, rid, prompt, tokens, start=start, **kw)
+        for p, rows in before.items():
+            if not same_rows(rows, page_rows(eng, p)):
+                fail(f"{tag}: shared page {p} changed under a borrower's "
+                     f"tail prefill from position {start}")
+        seen["shared_pages_checked"] += len(shared)
+
+    eng._copy_page, eng._begin_admit = copy_page, begin_admit
+    return seen
+
+
+def prefix_prompts(cfg, rng):
+    """12 requests on one 48-token system prompt (3 full pages), each with
+    a distinct 8-24-token suffix; two of them keep only 40 tokens of it,
+    so they part inside the cached third page (COW forks)."""
+    system = rng.integers(0, cfg.vocab, 48).tolist()
+    out = []
+    for i in range(N_REQUESTS):
+        head = system[:40] if i in (5, 9) else system
+        out.append(head + rng.integers(0, cfg.vocab,
+                                       int(rng.integers(8, 25))).tolist())
+    return out
+
+
+def spec_prompts(cfg, rng, n=N_REQUESTS):
+    """Prompts with repeated n-grams: a 6-token pattern four times, then a
+    1-8-token tail (the traffic prompt-lookup drafting serves)."""
+    out = []
+    for _ in range(n):
+        pat = rng.integers(0, cfg.vocab, 6).tolist()
+        out.append(pat * 4 + rng.integers(0, cfg.vocab,
+                                          int(rng.integers(1, 9))).tolist())
+    return out
+
+
+def decode_step_ms(step_s):
+    return 1e3 * statistics.median(step_s) if step_s else None
+
+
+def run_prefix_part(cfg, params, prompts, kv_dtype, obs=None):
+    """Part (a) (and, with ``obs``, part (d)): the prefix-cache run under
+    the 24-page pool with watermark eviction."""
+    tag = f"prefix cache {kv_dtype or 'bf16'}" + (" obs" if obs else "")
+    kw = dict(obs=obs) if obs is not None else {}
+    eng = feature_engine(cfg, params, cache_pages=CACHE_PAGES,
+                         prefix_cache=True, prefix_watermark=2,
+                         kv_dtype=kv_dtype, **kw)
+    seen = watch_cow(eng, tag) if obs is None else None
+    reset_counts()
+    streams, reported, n_tokens, dt, step_s = serve_features(eng, prompts,
+                                                             300)
+    required = K1_BF16 + (K4_BF16 if kv_dtype is None else (
+        "paged_attention_int8", "paged_attention_int8_rows",
+        "paged_attention_int8_split"))
+    launches = read_counts(tag, required)
+    check_streams(tag, streams, cfg.vocab)
+    st = eng.stats()
+    for key in ("prefix_hits", "prefix_cow_forks", "prefix_evictions"):
+        if st[key] <= 0:
+            fail(f"{tag}: {key} = {st[key]}, expected > 0")
+    eng.pool.check()
+    eng.prefix.check()
+    if seen is not None and (seen["forks_checked"] < 1
+                             or seen["shared_pages_checked"] < 1):
+        fail(f"{tag}: no fork or shared page was checked: {seen}")
+    res = dict(requests=N_REQUESTS, tokens=n_tokens, seconds=dt,
+               tokens_per_s=n_tokens / dt, launches=launches, stats=st,
+               decode_step_host_ms=decode_step_ms(step_s),
+               decode_steps=len(step_s))
+    if seen is not None:
+        res.update(forks_checked=seen["forks_checked"],
+                   shared_pages_checked=seen["shared_pages_checked"])
+    log(f"{tag}: {N_REQUESTS} requests x {GEN_LEN} tokens, {n_tokens} tokens "
+        f"in {dt:.3f} s ({n_tokens / dt:.1f} tok/s), decode step "
+        f"{res['decode_step_host_ms']:.2f} ms host wall (median of "
+        f"{len(step_s)}), hits {st['prefix_hits']} forks "
+        f"{st['prefix_cow_forks']} evictions {st['prefix_evictions']} "
+        f"preemptions {st['n_preemptions']}"
+        + (f", forks equal their donors ({seen['forks_checked']}), shared "
+           f"pages unchanged ({seen['shared_pages_checked']})" if seen else "")
+        + f"; launches {launches}")
+    return res, eng, streams, reported
+
+
+def run_spec_part(cfg, params, prompts, name, *, attn="paged", k=SPEC_K,
+                  kv_dtype=None, required=()):
+    """Part (b): NGramDrafter(k) against the same engine without it."""
+    from repro_torch.serving.spec_decode import NGramDrafter
+
+    runs = {}
+    for on in (False, True):
+        eng = feature_engine(cfg, params, attn=attn, kv_dtype=kv_dtype,
+                             spec=NGramDrafter(k=k) if on else None)
+        reset_counts()
+        streams, _, n_tokens, dt, step_s = serve_features(eng, prompts, 300)
+        launches = read_counts(f"spec {name}", required if on else ())
+        check_streams(f"spec {name}", streams, cfg.vocab)
+        st = eng.stats()
+        if on:
+            if st["spec_accepted_tokens"] <= 0:
+                fail(f"spec {name}: no draft was accepted: {st}")
+            if eng.paged:
+                if st["spec_rollback_pages"] <= 0:
+                    fail(f"spec {name}: no page was rolled back: {st}")
+                eng.pool.check()
+                if eng.pool.free_pages != eng.pool.n_pages:
+                    fail(f"spec {name}: {eng.pool.pages_in_use} pages still "
+                         f"in use at the end")
+        runs[on] = (n_tokens / dt, launches, decode_step_ms(step_s), st,
+                    streams)
+        del eng
+    st = runs[True][3]
+    # bf16 streams with and without speculation are not gated: K1's route
+    # follows M (a verify's M = 8(1 + k) takes wgmma, a decode's M = 8
+    # mma), so a near-tie may round the other way; the fp32 identity run
+    # below is the gate
+    parted = [i for i, (a, b) in enumerate(zip(runs[False][4], runs[True][4]))
+              if a != b]
+    return dict(k=k, attention=attn, kv_dtype=kv_dtype,
+                tokens_per_s=runs[True][0], tokens_per_s_no_spec=runs[False][0],
+                step_host_ms=runs[True][2],
+                step_host_ms_no_spec=runs[False][2], launches=runs[True][1],
+                acceptance_rate=st["spec_acceptance_rate"],
+                accepted=st["spec_accepted_tokens"],
+                rejected=st["spec_rejected_tokens"],
+                rollback_pages=st.get("spec_rollback_pages"),
+                bf16_streams_parted=parted)
+
+
+def run_features_phase(cfg):
+    """Phase 11 on full-width smollm-135m, bf16 (paged, page 16, 8 slots),
+    then the fp32 identity runs. Kernel counters are reset before each
+    part's run and read after it."""
+    from repro_torch.core.api import pack_model_weights
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import (Observability, validate_metrics_snapshot,
+                                 validate_trace)
+    from repro_torch.serving.frontend import AsyncServingEngine
+    from repro_torch.serving.spec_decode import (DraftModelDrafter,
+                                                 NGramDrafter)
+
+    res = {}
+    params = T.init_model(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(30)
+    pprompts = prefix_prompts(cfg, rng)
+
+    # (a) the prefix cache, bf16 then int8 KV
+    res["prefix_bf16"], eng, _, _ = run_prefix_part(cfg, params, pprompts,
+                                                    None)
+    del eng
+    res["prefix_int8_kv"], eng, _, _ = run_prefix_part(cfg, params, pprompts,
+                                                       "int8")
+    del eng
+
+    # (b) speculative decoding, NGramDrafter on prompts with repeated n-grams
+    sprompts = spec_prompts(cfg, rng)
+    routes = {f"verify Sq {k + 1}": FA.route_for(torch.bfloat16, k + 1,
+                                                 cfg.n_heads // cfg.n_kv_heads)
+              for k in (SPEC_K, SPEC_K8)}
+    if routes != {f"verify Sq {SPEC_K + 1}": "split",
+                  f"verify Sq {SPEC_K8 + 1}": "rows"}:
+        fail(f"spec: the verify shapes route {routes}")
+    res["spec_routes"] = routes
+    spec = {}
+    spec["paged k4"] = run_spec_part(
+        cfg, params, sprompts, "paged k4",
+        required=K1_BF16 + ("paged_attention", "paged_attention_split",
+                            "paged_attention_rows"))
+    spec["paged k8"] = run_spec_part(
+        cfg, params, sprompts, "paged k8", k=SPEC_K8,
+        required=K1_BF16 + ("paged_attention", "paged_attention_rows"))
+    spec["fused k4"] = run_spec_part(cfg, params, sprompts, "fused k4",
+                                     attn="fused", required=K1_BF16 + K3_BF16)
+    spec["int8 kv k4"] = run_spec_part(
+        cfg, params, sprompts, "int8 kv k4", kv_dtype="int8",
+        required=K1_BF16 + ("paged_attention_int8",
+                            "paged_attention_int8_split",
+                            "paged_attention_int8_rows"))
+    for name, r in spec.items():
+        log(f"spec {name}: {r['tokens_per_s']:.1f} tok/s with NGramDrafter("
+            f"k={r['k']}), {r['tokens_per_s_no_spec']:.1f} without; "
+            f"acceptance {r['acceptance_rate']:.3f} ({r['accepted']} "
+            f"accepted, {r['rejected']} rejected, {r['rollback_pages']} "
+            f"pages rolled back; bf16 streams parted from the non-spec "
+            f"ones: {len(r['bf16_streams_parted'])} of {N_REQUESTS}); step "
+            f"{r['step_host_ms']:.2f} ms host wall "
+            f"({r['step_host_ms_no_spec']:.2f} without); launches "
+            f"{r['launches']}")
+    # a draft model: smollm-135m at full width drafting for itself
+    drafter = DraftModelDrafter(
+        cfg, params, k=3, max_len=MAX_LEN, device="cuda", pack_weights=True)
+    eng = feature_engine(cfg, params, spec=drafter)
+    reset_counts()
+    streams, _, n_tokens, dt, _ = serve_features(eng, sprompts[:3], 300,
+                                                 gen_len=16)
+    dm_launches = read_counts("spec draft model", K1_BF16 + K4_BF16)
+    check_streams("spec draft model", streams, cfg.vocab, gen_len=16)
+    st = eng.stats()
+    if st["spec_accepted_tokens"] <= 0:
+        fail(f"spec draft model: no draft was accepted: {st}")
+    spec["draft model k3"] = dict(
+        requests=3, tokens=n_tokens, seconds=dt, tokens_per_s=n_tokens / dt,
+        acceptance_rate=st["spec_acceptance_rate"],
+        accepted=st["spec_accepted_tokens"],
+        rejected=st["spec_rejected_tokens"], launches=dm_launches)
+    log(f"spec draft model (smollm-135m drafting for itself, k=3): "
+        f"acceptance rate {st['spec_acceptance_rate']:.3f} "
+        f"({st['spec_accepted_tokens']} accepted, "
+        f"{st['spec_rejected_tokens']} rejected), {n_tokens / dt:.1f} tok/s")
+    del eng, drafter
+    res["spec"] = spec
+
+    # (c) the streaming frontend: more concurrent streams than slots
+    eng = feature_engine(cfg, params, cache_pages=CACHE_PAGES)
+    aeng = AsyncServingEngine(eng)
+    fprompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+                for n in rng.integers(16, PROMPT_BUCKET + 1, N_REQUESTS)]
+
+    async def streams_all():
+        return await asyncio.gather(*(aeng.complete(p, GEN_LEN,
+                                                    priority=i % 2)
+                                      for i, p in enumerate(fprompts)))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = asyncio.run(streams_all())
+    dt = time.perf_counter() - t0
+    launches = read_counts("frontend", K1_BF16 + K4_BF16)
+    check_streams("frontend", outs, cfg.vocab)
+    if aeng.in_flight or eng.pool.free_pages != eng.pool.n_pages:
+        fail(f"frontend: {aeng.in_flight} in flight, "
+             f"{eng.pool.pages_in_use} pages in use at the end")
+    slo = aeng.slo_report()
+    res["frontend"] = dict(streams=N_REQUESTS, tokens=sum(map(len, outs)),
+                           seconds=dt, slo=slo, launches=launches,
+                           preemptions=eng.n_preemptions)
+    log(f"frontend: {N_REQUESTS} concurrent streams over {SLOTS} slots, "
+        f"{sum(map(len, outs))} tokens in {dt:.3f} s, "
+        f"{eng.n_preemptions} preemptions; TTFT {slo['ttft_s']} s, ITL "
+        f"{slo['itl_s']} s; launches {launches}")
+    del eng, aeng
+
+    # (d) observability: (a)'s bf16 run again with Observability()
+    obs = Observability()
+    r, eng, streams, reported = run_prefix_part(cfg, params, pprompts, None,
+                                                obs=obs)
+    doc = obs.trace.export()
+    problems = validate_trace(doc)
+    snap = obs.metrics.snapshot()
+    problems += validate_metrics_snapshot(snap)
+    if problems:
+        fail(f"observability: {problems[:5]}")
+    (OUT_DIR / "phase11_trace.json").write_text(json.dumps(doc))
+    preempted = 0
+    for rid in range(N_REQUESTS):    # request ids follow submission order
+        rt = eng.request_trace(rid)
+        if rt is None or rt.tokens != reported[rid]:
+            fail(f"observability: request {rid}'s trace holds "
+                 f"{None if rt is None else len(rt.tokens)} tokens, its "
+                 f"stream {len(reported[rid])}")
+        preempted += rt.n_preemptions
+    if preempted < 1:
+        fail("observability: no traced request was preempted")
+    base_ms = res["prefix_bf16"]["decode_step_host_ms"]
+    r.update(trace_events=len(doc["traceEvents"]),
+             preempted_requests_traced=preempted,
+             decode_step_host_ms_null_obs=base_ms)
+    res["obs"] = r
+    log(f"observability: trace of {len(doc['traceEvents'])} events and "
+        f"metrics snapshot valid; every request trace holds exactly its "
+        f"stream ({preempted} preemptions traced); decode step host wall "
+        f"{r['decode_step_host_ms']:.2f} ms with obs, {base_ms:.2f} ms with "
+        f"NULL_OBS")
+    del eng
+
+    # fp32 identity: prefix on = off, spec = no spec, at full width
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.init_model(cfg32, seed=31, device="cuda")
+    params_cpu = pack_model_weights(T.init_model(cfg32, seed=31,
+                                                 device="cpu"))
+    t0 = time.perf_counter()
+    ident = {}
+    for name, prompts, on in (
+            ("prefix", pprompts[:8], dict(prefix_cache=True)),
+            ("spec k4", sprompts[:8], dict(spec=NGramDrafter(k=SPEC_K)))):
+        off_eng = feature_engine(cfg32, params32)
+        off = serve_features(off_eng, prompts, 600, gen_len=16)[0]
+        del off_eng
+        on_eng = feature_engine(cfg32, params32, **on)
+        got = serve_features(on_eng, prompts, 600, gen_len=16)[0]
+        stats = on_eng.stats()
+        del on_eng
+        ties = {}
+        for i, p in enumerate(prompts):
+            d = first_divergence(cfg32, params_cpu, p, off[i], got[i],
+                                 label=f"{name} fp32 identity")
+            if d is not None:
+                ties[i] = d
+        ident[name] = dict(requests=len(prompts), equal=not ties,
+                           near_ties=ties,
+                           **{k: v for k, v in stats.items()
+                              if k.startswith(("prefix_hit", "spec_acc"))})
+        log(f"{name} fp32 full width: streams of {len(prompts)} requests "
+            f"{'equal' if not ties else f'equal up to near-ties {ties}'} "
+            f"with the feature off")
+    ident["seconds"] = time.perf_counter() - t0
+    res["fp32_identity"] = ident
+    return res
+
+
 def aggregate(rows, dtype, path="decode step"):
     """Per run of ``path`` (a decode step, an encoder forward): each of its
     cells weighted by its uses per run."""
@@ -1750,6 +2235,7 @@ def main() -> None:
         zamba, ZAMBA_PROMPT, K1_BF16 + K3_BF16 + K6_BF16, False)
     report["ssm_parity"] = {c.name: run_ssm_parity_phase(c)
                             for c in (mamba, zamba)}
+    report["features"] = feat = run_features_phase(cfg)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],
@@ -1758,7 +2244,13 @@ def main() -> None:
                "contiguous serving": report["contiguous"]["launches"],
                "int8 paged serving": report["int8_serving"]["launches"],
                f"{MAMBA} serving": report["mamba2_serving"]["launches"],
-               f"{ZAMBA} serving": report["zamba2_serving"]["launches"]}
+               f"{ZAMBA} serving": report["zamba2_serving"]["launches"],
+               "prefix cache": feat["prefix_bf16"]["launches"],
+               "prefix cache, int8 KV": feat["prefix_int8_kv"]["launches"],
+               **{f"spec {n}": r["launches"]
+                  for n, r in feat["spec"].items()},
+               "frontend": feat["frontend"]["launches"],
+               "prefix cache, obs": feat["obs"]["launches"]}
 
     def entry(name, source, replaces, rows, path, other_paths):
         launches = {p: c[name] for p, c in by_path.items() if c[name]}
@@ -1813,7 +2305,8 @@ def main() -> None:
         entry("flash_attention", "flash_attention",
               "src/repro/kernels/flash_attention.py:199", report["flash"],
               f"{bert.name} forward", (f"{vit.name} forward", "decode step",
-                                       "zamba2 prefill", "zamba2 decode step")),
+                                       "zamba2 prefill", "zamba2 decode step",
+                                       "verify step k4")),
         entry("flash_attention_rows", "flash_attention",
               "src/repro/kernels/flash_attention.py:199",
               on_route("rows", "flash"), f"{bert.name} forward",
@@ -1822,26 +2315,33 @@ def main() -> None:
         entry("flash_attention_split", "flash_attention",
               "src/repro/kernels/flash_attention.py:199",
               on_route("split", "flash"), "decode step",
-              ("zamba2 decode step",)),
+              ("zamba2 decode step", "verify step k4")),
         entry("paged_attention", "paged_attention",
               "src/repro/kernels/paged_attention.py:188",
-              report["attention"], "decode step", ("prefill",)),
+              report["attention"], "decode step",
+              ("prefill", "verify step k4", "verify step k8",
+               "tail prefill")),
         entry("paged_attention_rows", "paged_attention",
               "src/repro/kernels/paged_attention.py:188",
-              on_route("rows", "attention"), "prefill", ()),
+              on_route("rows", "attention"), "prefill",
+              ("verify step k8", "tail prefill")),
         entry("paged_attention_split", "paged_attention",
               "src/repro/kernels/paged_attention.py:188",
               on_route("split", "attention"), "decode step",
-              ("decode step, edge lengths",)),
+              ("decode step, edge lengths", "verify step k4")),
         entry("paged_attention_int8", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
-              report["int8_attention"], "decode step", ("prefill", "chunk")),
+              report["int8_attention"], "decode step",
+              ("prefill", "chunk", "verify step k4", "verify step k8",
+               "tail prefill")),
         entry("paged_attention_int8_split", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
-              on_route("split", "int8_attention"), "decode step", ()),
+              on_route("split", "int8_attention"), "decode step",
+              ("verify step k4",)),
         entry("paged_attention_int8_rows", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
-              on_route("rows", "int8_attention"), "prefill", ("chunk",)),
+              on_route("rows", "int8_attention"), "prefill",
+              ("chunk", "verify step k8", "tail prefill")),
         entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:117",
               report["ssd"], main_ssd,
               [p for p in ssd_paths if p != main_ssd]),

@@ -4,6 +4,7 @@ spends its time, on one GPU.
 
     PYTHONPATH=src python3 scripts/torch_decode_profile.py [--steps 20]
         [--attn-backend paged|fused] [--weight-dtype int8] [--kv-dtype int8]
+        [--obs] [--spec K | --ngram-prompts]
     PYTHONPATH=src python3 scripts/torch_decode_profile.py --encoder bert-base
     PYTHONPATH=src python3 scripts/torch_decode_profile.py --arch mamba2-1.3b \
         --attn-backend fused --prompt-len 384
@@ -13,7 +14,12 @@ weights, resident block-major weights; paged KV with page 16, or
 contiguous KV caches under ``--attn-backend fused``) through ServingEngine
 with every slot decoding. ``--weight-dtype int8`` runs every projection
 through the W8A8 GEMM (weights quantized at pack time) and ``--kv-dtype
-int8`` stores the KV pages int8 (paged only). ``--arch mamba2-1.3b`` or
+int8`` stores the KV pages int8 (paged only). ``--obs`` serves with ``Observability()`` on (metrics, trace spans,
+request traces; NULL_OBS otherwise). ``--spec K`` decodes speculatively
+with ``NGramDrafter(k=K)``, and then, as with ``--ngram-prompts`` alone,
+every prompt repeats an 8-token pattern (the traffic prompt-lookup
+drafting serves); the result adds tokens emitted per step and the
+acceptance rate. ``--arch mamba2-1.3b`` or
 ``zamba2-2.7b`` (contiguous caches, ``--attn-backend fused``) runs the
 model's serving forward on every slot at once, as the engine's generate()
 does (its submit() takes one slot for these families): first the prefill
@@ -100,11 +106,23 @@ def main(argv=None) -> int:
     ap.add_argument("--encoder", default=None,
                     choices=["bert-base", "vit-base"],
                     help="profile encoder_forward instead of decode")
+    ap.add_argument("--obs", action="store_true",
+                    help="smollm-135m: serve with Observability() on")
+    ap.add_argument("--spec", type=int, default=0, metavar="K",
+                    help="smollm-135m: speculative decoding with "
+                         "NGramDrafter(k=K) (implies --ngram-prompts)")
+    ap.add_argument("--ngram-prompts", action="store_true",
+                    help="smollm-135m: prompts that repeat an 8-token "
+                         "pattern")
     args = ap.parse_args(argv)
     ssm = args.arch != "smollm-135m"
     args.attn_backend = args.attn_backend or ("fused" if ssm else "paged")
     if args.kv_dtype and args.attn_backend != "paged":
         ap.error("--kv-dtype needs --attn-backend paged")
+    if (args.obs or args.spec or args.ngram_prompts) and \
+            (ssm or args.encoder):
+        ap.error("--obs, --spec and --ngram-prompts profile smollm-135m's "
+                 "decode step")
     if ssm and (args.attn_backend != "fused" or args.kv_dtype):
         ap.error(f"{args.arch} serves from contiguous caches: "
                  f"--attn-backend fused, no --kv-dtype")
@@ -117,7 +135,9 @@ def main(argv=None) -> int:
     from repro_torch.core.api import pack_model_weights
     from repro_torch.core.plan import FUSED, AttentionPolicy, GemmPolicy
     from repro_torch.models import transformer as T
+    from repro_torch.obs import NULL_OBS, Observability
     from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.spec_decode import NGramDrafter
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -185,22 +205,39 @@ def main(argv=None) -> int:
                                 attention=AttentionPolicy(args.attn_backend,
                                                           16),
                                 weight_dtype=args.weight_dtype,
-                                kv_dtype=args.kv_dtype, device="cuda"))
+                                kv_dtype=args.kv_dtype, device="cuda",
+                                spec=(NGramDrafter(k=args.spec)
+                                      if args.spec else None),
+                                obs=Observability() if args.obs
+                                else NULL_OBS))
         for _ in range(args.slots):
-            eng.submit(rng.integers(0, cfg.vocab, args.prompt_len).tolist())
+            if args.spec or args.ngram_prompts:
+                pat = rng.integers(0, cfg.vocab, 8).tolist()
+                prompt = (pat * args.prompt_len)[:args.prompt_len]
+            else:
+                prompt = rng.integers(0, cfg.vocab, args.prompt_len).tolist()
+            eng.submit(prompt)
         what = (f"smollm-135m decode step, {args.slots} slots, "
                 f"{args.attn_backend} attention, weights "
-                f"{args.weight_dtype or cfg.dtype}, KV {args.kv_dtype or cfg.dtype}")
-        step = eng.step
+                f"{args.weight_dtype or cfg.dtype}, KV {args.kv_dtype or cfg.dtype}"
+                + (", obs on" if args.obs else "")
+                + (f", NGramDrafter(k={args.spec})" if args.spec else "")
+                + (", n-gram prompts" if args.ngram_prompts or args.spec
+                   else ""))
+
+        def step():
+            return sum(len(t) if isinstance(t, list) else 1
+                       for t in eng.step().values())
         runs[what] = (step, args.steps)
 
     results = [measure(step, n) for step, n in runs.values()]
     res = {"card": card, "torch": torch.__version__}
     if len(runs) == 1:
         res.update(what=next(iter(runs)), **results[0])
-        if not args.encoder:
+        if not args.encoder and not ssm:
             res.update(context=f"{args.prompt_len}+ tokens per slot",
-                       decode_tokens_per_s=args.slots / res["step_ms"] * 1e3)
+                       decode_tokens_per_s=res["tokens_per_step"]
+                       / res["step_ms"] * 1e3, stats=eng.stats())
     else:
         res["runs"] = dict(zip(runs, results))
     for k, v in res.items():
@@ -211,20 +248,25 @@ def main(argv=None) -> int:
         f"_{args.encoder}" if args.encoder else
         (f"_{args.arch}" if ssm else "") + f"_{args.attn_backend}"
         + (f"_w{args.weight_dtype}" if args.weight_dtype else "")
-        + (f"_kv{args.kv_dtype}" if args.kv_dtype else ""))
+        + (f"_kv{args.kv_dtype}" if args.kv_dtype else "")
+        + ("_obs" if args.obs else "") + (f"_spec{args.spec}" if args.spec
+                                          else "")
+        + ("_ngram" if args.ngram_prompts and not args.spec else ""))
     (out / f"{name}.json").write_text(json.dumps(res, indent=1))
     return 0 if all(r["device_busy_ms_per_step"] > 0 for r in results) else 1
 
 
 def measure(step, n_steps: int) -> dict:
     """Host wall time per call over ``n_steps`` calls (after 3 warm-up
-    calls), then device time by kernel over 5 profiled calls."""
+    calls), then device time by kernel over 5 profiled calls. A step that
+    returns the tokens it emitted adds their mean over the timed calls."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    n_tokens = 0
     t0 = time.perf_counter()
     for _ in range(n_steps):
-        step()
+        n_tokens += step() or 0
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / n_steps * 1e3
 
@@ -245,7 +287,8 @@ def measure(step, n_steps: int) -> dict:
         by_kind[kind] += e.time_range.elapsed_us() / 1e3 / n_prof
         n_kernels[kind] += 1
     busy_ms = sum(by_kind.values())
-    return dict(step_ms=step_ms, device_ms_per_step=dict(by_kind),
+    return dict(step_ms=step_ms, tokens_per_step=n_tokens / n_steps or None,
+                device_ms_per_step=dict(by_kind),
                 device_ops_per_step={k: v / n_prof
                                      for k, v in n_kernels.items()},
                 device_busy_ms_per_step=busy_ms,

@@ -12,10 +12,15 @@ Usage:
       --device cpu --max-len 64     # plain versions of the kernels, on CPU
   python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --batch-slots 1               # Mamba-2 (the SSD kernel), contiguous
+  python -m repro_torch.launch.serve --arch smollm-135m \
+      --prefix-cache --shared-prefix-len 32 --spec ngram \
+      --async-demo 8 --trace-out trace.json --metrics-json metrics.json
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import json
 import time
 
 import numpy as np
@@ -24,8 +29,11 @@ import torch
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.plan import AttentionPolicy, GemmPolicy
 from repro_torch.models import transformer as T
+from repro_torch.obs import NULL_OBS, Observability
 from repro_torch.serving.engine import ServeConfig, ServingEngine
+from repro_torch.serving.frontend import AsyncServingEngine
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.spec_decode import make_drafter
 
 
 def _sync(device: torch.device) -> None:
@@ -80,6 +88,34 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="tokens of prefill per engine step (chunked "
                          "prefill); default: whole prompt at submit")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged only: share full prompt-prefix KV pages "
+                         "across requests (copy-on-write radix cache)")
+    ap.add_argument("--prefix-watermark", type=int, default=0,
+                    help="with --prefix-cache: evict cold cached entries "
+                         "each step until this many pool pages are free "
+                         "(0 = evict only on demand)")
+    ap.add_argument("--spec", default=None, metavar="DRAFTER",
+                    help="speculative decoding on the continuous-batching "
+                         "path: 'ngram' (prompt-lookup self-speculation) or "
+                         "'draft:<arch>' (a registry draft model on the same "
+                         "device) — greedy only; step() then emits bursts "
+                         "of verified tokens")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="with --spec: draft budget per request per step")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="continuous-batching workload: prepend this many "
+                         "shared tokens to every prompt (the system-prompt "
+                         "traffic the prefix cache serves)")
+    ap.add_argument("--async-demo", type=int, default=0, metavar="N",
+                    help="also run N concurrent requests through the "
+                         "AsyncServingEngine streaming frontend")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable observability and write a Perfetto/Chrome "
+                         "trace of the serving engines to PATH")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="enable observability and write the metrics "
+                         "registry snapshot to PATH as JSON")
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     pageable = cfg.family not in T.SSD_FAMILIES
@@ -87,18 +123,39 @@ def main(argv=None):
     if args.kv_dtype and backend != "paged":
         ap.error("--kv-dtype requires the paged attention backend "
                  "(--attn-backend paged)")
+    if args.prefix_cache and backend != "paged":
+        ap.error("--prefix-cache requires the paged attention backend "
+                 "(--attn-backend paged)")
+    if args.spec and args.temperature > 0:
+        ap.error("--spec requires greedy sampling (--temperature 0)")
+    if args.spec and not pageable:
+        ap.error("--spec requires position-masked cache writes; the "
+                 "ssm/hybrid families' recurrent state has none")
 
     policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)
     attn = AttentionPolicy(backend=backend, page_size=args.page_size)
     scheduler = (Scheduler(prefill_chunk=args.prefill_chunk)
                  if args.prefill_chunk else None)
     params = T.init_model(cfg, seed=args.seed, device=args.device)
+    # one recorder across the continuous-batching and async engines: their
+    # phase spans land on shared tracks, request ids on async tracks
+    obs = (Observability() if (args.trace_out or args.metrics_json)
+           else NULL_OBS)
+    spec = None
+    if args.spec:
+        spec = make_drafter(args.spec, k=args.spec_k, max_len=args.max_len,
+                            smoke=args.smoke, seed=args.seed + 1,
+                            device=args.device,
+                            pack_weights=args.pack_weights)
+        print(f"[serve] speculative decoding: {args.spec} k={args.spec_k}")
     sc = ServeConfig(
         batch_slots=args.batch_slots, max_len=args.max_len,
         temperature=args.temperature, cache_dtype=cfg.dtype, gemm=policy,
         attention=attn, pack_weights=args.pack_weights,
         weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype,
         cache_pages=args.cache_pages, scheduler=scheduler,
+        prefix_cache=args.prefix_cache,
+        prefix_watermark=args.prefix_watermark, spec=spec, obs=obs,
         device=args.device)
     engine = ServingEngine(cfg, params, sc)
     dev = engine.device
@@ -106,7 +163,8 @@ def main(argv=None):
           f"max_len={args.max_len} gemm={policy.resolved_backend(dev)}/"
           f"{policy.mode} attn={engine.attn.backend} "
           f"page_size={args.page_size} packed={args.pack_weights} "
-          f"weight_dtype={args.weight_dtype} kv_dtype={args.kv_dtype}")
+          f"weight_dtype={args.weight_dtype} kv_dtype={args.kv_dtype} "
+          f"prefix_cache={args.prefix_cache}")
     gen = (torch.Generator().manual_seed(args.seed)
            if args.temperature > 0 else None)
 
@@ -125,13 +183,16 @@ def main(argv=None):
     if cfg.family in T.SSD_FAMILIES and args.batch_slots > 1:
         print("[serve] continuous batching skipped: ssm/hybrid families "
               "support slot admission only with --batch-slots 1")
+        _write_obs(args, obs)
         return 0
     lo = max(1, min(4, args.prompt_len))
-    pending = [rng.integers(0, cfg.vocab,
-                            rng.integers(lo, args.prompt_len + 1)).tolist()
-               for _ in range(args.n_requests)]
+    shared = rng.integers(0, cfg.vocab, args.shared_prefix_len).tolist()
+    pending = [shared + rng.integers(0, cfg.vocab,
+                                     rng.integers(lo, args.prompt_len + 1))
+               .tolist() for _ in range(args.n_requests)]
     streams = {}            # handle (request id, or slot id) → its tokens
     done_tokens = 0
+    _sync(dev)
     t0 = time.perf_counter()
     while pending or engine.slot_live.any() or engine.wait:
         while pending:
@@ -141,9 +202,12 @@ def main(argv=None):
             streams[handle] = []
             pending.pop(0)
         out = engine.step(generator=gen)
-        done_tokens += len(out)
         for handle, tok in out.items():
-            streams[handle].append(tok)
+            # spec engines emit {handle: [tokens]} bursts, plain ones
+            # {handle: token}
+            burst = tok if isinstance(tok, list) else [tok]
+            done_tokens += len(burst)
+            streams[handle].extend(burst)
             if len(streams[handle]) >= args.gen_len:
                 engine.cancel(handle)       # done: free its slot (and pages)
     _sync(dev)
@@ -152,7 +216,49 @@ def main(argv=None):
           f"{done_tokens} tokens in {dt:.2f}s "
           f"({done_tokens / max(dt, 1e-9):.1f} tok/s)")
     print(f"[serve] stats: {engine.stats()}")
+
+    if args.async_demo > 0:
+        engine3 = ServingEngine(cfg, params, sc)
+        aeng = AsyncServingEngine(engine3)
+
+        async def one(i: int) -> int:
+            prompt = shared + rng.integers(
+                0, cfg.vocab, max(lo, args.prompt_len // 2)).tolist()
+            n = 0
+            async for _tok in aeng.stream(prompt, args.gen_len,
+                                          priority=i % 2):
+                n += 1
+            return n
+
+        async def demo():
+            return await asyncio.gather(
+                *(one(i) for i in range(args.async_demo)))
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        counts = asyncio.run(demo())
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        print(f"[serve] async streaming: {args.async_demo} concurrent "
+              f"requests, {sum(counts)} tokens in {dt:.2f}s "
+              f"({sum(counts) / max(dt, 1e-9):.1f} tok/s)")
+        print(f"[serve] async stats: {engine3.stats()}")
+        print(f"[serve] async slo: {json.dumps(aeng.slo_report())}")
+    _write_obs(args, obs)
     return 0
+
+
+def _write_obs(args, obs) -> None:
+    """Write the requested observability artifacts (nothing when neither
+    --trace-out nor --metrics-json was given)."""
+    if args.trace_out:
+        n = obs.trace.write(args.trace_out)
+        print(f"[serve] trace: {n} events -> {args.trace_out} "
+              f"(open at https://ui.perfetto.dev)")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(obs.metrics.snapshot(), f, indent=2, sort_keys=True)
+        print(f"[serve] metrics: snapshot -> {args.metrics_json}")
 
 
 if __name__ == "__main__":

@@ -37,14 +37,37 @@ kernel on the card); ``kv_dtype="int8"`` (paged mode only) stores the page
 pools int8 with one fp32 scale per (page, kv head), frozen at the page's
 first row, and the paged kernel dequantizes each page as it reads it.
 
-Not ported yet, each rejected with NotImplementedError: the prefix
-cache, speculative decoding, observability and tensor parallelism
-(ROADMAP.md).
+**Prefix cache** (``prefix_cache=True``, paged mode only): full prompt
+pages are shared across requests through a copy-on-write radix cache
+(``serving/prefix_cache.py``). Admission looks the prompt up, borrows
+every cached full page (pool ref counts), forks the first divergent page
+(``_copy_page``: one indexed device copy per layer's pools, int8 scale
+rows included) and prefills only the uncached tail; a finished prefill
+indexes its prompt pages, and cold entries evict by LRU on demand or
+down to ``prefix_watermark`` free pages at the start of each step.
+
+**Speculative decoding** (``spec=<Drafter>``, ``serving/spec_decode.py``;
+greedy only, not for the SSD families): each step drafts up to ``spec.k``
+tokens per request, verifies them in one masked forward (Sq = 1 + k at
+each slot's offset, the argmax of every column), keeps the longest
+agreeing prefix plus the bonus token and rolls the rest back (valid
+lengths reset; paged: ``BlockTable.truncate``). ``step()`` then returns
+``{handle: [tokens]}`` bursts; greedy streams equal ``spec=None``'s.
+
+**Observability** (``obs=Observability()``, ``repro_torch/obs``): the
+instruments are registered once in ``__init__``; every hook is host-side
+behind ``if obs.enabled:`` and adds no device synchronization (``step()``
+already brings the sampled tokens to the host). ``request_trace(handle)``
+is the per-request lifecycle record; ``stats()`` is plain JSON.
+
+Not ported yet, rejected with NotImplementedError: tensor parallelism
+(``ServeConfig.mesh``; ROADMAP.md).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -55,7 +78,10 @@ from repro_torch.core import api
 from repro_torch.core.plan import AttentionPolicy, GemmPolicy
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.obs import NULL_OBS, Observability, RequestTrace
+from repro_torch.obs.metrics import TIME_BUCKETS_S, json_scalars
 from repro_torch.serving.kv_pool import BlockTable, PagePool
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import RequestView, Scheduler
 
 
@@ -85,12 +111,21 @@ class ServeConfig:
     # quantized at pack time (implies resident packed weights)
     kv_dtype: Optional[str] = None  # paged only: "int8" → int8 KV pages with
     # per-page-per-head fp32 scales, dequantized inside the paged kernel
-    # Features of the reference engine not ported yet: setting any of these
-    # raises NotImplementedError (ROADMAP.md lists them).
-    mesh: Optional[object] = None
     prefix_cache: bool = False
+    # paged only: share full prompt-prefix KV pages across requests through
+    # a copy-on-write radix cache (serving/prefix_cache.py)
+    prefix_watermark: int = 0
+    # with prefix_cache: evict cold cached entries at step() start until at
+    # least this many pool pages are free; 0 → evict only on demand
     spec: Optional[object] = None
-    obs: Optional[object] = None
+    # speculative decoding: a Drafter (serving/spec_decode.py) proposing up
+    # to spec.k tokens per request per step, verified in one masked forward
+    # (Sq = 1 + k); step() then returns {handle: [tokens]}. Greedy only.
+    obs: Observability = NULL_OBS
+    # observability (repro_torch/obs): Observability() collects metrics,
+    # trace spans and per-request records; NULL_OBS records nothing
+    mesh: Optional[object] = None
+    # tensor parallelism: not ported yet, raises NotImplementedError
 
     def policy(self) -> Optional[GemmPolicy]:
         """The effective GemmPolicy: ``gemm`` with ``weight_dtype`` folded
@@ -128,24 +163,42 @@ class _Waiting:
 
 
 class ServingEngine:
-    """Greedy/temperature sampling with page-bound continuous batching."""
+    """Greedy/temperature sampling with page-bound continuous batching,
+    the prefix cache, speculative decoding and observability."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig):
-        for name in ("mesh", "spec", "obs"):
-            if getattr(sc, name) is not None:
-                raise NotImplementedError(
-                    f"ServeConfig.{name} is not ported yet (ROADMAP.md)")
-        if sc.prefix_cache:
+        if sc.mesh is not None:
             raise NotImplementedError(
-                "ServeConfig.prefix_cache is not ported yet (ROADMAP.md)")
+                "ServeConfig.mesh (tensor parallelism) is not ported yet "
+                "(ROADMAP.md)")
         T.check_supported(cfg)
         if torch_dtype(sc.cache_dtype) != cfg.param_dtype:
             raise NotImplementedError(
                 f"cache_dtype={sc.cache_dtype!r} differs from the model's "
                 f"{cfg.dtype!r}: the attention kernels read q and the cache "
                 f"in one dtype; mixed dtypes are not ported (ROADMAP.md)")
+        self.ssd = cfg.family in T.SSD_FAMILIES
+        self.spec = sc.spec
+        if self.spec is not None:
+            if sc.temperature > 0:
+                raise ValueError(
+                    "ServeConfig.spec requires greedy sampling "
+                    "(temperature == 0): acceptance compares drafts "
+                    "against the target's argmax, and the rollback path "
+                    "implements no distribution-preserving rejection "
+                    "sampling")
+            if self.ssd:
+                raise ValueError(
+                    "ServeConfig.spec requires position-masked multi-"
+                    "token cache writes; SSD/conv recurrent state has no "
+                    "positions to mask or roll back")
+            if int(getattr(self.spec, "k", 0)) < 1:
+                raise ValueError(
+                    f"ServeConfig.spec drafter needs k >= 1 "
+                    f"(got {getattr(self.spec, 'k', None)!r}); see "
+                    f"serving/spec_decode.py")
         self.device = resolve_device(sc.device)
-        pageable = cfg.family not in T.SSD_FAMILIES
+        pageable = not self.ssd
         attn = sc.attn_policy(pageable)   # validates kv_dtype
         self.gemm = sc.policy()           # validates weight_dtype
         attn = dataclasses.replace(attn, backend=attn.resolved_backend(
@@ -155,6 +208,12 @@ class ServingEngine:
             raise ValueError(
                 "ServeConfig.kv_dtype requires a paged attention policy "
                 "(backend 'paged'): only the page pool stores quantized K/V")
+        if sc.prefix_cache and not self.paged:
+            raise ValueError(
+                "ServeConfig.prefix_cache requires a paged attention "
+                "policy (backend 'paged'): prefix sharing aliases pool "
+                "pages through block tables, which the contiguous per-slot "
+                "KV caches have none of")
         params = _to_device(params, self.device)
         # Quantizing per call would redo the O(K·N) weight quantization on
         # every step; weights are static, so weight_dtype quantizes at pack.
@@ -163,7 +222,6 @@ class ServingEngine:
         self.cfg, self.params, self.sc, self.attn = cfg, params, sc, attn
         self.scheduler = sc.scheduler if sc.scheduler is not None \
             else Scheduler()
-        self.ssd = cfg.family in T.SSD_FAMILIES
         if self.ssd and self.scheduler.prefill_chunk:
             raise NotImplementedError(
                 f"chunked prefill (prefill_chunk="
@@ -171,6 +229,47 @@ class ServingEngine:
                 f"with a cache starts the SSD state from zero, so every chunk "
                 f"after the first would drop the earlier chunks' state; "
                 f"prefill SSM prompts whole (ROADMAP.md)")
+        # Observability: instruments are registered once here and held as
+        # direct references; the per-token paths only do `if obs.enabled:`
+        # plus an int add. With NULL_OBS nothing is recorded.
+        self.obs = sc.obs if sc.obs is not None else NULL_OBS
+        obs = self.obs
+        if obs.enabled:
+            m = obs.metrics
+            self._m_prefill_tokens = m.counter("engine_tokens_total",
+                                               stage="prefill")
+            self._m_decode_tokens = m.counter("engine_tokens_total",
+                                              stage="decode")
+            self._m_admissions = m.counter("engine_admissions_total",
+                                           kind="fresh")
+            self._m_resumes = m.counter("engine_admissions_total",
+                                        kind="resume")
+            self._m_preemptions = m.counter("engine_preemptions_total")
+            self._m_retired = m.counter("engine_retired_total")
+            self._m_cancelled = m.counter("engine_cancelled_total")
+            self._m_live = m.gauge("engine_live_requests")
+            self._m_waiting = m.gauge("engine_waiting_requests")
+            self._h_prefill = m.histogram("engine_prefill_chunk_s",
+                                          TIME_BUCKETS_S)
+            self._h_decode = m.histogram("engine_decode_step_s",
+                                         TIME_BUCKETS_S)
+            self._h_ttft = m.histogram("request_ttft_s", TIME_BUCKETS_S)
+            self._h_itl = m.histogram("request_itl_s", TIME_BUCKETS_S)
+            if self.spec is not None:
+                self._m_spec_accepted = m.counter("spec_tokens_total",
+                                                  verdict="accepted")
+                self._m_spec_rejected = m.counter("spec_tokens_total",
+                                                  verdict="rejected")
+                self._m_spec_rollback = m.counter(
+                    "spec_rollback_pages_total")
+                self._h_spec_accept = m.histogram(
+                    "spec_acceptance_rate",
+                    buckets=(0.125, 0.25, 0.375, 0.5,
+                             0.625, 0.75, 0.875, 1.0))
+            self.scheduler.bind_metrics(m)
+        # handle → lifecycle record (RequestTrace), only when obs is
+        # enabled; records persist past retirement (request_trace()).
+        self.request_traces: Dict[int, RequestTrace] = {}
         B = sc.batch_slots
         self.slot_rid = np.full(B, -1, np.int64)
         self.wait: List[_Waiting] = []
@@ -179,6 +278,7 @@ class ServingEngine:
         self.request_out: Dict[int, List[int]] = {}
         self._next_rid = 0
         self.block_tables = None
+        self.prefix: Optional[PrefixCache] = None
         if self.paged:
             ps = attn.page_size
             self.n_blocks = -(-sc.max_len // ps)
@@ -190,6 +290,11 @@ class ServingEngine:
                     f"request (ceil(max_len/page_size) = {self.n_blocks} "
                     f"pages); a preempted request could never resume")
             self.pool = PagePool(n_pages, ps)
+            if obs.enabled:
+                self.pool.bind_metrics(obs.metrics)
+            if sc.prefix_cache:
+                self.prefix = PrefixCache(
+                    self.pool, metrics=obs.metrics if obs.enabled else None)
             self.caches = T.init_paged_caches(cfg, B, n_pages, ps,
                                               sc.cache_dtype, self.device,
                                               kv_dtype=attn.kv_dtype)
@@ -201,6 +306,8 @@ class ServingEngine:
         self.slot_pos = np.zeros(B, np.int32)
         self.slot_live = np.zeros(B, bool)
         self.slot_out: List[List[int]] = [[] for _ in range(B)]
+        # The original prompt per slot: the prefix cache indexes it and the
+        # drafter reads it as the start of the request's context.
         self.slot_prompt: List[List[int]] = [[] for _ in range(B)]
         # Next sampled token per slot, decoded but not yet reported.
         self.slot_next = np.zeros(B, np.int32)
@@ -220,6 +327,11 @@ class ServingEngine:
         self.n_preemptions = 0
         self.prefill_tokens = 0
         self.decode_tokens = 0
+        # Speculative decoding: drafted tokens the target confirmed and
+        # rejected, and pool pages the rollback returned.
+        self.spec_accepted = 0
+        self.spec_rejected = 0
+        self.spec_rollback_pages = 0
 
     # -- device calls ---------------------------------------------------------
     def _scope(self):
@@ -237,16 +349,29 @@ class ServingEngine:
                  last_cols: Optional[np.ndarray] = None) -> torch.Tensor:
         """One masked forward over the KV caches: (B, vocab) logits of
         each row's column ``last_cols[b]`` (default: the last column)."""
+        if last_cols is None:
+            last_cols = np.full(tokens.shape[0], tokens.shape[1] - 1, np.int64)
+        return self._run(tokens, positions, last_cols)[:, 0]
+
+    @torch.no_grad()
+    def _verify(self, tokens: np.ndarray, positions: np.ndarray
+                ) -> np.ndarray:
+        """The speculative verify forward: (B, Sq) tokens at (B, Sq)
+        positions (−1 masked) → the greedy argmax at EVERY column, on the
+        host. Column i is the target's choice after the row's tokens
+        [0..i], which is what acceptance compares the drafts against."""
+        return torch.argmax(self._run(tokens, positions), dim=-1).cpu().numpy()
+
+    def _run(self, tokens: np.ndarray, positions: np.ndarray,
+             last_cols: Optional[np.ndarray] = None) -> torch.Tensor:
         batch = {"tokens": self._dev(tokens), "positions": self._dev(positions)}
         if self.paged:
             batch["block_tables"] = self._dev(self.block_tables)
-        if last_cols is None:
-            last_cols = np.full(tokens.shape[0], tokens.shape[1] - 1, np.int64)
         with self._scope():
-            logits, _ = T.forward(self.params, self.cfg, batch,
-                                  caches=self.caches,
-                                  last_cols=self._dev(last_cols))
-        return logits[:, 0]
+            logits, _ = T.forward(
+                self.params, self.cfg, batch, caches=self.caches,
+                last_cols=None if last_cols is None else self._dev(last_cols))
+        return logits
 
     def _sample(self, logits: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> np.ndarray:
@@ -272,18 +397,52 @@ class ServingEngine:
             else:
                 c["len"][slots] = 0
 
+    def _set_slot_lens(self, updates: Dict[int, int]) -> None:
+        """Set several slots' valid lengths at once: one batched
+        ``index_put_`` per layer's device ``len``, no host sync. Prefix
+        admission preloads the reused count (the cache-length update is
+        additive), and the speculative rollback shrinks each slot with
+        rejected drafts back to its accepted count."""
+        if not updates:
+            return
+        idx = self._dev(np.fromiter(updates.keys(), np.int64,
+                                    count=len(updates)))
+        val = self._dev(np.fromiter(updates.values(), np.int32,
+                                    count=len(updates)))
+        for c in self.caches:
+            if "len" in c:
+                c["len"].index_put_((idx,), val)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write device copy: page ``src``'s K/V rows into private
+        page ``dst`` in every layer's pools, one indexed copy each; an int8
+        pool's ``k_scale``/``v_scale`` rows travel with the payload they
+        quantized, so the fork is bitwise equal to its donor."""
+        for c in self.caches:
+            for name in ("kp", "vp", "k_scale", "v_scale"):
+                if name in c:
+                    c[name][dst] = c[name][src]
+
     def _handle(self, slot: int) -> int:
         """What submit()/step() key results by: request id in paged mode
         (requests migrate across slots under preemption), slot id else."""
         return int(self.slot_rid[slot]) if self.paged else slot
 
     def _view(self, slot: int) -> RequestView:
+        """The scheduler's view of a live slot. ``lookahead``: under
+        speculative decoding a decodable request may claim pages for
+        ``spec.k`` more positions next step."""
+        spec_ahead = (int(self.spec.k)
+                      if self.spec is not None
+                      and not self.slot_prefilling[slot]
+                      and not self.slot_drain[slot] else 0)
         return RequestView(
             rid=self._handle(slot), priority=int(self.slot_priority[slot]),
             deadline=self.slot_deadline[slot],
             arrival=int(self.slot_arrival[slot]),
             n_tokens=int(self.slot_pos[slot]),
-            prefilling=bool(self.slot_prefilling[slot]))
+            prefilling=bool(self.slot_prefilling[slot]),
+            lookahead=spec_ahead)
 
     def _slot_of_rid(self, rid: int) -> int:
         for s in range(self.sc.batch_slots):
@@ -301,9 +460,9 @@ class ServingEngine:
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """prompts: (B, S) int — B must equal batch_slots. Returns
         (B, n_tokens) generated ids. In-flight submit() requests are
-        dropped and every slot restarts from position 0; in paged mode
-        every row gets pages for its whole S + n_tokens horizon up
-        front."""
+        dropped, the prefix cache is cleared and every slot restarts from
+        position 0; in paged mode every row gets pages for its whole
+        S + n_tokens horizon up front."""
         B, S = prompts.shape
         if B != self.sc.batch_slots:
             raise ValueError(
@@ -339,8 +498,12 @@ class ServingEngine:
         return np.stack(out, axis=1)
 
     def _reset_state(self):
-        """Drop every in-flight request, zero every slot's cache length
-        and, in paged mode, return all pages to the pool."""
+        """Drop every in-flight request, zero every slot's cache length,
+        clear the prefix cache (its pages would pin capacity a full-batch
+        generate() is entitled to) and, in paged mode, return all pages
+        to the pool."""
+        if self.prefix is not None:
+            self.prefix.clear()
         for s in range(self.sc.batch_slots):
             if self.paged and self.slot_tables[s] is not None:
                 self.slot_tables[s].free()
@@ -350,6 +513,9 @@ class ServingEngine:
         for w in self.wait:
             self.request_out.pop(w.rid, None)
         self._reset_slot_caches(slice(None))
+        # in-flight lifecycle records die with their requests (their open
+        # async spans are closed at export time)
+        self.request_traces.clear()
         if self.paged:
             self.block_tables[:] = 0
         self.slot_rid[:] = -1
@@ -370,14 +536,16 @@ class ServingEngine:
         """Admit a request; returns its handle (paged: request id,
         contiguous: slot id), or None when it cannot be admitted now:
         contiguous mode needs a free slot; paged mode a free slot with
-        enough free pages, or a preemptible victim.
+        enough free pages (after evicting cold prefix-cache entries), or a
+        preemptible victim.
 
         The prompt runs as a masked, bucketed prefill (whole, or its first
-        chunk under ``Scheduler(prefill_chunk=N)``); its last-position
-        logits seed the pending first token, which step() reports first.
-        ``priority`` (0 = most urgent) and ``deadline`` feed the scheduler:
-        in paged mode an incoming request may preempt a strictly less
-        urgent live one.
+        chunk under ``Scheduler(prefill_chunk=N)``); with the prefix cache
+        only its uncached tail runs. Its last-position logits seed the
+        pending first token, which step() reports first. ``priority``
+        (0 = most urgent) and ``deadline`` feed the scheduler: in paged
+        mode an incoming request may preempt a strictly less urgent live
+        one.
         """
         if self.ssd and self.sc.batch_slots > 1:
             raise NotImplementedError(
@@ -393,14 +561,20 @@ class ServingEngine:
         prompt = [int(t) for t in prompt]
         self.tick += 1
         arrival = self.tick
+        obs = self.obs
+        t0 = time.perf_counter() if obs.enabled else 0.0
         if not self.paged:
             free = np.where(~self.slot_live)[0]
             if free.size == 0:
                 return None
             slot = int(free[0])
-            self._stage(slot, -1, prompt, prompt, generator=generator,
-                        priority=priority, deadline=deadline,
-                        arrival=arrival)
+            self._begin_admit(slot, -1, prompt, prompt, generator=generator,
+                              priority=priority, deadline=deadline,
+                              arrival=arrival)
+            if obs.enabled:
+                obs.trace.complete("admit", f"admit {slot}", t0,
+                                   args={"handle": slot,
+                                         "prompt_len": len(prompt)})
             return slot
         incoming = RequestView(rid=self._next_rid, priority=priority,
                                deadline=deadline, arrival=arrival,
@@ -413,6 +587,10 @@ class ServingEngine:
                     deadline=deadline, arrival=arrival):
                 rid = self._next_rid
                 self._next_rid += 1
+                if obs.enabled:
+                    obs.trace.complete("admit", f"admit rid={rid}", t0,
+                                       args={"rid": rid,
+                                             "prompt_len": len(prompt)})
                 return rid
             live = [s for s in range(self.sc.batch_slots)
                     if self.slot_live[s]]
@@ -424,33 +602,81 @@ class ServingEngine:
                 return None
             self._preempt(vslot)
 
+    def _ensure_free(self, n: int) -> bool:
+        """True once the pool can cover ``n`` fresh pages, evicting cold
+        prefix-cache entries on demand to get there."""
+        if self.pool.can_alloc(n):
+            return True
+        if self.prefix is not None:
+            obs = self.obs
+            t0 = time.perf_counter() if obs.enabled else 0.0
+            short = n - self.pool.free_pages
+            freed = self.prefix.evict(short)
+            if obs.enabled:
+                obs.trace.complete("evict", f"evict {freed}p on-demand",
+                                   t0, args={"requested": short,
+                                             "freed": freed})
+        return self.pool.can_alloc(n)
+
     def _paged_admit(self, slot: int, rid: int, prompt: List[int],
                      tokens: List[int], *,
                      restore: Optional[_Waiting] = None,
                      generator: Optional[torch.Generator] = None,
                      priority: int = 0, deadline: Optional[float] = None,
                      arrival: int = 0) -> bool:
-        """Admit ``tokens`` into ``slot``: page budget, block-table
-        assembly, then the first masked prefill chunk. Returns False, with
-        no side effects, when free pages cannot cover it."""
-        if not self.pool.can_alloc(self.pool.pages_needed(len(tokens))):
+        """Admit ``tokens`` into ``slot``: prefix lookup, page budget
+        (evicting cold cache entries when short), COW fork of the first
+        divergent page, block-table assembly, then the masked prefill of
+        the uncached tail. Returns False, with no side effects beyond the
+        lookup's released holds, when pages cannot cover it."""
+        hit = self.prefix.lookup(tokens) if self.prefix is not None else None
+        n_covered = len(hit.pages) if hit is not None else 0
+        need = self.pool.pages_needed(len(tokens)) - n_covered
+        if not self._ensure_free(need):
+            if hit is not None:
+                hit.release(self.pool)
             return False
-        tbl = BlockTable(self.pool)
+        assert self.slot_tables[slot] is None, \
+            f"free slot {slot} still owns a block table (page leak)"
+        start, pages = 0, []
+        if hit is not None:
+            self.prefix.record(hit, len(tokens))
+            pages = hit.pages          # lookup's holds become the table's
+            hit.pages = []
+            start = hit.n_tokens
+            if hit.cow_page is not None:
+                # fork: a private copy of the partially matching page; its
+                # leading cow_tokens rows are valid, the rest is overwritten
+                # by the prefill (or masked by the valid length)
+                dst = self.pool.fork(hit.cow_page)
+                self._copy_page(hit.cow_page, dst)
+                self.pool.release([hit.cow_page])   # drop lookup's hold
+                hit.cow_page = None
+                pages.append(dst)
+                start += hit.cow_tokens
+                self.prefix.note_cow_fork()
+        tbl = BlockTable(self.pool, pages=pages)
         tbl.ensure(len(tokens))
         self.slot_tables[slot] = tbl
         tbl.as_row(self.n_blocks, out=self.block_tables[slot])
-        self._stage(slot, rid, prompt, tokens, restore=restore,
-                    generator=generator, priority=priority,
-                    deadline=deadline, arrival=arrival)
+        self._begin_admit(slot, rid, prompt, tokens, start=start,
+                          restore=restore, generator=generator,
+                          priority=priority, deadline=deadline,
+                          arrival=arrival)
         return True
 
-    def _stage(self, slot: int, rid: int, prompt: List[int],
-               tokens: List[int], *, restore: Optional[_Waiting] = None,
-               generator: Optional[torch.Generator] = None,
-               priority: int = 0, deadline: Optional[float] = None,
-               arrival: int = 0) -> None:
+    def _begin_admit(self, slot: int, rid: int, prompt: List[int],
+                     tokens: List[int], *, start: int = 0,
+                     restore: Optional[_Waiting] = None,
+                     generator: Optional[torch.Generator] = None,
+                     priority: int = 0, deadline: Optional[float] = None,
+                     arrival: int = 0) -> None:
         """Stage ``tokens`` into ``slot`` and run the first masked prefill
-        chunk; a recycled slot restarts from position 0."""
+        chunk; a recycled slot restarts from position 0. ``start`` > 0
+        marks a prefix-cache hit: positions [0, start) are already in
+        shared or forked pages, so the valid length is preloaded and the
+        prefill begins mid-prompt. With ``restore`` (resume after
+        preemption) the pending token and the output stream carry over."""
         self.slot_rid[slot] = rid
         self.slot_prompt[slot] = prompt
         self.slot_priority[slot] = priority
@@ -459,6 +685,9 @@ class ServingEngine:
         if self.slot_pos[slot]:          # recycled slot: restart from pos 0
             self._reset_slot_caches(slot)
             self.slot_pos[slot] = 0
+        if start:
+            self._set_slot_lens({slot: start})
+            self.slot_pos[slot] = start
         self.slot_live[slot] = True
         self.slot_drain[slot] = False
         self.slot_prefilling[slot] = True
@@ -468,14 +697,42 @@ class ServingEngine:
         self.slot_out[slot] = restore.out if restore is not None else []
         if restore is None and self.paged:
             self.request_out[rid] = self.slot_out[slot]
+        obs = self.obs
+        if obs.enabled:
+            h = self._handle(slot)
+            now = time.perf_counter()
+            if restore is None:
+                rt = RequestTrace(
+                    rid=h, prompt_len=len(tokens), priority=int(priority),
+                    deadline=deadline, submit_s=now, prefix_hit_tokens=start)
+                self.request_traces[h] = rt
+                self._m_admissions.inc()
+                obs.trace.async_begin(h, {"prompt_len": len(tokens),
+                                          "priority": rt.priority})
+                if start:
+                    obs.trace.async_instant(h, "prefix-hit",
+                                            {"tokens": start})
+            else:
+                self._m_resumes.inc()
+                obs.trace.async_instant(h, "resume",
+                                        {"restart_tokens": len(tokens)})
+                rt = self.request_traces.get(h)
+                if rt is not None and rt.preempted_at_s is not None:
+                    rt.wait_s += now - rt.preempted_at_s
+                    rt.preempted_at_s = None
+            self._m_live.set(int(self.slot_live.sum()))
         self._prefill_slot_chunk(slot)
 
     def _prefill_slot_chunk(self, slot: int) -> bool:
         """Run one masked, bucketed prefill chunk for ``slot``; True when
-        the prompt is fully prefilled and the slot became decodable."""
+        the prompt is fully prefilled and the slot became decodable
+        (pending token seeded, prompt pages indexed in the prefix
+        cache)."""
         tokens = self.slot_pf_tokens[slot]
         L = len(tokens)
         p0 = int(self.slot_pos[slot])
+        obs = self.obs
+        t0 = time.perf_counter() if obs.enabled else 0.0
         n = min(self.scheduler.prefill_chunk or (L - p0), L - p0)
         B = self.sc.batch_slots
         # bucket padding columns carry position -1, a mask SSD/conv state
@@ -488,6 +745,21 @@ class ServingEngine:
         logits = self._forward(tok, pos, np.full(B, n - 1, np.int64))
         self.prefill_tokens += n
         self.slot_pos[slot] = p0 + n
+        if obs.enabled:
+            # host assembly + dispatch: the device work runs on, and no
+            # synchronization is added for the span
+            t1 = time.perf_counter()
+            h = self._handle(slot)
+            self._m_prefill_tokens.inc(n)
+            self._h_prefill.observe(t1 - t0)
+            obs.trace.complete("prefill-chunk",
+                               f"prefill rid={h} [{p0}:{p0 + n})", t0, t1,
+                               args={"rid": h, "start": p0, "tokens": n})
+            rt = self.request_traces.get(h)
+            if rt is not None:
+                rt.prefill_chunks.append(
+                    {"start_pos": p0, "tokens": n,
+                     "dt_s": round(t1 - t0, 6)})
         if p0 + n < L:
             return False
         self.slot_prefilling[slot] = False
@@ -498,6 +770,15 @@ class ServingEngine:
         else:
             self.slot_next[slot] = int(self._sample(
                 logits[slot][None], self.slot_pf_gen[slot])[0])
+        if self.prefix is not None:
+            # index the original prompt's full pages, never the generated
+            # tail: decode writes positions >= len(prompt), so these pages
+            # are write-free from here on and safe to share
+            prompt = self.slot_prompt[slot]
+            n_full = len(prompt) // self.pool.page_size
+            if n_full:
+                self.prefix.insert(prompt,
+                                   self.slot_tables[slot].pages[:n_full])
         self.slot_pf_tokens[slot] = None
         self.slot_pf_restore[slot] = None
         self.slot_pf_gen[slot] = None
@@ -505,7 +786,12 @@ class ServingEngine:
 
     def _preempt(self, slot: int):
         """Spill ``slot``'s request to the wait queue: free its pages, park
-        prompt/stream/pending token host-side."""
+        prompt/stream/pending token host-side. Resume re-prefills
+        ``prompt + out``, through the prefix cache when it is on."""
+        obs = self.obs
+        if obs.enabled:
+            t0 = time.perf_counter()
+            h = self._handle(slot)   # before slot_rid resets below
         if self.slot_prefilling[slot]:
             restore = self.slot_pf_restore[slot]
             next_tok = None if restore is None else restore.next_tok
@@ -522,6 +808,17 @@ class ServingEngine:
         self.n_preemptions += 1
         self._release_slot(slot)
         # slot_pos stays nonzero → the next admission resets this slot's caches
+        if obs.enabled:
+            self._m_preemptions.inc()
+            self._m_live.set(int(self.slot_live.sum()))
+            self._m_waiting.set(len(self.wait))
+            obs.trace.complete("preempt", f"preempt rid={h}", t0,
+                               args={"rid": h})
+            obs.trace.async_instant(h, "preempt")
+            rt = self.request_traces.get(h)
+            if rt is not None:
+                rt.n_preemptions += 1
+                rt.preempted_at_s = time.perf_counter()
 
     def _release_slot(self, slot: int):
         if self.paged:
@@ -536,6 +833,28 @@ class ServingEngine:
         self.slot_pf_restore[slot] = None
         self.slot_pf_gen[slot] = None
 
+    def _retire(self, slot: int, *, cancelled: bool = False):
+        """Release ``slot`` at the end of its request. ``cancelled`` marks
+        a caller's abort: the trace's async span closes with
+        ``{"cancelled": true}`` and the cancelled counter moves instead of
+        the retired one."""
+        obs = self.obs
+        if obs.enabled:
+            h = self._handle(slot)   # before slot_rid resets below
+            end = {"n_tokens": len(self.slot_out[slot])}
+            if cancelled:
+                self._m_cancelled.inc()
+                end = {"cancelled": True, **end}
+            else:
+                self._m_retired.inc()
+            obs.trace.async_end(h, end)
+            rt = self.request_traces.get(h)
+            if rt is not None and rt.retire_s is None:
+                rt.retire_s = time.perf_counter()
+        self._release_slot(slot)
+        if obs.enabled:
+            self._m_live.set(int(self.slot_live.sum()))
+
     def _try_resume(self):
         """Re-admit waiting requests into free slots in the scheduler's
         order; a waiter that does not fit is skipped, not a barrier."""
@@ -546,23 +865,37 @@ class ServingEngine:
                              n_tokens=len(w.prompt) + len(w.out))
                  for w in self.wait]
         admitted = []
+        obs = self.obs
         for i in self.scheduler.resume_order(views):
             free = np.where(~self.slot_live)[0]
             if free.size == 0:
                 break
             w = self.wait[i]
+            t0 = time.perf_counter() if obs.enabled else 0.0
             if self._paged_admit(int(free[0]), w.rid, w.prompt,
                                  w.prompt + w.out, restore=w,
                                  generator=w.generator, priority=w.priority,
                                  deadline=w.deadline, arrival=w.arrival):
                 admitted.append(i)
+                if obs.enabled:
+                    obs.trace.complete("resume", f"resume rid={w.rid}", t0,
+                                       args={"rid": w.rid})
         for i in sorted(admitted, reverse=True):
             self.wait.pop(i)
+        if obs.enabled and admitted:
+            self._m_waiting.set(len(self.wait))
 
-    def _grow_pages_for_decode(self):
+    def _grow_pages_for_decode(self, drafts: Optional[Dict[int, List[int]]]
+                               = None):
         """Back every decodable slot's next position with a page, oldest
-        request first; when the pool is dry, preempt the scheduler's
-        victim (possibly the requester itself) until it is not."""
+        request first; when the pool is dry (after cold prefix entries are
+        evicted), preempt the scheduler's victim (possibly the requester
+        itself) until it is not.
+
+        ``drafts`` (speculative decoding) adds each slot's drafted
+        positions to its page budget, since the verify pass writes 1 + k
+        tokens. Speculated growth never preempts: a slot's draft list is
+        trimmed in place to the positions the pool can back."""
         order = sorted(
             (s for s in range(self.sc.batch_slots)
              if self.slot_live[s] and not self.slot_drain[s]
@@ -573,7 +906,7 @@ class ServingEngine:
                 continue               # preempted by an older slot's growth
             pos = int(self.slot_pos[s])
             if pos >= self.slot_tables[s].capacity():
-                while not self.pool.can_alloc(1):
+                while not self._ensure_free(1):
                     vrid = self.scheduler.victim(
                         [self._view(t) for t in range(self.sc.batch_slots)
                          if self.slot_live[t]])
@@ -584,8 +917,22 @@ class ServingEngine:
                 if not self.slot_live[s]:
                     continue
                 self.slot_tables[s].ensure(pos + 1)
-            self.slot_tables[s].as_row(self.n_blocks,
-                                       out=self.block_tables[s])
+            tbl = self.slot_tables[s]
+            if drafts and drafts.get(s):
+                m = len(drafts[s])
+                need = self.pool.pages_needed(pos + 1 + m) - tbl.n_pages
+                if need > 0:
+                    if not self._ensure_free(need):
+                        # trim to what the pool backs now; capacity()
+                        # already covers pos + 1, so fit >= 0
+                        fit = (tbl.capacity() + self.pool.free_pages
+                               * self.pool.page_size) - (pos + 1)
+                        drafts[s] = drafts[s][:max(fit, 0)]
+                        need = (self.pool.pages_needed(
+                            pos + 1 + len(drafts[s])) - tbl.n_pages)
+                    if need > 0:
+                        tbl.ensure(pos + 1 + len(drafts[s]))
+            tbl.as_row(self.n_blocks, out=self.block_tables[s])
 
     def cancel(self, rid: int) -> bool:
         """Abort a request by the handle submit() returned (request id in
@@ -593,36 +940,53 @@ class ServingEngine:
         its pages (or its wait-queue entry). Returns True if found."""
         if not self.paged:
             if 0 <= rid < self.sc.batch_slots and self.slot_live[rid]:
-                self._release_slot(rid)
+                self._retire(rid, cancelled=True)
                 return True
             return False
         for s in range(self.sc.batch_slots):
             if self.slot_live[s] and self.slot_rid[s] == rid:
-                self._release_slot(s)
+                self._retire(s, cancelled=True)
                 self.request_out.pop(rid, None)
                 return True
         for i, w in enumerate(self.wait):
             if w.rid == rid:
                 self.wait.pop(i)
                 self.request_out.pop(rid, None)
+                if self.obs.enabled:
+                    self._m_cancelled.inc()
+                    self._m_waiting.set(len(self.wait))
+                    self.obs.trace.async_end(rid, {"cancelled": True})
+                    rt = self.request_traces.get(rid)
+                    if rt is not None and rt.retire_s is None:
+                        rt.retire_s = time.perf_counter()
                 return True
         return False
 
-    def step(self, generator: Optional[torch.Generator] = None
-             ) -> Dict[int, int]:
+    def step(self, generator: Optional[torch.Generator] = None) -> Dict:
         """One decode iteration across all live slots; returns
-        {request id: token}.
+        {handle: token}, or {handle: [tokens]} under speculative decoding.
 
-        Resumes waiting requests first, advances at most one chunked
-        prefill, backs each decodable slot's next position with a page
-        (preempting when the pool is dry), then decodes: each slot reports
-        its pending token and the decode of the one after is pipelined —
-        the order generate() uses, so streams match the batched path token
-        for token. A slot whose cache fills drains: its last pending token
-        is reported, then it retires.
+        Paged mode first evicts cold prefix-cache entries down to
+        ``prefix_watermark`` free pages and resumes waiting requests; then
+        at most one chunked prefill advances, each decodable slot's next
+        position gets a page (preempting when the pool is dry), and the
+        decode runs: each slot reports its pending token and the decode of
+        the one after is pipelined — the order generate() uses, so streams
+        match the batched path token for token. A slot whose cache fills
+        drains: its last pending token is reported, then it retires.
         """
         self.tick += 1
+        obs = self.obs
         if self.paged:
+            if self.prefix is not None and self.sc.prefix_watermark > 0:
+                short = self.sc.prefix_watermark - self.pool.free_pages
+                if short > 0:
+                    t0 = time.perf_counter() if obs.enabled else 0.0
+                    freed = self.prefix.evict(short)
+                    if obs.enabled:
+                        obs.trace.complete(
+                            "evict", f"evict {freed}p watermark", t0,
+                            args={"requested": short, "freed": freed})
             self._try_resume()
         if not self.slot_live.any():
             return {}
@@ -632,31 +996,207 @@ class ServingEngine:
             s = min(pf, key=lambda t: (self.slot_priority[t],
                                        self.slot_arrival[t], t))
             self._prefill_slot_chunk(s)
+        if self.spec is not None:
+            return self._spec_step()
         if self.paged:
             self._grow_pages_for_decode()
         decodable = (self.slot_live & ~self.slot_drain
                      & ~self.slot_prefilling)
         nxt = None
         if decodable.any():
+            t0 = time.perf_counter() if obs.enabled else 0.0
             tok = self.slot_next.astype(np.int64)[:, None]
             pos = np.where(decodable, self.slot_pos, -1).astype(np.int32)
             nxt = self._sample(self._forward(tok, pos[:, None]), generator)
-            self.decode_tokens += int(decodable.sum())
+            n_dec = int(decodable.sum())
+            self.decode_tokens += n_dec
+            if obs.enabled:
+                # _sample brought the sampled ids to the host, so this
+                # span is the whole batched decode's wall time
+                t1 = time.perf_counter()
+                self._m_decode_tokens.inc(n_dec)
+                self._h_decode.observe(t1 - t0)
+                obs.trace.complete("decode-step", f"decode x{n_dec}",
+                                   t0, t1,
+                                   args={"slots": n_dec, "tick": self.tick})
         out = {}
         for s in range(self.sc.batch_slots):
             if not self.slot_live[s] or self.slot_prefilling[s]:
                 continue
             t = int(self.slot_next[s])
             self.slot_out[s].append(t)
-            out[self._handle(s)] = t
+            h = self._handle(s)
+            out[h] = t
+            if obs.enabled:
+                self._obs_token(s, h, t)
             if self.slot_drain[s]:
-                self._release_slot(s)
+                self._retire(s)
                 continue
             self.slot_next[s] = int(nxt[s])
             self.slot_pos[s] += 1
             if self.slot_pos[s] >= self.sc.max_len:
                 self.slot_drain[s] = True
         return out
+
+    def _spec_step(self) -> Dict[int, List[int]]:
+        """One speculative iteration: draft → verify → accept → rollback.
+
+        Each decodable slot drafts up to ``spec.k`` tokens (capped to the
+        max_len horizon, then, paged, to the pages the pool can back
+        without preempting). ONE verify forward runs every slot's row
+        ``[pending] + drafts`` at positions ``pos..pos+m`` (Sq = 1 + k,
+        position −1 padded); column ``i`` of its argmax is the target's
+        greedy choice after the row's tokens ``[0..i]``. The longest prefix
+        of drafts it agrees with is kept, the column after the last
+        accepted draft becomes the pending token (the bonus), and the
+        rejected suffix rolls back: valid lengths reset to the accepted
+        count and wholly rejected tail pages return to the pool
+        (``BlockTable.truncate``). Draining slots flush their last pending
+        token as a one-token burst and retire."""
+        obs = self.obs
+        k = int(self.spec.k)
+        decodable = (self.slot_live & ~self.slot_drain
+                     & ~self.slot_prefilling)
+        drafts: Dict[int, List[int]] = {}
+        if decodable.any():
+            t0 = time.perf_counter() if obs.enabled else 0.0
+            for s in np.nonzero(decodable)[0]:
+                s = int(s)
+                pos = int(self.slot_pos[s])
+                # verify writes positions pos..pos+m; the last writable
+                # cache index is max_len - 1, so m <= max_len - 1 - pos
+                cap = min(k, self.sc.max_len - 1 - pos)
+                d: List[int] = []
+                if cap >= 1:
+                    ctx = (self.slot_prompt[s] + self.slot_out[s]
+                           + [int(self.slot_next[s])])
+                    d = [int(t) for t in self.spec.draft(ctx, cap)][:cap]
+                drafts[s] = d
+            if obs.enabled:
+                obs.trace.complete(
+                    "draft", f"draft x{len(drafts)}", t0,
+                    args={"slots": len(drafts),
+                          "tokens": sum(len(d) for d in drafts.values()),
+                          "tick": self.tick})
+        if self.paged:
+            # may preempt for the base pos+1 page, and trims drafts in
+            # place when speculation alone would exhaust the pool
+            self._grow_pages_for_decode(drafts)
+            decodable = (self.slot_live & ~self.slot_drain
+                         & ~self.slot_prefilling)
+        nxt = None
+        if decodable.any():
+            t0 = time.perf_counter() if obs.enabled else 0.0
+            B = self.sc.batch_slots
+            tok = np.zeros((B, 1 + k), np.int64)
+            pos2 = np.full((B, 1 + k), -1, np.int32)
+            for s in np.nonzero(decodable)[0]:
+                s = int(s)
+                d = drafts.get(s, [])
+                m = len(d)
+                p = int(self.slot_pos[s])
+                tok[s, 0] = int(self.slot_next[s])
+                tok[s, 1:1 + m] = d
+                pos2[s, :1 + m] = np.arange(p, p + 1 + m)
+            nxt = self._verify(tok, pos2)
+            if obs.enabled:
+                t1 = time.perf_counter()
+                self._h_decode.observe(t1 - t0)
+                obs.trace.complete(
+                    "verify", f"verify x{int(decodable.sum())}", t0, t1,
+                    args={"slots": int(decodable.sum()),
+                          "tick": self.tick})
+        out: Dict[int, List[int]] = {}
+        len_resets: Dict[int, int] = {}
+        for s in range(self.sc.batch_slots):
+            if not self.slot_live[s] or self.slot_prefilling[s]:
+                continue
+            h = self._handle(s)
+            if self.slot_drain[s]:      # flush the final pending token
+                t = int(self.slot_next[s])
+                self.slot_out[s].append(t)
+                out[h] = [t]
+                if obs.enabled:
+                    self._obs_token(s, h, t)
+                self._retire(s)
+                continue
+            p = int(self.slot_pos[s])
+            d = drafts.get(s, [])
+            m = len(d)
+            g = nxt[s]
+            j = 0
+            while j < m and d[j] == int(g[j]):
+                j += 1
+            burst = [int(self.slot_next[s])] + d[:j]
+            for t in burst:
+                self.slot_out[s].append(t)
+                if obs.enabled:
+                    self._obs_token(s, h, t)
+            out[h] = burst
+            self.spec_accepted += j
+            self.spec_rejected += m - j
+            self.decode_tokens += 1 + j
+            new_pos = p + 1 + j
+            if j < m:
+                # rejected suffix: the verify pass wrote (and len-counted)
+                # positions new_pos..p+m; shrink the valid length back and
+                # return wholly rejected tail pages to the pool
+                len_resets[s] = new_pos
+                if self.paged:
+                    dropped = self.slot_tables[s].truncate(new_pos)
+                    if dropped:
+                        self.spec_rollback_pages += len(dropped)
+                        if obs.enabled:
+                            self._m_spec_rollback.inc(len(dropped))
+                        self.slot_tables[s].as_row(
+                            self.n_blocks, out=self.block_tables[s])
+            if obs.enabled:
+                self._m_decode_tokens.inc(1 + j)
+                self._m_spec_accepted.inc(j)
+                self._m_spec_rejected.inc(m - j)
+                if m:
+                    self._h_spec_accept.observe(j / m)
+            self.slot_next[s] = int(g[j])
+            self.slot_pos[s] = new_pos
+            if new_pos >= self.sc.max_len:
+                self.slot_drain[s] = True
+        self._set_slot_lens(len_resets)
+        return out
+
+    # -- observability -------------------------------------------------------
+    def _obs_token(self, slot: int, h: int, tok: int):
+        """Per reported token, only when observability is enabled: TTFT,
+        inter-token gaps, the token itself and the pages-held timeline."""
+        now = time.perf_counter()
+        rt = self.request_traces.get(h)
+        if rt is not None:
+            if rt.first_token_s is None:
+                rt.first_token_s = now
+                self._h_ttft.observe(now - rt.submit_s)
+                self.obs.trace.async_instant(h, "first-token")
+            else:
+                gap = now - rt.token_s[-1]
+                rt.itl.observe(gap)
+                self._h_itl.observe(gap)
+            rt.tokens.append(tok)
+            rt.token_s.append(now)
+            if self.paged:
+                tbl = self.slot_tables[slot]
+                pages = len(tbl.pages) if tbl is not None else 0
+                tl = rt.pages_timeline
+                if not tl or tl[-1][1] != pages:
+                    tl.append((self.tick, pages))
+
+    def request_trace(self, handle: int, pop: bool = False
+                      ) -> Optional[RequestTrace]:
+        """The lifecycle record of ``handle`` (``repro_torch.obs
+        .RequestTrace``): waits, prefill chunks, TTFT, the reported tokens
+        with their timestamps, the inter-token histogram and the pages
+        held over time. None when observability is off or the handle is
+        unknown; ``pop=True`` removes the record after returning it."""
+        if pop:
+            return self.request_traces.pop(handle, None)
+        return self.request_traces.get(handle)
 
     def kv_page_bytes(self) -> int:
         """Device bytes of one pool page, summed over layers and K/V — the
@@ -667,8 +1207,9 @@ class ServingEngine:
                    if name in c)
 
     def stats(self) -> Dict[str, object]:
-        """Scheduling churn, prefill/decode token split and, in paged mode,
-        pool pressure and the pool's bytes."""
+        """Scheduling churn, prefill/decode token split, the speculative
+        counters and, in paged mode, pool pressure, the pool's bytes and
+        the prefix cache's counters; every value a plain JSON type."""
         d = {
             "tick": self.tick,
             "live_requests": int(self.slot_live.sum()),
@@ -677,6 +1218,13 @@ class ServingEngine:
             "prefill_tokens": self.prefill_tokens,
             "decode_tokens": self.decode_tokens,
         }
+        if self.spec is not None:
+            seen = self.spec_accepted + self.spec_rejected
+            d.update(spec_accepted_tokens=self.spec_accepted,
+                     spec_rejected_tokens=self.spec_rejected,
+                     spec_rollback_pages=self.spec_rollback_pages,
+                     spec_acceptance_rate=(self.spec_accepted / seen
+                                           if seen else 0.0))
         if self.paged:
             page_bytes = self.kv_page_bytes()
             d.update(pool_pages=self.pool.n_pages,
@@ -687,7 +1235,9 @@ class ServingEngine:
                      kv_page_bytes=page_bytes,
                      kv_pool_bytes=page_bytes * self.pool.n_pages,
                      kv_bytes_in_use=page_bytes * self.pool.pages_in_use)
-        return d
+            if self.prefix is not None:
+                d.update(self.prefix.stats())
+        return json_scalars(d)
 
 
 def _to_device(node, device: torch.device):

@@ -1,7 +1,7 @@
 """Page pool for the paged KV cache: fixed-size pages, free list, ref counts.
 
 A numpy-only copy of ``repro/serving/kv_pool.py`` (the port imports nothing
-of the JAX package), without its metrics binding.
+of the JAX package).
 
 The contiguous serving cache reserves ``batch_slots × max_len`` KV rows —
 memory scales with the *worst case* length of every slot. This module is
@@ -84,6 +84,14 @@ class PagePool:
         # (eviction hooks: per-shard TP pools assert lockstep, tests audit
         # reclamation without polling)
         self._free_hooks: List[Callable[[int], None]] = []
+        # observability instruments (bind_metrics); None → unbound, and the
+        # alloc/release paths pay one attribute load + branch
+        self._m_alloc = None
+        self._m_fork = None
+        self._m_freed = None
+        self._m_free = None
+        self._m_in_use = None
+        self._m_hw = None
 
     # -- accounting ---------------------------------------------------------
     @property
@@ -98,6 +106,29 @@ class PagePool:
         """Register ``hook(page_id)`` to run whenever a page's last
         reference drops and it rejoins the free list."""
         self._free_hooks.append(hook)
+
+    def bind_metrics(self, metrics) -> None:
+        """Register pool instruments on ``metrics`` (a repro_torch.obs.Metrics
+        registry, duck-typed) and keep them current: alloc/fork/free
+        counters plus free/in-use/high-water gauges. Free accounting rides
+        the existing free-hook channel — the same one TP lockstep asserts
+        and tests audit — so release() itself needs no metrics branch."""
+        self._m_alloc = metrics.counter("pool_pages_alloc_total")
+        self._m_fork = metrics.counter("pool_cow_forks_total")
+        self._m_freed = metrics.counter("pool_pages_freed_total")
+        self._m_free = metrics.gauge("pool_free_pages")
+        self._m_in_use = metrics.gauge("pool_pages_in_use")
+        self._m_hw = metrics.gauge("pool_high_water_pages")
+        self._m_free.set(self.free_pages)
+        self._m_in_use.set(self.pages_in_use)
+        self._m_hw.set(self.high_water)
+
+        def _on_free(page: int) -> None:
+            self._m_freed.inc()
+            self._m_free.set(self.free_pages)
+            self._m_in_use.set(self.pages_in_use)
+
+        self.add_free_hook(_on_free)
 
     def pages_needed(self, n_tokens: int) -> int:
         return pages_needed(n_tokens, self.page_size)
@@ -117,6 +148,11 @@ class PagePool:
         pages = [self._free.pop() for _ in range(n)]
         self.refcount[pages] += 1
         self.high_water = max(self.high_water, self.pages_in_use)
+        if self._m_alloc is not None:
+            self._m_alloc.inc(n)
+            self._m_free.set(self.free_pages)
+            self._m_in_use.set(self.pages_in_use)
+            self._m_hw.set_max(self.high_water)
         return pages
 
     def fork(self, src: int) -> int:
@@ -127,6 +163,8 @@ class PagePool:
         when no page is free, ValueError when ``src`` isn't allocated."""
         if self.refcount[src] <= 0:
             raise ValueError(f"fork of unallocated page {src}")
+        if self._m_fork is not None:
+            self._m_fork.inc()
         return self.alloc(1)[0]
 
     def retain(self, pages: Sequence[int]) -> None:

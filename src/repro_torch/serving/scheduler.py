@@ -70,6 +70,21 @@ class Scheduler:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
+        # observability (bind_metrics): decision counters, None → unbound
+        self._m_victims = None
+        self._m_preempt_granted = None
+        self._m_preempt_denied = None
+
+    def bind_metrics(self, metrics) -> None:
+        """Count this policy's decisions on ``metrics`` (a repro_torch.obs
+        Metrics registry, duck-typed): victim picks when the pool runs
+        dry, and admission-preemption verdicts either way. The engine
+        binds this automatically when built with observability enabled."""
+        self._m_victims = metrics.counter("scheduler_victim_picks_total")
+        self._m_preempt_granted = metrics.counter(
+            "scheduler_admission_preempts_total", verdict="granted")
+        self._m_preempt_denied = metrics.counter(
+            "scheduler_admission_preempts_total", verdict="denied")
 
     # -- resume / admission --------------------------------------------------
     def resume_order(self, waiting: Sequence[RequestView]) -> List[int]:
@@ -84,7 +99,11 @@ class Scheduler:
         """May ``incoming`` evict ``victim`` at admission time? Default:
         only strictly more urgent classes jump the pool — equal-priority
         traffic never churns pages preempting itself."""
-        return incoming.priority < victim.priority
+        verdict = incoming.priority < victim.priority
+        if self._m_victims is not None:
+            (self._m_preempt_granted if verdict
+             else self._m_preempt_denied).inc()
+        return verdict
 
     # -- preemption ----------------------------------------------------------
     def victim(self, live: Sequence[RequestView]) -> int:
@@ -93,6 +112,8 @@ class Scheduler:
         arrival order is seniority; within a class, requests
         mid-chunked-prefill are spared while a decoded candidate exists
         (their prefill work would be pure loss)."""
+        if self._m_victims is not None:
+            self._m_victims.inc()
         return max(live, key=lambda r: (r.priority, not r.prefilling,
                                         self._victim_tiebreak(r), r.rid)).rid
 

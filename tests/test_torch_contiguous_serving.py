@@ -36,6 +36,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServeConfig, ServingEngine
+from repro_torch.serving.spec_decode import NGramDrafter
 
 
 @pytest.fixture(scope="module")
@@ -171,10 +172,16 @@ def test_contiguous_caches_and_rejections(setup):
     caches = T.init_caches(cfg, 3, 16, "float32", "cpu")
     assert len(caches) == cfg.n_layers
     assert caches[0]["k"].shape == (3, 17, cfg.n_kv_heads, cfg.head_dim)
-    for kw in (dict(prefix_cache=True), dict(spec=object())):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(cfg, params, ServeConfig(
-                device="cpu", cache_dtype="float32", attention=FUSED, **kw))
+    # the prefix cache needs page pools (as the reference); speculative
+    # decoding serves contiguous caches too
+    with pytest.raises(ValueError, match="prefix_cache"):
+        ServingEngine(cfg, params, ServeConfig(
+            device="cpu", cache_dtype="float32", attention=FUSED,
+            prefix_cache=True))
+    eng = ServingEngine(cfg, params, ServeConfig(
+        device="cpu", cache_dtype="float32", attention=FUSED,
+        spec=NGramDrafter()))
+    assert not eng.paged and eng.spec.k == 4
     # int8 KV pages are ported, for page pools only (as the reference)
     with pytest.raises(ValueError, match="paged"):
         ServingEngine(cfg, params, ServeConfig(

@@ -464,6 +464,71 @@ def test_int8_engine_on_card_matches_cpu_plain(cuda, kw):
         print("W8A8 card vs CPU:", check_tie_flip(*records))
 
 
+_FEATURES = {
+    "prefix_cow": ("paged", dict(prefix_cache=True)),
+    "prefix_cow_int8_kv": ("paged", dict(prefix_cache=True,
+                                         kv_dtype="int8")),
+    "spec_paged": ("paged", dict(spec=4)),
+    "spec_k8_paged": ("paged", dict(spec=8)),
+    "spec_fused": ("fused", dict(spec=4)),
+    "spec_int8_kv": ("paged", dict(spec=4, kv_dtype="int8")),
+    "spec_prefix_obs": ("paged", dict(spec=4, prefix_cache=True, obs=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_FEATURES), ids=str)
+def test_serving_features_on_card_match_cpu_plain(cuda, case):
+    """The prefix cache (COW forks over shared 8-token pages), speculative
+    decoding at k = 4 and 8 (verify at Sq 5 and 9) on paged and contiguous
+    caches and int8 KV pages, and observability: fp32 greedy streams on
+    the card equal the CPU's and the card's own with the feature off;
+    pools end clean."""
+    from repro_torch.obs import Observability
+    from repro_torch.serving.spec_decode import NGramDrafter
+    attn, kw = _FEATURES[case]
+    cfg = get_smoke_config("smollm-135m", n_layers=2, vocab=64, d_head=64,
+                           dtype="float32")
+    params = T.init_model(cfg, seed=0, device="cpu")
+    shared = [5, 9, 2, 7, 5, 9, 2, 7, 1, 3]
+    prompts = [shared + [11 + i, 5, 9, 2] for i in range(3)] + \
+        [shared[:6] + [40, 41], [1, 2, 3, 1, 2, 3, 1]]
+    policy = FUSED if attn == "fused" else AttentionPolicy("paged", 8)
+
+    def run(device, on):
+        fkw = dict(kw) if on else {"kv_dtype": kw["kv_dtype"]} \
+            if "kv_dtype" in kw else {}
+        if "spec" in fkw:
+            fkw["spec"] = NGramDrafter(k=fkw["spec"])
+        if fkw.pop("obs", False):
+            fkw["obs"] = Observability()
+        eng = ServingEngine(cfg, params, ServeConfig(
+            batch_slots=3, max_len=40, cache_dtype="float32",
+            attention=policy, device=device, **fkw))
+        pending, owner, streams = list(enumerate(prompts)), {}, {}
+        for _ in range(400):
+            while pending and (h := eng.submit(pending[0][1])) is not None:
+                owner[h] = pending.pop(0)[0]
+                streams[owner[h]] = []
+            for h, t in eng.step().items():
+                streams[owner[h]] += t if isinstance(t, list) else [t]
+            if not pending and not eng.slot_live.any() and not eng.wait:
+                break
+        if eng.paged:
+            if eng.prefix is not None:
+                assert eng.prefix.stats()["prefix_hits"] > 0
+                eng.prefix.clear()
+            eng.pool.check()
+            assert eng.pool.free_pages == eng.pool.n_pages
+        if eng.spec is not None:
+            assert eng.spec_accepted > 0
+        return [streams[i] for i in range(len(prompts))]
+
+    got = run("cuda", True)
+    assert got == run("cpu", True)
+    assert got == run("cuda", False)
+
+
 # B, Sq, Sk, H, Hkv, D, causal, first query position per row (None: the
 # bottom-right default; -1: masked row), valid keys per row (None: Sk)
 FLASH_CASES = {
@@ -654,6 +719,20 @@ _TC_GEOMETRIES = {
                             (200, 0), (130, -1)),
     "flash_d64_rep16_rows": ("flash", 2, 9, 64, 16, 1, 64, 0, (64, 0),
                              (55, -1)),
+    # speculative verify at smollm-135m's heads (9 / 3 x 64, page 16): Sq
+    # = 1 + k, each row trimmed to its own draft count (rows past it at
+    # position -1; one slot masked whole): k = 4 splits (15 rows a CTA),
+    # k = 8 takes the rows route (27)
+    "paged_verify_k4_split": ("paged", 4, 5, 256, 9, 3, 64, 16,
+                              (101, 35, 0, 200), (96, 32, -1, 199)),
+    "paged_verify_k8_rows": ("paged", 4, 9, 256, 9, 3, 64, 16,
+                             (105, 37, 0, 250), (96, 32, -1, 249)),
+    "flash_verify_k4_split": ("flash", 4, 5, 256, 9, 3, 64, 0,
+                              (101, 35, 0, 200), (96, 32, -1, 199)),
+    # a prefix-hit tail prefill: 11 rows of a 16-column bucket starting
+    # mid-page (position 43 of page 2), one slot masked
+    "paged_tail_prefill_midpage_rows": ("paged", 2, 16, 128, 9, 3, 64, 16,
+                                        (54, 0), (43, -1)),
 }
 
 
@@ -810,6 +889,14 @@ _INT8_GEOMETRIES = {
     "rows_d96_ps16_rep6": (2, 11, 96, 6, 1, 96, 16, (96, 11), (85, 0)),
     "rows_d112_ps32_rep8": (2, 9, 64, 8, 1, 112, 32, (64, 0), (55, -1)),
     "rows_d128_ps8_rep12": (2, 7, 48, 12, 1, 128, 8, (48, 30), (41, 23)),
+    # speculative verify and a mid-page tail prefill at smollm-135m's heads
+    # (as _TC_GEOMETRIES' verify cases)
+    "split_verify_k4_d64_ps16_rep3": (4, 5, 256, 9, 3, 64, 16,
+                                      (101, 35, 0, 200), (96, 32, -1, 199)),
+    "rows_verify_k8_d64_ps16_rep3": (4, 9, 256, 9, 3, 64, 16,
+                                     (105, 37, 0, 250), (96, 32, -1, 249)),
+    "rows_tail_prefill_midpage_d64_ps16": (2, 16, 128, 9, 3, 64, 16,
+                                           (54, 0), (43, -1)),
 }
 
 

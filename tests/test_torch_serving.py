@@ -25,8 +25,10 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.convert import from_jax_params
 from repro_torch.core.plan import AttentionPolicy, GemmPolicy
 from repro_torch.launch import serve as serve_cli
+from repro_torch.obs import Observability
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.spec_decode import NGramDrafter
 
 PS = 8
 
@@ -146,12 +148,19 @@ def test_temperature_sampling_self_consistent(setup):
 
 def test_unported_features_raise(setup):
     jcfg, jparams, cfg, params = setup
-    for kw in (dict(prefix_cache=True), dict(mesh=object()),
-               dict(spec=object()), dict(obs=object()),
-               dict(cache_dtype="bfloat16")):
+    for kw in (dict(mesh=object()), dict(cache_dtype="bfloat16")):
         kw = {"cache_dtype": "float32", **kw}
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, ServeConfig(device="cpu", **kw))
+    # the prefix cache, speculative decoding and observability are ported
+    # now (tests/test_torch_{prefix_cache,spec_decode,obs}.py)
+    for kw in (dict(prefix_cache=True), dict(spec=NGramDrafter()),
+               dict(obs=Observability())):
+        ServingEngine(cfg, params, ServeConfig(device="cpu",
+                                               cache_dtype="float32", **kw))
+    with pytest.raises(ValueError, match="k >= 1"):
+        ServingEngine(cfg, params, ServeConfig(
+            device="cpu", cache_dtype="float32", spec=object()))
     # int8 KV pages and W8A8 weights are ported now
     # (tests/test_torch_int8_serving.py)
     for kw in (dict(kv_dtype="int8"), dict(weight_dtype="int8")):
