@@ -22,9 +22,10 @@ CUDA toolkit. Phases, each fatal on failure:
              kernel, the plain version and one PyTorch call for the same
              function (torch.matmul; SDPA) after an L2 flush. Each GEMM
              cell records the route K1 took (its per-route launch
-             counters): a bf16 cell must run on the tensor cores (wgmma at
-             bm 64, mma.sync at bm 16 and 32), an fp32 cell on the CUDA
-             cores. So too each attention cell: K3 and K4 in bf16 on the
+             counters): a bf16 cell must run on wgmma (bf16 takes bm 64 at
+             every M on the card, core/plan.py::bm_for), an fp32 cell on
+             the CUDA cores; each bf16 decode-step GEMM is timed again on
+             mma.sync at bm 16, the route it took before. So too each attention cell: K3 and K4 in bf16 on the
              tensor-core route their chooser names (rows, or split at
              decode), in fp32 on the CUDA cores; every cell is launched
              twice and the two results must be bitwise equal. The paged
@@ -51,10 +52,10 @@ CUDA toolkit. Phases, each fatal on failure:
 6. contiguous serving — full-width smollm-135m served from contiguous KV
              caches (AttentionPolicy("fused")): 12 requests through
              submit/step in bf16, all complete, the GEMM and flash kernels
-             launched; then generate(). In fp32 the same prompts' greedy
-             streams equal the paged engine's on the card and the CPU plain
-             path's, or first diverge where the plain top-2 margin is below
-             LOGIT_TOL.
+             launched; then generate(). In fp32 (10 of 30 layers) the same
+             prompts' greedy streams equal the paged engine's on the card
+             and the CPU plain path's, or first diverge where the plain
+             top-2 margin is below LOGIT_TOL.
 7. int8 serving — full-width smollm-135m in bf16 with weight_dtype="int8"
              (every projection and the head through the W8A8 GEMM, K2) and
              kv_dtype="int8" (int8 pages through K5): the same 12 requests x
@@ -113,6 +114,24 @@ CUDA toolkit. Phases, each fatal on failure:
              with NULL_OBS printed. Then fp32 at full width: prefix-on
              streams equal prefix-off, spec streams equal non-spec, or
              first part where the plain top-2 margin is below LOGIT_TOL.
+12. stream identity — full-width smollm-135m in bf16, paged (page 16), 8
+             slots, fp pools and int8 KV: 12 requests under the 24-page
+             pool, every preempted request's stream equal to its solo
+             stream; phase 11's 12 requests on one 48-token system prompt,
+             prefix cache on equal to off. Zero streams may part.
+             (``python3 chip_smoke.py --identity [arch ...]`` runs this
+             phase alone.)
+13-15. the rest of the dense family — qwen2-1.5b (QKV biases; 28 layers,
+             the published depth), qwen3-8b (q/k RMSNorm; 36 layers) and
+             granite-20b (MQA, group 48, GELU MLP; 16 of 52 layers), full
+             width, bf16 weights drawn on the card from a seed: paged
+             serving with preemption (K4 at head_dim 128), contiguous
+             serving (K3 at head_dim 128, groups 6, 4 and 48), int8 KV
+             (K5; qwen2 and granite, qwen2 with W8A8 weights through K2),
+             each 12 requests x 32 tokens then generate(); qwen2 through
+             phase 12's identity;
+             then fp32 at 4, 2 and 2 layers, the card against the CPU plain
+             path within LOGIT_TOL (phase 4).
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
@@ -130,20 +149,23 @@ route its chooser names (bf16: walk, or chunks from 513 steps; fp32: the
 CUDA cores), two launches bitwise equal, timed per call and, from
 torch.profiler, per kernel of the route (no single PyTorch call computes
 the scan: no yardstick);
-K1 at the SSM models' decode GEMMs and mamba2's prefill GEMMs; K3 at
-zamba2's head_dim-80 prefill and decode; K4 and K5 at phase 11's shapes
+K1 at the SSM models' decode GEMMs and mamba2's prefill GEMMs and at
+every projection of the three dense decoders (decode and prefill); K3 at
+zamba2's head_dim-80 prefill and decode and at the dense decoders'
+contiguous decode and prefill (head_dim 128, groups 4, 6 and 48); K4 and
+K5 at their decode and prefill; K4 and K5 at phase 11's shapes
 (a speculative verify at Sq 5 and 9 whose slots trim their drafts to
 their own counts, the rest of their rows at position -1, one slot masked
 whole; a tail prefill from position 53, mid-page) and K3 at the Sq-5
 verify over contiguous caches.
 
 Every kernel counter is set to 0 just before each path (3, 5-9, each
-run of 11) is
+run of 11, 12, each serving run of 13-15) is
 driven and read just after; a kernel of the path that never launched fails
 it. K1-K6 are counted per route too: every bf16 path must have launched
-K1 (or, with int8 weights, K2) on both tensor-core routes (the encoders:
-wgmma), K3, K4 or K5 on both of theirs (the encoders: rows), K6 on a
-tensor-core route, and none of them on the CUDA cores.
+K1 on wgmma and never on mma.sync (or, with int8 weights, K2 on both
+tensor-core routes), K3, K4 or K5 on both of theirs (the encoders: rows),
+K6 on a tensor-core route, and none of them on the CUDA cores.
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -197,6 +219,7 @@ PROMPT_BUCKET = 64           # prompts of 16..64 tokens → a 64-column bucket
 N_REQUESTS = 12
 GEN_LEN = 32
 CACHE_PAGES = 24             # < 8 slots x 6 pages: decode growth preempts
+CONTIG_FP32_LAYERS = 10      # phase 6's fp32 streams: the CPU plain path's time
 SPEC_K, SPEC_K8 = 4, 8       # draft budgets: verify at Sq 5 (split), 9 (rows)
 # The encoder path: the paper's models at full published width.
 ENC_BATCH = 8
@@ -220,8 +243,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T_START:6.1f} s] {msg}",
+          flush=True)
 
 
 class Timer:
@@ -336,33 +363,40 @@ def reset_counts() -> None:
 
 
 # What a bf16 path that prefills (or encodes) and decodes must launch: K1
-# on both tensor-core routes, never on the CUDA cores; so too K3 or K4.
-K1_BF16 = ("matrixflow_gemm", "matrixflow_gemm_wgmma", "matrixflow_gemm_mma")
+# on its wgmma route at every M (core/plan.py::bm_for: a row's bits then do
+# not depend on the rows sharing a call), never mma.sync or the CUDA cores;
+# K3 or K4 on both tensor-core routes.
+K1_BF16 = ("matrixflow_gemm", "matrixflow_gemm_wgmma")
 K3_BF16 = ("flash_attention", "flash_attention_rows", "flash_attention_split")
 K4_BF16 = ("paged_attention", "paged_attention_rows", "paged_attention_split")
 # K6 at the SSM paths' prefills (S <= 512): the walk route
 K6_BF16 = ("ssd_scan", "ssd_scan_walk")
-K2_K5_BF16 = ("matrixflow_gemm_dequant", "matrixflow_gemm_dequant_wgmma",
-              "matrixflow_gemm_dequant_mma", "paged_attention_int8",
-              "paged_attention_int8_rows", "paged_attention_int8_split")
+K2_BF16 = ("matrixflow_gemm_dequant", "matrixflow_gemm_dequant_wgmma",
+           "matrixflow_gemm_dequant_mma")
+K5_BF16 = ("paged_attention_int8", "paged_attention_int8_rows",
+           "paged_attention_int8_split")
+K2_K5_BF16 = K2_BF16 + K5_BF16
 CUDA_CORE_COUNTERS = ("matrixflow_gemm_cuda_core", "flash_attention_cuda_cores",
                       "paged_attention_cuda_cores",
-                      "paged_attention_int8_cuda_cores", "ssd_scan_cuda_cores")
+                      "paged_attention_int8_cuda_cores", "ssd_scan_cuda_cores",
+                      # K1's mma.sync route: off every bf16 path (K1_BF16)
+                      "matrixflow_gemm_mma")
 
 
 def read_counts(path: str, required) -> dict:
     """The launch counts since reset_counts(); fails if a kernel of the
     path never launched, or if K1, K3, K4, K5 or K6 ran on the CUDA cores
-    (every path read here is bf16 or int8 with bf16 activations, and none
-    may take that route; K2 has no CUDA-core route)."""
+    or K1 on mma.sync (every path read here is bf16 or int8 with bf16
+    activations, and none may take those routes; K2 has no CUDA-core
+    route)."""
     counts_now = counts()
     for name in required:
         if counts_now[name] <= 0:
             fail(f"{path}: kernel {name} was never launched")
     for name in CUDA_CORE_COUNTERS:
         if counts_now[name]:
-            fail(f"{path}: {name} counted {counts_now[name]} launches on "
-                 f"the CUDA cores")
+            fail(f"{path}: {name} counted {counts_now[name]} launches off "
+                 f"the bf16 tensor-core routes")
     return counts_now
 
 
@@ -431,35 +465,66 @@ def gemm_cells(cfg, bert, vit, ssm_cfgs=()):
     return cells
 
 
-def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs):
+def dense_gemm_cells(m):
+    """(name, M, K, N, path, uses per run of the path) of a dense decoder's
+    projections at its published depth: a decode step (M = SLOTS) and a
+    prefill (M = SLOTS x PROMPT_BUCKET; the head reads last columns only,
+    so it runs at M = SLOTS in both)."""
+    d, f, L = m.d_model, m.d_ff, m.n_layers
+    qd, kvd = m.n_heads * m.head_dim, m.n_kv_heads * m.head_dim
+    wi = 2 * f if m.mlp_act == "swiglu" else f
+    layer = [("q", d, qd, L), ("k/v", d, kvd, 2 * L), ("o", qd, d, L),
+             ("mlp-in", d, wi, L), ("mlp-out", f, d, L)]
+    cells = [(f"{m.name} decode {n}", SLOTS, K, N, f"{m.name} decode step", c)
+             for n, K, N, c in layer + [("head", d, m.vocab, 1)]]
+    return cells + [(f"{m.name} prefill {n}", SLOTS * PROMPT_BUCKET, K, N,
+                     f"{m.name} prefill", c) for n, K, N, c in layer]
+
+
+# The route bf16 decode GEMMs took before every bf16 GEMM on the card ran
+# at bm 64 (core/plan.py::bm_for): mma.sync at the smallest row tile
+# covering M, timed beside the wgmma cell of the same GEMM.
+MMA_BEFORE = " (mma, bm 16)"
+
+
+def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs, models=()):
+    """K1 at every projection of the paths (bf16 and fp32) and of the dense
+    decoders ``models`` (bf16); each bf16 decode-step GEMM also on the
+    mma.sync route at bm 16 (off the path: the repair's cost)."""
     from repro_torch.core import layout as L
     from repro_torch.core.plan import GemmPolicy, layout_for_packed, pack_weight
     from repro_torch.kernels import matrixflow_gemm as MF
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype_name in ("bfloat16", "float32"):
+    cells = [("bfloat16", c) for c in gemm_cells(cfg, bert, vit, ssm_cfgs)]
+    cells += [("float32", c) for c in gemm_cells(cfg, bert, vit, ssm_cfgs)]
+    cells += [("bfloat16", c) for m in models for c in dense_gemm_cells(m)]
+    for dtype_name, (name, M, K, N, path, uses) in cells:
         dt = getattr(torch, dtype_name)
         atol, rtol = GEMM_TOLS[dtype_name]
-        for name, M, K, N, path, uses in gemm_cells(cfg, bert, vit,
-                                                    ssm_cfgs):
-            a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
-            w = (torch.randn((K, N), generator=gen, device="cuda")
-                 / K ** 0.5).to(dt)
-            pw = pack_weight(w, GemmPolicy())          # as the engine packs
-            blk = layout_for_packed(M, pw)
+        a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             / K ** 0.5).to(dt)
+        pw = pack_weight(w, GemmPolicy())          # as the engine packs
+        variants = [(path, layout_for_packed(M, pw))]
+        if dtype_name == "bfloat16" and path.endswith("decode step"):
+            variants.append((path + MMA_BEFORE, L.BlockLayout(
+                L.bm_for(M), pw.bn, pw.bk, pw.mode)))
+        for vpath, blk in variants:
             a_bm = L.to_block_major_a(a, blk.bm, blk.bk)
             before = counts()
             got = MF.matrixflow_gemm_block_major(a_bm, pw.data, out_dtype=dt)
             after = counts()
             want = MF.plain(a_bm, pw.data, out_dtype=dt)
             torch.cuda.synchronize()
-            cell = f"matrixflow_gemm {name} M={M} K={K} N={N} {dtype_name}"
+            cell = (f"matrixflow_gemm {name} M={M} K={K} N={N} {dtype_name}"
+                    + (MMA_BEFORE if vpath != path else ""))
             route = [r for r in ("wgmma", "mma", "cuda_core")
                      if after[f"matrixflow_gemm_{r}"]
                      > before[f"matrixflow_gemm_{r}"]]
-            allowed = (("wgmma", "mma") if dtype_name == "bfloat16"
-                       else ("cuda_core",))
+            allowed = (("cuda_core",) if dtype_name == "float32" else
+                       ("mma",) if vpath != path else ("wgmma",))
             if len(route) != 1 or route[0] not in allowed:
                 fail(f"{cell}: ran route {route}, expected one of {allowed}")
             tile = (MF.tc_tile(blk.bm, blk.bn, a_bm.shape[0],
@@ -474,13 +539,14 @@ def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs):
             b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, M=M, K=K, N=N,
                              block=[blk.bm, blk.bn, blk.bk], route=route[0],
-                             tile=tile, path=path, uses=uses, max_abs_err=err,
-                             ms=t_k, plain_ms=t_p, library_ms=t_lib,
-                             bound_ms=b_ms, bound_by=b_by))
+                             tile=tile, path=vpath, uses=uses,
+                             max_abs_err=err, ms=t_k, plain_ms=t_p,
+                             library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
             log(f"{cell}: blocks {blk.bm}x{blk.bn}x{blk.bk} route {route[0]} "
-                f"tile {tile} max|d|={err:.2e} "
-                f"kernel {t_k:.4f} ms plain {t_p:.4f} ms matmul {t_lib:.4f} "
-                f"ms bound {b_ms:.4f} ms ({b_by})")
+                f"tile {tile} max|d|={err:.2e} kernel {t_k:.4f} ms plain "
+                f"{t_p:.4f} ms matmul {t_lib:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by})")
+        del a, w, pw
     return rows
 
 
@@ -548,15 +614,29 @@ def serving_feature_cases(rng):
              "tail prefill")]
 
 
-def run_attention_phase(timer, cfg):
+def model_attention_cases(rng, m):
+    """A dense decoder's decode step and prefill bucket (paths named after
+    it), for the attention phases' models beyond smollm-135m."""
+    dec_lens = rng.integers(17, MAX_LEN, SLOTS).tolist()
+    pf_lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS).tolist()
+    return [(f"{m.name} decode", 1, dec_lens, [n - 1 for n in dec_lens],
+             f"{m.name} decode step"),
+            (f"{m.name} prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS,
+             f"{m.name} prefill")]
+
+
+def run_attention_phase(timer, cfg, models=()):
+    """K4 at smollm-135m's serving shapes and at the decode step and
+    prefill of each of ``models`` (head_dim 128; granite's group 48)."""
     from repro_torch.kernels import paged_attention as PA
 
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     nb = MAX_LEN // PAGE
     rng = np.random.default_rng(1)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype_name in ("bfloat16", "float32"):
+    for dtype_name, m in [(d, m) for m in (cfg, *models)
+                          for d in ("bfloat16", "float32")]:
+        H, Hkv, D = m.n_heads, m.n_kv_heads, m.head_dim
         dt = getattr(torch, dtype_name)
         atol, rtol = ATTN_TOLS[dtype_name]
         dec_lens = rng.integers(17, MAX_LEN, SLOTS).tolist()
@@ -570,7 +650,8 @@ def run_attention_phase(timer, cfg):
             ("decode edge lengths", 1, edge_lens,
              [n - 1 for n in edge_lens], "decode step, edge lengths"),
             ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, "prefill"),
-        ] + serving_feature_cases(rng)
+        ] + serving_feature_cases(rng) if m is cfg else \
+            model_attention_cases(rng, m)
         for name, Sq, lens, q_start, path in cases:
             q, kp, vp, bt, dead_bt, qpos, kvl = paged_case(
                 gen, dt, B=SLOTS, Sq=Sq, lens=lens, q_start=q_start,
@@ -584,7 +665,8 @@ def run_attention_phase(timer, cfg):
                                             causal=True, scale=scale,
                                             soft_cap=None)
             torch.cuda.synchronize()
-            cell = f"paged_attention {name} B={SLOTS} Sq={Sq} {dtype_name}"
+            cell = (f"paged_attention {name} B={SLOTS} Sq={Sq} H={H} Hkv={Hkv} "
+                    f"D={D} {dtype_name}")
             expect = PA.route_for(dt, Sq, H // Hkv)
             if route != expect or (dtype_name == "float32") != (
                     route == "cuda_cores"):
@@ -620,7 +702,7 @@ def run_attention_phase(timer, cfg):
             flops = float(vis.sum()) * H * 4 * D
             b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
-                             path=path, uses=cfg.n_layers, route=route,
+                             path=path, uses=m.n_layers, route=route,
                              max_abs_err=err, ms=t_k, plain_ms=t_p,
                              library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
             log(f"{cell}: route {route} max|d|={err:.2e} kernel {t_k:.4f} ms plain "
@@ -633,7 +715,7 @@ def run_attention_phase(timer, cfg):
 # Phase 2c: flash attention against its plain version
 # ---------------------------------------------------------------------------
 
-def flash_cells(cfg, bert, vit, vit_huge, zamba, rng):
+def flash_cells(cfg, bert, vit, vit_huge, zamba, rng, models=()):
     """(name, B, Sq, Sk, H, Hkv, D, causal, q_positions, kv_valid_len,
     path, uses per run) at the encoder paths' and the contiguous serving
     path's shapes. q_positions / kv_valid_len are numpy arrays or None (the
@@ -687,6 +769,24 @@ def flash_cells(cfg, bert, vit, vit_huge, zamba, rng):
     cells.append(("zamba2 decode", SSM_SLOTS, 1, SSM_MAX_LEN, z.n_heads,
                   z.n_kv_heads, z.head_dim, True, pos[:, None], pos + 1,
                   "zamba2 decode step", G))
+    # the dense decoders served from contiguous caches (head_dim 128; qwen3
+    # group 4, qwen2 6, granite 48): a decode step over ragged lengths and a
+    # 64-column prefill bucket of 16..64 real columns a slot
+    for m in models:
+        lens = rng.integers(17, MAX_LEN + 1, SLOTS)
+        cells.append((f"{m.name} decode", SLOTS, 1, MAX_LEN, m.n_heads,
+                      m.n_kv_heads, m.head_dim, True,
+                      (lens - 1)[:, None].astype(np.int32),
+                      lens.astype(np.int32), f"{m.name} decode step",
+                      m.n_layers))
+        lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS)
+        qpos = np.full((SLOTS, PROMPT_BUCKET), -1, np.int32)
+        for b, n in enumerate(lens):
+            qpos[b, :n] = np.arange(n)
+        cells.append((f"{m.name} prefill bucket", SLOTS, PROMPT_BUCKET,
+                      MAX_LEN, m.n_heads, m.n_kv_heads, m.head_dim, True,
+                      qpos, lens.astype(np.int32), f"{m.name} prefill",
+                      m.n_layers))
     return cells
 
 
@@ -865,7 +965,7 @@ def run_quant_gemm_phase(timer, cfg, bert, vit):
 # Phase 2e: paged attention over int8 pages (K5) against its plain version
 # ---------------------------------------------------------------------------
 
-def run_int8_attention_phase(timer, cfg):
+def run_int8_attention_phase(timer, cfg, models=()):
     """K5 at smollm-135m's decode, prefill bucket and chunked prefill, q in
     bf16 and fp32, over int8 pools with per-(page, kv head) scales through
     shuffled block tables whose entries past a slot's valid keys are out
@@ -876,13 +976,14 @@ def run_int8_attention_phase(timer, cfg):
     from repro_torch.core import quant as Q
     from repro_torch.kernels import paged_attention as PA
 
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     nb = MAX_LEN // PAGE
     rng = np.random.default_rng(11)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(11)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dtype_name in ("bfloat16", "float32"):
+    for dtype_name, m in [(d, m) for m in (cfg, *models)
+                          for d in ("bfloat16", "float32")]:
+        H, Hkv, D = m.n_heads, m.n_kv_heads, m.head_dim
         dt = getattr(torch, dtype_name)
         atol, rtol = ATTN_TOLS[dtype_name]
         dec_lens = rng.integers(17, MAX_LEN, SLOTS).tolist()
@@ -893,7 +994,8 @@ def run_int8_attention_phase(timer, cfg):
             ("prefill", PROMPT_BUCKET, pf_lens, [0] * SLOTS, "prefill"),
             ("chunked prefill", 32, [t + 32 for t in starts], starts,
              "chunk"),
-        ] + serving_feature_cases(rng)
+        ] + serving_feature_cases(rng) if m is cfg else \
+            model_attention_cases(rng, m)
         for name, Sq, lens, q_start, path in cases:
             q, kp, vp, bt, dead_bt, qpos, kvl = paged_case(
                 gen, torch.float32, B=SLOTS, Sq=Sq, lens=lens,
@@ -917,8 +1019,8 @@ def run_int8_attention_phase(timer, cfg):
             route = route_taken(before, counts(), "paged_attention_int8")
             want = plain()
             torch.cuda.synchronize()
-            cell = (f"paged_attention_int8 {name} B={SLOTS} Sq={Sq} q "
-                    f"{dtype_name}")
+            cell = (f"paged_attention_int8 {name} B={SLOTS} Sq={Sq} H={H} "
+                    f"Hkv={Hkv} D={D} q {dtype_name}")
             expect = PA.route_for(dt, Sq, H // Hkv)
             if route != expect or (dtype_name == "float32") != (
                     route == "cuda_cores"):
@@ -953,7 +1055,7 @@ def run_int8_attention_phase(timer, cfg):
             flops = float(vis.sum()) * H * 4 * D
             b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
-                             path=path, uses=cfg.n_layers, route=route,
+                             path=path, uses=m.n_layers, route=route,
                              max_abs_err=err,
                              ms=t_k, plain_ms=t_p, library_ms=t_lib,
                              bound_ms=b_ms, bound_by=b_by))
@@ -1224,14 +1326,24 @@ def greedy_run(cfg, params, device, prompts, n_steps, kv_dtype=None):
     return torch.stack(toks, 1), logits_all
 
 
-def run_parity_phase(cfg):
+def to_device(node, device):
+    """A param tree's tensors on ``device``."""
+    if isinstance(node, dict):
+        return {k: to_device(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_device(v, device) for v in node]
+    return node.to(device)
+
+
+def run_parity_phase(cfg, tag="parity"):
     from repro_torch.core.api import pack_model_weights
     from repro_torch.models import transformer as T
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    cpu_params = pack_model_weights(T.init_model(cfg32, seed=3, device="cpu"))
-    gpu_params = T.init_model(cfg32, seed=3, device="cuda")
-    gpu_params = pack_model_weights(gpu_params)
+    raw = T.init_model(cfg32, seed=3, device="cpu")
+    gpu_params = pack_model_weights(to_device(raw, "cuda"))
+    cpu_params = pack_model_weights(raw)
+    del raw
     prompts = np.random.default_rng(3).integers(0, cfg.vocab, (2, 24))
     n_steps = 8
     t0 = time.perf_counter()
@@ -1240,7 +1352,7 @@ def run_parity_phase(cfg):
     errs = [float((a - b).abs().max()) for a, b in zip(lg_g, lg_c)]
     for i, name in ((0, "prefill"), (1, "first decode")):
         if not np.isfinite(errs[i]) or errs[i] > LOGIT_TOL:
-            fail(f"parity: {name} logits max |kernel - plain| = {errs[i]:.3e}"
+            fail(f"{tag}: {name} logits max |kernel - plain| = {errs[i]:.3e}"
                  f" > {LOGIT_TOL}")
     diverged = None
     for b in range(toks_g.shape[0]):
@@ -1249,13 +1361,14 @@ def run_parity_phase(cfg):
                 top2 = lg_c[i][b].topk(2).values
                 margin = float(top2[0] - top2[1])
                 if margin >= LOGIT_TOL:
-                    fail(f"parity: greedy streams diverge at row {b} step {i} "
+                    fail(f"{tag}: greedy streams diverge at row {b} step {i} "
                          f"with plain top-2 margin {margin:.3e} >= {LOGIT_TOL}")
                 diverged = dict(row=b, step=i, margin=margin)
                 break
-    res = dict(logit_max_abs_err=errs, streams_equal=diverged is None,
-               first_divergence=diverged, seconds=time.perf_counter() - t0)
-    log(f"parity fp32 full width: logits max|d| per step "
+    res = dict(layers=cfg.n_layers, logit_max_abs_err=errs,
+               streams_equal=diverged is None, first_divergence=diverged,
+               seconds=time.perf_counter() - t0)
+    log(f"{tag} fp32 full width, {cfg.n_layers} layers: logits max|d| per step "
         f"{[f'{e:.2e}' for e in errs]}; streams "
         f"{'equal' if diverged is None else f'diverge at a near-tie {diverged}'}")
     return res
@@ -1399,8 +1512,10 @@ def run_contiguous_phase(cfg):
 
     # fp32: the same prompts through the contiguous engine on the card, the
     # paged engine on the card and the contiguous engine on the CPU (plain
-    # versions); greedy streams must agree
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # versions), full width at CONTIG_FP32_LAYERS layers; greedy streams
+    # must agree
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=CONTIG_FP32_LAYERS)
     params32 = T.init_model(cfg32, seed=8, device="cpu")
     runs = {}
     t0 = time.perf_counter()
@@ -1423,7 +1538,8 @@ def run_contiguous_phase(cfg):
                 ties[f"{other} request {i}"] = d
     res["fp32_streams"] = dict(equal=not ties, near_ties=ties,
                                seconds=time.perf_counter() - t0)
-    log(f"contiguous serving fp32: streams of {N_REQUESTS} requests "
+    log(f"contiguous serving fp32, {CONTIG_FP32_LAYERS} layers: streams of "
+        f"{N_REQUESTS} requests "
         f"{'equal' if not ties else f'equal up to near-ties {ties}'} across "
         f"fused card / paged card / CPU plain")
     return res
@@ -1767,8 +1883,8 @@ def run_ssm_parity_phase(cfg):
 # ---------------------------------------------------------------------------
 
 def feature_engine(cfg, params, *, attn="paged", cache_pages=None, **kw):
-    """Full-width smollm-135m, 8 slots, max_len 256, page 16, packed
-    weights; ``kw`` adds the serving features."""
+    """8 slots, max_len 256, page 16, packed weights (``cfg`` at full
+    width); ``kw`` adds the serving features."""
     from repro_torch.core.plan import FUSED, AttentionPolicy
     from repro_torch.serving.engine import ServeConfig, ServingEngine
 
@@ -1905,9 +2021,7 @@ def run_prefix_part(cfg, params, prompts, kv_dtype, obs=None):
     reset_counts()
     streams, reported, n_tokens, dt, step_s = serve_features(eng, prompts,
                                                              300)
-    required = K1_BF16 + (K4_BF16 if kv_dtype is None else (
-        "paged_attention_int8", "paged_attention_int8_rows",
-        "paged_attention_int8_split"))
+    required = K1_BF16 + (K4_BF16 if kv_dtype is None else K5_BF16)
     launches = read_counts(tag, required)
     check_streams(tag, streams, cfg.vocab)
     st = eng.stats()
@@ -1966,10 +2080,10 @@ def run_spec_part(cfg, params, prompts, name, *, attn="paged", k=SPEC_K,
                     streams)
         del eng
     st = runs[True][3]
-    # bf16 streams with and without speculation are not gated: K1's route
-    # follows M (a verify's M = 8(1 + k) takes wgmma, a decode's M = 8
-    # mma), so a near-tie may round the other way; the fp32 identity run
-    # below is the gate
+    # bf16 streams with and without speculation are counted, not gated: K1
+    # takes one route at every M and K4's routes walk a row's keys alike,
+    # but a verify's row still differs from a decode's where K3 or K4 split
+    # a cache of 512 keys or more; the fp32 identity run below is the gate
     parted = [i for i, (a, b) in enumerate(zip(runs[False][4], runs[True][4]))
               if a != b]
     return dict(k=k, attention=attn, kv_dtype=kv_dtype,
@@ -2165,6 +2279,181 @@ def run_features_phase(cfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: bf16 greedy streams that depend neither on preemption nor on a
+# prefix-cache hit
+# ---------------------------------------------------------------------------
+
+# The models phase 12 runs on: the paged path's smollm-135m, and qwen2-1.5b
+# (phase 13) at its published depth.
+IDENTITY_ARCHS = ("smollm-135m", "qwen2-1.5b")
+
+
+def solo_streams(cfg, params, prompts, rids, kv_dtype):
+    """The streams of ``prompts[rid]`` for each of ``rids``, each served
+    alone on one engine whose pool never runs dry."""
+    eng = feature_engine(cfg, params, kv_dtype=kv_dtype)
+    out = {}
+    for rid in rids:
+        h = eng.submit(prompts[rid])
+        out[rid] = [eng.step()[h] for _ in range(GEN_LEN)]
+        eng.cancel(h)
+    return out
+
+
+def run_identity_phase(cfg, params):
+    """bf16, paged (page 16), 8 slots, fp pools and int8 KV: (a) 12
+    requests under the 24-page pool, each preempted request's stream
+    against its solo stream; (b) phase 11's 12 requests on one 48-token
+    system prompt with the prefix cache on (the same 24-page pool,
+    watermark 2) against the prefix cache off. Counts the streams that
+    part; any part fails the phase (after every count is logged)."""
+    res, parted = {}, 0
+    for kv_dtype in (None, "int8"):
+        tag = f"identity {cfg.name} {kv_dtype or 'bf16'} KV"
+        rng = np.random.default_rng(21)
+        prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+                   for n in rng.integers(16, PROMPT_BUCKET + 1, N_REQUESTS)]
+        eng = feature_engine(cfg, params, cache_pages=CACHE_PAGES,
+                             kv_dtype=kv_dtype)
+        preempted = set()
+        preempt = eng._preempt
+        eng._preempt = lambda slot, e=eng, f=preempt: (
+            preempted.add(int(e.slot_rid[slot])), f(slot))[1]
+        t0 = time.perf_counter()
+        reset_counts()
+        streams = serve_requests(eng, prompts, 600)[0]
+        launches = read_counts(tag, K1_BF16 + (
+            K4_BF16 if kv_dtype is None else K5_BF16))
+        check_streams(tag, streams, cfg.vocab)
+        del eng
+        if not preempted:
+            fail(f"{tag}: the pool never ran dry (no preemption)")
+        # request ids follow submission order, which is prompt order
+        solo = solo_streams(cfg, params, prompts, sorted(preempted), kv_dtype)
+        pre_parted = [r for r in sorted(preempted) if solo[r] != streams[r]]
+        pprompts = prefix_prompts(cfg, np.random.default_rng(22))
+        on_eng = feature_engine(cfg, params, cache_pages=CACHE_PAGES,
+                                prefix_cache=True, prefix_watermark=2,
+                                kv_dtype=kv_dtype)
+        on = serve_features(on_eng, pprompts, 600)[0]
+        hits = on_eng.stats()["prefix_hits"]
+        del on_eng
+        off_eng = feature_engine(cfg, params, kv_dtype=kv_dtype)
+        off = serve_features(off_eng, pprompts, 600)[0]
+        del off_eng
+        if hits < 1:
+            fail(f"{tag}: the prefix cache was never hit")
+        fix_parted = [i for i in range(N_REQUESTS) if on[i] != off[i]]
+        parted += len(pre_parted) + len(fix_parted)
+        res[kv_dtype or "bf16"] = dict(
+            preempted=sorted(preempted), preempted_parted=pre_parted,
+            prefix_hits=hits, prefix_parted=fix_parted, launches=launches,
+            seconds=time.perf_counter() - t0)
+        log(f"{tag}: {len(pre_parted)} of {len(preempted)} preempted "
+            f"requests part from their solo streams {pre_parted}; "
+            f"{len(fix_parted)} of {N_REQUESTS} prefix-on streams part from "
+            f"prefix-off {fix_parted} ({hits} hits); launches {launches}")
+    if parted:
+        fail(f"identity {cfg.name}: {parted} bf16 streams part: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-15: the rest of the dense family at full width
+# ---------------------------------------------------------------------------
+
+# arch: (layers served, None for the published depth; layers of the fp32
+# card-vs-CPU parity; the int8 run: None, "kv" (int8 KV pages) or "w8a8"
+# (W8A8 weights and int8 KV pages))
+DENSE_MODELS = {"qwen2-1.5b": (None, 4, "w8a8"),
+                "qwen3-8b": (None, 2, None),
+                "granite-20b": (16, 2, "kv")}
+
+
+def serve_dense(tag, cfg, params, required, **kw):
+    """12 requests x GEN_LEN tokens through submit/step on one engine
+    (feature_engine: 8 slots, max_len 256, page 16, and ``kw``), every
+    request complete and ``required`` launched, preemption engaged under a
+    paged pool of CACHE_PAGES; then generate() of one 16-token prompt a
+    slot, whose 48-token horizons fill that pool exactly."""
+    eng = feature_engine(cfg, params, **kw)
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, PROMPT_BUCKET + 1, N_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    streams, n_tokens, per_step = serve_requests(eng, prompts, 600)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(tag, required)
+    check_streams(tag, streams, cfg.vocab)
+    if kw.get("cache_pages") and eng.n_preemptions < 1:
+        fail(f"{tag}: the pool never ran dry (no preemption)")
+    t1 = time.perf_counter()
+    out = eng.generate(rng.integers(0, cfg.vocab, (SLOTS, 16)), GEN_LEN)
+    gen_s = time.perf_counter() - t1
+    if out.shape != (SLOTS, GEN_LEN) or out.min() < 0 \
+            or out.max() >= cfg.vocab:
+        fail(f"{tag}: generate() gave malformed output {out.shape}")
+    res = dict(requests=N_REQUESTS, tokens=n_tokens, seconds=dt,
+               tokens_per_s=n_tokens / dt,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               preemptions=eng.n_preemptions, launches=launches,
+               launches_per_decode_step=per_step,
+               generate_tokens_per_s=SLOTS * GEN_LEN / gen_s)
+    log(f"{tag}: {N_REQUESTS} requests x {GEN_LEN} tokens, {n_tokens} tokens "
+        f"in {dt:.3f} s ({res['tokens_per_s']:.1f} tok/s), peak "
+        f"{res['peak_mem_gib']:.2f} GiB, {eng.n_preemptions} preemptions, "
+        f"per decode step {per_step}; generate() {SLOTS}x{GEN_LEN} tokens in "
+        f"{gen_s:.3f} s")
+    return res
+
+
+def run_dense_phase(arch, layers, parity_layers, int8):
+    """One dense decoder at full width in bf16 (weights drawn on the card
+    from a seed), at ``layers`` (None: the published depth): paged serving
+    with preemption (K1 wgmma, K4 on both routes), contiguous serving (K3
+    on both), with ``int8`` int8 KV (K5 on both; "w8a8" also W8A8
+    weights, K2 on both), and for qwen2-1.5b phase 12's stream identity;
+    then fp32 at ``parity_layers``, the card against the CPU plain path
+    (phase 4)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+    res = dict(layers=cfg.n_layers, published_layers=full.n_layers,
+               init_s=time.perf_counter() - t0)
+    log(f"{arch}: {cfg.n_layers} of {full.n_layers} layers at full width, "
+        f"bf16 weights drawn on the card in {res['init_s']:.1f} s")
+    res["paged"] = serve_dense(f"{arch} paged serving", cfg, params,
+                               K1_BF16 + K4_BF16, cache_pages=CACHE_PAGES)
+    res["contiguous"] = serve_dense(f"{arch} contiguous serving", cfg, params,
+                                    K1_BF16 + K3_BF16, attn="fused")
+    w8a8 = int8 == "w8a8"
+    if int8:
+        res["int8"] = serve_dense(
+            f"{arch} int8 serving", cfg, params,
+            K5_BF16 + (K2_BF16 if w8a8 else K1_BF16), cache_pages=CACHE_PAGES,
+            kv_dtype="int8", weight_dtype="int8" if w8a8 else None)
+    if w8a8 and res["int8"]["launches"]["matrixflow_gemm"]:
+        fail(f"{arch} int8 serving: K1 ran beside the W8A8 GEMM")
+    if arch in IDENTITY_ARCHS:
+        res["identity"] = run_identity_phase(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["parity"] = run_parity_phase(
+        dataclasses.replace(full, n_layers=parity_layers), f"{arch} parity")
+    return res
+
+
 def aggregate(rows, dtype, path="decode step"):
     """Per run of ``path`` (a decode step, an encoder forward): each of its
     cells weighted by its uses per run."""
@@ -2211,17 +2500,26 @@ def main() -> None:
         "\n".join(f"== {k}\n{v}" for k, v in build_logs.items()))
     log(f"build: {sorted(build_logs) or 'cached'} in {report['build_s']:.1f} s")
 
+    if sys.argv[1:2] == ["--identity"]:      # phase 12 alone, on the named archs
+        from repro_torch.models import transformer as T
+        for arch in sys.argv[2:] or IDENTITY_ARCHS:
+            c = get_config(arch)
+            run_identity_phase(c, T.init_model(c, seed=0, device="cuda"))
+        return
+
     cfg = get_config(ARCH)
     bert, vit = get_config("bert-base"), get_config("vit-base")
     mamba, zamba = get_config(MAMBA), get_config(ZAMBA)
+    dense = [get_config(a) for a in DENSE_MODELS]
     timer = Timer()
-    report["gemm"] = run_gemm_phase(timer, cfg, bert, vit, (mamba, zamba))
-    report["attention"] = run_attention_phase(timer, cfg)
+    report["gemm"] = run_gemm_phase(timer, cfg, bert, vit, (mamba, zamba),
+                                    dense)
+    report["attention"] = run_attention_phase(timer, cfg, dense)
     report["flash"] = run_flash_phase(timer, flash_cells(
         cfg, bert, vit, get_config("vit-huge"), zamba,
-        np.random.default_rng(3)))
+        np.random.default_rng(3), dense))
     report["quant_gemm"] = run_quant_gemm_phase(timer, cfg, bert, vit)
-    report["int8_attention"] = run_int8_attention_phase(timer, cfg)
+    report["int8_attention"] = run_int8_attention_phase(timer, cfg, dense)
     report["ssd"] = run_ssd_phase(timer, mamba, zamba)
     del timer
     report["serving"] = run_serving_phase(cfg)
@@ -2236,6 +2534,11 @@ def main() -> None:
     report["ssm_parity"] = {c.name: run_ssm_parity_phase(c)
                             for c in (mamba, zamba)}
     report["features"] = feat = run_features_phase(cfg)
+    from repro_torch.models import transformer as T
+    report["identity"] = run_identity_phase(
+        cfg, T.init_model(cfg, seed=0, device="cuda"))
+    report["dense"] = {a: run_dense_phase(a, *v)
+                       for a, v in DENSE_MODELS.items()}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],
@@ -2251,9 +2554,24 @@ def main() -> None:
                   for n, r in feat["spec"].items()},
                "frontend": feat["frontend"]["launches"],
                "prefix cache, obs": feat["obs"]["launches"]}
+    identity = {ARCH: report["identity"], **{
+        a: r["identity"] for a, r in report["dense"].items()
+        if "identity" in r}}
+    by_path.update({f"identity {a} {kv} KV": r["launches"]
+                    for a, ident in identity.items()
+                    for kv, r in ident.items()})
+    for a, r in report["dense"].items():
+        by_path.update({f"{a} {run} serving": r[run]["launches"]
+                        for run in ("paged", "contiguous", "int8") if run in r})
+    qwen2, qwen3, granite = (m.name for m in dense)
 
-    def entry(name, source, replaces, rows, path, other_paths):
-        launches = {p: c[name] for p, c in by_path.items() if c[name]}
+    def entry(name, source, replaces, rows, path, other_paths, counter=None,
+              paths=None):
+        """``counter``'s launches (default ``name``'s) over ``paths`` (default
+        every path), and ``rows``' times per run of ``path``."""
+        counter = counter or name
+        launches = {p: c[counter] for p, c in by_path.items()
+                    if c[counter] and (paths is None or p in paths)}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": sum(launches.values()),
@@ -2271,7 +2589,9 @@ def main() -> None:
                "src/repro/kernels/matrixflow_gemm.py:137", report["gemm"],
                "decode step", (f"{bert.name} forward", f"{vit.name} forward",
                                f"{MAMBA} decode step", f"{MAMBA} prefill",
-                               f"{ZAMBA} decode step"))
+                               f"{ZAMBA} decode step",
+                               *(f"{m} {p}" for m in (qwen2, qwen3, granite)
+                                 for p in ("decode step", "prefill"))))
     k1["launches_by_route"] = {
         r: sum(c[f"matrixflow_gemm_{r}"] for c in by_path.values())
         for r in ("wgmma", "mma", "cuda_core")}
@@ -2286,11 +2606,19 @@ def main() -> None:
         k1,
         entry("matrixflow_gemm_wgmma", "matrixflow_gemm",
               "src/repro/kernels/matrixflow_gemm.py:137", on_route("wgmma"),
-              f"{bert.name} forward", (f"{vit.name} forward", "prefill",
-                                       f"{MAMBA} prefill")),
-        entry("matrixflow_gemm_mma", "matrixflow_gemm",
-              "src/repro/kernels/matrixflow_gemm.py:137", on_route("mma"),
-              "decode step", (f"{MAMBA} decode step", f"{ZAMBA} decode step")),
+              "decode step", (f"{bert.name} forward", f"{vit.name} forward",
+                              "prefill", f"{MAMBA} prefill",
+                              f"{MAMBA} decode step", f"{ZAMBA} decode step",
+                              *(f"{m} {p}" for m in (qwen2, qwen3, granite)
+                                for p in ("decode step", "prefill")))),
+        # off every bf16 path since bf16 takes bm 64 at every M: its cells
+        # time the decode GEMMs as they ran before, at bm 16
+        dict(entry("matrixflow_gemm_mma", "matrixflow_gemm",
+                   "src/repro/kernels/matrixflow_gemm.py:137",
+                   on_route("mma"), "decode step" + MMA_BEFORE,
+                   tuple(f"{m} decode step{MMA_BEFORE}"
+                         for m in (MAMBA, ZAMBA, qwen2, qwen3, granite))),
+             on_main_path=False),
         entry("matrixflow_gemm_dequant", "matrixflow_gemm",
               "src/repro/kernels/matrixflow_gemm.py:154",
               report["quant_gemm"], "decode step",
@@ -2316,6 +2644,23 @@ def main() -> None:
               "src/repro/kernels/flash_attention.py:199",
               on_route("split", "flash"), "decode step",
               ("zamba2 decode step", "verify step k4")),
+        # the head_dim-128 instances (the three dense decoders' contiguous
+        # serving) and granite's group of 48
+        entry("flash_attention_d128", "flash_attention",
+              "src/repro/kernels/flash_attention.py:199",
+              [r for r in report["flash"] if " D=128 " in r["cell"]],
+              f"{qwen2} decode step",
+              (f"{qwen2} prefill", f"{qwen3} decode step", f"{qwen3} prefill",
+               f"{granite} decode step", f"{granite} prefill"),
+              counter="flash_attention",
+              paths={f"{m} contiguous serving" for m in (qwen2, qwen3,
+                                                         granite)}),
+        entry("flash_attention_group48", "flash_attention",
+              "src/repro/kernels/flash_attention.py:199",
+              [r for r in report["flash"] if " H=48 Hkv=1 " in r["cell"]],
+              f"{granite} decode step", (f"{granite} prefill",),
+              counter="flash_attention",
+              paths={f"{granite} contiguous serving"}),
         entry("paged_attention", "paged_attention",
               "src/repro/kernels/paged_attention.py:188",
               report["attention"], "decode step",
@@ -2329,6 +2674,11 @@ def main() -> None:
               "src/repro/kernels/paged_attention.py:188",
               on_route("split", "attention"), "decode step",
               ("decode step, edge lengths", "verify step k4")),
+        entry("paged_attention_group48", "paged_attention",
+              "src/repro/kernels/paged_attention.py:188",
+              [r for r in report["attention"] if " H=48 Hkv=1 " in r["cell"]],
+              f"{granite} decode step", (f"{granite} prefill",),
+              counter="paged_attention", paths={f"{granite} paged serving"}),
         entry("paged_attention_int8", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
               report["int8_attention"], "decode step",
@@ -2342,6 +2692,13 @@ def main() -> None:
               "src/repro/kernels/paged_attention.py:222",
               on_route("rows", "int8_attention"), "prefill",
               ("chunk", "verify step k8", "tail prefill")),
+        entry("paged_attention_int8_group48", "paged_attention",
+              "src/repro/kernels/paged_attention.py:222",
+              [r for r in report["int8_attention"]
+               if " H=48 Hkv=1 " in r["cell"]],
+              f"{granite} decode step", (f"{granite} prefill",),
+              counter="paged_attention_int8",
+              paths={f"{granite} int8 serving"}),
         entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:117",
               report["ssd"], main_ssd,
               [p for p in ssd_paths if p != main_ssd]),

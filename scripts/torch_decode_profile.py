@@ -8,8 +8,12 @@ spends its time, on one GPU.
     PYTHONPATH=src python3 scripts/torch_decode_profile.py --encoder bert-base
     PYTHONPATH=src python3 scripts/torch_decode_profile.py --arch mamba2-1.3b \
         --attn-backend fused --prompt-len 384
+    PYTHONPATH=src python3 scripts/torch_decode_profile.py --arch granite-20b \
+        --layers 16
 
-Decode (the default): serves full-width smollm-135m (bf16, seeded random
+Decode (the default): serves full-width smollm-135m, or with ``--arch``
+qwen2-1.5b, qwen3-8b or granite-20b (``--layers N`` cuts the depth; their
+weights are drawn on the card) (bf16, seeded random
 weights, resident block-major weights; paged KV with page 16, or
 contiguous KV caches under ``--attn-backend fused``) through ServingEngine
 with every slot decoding. ``--weight-dtype int8`` runs every projection
@@ -102,7 +106,10 @@ def main(argv=None) -> int:
     ap.add_argument("--weight-dtype", default=None, choices=["int8"])
     ap.add_argument("--kv-dtype", default=None, choices=["int8"])
     ap.add_argument("--arch", default="smollm-135m",
-                    choices=["smollm-135m", "mamba2-1.3b", "zamba2-2.7b"])
+                    choices=["smollm-135m", "qwen2-1.5b", "qwen3-8b",
+                             "granite-20b", "mamba2-1.3b", "zamba2-2.7b"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the arch's first N layers (full width)")
     ap.add_argument("--encoder", default=None,
                     choices=["bert-base", "vit-base"],
                     help="profile encoder_forward instead of decode")
@@ -115,14 +122,14 @@ def main(argv=None) -> int:
                     help="smollm-135m: prompts that repeat an 8-token "
                          "pattern")
     args = ap.parse_args(argv)
-    ssm = args.arch != "smollm-135m"
+    ssm = args.arch in ("mamba2-1.3b", "zamba2-2.7b")
     args.attn_backend = args.attn_backend or ("fused" if ssm else "paged")
     if args.kv_dtype and args.attn_backend != "paged":
         ap.error("--kv-dtype needs --attn-backend paged")
     if (args.obs or args.spec or args.ngram_prompts) and \
             (ssm or args.encoder):
-        ap.error("--obs, --spec and --ngram-prompts profile smollm-135m's "
-                 "decode step")
+        ap.error("--obs, --spec and --ngram-prompts profile a dense "
+                 "decoder's decode step")
     if ssm and (args.attn_backend != "fused" or args.kv_dtype):
         ap.error(f"{args.arch} serves from contiguous caches: "
                  f"--attn-backend fused, no --kv-dtype")
@@ -197,8 +204,13 @@ def main(argv=None) -> int:
         runs[f"{cfg.name} decode step after {S} tokens, {tag}"] = (
             decode, args.steps)
     else:
-        cfg = get_config("smollm-135m")
-        eng = ServingEngine(cfg, T.init_model(cfg, seed=0, device="cuda"),
+        import dataclasses
+        cfg = get_config(args.arch)
+        if args.layers:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        eng = ServingEngine(cfg, T.init_model(
+            cfg, seed=0, device="cuda",
+            draw_device="cpu" if args.arch == "smollm-135m" else "cuda"),
                             ServeConfig(
                                 batch_slots=args.slots, max_len=256,
                                 cache_dtype=cfg.dtype, pack_weights=True,
@@ -217,7 +229,8 @@ def main(argv=None) -> int:
             else:
                 prompt = rng.integers(0, cfg.vocab, args.prompt_len).tolist()
             eng.submit(prompt)
-        what = (f"smollm-135m decode step, {args.slots} slots, "
+        what = (f"{cfg.name} ({cfg.n_layers} layers) decode step, "
+                f"{args.slots} slots, "
                 f"{args.attn_backend} attention, weights "
                 f"{args.weight_dtype or cfg.dtype}, KV {args.kv_dtype or cfg.dtype}"
                 + (", obs on" if args.obs else "")
@@ -246,7 +259,8 @@ def main(argv=None) -> int:
     out.mkdir(exist_ok=True)
     name = "torch_decode_profile" + (
         f"_{args.encoder}" if args.encoder else
-        (f"_{args.arch}" if ssm else "") + f"_{args.attn_backend}"
+        (f"_{args.arch}" if args.arch != "smollm-135m" else "")
+        + (f"_L{args.layers}" if args.layers else "") + f"_{args.attn_backend}"
         + (f"_w{args.weight_dtype}" if args.weight_dtype else "")
         + (f"_kv{args.kv_dtype}" if args.kv_dtype else "")
         + ("_obs" if args.obs else "") + (f"_spec{args.spec}" if args.spec

@@ -266,6 +266,7 @@ def _plan_cached(M: int, N: int, K: int, dtype: torch.dtype,
     if mode == "auto":
         mode = _auto_mode(M, N, K, dtype)
     layout = L.choose_layout(M, N, K, dtype, mode=mode)
+    layout = dataclasses.replace(layout, bm=bm_for(M, dtype, device_type))
     return ExecutionPlan(M, N, K, dtype, backend, mode, layout, policy)
 
 
@@ -337,11 +338,26 @@ def pack_weight(w: torch.Tensor, policy: Optional[GemmPolicy] = None, *,
                         blk.bk, blk.bn, blk.mode)
 
 
+def bm_for(M: int, dtype: torch.dtype, device_type: str) -> int:
+    """The row tile of an (M, K) activation: bf16 on the card always takes
+    the largest, so K1 runs on its wgmma route at every M (decode's 8 rows
+    padded to 64). A row's bits then do not depend on how many rows share
+    the call: a preempted request's re-prefill rebuilds the K/V its decode
+    steps wrote, and a prefix-cache hit the K/V a miss would write. Other
+    dtypes and the CPU take the smallest tile covering M (K2 is exact
+    integer arithmetic on every tile; fp32 runs on the CUDA cores)."""
+    if device_type == "cuda" and dtype == torch.bfloat16:
+        return L.BM_CHOICES[-1]
+    return L.bm_for(M)
+
+
 def layout_for_packed(M: int, pw: Union[PackedWeight, QuantizedPackedWeight]
                       ) -> L.BlockLayout:
     """The BlockLayout for an (M, K) activation against a packed weight
-    (fp or int8): bk/bn are frozen by the pack, bm follows M."""
-    return L.BlockLayout(L.bm_for(M), pw.bn, pw.bk, pw.mode)
+    (fp or int8): bk/bn are frozen by the pack, bm follows M
+    (:func:`bm_for`)."""
+    return L.BlockLayout(bm_for(M, pw.data.dtype, pw.data.device.type),
+                         pw.bn, pw.bk, pw.mode)
 
 
 # Keys that name GEMM right-hand sides in the model parameter trees

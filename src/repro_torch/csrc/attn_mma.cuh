@@ -35,25 +35,29 @@
 // read, past the CTA's last visible key) into a two-stage ring: the next
 // stage is in flight while this one is multiplied.
 //
-// Two routes, by rows = query positions of a CTA x rep:
+// Rows are flat: row F of (b, g) is query position F / rep of head
+// g * rep + F % rep, and a CTA takes a range of consecutive rows, so any
+// GQA group fits (granite's 48 query heads on one kv head: a decode row is
+// 48 rows, three m16 tiles). Two routes, by rows = Sq x rep
+// (kernels/flash_attention.py::route_for):
 //
-// * rows (Sq x rep > 16: encoders, prefill buckets, chunks): 4 warps own
-//   64 rows, 16 each (64 / rep query positions), and each warp walks every
-//   64-key stage. A warp skips a stage past its own rows' last visible key
-//   (bitwise the same as computing it: every p there is 0 and the max is
-//   unchanged). Over int8 keys a rows-route CTA holds one m16 tile and
-//   walks its keys as a split-route CTA does (below).
-// * split (Sq x rep <= 16: decode): one m16 row tile. The keys are cut in
-//   16-key tiles; the CTAs of a thread-block cluster (up to 8, one per
-//   blockIdx.x) take even shares of them, and within a stage warp w takes
-//   keys 16 w .. 16 w + 15. Each warp's partial (m, l, acc) is merged with
-//   the others' in warp order through shared memory, then the CTAs'
-//   partials in rank order through distributed shared memory: no atomics,
-//   no workspace, the same bits every run. The split count comes from
-//   shapes the host knows (B, Hkv, the keys in memory) and never from
+// * rows (Sq > 1 and rows > 16: encoders, prefill buckets, chunks): over a
+//   dense cache (K3) 4 warps own 64 rows, 16 each, and each warp walks
+//   every 64-key stage; a warp skips a stage past its own rows' last
+//   visible key (bitwise the same as computing it: every p there is 0 and
+//   the max is unchanged). Over page pools (K4, K5) a CTA holds one m16
+//   tile and walks its keys as a split-route CTA does (below).
+// * split (decode, or rows <= 16): one m16 row tile a CTA. The keys are cut
+//   in 16-key tiles; the CTAs of a thread-block cluster (up to 8,
+//   consecutive blockIdx.x) take even shares of them, and within a stage
+//   warp w takes keys 16 w .. 16 w + 15. Each warp's partial (m, l, acc) is
+//   merged with the others' in warp order through shared memory, then the
+//   CTAs' partials in rank order through distributed shared memory: no
+//   atomics, no workspace, the same bits every run. The split count comes
+//   from shapes the host knows (B, Hkv, the keys in memory) and never from
 //   kv_valid_len: each CTA clips its share to the last visible key on the
 //   device, and an empty share contributes (m = -1e30, l = 0, acc = 0).
-//   One CTA (gridDim.x = 1) takes the same path without the cluster.
+//   One CTA per tile (splits = 1) takes the same path without the cluster.
 //
 // Rounding: p is rounded to bf16 against the running max of the warp (and
 // CTA) that scored it, not the one global running max of a sequential
@@ -84,17 +88,17 @@
 // lo = bf16(p' - hi), and P.V runs two mma a k16 step, which carries p' to
 // 2^-18 relative (the product with an int8 V is exact).
 //
-// int8 pools: a row's result must not depend on the route. A request that
-// is preempted is re-prefilled (rows) over keys it decoded (split), and the
-// int8 KV write keeps its stream identical to a solo run's only if each
-// row's attention is the same bits either way. So on the rows route a CTA
-// over int8 pools takes one m16 tile of rows (16 / rep query positions) and
-// walks its keys as the split route does, a stage's keys over the four
-// warps, merged in warp order: per row the same products, maxima,
-// exponentials and sums in the same order. With one CTA per (kv head, batch
-// row) on the split route (split_count 1, caches under 512 keys) the two
-// routes agree bitwise; the CTAs of a cluster (from 512 keys) merge their
-// partials in rank order as for bf16.
+// Page pools: a row's result must not depend on the route. A request that
+// is preempted is re-prefilled (rows) over keys it decoded (split), and its
+// stream stays identical to a solo run's, and a prefix-cache hit's to a
+// miss's, only if each row's attention is the same bits either way. So on
+// the rows route a CTA over page pools (bf16 or int8) takes one m16 tile of
+// rows and walks its keys as the split route does, a stage's keys over the
+// four warps, merged in warp order: per row the same products, maxima,
+// exponentials and sums in the same order, whichever rows share the tile.
+// With one CTA per tile on the split route (split_count 1, caches under 512
+// keys) the two routes agree bitwise; the CTAs of a cluster (from 512 keys)
+// merge their partials in rank order as for a dense cache.
 
 #pragma once
 
@@ -127,16 +131,16 @@ template <int D> struct Geo {
   static constexpr int kInt8TileBytes = kBlockN * D;  // int8 keys as they arrive, unpadded
 };
 
-// Rows a CTA holds: one m16 tile on the split route and for int8 keys (see
-// header), kRowsTile on the rows route over bf16 keys.
-template <bool kSplit, bool kInt8> __host__ __device__ constexpr int cta_rows() {
-  return kSplit || kInt8 ? kSplitRows : kRowsTile;
+// Rows a CTA holds: one m16 tile on the split route and over page pools
+// (see header), kRowsTile on the rows route over a dense cache.
+template <bool kSplit, bool kPaged> __host__ __device__ constexpr int cta_rows() {
+  return kSplit || kPaged ? kSplitRows : kRowsTile;
 }
 
-// kInt8: the ring holds kStages int8 stages, then the one bf16 stage they
-// are converted into.
-template <int D, bool kSplit, bool kInt8 = false> struct Smem {
-  static constexpr int kQRows = cta_rows<kSplit, kInt8>();
+// kTile: a CTA holds one m16 tile of rows (else kRowsTile). kInt8: the ring
+// holds kStages int8 stages, then the one bf16 stage they are converted into.
+template <int D, bool kTile, bool kInt8 = false> struct Smem {
+  static constexpr int kQRows = kTile ? kSplitRows : kRowsTile;
   static constexpr int kQBytes = kQRows * Geo<D>::kRowBytes;
   static constexpr int kRingBytes =
       kInt8 ? kStages * 2 * Geo<D>::kInt8TileBytes + Geo<D>::kStageBytes
@@ -161,6 +165,7 @@ struct Params {
   int pos_offset;                 // the default position of query s is s + pos_offset
   float scale, soft_cap;          // soft_cap <= 0: none
   int causal;
+  int splits;                     // split route: CTAs of a cluster sharing a row tile
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -294,30 +299,31 @@ template <class T> struct PagedKV {
   __device__ __forceinline__ float v_scale(int col) const { return vsc[(col >> lg_ps) - j0]; }
 };
 
-// The CTA (x, g = blockIdx.y, b = blockIdx.z): x is the query tile on the
-// rows route, the split rank on the split route (gridDim.x CTAs of one
-// cluster). `smem` holds Smem<D, kSplit, Src::kInt8>::kBytes, then the key
-// source's.
+// The CTA (x, g = blockIdx.y, b = blockIdx.z): x is the row tile on the
+// rows route; on the split route tile x / splits, split rank x % splits
+// (the p.splits CTAs of one cluster). `smem` holds Smem<D, kTile,
+// Src::kInt8>::kBytes, then the key source's.
 template <int D, bool kSplit, class Src>
 __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem) {
   using G = Geo<D>;
   constexpr bool kI8 = Src::kInt8;
-  using S = Smem<D, kSplit, kI8>;
+  // One m16 row tile a CTA, a stage's keys split over the warps: the split
+  // route, and the rows route over page pools (see header).
+  constexpr bool kTile = cta_rows<kSplit, Src::kTable>() == kSplitRows;
+  using S = Smem<D, kTile, kI8>;
   // A staged key row: bf16 padded for ldmatrix, int8 as it arrives.
   constexpr int kSrcChunks = kI8 ? D / 16 : G::kChunks;
   constexpr int kSrcRowBytes = kI8 ? D : G::kRowBytes;
   constexpr int kSrcTileBytes = kBlockN * kSrcRowBytes;
-  // One m16 row tile a CTA, a stage's keys split over the warps: the split
-  // route, and the rows route over int8 keys (see header).
-  constexpr bool kTile = cta_rows<kSplit, kI8>() == kSplitRows;
   constexpr int NT = kTile ? 2 : 8;             // n8 key tiles a warp takes from a stage
   const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
   const int g = blockIdx.y, b = blockIdx.z;
   const int rep = p.H / p.Hkv;
-  const int qt = kSplit ? p.Sq : cta_rows<kSplit, kI8>() / rep;  // query positions of the CTA
-  const int s0 = kSplit ? 0 : blockIdx.x * qt;
-  const int n_rows = min(qt, p.Sq - s0) * rep;  // row r: s0 + r / rep, head g * rep + r % rep
-  const int z = kSplit ? blockIdx.x : 0, nz = kSplit ? gridDim.x : 1;
+  const int nz = kSplit ? p.splits : 1, z = kSplit ? blockIdx.x % nz : 0;
+  // row r is flat row row0 + r: query position (row0 + r) / rep, head
+  // g * rep + (row0 + r) % rep
+  const int row0 = static_cast<int>(blockIdx.x) / nz * S::kQRows;
+  const int n_rows = min(S::kQRows, p.Sq * rep - row0);
 
   uint8_t* qs = smem;
   uint8_t* ring = smem + S::kQBytes;
@@ -328,7 +334,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
   // n_rows; its own cp.async group, ahead of the first stage's).
   const int kv_valid = p.kv_valid_len ? p.kv_valid_len[b] : p.n_keys;
   for (int r = tid; r < S::kQRows; r += kThreads) {
-    const int s = s0 + r / rep;
+    const int s = (row0 + r) / rep;
     qpos_s[r] = r >= n_rows || !p.causal ? -1
                 : p.q_positions          ? p.q_positions[static_cast<long long>(b) * p.Sq + s]
                                          : s + p.pos_offset;
@@ -341,7 +347,8 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
     const bool ok = r < n_rows;
     const bf16* from = p.q;
     if (ok)
-      from = p.q + b * p.q_sb + (s0 + r / rep) * p.q_ss + (g * rep + r % rep) * p.q_sh + ch * 8;
+      from = p.q + b * p.q_sb + (row0 + r) / rep * p.q_ss + (g * rep + (row0 + r) % rep) * p.q_sh +
+             ch * 8;
     cp_async16(smem_u32(qs + r * G::kRowBytes + ch * 16), from, ok);
   }
   cp_async_commit();
@@ -557,7 +564,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
 
   // fragment (j, e) of acc: row a (e < 2) or b, dim 8 j + 2 tq + e % 2
   auto out_row = [&](int r) {
-    const int s = s0 + r / rep, h = g * rep + r % rep;
+    const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
     return p.out + ((static_cast<long long>(b) * p.Sq + s) * p.H + h) * D;
   };
   if (!kTile) {
@@ -658,7 +665,8 @@ cudaError_t reserve_smem(Kernel kernel, int bytes, int& have) {
 }
 
 // Launch `kernel` on a grid of (x, Hkv, B) CTAs of kThreads; with
-// cluster_x > 1 the x CTAs of one (g, b) form a cluster.
+// cluster_x > 1 each cluster_x consecutive x CTAs of one (g, b) form a
+// cluster.
 template <class Kernel, class... Args>
 cudaError_t launch_grid(Kernel kernel, dim3 grid, int cluster_x, int smem, cudaStream_t s,
                    Args... args) {

@@ -26,31 +26,34 @@
 // the S accumulators as A fragments of P.V), on one of two routes picked
 // by rows = query positions x rep (kernels/flash_attention.py::route_for):
 //
-// * flash_attn_rows_kernel (rows > 16: encoders, prefill buckets, chunks):
-//   one CTA per (64 rows, kv head g, batch row b), 16 rows a warp, walking
+// * flash_attn_rows_kernel (Sq > 1 and rows > 16: encoders, prefill
+//   buckets, chunks): one CTA per (64 rows, kv head g, batch row b), 16 rows
+//   a warp, walking
 //   64-key stages of K and V through a two-stage cp.async ring. At
 //   bert-base that is 192 CTAs, each reading K and V of its (b, g) once
 //   for 64 rows, where a CUDA-core CTA of 16 rows read them 8 times.
-// * flash_attn_split_kernel (rows <= 16: decode): one m16 row tile per
-//   (g, b), its keys split over the 4 warps and, for caches of 512 keys
+// * flash_attn_split_kernel (decode, or rows <= 16): one CTA per (m16 row
+//   tile, g, b), its keys split over the 4 warps and, for caches of 512 keys
 //   and more, over up to 8 CTAs of a thread-block cluster, merged in warp
 //   and rank order (no atomics). At smollm-135m's 256-key decode one CTA
 //   per (b, g) runs fastest (a cluster's merge costs more than it saves;
 //   kernels/flash_attention.py::split_count, scripts/torch_attn_sweep.py).
 //
+// Rows are flat on every route: row F of (b, g) is query position F / rep
+// of head g * rep + F % rep (rep = H / Hkv query heads share kv head g), so
+// any GQA group fits, and each K/V tile is read once per CTA for every row
+// of it.
+//
 // fp32 (TF32 stays off, and ATTN_TOLS["float32"] = 3e-5 cannot hold with
-// it) keeps the CUDA-core kernel flash_attn_kernel: one CTA owns one
-// (query tile, kv head g, batch row b), its rows the query positions of
-// the tile times the rep = H / Hkv query heads that share kv head g (GQA
-// folded into the CTA, at most 16 rows), so each K/V tile is read once per
-// CTA and used by every row. Each key block of 32 keys is staged in shared
+// it) keeps the CUDA-core kernel flash_attn_kernel: one CTA owns 16
+// consecutive rows of one (kv head g, batch row b). Each key block of 32 keys is staged in shared
 // memory as fp32; threads fetch K and V in 16-byte chunks, and the next
 // block's chunks are fetched into registers while the current block is
 // scored. Each of the 4 warps owns up to 4 rows and scores them together:
 // lane t takes key t, reading q (broadcast) and k in 16-byte vectors, so
 // one k load serves four rows. The rows' p values go through shared memory
-// as one float4 per key, and lane d accumulates output dims d, d + 32,
-// d + 64 of all four rows. Ragged Sq and Sk are bounds-checked on both
+// as one float4 per key, and lane d accumulates output dims d, d + 32, ...
+// of all four rows. At D 128 the CTA's static shared memory is 42.6 KB. Ragged Sq and Sk are bounds-checked on both
 // paths; nothing is padded in memory.
 
 #include <cuda_bf16.h>
@@ -132,17 +135,17 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const int* __restrict__ kv_valid_len, T* __restrict__ out,
                   int Sq, int Sk, int H, int Hkv, Strides qst, Strides kst,
                   Strides vst, float scale, float soft_cap, int causal) {
-  static_assert(D % 4 == 0 && D <= 96, "head_dim must be a multiple of 4, <= 96");
+  static_assert(D % 4 == 0 && D <= 128, "head_dim must be a multiple of 4, <= 128");
   constexpr int kDPerLane = (D + 31) / 32;
   constexpr int kKStride = D + 4;            // 16-byte rows, conflict-free float4 reads
   using TL = Tile<T, D>;
   static_assert(D % TL::kVec == 0, "rows split into 16-byte chunks");
 
-  const int tile = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int g = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv;
-  const int qt = kMaxRows / rep;             // query positions per CTA
-  const int s0 = tile * qt;
-  const int n_rows = min(qt, Sq - s0) * rep; // row r: s = s0 + r / rep, h = g * rep + r % rep
+  // row r is flat row row0 + r: s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep
+  const int row0 = blockIdx.x * kMaxRows;
+  const int n_rows = min(kMaxRows, Sq * rep - row0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   __shared__ __align__(16) float qs[kMaxRows][D];
@@ -155,13 +158,13 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = e / D, d = e % D;
     float x = 0.f;
     if (r < n_rows) {
-      const int s = s0 + r / rep, h = g * rep + r % rep;
+      const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
       x = to_f(q[b * qst.b + s * qst.s + h * qst.h + d]);
     }
     qs[r][d] = x;
   }
   for (int r = tid; r < kMaxRows; r += kThreads)
-    qpos_s[r] = r < n_rows ? q_positions[static_cast<long long>(b) * Sq + s0 + r / rep] : -1;
+    qpos_s[r] = r < n_rows ? q_positions[static_cast<long long>(b) * Sq + (row0 + r) / rep] : -1;
   __syncthreads();
 
   const int kvlen = min(kv_valid_len[b], Sk);
@@ -255,7 +258,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp + i * kWarps;
     if (r >= n_rows) continue;
-    const int s = s0 + r / rep, h = g * rep + r % rep;
+    const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + ((static_cast<long long>(b) * Sq + s) * H + h) * D;
 #pragma unroll
@@ -271,8 +274,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kvlen, void* out, int B, int Sq, int Sk, int H,
                    int Hkv, Strides qs, Strides ks, Strides vs, float scale,
                    float soft_cap, int causal, cudaStream_t stream) {
-  const int qt = kMaxRows / (H / Hkv);
-  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
+  const dim3 grid((Sq * (H / Hkv) + kMaxRows - 1) / kMaxRows, Hkv, B);
   flash_attn_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       qpos, kvlen, static_cast<T*>(out), Sq, Sk, H, Hkv, qs, ks, vs, scale,
@@ -313,8 +315,8 @@ cudaError_t launch_tc(const am::Params& p, const void* k, const void* v, int B, 
   static int granted = 0;
   const cudaError_t attr = am::reserve_smem(kernel, smem, granted);
   if (attr != cudaSuccess) return attr;
-  const int qt = am::kRowsTile / (p.H / p.Hkv);
-  const dim3 grid(kSplit ? splits : (p.Sq + qt - 1) / qt, p.Hkv, B);
+  const int rows = p.Sq * (p.H / p.Hkv), tile = kSplit ? am::kSplitRows : am::kRowsTile;
+  const dim3 grid((rows + tile - 1) / tile * (kSplit ? splits : 1), p.Hkv, B);
   return am::launch_grid(kernel, grid, kSplit ? splits : 1, smem, stream, p,
                          static_cast<const am::bf16*>(k), static_cast<const am::bf16*>(v),
                          ks, vs);
@@ -323,8 +325,8 @@ cudaError_t launch_tc(const am::Params& p, const void* k, const void* v, int B, 
 }  // namespace
 
 // The fp32 instance (the CUDA cores); bf16 takes flash_attention_tc.
-// head_dim: 64 or 80. Strides are in elements; the output is a contiguous
-// (B, Sq, H, head_dim) tensor. H / Hkv must be an integer <= 16.
+// head_dim: 64, 80 or 128. Strides are in elements; the output is a
+// contiguous (B, Sq, H, head_dim) tensor. H / Hkv must be an integer.
 // soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on
 // `stream`.
 extern "C" int flash_attention(int head_dim, const void* q,
@@ -337,7 +339,7 @@ extern "C" int flash_attention(int head_dim, const void* q,
                                float scale, float soft_cap, int causal,
                                void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Hkv < 1 || H % Hkv || H / Hkv > kMaxRows) return cudaErrorInvalidValue;
+  if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(T, D)                                                         \
@@ -345,14 +347,15 @@ extern "C" int flash_attention(int head_dim, const void* q,
                       Hkv, qs, ks, vs, scale, soft_cap, causal, s)
   if (head_dim == 64) FA_LAUNCH(float, 64);
   if (head_dim == 80) FA_LAUNCH(float, 80);
+  if (head_dim == 128) FA_LAUNCH(float, 128);
 #undef FA_LAUNCH
   return cudaErrorInvalidValue;
 }
 
-// The bf16 instances (the tensor cores). splits = 0 takes the rows route
-// (any Sq); splits = 1..8 the split route, which needs Sq * H / Hkv <= 16
-// and puts `splits` CTAs of one cluster on each (kv head, batch row).
-// head_dim: 64 or 80; H / Hkv <= 16. q_positions may be null (the
+// The bf16 instances (the tensor cores). splits = 0 takes the rows route;
+// splits = 1..8 the split route, which puts `splits` CTAs of one cluster on
+// each m16 tile of rows of a (kv head, batch row). head_dim: 64, 80 or 128;
+// H / Hkv any integer. q_positions may be null (the
 // bottom-right default, s + Sk - Sq) and kv_valid_len null (Sk); a given
 // kv_valid_len is clamped to Sk here. Strides, output and return as for
 // flash_attention.
@@ -365,12 +368,10 @@ extern "C" int flash_attention_tc(int head_dim, int splits, const void* q, const
                                   long long v_sh, float scale, float soft_cap, int causal,
                                   void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Hkv < 1 || H % Hkv || H / Hkv > am::kSplitRows) return cudaErrorInvalidValue;
-  if (splits < 0 || splits > am::kMaxSplits || (splits > 0 && Sq * (H / Hkv) > am::kSplitRows))
-    return cudaErrorInvalidValue;
+  if (Hkv < 1 || H % Hkv || splits < 0 || splits > am::kMaxSplits) return cudaErrorInvalidValue;
   const am::Params p{static_cast<const am::bf16*>(q), q_sb, q_ss, q_sh, q_positions,
                      kv_valid_len, static_cast<am::bf16*>(out), Sq, H, Hkv, Sk, Sk - Sq,
-                     scale, soft_cap, causal};
+                     scale, soft_cap, causal, splits};
   const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
@@ -379,6 +380,9 @@ extern "C" int flash_attention_tc(int head_dim, int splits, const void* q, const
   if (head_dim == 80)
     return splits ? launch_tc<80, true>(p, k, v, B, splits, ks, vs, s)
                   : launch_tc<80, false>(p, k, v, B, 0, ks, vs, s);
+  if (head_dim == 128)
+    return splits ? launch_tc<128, true>(p, k, v, B, splits, ks, vs, s)
+                  : launch_tc<128, false>(p, k, v, B, 0, ks, vs, s);
   return cudaErrorInvalidValue;
 }
 

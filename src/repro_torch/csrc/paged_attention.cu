@@ -39,22 +39,25 @@
 // a page of 32, or two pages of 8. Two routes, picked by rows = query
 // positions x rep (kernels/flash_attention.py::route_for, shared with K3):
 //
-// * paged_attn_split_kernel, paged_attn_int8_split_kernel (rows <= 16:
-//   decode): the keys of each (g, b) split over the 4 warps, a page of 16
-//   each, and for caches of 512 keys and more over up to 8 CTAs of a
-//   cluster, merged in warp and rank order. At smollm-135m's decode a CTA
-//   takes a slot's 16 pages four at a time with the next four in flight,
-//   where the CUDA-core kernel staged them one at a time in 16 serial
-//   rounds.
-// * paged_attn_rows_kernel (rows > 16: the prefill buckets, chunks): 64
-//   rows a CTA, 16 a warp, walking every visible page.
-//   paged_attn_int8_rows_kernel: one m16 tile of rows a CTA, its keys
+// * paged_attn_split_kernel, paged_attn_int8_split_kernel (decode, or rows
+//   <= 16): one m16 tile of rows a CTA, the keys of each (g, b) split over
+//   the 4 warps, a page of 16 each, and for caches of 512 keys and more
+//   over up to 8 CTAs of a cluster, merged in warp and rank order. At
+//   smollm-135m's decode a CTA takes a slot's 16 pages four at a time with
+//   the next four in flight, where the CUDA-core kernel staged them one at
+//   a time in 16 serial rounds. Granite's MQA decode row is 48 rows, three
+//   tiles of one kv head.
+// * paged_attn_rows_kernel, paged_attn_int8_rows_kernel (Sq > 1 and rows >
+//   16: the prefill buckets, chunks): one m16 tile of rows a CTA, its keys
 //   walked as on the split route, so that a row's result is the same bits
 //   on both routes (attn_mma.cuh's header says why serving needs that).
 //
+// Rows are flat on every route: row F of (b, g) is query position F / rep
+// of head g * rep + F % rep, so any GQA group fits.
+//
 // fp32 q (K4 over fp32 pools, TF32 off; K5 over int8 pools) keeps the
-// CUDA-core body paged_attn_body: one CTA per (query tile, kv head g, batch
-// row b), GQA folded into the CTA (at most 16 rows), each page staged
+// CUDA-core body paged_attn_body: one CTA per (16 consecutive rows, kv head
+// g, batch row b), each page staged
 // element by element into fp32 shared tiles (an int8 element as float(x) *
 // scale, the (page, g) scale riding the same indirection as the page), lane
 // t scoring key t of the page (page_size <= 32) and lane d accumulating
@@ -108,12 +111,13 @@ __device__ __forceinline__ void paged_attn_body(
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
     const int* __restrict__ block_tables, const int* __restrict__ q_positions,
     const int* __restrict__ kv_valid_len, float* __restrict__ out, int Sq, int H, int Hkv,
-    int D, int Dv, int ps, int nb, int qt, float scale, float soft_cap, int causal) {
+    int D, int Dv, int ps, int nb, float scale, float soft_cap, int causal) {
   constexpr bool kInt8 = sizeof(KV) == 1;
-  const int tile = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int g = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv;
-  const int s0 = tile * qt;
-  const int n_rows = min(qt, Sq - s0) * rep;   // row r: s = s0 + r / rep, h = g * rep + r % rep
+  // row r is flat row row0 + r: s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep
+  const int row0 = blockIdx.x * kMaxRows;
+  const int n_rows = min(kMaxRows, Sq * rep - row0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   __shared__ float qs[kMaxRows][kMaxD];
@@ -123,11 +127,11 @@ __device__ __forceinline__ void paged_attn_body(
 
   for (int e = tid; e < n_rows * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    const int s = s0 + r / rep, h = g * rep + r % rep;
+    const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
     qs[r][d] = q[((static_cast<size_t>(b) * Sq + s) * H + h) * D + d];
   }
   for (int r = tid; r < n_rows; r += kThreads)
-    qpos_s[r] = q_positions[static_cast<size_t>(b) * Sq + s0 + r / rep];
+    qpos_s[r] = q_positions[static_cast<size_t>(b) * Sq + (row0 + r) / rep];
   __syncthreads();
 
   const int kvlen = kv_valid_len[b];
@@ -201,7 +205,7 @@ __device__ __forceinline__ void paged_attn_body(
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp + i * kWarps;
     if (r >= n_rows) continue;
-    const int s = s0 + r / rep, h = g * rep + r % rep;
+    const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
     const float denom = fmaxf(l[i], 1e-30f);
     float* o = out + ((static_cast<size_t>(b) * Sq + s) * H + h) * Dv;
 #pragma unroll
@@ -217,10 +221,10 @@ paged_attn_kernel(const float* __restrict__ q, const float* __restrict__ kp,
                   const float* __restrict__ vp, const int* __restrict__ block_tables,
                   const int* __restrict__ q_positions,
                   const int* __restrict__ kv_valid_len, float* __restrict__ out,
-                  int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
+                  int Sq, int H, int Hkv, int D, int Dv, int ps, int nb,
                   float scale, float soft_cap, int causal) {
   paged_attn_body<float>(q, kp, vp, nullptr, nullptr, block_tables, q_positions,
-                         kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+                         kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, scale,
                          soft_cap, causal);
 }
 
@@ -232,10 +236,10 @@ paged_attn_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k
                        const int* __restrict__ block_tables,
                        const int* __restrict__ q_positions,
                        const int* __restrict__ kv_valid_len, float* __restrict__ out,
-                       int Sq, int H, int Hkv, int D, int Dv, int ps, int nb, int qt,
+                       int Sq, int H, int Hkv, int D, int Dv, int ps, int nb,
                        float scale, float soft_cap, int causal) {
   paged_attn_body<int8_t>(q, kp, vp, k_scales, v_scales, block_tables, q_positions,
-                          kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+                          kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, scale,
                           soft_cap, causal);
 }
 
@@ -282,13 +286,13 @@ cudaError_t launch_tc(const am::Params& p, const void* kp, const void* vp, const
   // the attention's shared memory, then the block-table entries of a CTA's
   // keys (and, for int8 pools, their scales)
   const int smem =
-      am::Smem<D, kSplit, sizeof(T) == 1>::kBytes + am::PagedKV<T>::shared_bytes(nb);
+      am::Smem<D, true, sizeof(T) == 1>::kBytes + am::PagedKV<T>::shared_bytes(nb);
   const auto kernel = tc_kernel<D, kSplit, T>();
   static int granted = 0;
   const cudaError_t attr = am::reserve_smem(kernel, smem, granted);
   if (attr != cudaSuccess) return attr;
-  const int qt = am::cta_rows<kSplit, sizeof(T) == 1>() / (p.H / p.Hkv);
-  const dim3 grid(kSplit ? splits : (p.Sq + qt - 1) / qt, p.Hkv, B);
+  const int tiles = (p.Sq * (p.H / p.Hkv) + am::kSplitRows - 1) / am::kSplitRows;
+  const dim3 grid(tiles * (kSplit ? splits : 1), p.Hkv, B);
   return am::launch_grid(kernel, grid, kSplit ? splits : 1, smem, stream, p,
                          static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs,
                          block_tables, nb, lg_ps);
@@ -312,32 +316,32 @@ cudaError_t launch_tc_d(int D, const am::Params& p, const void* kp, const void* 
 
 // The CUDA-core instances, fp32 q and output. pool_code: 0 for fp32 pools
 // (K4), 2 for int8 pools (K5, with k_scales/v_scales fp32 (P, Hkv); null
-// otherwise); bf16 q takes paged_attention_tc. qt: query positions per
-// CTA, with qt * (H / Hkv) <= 16. soft_cap <= 0 means none. Returns a
-// cudaError_t; asynchronous on `stream`.
+// otherwise); bf16 q takes paged_attention_tc. H / Hkv any integer.
+// soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on
+// `stream`.
 extern "C" int paged_attention(int pool_code, const void* q, const void* k_pages,
                                const void* v_pages, const float* k_scales,
                                const float* v_scales, const int* block_tables,
                                const int* q_positions, const int* kv_valid_len, void* out,
                                int B, int Sq, int H, int Hkv, int D, int Dv, int ps, int nb,
-                               int qt, float scale, float soft_cap, int causal, void* stream) {
+                               float scale, float soft_cap, int causal, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (ps > kMaxPage || D > kMaxD || Dv > kMaxD || qt * (H / Hkv) > kMaxRows || qt < 1)
+  if (ps > kMaxPage || D > kMaxD || Dv > kMaxD || Hkv < 1 || H % Hkv)
     return cudaErrorInvalidValue;
-  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
+  const dim3 grid((Sq * (H / Hkv) + kMaxRows - 1) / kMaxRows, Hkv, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   float* of = static_cast<float*>(out);
   if (pool_code == 0) {
     paged_attn_kernel<<<grid, kThreads, 0, s>>>(
         qf, static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
-        block_tables, q_positions, kv_valid_len, of, Sq, H, Hkv, D, Dv, ps, nb, qt, scale,
+        block_tables, q_positions, kv_valid_len, of, Sq, H, Hkv, D, Dv, ps, nb, scale,
         soft_cap, causal);
   } else if (pool_code == 2 && k_scales != nullptr && v_scales != nullptr) {
     paged_attn_int8_kernel<<<grid, kThreads, 0, s>>>(
         qf, static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),
         k_scales, v_scales, block_tables, q_positions, kv_valid_len, of, Sq, H, Hkv, D, Dv,
-        ps, nb, qt, scale, soft_cap, causal);
+        ps, nb, scale, soft_cap, causal);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -347,12 +351,11 @@ extern "C" int paged_attention(int pool_code, const void* q, const void* k_pages
 // The tensor-core instances: bf16 q and output, contiguous; bf16 pools
 // (K4, k_scales = v_scales = null) or int8 pools with fp32 (P, Hkv) scales
 // (K5); head_dim a multiple of 16 up to 128 (Dv = D); page_size 8, 16 or
-// 32; H / Hkv <= 16. q_positions may be null (the default, s) and
+// 32; H / Hkv any integer. q_positions may be null (the default, s) and
 // kv_valid_len null (nb * ps); a given kv_valid_len is clamped to nb * ps
-// here. splits = 0 takes the rows route (any Sq);
-// splits = 1..8 the split route, which needs Sq * H / Hkv <= 16 and puts
-// `splits` CTAs of one cluster on each (kv head, batch row). Returns a
-// cudaError_t; asynchronous on `stream`.
+// here. splits = 0 takes the rows route; splits = 1..8 the split route,
+// which puts `splits` CTAs of one cluster on each m16 tile of rows of a
+// (kv head, batch row). Returns a cudaError_t; asynchronous on `stream`.
 extern "C" int paged_attention_tc(int D, int ps, int splits, const void* q,
                                   const void* k_pages, const void* v_pages,
                                   const float* k_scales, const float* v_scales,
@@ -361,9 +364,7 @@ extern "C" int paged_attention_tc(int D, int ps, int splits, const void* q,
                                   int Hkv, int nb, float scale, float soft_cap, int causal,
                                   void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Hkv < 1 || H % Hkv || H / Hkv > am::kSplitRows) return cudaErrorInvalidValue;
-  if (splits < 0 || splits > am::kMaxSplits || (splits > 0 && Sq * (H / Hkv) > am::kSplitRows))
-    return cudaErrorInvalidValue;
+  if (Hkv < 1 || H % Hkv || splits < 0 || splits > am::kMaxSplits) return cudaErrorInvalidValue;
   const int lg_ps = ps == 8 ? 3 : ps == 16 ? 4 : ps == 32 ? 5 : -1;
   if (lg_ps < 0 || nb < 1) return cudaErrorInvalidValue;
   const bool int8 = k_scales != nullptr;
@@ -371,7 +372,7 @@ extern "C" int paged_attention_tc(int D, int ps, int splits, const void* q,
   const long long q_ss = static_cast<long long>(H) * D;
   const am::Params p{static_cast<const am::bf16*>(q), Sq * q_ss, q_ss, D, q_positions,
                      kv_valid_len, static_cast<am::bf16*>(out), Sq, H, Hkv, nb * ps, 0,
-                     scale, soft_cap, causal};
+                     scale, soft_cap, causal, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *ks = k_scales, *vs = v_scales;
   const int* bt = block_tables;

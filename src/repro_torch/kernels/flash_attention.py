@@ -15,12 +15,18 @@ On the card the kernel takes one of three routes (:func:`route_for`),
 each counted in ``flash_attention.launches_by_route``, their sum in
 ``flash_attention.launches``:
 
-  ``rows``        bf16, rows = Sq x rep > 16 (encoders, prefill buckets,
-                  chunks): mma.sync on the tensor cores, 64 rows a CTA
-  ``split``       bf16, rows <= 16 (decode): mma.sync, one m16 row tile
-                  whose keys are split over 4 warps and up to
-                  :data:`MAX_SPLITS` CTAs of a cluster (:func:`split_count`)
+  ``rows``        bf16, Sq > 1 and rows = Sq x rep > 16 (encoders, prefill
+                  buckets, chunks): mma.sync on the tensor cores, 64 rows
+                  a CTA
+  ``split``       bf16, decode (Sq = 1) or rows <= 16: mma.sync, one m16
+                  row tile a CTA whose keys are split over 4 warps and up
+                  to :data:`MAX_SPLITS` CTAs of a cluster
+                  (:func:`split_count`)
   ``cuda_cores``  fp32 (TF32 stays off): FMA on the CUDA cores
+
+Rows are flat on every route (query position x the heads sharing a kv
+head, in that order), so any GQA group fits: granite-20b's 48 query heads
+on one kv head make a decode row of three m16 tiles.
 
 :func:`route_for` and :func:`split_count` also pick the routes of the
 paged kernel's bf16 instances (``kernels/paged_attention.py``), which run
@@ -37,11 +43,10 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# The kernel's tiling (csrc/flash_attention.cu): keys per block, rows
-# (query positions x the heads sharing a kv head) per CTA, head dims built.
+# The kernel's tiling (csrc/flash_attention.cu): keys per block, head dims
+# built.
 BLOCK_K = 32
-MAX_ROWS = 16
-HEAD_DIMS = (64, 80)
+HEAD_DIMS = (64, 80, 128)
 
 ROUTES = ("rows", "split", "cuda_cores")
 # The tensor-core routes (csrc/attn_mma.cuh): rows of the split route's one
@@ -60,13 +65,13 @@ MIN_SPLIT_KEYS = 256
 
 
 def route_for(dtype: torch.dtype, Sq: int, rep: int) -> str:
-    """The route the attention kernels (K3, and K4 over fp pools) take on
-    the card for ``Sq`` query positions of ``rep`` heads per kv head:
-    ``split`` (bf16, one m16 tile holds them all), ``rows`` (bf16) or
+    """The route the attention kernels (K3, K4 and K5) take on the card
+    for ``Sq`` query positions of ``rep`` heads per kv head: ``split``
+    (bf16 decode, or one m16 tile holds every row), ``rows`` (bf16) or
     ``cuda_cores`` (fp32)."""
     if dtype != torch.bfloat16:
         return "cuda_cores"
-    return "split" if Sq * rep <= SPLIT_ROWS else "rows"
+    return "split" if Sq == 1 or Sq * rep <= SPLIT_ROWS else "rows"
 
 
 def split_count(B: int, Hkv: int, n_keys: int) -> int:
@@ -74,11 +79,12 @@ def split_count(B: int, Hkv: int, n_keys: int) -> int:
     on the split route, from shapes alone (never kv_valid_len: reading it
     would synchronise the host): enough to bring the B x Hkv pairs near
     SPLIT_TARGET_CTAS, at most MAX_SPLITS, none when the pairs alone fill
-    the SMs, and each with MIN_SPLIT_KEYS of the ``n_keys`` in memory."""
+    the SMs, and each with MIN_SPLIT_KEYS of the ``n_keys`` in memory (so
+    none under 512 keys, where both routes give a row the same bits)."""
     pairs = B * Hkv
     if pairs >= SMS:
         return 1
-    most = max(1, -(-n_keys // MIN_SPLIT_KEYS))
+    most = max(1, n_keys // MIN_SPLIT_KEYS)
     return max(1, min(MAX_SPLITS, most, round(SPLIT_TARGET_CTAS / pairs)))
 
 
@@ -209,9 +215,6 @@ def flash_attention(
         raise ValueError(
             f"head dims ({D}, {Dv}): the flash attention kernel is built for "
             f"head_dim in {HEAD_DIMS} with equal q/k and v head dims")
-    if H // Hkv > MAX_ROWS:
-        raise ValueError(f"GQA group H/Hkv = {H // Hkv} exceeds the kernel's "
-                         f"{MAX_ROWS} rows per CTA")
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")

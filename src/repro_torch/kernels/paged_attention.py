@@ -19,9 +19,14 @@ q's dtype, counted in ``paged_attention.launches_by_route`` (K4) and
 ``paged_attention.launches_int8_by_route`` (K5): bf16 q on ``split``
 (decode: the keys of each (batch row, kv head) split over warps and
 cluster CTAs, :func:`~repro_torch.kernels.flash_attention.split_count`)
-or ``rows`` (prefill buckets, chunks), fp32 q on ``cuda_cores``. Over int8
-pools the tensor-core kernels stage the int8 rows as they are and convert
-them to bf16 in shared memory; p is not rounded before P·V.
+or ``rows`` (prefill buckets, chunks), fp32 q on ``cuda_cores``. On both
+bf16 routes a CTA holds one m16 tile of rows and walks its keys the same
+way, so a row gets the same bits on either (below 512 keys, where the
+split route takes one CTA a tile): a preempted request's re-prefill and a
+prefix-cache hit keep the stream a solo run gives. Rows are flat (query
+position x the heads of a group), so any GQA group fits. Over int8 pools
+the tensor-core kernels stage the int8 rows as they are and convert them
+to bf16 in shared memory; p is not rounded before P·V.
 """
 from __future__ import annotations
 
@@ -40,7 +45,6 @@ NEG_INF = -1e30
 # Limits of the kernels' tiling (csrc/paged_attention.cu).
 MAX_PAGE_SIZE = 32
 MAX_HEAD_DIM = 128
-MAX_ROWS = 16                      # query positions x rep heads per CTA
 # The tensor-core instances (bf16 pools): page sizes, head dims a multiple
 # of TC_HEAD_DIM_STEP up to MAX_HEAD_DIM, block-table entries a CTA copies.
 TC_PAGE_SIZES = (8, 16, 32)
@@ -56,7 +60,7 @@ def _lib() -> ctypes.CDLL:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention.argtypes = [
             i, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-            i, i, i, i, i, i, i, i, i, f, f, i, vp]
+            i, i, i, i, i, i, i, i, f, f, i, vp]
         lib.paged_attention.restype = ctypes.c_int
         lib.paged_attention_tc.argtypes = [
             i, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, f, f,
@@ -209,10 +213,10 @@ def paged_attention(
                          f"q's dtype or int8, got {q.dtype}, "
                          f"{k_pages.dtype}, {v_pages.dtype}")
     rep = H // Hkv
-    if ps > MAX_PAGE_SIZE or max(D, Dv) > MAX_HEAD_DIM or rep > MAX_ROWS:
+    if ps > MAX_PAGE_SIZE or max(D, Dv) > MAX_HEAD_DIM:
         raise ValueError(
-            f"page_size={ps}, head dims ({D}, {Dv}), rep={rep} exceed the "
-            f"kernel's limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM}, {MAX_ROWS})")
+            f"page_size={ps}, head dims ({D}, {Dv}) exceed the kernel's "
+            f"limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM})")
     route = route_for(q.dtype, Sq, rep)
     tc = route in ("rows", "split")       # the tensor-core instances
     check_tc_geometry(route, ps, D, Dv, nb)
@@ -253,9 +257,8 @@ def paged_attention(
             _INT8_POOL if quantized else 0, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), ks_ptr, vs_ptr,
             block_tables.data_ptr(), qpos.data_ptr(), kvl.data_ptr(),
-            out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps,
-            nb, MAX_ROWS // rep, float(scale), float(soft_cap or 0.0),
-            int(causal), stream)
+            out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps, nb, float(scale),
+            float(soft_cap or 0.0), int(causal), stream)
     if err:
         kind = "int8 pools, " if quantized else ""
         raise RuntimeError(f"paged_attention launch failed ({kind}{route} "

@@ -1,6 +1,7 @@
 """Transformer layers of the dense family and the BERT/ViT encoders:
-RMSNorm and LayerNorm, RoPE, GQA attention over a paged or contiguous KV
-cache (or none), SwiGLU and GELU MLPs (``repro/models/layers.py``).
+RMSNorm and LayerNorm, RoPE, GQA/MQA attention (optional QKV biases and
+q/k RMSNorm) over a paged or contiguous KV cache (or none), SwiGLU and GELU
+MLPs (``repro/models/layers.py``).
 
 Every projection goes through ``core.api.linear`` under the active
 GemmPolicy (the MatrixFlow GEMM on the card); attention goes through
@@ -16,7 +17,7 @@ import torch
 from repro_torch.core import api
 from repro_torch.core import quant as Q
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import dense_init
+from repro_torch.models.module import dense_init, norm_init
 
 # ---------------------------------------------------------------------------
 # Norms and RoPE
@@ -65,11 +66,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 def init_attention(gen, cfg: ModelConfig, dtype, device):
+    """The projections; with ``qkv_bias`` (qwen2) zero biases ``bq``,
+    ``bk``, ``bv``, and with ``qk_norm`` (qwen3) unit RMSNorm scales
+    ``q_norm``, ``k_norm`` over a head's dims, as the reference inits
+    them."""
     d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": dense_init(gen, d, H * dh, dtype, device),
-            "wk": dense_init(gen, d, Hkv * dh, dtype, device),
-            "wv": dense_init(gen, d, Hkv * dh, dtype, device),
-            "wo": dense_init(gen, H * dh, d, dtype, device)}
+    p = {"wq": dense_init(gen, d, H * dh, dtype, device),
+         "wk": dense_init(gen, d, Hkv * dh, dtype, device),
+         "wv": dense_init(gen, d, Hkv * dh, dtype, device),
+         "wo": dense_init(gen, H * dh, d, dtype, device)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * dh), ("bk", Hkv * dh),
+                            ("bv", Hkv * dh)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(dh, dtype, device)
+        p["k_norm"] = norm_init(dh, dtype, device)
+    return p
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -192,9 +205,11 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     Returns (y, cache); a cache is updated in place (its dict entries)."""
     B, S, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = api.linear(x, p["wq"]).reshape(B, S, H, dh)
-    k = api.linear(x, p["wk"]).reshape(B, S, Hkv, dh)
-    v = api.linear(x, p["wv"]).reshape(B, S, Hkv, dh)
+    q = api.linear(x, p["wq"], p.get("bq")).reshape(B, S, H, dh)
+    k = api.linear(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, dh)
+    v = api.linear(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, dh)
+    if cfg.qk_norm:
+        q, k = rmsnorm(p["q_norm"], q), rmsnorm(p["k_norm"], k)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     kv_scales = None
@@ -222,7 +237,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
 
 
 # ---------------------------------------------------------------------------
-# MLPs: SwiGLU (decoders) and GELU with biases (BERT/ViT)
+# MLPs: SwiGLU (decoders) and GELU with biases (granite, BERT/ViT)
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen, cfg: ModelConfig, dtype, device):

@@ -21,24 +21,27 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.module import dense_init, embed_init, norm_init
 
-# What each ported family is: (norm, mlp_act, causal). The encoders are
+# What each ported family is: (norm, mlp_acts, causal). The encoders are
 # the reference's BERT/ViT: LayerNorm, GELU MLP with biases, bidirectional.
-# ssm layers are SSD blocks; hybrid adds the shared attention + MLP block.
-_FAMILIES = {"dense": ("rmsnorm", "swiglu", True),
-             "ssm": ("rmsnorm", "swiglu", True),
-             "hybrid": ("rmsnorm", "swiglu", True),
-             "bert": ("layernorm", "gelu", False),
-             "vit": ("layernorm", "gelu", False)}
+# A dense decoder's MLP is SwiGLU, or (granite-20b) the biased GELU MLP
+# the encoders use. ssm layers are SSD blocks; hybrid adds the shared
+# attention + MLP block.
+_FAMILIES = {"dense": ("rmsnorm", ("swiglu", "gelu"), True),
+             "ssm": ("rmsnorm", ("swiglu",), True),
+             "hybrid": ("rmsnorm", ("swiglu",), True),
+             "bert": ("layernorm", ("gelu",), False),
+             "vit": ("layernorm", ("gelu",), False)}
 SSD_FAMILIES = ("ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a config outside the ported families:
-    the dense decoder (plain GQA + RMSNorm + SwiGLU, causal, untied head),
+    the dense decoder (GQA/MQA with optional QKV biases and q/k RMSNorm,
+    RMSNorm, SwiGLU or a biased GELU MLP, causal, untied head),
     Mamba-2 (SSD blocks only), the Zamba-2 hybrid (SSD blocks and one
     shared attention block every ``attn_every`` layers) and the BERT/ViT
     encoders (MHA + LayerNorm + GELU, bidirectional)."""
-    norm, act, causal = _FAMILIES.get(cfg.family, (None, None, None))
+    norm, acts, causal = _FAMILIES.get(cfg.family, (None, None, None))
     ssd = cfg.family in SSD_FAMILIES
     unsupported = {
         "family": cfg.family not in _FAMILIES,
@@ -48,9 +51,8 @@ def check_supported(cfg: ModelConfig) -> None:
             bool(cfg.attn_every) != (cfg.family == "hybrid"),
         "n_layers not a multiple of attn_every":
             bool(cfg.attn_every) and cfg.n_layers % cfg.attn_every != 0,
-        "qk_norm": cfg.qk_norm, "qkv_bias": cfg.qkv_bias,
         "norm": norm is not None and cfg.norm != norm,
-        "mlp_act": act is not None and cfg.mlp_act != act,
+        "mlp_act": acts is not None and cfg.mlp_act not in acts,
         "causal": causal is not None and cfg.causal != causal,
         "GQA encoder": cfg.family in ("bert", "vit")
         and cfg.n_kv_heads != cfg.n_heads,
@@ -78,14 +80,18 @@ def _init_block(gen, cfg: ModelConfig, dtype, device, kind: str = "attn"):
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
-               device: Union[str, torch.device] = "cuda") -> Dict:
-    """Random weights with the reference's shapes and scales, drawn on the
-    CPU from ``torch.Generator().manual_seed(seed)`` (the same values on
-    every device) and placed on ``device``."""
+               device: Union[str, torch.device] = "cuda",
+               draw_device: Union[str, torch.device] = "cpu") -> Dict:
+    """Random weights with the reference's shapes and scales, drawn from
+    ``torch.Generator(draw_device).manual_seed(seed)`` and placed on
+    ``device``. Drawn on the CPU (the default) they are the same values on
+    every device; drawn on the card (``draw_device="cuda"``) they are
+    other values, made without the host draw that takes minutes for a
+    model of billions of parameters."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = cfg.param_dtype
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(resolve_device(draw_device)).manual_seed(seed)
     params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)}
     if cfg.attn_every:         # zamba-style hybrid: the shared attention block
         params["shared_attn"] = _init_block(gen, cfg, dtype, device)

@@ -306,8 +306,13 @@ def _paged_inputs(cuda, dtype, B, Sq, H, Hkv, D, ps, lens, starts, seed=0):
     (3, 1, 4, 2, 16, 8, (6, 81, 0), (5, 80, -1)),
     (2, 8, 4, 4, 16, 8, (32, 48), (24, 40)),
     (2, 5, 4, 1, 128, 32, (70, 5), (65, 0)),
+    (8, 1, 48, 1, 128, 16, (17, 200, 64, 1, 33, 128, 255, 90),
+     (16, 199, 63, 0, 32, 127, 254, 89)),
+    (2, 20, 48, 1, 128, 16, (20, 50), (0, 30)),
+    (4, 1, 24, 1, 64, 16, (9, 100, 1, 64), (8, 99, -1, 63)),
 ], ids=["decode_full_width", "prefill_bucket_full_width", "decode_gqa2",
-        "chunk_offset", "mqa_d128_page32"])
+        "chunk_offset", "mqa_d128_page32", "granite_decode_rep48",
+        "granite_prefill_rep48", "decode_rep24"])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
     """K4 against its plain version: bf16 pools on the tensor-core route
     the chooser names (two launches bitwise equal), fp32 pools on the CUDA
@@ -343,8 +348,13 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
      (0, 0, 0, 0, 0, -1, 0, 0)),
     (3, 1, 4, 2, 16, 8, (6, 81, 0), (5, 80, -1)),
     (2, 8, 4, 4, 16, 8, (32, 48), (24, 40)),
+    (8, 1, 48, 1, 128, 16, (17, 200, 64, 1, 33, 128, 255, 90),
+     (16, 199, 63, 0, 32, 127, 254, 89)),
+    (2, 20, 48, 1, 128, 16, (20, 50), (0, 30)),
+    (3, 1, 64, 1, 16, 32, (40, 3, 90), (39, -1, 89)),
 ], ids=["decode_full_width", "prefill_bucket_full_width", "decode_gqa2",
-        "chunk_offset"])
+        "chunk_offset", "granite_decode_rep48", "granite_prefill_rep48",
+        "decode_rep64"])
 def test_paged_attention_int8_kernel_matches_plain(cuda, dtype, case):
     """K5: int8 pools with per-(page, kv head) scales, q in fp32 or bf16,
     against the plain version within ATTN_TOLS, on the route its chooser
@@ -543,6 +553,18 @@ FLASH_CASES = {
     "chunk_offset": (2, 8, 64, 9, 3, 64, True, (24, 40), (32, 48)),
     "bottom_right_default": (2, 5, 40, 12, 12, 80, True, None, None),
     "noncausal_ragged": (2, 17, 45, 16, 16, 80, False, None, (45, 29)),
+    # head_dim 128 and the GQA groups of qwen2 (6), qwen3 (4), granite (48)
+    "qwen2_decode_d128_rep6": (8, 1, 256, 12, 2, 128, True,
+                               (16, 199, 63, -1, 32, 127, 255, 89),
+                               (17, 200, 64, 0, 33, 128, 256, 90)),
+    "qwen3_prefill_d128_rep4": (4, 64, 256, 32, 8, 128, True,
+                                (0, -1, 0, 0), (40, 0, 64, 1)),
+    "granite_decode_d128_rep48": (8, 1, 256, 48, 1, 128, True,
+                                  (16, 199, 63, -1, 32, 127, 255, 89),
+                                  (17, 200, 64, 0, 33, 128, 256, 90)),
+    "granite_chunk_d128_rep48": (2, 20, 64, 48, 1, 128, True, (0, 30),
+                                 (20, 50)),
+    "noncausal_d128": (2, 17, 45, 8, 8, 128, False, None, (45, 29)),
 }
 
 
@@ -638,6 +660,14 @@ _SPLIT_FORCED = {
     "paged_decode": ("paged", 4, 1, 256, 9, 3, 64, 16, (0, 1, 128, 255),
                      (-1, 0, 127, 254)),
     "paged_chunk_ps8": ("paged", 2, 8, 96, 4, 2, 16, 8, (96, 41), (88, 33)),
+    # granite-20b's MQA decode: 48 rows of one kv head, three m16 tiles,
+    # each tile's keys split over the cluster
+    "paged_decode_rep48_d128": ("paged", 4, 1, 512, 48, 1, 128, 16,
+                                (0, 1, 128, 511), (-1, 0, 127, 510)),
+    "flash_decode_rep48_d128": ("flash", 4, 1, 512, 48, 1, 128, 0,
+                                (0, 1, 128, 511), (-1, 0, 127, 510)),
+    "paged_decode_rep24": ("paged", 3, 1, 256, 24, 1, 64, 16,
+                           (256, 17, 0), (255, 16, -1)),
 }
 
 
@@ -733,6 +763,24 @@ _TC_GEOMETRIES = {
     # mid-page (position 43 of page 2), one slot masked
     "paged_tail_prefill_midpage_rows": ("paged", 2, 16, 128, 9, 3, 64, 16,
                                         (54, 0), (43, -1)),
+    # head_dim 128 (qwen2, qwen3, granite) and GQA groups 24, 48 and 64 on
+    # both routes; a decode row of a group above 16 spans several tiles
+    "flash_d128_rep6_split": ("flash", 3, 1, 200, 12, 2, 128, 0,
+                              (200, 0, 77), (199, -1, 76)),
+    "flash_d128_rep4_rows": ("flash", 2, 64, 256, 32, 8, 128, 0,
+                             (256, 0), (192, -1)),
+    "flash_d128_rep48_rows": ("flash", 2, 7, 96, 48, 1, 128, 0,
+                              (96, 0), (89, -1)),
+    "flash_d64_rep64_split": ("flash", 3, 1, 128, 64, 1, 64, 0,
+                              (128, 0, 5), (127, -1, 4)),
+    "paged_ps16_d128_rep48_split": ("paged", 3, 1, 128, 48, 1, 128, 16,
+                                    (128, 0, 33), (127, -1, 32)),
+    "paged_ps16_d128_rep48_rows": ("paged", 2, 9, 128, 48, 1, 128, 16,
+                                   (128, 0), (119, -1)),
+    "paged_ps8_d64_rep24_rows": ("paged", 2, 40, 64, 24, 1, 64, 8,
+                                 (64, 0), (24, -1)),
+    "paged_ps32_d16_rep64_split": ("paged", 3, 1, 96, 64, 1, 16, 32,
+                                   (96, 0, 40), (95, -1, 39)),
 }
 
 
@@ -742,7 +790,7 @@ def test_tensor_core_routes_at_each_geometry(cuda, case):
     kind, B, Sq, Sk, H, Hkv, D, ps, lens, starts = _TC_GEOMETRIES[case]
     fn = FA.flash_attention if kind == "flash" else PA.paged_attention
     route = FA.route_for(torch.bfloat16, Sq, H // Hkv)
-    assert route == ("split" if Sq * H // Hkv <= 16 else "rows")
+    assert route == ("split" if Sq == 1 or Sq * H // Hkv <= 16 else "rows")
     kernel, plain, pos = _tc_case(cuda, kind, B, Sq, Sk, H, Hkv, D, ps,
                                   lens, starts, seed=1)
     before = dict(fn.launches_by_route)
@@ -806,12 +854,19 @@ def test_tensor_core_routes_reject(cuda):
     bf = torch.bfloat16
     flash, paged = dict(FA.flash_attention.launches_by_route), \
         dict(PA.paged_attention.launches_by_route)
-    q = torch.zeros((1, 1, 4, 32), dtype=bf, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):     # D 32: K3 takes 64, 80
-        FA.flash_attention(q, q, q)
+    for D in (32, 96):                   # K3 takes head_dim 64, 80 and 128
+        q = torch.zeros((1, 1, 4, D), dtype=bf, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            FA.flash_attention(q, q, q)
+    # no cap on the GQA group: a group of 17 launches (and counts)
     q = torch.zeros((1, 1, 17, 64), dtype=bf, device=cuda)
-    with pytest.raises(ValueError, match="GQA group"):
-        FA.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    FA.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    flash["split"] += 1
+    # the block-table entries a CTA copies into shared memory are bounded
+    big = torch.zeros((1, PA.MAX_TABLE + 1), dtype=torch.int32, device=cuda)
+    kp = torch.zeros((1, 16, 1, 64), dtype=bf, device=cuda)
+    with pytest.raises(ValueError, match="entries"):
+        PA.paged_attention(q, kp, kp, big)
     bt = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     for P, ps, D, Dv in ((2, 4, 64, 64), (2, 16, 24, 24), (2, 16, 64, 32)):
         q = torch.zeros((1, 1, 2, D), dtype=bf, device=cuda)
@@ -897,6 +952,13 @@ _INT8_GEOMETRIES = {
                                      (105, 37, 0, 250), (96, 32, -1, 249)),
     "rows_tail_prefill_midpage_d64_ps16": (2, 16, 128, 9, 3, 64, 16,
                                            (54, 0), (43, -1)),
+    # GQA groups 24, 48 (granite-20b's MQA at head_dim 128) and 64
+    "split_d128_ps16_rep48": (3, 1, 128, 48, 1, 128, 16, (128, 0, 33),
+                              (127, -1, 32)),
+    "rows_d128_ps16_rep48": (2, 9, 128, 48, 1, 128, 16, (128, 0),
+                             (119, -1)),
+    "split_d64_ps8_rep24": (3, 1, 64, 24, 1, 64, 8, (64, 0, 9), (63, -1, 8)),
+    "rows_d16_ps32_rep64": (2, 3, 96, 64, 1, 16, 32, (96, 0), (93, -1)),
 }
 
 
@@ -1024,6 +1086,77 @@ def test_int8_split_and_rows_routes_agree_bitwise(cuda, H, Hkv, D, ps):
                                   torch.full_like(kvl, t + 1),
                                   kv_scales=(ks, vs))
         assert torch.equal(step[:, 0], prefill[:, t]), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+@pytest.mark.parametrize("H,Hkv,D,ps", [(9, 3, 64, 16), (12, 2, 128, 16),
+                                        (48, 1, 128, 16), (24, 1, 64, 8)])
+def test_split_and_rows_routes_agree_bitwise(cuda, pool, H, Hkv, D, ps):
+    """K4 over bf16 pools and K5 over int8 pools give a row the same bits
+    on both routes: each position of a 64-token prefill (rows) equals a
+    decode step at that position over the same pool (split, one CTA per
+    tile), at qwen2's group 6, granite's 48 and 24 among them. A preempted
+    request is re-prefilled over tokens it decoded, and a prefix-cache hit
+    prefills its tail over keys another request wrote: their streams equal
+    a solo run's only so."""
+    B, Sq = 2, 64
+    q, kp, vp, bt, pos, kvl = _paged_inputs(cuda, "float32", B, Sq, H, Hkv,
+                                            D, ps, (64, 64), (0, 0), seed=9)
+    q = q.to(torch.bfloat16)
+    kw = {}
+    if pool == "int8":
+        (kp, ks), (vp, vs) = Q.quantize_kv_pages(kp), Q.quantize_kv_pages(vp)
+        kw = dict(kv_scales=(ks, vs))
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    assert PA.route_for(torch.bfloat16, Sq, H // Hkv) == "rows"
+    assert PA.route_for(torch.bfloat16, 1, H // Hkv) == "split"
+    assert PA.split_count(B, Hkv, bt.shape[1] * ps) == 1
+    prefill = PA.paged_attention(q, kp, vp, bt, pos, kvl, **kw)
+    for t in (0, 1, 15, 16, 40, 63, ps - 1, ps):
+        step = PA.paged_attention(q[:, t:t + 1], kp, vp, bt, pos[:, t:t + 1],
+                                  torch.full_like(kvl, t + 1), **kw)
+        assert torch.equal(step[:, 0], prefill[:, t]), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(1536, 256), (1536, 8960), (4096, 1024),
+                                 (6144, 128)])
+def test_gemm_wgmma_row_bits_independent_of_m_and_tile(cuda, monkeypatch,
+                                                       K, N):
+    """bf16 K1 on the card runs every M on its wgmma route (bm 64, the
+    plan's bm_for): a row's bits are the same at M = 8, 40 and 512 and on
+    every CTA tile of WGMMA_TILES that takes the block width. So a
+    preempted request's re-prefill rebuilds the K/V its decode steps
+    wrote, whichever rows shared each call."""
+    from repro_torch.core.plan import GemmPolicy, layout_for_packed, \
+        pack_weight
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    a = torch.randn((512, K), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5).to(
+        torch.bfloat16)
+    pw = pack_weight(w, GemmPolicy())
+    fn = MF.matrixflow_gemm_block_major
+
+    def run(M):
+        blk = layout_for_packed(M, pw)
+        assert blk.bm == 64 and MF.route_for(a.dtype, blk.bm) == "wgmma"
+        c = fn(L.to_block_major_a(a[:M], blk.bm, blk.bk), pw.data,
+               out_dtype=torch.bfloat16)
+        return L.from_block_major_c(c, M, N)
+
+    full = run(512)
+    for M in (8, 40):
+        assert torch.equal(run(M), full[:M]), M
+    chooser = MF.tc_tile
+    for gm, tn, _ in MF.WGMMA_TILES:
+        if tn % pw.bn:
+            continue
+        monkeypatch.setattr(MF, "tc_tile", lambda *a, t=(gm, tn, 1): t)
+        for M in (8, 512):
+            assert torch.equal(run(M), full[:M]), (gm, tn, M)
+        monkeypatch.setattr(MF, "tc_tile", chooser)
 
 
 @pytest.mark.cuda

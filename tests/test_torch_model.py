@@ -214,10 +214,13 @@ def test_init_model_shapes_and_determinism():
 def test_unported_configs_and_missing_gpu_raise():
     import dataclasses
     _, cfg = _configs("float32")
-    with pytest.raises(NotImplementedError, match="qk_norm"):
-        T.init_model(dataclasses.replace(cfg, qk_norm=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        get_config("qwen3-8b")
+    with pytest.raises(NotImplementedError, match="n_codebooks"):
+        T.init_model(dataclasses.replace(cfg, n_codebooks=4), device="cpu")
+    for arch, what in (("deepseek-v2-236b", "MLA"), ("dbrx-132b", "MoE")):
+        with pytest.raises(NotImplementedError):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match=what):
+            T.check_supported(jget_smoke_config(arch))
     assert isinstance(cfg, ModelConfig)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
