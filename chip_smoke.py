@@ -114,7 +114,8 @@ CUDA toolkit. Phases, each fatal on failure:
              with NULL_OBS printed. Then fp32 at full width: prefix-on
              streams equal prefix-off, spec streams equal non-spec, or
              first part where the plain top-2 margin is below LOGIT_TOL.
-12. stream identity — full-width smollm-135m in bf16, paged (page 16), 8
+12. stream identity — smollm-135m and qwen2-1.5b at full width, 10
+             layers each (IDENTITY_LAYERS), in bf16, paged (page 16), 8
              slots, fp pools and int8 KV: 12 requests under the 24-page
              pool, every preempted request's stream equal to its solo
              stream; phase 11's 12 requests on one 48-token system prompt,
@@ -129,9 +130,32 @@ CUDA toolkit. Phases, each fatal on failure:
              serving (K3 at head_dim 128, groups 6, 4 and 48), int8 KV
              (K5; qwen2 and granite, qwen2 with W8A8 weights through K2),
              each 12 requests x 32 tokens then generate(); qwen2 through
-             phase 12's identity;
+             phase 12's identity (10 of its layers);
              then fp32 at 4, 2 and 2 layers, the card against the CPU plain
              path within LOGIT_TOL (phase 4).
+16-19. the model zoo's last four at full width, bf16 weights drawn on the
+             card: internvl2-76b (16 of 80 layers; 64 / 8 heads x 128):
+             paged serving with preemption (K4, group 8) and contiguous
+             serving (K3), the VLM forward over B 2 x (256 stub image
+             embeddings ⊕ 64 tokens) with no cache (K3 rows), then that
+             prompt prefilled into contiguous caches and 8 greedy steps;
+             musicgen-medium (48 layers, 24 x 64 MHA, 4 codebooks):
+             forward over contiguous (K3) and paged (K4) caches, prefill 8 x
+             64 frames then 32 greedy steps, argmax per codebook; dbrx-132b
+             (8 of 40 layers; 16 experts top-4, 48 / 8 heads x 128): paged
+             with preemption, contiguous, W8A8 weights + int8 KV (K2, K5),
+             each then generate(); deepseek-v2-236b (its dense layer and 6
+             of 59 MoE layers; MLA at q/k head dim 192, v 128; 160 experts
+             top-6 + 2 shared): contiguous serving under the engine's default
+             policy (K3's (192, 128) instance, split at decode and rows at
+             prefill). The MoE expert banks run as torch products (the
+             reference's jnp.einsum); the routers through K1. Then fp32 at
+             2, 4, 1 and 2 layers (deepseek: the dense layer + 1 MoE layer),
+             the weights drawn on the card and held on the host, the card
+             against the CPU plain path within LOGIT_TOL (phase 4; the VLM
+             behind its image prefix, musicgen per codebook, deepseek over
+             contiguous caches). (``python3 chip_smoke.py --zoo [arch ...]``
+             runs these phases alone.)
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
@@ -157,10 +181,16 @@ K5 at their decode and prefill; K4 and K5 at phase 11's shapes
 (a speculative verify at Sq 5 and 9 whose slots trim their drafts to
 their own counts, the rest of their rows at position -1, one slot masked
 whole; a tail prefill from position 53, mid-page) and K3 at the Sq-5
-verify over contiguous caches.
+verify over contiguous caches; K1 at internvl2's and dbrx's projections,
+both routers, deepseek's MLA projections (wkv_b over the whole 8 x 256
+latent cache), shared experts and dense layer, and musicgen's head; K3 at
+internvl2's, dbrx's and musicgen's decode and prefill and at MLA's (192,
+128) decode (split) and prefill bucket (rows), v a strided view of the
+up-projection, with SDPA (Ev != E) as its yardstick; K4 at the same three
+models' shapes, K5 at dbrx's.
 
 Every kernel counter is set to 0 just before each path (3, 5-9, each
-run of 11, 12, each serving run of 13-15) is
+run of 11, 12, each serving run of 13-15 and 16-19) is
 driven and read just after; a kernel of the path that never launched fails
 it. K1-K6 are counted per route too: every bf16 path must have launched
 K1 on wgmma and never on mma.sync (or, with int8 weights, K2 on both
@@ -226,6 +256,8 @@ ENC_BATCH = 8
 BERT_SEQ = 128
 VIT_SEQ = 197                # 196 patches + the class token
 PARITY_BATCH = 2             # bert-base fp32, card vs CPU
+PARITY_PROMPT, PARITY_STEPS = 24, 8   # decoders' fp32 greedy, card vs CPU
+N_IMAGE_TOKENS = 256         # internvl2's stub frontend: patch embeddings
 # The SSM paths: full-width mamba2-1.3b and zamba2-2.7b, contiguous caches.
 MAMBA, ZAMBA = "mamba2-1.3b", "zamba2-2.7b"
 SSM_SLOTS = 8
@@ -487,10 +519,60 @@ def dense_gemm_cells(m):
 MMA_BEFORE = " (mma, bm 16)"
 
 
-def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs, models=()):
-    """K1 at every projection of the paths (bf16 and fp32) and of the dense
-    decoders ``models`` (bf16); each bf16 decode-step GEMM also on the
-    mma.sync route at bm 16 (off the path: the repair's cost)."""
+def zoo_gemm_cells(vlm, audio, dbrx, deepseek):
+    """(name, M, K, N, path, uses per run of the path) of the model zoo's
+    last four at their depth on the card: internvl2's projections as a
+    dense decoder's; dbrx's attention projections and router (its expert
+    bank is a torch product, not K1); deepseek's MLA projections (wkv_b
+    up-projects the whole (SLOTS, MAX_LEN) latent cache on every call),
+    router, shared experts, leading dense layer and head; musicgen's head
+    (vocab x 4 codebooks)."""
+    cells = dense_gemm_cells(vlm)
+    pf = SLOTS * PROMPT_BUCKET
+    for m, layer, head in (
+            (dbrx, [("q", dbrx.d_model, dbrx.n_heads * dbrx.head_dim),
+                    ("k/v", dbrx.d_model, dbrx.n_kv_heads * dbrx.head_dim),
+                    ("o", dbrx.n_heads * dbrx.head_dim, dbrx.d_model),
+                    ("router", dbrx.d_model, dbrx.n_experts)], True),
+            (audio, [], True)):
+        L = m.n_layers
+        uses = {"k/v": 2 * L}
+        for M, step in ((SLOTS, "decode step"), (pf, "prefill")):
+            cells += [(f"{m.name} {step.split()[0]} {n}", M, K, N,
+                       f"{m.name} {step}", uses.get(n, L))
+                      for n, K, N in layer]
+        if head:
+            cells.append((f"{m.name} decode head", SLOTS, m.d_model,
+                          m.vocab * max(m.n_codebooks, 1),
+                          f"{m.name} decode step", 1))
+    d, H, ds = deepseek.d_model, deepseek.n_heads, deepseek
+    dn, dr, dv = ds.qk_nope_head_dim, ds.qk_rope_head_dim, ds.v_head_dim
+    r, f, nd = ds.kv_lora_rank, ds.moe_d_ff, ds.first_dense_layers
+    L, Lm = ds.n_layers, ds.n_layers - nd
+    layer = [("wq_a", d, ds.q_lora_rank, L),
+             ("wq_b", ds.q_lora_rank, H * (dn + dr), L),
+             ("wkv_a", d, r + dr, L), ("o", H * dv, d, L),
+             ("router", d, ds.n_experts, Lm),
+             ("shared mlp-in", d, 2 * ds.n_shared_experts * f, Lm),
+             ("shared mlp-out", ds.n_shared_experts * f, d, Lm),
+             ("dense mlp-in", d, 2 * ds.d_ff, nd),
+             ("dense mlp-out", ds.d_ff, d, nd)]
+    for M, step in ((SLOTS, "decode step"), (pf, "prefill")):
+        path = f"{ds.name} {step}"
+        cells += [(f"{ds.name} {step.split()[0]} {n}", M, K, N, path, c)
+                  for n, K, N, c in layer]
+        cells.append((f"{ds.name} {step.split()[0]} wkv_b", SLOTS * MAX_LEN,
+                      r, H * (dn + dv), path, L))
+    cells.append((f"{ds.name} decode head", SLOTS, d, ds.vocab,
+                  f"{ds.name} decode step", 1))
+    return cells
+
+
+def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs, models=(), zoo=()):
+    """K1 at every projection of the paths (bf16 and fp32), of the dense
+    decoders ``models`` and of the model zoo's last four ``zoo`` (bf16);
+    each bf16 decode-step GEMM of the first two also on the mma.sync route
+    at bm 16 (off the path: the repair's cost)."""
     from repro_torch.core import layout as L
     from repro_torch.core.plan import GemmPolicy, layout_for_packed, pack_weight
     from repro_torch.kernels import matrixflow_gemm as MF
@@ -500,7 +582,8 @@ def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs, models=()):
     cells = [("bfloat16", c) for c in gemm_cells(cfg, bert, vit, ssm_cfgs)]
     cells += [("float32", c) for c in gemm_cells(cfg, bert, vit, ssm_cfgs)]
     cells += [("bfloat16", c) for m in models for c in dense_gemm_cells(m)]
-    for dtype_name, (name, M, K, N, path, uses) in cells:
+    zoo_cells = [("bfloat16", c) for c in zoo_gemm_cells(*zoo)] if zoo else []
+    for dtype_name, (name, M, K, N, path, uses) in cells + zoo_cells:
         dt = getattr(torch, dtype_name)
         atol, rtol = GEMM_TOLS[dtype_name]
         a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
@@ -508,7 +591,8 @@ def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs, models=()):
              / K ** 0.5).to(dt)
         pw = pack_weight(w, GemmPolicy())          # as the engine packs
         variants = [(path, layout_for_packed(M, pw))]
-        if dtype_name == "bfloat16" and path.endswith("decode step"):
+        if dtype_name == "bfloat16" and path.endswith("decode step") \
+                and (dtype_name, (name, M, K, N, path, uses)) not in zoo_cells:
             variants.append((path + MMA_BEFORE, L.BlockLayout(
                 L.bm_for(M), pw.bn, pw.bk, pw.mode)))
         for vpath, blk in variants:
@@ -715,11 +799,13 @@ def run_attention_phase(timer, cfg, models=()):
 # Phase 2c: flash attention against its plain version
 # ---------------------------------------------------------------------------
 
-def flash_cells(cfg, bert, vit, vit_huge, zamba, rng, models=()):
+def flash_cells(cfg, bert, vit, vit_huge, zamba, rng, models=(), mla=None):
     """(name, B, Sq, Sk, H, Hkv, D, causal, q_positions, kv_valid_len,
-    path, uses per run) at the encoder paths' and the contiguous serving
-    path's shapes. q_positions / kv_valid_len are numpy arrays or None (the
-    wrapper's bottom-right default / Sk)."""
+    path, uses per run[, Dv]) at the encoder paths' and the contiguous
+    serving path's shapes, the decoders ``models``' and, for ``mla``
+    (deepseek-v2), MLA's q/k head dim 192 with v head dim 128.
+    q_positions / kv_valid_len are numpy arrays or None (the wrapper's
+    bottom-right default / Sk)."""
     H, Hkv, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     cells = [(e.name, ENC_BATCH, S, S, e.n_heads, e.n_kv_heads, e.head_dim,
               False, None, None, f"{e.name} forward", e.n_layers)
@@ -787,6 +873,23 @@ def flash_cells(cfg, bert, vit, vit_huge, zamba, rng, models=()):
                       MAX_LEN, m.n_heads, m.n_kv_heads, m.head_dim, True,
                       qpos, lens.astype(np.int32), f"{m.name} prefill",
                       m.n_layers))
+    if mla is not None:
+        # MLA over its contiguous latent cache: K and V up-projected per
+        # head (one kv head a query head), D 192 = 128 nope + 64 rope, Dv
+        # 128; a decode step (split) and a 64-column prefill bucket (rows)
+        H, D = mla.n_heads, mla.qk_nope_head_dim + mla.qk_rope_head_dim
+        lens = rng.integers(17, MAX_LEN + 1, SLOTS)
+        cells.append((f"{mla.name} decode", SLOTS, 1, MAX_LEN, H, H, D, True,
+                      (lens - 1)[:, None].astype(np.int32),
+                      lens.astype(np.int32), f"{mla.name} decode step",
+                      mla.n_layers, mla.v_head_dim))
+        lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS)
+        qpos = np.full((SLOTS, PROMPT_BUCKET), -1, np.int32)
+        for b, n in enumerate(lens):
+            qpos[b, :n] = np.arange(n)
+        cells.append((f"{mla.name} prefill bucket", SLOTS, PROMPT_BUCKET,
+                      MAX_LEN, H, H, D, True, qpos, lens.astype(np.int32),
+                      f"{mla.name} prefill", mla.n_layers, mla.v_head_dim))
     return cells
 
 
@@ -800,10 +903,14 @@ def run_flash_phase(timer, cells):
         dt = getattr(torch, dtype_name)
         atol, rtol = ATTN_TOLS[dtype_name]
         for (name, B, Sq, Sk, H, Hkv, D, causal, qpos_np, kvl_np, path,
-             uses) in cells:
-            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
-                       for shape in ((B, Sq, H, D), (B, Sk, Hkv, D),
-                                     (B, Sk, Hkv, D)))
+             uses, *dv) in cells:
+            Dv = dv[0] if dv else D
+            q, k = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                    for shape in ((B, Sq, H, D), (B, Sk, Hkv, D)))
+            # v of MLA (Dv != D) is the strided view mla_attention passes:
+            # the last Dv dims of the (..., (D - 64) + Dv) up-projection
+            v = torch.randn((B, Sk, Hkv, D - 64 + Dv if Dv != D else D),
+                            generator=gen, device="cuda").to(dt)[..., -Dv:]
             qpos = None if qpos_np is None else torch.from_numpy(qpos_np).cuda()
             kvl = None if kvl_np is None else torch.from_numpy(kvl_np).cuda()
             before = counts()
@@ -821,7 +928,8 @@ def run_flash_phase(timer, cells):
                                             soft_cap=None)
             torch.cuda.synchronize()
             cell = (f"flash_attention {name} B={B} Sq={Sq} Sk={Sk} H={H} "
-                    f"Hkv={Hkv} D={D} {dtype_name}")
+                    f"Hkv={Hkv} D={D} " + (f"Dv={Dv} " if Dv != D else "")
+                    + dtype_name)
             expect = FA.route_for(dt, Sq, H // Hkv)
             if route != expect or (dtype_name == "float32") != (
                     route == "cuda_cores"):
@@ -851,15 +959,16 @@ def run_flash_phase(timer, cells):
                 soft_cap=None))
             t_lib = timer.ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
             # what this run's data needs: each row's visible keys of K and V
-            # once per kv head, q and the output once; 4·D FLOPs per
+            # once per kv head, q and the output once; 2·(D + Dv) FLOPs per
             # visible (query, head, key)
             horizon = kvl_r.clamp(min=0)
             if causal:
                 horizon = torch.minimum(horizon, qpos_r.max(dim=1).values + 1)
             horizon = horizon.clamp(min=0)
-            nbytes = (2 * int(horizon.sum()) * Hkv * D + 2 * q.numel()) \
-                * dt.itemsize + 4 * (qpos_r.numel() + kvl_r.numel())
-            flops = 4.0 * D * H * float(vis.sum())
+            nbytes = ((D + Dv) * int(horizon.sum()) * Hkv
+                      + q.numel() + q.numel() // D * Dv) * dt.itemsize \
+                + 4 * (qpos_r.numel() + kvl_r.numel())
+            flops = 2.0 * (D + Dv) * H * float(vis.sum())
             b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
             rows.append(dict(cell=cell, dtype=dtype_name, path=path,
                              uses=uses, route=route, max_abs_err=err,
@@ -1293,37 +1402,68 @@ def run_serving_phase(cfg):
 # Phase 4: kernel path (card) vs plain path (CPU), full width, fp32
 # ---------------------------------------------------------------------------
 
-def greedy_run(cfg, params, device, prompts, n_steps, kv_dtype=None):
+def greedy_batch(cfg, rng, B, S):
+    """numpy inputs: tokens (B, S) or, audio, (B, S, n_codebooks); for the
+    VLM also N_IMAGE_TOKENS stub image embeddings a row (at the token
+    table's scale) ahead of the text."""
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+    batch = {"tokens": rng.integers(0, cfg.vocab, shape)}
+    if cfg.family == "vlm":
+        batch["embeds"] = (0.02 * rng.standard_normal(
+            (B, N_IMAGE_TOKENS, cfg.d_model))).astype(np.float32)
+    return batch
+
+
+def greedy_run(cfg, params, device, batch, n_steps, paged=True,
+               kv_dtype=None):
+    """``batch`` (greedy_batch's) prefilled into fresh caches through
+    transformer.forward (the last column's logits only), then ``n_steps``
+    greedy steps (audio: the argmax of each codebook). Paged: pools of
+    ``kv_dtype`` pages of PAGE tokens through a shuffled block table; else
+    contiguous caches, the only kind MLA takes. Returns (tokens (B,
+    n_steps + 1[, n_codebooks]), fp32 logits per step on the host, seconds
+    of the decode steps)."""
     from repro_torch.core import api
-    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.core.plan import FUSED, AttentionPolicy
     from repro_torch.models import transformer as T
 
-    B, S = prompts.shape
-    nb = MAX_LEN // PAGE
-    caches = T.init_paged_caches(cfg, B, B * nb, PAGE, "float32", device,
-                                 kv_dtype=kv_dtype)
-    bt = torch.arange(B * nb, dtype=torch.int32).reshape(B, nb).to(device)
-    logits_all, toks = [], []
-    with torch.no_grad(), api.use_attention_policy(
-            AttentionPolicy(backend="paged", page_size=PAGE)):
-        batch = {"tokens": torch.from_numpy(prompts).to(device),
-                 "positions": torch.arange(S).expand(B, S).to(device),
-                 "block_tables": bt}
-        last = torch.full((B,), S - 1, device=device)
-        logits, _ = T.forward(params, cfg, batch, caches=caches,
-                              last_cols=last)
+    B = batch["tokens"].shape[0]
+    S = batch["tokens"].shape[1] + (batch["embeds"].shape[1]
+                                    if "embeds" in batch else 0)
+    if paged:
+        nb = -(-(S + n_steps) // PAGE)
+        caches = T.init_paged_caches(cfg, B, B * nb, PAGE, cfg.dtype, device,
+                                     kv_dtype=kv_dtype)
+        bt = torch.randperm(B * nb, generator=torch.Generator().manual_seed(
+            7)).reshape(B, nb).to(torch.int32).to(device)
+        policy = AttentionPolicy(backend="paged", page_size=PAGE)
+    else:
+        caches = T.init_caches(cfg, B, max(MAX_LEN, S + n_steps), cfg.dtype,
+                               device)
+        bt, policy = None, FUSED
+
+    def step(inputs, positions, last=None):
+        b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in inputs.items()}
+        b["positions"] = positions.to(device)
+        if bt is not None:
+            b["block_tables"] = bt
+        logits, _ = T.forward(params, cfg, b, caches=caches, last_cols=last)
+        return logits[:, -1].float().cpu()
+
+    toks, lgs = [], []
+    with torch.no_grad(), api.use_attention_policy(policy):
+        lg = step(batch, torch.arange(S).expand(B, S),
+                  torch.full((B,), S - 1, device=device))
+        t0 = time.perf_counter()
         for i in range(n_steps + 1):
-            lg = logits[:, -1].float().cpu()
-            logits_all.append(lg)
-            tok = lg.argmax(-1)
-            toks.append(tok)
-            if i == n_steps:
-                break
-            batch = {"tokens": tok[:, None].to(device),
-                     "positions": torch.full((B, 1), S + i).to(device),
-                     "block_tables": bt}
-            logits, _ = T.forward(params, cfg, batch, caches=caches)
-    return torch.stack(toks, 1), logits_all
+            lgs.append(lg)
+            toks.append(lg.argmax(-1))
+            if i < n_steps:
+                lg = step({"tokens": toks[-1][:, None].numpy()},
+                          torch.full((B, 1), S + i))
+        dec_s = time.perf_counter() - t0
+    return torch.stack(toks, 1), lgs, dec_s
 
 
 def to_device(node, device):
@@ -1335,20 +1475,25 @@ def to_device(node, device):
     return node.to(device)
 
 
-def run_parity_phase(cfg, tag="parity"):
-    from repro_torch.core.api import pack_model_weights
-    from repro_torch.models import transformer as T
+def tree_tensors(node):
+    """The tensors of a param tree, packed weights' blocks and scales
+    included."""
+    if isinstance(node, dict):
+        return [t for v in node.values() for t in tree_tensors(v)]
+    if isinstance(node, list):
+        return [t for v in node for t in tree_tensors(v)]
+    if isinstance(node, torch.Tensor):
+        return [node]
+    return [t for t in (getattr(node, "data", None),
+                        getattr(node, "scales", None)) if t is not None]
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    raw = T.init_model(cfg32, seed=3, device="cpu")
-    gpu_params = pack_model_weights(to_device(raw, "cuda"))
-    cpu_params = pack_model_weights(raw)
-    del raw
-    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (2, 24))
-    n_steps = 8
-    t0 = time.perf_counter()
-    toks_g, lg_g = greedy_run(cfg32, gpu_params, "cuda", prompts, n_steps)
-    toks_c, lg_c = greedy_run(cfg32, cpu_params, "cpu", prompts, n_steps)
+
+def compare_greedy(tag, toks_g, lg_g, toks_c, lg_c):
+    """The card's greedy run against the CPU plain path's: prefill and
+    first-decode logits within LOGIT_TOL, and streams equal or first
+    parting where the plain top-2 margin (of every codebook that parts,
+    for audio) is below LOGIT_TOL. Returns (logit errors per step, the
+    first divergence or None)."""
     errs = [float((a - b).abs().max()) for a, b in zip(lg_g, lg_c)]
     for i, name in ((0, "prefill"), (1, "first decode")):
         if not np.isfinite(errs[i]) or errs[i] > LOGIT_TOL:
@@ -1357,20 +1502,56 @@ def run_parity_phase(cfg, tag="parity"):
     diverged = None
     for b in range(toks_g.shape[0]):
         for i in range(toks_g.shape[1]):
-            if int(toks_g[b, i]) != int(toks_c[b, i]):
-                top2 = lg_c[i][b].topk(2).values
-                margin = float(top2[0] - top2[1])
+            differ = (toks_g[b, i] != toks_c[b, i]).reshape(-1)
+            if bool(differ.any()):
+                lg = lg_c[i][b].reshape(differ.numel(), -1)[differ]
+                top2 = lg.topk(2, dim=-1).values
+                margin = float((top2[:, 0] - top2[:, 1]).min())
                 if margin >= LOGIT_TOL:
                     fail(f"{tag}: greedy streams diverge at row {b} step {i} "
                          f"with plain top-2 margin {margin:.3e} >= {LOGIT_TOL}")
                 diverged = dict(row=b, step=i, margin=margin)
                 break
-    res = dict(layers=cfg.n_layers, logit_max_abs_err=errs,
-               streams_equal=diverged is None, first_divergence=diverged,
-               seconds=time.perf_counter() - t0)
-    log(f"{tag} fp32 full width, {cfg.n_layers} layers: logits max|d| per step "
+    return errs, diverged
+
+
+def run_parity_phase(cfg, tag="parity", paged=True):
+    """fp32 at full width, ``cfg``'s depth (phase 4): the card's kernel
+    path against the CPU plain path through greedy_run (2 rows of
+    PARITY_PROMPT tokens, the VLM's behind its image embeddings), over
+    paged caches or, ``paged`` False, contiguous ones. The weights are
+    drawn on the card (seconds, where the host's draw takes minutes at
+    billions of parameters) and held on the host."""
+    from repro_torch.core.api import pack_model_weights
+    from repro_torch.models import transformer as T
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    raw = T.init_model(cfg32, seed=3, device="cpu", draw_device="cuda")
+    gpu_params = pack_model_weights(to_device(raw, "cuda"))
+    cpu_params = pack_model_weights(raw)
+    del raw
+    host_gib = sum(t.numel() * t.element_size() for t in tree_tensors(
+        cpu_params)) / 2**30
+    batch = greedy_batch(cfg, np.random.default_rng(3), 2, PARITY_PROMPT)
+    toks_g, lg_g, _ = greedy_run(cfg32, gpu_params, "cuda", batch,
+                                 PARITY_STEPS, paged)
+    del gpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks_c, lg_c, _ = greedy_run(cfg32, cpu_params, "cpu", batch,
+                                 PARITY_STEPS, paged)
+    del cpu_params
+    errs, diverged = compare_greedy(tag, toks_g, lg_g, toks_c, lg_c)
+    res = dict(layers=cfg.n_layers, paged=paged, host_weights_gib=host_gib,
+               logit_max_abs_err=errs, streams_equal=diverged is None,
+               first_divergence=diverged, seconds=time.perf_counter() - t0)
+    log(f"{tag} fp32 full width, {cfg.n_layers} layers "
+        f"({'paged' if paged else 'contiguous'}, {host_gib:.1f} GiB of fp32 "
+        f"weights on the host): logits max|d| per step "
         f"{[f'{e:.2e}' for e in errs]}; streams "
-        f"{'equal' if diverged is None else f'diverge at a near-tie {diverged}'}")
+        f"{'equal' if diverged is None else f'diverge at a near-tie {diverged}'}"
+        f" ({res['seconds']:.1f} s)")
     return res
 
 
@@ -1678,16 +1859,15 @@ def run_int8_serving_phase(cfg):
 
     # fp32: the card's int8 path against the CPU plain path
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    prompts2 = np.random.default_rng(13).integers(0, cfg.vocab, (2, 24))
-    n_steps = 8
+    batch = greedy_batch(cfg, np.random.default_rng(13), 2, PARITY_PROMPT)
     runs = {}
     t0 = time.perf_counter()
     for device in ("cuda", "cpu"):
         p32 = pack_model_weights(T.init_model(cfg32, seed=14, device=device),
                                  quantize="int8")
         with QuantRecorder() as rec:
-            toks, lg = greedy_run(cfg32, p32, device, prompts2, n_steps,
-                                  kv_dtype="int8")
+            toks, lg, _ = greedy_run(cfg32, p32, device, batch, PARITY_STEPS,
+                                     kv_dtype="int8")
         runs[device] = (toks, lg, rec.calls)
         del p32
     (toks_g, lg_g, calls_g), (toks_c, lg_c, calls_c) = runs["cuda"], runs["cpu"]
@@ -1884,11 +2064,13 @@ def run_ssm_parity_phase(cfg):
 
 def feature_engine(cfg, params, *, attn="paged", cache_pages=None, **kw):
     """8 slots, max_len 256, page 16, packed weights (``cfg`` at full
-    width); ``kw`` adds the serving features."""
+    width); ``kw`` adds the serving features. ``attn``: "paged", "fused",
+    or "default" (the engine's own choice)."""
     from repro_torch.core.plan import FUSED, AttentionPolicy
     from repro_torch.serving.engine import ServeConfig, ServingEngine
 
-    policy = FUSED if attn == "fused" else AttentionPolicy("paged", PAGE)
+    policy = {"fused": FUSED, "default": None}.get(
+        attn, AttentionPolicy("paged", PAGE))
     return ServingEngine(cfg, params, ServeConfig(
         batch_slots=SLOTS, max_len=MAX_LEN, cache_dtype=cfg.dtype,
         pack_weights=True, attention=policy, cache_pages=cache_pages,
@@ -2285,8 +2467,10 @@ def run_features_phase(cfg):
 # ---------------------------------------------------------------------------
 
 # The models phase 12 runs on: the paged path's smollm-135m, and qwen2-1.5b
-# (phase 13) at its published depth.
+# (phase 13), each cut to its first IDENTITY_LAYERS layers at full width
+# for the run's time (a row's bits do not depend on the depth).
 IDENTITY_ARCHS = ("smollm-135m", "qwen2-1.5b")
+IDENTITY_LAYERS = 10
 
 
 def solo_streams(cfg, params, prompts, rids, kv_dtype):
@@ -2302,12 +2486,16 @@ def solo_streams(cfg, params, prompts, rids, kv_dtype):
 
 
 def run_identity_phase(cfg, params):
-    """bf16, paged (page 16), 8 slots, fp pools and int8 KV: (a) 12
+    """The first IDENTITY_LAYERS layers of ``cfg`` and ``params``, bf16,
+    paged (page 16), 8 slots, fp pools and int8 KV: (a) 12
     requests under the 24-page pool, each preempted request's stream
     against its solo stream; (b) phase 11's 12 requests on one 48-token
     system prompt with the prefix cache on (the same 24-page pool,
     watermark 2) against the prefix cache off. Counts the streams that
     part; any part fails the phase (after every count is logged)."""
+    if cfg.n_layers > IDENTITY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=IDENTITY_LAYERS)
+        params = dict(params, layers=params["layers"][:IDENTITY_LAYERS])
     res, parted = {}, 0
     for kv_dtype in (None, "int8"):
         tag = f"identity {cfg.name} {kv_dtype or 'bf16'} KV"
@@ -2350,7 +2538,8 @@ def run_identity_phase(cfg, params):
             preempted=sorted(preempted), preempted_parted=pre_parted,
             prefix_hits=hits, prefix_parted=fix_parted, launches=launches,
             seconds=time.perf_counter() - t0)
-        log(f"{tag}: {len(pre_parted)} of {len(preempted)} preempted "
+        log(f"{tag} ({cfg.n_layers} layers): {len(pre_parted)} of "
+            f"{len(preempted)} preempted "
             f"requests part from their solo streams {pre_parted}; "
             f"{len(fix_parted)} of {N_REQUESTS} prefix-on streams part from "
             f"prefix-off {fix_parted} ({hits} hits); launches {launches}")
@@ -2413,13 +2602,13 @@ def serve_dense(tag, cfg, params, required, **kw):
 
 
 def run_dense_phase(arch, layers, parity_layers, int8):
-    """One dense decoder at full width in bf16 (weights drawn on the card
-    from a seed), at ``layers`` (None: the published depth): paged serving
-    with preemption (K1 wgmma, K4 on both routes), contiguous serving (K3
-    on both), with ``int8`` int8 KV (K5 on both; "w8a8" also W8A8
-    weights, K2 on both), and for qwen2-1.5b phase 12's stream identity;
-    then fp32 at ``parity_layers``, the card against the CPU plain path
-    (phase 4)."""
+    """One dense decoder (or dbrx's MoE) at full width in bf16 (weights
+    drawn on the card from a seed), at ``layers`` (None: the published
+    depth): paged serving with preemption (K1 wgmma, K4 on both routes),
+    contiguous serving (K3 on both), with ``int8`` int8 KV (K5 on both;
+    "w8a8" also W8A8 weights, K2 on both), and for qwen2-1.5b phase 12's
+    stream identity; then fp32 at ``parity_layers``, the card against the
+    CPU plain path (phase 4)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
 
@@ -2452,6 +2641,183 @@ def run_dense_phase(arch, layers, parity_layers, int8):
     res["parity"] = run_parity_phase(
         dataclasses.replace(full, n_layers=parity_layers), f"{arch} parity")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 16-19: the model zoo's last four at full width
+# ---------------------------------------------------------------------------
+
+VLM, AUDIO, DBRX, DEEPSEEK = ("internvl2-76b", "musicgen-medium", "dbrx-132b",
+                              "deepseek-v2-236b")
+# arch: (layers on the card, None for the published depth; layers of the
+# fp32 card-vs-CPU parity). deepseek's count includes its leading dense
+# layer: 1 + 6 MoE layers on the card, 1 + 1 in parity.
+ZOO_MODELS = {VLM: (16, 2), AUDIO: (None, 4), DBRX: (8, 1), DEEPSEEK: (7, 2)}
+VLM_TEXT, VLM_STEPS = 64, 8
+AUDIO_PROMPT, AUDIO_STEPS = 64, 32
+
+
+def zoo_config(arch):
+    from repro_torch.configs.registry import get_config
+    full = get_config(arch)
+    layers = ZOO_MODELS[arch][0]
+    return full if layers is None else dataclasses.replace(full,
+                                                           n_layers=layers)
+
+
+def pack_in_place(params):
+    """Every GEMM weight packed as the engine packs it, one top-level entry
+    or layer at a time, so the raw and packed copies of a model are never
+    both resident (an engine given packed weights keeps them)."""
+    from repro_torch.core.api import pack_model_weights
+    for k in list(params):
+        if k == "layers":
+            for i, lp in enumerate(params[k]):
+                params[k][i] = pack_model_weights(lp)
+        else:
+            params[k] = pack_model_weights({k: params[k]})[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
+def zoo_params(cfg):
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+    torch.cuda.synchronize()
+    gib = sum(t.numel() * t.element_size() for t in tree_tensors(params)) \
+        / 2**30
+    full = ZOO_MODELS[cfg.name][0]
+    log(f"{cfg.name}: {cfg.n_layers} layers at full width"
+        + (" (the published depth)" if full is None else "")
+        + f", {gib:.1f} GiB of bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params, gib
+
+
+def zoo_forward_run(tag, cfg, params, batch, n_steps, paged, required):
+    """One greedy_run in bf16 on the card, counted: every kernel of
+    ``required`` launched, none off the tensor-core routes, tokens in
+    range and logits finite."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    toks, lgs, dec_s = greedy_run(cfg, params, "cuda", batch, n_steps, paged)
+    torch.cuda.synchronize()
+    launches = read_counts(tag, required)
+    if not all(bool(torch.isfinite(lg).all()) for lg in lgs):
+        fail(f"{tag}: logits are not finite")
+    if toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"{tag}: tokens out of range")
+    B = toks.shape[0]
+    res = dict(batch=B, steps=n_steps, decode_seconds=dec_s,
+               tokens_per_s=B * n_steps / dec_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, first_tokens=toks[:, :4].tolist())
+    log(f"{tag}: prefill + {n_steps} greedy steps of {B} rows, "
+        f"{res['tokens_per_s']:.1f} steps x rows / s, peak "
+        f"{res['peak_mem_gib']:.2f} GiB, launches {launches}")
+    return res
+
+
+def run_vlm_phase():
+    """internvl2-76b (phase 16): paged serving with preemption (K4, group
+    8), contiguous serving (K3); the VLM forward over B 2 x (256 image
+    embeddings ⊕ 64 text tokens) without a cache (K3 rows), then the same
+    prompt prefilled into contiguous caches and VLM_STEPS greedy steps; fp32
+    parity at 2 layers with the image prefix."""
+    from repro_torch.models import transformer as T
+    cfg = zoo_config(VLM)
+    params, gib = zoo_params(cfg)
+    pack_in_place(params)            # 32 GB: the packed copy replaces it
+    res = dict(layers=cfg.n_layers, weights_gib=gib)
+    res["paged"] = serve_dense(f"{VLM} paged serving", cfg, params,
+                               K1_BF16 + K4_BF16, cache_pages=CACHE_PAGES)
+    res["contiguous"] = serve_dense(f"{VLM} contiguous serving", cfg, params,
+                                    K1_BF16 + K3_BF16, attn="fused")
+    batch = greedy_batch(cfg, np.random.default_rng(51), 2, VLM_TEXT)
+    tag = f"{VLM} vlm forward"
+    reset_counts()
+    with torch.no_grad():
+        logits, _ = T.forward(params, cfg, {
+            k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = read_counts(tag, K1_BF16 + ("flash_attention",
+                                           "flash_attention_rows"))
+    S = N_IMAGE_TOKENS + VLM_TEXT
+    if tuple(logits.shape) != (2, S, cfg.vocab) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"{tag}: logits {tuple(logits.shape)} not finite or not "
+             f"(2, {S}, {cfg.vocab})")
+    del logits
+    res["vlm_forward"] = dict(columns=S, launches=launches)
+    log(f"{tag}: B 2 x ({N_IMAGE_TOKENS} image embeddings + {VLM_TEXT} "
+        f"tokens), logits finite, launches {launches}")
+    res["vlm_decode"] = zoo_forward_run(
+        f"{VLM} vlm prefill + decode", cfg, params, batch, VLM_STEPS, False,
+        K1_BF16 + K3_BF16)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["parity"] = run_parity_phase(
+        dataclasses.replace(cfg, n_layers=ZOO_MODELS[VLM][1]),
+        f"{VLM} parity", paged=True)
+    return res
+
+
+def run_audio_phase():
+    """musicgen-medium (phase 17) at its published depth: prefill 8 x 64
+    frames of 4 codebooks, then AUDIO_STEPS greedy steps (argmax per
+    codebook) through forward over contiguous caches (K3) and over paged
+    caches through a shuffled block table (K4); fp32 parity at 4 layers."""
+    cfg = zoo_config(AUDIO)
+    params, gib = zoo_params(cfg)
+    pack_in_place(params)
+    res = dict(layers=cfg.n_layers, weights_gib=gib)
+    batch = greedy_batch(cfg, np.random.default_rng(52), SLOTS, AUDIO_PROMPT)
+    for paged, kernels in ((False, K3_BF16), (True, K4_BF16)):
+        kind = "paged" if paged else "contiguous"
+        res[kind] = zoo_forward_run(f"{AUDIO} {kind} forward", cfg, params,
+                                    batch, AUDIO_STEPS, paged,
+                                    K1_BF16 + kernels)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["parity"] = run_parity_phase(
+        dataclasses.replace(cfg, n_layers=ZOO_MODELS[AUDIO][1]),
+        f"{AUDIO} parity", paged=True)
+    return res
+
+
+def run_mla_phase():
+    """deepseek-v2-236b (phase 19): its leading dense layer and 6 MoE
+    layers, contiguous serving (the only cache MLA takes) under the
+    engine's default policy (fused on the card): K3 at (192, 128) on split
+    at decode and rows at prefill, K1 on wgmma; then generate(); fp32
+    parity at the dense layer + 1 MoE layer."""
+    cfg = zoo_config(DEEPSEEK)
+    params, gib = zoo_params(cfg)
+    res = dict(layers=cfg.n_layers, weights_gib=gib)
+    res["contiguous"] = serve_dense(f"{DEEPSEEK} contiguous serving", cfg,
+                                    params, K1_BF16 + K3_BF16,
+                                    attn="default")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["parity"] = run_parity_phase(
+        dataclasses.replace(cfg, n_layers=ZOO_MODELS[DEEPSEEK][1]),
+        f"{DEEPSEEK} parity", paged=False)
+    return res
+
+
+def run_zoo_phases(archs=ZOO_MODELS):
+    """Phases 16-19 (or those of ``archs``), each model's weights freed
+    before the next."""
+    phases = {VLM: run_vlm_phase, AUDIO: run_audio_phase,
+              DBRX: lambda: run_dense_phase(DBRX, *ZOO_MODELS[DBRX], "w8a8"),
+              DEEPSEEK: run_mla_phase}
+    return {a: phases[a]() for a in archs}
 
 
 def aggregate(rows, dtype, path="decode step"):
@@ -2506,20 +2872,29 @@ def main() -> None:
             c = get_config(arch)
             run_identity_phase(c, T.init_model(c, seed=0, device="cuda"))
         return
+    if sys.argv[1:2] == ["--zoo"]:           # phases 16-19 alone, or the named
+        report["zoo"] = run_zoo_phases(sys.argv[2:] or ZOO_MODELS)
+        (OUT_DIR / "chip_smoke_zoo.json").write_text(
+            json.dumps(report, indent=1))
+        return
 
     cfg = get_config(ARCH)
     bert, vit = get_config("bert-base"), get_config("vit-base")
     mamba, zamba = get_config(MAMBA), get_config(ZAMBA)
     dense = [get_config(a) for a in DENSE_MODELS]
+    # the zoo's last four at their depth on the card (phases 16-19)
+    vlm, audio, dbrx, deepseek = (zoo_config(a) for a in ZOO_MODELS)
     timer = Timer()
     report["gemm"] = run_gemm_phase(timer, cfg, bert, vit, (mamba, zamba),
-                                    dense)
-    report["attention"] = run_attention_phase(timer, cfg, dense)
+                                    dense, (vlm, audio, dbrx, deepseek))
+    report["attention"] = run_attention_phase(timer, cfg,
+                                              dense + [vlm, dbrx, audio])
     report["flash"] = run_flash_phase(timer, flash_cells(
         cfg, bert, vit, get_config("vit-huge"), zamba,
-        np.random.default_rng(3), dense))
+        np.random.default_rng(3), dense + [vlm, dbrx, audio], deepseek))
     report["quant_gemm"] = run_quant_gemm_phase(timer, cfg, bert, vit)
-    report["int8_attention"] = run_int8_attention_phase(timer, cfg, dense)
+    report["int8_attention"] = run_int8_attention_phase(timer, cfg,
+                                                        dense + [dbrx])
     report["ssd"] = run_ssd_phase(timer, mamba, zamba)
     del timer
     report["serving"] = run_serving_phase(cfg)
@@ -2539,6 +2914,7 @@ def main() -> None:
         cfg, T.init_model(cfg, seed=0, device="cuda"))
     report["dense"] = {a: run_dense_phase(a, *v)
                        for a, v in DENSE_MODELS.items()}
+    report["zoo"] = zoo = run_zoo_phases()
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],
@@ -2560,10 +2936,18 @@ def main() -> None:
     by_path.update({f"identity {a} {kv} KV": r["launches"]
                     for a, ident in identity.items()
                     for kv, r in ident.items()})
-    for a, r in report["dense"].items():
+    for a, r in list(report["dense"].items()) + [(DBRX, zoo[DBRX]),
+                                                  (VLM, zoo[VLM]),
+                                                  (DEEPSEEK, zoo[DEEPSEEK])]:
         by_path.update({f"{a} {run} serving": r[run]["launches"]
                         for run in ("paged", "contiguous", "int8") if run in r})
+    by_path.update({f"{VLM} vlm forward": zoo[VLM]["vlm_forward"]["launches"],
+                    f"{VLM} vlm decode": zoo[VLM]["vlm_decode"]["launches"],
+                    **{f"{AUDIO} {k} forward": zoo[AUDIO][k]["launches"]
+                       for k in ("contiguous", "paged")}})
     qwen2, qwen3, granite = (m.name for m in dense)
+    zoo_steps = tuple(f"{m} {p}" for m in (VLM, DBRX, DEEPSEEK)
+                      for p in ("decode step", "prefill"))
 
     def entry(name, source, replaces, rows, path, other_paths, counter=None,
               paths=None):
@@ -2591,7 +2975,8 @@ def main() -> None:
                                f"{MAMBA} decode step", f"{MAMBA} prefill",
                                f"{ZAMBA} decode step",
                                *(f"{m} {p}" for m in (qwen2, qwen3, granite)
-                                 for p in ("decode step", "prefill"))))
+                                 for p in ("decode step", "prefill")),
+                               *zoo_steps, f"{AUDIO} decode step"))
     k1["launches_by_route"] = {
         r: sum(c[f"matrixflow_gemm_{r}"] for c in by_path.values())
         for r in ("wgmma", "mma", "cuda_core")}
@@ -2610,7 +2995,8 @@ def main() -> None:
                               "prefill", f"{MAMBA} prefill",
                               f"{MAMBA} decode step", f"{ZAMBA} decode step",
                               *(f"{m} {p}" for m in (qwen2, qwen3, granite)
-                                for p in ("decode step", "prefill")))),
+                                for p in ("decode step", "prefill")),
+                              *zoo_steps, f"{AUDIO} decode step")),
         # off every bf16 path since bf16 takes bm 64 at every M: its cells
         # time the decode GEMMs as they ran before, at bm 16
         dict(entry("matrixflow_gemm_mma", "matrixflow_gemm",
@@ -2651,10 +3037,24 @@ def main() -> None:
               [r for r in report["flash"] if " D=128 " in r["cell"]],
               f"{qwen2} decode step",
               (f"{qwen2} prefill", f"{qwen3} decode step", f"{qwen3} prefill",
-               f"{granite} decode step", f"{granite} prefill"),
+               f"{granite} decode step", f"{granite} prefill",
+               *(f"{m} {p}" for m in (VLM, DBRX)
+                 for p in ("decode step", "prefill"))),
               counter="flash_attention",
               paths={f"{m} contiguous serving" for m in (qwen2, qwen3,
-                                                         granite)}),
+                                                         granite, VLM, DBRX)}
+              | {f"{VLM} vlm forward", f"{VLM} vlm decode"}),
+        # MLA's q/k head dim 192 with v head dim 128 (deepseek-v2's
+        # contiguous serving: split at decode, rows at prefill)
+        dict(entry("flash_attention_d192", "flash_attention",
+                   "src/repro/kernels/flash_attention.py:199",
+                   [r for r in report["flash"] if " D=192 " in r["cell"]],
+                   f"{DEEPSEEK} decode step", (f"{DEEPSEEK} prefill",),
+                   counter="flash_attention",
+                   paths={f"{DEEPSEEK} contiguous serving"}),
+             launches_by_route={
+                 r: by_path[f"{DEEPSEEK} contiguous serving"][
+                     f"flash_attention_{r}"] for r in ATTN_ROUTES}),
         entry("flash_attention_group48", "flash_attention",
               "src/repro/kernels/flash_attention.py:199",
               [r for r in report["flash"] if " H=48 Hkv=1 " in r["cell"]],
@@ -2665,7 +3065,9 @@ def main() -> None:
               "src/repro/kernels/paged_attention.py:188",
               report["attention"], "decode step",
               ("prefill", "verify step k4", "verify step k8",
-               "tail prefill")),
+               "tail prefill",
+               *(f"{m} {p}" for m in (VLM, DBRX, AUDIO)
+                 for p in ("decode step", "prefill")))),
         entry("paged_attention_rows", "paged_attention",
               "src/repro/kernels/paged_attention.py:188",
               on_route("rows", "attention"), "prefill",
@@ -2683,7 +3085,7 @@ def main() -> None:
               "src/repro/kernels/paged_attention.py:222",
               report["int8_attention"], "decode step",
               ("prefill", "chunk", "verify step k4", "verify step k8",
-               "tail prefill")),
+               "tail prefill", f"{DBRX} decode step", f"{DBRX} prefill")),
         entry("paged_attention_int8_split", "paged_attention",
               "src/repro/kernels/paged_attention.py:222",
               on_route("split", "int8_attention"), "decode step",

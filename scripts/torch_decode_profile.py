@@ -10,10 +10,17 @@ spends its time, on one GPU.
         --attn-backend fused --prompt-len 384
     PYTHONPATH=src python3 scripts/torch_decode_profile.py --arch granite-20b \
         --layers 16
+    PYTHONPATH=src python3 scripts/torch_decode_profile.py --arch dbrx-132b \
+        --layers 8
+    PYTHONPATH=src python3 scripts/torch_decode_profile.py \
+        --arch deepseek-v2-236b --layers 7
 
 Decode (the default): serves full-width smollm-135m, or with ``--arch``
-qwen2-1.5b, qwen3-8b or granite-20b (``--layers N`` cuts the depth; their
-weights are drawn on the card) (bf16, seeded random
+qwen2-1.5b, qwen3-8b, granite-20b, internvl2-76b (as a text LM),
+dbrx-132b or deepseek-v2-236b (``--layers N`` cuts the depth, deepseek's
+leading dense layer counted; their weights are drawn on the card;
+deepseek's MLA serves from contiguous caches, ``--attn-backend fused``,
+its default) (bf16, seeded random
 weights, resident block-major weights; paged KV with page 16, or
 contiguous KV caches under ``--attn-backend fused``) through ServingEngine
 with every slot decoding. ``--weight-dtype int8`` runs every projection
@@ -45,7 +52,9 @@ included), then decode steps. ``--encoder ARCH`` instead runs full-width
   CUDA cores ``paged_attention_int8``), the flash attention kernel by route
   (``flash_attention_split``, ``_rows``; ``flash_attention`` for fp32),
   the SSD scan by kernel (``ssd_scan_walk``, ``ssd_scan_chunks_state`` and
-  ``_pass`` on the tensor cores; ``ssd_scan`` for fp32), and everything
+  ``_pass`` on the tensor cores; ``ssd_scan`` for fp32), PyTorch's own GEMM
+  kernels (``torch_gemm``: the MoE expert banks' batched products, the
+  one product on the path the port leaves to PyTorch), and everything
   else (PyTorch's elementwise, copy, reduction and index kernels). Device busy time over wall time gives the
   device's idle share.
 
@@ -91,6 +100,9 @@ KERNEL_KINDS = (
     ("ssd_segment_state_kernel", "ssd_scan_chunks_state"),
     ("ssd_segment_pass_kernel", "ssd_scan_chunks_pass"),
     ("ssd_scan_kernel", "ssd_scan"),
+    # cuBLAS's kernels (nvjet on Hopper, else *gemm*): the MoE expert banks
+    ("nvjet", "torch_gemm"),
+    ("gemm", "torch_gemm"),
 )
 
 
@@ -101,13 +113,16 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--attn-backend", default=None,
                     choices=["paged", "fused"],
-                    help="default: paged for smollm-135m, fused for the "
-                         "SSM archs")
+                    help="default: paged for the dense decoders, "
+                         "internvl2 and dbrx; fused for the SSM archs and "
+                         "deepseek's MLA")
     ap.add_argument("--weight-dtype", default=None, choices=["int8"])
     ap.add_argument("--kv-dtype", default=None, choices=["int8"])
     ap.add_argument("--arch", default="smollm-135m",
                     choices=["smollm-135m", "qwen2-1.5b", "qwen3-8b",
-                             "granite-20b", "mamba2-1.3b", "zamba2-2.7b"])
+                             "granite-20b", "internvl2-76b", "dbrx-132b",
+                             "deepseek-v2-236b", "mamba2-1.3b",
+                             "zamba2-2.7b"])
     ap.add_argument("--layers", type=int, default=None,
                     help="serve the arch's first N layers (full width)")
     ap.add_argument("--encoder", default=None,
@@ -123,7 +138,12 @@ def main(argv=None) -> int:
                          "pattern")
     args = ap.parse_args(argv)
     ssm = args.arch in ("mamba2-1.3b", "zamba2-2.7b")
-    args.attn_backend = args.attn_backend or ("fused" if ssm else "paged")
+    mla = args.arch == "deepseek-v2-236b"
+    args.attn_backend = args.attn_backend or (
+        "fused" if ssm or mla else "paged")
+    if mla and args.attn_backend != "fused":
+        ap.error("deepseek-v2-236b's MLA latent cache is contiguous: "
+                 "--attn-backend fused")
     if args.kv_dtype and args.attn_backend != "paged":
         ap.error("--kv-dtype needs --attn-backend paged")
     if (args.obs or args.spec or args.ngram_prompts) and \

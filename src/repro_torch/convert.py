@@ -39,15 +39,18 @@ def _tree(node, fn):
 
 def from_jax_params(np_tree: Dict, cfg: ModelConfig, *,
                     device: Union[str, torch.device] = "cpu") -> Dict:
-    """The port's params from the JAX params of a ported model (the dense
-    family, BERT, ViT), as ``jax.tree_util.tree_map(np.asarray, params)``
-    gives them. Every leaf is carried, the LayerNorm biases and the GELU
-    MLP biases (``bi``, ``bo``) of the encoders included."""
+    """The port's params from the JAX params of a ported model, as
+    ``jax.tree_util.tree_map(np.asarray, params)`` gives them. Every leaf
+    is carried: the LayerNorm and GELU MLP biases, audio's per-codebook
+    tables ``embed_cb`` (n_codebooks, vocab, d), the leading dense layers
+    ``dense_layer{i}`` (unstacked in both), the MLA projections and norms,
+    and the MoE router, shared experts and expert banks — (L, E, d_in,
+    d_out) stacked in JAX, (E, d_in, d_out) a layer here."""
     check_supported(cfg)
     device = resolve_device(device)
     out = {k: _tree(v, lambda a: to_tensor(a, device))
            for k, v in np_tree.items() if k != "layers"}
     stacked = np_tree["layers"]
     out["layers"] = [_tree(stacked, lambda a, i=i: to_tensor(a[i], device))
-                     for i in range(cfg.n_layers)]
+                     for i in range(cfg.n_layers - cfg.first_dense_layers)]
     return out

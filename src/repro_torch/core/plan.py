@@ -306,6 +306,11 @@ class PackedWeight:
         """Back to row-major (K, N) — for layout-free backends."""
         return L.from_block_major_b(self.data, self.k, self.n)
 
+    def to(self, device) -> "PackedWeight":
+        """The same blocks on ``device`` (a tree packed once can be handed
+        to an engine, which places its params)."""
+        return dataclasses.replace(self, data=self.data.to(device))
+
 
 def pack_weight(w: torch.Tensor, policy: Optional[GemmPolicy] = None, *,
                 m_hint: int = 512, quantize: Optional[str] = None
@@ -361,9 +366,15 @@ def layout_for_packed(M: int, pw: Union[PackedWeight, QuantizedPackedWeight]
 
 
 # Keys that name GEMM right-hand sides in the model parameter trees
-# (models/layers.py, models/transformer.py).
-_PACK_KEYS = frozenset({"wq", "wk", "wv", "wo", "wi", "w_z", "w_x", "w_B",
-                        "w_C", "w_dt", "w_out", "head"})
+# (models/layers.py, models/ssm.py, models/transformer.py): the reference's
+# set. The MoE expert banks ("wi", "wo" of a "moe" dict) are 3-D
+# (E, d_in, d_out) and run as bank products, so the 2-D test below leaves
+# them raw, as the reference's _EINSUM_BANKS skip does; the shared
+# experts' 2-D "wi"/"wo" and the router are packed.
+_PACK_KEYS = frozenset({
+    "wq", "wk", "wv", "wo", "wi", "wq_a", "wq_b", "wkv_a", "wkv_b",
+    "w_z", "w_x", "w_B", "w_C", "w_dt", "w_out", "head", "router",
+})
 
 
 def pack_model_weights(params, policy: Optional[GemmPolicy] = None, *,

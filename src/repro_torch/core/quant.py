@@ -152,6 +152,11 @@ class QuantizedPackedWeight:
         """Back to row-major int8 (K, N), for layout-free backends."""
         return L.from_block_major_b(self.data, self.k, self.n)
 
+    def to(self, device) -> "QuantizedPackedWeight":
+        """The same blocks and scales on ``device``."""
+        return dataclasses.replace(self, data=self.data.to(device),
+                                   scales=self.scales.to(device))
+
     def unpack(self) -> torch.Tensor:
         """The dequantized row-major weight in the original dtype."""
         return dequantize_weight(self.unpack_quantized(), self.scales,

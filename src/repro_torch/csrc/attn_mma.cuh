@@ -122,12 +122,13 @@ constexpr int kMaxSplits = 8;     // CTAs of one cluster sharing a row tile
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// A staged row of D bf16 values (a row of Q or K at the q/k head dim D, of
+// V at the v head dim Dv).
 template <int D> struct Geo {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head_dim: a multiple of 16 up to 128");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 192, "head dim: a multiple of 16 up to 192");
   static constexpr int kChunks = D / 8;             // 16-byte chunks of a row
   static constexpr int kRowBytes = 2 * D + 16;      // padded: an odd number of chunks
   static constexpr int kTileBytes = kBlockN * kRowBytes;
-  static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
   static constexpr int kInt8TileBytes = kBlockN * D;  // int8 keys as they arrive, unpadded
 };
 
@@ -139,18 +140,21 @@ template <bool kSplit, bool kPaged> __host__ __device__ constexpr int cta_rows()
 
 // kTile: a CTA holds one m16 tile of rows (else kRowsTile). kInt8: the ring
 // holds kStages int8 stages, then the one bf16 stage they are converted into.
-template <int D, bool kTile, bool kInt8 = false> struct Smem {
+// D: the q/k head dim (Q and K rows), Dv: the v head dim (V rows, the
+// output); int8 pools take one head dim.
+template <int D, bool kTile, bool kInt8 = false, int Dv = D> struct Smem {
+  static_assert(!kInt8 || Dv == D, "int8 pools: v head dim = q/k head dim");
   static constexpr int kQRows = kTile ? kSplitRows : kRowsTile;
   static constexpr int kQBytes = kQRows * Geo<D>::kRowBytes;
+  static constexpr int kStageBytes = Geo<D>::kTileBytes + Geo<Dv>::kTileBytes;  // K, then V
   static constexpr int kRingBytes =
-      kInt8 ? kStages * 2 * Geo<D>::kInt8TileBytes + Geo<D>::kStageBytes
-            : kStages * Geo<D>::kStageBytes;
+      kInt8 ? kStages * 2 * Geo<D>::kInt8TileBytes + kStageBytes : kStages * kStageBytes;
   // What the attention uses; a key source may append its own (PagedKV's
   // block-table entries) at this offset.
   static constexpr int kBytes = kQBytes + kRingBytes + kQRows * 4;
-  // The split route's merge reuses the ring: four warps' (16, D) partials,
-  // their m, l and weights, then the CTA's m, l, 1 / l and (16, D) partial.
-  static constexpr int kMergeBytes = (4 * 16 * D + 3 * 4 * 16 + 3 * 16 + 16 * D) * 4;
+  // The split route's merge reuses the ring: four warps' (16, Dv) partials,
+  // their m, l and weights, then the CTA's m, l, 1 / l and (16, Dv) partial.
+  static constexpr int kMergeBytes = (4 * 16 * Dv + 3 * 4 * 16 + 3 * 16 + 16 * Dv) * 4;
   static_assert(kMergeBytes <= kRingBytes, "the merge fits in the ring");
 };
 
@@ -160,7 +164,7 @@ struct Params {
   long long q_sb, q_ss, q_sh;
   const int* q_positions;         // (B, Sq); -1 = masked row; null: s + pos_offset
   const int* kv_valid_len;        // (B,), clamped to n_keys here; null: n_keys
-  bf16* out;                      // (B, Sq, H, D), contiguous
+  bf16* out;                      // (B, Sq, H, Dv), contiguous
   int Sq, H, Hkv, n_keys;         // n_keys: keys in memory (Sk, or nb * ps)
   int pos_offset;                 // the default position of query s is s + pos_offset
   float scale, soft_cap;          // soft_cap <= 0: none
@@ -302,19 +306,27 @@ template <class T> struct PagedKV {
 // The CTA (x, g = blockIdx.y, b = blockIdx.z): x is the row tile on the
 // rows route; on the split route tile x / splits, split rank x % splits
 // (the p.splits CTAs of one cluster). `smem` holds Smem<D, kTile,
-// Src::kInt8>::kBytes, then the key source's.
-template <int D, bool kSplit, class Src>
+// Src::kInt8, Dv>::kBytes, then the key source's. D is the q/k head dim
+// (Q.K^T's k-steps), Dv the v head dim (P.V's n8 tiles, the output row);
+// MLA takes D 192, Dv 128, every other model Dv = D.
+template <int D, bool kSplit, class Src, int Dv = D>
 __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem) {
   using G = Geo<D>;
+  using GV = Geo<Dv>;
   constexpr bool kI8 = Src::kInt8;
   // One m16 row tile a CTA, a stage's keys split over the warps: the split
   // route, and the rows route over page pools (see header).
   constexpr bool kTile = cta_rows<kSplit, Src::kTable>() == kSplitRows;
-  using S = Smem<D, kTile, kI8>;
-  // A staged key row: bf16 padded for ldmatrix, int8 as it arrives.
+  using S = Smem<D, kTile, kI8, Dv>;
+  // A staged key row of K and of V: bf16 padded for ldmatrix, int8 as it
+  // arrives.
   constexpr int kSrcChunks = kI8 ? D / 16 : G::kChunks;
   constexpr int kSrcRowBytes = kI8 ? D : G::kRowBytes;
   constexpr int kSrcTileBytes = kBlockN * kSrcRowBytes;
+  constexpr int kVSrcChunks = kI8 ? Dv / 16 : GV::kChunks;
+  constexpr int kVSrcRowBytes = kI8 ? Dv : GV::kRowBytes;
+  constexpr int kVSrcTileBytes = kBlockN * kVSrcRowBytes;
+  constexpr int kRowChunks = kSrcChunks > kVSrcChunks ? kSrcChunks : kVSrcChunks;
   constexpr int NT = kTile ? 2 : 8;             // n8 key tiles a warp takes from a stage
   const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
   const int g = blockIdx.y, b = blockIdx.z;
@@ -369,15 +381,17 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
   src.prepare(lo, hi, smem + S::kBytes);
   if constexpr (Src::kTable) __syncthreads();            // the key source's shared entries are in place
 
+  // chunk ch of a key's row: of K while ch < kSrcChunks, of V while
+  // ch < kVSrcChunks (both, when D = Dv)
   auto load = [&](int t, int stage) {
-    uint8_t* kst = ring + stage * 2 * kSrcTileBytes;
+    uint8_t* kst = ring + stage * (kSrcTileBytes + kVSrcTileBytes);
     uint8_t* vst = kst + kSrcTileBytes;
     const int col0 = lo + t * kBlockN;
 #pragma unroll
-    for (int i = 0; i < (kBlockN * kSrcChunks + kThreads - 1) / kThreads; ++i) {
+    for (int i = 0; i < (kBlockN * kRowChunks + kThreads - 1) / kThreads; ++i) {
       const int c = tid + i * kThreads;
-      if (c >= kBlockN * kSrcChunks) break;
-      const int key = c / kSrcChunks, ch = c % kSrcChunks;
+      if (c >= kBlockN * kRowChunks) break;
+      const int key = c / kRowChunks, ch = c % kRowChunks;
       const bool ok = col0 + key < hi;
       const uint8_t* kf = reinterpret_cast<const uint8_t*>(p.q);
       const uint8_t* vf = kf;
@@ -385,8 +399,8 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
         kf = reinterpret_cast<const uint8_t*>(src.k_row(col0 + key)) + ch * 16;
         vf = reinterpret_cast<const uint8_t*>(src.v_row(col0 + key)) + ch * 16;
       }
-      cp_async16(smem_u32(kst + key * kSrcRowBytes + ch * 16), kf, ok);
-      cp_async16(smem_u32(vst + key * kSrcRowBytes + ch * 16), vf, ok);
+      if (ch < kSrcChunks) cp_async16(smem_u32(kst + key * kSrcRowBytes + ch * 16), kf, ok);
+      if (ch < kVSrcChunks) cp_async16(smem_u32(vst + key * kVSrcRowBytes + ch * 16), vf, ok);
     }
   };
 
@@ -406,9 +420,9 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
 
   uint32_t qf[D / 16][4];
   float m[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[Dv / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < Dv / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -425,7 +439,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
         ldsm_x4(smem_u32(qs + (r0 + (l & 15)) * G::kRowBytes + (2 * kk + (l >> 4)) * 16),
                 qf[kk]);
     }
-    const uint8_t* kst = ring + (t % kStages) * G::kStageBytes;
+    const uint8_t* kst = ring + (t % kStages) * S::kStageBytes;
     if constexpr (kI8) {
       // int8 stage t -> the bf16 stage after the ring, in ldmatrix's layout
       uint8_t* work = ring + kStages * 2 * kSrcTileBytes;
@@ -446,7 +460,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
     }
     const int c0 = lo + t * kBlockN + kb;       // the warp's first key of the stage
     if (c0 < w_end) {
-      const uint8_t* vst = kst + G::kTileBytes;
+      const uint8_t* vst = kst + G::kTileBytes;  // V rows padded at Dv
       float s[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -515,7 +529,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
           s[j][e] = pe;
         }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < Dv / 8; ++j) {
         acc[j][0] *= corr[0];
         acc[j][1] *= corr[0];
         acc[j][2] *= corr[1];
@@ -541,9 +555,9 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
           else a[x] = pack_bf16(f[0], f[1]);
         }
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < Dv / 16; ++dp) {
           uint32_t r[4];
-          ldsm_x4_trans(smem_u32(vst + (kb + 16 * kk + (l & 15)) * G::kRowBytes +
+          ldsm_x4_trans(smem_u32(vst + (kb + 16 * kk + (l & 15)) * GV::kRowBytes +
                                  (2 * dp + (l >> 4)) * 16),
                         r);
           mma_bf16(acc[2 * dp], a, r[0], r[1]);
@@ -565,7 +579,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
   // fragment (j, e) of acc: row a (e < 2) or b, dim 8 j + 2 tq + e % 2
   auto out_row = [&](int r) {
     const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
-    return p.out + ((static_cast<long long>(b) * p.Sq + s) * p.H + h) * D;
+    return p.out + ((static_cast<long long>(b) * p.Sq + s) * p.H + h) * Dv;
   };
   if (!kTile) {
 #pragma unroll
@@ -575,7 +589,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
       const float inv = 1.f / fmaxf(lsum[i], 1e-30f);
       bf16* o = out_row(r0 + gq + 8 * i) + 2 * tq;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < Dv / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
             __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
     }
@@ -583,20 +597,20 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
   }
 
   // One row tile: the warps' partials, merged in warp order.
-  float* red = reinterpret_cast<float*>(ring);  // [warp][row][D]
-  float* red_m = red + 4 * 16 * D;              // [warp][row]
+  float* red = reinterpret_cast<float*>(ring);  // [warp][row][Dv]
+  float* red_m = red + 4 * 16 * Dv;             // [warp][row]
   float* red_l = red_m + 64;
   float* wgt = red_l + 64;                      // exp(m_warp - m_cta), [warp][row]
   float* cta_m = wgt + 64;                      // this CTA's partial: [row]
   float* cta_l = cta_m + 16;
   float* cta_inv = cta_l + 16;                  // 1 / max(l, 1e-30), for nz = 1
-  float* cta_acc = cta_inv + 16;                // [row][D]
+  float* cta_acc = cta_inv + 16;                // [row][Dv]
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = gq + 8 * i;
-    float* dst = red + (w * 16 + r) * D + 2 * tq;
+    float* dst = red + (w * 16 + r) * Dv + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < Dv / 8; ++j) {
       dst[8 * j] = acc[j][2 * i];
       dst[8 * j + 1] = acc[j][2 * i + 1];
     }
@@ -620,12 +634,12 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
     cta_inv[tid] = 1.f / fmaxf(lc, 1e-30f);
   }
   __syncthreads();
-  for (int e = tid; e < 16 * D; e += kThreads) {
-    const int r = e / D;
+  for (int e = tid; e < 16 * Dv; e += kThreads) {
+    const int r = e / Dv;
     float a = 0.f;
-    for (int u = 0; u < kWarps; ++u) a += red[u * 16 * D + e] * wgt[u * 16 + r];
+    for (int u = 0; u < kWarps; ++u) a += red[u * 16 * Dv + e] * wgt[u * 16 + r];
     if (nz == 1) {
-      if (r < n_rows) out_row(r)[e % D] = __float2bfloat16(a * cta_inv[r]);
+      if (r < n_rows) out_row(r)[e % Dv] = __float2bfloat16(a * cta_inv[r]);
     } else {
       cta_acc[e] = a;
     }
@@ -633,12 +647,12 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
   if (nz == 1) return;
 
   // The cluster's CTAs' partials, merged in rank order; CTA z writes the
-  // z-th of nz even shares of the (16, D) tile.
+  // z-th of nz even shares of the (16, Dv) tile.
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                               // every rank's partial is in its shared memory
-  const int e_lo = 16 * D * z / nz, e_hi = 16 * D * (z + 1) / nz;
+  const int e_lo = 16 * Dv * z / nz, e_hi = 16 * Dv * (z + 1) / nz;
   for (int e = e_lo + tid; e < e_hi; e += kThreads) {
-    const int r = e / D;
+    const int r = e / Dv;
     if (r >= n_rows) continue;
     float mc = kNegInf;
     for (int u = 0; u < nz; ++u) mc = fmaxf(mc, cluster.map_shared_rank(cta_m, u)[r]);
@@ -648,7 +662,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
       a += cluster.map_shared_rank(cta_acc, u)[e] * wu;
       lc += cluster.map_shared_rank(cta_l, u)[r] * wu;
     }
-    out_row(r)[e % D] = __float2bfloat16(a / fmaxf(lc, 1e-30f));
+    out_row(r)[e % Dv] = __float2bfloat16(a / fmaxf(lc, 1e-30f));
   }
   cluster.sync();                               // no rank leaves while another still reads it
 }

@@ -4,8 +4,11 @@
 // (the cache-less forward, the BERT/ViT encoders, and serving from
 // contiguous (slots, max_len) KV caches). Contract, as there:
 //
-//   q (B, Sq, H, D), k/v (B, Sk, Hkv, D), model layout, read through the
-//   strides the caller passes (the last dim must be contiguous);
+//   q (B, Sq, H, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), model layout,
+//   read through the strides the caller passes (the last dim must be
+//   contiguous); out (B, Sq, H, Dv). Dv = D but for MLA (deepseek-v2: D
+//   192 = 128 nope + 64 rope dims, Dv 128, v a strided view of the
+//   up-projection);
 //   q_positions (B, Sq) int32 (-1 = masked row); kv_valid_len (B,) int32.
 //   Key col is visible to query row i iff col < min(kv_valid_len[b], Sk)
 //   and, when causal, col <= q_positions[b, i]. fp32 scores s = q.k * scale
@@ -53,7 +56,9 @@
 // lane t takes key t, reading q (broadcast) and k in 16-byte vectors, so
 // one k load serves four rows. The rows' p values go through shared memory
 // as one float4 per key, and lane d accumulates output dims d, d + 32, ...
-// of all four rows. At D 128 the CTA's static shared memory is 42.6 KB. Ragged Sq and Sk are bounds-checked on both
+// of all four rows. Its shared memory is dynamic: 42.6 KB at D 128, and
+// 54.6 KB at MLA's D 192 / Dv 128, past the 48 KB a launch gets without
+// opting in (am::reserve_smem). Ragged Sq and Sk are bounds-checked on both
 // paths; nothing is padded in memory.
 
 #include <cuda_bf16.h>
@@ -94,8 +99,8 @@ struct Strides {          // element strides of a (B, S, heads, D) operand
   long long b, s, h;
 };
 
-// One key block's (kBlockK, D) tiles of K and V move in 16-byte chunks (4
-// fp32 values); thread tid takes chunks tid + i * kThreads.
+// One key block's (kBlockK, D) tile of K or (kBlockK, Dv) tile of V moves in
+// 16-byte chunks (4 fp32 values); thread tid takes chunks tid + i * kThreads.
 template <typename T, int D>
 struct Tile {
   static constexpr int kVec = 16 / sizeof(T);
@@ -104,42 +109,55 @@ struct Tile {
   static constexpr int kPer = (kChunks + kThreads - 1) / kThreads;
 };
 
-// Fetch this thread's chunks of the block at col0 (zero past key Sk).
+// Fetch this thread's chunks of one operand's block at col0 (zero past key
+// Sk).
 template <typename T, int D>
-__device__ __forceinline__ void fetch_block(const T* __restrict__ kb,
-                                            const T* __restrict__ vb,
-                                            long long k_ss, long long v_ss,
-                                            int col0, int Sk, int tid,
-                                            uint4 (&kr)[Tile<T, D>::kPer],
-                                            uint4 (&vr)[Tile<T, D>::kPer]) {
+__device__ __forceinline__ void fetch_block(const T* __restrict__ base, long long ss, int col0,
+                                            int Sk, int tid, uint4 (&r)[Tile<T, D>::kPer]) {
   using TL = Tile<T, D>;
 #pragma unroll
   for (int i = 0; i < TL::kPer; ++i) {
     const int c = tid + i * kThreads;
     const int col = col0 + c / TL::kRowChunks, d = (c % TL::kRowChunks) * TL::kVec;
     const bool in = c < TL::kChunks && col < Sk;
-    kr[i] = in ? *reinterpret_cast<const uint4*>(kb + col * k_ss + d) : make_uint4(0, 0, 0, 0);
-    vr[i] = in ? *reinterpret_cast<const uint4*>(vb + col * v_ss + d) : make_uint4(0, 0, 0, 0);
+    r[i] = in ? *reinterpret_cast<const uint4*>(base + col * ss + d) : make_uint4(0, 0, 0, 0);
   }
 }
+
+// The fp32 kernel's shared memory, carved from the dynamic allocation:
+// q rows, K rows padded to 16-byte steps for conflict-free float4 reads,
+// V rows, the warps' p values and the rows' positions.
+template <int D, int Dv>
+struct FpSmem {
+  static constexpr int kKStride = D + 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kMaxRows * D * 4;
+  static constexpr int kV = kK + kBlockK * kKStride * 4;
+  static constexpr int kP = kV + kBlockK * Dv * 4;
+  static constexpr int kPos = kP + kWarps * kBlockK * 16;
+  static constexpr int kBytes = kPos + kMaxRows * 4;
+};
 
 // A 16-byte chunk as fp32, written to dst[0 .. kVec) (16-byte aligned).
 __device__ __forceinline__ void unpack(uint4 x, float* dst, const float*) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&x);
 }
 
-template <typename T, int D>
+template <typename T, int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ q_positions,
                   const int* __restrict__ kv_valid_len, T* __restrict__ out,
                   int Sq, int Sk, int H, int Hkv, Strides qst, Strides kst,
                   Strides vst, float scale, float soft_cap, int causal) {
-  static_assert(D % 4 == 0 && D <= 128, "head_dim must be a multiple of 4, <= 128");
-  constexpr int kDPerLane = (D + 31) / 32;
-  constexpr int kKStride = D + 4;            // 16-byte rows, conflict-free float4 reads
-  using TL = Tile<T, D>;
-  static_assert(D % TL::kVec == 0, "rows split into 16-byte chunks");
+  static_assert(D % 4 == 0 && D <= 192 && Dv % 4 == 0 && Dv <= 128,
+                "head dims: multiples of 4, q/k up to 192, v up to 128");
+  constexpr int kDPerLane = (Dv + 31) / 32;
+  using SM = FpSmem<D, Dv>;
+  constexpr int kKStride = SM::kKStride;
+  using TK = Tile<T, D>;
+  using TV = Tile<T, Dv>;
+  static_assert(D % TK::kVec == 0 && Dv % TV::kVec == 0, "rows split into 16-byte chunks");
 
   const int g = blockIdx.y, b = blockIdx.z;
   const int rep = H / Hkv;
@@ -148,11 +166,12 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_rows = min(kMaxRows, Sq * rep - row0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  __shared__ __align__(16) float qs[kMaxRows][D];
-  __shared__ __align__(16) float ks[kBlockK][kKStride];
-  __shared__ __align__(16) float vs[kBlockK][D];
-  __shared__ float4 ps[kWarps][kBlockK];     // p of a warp's 4 rows, per key
-  __shared__ int qpos_s[kMaxRows];
+  extern __shared__ __align__(16) uint8_t fp_smem[];
+  auto qs = reinterpret_cast<float(*)[D]>(fp_smem + SM::kQ);
+  auto ks = reinterpret_cast<float(*)[kKStride]>(fp_smem + SM::kK);
+  auto vs = reinterpret_cast<float(*)[Dv]>(fp_smem + SM::kV);
+  auto ps = reinterpret_cast<float4(*)[kBlockK]>(fp_smem + SM::kP);  // p of a warp's 4 rows, per key
+  int* qpos_s = reinterpret_cast<int*>(fp_smem + SM::kPos);
 
   for (int e = tid; e < kMaxRows * D; e += kThreads) {
     const int r = e / D, d = e % D;
@@ -185,23 +204,35 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kDPerLane; ++u) acc[i][u] = 0.f;
   }
 
-  uint4 kr[TL::kPer], vr[TL::kPer];
-  if (kv_end > 0) fetch_block<T, D>(kb, vb, kst.s, vst.s, 0, Sk, tid, kr, vr);
+  uint4 kr[TK::kPer], vr[TV::kPer];
+  if (kv_end > 0) {
+    fetch_block<T, D>(kb, kst.s, 0, Sk, tid, kr);
+    fetch_block<T, Dv>(vb, vst.s, 0, Sk, tid, vr);
+  }
   for (int col0 = 0; col0 < kv_end; col0 += kBlockK) {
     const int nk = min(kBlockK, Sk - col0);
     __syncthreads();                         // the previous block's readers are done
 #pragma unroll
-    for (int i = 0; i < TL::kPer; ++i) {
+    for (int i = 0; i < TK::kPer; ++i) {
       const int c = tid + i * kThreads;
-      if (c < TL::kChunks) {
-        const int t = c / TL::kRowChunks, d = (c % TL::kRowChunks) * TL::kVec;
+      if (c < TK::kChunks) {
+        const int t = c / TK::kRowChunks, d = (c % TK::kRowChunks) * TK::kVec;
         unpack(kr[i], &ks[t][d], k);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TV::kPer; ++i) {
+      const int c = tid + i * kThreads;
+      if (c < TV::kChunks) {
+        const int t = c / TV::kRowChunks, d = (c % TV::kRowChunks) * TV::kVec;
         unpack(vr[i], &vs[t][d], v);
       }
     }
     __syncthreads();
-    if (col0 + kBlockK < kv_end)             // in flight while this block is scored
-      fetch_block<T, D>(kb, vb, kst.s, vst.s, col0 + kBlockK, Sk, tid, kr, vr);
+    if (col0 + kBlockK < kv_end) {           // in flight while this block is scored
+      fetch_block<T, D>(kb, kst.s, col0 + kBlockK, Sk, tid, kr);
+      fetch_block<T, Dv>(vb, vst.s, col0 + kBlockK, Sk, tid, vr);
+    }
 
     // Scores of this warp's rows against key `lane`.
     float dot[kRowsPerWarp];
@@ -243,7 +274,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < kDPerLane; ++u) {
         const int d = lane + 32 * u;
-        if (d < D) {
+        if (d < Dv) {
           const float vx = vs[t][d];
           acc[0][u] += pt.x * vx;
           acc[1][u] += pt.y * vx;
@@ -260,22 +291,26 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= n_rows) continue;
     const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<long long>(b) * Sq + s) * H + h) * D;
+    T* o = out + ((static_cast<long long>(b) * Sq + s) * H + h) * Dv;
 #pragma unroll
     for (int u = 0; u < kDPerLane; ++u) {
       const int d = lane + 32 * u;
-      if (d < D) store(&o[d], acc[i][u] / denom);
+      if (d < Dv) store(&o[d], acc[i][u] / denom);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int Dv>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kvlen, void* out, int B, int Sq, int Sk, int H,
                    int Hkv, Strides qs, Strides ks, Strides vs, float scale,
                    float soft_cap, int causal, cudaStream_t stream) {
+  constexpr int smem = FpSmem<D, Dv>::kBytes;
+  static int granted = 0;
+  const cudaError_t attr = am::reserve_smem(flash_attn_kernel<T, D, Dv>, smem, granted);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq * (H / Hkv) + kMaxRows - 1) / kMaxRows, Hkv, B);
-  flash_attn_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  flash_attn_kernel<T, D, Dv><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       qpos, kvlen, static_cast<T*>(out), Sq, Sk, H, Hkv, qs, ks, vs, scale,
       soft_cap, causal);
@@ -283,35 +318,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
 }
 
 // The bf16 instances: the attention of attn_mma.cuh over a dense cache.
-template <int D, bool kSplit>
+template <int D, int Dv, bool kSplit>
 __device__ __forceinline__ void flash_attn_tc(const am::Params& p, const am::bf16* k,
                                               const am::bf16* v, Strides kst, Strides vst) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int g = blockIdx.y, b = blockIdx.z;
   am::DenseKV src{k + b * kst.b + g * kst.h, v + b * vst.b + g * vst.h, kst.s, vst.s};
-  am::attend<D, kSplit>(p, src, smem);
+  am::attend<D, kSplit, am::DenseKV, Dv>(p, src, smem);
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(am::kThreads)
 flash_attn_rows_kernel(am::Params p, const am::bf16* k, const am::bf16* v, Strides kst,
                        Strides vst) {
-  flash_attn_tc<D, false>(p, k, v, kst, vst);
+  flash_attn_tc<D, Dv, false>(p, k, v, kst, vst);
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(am::kThreads)
 flash_attn_split_kernel(am::Params p, const am::bf16* k, const am::bf16* v, Strides kst,
                         Strides vst) {
-  flash_attn_tc<D, true>(p, k, v, kst, vst);
+  flash_attn_tc<D, Dv, true>(p, k, v, kst, vst);
 }
 
-template <int D, bool kSplit>
+template <int D, int Dv, bool kSplit>
 cudaError_t launch_tc(const am::Params& p, const void* k, const void* v, int B, int splits,
                       Strides ks, Strides vs, cudaStream_t stream) {
-  constexpr int smem = am::Smem<D, kSplit>::kBytes;
-  auto kernel = flash_attn_rows_kernel<D>;
-  if constexpr (kSplit) kernel = flash_attn_split_kernel<D>;
+  constexpr int smem = am::Smem<D, kSplit, false, Dv>::kBytes;
+  auto kernel = flash_attn_rows_kernel<D, Dv>;
+  if constexpr (kSplit) kernel = flash_attn_split_kernel<D, Dv>;
   static int granted = 0;
   const cudaError_t attr = am::reserve_smem(kernel, smem, granted);
   if (attr != cudaSuccess) return attr;
@@ -325,11 +360,11 @@ cudaError_t launch_tc(const am::Params& p, const void* k, const void* v, int B, 
 }  // namespace
 
 // The fp32 instance (the CUDA cores); bf16 takes flash_attention_tc.
-// head_dim: 64, 80 or 128. Strides are in elements; the output is a
-// contiguous (B, Sq, H, head_dim) tensor. H / Hkv must be an integer.
-// soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on
-// `stream`.
-extern "C" int flash_attention(int head_dim, const void* q,
+// (head_dim, v_head_dim): (64, 64), (80, 80), (128, 128) or MLA's
+// (192, 128). Strides are in elements; the output is a contiguous (B, Sq,
+// H, v_head_dim) tensor. H / Hkv must be an integer. soft_cap <= 0 means
+// none. Returns a cudaError_t; asynchronous on `stream`.
+extern "C" int flash_attention(int head_dim, int v_head_dim, const void* q,
                                const void* k, const void* v,
                                const int* q_positions, const int* kv_valid_len,
                                void* out, int B, int Sq, int Sk, int H, int Hkv,
@@ -342,24 +377,26 @@ extern "C" int flash_attention(int head_dim, const void* q,
   if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA_LAUNCH(T, D)                                                         \
-  return launch<T, D>(q, k, v, q_positions, kv_valid_len, out, B, Sq, Sk, H, \
-                      Hkv, qs, ks, vs, scale, soft_cap, causal, s)
-  if (head_dim == 64) FA_LAUNCH(float, 64);
-  if (head_dim == 80) FA_LAUNCH(float, 80);
-  if (head_dim == 128) FA_LAUNCH(float, 128);
+#define FA_LAUNCH(T, D, Dv)                                                        \
+  return launch<T, D, Dv>(q, k, v, q_positions, kv_valid_len, out, B, Sq, Sk, H, \
+                          Hkv, qs, ks, vs, scale, soft_cap, causal, s)
+  if (head_dim == 64 && v_head_dim == 64) FA_LAUNCH(float, 64, 64);
+  if (head_dim == 80 && v_head_dim == 80) FA_LAUNCH(float, 80, 80);
+  if (head_dim == 128 && v_head_dim == 128) FA_LAUNCH(float, 128, 128);
+  if (head_dim == 192 && v_head_dim == 128) FA_LAUNCH(float, 192, 128);
 #undef FA_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 // The bf16 instances (the tensor cores). splits = 0 takes the rows route;
 // splits = 1..8 the split route, which puts `splits` CTAs of one cluster on
-// each m16 tile of rows of a (kv head, batch row). head_dim: 64, 80 or 128;
-// H / Hkv any integer. q_positions may be null (the
+// each m16 tile of rows of a (kv head, batch row). (head_dim, v_head_dim)
+// as for flash_attention; H / Hkv any integer. q_positions may be null (the
 // bottom-right default, s + Sk - Sq) and kv_valid_len null (Sk); a given
 // kv_valid_len is clamped to Sk here. Strides, output and return as for
 // flash_attention.
-extern "C" int flash_attention_tc(int head_dim, int splits, const void* q, const void* k,
+extern "C" int flash_attention_tc(int head_dim, int v_head_dim, int splits, const void* q,
+                                  const void* k,
                                   const void* v, const int* q_positions,
                                   const int* kv_valid_len, void* out, int B, int Sq, int Sk,
                                   int H, int Hkv, long long q_sb, long long q_ss,
@@ -374,15 +411,15 @@ extern "C" int flash_attention_tc(int head_dim, int splits, const void* q, const
                      scale, soft_cap, causal, splits};
   const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return splits ? launch_tc<64, true>(p, k, v, B, splits, ks, vs, s)
-                  : launch_tc<64, false>(p, k, v, B, 0, ks, vs, s);
-  if (head_dim == 80)
-    return splits ? launch_tc<80, true>(p, k, v, B, splits, ks, vs, s)
-                  : launch_tc<80, false>(p, k, v, B, 0, ks, vs, s);
-  if (head_dim == 128)
-    return splits ? launch_tc<128, true>(p, k, v, B, splits, ks, vs, s)
-                  : launch_tc<128, false>(p, k, v, B, 0, ks, vs, s);
+#define FA_TC(D, Dv)                                                       \
+  if (head_dim == D && v_head_dim == Dv)                                   \
+    return splits ? launch_tc<D, Dv, true>(p, k, v, B, splits, ks, vs, s) \
+                  : launch_tc<D, Dv, false>(p, k, v, B, 0, ks, vs, s);
+  FA_TC(64, 64)
+  FA_TC(80, 80)
+  FA_TC(128, 128)
+  FA_TC(192, 128)
+#undef FA_TC
   return cudaErrorInvalidValue;
 }
 

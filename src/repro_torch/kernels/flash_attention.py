@@ -43,10 +43,13 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# The kernel's tiling (csrc/flash_attention.cu): keys per block, head dims
-# built.
+# The kernel's tiling (csrc/flash_attention.cu): keys per block, the head
+# dims built with v's head dim equal, and every (q/k head dim, v head dim)
+# pair built: those, and MLA's (192, 128) (deepseek-v2: 128 nope + 64 rope
+# dims, v 128).
 BLOCK_K = 32
 HEAD_DIMS = (64, 80, 128)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 ROUTES = ("rows", "split", "cuda_cores")
 # The tensor-core routes (csrc/attn_mma.cuh): rows of the split route's one
@@ -96,8 +99,9 @@ def _lib() -> ctypes.CDLL:
                         ctypes.c_longlong)
         common = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                   ll, ll, ll, ll, ll, ll, ll, ll, ll, f, f, i, vp]
-        lib.flash_attention.argtypes = [i, *common]        # head_dim
-        lib.flash_attention_tc.argtypes = [i, i, *common]  # head_dim, splits
+        # head_dim, v_head_dim (and splits)
+        lib.flash_attention.argtypes = [i, i, *common]
+        lib.flash_attention_tc.argtypes = [i, i, i, *common]
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_tc.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [i]
@@ -174,7 +178,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def flash_attention(
     q: torch.Tensor,             # (B, Sq, H, D) — model layout
     k: torch.Tensor,             # (B, Sk, Hkv, D)
-    v: torch.Tensor,             # (B, Sk, Hkv, Dv)
+    v: torch.Tensor,             # (B, Sk, Hkv, Dv); Dv = D but for MLA
     q_positions: Optional[torch.Tensor] = None,   # (B, Sq) int32; <0 → masked
     kv_valid_len: Optional[torch.Tensor] = None,  # (B,) int32; None → Sk
     *,
@@ -211,10 +215,10 @@ def flash_attention(
             or {k.dtype, v.dtype} != {q.dtype}:
         raise ValueError(f"the kernel takes fp32 or bf16 q, k and v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS or Dv != D:
+    if (D, Dv) not in HEAD_DIM_PAIRS:
         raise ValueError(
             f"head dims ({D}, {Dv}): the flash attention kernel is built for "
-            f"head_dim in {HEAD_DIMS} with equal q/k and v head dims")
+            f"(head_dim, v head_dim) in {HEAD_DIM_PAIRS}")
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
@@ -241,9 +245,9 @@ def flash_attention(
             float(soft_cap or 0.0), int(causal),
             torch.cuda.current_stream(dev).cuda_stream)
     if route == "cuda_cores":
-        err = lib.flash_attention(D, *args)
+        err = lib.flash_attention(D, Dv, *args)
     else:
-        err = lib.flash_attention_tc(D, splits, *args)
+        err = lib.flash_attention_tc(D, Dv, splits, *args)
     if err:
         raise RuntimeError(f"flash_attention launch failed ({route} route): "
                            f"{lib.fa_error_string(err).decode()}")

@@ -70,9 +70,10 @@ def main(argv=None):
                          "contiguous (slots, max_len) KV caches through the "
                          "flash kernel, slot-bound admission; unfused = the "
                          "plain masked softmax over contiguous caches; auto "
-                         "= paged on a GPU (fused for SSM/hybrid archs), "
-                         "unfused on the CPU. Default: paged, or auto for "
-                         "the SSM/hybrid archs, whose state cannot be paged")
+                         "= paged on a GPU (fused for SSM/hybrid archs and "
+                         "MLA), unfused on the CPU. Default: paged, or auto "
+                         "for the SSM/hybrid archs and MLA (deepseek-v2), "
+                         "whose state cannot be paged")
     ap.add_argument("--page-size", type=int, default=16,
                     help="paged: tokens per KV page (the paged kernel's "
                          "key block)")
@@ -118,7 +119,7 @@ def main(argv=None):
                          "registry snapshot to PATH as JSON")
     args = ap.parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    pageable = cfg.family not in T.SSD_FAMILIES
+    pageable = cfg.family not in T.SSD_FAMILIES and not cfg.is_mla
     backend = args.attn_backend or ("paged" if pageable else "auto")
     if args.kv_dtype and backend != "paged":
         ap.error("--kv-dtype requires the paged attention backend "

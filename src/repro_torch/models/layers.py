@@ -1,7 +1,8 @@
-"""Transformer layers of the dense family and the BERT/ViT encoders:
-RMSNorm and LayerNorm, RoPE, GQA/MQA attention (optional QKV biases and
-q/k RMSNorm) over a paged or contiguous KV cache (or none), SwiGLU and GELU
-MLPs (``repro/models/layers.py``).
+"""Transformer layers (``repro/models/layers.py``): RMSNorm and LayerNorm,
+RoPE, GQA/MQA attention (optional QKV biases and q/k RMSNorm) over a paged
+or contiguous KV cache (or none), MLA (DeepSeek-V2's latent attention)
+over a contiguous latent cache (or none), SwiGLU and GELU MLPs, and the
+capacity-dropping MoE with its grouped expert bank.
 
 Every projection goes through ``core.api.linear`` under the active
 GemmPolicy (the MatrixFlow GEMM on the card); attention goes through
@@ -24,19 +25,33 @@ from repro_torch.models.module import dense_init, norm_init
 # ---------------------------------------------------------------------------
 
 
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the last dim (kept), summed by halving the row: a row's
+    bits do not depend on how many rows share the call. torch.mean's CUDA
+    reduction picks its order from the number of rows (a decode step's 8
+    rows sum in another order than a prefill's hundreds), so a norm in a
+    decode step would not give the bits a re-prefill or a prefix hit gives
+    the same row, and bf16 greedy streams would part."""
+    n = x.shape[-1]
+    s = torch.nn.functional.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s / n
+
+
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
+    y = xf * torch.rsqrt(_row_mean(xf * xf) + eps)
     return (y * p["scale"].float()).to(x.dtype)
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """fp32 LayerNorm with the population variance (``jnp.var``) and an
-    optional bias."""
+    """fp32 LayerNorm with the population variance (``jnp.var``: the mean
+    of the squared deviations) and an optional bias."""
     xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    mu = _row_mean(xf)
+    var = _row_mean(torch.square(xf - mu))
     y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float()
     if "bias" in p:
         y = y + p["bias"].float()
@@ -104,8 +119,10 @@ def _written_per_row(positions: torch.Tensor, len_dtype) -> torch.Tensor:
     return (positions >= 0).sum(dim=1).to(len_dtype)
 
 
-def _contiguous_cache_update(cache, k, v, positions):
-    """Write new K/V into the contiguous cache at ``positions``.
+def _contiguous_cache_update(cache, new, positions):
+    """Write ``new`` ({name: (B, S, ...)}: K and V, or MLA's latent rows)
+    into the contiguous cache's buffers of the same names at
+    ``positions``.
 
     Prefill (S > 1) scatters per (row, column) in place; position −1
     columns go to the sink column. Decode (S == 1) writes each row's one
@@ -113,18 +130,19 @@ def _contiguous_cache_update(cache, k, v, positions):
     row matches no column and writes nothing. Either way a masked row
     leaves its cache and ``len`` untouched."""
     B, S = positions.shape
-    T = cache["k"].shape[1] - 1
+    T = cache[next(iter(new))].shape[1] - 1
     if S > 1:
         rows = torch.arange(B, device=positions.device)[:, None].expand(B, S)
         cols = torch.where(positions >= 0, positions,
                            torch.full_like(positions, T)).long()
-        cache["k"][rows, cols] = k
-        cache["v"][rows, cols] = v
+        for name, t in new.items():
+            cache[name][rows, cols] = t
     else:
         at_pos = (torch.arange(T + 1, device=positions.device)[None, :]
-                  == positions)[..., None, None]              # (B, T+1, 1, 1)
-        cache["k"] = torch.where(at_pos, k, cache["k"])
-        cache["v"] = torch.where(at_pos, v, cache["v"])
+                  == positions)                               # (B, T+1)
+        for name, t in new.items():
+            mask = at_pos.reshape(B, T + 1, *[1] * (t.dim() - 2))
+            cache[name] = torch.where(mask, t, cache[name])
     cache["len"] += _written_per_row(positions, cache["len"].dtype)
     return cache
 
@@ -225,7 +243,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
         if "k_scale" in cache:     # int8 pool: the kernel dequantizes pages
             kv_scales = (cache["k_scale"], cache["v_scale"])
     else:
-        cache = _contiguous_cache_update(cache, k, v, positions)
+        cache = _contiguous_cache_update(cache, {"k": k, "v": v}, positions)
         T = cache["k"].shape[1] - 1            # the sink column stays unread
         kv_k, kv_v = cache["k"][:, :T], cache["v"][:, :T]
         kv_valid, bt = cache["len"], None
@@ -237,11 +255,84 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
 
 
 # ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2, arXiv:2405.04434)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, dtype, device):
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r, rq = cfg.kv_lora_rank, cfg.q_lora_rank
+    return {"wq_a": dense_init(gen, d, rq, dtype, device),
+            "q_norm": norm_init(rq, dtype, device),
+            "wq_b": dense_init(gen, rq, H * (dn + dr), dtype, device),
+            "wkv_a": dense_init(gen, d, r + dr, dtype, device),
+            "kv_norm": norm_init(r, dtype, device),
+            "wkv_b": dense_init(gen, r, H * (dn + dv), dtype, device),
+            "wo": dense_init(gen, H * dv, d, dtype, device)}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device):
+    """The latent cache: the normalized KV latent ``ckv`` (B, max_len + 1,
+    kv_lora_rank) and the roped key part ``krope`` (B, max_len + 1,
+    qk_rope_head_dim), each with the sink column of
+    :func:`init_attention_cache`, and ``len`` (B,)."""
+    return {"ckv": torch.zeros((batch, max_len + 1, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len + 1, cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
+                  block_tables=None):
+    """MLA over the contiguous latent cache ``{"ckv", "krope", "len"}``
+    (updated in place) or none. K and V are up-projected per head from the
+    whole cache on every call, as the reference does; the cache itself
+    stays compressed. q and k have qk_nope_head_dim + qk_rope_head_dim
+    dims, v has v_head_dim. Returns (y, cache)."""
+    if block_tables is not None:
+        raise NotImplementedError(
+            "paged KV caches cover GQA attention only; the MLA latent cache "
+            "stays contiguous (docs/serving.md)")
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    q = rmsnorm(p["q_norm"], api.linear(x, p["wq_a"]))
+    q = api.linear(q, p["wq_b"]).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv = api.linear(x, p["wkv_a"])                           # (B, S, r + dr)
+    c_kv = rmsnorm(p["kv_norm"], ckv[..., :r])
+    k_rope = rope(ckv[..., r:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0]
+    if cache is not None:
+        cache = _contiguous_cache_update(
+            cache, {"ckv": c_kv, "krope": k_rope}, positions)
+        T = cache["ckv"].shape[1] - 1          # the sink column stays unread
+        c_all, kr_all = cache["ckv"][:, :T], cache["krope"][:, :T]
+        kv_valid = cache["len"]
+    else:
+        c_all, kr_all = c_kv, k_rope
+        kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    kv = api.linear(c_all, p["wkv_b"]).reshape(B, -1, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+        *k_nope.shape[:3], dr)], dim=-1)
+    out = api.attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                        q_positions=positions, kv_valid_len=kv_valid,
+                        causal=True, scale=1.0 / math.sqrt(dn + dr))
+    return api.linear(out.reshape(B, S, H * dv), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
 # MLPs: SwiGLU (decoders) and GELU with biases (granite, BERT/ViT)
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, cfg: ModelConfig, dtype, device):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: ModelConfig, dtype, device, d_ff=None, d_in=None):
+    """``d_ff`` / ``d_in`` default to the config's (MoE's shared experts
+    take ``n_shared_experts x moe_d_ff``)."""
+    d, f = d_in or cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_act == "swiglu":
         return {"wi": dense_init(gen, d, 2 * f, dtype, device),
                 "wo": dense_init(gen, f, d, dtype, device)}
@@ -260,3 +351,125 @@ def mlp(p, cfg: ModelConfig, x):
         h = torch.nn.functional.gelu(api.linear(x, p["wi"], p["bi"]),
                                      approximate="tanh")
     return api.linear(h, p["wo"], p.get("bo"))
+
+
+# ---------------------------------------------------------------------------
+# MoE — capacity-based sort/scatter dispatch
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg: ModelConfig, dtype, device):
+    """The router (d_model, n_experts), the expert banks ``wi`` (E, d, 2f)
+    and ``wo`` (E, f, d) — drawn an expert at a time, so a full-width bank
+    never has an fp32 copy — and, with shared experts, one MLP of their
+    summed width."""
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+
+    def bank(d_in, d_out):
+        w = torch.empty((E, d_in, d_out), dtype=dtype, device=device)
+        for e in range(E):
+            w[e] = dense_init(gen, d_in, d_out, dtype, device)
+        return w
+
+    p = {"router": dense_init(gen, d, E, dtype, device, scale=0.02),
+         "wi": bank(d, 2 * f), "wo": bank(f, d)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, dtype, device,
+                               d_ff=cfg.n_shared_experts * f)
+    return p
+
+
+def _moe_groups(T: int, target: int = 32) -> int:
+    """Token groups of the dispatch: the largest divisor of T <= target."""
+    g = min(target, T)
+    while T % g:
+        g -= 1
+    return max(g, 1)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest, a tie going to
+    the lower index (a stable descending sort; ``torch.topk`` promises no
+    order among equal values)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def moe(p, cfg: ModelConfig, x):
+    """x (B, S, D) → (y (B, S, D), the load-balance aux loss), the
+    reference's grouped capacity dispatch (GShard-style dropping):
+
+    1. the B x S tokens in G groups of t (:func:`_moe_groups`); the router
+       (through ``api.matmul``, K1 on the card) picks each token's top k
+       experts, their probabilities renormalized as gates;
+    2. per group, the (token, choice) pairs sorted stably by expert fill
+       each expert's C = min(max(int(t k / E x capacity_factor), 1), t k)
+       slots in token order; the rest go to the trash slot E C and are
+       dropped. Every token counts, bucket padding (position −1) included,
+       so which tokens drop depends on the whole group;
+    3. the experts run as one bank product per projection (``torch.einsum``
+       over (G, E, C, D), as the reference's ``jnp.einsum``);
+    4. combine: ``"gather"`` takes each pair's slot row times its gate and
+       sums a token's k; ``"local"`` scales the slot rows by their gates
+       (0 in the trash) and adds them into their tokens, in slot order.
+    """
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_active
+    T = B * S
+    G = _moe_groups(T)
+    t = T // G
+    C = min(max(int(t * k / E * cfg.capacity_factor), 1), t * k)
+    dev = x.device
+    xt = x.reshape(G, t, D)
+
+    logits = api.matmul(xt, p["router"]).float()                # (G, t, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, ids = _top_k(probs, k)                                # (G, t, k)
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    density = torch.nn.functional.one_hot(ids[..., 0], E).float().mean(
+        dim=(0, 1))
+    aux = E * torch.mean(density * probs.mean(dim=(0, 1)))
+
+    # dispatch, every group at once: flat pair i = (token i // k, choice)
+    flat_e = ids.reshape(G, t * k)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    start = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev).expand(G, E).contiguous())
+    pos_in_e = torch.arange(t * k, device=dev) - torch.gather(start, 1,
+                                                              sorted_e)
+    slot = torch.where(pos_in_e < C, sorted_e * C + pos_in_e,
+                       torch.full_like(sorted_e, E * C))        # E*C: trash
+    g_idx = torch.arange(G, device=dev)[:, None].expand(G, t * k)
+    buf = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=dev)
+    buf[g_idx, slot] = xt[g_idx, flat_t[order]]
+    slot_for_flat = torch.empty_like(slot).scatter_(1, order, slot)
+
+    h = buf[:, :-1].reshape(G, E, C, D)
+    gi = torch.einsum("gecd,edf->gecf", h, p["wi"]).to(x.dtype)
+    g_, u = gi.chunk(2, dim=-1)
+    hh = torch.nn.functional.silu(g_) * u
+    out = torch.einsum("gecf,efd->gecd", hh, p["wo"]).to(x.dtype)
+    out = torch.cat([out.reshape(G, E * C, D),
+                     torch.zeros((G, 1, D), dtype=x.dtype, device=dev)], 1)
+
+    def rows(slots):                     # out's rows at slots (G, n)
+        return torch.gather(out, 1, slots[..., None].expand(*slots.shape, D))
+
+    if cfg.moe_combine == "local":
+        gate_slot = torch.zeros((G, E * C + 1), dtype=torch.float32,
+                                device=dev)
+        gate_slot[g_idx, slot_for_flat] = gate.reshape(G, t * k)
+        gate_slot[:, E * C] = 0.0        # dropped pairs contribute 0
+        upd_slot = gate_slot.to(x.dtype)
+        by_slot = torch.sort(slot_for_flat.reshape(G, t, k), dim=-1).values
+        y = torch.zeros((G, t, D), dtype=x.dtype, device=dev)
+        for j in range(k):
+            s_j = by_slot[..., j]
+            y = y + rows(s_j) * torch.gather(upd_slot, 1, s_j)[..., None]
+    else:
+        contrib = rows(slot_for_flat).reshape(G, t, k, D)
+        y = torch.sum(contrib * gate[..., None].to(x.dtype), dim=2)
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], cfg, xt)
+    return y.reshape(B, S, D), aux

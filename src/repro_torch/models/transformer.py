@@ -1,15 +1,20 @@
-"""Model assembly for the dense decoder family, the Mamba-2 (``ssm``) and
-Zamba-2 (``hybrid``) families and the BERT/ViT encoders
-(``repro/models/transformer.py``): init, token embedding, forward over
-paged or contiguous caches or none, and ``encoder_forward``.
+"""Model assembly for every family of the JAX registry
+(``repro/models/transformer.py``): the dense decoders, MoE (dbrx; with MLA
+and a leading dense layer, deepseek-v2), the VLM (image embeddings ⊕
+text), audio (summed per-codebook embeddings, a head per codebook),
+Mamba-2 (``ssm``), Zamba-2 (``hybrid``) and the BERT/ViT encoders: init,
+token embedding, forward over paged or contiguous caches or none, and
+``encoder_forward``.
 
 Layers are a Python loop over per-layer parameter dicts (the JAX package
-stacks them and scans). A hybrid applies its one weight-shared attention
-block after every ``attn_every`` SSD layers. Other families — MoE, MLA,
-audio, VLM — are not ported yet and raise.
+stacks them and scans). ``first_dense_layers`` leading layers
+(``dense_layer{i}``, with an MLP in place of the experts) run before the
+stack, and their caches come first in the cache list. A hybrid applies its
+one weight-shared attention block after every ``attn_every`` SSD layers.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -24,28 +29,39 @@ from repro_torch.models.module import dense_init, embed_init, norm_init
 # What each ported family is: (norm, mlp_acts, causal). The encoders are
 # the reference's BERT/ViT: LayerNorm, GELU MLP with biases, bidirectional.
 # A dense decoder's MLP is SwiGLU, or (granite-20b) the biased GELU MLP
-# the encoders use. ssm layers are SSD blocks; hybrid adds the shared
-# attention + MLP block.
+# the encoders use; audio (musicgen) takes the encoders' norm and MLP,
+# causal. moe layers hold the experts (their own SwiGLU) in place of the
+# MLP. ssm layers are SSD blocks; hybrid adds the shared attention + MLP
+# block.
 _FAMILIES = {"dense": ("rmsnorm", ("swiglu", "gelu"), True),
+             "moe": ("rmsnorm", ("swiglu",), True),
+             "vlm": ("rmsnorm", ("swiglu",), True),
+             "audio": ("layernorm", ("gelu",), True),
              "ssm": ("rmsnorm", ("swiglu",), True),
              "hybrid": ("rmsnorm", ("swiglu",), True),
              "bert": ("layernorm", ("gelu",), False),
              "vit": ("layernorm", ("gelu",), False)}
 SSD_FAMILIES = ("ssm", "hybrid")
+ENCODER_FAMILIES = ("bert", "vit")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config outside the ported families:
-    the dense decoder (GQA/MQA with optional QKV biases and q/k RMSNorm,
-    RMSNorm, SwiGLU or a biased GELU MLP, causal, untied head),
-    Mamba-2 (SSD blocks only), the Zamba-2 hybrid (SSD blocks and one
-    shared attention block every ``attn_every`` layers) and the BERT/ViT
-    encoders (MHA + LayerNorm + GELU, bidirectional)."""
+    """Raise NotImplementedError for a config outside the ported families
+    (``_FAMILIES``): every config of the registry passes. Refused: an
+    unknown family, a norm, MLP or causality its family does not take
+    (``gelu_glu`` among them), MLA, MoE or ``first_dense_layers`` in an
+    SSD family or an encoder, SSM state outside the SSD families,
+    ``attn_every`` outside the hybrid, ``n_codebooks`` outside audio, a GQA
+    encoder, and tied embeddings."""
     norm, acts, causal = _FAMILIES.get(cfg.family, (None, None, None))
     ssd = cfg.family in SSD_FAMILIES
+    plain = ssd or cfg.family in ENCODER_FAMILIES
     unsupported = {
         "family": cfg.family not in _FAMILIES,
-        "MLA": cfg.is_mla, "MoE": cfg.is_moe,
+        "MLA in an SSD family or an encoder": cfg.is_mla and plain,
+        "MoE in an SSD family or an encoder": cfg.is_moe and plain,
+        "first_dense_layers in an SSD family or an encoder":
+            bool(cfg.first_dense_layers) and plain,
         "SSM outside the ssm/hybrid families": bool(cfg.ssm_state) != ssd,
         "attn_every outside the hybrid family":
             bool(cfg.attn_every) != (cfg.family == "hybrid"),
@@ -54,18 +70,23 @@ def check_supported(cfg: ModelConfig) -> None:
         "norm": norm is not None and cfg.norm != norm,
         "mlp_act": acts is not None and cfg.mlp_act not in acts,
         "causal": causal is not None and cfg.causal != causal,
-        "GQA encoder": cfg.family in ("bert", "vit")
+        "GQA encoder": cfg.family in ENCODER_FAMILIES
         and cfg.n_kv_heads != cfg.n_heads,
-        "n_codebooks": bool(cfg.n_codebooks),
-        "first_dense_layers": bool(cfg.first_dense_layers),
+        "n_codebooks outside the audio family":
+            bool(cfg.n_codebooks) != (cfg.family == "audio"),
         "tie_embeddings": cfg.tie_embeddings,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet; the port covers "
-            f"the dense decoder family, Mamba-2, the Zamba-2 hybrid and the "
-            f"BERT/ViT encoders (ROADMAP.md)")
+            f"{cfg.name}: {', '.join(bad)} not ported; the port covers the "
+            f"configurations of the JAX registry and the BERT/ViT encoders "
+            f"(ROADMAP.md)")
+
+
+def _dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of a leading dense layer: the experts off."""
+    return dataclasses.replace(cfg, n_experts=0)
 
 
 def _init_block(gen, cfg: ModelConfig, dtype, device, kind: str = "attn"):
@@ -73,10 +94,15 @@ def _init_block(gen, cfg: ModelConfig, dtype, device, kind: str = "attn"):
         return {"mix_norm": norm_init(cfg.d_model, dtype, device),
                 "ssd": SSM.init_ssd(gen, cfg, dtype, device)}
     bias = cfg.norm == "layernorm"
-    return {"attn_norm": norm_init(cfg.d_model, dtype, device, bias),
-            "attn": Lyr.init_attention(gen, cfg, dtype, device),
-            "mlp_norm": norm_init(cfg.d_model, dtype, device, bias),
-            "mlp": Lyr.init_mlp(gen, cfg, dtype, device)}
+    attn = Lyr.init_mla if cfg.is_mla else Lyr.init_attention
+    p = {"attn_norm": norm_init(cfg.d_model, dtype, device, bias),
+         "attn": attn(gen, cfg, dtype, device),
+         "mlp_norm": norm_init(cfg.d_model, dtype, device, bias)}
+    if cfg.is_moe:
+        p["moe"] = Lyr.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = Lyr.init_mlp(gen, cfg, dtype, device)
+    return p
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
@@ -93,57 +119,77 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     dtype = cfg.param_dtype
     gen = torch.Generator(resolve_device(draw_device)).manual_seed(seed)
     params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)}
+    if cfg.n_codebooks:        # musicgen: one table per codebook (the plain
+        # "embed" is carried unused, as in the reference's tree)
+        params["embed_cb"] = torch.stack([
+            embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
+            for _ in range(cfg.n_codebooks)])
+    for i in range(cfg.first_dense_layers):
+        params[f"dense_layer{i}"] = _init_block(gen, _dense_cfg(cfg), dtype,
+                                                device)
     if cfg.attn_every:         # zamba-style hybrid: the shared attention block
         params["shared_attn"] = _init_block(gen, cfg, dtype, device)
     kind = "ssd" if cfg.family in SSD_FAMILIES else "attn"
     params["layers"] = [_init_block(gen, cfg, dtype, device, kind)
-                        for _ in range(cfg.n_layers)]
+                        for _ in range(cfg.n_layers - cfg.first_dense_layers)]
     params["final_norm"] = norm_init(cfg.d_model, dtype, device,
                                      cfg.norm == "layernorm")
-    params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype, device,
-                                scale=0.02)
+    params["head"] = dense_init(gen, cfg.d_model,
+                                cfg.vocab * max(cfg.n_codebooks, 1), dtype,
+                                device, scale=0.02)
     return params
 
 
 def embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Token embeddings, or ``batch["embeds"]`` (B, S, d_model) — the
-    reference's stubbed modality frontend, ViT's patch embeddings — when
-    given without tokens."""
-    if batch.get("embeds") is not None:
-        if batch.get("tokens") is not None:
-            raise NotImplementedError(
-                "embeds together with tokens (the VLM prefix) is not ported "
-                "yet (ROADMAP.md)")
-        return batch["embeds"]
-    return params["embed"][batch["tokens"]]
+    """Token embeddings; ``batch["embeds"]`` (B, S_e, d_model) — the
+    reference's stubbed modality frontend: ViT's patch embeddings alone,
+    the VLM's image embeddings followed by the text tokens' (S_e + S
+    columns); for (B, S, n_codebooks) tokens (audio) the per-codebook
+    embeddings summed."""
+    embeds, tokens = batch.get("embeds"), batch.get("tokens")
+    if embeds is not None:
+        if tokens is None:
+            return embeds
+        t = params["embed"][tokens]
+        return torch.cat([embeds.to(t.dtype), t], dim=1)    # vlm: img ⊕ text
+    if cfg.n_codebooks:
+        table = params["embed_cb"]
+        return sum(table[c][tokens[..., c]] for c in range(cfg.n_codebooks))
+    return params["embed"][tokens]
 
 
 def _apply_block(p, cfg: ModelConfig, x, *, positions, cache=None,
                  block_tables=None) -> torch.Tensor:
     """One layer, residuals included: an SSD block (``"ssd" in p``) or
-    attention + MLP. A cache is updated in place."""
+    attention (GQA, or MLA) + MLP (or the experts; their aux loss is
+    dropped until training is ported). A cache is updated in place."""
     if "ssd" in p:
         h, _ = SSM.ssd_block(p["ssd"], cfg, Lyr.rmsnorm(p["mix_norm"], x),
                              cache=cache)
         return x + h
-    h, _ = Lyr.attention(p["attn"], cfg, Lyr.apply_norm(cfg, p["attn_norm"], x),
-                         positions=positions, cache=cache,
-                         block_tables=block_tables)
+    attn = Lyr.mla_attention if cfg.is_mla else Lyr.attention
+    h, _ = attn(p["attn"], cfg, Lyr.apply_norm(cfg, p["attn_norm"], x),
+                positions=positions, cache=cache, block_tables=block_tables)
     x = x + h
-    return x + Lyr.mlp(p["mlp"], cfg, Lyr.apply_norm(cfg, p["mlp_norm"], x))
+    h = Lyr.apply_norm(cfg, p["mlp_norm"], x)
+    if "moe" in p:
+        return x + Lyr.moe(p["moe"], cfg, h)[0]
+    return x + Lyr.mlp(p["mlp"], cfg, h)
 
 
 def forward(params, cfg: ModelConfig, batch, *,
             caches: Optional[List[Dict]] = None,
             last_cols: Optional[torch.Tensor] = None):
-    """Returns (logits, caches). ``batch``: tokens (B, S) or embeds (B, S,
-    d_model) [+ positions (B, S), block_tables (B, n_blocks)]. ``caches``
-    — from :func:`init_paged_caches` or :func:`init_caches`, updated in
-    place — or None for self-attention over the batch (causal per the
-    config; SSD blocks scan the batch from a zero state). ``last_cols``
-    (B,) keeps only column ``last_cols[b]`` of each row before the final
-    norm and head, so logits are (B, 1, vocab): the serving prefill reads
-    just each row's last real token."""
+    """Returns (logits, caches). ``batch``: tokens (B, S), (B, S,
+    n_codebooks) for audio, or embeds (B, S, d_model), or (vlm) embeds (B,
+    S_e, d_model) and tokens (B, S) for S_e + S columns [+ positions and
+    block_tables (B, n_blocks) over all columns]. ``caches`` — from
+    :func:`init_paged_caches` or :func:`init_caches`, updated in place —
+    or None for self-attention over the batch (causal per the config; SSD
+    blocks scan the batch from a zero state). ``last_cols`` (B,) keeps only
+    column ``last_cols[b]`` of each row before the final norm and head, so
+    logits are (B, 1, vocab): the serving prefill reads just each row's
+    last real token. Audio logits are (B, S, n_codebooks, vocab)."""
     x = embed_tokens(params, cfg, batch)
     B, S = x.shape[:2]
     positions = batch.get("positions")
@@ -151,13 +197,17 @@ def forward(params, cfg: ModelConfig, batch, *,
         positions = torch.arange(S, device=x.device).expand(B, S)
     kw = dict(positions=positions, block_tables=batch.get("block_tables"))
     layers = params["layers"]
-    L = len(layers)
+    nd = cfg.first_dense_layers
+    L = nd + len(layers)
 
     def cache(i):
         return None if caches is None else caches[i]
 
+    for i in range(nd):                # deepseek's leading dense layers
+        x = _apply_block(params[f"dense_layer{i}"], _dense_cfg(cfg), x,
+                         cache=cache(i), **kw)
     for i, lp in enumerate(layers):
-        x = _apply_block(lp, cfg, x, cache=cache(i), **kw)
+        x = _apply_block(lp, cfg, x, cache=cache(nd + i), **kw)
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             # the hybrid's shared block closes each group; its caches
             # follow the L layer caches, one per group
@@ -166,23 +216,30 @@ def forward(params, cfg: ModelConfig, batch, *,
     if last_cols is not None:
         x = x[torch.arange(B, device=x.device), last_cols][:, None]
     x = Lyr.apply_norm(cfg, params["final_norm"], x)
-    return api.linear(x, params["head"]), caches
+    logits = api.linear(x, params["head"])
+    if cfg.n_codebooks:
+        logits = logits.reshape(*x.shape[:2], cfg.n_codebooks, cfg.vocab)
+    return logits, caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device) -> List[Dict]:
     """Decoder caches, one per layer: a contiguous (batch, max_len) KV cache
-    (``layers.init_attention_cache``) for an attention layer, the conv and
-    SSD states (``ssm.init_ssd_cache``) for an SSD layer. A hybrid's list
-    holds its SSD layers' caches, then one KV cache per group for the
-    shared attention block (the reference's ``{"scan": (ssm, attn)}``)."""
+    (``layers.init_attention_cache``) for an attention layer, the latent
+    cache (``layers.init_mla_cache``) for an MLA layer, the conv and SSD
+    states (``ssm.init_ssd_cache``) for an SSD layer. Leading dense layers'
+    caches come first (the reference's ``"dense"``, then ``"scan"``). A
+    hybrid's list holds its SSD layers' caches, then one KV cache per group
+    for the shared attention block (the reference's ``{"scan": (ssm,
+    attn)}``)."""
     check_supported(cfg)
-    if cfg.family in ("bert", "vit"):
+    if cfg.family in ENCODER_FAMILIES:
         raise ValueError(f"{cfg.name}: KV caches serve the decoder families; "
                          f"family {cfg.family!r} is an encoder")
     dtype = torch_dtype(dtype)
-    if cfg.family == "dense":
-        return [Lyr.init_attention_cache(cfg, batch, max_len, dtype, device)
+    if cfg.family not in SSD_FAMILIES:
+        make = Lyr.init_mla_cache if cfg.is_mla else Lyr.init_attention_cache
+        return [make(cfg, batch, max_len, dtype, device)
                 for _ in range(cfg.n_layers)]
     caches = [SSM.init_ssd_cache(cfg, batch, dtype, device)
               for _ in range(cfg.n_layers)]
@@ -198,14 +255,18 @@ def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
     """One paged KV cache per layer (``layers.init_paged_attention_cache``);
     one (batch, n_blocks) block table addresses every layer's pool.
     ``kv_dtype="int8"`` stores every pool int8 with per-page-per-head fp32
-    scales. Pure attention stacks only: SSD and conv state has no
-    positions to page."""
+    scales. GQA attention stacks only: SSD and conv state has no
+    positions to page, and the MLA latent cache stays contiguous."""
     check_supported(cfg)
     if cfg.family in SSD_FAMILIES:
         raise NotImplementedError(
             f"paged KV caches require pure-attention layer stacks; family="
             f"{cfg.family!r} attn_every={cfg.attn_every} carries SSD "
             f"recurrent state (docs/serving.md)")
+    if cfg.is_mla:
+        raise NotImplementedError(
+            "paged KV caches cover GQA attention; the MLA latent cache "
+            "stays contiguous (docs/serving.md)")
     return [Lyr.init_paged_attention_cache(cfg, batch, n_pages, page_size,
                                            torch_dtype(dtype), device,
                                            kv_dtype=kv_dtype)

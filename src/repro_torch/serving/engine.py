@@ -21,6 +21,13 @@ power-of-two **bucketed prefill**, carry position −1 — they write no K/V
 and do not advance the valid length — so one slot's prefill cannot corrupt
 another's cache.
 
+**MLA** (deepseek-v2) serves in contiguous mode only: its latent cache is
+not paged, in the reference either. Its default policy is ``auto``, which
+resolves to ``fused`` on the card and ``unfused`` on the CPU; an explicit
+``paged`` policy raises. **Multi-codebook models** (musicgen) are refused
+at construction: the reference's engine cannot serve their (B, S,
+n_codebooks) tokens either, and they run through ``transformer.forward``.
+
 **Mamba-2 / Zamba-2** (families ``ssm``, ``hybrid``) serve in contiguous
 mode only (their default policy is ``auto``, which resolves to ``fused``
 on the card and ``unfused`` on the CPU; an explicit ``paged`` policy
@@ -98,7 +105,7 @@ class ServeConfig:
     gemm: Optional[GemmPolicy] = None   # None → the ambient/default policy
     pack_weights: bool = False          # resident block-major weights
     attention: Optional[AttentionPolicy] = None  # None → AttentionPolicy("paged"),
-    # or "auto" (contiguous) for the SSD families
+    # or "auto" (contiguous) for the SSD families and MLA
     # ("paged" pages the KV cache; "fused" — the flash kernel — and
     # "unfused" serve from contiguous (batch_slots, max_len) caches)
     cache_pages: Optional[int] = None
@@ -172,6 +179,13 @@ class ServingEngine:
                 "ServeConfig.mesh (tensor parallelism) is not ported yet "
                 "(ROADMAP.md)")
         T.check_supported(cfg)
+        if cfg.n_codebooks:
+            raise ValueError(
+                f"{cfg.name}: n_codebooks={cfg.n_codebooks} token streams "
+                f"(B, S, n_codebooks) are not served: the engine samples one "
+                f"token a step, and the reference's engine serves no "
+                f"multi-codebook model either; run transformer.forward over "
+                f"init_caches or init_paged_caches")
         if torch_dtype(sc.cache_dtype) != cfg.param_dtype:
             raise NotImplementedError(
                 f"cache_dtype={sc.cache_dtype!r} differs from the model's "
@@ -198,7 +212,8 @@ class ServingEngine:
                     f"(got {getattr(self.spec, 'k', None)!r}); see "
                     f"serving/spec_decode.py")
         self.device = resolve_device(sc.device)
-        pageable = not self.ssd
+        # SSD state and the MLA latent cache cannot be paged
+        pageable = not self.ssd and not cfg.is_mla
         attn = sc.attn_policy(pageable)   # validates kv_dtype
         self.gemm = sc.policy()           # validates weight_dtype
         attn = dataclasses.replace(attn, backend=attn.resolved_backend(

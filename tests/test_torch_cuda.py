@@ -24,7 +24,8 @@ The GEMM shapes are tests/parity.py's SHAPES (copied: importing parity
 would import JAX) plus two full-width smollm-135m projections; the
 attention tolerances are its ATTN_TOLS. The flash attention shapes are the
 full-width encoders' (bert-base S 128, vit-base S 197, vit-huge S 257 at
-head_dim 80) and smollm-135m's contiguous decode and prefill.
+head_dim 80), smollm-135m's contiguous decode and prefill, and MLA's q/k
+head dim 192 with v head dim 128 (``-k mla``).
 """
 import numpy as np
 import pytest
@@ -847,6 +848,108 @@ def test_tensor_core_routes_default_positions_and_lengths(cuda, Sq):
     _check_tc(got, want, PA.paged_attention(q, kp, vp, bt, pos, huge), pos)
 
 
+# MLA (deepseek-v2): q/k head dim 192 (128 nope + 64 rope), v head dim 128,
+# one kv head a query head; v a strided view of the (..., 256) K/V
+# up-projection, as mla_attention passes it. B, Sq, Sk, H, valid keys per
+# row, first query position per row (-1: a masked row)
+_MLA_CASES = {
+    "decode": (8, 1, 256, 16, (0, 1, 64, 255, 17, 128, 200, 33),
+               (-1, 0, 63, 254, 16, 127, 199, 32)),
+    "prefill_bucket": (2, 64, 256, 4, (40, 0), (0, -1)),
+    "decode_1024": (2, 1, 1024, 8, (1024, 600), (1023, 599)),
+    "chunk_rows": (2, 20, 96, 2, (96, 50), (76, 30)),
+}
+
+
+def _mla_inputs(cuda, dtype, B, Sq, Sk, H, lens, starts, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, H, 192), generator=gen, device=cuda).to(dt)
+    k = torch.randn((B, Sk, H, 192), generator=gen, device=cuda).to(dt)
+    kv = torch.randn((B, Sk, H, 256), generator=gen, device=cuda).to(dt)
+    pos = np.full((B, Sq), -1, np.int32)
+    for b in range(B):
+        if starts[b] >= 0:
+            n = min(Sq, lens[b] - starts[b])
+            pos[b, :n] = starts[b] + np.arange(n)
+    pos = torch.from_numpy(pos).to(cuda)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k, kv[..., 128:], pos, kvl
+
+
+def _mla_plain(q, k, v, pos, kvl):
+    return FA.flash_attention_plain(q, k, v, pos, kvl, causal=True,
+                                    scale=192 ** -0.5, soft_cap=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_MLA_CASES), ids=str)
+def test_mla_head_dims_match_plain(cuda, dtype, case):
+    """K3 at (D 192, Dv 128) against its plain version on the route its
+    chooser names (bf16: split at decode, rows at prefill, two launches
+    bitwise equal; fp32: the CUDA cores), v read through its strides (no
+    copy), the output (B, Sq, H, 128), masked rows exactly 0."""
+    q, k, v, pos, kvl = _mla_inputs(cuda, dtype, *_MLA_CASES[case])
+    assert v.stride(-2) == 256 and FA._aligned(v) is v
+    route = FA.route_for(q.dtype, q.shape[1], 1)
+    before = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v, pos, kvl)
+    again = FA.flash_attention(q, k, v, pos, kvl)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route == {
+        r: n + 2 * (r == route) for r, n in before.items()}
+    assert got.shape == (*q.shape[:3], 128)
+    want = _mla_plain(q, k, v, pos, kvl)
+    if route == "cuda_cores":
+        torch.testing.assert_close(got, want, atol=ATTN_TOLS["float32"][0],
+                                   rtol=ATTN_TOLS["float32"][1])
+        assert not bool((pos < 0).any()) \
+            or float(got[pos < 0].abs().max()) == 0.0
+    else:
+        _check_tc(got, want, again, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", list(range(1, 9)))
+@pytest.mark.parametrize("case", ["decode", "decode_1024"])
+def test_mla_split_route_at_forced_split_counts(cuda, monkeypatch, case,
+                                                splits):
+    """K3's split route at (192, 128) over 1..8 CTAs a cluster, at 256
+    keys and at 1,024 (where the chooser itself splits): the plain
+    version's result within ATTN_TOLS, the same bits on a second launch."""
+    monkeypatch.setattr(FA, "split_count", lambda *a: splits)
+    q, k, v, pos, kvl = _mla_inputs(cuda, "bfloat16", *_MLA_CASES[case],
+                                    seed=splits)
+    before = FA.flash_attention.launches_by_route["split"]
+    got = FA.flash_attention(q, k, v, pos, kvl)
+    again = FA.flash_attention(q, k, v, pos, kvl)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route["split"] == before + 2
+    _check_tc(got, _mla_plain(q, k, v, pos, kvl), again, pos)
+
+
+@pytest.mark.cuda
+def test_mla_rows_and_split_routes_each_match_plain(cuda):
+    """Each position of a 64-column MLA prefill (rows) and a decode step at
+    that position over the same keys (split) both hold the plain
+    version's result within ATTN_TOLS. (K3's rows route walks a stage's 64
+    keys a warp, its split route 16 a warp, so the two sum a row in
+    different orders; the bitwise agreement of caveat (iv) is K4's and
+    K5's, whose rows route walks as split does.)"""
+    q, k, v, pos, kvl = _mla_inputs(cuda, "bfloat16", 2, 64, 64, 4,
+                                    (64, 64), (0, 0), seed=9)
+    prefill = FA.flash_attention(q, k, v, pos, kvl)
+    _check_tc(prefill, _mla_plain(q, k, v, pos, kvl),
+              FA.flash_attention(q, k, v, pos, kvl), pos)
+    for t in (0, 15, 16, 63):
+        args = (q[:, t:t + 1], k, v, pos[:, t:t + 1],
+                torch.full_like(kvl, t + 1))
+        step = FA.flash_attention(*args)
+        _check_tc(step, _mla_plain(*args), FA.flash_attention(*args),
+                  args[3])
+
+
 @pytest.mark.cuda
 def test_tensor_core_routes_reject(cuda):
     """No fallback: a CUDA bf16 geometry the tensor-core kernels do not take
@@ -858,6 +961,10 @@ def test_tensor_core_routes_reject(cuda):
         q = torch.zeros((1, 1, 4, D), dtype=bf, device=cuda)
         with pytest.raises(ValueError, match="head_dim"):
             FA.flash_attention(q, q, q)
+    # (192, 128) is MLA's pair; 192 with v at 192 is no instance
+    q = torch.zeros((1, 1, 4, 192), dtype=bf, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q, q, q)
     # no cap on the GQA group: a group of 17 launches (and counts)
     q = torch.zeros((1, 1, 17, 64), dtype=bf, device=cuda)
     FA.flash_attention(q, q[:, :, :1], q[:, :, :1])
@@ -1118,6 +1225,23 @@ def test_split_and_rows_routes_agree_bitwise(cuda, pool, H, Hkv, D, ps):
         step = PA.paged_attention(q[:, t:t + 1], kp, vp, bt, pos[:, t:t + 1],
                                   torch.full_like(kvl, t + 1), **kw)
         assert torch.equal(step[:, 0], prefill[:, t]), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [576, 1536, 5120, 8192])
+def test_norm_row_bits_independent_of_m(cuda, d):
+    """RMSNorm and LayerNorm give a bf16 row the same bits whether it shares
+    the call with 0, 7 or 511 other rows (torch.mean's reduction order
+    follows the row count; a decode step and a re-prefill must agree)."""
+    from repro_torch.models import layers as ML
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((512, d), generator=gen, device=cuda).to(torch.bfloat16)
+    p = {k: torch.randn((d,), generator=gen, device=cuda).to(torch.bfloat16)
+         for k in ("scale", "bias")}
+    for norm in (ML.rmsnorm, ML.layernorm):
+        full = norm(p, x)
+        for M in (1, 2, 8, 16, 96):
+            assert torch.equal(norm(p, x[:M]), full[:M]), (norm, M)
 
 
 @pytest.mark.cuda

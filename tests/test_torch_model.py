@@ -196,6 +196,32 @@ def test_masked_positions_write_nothing():
         assert not c["kp"][2, 3:].any()
 
 
+@pytest.mark.parametrize("d", [1, 3, 48, 576, 1000])
+def test_norms_match_jax_at_any_width(d):
+    """The norms' halving row mean (padded to a power of two) against the
+    JAX package's jnp.mean / jnp.var norms, fp32 and bf16, with a row's
+    bits the same alone as among 32 rows."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as ML
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((32, d)).astype(np.float32) * 3 + 1
+    p = {k: rng.standard_normal(d).astype(np.float32)
+         for k in ("scale", "bias")}
+    for dt, jdt in ((torch.float32, jnp.float32),
+                    (torch.bfloat16, jnp.bfloat16)):
+        tx = torch.from_numpy(x).to(dt)
+        tp = {k: torch.from_numpy(v).to(dt) for k, v in p.items()}
+        jx = jnp.asarray(x).astype(jdt)
+        jp = {k: jnp.asarray(v).astype(jdt) for k, v in p.items()}
+        for norm, jnorm in ((ML.rmsnorm, JL.rmsnorm),
+                            (ML.layernorm, JL.layernorm)):
+            got = norm(tp, tx)
+            want = np.asarray(jnorm(jp, jx).astype(jnp.float32))
+            tols = TOLS["float32" if dt == torch.float32 else "bfloat16"]
+            np.testing.assert_allclose(got.float().numpy(), want, *tols)
+            assert torch.equal(norm(tp, tx[:1]), got[:1])
+
+
 def test_init_model_shapes_and_determinism():
     _, cfg = _configs("bfloat16")
     p1 = T.init_model(cfg, seed=5, device="cpu")
@@ -212,15 +238,23 @@ def test_init_model_shapes_and_determinism():
 
 
 def test_unported_configs_and_missing_gpu_raise():
+    """Every registered config is ported (MLA and MoE among them); what no
+    config of the registry reaches still raises: codebooks outside the
+    audio family, tied embeddings, the gelu_glu MLP, an unknown
+    architecture."""
     import dataclasses
     _, cfg = _configs("float32")
     with pytest.raises(NotImplementedError, match="n_codebooks"):
         T.init_model(dataclasses.replace(cfg, n_codebooks=4), device="cpu")
-    for arch, what in (("deepseek-v2-236b", "MLA"), ("dbrx-132b", "MoE")):
-        with pytest.raises(NotImplementedError):
-            get_config(arch)
+    for kw, what in ((dict(tie_embeddings=True), "tie_embeddings"),
+                     (dict(mlp_act="gelu_glu"), "mlp_act")):
         with pytest.raises(NotImplementedError, match=what):
-            T.check_supported(jget_smoke_config(arch))
+            T.check_supported(dataclasses.replace(cfg, **kw))
+    for arch in ("deepseek-v2-236b", "dbrx-132b"):
+        T.check_supported(get_config(arch))
+        T.check_supported(jget_smoke_config(arch))
+    with pytest.raises(NotImplementedError, match="unknown architecture"):
+        get_config("gpt-5")
     assert isinstance(cfg, ModelConfig)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
