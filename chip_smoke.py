@@ -156,6 +156,32 @@ CUDA toolkit. Phases, each fatal on failure:
              behind its image prefix, musicgen per codebook, deepseek over
              contiguous caches). (``python3 chip_smoke.py --zoo [arch ...]``
              runs these phases alone.)
+20. training — full-width smollm-135m (30 layers) in bf16, trained by the
+             port's Trainer: B 8 x 128 tokens from TokenPipeline, 20 steps
+             with remat on, unfused attention, every GEMM through K1: its
+             forward, its backward (dA = dC.Wt, dW = At.dC, K1 launches
+             counted apart) and its batch grid (the attention's score and
+             value products, 72 problems a launch); K2-K6 never launched.
+             Every loss finite, the last below the first; per-step host
+             wall time, tokens/s, and one profiled step's device busy
+             time printed. A checkpoint at step 10; a fresh Trainer
+             resumes there and reaches step 20 with losses bitwise the
+             uninterrupted run's (and whether one step repeats bitwise is
+             printed); K1's launches of one step with remat on and off.
+21. fp32 train step — 2 of the 30 layers at full width, TF32 off: one
+             step's loss, gradients and AdamW update on the card (K1 on
+             the CUDA cores) against the CPU plain path: loss and
+             gradients within LOGIT_TOL, params after the update within
+             TRAIN_FP32_PARAM_TOL (half the step's lr).
+22. mixed dtypes — full-width smollm-135m as an fp32 model over a bf16
+             cache (the reference's default ServeConfig pairing): paged,
+             contiguous and int8 KV, 12 requests each under the 24-page
+             pool, all complete; the new instances (K4, K3: fp32 q over
+             bf16 K/V; K5's fp32 q) launched. Then at 4 layers the card's
+             streams against the CPU plain path's, a first parting allowed
+             only where the plain top-2 margin is below LOGIT_TOL.
+             (``python3 chip_smoke.py --train`` runs 20-21 with their
+             kernel cells alone, ``--mixed`` 22 with its kernel cells.)
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
@@ -173,6 +199,12 @@ route its chooser names (bf16: walk, or chunks from 513 steps; fp32: the
 CUDA cores), two launches bitwise equal, timed per call and, from
 torch.profiler, per kernel of the route (no single PyTorch call computes
 the scan: no yardstick);
+K1 at the training step's shapes (every smollm-135m projection and the
+head at 1024 rows: forward, dA and dW) and its batch grid at the unfused
+attention's products (72 problems of 128 x 64 . 64 x 128 and the like),
+with torch.matmul / torch.bmm as yardsticks; K3's and K4's fp32-q over
+bf16-K/V instances at smollm-135m's decode step and prefill bucket, with
+SDPA over fp32 copies as the yardstick;
 K1 at the SSM models' decode GEMMs and mamba2's prefill GEMMs and at
 every projection of the three dense decoders (decode and prefill); K3 at
 zamba2's head_dim-80 prefill and decode and at the dense decoders'
@@ -190,12 +222,14 @@ up-projection, with SDPA (Ev != E) as its yardstick; K4 at the same three
 models' shapes, K5 at dbrx's.
 
 Every kernel counter is set to 0 just before each path (3, 5-9, each
-run of 11, 12, each serving run of 13-15 and 16-19) is
+run of 11, 12, each serving run of 13-15 and 16-19, 20 and each serving
+run of 22) is
 driven and read just after; a kernel of the path that never launched fails
 it. K1-K6 are counted per route too: every bf16 path must have launched
 K1 on wgmma and never on mma.sync (or, with int8 weights, K2 on both
 tensor-core routes), K3, K4 or K5 on both of theirs (the encoders: rows),
-K6 on a tensor-core route, and none of them on the CUDA cores.
+K6 on a tensor-core route, and none of them on the CUDA cores (phase
+22's fp32 model aside, whose K1, K3, K4 and K5 run there).
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Exits non-zero, printing no result, without a
@@ -335,6 +369,10 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 
 
 ATTN_ROUTES = ("rows", "split", "cuda_cores")
+# fp32 q over bf16 K/V (an fp32 model, a bf16 cache): K3's and K4's
+# CUDA-core instances with bf16 K/V, counted apart
+MIXED_ROUTE = "cuda_cores_bf16kv"
+MIXED_ROUTES = ATTN_ROUTES + (MIXED_ROUTE,)
 K2_ROUTES = ("wgmma", "mma")
 SSD_ROUTES = ("walk", "chunks", "cuda_cores")
 SSD_TC_ROUTES = ("walk", "chunks")
@@ -356,14 +394,18 @@ def kernel_wrappers():
             "matrixflow_gemm_wgmma": (k1, "wgmma_launches"),
             "matrixflow_gemm_mma": (k1, "mma_launches"),
             "matrixflow_gemm_cuda_core": (k1, "cuda_core_launches"),
+            # K1's batch grid (the unfused attention's products) and its
+            # launches made for a gradient (dA, dW), on top of the routes
+            "matrixflow_gemm_batched": (k1, "batched_launches"),
+            "matrixflow_gemm_backward": (k1, "backward_launches"),
             "paged_attention": (pa, "launches"),
             "flash_attention": (fa, "launches"),
             # K3 and K4 by route: bf16 on the tensor cores (rows: more than
             # 16 rows a CTA; split: decode), fp32 on the CUDA cores
             **{f"flash_attention_{r}": (fa.launches_by_route, r)
-               for r in ATTN_ROUTES},
+               for r in MIXED_ROUTES},
             **{f"paged_attention_{r}": (pa.launches_by_route, r)
-               for r in ATTN_ROUTES},
+               for r in MIXED_ROUTES},
             "matrixflow_gemm_dequant": (MF.matrixflow_gemm_dequant,
                                         "launches"),
             # K2 by route: wgmma at bm 64, mma.sync at bm 16/32
@@ -411,14 +453,21 @@ K2_K5_BF16 = K2_BF16 + K5_BF16
 CUDA_CORE_COUNTERS = ("matrixflow_gemm_cuda_core", "flash_attention_cuda_cores",
                       "paged_attention_cuda_cores",
                       "paged_attention_int8_cuda_cores", "ssd_scan_cuda_cores",
+                      f"flash_attention_{MIXED_ROUTE}",
+                      f"paged_attention_{MIXED_ROUTE}",
                       # K1's mma.sync route: off every bf16 path (K1_BF16)
                       "matrixflow_gemm_mma")
+# What an fp32 model over a bf16 (or int8) cache runs on the CUDA cores
+MIXED_ALLOWED = ("matrixflow_gemm_cuda_core", f"flash_attention_{MIXED_ROUTE}",
+                 f"paged_attention_{MIXED_ROUTE}",
+                 "paged_attention_int8_cuda_cores")
 
 
-def read_counts(path: str, required) -> dict:
+def read_counts(path: str, required, allowed=()) -> dict:
     """The launch counts since reset_counts(); fails if a kernel of the
     path never launched, or if K1, K3, K4, K5 or K6 ran on the CUDA cores
-    or K1 on mma.sync (every path read here is bf16 or int8 with bf16
+    or K1 on mma.sync (every path read here but the fp32 model's, whose
+    CUDA-core counters are ``allowed``, is bf16 or int8 with bf16
     activations, and none may take those routes; K2 has no CUDA-core
     route)."""
     counts_now = counts()
@@ -426,7 +475,7 @@ def read_counts(path: str, required) -> dict:
         if counts_now[name] <= 0:
             fail(f"{path}: kernel {name} was never launched")
     for name in CUDA_CORE_COUNTERS:
-        if counts_now[name]:
+        if counts_now[name] and name not in allowed:
             fail(f"{path}: {name} counted {counts_now[name]} launches off "
                  f"the bf16 tensor-core routes")
     return counts_now
@@ -1448,7 +1497,7 @@ def greedy_run(cfg, params, device, batch, n_steps, paged=True,
         b["positions"] = positions.to(device)
         if bt is not None:
             b["block_tables"] = bt
-        logits, _ = T.forward(params, cfg, b, caches=caches, last_cols=last)
+        logits, _, _ = T.forward(params, cfg, b, caches=caches, last_cols=last)
         return logits[:, -1].float().cpu()
 
     toks, lgs = [], []
@@ -1638,7 +1687,7 @@ def first_divergence(cfg32, params_cpu, prompt, a, b,
             continue
         toks = torch.tensor([prompt + a[:i]])
         with torch.no_grad():
-            logits, _ = T.forward(params_cpu, cfg32, {"tokens": toks})
+            logits, _, _ = T.forward(params_cpu, cfg32, {"tokens": toks})
         top2 = logits[0, -1].float().topk(2).values
         margin = float(top2[0] - top2[1])
         if margin >= LOGIT_TOL:
@@ -2000,7 +2049,7 @@ def ssm_greedy_run(cfg, params, device, prompts, n_steps, feed=None):
     with torch.no_grad(), api.use_attention_policy(FUSED):
         batch = {"tokens": torch.from_numpy(prompts).to(device),
                  "positions": torch.arange(S).expand(B, S).to(device)}
-        logits, _ = T.forward(params, cfg, batch, caches=caches,
+        logits, _, _ = T.forward(params, cfg, batch, caches=caches,
                               last_cols=torch.full((B,), S - 1, device=device))
         for i in range(n_steps + 1):
             lg = logits[:, -1].float().cpu()
@@ -2011,7 +2060,7 @@ def ssm_greedy_run(cfg, params, device, prompts, n_steps, feed=None):
             nxt = toks[-1] if feed is None else feed[:, i]
             batch = {"tokens": nxt[:, None].to(device),
                      "positions": torch.full((B, 1), S + i).to(device)}
-            logits, _ = T.forward(params, cfg, batch, caches=caches)
+            logits, _, _ = T.forward(params, cfg, batch, caches=caches)
     return torch.stack(toks, 1), logits_all
 
 
@@ -2740,7 +2789,7 @@ def run_vlm_phase():
     tag = f"{VLM} vlm forward"
     reset_counts()
     with torch.no_grad():
-        logits, _ = T.forward(params, cfg, {
+        logits, _, _ = T.forward(params, cfg, {
             k: torch.from_numpy(v).cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     launches = read_counts(tag, K1_BF16 + ("flash_attention",
@@ -2820,6 +2869,552 @@ def run_zoo_phases(archs=ZOO_MODELS):
     return {a: phases[a]() for a in archs}
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-22: training on K1 (its batch grid and its backward), the fp32
+# train step against the CPU, mixed cache and model dtypes
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 128       # B 8 x 128 tokens from TokenPipeline
+# The pipeline's copy stream over the first 512 token ids: over all
+# 49,152 a token shows up ~0.4 times in 20 steps and the loss stays at
+# ln V (10.81 -> 10.95 on an H100; the same on the CPU at smoke width,
+# where 512 ids fall 10.86 -> 8.57). The model keeps its full vocabulary.
+TRAIN_DATA_VOCAB = 512
+TRAIN_STEPS, TRAIN_CKPT = 20, 10      # a checkpoint at step 10, resumed
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 5
+TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH = 2, 4
+# AdamW's first step moves a weight by lr x g / (|g| + eps), about lr
+# wherever |g| >> eps: the params after the card's step must stay within
+# TRAIN_FP32_PARAM_TOL (half of lr) of the CPU's, so a step that applied
+# no update, or the wrong one, fails. An H100 measured 1.18e-5.
+TRAIN_FP32_LR = 1e-4
+TRAIN_FP32_PARAM_TOL = 5e-5
+MIXED_PARITY_LAYERS = 4
+# Resumed at step 10, the losses of steps 10-19 must equal the
+# uninterrupted run's bitwise: a step on an H100 repeats bitwise (the
+# phase checks that too), so any gap means a lost data cursor, Adam moment
+# or schedule step.
+# The unfused attention's products at smollm-135m's B 8 x 9 heads, S 128,
+# head_dim 64: one batched K1 launch each (forward: scores, values; backward:
+# the four products of their gradients). (name, M, K, N, out)
+TRAIN_BATCH_CELLS = (("scores q.kT", 128, 64, 128, "float32"),
+                     ("values p.v", 128, 128, 64, "bfloat16"),
+                     ("dq = ds.k / dv = pT.do", 128, 128, 64, "bfloat16"),
+                     ("dk = qT.ds", 64, 128, 128, "bfloat16"),
+                     ("dp = do.vT", 128, 64, 128, "bfloat16"))
+K1_TRAIN = ("matrixflow_gemm", "matrixflow_gemm_wgmma",
+            "matrixflow_gemm_batched", "matrixflow_gemm_backward")
+FORWARD_ONLY = ("matrixflow_gemm_dequant", "flash_attention",
+                "paged_attention", "paged_attention_int8", "ssd_scan")
+
+
+def train_projection_cells(cfg, M):
+    """(name, K, N) of every K1 product of a dense layer and the head."""
+    d, H, Hkv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    return (("q", d, H * dh), ("k/v", d, Hkv * dh), ("o", H * dh, d),
+            ("mlp in", d, 2 * f), ("mlp out", f, d), ("head", d, cfg.vocab))
+
+
+def run_train_kernel_phase(timer, cfg):
+    """K1 at the training step's shapes, bf16: every projection's forward
+    (C = A.W), its two backward products (dA = dC.Wt, dW = At.dC, each laid
+    out block-major as its own problem), and the batch grid at the unfused
+    attention's products (72 problems a launch). Each against its plain
+    version, timed with the plain version, one PyTorch call (torch.matmul;
+    torch.bmm for a batch) and the bound. ``uses`` per training step: each
+    block's forward runs twice under remat, its backward once."""
+    from repro_torch.core import layout as L
+    from repro_torch.core.plan import GemmPolicy, plan
+    from repro_torch.kernels import matrixflow_gemm as MF
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    dt = torch.bfloat16
+    M = TRAIN_BATCH * TRAIN_SEQ
+    L_ = cfg.n_layers
+    pol = GemmPolicy()
+
+    def cell(name, a, b, out_dt, path, uses, batched=False):
+        Mx, Kx = a.shape[-2:]
+        Nx = b.shape[-1]
+        blk = plan(Mx, Nx, Kx, dt, pol, "cuda").layout
+        a_bm = L.to_block_major_a(a, blk.bm, blk.bk)
+        b_bm = L.to_block_major_b(b, blk.bk, blk.bn)
+        before = counts()
+        got = MF.matrixflow_gemm_block_major(a_bm, b_bm, out_dtype=out_dt)
+        after = counts()
+        want = MF.plain(a_bm, b_bm, out_dtype=out_dt)
+        torch.cuda.synchronize()
+        G = a.shape[0] if batched else 1
+        label = (f"matrixflow_gemm {name} " + (f"G={G} " if batched else "")
+                 + f"M={Mx} K={Kx} N={Nx} bf16->{str(out_dt)[6:]}")
+        route = route_taken(before, after, "matrixflow_gemm",
+                            ("wgmma", "mma", "cuda_core"))
+        if route != "wgmma" or (after["matrixflow_gemm_batched"]
+                                - before["matrixflow_gemm_batched"]) != batched:
+            fail(f"{label}: route {route}, batched launches "
+                 f"{after['matrixflow_gemm_batched']}")
+        atol, rtol = GEMM_TOLS["bfloat16"]
+        err = check_close(label, got, want, atol, rtol)
+        t_k = timer.ms(lambda: MF.matrixflow_gemm_block_major(
+            a_bm, b_bm, out_dtype=out_dt))
+        t_p = timer.ms(lambda: MF.plain(a_bm, b_bm, out_dtype=out_dt))
+        lib = torch.bmm if batched else torch.matmul
+        t_lib = timer.ms(lambda: lib(a, b))
+        nbytes = G * ((Mx * Kx + Kx * Nx) * 2 + Mx * Nx * out_dt.itemsize)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * G * Mx * Nx * Kx, "bfloat16")
+        rows.append(dict(cell=label, dtype="bfloat16", M=Mx, K=Kx, N=Nx,
+                         G=G, block=[blk.bm, blk.bn, blk.bk], route=route,
+                         path=path, uses=uses, max_abs_err=err, ms=t_k,
+                         plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
+                         bound_by=b_by))
+        log(f"{label}: blocks {blk.bm}x{blk.bn}x{blk.bk} max|d|={err:.2e} "
+            f"kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+            f"{'bmm' if batched else 'matmul'} {t_lib:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by})")
+
+    for name, K, N in train_projection_cells(cfg, M):
+        head = name == "head"
+        a = (torch.randn((M, K), generator=gen, device="cuda")).to(dt)
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             / K ** 0.5).to(dt)
+        dc = (torch.randn((M, N), generator=gen, device="cuda")
+              / N ** 0.5).to(dt)
+        fwd_uses = (1 if head else 2 * L_) * (2 if name == "k/v" else 1)
+        bwd_uses = (1 if head else L_) * (2 if name == "k/v" else 1)
+        cell(f"{name} forward", a, w, dt, "train forward", fwd_uses)
+        cell(f"{name} dA", dc, w.t(), dt, "train backward", bwd_uses)
+        cell(f"{name} dW", a.t(), dc, dt, "train backward", bwd_uses)
+        del a, w, dc
+    G = TRAIN_BATCH * cfg.n_heads
+    for i, (name, Mx, Kx, Nx, out) in enumerate(TRAIN_BATCH_CELLS):
+        a = torch.randn((G, Mx, Kx), generator=gen, device="cuda").to(dt)
+        b = torch.randn((G, Kx, Nx), generator=gen, device="cuda").to(dt)
+        # forward: 2 L launches a step (remat); backward: each forward
+        # product's two gradients, L launches each
+        path = "train batch grid forward" if i < 2 else \
+            "train batch grid backward"
+        uses = 2 * L_ if i < 2 else (2 * L_ if i == 2 else L_)
+        cell(name, a, b, getattr(torch, out), path, uses, batched=True)
+    return rows
+
+
+def run_mixed_kernel_phase(timer, cfg):
+    """The new instances of K3 and K4: fp32 q over bf16 K/V (an fp32 model
+    serving from a bf16 cache) at smollm-135m's decode step and prefill
+    bucket, contiguous (K3) and paged (K4); against the plain version,
+    timed with it, SDPA over fp32 copies of the visible K/V, and the bound
+    (fp32 q and output, bf16 K/V, fp32 operations on the CUDA cores)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nb = MAX_LEN // PAGE
+    rows = []
+    # one operand of P.V is bf16 (p rounded as p.astype(v.dtype)), and a p
+    # on a rounding boundary may take the other bf16 neighbour on either
+    # side: bf16's tolerance for every element, and all but 1% of them
+    # within fp32's, as scores and sums are fp32 (tests/test_torch_cuda.py
+    # ::_mixed_close)
+    atol, rtol = ATTN_TOLS["bfloat16"]
+    atol32, rtol32 = ATTN_TOLS["float32"]
+    for name, Sq, path in (("decode", 1, "decode step"),
+                           ("prefill", PROMPT_BUCKET, "prefill")):
+        lens = (rng.integers(17, MAX_LEN, SLOTS) if Sq == 1 else
+                rng.integers(16, PROMPT_BUCKET + 1, SLOTS)).tolist()
+        starts = [n - 1 for n in lens] if Sq == 1 else [0] * SLOTS
+        q, kp, vp, bt, dead_bt, qpos, kvl = paged_case(
+            gen, torch.bfloat16, B=SLOTS, Sq=Sq, lens=lens, q_start=starts,
+            H=H, Hkv=Hkv, D=D, ps=PAGE, nb=nb)
+        q = q.float()
+        kd, vd = PA.gather_pages(kp, bt), PA.gather_pages(vp, bt)
+        scale = D ** -0.5
+        for kern, fn, plain in (
+                ("flash_attention",
+                 lambda: FA.flash_attention(q, kd, vd, qpos, kvl),
+                 lambda: FA.flash_attention_plain(
+                     q, kd, vd, qpos, kvl, causal=True, scale=scale,
+                     soft_cap=None)),
+                ("paged_attention",
+                 lambda: PA.paged_attention(q, kp, vp, dead_bt, qpos, kvl),
+                 lambda: PA.paged_attention_plain(
+                     q, kp, vp, bt, qpos, kvl, causal=True, scale=scale,
+                     soft_cap=None))):
+            before = counts()
+            got, again = fn(), fn()
+            route = route_taken(before, counts(), kern, MIXED_ROUTES)
+            want = plain()
+            torch.cuda.synchronize()
+            label = (f"{kern} fp32 q / bf16 KV {name} B={SLOTS} Sq={Sq} H={H} "
+                     f"Hkv={Hkv} D={D}")
+            if route != "cuda_cores_bf16kv" or got.dtype != torch.float32:
+                fail(f"{label}: route {route}, output {got.dtype}")
+            if not torch.equal(got, again):
+                fail(f"{label}: two launches differ")
+            err = check_close(label, got, want, atol, rtol)
+            off = float(((got - want).abs() > atol32 + rtol32 * want.abs())
+                        .float().mean())
+            if off > 0.01:
+                fail(f"{label}: {off:.2%} of the outputs past the fp32 "
+                     f"tolerance atol={atol32} rtol={rtol32} (at most 1%)")
+            qs = q.transpose(1, 2).contiguous()
+            ks, vs = (x.float().repeat_interleave(H // Hkv, 2).transpose(
+                1, 2).contiguous() for x in (kd, vd))
+            cols = torch.arange(nb * PAGE, device="cuda")
+            mask = ((cols[None, None, :] < kvl[:, None, None])
+                    & (cols[None, None, :] <= qpos[:, :, None]))[:, None]
+            t_k, t_p = timer.ms(fn), timer.ms(plain)
+            t_lib = timer.ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
+            vis = torch.minimum(kvl[:, None], qpos + 1).clamp(min=0)
+            horizon = torch.minimum(kvl, qpos.max(dim=1).values + 1).clamp(
+                min=0)
+            nbytes = 2 * 2 * int(horizon.sum()) * Hkv * D \
+                + 2 * 4 * q.numel() + 4 * (qpos.numel() + kvl.numel())
+            b_ms, b_by = bound_ms(nbytes, float(vis.sum()) * H * 4 * D,
+                                  "float32")
+            rows.append(dict(cell=label, kernel=kern,
+                             dtype="float32 q, bfloat16 KV", path=path,
+                             uses=cfg.n_layers, route=route, max_abs_err=err,
+                             past_fp32_tol=off, ms=t_k, plain_ms=t_p,
+                             library_ms=t_lib, bound_ms=b_ms, bound_by=b_by))
+            log(f"{label}: route {route} max|d|={err:.2e} kernel {t_k:.4f} ms "
+                f"plain {t_p:.4f} ms sdpa {t_lib:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by}), {off:.4%} past fp32's tolerance")
+    return rows
+
+
+def device_busy_ms(fn, n=1):
+    """Summed device time of every kernel ``fn`` runs, per call, over ``n``
+    calls (torch.profiler; kernels of one stream run one at a time), and
+    the host wall time per call of those calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return busy, wall * 1e3
+
+
+def run_train_phase(cfg):
+    """smollm-135m at full width and depth, bf16, trained by the port's
+    Trainer on the card: B 8 x 128 tokens from TokenPipeline (ids below
+    TRAIN_DATA_VOCAB), 20 steps with
+    remat on, a checkpoint at step 10; every GEMM through K1 (forward,
+    backward, the batch grid of the unfused attention), the forward-only
+    kernels never. Then a fresh Trainer resumes from step 10 and reaches
+    step 20. Also: K1 launches of one step with remat on and off, whether
+    one step repeats bitwise, and a step's device busy time."""
+    import shutil
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    dc = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                    vocab=TRAIN_DATA_VOCAB, seed=0)
+    tc = TrainConfig(steps=TRAIN_STEPS, log_every=1, ckpt_every=TRAIN_CKPT,
+                     ckpt_dir=str(ckpt), base_lr=TRAIN_LR,
+                     warmup=TRAIN_WARMUP, device="cuda")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, dc, tc)
+    out = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts("training", K1_TRAIN)
+    for name in FORWARD_ONLY:
+        if launches[name]:
+            fail(f"training: forward-only kernel {name} launched "
+                 f"{launches[name]} times")
+    losses = [l for _, l in out["history"]]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"training: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps_s = trainer.step_times
+    res = dict(steps=TRAIN_STEPS, batch=[TRAIN_BATCH, TRAIN_SEQ],
+               losses=losses, seconds=wall, step_ms=[s * 1e3 for s in steps_s],
+               median_step_ms=statistics.median(steps_s[1:]) * 1e3,
+               tokens_per_s=tokens / statistics.median(steps_s[1:]),
+               peak_mem_gib=peak, launches=launches,
+               launches_per_step={k: launches[k] / TRAIN_STEPS
+                                  for k in K1_TRAIN})
+    log(f"training: {TRAIN_STEPS} steps in {wall:.1f} s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, median step "
+        f"{res['median_step_ms']:.1f} ms ({res['tokens_per_s']:.0f} tok/s), "
+        f"peak {peak:.2f} GiB, K1 launches a step "
+        f"{res['launches_per_step']}")
+
+    # resume from the step-10 checkpoint in a fresh Trainer
+    shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:08d}")
+    reset_counts()
+    resumed = Trainer(cfg, dc, tc)
+    if resumed.start_step != TRAIN_CKPT:
+        fail(f"resume: started at step {resumed.start_step}")
+    rout = resumed.run()
+    read_counts("resumed training", K1_TRAIN)
+    r_losses = [l for _, l in rout["history"]]
+    tail = losses[TRAIN_CKPT:]
+    diff = max(abs(a - b) for a, b in zip(tail, r_losses))
+    res["resume"] = dict(losses=r_losses, max_abs_diff=diff,
+                         bitwise=r_losses == tail)
+    if r_losses != tail:
+        fail(f"resume: losses {r_losses} are not bitwise {tail} (max |d| "
+             f"{diff:.3e})")
+    log(f"training resumed at step {TRAIN_CKPT}: losses bitwise equal to "
+        f"the uninterrupted run's")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # one step, twice from the same state: bitwise repeatable? And the K1
+    # launches of a step with remat on and off, and its device busy time
+    params, opt = rout["params"], resumed.opt_state
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in resumed.data.next_batch().items()}
+    step_fn = make_train_step(cfg, resumed.opt_cfg, tc)
+    outs = [step_fn(params, opt, batch) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(outs[0][0]), tree_leaves(outs[1][0])))
+    res["step_bitwise_repeatable"] = dict(
+        params=same, loss=float(outs[0][2]["loss"]) == float(
+            outs[1][2]["loss"]),
+        grad_norm=[float(o[2]["grad_norm"]) for o in outs])
+    per_step = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        reset_counts()
+        make_train_step(c, resumed.opt_cfg, tc)(params, opt, batch)
+        torch.cuda.synchronize()
+        per_step[f"remat {'on' if remat else 'off'}"] = {
+            k: counts()[k] for k in K1_TRAIN}
+    res["launches_one_step"] = per_step
+    busy, host = device_busy_ms(lambda: step_fn(params, opt, batch), 2)
+    res["profiled_step"] = dict(device_busy_ms=busy, host_wall_ms=host,
+                                idle_share=1 - busy / host)
+    del outs, params, opt
+    log(f"training step: bitwise repeatable {res['step_bitwise_repeatable']}; "
+        f"K1 launches {per_step}; device busy {busy:.1f} ms of {host:.1f} ms "
+        f"host wall (profiled)")
+    return res
+
+
+def run_train_fp32_phase(cfg):
+    """One train step in fp32 (TF32 off) at full width, 2 layers: the card
+    (K1 forward, backward and batch grid, on the CUDA cores) against the
+    CPU plain path on the same params and batch: the loss, every gradient
+    leaf and the params after the AdamW update (lr = TRAIN_FP32_LR). Loss
+    within LOGIT_TOL; each gradient leaf within LOGIT_TOL of its largest
+    entry; params within LOGIT_TOL."""
+    from repro_torch.core import api
+    from repro_torch.core.plan import UNFUSED, GemmPolicy
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=TRAIN_FP32_LAYERS)
+    params = T.init_model(cfg32, seed=5, device="cuda", draw_device="cuda")
+    batch = TokenPipeline(DataConfig(seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_FP32_BATCH,
+                                     vocab=cfg.vocab, seed=3)).next_batch()
+    res, runs = {}, {}
+    for device in ("cuda", "cpu"):
+        p = to_device(params, device)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        reset_counts()
+        t0 = time.perf_counter()
+        with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
+            (loss, _), grads = value_and_grad(
+                lambda q: T.lm_loss(q, cfg32, b), p)
+        new_p = adamw_update(p, grads, adamw_init(p),
+                             AdamWConfig(lr=TRAIN_FP32_LR),
+                             torch.tensor(TRAIN_FP32_LR))[0]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            res["launches"] = counts()
+            for name in ("matrixflow_gemm_cuda_core",
+                         "matrixflow_gemm_batched",
+                         "matrixflow_gemm_backward"):
+                if not res["launches"][name]:
+                    fail(f"fp32 train step: {name} never launched")
+        runs[device] = (float(loss), [g.cpu() for g in tree_leaves(grads)],
+                        [q.cpu() for q in tree_leaves(new_p)],
+                        time.perf_counter() - t0)
+    (lc, gc_, pc, tcard), (lp, gp, pp, tcpu) = runs["cuda"], runs["cpu"]
+    d_loss = abs(lc - lp)
+    d_grad = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                 for a, b in zip(gc_, gp))
+    d_param = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    step = max(float((a - b.cpu()).abs().max())
+               for a, b in zip(pp, tree_leaves(params)))
+    res.update(loss_card=lc, loss_cpu=lp, loss_abs_diff=d_loss,
+               grad_max_rel_diff=d_grad, param_max_abs_diff=d_param,
+               cpu_step_max_abs=step, seconds_card=tcard, seconds_cpu=tcpu)
+    if not step > 2 * TRAIN_FP32_PARAM_TOL:
+        fail(f"fp32 train step: the CPU's update moves no weight by more "
+             f"than {step:.3e}, too little to tell a missing update apart")
+    for what, v, tol in (
+            ("loss", d_loss, LOGIT_TOL),
+            ("gradient (relative to each leaf's largest entry)", d_grad,
+             LOGIT_TOL),
+            ("params after the update", d_param, TRAIN_FP32_PARAM_TOL)):
+        if not v <= tol:
+            fail(f"fp32 train step, card vs CPU: {what} differ by {v:.3e} > "
+                 f"{tol}")
+    log(f"fp32 train step ({TRAIN_FP32_LAYERS} layers, B {TRAIN_FP32_BATCH} "
+        f"x {TRAIN_SEQ}), card vs CPU: loss {lc:.6f} / {lp:.6f} "
+        f"(|d| {d_loss:.2e}), grads max rel |d| {d_grad:.2e}, params max |d| "
+        f"{d_param:.2e}")
+    return res
+
+
+def run_mixed_phase(cfg):
+    """An fp32 model serving from a bf16 cache at full width (the
+    reference's default ServeConfig pairing): paged, contiguous and int8
+    KV, 12 requests each, all complete; K1 on the CUDA cores (fp32), the
+    new K4 / K3 instances (fp32 q over bf16 pages / caches) or K5's fp32-q
+    instance launched. Then at MIXED_PARITY_LAYERS layers, the card's
+    streams against the CPU plain path's on the same dtypes, a first
+    parting allowed only where the plain top-2 margin is below LOGIT_TOL."""
+    from repro_torch.core.api import pack_model_weights
+    from repro_torch.core.plan import FUSED, AttentionPolicy
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, PROMPT_BUCKET + 1, N_REQUESTS)]
+    runs = {"paged": (dict(attention=AttentionPolicy("paged", PAGE),
+                           cache_pages=CACHE_PAGES),
+                      ("paged_attention_cuda_cores_bf16kv",)),
+            "contiguous": (dict(attention=FUSED),
+                           ("flash_attention_cuda_cores_bf16kv",)),
+            "int8 KV": (dict(attention=AttentionPolicy("paged", PAGE),
+                             cache_pages=CACHE_PAGES, kv_dtype="int8"),
+                        ("paged_attention_int8_cuda_cores",))}
+    params = T.init_model(cfg32, seed=9, device="cuda", draw_device="cuda")
+    res = {}
+    for name, (kw, required) in runs.items():
+        eng = ServingEngine(cfg32, params, ServeConfig(
+            batch_slots=SLOTS, max_len=MAX_LEN, cache_dtype="bfloat16",
+            pack_weights=True, device="cuda", **kw))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        streams, n_tokens, per_step = serve_requests(eng, prompts, 300)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts(f"mixed {name}", ("matrixflow_gemm",
+                                                 "matrixflow_gemm_cuda_core")
+                               + required, allowed=MIXED_ALLOWED)
+        check_streams(f"mixed {name}", streams, cfg.vocab)
+        res[name] = dict(tokens=n_tokens, seconds=dt,
+                         tokens_per_s=n_tokens / dt, launches=launches,
+                         launches_per_decode_step=per_step,
+                         preemptions=eng.n_preemptions)
+        log(f"mixed dtypes ({name}: fp32 model, "
+            f"{'int8' if 'int8' in name else 'bf16'} cache): {N_REQUESTS} "
+            f"requests, {n_tokens} tokens in {dt:.2f} s "
+            f"({n_tokens / dt:.1f} tok/s), {eng.n_preemptions} preemptions, "
+            f"launches {launches}")
+        del eng
+    del params
+
+    cfgp = dataclasses.replace(cfg32, n_layers=MIXED_PARITY_LAYERS)
+    params = T.init_model(cfgp, seed=10, device="cpu")
+    streams = {}
+    for kind, attn in (("paged", AttentionPolicy("paged", PAGE)),
+                       ("contiguous", FUSED)):
+        for device in ("cuda", "cpu"):
+            e = ServingEngine(cfgp, params, ServeConfig(
+                batch_slots=SLOTS, max_len=MAX_LEN, cache_dtype="bfloat16",
+                pack_weights=True, attention=attn, device=device))
+            streams[kind, device] = serve_requests(e, prompts, 600)[0]
+            del e
+    params_cpu = pack_model_weights(params)
+    ties = {}
+    for kind in ("paged", "contiguous"):
+        for i, p in enumerate(prompts):
+            d = first_divergence(cfgp, params_cpu, p, streams[kind, "cuda"][i],
+                                 streams[kind, "cpu"][i],
+                                 label=f"mixed dtypes {kind}")
+            if d is not None:
+                ties[f"{kind} request {i}"] = d
+    res["parity"] = dict(layers=MIXED_PARITY_LAYERS, equal=not ties,
+                         near_ties=ties)
+    log(f"mixed dtypes, {MIXED_PARITY_LAYERS} layers, card vs CPU plain: "
+        f"streams {'equal' if not ties else f'equal up to near-ties {ties}'}")
+    return res
+
+
+def slice_paths(report) -> dict:
+    """The launch counts of phases 20 and 22's paths, by path."""
+    out = {}
+    if "train" in report:
+        out["training"] = report["train"]["launches"]
+    for name, r in report.get("mixed", {}).items():
+        if "launches" in r:
+            out[f"mixed dtypes {name} serving"] = r["launches"]
+    return out
+
+
+def slice_entries(report) -> list:
+    """The kernels line's entries of this slice's instances: K1's batch
+    grid and its backward launches (training), K3's and K4's fp32-q over
+    bf16-K/V instances (mixed dtypes), each with its launches on its path
+    and its times per training step or decode step."""
+    paths = slice_paths(report)
+    out = []
+
+    def entry(name, counter, source, replaces, rows, dtype, path, others):
+        launches = {p: c[counter] for p, c in paths.items() if c[counter]}
+        out.append({"name": name, "route": "cuda",
+                    "source": f"src/repro_torch/csrc/{source}.cu",
+                    "replaces": replaces, "launches": sum(launches.values()),
+                    "launches_by_path": launches, "times_per": path,
+                    **aggregate(rows, dtype, path),
+                    "other_runs": {p: aggregate(rows, dtype, p)
+                                   for p in others}})
+
+    if "train_kernels" in report:
+        rows = report["train_kernels"]
+        k1 = "src/repro/kernels/matrixflow_gemm.py:137"
+        entry("matrixflow_gemm_batched", "matrixflow_gemm_batched",
+              "matrixflow_gemm", k1,
+              [r for r in rows if r["G"] > 1], "bfloat16",
+              "train batch grid forward", ("train batch grid backward",))
+        entry("matrixflow_gemm_backward", "matrixflow_gemm_backward",
+              "matrixflow_gemm", k1, rows, "bfloat16", "train backward",
+              ("train forward", "train batch grid backward"))
+    if "mixed_kernels" in report:
+        for kern, line in (("flash_attention", 199), ("paged_attention", 188)):
+            entry(f"{kern}_bf16kv", f"{kern}_{MIXED_ROUTE}", kern,
+                  f"src/repro/kernels/{kern}.py:{line}",
+                  [r for r in report["mixed_kernels"] if r["kernel"] == kern],
+                  "float32 q, bfloat16 KV", "decode step", ("prefill",))
+    return out
+
+
 def aggregate(rows, dtype, path="decode step"):
     """Per run of ``path`` (a decode step, an encoder forward): each of its
     cells weighted by its uses per run."""
@@ -2877,6 +3472,25 @@ def main() -> None:
         (OUT_DIR / "chip_smoke_zoo.json").write_text(
             json.dumps(report, indent=1))
         return
+    if sys.argv[1:2] in (["--train"], ["--mixed"]):   # phases 20-21 or 22
+        cfg = get_config(ARCH)
+        timer = Timer()
+        if sys.argv[1] == "--train":
+            report["train_kernels"] = run_train_kernel_phase(timer, cfg)
+            del timer
+            report["train"] = run_train_phase(cfg)
+            report["train_fp32"] = run_train_fp32_phase(cfg)
+        else:
+            report["mixed_kernels"] = run_mixed_kernel_phase(timer, cfg)
+            del timer
+            report["mixed"] = run_mixed_phase(cfg)
+        (OUT_DIR / f"chip_smoke_{sys.argv[1][2:]}.json").write_text(
+            json.dumps(report, indent=1))
+        print(json.dumps({"kernels": slice_entries(report)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     cfg = get_config(ARCH)
     bert, vit = get_config("bert-base"), get_config("vit-base")
@@ -2896,6 +3510,8 @@ def main() -> None:
     report["int8_attention"] = run_int8_attention_phase(timer, cfg,
                                                         dense + [dbrx])
     report["ssd"] = run_ssd_phase(timer, mamba, zamba)
+    report["train_kernels"] = run_train_kernel_phase(timer, cfg)
+    report["mixed_kernels"] = run_mixed_kernel_phase(timer, cfg)
     del timer
     report["serving"] = run_serving_phase(cfg)
     report["parity"] = run_parity_phase(cfg)
@@ -2915,6 +3531,9 @@ def main() -> None:
     report["dense"] = {a: run_dense_phase(a, *v)
                        for a, v in DENSE_MODELS.items()}
     report["zoo"] = zoo = run_zoo_phases()
+    report["train"] = run_train_phase(cfg)
+    report["train_fp32"] = run_train_fp32_phase(cfg)
+    report["mixed"] = run_mixed_phase(cfg)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],
@@ -2941,6 +3560,7 @@ def main() -> None:
                                                   (DEEPSEEK, zoo[DEEPSEEK])]:
         by_path.update({f"{a} {run} serving": r[run]["launches"]
                         for run in ("paged", "contiguous", "int8") if run in r})
+    by_path.update(slice_paths(report))
     by_path.update({f"{VLM} vlm forward": zoo[VLM]["vlm_forward"]["launches"],
                     f"{VLM} vlm decode": zoo[VLM]["vlm_decode"]["launches"],
                     **{f"{AUDIO} {k} forward": zoo[AUDIO][k]["launches"]
@@ -3108,6 +3728,7 @@ def main() -> None:
     for k in kernels:
         if k["name"] in by_route:
             k["launches_by_route"] = by_route[k["name"]]
+    kernels += slice_entries(report)
     # K6 per route: ms per run of each path the route takes, and per kernel
     # (phase) of a call, bf16
     k6 = next(k for k in kernels if k["name"] == "ssd_scan")

@@ -201,7 +201,7 @@ def main(argv=None) -> int:
 
         def forward(tokens, positions, last_cols=None):
             with torch.no_grad(), api.use_attention_policy(FUSED):
-                logits, _ = T.forward(params, cfg, {
+                logits, _, _ = T.forward(params, cfg, {
                     "tokens": tokens, "positions": positions},
                     caches=run["caches"], last_cols=last_cols)
             run["tok"] = torch.argmax(logits[:, -1], dim=-1)

@@ -62,7 +62,7 @@ def main() -> int:
             with torch.no_grad(), api.use_policy(GemmPolicy(backend=gemm)), \
                     api.use_attention_policy(attn):
                 caches = T.init_caches(cfg, 2, S + 2, cfg.dtype, dev)
-                logits, _ = T.forward(
+                logits, _, _ = T.forward(
                     params, cfg, {"tokens": prompts.to(dev),
                                   "positions": torch.arange(S).expand(2, S)
                                   .to(dev)},

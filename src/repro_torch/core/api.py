@@ -12,8 +12,12 @@ GEMM backends (:class:`~repro_torch.core.plan.GemmPolicy`):
 
 Attention backends (:class:`~repro_torch.core.plan.AttentionPolicy`):
 
-  "unfused"     the plain masked softmax over dense K/V (kernels/ref.py::
-                mha_ref); rejects paged caches.
+  "unfused"     the paper's §4.4 split, as the reference writes it: the
+                score and value contractions through the GEMM policy
+                (einsum on a batched backend, the batched MatrixFlow GEMM
+                otherwise), the masked softmax in PyTorch; rejects paged
+                caches. The only attention that trains: the kernels below
+                are forward-only.
   "fused"       the offset-aware flash attention CUDA kernel over dense K/V
                 (kernels/flash_attention.py): the cache-less forward and
                 contiguous KV caches; rejects paged caches.
@@ -33,6 +37,14 @@ GEMM runs int8 × int8 → int32 and is rescaled by the row and channel
 scales — fused into the flush of the MatrixFlow kernel (K2) on the card.
 Under ``GemmPolicy(weight_dtype="int8")`` ``linear`` quantizes a raw fp
 weight on the fly.
+
+Autograd: on a block-major backend a product of raw operands runs through
+an autograd Function whose backward is the same GEMM (dA = dC·Bᵀ and dB =
+Aᵀ·dC, each laid out block-major and planned as its own problem): K1
+trains on its own kernel, as the reference's ``blockflow`` backend trains
+through its plain Algorithm 1. A batched rhs (..., K, N) runs as one
+batched launch (the reference's ``vmap``). A packed weight under autograd
+raises: its blocks are not a parameter.
 """
 from __future__ import annotations
 
@@ -52,14 +64,15 @@ from repro_torch.core.plan import (  # re-exported: the public policy surface
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matrixflow_gemm as MF
 from repro_torch.kernels import paged_attention as PA
-from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref, mha_ref
+from repro_torch.kernels.forward_only import needs_grad
+from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref
 
 __all__ = [
     "GemmPolicy", "ExecutionPlan", "PackedWeight", "QuantizedPackedWeight",
     "AttentionPolicy",
     "pack_weight", "pack_model_weights", "plan",
     "matmul", "linear", "attention", "use_policy", "current_policy",
-    "use_attention_policy", "current_attention_policy",
+    "use_attention_policy", "current_attention_policy", "prefers_einsum",
 ]
 
 _state = threading.local()
@@ -119,39 +132,96 @@ def _torch_gemm(a, b, pln: ExecutionPlan, out_dtype):
     return torch.matmul(a.double(), b.double()).to(out_dtype)
 
 
-def _make_block_major_gemm(block_fn, dequant_fn):
-    """A backend over ``block_fn(a_bm, b_bm, out_dtype=)`` and, for a
-    QuantizedPackedWeight, ``dequant_fn(a_bm, b_bm, scale_a=, scale_b=,
-    out_dtype=)``: lay A out block-major (quantized per row first on the
-    W8A8 route), take B's resident blocks (or lay B out), run, un-block
-    C."""
+def _register_block_major(name, block_fn, dequant_fn):
+    """Register a block-major backend around ``block_fn(a_bm, b_bm, *,
+    out_dtype, backward)``: raw operands, batches and gradients run on it
+    (:func:`_block_major`, through ``matmul``), and so do resident weights:
+    a PackedWeight's blocks directly and, for a QuantizedPackedWeight,
+    ``dequant_fn(a_bm, b_bm, scale_a=, scale_b=, out_dtype=)`` with A
+    quantized per row first (the W8A8 route)."""
     def gemm(a2, b, pln: ExecutionPlan, out_dtype):
         M = a2.shape[0]
+        blk = P.layout_for_packed(M, b)
         if isinstance(b, QuantizedPackedWeight):
             aq, sa = Q.quantize_activations(a2)
-            blk = P.layout_for_packed(M, b)
             a_bm = L.to_block_major_a(aq, blk.bm, blk.bk)
             c_bm = dequant_fn(a_bm, b.data, scale_a=sa, scale_b=b.scales,
                               out_dtype=out_dtype)
-            return L.from_block_major_c(c_bm, M, b.n)
-        if isinstance(b, PackedWeight):
-            blk = P.layout_for_packed(M, b)
-            b_bm, N = b.data, b.n
         else:
-            blk = pln.layout
-            b_bm, N = L.to_block_major_b(b, blk.bk, blk.bn), b.shape[1]
-        a_bm = L.to_block_major_a(a2, blk.bm, blk.bk)
-        c_bm = block_fn(a_bm, b_bm, out_dtype=out_dtype)
-        return L.from_block_major_c(c_bm, M, N)
-    return gemm
+            a_bm = L.to_block_major_a(a2, blk.bm, blk.bk)
+            c_bm = block_fn(a_bm, b.data, out_dtype=out_dtype)
+        return L.from_block_major_c(c_bm, M, b.n)
+    register_backend(name, gemm, block_fn=block_fn)
+
+
+def _blockflow_block(a_bm, b_bm, *, out_dtype, backward=False):
+    """The plain Algorithm 1 as a block function: a plain version counts
+    no launches, so a gradient's is not marked."""
+    return block_matmul_ref(a_bm, b_bm, out_dtype=out_dtype)
 
 
 register_backend("torch", _torch_gemm, batched=True, needs_layout=False)
-register_backend("blockflow", _make_block_major_gemm(block_matmul_ref,
-                                                    block_matmul_ref))
-register_backend("matrixflow",
-                 _make_block_major_gemm(MF.matrixflow_gemm_block_major,
-                                        MF.matrixflow_gemm_dequant))
+_register_block_major("blockflow", _blockflow_block, block_matmul_ref)
+_register_block_major("matrixflow", MF.matrixflow_gemm_block_major,
+                      MF.matrixflow_gemm_dequant)
+
+
+def _block_major(a: torch.Tensor, b: torch.Tensor, pol: GemmPolicy,
+                 out_dtype: torch.dtype, backward: bool = False
+                 ) -> torch.Tensor:
+    """C = A @ B of raw operands on a block-major backend: a (M, K) and b
+    (K, N), or a batch of G problems (G, M, K) and (G, K, N) in one
+    launch. Planned for one (M, N, K) problem, laid out block-major
+    (zero-padded to the blocks), un-blocked."""
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    blk = plan(M, N, K, a.dtype, pol, a.device).layout
+    c_bm = P.get_backend_spec(pol.resolved_backend(a.device)).block_fn(
+        L.to_block_major_a(a, blk.bm, blk.bk),
+        L.to_block_major_b(b, blk.bk, blk.bn),
+        out_dtype=out_dtype, backward=backward)
+    return L.from_block_major_c(c_bm, M, N)
+
+
+class _BlockMajorMatmul(torch.autograd.Function):
+    """:func:`_block_major` with its gradient on the same backend: dA =
+    dC·Bᵀ and dB = Aᵀ·dC, each its own block-major problem (the padding of
+    one layout is sliced away before the next lays out its operands, so it
+    contributes zeros). The cotangent is cast to the operands' dtype, the
+    one dtype the kernel multiplies (bf16 scores' fp32 cotangent rounds to
+    bf16, as a flash attention backward rounds dS)."""
+
+    @staticmethod
+    def forward(ctx, a, b, pol, out_dtype):
+        ctx.save_for_backward(a, b)
+        ctx.pol = pol
+        return _block_major(a, b, pol, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        g = dc.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _block_major(g, b.transpose(-1, -2), ctx.pol, a.dtype,
+                              backward=True)
+        if ctx.needs_input_grad[1]:
+            db = _block_major(a.transpose(-1, -2), g, ctx.pol, b.dtype,
+                              backward=True)
+        return da, db, None, None
+
+
+def _raw_block_major(a: torch.Tensor, b: torch.Tensor, pol: GemmPolicy,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_block_major`, through the autograd Function when a gradient
+    is needed."""
+    if needs_grad(a, b):
+        if a.dtype != b.dtype:
+            raise ValueError(f"a block-major GEMM under autograd takes "
+                             f"operands of one dtype, got {a.dtype} and "
+                             f"{b.dtype}")
+        return _BlockMajorMatmul.apply(a, b, pol, out_dtype)
+    return _block_major(a, b, pol, out_dtype)
 
 
 def _out_dtype(a: torch.Tensor, b) -> torch.dtype:
@@ -169,9 +239,11 @@ def matmul(a: torch.Tensor, b: Union[torch.Tensor, PackedWeight], *,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = A @ B through the plan the active policy resolves to.
 
-    a: (..., M, K); b: (K, N), a PackedWeight or a QuantizedPackedWeight
-    (a batched backend also takes (..., K, N)). The output dtype defaults
-    to the promoted input dtype.
+    a: (..., M, K); b: (K, N), (..., K, N) with a's leading dims (a
+    batched rhs), a PackedWeight or a QuantizedPackedWeight. The output
+    dtype defaults to the promoted input dtype. Differentiable on every
+    backend for raw operands (a block-major backend's gradient is its own
+    GEMM); a packed weight under autograd raises on a block-major backend.
     """
     pol = policy if policy is not None else current_policy()
     quantized = isinstance(b, QuantizedPackedWeight)
@@ -183,6 +255,22 @@ def matmul(a: torch.Tensor, b: Union[torch.Tensor, PackedWeight], *,
         M = a.numel() // K if a.dim() > 1 else 1
         return spec.fn(a, b, plan(M, b.shape[-1], K, a.dtype, pol, a.device),
                        out_dtype)
+    if packed and needs_grad(a):
+        raise ValueError(
+            f"a {type(b).__name__} under autograd on GEMM backend "
+            f"{spec.name!r}: packed blocks are not a parameter; train on the "
+            f"raw weights (the W8A8 route has no backward)")
+    if not packed and spec.block_fn is not None:
+        if b.dim() == 2:             # (..., M, K) @ (K, N)
+            c = _raw_block_major(a.reshape(-1, K), b, pol, out_dtype)
+            return c.reshape(*a.shape[:-1], b.shape[1]).to(out_dtype)
+        if a.dim() < 3 or a.shape[:-2] != b.shape[:-2]:
+            raise ValueError(f"a batched rhs {tuple(b.shape)} needs a's "
+                             f"leading dims, a is {tuple(a.shape)}")
+        lead, (M, N) = a.shape[:-2], (a.shape[-2], b.shape[-1])
+        c = _raw_block_major(a.reshape(-1, M, K), b.reshape(-1, K, N), pol,
+                             out_dtype)
+        return c.reshape(*lead, M, N).to(out_dtype)
     if not packed and b.dim() != 2:
         raise ValueError(f"GEMM backend {spec.name!r} takes a 2-D rhs or a "
                          f"PackedWeight, got {tuple(b.shape)}")
@@ -232,11 +320,57 @@ def _reject_paged(backend: str, block_tables, kv_scales=None) -> None:
             f"kv_dtype='int8')")
 
 
+def prefers_einsum(device, policy: Optional[GemmPolicy] = None) -> bool:
+    """True when the GEMM backend the policy resolves to on ``device``
+    consumes batched contractions natively (so model code takes einsum
+    instead of the batched block-major GEMM)."""
+    pol = policy if policy is not None else current_policy()
+    return P.get_backend_spec(pol.resolved_backend(device)).batched
+
+
 def _unfused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
                        soft_cap, block_tables=None, kv_scales=None):
+    """The reference's einsum + host-softmax baseline (the paper's §4.4
+    split: GEMMs on the accelerator, softmax on the host), differentiable.
+    GQA by repeating each kv head over its group; the score and value
+    contractions follow the ambient GEMM policy: einsum (fp32 scores) on a
+    batched backend, else the batched block-major GEMM over the (B, Hkv,
+    rep) problems, scores in fp32. Probabilities are rounded to v's dtype
+    before P·V, whose result is v's dtype. Fully masked rows are zeros."""
     _reject_paged("unfused", block_tables, kv_scales)
-    return mha_ref(q, k, v, causal=causal, scale=scale, soft_cap=soft_cap,
-                   q_positions=q_positions, kv_valid_len=kv_valid_len)
+    B, Sq, H, Dk = q.shape
+    T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, rep, Dk)
+    einsum = prefers_einsum(q.device)
+    if einsum:
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k.float())
+    else:  # fold (B, Hkv, rep) into one batch of problems
+        qm = qg.permute(0, 2, 3, 1, 4).reshape(B * H, Sq, Dk)
+        km = (k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+              .reshape(B * H, T, Dk))
+        logits = matmul(qm, km.transpose(1, 2), out_dtype=torch.float32)
+        logits = logits.reshape(B, Hkv, rep, Sq, T)
+    logits = logits.float() * scale
+    if soft_cap:
+        logits = soft_cap * torch.tanh(logits / soft_cap)
+    kv_pos = torch.arange(T, device=q.device)[None, None, :]   # (1, 1, T)
+    valid = kv_pos < kv_valid_len.to(q.device)[:, None, None]  # (B, 1, T)
+    if causal:
+        valid = valid & (kv_pos <= q_positions[:, :, None])     # (B, Sq, T)
+    valid = valid.expand(B, Sq, T)[:, None, None]         # (B, 1, 1, Sq, T)
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)                 # host-side op
+    probs = torch.where(valid, probs, torch.zeros_like(probs))
+    if einsum:
+        out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(v.dtype), v)
+    else:
+        pm = probs.reshape(B * H, Sq, T).to(v.dtype)
+        vm = (v.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+              .reshape(B * H, T, Dv))
+        out = matmul(pm, vm).reshape(B, Hkv, rep, Sq, Dv).permute(0, 3, 1, 2,
+                                                                  4)
+    return out.reshape(B, Sq, H, Dv)
 
 
 def _fused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,

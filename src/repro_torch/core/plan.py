@@ -162,6 +162,9 @@ class BackendSpec:
     fn: BackendFn
     batched: bool = False        # consumes batched contractions natively
     needs_layout: bool = True    # plan() must resolve a BlockLayout
+    # a block-major backend's GEMM over block-major operands, fn(a_bm, b_bm,
+    # *, out_dtype, backward): raw, batched and gradient products run on it
+    block_fn: Optional[BackendFn] = None
 
 
 # An attention backend: fn(q, k, v, *, q_positions, kv_valid_len, causal,
@@ -181,9 +184,10 @@ _registry_lock = threading.Lock()
 
 
 def register_backend(name: str, fn: BackendFn, *, batched: bool = False,
-                     needs_layout: bool = True) -> BackendSpec:
+                     needs_layout: bool = True,
+                     block_fn: Optional[BackendFn] = None) -> BackendSpec:
     """Register a GEMM backend under ``name`` (the GemmPolicy.backend key)."""
-    spec = BackendSpec(name, fn, batched, needs_layout)
+    spec = BackendSpec(name, fn, batched, needs_layout, block_fn)
     with _registry_lock:
         if name in _REGISTRY:
             raise ValueError(f"backend {name!r} already registered")

@@ -60,6 +60,12 @@
 // 54.6 KB at MLA's D 192 / Dv 128, past the 48 KB a launch gets without
 // opting in (am::reserve_smem). Ragged Sq and Sk are bounds-checked on both
 // paths; nothing is padded in memory.
+//
+// fp32 q over a bf16 cache (an fp32 model serving from the default bf16
+// cache, as the reference's ServeConfig pairs them) takes the same kernel
+// with K/V typed bf16 (flash_attn_kernel<float, bf16, D, Dv>): the 16-byte
+// chunks hold 8 keys' dims, widened to fp32 in shared memory (exact), and
+// p is rounded to bf16 before P.V, as the TPU kernel's p.astype(v.dtype).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,8 +87,11 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-// p.astype(v.dtype): the identity for fp32.
+// p.astype(v.dtype): the identity for fp32 V, a round to nearest for bf16 V.
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -138,15 +147,27 @@ struct FpSmem {
   static constexpr int kBytes = kPos + kMaxRows * 4;
 };
 
-// A 16-byte chunk as fp32, written to dst[0 .. kVec) (16-byte aligned).
+// A 16-byte chunk as fp32, written to dst[0 .. kVec) (16-byte aligned):
+// 4 fp32 values, or 8 bf16 values widened (exactly) to fp32.
 __device__ __forceinline__ void unpack(uint4 x, float* dst, const float*) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&x);
 }
+__device__ __forceinline__ void unpack(uint4 x, float* dst, const __nv_bfloat16*) {
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+  reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
 
-template <typename T, int D, int Dv>
+template <typename T, typename KV, int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ q_positions,
+flash_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                  const KV* __restrict__ v, const int* __restrict__ q_positions,
                   const int* __restrict__ kv_valid_len, T* __restrict__ out,
                   int Sq, int Sk, int H, int Hkv, Strides qst, Strides kst,
                   Strides vst, float scale, float soft_cap, int causal) {
@@ -155,8 +176,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kDPerLane = (Dv + 31) / 32;
   using SM = FpSmem<D, Dv>;
   constexpr int kKStride = SM::kKStride;
-  using TK = Tile<T, D>;
-  using TV = Tile<T, Dv>;
+  using TK = Tile<KV, D>;
+  using TV = Tile<KV, Dv>;
   static_assert(D % TK::kVec == 0 && Dv % TV::kVec == 0, "rows split into 16-byte chunks");
 
   const int g = blockIdx.y, b = blockIdx.z;
@@ -192,8 +213,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Keys [0, kv_end) are all any row of this CTA can see: later blocks are
   // past the valid length, or strictly in the future of every row.
   const int kv_end = causal ? min(kvlen, qmax + 1) : kvlen;
-  const T* kb = k + b * kst.b + g * kst.h;
-  const T* vb = v + b * vst.b + g * vst.h;
+  const KV* kb = k + b * kst.b + g * kst.h;
+  const KV* vb = v + b * vst.b + g * vst.h;
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDPerLane];
 #pragma unroll
@@ -206,8 +227,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   uint4 kr[TK::kPer], vr[TV::kPer];
   if (kv_end > 0) {
-    fetch_block<T, D>(kb, kst.s, 0, Sk, tid, kr);
-    fetch_block<T, Dv>(vb, vst.s, 0, Sk, tid, vr);
+    fetch_block<KV, D>(kb, kst.s, 0, Sk, tid, kr);
+    fetch_block<KV, Dv>(vb, vst.s, 0, Sk, tid, vr);
   }
   for (int col0 = 0; col0 < kv_end; col0 += kBlockK) {
     const int nk = min(kBlockK, Sk - col0);
@@ -230,8 +251,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     if (col0 + kBlockK < kv_end) {           // in flight while this block is scored
-      fetch_block<T, D>(kb, kst.s, col0 + kBlockK, Sk, tid, kr);
-      fetch_block<T, Dv>(vb, vst.s, col0 + kBlockK, Sk, tid, vr);
+      fetch_block<KV, D>(kb, kst.s, col0 + kBlockK, Sk, tid, kr);
+      fetch_block<KV, Dv>(vb, vst.s, col0 + kBlockK, Sk, tid, vr);
     }
 
     // Scores of this warp's rows against key `lane`.
@@ -300,18 +321,18 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int Dv>
+template <typename T, typename KV, int D, int Dv>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kvlen, void* out, int B, int Sq, int Sk, int H,
                    int Hkv, Strides qs, Strides ks, Strides vs, float scale,
                    float soft_cap, int causal, cudaStream_t stream) {
   constexpr int smem = FpSmem<D, Dv>::kBytes;
   static int granted = 0;
-  const cudaError_t attr = am::reserve_smem(flash_attn_kernel<T, D, Dv>, smem, granted);
+  const cudaError_t attr = am::reserve_smem(flash_attn_kernel<T, KV, D, Dv>, smem, granted);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq * (H / Hkv) + kMaxRows - 1) / kMaxRows, Hkv, B);
-  flash_attn_kernel<T, D, Dv><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_attn_kernel<T, KV, D, Dv><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       qpos, kvlen, static_cast<T*>(out), Sq, Sk, H, Hkv, qs, ks, vs, scale,
       soft_cap, causal);
   return cudaGetLastError();
@@ -359,12 +380,15 @@ cudaError_t launch_tc(const am::Params& p, const void* k, const void* v, int B, 
 
 }  // namespace
 
-// The fp32 instance (the CUDA cores); bf16 takes flash_attention_tc.
+// The fp32-q instances (the CUDA cores); bf16 q takes flash_attention_tc.
+// kv_code: 0 for fp32 K/V, 1 for bf16 K/V (an fp32 model over a bf16
+// cache: K/V widened exactly to fp32, p rounded to bf16 before P.V as
+// p.astype(v.dtype)); q and the output are fp32 either way.
 // (head_dim, v_head_dim): (64, 64), (80, 80), (128, 128) or MLA's
 // (192, 128). Strides are in elements; the output is a contiguous (B, Sq,
 // H, v_head_dim) tensor. H / Hkv must be an integer. soft_cap <= 0 means
 // none. Returns a cudaError_t; asynchronous on `stream`.
-extern "C" int flash_attention(int head_dim, int v_head_dim, const void* q,
+extern "C" int flash_attention(int kv_code, int head_dim, int v_head_dim, const void* q,
                                const void* k, const void* v,
                                const int* q_positions, const int* kv_valid_len,
                                void* out, int B, int Sq, int Sk, int H, int Hkv,
@@ -377,13 +401,17 @@ extern "C" int flash_attention(int head_dim, int v_head_dim, const void* q,
   if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA_LAUNCH(T, D, Dv)                                                        \
-  return launch<T, D, Dv>(q, k, v, q_positions, kv_valid_len, out, B, Sq, Sk, H, \
-                          Hkv, qs, ks, vs, scale, soft_cap, causal, s)
-  if (head_dim == 64 && v_head_dim == 64) FA_LAUNCH(float, 64, 64);
-  if (head_dim == 80 && v_head_dim == 80) FA_LAUNCH(float, 80, 80);
-  if (head_dim == 128 && v_head_dim == 128) FA_LAUNCH(float, 128, 128);
-  if (head_dim == 192 && v_head_dim == 128) FA_LAUNCH(float, 192, 128);
+#define FA_LAUNCH(KV, D, Dv)                                                           \
+  return launch<float, KV, D, Dv>(q, k, v, q_positions, kv_valid_len, out, B, Sq, Sk, H, \
+                                  Hkv, qs, ks, vs, scale, soft_cap, causal, s)
+#define FA_DIMS(KV)                                                      \
+  if (head_dim == 64 && v_head_dim == 64) FA_LAUNCH(KV, 64, 64);         \
+  if (head_dim == 80 && v_head_dim == 80) FA_LAUNCH(KV, 80, 80);         \
+  if (head_dim == 128 && v_head_dim == 128) FA_LAUNCH(KV, 128, 128);     \
+  if (head_dim == 192 && v_head_dim == 128) FA_LAUNCH(KV, 192, 128);
+  if (kv_code == 0) { FA_DIMS(float) }
+  if (kv_code == 1) { FA_DIMS(__nv_bfloat16) }
+#undef FA_DIMS
 #undef FA_LAUNCH
   return cudaErrorInvalidValue;
 }

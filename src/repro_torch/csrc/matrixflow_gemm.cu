@@ -207,10 +207,16 @@ __device__ __forceinline__ void gemm_tile(
   }
 }
 
+// Problem blockIdx.z of a batch: its operands and C follow the previous
+// problem's in memory (gridDim.y = nbm blocks of A and C per problem).
 template <typename T, typename Out, int BM, int BN>
 __global__ void __launch_bounds__(kThreads)
 mf_gemm_kernel(const T* __restrict__ a_bm, const T* __restrict__ b_bm,
                Out* __restrict__ c_bm, int nbn, int nbk, int bk) {
+  const size_t z = blockIdx.z, nbm = gridDim.y;
+  a_bm += z * nbm * nbk * BM * bk;
+  b_bm += z * nbn * nbk * bk * BN;
+  c_bm += z * nbm * nbn * BM * BN;
   typename AccOf<T>::type acc[BM / 16][BN / 16];
   gemm_tile<T, BM, BN>(a_bm, b_bm, nbk, bk, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -223,8 +229,8 @@ mf_gemm_kernel(const T* __restrict__ a_bm, const T* __restrict__ b_bm,
 
 template <typename T, typename Out>
 cudaError_t launch(int bm, int bn, const void* a, const void* b, void* c,
-                   int nbm, int nbn, int nbk, int bk, cudaStream_t s) {
-  const dim3 grid(nbn, nbm);
+                   int nbm, int nbn, int nbk, int bk, int batch, cudaStream_t s) {
+  const dim3 grid(nbn, nbm, batch);
 #define MF_CASE(BM_, BN_)                                                      \
   if (bm == BM_ && bn == BN_) {                                                \
     mf_gemm_kernel<T, Out, BM_, BN_><<<grid, kThreads, 0, s>>>(                \
@@ -403,6 +409,12 @@ mf_gemm_wgmma_kernel(const bf16* __restrict__ a_bm, const bf16* __restrict__ b_b
   const int gn = TN / bn;
   const int i0 = blockIdx.y * GM, j0 = blockIdx.x * gn;
   const int spb = bk / kTcSlice, steps = nbk * spb;
+  {                           // problem blockIdx.z of a batch
+    const size_t z = blockIdx.z;
+    a_bm += z * nbm * nbk * BM * bk;
+    b_bm += z * nbn * nbk * bk * bn;
+    c_bm += z * nbm * nbn * BM * bn;
+  }
 
   auto load = [&](int step, int stage) {
     const int kb = step / spb, kc = (step - kb * spb) * kTcSlice;
@@ -641,12 +653,12 @@ cudaError_t allow_smem(Kern kernel, int bytes) {
 
 template <typename Out, int GM, int TN>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, int nbm, int nbn, int nbk,
-                         int bk, int bn, cudaStream_t s) {
+                         int bk, int bn, int batch, cudaStream_t s) {
   constexpr int smem = 1024 + kWgStages * (GM * 64 * 64 + TN * 64);
   auto kernel = mf_gemm_wgmma_kernel<Out, GM, TN>;
   static const cudaError_t attr = allow_smem(kernel, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((nbn + TN / bn - 1) / (TN / bn), (nbm + GM - 1) / GM);
+  const dim3 grid((nbn + TN / bn - 1) / (TN / bn), (nbm + GM - 1) / GM, batch);
   kernel<<<grid, 128 * GM, smem, s>>>(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
                                       static_cast<Out*>(c), nbm, nbn, nbk, bk, bn);
   return cudaGetLastError();
@@ -686,16 +698,19 @@ cudaError_t launch_mma(const void* a, const void* b, void* c, int nbm, int nbn, 
 
 template <typename Out>
 cudaError_t launch_tc(int bm, int bn, int gm, int tn, int splits, const void* a, const void* b,
-                      void* c, int nbm, int nbn, int nbk, int bk, cudaStream_t s) {
+                      void* c, int nbm, int nbn, int nbk, int bk, int batch, cudaStream_t s) {
   if (bm == 64) {
     if (splits != 1 || tn % bn != 0) return cudaErrorInvalidValue;
-    if (gm == 2 && tn == 256) return launch_wgmma<Out, 2, 256>(a, b, c, nbm, nbn, nbk, bk, bn, s);
-    if (gm == 2 && tn == 128) return launch_wgmma<Out, 2, 128>(a, b, c, nbm, nbn, nbk, bk, bn, s);
-    if (gm == 1 && tn == 128) return launch_wgmma<Out, 1, 128>(a, b, c, nbm, nbn, nbk, bk, bn, s);
-    if (gm == 1 && tn == 64) return launch_wgmma<Out, 1, 64>(a, b, c, nbm, nbn, nbk, bk, bn, s);
+#define WG_CASE(GM_, TN_)                                                                \
+    if (gm == GM_ && tn == TN_)                                                          \
+      return launch_wgmma<Out, GM_, TN_>(a, b, c, nbm, nbn, nbk, bk, bn, batch, s);
+    WG_CASE(2, 256) WG_CASE(2, 128) WG_CASE(1, 128) WG_CASE(1, 64)
+#undef WG_CASE
     return cudaErrorInvalidValue;
   }
-  if (gm != 1 || tn != bn || splits < 1 || splits > kMaxSplits) return cudaErrorInvalidValue;
+  // the mma route's grid z holds its K splits: one problem a launch
+  if (batch != 1 || gm != 1 || tn != bn || splits < 1 || splits > kMaxSplits)
+    return cudaErrorInvalidValue;
 #define MF_CASE(BM_, BN_)                                                      \
   if (bm == BM_ && bn == BN_) return launch_mma<Out, BM_, BN_>(a, b, c, nbm, nbn, nbk, bk, splits, s);
   MF_CASE(16, 32) MF_CASE(16, 64) MF_CASE(16, 128)
@@ -1182,36 +1197,41 @@ cudaError_t launch_dq(int bm, int bn, int gm, int tn, int splits, const void* a,
 }  // namespace
 
 // The CUDA-core instances of K1. Type codes: 0 = float32, 2 = int8 (inputs)
-// / int32 (output); bf16 operands take mf_gemm_tc. Returns a cudaError_t;
-// 0 is success. Asynchronous on `stream`.
+// / int32 (output); bf16 operands take mf_gemm_tc. `batch` problems of one
+// geometry lie one after another in a_bm, b_bm and c_bm (the grid's z axis
+// walks them, as a vmap of the TPU kernel adds a grid axis); 1 for one.
+// Returns a cudaError_t; 0 is success. Asynchronous on `stream`.
 extern "C" int mf_gemm(int in_code, int out_code, int bm, int bn,
                        const void* a_bm, const void* b_bm, void* c_bm,
-                       int nbm, int nbn, int nbk, int bk, void* stream) {
-  if (nbm == 0 || nbn == 0) return 0;
-  if (bk % kSlice != 0) return cudaErrorInvalidValue;
+                       int nbm, int nbn, int nbk, int bk, int batch, void* stream) {
+  if (nbm == 0 || nbn == 0 || batch == 0) return 0;
+  if (bk % kSlice != 0 || batch < 0 || batch > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_code == 0 && out_code == 0)
-    return launch<float, float>(bm, bn, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, s);
+    return launch<float, float>(bm, bn, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, batch, s);
   if (in_code == 2 && out_code == 2)
-    return launch<int8_t, int>(bm, bn, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, s);
+    return launch<int8_t, int>(bm, bn, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, batch, s);
   return cudaErrorInvalidValue;
 }
 
 // The tensor-core instances of K1: bf16 block-major operands, out_code 0 =
 // float32, 1 = bfloat16. bm = 64 takes the wgmma route with CTA tiles of gm
 // (1, 2) blocks along M by tn (64, 128) columns, splits = 1; bm = 16 or 32
-// the mma route with gm = 1, tn = bn and 1..8 K splits. Returns a
-// cudaError_t; asynchronous on `stream`.
+// the mma route with gm = 1, tn = bn and 1..8 K splits. `batch` problems
+// as for mf_gemm, on the wgmma route only (the mma route takes 1). Returns
+// a cudaError_t; asynchronous on `stream`.
 extern "C" int mf_gemm_tc(int out_code, int bm, int bn, int gm, int tn, int splits,
                           const void* a_bm, const void* b_bm, void* c_bm, int nbm, int nbn,
-                          int nbk, int bk, void* stream) {
-  if (nbm == 0 || nbn == 0) return 0;
-  if (bk % kTcSlice != 0) return cudaErrorInvalidValue;
+                          int nbk, int bk, int batch, void* stream) {
+  if (nbm == 0 || nbn == 0 || batch == 0) return 0;
+  if (bk % kTcSlice != 0 || batch < 0 || batch > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_code == 0)
-    return launch_tc<float>(bm, bn, gm, tn, splits, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, s);
+    return launch_tc<float>(bm, bn, gm, tn, splits, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, batch,
+                            s);
   if (out_code == 1)
-    return launch_tc<bf16>(bm, bn, gm, tn, splits, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, s);
+    return launch_tc<bf16>(bm, bn, gm, tn, splits, a_bm, b_bm, c_bm, nbm, nbn, nbk, bk, batch,
+                           s);
   return cudaErrorInvalidValue;
 }
 

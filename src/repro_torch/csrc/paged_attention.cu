@@ -55,15 +55,17 @@
 // Rows are flat on every route: row F of (b, g) is query position F / rep
 // of head g * rep + F % rep, so any GQA group fits.
 //
-// fp32 q (K4 over fp32 pools, TF32 off; K5 over int8 pools) keeps the
-// CUDA-core body paged_attn_body: one CTA per (16 consecutive rows, kv head
+// fp32 q (K4 over fp32 pools, TF32 off, or over bf16 pools under an fp32
+// model, paged_attn_bf16_kernel; K5 over int8 pools) keeps the CUDA-core
+// body paged_attn_body: one CTA per (16 consecutive rows, kv head
 // g, batch row b), each page staged
 // element by element into fp32 shared tiles (an int8 element as float(x) *
 // scale, the (page, g) scale riding the same indirection as the page), lane
 // t scoring key t of the page (page_size <= 32) and lane d accumulating
 // output dims d, d + 32, ... (head_dim <= 128). As in the TPU kernel, which
 // dequantizes a page to fp32 before the block step, an int8 pool's p is NOT
-// rounded before P.V.
+// rounded before P.V; a bf16 pool's is (p.astype(v.dtype)), its elements
+// widened exactly to fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,8 +90,16 @@ constexpr unsigned kFull = 0xffffffffu;
 // A pool element as fp32: fp32 pools are, int8 pools dequantize by the
 // (page, kv head) scale (one fp32 product, as x.astype(f32) * s).
 __device__ __forceinline__ float from_pool(float x, float) { return x; }
+__device__ __forceinline__ float from_pool(__nv_bfloat16 x, float) { return __bfloat162float(x); }
 __device__ __forceinline__ float from_pool(int8_t x, float s) {
   return __fmul_rn(static_cast<float>(x), s);
+}
+// p.astype(v.dtype) before P.V: a round to nearest for bf16 pools; fp32
+// pools and dequantized int8 pages keep p as it is.
+__device__ __forceinline__ float p_as(float p, const float*) { return p; }
+__device__ __forceinline__ float p_as(float p, const int8_t*) { return p; }
+__device__ __forceinline__ float p_as(float p, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(p));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -187,8 +197,9 @@ __device__ __forceinline__ void paged_attn_body(
       float sum[kDPerLane];
 #pragma unroll
       for (int u = 0; u < kDPerLane; ++u) sum[u] = 0.f;
+      const float pv = p_as(p, vp);
       for (int t = 0; t < ps; ++t) {
-        const float pt = __shfl_sync(kFull, p, t);
+        const float pt = __shfl_sync(kFull, pv, t);
 #pragma unroll
         for (int u = 0; u < kDPerLane; ++u) {
           const int d = lane + 32 * u;
@@ -226,6 +237,20 @@ paged_attn_kernel(const float* __restrict__ q, const float* __restrict__ kp,
   paged_attn_body<float>(q, kp, vp, nullptr, nullptr, block_tables, q_positions,
                          kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, scale,
                          soft_cap, causal);
+}
+
+// K4 with fp32 q over bf16 pools (an fp32 model, a bf16 cache).
+__global__ void __launch_bounds__(kThreads)
+paged_attn_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+                       const __nv_bfloat16* __restrict__ vp,
+                       const int* __restrict__ block_tables,
+                       const int* __restrict__ q_positions,
+                       const int* __restrict__ kv_valid_len, float* __restrict__ out,
+                       int Sq, int H, int Hkv, int D, int Dv, int ps, int nb,
+                       float scale, float soft_cap, int causal) {
+  paged_attn_body<__nv_bfloat16>(q, kp, vp, nullptr, nullptr, block_tables, q_positions,
+                                 kv_valid_len, out, Sq, H, Hkv, D, Dv, ps, nb, scale,
+                                 soft_cap, causal);
 }
 
 // K5 with fp32 q: int8 pools, per-(page, kv head) fp32 scales.
@@ -315,8 +340,9 @@ cudaError_t launch_tc_d(int D, const am::Params& p, const void* kp, const void* 
 }  // namespace
 
 // The CUDA-core instances, fp32 q and output. pool_code: 0 for fp32 pools
-// (K4), 2 for int8 pools (K5, with k_scales/v_scales fp32 (P, Hkv); null
-// otherwise); bf16 q takes paged_attention_tc. H / Hkv any integer.
+// (K4), 1 for bf16 pools (K4 under an fp32 model), 2 for int8 pools (K5,
+// with k_scales/v_scales fp32 (P, Hkv); null otherwise); bf16 q takes
+// paged_attention_tc. H / Hkv any integer.
 // soft_cap <= 0 means none. Returns a cudaError_t; asynchronous on
 // `stream`.
 extern "C" int paged_attention(int pool_code, const void* q, const void* k_pages,
@@ -337,6 +363,11 @@ extern "C" int paged_attention(int pool_code, const void* q, const void* k_pages
         qf, static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
         block_tables, q_positions, kv_valid_len, of, Sq, H, Hkv, D, Dv, ps, nb, scale,
         soft_cap, causal);
+  } else if (pool_code == 1) {
+    paged_attn_bf16_kernel<<<grid, kThreads, 0, s>>>(
+        qf, static_cast<const __nv_bfloat16*>(k_pages),
+        static_cast<const __nv_bfloat16*>(v_pages), block_tables, q_positions, kv_valid_len,
+        of, Sq, H, Hkv, D, Dv, ps, nb, scale, soft_cap, causal);
   } else if (pool_code == 2 && k_scales != nullptr && v_scales != nullptr) {
     paged_attn_int8_kernel<<<grid, kThreads, 0, s>>>(
         qf, static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),

@@ -23,6 +23,15 @@ each counted in ``flash_attention.launches_by_route``, their sum in
                   to :data:`MAX_SPLITS` CTAs of a cluster
                   (:func:`split_count`)
   ``cuda_cores``  fp32 (TF32 stays off): FMA on the CUDA cores
+  ``cuda_cores_bf16kv``  fp32 q over bf16 K/V (an fp32 model serving from
+                  a bf16 cache): the CUDA-core kernel with K/V widened to
+                  fp32 as it stages them, p rounded to bf16 before P·V
+
+bf16 q over fp32 K/V (a bf16 model, an fp32 cache) has no instance of its
+own: q is cast up to fp32 (exact), the fp32 kernel runs on
+``cuda_cores``, and the output is cast back to bf16. That is the
+reference's promotion: its kernel computes in fp32 and writes q's dtype.
+Another CUDA dtype pair raises.
 
 Rows are flat on every route (query position x the heads sharing a kv
 head, in that order), so any GQA group fits: granite-20b's 48 query heads
@@ -41,6 +50,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.forward_only import refuse_grad
 
 NEG_INF = -1e30
 # The kernel's tiling (csrc/flash_attention.cu): keys per block, the head
@@ -51,7 +61,9 @@ BLOCK_K = 32
 HEAD_DIMS = (64, 80, 128)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
-ROUTES = ("rows", "split", "cuda_cores")
+MIXED_ROUTE = "cuda_cores_bf16kv"
+ROUTES = ("rows", "split", "cuda_cores", MIXED_ROUTE)
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the fp32-q kernel's
 # The tensor-core routes (csrc/attn_mma.cuh): rows of the split route's one
 # m16 tile, CTAs of one cluster that may share it.
 SPLIT_ROWS = 16
@@ -67,14 +79,31 @@ SPLIT_TARGET_CTAS = 192
 MIN_SPLIT_KEYS = 256
 
 
-def route_for(dtype: torch.dtype, Sq: int, rep: int) -> str:
+def route_for(dtype: torch.dtype, Sq: int, rep: int,
+              kv_dtype: Optional[torch.dtype] = None) -> str:
     """The route the attention kernels (K3, K4 and K5) take on the card
-    for ``Sq`` query positions of ``rep`` heads per kv head: ``split``
-    (bf16 decode, or one m16 tile holds every row), ``rows`` (bf16) or
-    ``cuda_cores`` (fp32)."""
-    if dtype != torch.bfloat16:
+    for ``Sq`` query positions of ``rep`` heads per kv head, q of
+    ``dtype`` over K/V of ``kv_dtype`` (default: q's; K5's int8 pools pass
+    none): ``split`` (bf16 decode, or one m16 tile holds every row),
+    ``rows`` (bf16), ``cuda_cores`` (fp32 q, or bf16 q cast up over fp32
+    K/V) or :data:`MIXED_ROUTE` (fp32 q over bf16 K/V)."""
+    kv_dtype = kv_dtype or dtype
+    if dtype == torch.float32 and kv_dtype == torch.bfloat16:
+        return MIXED_ROUTE
+    if dtype != torch.bfloat16 or kv_dtype != torch.bfloat16:
         return "cuda_cores"
     return "split" if Sq == 1 or Sq * rep <= SPLIT_ROWS else "rows"
+
+
+def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 what: str) -> None:
+    """Raise unless the card takes q over K/V of these dtypes: fp32 or bf16
+    q over fp32 or bf16 K/V of one dtype."""
+    fp = (torch.float32, torch.bfloat16)
+    if q.dtype not in fp or k.dtype not in fp or v.dtype != k.dtype:
+        raise ValueError(f"the {what} kernels take fp32 or bf16 q over fp32 "
+                         f"or bf16 K/V of one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
 
 
 def split_count(B: int, Hkv: int, n_keys: int) -> int:
@@ -100,7 +129,7 @@ def _lib() -> ctypes.CDLL:
         common = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                   ll, ll, ll, ll, ll, ll, ll, ll, ll, f, f, i, vp]
         # head_dim, v_head_dim (and splits)
-        lib.flash_attention.argtypes = [i, i, *common]
+        lib.flash_attention.argtypes = [i, i, i, *common]
         lib.flash_attention_tc.argtypes = [i, i, i, *common]
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_tc.restype = ctypes.c_int
@@ -187,6 +216,8 @@ def flash_attention(
     soft_cap: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash attention over dense K/V; returns (B, Sq, H, Dv) in q's dtype.
+    fp32 or bf16 q over fp32 or bf16 K/V (:func:`route_for`); forward-only
+    (it raises under autograd: ``kernels/forward_only.py``).
 
     Defaults as the TPU wrapper's: ``q_positions`` is bottom-right aligned,
     ``arange(Sq) + (Sk - Sq)`` (NOT the paged kernel's ``arange``), and
@@ -201,6 +232,7 @@ def flash_attention(
     if tuple(k.shape) != (B, Sk, Hkv, D) or v.shape[0] != B:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} disagree on (B, Sk, Hkv, D)")
+    refuse_grad("flash_attention (K3)", q, k, v)
     dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if Sk == 0:
@@ -211,10 +243,7 @@ def flash_attention(
             causal=causal, scale=scale, soft_cap=soft_cap)
     if dev.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {dev}")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or {k.dtype, v.dtype} != {q.dtype}:
-        raise ValueError(f"the kernel takes fp32 or bf16 q, k and v of one "
-                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    check_dtypes(q, k, v, "flash attention")
     if (D, Dv) not in HEAD_DIM_PAIRS:
         raise ValueError(
             f"head dims ({D}, {Dv}): the flash attention kernel is built for "
@@ -222,11 +251,15 @@ def flash_attention(
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    route = route_for(q.dtype, Sq, H // Hkv)
+    route = route_for(q.dtype, Sq, H // Hkv, k.dtype)
+    out_dtype = q.dtype
+    if route == "cuda_cores":
+        q = q.float()                # bf16 q over fp32 K/V: exact
     splits = split_count(B, Hkv, Sk) if route == "split" else 0
     if route == "split" and not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"split count {splits} outside 1..{MAX_SPLITS}")
-    if route == "cuda_cores":
+    tc = route in ("rows", "split")
+    if not tc:
         q_positions, kv_valid_len = _resolve(q_positions, kv_valid_len, B, Sq,
                                              Sk, dev)
     # the tensor-core kernels take a missing q_positions or kv_valid_len as
@@ -244,16 +277,16 @@ def flash_attention(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
             float(soft_cap or 0.0), int(causal),
             torch.cuda.current_stream(dev).cuda_stream)
-    if route == "cuda_cores":
-        err = lib.flash_attention(D, Dv, *args)
-    else:
+    if tc:
         err = lib.flash_attention_tc(D, Dv, splits, *args)
+    else:
+        err = lib.flash_attention(_KV_CODES[k.dtype], D, Dv, *args)
     if err:
         raise RuntimeError(f"flash_attention launch failed ({route} route): "
                            f"{lib.fa_error_string(err).decode()}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
-    return out
+    return out.to(out_dtype)
 
 
 flash_attention.launches = 0

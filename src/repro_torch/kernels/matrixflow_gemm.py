@@ -22,6 +22,13 @@ counted on the wrapper apart:
   ``cuda_core``  fp32 (TF32 stays off) and int8 → int32: FMA and integer
                  MACs on the CUDA cores (``.cuda_core_launches``)
 
+K1 also takes a batch of problems of one geometry in one launch (a grid
+axis over the batch, as a ``vmap`` of the TPU kernel adds one): the
+unfused attention's score and value products, B x H of them a layer, on
+the ``wgmma`` and ``cuda_core`` routes (``.batched_launches``). K1 is its
+own backward (``core/api.py``: dA = dC·Bᵀ and dB = Aᵀ·dC are K1 launches);
+a launch made for a gradient also counts in ``.backward_launches``.
+
 K2 takes the two tensor-core routes with int8 operands (s8 ``wgmma`` at
 bm = 64, s8 ``mma.sync`` at bm = 16 and 32, the same tiles and splits,
 :func:`tc_tile`), counted on its wrapper as ``.wgmma_launches`` and
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch.core import layout as L
 from repro_torch.kernels import _build
+from repro_torch.kernels.forward_only import refuse_grad
 from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref
 
 # Plain version of the kernels (Algorithm 1, K innermost; with scales, K2).
@@ -61,6 +69,8 @@ WGMMA_TILES = ((2, 256, 2.0), (2, 128, 1.0), (1, 128, 0.5), (1, 64, 0.0))
 # models on an H100 (scripts/torch_gemm_tiles.py), the splits ran fastest
 # near 160-200 CTAs, not at the 264 that two resident CTAs an SM hold.
 MMA_TARGET_CTAS = 192
+# Problems one batched launch takes (the grid's z axis).
+MAX_BATCH = 65535
 
 
 def route_for(dtype: torch.dtype, bm: int, *, dequant: bool = False) -> str:
@@ -108,10 +118,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("matrixflow_gemm")
     if lib.mf_gemm.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.mf_gemm.argtypes = [i, i, i, i, vp, vp, vp, i, i, i, i, vp]
+        lib.mf_gemm.argtypes = [i, i, i, i, vp, vp, vp, i, i, i, i, i, vp]
         lib.mf_gemm.restype = ctypes.c_int
         lib.mf_gemm_tc.argtypes = [i, i, i, i, i, i, vp, vp, vp, i, i, i, i,
-                                   vp]
+                                   i, vp]
         lib.mf_gemm_tc.restype = ctypes.c_int
         lib.mf_gemm_dequant.argtypes = [i, i, i, i, i, i, vp, vp, vp, i,
                                         vp, i, vp, i, i, i, i, vp]
@@ -121,12 +131,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_operands(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
-    if a_bm.dim() != 4 or b_bm.dim() != 4:
-        raise ValueError(f"block-major operands must be 4-D, got "
+def _check_operands(a_bm: torch.Tensor, b_bm: torch.Tensor,
+                    batched: bool = False) -> None:
+    nd = 5 if batched else 4
+    if a_bm.dim() != nd or b_bm.dim() != nd:
+        raise ValueError(f"block-major operands must be {nd}-D, got "
                          f"{tuple(a_bm.shape)} and {tuple(b_bm.shape)}")
-    nbm, nbk, bm, bk = a_bm.shape
-    nbn, nbk2, bk2, bn = b_bm.shape
+    if batched and a_bm.shape[0] != b_bm.shape[0]:
+        raise ValueError(f"batches differ: {a_bm.shape[0]} and "
+                         f"{b_bm.shape[0]} problems")
+    nbm, nbk, bm, bk = a_bm.shape[-4:]
+    nbn, nbk2, bk2, bn = b_bm.shape[-4:]
     if (nbk, bk) != (nbk2, bk2):
         raise ValueError(
             f"block-major operands disagree on the K stream: a_bm "
@@ -142,7 +157,7 @@ def _check_launch(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
     """What the CUDA kernels take beyond :func:`_check_operands`."""
     if a_bm.device.type != "cuda":
         raise ValueError(f"no MatrixFlow GEMM for device {a_bm.device}")
-    bm, bk, bn = a_bm.shape[2], a_bm.shape[3], b_bm.shape[3]
+    bm, bk, bn = a_bm.shape[-2], a_bm.shape[-1], b_bm.shape[-1]
     if bm not in L.BM_CHOICES or bn not in L.BN_CHOICES or bk % L.K_SLICE:
         raise ValueError(
             f"block geometry (bm={bm}, bn={bn}, bk={bk}) is not one the "
@@ -164,15 +179,23 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 def matrixflow_gemm_block_major(
     a_bm: torch.Tensor, b_bm: torch.Tensor, *,
     out_dtype: Optional[torch.dtype] = None,
+    backward: bool = False,
 ) -> torch.Tensor:
     """C_bm = A_bm @ B_bm over MatrixFlow block-major operands (K1).
 
     a_bm (nbm, nbk, bm, bk), b_bm (nbn, nbk, bk, bn) → C_bm (nbm, nbn, bm,
-    bn). Accumulates in fp32 (int32 for int8); ``out_dtype`` defaults to
-    the accumulator dtype, as in the TPU kernel. On the card bf16 operands
-    run on the tensor cores (:func:`route_for`), others on the CUDA cores.
+    bn); with a leading batch dim on both, (G, ...) → (G, nbm, nbn, bm,
+    bn), G problems in one launch. Accumulates in fp32 (int32 for int8);
+    ``out_dtype`` defaults to the accumulator dtype, as in the TPU kernel.
+    On the card bf16 operands run on the tensor cores (:func:`route_for`),
+    others on the CUDA cores; a batch takes the ``wgmma`` or ``cuda_core``
+    route. ``backward`` marks a launch made for a gradient
+    (``core/api.py``), counted also in ``.backward_launches``. The
+    operands carry no autograd history: ``core/api.py`` wraps this call in
+    the autograd Function whose backward is this call again.
     """
-    _check_operands(a_bm, b_bm)
+    batched = a_bm.dim() == 5
+    _check_operands(a_bm, b_bm, batched)
     out_dtype = out_dtype or acc_dtype_for(a_bm.dtype)
     if a_bm.device.type == "cpu":
         return plain(a_bm, b_bm, out_dtype=out_dtype)
@@ -181,26 +204,33 @@ def matrixflow_gemm_block_major(
         raise ValueError(f"the kernel takes {sorted(map(str, _PAIRS))} "
                          f"(input, output) dtypes, not ({a_bm.dtype}, "
                          f"{out_dtype})")
-    nbm, nbk, bm, bk = a_bm.shape
-    nbn, bn = b_bm.shape[0], b_bm.shape[3]
-    c_bm = torch.empty((nbm, nbn, bm, bn), dtype=out_dtype,
-                       device=a_bm.device)
+    G = a_bm.shape[0] if batched else 1
+    nbm, nbk, bm, bk = a_bm.shape[-4:]
+    nbn, bn = b_bm.shape[-4], b_bm.shape[-1]
+    route = route_for(a_bm.dtype, bm)
+    if batched and (route == "mma" or not 1 <= G <= MAX_BATCH):
+        raise ValueError(f"a batch of {G} problems at bm={bm}: batched "
+                         f"launches take the wgmma and cuda_core routes and "
+                         f"1..{MAX_BATCH} problems")
+    c_bm = torch.empty((*a_bm.shape[:-4], nbm, nbn, bm, bn),
+                       dtype=out_dtype, device=a_bm.device)
     lib = _lib()
     stream = torch.cuda.current_stream(a_bm.device).cuda_stream
-    route = route_for(a_bm.dtype, bm)
     if route == "cuda_core":
         err = lib.mf_gemm(_IN_CODES[a_bm.dtype], _OUT_CODES[out_dtype], bm,
                           bn, a_bm.data_ptr(), b_bm.data_ptr(),
-                          c_bm.data_ptr(), nbm, nbn, nbk, bk, stream)
+                          c_bm.data_ptr(), nbm, nbn, nbk, bk, G, stream)
     else:
         gm, tn, splits = tc_tile(bm, bn, nbm, nbn, nbk, bk)
         err = lib.mf_gemm_tc(_OUT_CODES[out_dtype], bm, bn, gm, tn, splits,
                              a_bm.data_ptr(), b_bm.data_ptr(),
-                             c_bm.data_ptr(), nbm, nbn, nbk, bk, stream)
+                             c_bm.data_ptr(), nbm, nbn, nbk, bk, G, stream)
     _raise_on(err, lib, f"matrixflow_gemm ({route} route)")
     fn = matrixflow_gemm_block_major
     fn.launches += 1
     setattr(fn, f"{route}_launches", getattr(fn, f"{route}_launches") + 1)
+    fn.batched_launches += batched
+    fn.backward_launches += backward
     return c_bm
 
 
@@ -208,6 +238,8 @@ matrixflow_gemm_block_major.launches = 0
 matrixflow_gemm_block_major.wgmma_launches = 0
 matrixflow_gemm_block_major.mma_launches = 0
 matrixflow_gemm_block_major.cuda_core_launches = 0
+matrixflow_gemm_block_major.batched_launches = 0
+matrixflow_gemm_block_major.backward_launches = 0
 
 
 def matrixflow_gemm_dequant(
@@ -226,6 +258,8 @@ def matrixflow_gemm_dequant(
     the card it runs on the tensor cores (:func:`route_for` with
     ``dequant=True``, :func:`tc_tile`), bitwise equal to the plain version.
     """
+    refuse_grad("matrixflow_gemm_dequant (K2)", scale_a, scale_b,
+                remedy="the W8A8 route has no backward")
     _check_operands(a_bm, b_bm)
     if a_bm.dtype != torch.int8:
         raise ValueError(f"the dequant GEMM takes int8 operands, got "

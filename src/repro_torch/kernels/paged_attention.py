@@ -19,7 +19,9 @@ q's dtype, counted in ``paged_attention.launches_by_route`` (K4) and
 ``paged_attention.launches_int8_by_route`` (K5): bf16 q on ``split``
 (decode: the keys of each (batch row, kv head) split over warps and
 cluster CTAs, :func:`~repro_torch.kernels.flash_attention.split_count`)
-or ``rows`` (prefill buckets, chunks), fp32 q on ``cuda_cores``. On both
+or ``rows`` (prefill buckets, chunks), fp32 q on ``cuda_cores`` (over
+bf16 pools, an fp32 model with a bf16 cache, on ``cuda_cores_bf16kv``;
+bf16 q over fp32 pools is cast up to fp32 and its output back). On both
 bf16 routes a CTA holds one m16 tile of rows and walks its keys the same
 way, so a row gets the same bits on either (below 512 keys, where the
 split route takes one CTA a tile): a preempted request's re-prefill and a
@@ -37,9 +39,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (MAX_SPLITS, ROUTES,
-                                                 _aligned, route_for,
+from repro_torch.kernels.flash_attention import (MAX_SPLITS, MIXED_ROUTE,
+                                                 ROUTES, _aligned,
+                                                 check_dtypes, route_for,
                                                  split_count)
+from repro_torch.kernels.forward_only import refuse_grad
 
 NEG_INF = -1e30
 # Limits of the kernels' tiling (csrc/paged_attention.cu).
@@ -51,7 +55,8 @@ TC_PAGE_SIZES = (8, 16, 32)
 TC_HEAD_DIM_STEP = 16
 MAX_TABLE = 4096
 
-_INT8_POOL = 2     # the CUDA-core kernel's pool code of int8 pages (K5)
+# The CUDA-core kernel's pool codes: fp32 and bf16 pages (K4), int8 (K5).
+_POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _lib() -> ctypes.CDLL:
@@ -159,7 +164,9 @@ def paged_attention(
     length are never read. int8 pools need ``kv_scales``: each page's
     (page, kv head) scale rides the same block-table indirection as the
     page, and the recurrence runs in fp32 on the dequantized values.
+    Forward-only: it raises under autograd (``kernels/forward_only.py``).
     """
+    refuse_grad("paged_attention (K4/K5)", q, k_pages, v_pages)
     B, Sq, H, D = q.shape
     P, ps, Hkv, Dv = v_pages.shape
     if Hkv < 1 or H % Hkv:
@@ -207,18 +214,21 @@ def paged_attention(
                                      soft_cap=soft_cap, kv_scales=kv_scales)
     if dev.type != "cuda":
         raise ValueError(f"no paged attention kernel for device {dev}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-            quantized or {k_pages.dtype, v_pages.dtype} == {q.dtype}):
-        raise ValueError(f"the kernels take fp32 or bf16 q with pools of "
-                         f"q's dtype or int8, got {q.dtype}, "
-                         f"{k_pages.dtype}, {v_pages.dtype}")
+    if not quantized:
+        check_dtypes(q, k_pages, v_pages, "paged attention")
+    elif q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"int8 pools take fp32 or bf16 q, got {q.dtype}")
     rep = H // Hkv
     if ps > MAX_PAGE_SIZE or max(D, Dv) > MAX_HEAD_DIM:
         raise ValueError(
             f"page_size={ps}, head dims ({D}, {Dv}) exceed the kernel's "
             f"limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM})")
-    route = route_for(q.dtype, Sq, rep)
+    route = route_for(q.dtype, Sq, rep, None if quantized else
+                      k_pages.dtype)
     tc = route in ("rows", "split")       # the tensor-core instances
+    out_dtype = q.dtype
+    if route == "cuda_cores":
+        q = q.float()                # bf16 q over fp32 pools: exact
     check_tc_geometry(route, ps, D, Dv, nb)
     splits = split_count(B, Hkv, nb * ps) if route == "split" else 0
     if route == "split" and not 1 <= splits <= MAX_SPLITS:
@@ -254,7 +264,7 @@ def paged_attention(
             Hkv, nb, float(scale), float(soft_cap or 0.0), int(causal), stream)
     else:
         err = lib.paged_attention(
-            _INT8_POOL if quantized else 0, q.data_ptr(),
+            _POOL_CODES[k_pages.dtype], q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), ks_ptr, vs_ptr,
             block_tables.data_ptr(), qpos.data_ptr(), kvl.data_ptr(),
             out.data_ptr(), B, Sq, H, Hkv, D, Dv, ps, nb, float(scale),
@@ -269,13 +279,14 @@ def paged_attention(
     else:
         paged_attention.launches += 1
         paged_attention.launches_by_route[route] += 1
-    return out
+    return out.to(out_dtype)
 
 
 paged_attention.launches = 0        # K4: fp pools
 paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
-paged_attention.launches_int8 = 0   # K5: int8 pools
-paged_attention.launches_int8_by_route = dict.fromkeys(ROUTES, 0)
+paged_attention.launches_int8 = 0   # K5: int8 pools (no bf16-K/V route)
+paged_attention.launches_int8_by_route = dict.fromkeys(
+    (r for r in ROUTES if r != MIXED_ROUTE), 0)
 
 
 

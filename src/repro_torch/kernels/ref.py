@@ -55,25 +55,28 @@ def block_matmul_ref(a_bm: torch.Tensor, b_bm: torch.Tensor, *,
     """C_bm = A_bm @ B_bm over block-major operands (Algorithm 1).
 
     a_bm (nbm, nbk, bm, bk), b_bm (nbn, nbk, bk, bn) → C_bm (nbm, nbn, bm,
-    bn) in ``out_dtype`` (default: the accumulator dtype).
+    bn) in ``out_dtype`` (default: the accumulator dtype); a leading batch
+    dim on both operands runs one problem per batch entry.
 
     ``scale_a`` (≤ nbm·bm rows) / ``scale_b`` (≤ nbn·bn channels) make it
     the dequant-fused int8 GEMM: the int32 accumulator becomes
     ``float(c) * s_a[m] * s_b[n]``, the two fp32 products in that order,
     then ``out_dtype`` (default fp32).
     """
-    nbm, nbk, bm, bk = a_bm.shape
-    nbn, nbk2, bk2, bn = b_bm.shape
+    *lead, nbm, nbk, bm, bk = a_bm.shape
+    nbn, nbk2, bk2, bn = b_bm.shape[-4:]
     if (nbk, bk) != (nbk2, bk2):
         raise ValueError(
             f"block-major operands disagree on the K stream: a_bm "
             f"{tuple(a_bm.shape)} vs b_bm {tuple(b_bm.shape)}")
     acc = acc_dtype_for(a_bm.dtype)
     work = _work_dtype(acc)
-    c = torch.zeros((nbm, nbn, bm, bn), dtype=work, device=a_bm.device)
+    c = torch.zeros((*lead, nbm, nbn, bm, bn), dtype=work,
+                    device=a_bm.device)
     for k in range(nbk):               # the K stream, innermost in Alg. 1
-        c += torch.einsum("iab,jbc->ijac", a_bm[:, k].to(work),
-                          b_bm[:, k].to(work))
+        c += torch.einsum("...iab,...jbc->...ijac",
+                          a_bm.select(-3, k).to(work),
+                          b_bm.select(-3, k).to(work))
     if scale_a is None and scale_b is None:
         return c.to(out_dtype or acc)
     if acc != torch.int32:

@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.forward_only import refuse_grad
 from repro_torch.kernels.ref import ssd_chunk_size
 from repro_torch.kernels.ref import ssd_chunked_ref as ssd_scan_plain
 
@@ -139,7 +140,12 @@ def ssd_scan(x: torch.Tensor,          # (B, S, H, P)
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The chunked SSD scan with chunks of ``ssd_chunk_size(S, chunk)``
     steps. Returns (y (B, S, H, P) in x's dtype, the fp32 state (B, H, P,
-    N) after the last chunk, or None when ``final_state`` is False)."""
+    N) after the last chunk, or None when ``final_state`` is False).
+    Forward-only: it raises under autograd (``kernels/forward_only.py``);
+    ``models/ssm.py`` trains through :func:`ssd_scan_plain` on the CPU."""
+    refuse_grad("ssd_scan (K6)", x, dt, A, Bc, Cc,
+                remedy="SSD training on a CUDA device is not ported "
+                       "(ROADMAP.md queue 3)")
     _check_shapes(x, dt, A, Bc, Cc)
     dev = x.device
     if dev.type == "cpu":

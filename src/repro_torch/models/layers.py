@@ -128,9 +128,11 @@ def _contiguous_cache_update(cache, new, positions):
     columns go to the sink column. Decode (S == 1) writes each row's one
     position by a one-hot select, as the reference does; a position −1
     row matches no column and writes nothing. Either way a masked row
-    leaves its cache and ``len`` untouched."""
+    leaves its cache and ``len`` untouched. The rows are cast to the
+    cache's dtype (an fp32 model may serve from a bf16 cache)."""
     B, S = positions.shape
     T = cache[next(iter(new))].shape[1] - 1
+    new = {name: t.to(cache[name].dtype) for name, t in new.items()}
     if S > 1:
         rows = torch.arange(B, device=positions.device)[:, None].expand(B, S)
         cols = torch.where(positions >= 0, positions,
@@ -188,7 +190,8 @@ def _paged_cache_update(cache, k, v, positions, block_tables):
     positions in order, so a reused page's stale scale is overwritten
     before any row depends on it, and the payload is a pure function of
     the page's content — the same written token by token or in bulk, which
-    keeps streams identical across preempt/resume.
+    keeps streams identical across preempt/resume. An fp pool stores the
+    rows cast to its dtype (an fp32 model may serve from a bf16 cache).
     """
     B, S = positions.shape
     P, ps, Hkv, dh = cache["kp"].shape
@@ -207,6 +210,8 @@ def _paged_cache_update(cache, k, v, positions, block_tables):
             scales[est_page] = Q.kv_write_scale(t.reshape(B * S, Hkv, dh))
             new.append(Q.quantize_kv_rows(t, scales[page]))
         k, v = new
+    else:
+        k, v = k.to(cache["kp"].dtype), v.to(cache["vp"].dtype)
     flat = torch.where(keep, page * ps + pos % ps, sink * ps).reshape(-1)
     cache["kp"].view(P * ps, Hkv, dh)[flat] = k.reshape(B * S, Hkv, dh)
     cache["vp"].view(P * ps, Hkv, dh)[flat] = v.reshape(B * S, Hkv, dh)

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import api
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.forward_only import needs_grad
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.module import dense_init, norm_init
@@ -77,9 +78,14 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def ssd_chunked(x, dt, A, Bc, Cc, chunk: int = 128, final_state: bool = True):
     """Chunked SSD scan. x (B, S, H, P), dt (B, S, H), A (H,), Bc/Cc
     (B, S, N); fp32 internals. Returns (y, the fp32 state (B, H, P, N)
-    after the last step, or None when ``final_state`` is False)."""
-    return ssd_scan(x, dt.float(), A.float(), Bc, Cc, chunk=chunk,
-                    final_state=final_state)
+    after the last step, or None when ``final_state`` is False). Under
+    autograd on the CPU the plain scan runs (differentiable); the kernel
+    K6, forward-only like the reference's, refuses a gradient."""
+    dt, A = dt.float(), A.float()
+    if x.device.type == "cpu" and needs_grad(x, dt, A, Bc, Cc):
+        return ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk,
+                              final_state=final_state)
+    return ssd_scan(x, dt, A, Bc, Cc, chunk=chunk, final_state=final_state)
 
 
 def ssd_decode_step(x, dt, A, Bc, Cc, state):

@@ -11,6 +11,13 @@ stacks them and scans). ``first_dense_layers`` leading layers
 (``dense_layer{i}``, with an MLP in place of the experts) run before the
 stack, and their caches come first in the cache list. A hybrid applies its
 one weight-shared attention block after every ``attn_every`` SSD layers.
+
+Training: ``forward`` returns the MoE load-balance loss summed over the
+layers, and ``lm_loss`` the reference's next-token loss. With ``cfg.remat``
+each block of a cache-less forward under autograd runs through
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` per scanned
+layer): its activations are recomputed in the backward pass, which
+changes memory, never a value.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import dataclasses
 from typing import Dict, List, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import api
@@ -159,28 +167,46 @@ def embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 def _apply_block(p, cfg: ModelConfig, x, *, positions, cache=None,
-                 block_tables=None) -> torch.Tensor:
+                 block_tables=None):
     """One layer, residuals included: an SSD block (``"ssd" in p``) or
-    attention (GQA, or MLA) + MLP (or the experts; their aux loss is
-    dropped until training is ported). A cache is updated in place."""
+    attention (GQA, or MLA) + MLP (or the experts). Returns (x, the
+    experts' load-balance loss, or None without experts). A cache is
+    updated in place."""
     if "ssd" in p:
         h, _ = SSM.ssd_block(p["ssd"], cfg, Lyr.rmsnorm(p["mix_norm"], x),
                              cache=cache)
-        return x + h
+        return x + h, None
     attn = Lyr.mla_attention if cfg.is_mla else Lyr.attention
     h, _ = attn(p["attn"], cfg, Lyr.apply_norm(cfg, p["attn_norm"], x),
                 positions=positions, cache=cache, block_tables=block_tables)
     x = x + h
     h = Lyr.apply_norm(cfg, p["mlp_norm"], x)
     if "moe" in p:
-        return x + Lyr.moe(p["moe"], cfg, h)[0]
-    return x + Lyr.mlp(p["mlp"], cfg, h)
+        y, aux = Lyr.moe(p["moe"], cfg, h)
+        return x + y, aux
+    return x + Lyr.mlp(p["mlp"], cfg, h), None
+
+
+def _use_remat(cfg: ModelConfig, caches) -> bool:
+    """Whether blocks recompute their activations in the backward pass:
+    ``cfg.remat`` unless ``remat_policy`` is "none", and only for a
+    cache-less forward under autograd (a serving step has no backward).
+    ``"dots"`` (save the GEMM outputs) is not ported."""
+    if not cfg.remat or cfg.remat_policy == "none" or caches is not None \
+            or not torch.is_grad_enabled():
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
+            f"blocks ('full') or nothing ('none'); saving the GEMM outputs "
+            f"('dots') is not ported (ROADMAP.md queue 3)")
+    return True
 
 
 def forward(params, cfg: ModelConfig, batch, *,
             caches: Optional[List[Dict]] = None,
             last_cols: Optional[torch.Tensor] = None):
-    """Returns (logits, caches). ``batch``: tokens (B, S), (B, S,
+    """Returns (logits, caches, aux). ``batch``: tokens (B, S), (B, S,
     n_codebooks) for audio, or embeds (B, S, d_model), or (vlm) embeds (B,
     S_e, d_model) and tokens (B, S) for S_e + S columns [+ positions and
     block_tables (B, n_blocks) over all columns]. ``caches`` — from
@@ -189,7 +215,11 @@ def forward(params, cfg: ModelConfig, batch, *,
     blocks scan the batch from a zero state). ``last_cols`` (B,) keeps only
     column ``last_cols[b]`` of each row before the final norm and head, so
     logits are (B, 1, vocab): the serving prefill reads just each row's
-    last real token. Audio logits are (B, S, n_codebooks, vocab)."""
+    last real token. Audio logits are (B, S, n_codebooks, vocab). ``aux``
+    is the experts' load-balance loss summed over the layers (fp32, 0
+    without experts; a hybrid's shared block adds none, as in the
+    reference). ``cfg.remat`` recomputes each block in the backward pass
+    (:func:`_use_remat`)."""
     x = embed_tokens(params, cfg, batch)
     B, S = x.shape[:2]
     positions = batch.get("positions")
@@ -199,27 +229,73 @@ def forward(params, cfg: ModelConfig, batch, *,
     layers = params["layers"]
     nd = cfg.first_dense_layers
     L = nd + len(layers)
+    use_remat = _use_remat(cfg, caches)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    gemm, attn = api.current_policy(), api.current_attention_policy()
+
+    def recompute(p, c, cache):
+        # the backward pass (and so the recompute) may run on autograd's
+        # device thread, where the thread-local policies are the defaults
+        def run(x_):
+            with api.use_policy(gemm), api.use_attention_policy(attn):
+                return _apply_block(p, c, x_, cache=cache, **kw)
+        return run
+
+    def block(p, c, x, cache):
+        if use_remat:
+            return checkpoint(recompute(p, c, cache), x, use_reentrant=False)
+        return _apply_block(p, c, x, cache=cache, **kw)
 
     def cache(i):
         return None if caches is None else caches[i]
 
     for i in range(nd):                # deepseek's leading dense layers
-        x = _apply_block(params[f"dense_layer{i}"], _dense_cfg(cfg), x,
-                         cache=cache(i), **kw)
+        x, _ = block(params[f"dense_layer{i}"], _dense_cfg(cfg), x, cache(i))
     for i, lp in enumerate(layers):
-        x = _apply_block(lp, cfg, x, cache=cache(nd + i), **kw)
+        x, aux_i = block(lp, cfg, x, cache(nd + i))
+        if aux_i is not None:
+            aux = aux + aux_i
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             # the hybrid's shared block closes each group; its caches
             # follow the L layer caches, one per group
-            x = _apply_block(params["shared_attn"], cfg, x,
-                             cache=cache(L + i // cfg.attn_every), **kw)
+            x, _ = block(params["shared_attn"], cfg, x,
+                         cache(L + i // cfg.attn_every))
     if last_cols is not None:
         x = x[torch.arange(B, device=x.device), last_cols][:, None]
     x = Lyr.apply_norm(cfg, params["final_norm"], x)
     logits = api.linear(x, params["head"])
     if cfg.n_codebooks:
         logits = logits.reshape(*x.shape[:2], cfg.n_codebooks, cfg.vocab)
-    return logits, caches
+    return logits, caches, aux
+
+
+def lm_loss(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
+    """The reference's training loss (``transformer.lm_loss``): the mean
+    next-token cross-entropy in fp32, plus ``aux_weight`` times the experts'
+    load-balance loss. Audio predicts every codebook of the next frame;
+    the VLM's image-embedding columns predict nothing; explicit
+    ``batch["labels"]`` label every text column. Returns (loss, {"ce",
+    "aux"})."""
+    logits, _, aux = forward(params, cfg, batch)
+    tokens = batch["tokens"]
+    if cfg.n_codebooks:
+        labels = tokens[:, 1:, :]
+        lg = logits[:, :-1]
+    else:
+        labels = batch.get("labels")
+        # vlm: image embeds occupy the first positions; only text predicts
+        n_img = (batch["embeds"].shape[1]
+                 if batch.get("embeds") is not None else 0)
+        if labels is None:
+            labels = tokens[:, 1:]
+            lg = logits[:, n_img:-1]
+        else:
+            lg = logits[:, n_img:]
+    logp = torch.log_softmax(lg.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])
+    loss = torch.mean(nll)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -301,5 +377,5 @@ def encoder_forward(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """BERT/ViT: the bidirectional encoder over the whole batch (no cache);
     ViT consumes stubbed patch embeddings (``batch["embeds"]``). Returns
     logits (B, S, vocab) — the head runs over every position."""
-    logits, _ = forward(params, cfg, batch)
+    logits, _, _ = forward(params, cfg, batch)
     return logits

@@ -1,0 +1,2 @@
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update  # noqa: F401
+from repro_torch.optim.schedule import cosine_schedule  # noqa: F401

@@ -84,7 +84,7 @@ from repro_torch import resolve_device
 from repro_torch.core import api
 from repro_torch.core.plan import AttentionPolicy, GemmPolicy
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.config import ModelConfig
 from repro_torch.obs import NULL_OBS, Observability, RequestTrace
 from repro_torch.obs.metrics import TIME_BUCKETS_S, json_scalars
 from repro_torch.serving.kv_pool import BlockTable, PagePool
@@ -186,11 +186,6 @@ class ServingEngine:
                 f"token a step, and the reference's engine serves no "
                 f"multi-codebook model either; run transformer.forward over "
                 f"init_caches or init_paged_caches")
-        if torch_dtype(sc.cache_dtype) != cfg.param_dtype:
-            raise NotImplementedError(
-                f"cache_dtype={sc.cache_dtype!r} differs from the model's "
-                f"{cfg.dtype!r}: the attention kernels read q and the cache "
-                f"in one dtype; mixed dtypes are not ported (ROADMAP.md)")
         self.ssd = cfg.family in T.SSD_FAMILIES
         self.spec = sc.spec
         if self.spec is not None:
@@ -383,7 +378,7 @@ class ServingEngine:
         if self.paged:
             batch["block_tables"] = self._dev(self.block_tables)
         with self._scope():
-            logits, _ = T.forward(
+            logits, _, _ = T.forward(
                 self.params, self.cfg, batch, caches=self.caches,
                 last_cols=None if last_cols is None else self._dev(last_cols))
         return logits

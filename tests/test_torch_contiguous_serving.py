@@ -162,7 +162,7 @@ def test_dense_forward_through_paged_fallback(setup):
         want, _, _ = JT.forward(jparams, jcfg,
                                 {"tokens": jnp.asarray(tokens)}, remat=False)
     with torch.no_grad(), api.use_attention_policy(PAGED):
-        got, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
+        got, _, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                *TOLS["float32"])
 

@@ -25,7 +25,12 @@ would import JAX) plus two full-width smollm-135m projections; the
 attention tolerances are its ATTN_TOLS. The flash attention shapes are the
 full-width encoders' (bert-base S 128, vit-base S 197, vit-huge S 257 at
 head_dim 80), smollm-135m's contiguous decode and prefill, and MLA's q/k
-head dim 192 with v head dim 128 (``-k mla``).
+head dim 192 with v head dim 128 (``-k mla``). Training and mixed dtypes
+(``-k "mixed or batch_grid or function_grads or on_card or bf16_cache"``):
+K1's batch grid and its autograd Function at smollm-135m's training
+shapes, K3's and K4's fp32-q over bf16-K/V instances (and bf16 q over
+fp32 K/V), an fp32 model's engine over bf16 and int8 caches, and the
+forward-only wrappers refusing a gradient.
 """
 import numpy as np
 import pytest
@@ -1622,3 +1627,258 @@ def test_ssm_engine_on_card_matches_cpu_plain(cuda, arch, kw):
         if device == "cuda":
             assert K6.ssd_scan.launches == before + 2 * cfg.n_layers
     assert results[0] == results[1]
+
+
+# ---------------------------------------------------------------------------
+# Mixed cache and model dtypes: fp32 q over bf16 K/V (K3, K4), and bf16 q
+# over fp32 K/V (cast up to fp32, the output back to bf16)
+# ---------------------------------------------------------------------------
+
+MIXED_FLASH = ("decode_rep3_ragged_masked", "prefill_bucket_masked_rows",
+               "chunk_offset", "qwen2_decode_d128_rep6")
+MIXED_PAGED = (
+    (8, 1, 9, 3, 64, 16, (17, 200, 64, 1, 33, 128, 255, 90),
+     (16, 199, 63, 0, 32, 127, 254, 89)),
+    (8, 64, 9, 3, 64, 16, (64, 16, 40, 1, 63, 0, 20, 64),
+     (0, 0, 0, 0, 0, -1, 0, 0)),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("float32", "bfloat16"),
+                                              ("bfloat16", "float32")])
+@pytest.mark.parametrize("case", MIXED_FLASH, ids=str)
+def test_flash_attention_mixed_dtypes_match_plain(cuda, q_dtype, kv_dtype,
+                                                  case):
+    """K3 with a cache in another dtype than q, at decode and prefill:
+    fp32 q over bf16 K/V on its own instance (``cuda_cores_bf16kv``), bf16
+    q over fp32 K/V on the fp32 instance with q cast up; the output in q's
+    dtype, within ATTN_TOLS of the plain version (:func:`_mixed_close`)."""
+    B, Sq, Sk, H, Hkv, D, causal, starts, lens = FLASH_CASES[case]
+    q, k, v, qpos, kvl = _flash_inputs(cuda, "float32", B, Sq, Sk, H, Hkv,
+                                       D, starts, lens)
+    q = q.to(getattr(torch, q_dtype))
+    k, v = (t.to(getattr(torch, kv_dtype)) for t in (k, v))
+    route = FA.route_for(q.dtype, Sq, H // Hkv, k.dtype)
+    assert route == (FA.MIXED_ROUTE if q_dtype == "float32" else "cuda_cores")
+    by_route = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v, qpos, kvl, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route == {
+        r: n + (r == route) for r, n in by_route.items()}
+    assert got.dtype == q.dtype
+    qpos_r = qpos if qpos is not None else (
+        torch.arange(Sq, device=cuda) + (Sk - Sq)).expand(B, Sq).to(torch.int32)
+    kvl_r = kvl if kvl is not None else torch.full(
+        (B,), Sk, dtype=torch.int32, device=cuda)
+    want = FA.flash_attention_plain(q, k, v, qpos_r, kvl_r, causal=causal,
+                                    scale=D ** -0.5, soft_cap=None)
+    _mixed_close(got, want)
+
+
+def _mixed_close(got, want):
+    """Kernel against plain version with q and K/V of two dtypes. Either
+    way one operand of P·V is bf16 (p rounded to bf16 over bf16 V, as the
+    reference's p.astype(v.dtype); or the output rounded to bf16), so
+    ATTN_TOLS["bfloat16"]. Over bf16 V both sides round p from fp32 scores
+    summed in other orders, and a p on a rounding boundary takes the other
+    bf16 neighbour (an ulp, 2⁻⁷ relative, on rare elements: 93 of 147,456
+    outputs past the fp32 tolerance in the prefill case on an H100): all
+    but 1% of the elements must also hold the fp32 tolerance."""
+    atol, rtol = ATTN_TOLS["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if got.dtype == torch.float32:
+        atol, rtol = ATTN_TOLS["float32"]
+        off = (got - want).abs() > atol + rtol * want.abs()
+        assert float(off.float().mean()) <= 0.01, int(off.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("float32", "bfloat16"),
+                                              ("bfloat16", "float32")])
+@pytest.mark.parametrize("case", MIXED_PAGED, ids=["decode", "prefill"])
+def test_paged_attention_mixed_dtypes_match_plain(cuda, q_dtype, kv_dtype,
+                                                  case):
+    """K4 with pools in another dtype than q: fp32 q over bf16 pools on
+    ``paged_attn_bf16_kernel`` (``cuda_cores_bf16kv``), bf16 q over fp32
+    pools on the fp32 kernel with q cast up; within ATTN_TOLS of the plain
+    version (:func:`_mixed_close`)."""
+    B, Sq, H, Hkv, D, ps, lens, starts = case
+    q, kp, vp, bt, qpos, kvl = _paged_inputs(cuda, kv_dtype, B, Sq, H, Hkv,
+                                             D, ps, lens, starts)
+    q = q.to(getattr(torch, q_dtype))
+    route = PA.route_for(q.dtype, Sq, H // Hkv, kp.dtype)
+    assert route == (FA.MIXED_ROUTE if q_dtype == "float32" else "cuda_cores")
+    by_route = dict(PA.paged_attention.launches_by_route)
+    got = PA.paged_attention(q, kp, vp, bt, qpos, kvl)
+    torch.cuda.synchronize()
+    assert PA.paged_attention.launches_by_route == {
+        r: n + (r == route) for r, n in by_route.items()}
+    assert got.dtype == q.dtype
+    want = PA.paged_attention_plain(q, kp, vp, bt, qpos, kvl, causal=True,
+                                    scale=D ** -0.5, soft_cap=None)
+    _mixed_close(got, want)
+    masked = qpos < 0
+    assert not bool(masked.any()) or float(got[masked].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_mixed_dtype_pairs_no_kernel_takes_raise(cuda):
+    q = torch.randn((1, 1, 2, 64), device=cuda)
+    k = torch.randn((1, 8, 1, 64), device=cuda).half()
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        FA.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        FA.flash_attention(q, k.bfloat16(), k.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_fp32_model_bf16_cache_engine_matches_cpu(cuda, kv_dtype):
+    """The paged engine of an fp32 model over a bf16 cache (and over int8
+    pages) on the card: the new K4 instance (K5's fp32 q for int8) serves
+    the streams the CPU's plain versions serve."""
+    cfg = get_smoke_config("smollm-135m", vocab=64, dtype="float32",
+                           d_head=64)
+    params = T.init_model(cfg, seed=0, device="cpu")
+    streams = []
+    for device in ("cuda", "cpu"):
+        by_route = dict(PA.paged_attention.launches_by_route)
+        n8 = PA.paged_attention.launches_int8_by_route["cuda_cores"]
+        eng = ServingEngine(cfg, params, ServeConfig(
+            batch_slots=2, max_len=48, cache_dtype="bfloat16",
+            kv_dtype=kv_dtype, device=device, pack_weights=True))
+        streams.append(eng.generate(np.array([[3, 1, 4, 1, 5],
+                                              [9, 2, 6, 5, 3]]), 8).tolist())
+        if device == "cuda" and kv_dtype is None:
+            assert PA.paged_attention.launches_by_route[FA.MIXED_ROUTE] > \
+                by_route[FA.MIXED_ROUTE]
+        if device == "cuda" and kv_dtype == "int8":
+            assert PA.paged_attention.launches_int8_by_route[
+                "cuda_cores"] > n8
+    assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# K1 trains on itself: the batch grid and the backward
+# ---------------------------------------------------------------------------
+
+def _dot_bound_check(got, a, b, K, out_dtype, what):
+    """``got`` within the fp32 dot-product bound of the float64 product of
+    a (…, M, K) and b (…, K, N) (test_gemm_kernel_matches_plain)."""
+    exact = torch.matmul(a.double(), b.double())
+    bound = K * 2.0 ** -24 * torch.matmul(a.double().abs(), b.double().abs())
+    if out_dtype == torch.bfloat16:
+        bound += 2.0 ** -8 * (exact.abs() + bound)
+    err = (got.double() - exact).abs()
+    assert bool((err <= bound + 1e-30).all()), (what, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("G,M,K,N", [(72, 128, 64, 128), (72, 128, 128, 64),
+                                     (5, 70, 96, 40)])
+def test_gemm_batch_grid_matches_plain(cuda, dtype, G, M, K, N):
+    """K1's batch grid (one launch for G problems: the unfused attention's
+    score and value products at smollm-135m's B 8 x 9 heads, S 128) on
+    ``wgmma`` (bf16, bm 64) and the CUDA cores (fp32): each problem bitwise
+    the same kernel's 2-D launch, and within the fp32 dot-product bound,
+    as the plain version is."""
+    gen = torch.Generator(device=cuda).manual_seed(G + M)
+    dt = getattr(torch, dtype)
+    a = torch.randn((G, M, K), generator=gen, device=cuda).to(dt)
+    b = torch.randn((G, K, N), generator=gen, device=cuda).to(dt)
+    pol = api.GemmPolicy(backend="matrixflow")
+    blk = api.plan(M, N, K, dt, pol, cuda).layout
+    a_bm = L.to_block_major_a(a, blk.bm, blk.bk)
+    b_bm = L.to_block_major_b(b, blk.bk, blk.bn)
+    fn = MF.matrixflow_gemm_block_major
+    route = MF.route_for(dt, blk.bm)
+    assert route == ("wgmma" if dtype == "bfloat16" else "cuda_core")
+    n, nb, nr = fn.launches, fn.batched_launches, getattr(fn, f"{route}_launches")
+    got = fn(a_bm, b_bm, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.batched_launches,
+            getattr(fn, f"{route}_launches")) == (n + 1, nb + 1, nr + 1)
+    for g in range(0, G, max(1, G // 6)):
+        assert torch.equal(got[g], fn(a_bm[g], b_bm[g],
+                                      out_dtype=torch.float32))
+    c = L.from_block_major_c(got, M, N)
+    _dot_bound_check(c, a, b, K, torch.float32, "kernel")
+    want = L.from_block_major_c(MF.plain(a_bm, b_bm, out_dtype=torch.float32),
+                                M, N)
+    _dot_bound_check(want, a, b, K, torch.float32, "plain")
+    # through the API, one launch a call
+    n = fn.launches
+    torch.testing.assert_close(api.matmul(a, b, policy=pol,
+                                          out_dtype=torch.float32), c)
+    assert fn.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M,K,N", [(1024, 576, 576), (1024, 576, 192),
+                                   (1024, 576, 3072), (1024, 1536, 576),
+                                   (1024, 576, 49152), (200, 96, 40)])
+def test_gemm_function_grads_match_plain(cuda, dtype, M, K, N):
+    """The K1 autograd Function at smollm-135m's training shapes (B 8 x
+    128 rows; q/o, k/v, mlp-in, mlp-out, the head) and a ragged one: C, dA
+    = dC·Bᵀ and dB = Aᵀ·dC, each a K1 launch counted as a backward launch,
+    within the fp32 dot-product bound of the float64 products over their
+    own inner dims (K, N and M); the plain version's autograd (the
+    ``blockflow`` backend on the same CUDA tensors) within the same
+    bound."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    dt = getattr(torch, dtype)
+    a0 = (torch.randn((M, K), generator=gen, device=cuda) * 0.5).to(dt)
+    b0 = (torch.randn((K, N), generator=gen, device=cuda) * 0.05).to(dt)
+    dc = torch.randn((M, N), generator=gen, device=cuda).to(dt)
+    fn = MF.matrixflow_gemm_block_major
+    for backend in ("matrixflow", "blockflow"):
+        a, b = a0.clone().requires_grad_(), b0.clone().requires_grad_()
+        n, nb = fn.launches, fn.backward_launches
+        c = api.matmul(a, b, policy=api.GemmPolicy(backend=backend))
+        c.backward(dc)
+        torch.cuda.synchronize()
+        if backend == "matrixflow":
+            assert (fn.launches, fn.backward_launches) == (n + 3, nb + 2)
+        assert a.grad.dtype == b.grad.dtype == dt
+        _dot_bound_check(c, a0, b0, K, dt, (backend, "C"))
+        _dot_bound_check(a.grad, dc, b0.t(), N, dt, (backend, "dA"))
+        _dot_bound_check(b.grad, a0.t(), dc, M, dt, (backend, "dB"))
+
+
+@pytest.mark.cuda
+def test_forward_only_wrappers_raise_under_grad_on_card(cuda):
+    """K2–K6 refuse a gradient on CUDA tensors before anything launches."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, device=cuda).to(dtype).requires_grad_()
+
+    q, k, v = t(1, 2, 2, 64), t(1, 16, 1, 64), t(1, 16, 1, 64)
+    counts = (FA.flash_attention.launches, PA.paged_attention.launches,
+              PA.paged_attention.launches_int8, K6.ssd_scan.launches,
+              MF.matrixflow_gemm_dequant.launches)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        FA.flash_attention(q, k, v)
+    pools = t(3, 16, 1, 64), t(3, 16, 1, 64)
+    bt = torch.tensor([[0, 1]], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        PA.paged_attention(q, *pools, bt)
+    i8 = torch.zeros((3, 16, 1, 64), dtype=torch.int8, device=cuda)
+    sc = (torch.ones((3, 1), device=cuda), torch.ones((3, 1), device=cuda))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        PA.paged_attention(q, i8, i8, bt, kv_scales=sc)
+    a8 = torch.zeros((1, 1, 64, 64), dtype=torch.int8, device=cuda)
+    b8 = torch.zeros((1, 1, 64, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        MF.matrixflow_gemm_dequant(a8, b8, t(64, dtype=torch.float32), None)
+    with pytest.raises(RuntimeError, match="SSD training"):
+        K6.ssd_scan(t(1, 64, 2, 64), t(1, 64, 2, dtype=torch.float32),
+                    -torch.ones(2, device=cuda), t(1, 64, 128),
+                    t(1, 64, 128))
+    torch.cuda.synchronize()
+    assert counts == (FA.flash_attention.launches,
+                      PA.paged_attention.launches,
+                      PA.paged_attention.launches_int8, K6.ssd_scan.launches,
+                      MF.matrixflow_gemm_dequant.launches)

@@ -119,7 +119,7 @@ def test_cacheless_forward_matches_jax(converted):
                                 jcfg, {"tokens": jnp.asarray(tokens)},
                                 remat=False)
     with torch.no_grad():
-        got, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
+        got, _, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                *TOLS["float32"])
 
@@ -155,7 +155,7 @@ def test_contiguous_forward_logits_match_jax(converted):
                 jparams, jcfg, {"tokens": jtok, "positions": jnp.asarray(pos)},
                 caches=jcaches, remat=False)
         with torch.no_grad(), api.use_attention_policy(FUSED):
-            got, caches = T.forward(params, cfg, {
+            got, caches, _ = T.forward(params, cfg, {
                 "tokens": tok, "positions": torch.from_numpy(pos.copy())},
                 caches=caches)
         want = np.asarray(want[:, -1])
@@ -178,7 +178,7 @@ def test_bf16_forward_runs_every_family_member(converted):
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab, (2, 5)))
     with torch.no_grad():
-        got, _ = T.forward(params, cfg16, {"tokens": tokens})
+        got, _, _ = T.forward(params, cfg16, {"tokens": tokens})
     assert got.shape == (2, 5, cfg.vocab) and got.dtype == torch.bfloat16
     assert torch.isfinite(got.float()).all()
 

@@ -143,7 +143,7 @@ def _margin(setup, prompt, stream, report):
     cfg, params = setup[2:]
     toks = torch.tensor([prompt + stream[:report["stream_step"]]])
     with api.use_policy(GemmPolicy(weight_dtype="int8")):
-        logits, _ = T.forward(params, cfg, {"tokens": toks})
+        logits, _, _ = T.forward(params, cfg, {"tokens": toks})
     top2 = logits[0, -1].topk(2).values
     report["margin"] = float(top2[0] - top2[1])
     print(f"W8A8 stream diverges from JAX at a tie flip: {report}")

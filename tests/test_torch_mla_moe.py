@@ -329,7 +329,7 @@ def test_whole_model_cacheless_forward_matches_jax(model):
             jax.tree_util.tree_map(jnp.asarray, np_tree),
             {"tokens": jnp.asarray(tokens)})
     with torch.no_grad():
-        got, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
+        got, _, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
     assert got.shape == (2, 9, cfg.vocab)
     _close(got.numpy(), want)
 
@@ -355,7 +355,7 @@ def test_whole_model_contiguous_prefill_and_decode_match_jax(model):
                 jparams, {"tokens": jtok, "positions": jnp.asarray(pos)},
                 jcaches)
         with torch.no_grad(), api.use_attention_policy(FUSED):
-            got, caches = T.forward(params, cfg, {
+            got, caches, _ = T.forward(params, cfg, {
                 "tokens": tok, "positions": torch.from_numpy(pos.copy())},
                 caches=caches)
         want = np.asarray(want[:, -1])
@@ -376,6 +376,6 @@ def test_bf16_forward_runs(model):
     tokens = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab, (2, 5)))
     with torch.no_grad():
-        got, _ = T.forward(params, cfg16, {"tokens": tokens})
+        got, _, _ = T.forward(params, cfg16, {"tokens": tokens})
     assert got.shape == (2, 5, cfg.vocab) and got.dtype == torch.bfloat16
     assert torch.isfinite(got.float()).all()

@@ -128,13 +128,13 @@ def _port_paged(cfg, params, tokens, n_decode, backend):
         batch = {"tokens": torch.from_numpy(tokens),
                  "positions": torch.arange(S).expand(B, S),
                  "block_tables": bt}
-        logits, _ = T.forward(params, cfg, batch, caches=caches)
+        logits, _, _ = T.forward(params, cfg, batch, caches=caches)
         out.append(logits[:, -1].float().numpy())
         for i in range(n_decode):
             tok = logits[:, -1].argmax(-1)[:, None]
             batch = {"tokens": tok, "positions": torch.full((B, 1), S + i),
                      "block_tables": bt}
-            logits, _ = T.forward(params, cfg, batch, caches=caches)
+            logits, _, _ = T.forward(params, cfg, batch, caches=caches)
             out.append(logits[:, -1].float().numpy())
     return out
 
@@ -167,7 +167,7 @@ def test_cacheless_forward_matches_jax(converted):
                                 jcfg, {"tokens": jnp.asarray(tokens)},
                                 remat=False)
     with torch.no_grad():
-        got, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
+        got, _, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
     atol, rtol = _tols(dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),

@@ -148,10 +148,15 @@ def test_temperature_sampling_self_consistent(setup):
 
 def test_unported_features_raise(setup):
     jcfg, jparams, cfg, params = setup
-    for kw in (dict(mesh=object()), dict(cache_dtype="bfloat16")):
-        kw = {"cache_dtype": "float32", **kw}
-        with pytest.raises(NotImplementedError):
-            ServingEngine(cfg, params, ServeConfig(device="cpu", **kw))
+    with pytest.raises(NotImplementedError):
+        ServingEngine(cfg, params, ServeConfig(device="cpu",
+                                               cache_dtype="float32",
+                                               mesh=object()))
+    # a cache dtype other than the model's is ported now
+    # (tests/test_torch_mixed_cache.py)
+    eng = ServingEngine(cfg, params, ServeConfig(device="cpu",
+                                                 cache_dtype="bfloat16"))
+    assert eng.caches[0]["kp"].dtype == torch.bfloat16
     # the prefix cache, speculative decoding and observability are ported
     # now (tests/test_torch_{prefix_cache,spec_decode,obs}.py)
     for kw in (dict(prefix_cache=True), dict(spec=NGramDrafter()),

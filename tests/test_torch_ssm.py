@@ -240,7 +240,7 @@ def test_cacheless_forward_matches_jax(converted):
                                 jcfg, {"tokens": jnp.asarray(tokens)},
                                 remat=False)
     with torch.no_grad(), api.use_attention_policy(UNFUSED):
-        got, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
+        got, _, _ = T.forward(params, cfg, {"tokens": torch.from_numpy(tokens)})
     atol, rtol = _tols(dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
@@ -280,7 +280,7 @@ def test_prefill_decode_with_caches_matches_jax(converted, backend):
                 caches=jcaches, remat=False)
         with torch.no_grad(), api.use_policy(GemmPolicy(backend=backend)), \
                 api.use_attention_policy(FUSED):
-            got, _ = T.forward(params, cfg,
+            got, _, _ = T.forward(params, cfg,
                                {"tokens": torch.from_numpy(tok),
                                 "positions": torch.from_numpy(pos.copy())},
                                caches=caches)

@@ -73,7 +73,7 @@ def test_cacheless_forward_matches_jax(model):
         want, _, _ = jax.jit(lambda p, b: JT.forward(p, jcfg, b, remat=False))(
             jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.no_grad():
-        got, _ = T.forward(params, cfg,
+        got, _, _ = T.forward(params, cfg,
                            {k: torch.from_numpy(v) for k, v in batch.items()})
     S = _columns(cfg, batch)
     shape = (2, S, 4, cfg.vocab) if cfg.n_codebooks else (2, S, cfg.vocab)
@@ -125,7 +125,7 @@ def test_prefill_and_decode_over_caches_match_jax(model, cache):
         with japi.use_policy(JXLA), japi.use_attention_policy(jattn):
             want, jcaches, _ = ref(jparams, jb, jcaches)
         with torch.no_grad(), api.use_attention_policy(attn):
-            got, caches = T.forward(params, cfg, tb, caches=caches)
+            got, caches, _ = T.forward(params, cfg, tb, caches=caches)
         want = np.asarray(want[:, -1])
         np.testing.assert_allclose(got[:, -1].numpy(), want,
                                    *TOLS["float32"], err_msg=f"step {i}")
