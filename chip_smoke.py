@@ -470,7 +470,11 @@ def read_counts(path: str, required, allowed=()) -> dict:
     CUDA-core counters are ``allowed``, is bf16 or int8 with bf16
     activations, and none may take those routes; K2 has no CUDA-core
     route)."""
-    counts_now = counts()
+    return check_counts(path, counts(), required, allowed)
+
+
+def check_counts(path: str, counts_now: dict, required, allowed=()) -> dict:
+    """read_counts' checks on counts read elsewhere (another process's)."""
     for name in required:
         if counts_now[name] <= 0:
             fail(f"{path}: kernel {name} was never launched")
@@ -758,16 +762,17 @@ def model_attention_cases(rng, m):
              f"{m.name} prefill")]
 
 
-def run_attention_phase(timer, cfg, models=()):
-    """K4 at smollm-135m's serving shapes and at the decode step and
-    prefill of each of ``models`` (head_dim 128; granite's group 48)."""
+def run_attention_phase(timer, cfg, models=(), main=True):
+    """K4 at smollm-135m's serving shapes (unless ``main`` is False) and at
+    the decode step and prefill of each of ``models`` (head_dim 128;
+    granite's group 48)."""
     from repro_torch.kernels import paged_attention as PA
 
     nb = MAX_LEN // PAGE
     rng = np.random.default_rng(1)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype_name, m in [(d, m) for m in (cfg, *models)
+    for dtype_name, m in [(d, m) for m in ((cfg,) if main else ()) + (*models,)
                           for d in ("bfloat16", "float32")]:
         H, Hkv, D = m.n_heads, m.n_kv_heads, m.head_dim
         dt = getattr(torch, dtype_name)
@@ -848,6 +853,30 @@ def run_attention_phase(timer, cfg, models=()):
 # Phase 2c: flash attention against its plain version
 # ---------------------------------------------------------------------------
 
+def model_flash_cells(rng, models):
+    """The dense decoders ``models`` served from contiguous caches
+    (head_dim 128; qwen3 group 4, qwen2 6, granite 48): a decode step over
+    ragged lengths and a 64-column prefill bucket of 16..64 real columns a
+    slot."""
+    cells = []
+    for m in models:
+        lens = rng.integers(17, MAX_LEN + 1, SLOTS)
+        cells.append((f"{m.name} decode", SLOTS, 1, MAX_LEN, m.n_heads,
+                      m.n_kv_heads, m.head_dim, True,
+                      (lens - 1)[:, None].astype(np.int32),
+                      lens.astype(np.int32), f"{m.name} decode step",
+                      m.n_layers))
+        lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS)
+        qpos = np.full((SLOTS, PROMPT_BUCKET), -1, np.int32)
+        for b, n in enumerate(lens):
+            qpos[b, :n] = np.arange(n)
+        cells.append((f"{m.name} prefill bucket", SLOTS, PROMPT_BUCKET,
+                      MAX_LEN, m.n_heads, m.n_kv_heads, m.head_dim, True,
+                      qpos, lens.astype(np.int32), f"{m.name} prefill",
+                      m.n_layers))
+    return cells
+
+
 def flash_cells(cfg, bert, vit, vit_huge, zamba, rng, models=(), mla=None):
     """(name, B, Sq, Sk, H, Hkv, D, causal, q_positions, kv_valid_len,
     path, uses per run[, Dv]) at the encoder paths' and the contiguous
@@ -904,24 +933,7 @@ def flash_cells(cfg, bert, vit, vit_huge, zamba, rng, models=(), mla=None):
     cells.append(("zamba2 decode", SSM_SLOTS, 1, SSM_MAX_LEN, z.n_heads,
                   z.n_kv_heads, z.head_dim, True, pos[:, None], pos + 1,
                   "zamba2 decode step", G))
-    # the dense decoders served from contiguous caches (head_dim 128; qwen3
-    # group 4, qwen2 6, granite 48): a decode step over ragged lengths and a
-    # 64-column prefill bucket of 16..64 real columns a slot
-    for m in models:
-        lens = rng.integers(17, MAX_LEN + 1, SLOTS)
-        cells.append((f"{m.name} decode", SLOTS, 1, MAX_LEN, m.n_heads,
-                      m.n_kv_heads, m.head_dim, True,
-                      (lens - 1)[:, None].astype(np.int32),
-                      lens.astype(np.int32), f"{m.name} decode step",
-                      m.n_layers))
-        lens = rng.integers(16, PROMPT_BUCKET + 1, SLOTS)
-        qpos = np.full((SLOTS, PROMPT_BUCKET), -1, np.int32)
-        for b, n in enumerate(lens):
-            qpos[b, :n] = np.arange(n)
-        cells.append((f"{m.name} prefill bucket", SLOTS, PROMPT_BUCKET,
-                      MAX_LEN, m.n_heads, m.n_kv_heads, m.head_dim, True,
-                      qpos, lens.astype(np.int32), f"{m.name} prefill",
-                      m.n_layers))
+    cells += model_flash_cells(rng, models)
     if mla is not None:
         # MLA over its contiguous latent cache: K and V up-projected per
         # head (one kv head a query head), D 192 = 128 nope + 64 rope, Dv
@@ -1123,7 +1135,7 @@ def run_quant_gemm_phase(timer, cfg, bert, vit):
 # Phase 2e: paged attention over int8 pages (K5) against its plain version
 # ---------------------------------------------------------------------------
 
-def run_int8_attention_phase(timer, cfg, models=()):
+def run_int8_attention_phase(timer, cfg, models=(), main=True):
     """K5 at smollm-135m's decode, prefill bucket and chunked prefill, q in
     bf16 and fp32, over int8 pools with per-(page, kv head) scales through
     shuffled block tables whose entries past a slot's valid keys are out
@@ -1139,7 +1151,7 @@ def run_int8_attention_phase(timer, cfg, models=()):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(11)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dtype_name, m in [(d, m) for m in (cfg, *models)
+    for dtype_name, m in [(d, m) for m in ((cfg,) if main else ()) + (*models,)
                           for d in ("bfloat16", "float32")]:
         H, Hkv, D = m.n_heads, m.n_kv_heads, m.head_dim
         dt = getattr(torch, dtype_name)
@@ -3367,14 +3379,583 @@ def run_mixed_phase(cfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: multi-device on torch.distributed — tensor-parallel serving of
+# qwen3-8b at full width, data-parallel training and the GPipe pipeline,
+# two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "qwen3-8b"
+TP_WORLD = 2
+TP_LAYERS = 2                  # of qwen3-8b's 36, at full width: the time
+TP_PROMPT, TP_GEN = 32, 16     # phase 23's bf16 streams: SLOTS prompts
+TP_DECODE_STEPS = 8            # timed decode steps, SLOTS requests live
+TP_PIPE = dict(layers_per_stage=2, mu=4, mb=8, d=1024)   # phase 23's GPipe
+# The DP step runs make_train_step_fn, whose schedule warms up over 100
+# steps (lr/100 at step 0, as in the reference): at 2e-2 its first step
+# moves a weight by ~2e-4, four times TRAIN_FP32_PARAM_TOL, so a step
+# that applied no update, or another one, fails.
+TP_DP_LR = 2e-2
+TP_PAGED = dict(backend="paged", page_size=PAGE)
+
+
+def tp_config(dtype):
+    """qwen3-8b at full width and TP_LAYERS layers with the sharding
+    overrides cleared, as the reference's TP runner builds its model
+    (tests/tp_serving_runner.py::build), so the heads and the KV pools
+    split: 16 query and 4 KV heads a rank at TP=2."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS,
+                               sharding_overrides=(), dtype=dtype)
+
+
+def tp_rank_config():
+    """What one rank of TP_WORLD holds of the model: its heads (for the
+    kernel cells at the rank's shapes)."""
+    m = tp_config("bfloat16")
+    return dataclasses.replace(
+        m, name=f"{TP_ARCH} tp{TP_WORLD} rank", d_head=m.head_dim,
+        n_heads=m.n_heads // TP_WORLD, n_kv_heads=m.n_kv_heads // TP_WORLD)
+
+
+def tp_params(cfg, mesh):
+    """Seeded weights drawn on the card (the same on every process), cut
+    to this rank's slices on a mesh: each rank then holds 1/TP_WORLD of
+    every model-sharded weight."""
+    from repro_torch.distributed import tp as TP
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import param_axes
+    params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+    if mesh is None:
+        return params
+    ctx = TP.make_context(mesh, overrides=cfg.overrides_dict())
+    return TP.shard_params(params, param_axes(cfg), ctx,
+                           units=TP.head_units(cfg))
+
+
+def tp_engine(cfg, params, mesh, **kw):
+    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    sc = dict(batch_slots=2, max_len=64, attention=AttentionPolicy(**TP_PAGED),
+              cache_dtype=cfg.dtype, device="cuda")
+    sc.update(kw)
+    return ServingEngine(cfg, params, ServeConfig(**sc, mesh=mesh))
+
+
+def tp_steps(eng, n, generator=None):
+    outs, pages = [], []
+    for _ in range(n):
+        outs.append({int(h): int(t) for h, t in
+                     eng.step(generator=generator).items()})
+        pages.append((eng.pool.free_pages, eng.pool.pages_in_use)
+                     if eng.paged else None)
+    return outs, pages
+
+
+def tp_drain(eng, max_steps=200):
+    pages = []
+    for _ in range(max_steps):
+        eng.step()
+        pages.append((eng.pool.free_pages, eng.pool.pages_in_use))
+        if not eng.slot_live.any() and not eng.wait:
+            break
+    return pages
+
+
+def tp_scenarios(cfg, params, mesh):
+    """The reference TP runner's scenarios at full width (greedy,
+    seeded temperature, preempt/resume, prefix-cache COW, int8 KV) and the
+    contiguous (K3) engine: streams and per-step page accounting."""
+    from repro_torch.core.plan import FUSED
+    V = cfg.vocab
+    rng = np.random.default_rng(7)
+    gen = lambda seed: torch.Generator().manual_seed(seed)   # noqa: E731
+    out = {}
+    eng = tp_engine(cfg, params, mesh)
+    prompts = rng.integers(0, V, (2, 12))
+    r = {"generate": eng.generate(prompts, 8).tolist()}
+    eng = tp_engine(cfg, params, mesh)
+    r["handles"] = [eng.submit(rng.integers(0, V, 5).tolist()),
+                    eng.submit(rng.integers(0, V, 9).tolist())]
+    r["steps"], r["pages"] = tp_steps(eng, 6)
+    r["kv_shards"] = eng.kv_shards()
+    out["greedy"] = r
+    eng = tp_engine(cfg, params, mesh, temperature=0.8)
+    r = {"generate": eng.generate(rng.integers(0, V, (2, 7)), 8,
+                                  generator=gen(42)).tolist()}
+    eng = tp_engine(cfg, params, mesh, temperature=0.8)
+    r["handles"] = [eng.submit(rng.integers(0, V, 3).tolist(),
+                               generator=gen(1))]
+    r["steps"], r["pages"] = tp_steps(eng, 6, generator=gen(100))
+    out["temperature"] = r
+    for name, kw in (("preempt", {}), ("kv-int8 preempt",
+                                        {"kv_dtype": "int8"})):
+        # 2 pages of 16 tokens for 2 slots of max_len 32: decode growth
+        # exhausts the pool and preempts
+        eng = tp_engine(cfg, params, mesh, max_len=32, cache_pages=2, **kw)
+        hs = [eng.submit(rng.integers(0, V, 3).tolist()) for _ in range(2)]
+        pages = tp_drain(eng)
+        eng.pool.check()
+        out[name] = {"handles": hs, "pages": pages,
+                     "n_preemptions": eng.n_preemptions,
+                     "streams": {int(h): [int(t) for t in eng.request_out[h]]
+                                 for h in hs}}
+    eng = tp_engine(cfg, params, mesh, kv_dtype="int8")
+    out["kv-int8"] = {"generate": eng.generate(
+        rng.integers(0, V, (2, 12)), 8).tolist()}
+    eng = tp_engine(cfg, params, mesh, batch_slots=3, prefix_cache=True,
+                    cache_pages=12)
+    shared = rng.integers(0, V, 21).tolist()      # 1 full page + a tail
+    prompts = [shared + [40, 41], shared + [50, 51],
+               shared[:9] + [60, 61, 62, 63]]
+    r = {"handles": [eng.submit(p) for p in prompts],
+         "hits": eng.prefix.hits, "cow_forks": eng.prefix.cow_forks}
+    r["steps"], r["pages"] = tp_steps(eng, 6)
+    r["prefix"] = eng.prefix.stats()
+    eng.pool.check()
+    eng.prefix.check()
+    out["prefix"] = r
+    eng = tp_engine(cfg, params, mesh, attention=FUSED)
+    r = {"generate": eng.generate(rng.integers(0, V, (2, 12)), 8).tolist()}
+    eng = tp_engine(cfg, params, mesh, attention=FUSED)
+    r["handles"] = [eng.submit(rng.integers(0, V, 5).tolist()),
+                    eng.submit(rng.integers(0, V, 9).tolist())]
+    r["steps"], _ = tp_steps(eng, 6)
+    out["contiguous"] = r
+    return out
+
+
+def tp_bf16_run(cfg, params, mesh):
+    """bf16 at full width: SLOTS prompts of TP_PROMPT tokens, TP_GEN greedy
+    tokens through the paged (K4), int8-KV (K5) and contiguous (K3)
+    engines, and the prompts' last-column logits of one cache-less
+    forward."""
+    from repro_torch.core.plan import FUSED
+    from repro_torch.distributed import tp as TP
+    from repro_torch.models import transformer as T
+    prompts = np.random.default_rng(9).integers(
+        0, cfg.vocab, (SLOTS, TP_PROMPT))
+    out = {}
+    for name, kw in (("paged", {}), ("int8 KV", dict(kv_dtype="int8")),
+                     ("contiguous", dict(attention=FUSED))):
+        eng = tp_engine(cfg, params, mesh, batch_slots=SLOTS,
+                        max_len=MAX_LEN, **kw)
+        out[name] = eng.generate(prompts, TP_GEN)
+    ctx = TP.make_context(mesh, overrides=cfg.overrides_dict()) \
+        if mesh is not None else None
+    with torch.no_grad(), TP.use_tp(ctx):
+        logits = T.forward(params, cfg, {"tokens": torch.from_numpy(
+            prompts).cuda()}, last_cols=torch.full(
+                (SLOTS,), TP_PROMPT - 1, device="cuda"))[0]
+    out["logits"] = logits[:, 0].float().cpu().numpy()
+    return out
+
+
+def tp_decode_timing(cfg, params, mesh):
+    """The decode step with SLOTS requests live (prompts of 16 tokens,
+    bf16, paged): host wall ms of each of TP_DECODE_STEPS steps (step()
+    reads the sampled tokens back, so the card has finished), and the
+    collectives and kernel launches per step."""
+    from repro_torch.distributed import tp as TP
+    eng = tp_engine(cfg, params, mesh, batch_slots=SLOTS, max_len=MAX_LEN)
+    rng = np.random.default_rng(5)
+    for _ in range(SLOTS):
+        eng.submit(rng.integers(0, cfg.vocab, 16).tolist())
+    eng.step()
+    eng.step()
+    TP.collectives.reset()
+    before = counts()
+    ms = []
+    for _ in range(TP_DECODE_STEPS):
+        t0 = time.perf_counter()
+        eng.step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    after = counts()
+    col = TP.collectives.snapshot()
+    return {"step_ms": ms, "median_ms": statistics.median(ms),
+            "collectives_per_step": {
+                what: {k: v / TP_DECODE_STEPS for k, v in d.items()}
+                for what, d in col.items()},
+            "launches_per_step": {k: (after[k] - before[k]) / TP_DECODE_STEPS
+                                  for k in after if after[k] - before[k]}}
+
+
+def tp_serving_run(mesh):
+    """Phase 23's serving on ``mesh`` (one rank of it) or one device: the
+    fp32 scenarios, then bf16 streams, logits and the timed decode step;
+    the kernel launches of each dtype's path."""
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = tp_config(dtype)
+        params = tp_params(cfg, mesh)
+        reset_counts()
+        if dtype == "float32":
+            res["fp32"] = tp_scenarios(cfg, params, mesh)
+        else:
+            res["bf16"] = tp_bf16_run(cfg, params, mesh)
+        res[f"{dtype} launches"] = counts()
+        if dtype == "bfloat16":
+            res["decode"] = tp_decode_timing(cfg, params, mesh)
+        res[f"{dtype} param bytes"] = sum(
+            t.numel() * t.element_size() for t in tree_tensors(params))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def dp_train_run(mesh):
+    """One data-parallel train step of smollm-135m at full width in fp32
+    (TRAIN_FP32_LAYERS layers, TF32 off): B TRAIN_BATCH x TRAIN_SEQ split
+    over the mesh's data axis, the gradients averaged by one all-reduce,
+    against the one-rank step on the whole batch in the same process."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import api
+    from repro_torch.core.plan import UNFUSED, GemmPolicy
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32",
+                              n_layers=TRAIN_FP32_LAYERS)
+    params = T.init_model(cfg, seed=5, device="cuda", draw_device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                   vocab=cfg.vocab, seed=3)).next_batch().items()}
+    runs = {}
+    for name, m in (("dp", mesh), ("one", None)):
+        step = ST.make_train_step_fn(cfg, AdamWConfig(lr=TP_DP_LR),
+                                     total_steps=10, mesh=m)
+        reset_counts()
+        TP.collectives.reset()
+        with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
+            p, _, met = step(params, adamw_init(params), batch)
+        torch.cuda.synchronize()
+        runs[name] = (float(met["loss"]), float(met["grad_norm"]),
+                      tree_leaves(p), counts(), TP.collectives.snapshot())
+    (ld, nd, pd, cd, coll), (lo, no, po, _, _) = runs["dp"], runs["one"]
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(po, tree_leaves(params)))
+    return {"loss_dp": ld, "loss_one": lo, "grad_norm_dp": nd,
+            "grad_norm_one": no,
+            "param_max_abs_diff": max(float((a - b).abs().max())
+                                      for a, b in zip(pd, po)),
+            "one_step_max_abs": moved, "launches": cd, "collectives": coll}
+
+
+def pipeline_run(mesh):
+    """A GPipe pipeline over the mesh's stage axis on the card: 2 layers
+    of tanh(h @ W) a stage (K1, d 1024, fp32), μ 4 microbatches of 8,
+    forward and the gradient of sum(out²), against the sequential version
+    in the same process."""
+    from repro_torch.core import api
+    from repro_torch.distributed import tp as TP
+    from repro_torch.distributed.pipeline import pipeline_apply, \
+        stack_for_stages
+
+    S = mesh.axis_size("stage")
+    per, mu, mb, d = (TP_PIPE[k] for k in ("layers_per_stage", "mu", "mb",
+                                            "d"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ws = torch.randn((S * per, d, d), generator=gen, device="cuda") / d ** 0.5
+    x = torch.randn((mu, mb, d), generator=gen, device="cuda")
+
+    def stage_fn(wslice, h):
+        for w in wslice:
+            h = torch.tanh(api.matmul(h, w))
+        return h
+
+    s = mesh.coords["stage"]
+    mine = stack_for_stages(ws, S)[s].clone().requires_grad_(True)
+    reset_counts()
+    TP.collectives.reset()
+    out = pipeline_apply(stage_fn, mine, x, mesh=mesh)
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches, coll = counts(), TP.collectives.snapshot()
+    whole = ws.clone().requires_grad_(True)
+    ref = stage_fn(whole, x)
+    (ref ** 2).sum().backward()
+    out, ref = out.detach(), ref.detach()
+    return {"fwd_max_abs_diff": float((out - ref).abs().max()),
+            "bwd_max_abs_diff": float(
+                (mine.grad - whole.grad[s * per:(s + 1) * per]).abs().max()),
+            "grad_max_abs": float(whole.grad.abs().max()),
+            "launches": launches, "collectives": coll}
+
+
+def tp_rank(rank, world, root):
+    """One rank of phase 23, on cuda:0 beside the others: TP serving on a
+    (1, world) mesh, the data-parallel step on (world, 1), the pipeline on
+    a stage axis of world."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    return {"serving": tp_serving_run(make_host_mesh(model=world)),
+            "train": dp_train_run(make_host_mesh()),
+            "pipeline": pipeline_run(Mesh((world,), ("stage",)))}
+
+
+def run_tp_gemm_phase(timer, cfg):
+    """K1 at a rank's shapes of qwen3-8b at TP=2 (decode M = SLOTS and
+    prefill M = SLOTS x PROMPT_BUCKET; the head at M = SLOTS), bf16 and
+    fp32: the column slices (q, k/v, SwiGLU's gate ‖ up taken half by
+    half, the head's 75,968 vocab columns) against the same columns of
+    the unsharded call (bitwise, or their distance), and the row slices
+    (o, mlp-out: K halved, fp32 out) whose two partial sums must match one
+    call within GEMM_TOLS["float32"]. Each cell timed as run_gemm_phase
+    times its cells."""
+    from repro_torch.core import api
+    from repro_torch.core import layout as L
+    from repro_torch.core.plan import GemmPolicy, layout_for_packed, \
+        pack_weight
+    from repro_torch.distributed.tp import shard_dim
+    from repro_torch.kernels import matrixflow_gemm as MF
+
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    # (name, K, N, kind, blocks, uses per run: TP_LAYERS layers)
+    layer = [("q", d, qd, "col", 1, TP_LAYERS),
+             ("k/v", d, kvd, "col", 1, 2 * TP_LAYERS),
+             ("o", qd, d, "row", 1, TP_LAYERS),
+             ("mlp-in", d, 2 * f, "col", 2, TP_LAYERS),
+             ("mlp-out", f, d, "row", 1, TP_LAYERS)]
+    path = f"{TP_ARCH} tp{TP_WORLD}"
+    cells = [(f"decode {n}", SLOTS, K, N, kind, b, f"{path} decode step", u)
+             for n, K, N, kind, b, u in layer]
+    cells.append(("decode head", SLOTS, d, V, "col", 1,
+                  f"{path} decode step", 1))
+    cells += [(f"prefill {n}", SLOTS * PROMPT_BUCKET, K, N, kind, b,
+               f"{path} prefill", u) for n, K, N, kind, b, u in layer]
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        atol, rtol = GEMM_TOLS[dtype_name]
+        for name, M, K, N, kind, blocks, cpath, uses in cells:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((K, N), generator=gen, device="cuda")
+                 / K ** 0.5).to(dt)
+            label = (f"matrixflow_gemm tp{TP_WORLD} {kind} {name} M={M} "
+                     f"K={K} N={N} {dtype_name}")
+            if kind == "col":
+                w_r = shard_dim(w, 1, 0, TP_WORLD, blocks)
+                a_r, odt = x, dt
+                whole = shard_dim(api.matmul(x, w), -1, 0, TP_WORLD, blocks)
+                part = api.matmul(x, w_r)
+                extra = dict(bitwise=bool(torch.equal(part, whole)),
+                             col_max_abs_diff=float(
+                                 (part.float() - whole.float()).abs().max()))
+            else:
+                w_r = shard_dim(w, 0, 0, TP_WORLD)
+                a_r, odt = shard_dim(x, -1, 0, TP_WORLD), torch.float32
+                parts = [api.matmul(shard_dim(x, -1, r, TP_WORLD),
+                                    shard_dim(w, 0, r, TP_WORLD),
+                                    out_dtype=torch.float32)
+                         for r in range(TP_WORLD)]
+                one = api.matmul(x, w, out_dtype=torch.float32)
+                summed = parts[0] + parts[1]
+                err = check_close(f"{label} partial sums vs one call",
+                                  summed, one, *GEMM_TOLS["float32"])
+                extra = dict(row_max_abs_diff=err)
+            pw = pack_weight(w_r, GemmPolicy())
+            blk = layout_for_packed(M, pw)
+            a_bm = L.to_block_major_a(a_r, blk.bm, blk.bk)
+            before = counts()
+            got = MF.matrixflow_gemm_block_major(a_bm, pw.data, out_dtype=odt)
+            after = counts()
+            want = MF.plain(a_bm, pw.data, out_dtype=odt)
+            torch.cuda.synchronize()
+            route = [r for r in ("wgmma", "mma", "cuda_core")
+                     if after[f"matrixflow_gemm_{r}"]
+                     > before[f"matrixflow_gemm_{r}"]]
+            expect = "cuda_core" if dtype_name == "float32" else "wgmma"
+            if route != [expect]:
+                fail(f"{label}: ran route {route}, expected {expect}")
+            err = check_close(label, got, want, atol, rtol)
+            t_k = timer.ms(lambda: MF.matrixflow_gemm_block_major(
+                a_bm, pw.data, out_dtype=odt))
+            t_p = timer.ms(lambda: MF.plain(a_bm, pw.data, out_dtype=odt))
+            t_lib = timer.ms(lambda: torch.matmul(a_r, w_r))
+            Kr, Nr = w_r.shape
+            nbytes = (M * Kr + Kr * Nr) * dt.itemsize \
+                + M * Nr * odt.itemsize
+            b_ms, b_by = bound_ms(nbytes, 2.0 * M * Nr * Kr, dtype_name)
+            rows.append(dict(cell=label, dtype=dtype_name, M=M, K=Kr, N=Nr,
+                             route=route[0], path=cpath, uses=uses,
+                             max_abs_err=err, ms=t_k, plain_ms=t_p,
+                             library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                             **extra))
+            log(f"{label}: local {Kr}x{Nr} route {route[0]} max|d|={err:.2e} "
+                f"kernel {t_k:.4f} ms plain {t_p:.4f} ms matmul {t_lib:.4f} "
+                f"ms bound {b_ms:.4f} ms ({b_by}) {extra}")
+            del x, w, w_r, pw, a_bm
+    return rows
+
+
+def run_tp_kernel_phase(timer):
+    """Phase 23's kernel cells at a rank's shapes: K1
+    (run_tp_gemm_phase), K4 and K5 at the rank's 16 query / 4 KV heads
+    (head_dim 128) at decode and the prefill bucket, K3 over contiguous
+    caches at the same heads."""
+    from repro_torch.configs.registry import get_config
+    m = tp_rank_config()
+    return {"gemm": run_tp_gemm_phase(timer, tp_config("bfloat16")),
+            "attention": run_attention_phase(timer, get_config(ARCH), [m],
+                                             main=False),
+            "int8_attention": run_int8_attention_phase(
+                timer, get_config(ARCH), [m], main=False),
+            "flash": run_flash_phase(timer, model_flash_cells(
+                np.random.default_rng(23), [m]))}
+
+
+# The kernels each dtype's TP path must launch: fp32 on the CUDA cores,
+# bf16 on the tensor-core routes (phase 23 reads them per rank).
+TP_FP32 = ("matrixflow_gemm", "matrixflow_gemm_cuda_core",
+           "paged_attention", "paged_attention_cuda_cores",
+           "paged_attention_int8", "paged_attention_int8_cuda_cores",
+           "flash_attention", "flash_attention_cuda_cores")
+TP_BF16 = K1_BF16 + K4_BF16 + K5_BF16 + K3_BF16
+
+
+def run_tp_phase():
+    """Phase 23. The one-device run first (this process), then TP_WORLD
+    ranks on the same card (distributed/launch.py: spawn, gloo); the fp32
+    streams and page accounting of every rank must equal the one-device
+    engine's, every rank's the same; the bf16 partings and logit
+    distance, the decode step's wall time and collectives are recorded;
+    the DP step and the pipeline must match their one-rank versions."""
+    import tempfile
+
+    from repro_torch.distributed.launch import spawn
+
+    t0 = time.perf_counter()
+    one = tp_serving_run(None)
+    t_one = time.perf_counter() - t0
+    log(f"tp: the one-device runs took {t_one:.1f} s; starting {TP_WORLD} "
+        f"ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as work:
+        ranks = spawn(tp_rank, TP_WORLD, (str(ROOT),), workdir=work,
+                      timeout_s=600, collective_timeout_s=300)
+    t_ranks = time.perf_counter() - t0 - t_one
+    res = {"seconds_one_device": t_one, "seconds_ranks": t_ranks,
+           "one_device": one, "ranks": ranks}
+    want = json.dumps(one["fp32"], sort_keys=True)
+    for r, rk in enumerate(ranks):
+        srv = rk["serving"]
+        got = dict(srv["fp32"])
+        if got["greedy"]["kv_shards"] != TP_WORLD:
+            fail(f"tp rank {r}: the KV pool did not split "
+                 f"(kv_shards {got['greedy']['kv_shards']})")
+        got["greedy"] = dict(got["greedy"], kv_shards=1)
+        if json.dumps(got, sort_keys=True) != want:
+            bad = [k for k in got if json.dumps(got[k], sort_keys=True)
+                   != json.dumps(one["fp32"][k], sort_keys=True)]
+            fail(f"tp rank {r}: fp32 scenarios {bad} differ from the "
+                 f"one-device engine's")
+        check_counts(f"tp rank {r} fp32 serving", srv["float32 launches"],
+                     TP_FP32, allowed=CUDA_CORE_COUNTERS)
+        check_counts(f"tp rank {r} bf16 serving", srv["bfloat16 launches"],
+                     TP_BF16)
+    if json.dumps(ranks[0]["serving"]["fp32"], sort_keys=True) != \
+            json.dumps(ranks[1]["serving"]["fp32"], sort_keys=True):
+        fail("tp: the ranks' fp32 streams differ")
+    b1, bt = one["bf16"], ranks[0]["serving"]["bf16"]
+    parted = {k: int((np.asarray(bt[k]) != np.asarray(b1[k])).any(1).sum())
+              for k in ("paged", "int8 KV", "contiguous")}
+    for r in ranks[1:]:
+        for k in parted:
+            if not np.array_equal(r["serving"]["bf16"][k], bt[k]):
+                fail(f"tp: the ranks' bf16 {k} streams differ")
+    lg = float(np.abs(bt["logits"] - b1["logits"]).max())
+    if not np.isfinite(bt["logits"]).all():
+        fail("tp: bf16 logits not finite")
+    for srv in [one] + [rk["serving"] for rk in ranks]:   # JSON from here
+        srv["bf16"] = {k: np.asarray(v).tolist()
+                       for k, v in srv["bf16"].items() if k != "logits"}
+    dec1, dect = one["decode"], ranks[0]["serving"]["decode"]
+    res.update(bf16_streams_parted=parted, bf16_streams=SLOTS,
+               bf16_logit_max_abs_diff=lg,
+               decode_ms_one_device=dec1["median_ms"],
+               decode_ms_tp=dect["median_ms"],
+               collectives_per_decode_step=dect["collectives_per_step"],
+               launches_per_decode_step_tp=dect["launches_per_step"],
+               launches_per_decode_step_one=dec1["launches_per_step"],
+               param_bytes_one=one["bfloat16 param bytes"],
+               param_bytes_rank=ranks[0]["serving"]["bfloat16 param bytes"])
+    log(f"tp{TP_WORLD} {TP_ARCH} ({TP_LAYERS} layers, full width): fp32 "
+        f"streams of 6 scenarios equal the one-device engine's on every "
+        f"rank; bf16 parted {parted} of {SLOTS} streams each, logits max "
+        f"|d| {lg:.3e}; decode step {dect['median_ms']:.2f} ms at tp"
+        f"{TP_WORLD} vs {dec1['median_ms']:.2f} ms on one device; "
+        f"collectives per decode step {dect['collectives_per_step']}; "
+        f"bf16 params {res['param_bytes_rank'] / 2**30:.2f} GiB a rank vs "
+        f"{res['param_bytes_one'] / 2**30:.2f} GiB; rank 0's launches: "
+        f"fp32 path {dict((k, ranks[0]['serving']['float32 launches'][k]) for k in TP_FP32)}, "
+        f"bf16 path {dict((k, ranks[0]['serving']['bfloat16 launches'][k]) for k in TP_BF16)}")
+    for r, rk in enumerate(ranks):
+        tr, pp = rk["train"], rk["pipeline"]
+        if tr["one_step_max_abs"] <= 2 * TRAIN_FP32_PARAM_TOL:
+            fail(f"dp rank {r}: the update moves no weight by more than "
+                 f"{tr['one_step_max_abs']:.3e}")
+        for what, v, tol in (
+                ("loss", abs(tr["loss_dp"] - tr["loss_one"]), LOGIT_TOL),
+                ("grad norm", abs(tr["grad_norm_dp"] - tr["grad_norm_one"]),
+                 LOGIT_TOL),
+                ("params after the update", tr["param_max_abs_diff"],
+                 TRAIN_FP32_PARAM_TOL)):
+            if not v <= tol:
+                fail(f"dp{TP_WORLD} step vs one rank: {what} differ by "
+                     f"{v:.3e} > {tol}")
+        check_counts(f"dp rank {r} train step", tr["launches"],
+                     ("matrixflow_gemm", "matrixflow_gemm_backward",
+                      "matrixflow_gemm_batched"), allowed=CUDA_CORE_COUNTERS)
+        if tr["collectives"]["calls"]["all_reduce"] != 1:
+            fail(f"dp rank {r}: {tr['collectives']} (one all-reduce a step)")
+        if not (pp["fwd_max_abs_diff"] <= 1e-5
+                and pp["bwd_max_abs_diff"] <= 1e-4 * max(
+                    1.0, pp["grad_max_abs"])):
+            fail(f"pipeline rank {r} vs sequential: forward |d| "
+                 f"{pp['fwd_max_abs_diff']:.3e}, gradient |d| "
+                 f"{pp['bwd_max_abs_diff']:.3e}")
+        check_counts(f"pipeline rank {r}", pp["launches"],
+                     ("matrixflow_gemm", "matrixflow_gemm_backward"),
+                     allowed=CUDA_CORE_COUNTERS)
+    tr, pp = ranks[0]["train"], ranks[0]["pipeline"]
+    log(f"dp{TP_WORLD} train step ({ARCH}, {TRAIN_FP32_LAYERS} layers fp32, "
+        f"B {TRAIN_BATCH} x {TRAIN_SEQ}) vs one rank: loss |d| "
+        f"{abs(tr['loss_dp'] - tr['loss_one']):.2e}, params max |d| "
+        f"{tr['param_max_abs_diff']:.2e}; pipeline ({TP_WORLD} stages) vs "
+        f"sequential: forward |d| {pp['fwd_max_abs_diff']:.2e}, gradient "
+        f"|d| {pp['bwd_max_abs_diff']:.2e}; phase {t_one:.1f} s one device "
+        f"+ {t_ranks:.1f} s ranks")
+    return res
+
+
 def slice_paths(report) -> dict:
-    """The launch counts of phases 20 and 22's paths, by path."""
+    """The launch counts of phases 20, 22 and 23's paths, by path. Of the
+    slice entries of the kernels line (:func:`slice_entries`), the
+    training ones count phase 20's ``training`` path alone, the mixed ones
+    phase 22's, and the ``_tp2`` ones phase 23's TP=2 serving ranks; every
+    path, the DP=2 train step and the pipeline ranks too, joins the
+    kernels' all-path totals in ``main``."""
     out = {}
     if "train" in report:
         out["training"] = report["train"]["launches"]
     for name, r in report.get("mixed", {}).items():
         if "launches" in r:
             out[f"mixed dtypes {name} serving"] = r["launches"]
+    for r, rk in enumerate(report.get("tp", {}).get("ranks", [])):
+        for dtype in ("float32", "bfloat16"):
+            out[f"tp{TP_WORLD} rank {r} {dtype} serving"] = \
+                rk["serving"][f"{dtype} launches"]
+        out[f"dp{TP_WORLD} rank {r} train step"] = rk["train"]["launches"]
+        out[f"pipeline rank {r}"] = rk["pipeline"]["launches"]
     return out
 
 
@@ -3386,8 +3967,10 @@ def slice_entries(report) -> list:
     paths = slice_paths(report)
     out = []
 
-    def entry(name, counter, source, replaces, rows, dtype, path, others):
-        launches = {p: c[counter] for p, c in paths.items() if c[counter]}
+    def entry(name, counter, source, replaces, rows, dtype, path, others,
+              *, prefix):
+        launches = {p: c[counter] for p, c in paths.items()
+                    if c[counter] and p.startswith(prefix)}
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/csrc/{source}.cu",
                     "replaces": replaces, "launches": sum(launches.values()),
@@ -3402,16 +3985,36 @@ def slice_entries(report) -> list:
         entry("matrixflow_gemm_batched", "matrixflow_gemm_batched",
               "matrixflow_gemm", k1,
               [r for r in rows if r["G"] > 1], "bfloat16",
-              "train batch grid forward", ("train batch grid backward",))
+              "train batch grid forward", ("train batch grid backward",),
+              prefix="training")
         entry("matrixflow_gemm_backward", "matrixflow_gemm_backward",
               "matrixflow_gemm", k1, rows, "bfloat16", "train backward",
-              ("train forward", "train batch grid backward"))
+              ("train forward", "train batch grid backward"),
+              prefix="training")
     if "mixed_kernels" in report:
         for kern, line in (("flash_attention", 199), ("paged_attention", 188)):
             entry(f"{kern}_bf16kv", f"{kern}_{MIXED_ROUTE}", kern,
                   f"src/repro/kernels/{kern}.py:{line}",
                   [r for r in report["mixed_kernels"] if r["kernel"] == kern],
-                  "float32 q, bfloat16 KV", "decode step", ("prefill",))
+                  "float32 q, bfloat16 KV", "decode step", ("prefill",),
+                  prefix="mixed dtypes")
+    if "tp_kernels" in report:
+        tk, tp = report["tp_kernels"], f"tp{TP_WORLD} "
+        rank = tp_rank_config().name
+        for name, counter, source, line, rows, path in (
+                ("matrixflow_gemm", "matrixflow_gemm", "matrixflow_gemm",
+                 "matrixflow_gemm.py:137", tk["gemm"],
+                 f"{TP_ARCH} tp{TP_WORLD}"),
+                ("paged_attention", "paged_attention", "paged_attention",
+                 "paged_attention.py:188", tk["attention"], rank),
+                ("paged_attention_int8", "paged_attention_int8",
+                 "paged_attention", "paged_attention.py:222",
+                 tk["int8_attention"], rank),
+                ("flash_attention", "flash_attention", "flash_attention",
+                 "flash_attention.py:199", tk["flash"], rank)):
+            entry(f"{name}_tp{TP_WORLD}", counter, source,
+                  f"src/repro/kernels/{line}", rows, "bfloat16",
+                  f"{path} decode step", (f"{path} prefill",), prefix=tp)
     return out
 
 
@@ -3472,6 +4075,18 @@ def main() -> None:
         (OUT_DIR / "chip_smoke_zoo.json").write_text(
             json.dumps(report, indent=1))
         return
+    if sys.argv[1:2] == ["--tp"]:             # phase 23 with its kernel cells
+        timer = Timer()
+        report["tp_kernels"] = run_tp_kernel_phase(timer)
+        del timer
+        report["tp"] = run_tp_phase()
+        (OUT_DIR / "chip_smoke_tp.json").write_text(json.dumps(report,
+                                                               indent=1))
+        print(json.dumps({"kernels": slice_entries(report)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     if sys.argv[1:2] in (["--train"], ["--mixed"]):   # phases 20-21 or 22
         cfg = get_config(ARCH)
         timer = Timer()
@@ -3512,6 +4127,7 @@ def main() -> None:
     report["ssd"] = run_ssd_phase(timer, mamba, zamba)
     report["train_kernels"] = run_train_kernel_phase(timer, cfg)
     report["mixed_kernels"] = run_mixed_kernel_phase(timer, cfg)
+    report["tp_kernels"] = run_tp_kernel_phase(timer)
     del timer
     report["serving"] = run_serving_phase(cfg)
     report["parity"] = run_parity_phase(cfg)
@@ -3534,6 +4150,7 @@ def main() -> None:
     report["train"] = run_train_phase(cfg)
     report["train_fp32"] = run_train_fp32_phase(cfg)
     report["mixed"] = run_mixed_phase(cfg)
+    report["tp"] = run_tp_phase()
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],

@@ -5,11 +5,14 @@ deepseek-v2-236b with MLA), internvl2-76b (vlm), musicgen-medium (audio),
 Mamba-2 and the Zamba-2 hybrid — and the paper's BERT/ViT encoders."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict
 
 from repro_torch.models.config import ModelConfig, reduced
 
-__all__ = ["ARCHS", "get_config", "get_smoke_config", "reduced"]
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "reduced",
+           "ShapeCell", "SHAPES", "cell_applicable", "all_cells"]
 
 ARCHS = {
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
@@ -41,3 +44,41 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str, **kw) -> ModelConfig:
     return reduced(get_config(arch), **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq: int           # train/prefill: sequence length; decode: KV context
+    batch: int         # global batch
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+# long_500k requires sub-quadratic sequence mixing: only SSM/hybrid archs
+# run it; pure full-attention archs skip.
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> bool:
+    if shape.name == "long_500k":
+        return cfg.family in LONG_CONTEXT_FAMILIES
+    return True
+
+
+def all_cells():
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if cell_applicable(cfg, shape):
+                yield arch, shape

@@ -12,14 +12,16 @@ resident block-major weights — the port of ``repro/core/plan.py``.
   paper's Fig. 5 reuse): packed once at model build, consumed by every
   GEMM without a re-layout; with ``quantize="int8"`` (or a policy's
   ``weight_dtype``) a :class:`~repro_torch.core.quant.QuantizedPackedWeight`
-  instead — int8 blocks plus per-channel scales, the W8A8 route.
+  instead — int8 blocks plus per-channel scales, the W8A8 route;
+* :class:`ShardingPolicy` — frozen: the mesh axes' names and the sharding
+  rule overrides ``distributed/tp.py`` resolves against a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import threading
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -34,7 +36,7 @@ __all__ = [
     "resolve_backend", "register_attention_backend",
     "get_attention_backend_spec", "resolve_attention_backend",
     "pack_weight", "pack_model_weights", "layout_for_packed",
-    "QuantizedPackedWeight",
+    "QuantizedPackedWeight", "ShardingPolicy",
 ]
 
 Device = Union[str, torch.device]
@@ -154,6 +156,31 @@ def resolve_attention_backend(name: str, device: Device, *,
 # a 2-D a (M, K) and a 2-D b (K, N) or a PackedWeight; batched=True ones get
 # the operands as the caller passed them.
 BackendFn = Callable[..., torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """How execution shards over a (data, model) mesh
+    (``launch/mesh.py``; consumed by ``distributed/tp.py``).
+
+    data_axis    mesh axis for data parallelism (the batch dim; serving
+                 keeps weights and caches whole along it).
+    model_axis   mesh axis for tensor parallelism: QKV/up projections
+                 column-parallel, out/down projections row-parallel with an
+                 all-reduce on the contraction, attention and KV-pool heads
+                 sharded.
+    overrides    logical-rule overrides layered onto
+                 ``distributed/sharding.py::DEFAULT_RULES``, as a hashable
+                 tuple of ``(logical_name, mesh_axes)`` pairs — e.g.
+                 ``(("heads", None),)`` pins attention replicated.
+    """
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    overrides: Tuple[Tuple[str, Any], ...] = ()
+
+    def overrides_dict(self) -> Dict[str, Any]:
+        return dict(self.overrides)
 
 
 @dataclasses.dataclass(frozen=True)

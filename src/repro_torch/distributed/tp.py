@@ -1,0 +1,545 @@
+"""Tensor-parallel execution over a group of processes
+(``repro/distributed/tp.py``).
+
+The reference is one controller: ``shard_map`` over global arrays, and
+GSPMD re-gathers wherever a sharded value meets an unsharded consumer.
+Here every rank runs the same Python on its own slice (the mesh is a
+process group, ``launch/mesh.py``), so this module holds the rank's slice
+of every model-sharded weight (:func:`shard_params`) and issues every
+collective itself:
+
+  * **column-parallel** projections (QKV, MLP up/gate, LM head): the rank
+    holds its N slice (and its bias slice) and computes its output columns
+    from the full K; the output stays local. SwiGLU's gate ‖ up weight
+    (``blocks=2``) slices each half alike, so the activation is local too.
+  * **row-parallel** projections (attention out, MLP down): the rank holds
+    its K slice, contracts its slice of x through the GEMM with an fp32
+    output (int32 for int8), an ``all_reduce`` over the model group sums
+    the partials, and then comes the cast and the bias, added once.
+  * **attention** runs on the rank's head slice; paged pools and int8
+    scales hold the rank's KV heads (:func:`head_sharding`).
+  * **gathers**, where a sharded output meets an unsharded consumer: the
+    LM head's vocab slice before sampling, a Q/K/V projection whose
+    columns shard while attention stays replicated (:func:`conform_heads`)
+    and the vocab-sharded embedding table. A gather is an ``all_reduce``
+    of a zero-filled buffer into which each rank wrote its own slice:
+    adding zeros is exact.
+
+Every collective is an ``all_reduce`` or a ``broadcast`` — the two that
+gloo runs on CUDA tensors as on CPU ones — and counts its calls and bytes
+in :data:`collectives`. Nothing gives way to a single-rank path: a
+collective that fails raises.
+
+Without a context, or with a model axis of 1, every wrapper is the plain
+``api`` call, so the model code routes through this module unconditionally.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import api
+from repro_torch.core.plan import PackedWeight, QuantizedPackedWeight, \
+    ShardingPolicy
+from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.models.module import is_axis_leaf
+
+__all__ = [
+    "TPContext", "make_context", "use_tp", "current_tp", "head_sharding",
+    "linear", "matmul", "attention", "embed", "conform_heads",
+    "param_cut", "shard_params", "shard_caches", "head_units", "all_reduce",
+    "broadcast", "gather", "collectives",
+]
+
+
+# ---------------------------------------------------------------------------
+# Counted collectives
+# ---------------------------------------------------------------------------
+
+class Collectives:
+    """Calls and bytes of every collective issued, by kind."""
+
+    KINDS = ("all_reduce", "broadcast")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = {k: 0 for k in self.KINDS}
+        self.bytes = {k: 0 for k in self.KINDS}
+
+    def add(self, kind: str, t: torch.Tensor) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += t.numel() * t.element_size()
+
+    def snapshot(self) -> Dict[str, Dict[str, int]]:
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes)}
+
+
+collectives = Collectives()
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` (a no-op on a group of one): in place
+    when ``t`` is contiguous, else into a contiguous copy — a strided view
+    (a GEMM's output cut from its padded tiles) would be reduced wrongly.
+    Use the returned tensor."""
+    if _group_size(group) > 1:
+        t = t.contiguous()
+        collectives.add("all_reduce", t)
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` from global rank ``src`` to every rank of ``group``; ``t``
+    must be contiguous (it is received in place)."""
+    if _group_size(group) > 1:
+        if not t.is_contiguous():
+            raise ValueError("broadcast receives in place: pass a "
+                             "contiguous tensor")
+        collectives.add("broadcast", t)
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Context
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TPContext:
+    """A mesh and its resolved sharding rules, carried thread-local
+    (:func:`use_tp`)."""
+
+    mesh: Any
+    rules: ShardingRules
+    policy: ShardingPolicy
+
+    @property
+    def model_axis(self) -> str:
+        return self.policy.model_axis
+
+    @property
+    def data_axis(self) -> str:
+        return self.policy.data_axis
+
+    @property
+    def model_size(self) -> int:
+        return int(self.mesh.shape.get(self.model_axis, 1))
+
+    @property
+    def rank(self) -> int:
+        """This rank's coordinate on the model axis."""
+        return int(self.mesh.coords.get(self.model_axis, 0))
+
+    @property
+    def group(self):
+        return self.mesh.group(self.model_axis)
+
+    def wants_model(self, logical: Optional[str]) -> bool:
+        """True when the rule for ``logical`` resolves to the model axis."""
+        if logical is None:
+            return False
+        axes = self.rules._resolve(self.rules.rules.get(logical))
+        if axes is None:
+            return False
+        axes = (axes,) if isinstance(axes, str) else axes
+        return self.model_axis in axes
+
+
+def make_context(mesh, policy: Optional[ShardingPolicy] = None,
+                 overrides: Optional[Dict[str, Any]] = None
+                 ) -> Optional[TPContext]:
+    """A TPContext (None mesh → None, the single-device no-op).
+    ``overrides`` layer on top of the policy's own (model configs pass
+    ``cfg.overrides_dict()`` — e.g. smollm pins heads replicated)."""
+    if mesh is None:
+        return None
+    policy = policy if policy is not None else ShardingPolicy()
+    merged = policy.overrides_dict()
+    if overrides:
+        merged.update(overrides)
+    return TPContext(mesh=mesh, rules=ShardingRules(mesh, merged),
+                     policy=policy)
+
+
+_state = threading.local()
+
+
+def current_tp() -> Optional[TPContext]:
+    return getattr(_state, "tp", None)
+
+
+@contextlib.contextmanager
+def use_tp(ctx: Optional[TPContext]):
+    """Pin the active TP context for the enclosed region (thread-local)."""
+    prev = getattr(_state, "tp", None)
+    _state.tp = ctx
+    try:
+        yield ctx
+    finally:
+        _state.tp = prev
+
+
+def _active(ctx: Optional[TPContext]) -> bool:
+    return ctx is not None and ctx.model_size > 1
+
+
+# ---------------------------------------------------------------------------
+# Sharding decisions and slices
+# ---------------------------------------------------------------------------
+
+def head_sharding(ctx: Optional[TPContext], H: int, Hkv: int
+                  ) -> Tuple[bool, bool]:
+    """(shard_q, shard_kv) over the model axis for an (H, Hkv) layer.
+
+    Both shard when both divide the model-axis size (rep = H/Hkv is then
+    preserved per shard). Query heads shard alone only for MQA (Hkv == 1):
+    the kernels compute the GQA grouping from local shapes, so a GQA query
+    slice over replicated KV heads would regroup wrongly — replicate
+    instead.
+    """
+    if ctx is None:
+        return False, False
+    mp = ctx.model_size
+    if mp <= 1 or not ctx.wants_model("heads") or H % mp:
+        return False, False
+    if H == Hkv:
+        return True, True         # MHA/MLA: one head set, one rule
+    if ctx.wants_model("kv_heads") and Hkv % mp == 0:
+        return True, True
+    if Hkv == 1:
+        return True, False        # MQA replication fallback
+    return False, False
+
+
+def param_cut(ctx: TPContext, names: Sequence[Optional[str]],
+              shape: Sequence[int], units: Optional[Dict[str, int]] = None,
+              blocks: int = 1) -> Optional[Tuple[int, int]]:
+    """(dim, blocks) of the one dim of a weight, bias or table (logical
+    ``names``, global ``shape``) of which each rank holds a slice, or None:
+    the one place that decides what :func:`shard_params` keeps and what
+    :func:`linear` and :func:`embed` take.
+
+    The dim is the one whose :meth:`ShardingRules.spec` names the model
+    axis — so the reference's sharding trees (``launch/steps.py``) and the
+    ranks agree on the dim — with two refinements that a rank needs and
+    GSPMD does not, since no rank can reshard its neighbour's slice:
+
+      * ``units`` maps a name to its count of indivisible groups (whole
+        heads): a dim whose groups do not divide over the model axis stays
+        whole (MQA's single KV head, which the spec splits by columns);
+      * ``blocks`` > 1 cuts each of the last dim's equal blocks alike
+        (SwiGLU's gate ‖ up: the rank holds its chunk of the gate and the
+        same chunk of the up, where the spec's contiguous halves would give
+        one rank the gate and the other the up), and every block must
+        divide.
+    """
+    spec = ctx.rules.spec(tuple(names), tuple(shape))
+    mp = ctx.model_size
+    for d, axes in enumerate(spec):
+        if ctx.model_axis not in ((axes,) if isinstance(axes, str)
+                                  else (axes or ())):
+            continue
+        b = blocks if d == len(shape) - 1 else 1
+        u = (units or {}).get(names[d])
+        if shape[d] % (mp * b) or (u is not None and u % mp):
+            return None
+        return d, b
+    return None
+
+
+def shard_dim(t: torch.Tensor, dim: int, rank: int, n: int,
+              blocks: int = 1) -> torch.Tensor:
+    """Rank ``rank``'s 1/n of dim ``dim`` of ``t``: the same chunk of each
+    of its ``blocks`` equal blocks (one contiguous chunk when 1), in a
+    tensor of its own — never a view that would keep all of ``t``
+    alive."""
+    dim = dim % t.dim()
+    size = t.shape[dim]
+    chunk = size // (blocks * n)
+    parts = [t.narrow(dim, b * (size // blocks) + rank * chunk, chunk)
+             for b in range(blocks)]
+    if blocks > 1:
+        return torch.cat(parts, dim)
+    return parts[0].clone(memory_format=torch.contiguous_format)
+
+
+def gather(t: torch.Tensor, dim: int, full: int, ctx: TPContext,
+           blocks: int = 1) -> torch.Tensor:
+    """The whole of dim ``dim`` (``full`` wide) from every rank's slice of
+    it (:func:`shard_dim`'s layout): an all-reduce of a zero-filled buffer
+    into which this rank wrote its own slice."""
+    dim = dim % t.dim()
+    shape = list(t.shape)
+    shape[dim] = full
+    buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    chunk = t.shape[dim] // blocks
+    for b in range(blocks):
+        buf.narrow(dim, b * (full // blocks) + ctx.rank * chunk,
+                   chunk).copy_(t.narrow(dim, b * chunk, chunk))
+    return all_reduce(buf, ctx.group)
+
+
+def conform_heads(t: torch.Tensor, n_heads: int, local: bool
+                  ) -> torch.Tensor:
+    """Bring the head dim (axis 2) of ``t`` — the rank's slice or all
+    ``n_heads`` — to what its consumer takes: the rank's slice when
+    ``local``, else all heads (gathered)."""
+    ctx = current_tp()
+    if not _active(ctx) or (t.shape[2] == n_heads) != local:
+        return t
+    if local:
+        return shard_dim(t, 2, ctx.rank, ctx.model_size)
+    return gather(t, 2, n_heads, ctx)
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+
+def _local(t: torch.Tensor, dim: int, full: int, ctx: TPContext,
+           what: str) -> torch.Tensor:
+    """``t`` itself when dim ``dim`` is the rank's slice of ``full``;
+    raises for anything else — a whole operand would be cut by a copy on
+    every call."""
+    if t.shape[dim] * ctx.model_size != full:
+        raise ValueError(
+            f"tp: the {what} is {tuple(t.shape)}, not this rank's slice of "
+            f"the {full} wide dim {dim}; hold the rank's params "
+            f"(tp.shard_params) and caches (init_*caches(tpctx=))")
+    return t
+
+
+def linear(x: torch.Tensor, w, bias=None, *,
+           axes: Sequence[Optional[str]],
+           full: Tuple[int, int],
+           units: Optional[int] = None,
+           blocks: int = 1,
+           gather_out: bool = False,
+           policy=None) -> torch.Tensor:
+    """y = x @ w (+ bias) over the active TP context.
+
+    ``axes`` are the weight's logical axis names and ``full`` its global
+    (K, N); :func:`param_cut` decides which dim shards (``units`` bounds
+    the split to whole head groups, ``blocks`` splits each of N's equal
+    blocks alike). ``w`` and ``bias`` are what this rank holds
+    (:func:`shard_params`) — a whole weight on a sharded dim raises. N
+    sharded → column-parallel: the rank's output columns (gathered whole
+    with ``gather_out``). K sharded → row-parallel: the partial product of
+    the rank's slice of x (cut here when x is whole — attention that stays
+    replicated) in fp32 (int32 for integer operands), summed over the
+    model group, then cast, then the bias once. Falls back to
+    :func:`api.linear` with no context, a model axis of 1, a packed
+    weight, a weight that is not 2-D, or no dim to shard.
+    """
+    ctx = current_tp()
+    if (not _active(ctx)
+            or isinstance(w, (PackedWeight, QuantizedPackedWeight))
+            or getattr(w, "ndim", 0) != 2):
+        return api.linear(x, w, bias, policy=policy)
+    K, N = full
+    cut = param_cut(ctx, axes, full,
+                    None if units is None else dict.fromkeys(axes, units),
+                    blocks)
+
+    if cut is not None and cut[0] == 1:
+        # column parallel: the full-K contraction of the rank's columns
+        w = _local(w, 1, N, ctx, "weight")
+        if bias is not None:
+            bias = _local(bias, 0, N, ctx, "bias")
+        y = api.linear(x, w, bias, policy=policy)
+        return gather(y, -1, N, ctx, blocks) if gather_out else y
+
+    if cut is not None:
+        # row parallel: partial products summed in fp32 before the cast
+        w = _local(w, 0, K, ctx, "weight")
+        if x.shape[-1] == K:
+            x = shard_dim(x, -1, ctx.rank, ctx.model_size)
+        x = _local(x, -1, K, ctx, "input")
+        out_dtype = torch.promote_types(x.dtype, w.dtype)
+        acc = torch.float32 if out_dtype.is_floating_point else None
+        y = all_reduce(api.matmul(x, w, policy=policy, out_dtype=acc),
+                       ctx.group)
+        if acc is not None:
+            y = y.to(out_dtype)
+        return y if bias is None else y + bias
+
+    if tuple(w.shape) != (K, N):
+        raise ValueError(f"tp: a replicated weight is whole: got "
+                         f"{tuple(w.shape)} for {(K, N)}")
+    return api.linear(x, w, bias, policy=policy)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           axes: Sequence[Optional[str]],
+           full: Tuple[int, int],
+           units: Optional[int] = None,
+           policy=None) -> torch.Tensor:
+    """Bias-less :func:`linear`."""
+    return linear(a, b, None, axes=axes, full=full, units=units,
+                  policy=policy)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, *, vocab: int
+          ) -> torch.Tensor:
+    """``table[tokens]`` for a ``("vocab", "embed")`` table of ``vocab``
+    rows, as this rank holds it: with the vocab sharded, each rank looks
+    up the tokens of its slice, zeros elsewhere, and an all-reduce sums
+    the rows — exact, every row comes from one rank."""
+    ctx = current_tp()
+    if not _active(ctx) or param_cut(
+            ctx, ("vocab", "embed"), (vocab, table.shape[1])) is None:
+        return table[tokens]
+    n = _local(table, 0, vocab, ctx, "embedding table").shape[0]
+    local = tokens - ctx.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return all_reduce(rows, ctx.group)
+
+
+# ---------------------------------------------------------------------------
+# Attention (heads over model; per-rank paged pools)
+# ---------------------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              q_positions: torch.Tensor, kv_valid_len: torch.Tensor,
+              heads: Tuple[int, int],
+              causal: bool = True, scale: Optional[float] = None,
+              soft_cap: Optional[float] = None,
+              block_tables: Optional[torch.Tensor] = None,
+              kv_scales=None,
+              policy=None) -> torch.Tensor:
+    """api.attention with heads sharded over the model axis.
+
+    q is (B, Sq, H, D); k/v are dense (B, T, Hkv, D) or, with
+    ``block_tables``, page pools (P, page_size, Hkv, D): the head dim is
+    axis 2 either way. ``heads`` is the layer's global (H, Hkv). Where
+    :func:`head_sharding` shards them, q, k, v and an int8 pool's
+    ``kv_scales`` ((P, Hkv) each, heads last) are the rank's slices
+    (:func:`conform_heads`, ``init_*caches(tpctx=)``), else whole; anything
+    else raises. The output holds the rank's query heads when they shard,
+    else all of them.
+    """
+    ctx = current_tp()
+    H, Hkv = heads
+    shard_q, shard_kv = head_sharding(ctx, H, Hkv)
+    if shard_q:
+        _local(q, 2, H, ctx, "query")
+    elif q.shape[2] != H:
+        raise ValueError(f"tp: attention over all {H} heads got "
+                         f"{q.shape[2]} query heads")
+    for t, what in ((k, "key"), (v, "value")):
+        if shard_kv:
+            _local(t, 2, Hkv, ctx, what)
+        elif t.shape[2] != Hkv:
+            raise ValueError(f"tp: attention over all {Hkv} KV heads got "
+                             f"{t.shape[2]} {what} heads")
+    if shard_kv and kv_scales is not None:
+        for s in kv_scales:
+            _local(s, -1, Hkv, ctx, "int8 pool scale")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return api.attention(q, k, v, q_positions=q_positions,
+                         kv_valid_len=kv_valid_len, causal=causal,
+                         scale=scale, soft_cap=soft_cap,
+                         block_tables=block_tables, kv_scales=kv_scales,
+                         policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# Placement: each rank keeps its own slice
+# ---------------------------------------------------------------------------
+
+def head_units(cfg) -> Dict[str, int]:
+    """The indivisible groups of a config's head dims: whole heads."""
+    return {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads}
+
+
+_WHOLE_SUBTREES = ("ssd",)   # models/ssm.py runs its params whole
+
+
+def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
+                 units: Optional[Dict[str, int]] = None, shapes=None):
+    """The rank's params: every model-sharded dim of a weight, bias or the
+    embedding table cut to the rank's slice (:func:`shard_dim`), the rest
+    kept whole. ``units`` maps a logical name to its count of indivisible
+    groups (``{"heads": H, "kv_heads": Hkv}``), as :func:`linear`'s call
+    sites bound their splits. ``shapes`` is the tree of the global params
+    (default ``params``: they are whole; meta tensors will do), so a
+    tree that is already the rank's slice comes back as it is. Tensors of
+    three or more dims (the MoE expert banks, audio's per-codebook tables)
+    and the SSD blocks' params stay whole: no TP call site consumes them,
+    as in the reference, whose ``tp.linear`` passes any weight with
+    ``ndim != 2`` to the unsharded path."""
+    if not _active(ctx):
+        return params
+    units = units or {}
+    mp, r = ctx.model_size, ctx.rank
+
+    def rec(p, a, full, whole):
+        if is_axis_leaf(a):
+            if whole or p.dim() > 2:
+                return p
+            cut = param_cut(ctx, tuple(a), tuple(full.shape), units,
+                            getattr(a, "blocks", 1))
+            if cut is None:
+                return p
+            d, blocks = cut
+            if p.shape[d] == full.shape[d]:
+                return shard_dim(p, d, r, mp, blocks)
+            if p.shape[d] * mp != full.shape[d]:
+                raise ValueError(
+                    f"a {tuple(p.shape)} param is neither the whole "
+                    f"{tuple(full.shape)} nor its rank slice over {mp}")
+            return p
+        if isinstance(a, dict):
+            return {k: rec(p[k], v, full[k], whole or k in _WHOLE_SUBTREES)
+                    for k, v in a.items()}
+        return [rec(pi, ai, fi, whole) for pi, ai, fi in zip(p, a, full)]
+
+    return rec(params, axes_tree, params if shapes is None else shapes,
+               False)
+
+
+_KV_LEAVES = ("k", "v", "kp", "vp")
+_KV_SCALE_LEAVES = ("k_scale", "v_scale")
+
+
+def shard_caches(caches, ctx: Optional[TPContext], *, shard_kv: bool):
+    """The rank's caches: K/V leaves (dense ``k``/``v`` or paged
+    ``kp``/``vp``) cut to the rank's KV heads (axis -2) when ``shard_kv``,
+    int8 pools' ``k_scale``/``v_scale`` on theirs (the last axis); lengths,
+    the MLA latent and SSM state stay whole. ``shard_kv`` must be the
+    :func:`head_sharding` decision for the model's (H, Hkv)."""
+    if not _active(ctx) or not shard_kv:
+        return caches
+    mp, r = ctx.model_size, ctx.rank
+
+    def rec(node):
+        if isinstance(node, list):
+            return [rec(v) for v in node]
+        out = {}
+        for key, val in node.items():
+            if isinstance(val, (dict, list)):
+                out[key] = rec(val)
+            elif key in _KV_LEAVES and val.dim() >= 4:
+                out[key] = shard_dim(val, -2, r, mp)
+            elif key in _KV_SCALE_LEAVES and val.dim() >= 2:
+                out[key] = shard_dim(val, -1, r, mp)
+            else:
+                out[key] = val
+        return out
+
+    return rec(caches)

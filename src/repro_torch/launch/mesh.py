@@ -1,0 +1,93 @@
+"""Meshes over ``torch.distributed`` (``repro/launch/mesh.py``).
+
+The reference's mesh is one controller's grid of devices. Here every rank
+is a process that runs the same program on its own slice, so a
+:class:`Mesh` is this rank's view of the grid: the axis names and sizes,
+this rank's coordinates, and one process group per axis — the ranks that
+share every other coordinate. Rank r sits at the row-major coordinates of
+r in the grid (the reference's device order). Every rank creates every
+group, in the same order, as ``dist.new_group`` requires.
+
+Without an initialised process group the world is this one process: a
+mesh of size 1 whose groups are None (no collective is ever issued on it).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch.distributed as dist
+
+
+class Mesh:
+    """This rank's view of an (axis_names, shape) grid of ranks."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        dims = tuple(int(s) for s in shape)
+        if len(dims) != len(self.axis_names):
+            raise ValueError(f"mesh shape {dims} does not name every axis "
+                             f"of {self.axis_names}")
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, dims))
+        self.size = int(np.prod(dims))
+        world = world_size()
+        if self.size != world:
+            raise ValueError(f"a mesh of shape {dims} needs {self.size} "
+                             f"ranks; the world has {world}")
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        grid = np.arange(self.size).reshape(dims)
+        self.coords: Dict[str, int] = dict(zip(
+            self.axis_names,
+            (int(c) for c in np.unravel_index(self.rank, dims))))
+        self.groups: Dict[str, Optional[dist.ProcessGroup]] = {}
+        self.group_ranks: Dict[str, Tuple[int, ...]] = {}
+        for i, name in enumerate(self.axis_names):
+            lines = np.moveaxis(grid, i, -1).reshape(-1, dims[i])
+            for line in lines:
+                ranks = tuple(int(r) for r in line)
+                # every rank takes part in every new_group call
+                g = dist.new_group(list(ranks)) if dist.is_initialized() \
+                    else None
+                if self.rank in ranks:
+                    self.groups[name], self.group_ranks[name] = g, ranks
+
+    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
+        return self.groups.get(axis)
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16×16 = 256 ranks per pod; multi_pod adds a leading 2-pod axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    if world_size() != need:
+        raise ValueError(
+            f"the production mesh {dict(zip(axes, shape))} needs {need} "
+            f"ranks; the world has {world_size()}")
+    return Mesh(shape, axes)
+
+
+def make_host_mesh(*, model: int = 1) -> Mesh:
+    """Every rank of the world as a (data, model) mesh.
+
+    ``model`` is the model-axis (tensor-parallel) factor; the data axis
+    takes the rest, and an impossible split fails loudly."""
+    n = world_size()
+    if model < 1:
+        raise ValueError(f"model axis factor must be >= 1, got {model}")
+    if n % model:
+        raise ValueError(
+            f"cannot build a (data, model) host mesh: {n} rank(s) not "
+            f"divisible by model={model}; pick a factor of {n} (or start "
+            f"more ranks: repro_torch/distributed/launch.py)")
+    return Mesh((n // model, model), ("data", "model"))

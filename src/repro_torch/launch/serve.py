@@ -15,19 +15,30 @@ Usage:
   python -m repro_torch.launch.serve --arch smollm-135m \
       --prefix-cache --shared-prefix-len 32 --spec ngram \
       --async-demo 8 --trace-out trace.json --metrics-json metrics.json
+  python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
+      --tp 2                        # tensor parallel over two local ranks
+
+``--tp N`` starts N local ranks itself (one gloo group,
+``distributed/launch.py``; on the card every rank runs on ``cuda:0``),
+serves on a (1, N) ``make_host_mesh`` — the same requests on every rank —
+and only rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
 import json
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.plan import AttentionPolicy, GemmPolicy
+from repro_torch.distributed.launch import run_cli
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.obs import NULL_OBS, Observability
 from repro_torch.serving.engine import ServeConfig, ServingEngine
@@ -117,7 +128,18 @@ def main(argv=None):
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="enable observability and write the metrics "
                          "registry snapshot to PATH as JSON")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallel: start this many local ranks and "
+                         "serve on a mesh with a model axis of this size "
+                         "(heads, d_ff and vocab shard where they divide)")
     args = ap.parse_args(argv)
+    if args.tp > 1 and (args.pack_weights or args.weight_dtype):
+        ap.error("--tp: resident packed weights (--pack-weights, "
+                 "--weight-dtype) have no rank slice")
+    if args.tp > 1 and not dist.is_initialized():
+        return run_cli("repro_torch.launch.serve",
+                       sys.argv[1:] if argv is None else argv, args.tp)
+    mesh = make_host_mesh(model=args.tp) if args.tp > 1 else None
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     pageable = cfg.family not in T.SSD_FAMILIES and not cfg.is_mla
     backend = args.attn_backend or ("paged" if pageable else "auto")
@@ -157,7 +179,7 @@ def main(argv=None):
         cache_pages=args.cache_pages, scheduler=scheduler,
         prefix_cache=args.prefix_cache,
         prefix_watermark=args.prefix_watermark, spec=spec, obs=obs,
-        device=args.device)
+        device=args.device, mesh=mesh)
     engine = ServingEngine(cfg, params, sc)
     dev = engine.device
     print(f"[serve] arch={cfg.name} device={dev} slots={args.batch_slots} "
@@ -165,7 +187,8 @@ def main(argv=None):
           f"{policy.mode} attn={engine.attn.backend} "
           f"page_size={args.page_size} packed={args.pack_weights} "
           f"weight_dtype={args.weight_dtype} kv_dtype={args.kv_dtype} "
-          f"prefix_cache={args.prefix_cache}")
+          f"prefix_cache={args.prefix_cache}"
+          + (f" tp={args.tp} kv_shards={engine.kv_shards()}" if mesh else ""))
     gen = (torch.Generator().manual_seed(args.seed)
            if args.temperature > 0 else None)
 

@@ -7,7 +7,10 @@ capacity-dropping MoE with its grouped expert bank.
 Every projection goes through ``core.api.linear`` under the active
 GemmPolicy (the MatrixFlow GEMM on the card); attention goes through
 ``core.api.attention`` under the active AttentionPolicy (on the card: the
-paged kernel over page pools, the flash kernel over dense K/V).
+paged kernel over page pools, the flash kernel over dense K/V). The call
+sites the reference routes through tensor parallelism go through
+``distributed/tp.py``, which is the plain ``api`` call without a TP
+context; under one, heads, d_ff and the caches are the rank's slices.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.core import api
 from repro_torch.core import quant as Q
+from repro_torch.distributed import tp as TP
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import dense_init, norm_init
 
@@ -226,11 +230,21 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     ``"k_scale"`` and ``"v_scale"``), a contiguous ``{"k", "v", "len"}``
     cache, or None (self-attention over x, causal per cfg).
     Returns (y, cache); a cache is updated in place (its dict entries)."""
-    B, S, _ = x.shape
+    B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = api.linear(x, p["wq"], p.get("bq")).reshape(B, S, H, dh)
-    k = api.linear(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, dh)
-    v = api.linear(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, dh)
+    # Under TP: Q/K/V column-parallel (whole heads), then each brought to
+    # the head slice attention takes (gathered where attention stays
+    # replicated); the caches hold the rank's KV heads.
+    shard_q, shard_kv = TP.head_sharding(TP.current_tp(), H, Hkv)
+    q = TP.linear(x, p["wq"], p.get("bq"), axes=("embed", "heads"), units=H,
+                  full=(D, H * dh))
+    k = TP.linear(x, p["wk"], p.get("bk"), axes=("embed", "kv_heads"),
+                  units=Hkv, full=(D, Hkv * dh))
+    v = TP.linear(x, p["wv"], p.get("bv"), axes=("embed", "kv_heads"),
+                  units=Hkv, full=(D, Hkv * dh))
+    q = TP.conform_heads(q.reshape(B, S, -1, dh), H, shard_q)
+    k = TP.conform_heads(k.reshape(B, S, -1, dh), Hkv, shard_kv)
+    v = TP.conform_heads(v.reshape(B, S, -1, dh), Hkv, shard_kv)
     if cfg.qk_norm:
         q, k = rmsnorm(p["q_norm"], q), rmsnorm(p["k_norm"], k)
     q = rope(q, positions, cfg.rope_theta)
@@ -252,11 +266,14 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
         T = cache["k"].shape[1] - 1            # the sink column stays unread
         kv_k, kv_v = cache["k"][:, :T], cache["v"][:, :T]
         kv_valid, bt = cache["len"], None
-    out = api.attention(q, kv_k, kv_v, q_positions=positions,
-                        kv_valid_len=kv_valid, causal=cfg.causal,
-                        scale=1.0 / math.sqrt(dh), block_tables=bt,
-                        kv_scales=kv_scales)
-    return api.linear(out.reshape(B, S, H * dh), p["wo"]), cache
+    out = TP.attention(q, kv_k, kv_v, q_positions=positions,
+                       kv_valid_len=kv_valid, causal=cfg.causal,
+                       scale=1.0 / math.sqrt(dh), block_tables=bt,
+                       kv_scales=kv_scales, heads=(H, Hkv))
+    # row-parallel under TP: the contraction over the rank's heads, summed
+    y = TP.linear(out.reshape(B, S, -1), p["wo"], axes=("heads", "embed"),
+                  units=H, full=(H * dh, D))
+    return y, cache
 
 
 # ---------------------------------------------------------------------------
@@ -300,12 +317,17 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
         raise NotImplementedError(
             "paged KV caches cover GQA attention only; the MLA latent cache "
             "stays contiguous (docs/serving.md)")
-    B, S, _ = x.shape
+    B, S, D = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    r = cfg.kv_lora_rank
+    r, rq = cfg.kv_lora_rank, cfg.q_lora_rank
+    # Under TP the up-projections are column-parallel per head slice (the
+    # latent cache stays whole on every rank) and wo row-parallel.
+    shard_h, _ = TP.head_sharding(TP.current_tp(), H, H)
     q = rmsnorm(p["q_norm"], api.linear(x, p["wq_a"]))
-    q = api.linear(q, p["wq_b"]).reshape(B, S, H, dn + dr)
+    q = TP.linear(q, p["wq_b"], axes=("kv_lora", "heads"), units=H,
+                  full=(rq, H * (dn + dr)))
+    q = TP.conform_heads(q.reshape(B, S, -1, dn + dr), H, shard_h)
     q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
     ckv = api.linear(x, p["wkv_a"])                           # (B, S, r + dr)
     c_kv = rmsnorm(p["kv_norm"], ckv[..., :r])
@@ -320,14 +342,20 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     else:
         c_all, kr_all = c_kv, k_rope
         kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    kv = api.linear(c_all, p["wkv_b"]).reshape(B, -1, H, dn + dv)
+    kv = TP.linear(c_all, p["wkv_b"], axes=("kv_lora", "heads"), units=H,
+                   full=(r, H * (dn + dv)))
+    kv = TP.conform_heads(
+        kv.reshape(B, kv.shape[1], -1, dn + dv), H, shard_h)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([k_nope, kr_all[:, :, None, :].expand(
         *k_nope.shape[:3], dr)], dim=-1)
-    out = api.attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                        q_positions=positions, kv_valid_len=kv_valid,
-                        causal=True, scale=1.0 / math.sqrt(dn + dr))
-    return api.linear(out.reshape(B, S, H * dv), p["wo"]), cache
+    out = TP.attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                       q_positions=positions, kv_valid_len=kv_valid,
+                       causal=True, scale=1.0 / math.sqrt(dn + dr),
+                       heads=(H, H))
+    y = TP.linear(out.reshape(B, S, -1), p["wo"], axes=("heads", "embed"),
+                  units=H, full=(H * dv, D))
+    return y, cache
 
 
 # ---------------------------------------------------------------------------
@@ -347,15 +375,24 @@ def init_mlp(gen, cfg: ModelConfig, dtype, device, d_ff=None, d_in=None):
             "bo": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def mlp(p, cfg: ModelConfig, x):
+def mlp(p, cfg: ModelConfig, x, d_ff=None):
+    """``d_ff`` defaults to the config's (MoE's shared experts pass their
+    summed width). Under TP the up (and gate) projection is
+    column-parallel — SwiGLU's gate ‖ up weight sliced half by half, so
+    the activation is the rank's slice of d_ff — and the down projection
+    row-parallel."""
+    D, f = x.shape[-1], d_ff or cfg.d_ff
     if cfg.mlp_act == "swiglu":
-        gate, up = api.linear(x, p["wi"]).chunk(2, dim=-1)
+        gate, up = TP.linear(x, p["wi"], axes=("embed", "mlp"),
+                             full=(D, 2 * f), blocks=2).chunk(2, dim=-1)
         h = torch.nn.functional.silu(gate) * up
     else:
         # jax.nn.gelu defaults to the tanh approximation; torch's to erf
-        h = torch.nn.functional.gelu(api.linear(x, p["wi"], p["bi"]),
-                                     approximate="tanh")
-    return api.linear(h, p["wo"], p.get("bo"))
+        h = torch.nn.functional.gelu(
+            TP.linear(x, p["wi"], p["bi"], axes=("embed", "mlp"),
+                      full=(D, f)), approximate="tanh")
+    return TP.linear(h, p["wo"], p.get("bo"), axes=("mlp", "embed"),
+                     full=(f, D))
 
 
 # ---------------------------------------------------------------------------
@@ -476,5 +513,6 @@ def moe(p, cfg: ModelConfig, x):
         contrib = rows(slot_for_flat).reshape(G, t, k, D)
         y = torch.sum(contrib * gate[..., None].to(x.dtype), dim=2)
     if cfg.n_shared_experts:
-        y = y + mlp(p["shared"], cfg, xt)
+        y = y + mlp(p["shared"], cfg, xt,
+                    d_ff=cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff))
     return y.reshape(B, S, D), aux

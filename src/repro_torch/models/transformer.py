@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import api
+from repro_torch.distributed import tp as TP
 from repro_torch.models import layers as Lyr
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig, torch_dtype
@@ -158,12 +159,12 @@ def embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
     if embeds is not None:
         if tokens is None:
             return embeds
-        t = params["embed"][tokens]
+        t = TP.embed(params["embed"], tokens, vocab=cfg.vocab)
         return torch.cat([embeds.to(t.dtype), t], dim=1)    # vlm: img ⊕ text
     if cfg.n_codebooks:
         table = params["embed_cb"]
         return sum(table[c][tokens[..., c]] for c in range(cfg.n_codebooks))
-    return params["embed"][tokens]
+    return TP.embed(params["embed"], tokens, vocab=cfg.vocab)
 
 
 def _apply_block(p, cfg: ModelConfig, x, *, positions, cache=None,
@@ -264,7 +265,10 @@ def forward(params, cfg: ModelConfig, batch, *,
     if last_cols is not None:
         x = x[torch.arange(B, device=x.device), last_cols][:, None]
     x = Lyr.apply_norm(cfg, params["final_norm"], x)
-    logits = api.linear(x, params["head"])
+    # vocab-column-parallel under TP, gathered whole for sampling
+    logits = TP.linear(x, params["head"], axes=("embed", "vocab"),
+                       full=(cfg.d_model, cfg.vocab * max(cfg.n_codebooks, 1)),
+                       gather_out=True)
     if cfg.n_codebooks:
         logits = logits.reshape(*x.shape[:2], cfg.n_codebooks, cfg.vocab)
     return logits, caches, aux
@@ -298,8 +302,18 @@ def lm_loss(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
+def _rank_kv_cfg(cfg: ModelConfig, tpctx) -> ModelConfig:
+    """The config whose ``n_kv_heads`` is what this rank's caches hold:
+    its slice of the KV heads when ``tp.head_sharding`` shards them."""
+    _, shard_kv = TP.head_sharding(tpctx, cfg.n_heads, cfg.n_kv_heads)
+    if not shard_kv:
+        return cfg
+    return dataclasses.replace(
+        cfg, n_kv_heads=cfg.n_kv_heads // tpctx.model_size)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                device) -> List[Dict]:
+                device, tpctx=None) -> List[Dict]:
     """Decoder caches, one per layer: a contiguous (batch, max_len) KV cache
     (``layers.init_attention_cache``) for an attention layer, the latent
     cache (``layers.init_mla_cache``) for an MLA layer, the conv and SSD
@@ -307,32 +321,39 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     caches come first (the reference's ``"dense"``, then ``"scan"``). A
     hybrid's list holds its SSD layers' caches, then one KV cache per group
     for the shared attention block (the reference's ``{"scan": (ssm,
-    attn)}``)."""
+    attn)}``). Under a TP context (``tpctx``) KV caches hold the rank's
+    KV heads."""
     check_supported(cfg)
     if cfg.family in ENCODER_FAMILIES:
         raise ValueError(f"{cfg.name}: KV caches serve the decoder families; "
                          f"family {cfg.family!r} is an encoder")
     dtype = torch_dtype(dtype)
+    kv_cfg = _rank_kv_cfg(cfg, tpctx)
     if cfg.family not in SSD_FAMILIES:
-        make = Lyr.init_mla_cache if cfg.is_mla else Lyr.init_attention_cache
-        return [make(cfg, batch, max_len, dtype, device)
+        if cfg.is_mla:
+            return [Lyr.init_mla_cache(cfg, batch, max_len, dtype, device)
+                    for _ in range(cfg.n_layers)]
+        return [Lyr.init_attention_cache(kv_cfg, batch, max_len, dtype,
+                                         device)
                 for _ in range(cfg.n_layers)]
     caches = [SSM.init_ssd_cache(cfg, batch, dtype, device)
               for _ in range(cfg.n_layers)]
     n_groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
-    return caches + [Lyr.init_attention_cache(cfg, batch, max_len, dtype,
+    return caches + [Lyr.init_attention_cache(kv_cfg, batch, max_len, dtype,
                                               device)
                      for _ in range(n_groups)]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
                       page_size: int, dtype, device,
-                      kv_dtype=None) -> List[Dict]:
+                      kv_dtype=None, tpctx=None) -> List[Dict]:
     """One paged KV cache per layer (``layers.init_paged_attention_cache``);
     one (batch, n_blocks) block table addresses every layer's pool.
     ``kv_dtype="int8"`` stores every pool int8 with per-page-per-head fp32
     scales. GQA attention stacks only: SSD and conv state has no
-    positions to page, and the MLA latent cache stays contiguous."""
+    positions to page, and the MLA latent cache stays contiguous. Under a
+    TP context (``tpctx``) the pools and scales hold the rank's KV
+    heads."""
     check_supported(cfg)
     if cfg.family in SSD_FAMILIES:
         raise NotImplementedError(
@@ -343,7 +364,8 @@ def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
         raise NotImplementedError(
             "paged KV caches cover GQA attention; the MLA latent cache "
             "stays contiguous (docs/serving.md)")
-    return [Lyr.init_paged_attention_cache(cfg, batch, n_pages, page_size,
+    kv_cfg = _rank_kv_cfg(cfg, tpctx)
+    return [Lyr.init_paged_attention_cache(kv_cfg, batch, n_pages, page_size,
                                            torch_dtype(dtype), device,
                                            kv_dtype=kv_dtype)
             for _ in range(cfg.n_layers)]

@@ -67,8 +67,18 @@ behind ``if obs.enabled:`` and adds no device synchronization (``step()``
 already brings the sampled tokens to the host). ``request_trace(handle)``
 is the per-request lifecycle record; ``stats()`` is plain JSON.
 
-Not ported yet, rejected with NotImplementedError: tensor parallelism
-(``ServeConfig.mesh``; ROADMAP.md).
+**Tensor parallelism** (``ServeConfig.mesh``, a mesh of
+``launch/mesh.py`` over a ``torch.distributed`` group): every rank runs
+this engine on the same requests, under a ``distributed/tp.py`` context —
+column-parallel QKV/up projections, row-parallel out/down projections
+with an fp32 all-reduce, attention on the rank's heads over per-rank KV
+pools, the LM head's vocab slices gathered before sampling. Each rank
+holds only its slice of the weights and its KV heads of the pools; host
+scheduling and page accounting are the same on every rank by
+construction, and so is every sampled token (the gathered logits are
+bitwise the same on every rank; temperature sampling needs every rank's
+generator in the same state). Resident packed weights are refused under
+a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -82,9 +92,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import api
-from repro_torch.core.plan import AttentionPolicy, GemmPolicy
+from repro_torch.core.plan import AttentionPolicy, GemmPolicy, \
+    ShardingPolicy
+from repro_torch.distributed import tp as TP
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import param_axes
 from repro_torch.obs import NULL_OBS, Observability, RequestTrace
 from repro_torch.obs.metrics import TIME_BUCKETS_S, json_scalars
 from repro_torch.serving.kv_pool import BlockTable, PagePool
@@ -131,8 +145,12 @@ class ServeConfig:
     obs: Observability = NULL_OBS
     # observability (repro_torch/obs): Observability() collects metrics,
     # trace spans and per-request records; NULL_OBS records nothing
-    mesh: Optional[object] = None
-    # tensor parallelism: not ported yet, raises NotImplementedError
+    mesh: Optional[object] = None       # launch/mesh.py Mesh → TP serving:
+    # prefill/decode run under a distributed/tp.py context — QKV/up
+    # column-parallel, out/down row-parallel with an all-reduce, attention
+    # on the rank's heads over the rank's KV pools (kv_shards())
+    sharding: Optional[ShardingPolicy] = None  # axis names + rule overrides
+    # for the mesh; None → ShardingPolicy() (("data", "model") axes)
 
     def policy(self) -> Optional[GemmPolicy]:
         """The effective GemmPolicy: ``gemm`` with ``weight_dtype`` folded
@@ -174,10 +192,6 @@ class ServingEngine:
     the prefix cache, speculative decoding and observability."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig):
-        if sc.mesh is not None:
-            raise NotImplementedError(
-                "ServeConfig.mesh (tensor parallelism) is not ported yet "
-                "(ROADMAP.md)")
         T.check_supported(cfg)
         if cfg.n_codebooks:
             raise ValueError(
@@ -224,6 +238,27 @@ class ServingEngine:
                 "policy (backend 'paged'): prefix sharing aliases pool "
                 "pages through block tables, which the contiguous per-slot "
                 "KV caches have none of")
+        self.tp = None
+        if sc.mesh is not None:
+            if not isinstance(sc.mesh, Mesh):
+                raise NotImplementedError(
+                    f"ServeConfig.mesh: a {type(sc.mesh).__name__} is not a "
+                    f"mesh the port serves on; pass a "
+                    f"repro_torch.launch.mesh.Mesh (make_host_mesh) over a "
+                    f"torch.distributed process group")
+            if sc.pack_weights or sc.weight_dtype is not None:
+                raise NotImplementedError(
+                    "TP serving (ServeConfig.mesh) does not cover resident "
+                    "packed weights: a block-major PackedWeight has no "
+                    "rank slice (pack_weights / weight_dtype), as in the "
+                    "reference; drop pack_weights/weight_dtype or the mesh")
+            self.tp = TP.make_context(sc.mesh, sc.sharding,
+                                      overrides=cfg.overrides_dict())
+            # each rank keeps its own slice of every model-sharded weight
+            # (params may come whole, or as the rank's slices already)
+            params = TP.shard_params(
+                params, param_axes(cfg), self.tp, units=TP.head_units(cfg),
+                shapes=T.init_model(cfg, device="meta"))
         params = _to_device(params, self.device)
         # Quantizing per call would redo the O(K·N) weight quantization on
         # every step; weights are static, so weight_dtype quantizes at pack.
@@ -307,12 +342,13 @@ class ServingEngine:
                     self.pool, metrics=obs.metrics if obs.enabled else None)
             self.caches = T.init_paged_caches(cfg, B, n_pages, ps,
                                               sc.cache_dtype, self.device,
-                                              kv_dtype=attn.kv_dtype)
+                                              kv_dtype=attn.kv_dtype,
+                                              tpctx=self.tp)
             self.block_tables = np.zeros((B, self.n_blocks), np.int32)
             self.slot_tables: List[Optional[BlockTable]] = [None] * B
         else:
             self.caches = T.init_caches(cfg, B, sc.max_len, sc.cache_dtype,
-                                        self.device)
+                                        self.device, tpctx=self.tp)
         self.slot_pos = np.zeros(B, np.int32)
         self.slot_live = np.zeros(B, bool)
         self.slot_out: List[List[int]] = [[] for _ in range(B)]
@@ -349,6 +385,7 @@ class ServingEngine:
         if self.gemm is not None:
             stack.enter_context(api.use_policy(self.gemm))
         stack.enter_context(api.use_attention_policy(self.attn))
+        stack.enter_context(TP.use_tp(self.tp))
         return stack
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:
@@ -1208,9 +1245,20 @@ class ServingEngine:
             return self.request_traces.pop(handle, None)
         return self.request_traces.get(handle)
 
+    def kv_shards(self) -> int:
+        """How many ways the KV caches split over the mesh's model axis: 1
+        without a mesh, for MLA's whole latent cache and when attention
+        stays replicated (``tp.head_sharding``)."""
+        if self.tp is None or self.cfg.is_mla:
+            return 1
+        _, shard_kv = TP.head_sharding(self.tp, self.cfg.n_heads,
+                                       self.cfg.n_kv_heads)
+        return self.tp.model_size if shard_kv else 1
+
     def kv_page_bytes(self) -> int:
         """Device bytes of one pool page, summed over layers and K/V — the
-        int8 pools' fp32 scale rows included."""
+        int8 pools' fp32 scale rows included; under TP, this rank's share
+        (multiply by :meth:`kv_shards` for the whole page)."""
         return sum(c[name][0].numel() * c[name].element_size()
                    for c in self.caches
                    for name in ("kp", "vp", "k_scale", "v_scale")

@@ -10,6 +10,11 @@ backward (its score and value products are K1's batched launches on the
 card). The SSD families train on the CPU only: the scan kernel K6 has no
 backward, here or in the reference, and the plain scan does not stand in
 for a kernel on the card.
+
+On a mesh (``Trainer(mesh=)``, ``launch/mesh.py``) training is data
+parallel: every rank draws the same global batch, takes its rows of it
+and averages the gradients over the ``data`` group before AdamW
+(``launch/steps.py``); rank 0 alone writes checkpoints and logs.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from repro_torch import resolve_device
 from repro_torch.core import api
 from repro_torch.core.plan import UNFUSED, GemmPolicy
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
-from repro_torch.launch.steps import value_and_grad
+from repro_torch.launch.steps import all_reduce_mean, data_shard, \
+    value_and_grad
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Timer
@@ -49,17 +55,24 @@ class TrainConfig:
     device: str = "cuda"
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, tc: TrainConfig,
+                    mesh=None):
     """(params, opt_state, batch) → (params, opt_state, metrics) under the
     GEMM policy ``tc.gemm`` (default: the device's) and unfused
-    attention."""
+    attention; with a ``mesh``, data parallel over its ``data`` axis
+    (``batch`` is the global batch)."""
     gemm = tc.gemm or GemmPolicy()
+    n_data = 1 if mesh is None else mesh.axis_size("data")
 
     def train_step(params, opt_state, batch):
+        batch = data_shard(batch, mesh)
         with api.use_policy(gemm), api.use_attention_policy(UNFUSED):
             (loss, metrics), grads = value_and_grad(
                 lambda p: T.lm_loss(p, cfg, batch, aux_weight=tc.aux_weight),
                 params)
+        if n_data > 1:
+            grads, (loss, metrics) = all_reduce_mean(
+                (grads, (loss, metrics)), mesh.group("data"), n_data)
         lr = cosine_schedule(opt_state["step"], base_lr=tc.base_lr,
                              warmup=tc.warmup, total=tc.steps)
         params, opt_state, opt_metrics, _ = adamw_update(
@@ -81,15 +94,16 @@ def check_trainable(cfg: ModelConfig, device: torch.device) -> None:
 
 
 class Trainer:
-    """Single-device trainer. Weights come from ``T.init_model(cfg,
-    seed=tc.seed)`` or are handed in (``params``, e.g. the JAX init through
-    ``convert.from_jax_params``); a checkpoint in ``tc.ckpt_dir`` resumes
-    over either. Each step's host wall time (the loss read back, so the
-    device has finished it) feeds the watchdog and ``step_times``."""
+    """Trainer on one device, or data parallel over a ``mesh``. Weights
+    come from ``T.init_model(cfg, seed=tc.seed)`` or are handed in
+    (``params``, e.g. the JAX init through ``convert.from_jax_params``); a
+    checkpoint in ``tc.ckpt_dir`` resumes over either. Each step's host
+    wall time (the loss read back, so the device has finished it) feeds
+    the watchdog and ``step_times``."""
 
     def __init__(self, cfg: ModelConfig, data_cfg: DataConfig,
                  tc: TrainConfig, opt_cfg: Optional[AdamWConfig] = None, *,
-                 params=None):
+                 params=None, mesh=None):
         self.device = resolve_device(tc.device)
         check_trainable(cfg, self.device)
         self.cfg, self.tc = cfg, tc
@@ -98,6 +112,8 @@ class Trainer:
         self.data = TokenPipeline(data_cfg)
         self.ckpt = (CheckpointManager(tc.ckpt_dir)
                      if tc.ckpt_dir else None)
+        # every rank holds the same params: rank 0 writes and logs
+        self.lead = mesh is None or mesh.rank == 0
         if params is None:
             params = T.init_model(cfg, seed=tc.seed, device=self.device)
         self.params = tree_map(lambda t: t.detach().to(self.device), params)
@@ -107,7 +123,7 @@ class Trainer:
         self._preempted = False
         if self.ckpt and self.ckpt.latest_step() is not None:
             self._resume()
-        self._step_fn = make_train_step(cfg, self.opt_cfg, tc)
+        self._step_fn = make_train_step(cfg, self.opt_cfg, tc, mesh)
 
     # -- fault tolerance ------------------------------------------------
     def _resume(self):
@@ -120,7 +136,7 @@ class Trainer:
         print(f"[trainer] resumed from step {self.start_step}")
 
     def _save(self, step: int):
-        if self.ckpt:
+        if self.ckpt and self.lead:
             self.ckpt.save(step, {"params": self.params,
                                   "opt": self.opt_state},
                            extra={"data": self.data.state_dict()})
@@ -144,13 +160,14 @@ class Trainer:
                 dt = tm.dt
                 self.step_times.append(dt)
                 ema = dt if ema is None else 0.9 * ema + 0.1 * dt
-                if dt > self.tc.straggler_factor * ema:
+                if dt > self.tc.straggler_factor * ema and self.lead:
                     print(f"[watchdog] step {step} straggled: "
                           f"{dt:.3f}s vs EMA {ema:.3f}s")
                 if step % self.tc.log_every == 0 or step == self.tc.steps - 1:
                     history.append((step, loss))
-                    print(f"[trainer] step {step} loss {loss:.4f} "
-                          f"({dt*1e3:.0f} ms)")
+                    if self.lead:
+                        print(f"[trainer] step {step} loss {loss:.4f} "
+                              f"({dt*1e3:.0f} ms)")
                 if self.tc.ckpt_every and (step + 1) % self.tc.ckpt_every == 0:
                     self._save(step + 1)
                 if self._preempted:

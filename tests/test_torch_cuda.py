@@ -1882,3 +1882,102 @@ def test_forward_only_wrappers_raise_under_grad_on_card(cuda):
                       PA.paged_attention.launches,
                       PA.paged_attention.launches_int8, K6.ssd_scan.launches,
                       MF.matrixflow_gemm_dequant.launches)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (distributed/tp.py): K1 on a rank's column and row
+# slices, K4 and K5 at a rank's heads — qwen3-8b at TP=2, full width
+# ---------------------------------------------------------------------------
+
+# (M, K, N, blocks): the column-parallel projections q, k/v, SwiGLU's
+# gate ‖ up (each half sliced alike) and the LM head (151,936 / 2 =
+# 75,968 columns a rank), at decode and prefill rows
+TP_COL_CASES = [(M, K, N, b) for M in (8, 512)
+                for K, N, b in ((4096, 4096, 1), (4096, 1024, 1),
+                                (4096, 24576, 2))] + [(8, 4096, 151936, 1)]
+# (M, K, N): the row-parallel o and mlp-out projections
+TP_ROW_CASES = [(M, K, N) for M in (8, 512)
+                for K, N in ((4096, 4096), (12288, 4096))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", TP_COL_CASES,
+                         ids=[f"M{m}_K{k}_N{n}" for m, k, n, _ in
+                              TP_COL_CASES])
+def test_tp_column_slice_bits_match_unsharded_columns(cuda, dtype, case):
+    """K1 on a rank's column slice (rank 1 of 2: the far half, so the
+    columns move in the grid) gives the same columns' bits as the
+    unsharded call: a column's dot product does not depend on N."""
+    from repro_torch.distributed.tp import shard_dim
+    M, K, N, blocks = case
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    dt = getattr(torch, dtype)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dt)
+    w = (torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5).to(dt)
+    before = MF.matrixflow_gemm_block_major.launches
+    part = api.matmul(x, shard_dim(w, 1, 1, 2, blocks))
+    whole = shard_dim(api.matmul(x, w), -1, 1, 2, blocks)
+    torch.cuda.synchronize()
+    assert MF.matrixflow_gemm_block_major.launches == before + 2
+    assert torch.equal(part, whole), float((part.float()
+                                            - whole.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", TP_ROW_CASES,
+                         ids=[f"M{m}_K{k}_N{n}" for m, k, n in TP_ROW_CASES])
+def test_tp_row_partial_sums_match_one_call(cuda, dtype, case):
+    """The row-parallel contraction: two K halves through K1 with fp32
+    outputs, summed, against one fp32-output call over the whole K,
+    within parity's TOLS["float32"] (weights at the models' 1/sqrt(K)
+    scale)."""
+    from repro_torch.distributed.tp import shard_dim
+    M, K, N = case
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    dt = getattr(torch, dtype)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dt)
+    w = (torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5).to(dt)
+    parts = [api.matmul(shard_dim(x, -1, r, 2), shard_dim(w, 0, r, 2),
+                        out_dtype=torch.float32) for r in range(2)]
+    one = api.matmul(x, w, out_dtype=torch.float32)
+    assert parts[0].dtype == torch.float32
+    torch.testing.assert_close(parts[0] + parts[1], one, atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["K4", "K5"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    (8, 1, (17, 200, 64, 1, 33, 128, 255, 90),
+     (16, 199, 63, 0, 32, 127, 254, 89)),
+    (8, 64, (64, 16, 40, 1, 63, 0, 20, 64), (0, 0, 0, 0, 0, -1, 0, 0)),
+], ids=["decode", "prefill_bucket"])
+def test_paged_attention_at_tp2_rank_heads(cuda, int8, dtype, case):
+    """K4 (fp pools) and K5 (int8 pools with their scales) at a rank's
+    heads of qwen3-8b at TP=2 (16 query heads over 4 KV heads, head_dim
+    128, pages of 16) against their plain versions within ATTN_TOLS."""
+    B, Sq, lens, starts = case
+    H, Hkv, D, ps = 16, 4, 128, 16
+    q, kp, vp, bt, qpos, kvl = _paged_inputs(
+        cuda, "float32" if int8 else dtype, B, Sq, H, Hkv, D, ps, lens,
+        starts, seed=24)
+    scales = None
+    if int8:
+        (kp, ks), (vp, vs) = Q.quantize_kv_pages(kp), Q.quantize_kv_pages(vp)
+        q, scales = q.to(getattr(torch, dtype)), (ks, vs)
+    counter = "launches_int8" if int8 else "launches"
+    before = getattr(PA.paged_attention, counter)
+    got = PA.paged_attention(q, kp, vp, bt, qpos, kvl, kv_scales=scales)
+    torch.cuda.synchronize()
+    assert getattr(PA.paged_attention, counter) == before + 1
+    want = PA.paged_attention_plain(q, kp, vp, bt, qpos, kvl, causal=True,
+                                    scale=D ** -0.5, soft_cap=None,
+                                    kv_scales=scales)
+    atol, rtol = ATTN_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    masked = qpos < 0
+    assert not bool(masked.any()) or float(got[masked].abs().max()) == 0.0

@@ -1,0 +1,400 @@
+"""Rank bodies of the port's multi-device tests, and the scenarios they
+share with the one-device runs they are held against.
+
+The tests start their ranks with ``repro_torch.distributed.launch.spawn``
+(the ``spawn`` start method, a gloo group through a FileStore under the
+test's ``tmp_path``); each rank imports this module, which imports torch,
+numpy and ``repro_torch`` only — never JAX or the JAX package — runs its
+body on its own slice and hands back numpy results. The parent test
+compares them with the one-device port (the same scenario functions with
+no mesh) and with the live JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.convert import from_jax_params
+from repro_torch.core import api
+from repro_torch.core.plan import AttentionPolicy, GemmPolicy
+from repro_torch.distributed import tp as TP
+from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+PAGED = AttentionPolicy(backend="paged", page_size=8)
+FUSED = AttentionPolicy(backend="fused")
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "int8": torch.int8}
+
+
+# ---------------------------------------------------------------------------
+# TP serving: the reference runner's scenarios (tests/tp_serving_runner.py)
+# plus the contiguous engine
+# ---------------------------------------------------------------------------
+
+def tp_config():
+    """qwen3 smoke (GQA H=4, Hkv=2, q/k norm) in fp32 with the sharding
+    overrides cleared, so heads and the KV pools split at TP=2 — the
+    reference runner's ``build()``."""
+    return get_smoke_config("qwen3-8b", n_layers=2, vocab=64,
+                            sharding_overrides=(), dtype="float32")
+
+
+def _engine(cfg, params, mesh, **kw):
+    sc = dict(batch_slots=2, max_len=32, attention=PAGED,
+              cache_dtype="float32", device="cpu")
+    sc.update(kw)
+    return ServingEngine(cfg, params, ServeConfig(**sc, mesh=mesh))
+
+
+def _plain(step_out):
+    return {int(h): int(t) for h, t in step_out.items()}
+
+
+def _accounting(eng):
+    return (eng.pool.free_pages, eng.pool.pages_in_use) if eng.paged else None
+
+
+def _steps(eng, n, generator=None):
+    """n steps: their outputs and the pool's (free, in use) after each."""
+    outs, acct = [], []
+    for _ in range(n):
+        outs.append(_plain(eng.step(generator=generator)))
+        acct.append(_accounting(eng))
+    return outs, acct
+
+
+def _drain(eng, max_steps=80):
+    acct = []
+    for _ in range(max_steps):
+        eng.step()
+        acct.append(_accounting(eng))
+        if not eng.slot_live.any() and not eng.wait:
+            break
+    return acct
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def scenario_greedy(cfg, params, mesh):
+    eng = _engine(cfg, params, mesh)
+    prompts = np.random.default_rng(7).integers(0, 64, (2, 6))
+    out = {"generate": eng.generate(prompts, 8)}
+    eng = _engine(cfg, params, mesh)
+    out["handles"] = [eng.submit([3, 1, 4, 1, 5]), eng.submit([9, 2, 6])]
+    out["steps"], out["pages"] = _steps(eng, 6)
+    out["kv_shards"] = eng.kv_shards()
+    return out
+
+
+def scenario_temperature(cfg, params, mesh):
+    eng = _engine(cfg, params, mesh, temperature=0.8)
+    prompts = np.random.default_rng(11).integers(0, 64, (2, 5))
+    out = {"generate": eng.generate(prompts, 8, generator=_gen(42))}
+    eng = _engine(cfg, params, mesh, temperature=0.8)
+    out["handles"] = [eng.submit([5, 4, 3], generator=_gen(1))]
+    out["steps"], out["pages"] = _steps(eng, 6, generator=_gen(100))
+    return out
+
+
+def _preempt_run(cfg, params, mesh, **kw):
+    # 2 pages of 8 tokens = half of 2 slots x max_len 16: decode growth
+    # exhausts the pool and preempts
+    eng = _engine(cfg, params, mesh, max_len=16, cache_pages=2, **kw)
+    handles = [eng.submit(p) for p in ([1, 2, 3], [4, 5, 6])]
+    pages = _drain(eng)
+    eng.pool.check()
+    assert eng.n_preemptions > 0, "pool pressure never hit — dead scenario"
+    return {"handles": handles, "pages": pages,
+            "streams": {int(h): list(map(int, eng.request_out[h]))
+                        for h in handles},
+            "n_preemptions": eng.n_preemptions,
+            "pool_free_at_end": eng.pool.free_pages == eng.pool.n_pages}
+
+
+def scenario_preempt(cfg, params, mesh):
+    return _preempt_run(cfg, params, mesh)
+
+
+def scenario_prefix(cfg, params, mesh):
+    eng = _engine(cfg, params, mesh, batch_slots=3, prefix_cache=True,
+                  cache_pages=12)
+    shared = list(range(1, 12))              # 11 tokens: 1 full page + tail
+    prompts = [shared + [40, 41], shared + [50, 51],
+               shared[:5] + [60, 61, 62, 63]]
+    handles = [eng.submit(p) for p in prompts]
+    out = {"handles": handles, "hits": eng.prefix.hits,
+           "cow_forks": eng.prefix.cow_forks}
+    out["steps"], out["pages"] = _steps(eng, 6)
+    out["prefix_stats"] = eng.prefix.stats()
+    eng.pool.check()
+    eng.prefix.check()
+    return out
+
+
+def scenario_kv_int8(cfg, params, mesh):
+    eng = _engine(cfg, params, mesh, kv_dtype="int8")
+    prompts = np.random.default_rng(13).integers(0, 64, (2, 6))
+    return {"generate": eng.generate(prompts, 8),
+            "preempt": _preempt_run(cfg, params, mesh, kv_dtype="int8")}
+
+
+def scenario_contiguous(cfg, params, mesh):
+    eng = _engine(cfg, params, mesh, attention=FUSED)
+    prompts = np.random.default_rng(17).integers(0, 64, (2, 6))
+    out = {"generate": eng.generate(prompts, 8)}
+    eng = _engine(cfg, params, mesh, attention=FUSED)
+    out["handles"] = [eng.submit([3, 1, 4, 1, 5]), eng.submit([9, 2, 6])]
+    out["steps"], _ = _steps(eng, 6)
+    return out
+
+
+SCENARIOS = {"greedy": scenario_greedy, "temperature": scenario_temperature,
+             "preempt": scenario_preempt, "prefix": scenario_prefix,
+             "kv-int8": scenario_kv_int8, "contiguous": scenario_contiguous}
+
+
+def serve_scenarios(cfg, params, mesh):
+    return {name: fn(cfg, params, mesh) for name, fn in SCENARIOS.items()}
+
+
+# every family the engine serves, with its own sharding overrides and with
+# them cleared: MQA (granite), QKV biases (qwen2), MoE (dbrx: the banks
+# whole, the shared path sharded), MLA (deepseek: contiguous), the hybrid
+# (zamba2: SSD blocks whole, the shared attention block sharded), the VLM
+FAMILY_ARCHS = ("smollm-135m", "qwen2-1.5b", "granite-20b", "dbrx-132b",
+                "deepseek-v2-236b", "zamba2-2.7b", "internvl2-76b")
+
+
+def family_config(arch, cleared):
+    kw = dict(n_layers=2, vocab=64, dtype="float32")
+    if cleared:
+        kw["sharding_overrides"] = ()
+    cfg = get_smoke_config(arch, **kw)
+    if cfg.attn_every:            # one attention group
+        cfg = get_smoke_config(arch, **dict(kw, n_layers=cfg.attn_every))
+    return cfg
+
+
+def serve_families(mesh):
+    """(arch, cleared) → (greedy generate of seeded prompts, kv_shards)."""
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch in FAMILY_ARCHS:
+        for cleared in (False, True):
+            cfg = family_config(arch, cleared)
+            paged = cfg.family not in T.SSD_FAMILIES and not cfg.is_mla
+            B = 1 if cfg.attn_every else 2       # SSD: one slot submits
+            eng = _engine(cfg, T.init_model(cfg, seed=0, device="cpu"),
+                          mesh, batch_slots=B,
+                          attention=PAGED if paged else FUSED)
+            prompts = np.random.default_rng(1).integers(0, 64, (B, 6))
+            out[arch, cleared] = (eng.generate(prompts, 5).tolist(),
+                                  eng.kv_shards())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded GEMM / attention grid (tests/parity.py run_sharded_grid)
+# ---------------------------------------------------------------------------
+
+def _t(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(TORCH_DTYPES[dtype])
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype.is_floating_point else t.numpy()
+
+
+def _held(t, names, ctx):
+    """The weight ``t`` as this rank holds it (``tp.shard_params``): its
+    slice along the dim that ``tp.param_cut`` shards, else whole."""
+    cut = TP.param_cut(ctx, names, tuple(t.shape))
+    return t if cut is None else TP.shard_dim(t, cut[0], ctx.rank,
+                                              ctx.model_size)
+
+
+def sharded_gemm(cells, ctx):
+    """Each cell: (dtype, a, b, bias or None) → the rank's column-parallel
+    output (its N slice), row-parallel output (whole), and column+bias;
+    the weight and bias cut to the rank's slices first."""
+    out = []
+    col, row = ("embed", "mlp"), ("mlp", "embed")
+    with TP.use_tp(ctx):
+        for dtype, a, b, bias in cells:
+            at, bt = _t(a, dtype), _t(b, dtype)
+            full = tuple(bt.shape)
+            r = {"col": _np(TP.matmul(at, _held(bt, col, ctx), axes=col,
+                                      full=full)),
+                 "row": _np(TP.matmul(at, _held(bt, row, ctx), axes=row,
+                                      full=full))}
+            if bias is not None:
+                bb = _t(bias, dtype)
+                if TP.param_cut(ctx, col, full) is not None:
+                    bb = TP.shard_dim(bb, 0, ctx.rank, ctx.model_size)
+                r["colb"] = _np(TP.linear(at, _held(bt, col, ctx), bb,
+                                          axes=col, full=full))
+            out.append(r)
+    return out
+
+
+def sharded_attention(cells, ctx):
+    """Each cell: (dtype, backend, q, k, v, q_positions, kv_valid_len,
+    block_tables or None, causal) → the rank's output heads; q and the
+    K/V (dense or pools) cut to the rank's heads where
+    ``tp.head_sharding`` shards them."""
+    out = []
+    with TP.use_tp(ctx):
+        for dtype, backend, q, k, v, qp, kl, bt, causal in cells:
+            pol = AttentionPolicy(backend=backend, page_size=16)
+            H, Hkv = q.shape[2], k.shape[2]
+            shard_q, shard_kv = TP.head_sharding(ctx, H, Hkv)
+
+            def cut(a, shard):
+                a = _t(a, dtype)
+                return (TP.shard_dim(a, 2, ctx.rank, ctx.model_size)
+                        if shard else a)
+            o = TP.attention(
+                cut(q, shard_q), cut(k, shard_kv), cut(v, shard_kv),
+                q_positions=torch.from_numpy(qp),
+                kv_valid_len=torch.from_numpy(kl), heads=(H, Hkv),
+                causal=causal,
+                block_tables=None if bt is None else torch.from_numpy(bt),
+                policy=pol)
+            out.append(_np(o))
+    return out
+
+
+def rank_cache_shapes(cfg, ctx):
+    """The rank's int8 paged and contiguous caches, as shard_caches cuts
+    whole ones and as init_*caches(tpctx=) makes them: leaf shapes."""
+    from repro_torch.models import transformer as T
+
+    def shapes(caches):
+        return [{k: tuple(v.shape) for k, v in c.items()} for c in caches]
+    _, shard_kv = TP.head_sharding(ctx, cfg.n_heads, cfg.n_kv_heads)
+    paged = (2, 6, 8, torch.float32, "cpu")
+    contiguous = (2, 16, torch.float32, "cpu")
+    return {"paged": (shapes(TP.shard_caches(T.init_paged_caches(
+                cfg, *paged, kv_dtype="int8"), ctx, shard_kv=shard_kv)),
+                      shapes(T.init_paged_caches(cfg, *paged, kv_dtype="int8",
+                                                 tpctx=ctx))),
+            "contiguous": (shapes(TP.shard_caches(T.init_caches(
+                cfg, *contiguous), ctx, shard_kv=shard_kv)),
+                           shapes(T.init_caches(cfg, *contiguous,
+                                                tpctx=ctx)))}
+
+
+def tp_serving_rank(rank, world, params_np, gemm_cells, attn_cells):
+    """One rank of the TP=2 group: the six serving scenarios on a (1, 2)
+    mesh, then the sharded GEMM and attention grids; every collective the
+    scenarios issued, by kind and bytes."""
+    torch.manual_seed(0)
+    cfg = tp_config()
+    params = from_jax_params(params_np, cfg)
+    mesh = make_host_mesh(model=world)
+    TP.collectives.reset()
+    out = {"serve": serve_scenarios(cfg, params, mesh),
+           "collectives": TP.collectives.snapshot(),
+           "mesh": (dict(mesh.shape), dict(mesh.coords)),
+           "families": serve_families(mesh)}
+    ctx = TP.make_context(mesh)
+    out["caches"] = rank_cache_shapes(cfg, ctx)
+    with api.use_policy(GemmPolicy()):
+        out["gemm"] = sharded_gemm(gemm_cells, ctx)
+        out["attention"] = sharded_attention(attn_cells, ctx)
+    # a (2, 1) mesh of the same ranks: the model axis is 1, a no-op
+    ctx1 = TP.make_context(Mesh((world, 1), ("data", "model")))
+    out["gemm_model1"] = sharded_gemm(gemm_cells[:1], ctx1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training
+# ---------------------------------------------------------------------------
+
+# The step-0 lr of the schedule's fixed warmup of 100 is lr / 100: at 5e-2
+# AdamW's first step moves a weight by about 5e-4, five times the params'
+# fp32 tolerance (1e-4), so a step that applied no update, or a wrong one,
+# fails the comparison (AdamWConfig's default 3e-4 would move it 3e-6).
+DP_LR = 5e-2
+
+
+def dp_config():
+    return get_smoke_config("smollm-135m", n_layers=2, vocab=64,
+                            dtype="float32")
+
+
+def _leaves_np(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return [t.detach().float().numpy() for t in tree_leaves(tree)]
+
+
+def dp_step(cfg, params, batch, mesh):
+    """One make_train_step_fn step (lr :data:`DP_LR`) on ``batch`` (the
+    global batch) under K1's autograd Function and unfused attention, on
+    ``mesh`` or one device: (loss, grad_norm, params after the update)."""
+    from repro_torch.core.plan import UNFUSED
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig, adamw_init
+    step = ST.make_train_step_fn(cfg, AdamWConfig(lr=DP_LR), total_steps=10,
+                                 mesh=mesh)
+    with api.use_policy(GemmPolicy(backend="matrixflow")), \
+            api.use_attention_policy(UNFUSED):
+        p, _, m = step(params, adamw_init(params),
+                       {k: torch.from_numpy(v) for k, v in batch.items()})
+    return float(m["loss"]), float(m["grad_norm"]), _leaves_np(p)
+
+
+def dp_trainer(cfg, params, data_kw, mesh):
+    """Three Trainer steps from ``params``: the logged losses."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import Trainer, TrainConfig
+    tr = Trainer(cfg, DataConfig(**data_kw),
+                 TrainConfig(steps=3, log_every=1, ckpt_every=0,
+                             base_lr=3e-3, warmup=2, device="cpu"),
+                 AdamWConfig(lr=3e-3), params=params, mesh=mesh)
+    return tr.run()["history"]
+
+
+def dp_rank(rank, world, params_np, batch, data_kw):
+    cfg = dp_config()
+    mesh = make_host_mesh()
+    TP.collectives.reset()
+    out = {"step": dp_step(cfg, from_jax_params(params_np, cfg), batch,
+                           mesh),
+           "collectives": TP.collectives.snapshot(),
+           "trainer": dp_trainer(cfg, from_jax_params(params_np, cfg),
+                                 data_kw, mesh)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GPipe pipeline (tests/test_pipeline.py's script)
+# ---------------------------------------------------------------------------
+
+def pipeline_stage_fn(wslice, h):
+    for w in wslice:
+        h = torch.tanh(api.matmul(h, w))
+    return h
+
+
+def pipeline_rank(rank, world, ws, x):
+    """Stage ``rank`` of a 4-stage pipeline over ``ws`` (L, d, d): the
+    forward outputs and the gradient of sum(out²) w.r.t. this stage's
+    layers."""
+    from repro_torch.distributed.pipeline import pipeline_apply, \
+        stack_for_stages
+    mesh = Mesh((world,), ("stage",))
+    staged = stack_for_stages(torch.from_numpy(ws), world)
+    mine = staged[mesh.coords["stage"]].clone().requires_grad_(True)
+    TP.collectives.reset()
+    out = pipeline_apply(pipeline_stage_fn, mine, torch.from_numpy(x),
+                         mesh=mesh)
+    (out ** 2).sum().backward()
+    return {"out": out.detach().numpy(), "grad": mine.grad.numpy(),
+            "collectives": TP.collectives.snapshot()}
