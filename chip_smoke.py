@@ -52,7 +52,7 @@ CUDA toolkit. Phases, each fatal on failure:
 6. contiguous serving — full-width smollm-135m served from contiguous KV
              caches (AttentionPolicy("fused")): 12 requests through
              submit/step in bf16, all complete, the GEMM and flash kernels
-             launched; then generate(). In fp32 (10 of 30 layers) the same
+             launched; then generate(). In fp32 (4 of 30 layers) the same
              prompts' greedy streams equal the paged engine's on the card
              and the CPU plain path's, or first diverge where the plain
              top-2 margin is below LOGIT_TOL.
@@ -71,7 +71,7 @@ CUDA toolkit. Phases, each fatal on failure:
              noise: W8A8 and the frozen KV page scales amplify one such
              rounding into a whole quantization step).
 
-8. SSM serving — full-width mamba2-1.3b (48 layers, d_model 2048, 64 SSD
+8. SSM serving — full-width mamba2-1.3b (16 of 48 layers, d_model 2048, 64 SSD
              heads x 64, N 128) in bf16 from contiguous caches under the
              default ServeConfig, whose policy resolves to fused: generate() of 8 prompts x 384 tokens (Q 128, the
              state carried over 3 chunks) x 16 tokens; then a single-slot
@@ -81,7 +81,7 @@ CUDA toolkit. Phases, each fatal on failure:
              SSD state zeroed). K1 and the SSD scan (K6) launched, K6 on
              its tensor-core walk route and never on the CUDA cores, the
              paged kernels (K4, K5) not.
-9. hybrid serving — full-width zamba2-2.7b (54 SSD layers, d_model 2560,
+9. hybrid serving — full-width zamba2-2.7b (18 of 54 SSD layers, d_model 2560,
              one shared attention block every 6 at head_dim 80) in bf16:
              generate() of 8 prompts x 64 tokens x 16 tokens under the fused
              policy; K1, K3 and K6 (walk) launched, K4 and K5 not.
@@ -91,8 +91,8 @@ CUDA toolkit. Phases, each fatal on failure:
              steps fed the same tokens, logits within LOGIT_TOL at every
              step, greedy tokens equal or differing only where the plain
              top-2 margin is below LOGIT_TOL.
-11. serving features — full-width smollm-135m, bf16, paged (page 16), 8
-             slots: (a) the prefix cache (12 requests on one 48-token
+11. serving features — smollm-135m at full width, 4 of its 30 layers
+             (FEATURES_LAYERS), bf16, paged (page 16), 8 slots: (a) the prefix cache (12 requests on one 48-token
              system prompt, two parting inside its third page; a 24-page
              pool with watermark 2), in bf16 and with int8 KV: hits, COW
              forks and evictions all > 0, the pool and cache consistent,
@@ -114,7 +114,7 @@ CUDA toolkit. Phases, each fatal on failure:
              with NULL_OBS printed. Then fp32 at full width: prefix-on
              streams equal prefix-off, spec streams equal non-spec, or
              first part where the plain top-2 margin is below LOGIT_TOL.
-12. stream identity — smollm-135m and qwen2-1.5b at full width, 10
+12. stream identity — smollm-135m and qwen2-1.5b at full width, 4
              layers each (IDENTITY_LAYERS), in bf16, paged (page 16), 8
              slots, fp pools and int8 KV: 12 requests under the 24-page
              pool, every preempted request's stream equal to its solo
@@ -122,9 +122,9 @@ CUDA toolkit. Phases, each fatal on failure:
              prefix cache on equal to off. Zero streams may part.
              (``python3 chip_smoke.py --identity [arch ...]`` runs this
              phase alone.)
-13-15. the rest of the dense family — qwen2-1.5b (QKV biases; 28 layers,
-             the published depth), qwen3-8b (q/k RMSNorm; 36 layers) and
-             granite-20b (MQA, group 48, GELU MLP; 16 of 52 layers), full
+13-15. the rest of the dense family — qwen2-1.5b (QKV biases; 4 of 28
+             layers), qwen3-8b (q/k RMSNorm; 4 of 36 layers) and
+             granite-20b (MQA, group 48, GELU MLP; 4 of 52 layers), full
              width, bf16 weights drawn on the card from a seed: paged
              serving with preemption (K4 at head_dim 128), contiguous
              serving (K3 at head_dim 128, groups 6, 4 and 48), int8 KV
@@ -134,38 +134,38 @@ CUDA toolkit. Phases, each fatal on failure:
              then fp32 at 4, 2 and 2 layers, the card against the CPU plain
              path within LOGIT_TOL (phase 4).
 16-19. the model zoo's last four at full width, bf16 weights drawn on the
-             card: internvl2-76b (16 of 80 layers; 64 / 8 heads x 128):
+             card: internvl2-76b (4 of 80 layers; 64 / 8 heads x 128):
              paged serving with preemption (K4, group 8) and contiguous
              serving (K3), the VLM forward over B 2 x (256 stub image
              embeddings ⊕ 64 tokens) with no cache (K3 rows), then that
              prompt prefilled into contiguous caches and 8 greedy steps;
-             musicgen-medium (48 layers, 24 x 64 MHA, 4 codebooks):
+             musicgen-medium (12 of 48 layers, 24 x 64 MHA, 4 codebooks):
              forward over contiguous (K3) and paged (K4) caches, prefill 8 x
              64 frames then 32 greedy steps, argmax per codebook; dbrx-132b
-             (8 of 40 layers; 16 experts top-4, 48 / 8 heads x 128): paged
+             (4 of 40 layers; 16 experts top-4, 48 / 8 heads x 128): paged
              with preemption, contiguous, W8A8 weights + int8 KV (K2, K5),
-             each then generate(); deepseek-v2-236b (its dense layer and 6
+             each then generate(); deepseek-v2-236b (its dense layer and 2
              of 59 MoE layers; MLA at q/k head dim 192, v 128; 160 experts
              top-6 + 2 shared): contiguous serving under the engine's default
              policy (K3's (192, 128) instance, split at decode and rows at
              prefill). The MoE expert banks run as torch products (the
              reference's jnp.einsum); the routers through K1. Then fp32 at
-             2, 4, 1 and 2 layers (deepseek: the dense layer + 1 MoE layer),
+             1, 4, 1 and 2 layers (deepseek: the dense layer + 1 MoE layer),
              the weights drawn on the card and held on the host, the card
              against the CPU plain path within LOGIT_TOL (phase 4; the VLM
              behind its image prefix, musicgen per codebook, deepseek over
              contiguous caches). (``python3 chip_smoke.py --zoo [arch ...]``
              runs these phases alone.)
 20. training — full-width smollm-135m (30 layers) in bf16, trained by the
-             port's Trainer: B 8 x 128 tokens from TokenPipeline, 20 steps
+             port's Trainer: B 8 x 128 tokens from TokenPipeline, 10 steps
              with remat on, unfused attention, every GEMM through K1: its
              forward, its backward (dA = dC.Wt, dW = At.dC, K1 launches
              counted apart) and its batch grid (the attention's score and
              value products, 72 problems a launch); K2-K6 never launched.
              Every loss finite, the last below the first; per-step host
              wall time, tokens/s, and one profiled step's device busy
-             time printed. A checkpoint at step 10; a fresh Trainer
-             resumes there and reaches step 20 with losses bitwise the
+             time printed. A checkpoint at step 5; a fresh Trainer
+             resumes there and reaches step 10 with losses bitwise the
              uninterrupted run's (and whether one step repeats bitwise is
              printed); K1's launches of one step with remat on and off.
 21. fp32 train step — 2 of the 30 layers at full width, TF32 off: one
@@ -173,15 +173,39 @@ CUDA toolkit. Phases, each fatal on failure:
              the CUDA cores) against the CPU plain path: loss and
              gradients within LOGIT_TOL, params after the update within
              TRAIN_FP32_PARAM_TOL (half the step's lr).
-22. mixed dtypes — full-width smollm-135m as an fp32 model over a bf16
-             cache (the reference's default ServeConfig pairing): paged,
+22. mixed dtypes — smollm-135m at full width, 4 of its 30 layers
+             (MIXED_LAYERS), as an fp32 model over a bf16 cache (the
+             reference's default ServeConfig pairing): paged,
              contiguous and int8 KV, 12 requests each under the 24-page
              pool, all complete; the new instances (K4, K3: fp32 q over
-             bf16 K/V; K5's fp32 q) launched. Then at 4 layers the card's
+             bf16 K/V; K5's fp32 q) launched. Then at 2 layers the card's
              streams against the CPU plain path's, a first parting allowed
              only where the plain top-2 margin is below LOGIT_TOL.
              (``python3 chip_smoke.py --train`` runs 20-21 with their
              kernel cells alone, ``--mixed`` 22 with its kernel cells.)
+23. multi-device — qwen3-8b at full width, 2 of 36 layers, its sharding
+             overrides cleared, two ranks on the card over gloo: TP=2
+             serving against the one-device engine, a DP=2 smollm-135m
+             step, a 2-stage pipeline (``--tp`` runs it alone).
+24. tensor-parallel training — the same qwen3-8b, one fp32 AdamW step of
+             B 4 x 128 tokens on one device, its state freed, then on two
+             ranks at TP=2 (each holding its slices of the same seeded
+             weights): each rank's loss within 1e-6 relative of the
+             one-device loss, its param slices within the reference's fp32
+             TOLS of the one-device params' slices; K1 on the CUDA cores,
+             forward and backward, printed per rank by route, and the
+             collectives of a step by kind and bytes; then one bf16 step a
+             rank timed after a warm-up (K1 on wgmma). (``--tp-train``
+             runs it alone.)
+25. roofline — the dry run (``repro_torch.launch.dryrun``) on meta tensors
+             at the shapes of three runs measured above: smollm-135m's
+             paged decode step at 8 live slots (phase 3), bert-base's
+             forward at B 8 x 128 (phase 5), smollm-135m's train step at B
+             8 x 128 with remat (phase 20). Its launches by kernel and
+             route must equal those runs' counters; its predicted compute,
+             memory and roofline times are printed beside the runs'
+             device busy and host wall times and their ratios.
+             (``--roofline`` runs phases 3, 5, 20 and 25.)
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
@@ -270,10 +294,6 @@ LOGIT_TOL = 1e-3
 # TOLS["float32"] (1e-4, 1e-5) is below both.
 SSD_TOLS = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 5e-2)}
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s per dtype.
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
-
 # The serving paths: full-width smollm-135m.
 ARCH = "smollm-135m"
 SLOTS = 8
@@ -283,7 +303,9 @@ PROMPT_BUCKET = 64           # prompts of 16..64 tokens → a 64-column bucket
 N_REQUESTS = 12
 GEN_LEN = 32
 CACHE_PAGES = 24             # < 8 slots x 6 pages: decode growth preempts
-CONTIG_FP32_LAYERS = 10      # phase 6's fp32 streams: the CPU plain path's time
+CONTIG_FP32_LAYERS = 4       # phase 6's fp32 streams: the CPU plain path's time
+FEATURES_LAYERS = 4          # phases 11 and 22 (of 30): the run's time
+MIXED_LAYERS = 4
 SPEC_K, SPEC_K8 = 4, 8       # draft budgets: verify at Sq 5 (split), 9 (rows)
 # The encoder path: the paper's models at full published width.
 ENC_BATCH = 8
@@ -301,6 +323,9 @@ MAMBA_PROMPT = 384           # Q 128: the state carried over three chunks
 SOLO_PROMPTS = (200, 131)    # Q 100 over two chunks; Q 1 over 131
 ZAMBA_PROMPT = 64
 SSM_PARITY = {MAMBA: (4, 200), ZAMBA: (6, 64)}   # layers, prompt tokens
+# layers served (of 48 and 54; zamba2: three shared-attention groups):
+# the run's time
+SSM_SERVE_LAYERS = {MAMBA: 16, ZAMBA: 18}
 SSM_PARITY_STEPS = 8
 
 
@@ -317,6 +342,13 @@ def log(msg: str) -> None:
           flush=True)
 
 
+def begin(phase: str) -> None:
+    """A phase's start, on standard error: a run stopped from outside
+    shows there where it was."""
+    print(f"[chip_smoke {time.perf_counter() - T_START:6.1f} s] begin "
+          f"{phase}", file=sys.stderr, flush=True)
+
+
 class Timer:
     """Device time of one call, the median of `iters` calls, each after an
     L2 flush (the serving path meets its weights cold: 270 MB of bf16
@@ -329,7 +361,7 @@ class Timer:
     10.8 us kernel once read 0.47 ms as a mean of 20); the median drops
     that call."""
 
-    def __init__(self, iters: int = 20):
+    def __init__(self, iters: int = 10):
         self.iters = iters
         self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8,
                                      device="cuda")
@@ -362,10 +394,26 @@ class Timer:
         return start.elapsed_time(end)
 
 
-def bound_ms(n_bytes: float, flops: float, dtype: str):
-    t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(kernel: str, route: str, **shapes):
+    """(ms, "bytes" or "operations"): the least time the card takes for one
+    launch (repro_torch.roofline: launch_cost's bytes and operations over
+    the H100's rates)."""
+    from repro_torch.roofline import analysis as RA
+    t, by = RA.bound(RA.launch_cost(kernel, route, **shapes))
+    return t * 1e3, by
+
+
+def paged_bound(route, q, bt, qpos, kvl, Hkv, dt, kv_dtype=None):
+    """K4's or K5's bound for what this call's data needs: each row's
+    visible pages of K and V once, q, the tables and the output; its
+    visible (query, key) pairs."""
+    B, Sq, H, D = q.shape
+    horizon = torch.minimum(kvl, qpos.max(dim=1).values + 1).clamp(min=0)
+    vis = torch.minimum(kvl[:, None], qpos + 1).clamp(min=0)
+    return bound_ms("paged_attention", route, B=B, Sq=Sq, H=H, Hkv=Hkv, D=D,
+                    page_size=PAGE, n_blocks=bt.shape[1], dtype=dt,
+                    kv_dtype=kv_dtype, pages=int((-(-horizon // PAGE)).sum()),
+                    pairs=int(vis.sum()))
 
 
 ATTN_ROUTES = ("rows", "split", "cuda_cores")
@@ -672,8 +720,8 @@ def run_gemm_phase(timer, cfg, bert, vit, ssm_cfgs, models=(), zoo=()):
                 a_bm, pw.data, out_dtype=dt))
             t_p = timer.ms(lambda: MF.plain(a_bm, pw.data, out_dtype=dt))
             t_lib = timer.ms(lambda: torch.matmul(a, w))
-            nbytes = (M * K + K * N + M * N) * dt.itemsize
-            b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, dtype_name)
+            b_ms, b_by = bound_ms("matrixflow_gemm", route[0], M=M, N=N, K=K,
+                                  dtype=dt)
             rows.append(dict(cell=cell, dtype=dtype_name, M=M, K=K, N=N,
                              block=[blk.bm, blk.bn, blk.bk], route=route[0],
                              tile=tile, path=vpath, uses=uses,
@@ -831,14 +879,7 @@ def run_attention_phase(timer, cfg, models=(), main=True):
             t_lib = timer.ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
             # what this run's data needs: each visible page of K and V once,
             # q, the tables and the output; 2·(D + Dv) FLOPs per visible key
-            qmax = qpos.max(dim=1).values
-            horizon = torch.minimum(kvl, qmax + 1).clamp(min=0)
-            pages = int((-(-horizon // PAGE)).sum())
-            nbytes = (2 * pages * PAGE * Hkv * D + 2 * q.numel()) * dt.itemsize \
-                + bt.numel() * 4 + qpos.numel() * 4
-            vis = torch.minimum(kvl[:, None], qpos + 1).clamp(min=0)
-            flops = float(vis.sum()) * H * 4 * D
-            b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
+            b_ms, b_by = paged_bound(route, q, bt, qpos, kvl, Hkv, dt)
             rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
                              path=path, uses=m.n_layers, route=route,
                              max_abs_err=err, ms=t_k, plain_ms=t_p,
@@ -1025,12 +1066,10 @@ def run_flash_phase(timer, cells):
             horizon = kvl_r.clamp(min=0)
             if causal:
                 horizon = torch.minimum(horizon, qpos_r.max(dim=1).values + 1)
-            horizon = horizon.clamp(min=0)
-            nbytes = ((D + Dv) * int(horizon.sum()) * Hkv
-                      + q.numel() + q.numel() // D * Dv) * dt.itemsize \
-                + 4 * (qpos_r.numel() + kvl_r.numel())
-            flops = 2.0 * (D + Dv) * H * float(vis.sum())
-            b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
+            b_ms, b_by = bound_ms(
+                "flash_attention", route, B=B, Sq=Sq, Sk=Sk, H=H, Hkv=Hkv,
+                D=D, Dv=Dv, dtype=dt, keys=int(horizon.clamp(min=0).sum()),
+                pairs=int(vis.sum()))
             rows.append(dict(cell=cell, dtype=dtype_name, path=path,
                              uses=uses, route=route, max_abs_err=err,
                              ms=t_k, plain_ms=t_p, library_ms=t_lib,
@@ -1115,8 +1154,8 @@ def run_quant_gemm_phase(timer, cfg, bert, vit):
             t_p = timer.ms(lambda: MF.plain(a_bm, pw.data, out_dtype=dt,
                                             scale_a=sa, scale_b=pw.scales))
             t_lib = timer.ms(library)
-            nbytes = M * K + K * N + 4 * (M + N) + M * N * dt.itemsize
-            b_ms, b_by = bound_ms(nbytes, 2.0 * M * N * K, "int8")
+            b_ms, b_by = bound_ms("matrixflow_gemm_dequant", route, M=M, N=N,
+                                  K=K, out_dtype=dt)
             rows.append(dict(cell=cell, dtype=dtype_name, M=M, K=K, N=N,
                              block=[blk.bm, blk.bn, blk.bk], route=route,
                              tile=tile, path=path,
@@ -1216,14 +1255,8 @@ def run_int8_attention_phase(timer, cfg, models=(), main=True):
             # what this run's data needs: each visible page of K and V once
             # as int8 plus its two fp32 scales, q and the output, the
             # tables; 4·D operations per visible (query, head, key)
-            qmax = qpos.max(dim=1).values
-            horizon = torch.minimum(kvl, qmax + 1).clamp(min=0)
-            pages = int((-(-horizon // PAGE)).sum())
-            nbytes = 2 * pages * (PAGE * Hkv * D + 4 * Hkv) \
-                + 2 * q.numel() * dt.itemsize + 4 * (bt.numel() + qpos.numel())
-            vis = torch.minimum(kvl[:, None], qpos + 1).clamp(min=0)
-            flops = float(vis.sum()) * H * 4 * D
-            b_ms, b_by = bound_ms(nbytes, flops, dtype_name)
+            b_ms, b_by = paged_bound(route, q, bt, qpos, kvl, Hkv, dt,
+                                     kv_dtype=torch.int8)
             rows.append(dict(cell=cell, dtype=dtype_name, Sq=Sq, lens=lens,
                              path=path, uses=m.n_layers, route=route,
                              max_abs_err=err,
@@ -1250,25 +1283,6 @@ def ssd_cells(mamba, zamba):
             (f"{mamba.name} long prefill", 1, 4096, mamba),
             (f"{mamba.name} prefill", 2, 1000, mamba),
             (f"{zamba.name} generate prefill", SSM_SLOTS, ZAMBA_PROMPT, zamba)]
-
-
-def ssd_bound(B, S, H, P, N, dtype_name):
-    """Bytes of x, dt, A, B, C, y and the final state, each moved once;
-    operations of this run's chunks: C Bᵀ over each chunk's lower triangle
-    once per (row, chunk) — it is shared by the heads — then per head the
-    decay-masked product with dt x, C hᵀ for every chunk after the first
-    (the state is zero before it) and the state update."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk_size
-
-    Q = ssd_chunk_size(S, 128)
-    nc, tri = S // Q, Q * (Q + 1) / 2
-    item = torch.finfo(getattr(torch, dtype_name)).bits // 8
-    nbytes = (2 * B * S * H * P + 2 * B * S * N) * item \
-        + 4 * (B * S * H + H + B * H * P * N)
-    flops = B * nc * tri * 2 * N + B * H * (
-        nc * (tri * (2 * P + 1) + 2 * Q * P * N + 3 * Q * P)
-        + (nc - 1) * 2 * Q * N * P)
-    return bound_ms(nbytes, flops, dtype_name)
 
 
 # K6's kernels by phase (csrc/ssd_scan.cu): the chunks route launches all
@@ -1348,7 +1362,8 @@ def run_ssd_phase(timer, mamba, zamba):
             t_k = timer.ms(lambda: K6.ssd_scan(x, dt, A, Bc, Cc))
             t_p = timer.ms(lambda: K6.ssd_scan_plain(x, dt, A, Bc, Cc))
             phases = ssd_phase_ms(lambda: K6.ssd_scan(x, dt, A, Bc, Cc))
-            b_ms, b_by = ssd_bound(B, S, H, P, N, dtype_name)
+            b_ms, b_by = bound_ms("ssd_scan", route, B=B, S=S, H=H, P=P,
+                                  N=N, dtype=dtype_name, Q=Q)
             rows.append(dict(cell=cell, dtype=dtype_name, B=B, S=S, Q=Q,
                              route=route, path=f"{name} B{B}xS{S}",
                              uses=scfg.n_layers, max_abs_err=err,
@@ -1444,19 +1459,50 @@ def run_serving_phase(cfg):
         fail(f"generate: malformed output {gen_out.shape}")
     if MF.matrixflow_gemm_block_major.launches == before:
         fail("generate: the MatrixFlow kernel was never launched")
+    decode = profile_decode_step(eng, rng.integers(0, cfg.vocab, (SLOTS, 16)))
     res = dict(requests=N_REQUESTS, tokens=n_tokens, seconds=dt,
                tokens_per_s=n_tokens / dt,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                preemptions=eng.n_preemptions, launches=launches,
                launches_per_decode_step=per_step,
                generate_tokens_per_s=SLOTS * GEN_LEN / gen_s,
-               stats=eng.stats())
+               decode_step=decode, stats=eng.stats())
     log(f"serving: {N_REQUESTS} requests x {GEN_LEN} tokens, {n_tokens} "
         f"tokens in {dt:.3f} s ({res['tokens_per_s']:.1f} tok/s), peak "
         f"{res['peak_mem_gib']:.3f} GiB, {eng.n_preemptions} preemptions, "
         f"launches {launches}, per decode step {per_step}; generate() "
-        f"{SLOTS}x{GEN_LEN} tokens in {gen_s:.3f} s")
+        f"{SLOTS}x{GEN_LEN} tokens in {gen_s:.3f} s; a decode step at "
+        f"{SLOTS} live requests: device busy {decode['device_busy_ms']:.3f} "
+        f"ms of {decode['host_wall_ms']:.3f} ms host wall (profiled)")
     return res
+
+
+def profile_decode_step(eng, prompts):
+    """One decode step with every slot live (phase 25 holds the dry run
+    to it): the launches and host wall time of one step, and the device
+    busy time of two more (torch.profiler, which slows the host)."""
+    for p in prompts:
+        if eng.submit(p.tolist()) is None:
+            fail("decode profile: a prompt was not admitted")
+    for _ in range(8):                 # until the prompts are prefilled
+        before = eng.prefill_tokens
+        eng.step()
+        if eng.prefill_tokens == before and int(eng.slot_live.sum()) == SLOTS:
+            break
+    prefilled = eng.prefill_tokens
+    c0 = counts()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    c1 = counts()
+    busy, wall_profiled = device_busy_ms(eng.step, 2)
+    if eng.prefill_tokens != prefilled or eng.wait \
+            or int(eng.slot_live.sum()) != SLOTS:
+        fail("decode profile: a profiled step prefilled or preempted")
+    return dict(launches={k: c1[k] - c0[k] for k in c1},
+                device_busy_ms=busy, host_wall_ms=wall,
+                host_wall_ms_profiled=wall_profiled)
 
 
 # ---------------------------------------------------------------------------
@@ -1652,10 +1698,15 @@ def run_encoder_phase(bert, vit):
                 or not bool(torch.isfinite(logits).all()):
             fail(f"encoder {ecfg.name}: logits {tuple(logits.shape)} "
                  f"malformed or not finite")
+        with torch.no_grad():
+            busy, host = device_busy_ms(
+                lambda: T.encoder_forward(params, ecfg, batch), 2)
         res[ecfg.name] = dict(batch=ENC_BATCH, seq=S, dtype=ecfg.dtype,
-                              forward_wall_ms=wall_ms, launches=counts)
+                              forward_wall_ms=wall_ms, launches=counts,
+                              device_busy_ms=busy, host_wall_ms=host)
         log(f"encoder {ecfg.name} {ecfg.dtype} B={ENC_BATCH} S={S}: forward "
-            f"{wall_ms:.3f} ms (host clock), launches {counts}")
+            f"{wall_ms:.3f} ms (host clock), launches {counts}; device busy "
+            f"{busy:.3f} ms of {host:.3f} ms host wall (profiled)")
     # fp32 parity: the kernel path on the card against the plain path on
     # the CPU, the same seeded weights
     cfg32 = dataclasses.replace(bert, dtype="float32")
@@ -2531,7 +2582,7 @@ def run_features_phase(cfg):
 # (phase 13), each cut to its first IDENTITY_LAYERS layers at full width
 # for the run's time (a row's bits do not depend on the depth).
 IDENTITY_ARCHS = ("smollm-135m", "qwen2-1.5b")
-IDENTITY_LAYERS = 10
+IDENTITY_LAYERS = 4
 
 
 def solo_streams(cfg, params, prompts, rids, kv_dtype):
@@ -2613,12 +2664,13 @@ def run_identity_phase(cfg, params):
 # Phases 13-15: the rest of the dense family at full width
 # ---------------------------------------------------------------------------
 
-# arch: (layers served, None for the published depth; layers of the fp32
-# card-vs-CPU parity; the int8 run: None, "kv" (int8 KV pages) or "w8a8"
-# (W8A8 weights and int8 KV pages))
-DENSE_MODELS = {"qwen2-1.5b": (None, 4, "w8a8"),
-                "qwen3-8b": (None, 2, None),
-                "granite-20b": (16, 2, "kv")}
+# arch: (layers served, None for the published depth — cut for the run's
+# time: 4 of 28, 4 of 36, 4 of 52; layers of the fp32 card-vs-CPU
+# parity; the int8 run: None, "kv" (int8 KV pages) or "w8a8" (W8A8
+# weights and int8 KV pages))
+DENSE_MODELS = {"qwen2-1.5b": (4, 4, "w8a8"),
+                "qwen3-8b": (4, 2, None),
+                "granite-20b": (4, 2, "kv")}
 
 
 def serve_dense(tag, cfg, params, required, **kw):
@@ -2712,8 +2764,8 @@ VLM, AUDIO, DBRX, DEEPSEEK = ("internvl2-76b", "musicgen-medium", "dbrx-132b",
                               "deepseek-v2-236b")
 # arch: (layers on the card, None for the published depth; layers of the
 # fp32 card-vs-CPU parity). deepseek's count includes its leading dense
-# layer: 1 + 6 MoE layers on the card, 1 + 1 in parity.
-ZOO_MODELS = {VLM: (16, 2), AUDIO: (None, 4), DBRX: (8, 1), DEEPSEEK: (7, 2)}
+# layer: 1 + 2 MoE layers on the card, 1 + 1 in parity.
+ZOO_MODELS = {VLM: (4, 1), AUDIO: (12, 4), DBRX: (4, 1), DEEPSEEK: (3, 2)}
 VLM_TEXT, VLM_STEPS = 64, 8
 AUDIO_PROMPT, AUDIO_STEPS = 64, 32
 
@@ -2787,7 +2839,7 @@ def run_vlm_phase():
     8), contiguous serving (K3); the VLM forward over B 2 x (256 image
     embeddings ⊕ 64 text tokens) without a cache (K3 rows), then the same
     prompt prefilled into contiguous caches and VLM_STEPS greedy steps; fp32
-    parity at 2 layers with the image prefix."""
+    parity at 1 layer with the image prefix."""
     from repro_torch.models import transformer as T
     cfg = zoo_config(VLM)
     params, gib = zoo_params(cfg)
@@ -2828,7 +2880,7 @@ def run_vlm_phase():
 
 
 def run_audio_phase():
-    """musicgen-medium (phase 17) at its published depth: prefill 8 x 64
+    """musicgen-medium (phase 17), 12 of its 48 layers: prefill 8 x 64
     frames of 4 codebooks, then AUDIO_STEPS greedy steps (argmax per
     codebook) through forward over contiguous caches (K3) and over paged
     caches through a shuffled block table (K4); fp32 parity at 4 layers."""
@@ -2852,7 +2904,7 @@ def run_audio_phase():
 
 
 def run_mla_phase():
-    """deepseek-v2-236b (phase 19): its leading dense layer and 6 MoE
+    """deepseek-v2-236b (phase 19): its leading dense layer and 2 MoE
     layers, contiguous serving (the only cache MLA takes) under the
     engine's default policy (fused on the card): K3 at (192, 128) on split
     at decode and rows at prefill, K1 on wgmma; then generate(); fp32
@@ -2892,7 +2944,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 128       # B 8 x 128 tokens from TokenPipeline
 # ln V (10.81 -> 10.95 on an H100; the same on the CPU at smoke width,
 # where 512 ids fall 10.86 -> 8.57). The model keeps its full vocabulary.
 TRAIN_DATA_VOCAB = 512
-TRAIN_STEPS, TRAIN_CKPT = 20, 10      # a checkpoint at step 10, resumed
+TRAIN_STEPS, TRAIN_CKPT = 10, 5       # a checkpoint at step 5, resumed
 TRAIN_LR, TRAIN_WARMUP = 3e-3, 5
 TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH = 2, 4
 # AdamW's first step moves a weight by lr x g / (|g| + eps), about lr
@@ -2901,8 +2953,8 @@ TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH = 2, 4
 # no update, or the wrong one, fails. An H100 measured 1.18e-5.
 TRAIN_FP32_LR = 1e-4
 TRAIN_FP32_PARAM_TOL = 5e-5
-MIXED_PARITY_LAYERS = 4
-# Resumed at step 10, the losses of steps 10-19 must equal the
+MIXED_PARITY_LAYERS = 2
+# Resumed at step 5, the losses of steps 5-9 must equal the
 # uninterrupted run's bitwise: a step on an H100 repeats bitwise (the
 # phase checks that too), so any gap means a lost data cursor, Adam moment
 # or schedule step.
@@ -2974,8 +3026,8 @@ def run_train_kernel_phase(timer, cfg):
         t_p = timer.ms(lambda: MF.plain(a_bm, b_bm, out_dtype=out_dt))
         lib = torch.bmm if batched else torch.matmul
         t_lib = timer.ms(lambda: lib(a, b))
-        nbytes = G * ((Mx * Kx + Kx * Nx) * 2 + Mx * Nx * out_dt.itemsize)
-        b_ms, b_by = bound_ms(nbytes, 2.0 * G * Mx * Nx * Kx, "bfloat16")
+        b_ms, b_by = bound_ms("matrixflow_gemm", route, M=Mx, N=Nx, K=Kx,
+                              dtype=torch.bfloat16, out_dtype=out_dt, G=G)
         rows.append(dict(cell=label, dtype="bfloat16", M=Mx, K=Kx, N=Nx,
                          G=G, block=[blk.bm, blk.bn, blk.bk], route=route,
                          path=path, uses=uses, max_abs_err=err, ms=t_k,
@@ -3084,10 +3136,12 @@ def run_mixed_kernel_phase(timer, cfg):
             vis = torch.minimum(kvl[:, None], qpos + 1).clamp(min=0)
             horizon = torch.minimum(kvl, qpos.max(dim=1).values + 1).clamp(
                 min=0)
-            nbytes = 2 * 2 * int(horizon.sum()) * Hkv * D \
-                + 2 * 4 * q.numel() + 4 * (qpos.numel() + kvl.numel())
-            b_ms, b_by = bound_ms(nbytes, float(vis.sum()) * H * 4 * D,
-                                  "float32")
+            # both kernels read each row's visible keys of K and V once
+            b_ms, b_by = bound_ms(
+                "flash_attention", MIXED_ROUTE, B=SLOTS, Sq=Sq, Sk=MAX_LEN,
+                H=H, Hkv=Hkv, D=D, dtype=torch.float32,
+                kv_dtype=torch.bfloat16, keys=int(horizon.sum()),
+                pairs=int(vis.sum()))
             rows.append(dict(cell=label, kernel=kern,
                              dtype="float32 q, bfloat16 KV", path=path,
                              uses=cfg.n_layers, route=route, max_abs_err=err,
@@ -3119,12 +3173,13 @@ def device_busy_ms(fn, n=1):
 def run_train_phase(cfg):
     """smollm-135m at full width and depth, bf16, trained by the port's
     Trainer on the card: B 8 x 128 tokens from TokenPipeline (ids below
-    TRAIN_DATA_VOCAB), 20 steps with
-    remat on, a checkpoint at step 10; every GEMM through K1 (forward,
+    TRAIN_DATA_VOCAB), TRAIN_STEPS steps with remat on, a checkpoint at
+    step TRAIN_CKPT; every GEMM through K1 (forward,
     backward, the batch grid of the unfused attention), the forward-only
-    kernels never. Then a fresh Trainer resumes from step 10 and reaches
-    step 20. Also: K1 launches of one step with remat on and off, whether
-    one step repeats bitwise, and a step's device busy time."""
+    kernels never. Then a fresh Trainer resumes from the checkpoint and
+    reaches step TRAIN_STEPS. Also: K1 launches of one step with remat on
+    and off, whether one step repeats bitwise, and a step's device busy
+    time."""
     import shutil
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.optim.adamw import tree_leaves
@@ -3173,7 +3228,7 @@ def run_train_phase(cfg):
         f"peak {peak:.2f} GiB, K1 launches a step "
         f"{res['launches_per_step']}")
 
-    # resume from the step-10 checkpoint in a fresh Trainer
+    # resume from the checkpoint in a fresh Trainer
     shutil.rmtree(ckpt / f"step_{TRAIN_STEPS:08d}")
     reset_counts()
     resumed = Trainer(cfg, dc, tc)
@@ -3212,16 +3267,15 @@ def run_train_phase(cfg):
         reset_counts()
         make_train_step(c, resumed.opt_cfg, tc)(params, opt, batch)
         torch.cuda.synchronize()
-        per_step[f"remat {'on' if remat else 'off'}"] = {
-            k: counts()[k] for k in K1_TRAIN}
+        per_step[f"remat {'on' if remat else 'off'}"] = counts()
     res["launches_one_step"] = per_step
     busy, host = device_busy_ms(lambda: step_fn(params, opt, batch), 2)
     res["profiled_step"] = dict(device_busy_ms=busy, host_wall_ms=host,
                                 idle_share=1 - busy / host)
     del outs, params, opt
     log(f"training step: bitwise repeatable {res['step_bitwise_repeatable']}; "
-        f"K1 launches {per_step}; device busy {busy:.1f} ms of {host:.1f} ms "
-        f"host wall (profiled)")
+        f"K1 launches {({r: {k: c[k] for k in K1_TRAIN} for r, c in per_step.items()})}; "
+        f"device busy {busy:.1f} ms of {host:.1f} ms host wall (profiled)")
     return res
 
 
@@ -3397,6 +3451,9 @@ TP_PIPE = dict(layers_per_stage=2, mu=4, mb=8, d=1024)   # phase 23's GPipe
 # that applied no update, or another one, fails.
 TP_DP_LR = 2e-2
 TP_PAGED = dict(backend="paged", page_size=PAGE)
+# The ranks of phases 23 and 24 take ~30 s on an H100: a hung rank or
+# collective fails its phase well inside the run's time limit.
+TP_RANKS_TIMEOUT_S, TP_COLLECTIVE_TIMEOUT_S = 240, 120
 
 
 def tp_config(dtype):
@@ -3422,15 +3479,10 @@ def tp_params(cfg, mesh):
     """Seeded weights drawn on the card (the same on every process), cut
     to this rank's slices on a mesh: each rank then holds 1/TP_WORLD of
     every model-sharded weight."""
-    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
-    from repro_torch.models.module import param_axes
     params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
-    if mesh is None:
-        return params
-    ctx = TP.make_context(mesh, overrides=cfg.overrides_dict())
-    return TP.shard_params(params, param_axes(cfg), ctx,
-                           units=TP.head_units(cfg))
+    return ST.rank_params(cfg, params, mesh)
 
 
 def tp_engine(cfg, params, mesh, **kw):
@@ -3783,9 +3835,8 @@ def run_tp_gemm_phase(timer, cfg):
             t_p = timer.ms(lambda: MF.plain(a_bm, pw.data, out_dtype=odt))
             t_lib = timer.ms(lambda: torch.matmul(a_r, w_r))
             Kr, Nr = w_r.shape
-            nbytes = (M * Kr + Kr * Nr) * dt.itemsize \
-                + M * Nr * odt.itemsize
-            b_ms, b_by = bound_ms(nbytes, 2.0 * M * Nr * Kr, dtype_name)
+            b_ms, b_by = bound_ms("matrixflow_gemm", route[0], M=M, N=Nr,
+                                  K=Kr, dtype=dt, out_dtype=odt)
             rows.append(dict(cell=label, dtype=dtype_name, M=M, K=Kr, N=Nr,
                              route=route[0], path=cpath, uses=uses,
                              max_abs_err=err, ms=t_k, plain_ms=t_p,
@@ -3841,7 +3892,8 @@ def run_tp_phase():
         f"ranks")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as work:
         ranks = spawn(tp_rank, TP_WORLD, (str(ROOT),), workdir=work,
-                      timeout_s=600, collective_timeout_s=300)
+                      timeout_s=TP_RANKS_TIMEOUT_S,
+                      collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
     t_ranks = time.perf_counter() - t0 - t_one
     res = {"seconds_one_device": t_one, "seconds_ranks": t_ranks,
            "one_device": one, "ranks": ranks}
@@ -3937,13 +3989,345 @@ def run_tp_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: tensor-parallel training on the card
+# ---------------------------------------------------------------------------
+
+# The fp32 step's batch (B x S tokens of the full vocabulary) and lr: the
+# schedule's warmup gives lr/100 at step 0, so AdamW moves a weight by
+# ~5e-4, five times the fp32 tolerance (GEMM_TOLS, the reference's TOLS).
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 128
+TP_TRAIN_LR = 5e-2
+# AdamW's first step moves a weight by lr x (g / (|g| + eps) + wd x w): by
+# the sign of g alone wherever |g| >> eps, so the two steps' params agree to
+# rounding there. Where |g| is near eps (1e-8) the update follows g's
+# magnitude, and the order of the fp32 sums that differs between one device
+# and the ranks (the row-parallel partial sums, the input gradients summed
+# over the model group) moves it: an H100 gave 1 of 815,288,832 elements
+# outside TOLS["float32"] (1.6e-4). Held to TOLS: every element whose
+# one-device update is settled by the sign, |g| / (|g| + eps) >= this;
+# the others are counted, and may be at most TP_TRAIN_UNSETTLED of them.
+TP_TRAIN_SETTLED = 0.99
+TP_TRAIN_UNSETTLED = 1e-6
+TP_TRAIN_LOSS_RTOL = 1e-6
+# The params' gate sees g's sign, not its size; AdamW's first moment does:
+# after one step from zero it is (1 - b1) x clip x g, the clipped gradient
+# itself. Each rank's worst leaf, ||mu - mu_one|| / ||mu_one|| over the
+# one-device moment's same slice, must stay under this: a gradient doubled,
+# halved or scaled by a wrong clip is off by 0.5 or more, the fp32 sums'
+# other order by ~1e-6.
+TP_TRAIN_GRAD_RTOL = 1e-4
+
+
+def tp_train_batch(cfg):
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    return {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        DataConfig(seq_len=TP_TRAIN_SEQ, global_batch=TP_TRAIN_BATCH,
+                   vocab=cfg.vocab, seed=4)).next_batch().items()}
+
+
+def tp_train_step(cfg, params, mesh, lr=TP_TRAIN_LR):
+    """One make_train_step_fn step (AdamW, unfused attention, every GEMM
+    through K1) of ``params`` (a rank's slices on ``mesh``): the new
+    params, loss, gradient norm, the step's launches and collectives and
+    its first moment (the clipped gradient, scaled by 1 - b1) and its host
+    wall time."""
+    from repro_torch.core import api
+    from repro_torch.core.plan import UNFUSED, GemmPolicy
+    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    step = ST.make_train_step_fn(cfg, AdamWConfig(lr=lr), total_steps=10,
+                                 mesh=mesh)
+    batch = tp_train_batch(cfg)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    reset_counts()
+    TP.collectives.reset()
+    t0 = time.perf_counter()
+    with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
+        new, opt, met = step(params, opt, batch)
+    loss = float(met["loss"])
+    torch.cuda.synchronize()
+    return dict(params=new, mu=opt["mu"], loss=loss,
+                grad_norm=float(met["grad_norm"]),
+                launches=counts(), collectives=TP.collectives.snapshot(),
+                wall_ms=(time.perf_counter() - t0) * 1e3)
+
+
+def k1_by_direction(c):
+    """K1's launches of one step: by route, forward and backward."""
+    return {"routes": {r: c[f"matrixflow_gemm_{r}"]
+                       for r in ("wgmma", "mma", "cuda_core")},
+            "forward": c["matrixflow_gemm"] - c["matrixflow_gemm_backward"],
+            "backward": c["matrixflow_gemm_backward"],
+            "batched": c["matrixflow_gemm_batched"]}
+
+
+def tp_train_rank(rank, world, root, ref_params, ref_mu):
+    """One rank of phase 24 on cuda:0: the fp32 step on its slices of the
+    seeded weights, held leaf by leaf against the one-device step's
+    params (``ref_params``, cut the same way: within GEMM_TOLS["float32"]
+    wherever the one-device update is settled, TP_TRAIN_SETTLED) and
+    first moment (``ref_mu``: the worst leaf's relative distance), then
+    a bf16 step timed after one warm-up step. ``ref_params`` and
+    ``ref_mu`` are the parent's tensors on the card, shared with this
+    process through CUDA IPC: read, never written."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.optim.adamw import tree_leaves
+
+    mesh = make_host_mesh(model=world)
+    cfg = tp_config("float32")
+    init = tp_params(cfg, mesh)
+    out = tp_train_step(cfg, init, mesh)
+    atol, rtol = GEMM_TOLS["float32"]
+    ref = ST.rank_params(cfg, ref_params, mesh)
+    lr = float(cosine_schedule(torch.zeros((), dtype=torch.int32),
+                               base_lr=TP_TRAIN_LR, warmup=100, total=10))
+    wd = AdamWConfig().weight_decay
+    worst = worst_settled = moved = 0.0
+    bad = unsettled = n = 0
+    for got, want, was in zip(tree_leaves(out.pop("params")),
+                              tree_leaves(ref), tree_leaves(init)):
+        d = (got - want).abs()
+        outside = d > atol + rtol * want.abs()
+        # the one-device step's g / (|g| + eps), from its update
+        u = (was - want) / lr - (wd * was if was.dim() >= 2 else 0.0)
+        settled = u.abs() >= TP_TRAIN_SETTLED
+        bad += int((outside & settled).sum())
+        unsettled += int((outside & ~settled).sum())
+        worst = max(worst, float(d.max()))
+        worst_settled = max(worst_settled, float(
+            torch.where(settled, d, torch.zeros_like(d)).max()))
+        moved = max(moved, float((want - was).abs().max()))
+        n += got.numel()
+    del ref
+    mu_ref = ST.rank_params(cfg, ref_mu, mesh)
+    grad_rel = 0.0
+    for got, want in zip(tree_leaves(out.pop("mu")), tree_leaves(mu_ref)):
+        grad_rel = max(grad_rel, float(torch.linalg.vector_norm(got - want)
+                                       / torch.linalg.vector_norm(want)))
+    out.update(grad_leaf_max_rel_diff=grad_rel, param_max_abs_diff=worst,
+               settled_param_max_abs_diff=worst_settled,
+               params_outside_tol=bad, unsettled_outside_tol=unsettled,
+               param_count=n, one_device_step_max_abs=moved,
+               k1=k1_by_direction(out["launches"]))
+    del init, mu_ref, ref_params, ref_mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg16 = tp_config("bfloat16")
+    p16 = tp_params(cfg16, mesh)
+    tp_train_step(cfg16, p16, mesh)                    # warm-up
+    bf16 = tp_train_step(cfg16, p16, mesh)
+    bf16.pop("params")
+    bf16.pop("mu")
+    bf16["k1"] = k1_by_direction(bf16["launches"])
+    return {"fp32": out, "bf16": bf16}
+
+
+def run_tp_train_phase():
+    """Phase 24. The one-device fp32 step first (this process: of its
+    params, gradients and moments, ~26 GB, only the new params and the
+    first moment stay on the card, shared with the ranks), then
+    TP_WORLD ranks on the card: each rank's loss within TP_TRAIN_LOSS_RTOL
+    of the one-device loss, its gradient norm within GEMM_TOLS["float32"]
+    of the one-device norm, its first moment's leaves within
+    TP_TRAIN_GRAD_RTOL and its param slices within GEMM_TOLS["float32"]
+    of the one-device step's same slices; K1 on the CUDA
+    cores forward and backward, nothing else launched; then a bf16 step
+    on each rank timed, K1 on wgmma."""
+    import tempfile
+
+    from repro_torch.distributed.launch import spawn
+
+    t0 = time.perf_counter()
+    cfg = tp_config("float32")
+    params = tp_params(cfg, None)
+    one = tp_train_step(cfg, params, None)
+    ref_params, ref_mu = one.pop("params"), one.pop("mu")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg16 = tp_config("bfloat16")
+    p16 = tp_params(cfg16, None)
+    tp_train_step(cfg16, p16, None)                    # warm-up
+    one16 = tp_train_step(cfg16, p16, None)
+    one16.pop("params")
+    one16.pop("mu")
+    del p16
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0
+    log(f"tp-train: the one-device steps took {t_one:.1f} s (fp32 loss "
+        f"{one['loss']:.6f}); starting {TP_WORLD} ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tpt_") as work:
+        ranks = spawn(tp_train_rank, TP_WORLD,
+                      (str(ROOT), ref_params, ref_mu), workdir=work,
+                      timeout_s=TP_RANKS_TIMEOUT_S,
+                      collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    del ref_params, ref_mu
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter() - t0 - t_one
+    for r, rk in enumerate(ranks):
+        f = rk["fp32"]
+        rel = abs(f["loss"] - one["loss"]) / abs(one["loss"])
+        if not rel <= TP_TRAIN_LOSS_RTOL:
+            fail(f"tp-train rank {r}: fp32 loss {f['loss']} vs one device "
+                 f"{one['loss']} (relative {rel:.2e} > {TP_TRAIN_LOSS_RTOL})")
+        atol, rtol = GEMM_TOLS["float32"]
+        if not abs(f["grad_norm"] - one["grad_norm"]) <= \
+                atol + rtol * abs(one["grad_norm"]):
+            fail(f"tp-train rank {r}: fp32 grad norm {f['grad_norm']} vs "
+                 f"one device {one['grad_norm']} (outside "
+                 f"GEMM_TOLS['float32'])")
+        if not f["grad_leaf_max_rel_diff"] <= TP_TRAIN_GRAD_RTOL:
+            fail(f"tp-train rank {r}: a gradient leaf (AdamW's first "
+                 f"moment) {f['grad_leaf_max_rel_diff']:.3e} of its norm "
+                 f"from the one-device step's (> {TP_TRAIN_GRAD_RTOL})")
+        if f["params_outside_tol"] or f["unsettled_outside_tol"] > \
+                TP_TRAIN_UNSETTLED * f["param_count"]:
+            fail(f"tp-train rank {r}: {f['params_outside_tol']} params "
+                 f"whose update is settled by the gradient's sign, and "
+                 f"{f['unsettled_outside_tol']} others, of "
+                 f"{f['param_count']} outside GEMM_TOLS['float32'] of the "
+                 f"one-device step's (max |d| {f['param_max_abs_diff']:.3e})")
+        if f["one_device_step_max_abs"] <= 3 * GEMM_TOLS["float32"][0]:
+            fail(f"tp-train: the update moves no weight by more than "
+                 f"{f['one_device_step_max_abs']:.3e}")
+        check_counts(f"tp-train rank {r} fp32 step", f["launches"],
+                     ("matrixflow_gemm", "matrixflow_gemm_cuda_core",
+                      "matrixflow_gemm_backward", "matrixflow_gemm_batched"),
+                     allowed=CUDA_CORE_COUNTERS)
+        check_counts(f"tp-train rank {r} bf16 step", rk["bf16"]["launches"],
+                     K1_TRAIN)
+        for what in ("fp32", "bf16"):
+            c = rk[what]["launches"]
+            if any(c[k] for k in FORWARD_ONLY):
+                fail(f"tp-train rank {r}: a forward-only kernel launched "
+                     f"({ {k: c[k] for k in FORWARD_ONLY} })")
+            if rk[what]["collectives"]["calls"]["broadcast"]:
+                fail(f"tp-train rank {r}: a broadcast in the step")
+    r0 = ranks[0]
+    res = {"seconds_one_device": t_one, "seconds_ranks": t_ranks,
+           "batch": [TP_TRAIN_BATCH, TP_TRAIN_SEQ],
+           "one_device": {"fp32": one, "bf16": one16}, "ranks": ranks,
+           "fp32_loss_rel_diff": [abs(rk["fp32"]["loss"] - one["loss"])
+                                  / abs(one["loss"]) for rk in ranks],
+           "fp32_grad_norm": [one["grad_norm"]]
+           + [rk["fp32"]["grad_norm"] for rk in ranks],
+           "fp32_grad_leaf_max_rel_diff": [
+               rk["fp32"]["grad_leaf_max_rel_diff"] for rk in ranks],
+           "fp32_param_max_abs_diff": [rk["fp32"]["param_max_abs_diff"]
+                                       for rk in ranks],
+           "fp32_settled_param_max_abs_diff": [
+               rk["fp32"]["settled_param_max_abs_diff"] for rk in ranks],
+           "fp32_unsettled_outside_tol": [
+               rk["fp32"]["unsettled_outside_tol"] for rk in ranks],
+           "bf16_step_ms_one_device": one16["wall_ms"],
+           "bf16_step_ms_ranks": [rk["bf16"]["wall_ms"] for rk in ranks],
+           "collectives_per_step": r0["bf16"]["collectives"]}
+    log(f"tp-train {TP_ARCH} ({TP_LAYERS} layers, full width, B "
+        f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}) at tp{TP_WORLD}: fp32 loss "
+        f"rel |d| {res['fp32_loss_rel_diff']}, grad norm (one device, "
+        f"ranks) {res['fp32_grad_norm']}, worst gradient leaf rel |d| "
+        f"{res['fp32_grad_leaf_max_rel_diff']}, params max |d| "
+        f"{res['fp32_param_max_abs_diff']} of the one-device step's "
+        f"({res['fp32_settled_param_max_abs_diff']} where the update is "
+        f"settled; {res['fp32_unsettled_outside_tol']} unsettled elements "
+        f"outside TOLS); K1 a "
+        f"rank, fp32 {r0['fp32']['k1']}, bf16 {r0['bf16']['k1']}; "
+        f"collectives a step {r0['bf16']['collectives']}; bf16 step "
+        f"{res['bf16_step_ms_ranks']} ms a rank vs {one16['wall_ms']:.1f} ms "
+        f"on one device; phase {t_one:.1f} s one device + {t_ranks:.1f} s "
+        f"ranks")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the dry run on meta against the real runs
+# ---------------------------------------------------------------------------
+
+def run_roofline_phase(report):
+    """The dry run (repro_torch.launch.dryrun) on ``meta`` at the shapes
+    of three runs this script measured: smollm-135m's paged decode step at
+    SLOTS live requests (phase 3), bert-base's forward (phase 5) and the
+    smollm-135m train step with remat (phase 20). Its launches, kernel by
+    kernel and route by route as its cost ledger records them (nothing
+    launches on ``meta``, so no counter moves), must equal the counters
+    of the real run;
+    the predicted roofline terms are printed beside the measured device
+    busy times (torch.profiler) and host wall times (unprofiled) of those
+    runs, and their ratios."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.launch import dryrun as DR
+
+    cfg, bert = get_config(ARCH), get_config("bert-base")
+    dec = report["serving"]["decode_step"]
+    enc = report["encoders"][bert.name]
+    tr = report["train"]
+    cells = (
+        (f"{ARCH} decode step, paged, {SLOTS} slots",
+         lambda: DR.run_step(cfg, "decode", SLOTS, MAX_LEN,
+                             attention=AttentionPolicy("paged",
+                                                       page_size=PAGE),
+                             pack_weights=True, n_pages=CACHE_PAGES),
+         dec["launches"], dec["device_busy_ms"], dec["host_wall_ms"]),
+        (f"{bert.name} forward, B {ENC_BATCH} x {BERT_SEQ}",
+         lambda: DR.run_step(bert, "forward", ENC_BATCH, BERT_SEQ,
+                             pack_weights=True),
+         enc["launches"], enc["device_busy_ms"], enc["forward_wall_ms"]),
+        (f"{ARCH} train step, B {TRAIN_BATCH} x {TRAIN_SEQ}, remat",
+         lambda: DR.run_step(dataclasses.replace(cfg, remat=True), "train",
+                             TRAIN_BATCH, TRAIN_SEQ),
+         tr["launches_one_step"]["remat on"],
+         tr["profiled_step"]["device_busy_ms"], tr["median_step_ms"]))
+    res = {}
+    for name, run, measured, busy, wall in cells:
+        r = run()
+        meta = DR.launch_counters(r)
+        diff = {k: (meta.get(k, 0), measured.get(k)) for k in {*meta,
+                                                               *measured}
+                if meta.get(k, 0) != measured.get(k)}
+        if diff:
+            fail(f"roofline {name}: the dry run's launches differ from the "
+                 f"card's (dry run, card): {diff}")
+        t = r["roofline"]
+        bound = max(t["t_compute_s"], t["t_memory_s"],
+                    t["t_collective_s"]) * 1e3
+        res[name] = dict(
+            launches=r["launches"], cost=r["cost"], memory=r["memory"],
+            t_compute_ms=t["t_compute_s"] * 1e3,
+            t_memory_ms=t["t_memory_s"] * 1e3, roofline_ms=bound,
+            bottleneck=t["bottleneck"], device_busy_ms=busy,
+            host_wall_ms=wall, roofline_over_busy=bound / busy,
+            roofline_over_wall=bound / wall, busy_over_wall=busy / wall,
+            dry_run_s=r["run_s"])
+        log(f"roofline {name}: launches {r['launches']} equal the card's; "
+            f"predicted t_compute {t['t_compute_s'] * 1e3:.4f} ms, "
+            f"t_memory {t['t_memory_s'] * 1e3:.4f} ms, roofline "
+            f"{bound:.4f} ms ({t['bottleneck']}); measured device busy "
+            f"{busy:.3f} ms, host wall {wall:.3f} ms; roofline / busy "
+            f"{bound / busy:.3f}, roofline / wall {bound / wall:.4f}")
+    return res
+
+
 def slice_paths(report) -> dict:
-    """The launch counts of phases 20, 22 and 23's paths, by path. Of the
-    slice entries of the kernels line (:func:`slice_entries`), the
+    """The launch counts of phases 20, 22, 23 and 24's paths, by path. Of
+    the slice entries of the kernels line (:func:`slice_entries`), the
     training ones count phase 20's ``training`` path alone, the mixed ones
     phase 22's, and the ``_tp2`` ones phase 23's TP=2 serving ranks; every
-    path, the DP=2 train step and the pipeline ranks too, joins the
-    kernels' all-path totals in ``main``."""
+    path, the DP=2 train step, the pipeline ranks and phase 24's TP=2
+    train steps too, joins the kernels' all-path totals in ``main``."""
     out = {}
     if "train" in report:
         out["training"] = report["train"]["launches"]
@@ -3956,6 +4340,10 @@ def slice_paths(report) -> dict:
                 rk["serving"][f"{dtype} launches"]
         out[f"dp{TP_WORLD} rank {r} train step"] = rk["train"]["launches"]
         out[f"pipeline rank {r}"] = rk["pipeline"]["launches"]
+    for r, rk in enumerate(report.get("tp_train", {}).get("ranks", [])):
+        for dtype in ("fp32", "bf16"):
+            out[f"tp{TP_WORLD}-train rank {r} {dtype} step"] = \
+                rk[dtype]["launches"]
     return out
 
 
@@ -4087,6 +4475,29 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
+    if sys.argv[1:2] == ["--tp-train"]:       # phase 24 alone
+        report["tp_train"] = run_tp_train_phase()
+        (OUT_DIR / "chip_smoke_tp_train.json").write_text(
+            json.dumps(report, indent=1))
+        print(json.dumps({"kernels": slice_entries(report)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if sys.argv[1:2] == ["--roofline"]:       # phases 3, 5 and 20, then 25
+        cfg = get_config(ARCH)
+        report["serving"] = run_serving_phase(cfg)
+        report["encoders"] = run_encoder_phase(get_config("bert-base"),
+                                               get_config("vit-base"))
+        report["train"] = run_train_phase(cfg)
+        report["roofline"] = run_roofline_phase(report)
+        (OUT_DIR / "chip_smoke_roofline.json").write_text(
+            json.dumps(report, indent=1))
+        print(json.dumps({"kernels": slice_entries(report)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     if sys.argv[1:2] in (["--train"], ["--mixed"]):   # phases 20-21 or 22
         cfg = get_config(ARCH)
         timer = Timer()
@@ -4098,7 +4509,8 @@ def main() -> None:
         else:
             report["mixed_kernels"] = run_mixed_kernel_phase(timer, cfg)
             del timer
-            report["mixed"] = run_mixed_phase(cfg)
+            report["mixed"] = run_mixed_phase(
+                dataclasses.replace(cfg, n_layers=MIXED_LAYERS))
         (OUT_DIR / f"chip_smoke_{sys.argv[1][2:]}.json").write_text(
             json.dumps(report, indent=1))
         print(json.dumps({"kernels": slice_entries(report)}), flush=True)
@@ -4114,43 +4526,76 @@ def main() -> None:
     # the zoo's last four at their depth on the card (phases 16-19)
     vlm, audio, dbrx, deepseek = (zoo_config(a) for a in ZOO_MODELS)
     timer = Timer()
+    begin("gemm")
     report["gemm"] = run_gemm_phase(timer, cfg, bert, vit, (mamba, zamba),
                                     dense, (vlm, audio, dbrx, deepseek))
+    begin("attention")
     report["attention"] = run_attention_phase(timer, cfg,
                                               dense + [vlm, dbrx, audio])
+    begin("flash")
     report["flash"] = run_flash_phase(timer, flash_cells(
         cfg, bert, vit, get_config("vit-huge"), zamba,
         np.random.default_rng(3), dense + [vlm, dbrx, audio], deepseek))
+    begin("quant_gemm")
     report["quant_gemm"] = run_quant_gemm_phase(timer, cfg, bert, vit)
+    begin("int8_attention")
     report["int8_attention"] = run_int8_attention_phase(timer, cfg,
                                                         dense + [dbrx])
+    begin("ssd")
     report["ssd"] = run_ssd_phase(timer, mamba, zamba)
+    begin("train_kernels")
     report["train_kernels"] = run_train_kernel_phase(timer, cfg)
+    begin("mixed_kernels")
     report["mixed_kernels"] = run_mixed_kernel_phase(timer, cfg)
+    begin("tp_kernels")
     report["tp_kernels"] = run_tp_kernel_phase(timer)
     del timer
+    begin("serving")
     report["serving"] = run_serving_phase(cfg)
+    begin("parity")
     report["parity"] = run_parity_phase(cfg)
+    begin("encoders")
     report["encoders"] = run_encoder_phase(bert, vit)
+    begin("contiguous")
     report["contiguous"] = run_contiguous_phase(cfg)
+    begin("int8_serving")
     report["int8_serving"] = run_int8_serving_phase(cfg)
+    begin("mamba2_serving")
     report["mamba2_serving"] = run_ssm_serving_phase(
-        mamba, MAMBA_PROMPT, K1_BF16 + K6_BF16, True)
+        dataclasses.replace(mamba, n_layers=SSM_SERVE_LAYERS[MAMBA]),
+        MAMBA_PROMPT, K1_BF16 + K6_BF16, True)
+    begin("zamba2_serving")
     report["zamba2_serving"] = run_ssm_serving_phase(
-        zamba, ZAMBA_PROMPT, K1_BF16 + K3_BF16 + K6_BF16, False)
+        dataclasses.replace(zamba, n_layers=SSM_SERVE_LAYERS[ZAMBA]),
+        ZAMBA_PROMPT, K1_BF16 + K3_BF16 + K6_BF16, False)
+    begin("ssm_parity")
     report["ssm_parity"] = {c.name: run_ssm_parity_phase(c)
                             for c in (mamba, zamba)}
-    report["features"] = feat = run_features_phase(cfg)
+    begin("features")
+    report["features"] = feat = run_features_phase(
+        dataclasses.replace(cfg, n_layers=FEATURES_LAYERS))
     from repro_torch.models import transformer as T
+    begin("identity")
     report["identity"] = run_identity_phase(
         cfg, T.init_model(cfg, seed=0, device="cuda"))
+    begin("dense")
     report["dense"] = {a: run_dense_phase(a, *v)
                        for a, v in DENSE_MODELS.items()}
+    begin("zoo")
     report["zoo"] = zoo = run_zoo_phases()
+    begin("train")
     report["train"] = run_train_phase(cfg)
+    begin("train_fp32")
     report["train_fp32"] = run_train_fp32_phase(cfg)
-    report["mixed"] = run_mixed_phase(cfg)
+    begin("mixed")
+    report["mixed"] = run_mixed_phase(
+        dataclasses.replace(cfg, n_layers=MIXED_LAYERS))
+    begin("tp")
     report["tp"] = run_tp_phase()
+    begin("tp_train")
+    report["tp_train"] = run_tp_train_phase()
+    begin("roofline")
+    report["roofline"] = run_roofline_phase(report)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],

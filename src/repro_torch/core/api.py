@@ -134,34 +134,45 @@ def _torch_gemm(a, b, pln: ExecutionPlan, out_dtype):
 
 def _register_block_major(name, block_fn, dequant_fn):
     """Register a block-major backend around ``block_fn(a_bm, b_bm, *,
-    out_dtype, backward)``: raw operands, batches and gradients run on it
-    (:func:`_block_major`, through ``matmul``), and so do resident weights:
-    a PackedWeight's blocks directly and, for a QuantizedPackedWeight,
-    ``dequant_fn(a_bm, b_bm, scale_a=, scale_b=, out_dtype=)`` with A
-    quantized per row first (the W8A8 route)."""
+    out_dtype, backward, problem)``: raw operands, batches and gradients run
+    on it (:func:`_block_major`, through ``matmul``), and so do resident
+    weights: a PackedWeight's blocks directly and, for a
+    QuantizedPackedWeight, ``dequant_fn(a_bm, b_bm, scale_a=, scale_b=,
+    out_dtype=, problem=)`` with A quantized per row first (the W8A8
+    route). ``problem`` is the logical (M, N, K) inside the padded blocks
+    (the kernels' cost ledger on ``meta`` records it)."""
     def gemm(a2, b, pln: ExecutionPlan, out_dtype):
         M = a2.shape[0]
         blk = P.layout_for_packed(M, b)
+        problem = (M, b.n, b.k)
         if isinstance(b, QuantizedPackedWeight):
             aq, sa = Q.quantize_activations(a2)
             a_bm = L.to_block_major_a(aq, blk.bm, blk.bk)
             c_bm = dequant_fn(a_bm, b.data, scale_a=sa, scale_b=b.scales,
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype, problem=problem)
         else:
             a_bm = L.to_block_major_a(a2, blk.bm, blk.bk)
-            c_bm = block_fn(a_bm, b.data, out_dtype=out_dtype)
+            c_bm = block_fn(a_bm, b.data, out_dtype=out_dtype,
+                            problem=problem)
         return L.from_block_major_c(c_bm, M, b.n)
     register_backend(name, gemm, block_fn=block_fn)
 
 
-def _blockflow_block(a_bm, b_bm, *, out_dtype, backward=False):
+def _blockflow_block(a_bm, b_bm, *, out_dtype, backward=False,
+                     problem=None):
     """The plain Algorithm 1 as a block function: a plain version counts
     no launches, so a gradient's is not marked."""
     return block_matmul_ref(a_bm, b_bm, out_dtype=out_dtype)
 
 
+def _blockflow_dequant(a_bm, b_bm, *, scale_a, scale_b, out_dtype,
+                       problem=None):
+    return block_matmul_ref(a_bm, b_bm, out_dtype=out_dtype, scale_a=scale_a,
+                            scale_b=scale_b)
+
+
 register_backend("torch", _torch_gemm, batched=True, needs_layout=False)
-_register_block_major("blockflow", _blockflow_block, block_matmul_ref)
+_register_block_major("blockflow", _blockflow_block, _blockflow_dequant)
 _register_block_major("matrixflow", MF.matrixflow_gemm_block_major,
                       MF.matrixflow_gemm_dequant)
 
@@ -179,7 +190,7 @@ def _block_major(a: torch.Tensor, b: torch.Tensor, pol: GemmPolicy,
     c_bm = P.get_backend_spec(pol.resolved_backend(a.device)).block_fn(
         L.to_block_major_a(a, blk.bm, blk.bk),
         L.to_block_major_b(b, blk.bk, blk.bn),
-        out_dtype=out_dtype, backward=backward)
+        out_dtype=out_dtype, backward=backward, problem=(M, N, K))
     return L.from_block_major_c(c_bm, M, N)
 
 

@@ -51,6 +51,12 @@ def _device_type(device: Device) -> str:
     return torch.device(device).type
 
 
+# Device types that take the card's choices: ``meta`` tensors stand for the
+# card's in the dry run (``launch/dryrun.py``), whose cost ledger records
+# the launches the card would make.
+CARD_TYPES = ("cuda", "meta")
+
+
 # ---------------------------------------------------------------------------
 # Policies
 # ---------------------------------------------------------------------------
@@ -60,8 +66,8 @@ class GemmPolicy:
     """How GEMMs execute. Frozen → hashable → a plan-cache key.
 
     backend      registry name, or "auto" (``matrixflow`` — the CUDA kernel
-                 — on a CUDA device, ``blockflow`` — its plain version — on
-                 the CPU).
+                 — on a CUDA device and on ``meta``, ``blockflow`` — its
+                 plain version — on the CPU).
     mode         paper access mode: "dc" | "dm" | "auto" (per-shape choice
                  by the sysmodel). Blocks come from core/layout.py's
                  Hopper chooser.
@@ -89,9 +95,10 @@ class GemmPolicy:
 class AttentionPolicy:
     """How attention executes.
 
-    backend    registry name, or "auto" (``paged`` on a CUDA device,
-               ``unfused`` on the CPU; for a model whose recurrent state
-               cannot be paged, ``fused`` on a CUDA device). ``fused`` is
+    backend    registry name, or "auto" (``paged`` on a CUDA device and on
+               ``meta``, ``unfused`` on the CPU; for a model whose
+               recurrent state cannot be paged, ``fused`` on a CUDA
+               device). ``fused`` is
                the offset-aware flash kernel over dense K/V (the cache-less
                forward and contiguous KV caches); ``paged`` reads page
                pools through block tables and falls back to the flash
@@ -133,7 +140,7 @@ PAGED = AttentionPolicy(backend="paged")
 def resolve_backend(name: str, device: Device) -> str:
     if name != "auto":
         return name
-    return "matrixflow" if _device_type(device) == "cuda" else "blockflow"
+    return "matrixflow" if _device_type(device) in CARD_TYPES else "blockflow"
 
 
 def resolve_attention_backend(name: str, device: Device, *,
@@ -143,7 +150,7 @@ def resolve_attention_backend(name: str, device: Device, *,
     families) gets the contiguous ``fused`` kernel on a CUDA device."""
     if name != "auto":
         return name
-    if _device_type(device) != "cuda":
+    if _device_type(device) not in CARD_TYPES:
         return "unfused"
     return "paged" if pageable else "fused"
 
@@ -382,7 +389,7 @@ def bm_for(M: int, dtype: torch.dtype, device_type: str) -> int:
     steps wrote, and a prefix-cache hit the K/V a miss would write. Other
     dtypes and the CPU take the smallest tile covering M (K2 is exact
     integer arithmetic on every tile; fp32 runs on the CUDA cores)."""
-    if device_type == "cuda" and dtype == torch.bfloat16:
+    if device_type in CARD_TYPES and dtype == torch.bfloat16:
         return L.BM_CHOICES[-1]
     return L.bm_for(M)
 

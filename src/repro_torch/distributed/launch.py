@@ -68,8 +68,9 @@ def spawn(target: Callable, world: int, args: Sequence[Any] = (), *,
           threads: Optional[int] = None) -> List[Any]:
     """Run ``target(rank, world, *args)`` on ``world`` new ranks; returns
     their results in rank order. ``target`` and ``args`` must pickle (a
-    module-level function; numpy arrays, not CUDA tensors). ``threads``
-    sets each rank's ``torch.set_num_threads``."""
+    module-level function; arrays or tensors: a CUDA tensor reaches the
+    ranks through CUDA IPC, so it stays alive and unwritten here until
+    this returns). ``threads`` sets each rank's ``torch.set_num_threads``."""
     work = Path(workdir)
     work.mkdir(parents=True, exist_ok=True)
     store = work / "store"

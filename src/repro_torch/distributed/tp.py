@@ -28,7 +28,16 @@ collective itself:
 Every collective is an ``all_reduce`` or a ``broadcast`` — the two that
 gloo runs on CUDA tensors as on CPU ones — and counts its calls and bytes
 in :data:`collectives`. Nothing gives way to a single-rank path: a
-collective that fails raises.
+collective that fails raises. Over an abstract mesh's group
+(``launch/mesh.py::Mesh.abstract``) a collective of ``meta`` tensors is
+counted and returns without calling ``torch.distributed`` (the dry run);
+any other tensor there raises, and so does a ``meta`` tensor over a real
+group.
+
+Training runs the same call sites under autograd: the collectives are
+``torch.autograd.Function`` s (:class:`_SumOverRanks`, :class:`_ToRanks`,
+:class:`_Gather`) whose backward is the collective a rank's gradient
+needs, issued through :func:`all_reduce`, so it is counted too.
 
 Without a context, or with a model axis of 1, every wrapper is the plain
 ``api`` call, so the model code routes through this module unconditionally.
@@ -47,13 +56,15 @@ from repro_torch.core import api
 from repro_torch.core.plan import PackedWeight, QuantizedPackedWeight, \
     ShardingPolicy
 from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.kernels.forward_only import needs_grad
+from repro_torch.launch.mesh import AbstractGroup
 from repro_torch.models.module import is_axis_leaf
 
 __all__ = [
     "TPContext", "make_context", "use_tp", "current_tp", "head_sharding",
     "linear", "matmul", "attention", "embed", "conform_heads",
     "param_cut", "shard_params", "shard_caches", "head_units", "all_reduce",
-    "broadcast", "gather", "collectives",
+    "broadcast", "gather", "on_slice", "collectives",
 ]
 
 
@@ -85,7 +96,27 @@ collectives = Collectives()
 
 
 def _group_size(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, AbstractGroup):
+        return group.size()
+    return dist.get_world_size(group)
+
+
+def _is_real(t: torch.Tensor, group) -> bool:
+    """Whether a collective of ``t`` over ``group`` goes to
+    ``torch.distributed``: not over an abstract group, where it is only
+    counted and only ``meta`` tensors may come; a ``meta`` tensor never
+    reaches a real group of more than one rank."""
+    abstract = isinstance(group, AbstractGroup)
+    if abstract and t.device.type != "meta":
+        raise ValueError(f"a {t.device.type} tensor under an abstract mesh: "
+                         f"Mesh.abstract counts collectives of meta tensors "
+                         f"only (launch/dryrun.py)")
+    if not abstract and t.device.type == "meta" and _group_size(group) > 1:
+        raise ValueError("a meta tensor cannot reach torch.distributed: run "
+                         "the dry run under Mesh.abstract")
+    return not abstract
 
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
@@ -93,23 +124,102 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     when ``t`` is contiguous, else into a contiguous copy — a strided view
     (a GEMM's output cut from its padded tiles) would be reduced wrongly.
     Use the returned tensor."""
+    real = _is_real(t, group)
     if _group_size(group) > 1:
         t = t.contiguous()
         collectives.add("all_reduce", t)
-        dist.all_reduce(t, group=group)
+        if real:
+            dist.all_reduce(t, group=group)
     return t
 
 
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """``t`` from global rank ``src`` to every rank of ``group``; ``t``
     must be contiguous (it is received in place)."""
+    real = _is_real(t, group)
     if _group_size(group) > 1:
         if not t.is_contiguous():
             raise ValueError("broadcast receives in place: pass a "
                              "contiguous tensor")
         collectives.add("broadcast", t)
-        dist.broadcast(t, src=src, group=group)
+        if real:
+            dist.broadcast(t, src=src, group=group)
     return t
+
+
+# ---------------------------------------------------------------------------
+# The collectives under autograd
+# ---------------------------------------------------------------------------
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy that a collective may reduce in place (autograd
+    may hand the same gradient buffer to two consumers)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce forward, identity backward: a row-parallel partial
+    product or the vocab-parallel embedding's rows, summed over the model
+    group. The sum is replicated, so every rank gets the same gradient of
+    it, which is the gradient of its own part."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(_fresh(t), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ToRanks(torch.autograd.Function):
+    """Identity forward, all-reduce backward: a replicated input that each
+    rank consumes only in part (a column-parallel GEMM's x, a whole tensor
+    cut to the rank's slice). Each rank's gradient of it is partial; their
+    sum is the gradient of the replicated input."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(_fresh(g), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """The exact gather of :func:`gather` forward; backward, the rank's
+    slice of the (replicated, so identical) gradient of the whole."""
+
+    @staticmethod
+    def forward(ctx, t, dim, full, ctx_tp, blocks):
+        ctx.cut = (dim, ctx_tp.rank, ctx_tp.model_size, blocks)
+        return _gather(t, dim, full, ctx_tp, blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shard_dim(g, *ctx.cut), None, None, None, None
+
+
+def _sum_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    return _SumOverRanks.apply(t, group) if needs_grad(t) \
+        else all_reduce(t, group)
+
+
+def _to_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    return _ToRanks.apply(t, group) if needs_grad(t) else t
+
+
+def on_slice(params, sliced: bool):
+    """``params`` (a dict of replicated tensors: a q/k norm) as used on
+    the rank's slice of the heads when ``sliced``: each rank's gradient of
+    them then covers its heads only, and the backward sums it over the
+    model group (:class:`_ToRanks`), so every rank gets the whole one."""
+    ctx = current_tp()
+    if not sliced or not _active(ctx):
+        return params
+    return {k: _to_ranks(v, ctx.group) for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +389,15 @@ def gather(t: torch.Tensor, dim: int, full: int, ctx: TPContext,
            blocks: int = 1) -> torch.Tensor:
     """The whole of dim ``dim`` (``full`` wide) from every rank's slice of
     it (:func:`shard_dim`'s layout): an all-reduce of a zero-filled buffer
-    into which this rank wrote its own slice."""
+    into which this rank wrote its own slice. Under autograd the gradient
+    of a rank's slice is its slice of the whole's (:class:`_Gather`)."""
+    if needs_grad(t):
+        return _Gather.apply(t, dim % t.dim(), full, ctx, blocks)
+    return _gather(t, dim, full, ctx, blocks)
+
+
+def _gather(t: torch.Tensor, dim: int, full: int, ctx: TPContext,
+            blocks: int = 1) -> torch.Tensor:
     dim = dim % t.dim()
     shape = list(t.shape)
     shape[dim] = full
@@ -300,7 +418,8 @@ def conform_heads(t: torch.Tensor, n_heads: int, local: bool
     if not _active(ctx) or (t.shape[2] == n_heads) != local:
         return t
     if local:
-        return shard_dim(t, 2, ctx.rank, ctx.model_size)
+        return shard_dim(_to_ranks(t, ctx.group), 2, ctx.rank,
+                         ctx.model_size)
     return gather(t, 2, n_heads, ctx)
 
 
@@ -358,19 +477,20 @@ def linear(x: torch.Tensor, w, bias=None, *,
         w = _local(w, 1, N, ctx, "weight")
         if bias is not None:
             bias = _local(bias, 0, N, ctx, "bias")
-        y = api.linear(x, w, bias, policy=policy)
+        y = api.linear(_to_ranks(x, ctx.group), w, bias, policy=policy)
         return gather(y, -1, N, ctx, blocks) if gather_out else y
 
     if cut is not None:
         # row parallel: partial products summed in fp32 before the cast
         w = _local(w, 0, K, ctx, "weight")
         if x.shape[-1] == K:
-            x = shard_dim(x, -1, ctx.rank, ctx.model_size)
+            x = shard_dim(_to_ranks(x, ctx.group), -1, ctx.rank,
+                          ctx.model_size)
         x = _local(x, -1, K, ctx, "input")
         out_dtype = torch.promote_types(x.dtype, w.dtype)
         acc = torch.float32 if out_dtype.is_floating_point else None
-        y = all_reduce(api.matmul(x, w, policy=policy, out_dtype=acc),
-                       ctx.group)
+        y = _sum_over_ranks(api.matmul(x, w, policy=policy, out_dtype=acc),
+                            ctx.group)
         if acc is not None:
             y = y.to(out_dtype)
         return y if bias is None else y + bias
@@ -406,7 +526,7 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, *, vocab: int
     inside = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    return all_reduce(rows, ctx.group)
+    return _sum_over_ranks(rows, ctx.group)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,12 @@ on one kv head make a decode row of three m16 tiles.
 :func:`route_for` and :func:`split_count` also pick the routes of the
 paged kernel's bf16 instances (``kernels/paged_attention.py``), which run
 on the same warp tile (``csrc/attn_mma.cuh``).
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) the wrapper takes
+the route the card would take, records that launch and its least work
+(``roofline.launch_cost``, every key in memory: positions are data) in the
+active cost ledger, and returns an empty ``meta`` result. Nothing launches
+there, so the launch counters do not move: they count real launches only.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.forward_only import refuse_grad
+from repro_torch.roofline import analysis as RA
 
 NEG_INF = -1e30
 # The kernel's tiling (csrc/flash_attention.cu): keys per block, the head
@@ -241,7 +248,7 @@ def flash_attention(
         return flash_attention_plain(
             q, k, v, *_resolve(q_positions, kv_valid_len, B, Sq, Sk, dev),
             causal=causal, scale=scale, soft_cap=soft_cap)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"no flash attention kernel for device {dev}")
     check_dtypes(q, k, v, "flash attention")
     if (D, Dv) not in HEAD_DIM_PAIRS:
@@ -258,6 +265,11 @@ def flash_attention(
     splits = split_count(B, Hkv, Sk) if route == "split" else 0
     if route == "split" and not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"split count {splits} outside 1..{MAX_SPLITS}")
+    if dev.type == "meta":
+        RA.record_launch("flash_attention", route, B=B, Sq=Sq, Sk=Sk, H=H,
+                         Hkv=Hkv, D=D, Dv=Dv, dtype=out_dtype,
+                         kv_dtype=k.dtype)
+        return torch.empty((B, Sq, H, Dv), dtype=out_dtype, device=dev)
     tc = route in ("rows", "split")
     if not tc:
         q_positions, kv_valid_len = _resolve(q_positions, kv_valid_len, B, Sq,

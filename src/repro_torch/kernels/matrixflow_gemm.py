@@ -33,6 +33,12 @@ K2 takes the two tensor-core routes with int8 operands (s8 ``wgmma`` at
 bm = 64, s8 ``mma.sync`` at bm = 16 and 32, the same tiles and splits,
 :func:`tc_tile`), counted on its wrapper as ``.wgmma_launches`` and
 ``.mma_launches``; it has no CUDA-core route.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) each wrapper takes
+the route the card would take, records that launch and its least work
+(``roofline.launch_cost`` of the logical ``problem``) in the active cost
+ledger, and returns an empty ``meta`` result. Nothing launches there, so
+the launch counters above do not move: they count real launches only.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch.core import layout as L
 from repro_torch.kernels import _build
 from repro_torch.kernels.forward_only import refuse_grad
 from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref
+from repro_torch.roofline import analysis as RA
 
 # Plain version of the kernels (Algorithm 1, K innermost; with scales, K2).
 plain = block_matmul_ref
@@ -154,8 +161,9 @@ def _check_operands(a_bm: torch.Tensor, b_bm: torch.Tensor,
 
 
 def _check_launch(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
-    """What the CUDA kernels take beyond :func:`_check_operands`."""
-    if a_bm.device.type != "cuda":
+    """What the CUDA kernels take beyond :func:`_check_operands` (on
+    ``meta``: all but the alignment of storage it does not have)."""
+    if a_bm.device.type not in ("cuda", "meta"):
         raise ValueError(f"no MatrixFlow GEMM for device {a_bm.device}")
     bm, bk, bn = a_bm.shape[-2], a_bm.shape[-1], b_bm.shape[-1]
     if bm not in L.BM_CHOICES or bn not in L.BN_CHOICES or bk % L.K_SLICE:
@@ -166,8 +174,18 @@ def _check_launch(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
             f"(core/layout.py::choose_layout picks these)")
     if not (a_bm.is_contiguous() and b_bm.is_contiguous()):
         raise ValueError("block-major operands must be contiguous")
-    if a_bm.data_ptr() % 16 or b_bm.data_ptr() % 16:
+    if a_bm.device.type == "cuda" and (a_bm.data_ptr() % 16
+                                       or b_bm.data_ptr() % 16):
         raise ValueError("operands must be 16-byte aligned")
+
+
+def _problem(problem, a_bm: torch.Tensor, b_bm: torch.Tensor):
+    """The logical (M, N, K) inside the blocks: ``problem``, or (with
+    None) the padded extent."""
+    if problem is not None:
+        return problem
+    nbm, nbk, bm, bk = a_bm.shape[-4:]
+    return nbm * bm, b_bm.shape[-4] * b_bm.shape[-1], nbk * bk
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
@@ -180,6 +198,7 @@ def matrixflow_gemm_block_major(
     a_bm: torch.Tensor, b_bm: torch.Tensor, *,
     out_dtype: Optional[torch.dtype] = None,
     backward: bool = False,
+    problem: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """C_bm = A_bm @ B_bm over MatrixFlow block-major operands (K1).
 
@@ -192,7 +211,9 @@ def matrixflow_gemm_block_major(
     route. ``backward`` marks a launch made for a gradient
     (``core/api.py``), counted also in ``.backward_launches``. The
     operands carry no autograd history: ``core/api.py`` wraps this call in
-    the autograd Function whose backward is this call again.
+    the autograd Function whose backward is this call again. ``problem``
+    is the logical (M, N, K) inside the padded blocks, the least work the
+    cost ledger records on ``meta`` (default: the padded extent).
     """
     batched = a_bm.dim() == 5
     _check_operands(a_bm, b_bm, batched)
@@ -214,6 +235,13 @@ def matrixflow_gemm_block_major(
                          f"1..{MAX_BATCH} problems")
     c_bm = torch.empty((*a_bm.shape[:-4], nbm, nbn, bm, bn),
                        dtype=out_dtype, device=a_bm.device)
+    if a_bm.device.type == "meta":
+        M, N, K = _problem(problem, a_bm, b_bm)
+        RA.record_launch("matrixflow_gemm", route, M=M, N=N, K=K,
+                         dtype=a_bm.dtype, out_dtype=out_dtype, G=G,
+                         marks=("batched",) * batched
+                         + ("backward",) * backward)
+        return c_bm
     lib = _lib()
     stream = torch.cuda.current_stream(a_bm.device).cuda_stream
     if route == "cuda_core":
@@ -246,6 +274,7 @@ def matrixflow_gemm_dequant(
     a_bm: torch.Tensor, b_bm: torch.Tensor,
     scale_a: Optional[torch.Tensor], scale_b: Optional[torch.Tensor], *,
     out_dtype: torch.dtype = torch.float32,
+    problem: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """The W8A8 GEMM (K2): C_bm = (A_bm @ B_bm) · s_a[m] · s_b[n].
 
@@ -257,6 +286,7 @@ def matrixflow_gemm_dequant(
     ``float(acc) * s_a[m] * s_b[n]`` in ``out_dtype`` (fp32 or bf16). On
     the card it runs on the tensor cores (:func:`route_for` with
     ``dequant=True``, :func:`tc_tile`), bitwise equal to the plain version.
+    ``problem`` as in :func:`matrixflow_gemm_block_major`.
     """
     refuse_grad("matrixflow_gemm_dequant (K2)", scale_a, scale_b,
                 remedy="the W8A8 route has no backward")
@@ -286,6 +316,11 @@ def matrixflow_gemm_dequant(
     c_bm = torch.empty((nbm, nbn, bm, bn), dtype=out_dtype,
                        device=a_bm.device)
     route = route_for(a_bm.dtype, bm, dequant=True)
+    if a_bm.device.type == "meta":
+        M, N, K = _problem(problem, a_bm, b_bm)
+        RA.record_launch("matrixflow_gemm_dequant", route, M=M, N=N, K=K,
+                         out_dtype=out_dtype)
+        return c_bm
     gm, tn, splits = tc_tile(bm, bn, nbm, nbn, nbk, bk)
     lib = _lib()
     _raise_on(lib.mf_gemm_dequant(

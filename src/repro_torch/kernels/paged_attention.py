@@ -29,6 +29,13 @@ prefix-cache hit keep the stream a solo run gives. Rows are flat (query
 position x the heads of a group), so any GQA group fits. Over int8 pools
 the tensor-core kernels stage the int8 rows as they are and convert them
 to bf16 in shared memory; p is not rounded before P·V.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) the wrapper takes
+the route the card would take, records that launch and its least work
+(``roofline.launch_cost``, every page of the table: lengths are data) in
+the active cost ledger, and returns an empty ``meta`` result. Nothing
+launches there, so the launch counters do not move: they count real
+launches only.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from repro_torch.kernels.flash_attention import (MAX_SPLITS, MIXED_ROUTE,
                                                  check_dtypes, route_for,
                                                  split_count)
 from repro_torch.kernels.forward_only import refuse_grad
+from repro_torch.roofline import analysis as RA
 
 NEG_INF = -1e30
 # Limits of the kernels' tiling (csrc/paged_attention.cu).
@@ -212,7 +220,7 @@ def paged_attention(
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      *resolve(), causal=causal, scale=scale,
                                      soft_cap=soft_cap, kv_scales=kv_scales)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"no paged attention kernel for device {dev}")
     if not quantized:
         check_dtypes(q, k_pages, v_pages, "paged attention")
@@ -238,6 +246,13 @@ def paged_attention(
                     *zip(("k_scales", "v_scales"), scales)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if dev.type == "meta":
+        RA.record_launch("paged_attention", route,
+                         name="paged_attention_int8" if quantized else None,
+                         B=B, Sq=Sq, H=H, Hkv=Hkv,
+                         D=D, page_size=ps, n_blocks=nb, dtype=out_dtype,
+                         kv_dtype=k_pages.dtype)
+        return torch.empty((B, Sq, H, Dv), dtype=out_dtype, device=dev)
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     if tc:                               # read in 16-byte chunks

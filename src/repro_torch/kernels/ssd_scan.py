@@ -30,6 +30,12 @@ scan's function does not depend on the tiling, only its rounding does),
 and depend on S alone, never on B, so a row's result does not depend on
 what else shares the batch. A bf16 geometry they do not take (P above
 :data:`MAX_P`, N above :data:`MAX_N`) raises.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) the wrapper takes
+the route the card would take, records that launch and its least work
+(``roofline.launch_cost``) in the active cost ledger, and returns empty
+``meta`` results. Nothing launches there, so the launch counters do not
+move: they count real launches only.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.forward_only import refuse_grad
 from repro_torch.kernels.ref import ssd_chunk_size
 from repro_torch.kernels.ref import ssd_chunked_ref as ssd_scan_plain
+from repro_torch.roofline import analysis as RA
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_chunk_size", "route_for",
            "tile_plan"]
@@ -151,11 +158,17 @@ def ssd_scan(x: torch.Tensor,          # (B, S, H, P)
     if dev.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk,
                               final_state=final_state)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD scan kernel for device {dev}")
     route, Q = check_operands(x, dt, A, Bc, Cc, chunk)
     Bsz, S, H, P = x.shape
     N = Bc.shape[-1]
+    if dev.type == "meta":
+        RA.record_launch("ssd_scan", route, B=Bsz, S=S, H=H, P=P, N=N,
+                         dtype=x.dtype, Q=Q)
+        return (torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev),
+                torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
+                if final_state else None)
     x, Bc, Cc = (t if t.stride(-1) == 1 else t.contiguous()
                  for t in (x, Bc, Cc))
     A = A.contiguous()

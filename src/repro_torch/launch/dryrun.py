@@ -1,0 +1,506 @@
+"""Dry run of every (arch × shape × mesh) cell on ``meta`` tensors
+(``repro/launch/dryrun.py``), and the roofline of one step.
+
+The reference lowers and compiles each cell's step for the production
+mesh on 512 placeholder host devices and reads XLA's ``memory_analysis``,
+``cost_analysis`` and the collectives of the optimized HLO. The port has
+no compiler between it and the card, so it runs the cell's real step
+function — the train step with AdamW, the prefill step or the decode step
+— once, eagerly, on ``meta`` tensors (shapes and dtypes, no storage) at
+one rank's shapes: rank 0 of ``Mesh.abstract`` of the 16×16 (or 2×16×16)
+mesh, its params cut by ``tp.shard_params``, its caches holding its KV
+heads, its rows of the batch. Nothing is allocated and nothing launches,
+so this entry point needs no card: ``meta`` is asked for by name, which
+keeps the port's rule that an entry point runs on the card unless the
+caller asks for another device.
+
+What is counted:
+
+  * every kernel launch the card would make: each wrapper takes the
+    card's route on ``meta`` and records the launch and its least work
+    (``roofline.launch_cost``) in the active cost ledger (the wrappers'
+    own launch counters move only where a kernel really launches);
+  * every other aten op (views excluded), through a ``TorchDispatchMode``:
+    the bytes of its tensor inputs and outputs — an op that writes into a
+    tensor in place counts what it writes, at most what it reads besides
+    (a cache scatter writes rows, not the pool) — and its FLOPs where
+    ``torch.utils.flop_counter`` has a formula (the MoE banks' products);
+  * the collectives of ``distributed/tp.py`` over the abstract mesh's
+    groups, by kind and bytes;
+  * memory: the arguments the rank holds (params, optimizer state, its
+    batch and caches), the step's outputs, and the peak of the bytes the
+    step allocates while it runs (``temp_size_in_bytes``).
+
+The eager port walks every layer, so the reference's depth-1 / depth-2
+body probe (XLA counts a scanned body once) is not needed, and
+``--skip-body-probe`` is accepted and ignored. The result keeps the
+reference's keys — arch, shape, mesh, kind, n_chips, n_params, memory,
+cost{"flops", "bytes accessed"}, collectives{"total"}, collective_counts,
+roofline — and adds ``launches`` by kernel and route (K1's batched and
+backward launches besides in ``launches_marked``), ``fsdp`` (false:
+FSDP is not ported) and ``parts_from_reference``: where what the rank
+holds or runs parts from the reference's GSPMD placement. Attention's
+FLOPs and bytes take every key in memory (positions and lengths are
+data), a bound on what a run's data needs; the launch counts are exact.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
+  python -m repro_torch.launch.dryrun --all --both-meshes --out cells.jsonl
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import traceback
+import weakref
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch.utils import flop_counter
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
+
+from repro_torch.configs.registry import (SHAPES, all_cells, cell_applicable,
+                                          get_config)
+from repro_torch.core import api
+from repro_torch.core.plan import (UNFUSED, AttentionPolicy, PackedWeight,
+                                   QuantizedPackedWeight)
+from repro_torch.distributed import tp as TP
+from repro_torch.launch import specs as SP
+from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import Mesh, production_mesh_shape
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import param_axes
+from repro_torch.optim import adamw_init
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.roofline import analysis as RA
+from repro_torch.serving.engine import make_decode_step, make_prefill_step
+
+META = SP.META
+aten = torch.ops.aten
+# Ops that move no data: allocations without a fill, and aliases.
+_NO_DATA = {aten.empty, aten.empty_strided, aten.empty_like, aten.new_empty,
+            aten.new_empty_strided, aten.detach, aten.lift_fresh, aten.alias}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    return [t for t in _pytree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+class OpCounter(TorchDispatchMode):
+    """Bytes and FLOPs of the aten ops run while it is active (views and
+    the ops in ``_NO_DATA`` excluded), and the peak of the bytes their
+    outputs allocate, each storage counted until it is freed."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops_by_dtype: Dict[str, float] = {}
+        self.bytes = 0.0
+        self.ops = 0
+        self.live = 0
+        self.peak = 0
+        self._alive = set()
+
+    def _free(self, key: int, n: int) -> None:
+        self._alive.discard(key)
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.is_view or func.overloadpacket in _NO_DATA:
+            self._track(out, ())
+            return out
+        ins = _tensors((args, kwargs))
+        written = {id(t) for t in _mutated(func, args, kwargs)}
+        read = sum(_nbytes(t) for t in ins if id(t) not in written)
+        if written:
+            w = sum(_nbytes(t) for t in ins if id(t) in written)
+            n = read + (min(w, read) if read else w)
+        else:
+            n = read + sum(_nbytes(t) for t in _tensors(out))
+        self.bytes += n
+        self.ops += 1
+        formula = flop_counter.flop_registry.get(func.overloadpacket)
+        if formula is not None:
+            dt = RA.dtype_name(ins[0].dtype) if ins else "float32"
+            self.flops_by_dtype[dt] = self.flops_by_dtype.get(dt, 0.0) \
+                + float(formula(*args, **kwargs, out_val=out))
+        self._track(out, ins)
+        return out
+
+    def _track(self, out, ins) -> None:
+        held = {id(t.untyped_storage()) for t in ins}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = id(st)
+            if key in held or key in self._alive:
+                continue
+            n = st.nbytes()
+            self._alive.add(key)
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key, n)
+
+
+def _mutated(func, args, kwargs) -> List[torch.Tensor]:
+    """The tensor arguments ``func`` writes in place (its schema's
+    ``Tensor(a!)`` arguments)."""
+    out = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is None or not a.alias_info.is_write:
+            continue
+        v = args[i] if i < len(args) else kwargs.get(a.name)
+        out += _tensors(v)
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor of ``tree``, a packed weight's blocks (and an
+    int8 one's scales) included."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return _nbytes(tree)
+    if isinstance(tree, (PackedWeight, QuantizedPackedWeight)):
+        return _nbytes(tree.data) + _tree_bytes(getattr(tree, "scales", None))
+    return 0
+
+
+def _sink_bytes(caches) -> int:
+    """Bytes of the caches' write sinks: the column past ``max_len`` of a
+    contiguous cache, the page past the pool of a paged one (and its int8
+    scale rows), which the reference's caches do not hold."""
+    n = 0
+    for c in caches or ():
+        for name, t in c.items():
+            if name in ("k", "v", "ckv", "krope"):
+                n += _nbytes(t) // t.shape[1]
+            elif name in ("kp", "vp", "k_scale", "v_scale"):
+                n += _nbytes(t) // t.shape[0]
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Parameter counts (the reference's names and results)
+# ---------------------------------------------------------------------------
+
+def count_params_abstract(params_abs) -> int:
+    return int(sum(int(np.prod(t.shape)) for t in tree_leaves(params_abs)))
+
+
+def count_params_abstract_cfg(cfg: ModelConfig) -> int:
+    params_abs, _ = SP.abstract_params_and_axes(cfg)
+    return count_params_abstract(params_abs)
+
+
+def active_params(cfg: ModelConfig, n_params: int) -> float:
+    """6·N_active·D for MoE: discount inactive routed experts."""
+    if not cfg.is_moe:
+        return float(n_params)
+    per_expert = 3 * cfg.d_model * (cfg.moe_d_ff or cfg.d_ff)
+    n_moe_layers = cfg.n_layers - cfg.first_dense_layers
+    routed = n_moe_layers * cfg.n_experts * per_expert
+    active = n_moe_layers * cfg.n_experts_active * per_expert
+    return float(n_params - routed + active)
+
+
+def describe_memory(mem: Optional[Dict[str, int]]) -> dict:
+    """The reference's summary of a memory analysis (here a dict of its
+    ``*_size_in_bytes`` fields), ``total_gb_per_device`` as it computes
+    it: arguments plus temporaries."""
+    if not mem:
+        return {}
+    out = {k: int(v) for k, v in mem.items() if v is not None}
+    out["total_gb_per_device"] = round(
+        (out.get("argument_size_in_bytes", 0)
+         + out.get("temp_size_in_bytes", 0)) / 2**30, 3)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# One step on meta
+# ---------------------------------------------------------------------------
+
+def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
+                     n_rows) -> List[Dict[str, str]]:
+    """Where the rank parts from the reference's GSPMD placement."""
+    parts = []
+    if mesh is None:
+        return parts
+    if mesh.axis_size("data") > 1:
+        parts.append(dict(part="params and optimizer state", detail=(
+            "replicated over the data axis: the reference's rules shard "
+            "the embed dim there (FSDP), which the port does not")))
+    if "pod" in mesh.shape and kind == "train":
+        parts.append(dict(part="gradient reduction", detail=(
+            "averaged over the data axis only: the pod axis takes its rows "
+            "of the batch, and its all-reduce is not counted")))
+    if mesh.axis_size("model") > 1:
+        if cfg.is_moe:
+            parts.append(dict(part="MoE expert banks", detail=(
+                "whole on every rank: tp.shard_params keeps 3-D tensors "
+                "whole; the reference shards the experts over model")))
+        if cfg.family in T.SSD_FAMILIES:
+            parts.append(dict(part="SSD blocks", detail=(
+                "whole on every rank, as the reference's tp.linear runs "
+                "them unsharded")))
+    if n_rows == batch and batch > 1 and batch % (mesh.size //
+                                                  mesh.axis_size("model")):
+        parts.append(dict(part="batch", detail=(
+            f"{batch} rows do not divide over the data axes: every rank "
+            f"holds them all")))
+    if shape_name == "long_500k":
+        parts.append(dict(part="long-context cache", detail=(
+            "whole on every rank: the reference shards the cache's sequence "
+            "and the SSD state's heads over data (act_kv_seq); the port "
+            "does not shard a cache's sequence")))
+    return parts
+
+
+def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
+             mesh: Optional[Mesh] = None, shape_name: Optional[str] = None,
+             rules_overrides=None, attention: Optional[AttentionPolicy] = None,
+             pack_weights: bool = False, n_pages: Optional[int] = None
+             ) -> dict:
+    """One ``kind`` step ("train", "prefill", "decode"; "forward": an
+    encoder's forward) of ``cfg`` at a global ``batch`` of ``seq`` tokens
+    (decode: a ``seq``-token cache) on
+    ``meta``, at the shapes of ``mesh``'s rank (None: one device). A
+    paged ``attention`` policy gives the serving steps page pools of
+    ``n_pages`` pages (default: every row's ``seq`` tokens) and block
+    tables; ``pack_weights`` packs the GEMM weights block-major as the
+    serving engine does. Returns memory, cost, collectives, launches,
+    roofline and the parts that differ from the reference."""
+    model = 1 if mesh is None else mesh.axis_size("model")
+    n_rows_axes = 1 if mesh is None else mesh.size // model
+    ctx = None
+    if model > 1:
+        over = dict(cfg.overrides_dict())
+        if shape_name == "long_500k":
+            over.setdefault("act_kv_seq", "data")
+        over.update(rules_overrides or {})
+        ctx = TP.make_context(mesh, overrides=over)
+    rows = batch // n_rows_axes if batch % n_rows_axes == 0 else batch
+    parts = _placement_parts(cfg, mesh, shape_name, kind, batch, rows)
+    params = TP.shard_params(T.init_model(cfg, device=META), param_axes(cfg),
+                             ctx, units=TP.head_units(cfg))
+    if pack_weights:
+        params = api.pack_model_weights(params)
+    dt = cfg.param_dtype
+    notes = ["attention counts every key in memory (positions and lengths "
+             "are data): a bound on what a run's data needs"]
+
+    if kind == "train":
+        if cfg.family in T.SSD_FAMILIES:
+            parts.append(dict(part="SSD scan under autograd", detail=(
+                "the card has no backward of K6 (train/loop.py::"
+                "check_trainable refuses it); counted as the plain scan, "
+                "the CPU's training route")))
+        # the step cuts its rows over the data axis; a pod axis takes its
+        # share before
+        data = 1 if mesh is None else mesh.axis_size("data")
+        glob = SP.token_specs(cfg, rows * data if rows != batch else batch,
+                              seq)
+        opt = adamw_init(params)
+        step = ST.make_train_step_fn(cfg, mesh=mesh)
+        args = (params, opt, ST.data_shard(glob, mesh))
+
+        def call():
+            with api.use_attention_policy(UNFUSED):
+                return step(params, opt, glob)
+        caches = None
+    elif kind == "forward":            # the encoders: no cache, no loss
+        b = SP.token_specs(cfg, rows, seq)
+        args = (params, b)
+        caches = None
+
+        def call():
+            with torch.no_grad():
+                return T.encoder_forward(params, cfg, b)
+    else:
+        paged = attention is not None and attention.backend == "paged"
+        if paged:
+            ps = attention.page_size
+            nb = -(-seq // ps)
+            caches = T.init_paged_caches(
+                cfg, rows, n_pages or rows * nb, ps, dt, META, tpctx=ctx,
+                kv_dtype=attention.kv_dtype)
+            tables = torch.empty((rows, nb), dtype=torch.int32, device=META)
+        else:
+            caches = T.init_caches(cfg, rows, seq, dt, META, tpctx=ctx)
+            tables = None
+        if kind == "prefill":
+            b = dict(SP.token_specs(cfg, rows, seq))
+            b["positions"] = torch.empty((rows, seq), dtype=torch.int32,
+                                         device=META)
+            if tables is not None:
+                b["block_tables"] = tables
+            step = make_prefill_step(cfg, attn=attention, tpctx=ctx)
+            args = (params, b, caches)
+
+            def call():
+                with torch.no_grad():
+                    return step(params, b, caches)
+        else:
+            tok = (rows, 1, cfg.n_codebooks) if cfg.n_codebooks else (rows, 1)
+            toks = torch.empty(tok, dtype=torch.int32, device=META)
+            pos = torch.empty((rows, 1), dtype=torch.int32, device=META)
+            step = make_decode_step(cfg, attn=attention, tpctx=ctx)
+            args = (params, toks, pos, caches, tables)
+
+            def call():
+                with torch.no_grad():
+                    return step(params, toks, pos, caches, tables)
+        sink = _sink_bytes(caches)
+        if sink:
+            parts.append(dict(part="cache write sink", bytes=sink, detail=(
+                "one column past max_len of each contiguous cache, one page "
+                "past each pool: masked positions write there (the "
+                "reference drops those writes)")))
+
+    argument = _tree_bytes(args)
+    ledger = RA.CostLedger()
+    counter = OpCounter()
+    before = TP.collectives.snapshot()
+    t0 = time.perf_counter()
+    with RA.use_ledger(ledger), counter:
+        out = call()
+    run_s = time.perf_counter() - t0
+    after = TP.collectives.snapshot()
+    coll = RA.collective_bytes_from_counts(
+        {k: {kind_: after[k][kind_] - before[k][kind_] for kind_ in after[k]}
+         for k in after})
+    flops_by_dtype = dict(counter.flops_by_dtype)
+    for d, f in ledger.flops_by_dtype.items():
+        flops_by_dtype[d] = flops_by_dtype.get(d, 0.0) + f
+    flops = sum(flops_by_dtype.values())
+    nbytes = counter.bytes + ledger.bytes
+    mem = describe_memory({"argument_size_in_bytes": argument,
+                           "output_size_in_bytes": _tree_bytes(out),
+                           "temp_size_in_bytes": counter.peak})
+    n_params = count_params_abstract_cfg(cfg)
+    n_chips = 1 if mesh is None else mesh.size
+    n_tok = batch * (seq if kind != "decode" else 1)
+    mf = RA.model_flops_estimate(active_params(cfg, n_params), n_tok,
+                                 "train" if kind == "train" else "infer")
+    terms = RA.roofline_terms({"flops": flops, "bytes accessed": nbytes,
+                               "flops_by_dtype": flops_by_dtype},
+                              coll["total"], model_flops=mf / n_chips)
+    return {
+        "kind": kind, "n_chips": n_chips, "n_params": n_params,
+        "run_s": round(run_s, 2),
+        "memory": mem,
+        "cost": {"flops": flops, "bytes accessed": nbytes,
+                 "flops_by_dtype": flops_by_dtype,
+                 "kernel_flops": ledger.flops, "kernel_bytes": ledger.bytes,
+                 "aten_ops": counter.ops},
+        "collectives": {"total": coll["total"],
+                        **{k: v for k, v in coll.items()
+                           if k not in ("total", "counts")}},
+        "collective_counts": coll["counts"],
+        "launches": ledger.launches,
+        "launches_marked": ledger.marked,
+        "roofline": terms,
+        "fsdp": False,
+        "parts_from_reference": parts,
+        "notes": notes,
+    }
+
+
+def launch_counters(res: Dict) -> Dict[str, int]:
+    """A result's launches under the names of the card's launch counters
+    (``chip_smoke.py::kernel_wrappers``): ``kernel`` for the total,
+    ``kernel_route`` by route, ``kernel_mark`` for a mark (K1's
+    ``matrixflow_gemm_batched``, ``matrixflow_gemm_backward``)."""
+    flat: Dict[str, int] = {}
+    for kernel, by_route in res["launches"].items():
+        flat[kernel] = sum(by_route.values())
+        flat.update({f"{kernel}_{r}": n for r, n in by_route.items()})
+    for kernel, by_mark in res["launches_marked"].items():
+        flat.update({f"{kernel}_{m}": n for m, n in by_mark.items()})
+    return flat
+
+
+def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+                rules_overrides=None, verbose: bool = True,
+                skip_body_probe: bool = False):
+    """The cell's step on ``meta`` at rank 0 of the abstract production
+    mesh. ``skip_body_probe`` is the reference's flag, accepted and
+    ignored (the eager port walks every layer)."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    if not cell_applicable(cfg, shape):
+        return {"arch": arch, "shape": shape_name, "skipped": True,
+                "reason": "full-attention arch at 500k decode (DESIGN §3)"}
+    mesh = Mesh.abstract(*production_mesh_shape(multi_pod=multi_pod))
+    res = run_step(cfg, shape.kind, shape.batch, shape.seq, mesh=mesh,
+                   shape_name=shape_name, rules_overrides=rules_overrides)
+    result = {"arch": arch, "shape": shape_name,
+              "mesh": "2x16x16" if multi_pod else "16x16", **res}
+    if verbose:
+        terms, mem = res["roofline"], res["memory"]
+        print(f"[dryrun] {arch} × {shape_name} × {result['mesh']}: "
+              f"run {res['run_s']:.1f}s, bottleneck={terms['bottleneck']}, "
+              f"t=({terms['t_compute_s']:.2e},{terms['t_memory_s']:.2e},"
+              f"{terms['t_collective_s']:.2e})s "
+              f"frac={terms['roofline_fraction']:.3f}")
+        print(f"  memory: {mem}")
+        print(f"  cost: flops={res['cost']['flops']:.3e}/chip "
+              f"bytes={res['cost']['bytes accessed']:.3e}/chip "
+              f"coll={res['collectives']['total']:.3e}B/chip; launches "
+              f"{res['launches']}")
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--skip-body-probe", action="store_true",
+                    help="accepted and ignored: the eager port walks every "
+                         "layer, so no body probe runs")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    if args.all:
+        cells = [(a, s.name) for a, s in all_cells()]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape (or --all)")
+        cells = [(args.arch, args.shape)]
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    results, failures = [], 0
+    for arch, shape_name in cells:
+        for mp in meshes:
+            try:
+                r = dryrun_cell(arch, shape_name, multi_pod=mp)
+            except Exception as e:  # a failure here is a bug in the system
+                traceback.print_exc()
+                r = {"arch": arch, "shape": shape_name,
+                     "mesh": "2x16x16" if mp else "16x16",
+                     "error": f"{type(e).__name__}: {e}"}
+                failures += 1
+            results.append(r)
+            if args.out:
+                with open(args.out, "a") as f:
+                    f.write(json.dumps(r) + "\n")
+    print(f"[dryrun] {len(results)} cells, {failures} failures")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,12 @@ group, in the same order, as ``dist.new_group`` requires.
 
 Without an initialised process group the world is this one process: a
 mesh of size 1 whose groups are None (no collective is ever issued on it).
+
+:meth:`Mesh.abstract` is one rank's view of a grid with no processes
+behind it: its groups are :class:`AbstractGroup` s, over which
+``distributed/tp.py`` counts a collective of ``meta`` tensors (the dry
+run, ``launch/dryrun.py``) and raises for any other tensor, so no real
+run can take the counting path.
 """
 from __future__ import annotations
 
@@ -19,22 +25,56 @@ import numpy as np
 import torch.distributed as dist
 
 
+class AbstractGroup:
+    """The ranks of one axis line of an abstract mesh: a group with no
+    process group behind it."""
+
+    def __init__(self, ranks: Tuple[int, ...]):
+        self.ranks = ranks
+
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def __repr__(self) -> str:
+        return f"AbstractGroup({self.ranks})"
+
+
 class Mesh:
     """This rank's view of an (axis_names, shape) grid of ranks."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
-        self.axis_names: Tuple[str, ...] = tuple(axis_names)
-        dims = tuple(int(s) for s in shape)
-        if len(dims) != len(self.axis_names):
-            raise ValueError(f"mesh shape {dims} does not name every axis "
-                             f"of {self.axis_names}")
-        self.shape: Dict[str, int] = dict(zip(self.axis_names, dims))
-        self.size = int(np.prod(dims))
+        self._grid(shape, axis_names)
         world = world_size()
         if self.size != world:
-            raise ValueError(f"a mesh of shape {dims} needs {self.size} "
+            raise ValueError(f"a mesh of shape {self.dims} needs {self.size} "
                              f"ranks; the world has {world}")
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self._place(dist.get_rank() if dist.is_initialized() else 0,
+                    abstract=False)
+
+    @classmethod
+    def abstract(cls, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0) -> "Mesh":
+        """Rank ``rank``'s coordinates and groups in a grid of ``shape``,
+        with no process behind it, whatever the world."""
+        mesh = cls.__new__(cls)
+        mesh._grid(shape, axis_names)
+        if not 0 <= rank < mesh.size:
+            raise ValueError(f"rank {rank} outside a mesh of {mesh.size}")
+        mesh._place(rank, abstract=True)
+        return mesh
+
+    def _grid(self, shape: Sequence[int], axis_names: Sequence[str]) -> None:
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.dims = tuple(int(s) for s in shape)
+        if len(self.dims) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.dims} does not name every "
+                             f"axis of {self.axis_names}")
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, self.dims))
+        self.size = int(np.prod(self.dims))
+
+    def _place(self, rank: int, *, abstract: bool) -> None:
+        self.rank, self.is_abstract = rank, abstract
+        dims = self.dims
         grid = np.arange(self.size).reshape(dims)
         self.coords: Dict[str, int] = dict(zip(
             self.axis_names,
@@ -45,9 +85,12 @@ class Mesh:
             lines = np.moveaxis(grid, i, -1).reshape(-1, dims[i])
             for line in lines:
                 ranks = tuple(int(r) for r in line)
-                # every rank takes part in every new_group call
-                g = dist.new_group(list(ranks)) if dist.is_initialized() \
-                    else None
+                if abstract:
+                    g = AbstractGroup(ranks)
+                else:
+                    # every rank takes part in every new_group call
+                    g = dist.new_group(list(ranks)) \
+                        if dist.is_initialized() else None
                 if self.rank in ranks:
                     self.groups[name], self.group_ranks[name] = g, ranks
 
@@ -58,17 +101,28 @@ class Mesh:
         return self.shape.get(axis, 1)
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, rank={self.rank}, coords={self.coords})"
+        kind = "abstract " if self.is_abstract else ""
+        return (f"Mesh({kind}{self.shape}, rank={self.rank}, "
+                f"coords={self.coords})")
 
 
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def production_mesh_shape(*, multi_pod: bool = False):
+    """(shape, axis names) of the production mesh: 16×16 = 256 ranks per
+    pod; multi_pod adds a leading 2-pod axis."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """16×16 = 256 ranks per pod; multi_pod adds a leading 2-pod axis."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """16×16 = 256 ranks per pod; multi_pod adds a leading 2-pod axis.
+    Raises unless the world has that many ranks (the dry run takes
+    ``Mesh.abstract(*production_mesh_shape())`` instead)."""
+    shape, axes = production_mesh_shape(multi_pod=multi_pod)
     need = int(np.prod(shape))
     if world_size() != need:
         raise ValueError(

@@ -1,6 +1,7 @@
 """Abstract inputs for every (arch × shape) cell (``repro/launch/specs.py``):
 tensors on the ``meta`` device — shapes and dtypes, no storage — in place
-of the reference's ``ShapeDtypeStruct``.
+of the reference's ``ShapeDtypeStruct``. Their user is the dry run
+(``launch/dryrun.py``), which runs each cell's step on them.
 
 Modality frontends are stubs, as in the reference: musicgen gets 4-stream
 token ids, internvl2 gets 256 precomputed patch embeddings.

@@ -4,13 +4,20 @@ its meshes (``repro/launch/steps.py``).
 The trees map a config's params, optimizer state, batch and caches to
 specs (``distributed/sharding.py``: a tuple per tensor, the counterpart of
 the reference's ``PartitionSpec``); where the ranks' params part from
-:func:`model_shardings`' tree, its docstring says how. Training here is
-data parallel: each rank of the mesh's ``data`` axis takes its slice of
-the global batch, and the gradients are averaged by one all-reduce over
-the data group before AdamW, so every rank applies the same update to the
-same (whole) params.
-Tensor-parallel training — the reference's FSDP over ``data`` and model
-sharding under GSPMD — is not ported (ROADMAP.md queue 1 item 9b).
+:func:`model_shardings`' tree, its docstring says how.
+
+Training runs over a ``(data, model)`` mesh. Each rank of the ``data``
+axis takes its slice of the global batch, and the gradients are averaged
+by one all-reduce over the data group before AdamW. Along the ``model``
+axis each rank holds its slices of the params (:func:`rank_params`, the
+cut of tensor-parallel serving) and runs the forward and backward
+tensor-parallel (``distributed/tp.py``'s collectives under autograd); the
+clip's global gradient norm sums the sliced leaves over the model group.
+So every rank of a data line applies the same update to the same params,
+and a replicated leaf (a norm) gets the same gradient on every model rank.
+The reference's FSDP over ``data`` (params and optimizer state sharded
+there too) is not ported: they stay replicated over ``data`` (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tp as TP
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import param_axes
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -73,6 +81,38 @@ def all_reduce_mean(tree, group, n: int):
     return tree_map(lambda t: out[id(t)], tree)
 
 
+def tp_context(cfg: ModelConfig, mesh) -> Optional[TP.TPContext]:
+    """The TP context of a mesh whose ``model`` axis spans more than one
+    rank, under the config's own sharding overrides; else None."""
+    if mesh is None or mesh.axis_size("model") == 1:
+        return None
+    return TP.make_context(mesh, overrides=cfg.overrides_dict())
+
+
+def rank_params(cfg: ModelConfig, params, mesh):
+    """This rank's slices of whole ``params`` (or of their ``meta``
+    stand-ins) on ``mesh``'s model axis: ``tp.shard_params``, as the
+    tensor-parallel engine cuts them; the params themselves without a
+    model axis."""
+    ctx = tp_context(cfg, mesh)
+    return TP.shard_params(params, param_axes(cfg), ctx,
+                           units=TP.head_units(cfg))
+
+
+def _tp_grad_norm(grads, shapes, ctx: TP.TPContext) -> torch.Tensor:
+    """The global norm of the whole gradients from a rank's: the squares
+    of the sliced leaves summed over the model group, those of the
+    replicated leaves (the same on every rank) once."""
+    sliced, whole = [], []
+    for g, full in zip(tree_leaves(grads), tree_leaves(shapes)):
+        sq = torch.sum(g.float() ** 2)
+        (whole if tuple(g.shape) == tuple(full.shape) else sliced).append(sq)
+    total = torch.stack(whole).sum() if whole else 0.0
+    if sliced:
+        total = total + TP.all_reduce(torch.stack(sliced).sum(), ctx.group)
+    return torch.sqrt(total)
+
+
 def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                        total_steps: int = 10000, microbatches: int = 1,
                        mesh=None):
@@ -86,15 +126,28 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     gradients and the loss are averaged over the data group (one
     all-reduce, :func:`all_reduce_mean`) before AdamW. For a dense model
     that is the global batch's step; an MoE model's load-balance aux loss
-    is taken per rank's rows. As in the reference, the schedule's warmup
-    is fixed at 100 steps here (a reference caveat, ROADMAP.md), and the
-    multi-microbatch metrics report ``aux`` as 0."""
+    is taken per rank's rows. With a ``model`` axis of m > 1 ranks,
+    ``params`` and ``opt_state`` are this rank's slices
+    (:func:`rank_params`; ``adamw_init`` of them) and the step runs
+    tensor-parallel; int8 gradient compression, whose per-tensor scale a
+    slice cannot reproduce, raises there. As in the reference, the
+    schedule's warmup is fixed at 100 steps here (a reference caveat,
+    ROADMAP.md), and the multi-microbatch metrics report ``aux`` as 0."""
     opt_cfg = opt_cfg or AdamWConfig()
     group = None if mesh is None else mesh.group("data")
     n_data = 1 if mesh is None else mesh.axis_size("data")
+    tpctx = tp_context(cfg, mesh)
+    shapes = None
+    if tpctx is not None:
+        if opt_cfg.compress_grads:
+            raise NotImplementedError(
+                "compress_grads under a model axis: a slice's per-tensor "
+                "int8 scale is not the whole gradient's")
+        shapes = T.init_model(cfg, device="meta")
 
     def grad_of(params, batch):
-        return value_and_grad(lambda p: T.lm_loss(p, cfg, batch), params)
+        with TP.use_tp(tpctx):
+            return value_and_grad(lambda p: T.lm_loss(p, cfg, batch), params)
 
     def train_step(params, opt_state, batch):
         batch = data_shard(batch, mesh)
@@ -121,8 +174,10 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                 (grads, (loss, metrics)), group, n_data)
         lr = cosine_schedule(opt_state["step"], base_lr=opt_cfg.lr,
                              warmup=100, total=total_steps)
+        gnorm = None if tpctx is None else _tp_grad_norm(grads, shapes,
+                                                         tpctx)
         params, opt_state, om, _ = adamw_update(params, grads, opt_state,
-                                                opt_cfg, lr)
+                                                opt_cfg, lr, gnorm=gnorm)
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return train_step

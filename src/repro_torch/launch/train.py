@@ -1,12 +1,16 @@
 """Training launcher of the port (``repro/launch/train.py``), on the GPU by
 default: the optimizer step of ``launch/steps.py`` with auto-resume from
-the latest checkpoint and the straggler watchdog, data parallel over
-``make_host_mesh()``: every rank of the world on the mesh's ``data`` axis,
-as in the reference's CLI. ``--dp N`` starts N local ranks itself (one
-group over gloo; on the card every rank runs on ``cuda:0``); only rank 0
-prints and writes checkpoints. ``--production-mesh`` is not ported: its
-16-wide model axis needs tensor-parallel training (ROADMAP.md queue 1
-item 9b).
+the latest checkpoint and the straggler watchdog, over
+``make_host_mesh(model=--tp)``: the world's ranks on a (data, model) mesh,
+data parallel over ``data`` as in the reference's CLI, tensor parallel
+over ``model`` (each rank holds its slices of the params,
+``steps.rank_params``). ``--dp N --tp M`` starts N x M local ranks itself
+(one group over gloo; on the card every rank runs on ``cuda:0``); only
+rank 0 prints and writes checkpoints, which under ``--tp`` > 1 (ranks
+holding slices) are refused. ``--production-mesh`` takes the reference's
+16 x 16 (data, model) mesh, which needs a world of 256 ranks and raises
+in any other. FSDP over ``data`` is not ported: params and optimizer
+state stay replicated there (ROADMAP.md queue 1).
 
 Attention trains through the ``unfused`` policy (the forward-only kernels
 refuse a gradient). As in the reference, ``--warmup`` does not reach the
@@ -20,6 +24,8 @@ Usage:
       --global-batch 2 --seq-len 32 --log-every 1 --device cpu
   python -m repro_torch.launch.train --arch smollm-135m --smoke --steps 3 \
       --global-batch 4 --seq-len 32 --device cpu --dp 2   # two ranks
+  python -m repro_torch.launch.train --arch qwen3-8b --smoke --steps 3 \
+      --global-batch 4 --seq-len 32 --device cpu --dp 2 --tp 2  # four
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from repro_torch.core.plan import UNFUSED, GemmPolicy
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.distributed.launch import run_cli
 from repro_torch.launch import steps as ST
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import transformer as T
 from repro_torch.obs import Timer
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -60,11 +66,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 mesh (not ported: needs tensor-parallel "
-                         "training)")
+                    help="the 16x16 (data, model) mesh: needs a world of "
+                         "256 ranks, and raises in any other")
     ap.add_argument("--dp", type=int, default=1,
-                    help="start this many local ranks, data parallel over "
-                         "the global batch (gloo)")
+                    help="local ranks data parallel over the global batch "
+                         "(gloo); with --tp, dp x tp ranks are started")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="the model axis: local ranks tensor parallel over "
+                         "the model's heads, d_ff and vocab")
     ap.add_argument("--gemm-backend", default="auto",
                     help="GEMM backend (auto|matrixflow|blockflow|torch)")
     ap.add_argument("--gemm-mode", default="auto",
@@ -73,18 +82,19 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: its 16-wide model axis needs tensor-parallel "
-            "training, which is not ported (ROADMAP.md queue 1 item 9b); "
-            "data-parallel training runs over make_host_mesh() (--dp N)")
-    if args.dp > 1 and not dist.is_initialized():
+    world = args.dp * args.tp
+    if world > 1 and not args.production_mesh and not dist.is_initialized():
         return run_cli("repro_torch.launch.train",
-                       sys.argv[1:] if argv is None else argv, args.dp)
+                       sys.argv[1:] if argv is None else argv, world)
     device = resolve_device(args.device)
-    mesh = make_host_mesh()
+    mesh = make_production_mesh() if args.production_mesh else \
+        make_host_mesh(model=args.tp)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     check_trainable(cfg, device)
+    if args.ckpt_dir and mesh.axis_size("model") > 1:
+        raise NotImplementedError(
+            "--ckpt-dir with a model axis: the ranks hold slices of the "
+            "params, and checkpoints of slices are not ported")
     policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)
     lead = mesh.rank == 0
     print(f"[train] arch={cfg.name} device={device} mesh={mesh.shape} "
@@ -99,7 +109,8 @@ def main(argv=None):
     save = ckpt is not None and lead
 
     with api.use_policy(policy), api.use_attention_policy(UNFUSED):
-        params = T.init_model(cfg, seed=args.seed, device=device)
+        params = ST.rank_params(
+            cfg, T.init_model(cfg, seed=args.seed, device=device), mesh)
         opt_state = adamw_init(params)
         start = 0
         if ckpt and ckpt.latest_step() is not None:

@@ -246,7 +246,8 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     k = TP.conform_heads(k.reshape(B, S, -1, dh), Hkv, shard_kv)
     v = TP.conform_heads(v.reshape(B, S, -1, dh), Hkv, shard_kv)
     if cfg.qk_norm:
-        q, k = rmsnorm(p["q_norm"], q), rmsnorm(p["k_norm"], k)
+        q = rmsnorm(TP.on_slice(p["q_norm"], shard_q), q)
+        k = rmsnorm(TP.on_slice(p["k_norm"], shard_kv), k)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     kv_scales = None
@@ -408,6 +409,8 @@ def init_moe(gen, cfg: ModelConfig, dtype, device):
 
     def bank(d_in, d_out):
         w = torch.empty((E, d_in, d_out), dtype=dtype, device=device)
+        if w.device.type == "meta":        # shapes only: nothing to draw
+            return w
         for e in range(E):
             w[e] = dense_init(gen, d_in, d_out, dtype, device)
         return w

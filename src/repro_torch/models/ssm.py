@@ -79,10 +79,11 @@ def ssd_chunked(x, dt, A, Bc, Cc, chunk: int = 128, final_state: bool = True):
     """Chunked SSD scan. x (B, S, H, P), dt (B, S, H), A (H,), Bc/Cc
     (B, S, N); fp32 internals. Returns (y, the fp32 state (B, H, P, N)
     after the last step, or None when ``final_state`` is False). Under
-    autograd on the CPU the plain scan runs (differentiable); the kernel
-    K6, forward-only like the reference's, refuses a gradient."""
+    autograd on the CPU the plain scan runs (differentiable), and so it
+    does on ``meta``, where the dry run counts its ops; the kernel K6,
+    forward-only like the reference's, refuses a gradient."""
     dt, A = dt.float(), A.float()
-    if x.device.type == "cpu" and needs_grad(x, dt, A, Bc, Cc):
+    if x.device.type in ("cpu", "meta") and needs_grad(x, dt, A, Bc, Cc):
         return ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk,
                               final_state=final_state)
     return ssd_scan(x, dt, A, Bc, Cc, chunk=chunk, final_state=final_state)

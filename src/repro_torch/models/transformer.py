@@ -234,12 +234,15 @@ def forward(params, cfg: ModelConfig, batch, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     gemm, attn = api.current_policy(), api.current_attention_policy()
+    tpctx = TP.current_tp()
 
     def recompute(p, c, cache):
         # the backward pass (and so the recompute) may run on autograd's
-        # device thread, where the thread-local policies are the defaults
+        # device thread, where the thread-local policies and TP context
+        # are the defaults
         def run(x_):
-            with api.use_policy(gemm), api.use_attention_policy(attn):
+            with api.use_policy(gemm), api.use_attention_policy(attn), \
+                    TP.use_tp(tpctx):
                 return _apply_block(p, c, x_, cache=cache, **kw)
         return run
 

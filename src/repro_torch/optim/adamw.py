@@ -79,10 +79,14 @@ def quantize_int8(g: torch.Tensor, err: Optional[torch.Tensor] = None):
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr,
-                 err_state=None):
+                 err_state=None, *, gnorm: Optional[torch.Tensor] = None):
     """One AdamW step. Returns (new_params, new_state, metrics, new_err);
-    nothing is updated in place."""
-    gnorm = _global_norm(grads)
+    nothing is updated in place. ``gnorm`` is the global gradient norm
+    the clip divides by, when the caller computes it (a rank that holds
+    slices of the params: ``launch/steps.py``); default, the norm of
+    ``grads``."""
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
     new_err = err_state

@@ -110,6 +110,78 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
 
 
+def _policy_scope(policy: Optional[GemmPolicy],
+                  attn: Optional[AttentionPolicy],
+                  tpctx: Optional[TP.TPContext]) -> contextlib.ExitStack:
+    stack = contextlib.ExitStack()
+    if policy is not None:
+        stack.enter_context(api.use_policy(policy))
+    if attn is not None:
+        stack.enter_context(api.use_attention_policy(attn))
+    stack.enter_context(TP.use_tp(tpctx))
+    return stack
+
+
+def make_forward_step(cfg: ModelConfig, policy: Optional[GemmPolicy] = None,
+                      attn: Optional[AttentionPolicy] = None,
+                      tpctx: Optional[TP.TPContext] = None):
+    """(params, batch, caches, last_cols) → (logits, caches): the masked
+    forward over the caches that every serving step runs, under these
+    policies and TP context (None pins no TP), the caches written in
+    place. ``last_cols`` (B,) puts only each row's column ``last_cols[b]``
+    through the final norm and the head, (B, 1, vocab); None, every
+    column, (B, S, vocab) (the speculative verify)."""
+    def forward_step(params, batch, caches, last_cols=None):
+        with _policy_scope(policy, attn, tpctx):
+            logits, caches, _ = T.forward(params, cfg, batch, caches=caches,
+                                          last_cols=last_cols)
+        return logits, caches
+    return forward_step
+
+
+def make_prefill_step(cfg: ModelConfig, policy: Optional[GemmPolicy] = None,
+                      attn: Optional[AttentionPolicy] = None,
+                      tpctx: Optional[TP.TPContext] = None):
+    """(params, batch, caches) → (last_logits (B, vocab), caches): the
+    prompt under causal self-attention, the caches written in place. As
+    the engine does, only each row's last real column — ``batch
+    ["last_cols"]`` (B,), default the last column — goes through the
+    final norm and the head. ``batch`` may carry ``block_tables`` for
+    paged caches; ``tpctx`` runs it tensor-parallel."""
+    forward = make_forward_step(cfg, policy, attn, tpctx)
+
+    def prefill_step(params, batch, caches):
+        positions = batch["positions"]
+        last = batch.get("last_cols")
+        if last is None:
+            last = torch.full((positions.shape[0],), positions.shape[1] - 1,
+                              dtype=torch.int64, device=positions.device)
+        logits, caches = forward(
+            params, {k: v for k, v in batch.items() if k != "last_cols"},
+            caches, last)
+        return logits[:, 0], caches
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, policy: Optional[GemmPolicy] = None,
+                     attn: Optional[AttentionPolicy] = None,
+                     tpctx: Optional[TP.TPContext] = None):
+    """(params, tokens (B, 1), positions (B, 1), caches[, block_tables]) →
+    (logits (B, vocab), caches): one decode step, as the engine runs it;
+    ``block_tables`` is None for contiguous caches."""
+    forward = make_forward_step(cfg, policy, attn, tpctx)
+
+    def decode_step(params, tokens, positions, caches, block_tables=None):
+        batch = {"tokens": tokens, "positions": positions}
+        if block_tables is not None:
+            batch["block_tables"] = block_tables
+        last = torch.zeros((tokens.shape[0],), dtype=torch.int64,
+                           device=tokens.device)
+        logits, caches = forward(params, batch, caches, last)
+        return logits[:, 0], caches
+    return decode_step
+
+
 @dataclasses.dataclass
 class ServeConfig:
     batch_slots: int = 8
@@ -265,6 +337,7 @@ class ServingEngine:
         if sc.pack_weights or sc.weight_dtype is not None:
             params = api.pack_model_weights(params, self.gemm)
         self.cfg, self.params, self.sc, self.attn = cfg, params, sc, attn
+        self._step = make_forward_step(cfg, self.gemm, attn, self.tp)
         self.scheduler = sc.scheduler if sc.scheduler is not None \
             else Scheduler()
         if self.ssd and self.scheduler.prefill_chunk:
@@ -380,14 +453,6 @@ class ServingEngine:
         self.spec_rollback_pages = 0
 
     # -- device calls ---------------------------------------------------------
-    def _scope(self):
-        stack = contextlib.ExitStack()
-        if self.gemm is not None:
-            stack.enter_context(api.use_policy(self.gemm))
-        stack.enter_context(api.use_attention_policy(self.attn))
-        stack.enter_context(TP.use_tp(self.tp))
-        return stack
-
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
@@ -414,11 +479,9 @@ class ServingEngine:
         batch = {"tokens": self._dev(tokens), "positions": self._dev(positions)}
         if self.paged:
             batch["block_tables"] = self._dev(self.block_tables)
-        with self._scope():
-            logits, _, _ = T.forward(
-                self.params, self.cfg, batch, caches=self.caches,
-                last_cols=None if last_cols is None else self._dev(last_cols))
-        return logits
+        return self._step(
+            self.params, batch, self.caches,
+            None if last_cols is None else self._dev(last_cols))[0]
 
     def _sample(self, logits: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> np.ndarray:

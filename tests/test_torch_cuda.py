@@ -30,7 +30,10 @@ head dim 192 with v head dim 128 (``-k mla``). Training and mixed dtypes
 K1's batch grid and its autograd Function at smollm-135m's training
 shapes, K3's and K4's fp32-q over bf16-K/V instances (and bf16 q over
 fp32 K/V), an fp32 model's engine over bf16 and int8 caches, and the
-forward-only wrappers refusing a gradient.
+forward-only wrappers refusing a gradient. Tensor-parallel training and
+the dry run (``-k "tp_k1 or meta_launch"``): K1's gradients on a rank's
+column and row slices, and every wrapper's ``meta`` path counting the
+launch a real call counts, kernel by kernel and route by route.
 """
 import numpy as np
 import pytest
@@ -1981,3 +1984,188 @@ def test_paged_attention_at_tp2_rank_heads(cuda, int8, dtype, case):
                                rtol=rtol)
     masked = qpos < 0
     assert not bool(masked.any()) or float(got[masked].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel training: K1 under autograd on a rank's slices; the meta
+# path of every wrapper (the dry run) against a real launch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M,K,N", [(512, 4096, 4096), (512, 4096, 12288)])
+def test_tp_k1_grads_on_column_and_row_slices(cuda, dtype, M, K, N):
+    """K1's autograd Function (its backward is K1: dA = dC·Bᵀ, dB = Aᵀ·dC)
+    on a rank's column slice of W gives the unsharded call's dW columns,
+    and on a rank's row slice of W (with x's matching columns) its dW rows
+    and dx columns, bitwise: an output column or row of K1 does not
+    depend on the rest of the problem. qwen3-8b's q and mlp-in at a
+    1,024-token train batch cut to 512 rows."""
+    from repro_torch.distributed.tp import shard_dim
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    dt = getattr(torch, dtype)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dt)
+    w = (torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5).to(dt)
+    g = torch.randn((M, N), generator=gen, device=cuda).to(dt)
+    policy = api.GemmPolicy(backend="matrixflow")
+
+    def grads(x_, w_, g_):
+        x_ = x_.detach().requires_grad_(True)
+        w_ = w_.detach().requires_grad_(True)
+        (api.matmul(x_, w_, policy=policy).float() * g_.float()).sum() \
+            .backward()
+        return x_.grad, w_.grad
+
+    before = MF.matrixflow_gemm_block_major.backward_launches
+    dx, dw = grads(x, w, g)
+    _, dw_col = grads(x, shard_dim(w, 1, 1, 2), shard_dim(g, 1, 1, 2))
+    dx_row, dw_row = grads(shard_dim(x, 1, 1, 2), shard_dim(w, 0, 1, 2), g)
+    torch.cuda.synchronize()
+    assert MF.matrixflow_gemm_block_major.backward_launches == before + 6
+    assert torch.equal(dw_col, shard_dim(dw, 1, 1, 2))
+    assert torch.equal(dw_row, shard_dim(dw, 0, 1, 2))
+    assert torch.equal(dx_row, shard_dim(dx, 1, 1, 2))
+
+
+def _counts():
+    """The wrappers' launch counters, under the names of
+    ``dryrun.launch_counters``: ``kernel``, ``kernel_route``, and K1's
+    ``_batched`` and ``_backward``."""
+    k1, k2 = MF.matrixflow_gemm_block_major, MF.matrixflow_gemm_dequant
+    fa, pa, k6 = FA.flash_attention, PA.paged_attention, K6.ssd_scan
+    out = {}
+    for name, fn, routes in (
+            ("matrixflow_gemm", k1,
+             ("wgmma", "mma", "cuda_core", "batched", "backward")),
+            ("matrixflow_gemm_dequant", k2, ("wgmma", "mma"))):
+        out[name] = fn.launches
+        out.update({f"{name}_{r}": getattr(fn, f"{r}_launches")
+                    for r in routes})
+    for name, total, by_route in (
+            ("flash_attention", fa.launches, fa.launches_by_route),
+            ("paged_attention", pa.launches, pa.launches_by_route),
+            ("paged_attention_int8", pa.launches_int8,
+             pa.launches_int8_by_route),
+            ("ssd_scan", k6.launches, k6.launches_by_route)):
+        out[name] = total
+        out.update({f"{name}_{r}": n for r, n in by_route.items()})
+    return out
+
+
+def _delta(fn):
+    before = _counts()
+    fn()
+    after = _counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _meta(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.to("meta")
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_meta(t) for t in tree)
+    return tree
+
+
+def _launch_cases(cuda):
+    """(name, kernel call, its arguments): every kernel on every route."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cases = []
+    for dt, bm in ((torch.bfloat16, 64), (torch.bfloat16, 16),
+                   (torch.float32, 16)):
+        a = torch.randn((2, 3, bm, 192), generator=gen, device=cuda).to(dt)
+        b = torch.randn((4, 3, 192, 64), generator=gen, device=cuda).to(dt)
+        cases.append((f"k1 {dt} bm{bm}",
+                      lambda a, b: MF.matrixflow_gemm_block_major(
+                          a, b, out_dtype=a.dtype), (a, b)))
+    a = torch.randn((6, 2, 3, 64, 192), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    b = torch.randn((6, 4, 3, 192, 64), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    cases.append(("k1 batched backward",
+                  lambda a, b: MF.matrixflow_gemm_block_major(
+                      a, b, out_dtype=a.dtype, backward=True), (a, b)))
+    for bm in (64, 16):
+        a8 = torch.randint(-127, 128, (2, 3, bm, 192), generator=gen,
+                           device=cuda, dtype=torch.int8)
+        b8 = torch.randint(-127, 128, (4, 3, 192, 64), generator=gen,
+                           device=cuda, dtype=torch.int8)
+        sa = torch.rand(2 * bm, generator=gen, device=cuda)
+        sb = torch.rand(256, generator=gen, device=cuda)
+        cases.append((f"k2 bm{bm}",
+                      lambda a, b, sa, sb: MF.matrixflow_gemm_dequant(
+                          a, b, sa, sb, out_dtype=torch.bfloat16),
+                      (a8, b8, sa, sb)))
+    for dt, kv, Sq in ((torch.bfloat16, torch.bfloat16, 1),
+                       (torch.bfloat16, torch.bfloat16, 64),
+                       (torch.float32, torch.float32, 64),
+                       (torch.float32, torch.bfloat16, 1)):
+        q = torch.randn((2, Sq, 8, 64), generator=gen, device=cuda).to(dt)
+        k = torch.randn((2, 128, 2, 64), generator=gen, device=cuda).to(kv)
+        cases.append((f"k3 {dt} {kv} Sq{Sq}",
+                      lambda q, k: FA.flash_attention(q, k, k), (q, k)))
+    lens, starts = (40, 90), (39, 89)
+    for int8 in (False, True):
+        for dt, Sq in (("bfloat16", 1), ("bfloat16", 64), ("float32", 1)):
+            q, kp, vp, bt, qpos, kvl = _paged_inputs(
+                cuda, "float32" if int8 else dt, 2, Sq, 8, 2, 64, 16, lens,
+                starts if Sq == 1 else (0, 0), seed=3)
+            if int8:
+                (kp, ks), (vp, vs) = Q.quantize_kv_pages(kp), \
+                    Q.quantize_kv_pages(vp)
+                q = q.to(getattr(torch, dt))
+                cases.append((f"k5 {dt} Sq{Sq}",
+                              lambda q, kp, vp, bt, qp, kl, ks, vs:
+                              PA.paged_attention(q, kp, vp, bt, qp, kl,
+                                                 kv_scales=(ks, vs)),
+                              (q, kp, vp, bt, qpos, kvl, ks, vs)))
+            else:
+                cases.append((f"k4 {dt} Sq{Sq}",
+                              lambda q, kp, vp, bt, qp, kl:
+                              PA.paged_attention(q, kp, vp, bt, qp, kl),
+                              (q, kp, vp, bt, qpos, kvl)))
+    for dt, S in ((torch.bfloat16, 384), (torch.bfloat16, 1000),
+                  (torch.float32, 200)):
+        x = torch.randn((1, S, 4, 64), generator=gen, device=cuda).to(dt)
+        dtv = torch.rand((1, S, 4), generator=gen, device=cuda) * 0.1
+        A = -torch.rand(4, generator=gen, device=cuda)
+        Bc = torch.randn((1, S, 128), generator=gen, device=cuda).to(dt)
+        cases.append((f"k6 {dt} S{S}",
+                      lambda x, d, A, Bc: K6.ssd_scan(x, d, A, Bc, Bc),
+                      (x, dtv, A, Bc)))
+    return cases
+
+
+@pytest.mark.cuda
+def test_meta_launch_counts_equal_real_calls(cuda):
+    """Each wrapper on ``meta`` copies of the inputs records in an active
+    cost ledger the launch, by kernel, route and mark, that the real call
+    on the card counts; moves no launch counter (nothing launches); and
+    returns a ``meta`` result of the real one's shape and dtype."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.roofline import analysis as RA
+    routes = set()
+    for name, fn, args in _launch_cases(cuda):
+        out = []
+        real = _delta(lambda: out.append(fn(*args)))
+        torch.cuda.synchronize()
+        ledger = RA.CostLedger()
+        with RA.use_ledger(ledger):
+            moved = _delta(lambda: out.append(fn(*_meta(args))))
+        assert real and not moved, (name, real, moved)
+        recorded = DR.launch_counters({"launches": ledger.launches,
+                                       "launches_marked": ledger.marked})
+        assert recorded == real, (name, real, recorded)
+        want, got = (o[0] if isinstance(o, tuple) else o for o in out)
+        assert got.device.type == "meta" and got.shape == want.shape \
+            and got.dtype == want.dtype, name
+        routes |= set(real)
+    assert {f"matrixflow_gemm_{r}" for r in ("wgmma", "mma", "cuda_core",
+                                             "batched", "backward")} \
+        | {"matrixflow_gemm_dequant_wgmma", "matrixflow_gemm_dequant_mma"} \
+        | {f"flash_attention_{r}" for r in ("rows", "split", "cuda_cores",
+                                            "cuda_cores_bf16kv")} \
+        | {f"{k}_{r}" for k in ("paged_attention", "paged_attention_int8")
+           for r in ("rows", "split", "cuda_cores")} \
+        | {f"ssd_scan_{r}" for r in ("walk", "chunks", "cuda_cores")} \
+        <= routes

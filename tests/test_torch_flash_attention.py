@@ -165,8 +165,14 @@ def test_fused_rejects_block_tables_and_bad_devices():
                       policy=FUSED)
     with pytest.raises(ValueError, match="multiple"):
         FA.flash_attention(torch.randn(1, 4, 3, 16), q, q)
-    with pytest.raises(ValueError, match="no flash attention kernel"):
-        FA.flash_attention(*(x.to("meta") for x in (q, q, q)))
+    # meta is the dry run's device: a meta result at a head dim the card
+    # takes; q on meta beside CPU keys raises
+    qm = torch.empty((1, 4, 2, 64), dtype=torch.bfloat16, device="meta")
+    out = FA.flash_attention(qm, qm, qm)
+    assert out.device.type == "meta" and out.shape == qm.shape
+    kc = torch.randn((1, 4, 2, 64)).bfloat16()
+    with pytest.raises(ValueError, match="is on"):
+        FA.flash_attention(qm, kc, kc)
     empty = FA.flash_attention(q, q[:, :0], q[:, :0])
     assert empty.shape == q.shape and not empty.any()
 

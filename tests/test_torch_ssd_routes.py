@@ -100,12 +100,25 @@ def test_check_operands_rejects_long_chunk_and_wide_bf16():
 
 
 def test_cpu_wrapper_counts_no_route():
+    """The plain version on the CPU counts nothing; on ``meta`` (the dry
+    run) nothing launches, so no counter moves: the wrapper records the
+    route the card would take in the active cost ledger and returns
+    empty results; a ``meta`` x beside CPU operands raises."""
+    from repro_torch.roofline import analysis as RA
     before = dict(K6.ssd_scan.launches_by_route)
     y, h = K6.ssd_scan(*_operands())
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     assert K6.ssd_scan.launches_by_route == before
-    with pytest.raises(ValueError, match="device"):
-        K6.ssd_scan(*(t.to("meta") for t in _operands()))
+    ledger = RA.CostLedger()
+    with RA.use_ledger(ledger):
+        ym, hm = K6.ssd_scan(*(t.to("meta") for t in _operands()))
+    assert ym.device.type == "meta" and ym.shape == y.shape \
+        and hm.shape == h.shape
+    assert K6.ssd_scan.launches_by_route == before
+    assert ledger.launches == {"ssd_scan": {"walk": 1}}
+    x, *rest = _operands()
+    with pytest.raises(ValueError, match="is on"):
+        K6.ssd_scan(x.to("meta"), *rest)
 
 
 def _tiled_scan(x, dt, A, Bc, Cc, seg_tiles):

@@ -633,7 +633,8 @@ def test_train_cli_cpu_smoke(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.count("[train] step") == 3
     assert CheckpointManager(str(tmp_path)).all_steps() == [2, 3]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the production mesh is 16 x 16: it needs a world of 256 ranks
+    with pytest.raises(ValueError, match="256 ranks"):
         from repro_torch.launch import train as LT
         LT.main(["--arch", "smollm-135m", "--smoke", "--production-mesh",
                  "--device", "cpu"])

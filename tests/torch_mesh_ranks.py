@@ -398,3 +398,84 @@ def pipeline_rank(rank, world, ws, x):
     (out ** 2).sum().backward()
     return {"out": out.detach().numpy(), "grad": mine.grad.numpy(),
             "collectives": TP.collectives.snapshot()}
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel training: TP=2 and DP=2 x TP=2 on one (data 2, model 2)
+# mesh of four ranks
+# ---------------------------------------------------------------------------
+
+def _norm_leaves(tree, path=()):
+    """(path, leaf) of every norm parameter: replicated over the model
+    axis, so every model rank must get the same gradient of it."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _norm_leaves(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _norm_leaves(v, path + (i,))]
+    return [(path, tree)] if any("norm" in str(k) for k in path) else []
+
+
+def tp_train_rank(rank, world, params_np, batches):
+    """One make_train_step_fn step (lr :data:`DP_LR`) from the whole
+    ``params_np`` cut to this rank's slices, per named global batch, on
+    the (data 2, model 2) mesh; and the gradients of the norm leaves on
+    the last batch (this rank's data rows). A batch whose two halves are
+    equal gives both data rows the same rows, so their averaged gradient
+    is exactly each TP=2 pair's own: that batch runs TP=2 alone."""
+    from repro_torch.core.plan import UNFUSED
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    cfg = tp_config()
+    mesh = make_host_mesh(model=2)
+    whole = from_jax_params(params_np, cfg)
+    out = {"coords": dict(mesh.coords)}
+    for name, batch in batches.items():
+        TP.collectives.reset()
+        out[name] = dict(zip(("loss", "grad_norm", "params"), dp_step(
+            cfg, ST.rank_params(cfg, whole, mesh), batch, mesh)),
+            collectives=TP.collectives.snapshot())
+    params = ST.rank_params(cfg, whole, mesh)
+    rows = ST.data_shard({k: torch.from_numpy(v) for k, v in batch.items()},
+                         mesh)
+    with TP.use_tp(ST.tp_context(cfg, mesh)), \
+            api.use_policy(GemmPolicy(backend="matrixflow")), \
+            api.use_attention_policy(UNFUSED):
+        _, grads = ST.value_and_grad(lambda p: T.lm_loss(p, cfg, rows),
+                                     params)
+    out["norm_grads"] = {"/".join(map(str, k)): g.numpy()
+                         for k, g in _norm_leaves(grads)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The dry run's collectives against a real TP=2 decode step
+# ---------------------------------------------------------------------------
+
+def tp_dryrun_config():
+    """:func:`tp_config` at head_dim 64, a head dim the card's attention
+    kernels take (the dry run checks the card's geometry on ``meta``)."""
+    return get_smoke_config("qwen3-8b", n_layers=2, vocab=64,
+                            sharding_overrides=(), dtype="float32",
+                            d_head=64)
+
+
+def tp_decode_rank(rank, world, rows, max_len):
+    """One decode step at TP=2 on the CPU from this rank's slices and
+    contiguous caches of its KV heads: the collectives it issued."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import make_decode_step
+    cfg = tp_dryrun_config()
+    mesh = make_host_mesh(model=2)
+    ctx = ST.tp_context(cfg, mesh)
+    params = ST.rank_params(cfg, T.init_model(cfg, seed=0, device="cpu"),
+                            mesh)
+    caches = T.init_caches(cfg, rows, max_len, cfg.param_dtype, "cpu",
+                           tpctx=ctx)
+    tok = torch.zeros((rows, 1), dtype=torch.int32)
+    TP.collectives.reset()
+    with torch.no_grad():
+        make_decode_step(cfg, tpctx=ctx)(params, tok, tok, caches)
+    return TP.collectives.snapshot()
