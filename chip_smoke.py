@@ -186,17 +186,30 @@ CUDA toolkit. Phases, each fatal on failure:
 23. multi-device — qwen3-8b at full width, 2 of 36 layers, its sharding
              overrides cleared, two ranks on the card over gloo: TP=2
              serving against the one-device engine, a DP=2 smollm-135m
-             step, a 2-stage pipeline (``--tp`` runs it alone).
+             step (FSDP: each rank its cut of the params and moments), a
+             2-stage pipeline (``--tp`` runs it alone).
 24. tensor-parallel training — the same qwen3-8b, one fp32 AdamW step of
-             B 4 x 128 tokens on one device, its state freed, then on two
+             B 4 x 128 tokens on one device, its state freed but the new
+             params and first moment (kept for phase 26), then on two
              ranks at TP=2 (each holding its slices of the same seeded
-             weights): each rank's loss within 1e-6 relative of the
-             one-device loss, its param slices within the reference's fp32
-             TOLS of the one-device params' slices; K1 on the CUDA cores,
-             forward and backward, printed per rank by route, and the
-             collectives of a step by kind and bytes; then one bf16 step a
-             rank timed after a warm-up (K1 on wgmma). (``--tp-train``
-             runs it alone.)
+             weights, the loss vocab-parallel): each rank's loss within
+             1e-6 relative of the one-device loss, its param slices within
+             the reference's fp32 TOLS of the one-device params' slices;
+             K1 on the CUDA cores, forward and backward, printed per rank
+             by route, and the collectives of a step by kind and bytes;
+             then one bf16 step a rank timed after a warm-up (K1 on
+             wgmma). (``--tp-train`` runs it alone.)
+26. FSDP — the same qwen3-8b step on two ranks at DP=2 with FSDP over
+             data (each rank its cut of every leaf's d_model dim, gathered
+             where it is used, the gradients reduce-scattered), then on
+             the 2 x 2 (data, model) mesh, four ranks: each rank held to
+             the one-device fp32 step as in phase 24; its param and moment
+             bytes beside the one-device state's; its all-gathers and
+             reduce-scatters equal to their closed form (each cut leaf
+             gathered in the forward, a layer's again in remat's
+             recompute, reduce-scattered once), and every collective equal
+             to the dry run's of the same cell on ``Mesh.abstract``; on
+             DP=2 one bf16 step a rank timed. (``--fsdp`` runs it alone.)
 25. roofline — the dry run (``repro_torch.launch.dryrun``) on meta tensors
              at the shapes of three runs measured above: smollm-135m's
              paged decode step at 8 live slots (phase 3), bert-base's
@@ -3477,12 +3490,16 @@ def tp_rank_config():
 
 def tp_params(cfg, mesh):
     """Seeded weights drawn on the card (the same on every process), cut
-    to this rank's slices on a mesh: each rank then holds 1/TP_WORLD of
-    every model-sharded weight."""
+    to this rank's share on a mesh (``steps.rank_params``: its slices over
+    model, its cut over data)."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
     params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
-    return ST.rank_params(cfg, params, mesh)
+    held = ST.rank_params(cfg, params, mesh)
+    if held is not params:
+        del params
+        torch.cuda.empty_cache()     # the whole draw: ranks share the card
+    return held
 
 
 def tp_engine(cfg, params, mesh, **kw):
@@ -3659,8 +3676,10 @@ def tp_serving_run(mesh):
 def dp_train_run(mesh):
     """One data-parallel train step of smollm-135m at full width in fp32
     (TRAIN_FP32_LAYERS layers, TF32 off): B TRAIN_BATCH x TRAIN_SEQ split
-    over the mesh's data axis, the gradients averaged by one all-reduce,
-    against the one-rank step on the whole batch in the same process."""
+    over the mesh's data axis, each rank holding its FSDP cut of the
+    params and moments (``steps.rank_params``), against the one-rank step
+    on the whole batch in the same process; the ranks' params gathered
+    whole after the step."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import api
     from repro_torch.core.plan import UNFUSED, GemmPolicy
@@ -3681,13 +3700,15 @@ def dp_train_run(mesh):
     for name, m in (("dp", mesh), ("one", None)):
         step = ST.make_train_step_fn(cfg, AdamWConfig(lr=TP_DP_LR),
                                      total_steps=10, mesh=m)
+        held = ST.rank_params(cfg, params, m)
         reset_counts()
         TP.collectives.reset()
         with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
-            p, _, met = step(params, adamw_init(params), batch)
+            p, _, met = step(held, adamw_init(held), batch)
         torch.cuda.synchronize()
+        launches, coll = counts(), TP.collectives.snapshot()
         runs[name] = (float(met["loss"]), float(met["grad_norm"]),
-                      tree_leaves(p), counts(), TP.collectives.snapshot())
+                      tree_leaves(ST.full_params(cfg, p, m)), launches, coll)
     (ld, nd, pd, cd, coll), (lo, no, po, _, _) = runs["dp"], runs["one"]
     moved = max(float((a - b).abs().max())
                 for a, b in zip(po, tree_leaves(params)))
@@ -3695,7 +3716,8 @@ def dp_train_run(mesh):
             "grad_norm_one": no,
             "param_max_abs_diff": max(float((a - b).abs().max())
                                       for a, b in zip(pd, po)),
-            "one_step_max_abs": moved, "launches": cd, "collectives": coll}
+            "one_step_max_abs": moved, "launches": cd, "collectives": coll,
+            "fsdp_closed_form": fsdp_closed_form(cfg, mesh)}
 
 
 def pipeline_run(mesh):
@@ -3967,8 +3989,13 @@ def run_tp_phase():
         check_counts(f"dp rank {r} train step", tr["launches"],
                      ("matrixflow_gemm", "matrixflow_gemm_backward",
                       "matrixflow_gemm_batched"), allowed=CUDA_CORE_COUNTERS)
-        if tr["collectives"]["calls"]["all_reduce"] != 1:
-            fail(f"dp rank {r}: {tr['collectives']} (one all-reduce a step)")
+        want = dict(all_reduce=2, broadcast=0,
+                    **tr["fsdp_closed_form"]["calls"])
+        if tr["collectives"]["calls"] != want:
+            fail(f"dp rank {r}: collectives {tr['collectives']['calls']}, "
+                 f"not {want} (the FSDP gathers and reduce-scatters, one "
+                 f"all-reduce of the whole leaves and metrics, one of the "
+                 f"norm)")
         if not (pp["fwd_max_abs_diff"] <= 1e-5
                 and pp["bwd_max_abs_diff"] <= 1e-4 * max(
                     1.0, pp["grad_max_abs"])):
@@ -4065,29 +4092,23 @@ def k1_by_direction(c):
             "batched": c["matrixflow_gemm_batched"]}
 
 
-def tp_train_rank(rank, world, root, ref_params, ref_mu):
-    """One rank of phase 24 on cuda:0: the fp32 step on its slices of the
-    seeded weights, held leaf by leaf against the one-device step's
-    params (``ref_params``, cut the same way: within GEMM_TOLS["float32"]
-    wherever the one-device update is settled, TP_TRAIN_SETTLED) and
-    first moment (``ref_mu``: the worst leaf's relative distance), then
-    a bf16 step timed after one warm-up step. ``ref_params`` and
-    ``ref_mu`` are the parent's tensors on the card, shared with this
-    process through CUDA IPC: read, never written."""
-    sys.path.insert(0, str(Path(root) / "src"))
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None):
+    """A rank's fp32 step (``out``: tp_train_step's, from its cut
+    ``init``) held leaf by leaf against the one-device step's params
+    (``ref_params``, cut to the rank's share by ``steps.rank_params``:
+    within GEMM_TOLS["float32"] wherever the one-device update is
+    settled, TP_TRAIN_SETTLED) and, given ``ref_mu``, first moment (the
+    worst leaf's relative distance). Every element of the model is some
+    rank's, so the ranks together hold every param to the one-device
+    step's."""
     from repro_torch.launch import steps as ST
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import AdamWConfig, cosine_schedule
     from repro_torch.optim.adamw import tree_leaves
 
-    mesh = make_host_mesh(model=world)
-    cfg = tp_config("float32")
-    init = tp_params(cfg, mesh)
-    out = tp_train_step(cfg, init, mesh)
     atol, rtol = GEMM_TOLS["float32"]
+    mu = out.pop("mu")
+    if ref_mu is None:
+        del mu
     ref = ST.rank_params(cfg, ref_params, mesh)
     lr = float(cosine_schedule(torch.zeros((), dtype=torch.int32),
                                base_lr=TP_TRAIN_LR, warmup=100, total=10))
@@ -4109,17 +4130,83 @@ def tp_train_rank(rank, world, root, ref_params, ref_mu):
         moved = max(moved, float((want - was).abs().max()))
         n += got.numel()
     del ref
-    mu_ref = ST.rank_params(cfg, ref_mu, mesh)
-    grad_rel = 0.0
-    for got, want in zip(tree_leaves(out.pop("mu")), tree_leaves(mu_ref)):
-        grad_rel = max(grad_rel, float(torch.linalg.vector_norm(got - want)
-                                       / torch.linalg.vector_norm(want)))
-    out.update(grad_leaf_max_rel_diff=grad_rel, param_max_abs_diff=worst,
-               settled_param_max_abs_diff=worst_settled,
-               params_outside_tol=bad, unsettled_outside_tol=unsettled,
-               param_count=n, one_device_step_max_abs=moved,
-               k1=k1_by_direction(out["launches"]))
-    del init, mu_ref, ref_params, ref_mu
+    grad_rel = None
+    if ref_mu is not None:
+        grad_rel = 0.0
+        for got, want in zip(tree_leaves(mu),
+                             tree_leaves(ST.rank_params(cfg, ref_mu, mesh))):
+            grad_rel = max(grad_rel, float(
+                torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want)))
+    return dict(grad_leaf_max_rel_diff=grad_rel, param_max_abs_diff=worst,
+                settled_param_max_abs_diff=worst_settled,
+                params_outside_tol=bad, unsettled_outside_tol=unsettled,
+                param_count=n, one_device_step_max_abs=moved)
+
+
+def check_adamw_gate(tag, f, one):
+    """Phase 24's and 26's gates on a rank's fp32 step ``f`` against the
+    one-device step ``one``."""
+    rel = abs(f["loss"] - one["loss"]) / abs(one["loss"])
+    if not rel <= TP_TRAIN_LOSS_RTOL:
+        fail(f"{tag}: fp32 loss {f['loss']} vs one device {one['loss']} "
+             f"(relative {rel:.2e} > {TP_TRAIN_LOSS_RTOL})")
+    atol, rtol = GEMM_TOLS["float32"]
+    if not abs(f["grad_norm"] - one["grad_norm"]) <= \
+            atol + rtol * abs(one["grad_norm"]):
+        fail(f"{tag}: fp32 grad norm {f['grad_norm']} vs one device "
+             f"{one['grad_norm']} (outside GEMM_TOLS['float32'])")
+    if f["grad_leaf_max_rel_diff"] is not None and \
+            not f["grad_leaf_max_rel_diff"] <= TP_TRAIN_GRAD_RTOL:
+        fail(f"{tag}: a gradient leaf (AdamW's first moment) "
+             f"{f['grad_leaf_max_rel_diff']:.3e} of its norm from the "
+             f"one-device step's (> {TP_TRAIN_GRAD_RTOL})")
+    if f["params_outside_tol"] or f["unsettled_outside_tol"] > \
+            TP_TRAIN_UNSETTLED * f["param_count"]:
+        fail(f"{tag}: {f['params_outside_tol']} params whose update is "
+             f"settled by the gradient's sign, and "
+             f"{f['unsettled_outside_tol']} others, of {f['param_count']} "
+             f"outside GEMM_TOLS['float32'] of the one-device step's (max "
+             f"|d| {f['param_max_abs_diff']:.3e})")
+    if f["one_device_step_max_abs"] <= 3 * GEMM_TOLS["float32"][0]:
+        fail(f"{tag}: the update moves no weight by more than "
+             f"{f['one_device_step_max_abs']:.3e}")
+    check_counts(f"{tag} fp32 step", f["launches"],
+                 ("matrixflow_gemm", "matrixflow_gemm_cuda_core",
+                  "matrixflow_gemm_backward", "matrixflow_gemm_batched"),
+                 allowed=CUDA_CORE_COUNTERS)
+    if any(f["launches"][k] for k in FORWARD_ONLY):
+        fail(f"{tag}: a forward-only kernel launched "
+             f"({ {k: f['launches'][k] for k in FORWARD_ONLY} })")
+    if f["collectives"]["calls"]["broadcast"]:
+        fail(f"{tag}: a broadcast in the step")
+
+
+def tp_train_rank(rank, world, root, ref_params, ref_mu):
+    """One rank of phase 24 on cuda:0: the fp32 step on its slices of the
+    seeded weights, held to the one-device step (:func:`adamw_gate`), its
+    loss vocab-parallel; then a bf16 step timed after one warm-up step.
+    ``ref_params`` and ``ref_mu`` are the parent's tensors on the card,
+    shared with this process through CUDA IPC: read, never written."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+
+    mesh = make_host_mesh(model=world)
+    cfg = tp_config("float32")
+    with TP.use_tp(ST.tp_context(cfg, mesh)):
+        vocab_parallel = T.vocab_parallel(cfg)
+    init = tp_params(cfg, mesh)
+    out = tp_train_step(cfg, init, mesh)
+    out.update(adamw_gate(cfg, mesh, out, init, ref_params, ref_mu),
+               k1=k1_by_direction(out["launches"]),
+               vocab_parallel=vocab_parallel)
+    del init, ref_params, ref_mu
     gc.collect()
     torch.cuda.empty_cache()
     cfg16 = tp_config("bfloat16")
@@ -4132,92 +4219,91 @@ def tp_train_rank(rank, world, root, ref_params, ref_mu):
     return {"fp32": out, "bf16": bf16}
 
 
+_ONE_DEVICE = {}
+
+
+def one_device_train_steps():
+    """Phases 24's and 26's one-device steps (this process), run once for
+    both: the fp32 step (of its params, gradients and moments, ~26 GB,
+    only the new params and the first moment stay on the card, shared
+    with the ranks through CUDA IPC) and a bf16 step timed after a
+    warm-up."""
+    if not _ONE_DEVICE:
+        from repro_torch.optim.adamw import tree_leaves
+        t0 = time.perf_counter()
+        cfg = tp_config("float32")
+        params = tp_params(cfg, None)
+        one = tp_train_step(cfg, params, None)
+        del params
+        ref_params, ref_mu = one.pop("params"), one.pop("mu")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg16 = tp_config("bfloat16")
+        p16 = tp_params(cfg16, None)
+        tp_train_step(cfg16, p16, None)                    # warm-up
+        one16 = tp_train_step(cfg16, p16, None)
+        one16.pop("params")
+        one16.pop("mu")
+        del p16
+        gc.collect()
+        torch.cuda.empty_cache()
+        # fp32 params and AdamW's two fp32 moments
+        state = 3 * sum(t.numel() * t.element_size()
+                        for t in tree_leaves(ref_params))
+        _ONE_DEVICE.update(fp32=one, bf16=one16, ref_params=ref_params,
+                           ref_mu=ref_mu, state_bytes=state,
+                           seconds=time.perf_counter() - t0)
+    return _ONE_DEVICE
+
+
+def release_one_device_train_steps() -> None:
+    _ONE_DEVICE.clear()
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
 def run_tp_train_phase():
-    """Phase 24. The one-device fp32 step first (this process: of its
-    params, gradients and moments, ~26 GB, only the new params and the
-    first moment stay on the card, shared with the ranks), then
-    TP_WORLD ranks on the card: each rank's loss within TP_TRAIN_LOSS_RTOL
-    of the one-device loss, its gradient norm within GEMM_TOLS["float32"]
-    of the one-device norm, its first moment's leaves within
-    TP_TRAIN_GRAD_RTOL and its param slices within GEMM_TOLS["float32"]
-    of the one-device step's same slices; K1 on the CUDA
-    cores forward and backward, nothing else launched; then a bf16 step
-    on each rank timed, K1 on wgmma."""
+    """Phase 24. The one-device steps first (:func:`one_device_train_steps`,
+    kept for phase 26), then TP_WORLD ranks on the card, each held to the
+    one-device fp32 step (:func:`check_adamw_gate`: loss within
+    TP_TRAIN_LOSS_RTOL, grad norm within GEMM_TOLS["float32"], first
+    moment's leaves within TP_TRAIN_GRAD_RTOL, param slices within
+    GEMM_TOLS["float32"]), the loss vocab-parallel; K1 on the CUDA cores
+    forward and backward, nothing else launched; then a bf16 step on each
+    rank timed, K1 on wgmma."""
     import tempfile
 
     from repro_torch.distributed.launch import spawn
 
     t0 = time.perf_counter()
-    cfg = tp_config("float32")
-    params = tp_params(cfg, None)
-    one = tp_train_step(cfg, params, None)
-    ref_params, ref_mu = one.pop("params"), one.pop("mu")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg16 = tp_config("bfloat16")
-    p16 = tp_params(cfg16, None)
-    tp_train_step(cfg16, p16, None)                    # warm-up
-    one16 = tp_train_step(cfg16, p16, None)
-    one16.pop("params")
-    one16.pop("mu")
-    del p16
-    gc.collect()
-    torch.cuda.empty_cache()
+    od = one_device_train_steps()
+    one, one16 = od["fp32"], od["bf16"]
     t_one = time.perf_counter() - t0
-    log(f"tp-train: the one-device steps took {t_one:.1f} s (fp32 loss "
-        f"{one['loss']:.6f}); starting {TP_WORLD} ranks")
+    log(f"tp-train: the one-device steps took {od['seconds']:.1f} s (fp32 "
+        f"loss {one['loss']:.6f}); starting {TP_WORLD} ranks")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tpt_") as work:
         ranks = spawn(tp_train_rank, TP_WORLD,
-                      (str(ROOT), ref_params, ref_mu), workdir=work,
-                      timeout_s=TP_RANKS_TIMEOUT_S,
+                      (str(ROOT), od["ref_params"], od["ref_mu"]),
+                      workdir=work, timeout_s=TP_RANKS_TIMEOUT_S,
                       collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
-    del ref_params, ref_mu
     gc.collect()
     torch.cuda.ipc_collect()
-    torch.cuda.empty_cache()
     t_ranks = time.perf_counter() - t0 - t_one
     for r, rk in enumerate(ranks):
-        f = rk["fp32"]
-        rel = abs(f["loss"] - one["loss"]) / abs(one["loss"])
-        if not rel <= TP_TRAIN_LOSS_RTOL:
-            fail(f"tp-train rank {r}: fp32 loss {f['loss']} vs one device "
-                 f"{one['loss']} (relative {rel:.2e} > {TP_TRAIN_LOSS_RTOL})")
-        atol, rtol = GEMM_TOLS["float32"]
-        if not abs(f["grad_norm"] - one["grad_norm"]) <= \
-                atol + rtol * abs(one["grad_norm"]):
-            fail(f"tp-train rank {r}: fp32 grad norm {f['grad_norm']} vs "
-                 f"one device {one['grad_norm']} (outside "
-                 f"GEMM_TOLS['float32'])")
-        if not f["grad_leaf_max_rel_diff"] <= TP_TRAIN_GRAD_RTOL:
-            fail(f"tp-train rank {r}: a gradient leaf (AdamW's first "
-                 f"moment) {f['grad_leaf_max_rel_diff']:.3e} of its norm "
-                 f"from the one-device step's (> {TP_TRAIN_GRAD_RTOL})")
-        if f["params_outside_tol"] or f["unsettled_outside_tol"] > \
-                TP_TRAIN_UNSETTLED * f["param_count"]:
-            fail(f"tp-train rank {r}: {f['params_outside_tol']} params "
-                 f"whose update is settled by the gradient's sign, and "
-                 f"{f['unsettled_outside_tol']} others, of "
-                 f"{f['param_count']} outside GEMM_TOLS['float32'] of the "
-                 f"one-device step's (max |d| {f['param_max_abs_diff']:.3e})")
-        if f["one_device_step_max_abs"] <= 3 * GEMM_TOLS["float32"][0]:
-            fail(f"tp-train: the update moves no weight by more than "
-                 f"{f['one_device_step_max_abs']:.3e}")
-        check_counts(f"tp-train rank {r} fp32 step", f["launches"],
-                     ("matrixflow_gemm", "matrixflow_gemm_cuda_core",
-                      "matrixflow_gemm_backward", "matrixflow_gemm_batched"),
-                     allowed=CUDA_CORE_COUNTERS)
+        if not rk["fp32"]["vocab_parallel"]:
+            fail(f"tp-train rank {r}: the loss is not vocab-parallel")
+        check_adamw_gate(f"tp-train rank {r}", rk["fp32"], one)
         check_counts(f"tp-train rank {r} bf16 step", rk["bf16"]["launches"],
                      K1_TRAIN)
-        for what in ("fp32", "bf16"):
-            c = rk[what]["launches"]
-            if any(c[k] for k in FORWARD_ONLY):
-                fail(f"tp-train rank {r}: a forward-only kernel launched "
-                     f"({ {k: c[k] for k in FORWARD_ONLY} })")
-            if rk[what]["collectives"]["calls"]["broadcast"]:
-                fail(f"tp-train rank {r}: a broadcast in the step")
+        c = rk["bf16"]["launches"]
+        if any(c[k] for k in FORWARD_ONLY):
+            fail(f"tp-train rank {r}: a forward-only kernel launched "
+                 f"({ {k: c[k] for k in FORWARD_ONLY} })")
+        if rk["bf16"]["collectives"]["calls"]["broadcast"]:
+            fail(f"tp-train rank {r}: a broadcast in the step")
     r0 = ranks[0]
-    res = {"seconds_one_device": t_one, "seconds_ranks": t_ranks,
+    res = {"seconds_one_device": od["seconds"], "seconds_ranks": t_ranks,
            "batch": [TP_TRAIN_BATCH, TP_TRAIN_SEQ],
            "one_device": {"fp32": one, "bf16": one16}, "ranks": ranks,
            "fp32_loss_rel_diff": [abs(rk["fp32"]["loss"] - one["loss"])
@@ -4234,21 +4320,207 @@ def run_tp_train_phase():
                rk["fp32"]["unsettled_outside_tol"] for rk in ranks],
            "bf16_step_ms_one_device": one16["wall_ms"],
            "bf16_step_ms_ranks": [rk["bf16"]["wall_ms"] for rk in ranks],
-           "collectives_per_step": r0["bf16"]["collectives"]}
+           "collectives_per_step": {"fp32": r0["fp32"]["collectives"],
+                                    "bf16": r0["bf16"]["collectives"]}}
     log(f"tp-train {TP_ARCH} ({TP_LAYERS} layers, full width, B "
-        f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}) at tp{TP_WORLD}: fp32 loss "
-        f"rel |d| {res['fp32_loss_rel_diff']}, grad norm (one device, "
-        f"ranks) {res['fp32_grad_norm']}, worst gradient leaf rel |d| "
-        f"{res['fp32_grad_leaf_max_rel_diff']}, params max |d| "
+        f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}) at tp{TP_WORLD}, vocab-parallel "
+        f"loss: fp32 loss rel |d| {res['fp32_loss_rel_diff']}, grad norm "
+        f"(one device, ranks) {res['fp32_grad_norm']}, worst gradient leaf "
+        f"rel |d| {res['fp32_grad_leaf_max_rel_diff']}, params max |d| "
         f"{res['fp32_param_max_abs_diff']} of the one-device step's "
         f"({res['fp32_settled_param_max_abs_diff']} where the update is "
         f"settled; {res['fp32_unsettled_outside_tol']} unsettled elements "
         f"outside TOLS); K1 a "
         f"rank, fp32 {r0['fp32']['k1']}, bf16 {r0['bf16']['k1']}; "
-        f"collectives a step {r0['bf16']['collectives']}; bf16 step "
+        f"collectives a step, fp32 {r0['fp32']['collectives']}, bf16 "
+        f"{r0['bf16']['collectives']}; bf16 step "
         f"{res['bf16_step_ms_ranks']} ms a rank vs {one16['wall_ms']:.1f} ms "
         f"on one device; phase {t_one:.1f} s one device + {t_ranks:.1f} s "
         f"ranks")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 26: FSDP over data on the card
+# ---------------------------------------------------------------------------
+
+FSDP_DATA = 2                  # data ranks; the 2 x 2 mesh adds 2 model ranks
+
+
+def fsdp_closed_form(cfg, mesh):
+    """The all-gathers and reduce-scatters of one FSDP train step of
+    ``cfg`` (dense, no hybrid) at ``mesh``'s rank: every leaf the data
+    axis cuts gathered where the model uses it — a layer's again in
+    remat's recompute — and its gradient reduce-scattered once; calls and
+    bytes as ``tp.collectives`` counts them (the gathered leaf, the rank's
+    cut)."""
+    from repro_torch.distributed import fsdp as FSDP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+
+    held = ST.rank_params(cfg, T.init_model(cfg, device="meta"), mesh)
+    ctx = FSDP.make_context(cfg, mesh)
+    out = {"calls": {"all_gather": 0, "reduce_scatter": 0},
+           "bytes": {"all_gather": 0, "reduce_scatter": 0}}
+    if ctx is None:
+        return out
+    keys = [k for k in sorted(held) for _ in tree_leaves(held[k])]
+    for key, (t, cut) in zip(keys, FSDP.leaves_with_cuts(held, ctx)):
+        if cut is None:
+            continue
+        gathers = 2 if (key == "layers" or key.startswith("dense_layer")) \
+            and cfg.remat else 1
+        nbytes = t.numel() * t.element_size()
+        out["calls"]["all_gather"] += gathers
+        out["bytes"]["all_gather"] += gathers * nbytes * ctx.size
+        out["calls"]["reduce_scatter"] += 1
+        out["bytes"]["reduce_scatter"] += nbytes
+    return out
+
+
+def fsdp_rank(rank, world, root, ref_params, model):
+    """One rank of phase 26 on cuda:0, on the (FSDP_DATA, ``model``) mesh:
+    the fp32 step from its share of the seeded weights (its cut over data,
+    its slices over model), held to the one-device step
+    (:func:`adamw_gate`: loss, grad norm and params; the first moment, phase
+    24's, is not kept for this phase: two ranks' states and the card's
+    copy of the one-device moment do not fit beside each other); the bytes
+    of the params and moments it held, the collectives' closed form at
+    its coordinates; on the DP mesh, then one bf16 step timed.
+    ``ref_params`` comes through CUDA IPC: read, never written."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import tree_leaves
+
+    mesh = make_host_mesh(model=model)
+    cfg = tp_config("float32")
+    init = tp_params(cfg, mesh)
+    held = 3 * sum(t.numel() * t.element_size() for t in tree_leaves(init))
+    torch.cuda.reset_peak_memory_stats()
+    out = tp_train_step(cfg, init, mesh)
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out.update(adamw_gate(cfg, mesh, out, init, ref_params),
+               k1=k1_by_direction(out["launches"]), state_bytes=held,
+               closed_form=fsdp_closed_form(cfg, mesh),
+               coords=dict(mesh.coords))
+    del init, ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"fp32": out}
+    if model == 1:               # one step: the fp32 step warmed the ranks
+        cfg16 = tp_config("bfloat16")
+        p16 = tp_params(cfg16, mesh)
+        bf16 = tp_train_step(cfg16, p16, mesh)
+        bf16.pop("params")
+        bf16.pop("mu")
+        bf16["k1"] = k1_by_direction(bf16["launches"])
+        res["bf16"] = bf16
+    return res
+
+
+def run_fsdp_phase():
+    """Phase 26. Phase 24's one-device steps (run here if phase 24 did not
+    run; its first moment is freed here), then the same qwen3-8b step on
+    FSDP_DATA ranks (DP with FSDP) and on the FSDP_DATA x 2 mesh (FSDP and
+    TP=2), every rank on the card: each held to the one-device fp32 step
+    as phase 24 holds its ranks but for the moment
+    (:func:`check_adamw_gate`); a rank's param and moment bytes stated
+    beside the one-device state's; its all-gathers and reduce-scatters
+    equal to their closed form, and every collective (kinds, calls,
+    bytes) equal to the dry run's of the same cell on ``Mesh.abstract``
+    at the rank's coordinates; on the DP mesh a bf16 step a rank timed,
+    K1 on wgmma."""
+    import tempfile
+
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    od = one_device_train_steps()
+    one = od["fp32"]
+    od.pop("ref_mu", None)             # phase 24's alone: the card's room
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"one_device_state_bytes": od["state_bytes"],
+           "batch": [TP_TRAIN_BATCH, TP_TRAIN_SEQ]}
+    cfg = tp_config("float32")
+    for model in (1, 2):
+        name = f"dp{FSDP_DATA}" + ("" if model == 1 else f"_tp{model}")
+        world = FSDP_DATA * model
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as work:
+            ranks = spawn(fsdp_rank, world,
+                          (str(ROOT), od["ref_params"], model),
+                          workdir=work, timeout_s=TP_RANKS_TIMEOUT_S,
+                          collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+        gc.collect()
+        torch.cuda.ipc_collect()
+        t_ranks = time.perf_counter() - t1
+        dry = []
+        for r, rk in enumerate(ranks):
+            f = rk["fp32"]
+            tag = f"fsdp {name} rank {r}"
+            check_adamw_gate(tag, f, one)
+            got = f["collectives"]
+            want = f["closed_form"]
+            if {k: got["calls"][k] for k in want["calls"]} != \
+                    want["calls"] or {k: got["bytes"][k] for k in
+                                      want["bytes"]} != want["bytes"]:
+                fail(f"{tag}: all-gathers and reduce-scatters {got} differ "
+                     f"from their closed form {want}")
+            d = DR.run_step(cfg, "train", TP_TRAIN_BATCH, TP_TRAIN_SEQ,
+                            mesh=Mesh.abstract((FSDP_DATA, model),
+                                               ("data", "model"), rank=r))
+            if d["collective_counts"] != got["calls"] or {
+                    k: d["collectives"][k] for k in got["bytes"]} != {
+                    k: float(v) for k, v in got["bytes"].items()}:
+                fail(f"{tag}: collectives {got} differ from the dry run's "
+                     f"on Mesh.abstract ({d['collective_counts']}, "
+                     f"{d['collectives']})")
+            dry.append({"calls": d["collective_counts"],
+                        "bytes": d["collectives"]})
+            if "bf16" in rk:
+                check_counts(f"{tag} bf16 step", rk["bf16"]["launches"],
+                             K1_TRAIN)
+                if any(rk["bf16"]["launches"][k] for k in FORWARD_ONLY):
+                    fail(f"{tag}: a forward-only kernel launched in bf16")
+        f0 = ranks[0]["fp32"]
+        res[name] = {
+            "ranks": ranks, "seconds": t_ranks, "dry_run_collectives": dry,
+            "fp32_loss_rel_diff": [abs(rk["fp32"]["loss"] - one["loss"])
+                                   / abs(one["loss"]) for rk in ranks],
+            "fp32_grad_norm": [one["grad_norm"]]
+            + [rk["fp32"]["grad_norm"] for rk in ranks],
+            "fp32_param_max_abs_diff": [rk["fp32"]["param_max_abs_diff"]
+                                        for rk in ranks],
+            "fp32_unsettled_outside_tol": [
+                rk["fp32"]["unsettled_outside_tol"] for rk in ranks],
+            "state_bytes": [rk["fp32"]["state_bytes"] for rk in ranks],
+            "peak_allocated_bytes": [rk["fp32"]["peak_allocated_bytes"]
+                                     for rk in ranks],
+            "bf16_step_ms_ranks": [rk["bf16"]["wall_ms"] for rk in ranks
+                                   if "bf16" in rk]}
+        log(f"fsdp {TP_ARCH} ({TP_LAYERS} layers, full width, B "
+            f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}) on {name}: fp32 loss rel "
+            f"|d| {res[name]['fp32_loss_rel_diff']}, grad norm (one "
+            f"device, ranks) {res[name]['fp32_grad_norm']}, params max |d| "
+            f"{res[name]['fp32_param_max_abs_diff']}; params + moments "
+            f"{res[name]['state_bytes']} bytes a rank vs "
+            f"{od['state_bytes']} on one device, fp32 step peak "
+            f"{res[name]['peak_allocated_bytes']} bytes allocated a rank; "
+            f"collectives a step "
+            f"(rank 0, fp32) {f0['collectives']} = closed form and dry "
+            f"run; K1 rank 0 fp32 {f0['k1']}; bf16 step "
+            f"{res[name]['bf16_step_ms_ranks']} ms a rank vs "
+            f"{od['bf16']['wall_ms']:.1f} ms on one device; "
+            f"{t_ranks:.1f} s")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"fsdp: phase {res['seconds']:.1f} s")
     return res
 
 
@@ -4322,12 +4594,13 @@ def run_roofline_phase(report):
 
 
 def slice_paths(report) -> dict:
-    """The launch counts of phases 20, 22, 23 and 24's paths, by path. Of
-    the slice entries of the kernels line (:func:`slice_entries`), the
+    """The launch counts of phases 20, 22, 23, 24 and 26's paths, by path.
+    Of the slice entries of the kernels line (:func:`slice_entries`), the
     training ones count phase 20's ``training`` path alone, the mixed ones
     phase 22's, and the ``_tp2`` ones phase 23's TP=2 serving ranks; every
-    path, the DP=2 train step, the pipeline ranks and phase 24's TP=2
-    train steps too, joins the kernels' all-path totals in ``main``."""
+    path, the DP=2 train step, the pipeline ranks, phase 24's TP=2 train
+    steps and phase 26's FSDP steps too, joins the kernels' all-path
+    totals in ``main``."""
     out = {}
     if "train" in report:
         out["training"] = report["train"]["launches"]
@@ -4344,6 +4617,13 @@ def slice_paths(report) -> dict:
         for dtype in ("fp32", "bf16"):
             out[f"tp{TP_WORLD}-train rank {r} {dtype} step"] = \
                 rk[dtype]["launches"]
+    for name, run in report.get("fsdp", {}).items():
+        for r, rk in enumerate(run["ranks"] if isinstance(run, dict)
+                               and "ranks" in run else []):
+            for dtype in ("fp32", "bf16"):
+                if dtype in rk:
+                    out[f"fsdp {name} rank {r} {dtype} step"] = \
+                        rk[dtype]["launches"]
     return out
 
 
@@ -4475,10 +4755,14 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
-    if sys.argv[1:2] == ["--tp-train"]:       # phase 24 alone
-        report["tp_train"] = run_tp_train_phase()
-        (OUT_DIR / "chip_smoke_tp_train.json").write_text(
-            json.dumps(report, indent=1))
+    if sys.argv[1:2] in (["--tp-train"], ["--fsdp"]):   # phase 24 or 26
+        if sys.argv[1] == "--tp-train":
+            report["tp_train"] = run_tp_train_phase()
+        else:
+            report["fsdp"] = run_fsdp_phase()
+        release_one_device_train_steps()
+        (OUT_DIR / f"chip_smoke_{sys.argv[1][2:].replace('-', '_')}.json"
+         ).write_text(json.dumps(report, indent=1))
         print(json.dumps({"kernels": slice_entries(report)}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4594,6 +4878,9 @@ def main() -> None:
     report["tp"] = run_tp_phase()
     begin("tp_train")
     report["tp_train"] = run_tp_train_phase()
+    begin("fsdp")
+    report["fsdp"] = run_fsdp_phase()
+    release_one_device_train_steps()
     begin("roofline")
     report["roofline"] = run_roofline_phase(report)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

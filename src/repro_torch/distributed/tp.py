@@ -25,9 +25,15 @@ collective itself:
     of a zero-filled buffer into which each rank wrote its own slice:
     adding zeros is exact.
 
-Every collective is an ``all_reduce`` or a ``broadcast`` — the two that
-gloo runs on CUDA tensors as on CPU ones — and counts its calls and bytes
-in :data:`collectives`. Nothing gives way to a single-rank path: a
+Every collective is an ``all_reduce`` (a sum, or the max that the
+vocab-parallel loss takes of its rows), a ``broadcast``, an
+``all_gather`` or a ``reduce_scatter`` (FSDP's, ``distributed/fsdp.py``):
+gloo runs each on CUDA tensors as on CPU ones (torch 2.11 on the H100,
+``scripts/torch_gloo_probe.py``). Each counts its calls and the bytes of
+its result in :data:`collectives`, as the reference counts the result
+shapes of its HLO's collectives (``repro/roofline/analysis.py``): the
+whole tensor for an all-reduce and an all-gather, the rank's part for a
+reduce-scatter. Nothing gives way to a single-rank path: a
 collective that fails raises. Over an abstract mesh's group
 (``launch/mesh.py::Mesh.abstract``) a collective of ``meta`` tensors is
 counted and returns without calling ``torch.distributed`` (the dry run);
@@ -62,9 +68,12 @@ from repro_torch.models.module import is_axis_leaf
 
 __all__ = [
     "TPContext", "make_context", "use_tp", "current_tp", "head_sharding",
+    "kv_group_slice", "take_kv_heads",
     "linear", "matmul", "attention", "embed", "conform_heads",
-    "param_cut", "shard_params", "shard_caches", "head_units", "all_reduce",
-    "broadcast", "gather", "on_slice", "collectives",
+    "param_cut", "shard_params", "unshard_params", "shard_caches",
+    "head_units", "all_reduce",
+    "all_reduce_max", "all_gather", "reduce_scatter", "broadcast", "gather",
+    "on_slice", "collectives", "vocab_parallel_nll",
 ]
 
 
@@ -75,7 +84,7 @@ __all__ = [
 class Collectives:
     """Calls and bytes of every collective issued, by kind."""
 
-    KINDS = ("all_reduce", "broadcast")
+    KINDS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter")
 
     def __init__(self):
         self.reset()
@@ -124,13 +133,62 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     when ``t`` is contiguous, else into a contiguous copy — a strided view
     (a GEMM's output cut from its padded tiles) would be reduced wrongly.
     Use the returned tensor."""
+    return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, as :func:`all_reduce`
+    (counted as an all-reduce); no gradient flows through it."""
+    return _all_reduce(t, group, dist.ReduceOp.MAX)
+
+
+def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
     real = _is_real(t, group)
     if _group_size(group) > 1:
         t = t.contiguous()
         collectives.add("all_reduce", t)
         if real:
-            dist.all_reduce(t, group=group)
+            dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along ``dim``, in the
+    group's rank order (``t`` itself on a group of one)."""
+    n = _group_size(group)
+    real = _is_real(t, group)
+    if n == 1:
+        return t
+    dim = dim % t.dim()
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    collectives.add("all_gather", out)
+    if real:
+        dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n along ``dim`` of ``t`` summed over ``group`` (n
+    ranks; the group's rank order gives the chunks): the sum of an
+    :func:`all_reduce`, cut as :func:`shard_dim` cuts it, with 1/n of its
+    result moved. ``t`` itself on a group of one."""
+    n = _group_size(group)
+    real = _is_real(t, group)
+    if n == 1:
+        return t
+    dim = dim % t.dim()
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not divide over {n} ranks")
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    collectives.add("reduce_scatter", out)
+    if real:
+        dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
@@ -305,6 +363,7 @@ def _active(ctx: Optional[TPContext]) -> bool:
     return ctx is not None and ctx.model_size > 1
 
 
+
 # ---------------------------------------------------------------------------
 # Sharding decisions and slices
 # ---------------------------------------------------------------------------
@@ -331,6 +390,41 @@ def head_sharding(ctx: Optional[TPContext], H: int, Hkv: int
     if Hkv == 1:
         return True, False        # MQA replication fallback
     return False, False
+
+
+def kv_group_slice(ctx: Optional[TPContext], H: int, Hkv: int
+                   ) -> Optional[Tuple[int, int]]:
+    """(first, count) of the KV heads that this rank's query heads read,
+    where :func:`head_sharding` keeps a GQA layer's attention replicated
+    because its KV heads do not shard (a config pins them, as qwen3-8b's
+    ``kv_heads`` override does), but the query heads do and each rank's
+    query slice covers whole groups or lies inside one; else None. A
+    cache-less attention (training) then runs on the rank's query heads
+    over that slice of the replicated K/V, as GSPMD places the reference's
+    activations (``act_heads`` over model): the grouping the kernels
+    compute from local shapes is the global one. Cached attention stays
+    replicated: its caches hold every KV head."""
+    if ctx is None or head_sharding(ctx, H, Hkv) != (False, False):
+        return None
+    mp = ctx.model_size
+    if mp <= 1 or not ctx.wants_model("heads") or H % mp or H == Hkv:
+        return None
+    per, rep = H // mp, H // Hkv
+    if per % rep == 0:
+        return ctx.rank * (per // rep), per // rep
+    if rep % per == 0:
+        return ctx.rank * per // rep, 1
+    return None
+
+
+def take_kv_heads(t: torch.Tensor, kv_slice: Tuple[int, int]
+                  ) -> torch.Tensor:
+    """KV heads ``kv_slice`` (:func:`kv_group_slice`) of the replicated
+    ``t`` (B, S, Hkv, D): each rank's gradient of ``t`` covers its slice,
+    and the backward sums it over the model group (:class:`_ToRanks`)."""
+    first, n = kv_slice
+    return _to_ranks(t, current_tp().group).narrow(2, first, n) \
+        .clone(memory_format=torch.contiguous_format)
 
 
 def param_cut(ctx: TPContext, names: Sequence[Optional[str]],
@@ -529,6 +623,30 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, *, vocab: int
     return _sum_over_ranks(rows, ctx.group)
 
 
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """-log softmax(logits)[label] in fp32, each rank of the model group
+    holding its contiguous slice of the vocab columns (the column-parallel
+    head's output, ``linear(..., gather_out=False)``): the row max over
+    the group (an all-reduce max, detached: the loss does not depend on
+    the shift), the sum of ``exp`` over the group (an all-reduce under
+    autograd), and the label's logit from the rank whose slice holds it
+    (masked to the rank's range, then summed over the group). The
+    whole-vocab logits are never formed."""
+    ctx = current_tp()
+    lg = logits.float()
+    n = lg.shape[-1]
+    m = all_reduce_max(lg.detach().amax(dim=-1), ctx.group)
+    z = lg - m[..., None]
+    sumexp = _sum_over_ranks(torch.exp(z).sum(dim=-1), ctx.group)
+    local = labels.long() - ctx.rank * n
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(z, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = _sum_over_ranks(
+        torch.where(inside, picked, torch.zeros_like(picked)), ctx.group)
+    return (torch.log(sumexp) - picked)[..., None]
+
+
 # ---------------------------------------------------------------------------
 # Attention (heads over model; per-rank paged pools)
 # ---------------------------------------------------------------------------
@@ -540,6 +658,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               soft_cap: Optional[float] = None,
               block_tables: Optional[torch.Tensor] = None,
               kv_scales=None,
+              kv_slice: Optional[Tuple[int, int]] = None,
               policy=None) -> torch.Tensor:
     """api.attention with heads sharded over the model axis.
 
@@ -549,18 +668,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`head_sharding` shards them, q, k, v and an int8 pool's
     ``kv_scales`` ((P, Hkv) each, heads last) are the rank's slices
     (:func:`conform_heads`, ``init_*caches(tpctx=)``), else whole; anything
-    else raises. The output holds the rank's query heads when they shard,
-    else all of them.
+    else raises. With ``kv_slice`` (:func:`kv_group_slice`: a cache-less
+    GQA layer whose KV heads stay replicated) q is the rank's query heads
+    and k/v the KV heads of its groups. The output holds the rank's query
+    heads when they shard, else all of them.
     """
     ctx = current_tp()
     H, Hkv = heads
     shard_q, shard_kv = head_sharding(ctx, H, Hkv)
+    if kv_slice is not None:
+        shard_q = True
+        if k.shape[2] != kv_slice[1] or v.shape[2] != kv_slice[1]:
+            raise ValueError(f"tp: attention over KV heads {kv_slice} got "
+                             f"{k.shape[2]} / {v.shape[2]} heads")
     if shard_q:
         _local(q, 2, H, ctx, "query")
     elif q.shape[2] != H:
         raise ValueError(f"tp: attention over all {H} heads got "
                          f"{q.shape[2]} query heads")
-    for t, what in ((k, "key"), (v, "value")):
+    for t, what in ((k, "key"), (v, "value")) if kv_slice is None else ():
         if shard_kv:
             _local(t, 2, Hkv, ctx, what)
         elif t.shape[2] != Hkv:
@@ -631,6 +757,35 @@ def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
 
     return rec(params, axes_tree, params if shapes is None else shapes,
                False)
+
+
+def unshard_params(params, axes_tree, ctx: Optional[TPContext], *,
+                   units: Optional[Dict[str, int]] = None, shapes):
+    """The inverse of :func:`shard_params`: every leaf that a rank holds a
+    slice of gathered whole over the model group (:func:`gather`, without
+    autograd), the others as they are. ``shapes`` is the tree of the
+    global params (meta tensors will do). Every rank of the group must
+    call it (checkpoints, ``launch/steps.py::full_state``)."""
+    if not _active(ctx):
+        return params
+    units = units or {}
+
+    def rec(p, a, full, whole):
+        if is_axis_leaf(a):
+            if whole or p.dim() > 2:
+                return p
+            cut = param_cut(ctx, tuple(a), tuple(full.shape), units,
+                            getattr(a, "blocks", 1))
+            if cut is None or p.shape[cut[0]] == full.shape[cut[0]]:
+                return p
+            return _gather(p.detach(), cut[0], full.shape[cut[0]], ctx,
+                           cut[1])
+        if isinstance(a, dict):
+            return {k: rec(p[k], v, full[k], whole or k in _WHOLE_SUBTREES)
+                    for k, v in a.items()}
+        return [rec(pi, ai, fi, whole) for pi, ai, fi in zip(p, a, full)]
+
+    return rec(params, axes_tree, shapes, False)
 
 
 _KV_LEAVES = ("k", "v", "kp", "vp")

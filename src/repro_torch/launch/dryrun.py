@@ -8,8 +8,9 @@ no compiler between it and the card, so it runs the cell's real step
 function — the train step with AdamW, the prefill step or the decode step
 — once, eagerly, on ``meta`` tensors (shapes and dtypes, no storage) at
 one rank's shapes: rank 0 of ``Mesh.abstract`` of the 16×16 (or 2×16×16)
-mesh, its params cut by ``tp.shard_params``, its caches holding its KV
-heads, its rows of the batch. Nothing is allocated and nothing launches,
+mesh, its params cut by ``tp.shard_params`` (a train cell's also over
+data, ``steps.rank_params``: FSDP), its caches holding its KV heads, its
+rows of the batch. Nothing is allocated and nothing launches,
 so this entry point needs no card: ``meta`` is asked for by name, which
 keeps the port's rule that an entry point runs on the card unless the
 caller asks for another device.
@@ -23,8 +24,11 @@ What is counted:
   * every other aten op (views excluded), through a ``TorchDispatchMode``:
     the bytes of its tensor inputs and outputs — an op that writes into a
     tensor in place counts what it writes, at most what it reads besides
-    (a cache scatter writes rows, not the pool) — and its FLOPs where
-    ``torch.utils.flop_counter`` has a formula (the MoE banks' products);
+    (a cache scatter writes rows, not the pool) — and its FLOPs as XLA's
+    cost analysis counts them: the products by ``torch.utils.
+    flop_counter``'s formulas (the MoE banks'), one FLOP an element of
+    the elementwise ops and reductions, transcendentals apart
+    (:class:`OpCounter`);
   * the collectives of ``distributed/tp.py`` over the abstract mesh's
     groups, by kind and bytes;
   * memory: the arguments the rank holds (params, optimizer state, its
@@ -35,11 +39,14 @@ The eager port walks every layer, so the reference's depth-1 / depth-2
 body probe (XLA counts a scanned body once) is not needed, and
 ``--skip-body-probe`` is accepted and ignored. The result keeps the
 reference's keys — arch, shape, mesh, kind, n_chips, n_params, memory,
-cost{"flops", "bytes accessed"}, collectives{"total"}, collective_counts,
+cost{"flops", "bytes accessed", "transcendentals"}, collectives{"total"},
+collective_counts,
 roofline — and adds ``launches`` by kernel and route (K1's batched and
-backward launches besides in ``launches_marked``), ``fsdp`` (false:
-FSDP is not ported) and ``parts_from_reference``: where what the rank
-holds or runs parts from the reference's GSPMD placement. Attention's
+backward launches besides in ``launches_marked``), ``fsdp`` (whether the
+rank holds its cut of the params and moments over ``data``: a train cell
+on a data axis of more than one rank) and ``parts_from_reference``: where
+what the rank holds or runs parts from the reference's GSPMD
+placement. Attention's
 FLOPs and bytes take every key in memory (positions and lengths are
 data), a bound on what a run's data needs; the launch counts are exact.
 
@@ -85,6 +92,24 @@ aten = torch.ops.aten
 # Ops that move no data: allocations without a fill, and aliases.
 _NO_DATA = {aten.empty, aten.empty_strided, aten.empty_like, aten.new_empty,
             aten.new_empty_strided, aten.detach, aten.lift_fresh, aten.alias}
+# XLA's HloCostAnalysis counts these elementwise ops under
+# "transcendentals" and not under "flops", one an output element.
+_TRANSCENDENTAL = {aten.exp, aten.exp2, aten.expm1, aten.log, aten.log1p,
+                   aten.log2, aten.log10, aten.tanh, aten.sigmoid,
+                   aten.rsqrt, aten.sqrt, aten.pow, aten.erf, aten.sin,
+                   aten.cos, aten.tan, aten.atan2}
+# Pointwise aten ops that XLA lowers to a transcendental and a FLOP an
+# element (x · logistic(x); the gradient's own).
+_TRANSCENDENTAL_PLUS_ONE = {aten.silu, aten.silu_backward}
+# Softmax and its gradient, which torch runs as one aten op and XLA as
+# its parts: (FLOPs, transcendentals) an element of the input — a max
+# reduce, a subtraction, exp, a sum reduce and a division (log_softmax:
+# the log's subtraction, and a log a row); the gradient's product, sum
+# reduce, subtraction and product (log_softmax's: exp, sum, product,
+# subtraction).
+_SOFTMAX = {aten._softmax: (4, 1), aten._log_softmax: (4, 1),
+            aten._softmax_backward_data: (4, 0),
+            aten._log_softmax_backward_data: (3, 1)}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -98,11 +123,22 @@ def _tensors(tree) -> List[torch.Tensor]:
 class OpCounter(TorchDispatchMode):
     """Bytes and FLOPs of the aten ops run while it is active (views and
     the ops in ``_NO_DATA`` excluded), and the peak of the bytes their
-    outputs allocate, each storage counted until it is freed."""
+    outputs allocate, each storage counted until it is freed.
+
+    FLOPs are counted as XLA's cost analysis counts them, so the port's
+    count stands beside the reference's: an op with a
+    ``torch.utils.flop_counter`` formula (the products) by it; a pointwise
+    op (``torch.Tag.pointwise``) one FLOP an output element, a reduction
+    (``torch.Tag.reduction``) one an input element, softmax as its parts
+    (``_SOFTMAX``), the transcendental ones apart
+    (``transcendentals``). The elementwise FLOPs run on the CUDA cores:
+    they are filed under ``float32``, whose peak bounds them."""
 
     def __init__(self):
         super().__init__()
         self.flops_by_dtype: Dict[str, float] = {}
+        self.elementwise_flops = 0.0
+        self.transcendentals = 0.0
         self.bytes = 0.0
         self.ops = 0
         self.live = 0
@@ -134,8 +170,33 @@ class OpCounter(TorchDispatchMode):
             dt = RA.dtype_name(ins[0].dtype) if ins else "float32"
             self.flops_by_dtype[dt] = self.flops_by_dtype.get(dt, 0.0) \
                 + float(formula(*args, **kwargs, out_val=out))
+        else:
+            self._elementwise(func, ins, out)
         self._track(out, ins)
         return out
+
+    def _elementwise(self, func, ins, out) -> None:
+        packet = func.overloadpacket
+        outs = _tensors(out)
+        n_out = float(outs[0].numel()) if outs else 0.0
+        if packet in _SOFTMAX:
+            f, t = _SOFTMAX[packet]
+            n = float(ins[0].numel())
+            flops, trans = f * n, t * n
+        elif packet in _TRANSCENDENTAL:
+            flops, trans = 0.0, n_out
+        elif packet in _TRANSCENDENTAL_PLUS_ONE:
+            flops, trans = n_out, n_out
+        elif torch.Tag.pointwise in func.tags:
+            flops, trans = n_out, 0.0
+        elif torch.Tag.reduction in func.tags and ins:
+            flops, trans = float(ins[0].numel()), 0.0
+        else:
+            return
+        self.elementwise_flops += flops
+        self.transcendentals += trans
+        self.flops_by_dtype["float32"] = \
+            self.flops_by_dtype.get("float32", 0.0) + flops
 
     def _track(self, out, ins) -> None:
         held = {id(t.untyped_storage()) for t in ins}
@@ -238,10 +299,12 @@ def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
     parts = []
     if mesh is None:
         return parts
-    if mesh.axis_size("data") > 1:
-        parts.append(dict(part="params and optimizer state", detail=(
-            "replicated over the data axis: the reference's rules shard "
-            "the embed dim there (FSDP), which the port does not")))
+    if mesh.axis_size("data") > 1 and kind != "train":
+        parts.append(dict(part="params", detail=(
+            "replicated over the data axis, as the reference's TP serving "
+            "holds them (repro/distributed/tp.py:331); the reference's dry "
+            "run places a serving cell's params by the training spec, "
+            "embed over data")))
     if "pod" in mesh.shape and kind == "train":
         parts.append(dict(part="gradient reduction", detail=(
             "averaged over the data axis only: the pod axis takes its rows "
@@ -249,8 +312,17 @@ def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
     if mesh.axis_size("model") > 1:
         if cfg.is_moe:
             parts.append(dict(part="MoE expert banks", detail=(
-                "whole on every rank: tp.shard_params keeps 3-D tensors "
-                "whole; the reference shards the experts over model")))
+                "whole over the model axis: tp.shard_params keeps 3-D "
+                "tensors whole; the reference shards the experts over "
+                "model" + ("; training cuts both banks' d_model dim over "
+                           "data (FSDP), the wo bank's where the reference "
+                           "names no axis" if kind == "train" else ""))))
+        if kind == "train" and cfg.n_codebooks:
+            parts.append(dict(part="whole-vocab loss", detail=(
+                "the audio head's columns (vocab x n_codebooks) are not "
+                "whole vocab slices of each codebook: the loss gathers the "
+                "logits over the model axis, where the reference keeps "
+                "them sharded over act_vocab")))
         if cfg.family in T.SSD_FAMILIES:
             parts.append(dict(part="SSD blocks", detail=(
                 "whole on every rank, as the reference's tp.linear runs "
@@ -293,8 +365,13 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
         ctx = TP.make_context(mesh, overrides=over)
     rows = batch // n_rows_axes if batch % n_rows_axes == 0 else batch
     parts = _placement_parts(cfg, mesh, shape_name, kind, batch, rows)
-    params = TP.shard_params(T.init_model(cfg, device=META), param_axes(cfg),
-                             ctx, units=TP.head_units(cfg))
+    fsdp = kind == "train" and mesh is not None and mesh.axis_size("data") > 1
+    if kind == "train":            # FSDP over data, slices over model
+        params = ST.rank_params(cfg, T.init_model(cfg, device=META), mesh)
+    else:                          # serving: whole over data
+        params = TP.shard_params(T.init_model(cfg, device=META),
+                                 param_axes(cfg), ctx,
+                                 units=TP.head_units(cfg))
     if pack_weights:
         params = api.pack_model_weights(params)
     dt = cfg.param_dtype
@@ -402,8 +479,11 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
         "run_s": round(run_s, 2),
         "memory": mem,
         "cost": {"flops": flops, "bytes accessed": nbytes,
+                 "transcendentals": counter.transcendentals
+                 + ledger.transcendentals,
                  "flops_by_dtype": flops_by_dtype,
                  "kernel_flops": ledger.flops, "kernel_bytes": ledger.bytes,
+                 "elementwise_flops": counter.elementwise_flops,
                  "aten_ops": counter.ops},
         "collectives": {"total": coll["total"],
                         **{k: v for k, v in coll.items()
@@ -412,7 +492,7 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
         "launches": ledger.launches,
         "launches_marked": ledger.marked,
         "roofline": terms,
-        "fsdp": False,
+        "fsdp": fsdp,
         "parts_from_reference": parts,
         "notes": notes,
     }

@@ -6,18 +6,26 @@ specs (``distributed/sharding.py``: a tuple per tensor, the counterpart of
 the reference's ``PartitionSpec``); where the ranks' params part from
 :func:`model_shardings`' tree, its docstring says how.
 
-Training runs over a ``(data, model)`` mesh. Each rank of the ``data``
-axis takes its slice of the global batch, and the gradients are averaged
-by one all-reduce over the data group before AdamW. Along the ``model``
-axis each rank holds its slices of the params (:func:`rank_params`, the
-cut of tensor-parallel serving) and runs the forward and backward
-tensor-parallel (``distributed/tp.py``'s collectives under autograd); the
-clip's global gradient norm sums the sliced leaves over the model group.
-So every rank of a data line applies the same update to the same params,
-and a replicated leaf (a norm) gets the same gradient on every model rank.
-The reference's FSDP over ``data`` (params and optimizer state sharded
-there too) is not ported: they stay replicated over ``data`` (ROADMAP.md
-queue 1).
+Training runs over a ``(data, model)`` mesh, with the params and AdamW's
+moments placed as the reference's rules place them
+(:func:`rank_params`):
+
+  * along ``data`` each rank takes its slice of the global batch and holds
+    its cut of every leaf whose ``embed`` dim the data axis divides (FSDP,
+    ``distributed/fsdp.py``): the model gathers a leaf where it uses it,
+    and the gathers' backward reduce-scatters the gradients, which the
+    step divides by n_data; the leaves that stay whole over data (norms
+    whose dim does not divide) are averaged by one all-reduce, with the
+    loss and the metrics;
+  * along ``model`` each rank holds its slices of the params (the cut of
+    tensor-parallel serving, ``tp.shard_params``) and runs the forward and
+    backward tensor-parallel (``distributed/tp.py``'s collectives under
+    autograd), the loss vocab-parallel.
+
+The clip's global gradient norm sums each leaf's squares over the axes
+that cut it (:func:`_grad_norm`), and AdamW runs on the cuts, so its
+moments inherit them. Checkpoints hold whole arrays: :func:`full_state`
+gathers a rank's state, :func:`rank_state` cuts it again, on any mesh.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.registry import ShapeCell
+from repro_torch.distributed import fsdp as FSDP
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tp as TP
 from repro_torch.models import transformer as T
@@ -90,66 +99,145 @@ def tp_context(cfg: ModelConfig, mesh) -> Optional[TP.TPContext]:
 
 
 def rank_params(cfg: ModelConfig, params, mesh):
-    """This rank's slices of whole ``params`` (or of their ``meta``
-    stand-ins) on ``mesh``'s model axis: ``tp.shard_params``, as the
-    tensor-parallel engine cuts them; the params themselves without a
-    model axis."""
-    ctx = tp_context(cfg, mesh)
-    return TP.shard_params(params, param_axes(cfg), ctx,
-                           units=TP.head_units(cfg))
+    """This rank's cut of whole ``params`` (or of their ``meta``
+    stand-ins, or of an AdamW moment of the same tree) on ``mesh``: its
+    slices over the model axis (``tp.shard_params``, as the
+    tensor-parallel engine cuts them), then its cut of each leaf's
+    ``embed`` dim over the data axis (``fsdp.shard_params``); the params
+    themselves on one rank. A tree that is already the rank's comes back
+    as it is."""
+    params = TP.shard_params(params, param_axes(cfg), tp_context(cfg, mesh),
+                             units=TP.head_units(cfg))
+    return FSDP.shard_params(params, FSDP.make_context(cfg, mesh))
 
 
-def _tp_grad_norm(grads, shapes, ctx: TP.TPContext) -> torch.Tensor:
-    """The global norm of the whole gradients from a rank's: the squares
-    of the sliced leaves summed over the model group, those of the
-    replicated leaves (the same on every rank) once."""
-    sliced, whole = [], []
-    for g, full in zip(tree_leaves(grads), tree_leaves(shapes)):
-        sq = torch.sum(g.float() ** 2)
-        (whole if tuple(g.shape) == tuple(full.shape) else sliced).append(sq)
-    total = torch.stack(whole).sum() if whole else 0.0
-    if sliced:
-        total = total + TP.all_reduce(torch.stack(sliced).sum(), ctx.group)
-    return torch.sqrt(total)
+def full_params(cfg: ModelConfig, params, mesh):
+    """The whole leaves of a rank's ``params`` (or of an AdamW moment of
+    the same tree): gathered over the data axis, then the model axis.
+    Every rank of the mesh must call it."""
+    params = FSDP.full_params(params, FSDP.make_context(cfg, mesh))
+    return TP.unshard_params(params, param_axes(cfg), tp_context(cfg, mesh),
+                             units=TP.head_units(cfg),
+                             shapes=T.init_model(cfg, device="meta"))
+
+
+def _map_state(fn, state):
+    """``fn`` over the params-shaped parts of a training state: ``params``
+    and the optimizer's ``mu`` and ``nu`` (the ``step`` as it is)."""
+    opt = state["opt"]
+    return {"params": fn(state["params"]),
+            "opt": dict(opt, mu=fn(opt["mu"]), nu=fn(opt["nu"]))}
+
+
+def full_state(cfg: ModelConfig, state, mesh):
+    """A rank's ``{"params", "opt"}`` with every leaf at its full shape
+    (the reference's checkpoint, ``repro/train/checkpoint.py``): a
+    collective, which every rank must enter; rank 0 writes the result."""
+    return _map_state(lambda t: full_params(cfg, t, mesh), state)
+
+
+def rank_state(cfg: ModelConfig, state, mesh):
+    """The rank's cut of a whole ``{"params", "opt"}`` (a checkpoint
+    written on any mesh, or on one device)."""
+    return _map_state(lambda t: rank_params(cfg, t, mesh), state)
+
+
+def _grad_norm(grads, shapes, tpctx: Optional[TP.TPContext],
+               fsctx: Optional[FSDP.FSDPContext]) -> torch.Tensor:
+    """The global norm of the whole gradients from a rank's: each leaf's
+    squares summed over the axes that cut it — data and model, one of
+    them, or (a leaf replicated on both) none, counted once."""
+    sums = {(d, m): [] for d in (False, True) for m in (False, True)}
+    for (g, cut), full in zip(FSDP.leaves_with_cuts(grads, fsctx),
+                              tree_leaves(shapes)):
+        on_model = any(g.shape[i] != full.shape[i] for i in range(g.dim())
+                       if cut is None or i != cut.dim)
+        sums[cut is not None, on_model].append(torch.sum(g.float() ** 2))
+    dev = tree_leaves(grads)[0].device
+    part = {k: torch.stack(v).sum() if v else
+            torch.zeros((), dtype=torch.float32, device=dev)
+            for k, v in sums.items()}
+    both = torch.stack([part[True, False], part[True, True]])
+    if fsctx is not None:
+        both = TP.all_reduce(both, fsctx.group)
+    on_model = torch.stack([part[False, True], both[1]])
+    if tpctx is not None:
+        on_model = TP.all_reduce(on_model, tpctx.group)
+    return torch.sqrt(part[False, False] + both[0] + on_model.sum())
+
+
+def _average_over_data(grads, extra, fsctx: Optional[FSDP.FSDPContext],
+                       group, n: int):
+    """The gradients of the global batch from a rank's, and ``extra``
+    (the loss and metrics) averaged over the ``n`` data ranks: a leaf cut
+    over data holds its reduce-scattered sum already and is divided by n;
+    the rest go in one all-reduce (:func:`all_reduce_mean`)."""
+    pairs = FSDP.leaves_with_cuts(grads, fsctx)
+    whole = [g for g, cut in pairs if cut is None]
+    whole, extra = all_reduce_mean((whole, extra), group, n)
+    it = iter(whole)
+    # a cut's gradient is its reduce-scatter's own output: divided in place
+    new = {id(g): (g.div_(n) if cut is not None else next(it))
+           for g, cut in pairs}
+    return tree_map(lambda g: new[id(g)], grads), extra
+
+
+def _check_held(params, shapes, fsctx: FSDP.FSDPContext) -> None:
+    for (p, cut), full in zip(FSDP.leaves_with_cuts(params, fsctx),
+                              tree_leaves(shapes)):
+        if cut is not None and p.shape[cut.dim] == full.shape[cut.dim]:
+            raise ValueError(
+                f"a whole {tuple(p.shape)} leaf on a mesh whose data axis "
+                f"cuts it: hold the rank's params (steps.rank_params) and "
+                f"adamw_init of them")
 
 
 def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                        total_steps: int = 10000, microbatches: int = 1,
-                       mesh=None):
+                       mesh=None, *, base_lr: Optional[float] = None,
+                       warmup: int = 100, aux_weight: float = 0.01):
     """One optimizer step: (params, opt_state, batch) → (params,
-    opt_state, metrics). With ``microbatches`` > 1 the batch is split along
-    its first dim and the gradients are summed in fp32 and averaged — the
-    same math, the activations of one microbatch alive at a time.
+    opt_state, metrics). With ``microbatches`` > 1 the batch is split
+    along its first dim and the gradients are summed in fp32 and averaged —
+    the same math, the activations of one microbatch alive at a time.
 
-    With a ``mesh`` whose ``data`` axis spans n > 1 ranks, ``batch`` is the
-    global batch: each rank takes its rows (:func:`data_shard`), and the
-    gradients and the loss are averaged over the data group (one
-    all-reduce, :func:`all_reduce_mean`) before AdamW. For a dense model
-    that is the global batch's step; an MoE model's load-balance aux loss
-    is taken per rank's rows. With a ``model`` axis of m > 1 ranks,
-    ``params`` and ``opt_state`` are this rank's slices
-    (:func:`rank_params`; ``adamw_init`` of them) and the step runs
-    tensor-parallel; int8 gradient compression, whose per-tensor scale a
-    slice cannot reproduce, raises there. As in the reference, the
-    schedule's warmup is fixed at 100 steps here (a reference caveat,
-    ROADMAP.md), and the multi-microbatch metrics report ``aux`` as 0."""
+    On a ``mesh`` ``batch`` is the global batch and ``params`` and
+    ``opt_state`` are this rank's cuts (:func:`rank_params`; ``adamw_init``
+    of them): each rank takes its rows (:func:`data_shard`), the forward
+    and backward run under the mesh's FSDP and TP contexts, and the
+    gradients and the loss are averaged over the data group
+    (:func:`_average_over_data`) before AdamW, so the step is the global
+    batch's, an MoE model's dispatch groups and load-balance loss included
+    (``layers.moe``). int8 gradient compression, whose per-tensor scale a
+    cut cannot reproduce, raises on a mesh that cuts the params. The
+    schedule takes ``base_lr`` (default ``opt_cfg.lr``) and warms up over
+    ``warmup`` steps, fixed at 100 as in the reference (a reference
+    caveat, ROADMAP.md; the ``Trainer`` passes its own); ``aux_weight``
+    scales the experts' loss. The multi-microbatch metrics report ``aux``
+    as 0."""
     opt_cfg = opt_cfg or AdamWConfig()
+    base_lr = opt_cfg.lr if base_lr is None else base_lr
     group = None if mesh is None else mesh.group("data")
     n_data = 1 if mesh is None else mesh.axis_size("data")
     tpctx = tp_context(cfg, mesh)
+    fsctx = FSDP.make_context(cfg, mesh)
     shapes = None
-    if tpctx is not None:
+    if tpctx is not None or fsctx is not None:
         if opt_cfg.compress_grads:
             raise NotImplementedError(
-                "compress_grads under a model axis: a slice's per-tensor "
-                "int8 scale is not the whole gradient's")
+                "compress_grads on a mesh that cuts the params: a cut's "
+                "per-tensor int8 scale is not the whole gradient's")
         shapes = T.init_model(cfg, device="meta")
 
     def grad_of(params, batch):
-        with TP.use_tp(tpctx):
-            return value_and_grad(lambda p: T.lm_loss(p, cfg, batch), params)
+        with TP.use_tp(tpctx), FSDP.use_fsdp(fsctx):
+            return value_and_grad(
+                lambda p: T.lm_loss(p, cfg, batch, aux_weight=aux_weight),
+                params)
 
     def train_step(params, opt_state, batch):
+        if fsctx is not None:
+            _check_held(params, shapes, fsctx)
         batch = data_shard(batch, mesh)
         if microbatches == 1:
             (loss, metrics), grads = grad_of(params, batch)
@@ -170,15 +258,15 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             loss = loss * scale
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
         if n_data > 1:
-            grads, (loss, metrics) = all_reduce_mean(
-                (grads, (loss, metrics)), group, n_data)
-        lr = cosine_schedule(opt_state["step"], base_lr=opt_cfg.lr,
-                             warmup=100, total=total_steps)
-        gnorm = None if tpctx is None else _tp_grad_norm(grads, shapes,
-                                                         tpctx)
+            grads, (loss, metrics) = _average_over_data(
+                grads, (loss, metrics), fsctx, group, n_data)
+        lr = cosine_schedule(opt_state["step"], base_lr=base_lr,
+                             warmup=warmup, total=total_steps)
+        gnorm = None if shapes is None else _grad_norm(grads, shapes, tpctx,
+                                                       fsctx)
         params, opt_state, om, _ = adamw_update(params, grads, opt_state,
                                                 opt_cfg, lr, gnorm=gnorm)
-        return params, opt_state, dict(metrics, loss=loss, **om)
+        return params, opt_state, dict(metrics, loss=loss, lr=lr, **om)
 
     return train_step
 
@@ -236,14 +324,27 @@ def cache_shardings(cache_specs, rules: shd.ShardingRules):
 def model_shardings(cfg: ModelConfig, params_abs, axes,
                     rules: shd.ShardingRules):
     """The reference's placement of the params: a tree of specs, equal to
-    the reference's. The ranks of a mesh hold what ``tp.shard_params``
-    cuts, the same dim of the same spec (``tp.param_cut``) but for two
-    cases where a rank, which cannot reshard, parts from GSPMD: SwiGLU's
-    gate ‖ up weight, of which a rank holds the same chunk of each half
-    (the spec's contiguous halves would give one rank the gate and the
-    other the up), and a head dim whose heads do not divide over the model
-    axis (MQA's single KV head), which a rank holds whole where the spec
-    splits its columns."""
+    the reference's. A training rank holds what :func:`rank_params` cuts:
+    the same dims of the same spec over ``model`` (``tp.param_cut``) and
+    over ``data`` (``fsdp.make_plan``), and so the same bytes, but where
+    a rank, which cannot reshard, parts from GSPMD:
+
+      * SwiGLU's gate ‖ up weight: a rank holds the same chunk of each half
+        over ``model`` (the spec's contiguous halves would give one rank
+        the gate and the other the up) — other columns, the same bytes;
+      * a head dim whose heads do not divide over the model axis (MQA's
+        single KV head): whole on the rank where the spec splits its
+        columns;
+      * the MoE expert banks stay whole over ``model`` (no expert
+        parallelism yet, ROADMAP.md 9b(b)), where the spec cuts their
+        experts; the ``wo`` bank's d_model dim, which the reference's axes
+        leave unnamed, is cut over ``data`` instead (``fsdp.make_plan``);
+      * the SSD blocks and the audio family's per-codebook tables (3-D)
+        stay whole over ``model``, as the reference's ``tp.linear`` runs
+        them unsharded.
+
+    Serving holds the params whole over ``data``, as the reference's
+    serving does."""
     return shd.param_specs(axes, params_abs, rules)
 
 

@@ -2,15 +2,16 @@
 default: the optimizer step of ``launch/steps.py`` with auto-resume from
 the latest checkpoint and the straggler watchdog, over
 ``make_host_mesh(model=--tp)``: the world's ranks on a (data, model) mesh,
-data parallel over ``data`` as in the reference's CLI, tensor parallel
-over ``model`` (each rank holds its slices of the params,
+data parallel over ``data`` with the params and AdamW's moments cut there
+(FSDP, as the reference's rules place them), tensor parallel over
+``model`` (each rank holds its slices of the params,
 ``steps.rank_params``). ``--dp N --tp M`` starts N x M local ranks itself
 (one group over gloo; on the card every rank runs on ``cuda:0``); only
-rank 0 prints and writes checkpoints, which under ``--tp`` > 1 (ranks
-holding slices) are refused. ``--production-mesh`` takes the reference's
-16 x 16 (data, model) mesh, which needs a world of 256 ranks and raises
-in any other. FSDP over ``data`` is not ported: params and optimizer
-state stay replicated there (ROADMAP.md queue 1).
+rank 0 prints. ``--ckpt-dir`` checkpoints hold whole arrays, as the
+reference's: every rank takes part in gathering them, rank 0 writes them,
+and a resume cuts each rank's share again, on any mesh.
+``--production-mesh`` takes the reference's 16 x 16 (data, model) mesh,
+which needs a world of 256 ranks and raises in any other.
 
 Attention trains through the ``unfused`` policy (the forward-only kernels
 refuse a gradient). As in the reference, ``--warmup`` does not reach the
@@ -91,10 +92,6 @@ def main(argv=None):
         make_host_mesh(model=args.tp)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     check_trainable(cfg, device)
-    if args.ckpt_dir and mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            "--ckpt-dir with a model axis: the ranks hold slices of the "
-            "params, and checkpoints of slices are not ported")
     policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)
     lead = mesh.rank == 0
     print(f"[train] arch={cfg.name} device={device} mesh={mesh.shape} "
@@ -106,7 +103,12 @@ def main(argv=None):
         seq_len=args.seq_len, global_batch=args.global_batch, vocab=cfg.vocab,
         seed=args.seed, n_codebooks=cfg.n_codebooks))
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    save = ckpt is not None and lead
+
+    def save(step):
+        state = ST.full_state(cfg, {"params": params, "opt": opt_state},
+                              mesh)
+        if lead:
+            ckpt.save(step, state, extra={"data": data.state_dict()})
 
     with api.use_policy(policy), api.use_attention_policy(UNFUSED):
         params = ST.rank_params(
@@ -114,7 +116,8 @@ def main(argv=None):
         opt_state = adamw_init(params)
         start = 0
         if ckpt and ckpt.latest_step() is not None:
-            state = ckpt.restore({"params": params, "opt": opt_state})
+            state = ST.rank_state(cfg, ckpt.restore(
+                {"params": params, "opt": opt_state}), mesh)
             params, opt_state = state["params"], state["opt"]
             meta = ckpt.meta()
             start = meta["step"]
@@ -139,12 +142,10 @@ def main(argv=None):
                 print(f"[train] step {step} loss {loss:.4f}"
                       f" grad_norm {float(metrics['grad_norm']):.3f}"
                       f" ({dt * 1e3:.0f} ms)")
-            if save and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, {"params": params, "opt": opt_state},
-                          extra={"data": data.state_dict()})
-        if save:
-            ckpt.save(args.steps, {"params": params, "opt": opt_state},
-                      extra={"data": data.state_dict()})
+            if ckpt and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+                save(step + 1)
+        if ckpt:
+            save(args.steps)
             ckpt.wait()
     print("[train] done")
     return 0

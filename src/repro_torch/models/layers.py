@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import api
 from repro_torch.core import quant as Q
+from repro_torch.distributed import fsdp as FSDP
 from repro_torch.distributed import tp as TP
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import dense_init, norm_init
@@ -234,8 +235,13 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     # Under TP: Q/K/V column-parallel (whole heads), then each brought to
     # the head slice attention takes (gathered where attention stays
-    # replicated); the caches hold the rank's KV heads.
-    shard_q, shard_kv = TP.head_sharding(TP.current_tp(), H, Hkv)
+    # replicated); the caches hold the rank's KV heads. Without a cache, a
+    # layer whose KV heads stay replicated runs the rank's query heads over
+    # their groups' KV heads (tp.kv_group_slice).
+    ctx = TP.current_tp()
+    shard_q, shard_kv = TP.head_sharding(ctx, H, Hkv)
+    kv_slice = TP.kv_group_slice(ctx, H, Hkv) if cache is None else None
+    shard_q = shard_q or kv_slice is not None
     q = TP.linear(x, p["wq"], p.get("bq"), axes=("embed", "heads"), units=H,
                   full=(D, H * dh))
     k = TP.linear(x, p["wk"], p.get("bk"), axes=("embed", "kv_heads"),
@@ -250,6 +256,8 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
         k = rmsnorm(TP.on_slice(p["k_norm"], shard_kv), k)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if kv_slice is not None:
+        k, v = TP.take_kv_heads(k, kv_slice), TP.take_kv_heads(v, kv_slice)
     kv_scales = None
     if cache is None:
         kv_k, kv_v, bt = k, v, None
@@ -270,7 +278,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     out = TP.attention(q, kv_k, kv_v, q_positions=positions,
                        kv_valid_len=kv_valid, causal=cfg.causal,
                        scale=1.0 / math.sqrt(dh), block_tables=bt,
-                       kv_scales=kv_scales, heads=(H, Hkv))
+                       kv_scales=kv_scales, heads=(H, Hkv), kv_slice=kv_slice)
     # row-parallel under TP: the contraction over the rank's heads, summed
     y = TP.linear(out.reshape(B, S, -1), p["wo"], axes=("heads", "embed"),
                   units=H, full=(H * dh, D))
@@ -431,6 +439,23 @@ def _moe_groups(T: int, target: int = 32) -> int:
     return max(g, 1)
 
 
+def _rank_groups(T: int) -> int:
+    """The dispatch groups of this rank's T tokens. Under a data-parallel
+    context of n ranks (``distributed/fsdp.py``) the groups are those of
+    the global batch's n·T tokens, aligned with the data shards as in the
+    reference: the rank takes G/n of the G global groups, each of the
+    global size (so each expert keeps the global capacity C)."""
+    ctx = FSDP.current_fsdp()
+    n = 1 if ctx is None else ctx.size
+    G = _moe_groups(T * n)
+    if G % n:
+        raise NotImplementedError(
+            f"MoE dispatch over {n} data ranks: the global batch's "
+            f"{T * n} tokens form {G} groups, which do not divide over the "
+            f"data axis, so a rank's tokens are not whole groups")
+    return G // n
+
+
 def _top_k(probs: torch.Tensor, k: int):
     """``jax.lax.top_k`` over the last dim: the k largest, a tie going to
     the lower index (a stable descending sort; ``torch.topk`` promises no
@@ -443,7 +468,9 @@ def moe(p, cfg: ModelConfig, x):
     """x (B, S, D) → (y (B, S, D), the load-balance aux loss), the
     reference's grouped capacity dispatch (GShard-style dropping):
 
-    1. the B x S tokens in G groups of t (:func:`_moe_groups`); the router
+    1. the B x S tokens in G groups of t (:func:`_moe_groups`; under data
+       parallelism the rank's share of the global batch's groups,
+       :func:`_rank_groups`); the router
        (through ``api.matmul``, K1 on the card) picks each token's top k
        experts, their probabilities renormalized as gates;
     2. per group, the (token, choice) pairs sorted stably by expert fill
@@ -456,11 +483,15 @@ def moe(p, cfg: ModelConfig, x):
     4. combine: ``"gather"`` takes each pair's slot row times its gate and
        sums a token's k; ``"local"`` scales the slot rows by their gates
        (0 in the trash) and adds them into their tokens, in slot order.
+
+    The aux loss ``E · mean(density · mean probs)`` takes both means over
+    the global batch: under data parallelism each is averaged over the
+    data group (``fsdp.mean_over_data``) before the product is formed.
     """
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
     T = B * S
-    G = _moe_groups(T)
+    G = _rank_groups(T)
     t = T // G
     C = min(max(int(t * k / E * cfg.capacity_factor), 1), t * k)
     dev = x.device
@@ -470,9 +501,10 @@ def moe(p, cfg: ModelConfig, x):
     probs = torch.softmax(logits, dim=-1)
     gate, ids = _top_k(probs, k)                                # (G, t, k)
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    density = torch.nn.functional.one_hot(ids[..., 0], E).float().mean(
-        dim=(0, 1))
-    aux = E * torch.mean(density * probs.mean(dim=(0, 1)))
+    density = FSDP.mean_over_data(torch.nn.functional.one_hot(
+        ids[..., 0], E).float().mean(dim=(0, 1)))
+    aux = E * torch.mean(density * FSDP.mean_over_data(probs.mean(
+        dim=(0, 1))))
 
     # dispatch, every group at once: flat pair i = (token i // k, choice)
     flat_e = ids.reshape(G, t * k)

@@ -17,7 +17,13 @@ layers, and ``lm_loss`` the reference's next-token loss. With ``cfg.remat``
 each block of a cache-less forward under autograd runs through
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` per scanned
 layer): its activations are recomputed in the backward pass, which
-changes memory, never a value.
+changes memory, never a value. Under an FSDP context
+(``distributed/fsdp.py``) each block gathers its leaves inside the block's
+function, so remat frees them after the forward and gathers them again in
+the recompute; the embedding table, the final norm and the head are
+gathered where they are used. Under a model axis the loss is
+vocab-parallel: the logits stay the rank's vocab columns, as the
+reference keeps them sharded over ``act_vocab``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import api
+from repro_torch.distributed import fsdp as FSDP
 from repro_torch.distributed import tp as TP
 from repro_torch.models import layers as Lyr
 from repro_torch.models import ssm as SSM
@@ -159,12 +166,14 @@ def embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
     if embeds is not None:
         if tokens is None:
             return embeds
-        t = TP.embed(params["embed"], tokens, vocab=cfg.vocab)
+        t = TP.embed(FSDP.gathered(params["embed"], "embed"), tokens,
+                     vocab=cfg.vocab)
         return torch.cat([embeds.to(t.dtype), t], dim=1)    # vlm: img ⊕ text
     if cfg.n_codebooks:
-        table = params["embed_cb"]
+        table = FSDP.gathered(params["embed_cb"], "embed_cb")
         return sum(table[c][tokens[..., c]] for c in range(cfg.n_codebooks))
-    return TP.embed(params["embed"], tokens, vocab=cfg.vocab)
+    return TP.embed(FSDP.gathered(params["embed"], "embed"), tokens,
+                    vocab=cfg.vocab)
 
 
 def _apply_block(p, cfg: ModelConfig, x, *, positions, cache=None,
@@ -206,7 +215,8 @@ def _use_remat(cfg: ModelConfig, caches) -> bool:
 
 def forward(params, cfg: ModelConfig, batch, *,
             caches: Optional[List[Dict]] = None,
-            last_cols: Optional[torch.Tensor] = None):
+            last_cols: Optional[torch.Tensor] = None,
+            gather_logits: bool = True):
     """Returns (logits, caches, aux). ``batch``: tokens (B, S), (B, S,
     n_codebooks) for audio, or embeds (B, S, d_model), or (vlm) embeds (B,
     S_e, d_model) and tokens (B, S) for S_e + S columns [+ positions and
@@ -220,7 +230,9 @@ def forward(params, cfg: ModelConfig, batch, *,
     is the experts' load-balance loss summed over the layers (fp32, 0
     without experts; a hybrid's shared block adds none, as in the
     reference). ``cfg.remat`` recomputes each block in the backward pass
-    (:func:`_use_remat`)."""
+    (:func:`_use_remat`). Under a model axis the vocab-parallel head's
+    logits are gathered whole for sampling; ``gather_logits=False`` keeps
+    the rank's vocab columns (:func:`lm_loss`)."""
     x = embed_tokens(params, cfg, batch)
     B, S = x.shape[:2]
     positions = batch.get("positions")
@@ -234,47 +246,69 @@ def forward(params, cfg: ModelConfig, batch, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     gemm, attn = api.current_policy(), api.current_attention_policy()
-    tpctx = TP.current_tp()
+    tpctx, fsctx = TP.current_tp(), FSDP.current_fsdp()
 
-    def recompute(p, c, cache):
+    def apply(p, path, c, x_, cache):
+        # the block's leaves gathered over data inside the block's function
+        return _apply_block(FSDP.gathered(p, *path), c, x_, cache=cache,
+                            **kw)
+
+    def recompute(p, path, c, cache):
         # the backward pass (and so the recompute) may run on autograd's
-        # device thread, where the thread-local policies and TP context
-        # are the defaults
+        # device thread, where the thread-local policies and contexts are
+        # the defaults
         def run(x_):
             with api.use_policy(gemm), api.use_attention_policy(attn), \
-                    TP.use_tp(tpctx):
-                return _apply_block(p, c, x_, cache=cache, **kw)
+                    TP.use_tp(tpctx), FSDP.use_fsdp(fsctx):
+                return apply(p, path, c, x_, cache)
         return run
 
-    def block(p, c, x, cache):
+    def block(path, c, x, cache):
+        p = params
+        for k in path:
+            p = p[k]
         if use_remat:
-            return checkpoint(recompute(p, c, cache), x, use_reentrant=False)
-        return _apply_block(p, c, x, cache=cache, **kw)
+            return checkpoint(recompute(p, path, c, cache), x,
+                              use_reentrant=False)
+        return apply(p, path, c, x, cache)
 
     def cache(i):
         return None if caches is None else caches[i]
 
     for i in range(nd):                # deepseek's leading dense layers
-        x, _ = block(params[f"dense_layer{i}"], _dense_cfg(cfg), x, cache(i))
-    for i, lp in enumerate(layers):
-        x, aux_i = block(lp, cfg, x, cache(nd + i))
+        x, _ = block((f"dense_layer{i}",), _dense_cfg(cfg), x, cache(i))
+    for i in range(len(layers)):
+        x, aux_i = block(("layers", i), cfg, x, cache(nd + i))
         if aux_i is not None:
             aux = aux + aux_i
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             # the hybrid's shared block closes each group; its caches
             # follow the L layer caches, one per group
-            x, _ = block(params["shared_attn"], cfg, x,
+            x, _ = block(("shared_attn",), cfg, x,
                          cache(L + i // cfg.attn_every))
     if last_cols is not None:
         x = x[torch.arange(B, device=x.device), last_cols][:, None]
-    x = Lyr.apply_norm(cfg, params["final_norm"], x)
+    x = Lyr.apply_norm(cfg, FSDP.gathered(params["final_norm"], "final_norm"),
+                       x)
     # vocab-column-parallel under TP, gathered whole for sampling
-    logits = TP.linear(x, params["head"], axes=("embed", "vocab"),
+    logits = TP.linear(x, FSDP.gathered(params["head"], "head"),
+                       axes=("embed", "vocab"),
                        full=(cfg.d_model, cfg.vocab * max(cfg.n_codebooks, 1)),
-                       gather_out=True)
+                       gather_out=gather_logits)
     if cfg.n_codebooks:
         logits = logits.reshape(*x.shape[:2], cfg.n_codebooks, cfg.vocab)
     return logits, caches, aux
+
+
+def vocab_parallel(cfg: ModelConfig) -> bool:
+    """Whether :func:`lm_loss` takes the vocab-parallel loss under the
+    active TP context: the head's vocab columns are cut over the model
+    axis, each rank's a whole vocab slice (not so for the audio family's
+    ``vocab × n_codebooks`` head, whose loss gathers its logits)."""
+    ctx = TP.current_tp()
+    return (ctx is not None and ctx.model_size > 1 and not cfg.n_codebooks
+            and TP.param_cut(ctx, ("embed", "vocab"),
+                             (cfg.d_model, cfg.vocab)) is not None)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
@@ -282,9 +316,11 @@ def lm_loss(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
     next-token cross-entropy in fp32, plus ``aux_weight`` times the experts'
     load-balance loss. Audio predicts every codebook of the next frame;
     the VLM's image-embedding columns predict nothing; explicit
-    ``batch["labels"]`` label every text column. Returns (loss, {"ce",
-    "aux"})."""
-    logits, _, aux = forward(params, cfg, batch)
+    ``batch["labels"]`` label every text column. Under a model axis the
+    cross-entropy is vocab-parallel (:func:`vocab_parallel`,
+    ``tp.vocab_parallel_nll``). Returns (loss, {"ce", "aux"})."""
+    sharded = vocab_parallel(cfg)
+    logits, _, aux = forward(params, cfg, batch, gather_logits=not sharded)
     tokens = batch["tokens"]
     if cfg.n_codebooks:
         labels = tokens[:, 1:, :]
@@ -299,8 +335,11 @@ def lm_loss(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
             lg = logits[:, n_img:-1]
         else:
             lg = logits[:, n_img:]
-    logp = torch.log_softmax(lg.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])
+    if sharded:
+        nll = TP.vocab_parallel_nll(lg, labels)
+    else:
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])
     loss = torch.mean(nll)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 

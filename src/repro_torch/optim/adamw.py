@@ -3,10 +3,13 @@ error feedback (``repro/optim/adamw.py``), over nested dicts and lists of
 tensors.
 
 The reference shards the moments like their parameters (ZeRO over its
-mesh); here the mesh is one device, so each moment lives beside its
-parameter. The update is computed in fp32 and cast back to the
-parameter's dtype; decoupled weight decay applies to matrices only (a
-leaf of two or more dims). The port keeps its layers unstacked, so a
+mesh). Here each moment lives beside its parameter: on a mesh a rank
+runs AdamW on its cut of each param (``launch/steps.py::rank_params``),
+and ``adamw_init`` of the cuts gives moments cut the same way. The update
+is computed in fp32 and cast back to the parameter's dtype; decoupled
+weight decay applies to matrices only, by the whole leaf's rank (two or
+more dims): a cut keeps every dim of its leaf, so a shard decays as its
+leaf does. The port keeps its layers unstacked, so a
 layer's norm scale is 1-D here and takes no decay, where the reference's
 stacked (n_layers, d) scale does (ROADMAP.md, reference caveats).
 """
@@ -103,15 +106,16 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr,
     lr = torch.as_tensor(lr, dtype=torch.float32)
 
     def upd(p, g, mu, nu):
+        # the reference's arithmetic, op for op; the in-place ops write
+        # only tensors made here, so at most three of a leaf's size live
         g = g.float() * clip
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
-        mhat = mu / b1c
-        nhat = nu / b2c
-        delta = mhat / (torch.sqrt(nhat) + cfg.eps)
-        if p.dim() >= 2:   # decoupled weight decay on matrices only
-            delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), mu, nu
+        mu = (cfg.b1 * mu).add_((1 - cfg.b1) * g)
+        nu = (cfg.b2 * nu).add_((1 - cfg.b2) * g * g)
+        del g
+        delta = (mu / b1c).div_((nu / b2c).sqrt_().add_(cfg.eps))
+        if p.dim() >= 2:   # matrices only; a cut has its whole leaf's dims
+            delta.add_(cfg.weight_decay * p.float())
+        return (p.float() - delta.mul_(lr)).to(p.dtype), mu, nu
 
     out = tree_map(upd, params, grads, state["mu"], state["nu"])
     new_state = {"mu": _pick(out, 1), "nu": _pick(out, 2), "step": step}

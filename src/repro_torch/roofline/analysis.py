@@ -128,9 +128,11 @@ _ROUTE_DTYPE = {"cuda_cores": "float32", "cuda_cores_bf16kv": "float32"}
 
 
 def launch_cost(kernel: str, route: str, **s) -> Dict:
-    """{"flops", "bytes", "dtype"} of one launch of ``kernel`` on ``route``:
-    each input read once and each output written once, and the useful
-    operations — of the logical problem, not of the padded tiles.
+    """{"flops", "bytes", "dtype"[, "transcendentals"]} of one launch of
+    ``kernel`` on ``route``: each input read once and each output written
+    once, and the useful operations — of the logical problem, not of the
+    padded tiles; the attention kernels' and K6's ``exp`` s apart, as
+    XLA's cost analysis counts transcendentals.
 
       matrixflow_gemm          M, N, K, dtype[, out_dtype (dtype), G (1)]
       matrixflow_gemm_dequant  M, N, K[, out_dtype (fp32)]: int8 operands,
@@ -171,6 +173,7 @@ def launch_cost(kernel: str, route: str, **s) -> Dict:
         keys = s.get("keys", B * Sk)
         pairs = s.get("pairs", B * Sq * Sk)
         return dict(flops=2.0 * (D + Dv) * H * pairs,
+                    transcendentals=float(H * pairs),
                     bytes=(D + Dv) * keys * Hkv * _itemsize(kv)
                     + B * Sq * H * (D + Dv) * _itemsize(dt)
                     + 4 * (B * Sq + B),
@@ -185,6 +188,7 @@ def launch_cost(kernel: str, route: str, **s) -> Dict:
         page_bytes = ps * Hkv * D * _itemsize(kv) + (4 * Hkv if kv == "int8"
                                                      else 0)
         return dict(flops=4.0 * D * H * pairs,
+                    transcendentals=float(H * pairs),
                     bytes=2 * pages * page_bytes
                     + 2 * B * Sq * H * D * _itemsize(dt) + 4 * (B * nb + B * Sq),
                     dtype=_ROUTE_DTYPE.get(route, dt))
@@ -205,6 +209,7 @@ def launch_cost(kernel: str, route: str, **s) -> Dict:
         nbytes = (2 * B * S * H * P + 2 * B * S * N) * _itemsize(dt) \
             + 4 * (B * S * H + H + B * H * P * N)
         return dict(flops=float(flops), bytes=nbytes,
+                    transcendentals=float(B * H * nc * tri),
                     dtype=_ROUTE_DTYPE.get(route, dt))
     raise ValueError(f"no cost model for kernel {kernel!r}")
 
@@ -232,6 +237,7 @@ class CostLedger:
         self.marked: Dict[str, Dict[str, int]] = {}
         self.flops_by_dtype: Dict[str, float] = {}
         self.bytes = 0.0
+        self.transcendentals = 0.0
 
     def add(self, kernel: str, route: str, cost: Dict,
             marks: Tuple[str, ...] = ()) -> None:
@@ -244,6 +250,7 @@ class CostLedger:
         self.flops_by_dtype[dt] = self.flops_by_dtype.get(dt, 0.0) \
             + cost["flops"]
         self.bytes += cost["bytes"]
+        self.transcendentals += cost.get("transcendentals", 0.0)
 
     @property
     def flops(self) -> float:

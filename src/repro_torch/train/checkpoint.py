@@ -69,7 +69,7 @@ def _to_host(v):
 
 
 def _from_host(a: np.ndarray, want: Optional[str]) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(a.shape)    # a 0-d array stays 0-d
     if want == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)

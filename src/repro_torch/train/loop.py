@@ -11,10 +11,12 @@ card). The SSD families train on the CPU only: the scan kernel K6 has no
 backward, here or in the reference, and the plain scan does not stand in
 for a kernel on the card.
 
-On a mesh (``Trainer(mesh=)``, ``launch/mesh.py``) training is data
-parallel: every rank draws the same global batch, takes its rows of it
-and averages the gradients over the ``data`` group before AdamW
-(``launch/steps.py``); rank 0 alone writes checkpoints and logs.
+On a mesh (``Trainer(mesh=)``, ``launch/mesh.py``) every rank draws the
+same global batch and runs ``launch/steps.py``'s step on its rows and its
+cut of the params and moments (FSDP over ``data``, the rank's slices over
+``model``). A checkpoint holds whole arrays: every rank takes part in
+gathering them, rank 0 alone writes them (and logs), and a resume cuts
+each rank's share again, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -28,13 +30,11 @@ from repro_torch import resolve_device
 from repro_torch.core import api
 from repro_torch.core.plan import UNFUSED, GemmPolicy
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
-from repro_torch.launch.steps import all_reduce_mean, data_shard, \
-    value_and_grad
+from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Timer
-from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                               cosine_schedule)
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.adamw import tree_map
 from repro_torch.train.checkpoint import CheckpointManager
 
@@ -57,28 +57,20 @@ class TrainConfig:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, tc: TrainConfig,
                     mesh=None):
-    """(params, opt_state, batch) → (params, opt_state, metrics) under the
-    GEMM policy ``tc.gemm`` (default: the device's) and unfused
-    attention; with a ``mesh``, data parallel over its ``data`` axis
-    (``batch`` is the global batch)."""
+    """(params, opt_state, batch) → (params, opt_state, metrics): the step
+    of ``launch/steps.py`` (``make_train_step_fn``) with the Trainer's
+    schedule (``tc.base_lr``, ``tc.warmup`` over ``tc.steps``) and aux
+    weight, under the GEMM policy ``tc.gemm`` (default: the device's) and
+    unfused attention; on a ``mesh``, ``batch`` is the global batch and
+    the params and state are the rank's cuts (``steps.rank_params``)."""
     gemm = tc.gemm or GemmPolicy()
-    n_data = 1 if mesh is None else mesh.axis_size("data")
+    step = ST.make_train_step_fn(cfg, opt_cfg, total_steps=tc.steps,
+                                 mesh=mesh, base_lr=tc.base_lr,
+                                 warmup=tc.warmup, aux_weight=tc.aux_weight)
 
     def train_step(params, opt_state, batch):
-        batch = data_shard(batch, mesh)
         with api.use_policy(gemm), api.use_attention_policy(UNFUSED):
-            (loss, metrics), grads = value_and_grad(
-                lambda p: T.lm_loss(p, cfg, batch, aux_weight=tc.aux_weight),
-                params)
-        if n_data > 1:
-            grads, (loss, metrics) = all_reduce_mean(
-                (grads, (loss, metrics)), mesh.group("data"), n_data)
-        lr = cosine_schedule(opt_state["step"], base_lr=tc.base_lr,
-                             warmup=tc.warmup, total=tc.steps)
-        params, opt_state, opt_metrics, _ = adamw_update(
-            params, grads, opt_state, opt_cfg, lr)
-        return params, opt_state, dict(metrics, loss=loss, lr=lr,
-                                       **opt_metrics)
+            return step(params, opt_state, batch)
 
     return train_step
 
@@ -112,11 +104,13 @@ class Trainer:
         self.data = TokenPipeline(data_cfg)
         self.ckpt = (CheckpointManager(tc.ckpt_dir)
                      if tc.ckpt_dir else None)
-        # every rank holds the same params: rank 0 writes and logs
-        self.lead = mesh is None or mesh.rank == 0
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0     # writes and logs
         if params is None:
             params = T.init_model(cfg, seed=tc.seed, device=self.device)
-        self.params = tree_map(lambda t: t.detach().to(self.device), params)
+        self.params = ST.rank_params(
+            cfg, tree_map(lambda t: t.detach().to(self.device), params),
+            mesh)
         self.opt_state = adamw_init(self.params)
         self.start_step = 0
         self.step_times = []        # host wall seconds of each step run
@@ -127,8 +121,8 @@ class Trainer:
 
     # -- fault tolerance ------------------------------------------------
     def _resume(self):
-        state = self.ckpt.restore(
-            {"params": self.params, "opt": self.opt_state})
+        state = ST.rank_state(self.cfg, self.ckpt.restore(
+            {"params": self.params, "opt": self.opt_state}), self.mesh)
         self.params, self.opt_state = state["params"], state["opt"]
         meta = self.ckpt.meta()
         self.start_step = meta["step"]
@@ -136,9 +130,12 @@ class Trainer:
         print(f"[trainer] resumed from step {self.start_step}")
 
     def _save(self, step: int):
-        if self.ckpt and self.lead:
-            self.ckpt.save(step, {"params": self.params,
-                                  "opt": self.opt_state},
+        if not self.ckpt:
+            return
+        state = ST.full_state(self.cfg, {"params": self.params,
+                                         "opt": self.opt_state}, self.mesh)
+        if self.lead:
+            self.ckpt.save(step, state,
                            extra={"data": self.data.state_dict()})
 
     def _on_sigterm(self, *_):

@@ -1,15 +1,17 @@
 """Data-parallel training of the port (``launch/steps.py``,
-``train/loop.py`` on ``make_host_mesh()``) on two ranks over gloo.
+``train/loop.py`` on ``make_host_mesh()``) on two ranks over gloo, with
+the params and moments cut over data (FSDP, ``distributed/fsdp.py``).
 
 The fp32 smollm smoke config (2 layers, vocab 64) with the JAX init: a
 DP=2 ``make_train_step_fn`` step — each rank 2 of the 4 rows of the global
-batch, the gradients averaged by one all-reduce over the data group before
-AdamW — against the JAX single-device ``make_train_step_fn`` on the whole
-batch (xla GEMMs, unfused attention) within the fp32 train tolerances
-(``TOLS["float32"]``), and against the port's own one-device step; both
-steps take an lr (``torch_mesh_ranks.DP_LR``) whose first update is
-several times that tolerance. Three
-``Trainer`` steps on the mesh log the one-device Trainer's losses.
+batch and its half of every leaf's ``embed`` dim, each leaf gathered where
+the model uses it and its gradient reduce-scattered — against the JAX
+single-device ``make_train_step_fn`` on the whole batch (xla GEMMs,
+unfused attention) within the fp32 train tolerances (``TOLS["float32"]``),
+and against the port's own one-device step, the ranks' params gathered
+whole after the step; both steps take an lr (``torch_mesh_ranks.DP_LR``)
+whose first update is several times that tolerance. Three ``Trainer``
+steps on the mesh log the one-device Trainer's losses.
 """
 from __future__ import annotations
 
@@ -67,10 +69,11 @@ def run(tmp_path_factory):
         init = [a.numpy() for a in tree_leaves(from_jax_params(params_np,
                                                                 cfg))]
         one = R.dp_step(cfg, from_jax_params(params_np, cfg), batch, None)
+        one_device_bytes = one["held_bytes"]
         solo = R.dp_trainer(cfg, from_jax_params(params_np, cfg), DATA, None)
         ranks = ranks.result()
     return {"jax": (float(jm["loss"]), float(jm["grad_norm"]), want),
-            "init": init,
+            "init": init, "one_device_bytes": one_device_bytes,
             "ranks": ranks, "one": one, "solo": solo}
 
 
@@ -82,7 +85,8 @@ def test_dp2_step_matches_jax_single_device_step(run):
                 for w, i in zip(want, run["init"]))
     assert moved > 3 * ATOL, moved
     for res in run["ranks"]:
-        loss, norm, params = res["step"]
+        loss, norm, params = (res["step"][k]
+                              for k in ("loss", "grad_norm", "params"))
         np.testing.assert_allclose(loss, jloss, atol=ATOL, rtol=RTOL)
         np.testing.assert_allclose(norm, jnorm, atol=ATOL, rtol=RTOL)
         assert len(params) == len(want)
@@ -91,19 +95,33 @@ def test_dp2_step_matches_jax_single_device_step(run):
 
 
 def test_dp2_ranks_agree_and_match_one_device(run):
-    """Both ranks hold the same params after the step (one averaged
-    gradient), within the fp32 tolerances of the one-device port step;
-    one all-reduce carried the gradients and the metrics."""
-    (l0, n0, p0), (l1, n1, p1) = (r["step"] for r in run["ranks"])
-    assert (l0, n0) == (l1, n1)
-    for a, b in zip(p0, p1):
+    """Both ranks' params, gathered whole after the step, are the same
+    (one global gradient), within the fp32 tolerances of the one-device
+    port step; each rank held half the one-device step's param and moment
+    bytes but for the leaves that stay whole. The step's collectives: an
+    all-gather of each cut leaf where it is used, a reduce-scatter of its
+    gradient, one all-reduce of the whole leaves' gradients with the
+    metrics and one of the norm's squares: a layer's leaves gathered
+    again in remat's recompute (``R.fsdp_closed_form``)."""
+    s0, s1 = (r["step"] for r in run["ranks"])
+    assert (s0["loss"], s0["grad_norm"]) == (s1["loss"], s1["grad_norm"])
+    for a, b in zip(s0["params"], s1["params"]):
         np.testing.assert_array_equal(a, b)
-    loss, norm, params = run["one"]
-    np.testing.assert_allclose(l0, loss, atol=ATOL, rtol=RTOL)
-    for a, b in zip(p0, params):
+    one = run["one"]
+    np.testing.assert_allclose(s0["loss"], one["loss"], atol=ATOL, rtol=RTOL)
+    for a, b in zip(s0["params"], one["params"]):
         np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL)
-    c = run["ranks"][0]["collectives"]["calls"]
-    assert c == {"all_reduce": 1, "broadcast": 0}
+    cfg = R.dp_config()
+    whole = sum(a.nbytes for a, cut in zip(
+        run["init"], R.data_cuts(cfg, 2)) if cut is None)
+    # params fp32 + two fp32 moments: 12 bytes a weight, half of each cut
+    assert s0["held_bytes"] == (run["one_device_bytes"] + 3 * whole) // 2
+    want = R.fsdp_closed_form(cfg, (2, 1))
+    for r in run["ranks"]:
+        c = r["step"]["collectives"]
+        assert c["calls"] == {"all_reduce": 2, "broadcast": 0,
+                              **want["calls"]}
+        assert {k: c["bytes"][k] for k in want["bytes"]} == want["bytes"]
 
 
 def test_dp2_trainer_tracks_one_device_trainer(run):

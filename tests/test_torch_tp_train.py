@@ -7,13 +7,15 @@ qwen3 smoke config with its sharding overrides cleared (4 / 2 heads, so
 the heads, the KV heads, d_ff, the vocab of the embedding and the head all
 split over the model axis; the q/k norms and the layer norms stay
 replicated). A TP=2 step on 2 rows (both data rows fed the same rows, so
-the data all-reduce averages two equal gradients: exactly the TP=2 pair's
+the data ranks average two equal gradients: exactly the TP=2 pair's
 step) and a DP=2 × TP=2 step on 4 rows, each held against the JAX
 ``make_train_step_fn`` on the same rows (xla GEMMs, unfused attention):
-loss, gradient norm and every param slice within ``TOLS["float32"]``, the
-slices cut from the JAX result as the port cuts a rank's
-(``rank_params`` at the rank's coordinates of an abstract mesh). The
-norm leaves' gradients are the same on both model ranks of a data row.
+loss, gradient norm and every param within ``TOLS["float32"]``, each
+rank's params gathered whole after the step (``steps.full_params``). A
+rank holds its slices over ``model`` and its cut over ``data`` (FSDP), as
+``rank_params`` cuts them at the rank's coordinates of an abstract mesh.
+The norm leaves' gradients are the same on both model ranks of a data
+row.
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ def run(tmp_path_factory):
 
 
 def _rank_slices(cfg, params_np, rank):
-    """The JAX params ``params_np`` cut to ``rank``'s slices, as the port
+    """The JAX params ``params_np`` cut to ``rank``'s share, as the port
     cuts a rank's (``rank_params``)."""
     mesh = Mesh.abstract(*MESH, rank=rank)
     return [t.numpy() for t in tree_leaves(
@@ -88,18 +90,19 @@ def _rank_slices(cfg, params_np, rank):
 
 @pytest.mark.parametrize("case", ["tp2", "dp2tp2"])
 def test_tp_train_step_matches_jax_unsharded_step(run, case):
-    """Each rank's loss, gradient norm and param slices after the step
-    equal the JAX step's, cut the same way; the step moved the weights by
+    """Each rank's loss, gradient norm and params after the step,
+    gathered whole, equal the JAX step's; the step moved the weights by
     several times the tolerance (``R.DP_LR``)."""
     jloss, jnorm, jp = run["want"][case]
     cfg = run["cfg"]
-    for r, res in enumerate(run["ranks"]):
+    want = [t.numpy() for t in tree_leaves(from_jax_params(jp, cfg))]
+    init = [t.numpy() for t in tree_leaves(
+        from_jax_params(run["init"], cfg))]
+    for res in run["ranks"]:
         got = res[case]
         np.testing.assert_allclose(got["loss"], jloss, atol=ATOL, rtol=RTOL)
         np.testing.assert_allclose(got["grad_norm"], jnorm, atol=ATOL,
                                    rtol=RTOL)
-        want = _rank_slices(cfg, jp, r)
-        init = _rank_slices(cfg, run["init"], r)
         assert len(got["params"]) == len(want)
         moved = max(float(np.abs(w - i).max()) for w, i in zip(want, init))
         assert moved > 3 * ATOL, moved
@@ -109,16 +112,24 @@ def test_tp_train_step_matches_jax_unsharded_step(run, case):
 
 
 def test_tp_ranks_hold_slices_and_count_collectives(run):
-    """The model ranks hold halves of the sharded leaves; the step's
-    collectives are all-reduces only, the same number on every rank."""
+    """The ranks hold their cuts of the leaves (over model, over data or
+    both); the step's collectives are the same on every rank: all-reduces,
+    and the FSDP all-gathers and reduce-scatters of
+    ``R.fsdp_closed_form``."""
     cfg = run["cfg"]
-    whole = [a.shape for a in _rank_slices(cfg, run["init"], 0)]
+    held = [a.shape for a in _rank_slices(cfg, run["init"], 0)]
     full = [np.shape(a) for a in tree_leaves(
         from_jax_params(run["init"], cfg))]
-    assert sum(w != f for w, f in zip(whole, full)) >= 8
+    assert sum(w != f for w, f in zip(held, full)) >= 8
     calls = [r["dp2tp2"]["collectives"]["calls"] for r in run["ranks"]]
     assert all(c == calls[0] for c in calls)
     assert calls[0]["broadcast"] == 0 and calls[0]["all_reduce"] > 4
+    want = R.fsdp_closed_form(cfg, MESH[0])
+    for r, res in enumerate(run["ranks"]):
+        c = res["dp2tp2"]["collectives"]
+        assert {k: c["calls"][k] for k in want["calls"]} == want["calls"]
+        assert {k: c["bytes"][k] for k in want["bytes"]} == \
+            R.fsdp_closed_form(cfg, MESH[0], r)["bytes"]
 
 
 def test_norm_gradients_identical_across_model_ranks(run):

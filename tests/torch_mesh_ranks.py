@@ -18,6 +18,7 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.convert import from_jax_params
 from repro_torch.core import api
 from repro_torch.core.plan import AttentionPolicy, GemmPolicy
+from repro_torch.distributed import fsdp as FSDP
 from repro_torch.distributed import tp as TP
 from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.serving.engine import ServeConfig, ServingEngine
@@ -323,6 +324,44 @@ def tp_serving_rank(rank, world, params_np, gemm_cells, attn_cells):
 DP_LR = 5e-2
 
 
+def data_cuts(cfg, n):
+    """Each leaf's cut over ``n`` data ranks (``fsdp.Cut``, or None where
+    it stays whole), in ``tree_leaves`` order."""
+    from repro_torch.models import transformer as T
+    ctx = FSDP.make_context(cfg, Mesh.abstract((n, 1), ("data", "model")))
+    return [c for _, c in FSDP.leaves_with_cuts(
+        T.init_model(cfg, device="meta"), ctx)]
+
+
+def fsdp_closed_form(cfg, mesh_shape, rank=0):
+    """The all-gathers and reduce-scatters of one FSDP train step of
+    ``cfg`` (no pipeline, no hybrid) at ``rank`` of a (data, model) mesh:
+    every cut leaf gathered where it is used — a layer's again in remat's
+    recompute — and its gradient reduce-scattered once; calls and bytes,
+    as ``tp.collectives`` counts them (the gathered leaf, the rank's
+    cut)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    mesh = Mesh.abstract(mesh_shape, ("data", "model"), rank)
+    held = ST.rank_params(cfg, T.init_model(cfg, device="meta"), mesh)
+    ctx = FSDP.make_context(cfg, mesh)
+    keys = [k for k in sorted(held) for _ in tree_leaves(held[k])]
+    out = {"calls": {"all_gather": 0, "reduce_scatter": 0},
+           "bytes": {"all_gather": 0, "reduce_scatter": 0}}
+    for key, (t, cut) in zip(keys, FSDP.leaves_with_cuts(held, ctx)):
+        if cut is None:
+            continue
+        block = key == "layers" or key.startswith("dense_layer")
+        gathers = 2 if block and cfg.remat else 1
+        nbytes = t.numel() * t.element_size()
+        out["calls"]["all_gather"] += gathers
+        out["bytes"]["all_gather"] += gathers * nbytes * ctx.size
+        out["calls"]["reduce_scatter"] += 1
+        out["bytes"]["reduce_scatter"] += nbytes
+    return out
+
+
 def dp_config():
     return get_smoke_config("smollm-135m", n_layers=2, vocab=64,
                             dtype="float32")
@@ -335,18 +374,35 @@ def _leaves_np(tree):
 
 def dp_step(cfg, params, batch, mesh):
     """One make_train_step_fn step (lr :data:`DP_LR`) on ``batch`` (the
-    global batch) under K1's autograd Function and unfused attention, on
-    ``mesh`` or one device: (loss, grad_norm, params after the update)."""
+    global batch) under K1's autograd Function and unfused attention, from
+    the whole ``params`` cut to this rank's share on ``mesh``
+    (``rank_params``: FSDP over data, slices over model) or on one device:
+    loss, grad_norm, the step's collectives, the bytes of the params and
+    moments the rank held, and the params after the update gathered whole
+    (``steps.full_params``)."""
     from repro_torch.core.plan import UNFUSED
     from repro_torch.launch import steps as ST
     from repro_torch.optim import AdamWConfig, adamw_init
     step = ST.make_train_step_fn(cfg, AdamWConfig(lr=DP_LR), total_steps=10,
                                  mesh=mesh)
+    held = ST.rank_params(cfg, params, mesh)
+    opt = adamw_init(held)
+    TP.collectives.reset()
     with api.use_policy(GemmPolicy(backend="matrixflow")), \
             api.use_attention_policy(UNFUSED):
-        p, _, m = step(params, adamw_init(params),
-                       {k: torch.from_numpy(v) for k, v in batch.items()})
-    return float(m["loss"]), float(m["grad_norm"]), _leaves_np(p)
+        p, opt, m = step(held, opt,
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
+    coll = TP.collectives.snapshot()
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 _leaves(p) + _leaves(opt["mu"]) + _leaves(opt["nu"]))
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "aux": float(m["aux"]), "collectives": coll, "held_bytes": nbytes,
+            "params": _leaves_np(ST.full_params(cfg, p, mesh))}
+
+
+def _leaves(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return tree_leaves(tree)
 
 
 def dp_trainer(cfg, params, data_kw, mesh):
@@ -364,13 +420,10 @@ def dp_trainer(cfg, params, data_kw, mesh):
 def dp_rank(rank, world, params_np, batch, data_kw):
     cfg = dp_config()
     mesh = make_host_mesh()
-    TP.collectives.reset()
-    out = {"step": dp_step(cfg, from_jax_params(params_np, cfg), batch,
-                           mesh),
-           "collectives": TP.collectives.snapshot(),
-           "trainer": dp_trainer(cfg, from_jax_params(params_np, cfg),
-                                 data_kw, mesh)}
-    return out
+    return {"step": dp_step(cfg, from_jax_params(params_np, cfg), batch,
+                            mesh),
+            "trainer": dp_trainer(cfg, from_jax_params(params_np, cfg),
+                                  data_kw, mesh)}
 
 
 # ---------------------------------------------------------------------------
@@ -419,9 +472,10 @@ def _norm_leaves(tree, path=()):
 
 def tp_train_rank(rank, world, params_np, batches):
     """One make_train_step_fn step (lr :data:`DP_LR`) from the whole
-    ``params_np`` cut to this rank's slices, per named global batch, on
-    the (data 2, model 2) mesh; and the gradients of the norm leaves on
-    the last batch (this rank's data rows). A batch whose two halves are
+    ``params_np`` cut to this rank's share (FSDP over data, slices over
+    model), per named global batch, on the (data 2, model 2) mesh; and
+    the gradients of the norm leaves' cuts on the last batch (this rank's
+    data rows, reduce-scattered over data). A batch whose two halves are
     equal gives both data rows the same rows, so their averaged gradient
     is exactly each TP=2 pair's own: that batch runs TP=2 alone."""
     from repro_torch.core.plan import UNFUSED
@@ -432,14 +486,12 @@ def tp_train_rank(rank, world, params_np, batches):
     whole = from_jax_params(params_np, cfg)
     out = {"coords": dict(mesh.coords)}
     for name, batch in batches.items():
-        TP.collectives.reset()
-        out[name] = dict(zip(("loss", "grad_norm", "params"), dp_step(
-            cfg, ST.rank_params(cfg, whole, mesh), batch, mesh)),
-            collectives=TP.collectives.snapshot())
+        out[name] = dp_step(cfg, whole, batch, mesh)
     params = ST.rank_params(cfg, whole, mesh)
     rows = ST.data_shard({k: torch.from_numpy(v) for k, v in batch.items()},
                          mesh)
     with TP.use_tp(ST.tp_context(cfg, mesh)), \
+            FSDP.use_fsdp(FSDP.make_context(cfg, mesh)), \
             api.use_policy(GemmPolicy(backend="matrixflow")), \
             api.use_attention_policy(UNFUSED):
         _, grads = ST.value_and_grad(lambda p: T.lm_loss(p, cfg, rows),
@@ -479,3 +531,155 @@ def tp_decode_rank(rank, world, rows, max_len):
     with torch.no_grad():
         make_decode_step(cfg, tpctx=ctx)(params, tok, tok, caches)
     return TP.collectives.snapshot()
+
+
+# ---------------------------------------------------------------------------
+# MoE under data parallelism: the dispatch groups and the aux loss of the
+# global batch
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("dbrx-132b", "deepseek-v2-236b")
+
+
+def moe_config(arch):
+    return get_smoke_config(arch, n_layers=2, vocab=64, dtype="float32")
+
+
+def moe_dp_rank(rank, world, params_by_arch, batch):
+    """A DP=2 step of each MoE smoke config from its whole JAX-init params
+    (:func:`dp_step`): loss, aux, grad norm and the params gathered
+    whole."""
+    mesh = make_host_mesh()
+    return {arch: dp_step(moe_config(arch),
+                          from_jax_params(p, moe_config(arch)), batch, mesh)
+            for arch, p in params_by_arch.items()}
+
+
+# ---------------------------------------------------------------------------
+# The vocab-parallel loss at TP=2
+# ---------------------------------------------------------------------------
+
+def gathered_lm_loss(params, cfg, batch):
+    """``transformer.lm_loss``' cross-entropy with the logits gathered
+    whole over the model group before an fp32 ``log_softmax`` (the loss
+    before the vocab-parallel one)."""
+    from repro_torch.models import transformer as T
+    logits, _, aux = T.forward(params, cfg, batch)
+    lg = logits[:, :-1].float()
+    nll = -torch.gather(torch.log_softmax(lg, dim=-1), -1,
+                        batch["tokens"][:, 1:].long()[..., None])
+    return torch.mean(nll) + 0.01 * aux
+
+
+def _loss_and_grads(fn, params, cfg, rows, mesh):
+    from repro_torch.core.plan import UNFUSED
+    from repro_torch.launch import steps as ST
+    TP.collectives.reset()
+    with TP.use_tp(ST.tp_context(cfg, mesh)), \
+            api.use_policy(GemmPolicy(backend="matrixflow")), \
+            api.use_attention_policy(UNFUSED):
+        (loss, _), grads = ST.value_and_grad(
+            lambda p: (fn(p), {}), params)
+    return {"loss": float(loss), "grads": _leaves_np(grads),
+            "collectives": TP.collectives.snapshot()}
+
+
+def vocab_loss_rank(rank, world, params_np, batch, audio_np, audio_batch):
+    """At TP=2 (a (1, 2) mesh) on the rank's slices of the fp32 qwen3
+    smoke config (overrides cleared): the loss and its gradients, vocab-
+    parallel (``lm_loss``) and gathered (:func:`gathered_lm_loss`); a
+    train step of qwen3 under its own overrides (KV heads replicated: the
+    cache-less attention on the rank's query heads over their group's KV
+    heads, ``tp.kv_group_slice``); and musicgen's loss, whose head is not
+    vocab slices of each codebook (the loss gathers)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    mesh = make_host_mesh(model=world)
+    cfg = tp_config()
+    rows = {k: torch.from_numpy(v) for k, v in batch.items()}
+    held = ST.rank_params(cfg, from_jax_params(params_np, cfg), mesh)
+    out = {"vocab_parallel": _loss_and_grads(
+               lambda p: T.lm_loss(p, cfg, rows)[0], held, cfg, rows, mesh),
+           "gathered": _loss_and_grads(
+               lambda p: gathered_lm_loss(p, cfg, rows), held, cfg, rows,
+               mesh)}
+    with TP.use_tp(ST.tp_context(cfg, mesh)):
+        out["is_vocab_parallel"] = T.vocab_parallel(cfg)
+    own = get_smoke_config("qwen3-8b", n_layers=2, vocab=64, dtype="float32")
+    out["own_overrides"] = dp_step(own, from_jax_params(params_np, own),
+                                   batch, mesh)
+    ctx = ST.tp_context(own, mesh)
+    out["kv_slice"] = TP.kv_group_slice(ctx, own.n_heads, own.n_kv_heads)
+    audio = get_smoke_config("musicgen-medium", n_layers=2, vocab=64,
+                             dtype="float32")
+    arows = {k: torch.from_numpy(v) for k, v in audio_batch.items()}
+    with TP.use_tp(ST.tp_context(audio, mesh)):
+        out["audio_vocab_parallel"] = T.vocab_parallel(audio)
+    out["audio"] = _loss_and_grads(
+        lambda p: T.lm_loss(p, audio, arows)[0],
+        ST.rank_params(audio, from_jax_params(audio_np, audio), mesh), audio,
+        arows, mesh)["loss"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FSDP on the 2 x 2 mesh: the step, checkpoints of sharded state
+# ---------------------------------------------------------------------------
+
+def _state_np(state):
+    """A ``{"params", "opt"}`` state as numpy leaves (bf16 as fp32 values:
+    the tests' states are fp32), in ``tree_leaves`` order."""
+    from repro_torch.optim.adamw import tree_leaves
+    return [t.detach().numpy() for t in tree_leaves(state)]
+
+
+def fsdp_rank(rank, world, params_np, batch, ckpts, cli):
+    """On the (data 2, model 2) mesh, the fp32 smollm smoke config: one
+    step from the whole JAX-init params cut to this rank's share
+    (:func:`dp_step`, which gathers the params after it); the state after
+    the step gathered whole and written by rank 0 as step 1 to
+    ``ckpts["mesh"]``; and each checkpoint of ``ckpts["restore"]`` (one
+    written on one device by the port, one by the JAX package) restored
+    to the rank's cut (``steps.rank_state``), its shapes and the whole
+    state gathered back from it; then ``launch/train.py --dp 2 --tp 2
+    --ckpt-dir``, 2 steps and a resumed third into ``cli["resumed"]``, 3
+    steps into ``cli["straight"]``."""
+    from repro_torch.core.plan import UNFUSED
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg = dp_config()
+    mesh = make_host_mesh(model=2)
+    whole = from_jax_params(params_np, cfg)
+    out = {"coords": dict(mesh.coords), "step": dp_step(cfg, whole, batch,
+                                                       mesh)}
+    step = ST.make_train_step_fn(cfg, AdamWConfig(lr=DP_LR), total_steps=10,
+                                 mesh=mesh)
+    held = ST.rank_params(cfg, whole, mesh)
+    with api.use_policy(GemmPolicy(backend="matrixflow")), \
+            api.use_attention_policy(UNFUSED):
+        p, opt, _ = step(held, adamw_init(held),
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
+    state = ST.full_state(cfg, {"params": p, "opt": opt}, mesh)
+    if mesh.rank == 0:
+        CheckpointManager(ckpts["mesh"], async_save=False).save(1, state)
+    out["saved"] = _state_np(state)
+    template = {"params": p, "opt": opt}
+    for name, d in ckpts["restore"].items():
+        mine = ST.rank_state(cfg, CheckpointManager(d).restore(template),
+                             mesh)
+        out[name] = {"shapes": [tuple(t.shape) for t in _leaves(mine)],
+                     "whole": _state_np(ST.full_state(cfg, mine, mesh))}
+    out["held_shapes"] = [tuple(t.shape) for t in _leaves(template)]
+    import torch.distributed as dist
+    from repro_torch.launch import train as TR
+    argv = ["--arch", "smollm-135m", "--smoke", "--global-batch", "4",
+            "--seq-len", "16", "--device", "cpu", "--dp", "2", "--tp", "2",
+            "--ckpt-every", "1", "--log-every", "1"]
+    for steps, d in ((2, cli["resumed"]), (3, cli["resumed"]),
+                     (3, cli["straight"])):
+        TR.main(argv + ["--steps", str(steps), "--ckpt-dir", d])
+        dist.barrier()           # rank 0's last write is on disk
+    out["cli"] = {"steps": {k: CheckpointManager(d).all_steps()
+                            for k, d in cli.items()}}
+    return out
