@@ -210,6 +210,26 @@ CUDA toolkit. Phases, each fatal on failure:
              recompute, reduce-scattered once), and every collective equal
              to the dry run's of the same cell on ``Mesh.abstract``; on
              DP=2 one bf16 step a rank timed. (``--fsdp`` runs it alone.)
+27. expert parallelism — dbrx-132b at full width, 1 of its 40 layers, B
+             2 x 64: the fp32 forward and backward on one device (no
+             full-width AdamW step of even one layer fits the card), its
+             bank gradients kept on the host and the rest freed, then on
+             two ranks at EP=2 (the (1, 2) mesh: 8 of the 16 experts a
+             rank): each rank's loss, aux and grad norm within 1e-6
+             relative of one device's, its bank-gradient slices within the
+             fp32 TOLS, its bank bytes exactly half, its collectives equal
+             to the dry run's on ``Mesh.abstract``, K1 by route and its
+             peak allocation printed; then a bf16 forward and backward
+             timed on one device and a rank. (``--ep`` runs it alone.)
+28. pod axis — smollm-135m at full width and depth, B 8 x 128, one fp32
+             AdamW step on one device, plain and with ``compress_grads``;
+             then four ranks on (pod 2, data 2, model 1) with FSDP over
+             data, held to the plain step, and on (pod 2, data 1, model
+             2) with compression (the amax reduced over the model cut),
+             held to the compressed step but at recorded int8 rounding
+             ties, as phase 26 holds its ranks; rank 0's collectives by
+             kind and by axes (the pod all-reduce) equal to the dry run's.
+             (``--pod`` runs it alone.)
 25. roofline — the dry run (``repro_torch.launch.dryrun``) on meta tensors
              at the shapes of three runs measured above: smollm-135m's
              paged decode step at 8 live slots (phase 3), bert-base's
@@ -2971,48 +2991,65 @@ MIXED_PARITY_LAYERS = 2
 # uninterrupted run's bitwise: a step on an H100 repeats bitwise (the
 # phase checks that too), so any gap means a lost data cursor, Adam moment
 # or schedule step.
-# The unfused attention's products at smollm-135m's B 8 x 9 heads, S 128,
-# head_dim 64: one batched K1 launch each (forward: scores, values; backward:
-# the four products of their gradients). (name, M, K, N, out)
-TRAIN_BATCH_CELLS = (("scores q.kT", 128, 64, 128, "float32"),
-                     ("values p.v", 128, 128, 64, "bfloat16"),
-                     ("dq = ds.k / dv = pT.do", 128, 128, 64, "bfloat16"),
-                     ("dk = qT.ds", 64, 128, 128, "bfloat16"),
-                     ("dp = do.vT", 128, 64, 128, "bfloat16"))
+# The unfused attention's products at S tokens and head_dim dh, one
+# batched K1 launch each over the B x heads problems (forward: scores,
+# values; backward: the four products of their gradients); smollm-135m's
+# are S 128, dh 64 at B 8 x 9 heads. (name, M, K, N, out in bf16)
+def train_batch_cells(S, dh):
+    return (("scores q.kT", S, dh, S, "float32"),
+            ("values p.v", S, S, dh, "bfloat16"),
+            ("dq = ds.k / dv = pT.do", S, S, dh, "bfloat16"),
+            ("dk = qT.ds", dh, S, S, "bfloat16"),
+            ("dp = do.vT", S, dh, S, "bfloat16"))
+
+
 K1_TRAIN = ("matrixflow_gemm", "matrixflow_gemm_wgmma",
             "matrixflow_gemm_batched", "matrixflow_gemm_backward")
 FORWARD_ONLY = ("matrixflow_gemm_dequant", "flash_attention",
                 "paged_attention", "paged_attention_int8", "ssd_scan")
 
 
-def train_projection_cells(cfg, M):
-    """(name, K, N) of every K1 product of a dense layer and the head."""
+def train_projection_cells(cfg):
+    """(name, K, N, forward out) of every K1 product of a dense layer and
+    the head (out None: the operands' dtype)."""
     d, H, Hkv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.head_dim, cfg.d_ff)
-    return (("q", d, H * dh), ("k/v", d, Hkv * dh), ("o", H * dh, d),
-            ("mlp in", d, 2 * f), ("mlp out", f, d), ("head", d, cfg.vocab))
+    return (("q", d, H * dh, None), ("k/v", d, Hkv * dh, None),
+            ("o", H * dh, d, None), ("mlp in", d, 2 * f, None),
+            ("mlp out", f, d, None), ("head", d, cfg.vocab, None))
 
 
-def run_train_kernel_phase(timer, cfg):
-    """K1 at the training step's shapes, bf16: every projection's forward
-    (C = A.W), its two backward products (dA = dC.Wt, dW = At.dC, each laid
-    out block-major as its own problem), and the batch grid at the unfused
-    attention's products (72 problems a launch). Each against its plain
-    version, timed with the plain version, one PyTorch call (torch.matmul;
-    torch.bmm for a batch) and the bound. ``uses`` per training step: each
-    block's forward runs twice under remat, its backward once."""
+def run_train_kernel_phase(timer, cfg, *, M=TRAIN_BATCH * TRAIN_SEQ,
+                           problems=None, seq=TRAIN_SEQ,
+                           projections=None, dtypes=("bfloat16",),
+                           path=lambda direction: f"train {direction}",
+                           tag="", seed=20):
+    """K1 at a training step's shapes (default smollm-135m's, bf16): every
+    projection's forward (C = A.W), its two backward products (dA = dC.Wt,
+    dW = At.dC, each laid out block-major as its own problem), and the
+    batch grid at the unfused attention's products (``problems`` a
+    launch, default TRAIN_BATCH x the heads; ``seq`` tokens). Each against its plain version
+    within GEMM_TOLS on the route its dtype takes (bf16: wgmma; fp32: the
+    CUDA cores), timed with the plain version, one PyTorch call
+    (torch.matmul; torch.bmm for a batch) and the bound. ``projections``
+    (default :func:`train_projection_cells`) give (name, K, N, forward
+    out); ``path`` names a cell's path from its direction ("forward",
+    "backward", "batch grid forward", "batch grid backward"). ``uses``
+    per step: each block's forward runs twice under remat, its backward
+    once."""
     from repro_torch.core import layout as L
     from repro_torch.core.plan import GemmPolicy, plan
     from repro_torch.kernels import matrixflow_gemm as MF
 
     rows = []
-    gen = torch.Generator(device="cuda").manual_seed(20)
-    dt = torch.bfloat16
-    M = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     L_ = cfg.n_layers
     pol = GemmPolicy()
+    projections = projections or train_projection_cells(cfg)
+    problems = problems or TRAIN_BATCH * cfg.n_heads
 
-    def cell(name, a, b, out_dt, path, uses, batched=False):
+    def cell(name, a, b, out_dt, direction, uses, batched=False):
+        dt = a.dtype
         Mx, Kx = a.shape[-2:]
         Nx = b.shape[-1]
         blk = plan(Mx, Nx, Kx, dt, pol, "cuda").layout
@@ -3024,56 +3061,68 @@ def run_train_kernel_phase(timer, cfg):
         want = MF.plain(a_bm, b_bm, out_dtype=out_dt)
         torch.cuda.synchronize()
         G = a.shape[0] if batched else 1
-        label = (f"matrixflow_gemm {name} " + (f"G={G} " if batched else "")
-                 + f"M={Mx} K={Kx} N={Nx} bf16->{str(out_dt)[6:]}")
+        dtype = str(dt)[6:]
+        short = "bf16" if dt == torch.bfloat16 else "fp32"
+        label = (f"matrixflow_gemm {tag}{name} "
+                 + (f"G={G} " if batched else "")
+                 + f"M={Mx} K={Kx} N={Nx} {short}->{str(out_dt)[6:]}")
         route = route_taken(before, after, "matrixflow_gemm",
                             ("wgmma", "mma", "cuda_core"))
-        if route != "wgmma" or (after["matrixflow_gemm_batched"]
-                                - before["matrixflow_gemm_batched"]) != batched:
-            fail(f"{label}: route {route}, batched launches "
-                 f"{after['matrixflow_gemm_batched']}")
-        atol, rtol = GEMM_TOLS["bfloat16"]
+        expect = "wgmma" if dt == torch.bfloat16 else "cuda_core"
+        if route != expect or (after["matrixflow_gemm_batched"]
+                               - before["matrixflow_gemm_batched"]) != batched:
+            fail(f"{label}: route {route} (expected {expect}), batched "
+                 f"launches {after['matrixflow_gemm_batched']}")
+        atol, rtol = GEMM_TOLS[dtype]
         err = check_close(label, got, want, atol, rtol)
+        del got, want
         t_k = timer.ms(lambda: MF.matrixflow_gemm_block_major(
             a_bm, b_bm, out_dtype=out_dt))
         t_p = timer.ms(lambda: MF.plain(a_bm, b_bm, out_dtype=out_dt))
         lib = torch.bmm if batched else torch.matmul
         t_lib = timer.ms(lambda: lib(a, b))
         b_ms, b_by = bound_ms("matrixflow_gemm", route, M=Mx, N=Nx, K=Kx,
-                              dtype=torch.bfloat16, out_dtype=out_dt, G=G)
-        rows.append(dict(cell=label, dtype="bfloat16", M=Mx, K=Kx, N=Nx,
+                              dtype=dt, out_dtype=out_dt, G=G)
+        rows.append(dict(cell=label, dtype=dtype, M=Mx, K=Kx, N=Nx,
                          G=G, block=[blk.bm, blk.bn, blk.bk], route=route,
-                         path=path, uses=uses, max_abs_err=err, ms=t_k,
-                         plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
-                         bound_by=b_by))
+                         path=path(direction), uses=uses, max_abs_err=err,
+                         ms=t_k, plain_ms=t_p, library_ms=t_lib,
+                         bound_ms=b_ms, bound_by=b_by))
         log(f"{label}: blocks {blk.bm}x{blk.bn}x{blk.bk} max|d|={err:.2e} "
             f"kernel {t_k:.4f} ms plain {t_p:.4f} ms "
             f"{'bmm' if batched else 'matmul'} {t_lib:.4f} ms bound "
             f"{b_ms:.4f} ms ({b_by})")
 
-    for name, K, N in train_projection_cells(cfg, M):
-        head = name == "head"
-        a = (torch.randn((M, K), generator=gen, device="cuda")).to(dt)
-        w = (torch.randn((K, N), generator=gen, device="cuda")
-             / K ** 0.5).to(dt)
-        dc = (torch.randn((M, N), generator=gen, device="cuda")
-              / N ** 0.5).to(dt)
-        fwd_uses = (1 if head else 2 * L_) * (2 if name == "k/v" else 1)
-        bwd_uses = (1 if head else L_) * (2 if name == "k/v" else 1)
-        cell(f"{name} forward", a, w, dt, "train forward", fwd_uses)
-        cell(f"{name} dA", dc, w.t(), dt, "train backward", bwd_uses)
-        cell(f"{name} dW", a.t(), dc, dt, "train backward", bwd_uses)
-        del a, w, dc
-    G = TRAIN_BATCH * cfg.n_heads
-    for i, (name, Mx, Kx, Nx, out) in enumerate(TRAIN_BATCH_CELLS):
-        a = torch.randn((G, Mx, Kx), generator=gen, device="cuda").to(dt)
-        b = torch.randn((G, Kx, Nx), generator=gen, device="cuda").to(dt)
-        # forward: 2 L launches a step (remat); backward: each forward
-        # product's two gradients, L launches each
-        path = "train batch grid forward" if i < 2 else \
-            "train batch grid backward"
-        uses = 2 * L_ if i < 2 else (2 * L_ if i == 2 else L_)
-        cell(name, a, b, getattr(torch, out), path, uses, batched=True)
+    for dtype in dtypes:
+        dt = getattr(torch, dtype)
+        for name, K, N, fwd_out in projections:
+            head = name == "head"
+            a = (torch.randn((M, K), generator=gen, device="cuda")).to(dt)
+            w = (torch.randn((K, N), generator=gen, device="cuda")
+                 / K ** 0.5).to(dt)
+            dc = (torch.randn((M, N), generator=gen, device="cuda")
+                  / N ** 0.5).to(dt)
+            fwd_uses = (1 if head else 2 * L_) * (2 if name == "k/v" else 1)
+            bwd_uses = (1 if head else L_) * (2 if name == "k/v" else 1)
+            cell(f"{name} forward", a, w, getattr(torch, fwd_out or dtype),
+                 "forward", fwd_uses)
+            cell(f"{name} dA", dc, w.t(), dt, "backward", bwd_uses)
+            cell(f"{name} dW", a.t(), dc, dt, "backward", bwd_uses)
+            del a, w, dc
+            torch.cuda.empty_cache()
+        for i, (name, Mx, Kx, Nx, out) in enumerate(
+                train_batch_cells(seq, cfg.head_dim)):
+            a = torch.randn((problems, Mx, Kx), generator=gen,
+                            device="cuda").to(dt)
+            b = torch.randn((problems, Kx, Nx), generator=gen,
+                            device="cuda").to(dt)
+            # forward: 2 L launches a step (remat); backward: each forward
+            # product's two gradients, L launches each
+            direction = "batch grid forward" if i < 2 else \
+                "batch grid backward"
+            uses = 2 * L_ if i < 2 else (2 * L_ if i == 2 else L_)
+            cell(name, a, b, dt if dt == torch.float32 else getattr(torch, out),
+                 direction, uses, batched=True)
     return rows
 
 
@@ -4046,28 +4095,31 @@ TP_TRAIN_LOSS_RTOL = 1e-6
 TP_TRAIN_GRAD_RTOL = 1e-4
 
 
-def tp_train_batch(cfg):
+def tp_train_batch(cfg, batch=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     return {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
-        DataConfig(seq_len=TP_TRAIN_SEQ, global_batch=TP_TRAIN_BATCH,
+        DataConfig(seq_len=seq, global_batch=batch,
                    vocab=cfg.vocab, seed=4)).next_batch().items()}
 
 
-def tp_train_step(cfg, params, mesh, lr=TP_TRAIN_LR):
+def tp_train_step(cfg, params, mesh, lr=TP_TRAIN_LR, batch=None,
+                  compress=False):
     """One make_train_step_fn step (AdamW, unfused attention, every GEMM
-    through K1) of ``params`` (a rank's slices on ``mesh``): the new
-    params, loss, gradient norm, the step's launches and collectives and
-    its first moment (the clipped gradient, scaled by 1 - b1) and its host
-    wall time."""
+    through K1; int8 gradients with ``compress``) of ``params`` (a rank's
+    slices on ``mesh``) on ``batch`` (default :func:`tp_train_batch`):
+    the new params, loss, gradient norm, the step's launches and
+    collectives (also by the axes each went over) and its first moment
+    (the clipped gradient, scaled by 1 - b1) and its host wall time."""
     from repro_torch.core import api
     from repro_torch.core.plan import UNFUSED, GemmPolicy
     from repro_torch.distributed import tp as TP
     from repro_torch.launch import steps as ST
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    step = ST.make_train_step_fn(cfg, AdamWConfig(lr=lr), total_steps=10,
-                                 mesh=mesh)
-    batch = tp_train_batch(cfg)
+    step = ST.make_train_step_fn(
+        cfg, AdamWConfig(lr=lr, compress_grads=compress), total_steps=10,
+        mesh=mesh)
+    batch = tp_train_batch(cfg) if batch is None else batch
     opt = adamw_init(params)
     torch.cuda.synchronize()
     reset_counts()
@@ -4080,6 +4132,7 @@ def tp_train_step(cfg, params, mesh, lr=TP_TRAIN_LR):
     return dict(params=new, mu=opt["mu"], loss=loss,
                 grad_norm=float(met["grad_norm"]),
                 launches=counts(), collectives=TP.collectives.snapshot(),
+                by_axes=TP.collectives.by_axes(mesh),
                 wall_ms=(time.perf_counter() - t0) * 1e3)
 
 
@@ -4092,15 +4145,18 @@ def k1_by_direction(c):
             "batched": c["matrixflow_gemm_batched"]}
 
 
-def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None):
+def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
     """A rank's fp32 step (``out``: tp_train_step's, from its cut
     ``init``) held leaf by leaf against the one-device step's params
     (``ref_params``, cut to the rank's share by ``steps.rank_params``:
     within GEMM_TOLS["float32"] wherever the one-device update is
     settled, TP_TRAIN_SETTLED) and, given ``ref_mu``, first moment (the
-    worst leaf's relative distance). Every element of the model is some
-    rank's, so the ranks together hold every param to the one-device
-    step's."""
+    worst leaf's relative distance). Given ``ties`` (a compressed step:
+    masks like the params of the elements whose one-device gradient lies
+    at an int8 rounding tie, :func:`quantization_ties`), an element
+    outside the tolerance at a tie is counted apart (``tie_partings``,
+    ``mu_tie_partings``) and left out of the moment's distance, not held. Every element of the model is some rank's, so the ranks
+    together hold every param to the one-device step's."""
     from repro_torch.launch import steps as ST
     from repro_torch.optim import AdamWConfig, cosine_schedule
     from repro_torch.optim.adamw import tree_leaves
@@ -4113,12 +4169,18 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None):
     lr = float(cosine_schedule(torch.zeros((), dtype=torch.int32),
                                base_lr=TP_TRAIN_LR, warmup=100, total=10))
     wd = AdamWConfig().weight_decay
+    tie_cut = [None] * len(tree_leaves(ref)) if ties is None else \
+        tree_leaves(ST.rank_params(cfg, ties, mesh))
     worst = worst_settled = moved = 0.0
-    bad = unsettled = n = 0
-    for got, want, was in zip(tree_leaves(out.pop("params")),
-                              tree_leaves(ref), tree_leaves(init)):
+    bad = unsettled = n = tied = 0
+    for got, want, was, tie in zip(tree_leaves(out.pop("params")),
+                                   tree_leaves(ref), tree_leaves(init),
+                                   tie_cut):
         d = (got - want).abs()
         outside = d > atol + rtol * want.abs()
+        if tie is not None:
+            tied += int((outside & tie).sum())
+            outside &= ~tie
         # the one-device step's g / (|g| + eps), from its update
         u = (was - want) / lr - (wd * was if was.dim() >= 2 else 0.0)
         settled = u.abs() >= TP_TRAIN_SETTLED
@@ -4130,18 +4192,24 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None):
         moved = max(moved, float((want - was).abs().max()))
         n += got.numel()
     del ref
-    grad_rel = None
+    grad_rel, mu_tied = None, 0
     if ref_mu is not None:
         grad_rel = 0.0
-        for got, want in zip(tree_leaves(mu),
-                             tree_leaves(ST.rank_params(cfg, ref_mu, mesh))):
-            grad_rel = max(grad_rel, float(
-                torch.linalg.vector_norm(got - want)
-                / torch.linalg.vector_norm(want)))
+        for got, want, tie in zip(
+                tree_leaves(mu), tree_leaves(ST.rank_params(cfg, ref_mu, mesh)),
+                tie_cut):
+            d = got - want
+            if tie is not None:      # a tie rounded the other way: one step
+                mu_tied += int(((d.abs() > atol + rtol * want.abs())
+                                & tie).sum())
+                d = torch.where(tie, torch.zeros_like(d), d)
+            grad_rel = max(grad_rel, float(torch.linalg.vector_norm(d)
+                                           / torch.linalg.vector_norm(want)))
     return dict(grad_leaf_max_rel_diff=grad_rel, param_max_abs_diff=worst,
                 settled_param_max_abs_diff=worst_settled,
                 params_outside_tol=bad, unsettled_outside_tol=unsettled,
-                param_count=n, one_device_step_max_abs=moved)
+                tie_partings=tied, mu_tie_partings=mu_tied, param_count=n,
+                one_device_step_max_abs=moved)
 
 
 def check_adamw_gate(tag, f, one):
@@ -4182,6 +4250,17 @@ def check_adamw_gate(tag, f, one):
         fail(f"{tag}: a broadcast in the step")
 
 
+def release_shared(*trees) -> None:
+    """Empty a rank's containers of the parent's CUDA tensors (spawn
+    arguments, shared through CUDA IPC), which the rank's entry frames
+    keep until the process ends: each tensor freed here tells the parent
+    its block is released, so ``torch.cuda.ipc_collect`` there frees it
+    (a block the rank still held at its exit stays allocated in the
+    parent for the rest of the run)."""
+    for t in trees:
+        t.clear()
+
+
 def tp_train_rank(rank, world, root, ref_params, ref_mu):
     """One rank of phase 24 on cuda:0: the fp32 step on its slices of the
     seeded weights, held to the one-device step (:func:`adamw_gate`), its
@@ -4206,6 +4285,7 @@ def tp_train_rank(rank, world, root, ref_params, ref_mu):
     out.update(adamw_gate(cfg, mesh, out, init, ref_params, ref_mu),
                k1=k1_by_direction(out["launches"]),
                vocab_parallel=vocab_parallel)
+    release_shared(ref_params, ref_mu)
     del init, ref_params, ref_mu
     gc.collect()
     torch.cuda.empty_cache()
@@ -4407,6 +4487,7 @@ def fsdp_rank(rank, world, root, ref_params, model):
                k1=k1_by_direction(out["launches"]), state_bytes=held,
                closed_form=fsdp_closed_form(cfg, mesh),
                coords=dict(mesh.coords))
+    release_shared(ref_params)
     del init, ref_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4525,6 +4606,481 @@ def run_fsdp_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 27: expert parallelism over model on the card
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "dbrx-132b"
+EP_LAYERS = 1                  # of dbrx-132b's 40, at full width: the card
+EP_WORLD = 2                   # the (1, 2) mesh: 8 of the 16 experts a rank
+EP_BATCH, EP_SEQ = 2, 64
+EP_LOSS_RTOL = 1e-6            # loss, aux and grad norm against one device
+# Each expert's bank-gradient slice on a rank, ||g - g_one|| / ||g_one||
+# over the one-device gradient's same slice: a slice of the wrong expert,
+# zero or scaled is off by 0.5 or more, the fp32 sums' other order by
+# ~1e-7 (phase 24's gate on its gradient leaves).
+EP_GRAD_RTOL = TP_TRAIN_GRAD_RTOL
+
+
+def ep_config(dtype):
+    """dbrx-132b at full width (d 6144, 16 experts x d_ff 10752, top-4,
+    vocab 100352) and EP_LAYERS layers."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(EP_ARCH), n_layers=EP_LAYERS,
+                               dtype=dtype)
+
+
+def ep_projection_cells(cfg, world):
+    """(name, K, N, forward out) of K1's products in a dbrx layer and the
+    head on a rank of the (1, ``world``) mesh (1: one device): q's
+    columns, o's rows and the head's vocab cut over model (o's partial
+    sums in fp32 when cut), the KV projections whole (dbrx's rules
+    replicate its 8 KV heads), the router whole on every rank."""
+    d, dh = cfg.d_model, cfg.head_dim
+    qd, kvd = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    return (("q", d, qd // world, None), ("k/v", d, kvd, None),
+            ("o", qd // world, d, "float32" if world > 1 else None),
+            ("router", d, cfg.n_experts, None),
+            ("head", d, cfg.vocab // world, None))
+
+
+def ep_path(world):
+    return (f"{EP_ARCH} one-device forward+backward" if world == 1 else
+            f"{EP_ARCH} ep{world} rank forward+backward")
+
+
+def run_ep_kernel_phase(timer):
+    """Phase 27's kernel cells: K1 at the shapes of the dbrx step on one
+    device and on an EP_WORLD rank (:func:`ep_projection_cells`, the
+    batch grid at the rank's heads), forward, dA and dW, bf16 on wgmma
+    and fp32 on the CUDA cores, each held to its plain version
+    (:func:`run_train_kernel_phase`)."""
+    cfg = ep_config("bfloat16")
+    rows = []
+    for world in (1, EP_WORLD):
+        rows += run_train_kernel_phase(
+            timer, cfg, M=EP_BATCH * EP_SEQ,
+            problems=EP_BATCH * cfg.n_heads // world, seq=EP_SEQ,
+            projections=ep_projection_cells(cfg, world),
+            dtypes=("bfloat16", "float32"),
+            path=lambda direction, world=world: ep_path(world),
+            tag=f"{EP_ARCH} {'one device' if world == 1 else 'ep rank'} ",
+            seed=27 + world)
+    return rows
+
+
+def bank_bytes(params):
+    return sum(t.numel() * t.element_size() for lp in params["layers"]
+               for k, t in lp["moe"].items() if k in ("wi", "wo"))
+
+
+def ep_forward_backward(cfg, params, mesh):
+    """One forward and backward of ``lm_loss`` (unfused attention, every
+    GEMM through K1; the banks' products ``torch.einsum``) of ``params``
+    (a rank's share on ``mesh``, or whole): loss, aux, the global grad
+    norm (``steps._grad_norm``, as the train step takes it), the
+    gradients, launches, collectives, host wall time and peak
+    allocation."""
+    from repro_torch.core import api
+    from repro_torch.core.plan import UNFUSED, GemmPolicy
+    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+
+    batch = tp_train_batch(cfg, EP_BATCH, EP_SEQ)
+    tpctx = ST.tp_context(cfg, mesh)
+    shapes = T.init_model(cfg, device="meta")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    TP.collectives.reset()
+    t0 = time.perf_counter()
+    with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED), \
+            TP.use_tp(tpctx):
+        (loss, met), grads = ST.value_and_grad(
+            lambda p: T.lm_loss(p, cfg, batch), params)
+        gnorm = ST._grad_norm(grads, shapes, tpctx, None)
+    out = dict(loss=float(loss), aux=float(met["aux"]),
+               grad_norm=float(gnorm))
+    torch.cuda.synchronize()
+    out.update(grads=grads, launches=counts(),
+               collectives=TP.collectives.snapshot(),
+               wall_ms=(time.perf_counter() - t0) * 1e3,
+               peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def ep_rank(rank, world, root, ref_banks):
+    """One rank of phase 27 on cuda:0, on the (1, EP_WORLD) mesh: the fp32
+    forward and backward on its share of the seeded weights (its experts'
+    slice of both banks, its heads and vocab slices), each expert's
+    bank-gradient slice held to the one-device step's (``ref_banks``: the
+    parent's gradients of ``wi`` and ``wo`` on the card, shared through
+    CUDA IPC, read and never written): elements within GEMM_TOLS, and
+    ||g - g_one|| / ||g_one|| an expert; then a bf16 forward and backward
+    timed after a warm-up."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model=world)
+    cfg = ep_config("float32")
+    held = tp_params(cfg, mesh)
+    out = ep_forward_backward(cfg, held, mesh)
+    moe = out.pop("grads")["layers"][0]["moe"]
+    banks = {k: moe[k] for k in ("wi", "wo")}
+    e = cfg.n_experts // world
+    e0 = mesh.coords["model"] * e
+    out.update(bank_bytes=bank_bytes(held), experts=[e0, e0 + e],
+               k1=k1_by_direction(out["launches"]), coords=dict(mesh.coords))
+    del held, moe                # the card's room: two ranks share it
+    gc.collect()
+    torch.cuda.empty_cache()
+    atol, rtol = GEMM_TOLS["float32"]
+    outside, worst, worst_rel = 0, 0.0, 0.0
+    norms = {}
+    for k, got in banks.items():
+        for j in range(e):              # an expert at a time
+            want = ref_banks[k][e0 + j]
+            d = (got[j] - want).abs()
+            outside += int((d > atol + rtol * want.abs()).sum())
+            worst = max(worst, float(d.max()))
+            g_norm = float(torch.linalg.vector_norm(want))
+            d_norm = float(torch.linalg.vector_norm(d))
+            worst_rel = max(worst_rel, d_norm / g_norm if g_norm else
+                            (0.0 if d_norm == 0 else float("inf")))
+            norms.setdefault(k, []).append(g_norm)
+            del want, d
+    out.update(bank_grad_outside_tol=outside, bank_grad_max_abs_diff=worst,
+               bank_grad_max_rel_diff=worst_rel,
+               bank_grad_expert_norms=norms)
+    release_shared(ref_banks)
+    del banks, ref_banks
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg16 = ep_config("bfloat16")
+    p16 = tp_params(cfg16, mesh)
+    ep_forward_backward(cfg16, p16, mesh)                # warm-up
+    bf16 = ep_forward_backward(cfg16, p16, mesh)
+    bf16.pop("grads")
+    bf16["k1"] = k1_by_direction(bf16["launches"])
+    return {"fp32": out, "bf16": bf16}
+
+
+def run_ep_phase():
+    """Phase 27. K1's cells at the step's shapes (:func:`run_ep_kernel_phase`);
+    then dbrx-132b at full width, EP_LAYERS layer (one device cannot hold
+    a full-width AdamW step even of one layer: ~4.49 G params x 16 B), B
+    EP_BATCH x EP_SEQ: a bf16 forward and backward timed on one device,
+    then the fp32 one, of which the bank gradients stay on the card and
+    the rest is freed; then EP_WORLD ranks of the card, each holding half
+    the experts, held to it: loss, aux and grad norm within EP_LOSS_RTOL,
+    the bank-gradient slices within GEMM_TOLS["float32"] and each
+    expert's within EP_GRAD_RTOL of its norm; a rank's bank bytes exactly
+    1 / EP_WORLD of the one-device banks'; its collectives (kinds, calls,
+    bytes) equal to the dry run's of the same cell on ``Mesh.abstract``;
+    K1 on the CUDA cores in fp32 and on wgmma in bf16, as many launches
+    as the kernel cells' uses, nothing else launched; a bf16 forward and
+    backward timed on each rank."""
+    import tempfile
+
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    held_at_start = torch.cuda.memory_allocated()
+    timer = Timer()
+    kernels = run_ep_kernel_phase(timer)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_kernels = time.perf_counter() - t0
+    cfg16 = ep_config("bfloat16")
+    p16 = tp_params(cfg16, None)
+    ep_forward_backward(cfg16, p16, None)                # warm-up
+    one16 = ep_forward_backward(cfg16, p16, None)
+    one16.pop("grads")
+    del p16
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ep_config("float32")
+    params = tp_params(cfg, None)
+    one = ep_forward_backward(cfg, params, None)
+    grads = one.pop("grads")
+    one_banks = bank_bytes(params)
+    ref_banks = {k: grads["layers"][0]["moe"][k] for k in ("wi", "wo")}
+    one["bank_grad_max_abs"] = {k: float(g.abs().max())
+                                for k, g in ref_banks.items()}
+    one["bank_grad_norm"] = {k: float(torch.linalg.vector_norm(g))
+                             for k, g in ref_banks.items()}
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t0 - t_kernels
+    log(f"ep: {held_at_start} bytes allocated here at the start; the "
+        f"kernel cells took {t_kernels:.1f} s, the one-device bf16 "
+        f"and fp32 forward+backward {t_one:.1f} s (fp32 loss "
+        f"{one['loss']:.6f}; bank gradients max |g| "
+        f"{one['bank_grad_max_abs']}, norm {one['bank_grad_norm']}); "
+        f"starting {EP_WORLD} ranks")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as work:
+        ranks = spawn(ep_rank, EP_WORLD, (str(ROOT), ref_banks), workdir=work,
+                      timeout_s=TP_RANKS_TIMEOUT_S,
+                      collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    del ref_banks
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter() - t0 - t_kernels - t_one
+    uses = sum(r["uses"] for r in kernels
+               if r["path"] == ep_path(EP_WORLD) and r["dtype"] == "bfloat16")
+    dry = []
+    for r, rk in enumerate(ranks):
+        f, tag = rk["fp32"], f"ep rank {r}"
+        for k in ("loss", "aux", "grad_norm"):
+            rel = abs(f[k] - one[k]) / abs(one[k])
+            if not rel <= EP_LOSS_RTOL:
+                fail(f"{tag}: fp32 {k} {f[k]} vs one device {one[k]} "
+                     f"(relative {rel:.2e} > {EP_LOSS_RTOL})")
+        if f["bank_grad_outside_tol"]:
+            fail(f"{tag}: {f['bank_grad_outside_tol']} bank-gradient "
+                 f"elements outside GEMM_TOLS['float32'] of the one-device "
+                 f"slices (max |d| {f['bank_grad_max_abs_diff']:.3e})")
+        if not f["bank_grad_max_rel_diff"] <= EP_GRAD_RTOL:
+            fail(f"{tag}: an expert's bank gradient "
+                 f"{f['bank_grad_max_rel_diff']:.3e} of its norm from the "
+                 f"one-device slice's (> {EP_GRAD_RTOL})")
+        if f["bank_bytes"] * EP_WORLD != one_banks:
+            fail(f"{tag}: holds {f['bank_bytes']} bytes of the banks, not "
+                 f"1/{EP_WORLD} of {one_banks}")
+        check_counts(f"{tag} fp32", f["launches"],
+                     ("matrixflow_gemm", "matrixflow_gemm_cuda_core",
+                      "matrixflow_gemm_backward", "matrixflow_gemm_batched"),
+                     allowed=CUDA_CORE_COUNTERS)
+        check_counts(f"{tag} bf16", rk["bf16"]["launches"], K1_TRAIN)
+        for dt in ("fp32", "bf16"):
+            if any(rk[dt]["launches"][k] for k in FORWARD_ONLY):
+                fail(f"{tag}: a forward-only kernel launched in {dt}")
+            if rk[dt]["launches"]["matrixflow_gemm"] != uses:
+                fail(f"{tag}: {rk[dt]['launches']['matrixflow_gemm']} K1 "
+                     f"launches in {dt}, the kernel cells' uses {uses}")
+        got = f["collectives"]
+        d = DR.run_step(cfg, "train", EP_BATCH, EP_SEQ,
+                        mesh=Mesh.abstract((1, EP_WORLD), ("data", "model"),
+                                           rank=r))
+        if d["collective_counts"] != got["calls"] or {
+                k: d["collectives"][k] for k in got["bytes"]} != {
+                k: float(v) for k, v in got["bytes"].items()}:
+            fail(f"{tag}: collectives {got} differ from the dry run's on "
+                 f"Mesh.abstract ({d['collective_counts']}, "
+                 f"{d['collectives']})")
+        if [p["part"] for p in d["parts_from_reference"]
+                if p["part"] == "MoE expert banks"]:
+            fail(f"{tag}: the dry run names the MoE banks as a departure")
+        dry.append({"calls": d["collective_counts"],
+                    "bytes": d["collectives"],
+                    "args_bytes": d["memory"]["argument_size_in_bytes"]})
+    res = {"layers": EP_LAYERS, "batch": [EP_BATCH, EP_SEQ],
+           "seconds_kernels": t_kernels, "seconds_one_device": t_one,
+           "seconds_ranks": t_ranks, "kernels": kernels,
+           "allocated_bytes_at_start": held_at_start,
+           "one_device": {"fp32": one, "bf16": one16,
+                          "bank_bytes": one_banks},
+           "ranks": ranks, "dry_run": dry}
+    f0 = ranks[0]["fp32"]
+    smallest = [min(min(v) for v in rk["fp32"]["bank_grad_expert_norms"]
+                    .values()) for rk in ranks]
+    log(f"ep {EP_ARCH} ({EP_LAYERS} layer, full width, B {EP_BATCH} x "
+        f"{EP_SEQ}) on (1, {EP_WORLD}): fp32 loss (one device, ranks) "
+        f"{[one['loss']] + [rk['fp32']['loss'] for rk in ranks]}, aux "
+        f"{[one['aux']] + [rk['fp32']['aux'] for rk in ranks]}, grad norm "
+        f"{[one['grad_norm']] + [rk['fp32']['grad_norm'] for rk in ranks]}; "
+        f"bank gradients max |d| "
+        f"{[rk['fp32']['bank_grad_max_abs_diff'] for rk in ranks]} (max |g| "
+        f"{one['bank_grad_max_abs']}), worst expert ||d|| / ||g|| "
+        f"{[rk['fp32']['bank_grad_max_rel_diff'] for rk in ranks]}, "
+        f"smallest expert ||g|| {smallest}; bank "
+        f"bytes a rank {[rk['fp32']['bank_bytes'] for rk in ranks]} of "
+        f"{one_banks}; collectives (rank 0, fp32) {f0['collectives']} = dry "
+        f"run; K1 rank 0 fp32 {f0['k1']}, bf16 {ranks[0]['bf16']['k1']}; "
+        f"peak allocated a rank "
+        f"{[rk['fp32']['peak_allocated_bytes'] for rk in ranks]} vs "
+        f"{one['peak_allocated_bytes']} on one device; bf16 forward+"
+        f"backward {[rk['bf16']['wall_ms'] for rk in ranks]} ms a rank vs "
+        f"{one16['wall_ms']:.1f} ms on one device; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the pod axis and int8 compression on meshes that cut the params
+# ---------------------------------------------------------------------------
+
+POD_BATCH, POD_SEQ = 8, 128
+# (pod, data, model) of the two meshes, four ranks each: FSDP over data
+# with the pod axis; compression with the amax over the model cut
+POD_MESHES = {"pod2_dp2": ((2, 1), False), "pod2_tp2": ((2, 2), True)}
+# an element whose one-device g / scale lies within this of a half-integer
+# may round to the other int8 value on a rank (another order of fp32 sums)
+POD_TIE = 1e-4
+
+
+def pod_config():
+    """smollm-135m at full width and depth, fp32."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(ARCH), dtype="float32")
+
+
+def quantization_ties(grads):
+    """Masks like ``grads`` (one device's) of the elements whose g /
+    scale lies within POD_TIE of a half-integer, the scale the step's
+    (``steps._grad_amax``: a layer's leaf scaled as the reference's
+    stacked tensor)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim.adamw import tree_map
+
+    def one(g, amax):
+        r = g.abs() / (torch.clamp(amax, min=1e-12) / 127.0)
+        return (r - torch.floor(r) - 0.5).abs() < POD_TIE
+    return tree_map(one, grads, ST._grad_amax(grads, None, None))
+
+
+def pod_rank(rank, world, root, refs, ties):
+    """One rank of phase 28 on cuda:0: on each mesh of POD_MESHES the fp32
+    step (compressed on the second) from its share of the seeded weights,
+    held to the one-device step (``refs``: the plain and the compressed
+    step's (params, first moment); ``ties``: the compressed step's
+    rounding ties; through CUDA IPC)."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = pod_config()
+    batch = tp_train_batch(cfg, POD_BATCH, POD_SEQ)
+    out = {}
+    for name, ((pod, model), compress) in POD_MESHES.items():
+        mesh = make_host_mesh(pod=pod, model=model)
+        init = tp_params(cfg, mesh)
+        f = tp_train_step(cfg, init, mesh, batch=batch, compress=compress)
+        ref_params, ref_mu = refs[compress]
+        f.update(adamw_gate(cfg, mesh, f, init, ref_params, ref_mu,
+                            ties=ties if compress else None),
+                 k1=k1_by_direction(f["launches"]),
+                 coords=dict(mesh.coords))
+        out[name] = f
+        del init, ref_params, ref_mu
+        gc.collect()
+        torch.cuda.empty_cache()
+    release_shared(refs, ties)
+    return out
+
+
+def run_pod_phase():
+    """Phase 28. smollm-135m at full width and depth, B POD_BATCH x
+    POD_SEQ, one fp32 AdamW step: on one device, plain and with
+    ``compress_grads``; then four ranks of the card on (pod 2, data 2,
+    model 1), FSDP over data, held to the plain step, and on (pod 2, data
+    1, model 2) with compression, the amax reduced over the model cut,
+    held to the compressed step (an element outside the tolerance only at
+    a recorded quantization tie); each as phase 24 holds its ranks (loss,
+    grad norm, params, and the first moment, which carries the
+    dequantized gradient itself: each leaf's ||mu - mu_one|| / ||mu_one||
+    within TP_TRAIN_GRAD_RTOL, the recorded ties left out); rank 0's collectives, by kind and by the axes each
+    went over (the pod all-reduce), equal to the dry run's of the same
+    cell on ``Mesh.abstract``."""
+    import tempfile
+
+    from repro_torch.core import api
+    from repro_torch.core.plan import UNFUSED, GemmPolicy
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg = pod_config()
+    batch = tp_train_batch(cfg, POD_BATCH, POD_SEQ)
+    one, refs = {}, {}
+    for compress in (False, True):
+        params = tp_params(cfg, None)
+        one[compress] = tp_train_step(cfg, params, None, batch=batch,
+                                      compress=compress)
+        refs[compress] = (one[compress].pop("params"),
+                          one[compress].pop("mu"))
+    with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
+        _, grads = ST.value_and_grad(lambda p: T.lm_loss(p, cfg, batch),
+                                     params)
+    ties = quantization_ties(grads)
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as work:
+        ranks = spawn(pod_rank, 4, (str(ROOT), refs, ties), workdir=work,
+                      timeout_s=TP_RANKS_TIMEOUT_S,
+                      collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    del refs, ties
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter() - t1
+    res = {"batch": [POD_BATCH, POD_SEQ], "seconds_ranks": t_ranks,
+           "one_device": {"plain": one[False], "compressed": one[True]}}
+    for name, ((pod, model), compress) in POD_MESHES.items():
+        for r, rk in enumerate(ranks):
+            check_adamw_gate(f"pod {name} rank {r}", rk[name], one[compress])
+        got = ranks[0][name]
+        d = DR.run_step(cfg, "train", POD_BATCH, POD_SEQ,
+                        mesh=Mesh.abstract((pod, 4 // (pod * model), model),
+                                           ("pod", "data", "model")),
+                        compress_grads=compress)
+        if d["collective_counts"] != got["collectives"]["calls"] or {
+                k: d["collectives"][k] for k in got["collectives"]["bytes"]
+        } != {k: float(v) for k, v in got["collectives"]["bytes"].items()} \
+                or d["collectives_by_axes"] != got["by_axes"]:
+            fail(f"pod {name} rank 0: collectives {got['collectives']} "
+                 f"{got['by_axes']} differ from the dry run's on "
+                 f"Mesh.abstract ({d['collective_counts']}, "
+                 f"{d['collectives_by_axes']})")
+        res[name] = {
+            "ranks": [rk[name] for rk in ranks],
+            "dry_run_by_axes": d["collectives_by_axes"],
+            "fp32_loss_rel_diff": [abs(rk[name]["loss"] - one[compress]
+                                       ["loss"]) / abs(one[compress]["loss"])
+                                   for rk in ranks],
+            "fp32_grad_norm": [one[compress]["grad_norm"]]
+            + [rk[name]["grad_norm"] for rk in ranks],
+            "fp32_param_max_abs_diff": [rk[name]["param_max_abs_diff"]
+                                        for rk in ranks],
+            "fp32_grad_leaf_max_rel_diff": [
+                rk[name]["grad_leaf_max_rel_diff"] for rk in ranks],
+            "tie_partings": [rk[name]["tie_partings"] for rk in ranks],
+            "mu_tie_partings": [rk[name]["mu_tie_partings"]
+                                for rk in ranks]}
+        pod_ar = got["by_axes"].get("all_reduce:pod")
+        log(f"pod {ARCH} (full, B {POD_BATCH} x {POD_SEQ}) on {name}"
+            f"{' with compress_grads' if compress else ''}: fp32 loss rel "
+            f"|d| {res[name]['fp32_loss_rel_diff']}, grad norm (one device, "
+            f"ranks) {res[name]['fp32_grad_norm']}, params max |d| "
+            f"{res[name]['fp32_param_max_abs_diff']}, worst first-moment "
+            f"leaf rel |d| {res[name]['fp32_grad_leaf_max_rel_diff']}, "
+            f"partings at ties (params) {res[name]['tie_partings']} (first "
+            f"moment) {res[name]['mu_tie_partings']}; pod all-reduce (rank 0) {pod_ar} "
+            f"vs dry run {d['collectives_by_axes'].get('all_reduce:pod')}; "
+            f"collectives by axes {got['by_axes']}; K1 rank 0 "
+            f"{got['k1']}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"pod: phase {res['seconds']:.1f} s ({t_ranks:.1f} s ranks)")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 25: the dry run on meta against the real runs
 # ---------------------------------------------------------------------------
 
@@ -4594,13 +5150,14 @@ def run_roofline_phase(report):
 
 
 def slice_paths(report) -> dict:
-    """The launch counts of phases 20, 22, 23, 24 and 26's paths, by path.
-    Of the slice entries of the kernels line (:func:`slice_entries`), the
-    training ones count phase 20's ``training`` path alone, the mixed ones
-    phase 22's, and the ``_tp2`` ones phase 23's TP=2 serving ranks; every
-    path, the DP=2 train step, the pipeline ranks, phase 24's TP=2 train
-    steps and phase 26's FSDP steps too, joins the kernels' all-path
-    totals in ``main``."""
+    """The launch counts of phases 20, 22, 23, 24, 26, 27 and 28's paths,
+    by path. Of the slice entries of the kernels line
+    (:func:`slice_entries`), the training ones count phase 20's
+    ``training`` path alone, the mixed ones phase 22's, and the ``_tp2``
+    ones phase 23's TP=2 serving ranks; every path, the DP=2 train step,
+    the pipeline ranks, phase 24's TP=2 train steps, phase 26's FSDP
+    steps, phase 27's EP ranks and phase 28's pod ranks too, joins the
+    kernels' all-path totals in ``main``."""
     out = {}
     if "train" in report:
         out["training"] = report["train"]["launches"]
@@ -4624,14 +5181,24 @@ def slice_paths(report) -> dict:
                 if dtype in rk:
                     out[f"fsdp {name} rank {r} {dtype} step"] = \
                         rk[dtype]["launches"]
+    for r, rk in enumerate(report.get("ep", {}).get("ranks", [])):
+        for dtype in ("fp32", "bf16"):
+            out[f"ep{EP_WORLD} rank {r} {dtype} forward+backward"] = \
+                rk[dtype]["launches"]
+    for name in POD_MESHES:
+        for r, rk in enumerate(report.get("pod", {}).get(name, {})
+                               .get("ranks", [])):
+            out[f"pod {name} rank {r} fp32 step"] = rk["launches"]
     return out
 
 
 def slice_entries(report) -> list:
-    """The kernels line's entries of this slice's instances: K1's batch
-    grid and its backward launches (training), K3's and K4's fp32-q over
-    bf16-K/V instances (mixed dtypes), each with its launches on its path
-    and its times per training step or decode step."""
+    """The kernels line's entries of the later slices' instances: K1's
+    batch grid and its backward launches (training), K3's and K4's
+    fp32-q over bf16-K/V instances (mixed dtypes), K1, K3, K4 and K5 at
+    a TP=2 rank's shapes, K1 at an EP_WORLD rank's training shapes
+    (phase 27; its fp32 times beside), each with its launches on its path
+    and its times per training step, forward+backward or decode step."""
     paths = slice_paths(report)
     out = []
 
@@ -4659,6 +5226,18 @@ def slice_entries(report) -> list:
               "matrixflow_gemm", k1, rows, "bfloat16", "train backward",
               ("train forward", "train batch grid backward"),
               prefix="training")
+    if "kernels" in report.get("ep", {}):
+        rows, rank_path = report["ep"]["kernels"], ep_path(EP_WORLD)
+        entry(f"matrixflow_gemm_ep{EP_WORLD}", "matrixflow_gemm",
+              "matrixflow_gemm", "src/repro/kernels/matrixflow_gemm.py:137",
+              rows, "bfloat16", rank_path, (ep_path(1),),
+              prefix=f"ep{EP_WORLD} ")
+        out[-1]["float32"] = {p: aggregate(rows, "float32", p)
+                              for p in (rank_path, ep_path(1))}
+        out[-1]["launches_by_route"] = {
+            r: sum(c[f"matrixflow_gemm_{r}"] for p, c in paths.items()
+                   if p.startswith(f"ep{EP_WORLD} "))
+            for r in ("wgmma", "mma", "cuda_core")}
     if "mixed_kernels" in report:
         for kern, line in (("flash_attention", 199), ("paged_attention", 188)):
             entry(f"{kern}_bf16kv", f"{kern}_{MIXED_ROUTE}", kern,
@@ -4755,11 +5334,16 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
-    if sys.argv[1:2] in (["--tp-train"], ["--fsdp"]):   # phase 24 or 26
+    if sys.argv[1:2] in (["--tp-train"], ["--fsdp"], ["--ep"], ["--pod"]):
+        # phase 24, 26, 27 or 28 alone
         if sys.argv[1] == "--tp-train":
             report["tp_train"] = run_tp_train_phase()
-        else:
+        elif sys.argv[1] == "--fsdp":
             report["fsdp"] = run_fsdp_phase()
+        elif sys.argv[1] == "--ep":
+            report["ep"] = run_ep_phase()
+        else:
+            report["pod"] = run_pod_phase()
         release_one_device_train_steps()
         (OUT_DIR / f"chip_smoke_{sys.argv[1][2:].replace('-', '_')}.json"
          ).write_text(json.dumps(report, indent=1))
@@ -4881,6 +5465,10 @@ def main() -> None:
     begin("fsdp")
     report["fsdp"] = run_fsdp_phase()
     release_one_device_train_steps()
+    begin("ep")
+    report["ep"] = run_ep_phase()
+    begin("pod")
+    report["pod"] = run_pod_phase()
     begin("roofline")
     report["roofline"] = run_roofline_phase(report)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -13,13 +13,16 @@ by hand:
     one whose logical axis the rules put on the data axis (``embed``),
     where the data axis divides it; otherwise the leaf stays replicated,
     as the reference's rules fall back. One departure: an MoE ``wo`` bank
-    has no ``embed`` axis (the reference's ``expert_bank`` names its
-    d_model dim ``None`` either way), so the reference cuts it only by
-    its experts over ``model``. The port keeps the experts whole until
-    expert parallelism, and cuts that d_model dim over data instead, as
-    the ``embed`` dim of every other weight;
+    (E, f, d) has no ``embed`` axis (the reference's ``expert_bank`` names
+    its d_model dim ``None``), so the reference cuts it only by its
+    experts over ``model`` and holds it whole over ``data``. The port cuts
+    that d_model dim over data as well, as the ``embed`` dim of every
+    other weight: held whole over data, dbrx-132b's ``wo`` banks alone
+    would take ~25 GB a rank of the 16 x 16 mesh;
   * :func:`shard_params` — a rank's cut, composing with
-    ``tp.shard_params``' cut over ``model`` (always another dim);
+    ``tp.shard_params``' cut over ``model`` (always another dim; the MoE
+    banks' experts under expert parallelism, so a rank holds ``wi`` as
+    (E/mp, d/n, 2f) and ``wo`` as (E/mp, f, d/n));
   * :func:`gather` — an autograd Function: the forward all-gathers the
     whole leaf over the data group, the backward reduce-scatters its
     gradient (summed over data; the step divides by n_data);
@@ -27,7 +30,12 @@ by hand:
     them (``models/transformer.py``), so under remat the gathered weights
     are freed after the forward and gathered again in the recompute;
   * :func:`mean_over_data` — a statistic of the rank's rows averaged over
-    the data group, for MoE's load-balance loss (``models/layers.py``).
+    the batch's ranks, for MoE's load-balance loss (``models/layers.py``).
+
+The batch is cut over ``pod`` × ``data``, pod major (the reference's
+``act_batch``); the params are cut over ``data`` only and replicated over
+``pod``. A mesh with a pod axis but one data rank has a context whose
+plan cuts nothing: only its batch spans ranks.
 
 A :class:`FSDPContext` is carried thread-local (:func:`use_fsdp`) like
 ``tp.py``'s context; training sets it (``launch/steps.py``), serving
@@ -82,14 +90,18 @@ def make_plan(cfg, mesh, axis: str = "data"):
     rules = ShardingRules(mesh, cfg.overrides_dict())
     n = mesh.axis_size(axis)
     return tree_map_axes(
-        lambda a, full: _leaf_cut(rules, a, full.shape, axis, n,
-                                  cfg.d_model),
+        lambda a, full: None if n == 1 else _leaf_cut(
+            rules, a, full.shape, axis, n, cfg.d_model),
         param_axes(cfg), T.init_model(cfg, device="meta"))
+
+
+BATCH_AXES = ("pod", "data")        # the reference's act_batch
 
 
 @dataclasses.dataclass
 class FSDPContext:
-    """A mesh's data axis and the plan of one config's params on it."""
+    """A mesh's data axis and the plan of one config's params on it, and
+    the axes its batch is cut over (:data:`BATCH_AXES`)."""
 
     mesh: Any
     plan: Any
@@ -107,6 +119,16 @@ class FSDPContext:
     def group(self):
         return self.mesh.group(self.axis)
 
+    @property
+    def batch_size(self) -> int:
+        """The ranks the batch is cut over: pod x data."""
+        return self.mesh.span(BATCH_AXES)[1]
+
+    @property
+    def batch_group(self):
+        return self.mesh.group(tuple(a for a in BATCH_AXES
+                                     if a in self.mesh.shape))
+
     def at(self, *path):
         """The plan of the subtree at ``path`` (keys and list indices)."""
         node = self.plan
@@ -117,8 +139,8 @@ class FSDPContext:
 
 def make_context(cfg, mesh, axis: str = "data") -> Optional[FSDPContext]:
     """The FSDP context of ``cfg`` on ``mesh``: None without a mesh or
-    with one rank on ``axis``."""
-    if mesh is None or mesh.axis_size(axis) == 1:
+    with one rank on the batch's axes (pod x data)."""
+    if mesh is None or mesh.span(BATCH_AXES)[1] == 1:
         return None
     return FSDPContext(mesh=mesh, plan=make_plan(cfg, mesh, axis), axis=axis)
 
@@ -234,11 +256,11 @@ def full_params(params, ctx: Optional[FSDPContext]):
 
 
 class _MeanOverData(torch.autograd.Function):
-    """The mean over the data group forward; backward, each rank gets the
-    whole gradient g of the mean, n_data times its own share g / n_data:
-    the step then averages the gradients over data (÷ n_data), which
-    makes the sum of the shares. (``tp._SumOverRanks``' identity backward
-    of a sum would leave 1/n_data of it.)"""
+    """The mean over the batch's group forward; backward, each rank gets
+    the whole gradient g of the mean, n times its own share g / n: the
+    step then averages the gradients over the n ranks (÷ n), which makes
+    the sum of the shares. (``tp._SumOverRanks``' identity backward of a
+    sum would leave 1/n of it.)"""
 
     @staticmethod
     def forward(ctx, t, group, n):
@@ -252,12 +274,12 @@ class _MeanOverData(torch.autograd.Function):
 
 def mean_over_data(t: torch.Tensor) -> torch.Tensor:
     """``t`` — a statistic of the rank's rows, each rank holding as many —
-    averaged over the active context's data group: the statistic of the
-    global batch. ``t`` itself without a context."""
+    averaged over the active context's batch group (pod x data): the
+    statistic of the global batch. ``t`` itself without a context."""
     ctx = current_fsdp()
     if ctx is None:
         return t
     if needs_grad(t):
-        return _MeanOverData.apply(t, ctx.group, ctx.size)
+        return _MeanOverData.apply(t, ctx.batch_group, ctx.batch_size)
     return TP.all_reduce(t.clone(memory_format=torch.contiguous_format),
-                         ctx.group) / ctx.size
+                         ctx.batch_group) / ctx.batch_size

@@ -18,6 +18,10 @@ collective itself:
     the partials, and then comes the cast and the bias, added once.
   * **attention** runs on the rank's head slice; paged pools and int8
     scales hold the rank's KV heads (:func:`head_sharding`).
+  * **experts** (training only): a rank holds its experts' slice of the
+    MoE banks, runs them on its experts' slots of the dispatch buffer and
+    sums its part of the combine over the model group
+    (:func:`expert_slice`, ``models/layers.py::moe``).
   * **gathers**, where a sharded output meets an unsharded consumer: the
     LM head's vocab slice before sampling, a Q/K/V projection whose
     columns shard while attention stays replicated (:func:`conform_heads`)
@@ -33,7 +37,8 @@ gloo runs each on CUDA tensors as on CPU ones (torch 2.11 on the H100,
 its result in :data:`collectives`, as the reference counts the result
 shapes of its HLO's collectives (``repro/roofline/analysis.py``): the
 whole tensor for an all-reduce and an all-gather, the rank's part for a
-reduce-scatter. Nothing gives way to a single-rank path: a
+reduce-scatter; also by the axes of the mesh's group it went over
+(:meth:`Collectives.by_axes`). Nothing gives way to a single-rank path: a
 collective that fails raises. Over an abstract mesh's group
 (``launch/mesh.py::Mesh.abstract``) a collective of ``meta`` tensors is
 counted and returns without calling ``torch.distributed`` (the dry run);
@@ -73,7 +78,8 @@ __all__ = [
     "param_cut", "shard_params", "unshard_params", "shard_caches",
     "head_units", "all_reduce",
     "all_reduce_max", "all_gather", "reduce_scatter", "broadcast", "gather",
-    "on_slice", "collectives", "vocab_parallel_nll",
+    "on_slice", "to_ranks", "sum_over_ranks", "expert_slice",
+    "collectives", "vocab_parallel_nll",
 ]
 
 
@@ -92,13 +98,30 @@ class Collectives:
     def reset(self) -> None:
         self.calls = {k: 0 for k in self.KINDS}
         self.bytes = {k: 0 for k in self.KINDS}
+        self._by_group: Dict[Tuple[str, Any], Dict[str, int]] = {}
 
-    def add(self, kind: str, t: torch.Tensor) -> None:
+    def add(self, kind: str, t: torch.Tensor, group) -> None:
+        n = t.numel() * t.element_size()
         self.calls[kind] += 1
-        self.bytes[kind] += t.numel() * t.element_size()
+        self.bytes[kind] += n
+        tally = self._by_group.setdefault((kind, group),
+                                          {"calls": 0, "bytes": 0})
+        tally["calls"] += 1
+        tally["bytes"] += n
 
     def snapshot(self) -> Dict[str, Dict[str, int]]:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes)}
+
+    def by_axes(self, mesh) -> Dict[str, Dict[str, int]]:
+        """Calls and bytes by ``"kind:axes"``, the axes of ``mesh``'s group
+        each went over (``Mesh.axes_of``: "pod", "pod+data", ...)."""
+        out: Dict[str, Dict[str, int]] = {}
+        for (kind, group), v in self._by_group.items():
+            axes = mesh.axes_of(group) if mesh is not None else None
+            tally = out.setdefault(f"{kind}:{axes}", {"calls": 0, "bytes": 0})
+            for k in tally:
+                tally[k] += v[k]
+        return out
 
 
 collectives = Collectives()
@@ -146,7 +169,7 @@ def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
     real = _is_real(t, group)
     if _group_size(group) > 1:
         t = t.contiguous()
-        collectives.add("all_reduce", t)
+        collectives.add("all_reduce", t, group)
         if real:
             dist.all_reduce(t, op=op, group=group)
     return t
@@ -163,7 +186,7 @@ def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
                       device=t.device)
-    collectives.add("all_gather", out)
+    collectives.add("all_gather", out, group)
     if real:
         dist.all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
@@ -185,7 +208,7 @@ def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
                       device=t.device)
-    collectives.add("reduce_scatter", out)
+    collectives.add("reduce_scatter", out, group)
     if real:
         dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
@@ -199,7 +222,7 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError("broadcast receives in place: pass a "
                              "contiguous tensor")
-        collectives.add("broadcast", t)
+        collectives.add("broadcast", t, group)
         if real:
             dist.broadcast(t, src=src, group=group)
     return t
@@ -269,15 +292,47 @@ def _to_ranks(t: torch.Tensor, group) -> torch.Tensor:
     return _ToRanks.apply(t, group) if needs_grad(t) else t
 
 
+def to_ranks(t: torch.Tensor) -> torch.Tensor:
+    """``t``, replicated over the active context's model group, as an
+    input that each rank consumes only in part: identity forward, its
+    gradient summed over the group backward (:class:`_ToRanks`); ``t``
+    itself without an active model axis."""
+    ctx = current_tp()
+    return _to_ranks(t, ctx.group) if _active(ctx) else t
+
+
+def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a rank's part of a sum, summed over the active context's
+    model group: all-reduce forward, identity backward
+    (:class:`_SumOverRanks`); ``t`` itself without an active model
+    axis."""
+    ctx = current_tp()
+    return _sum_over_ranks(t, ctx.group) if _active(ctx) else t
+
+
+def expert_slice(n_experts: int, held: int) -> Tuple[int, int]:
+    """(first, count) of the experts whose banks this rank holds, ``held``
+    of the ``n_experts``: all of them where the banks are whole (no active
+    model axis, serving, or experts that do not divide the model axis);
+    the rank's contiguous 1/mp under expert parallelism
+    (:func:`shard_params` with ``experts=True``)."""
+    if held == n_experts:
+        return 0, n_experts
+    ctx = current_tp()
+    if not _active(ctx) or held * ctx.model_size != n_experts:
+        raise ValueError(f"tp: an expert bank of {held} experts is neither "
+                         f"all {n_experts} nor this rank's slice of them")
+    return ctx.rank * held, held
+
+
 def on_slice(params, sliced: bool):
     """``params`` (a dict of replicated tensors: a q/k norm) as used on
     the rank's slice of the heads when ``sliced``: each rank's gradient of
     them then covers its heads only, and the backward sums it over the
     model group (:class:`_ToRanks`), so every rank gets the whole one."""
-    ctx = current_tp()
-    if not sliced or not _active(ctx):
+    if not sliced:
         return params
-    return {k: _to_ranks(v, ctx.group) for k, v in params.items()}
+    return {k: to_ranks(v) for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +478,7 @@ def take_kv_heads(t: torch.Tensor, kv_slice: Tuple[int, int]
     ``t`` (B, S, Hkv, D): each rank's gradient of ``t`` covers its slice,
     and the backward sums it over the model group (:class:`_ToRanks`)."""
     first, n = kv_slice
-    return _to_ranks(t, current_tp().group).narrow(2, first, n) \
+    return to_ranks(t).narrow(2, first, n) \
         .clone(memory_format=torch.contiguous_format)
 
 
@@ -716,8 +771,15 @@ def head_units(cfg) -> Dict[str, int]:
 _WHOLE_SUBTREES = ("ssd",)   # models/ssm.py runs its params whole
 
 
+def _cut_bank(axes, experts: bool) -> bool:
+    """Whether a leaf of three or more dims is an MoE expert bank that
+    expert parallelism cuts (its first logical axis ``experts``)."""
+    return experts and tuple(axes)[0] == "experts"
+
+
 def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
-                 units: Optional[Dict[str, int]] = None, shapes=None):
+                 units: Optional[Dict[str, int]] = None, shapes=None,
+                 experts: bool = False):
     """The rank's params: every model-sharded dim of a weight, bias or the
     embedding table cut to the rank's slice (:func:`shard_dim`), the rest
     kept whole. ``units`` maps a logical name to its count of indivisible
@@ -725,10 +787,15 @@ def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
     sites bound their splits. ``shapes`` is the tree of the global params
     (default ``params``: they are whole; meta tensors will do), so a
     tree that is already the rank's slice comes back as it is. Tensors of
-    three or more dims (the MoE expert banks, audio's per-codebook tables)
-    and the SSD blocks' params stay whole: no TP call site consumes them,
-    as in the reference, whose ``tp.linear`` passes any weight with
-    ``ndim != 2`` to the unsharded path."""
+    three or more dims (audio's per-codebook tables) and the SSD blocks'
+    params stay whole: no TP call site consumes them, as in the
+    reference, whose ``tp.linear`` passes any weight with ``ndim != 2``
+    to the unsharded path. The MoE expert banks stay whole too (the
+    reference's TP serving runs them unsharded) unless ``experts``: then
+    a rank holds its experts' slice of each bank where the rules put
+    ``experts`` on the model axis and it divides them (expert
+    parallelism, a training placement: ``launch/steps.py::rank_params``;
+    ``models/layers.py::moe``)."""
     if not _active(ctx):
         return params
     units = units or {}
@@ -736,7 +803,7 @@ def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
 
     def rec(p, a, full, whole):
         if is_axis_leaf(a):
-            if whole or p.dim() > 2:
+            if whole or (p.dim() > 2 and not _cut_bank(a, experts)):
                 return p
             cut = param_cut(ctx, tuple(a), tuple(full.shape), units,
                             getattr(a, "blocks", 1))
@@ -760,19 +827,21 @@ def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
 
 
 def unshard_params(params, axes_tree, ctx: Optional[TPContext], *,
-                   units: Optional[Dict[str, int]] = None, shapes):
-    """The inverse of :func:`shard_params`: every leaf that a rank holds a
-    slice of gathered whole over the model group (:func:`gather`, without
-    autograd), the others as they are. ``shapes`` is the tree of the
-    global params (meta tensors will do). Every rank of the group must
-    call it (checkpoints, ``launch/steps.py::full_state``)."""
+                   units: Optional[Dict[str, int]] = None, shapes,
+                   experts: bool = False):
+    """The inverse of :func:`shard_params` (``experts`` as there): every
+    leaf that a rank holds a slice of gathered whole over the model group
+    (:func:`gather`, without autograd), the others as they are.
+    ``shapes`` is the tree of the global params (meta tensors will do).
+    Every rank of the group must call it (checkpoints,
+    ``launch/steps.py::full_state``)."""
     if not _active(ctx):
         return params
     units = units or {}
 
     def rec(p, a, full, whole):
         if is_axis_leaf(a):
-            if whole or p.dim() > 2:
+            if whole or (p.dim() > 2 and not _cut_bank(a, experts)):
                 return p
             cut = param_cut(ctx, tuple(a), tuple(full.shape), units,
                             getattr(a, "blocks", 1))

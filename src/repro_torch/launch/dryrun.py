@@ -9,8 +9,9 @@ function — the train step with AdamW, the prefill step or the decode step
 — once, eagerly, on ``meta`` tensors (shapes and dtypes, no storage) at
 one rank's shapes: rank 0 of ``Mesh.abstract`` of the 16×16 (or 2×16×16)
 mesh, its params cut by ``tp.shard_params`` (a train cell's also over
-data, ``steps.rank_params``: FSDP), its caches holding its KV heads, its
-rows of the batch. Nothing is allocated and nothing launches,
+data, and its MoE banks by their experts over model:
+``steps.rank_params``), its caches holding its KV heads, its rows of the
+batch (over pod x data). Nothing is allocated and nothing launches,
 so this entry point needs no card: ``meta`` is asked for by name, which
 keeps the port's rule that an entry point runs on the card unless the
 caller asks for another device.
@@ -30,7 +31,9 @@ What is counted:
     the elementwise ops and reductions, transcendentals apart
     (:class:`OpCounter`);
   * the collectives of ``distributed/tp.py`` over the abstract mesh's
-    groups, by kind and bytes;
+    groups, by kind and bytes, and by the axes each went over (the train
+    step's all-reduce over ``pod``; its amax reduces under
+    ``--compress-grads``);
   * memory: the arguments the rank holds (params, optimizer state, its
     batch and caches), the step's outputs, and the peak of the bytes the
     step allocates while it runs (``temp_size_in_bytes``).
@@ -82,7 +85,7 @@ from repro_torch.launch.mesh import Mesh, production_mesh_shape
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import param_axes
-from repro_torch.optim import adamw_init
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.roofline import analysis as RA
 from repro_torch.serving.engine import make_decode_step, make_prefill_step
@@ -305,18 +308,16 @@ def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
             "holds them (repro/distributed/tp.py:331); the reference's dry "
             "run places a serving cell's params by the training spec, "
             "embed over data")))
-    if "pod" in mesh.shape and kind == "train":
-        parts.append(dict(part="gradient reduction", detail=(
-            "averaged over the data axis only: the pod axis takes its rows "
-            "of the batch, and its all-reduce is not counted")))
-    if mesh.axis_size("model") > 1:
-        if cfg.is_moe:
+    mp = mesh.axis_size("model")
+    if mp > 1:
+        if cfg.is_moe and (kind != "train" or cfg.n_experts % mp):
             parts.append(dict(part="MoE expert banks", detail=(
-                "whole over the model axis: tp.shard_params keeps 3-D "
-                "tensors whole; the reference shards the experts over "
-                "model" + ("; training cuts both banks' d_model dim over "
-                           "data (FSDP), the wo bank's where the reference "
-                           "names no axis" if kind == "train" else ""))))
+                "whole over the model axis, as the reference's TP serving "
+                "runs 3-D weights unsharded (repro/distributed/tp.py:331); "
+                "the reference's dry run places them by the training spec, "
+                "experts over model" if kind != "train" else
+                f"whole over the model axis: {cfg.n_experts} experts do not "
+                f"divide over {mp} ranks")))
         if kind == "train" and cfg.n_codebooks:
             parts.append(dict(part="whole-vocab loss", detail=(
                 "the audio head's columns (vocab x n_codebooks) are not "
@@ -327,8 +328,7 @@ def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
             parts.append(dict(part="SSD blocks", detail=(
                 "whole on every rank, as the reference's tp.linear runs "
                 "them unsharded")))
-    if n_rows == batch and batch > 1 and batch % (mesh.size //
-                                                  mesh.axis_size("model")):
+    if n_rows == batch and batch > 1 and batch % (mesh.size // mp):
         parts.append(dict(part="batch", detail=(
             f"{batch} rows do not divide over the data axes: every rank "
             f"holds them all")))
@@ -343,8 +343,8 @@ def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
 def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
              mesh: Optional[Mesh] = None, shape_name: Optional[str] = None,
              rules_overrides=None, attention: Optional[AttentionPolicy] = None,
-             pack_weights: bool = False, n_pages: Optional[int] = None
-             ) -> dict:
+             pack_weights: bool = False, n_pages: Optional[int] = None,
+             compress_grads: bool = False) -> dict:
     """One ``kind`` step ("train", "prefill", "decode"; "forward": an
     encoder's forward) of ``cfg`` at a global ``batch`` of ``seq`` tokens
     (decode: a ``seq``-token cache) on
@@ -352,8 +352,10 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     paged ``attention`` policy gives the serving steps page pools of
     ``n_pages`` pages (default: every row's ``seq`` tokens) and block
     tables; ``pack_weights`` packs the GEMM weights block-major as the
-    serving engine does. Returns memory, cost, collectives, launches,
-    roofline and the parts that differ from the reference."""
+    serving engine does; ``compress_grads`` turns on the train step's int8
+    gradient compression. Returns memory, cost, collectives (also by the
+    axes each went over), launches, roofline and the parts that differ
+    from the reference."""
     model = 1 if mesh is None else mesh.axis_size("model")
     n_rows_axes = 1 if mesh is None else mesh.size // model
     ctx = None
@@ -384,13 +386,12 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
                 "the card has no backward of K6 (train/loop.py::"
                 "check_trainable refuses it); counted as the plain scan, "
                 "the CPU's training route")))
-        # the step cuts its rows over the data axis; a pod axis takes its
-        # share before
-        data = 1 if mesh is None else mesh.axis_size("data")
-        glob = SP.token_specs(cfg, rows * data if rows != batch else batch,
-                              seq)
+        # the step cuts its rows over pod x data
+        glob = SP.token_specs(cfg, rows * n_rows_axes if rows != batch
+                              else batch, seq)
         opt = adamw_init(params)
-        step = ST.make_train_step_fn(cfg, mesh=mesh)
+        step = ST.make_train_step_fn(
+            cfg, AdamWConfig(compress_grads=compress_grads), mesh=mesh)
         args = (params, opt, ST.data_shard(glob, mesh))
 
         def call():
@@ -449,12 +450,17 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     argument = _tree_bytes(args)
     ledger = RA.CostLedger()
     counter = OpCounter()
-    before = TP.collectives.snapshot()
+    before, axes_before = TP.collectives.snapshot(), TP.collectives.by_axes(mesh)
     t0 = time.perf_counter()
     with RA.use_ledger(ledger), counter:
         out = call()
     run_s = time.perf_counter() - t0
     after = TP.collectives.snapshot()
+    by_axes = {}
+    for key, v in TP.collectives.by_axes(mesh).items():
+        was = axes_before.get(key, {"calls": 0, "bytes": 0})
+        if v["calls"] > was["calls"]:
+            by_axes[key] = {k: v[k] - was[k] for k in v}
     coll = RA.collective_bytes_from_counts(
         {k: {kind_: after[k][kind_] - before[k][kind_] for kind_ in after[k]}
          for k in after})
@@ -489,6 +495,7 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
                         **{k: v for k, v in coll.items()
                            if k not in ("total", "counts")}},
         "collective_counts": coll["counts"],
+        "collectives_by_axes": by_axes,
         "launches": ledger.launches,
         "launches_marked": ledger.marked,
         "roofline": terms,
@@ -514,10 +521,11 @@ def launch_counters(res: Dict) -> Dict[str, int]:
 
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 rules_overrides=None, verbose: bool = True,
-                skip_body_probe: bool = False):
+                skip_body_probe: bool = False, compress_grads: bool = False):
     """The cell's step on ``meta`` at rank 0 of the abstract production
-    mesh. ``skip_body_probe`` is the reference's flag, accepted and
-    ignored (the eager port walks every layer)."""
+    mesh (``compress_grads``: a train cell's step compresses its
+    gradients to int8). ``skip_body_probe`` is the reference's flag,
+    accepted and ignored (the eager port walks every layer)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if not cell_applicable(cfg, shape):
@@ -525,7 +533,8 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 "reason": "full-attention arch at 500k decode (DESIGN §3)"}
     mesh = Mesh.abstract(*production_mesh_shape(multi_pod=multi_pod))
     res = run_step(cfg, shape.kind, shape.batch, shape.seq, mesh=mesh,
-                   shape_name=shape_name, rules_overrides=rules_overrides)
+                   shape_name=shape_name, rules_overrides=rules_overrides,
+                   compress_grads=compress_grads)
     result = {"arch": arch, "shape": shape_name,
               "mesh": "2x16x16" if multi_pod else "16x16", **res}
     if verbose:
@@ -553,6 +562,8 @@ def main(argv=None):
     ap.add_argument("--skip-body-probe", action="store_true",
                     help="accepted and ignored: the eager port walks every "
                          "layer, so no body probe runs")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="train cells compress their gradients to int8")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -567,7 +578,8 @@ def main(argv=None):
     for arch, shape_name in cells:
         for mp in meshes:
             try:
-                r = dryrun_cell(arch, shape_name, multi_pod=mp)
+                r = dryrun_cell(arch, shape_name, multi_pod=mp,
+                                compress_grads=args.compress_grads)
             except Exception as e:  # a failure here is a bug in the system
                 traceback.print_exc()
                 r = {"arch": arch, "shape": shape_name,

@@ -6,7 +6,10 @@ is a process that runs the same program on its own slice, so a
 this rank's coordinates, and one process group per axis — the ranks that
 share every other coordinate. Rank r sits at the row-major coordinates of
 r in the grid (the reference's device order). Every rank creates every
-group, in the same order, as ``dist.new_group`` requires.
+group, in the same order, as ``dist.new_group`` requires. A mesh with a
+``pod`` and a ``data`` axis also has the group of the two together (the
+reference's ``act_batch``, pod major), :meth:`Mesh.group` of
+``("pod", "data")``.
 
 Without an initialised process group the world is this one process: a
 mesh of size 1 whose groups are None (no collective is ever issued on it).
@@ -19,7 +22,7 @@ run can take the counting path.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -79,10 +82,16 @@ class Mesh:
         self.coords: Dict[str, int] = dict(zip(
             self.axis_names,
             (int(c) for c in np.unravel_index(self.rank, dims))))
-        self.groups: Dict[str, Optional[dist.ProcessGroup]] = {}
-        self.group_ranks: Dict[str, Tuple[int, ...]] = {}
-        for i, name in enumerate(self.axis_names):
-            lines = np.moveaxis(grid, i, -1).reshape(-1, dims[i])
+        self.groups: Dict[Any, Optional[dist.ProcessGroup]] = {}
+        self.group_ranks: Dict[Any, Tuple[int, ...]] = {}
+        keys = [(name,) for name in self.axis_names]
+        if "pod" in self.shape and "data" in self.shape:
+            keys.append(("pod", "data"))
+        for key in keys:
+            idx = [self.axis_names.index(a) for a in key]
+            n = int(np.prod([dims[i] for i in idx]))
+            last = list(range(-len(idx), 0))
+            lines = np.moveaxis(grid, idx, last).reshape(-1, n)
             for line in lines:
                 ranks = tuple(int(r) for r in line)
                 if abstract:
@@ -92,13 +101,35 @@ class Mesh:
                     g = dist.new_group(list(ranks)) \
                         if dist.is_initialized() else None
                 if self.rank in ranks:
+                    name = key[0] if len(key) == 1 else key
                     self.groups[name], self.group_ranks[name] = g, ranks
 
-    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
+    def group(self, axis) -> Optional[dist.ProcessGroup]:
+        """The group of ``axis``, or of a tuple of axes taken together
+        (one axis: its own group; ``("pod", "data")``)."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
         return self.groups.get(axis)
+
+    def axes_of(self, group) -> Optional[str]:
+        """The axis names of this rank's ``group``, joined by "+"
+        ("pod+data"), or None for a group this mesh did not make."""
+        for name, g in self.groups.items():
+            if g is not None and g is group:
+                return name if isinstance(name, str) else "+".join(name)
+        return None
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
+
+    def span(self, axes: Sequence[str]) -> Tuple[int, int]:
+        """(this rank's index, the count) along ``axes`` taken together,
+        row major (the first axis major); axes the mesh lacks count 1."""
+        index, count = 0, 1
+        for a in axes:
+            index = index * self.axis_size(a) + self.coords.get(a, 0)
+            count *= self.axis_size(a)
+        return index, count
 
     def __repr__(self) -> str:
         kind = "abstract " if self.is_abstract else ""
@@ -131,17 +162,22 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(shape, axes)
 
 
-def make_host_mesh(*, model: int = 1) -> Mesh:
-    """Every rank of the world as a (data, model) mesh.
+def make_host_mesh(*, pod: int = 1, model: int = 1) -> Mesh:
+    """Every rank of the world as a (data, model) mesh, or with ``pod`` >
+    1 a (pod, data, model) one.
 
-    ``model`` is the model-axis (tensor-parallel) factor; the data axis
-    takes the rest, and an impossible split fails loudly."""
+    ``model`` is the model-axis (tensor-parallel) factor and ``pod`` the
+    pod axis; the data axis takes the rest, and an impossible split fails
+    loudly."""
     n = world_size()
-    if model < 1:
-        raise ValueError(f"model axis factor must be >= 1, got {model}")
-    if n % model:
+    for name, f in (("pod", pod), ("model", model)):
+        if f < 1:
+            raise ValueError(f"{name} axis factor must be >= 1, got {f}")
+    if n % (pod * model):
         raise ValueError(
-            f"cannot build a (data, model) host mesh: {n} rank(s) not "
-            f"divisible by model={model}; pick a factor of {n} (or start "
-            f"more ranks: repro_torch/distributed/launch.py)")
-    return Mesh((n // model, model), ("data", "model"))
+            f"cannot build a (pod, data, model) host mesh: {n} rank(s) not "
+            f"divisible by pod={pod} x model={model}; pick factors of {n} "
+            f"(or start more ranks: repro_torch/distributed/launch.py)")
+    if pod == 1:
+        return Mesh((n // model, model), ("data", "model"))
+    return Mesh((pod, n // (pod * model), model), ("pod", "data", "model"))

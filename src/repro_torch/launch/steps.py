@@ -6,25 +6,31 @@ specs (``distributed/sharding.py``: a tuple per tensor, the counterpart of
 the reference's ``PartitionSpec``); where the ranks' params part from
 :func:`model_shardings`' tree, its docstring says how.
 
-Training runs over a ``(data, model)`` mesh, with the params and AdamW's
-moments placed as the reference's rules place them
-(:func:`rank_params`):
+Training runs over a ``(data, model)`` or ``(pod, data, model)`` mesh,
+with the params and AdamW's moments placed as the reference's rules place
+them (:func:`rank_params`):
 
-  * along ``data`` each rank takes its slice of the global batch and holds
+  * along ``pod`` x ``data`` (pod major, the reference's ``act_batch``)
+    each rank takes its slice of the global batch; along ``data`` it holds
     its cut of every leaf whose ``embed`` dim the data axis divides (FSDP,
     ``distributed/fsdp.py``): the model gathers a leaf where it uses it,
-    and the gathers' backward reduce-scatters the gradients, which the
-    step divides by n_data; the leaves that stay whole over data (norms
-    whose dim does not divide) are averaged by one all-reduce, with the
-    loss and the metrics;
+    and the gathers' backward reduce-scatters the gradients, which one
+    all-reduce over ``pod`` then sums; the leaves that stay whole over
+    data (norms whose dim does not divide) are summed by one all-reduce
+    over pod x data, with the loss and the metrics, and every gradient is
+    divided by the pod x data ranks (:func:`_average_over_batch`); params
+    and moments are replicated over ``pod``;
   * along ``model`` each rank holds its slices of the params (the cut of
-    tensor-parallel serving, ``tp.shard_params``) and runs the forward and
+    tensor-parallel serving, ``tp.shard_params``, and its experts' slice
+    of the MoE banks: expert parallelism) and runs the forward and
     backward tensor-parallel (``distributed/tp.py``'s collectives under
     autograd), the loss vocab-parallel.
 
 The clip's global gradient norm sums each leaf's squares over the axes
 that cut it (:func:`_grad_norm`), and AdamW runs on the cuts, so its
-moments inherit them. Checkpoints hold whole arrays: :func:`full_state`
+moments inherit them; int8 gradient compression takes each leaf's scale
+from the whole leaf's amax, a max over the axes that cut it
+(:func:`_grad_amax`). Checkpoints hold whole arrays: :func:`full_state`
 gathers a rank's state, :func:`rank_state` cuts it again, on any mesh.
 """
 from __future__ import annotations
@@ -59,28 +65,29 @@ def value_and_grad(loss_fn: Callable, params) -> Tuple[Tuple, Dict]:
             tree_map(lambda t: by_id[id(t)], p))
 
 
-def data_shard(batch: Dict[str, torch.Tensor], mesh, axis: str = "data"
+def data_shard(batch: Dict[str, torch.Tensor], mesh
                ) -> Dict[str, torch.Tensor]:
-    """This rank's rows of a global batch: the ``axis`` coordinate's
-    contiguous 1/n of every leaf's first dim (the reference's
-    ``act_batch`` → data sharding)."""
-    n = 1 if mesh is None else mesh.axis_size(axis)
+    """This rank's rows of a global batch: its contiguous 1/n of every
+    leaf's first dim over the n ranks of pod x data, pod major (the
+    reference's ``act_batch`` → ("pod", "data"))."""
+    if mesh is None:
+        return batch
+    i, n = mesh.span(FSDP.BATCH_AXES)
     if n == 1:
         return batch
     for k, v in batch.items():
         if v.shape[0] % n:
             raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows; the "
-                             f"{axis} axis of {n} ranks must divide them")
-    return {k: TP.shard_dim(v, 0, mesh.coords[axis], n)
-            for k, v in batch.items()}
+                             f"{n} ranks of pod x data must divide them")
+    return {k: TP.shard_dim(v, 0, i, n) for k, v in batch.items()}
 
 
 def all_reduce_mean(tree, group, n: int):
     """Every leaf averaged over ``group`` (n ranks) in one all-reduce of
     their fp32 concatenation; each leaf keeps its dtype."""
-    if n == 1:
-        return tree
     leaves = tree_leaves(tree)
+    if n == 1 or not leaves:
+        return tree
     flat = torch.cat([t.reshape(-1).float() for t in leaves])
     flat = TP.all_reduce(flat, group) / n
     out, i = {}, 0
@@ -102,12 +109,13 @@ def rank_params(cfg: ModelConfig, params, mesh):
     """This rank's cut of whole ``params`` (or of their ``meta``
     stand-ins, or of an AdamW moment of the same tree) on ``mesh``: its
     slices over the model axis (``tp.shard_params``, as the
-    tensor-parallel engine cuts them), then its cut of each leaf's
+    tensor-parallel engine cuts them, and its experts' slice of the MoE
+    banks, which the engine keeps whole), then its cut of each leaf's
     ``embed`` dim over the data axis (``fsdp.shard_params``); the params
     themselves on one rank. A tree that is already the rank's comes back
     as it is."""
     params = TP.shard_params(params, param_axes(cfg), tp_context(cfg, mesh),
-                             units=TP.head_units(cfg))
+                             units=TP.head_units(cfg), experts=True)
     return FSDP.shard_params(params, FSDP.make_context(cfg, mesh))
 
 
@@ -118,7 +126,8 @@ def full_params(cfg: ModelConfig, params, mesh):
     params = FSDP.full_params(params, FSDP.make_context(cfg, mesh))
     return TP.unshard_params(params, param_axes(cfg), tp_context(cfg, mesh),
                              units=TP.head_units(cfg),
-                             shapes=T.init_model(cfg, device="meta"))
+                             shapes=T.init_model(cfg, device="meta"),
+                             experts=True)
 
 
 def _map_state(fn, state):
@@ -166,20 +175,58 @@ def _grad_norm(grads, shapes, tpctx: Optional[TP.TPContext],
     return torch.sqrt(part[False, False] + both[0] + on_model.sum())
 
 
-def _average_over_data(grads, extra, fsctx: Optional[FSDP.FSDPContext],
-                       group, n: int):
+def _average_over_batch(grads, extra, fsctx: FSDP.FSDPContext):
     """The gradients of the global batch from a rank's, and ``extra``
-    (the loss and metrics) averaged over the ``n`` data ranks: a leaf cut
-    over data holds its reduce-scattered sum already and is divided by n;
-    the rest go in one all-reduce (:func:`all_reduce_mean`)."""
+    (the loss and metrics), averaged over the n = pod x data ranks: a
+    leaf cut over data holds its reduce-scattered sum over data already,
+    and the cuts are summed over pod in one all-reduce; the rest go in one
+    all-reduce over pod x data (:func:`all_reduce_mean`)."""
     pairs = FSDP.leaves_with_cuts(grads, fsctx)
     whole = [g for g, cut in pairs if cut is None]
-    whole, extra = all_reduce_mean((whole, extra), group, n)
-    it = iter(whole)
+    whole, extra = all_reduce_mean((whole, extra), fsctx.batch_group,
+                                   fsctx.batch_size)
     # a cut's gradient is its reduce-scatter's own output: divided in place
-    new = {id(g): (g.div_(n) if cut is not None else next(it))
+    cuts = [g.div_(fsctx.size) for g, cut in pairs if cut is not None]
+    mesh = fsctx.mesh
+    cuts = all_reduce_mean(cuts, mesh.group("pod"), mesh.axis_size("pod"))
+    it_whole, it_cut = iter(whole), iter(cuts)
+    new = {id(g): next(it_whole if cut is None else it_cut)
            for g, cut in pairs}
     return tree_map(lambda g: new[id(g)], grads), extra
+
+
+def _layer_leaves(layer, path=()):
+    """(path, leaf) of every leaf of one layer's params."""
+    if isinstance(layer, dict):
+        return [x for k in sorted(layer)
+                for x in _layer_leaves(layer[k], path + (k,))]
+    return [(path, layer)]
+
+
+def _grad_amax(grads, tpctx: Optional[TP.TPContext],
+               fsctx: Optional[FSDP.FSDPContext]):
+    """The amax that int8 compression scales each gradient leaf by, as
+    the reference's per-tensor quantization sees its tensor: the whole
+    leaf's, from a rank's cut of it (the rank's amaxes, one max-reduce
+    over data and one over model: a leaf that an axis does not cut has
+    the same gradient on every rank of it, so the max over that axis
+    leaves its amax as it is); and for a layer's leaf, the max over every
+    layer's, since the reference stacks ``params["layers"]`` into one
+    tensor a leaf."""
+    leaves = tree_leaves(grads)
+    amax = torch.stack([g.detach().float().abs().max() for g in leaves])
+    for ctx in (fsctx, tpctx):
+        if ctx is not None:
+            amax = TP.all_reduce_max(amax, ctx.group)
+    by_id = {id(g): amax[i] for i, g in enumerate(leaves)}
+    stacks: Dict[Tuple, list] = {}
+    for layer in grads.get("layers", ()):
+        for path, g in _layer_leaves(layer):
+            stacks.setdefault(path, []).append(g)
+    for gs in stacks.values():
+        top = torch.stack([by_id[id(g)] for g in gs]).max()
+        by_id.update((id(g), top) for g in gs)
+    return tree_map(lambda g: by_id[id(g)], grads)
 
 
 def _check_held(params, shapes, fsctx: FSDP.FSDPContext) -> None:
@@ -205,28 +252,25 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     ``opt_state`` are this rank's cuts (:func:`rank_params`; ``adamw_init``
     of them): each rank takes its rows (:func:`data_shard`), the forward
     and backward run under the mesh's FSDP and TP contexts, and the
-    gradients and the loss are averaged over the data group
-    (:func:`_average_over_data`) before AdamW, so the step is the global
+    gradients and the loss are averaged over pod x data
+    (:func:`_average_over_batch`) before AdamW, so the step is the global
     batch's, an MoE model's dispatch groups and load-balance loss included
-    (``layers.moe``). int8 gradient compression, whose per-tensor scale a
-    cut cannot reproduce, raises on a mesh that cuts the params. The
-    schedule takes ``base_lr`` (default ``opt_cfg.lr``) and warms up over
-    ``warmup`` steps, fixed at 100 as in the reference (a reference
-    caveat, ROADMAP.md; the ``Trainer`` passes its own); ``aux_weight``
-    scales the experts' loss. The multi-microbatch metrics report ``aux``
-    as 0."""
+    (``layers.moe``). int8 gradient compression quantizes each rank's cut
+    with the whole tensor's per-tensor scale (:func:`_grad_amax`: a
+    layer's leaf takes the scale of the reference's stacked tensor, on one
+    device too), after the clip's norm is taken, as the reference
+    quantizes the whole averaged gradient; as in the reference's step, no
+    error is carried to the next step. The schedule takes ``base_lr``
+    (default ``opt_cfg.lr``) and warms up over ``warmup`` steps, fixed at
+    100 as in the reference (a reference caveat, ROADMAP.md; the
+    ``Trainer`` passes its own); ``aux_weight`` scales the experts' loss.
+    The multi-microbatch metrics report ``aux`` as 0."""
     opt_cfg = opt_cfg or AdamWConfig()
     base_lr = opt_cfg.lr if base_lr is None else base_lr
-    group = None if mesh is None else mesh.group("data")
-    n_data = 1 if mesh is None else mesh.axis_size("data")
     tpctx = tp_context(cfg, mesh)
     fsctx = FSDP.make_context(cfg, mesh)
     shapes = None
     if tpctx is not None or fsctx is not None:
-        if opt_cfg.compress_grads:
-            raise NotImplementedError(
-                "compress_grads on a mesh that cuts the params: a cut's "
-                "per-tensor int8 scale is not the whole gradient's")
         shapes = T.init_model(cfg, device="meta")
 
     def grad_of(params, batch):
@@ -257,15 +301,18 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             grads = tree_map(lambda g: g * scale, grads)
             loss = loss * scale
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
-        if n_data > 1:
-            grads, (loss, metrics) = _average_over_data(
-                grads, (loss, metrics), fsctx, group, n_data)
+        if fsctx is not None:
+            grads, (loss, metrics) = _average_over_batch(
+                grads, (loss, metrics), fsctx)
         lr = cosine_schedule(opt_state["step"], base_lr=base_lr,
                              warmup=warmup, total=total_steps)
-        gnorm = None if shapes is None else _grad_norm(grads, shapes, tpctx,
-                                                       fsctx)
+        gnorm = None if shapes is None else _grad_norm(grads, shapes,
+                                                       tpctx, fsctx)
+        amax = _grad_amax(grads, tpctx, fsctx) if opt_cfg.compress_grads \
+            else None
         params, opt_state, om, _ = adamw_update(params, grads, opt_state,
-                                                opt_cfg, lr, gnorm=gnorm)
+                                                opt_cfg, lr, gnorm=gnorm,
+                                                amax=amax)
         return params, opt_state, dict(metrics, loss=loss, lr=lr, **om)
 
     return train_step
@@ -335,16 +382,16 @@ def model_shardings(cfg: ModelConfig, params_abs, axes,
       * a head dim whose heads do not divide over the model axis (MQA's
         single KV head): whole on the rank where the spec splits its
         columns;
-      * the MoE expert banks stay whole over ``model`` (no expert
-        parallelism yet, ROADMAP.md 9b(b)), where the spec cuts their
-        experts; the ``wo`` bank's d_model dim, which the reference's axes
-        leave unnamed, is cut over ``data`` instead (``fsdp.make_plan``);
+      * the MoE ``wo`` bank's d_model dim, which the reference's axes
+        leave unnamed (whole over ``data``), is cut over ``data`` as well
+        (``fsdp.make_plan``), beside the spec's cut of its experts over
+        ``model``;
       * the SSD blocks and the audio family's per-codebook tables (3-D)
         stay whole over ``model``, as the reference's ``tp.linear`` runs
         them unsharded.
 
-    Serving holds the params whole over ``data``, as the reference's
-    serving does."""
+    Serving holds the params whole over ``data``, and the MoE banks whole
+    over ``model``, as the reference's serving does."""
     return shd.param_specs(axes, params_abs, rules)
 
 

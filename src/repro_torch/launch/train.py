@@ -1,15 +1,19 @@
 """Training launcher of the port (``repro/launch/train.py``), on the GPU by
 default: the optimizer step of ``launch/steps.py`` with auto-resume from
 the latest checkpoint and the straggler watchdog, over
-``make_host_mesh(model=--tp)``: the world's ranks on a (data, model) mesh,
-data parallel over ``data`` with the params and AdamW's moments cut there
-(FSDP, as the reference's rules place them), tensor parallel over
-``model`` (each rank holds its slices of the params,
-``steps.rank_params``). ``--dp N --tp M`` starts N x M local ranks itself
-(one group over gloo; on the card every rank runs on ``cuda:0``); only
-rank 0 prints. ``--ckpt-dir`` checkpoints hold whole arrays, as the
-reference's: every rank takes part in gathering them, rank 0 writes them,
-and a resume cuts each rank's share again, on any mesh.
+``make_host_mesh(pod=--pod, model=--tp)``: the world's ranks on a (data,
+model) mesh, or (pod, data, model) with ``--pod``, data parallel over pod
+x data with the params and AdamW's moments cut over ``data`` (FSDP, as the
+reference's rules place them) and replicated over ``pod``, tensor and
+expert parallel over ``model`` (each rank holds its slices of the params
+and its experts' slice of the MoE banks, ``steps.rank_params``).
+``--pod P --dp N --tp M`` starts P x N x M local ranks itself (one group
+over gloo; on the card every rank runs on ``cuda:0``); only rank 0
+prints. ``--compress-grads`` quantizes the gradients to int8 with each
+whole tensor's scale on any mesh. ``--ckpt-dir`` checkpoints hold whole
+arrays, as the reference's: every rank takes part in gathering them,
+rank 0 writes them, and a resume cuts each rank's share again, on any
+mesh.
 ``--production-mesh`` takes the reference's 16 x 16 (data, model) mesh,
 which needs a world of 256 ranks and raises in any other.
 
@@ -27,6 +31,9 @@ Usage:
       --global-batch 4 --seq-len 32 --device cpu --dp 2   # two ranks
   python -m repro_torch.launch.train --arch qwen3-8b --smoke --steps 3 \
       --global-batch 4 --seq-len 32 --device cpu --dp 2 --tp 2  # four
+  python -m repro_torch.launch.train --arch dbrx-132b --smoke --steps 3 \
+      --global-batch 4 --seq-len 32 --device cpu --pod 2 --tp 2 \
+      --compress-grads                  # (pod 2, data 1, model 2)
 """
 from __future__ import annotations
 
@@ -69,12 +76,17 @@ def main(argv=None):
     ap.add_argument("--production-mesh", action="store_true",
                     help="the 16x16 (data, model) mesh: needs a world of "
                          "256 ranks, and raises in any other")
+    ap.add_argument("--pod", type=int, default=1,
+                    help="the pod axis: local ranks data parallel over "
+                         "the batch with the params replicated; pod x dp "
+                         "x tp ranks are started")
     ap.add_argument("--dp", type=int, default=1,
                     help="local ranks data parallel over the global batch "
                          "(gloo); with --tp, dp x tp ranks are started")
     ap.add_argument("--tp", type=int, default=1,
                     help="the model axis: local ranks tensor parallel over "
-                         "the model's heads, d_ff and vocab")
+                         "the model's heads, d_ff and vocab, and expert "
+                         "parallel over the MoE experts")
     ap.add_argument("--gemm-backend", default="auto",
                     help="GEMM backend (auto|matrixflow|blockflow|torch)")
     ap.add_argument("--gemm-mode", default="auto",
@@ -83,13 +95,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    world = args.dp * args.tp
+    world = args.pod * args.dp * args.tp
     if world > 1 and not args.production_mesh and not dist.is_initialized():
         return run_cli("repro_torch.launch.train",
                        sys.argv[1:] if argv is None else argv, world)
     device = resolve_device(args.device)
     mesh = make_production_mesh() if args.production_mesh else \
-        make_host_mesh(model=args.tp)
+        make_host_mesh(pod=args.pod, model=args.tp)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     check_trainable(cfg, device)
     policy = GemmPolicy(backend=args.gemm_backend, mode=args.gemm_mode)

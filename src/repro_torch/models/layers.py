@@ -356,7 +356,10 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     kv = TP.conform_heads(
         kv.reshape(B, kv.shape[1], -1, dn + dv), H, shard_h)
     k_nope, v = kv[..., :dn], kv[..., dn:]
-    k = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+    # the one rope key, shared by every head: a rank of sliced heads reads
+    # it for its heads only, so its gradient is summed over the group
+    kr = TP.to_ranks(kr_all) if shard_h else kr_all
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(
         *k_nope.shape[:3], dr)], dim=-1)
     out = TP.attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                        q_positions=positions, kv_valid_len=kv_valid,
@@ -441,12 +444,13 @@ def _moe_groups(T: int, target: int = 32) -> int:
 
 def _rank_groups(T: int) -> int:
     """The dispatch groups of this rank's T tokens. Under a data-parallel
-    context of n ranks (``distributed/fsdp.py``) the groups are those of
-    the global batch's n·T tokens, aligned with the data shards as in the
-    reference: the rank takes G/n of the G global groups, each of the
-    global size (so each expert keeps the global capacity C)."""
+    context of n ranks (``distributed/fsdp.py``: pod x data) the groups
+    are those of the global batch's n·T tokens, aligned with the batch
+    shards as in the reference: the rank takes G/n of the G global
+    groups, each of the global size (so each expert keeps the global
+    capacity C)."""
     ctx = FSDP.current_fsdp()
-    n = 1 if ctx is None else ctx.size
+    n = 1 if ctx is None else ctx.batch_size
     G = _moe_groups(T * n)
     if G % n:
         raise NotImplementedError(
@@ -487,6 +491,17 @@ def moe(p, cfg: ModelConfig, x):
     The aux loss ``E · mean(density · mean probs)`` takes both means over
     the global batch: under data parallelism each is averaged over the
     data group (``fsdp.mean_over_data``) before the product is formed.
+
+    Under expert parallelism (the rank holds its experts' slice of the
+    banks, ``tp.expert_slice``) the router, top-k, aux loss and dispatch
+    run whole on every rank of the model group, whose activations are
+    replicated; the rank fills only its experts' slots (the others go to
+    the trash), runs its bank slices and combines its slots, and the
+    partial outputs are summed over the group (``tp.sum_over_ranks``, in
+    fp32). The ``xt`` that fills the buffer and the gates that weight the
+    combine are each read here only for the rank's own experts, so their
+    gradients are summed over the group (``tp.to_ranks``); the router's
+    ``xt`` and the aux loss's ``probs`` are read whole and are not.
     """
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
@@ -494,6 +509,8 @@ def moe(p, cfg: ModelConfig, x):
     G = _rank_groups(T)
     t = T // G
     C = min(max(int(t * k / E * cfg.capacity_factor), 1), t * k)
+    e0, El = TP.expert_slice(E, p["wi"].shape[0])
+    ep = El != E
     dev = x.device
     xt = x.reshape(G, t, D)
 
@@ -517,27 +534,35 @@ def moe(p, cfg: ModelConfig, x):
                                                               sorted_e)
     slot = torch.where(pos_in_e < C, sorted_e * C + pos_in_e,
                        torch.full_like(sorted_e, E * C))        # E*C: trash
+    if ep:          # the rank's experts' slots, from 0; the rest: trash
+        mine = (slot >= e0 * C) & (slot < (e0 + El) * C)
+        slot = torch.where(mine, slot - e0 * C,
+                           torch.full_like(slot, El * C))
+        xt_d, gate = TP.to_ranks(xt), TP.to_ranks(gate)
+    else:
+        xt_d = xt
+    trash = El * C
     g_idx = torch.arange(G, device=dev)[:, None].expand(G, t * k)
-    buf = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=dev)
-    buf[g_idx, slot] = xt[g_idx, flat_t[order]]
+    buf = torch.zeros((G, trash + 1, D), dtype=x.dtype, device=dev)
+    buf[g_idx, slot] = xt_d[g_idx, flat_t[order]]
     slot_for_flat = torch.empty_like(slot).scatter_(1, order, slot)
 
-    h = buf[:, :-1].reshape(G, E, C, D)
+    h = buf[:, :-1].reshape(G, El, C, D)
     gi = torch.einsum("gecd,edf->gecf", h, p["wi"]).to(x.dtype)
     g_, u = gi.chunk(2, dim=-1)
     hh = torch.nn.functional.silu(g_) * u
     out = torch.einsum("gecf,efd->gecd", hh, p["wo"]).to(x.dtype)
-    out = torch.cat([out.reshape(G, E * C, D),
+    out = torch.cat([out.reshape(G, trash, D),
                      torch.zeros((G, 1, D), dtype=x.dtype, device=dev)], 1)
 
     def rows(slots):                     # out's rows at slots (G, n)
         return torch.gather(out, 1, slots[..., None].expand(*slots.shape, D))
 
     if cfg.moe_combine == "local":
-        gate_slot = torch.zeros((G, E * C + 1), dtype=torch.float32,
+        gate_slot = torch.zeros((G, trash + 1), dtype=torch.float32,
                                 device=dev)
         gate_slot[g_idx, slot_for_flat] = gate.reshape(G, t * k)
-        gate_slot[:, E * C] = 0.0        # dropped pairs contribute 0
+        gate_slot[:, trash] = 0.0        # dropped pairs contribute 0
         upd_slot = gate_slot.to(x.dtype)
         by_slot = torch.sort(slot_for_flat.reshape(G, t, k), dim=-1).values
         y = torch.zeros((G, t, D), dtype=x.dtype, device=dev)
@@ -547,6 +572,8 @@ def moe(p, cfg: ModelConfig, x):
     else:
         contrib = rows(slot_for_flat).reshape(G, t, k, D)
         y = torch.sum(contrib * gate[..., None].to(x.dtype), dim=2)
+    if ep:
+        y = TP.sum_over_ranks(y.float()).to(x.dtype)
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], cfg, xt,
                     d_ff=cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff))

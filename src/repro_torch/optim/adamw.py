@@ -69,25 +69,32 @@ def _global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def quantize_int8(g: torch.Tensor, err: Optional[torch.Tensor] = None):
+def quantize_int8(g: torch.Tensor, err: Optional[torch.Tensor] = None,
+                  amax: Optional[torch.Tensor] = None):
     """Symmetric per-tensor int8 quantization with error feedback: returns
-    (the dequantized gradient, the new error)."""
+    (the dequantized gradient, the new error). ``amax`` is the whole
+    tensor's max |g + err| where ``g`` is a rank's cut of it (default:
+    ``g``'s own), so the cut takes the whole tensor's scale."""
     gf = g.float()
     if err is not None:
         gf = gf + err
-    scale = torch.clamp(gf.abs().max(), min=1e-12) / 127.0
+    if amax is None:
+        amax = gf.abs().max()
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     deq = q.float() * scale
     return deq, gf - deq
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr,
-                 err_state=None, *, gnorm: Optional[torch.Tensor] = None):
+                 err_state=None, *, gnorm: Optional[torch.Tensor] = None,
+                 amax=None):
     """One AdamW step. Returns (new_params, new_state, metrics, new_err);
     nothing is updated in place. ``gnorm`` is the global gradient norm
-    the clip divides by, when the caller computes it (a rank that holds
-    slices of the params: ``launch/steps.py``); default, the norm of
-    ``grads``."""
+    the clip divides by, and ``amax`` (a tree like ``grads`` of 0-d
+    tensors) each whole gradient's amax that compression scales by, when
+    the caller computes them (a rank that holds slices of the params:
+    ``launch/steps.py``); default, those of ``grads``."""
     if gnorm is None:
         gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -97,7 +104,8 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr,
         if err_state is None:
             err_state = tree_map(lambda g: torch.zeros(
                 g.shape, dtype=torch.float32, device=g.device), grads)
-        pairs = tree_map(quantize_int8, grads, err_state)
+        pairs = tree_map(quantize_int8, grads, err_state) if amax is None \
+            else tree_map(quantize_int8, grads, err_state, amax)
         grads, new_err = _pick(pairs, 0), _pick(pairs, 1)
 
     step = state["step"] + 1

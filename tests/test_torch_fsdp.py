@@ -17,8 +17,9 @@ smollm smoke config with the JAX init:
     a third equal three steps in one run, bitwise;
   * the dry run's collectives on ``Mesh.abstract`` equal each rank's.
 
-Without ranks: the plan of the cuts, AdamW's decay on a cut, and the
-qwen3-8b ``train_4k`` dry run's memory gates on the 16 × 16 mesh.
+Without ranks: the plan of the cuts, AdamW's decay on a cut, the
+qwen3-8b ``train_4k`` dry run's memory gates on the 16 × 16 mesh, and
+dbrx-132b's on the 2 × 16 × 16 mesh with its pod all-reduce.
 """
 from __future__ import annotations
 
@@ -295,3 +296,26 @@ def test_dryrun_qwen3_train_4k_memory_gates():
     assert arg == blocks * (itemsize + 4 + 4) + batch + 4
     assert arg <= 0.66e9
     assert res["memory"]["temp_size_in_bytes"] <= 169.3e9 - 80e9
+
+
+def test_dryrun_dbrx_train_4k_multi_pod():
+    """dbrx-132b at ``train_4k`` on rank 0 of the 2 × 16 × 16 mesh with
+    ``compress_grads``: expert parallelism brings a rank's arguments
+    under 10 GB (79.8 GB with the banks whole over model); no part of the
+    train cell names the MoE banks or the gradient reduction; the step's
+    one all-reduce over ``pod`` carries the rank's cut gradients in fp32
+    (the closed form), and compression adds one amax max-reduce over data
+    (a float a leaf) beside the clip norm's."""
+    res = DR.dryrun_cell("dbrx-132b", "train_4k", multi_pod=True,
+                         verbose=False, compress_grads=True)
+    assert res["memory"]["argument_size_in_bytes"] < 10e9
+    parts = {p["part"] for p in res["parts_from_reference"]}
+    assert not parts & {"MoE expert banks", "gradient reduction"}
+    cfg = get_config("dbrx-132b")
+    mesh = Mesh.abstract(*production_mesh_shape(multi_pod=True))
+    by_axes = res["collectives_by_axes"]
+    assert by_axes["all_reduce:pod"] == {
+        "calls": 1, "bytes": R.pod_all_reduce_bytes(cfg, mesh)}
+    n_leaves = len(tree_leaves(T.init_model(cfg, device="meta")))
+    assert by_axes["all_reduce:data"] == {"calls": 2,
+                                          "bytes": 8 + 4 * n_leaves}

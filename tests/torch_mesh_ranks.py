@@ -372,19 +372,22 @@ def _leaves_np(tree):
     return [t.detach().float().numpy() for t in tree_leaves(tree)]
 
 
-def dp_step(cfg, params, batch, mesh):
-    """One make_train_step_fn step (lr :data:`DP_LR`) on ``batch`` (the
-    global batch) under K1's autograd Function and unfused attention, from
-    the whole ``params`` cut to this rank's share on ``mesh``
-    (``rank_params``: FSDP over data, slices over model) or on one device:
-    loss, grad_norm, the step's collectives, the bytes of the params and
-    moments the rank held, and the params after the update gathered whole
-    (``steps.full_params``)."""
+def dp_step(cfg, params, batch, mesh, *, compress=False, keep_state=False):
+    """One make_train_step_fn step (lr :data:`DP_LR`; int8 gradients with
+    ``compress``) on ``batch`` (the global batch) under K1's autograd
+    Function and unfused attention, from the whole ``params`` cut to this
+    rank's share on ``mesh`` (``rank_params``: FSDP over data, slices and
+    experts over model) or on one device: loss, grad_norm, the step's
+    collectives (also by the axes each went over), the bytes of the
+    params and moments the rank held, and the params after the update
+    gathered whole (``steps.full_params``); with ``keep_state`` the
+    rank's ``{"params", "opt"}`` after the step too."""
     from repro_torch.core.plan import UNFUSED
     from repro_torch.launch import steps as ST
     from repro_torch.optim import AdamWConfig, adamw_init
-    step = ST.make_train_step_fn(cfg, AdamWConfig(lr=DP_LR), total_steps=10,
-                                 mesh=mesh)
+    step = ST.make_train_step_fn(
+        cfg, AdamWConfig(lr=DP_LR, compress_grads=compress), total_steps=10,
+        mesh=mesh)
     held = ST.rank_params(cfg, params, mesh)
     opt = adamw_init(held)
     TP.collectives.reset()
@@ -392,12 +395,16 @@ def dp_step(cfg, params, batch, mesh):
             api.use_attention_policy(UNFUSED):
         p, opt, m = step(held, opt,
                          {k: torch.from_numpy(v) for k, v in batch.items()})
-    coll = TP.collectives.snapshot()
+    coll, by_axes = TP.collectives.snapshot(), TP.collectives.by_axes(mesh)
     nbytes = sum(t.numel() * t.element_size() for t in
                  _leaves(p) + _leaves(opt["mu"]) + _leaves(opt["nu"]))
-    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "aux": float(m["aux"]), "collectives": coll, "held_bytes": nbytes,
-            "params": _leaves_np(ST.full_params(cfg, p, mesh))}
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "aux": float(m["aux"]), "collectives": coll, "by_axes": by_axes,
+           "held_bytes": nbytes,
+           "params": _leaves_np(ST.full_params(cfg, p, mesh))}
+    if keep_state:
+        out["state"] = {"params": p, "opt": opt}
+    return out
 
 
 def _leaves(tree):
@@ -541,8 +548,9 @@ def tp_decode_rank(rank, world, rows, max_len):
 MOE_ARCHS = ("dbrx-132b", "deepseek-v2-236b")
 
 
-def moe_config(arch):
-    return get_smoke_config(arch, n_layers=2, vocab=64, dtype="float32")
+def moe_config(arch, **kw):
+    return get_smoke_config(arch, n_layers=2, vocab=64, dtype="float32",
+                            **kw)
 
 
 def moe_dp_rank(rank, world, params_by_arch, batch):
@@ -683,3 +691,129 @@ def fsdp_rank(rank, world, params_np, batch, ckpts, cli):
     out["cli"] = {"steps": {k: CheckpointManager(d).all_steps()
                             for k, d in cli.items()}}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism over model: the (1, 2) and (2, 2) meshes
+# ---------------------------------------------------------------------------
+
+# case → the MoE smoke config's overrides: both archs, and dbrx with the
+# "local" combine
+EP_CASES = {"dbrx-132b": {}, "deepseek-v2-236b": {},
+            "dbrx-132b/local": {"moe_combine": "local"}}
+
+
+def ep_config(case):
+    return moe_config(case.split("/")[0], **EP_CASES[case])
+
+
+def _bank_bytes(params):
+    return sum(t.numel() * t.element_size()
+               for lp in params["layers"] if "moe" in lp
+               for k, t in lp["moe"].items() if k in ("wi", "wo"))
+
+
+def ep_rank(rank, world, params_by_case, batch, ckpt):
+    """On the (data, model) mesh of ``world`` / 2 x 2 ranks: a step of
+    each case of :data:`EP_CASES` from its whole JAX-init params
+    (:func:`dp_step`); the rank's layer-0 banks of dbrx and their bytes
+    against the whole banks'. On (2, 2) rank 0 writes dbrx's state after
+    the step, gathered whole, to ``ckpt``; on (1, 2) each rank restores
+    it to its cut (``steps.rank_state``: shapes, and the state gathered
+    back), and a TP=2 serving engine of dbrx holds the banks whole."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.train.checkpoint import CheckpointManager
+    mesh = make_host_mesh(model=2)
+    out = {"coords": dict(mesh.coords)}
+    for case, p in params_by_case.items():
+        cfg = ep_config(case)
+        out[case] = dp_step(cfg, from_jax_params(p, cfg), batch, mesh,
+                            keep_state=case == "dbrx-132b")
+    cfg = ep_config("dbrx-132b")
+    whole = from_jax_params(params_by_case["dbrx-132b"], cfg)
+    held = ST.rank_params(cfg, whole, mesh)
+    out["banks"] = {k: held["layers"][0]["moe"][k].numpy()
+                    for k in ("wi", "wo")}
+    out["bank_bytes"] = (_bank_bytes(held), _bank_bytes(whole))
+    state = out["dbrx-132b"].pop("state")
+    if mesh.axis_size("data") == 2:
+        full = ST.full_state(cfg, state, mesh)
+        if mesh.rank == 0:
+            CheckpointManager(ckpt, async_save=False).save(1, full)
+        out["saved"] = _state_np(full)
+    else:
+        mine = ST.rank_state(cfg, CheckpointManager(ckpt).restore(state),
+                             mesh)
+        out["restored"] = {
+            "shapes": [tuple(t.shape) for t in _leaves(mine)],
+            "whole": _state_np(ST.full_state(cfg, mine, mesh))}
+        eng = _engine(cfg, whole, mesh, attention=FUSED)
+        out["serving_banks"] = [tuple(eng.params["layers"][0]["moe"][k].shape)
+                                for k in ("wi", "wo")]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The pod axis and int8 gradient compression on meshes that cut the params
+# ---------------------------------------------------------------------------
+
+POD_MESHES = {"pod": (2, 1), "pod_ep": (2, 2), "data_ep": (1, 2)}
+POD_ARCHS = ("smollm-135m", "dbrx-132b")
+
+
+def pod_config(arch):
+    return dp_config() if arch == "smollm-135m" else moe_config(arch)
+
+
+def compressed_cuts(cfg, grads_whole, mesh):
+    """int8 compression of a gradient tree as a rank of ``mesh`` runs it:
+    the rank's cut of ``grads_whole`` (``steps.rank_params``), each leaf
+    quantized with the whole tensor's amax (``steps._grad_amax``: max-
+    reduces over the axes that cut it, and over the layers, which the
+    reference stacks) through ``adamw.quantize_int8``, gathered whole
+    again."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim.adamw import quantize_int8, tree_map
+    cut = ST.rank_params(cfg, grads_whole, mesh)
+    amax = ST._grad_amax(cut, ST.tp_context(cfg, mesh),
+                         FSDP.make_context(cfg, mesh))
+    deq = tree_map(lambda g, a: quantize_int8(g, None, a)[0], cut, amax)
+    return _leaves_np(ST.full_params(cfg, deq, mesh))
+
+
+def pod_rank(rank, world, params_np, batch, grads_np, cli_dir):
+    """On four ranks: each arch's step on (pod 2, data 2, model 1); its
+    step with ``compress_grads`` on (pod 2, data 1, model 2) and on (pod
+    1, data 2, model 2); :func:`compressed_cuts` of each arch's
+    ``grads_np`` on both compressing meshes; and ``launch/train.py --pod 2
+    --dp 2 --compress-grads``, two steps."""
+    from repro_torch.launch import train as TR
+    out = {}
+    for arch in POD_ARCHS:
+        cfg = pod_config(arch)
+        whole = from_jax_params(params_np[arch], cfg)
+        mesh = make_host_mesh(pod=2, model=1)
+        out[arch, "pod"] = dp_step(cfg, whole, batch, mesh)
+        for name in ("pod_ep", "data_ep"):
+            pod, model = POD_MESHES[name]
+            mesh = make_host_mesh(pod=pod, model=model)
+            out[arch, name] = dp_step(cfg, whole, batch, mesh,
+                                      compress=True)
+            out[arch, name, "quantized"] = compressed_cuts(
+                cfg, from_jax_params(grads_np[arch], cfg), mesh)
+    out["cli"] = TR.main(["--arch", "smollm-135m", "--smoke",
+                          "--global-batch", "4", "--seq-len", "16",
+                          "--device", "cpu", "--pod", "2", "--dp", "2",
+                          "--compress-grads", "--steps", "2",
+                          "--ckpt-dir", cli_dir, "--ckpt-every", "0"])
+    return out
+
+
+def pod_all_reduce_bytes(cfg, mesh):
+    """The train step's one all-reduce over ``pod`` at ``mesh``'s rank: the
+    fp32 gradients of every leaf the data axis cuts, the rank's cuts."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    held = ST.rank_params(cfg, T.init_model(cfg, device="meta"), mesh)
+    return 4 * sum(t.numel() for t, cut in FSDP.leaves_with_cuts(
+        held, FSDP.make_context(cfg, mesh)) if cut is not None)
