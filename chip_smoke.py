@@ -239,6 +239,23 @@ CUDA toolkit. Phases, each fatal on failure:
              memory and roofline times are printed beside the runs'
              device busy and host wall times and their ratios.
              (``--roofline`` runs phases 3, 5, 20 and 25.)
+29. analysis — the static-analysis gate (``repro_torch.analysis``) on the
+             card's launches: (a) the contract sweep with the card's
+             routes, grids and clusters (every backend x the parity grid,
+             every config at its published widths), its instances printed
+             by kernel and route, zero violations; (b) a coverage probe:
+             each kernel and route at the sweep's cells and K1/K2 at
+             smollm-135m's decode and prefill GEMMs (K1's mma split and
+             batch grid among them), launched through the raw binding into
+             outputs filled with a sentinel (NaN; INT32_MIN for int32):
+             every element the contract marks written must be overwritten
+             and agree with the plain version (GEMM_TOLS / ATTN_TOLS /
+             SSD_TOLS, int8 exact); (c) the lint of the full-width
+             smollm-135m paged engine's prefill and decode steps, on meta
+             and live, zero findings; (d) the ops facade (gemm,
+             gemm_preformatted, mha, ssd) against its plain versions, each
+             call moving its wrapper's counter by one. Its seconds are
+             printed. (``--analysis`` runs it alone.)
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
@@ -5149,9 +5166,171 @@ def run_roofline_phase(report):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the static-analysis gate on the card's launches
+# ---------------------------------------------------------------------------
+
+# Each kernel's total launch counter (kernel_wrappers(): the rest count by
+# route or mark)
+KERNEL_COUNTERS = ("matrixflow_gemm", "matrixflow_gemm_dequant",
+                   "flash_attention", "paged_attention",
+                   "paged_attention_int8", "ssd_scan")
+# smollm-135m's projections (K, N) and the two row counts of its serving
+# steps (decode: SLOTS rows; a prefill bucket: SLOTS x PROMPT_BUCKET)
+PROBE_PROJECTIONS = ((576, 576), (576, 192), (576, 1536), (1536, 576),
+                     (576, 49152))
+PROBE_ROWS = (SLOTS, SLOTS * PROMPT_BUCKET)
+
+
+def probe_cells(entries):
+    """The sweep's cells on the card (``analysis.probe.sweep_cells``), then
+    K1 and K2 at smollm-135m's decode and prefill GEMMs: K1 in bf16 as
+    planned (wgmma) and, at decode, at bm 16 (mma, K split over a
+    cluster), in fp32 and int8 → int32 (the CUDA cores); K2 as planned;
+    and K1's batch grid (the unfused attention's 8 x 9 products) on wgmma
+    and the CUDA cores."""
+    from repro_torch.analysis import probe as PR
+    cells = PR.sweep_cells(entries)
+    for M in PROBE_ROWS:
+        for K, N in PROBE_PROJECTIONS:
+            variants = [(torch.bfloat16, False, None),
+                        (torch.int8, True, None)]
+            if M == SLOTS:
+                variants += [(torch.bfloat16, False, 16),
+                             (torch.float32, False, None),
+                             (torch.int8, False, None)]
+            for dt, fused, bm in variants:
+                cell = PR.gemm_cell(M, N, K, dt, fused=fused, bm=bm)
+                cells.append((f"smollm {'K2' if fused else 'K1'} "
+                              f"{str(dt)[6:]} {M}x{K}x{N} "
+                              f"bm={cell['blk'].bm}", "matrixflow_gemm",
+                              cell))
+    for dt in (torch.bfloat16, torch.float32):
+        cells.append((f"smollm K1 batched {str(dt)[6:]} 72 x 1x64x256",
+                      "matrixflow_gemm",
+                      PR.gemm_cell(1, 256, 64, dt, batch=SLOTS * 9)))
+    return cells
+
+
+def run_analysis_phase():
+    """Phase 29: (a) the contract sweep on the card's launches, (b) the
+    coverage probe of every kernel and route, (c) the lint of the
+    full-width smollm-135m paged engine's steps on meta and live, (d) the
+    ops facade against its plain versions, each call moving its wrapper's
+    counter by its launches. Fatal on any violation, unwritten element,
+    disagreement, finding or miscount."""
+    import io
+
+    from repro_torch.analysis import probe as PR
+    from repro_torch.analysis import sweep as SW
+    from repro_torch.analysis.trace_lint import lint_engine
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the sweep
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    entries, n_bad = SW.run_sweep(device="cuda", out=buf)
+    (OUT_DIR / "analysis_sweep.txt").write_text(buf.getvalue())
+    by_route = SW.count_by_route(entries)
+    out["sweep"] = dict(instances=len(entries), violations=n_bad,
+                        by_kernel_route=by_route,
+                        s=time.perf_counter() - t0)
+    log(f"analysis sweep: {len(entries)} contract instances, {n_bad} "
+        f"violations, {by_route}")
+    if n_bad:
+        fail(f"analysis sweep: {n_bad} contract violations (chiprun_out/"
+             f"analysis_sweep.txt)")
+    # (b) the coverage probe
+    t0 = time.perf_counter()
+    try:
+        probe = PR.run_probe(probe_cells(entries), seed=29)
+    except PR.ProbeError as e:
+        fail(f"analysis probe: {e}")
+    out["probe"] = dict(probe, s=time.perf_counter() - t0)
+    log(f"analysis probe: {sum(probe['cells'].values())} launches, every "
+        f"marked element written and within tolerance: {probe['cells']}")
+    # (c) the lint: meta and live
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+    sc = ServeConfig(batch_slots=SLOTS, max_len=MAX_LEN, obs=Observability())
+    eng = ServingEngine(cfg, params, sc)
+    findings = lint_engine(eng)
+    reset_counts()
+    live = lint_engine(eng, live=True)
+    torch.cuda.synchronize()
+    out["lint_launches"] = read_counts("analysis lint live",
+                                       K1_BF16 + K4_BF16)
+    for tag, fs in (("meta", findings), ("live", live)):
+        for f in fs:
+            log(f"lint FAIL {tag} {f}")
+    out["lint"] = dict(meta=len(findings), live=len(live),
+                       s=time.perf_counter() - t0)
+    if findings or live:
+        fail(f"analysis lint: {len(findings)} findings on meta, {len(live)} "
+             f"live, in smollm-135m's prefill and decode steps")
+    log(f"analysis lint: smollm-135m paged prefill+decode, 0 findings on "
+        f"meta and live")
+    del eng, params
+    # (d) the facade
+    t0 = time.perf_counter()
+    reset_counts()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    bf = torch.bfloat16
+    a = torch.randn((SLOTS, 576), generator=gen, device="cuda").to(bf)
+    b = torch.randn((576, 1536), generator=gen, device="cuda").to(bf)
+    q = torch.randn((SLOTS, 1, 9, 64), generator=gen, device="cuda").to(bf)
+    kv = torch.randn((SLOTS, 256, 3, 64), generator=gen, device="cuda").to(bf)
+    x = torch.randn((1, 384, 64, 64), generator=gen, device="cuda").to(bf)
+    dtv = 0.01 + 0.1 * torch.rand((1, 384, 64), generator=gen, device="cuda")
+    A = -(0.5 + torch.rand(64, generator=gen, device="cuda"))
+    Bc = (torch.randn((1, 384, 128), generator=gen, device="cuda") / 8).to(bf)
+    from repro_torch.core import layout as L
+    from repro_torch.core import plan as P
+    blk = P.plan(SLOTS, 1536, 576, bf, P.GemmPolicy(backend="matrixflow"),
+                 "cuda").layout
+    a_bm = L.to_block_major_a(a, blk.bm, blk.bk)
+    b_bm = L.to_block_major_b(b, blk.bk, blk.bn)
+    facade = {}
+    for fn, args, kw, counter, tol in (
+            (ops.gemm, (a, b), {}, "matrixflow_gemm", PR.TOLS["bfloat16"]),
+            (ops.gemm_preformatted, (a_bm, b_bm), dict(blk=blk),
+             "matrixflow_gemm", PR.TOLS["bfloat16"]),
+            (ops.mha, (q, kv, kv), {}, "flash_attention",
+             PR.ATTN_TOLS["bfloat16"]),
+            (ops.ssd, (x, dtv, A, Bc, Bc), {}, "ssd_scan",
+             PR.SSD_TOLS["bfloat16"])):
+        before = counts()
+        got = fn(*args, **kw)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in KERNEL_COUNTERS
+                 if after[k] != before[k]}
+        if moved != {counter: 1}:
+            fail(f"analysis facade {fn.__name__}: counters moved {moved}, "
+                 f"expected {{{counter!r}: 1}}")
+        want = fn(*args, **kw, impl="ref")
+        facade[fn.__name__] = check_close(f"analysis facade {fn.__name__}",
+                                          got, want, *tol)
+    torch.cuda.synchronize()
+    out["facade_launches"] = read_counts(
+        "analysis ops facade", ("matrixflow_gemm", "flash_attention",
+                                "ssd_scan"))
+    out["facade"] = dict(max_abs_err=facade, s=time.perf_counter() - t0)
+    out["s"] = time.perf_counter() - t_phase
+    log(f"analysis: phase 29 in {out['s']:.1f} s (sweep "
+        f"{out['sweep']['s']:.1f}, probe {out['probe']['s']:.1f}, lint "
+        f"{out['lint']['s']:.1f}, facade {out['facade']['s']:.1f})")
+    return out
+
+
 def slice_paths(report) -> dict:
-    """The launch counts of phases 20, 22, 23, 24, 26, 27 and 28's paths,
-    by path. Of the slice entries of the kernels line
+    """The launch counts of phases 20, 22, 23, 24, 26, 27, 28 and 29's
+    paths, by path. Of the slice entries of the kernels line
     (:func:`slice_entries`), the training ones count phase 20's
     ``training`` path alone, the mixed ones phase 22's, and the ``_tp2``
     ones phase 23's TP=2 serving ranks; every path, the DP=2 train step,
@@ -5189,6 +5368,9 @@ def slice_paths(report) -> dict:
         for r, rk in enumerate(report.get("pod", {}).get(name, {})
                                .get("ranks", [])):
             out[f"pod {name} rank {r} fp32 step"] = rk["launches"]
+    if "analysis" in report:
+        out["analysis lint live"] = report["analysis"]["lint_launches"]
+        out["analysis ops facade"] = report["analysis"]["facade_launches"]
     return out
 
 
@@ -5366,6 +5548,15 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
+    if sys.argv[1:2] == ["--analysis"]:       # phase 29 alone
+        report["analysis"] = run_analysis_phase()
+        (OUT_DIR / "chip_smoke_analysis.json").write_text(
+            json.dumps(report, indent=1))
+        print(json.dumps({"kernels": slice_entries(report)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     if sys.argv[1:2] in (["--train"], ["--mixed"]):   # phases 20-21 or 22
         cfg = get_config(ARCH)
         timer = Timer()
@@ -5471,6 +5662,8 @@ def main() -> None:
     report["pod"] = run_pod_phase()
     begin("roofline")
     report["roofline"] = run_roofline_phase(report)
+    begin("analysis")
+    report["analysis"] = run_analysis_phase()
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     by_path = {"paged serving": report["serving"]["launches"],

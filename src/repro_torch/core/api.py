@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import warnings
 from typing import Optional, Union
 
 import torch
@@ -65,7 +66,8 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matrixflow_gemm as MF
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.forward_only import needs_grad
-from repro_torch.kernels.ref import acc_dtype_for, block_matmul_ref
+from repro_torch.kernels.ref import (acc_dtype_for, block_matmul_ref,
+                                     work_dtype)
 
 __all__ = [
     "GemmPolicy", "ExecutionPlan", "PackedWeight", "QuantizedPackedWeight",
@@ -73,6 +75,7 @@ __all__ = [
     "pack_weight", "pack_model_weights", "plan",
     "matmul", "linear", "attention", "use_policy", "current_policy",
     "use_attention_policy", "current_attention_policy", "prefers_einsum",
+    "resolved_backend", "resolved_attention_backend",
 ]
 
 _state = threading.local()
@@ -97,6 +100,12 @@ def use_policy(policy: GemmPolicy):
         stack.pop()
 
 
+def resolved_backend(device, policy: Optional[GemmPolicy] = None) -> str:
+    """Registry name the active (or given) policy resolves to on
+    ``device``."""
+    return (policy or current_policy()).resolved_backend(device)
+
+
 def current_attention_policy() -> AttentionPolicy:
     stack = getattr(_state, "attn_policies", None)
     return stack[-1] if stack else AttentionPolicy()
@@ -115,21 +124,32 @@ def use_attention_policy(policy: AttentionPolicy):
         stack.pop()
 
 
+def resolved_attention_backend(device,
+                               policy: Optional[AttentionPolicy] = None, *,
+                               pageable: bool = True) -> str:
+    """Registry name the active (or given) attention policy resolves to on
+    ``device`` (``pageable=False``: for a model whose state cannot be
+    paged)."""
+    return (policy or current_attention_policy()).resolved_backend(
+        device, pageable=pageable)
+
+
 # ---------------------------------------------------------------------------
 # Built-in GEMM backends
 # ---------------------------------------------------------------------------
 
 def _torch_gemm(a, b, pln: ExecutionPlan, out_dtype):
+    # integer products in an exact type (kernels/ref.py::work_dtype)
+    work = work_dtype(torch.int32, a.device)
     if isinstance(b, QuantizedPackedWeight):
         aq, sa = Q.quantize_activations(a)
-        c = torch.matmul(aq.double(), b.unpack_quantized().double())
+        c = torch.matmul(aq.to(work), b.unpack_quantized().to(work))
         return Q.dequantize_gemm(c, sa, b.scales, out_dtype)
     if isinstance(b, PackedWeight):
         b = b.unpack()
     if a.dtype.is_floating_point:
         return torch.matmul(a, b).to(out_dtype)
-    # CUDA has no integer matmul; float64 is exact for int8 products
-    return torch.matmul(a.double(), b.double()).to(out_dtype)
+    return torch.matmul(a.to(work), b.to(work)).to(out_dtype)
 
 
 def _register_block_major(name, block_fn, dequant_fn):
@@ -434,3 +454,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    kv_valid_len=kv_valid_len, causal=causal, scale=scale,
                    soft_cap=soft_cap, block_tables=block_tables,
                    kv_scales=kv_scales)
+
+
+# ---------------------------------------------------------------------------
+# Deprecation shims (one release): the old stringly-typed surface
+# ---------------------------------------------------------------------------
+
+def current_backend(device) -> str:
+    """Deprecated: use current_policy() / resolved_backend()."""
+    return resolved_backend(device)
+
+
+@contextlib.contextmanager
+def gemm_backend(name: str):
+    """Deprecated context manager: pin by backend name.
+
+    Use ``use_policy(GemmPolicy(backend=name))`` instead.
+    """
+    warnings.warn("gemm_backend(name) is deprecated; use "
+                  "use_policy(GemmPolicy(backend=name))", DeprecationWarning,
+                  stacklevel=3)
+    with use_policy(GemmPolicy(backend=name)) as pol:
+        yield pol

@@ -32,8 +32,10 @@ from repro_torch.core.quant import QuantizedPackedWeight
 __all__ = [
     "GemmPolicy", "ExecutionPlan", "PackedWeight", "BackendSpec",
     "AttentionPolicy", "AttentionBackendSpec", "FUSED", "UNFUSED", "PAGED",
-    "plan", "plan_cache_clear", "register_backend", "get_backend_spec",
+    "plan", "plan_cache_clear", "plan_cache_info", "register_backend",
+    "unregister_backend", "registered_backends", "get_backend_spec",
     "resolve_backend", "register_attention_backend",
+    "unregister_attention_backend", "registered_attention_backends",
     "get_attention_backend_spec", "resolve_attention_backend",
     "pack_weight", "pack_model_weights", "layout_for_packed",
     "QuantizedPackedWeight", "ShardingPolicy",
@@ -219,32 +221,61 @@ _registry_lock = threading.Lock()
 
 def register_backend(name: str, fn: BackendFn, *, batched: bool = False,
                      needs_layout: bool = True,
-                     block_fn: Optional[BackendFn] = None) -> BackendSpec:
+                     block_fn: Optional[BackendFn] = None,
+                     overwrite: bool = False) -> BackendSpec:
     """Register a GEMM backend under ``name`` (the GemmPolicy.backend key)."""
     spec = BackendSpec(name, fn, batched, needs_layout, block_fn)
     with _registry_lock:
-        if name in _REGISTRY:
-            raise ValueError(f"backend {name!r} already registered")
+        if name in _REGISTRY and not overwrite:
+            raise ValueError(f"backend {name!r} already registered "
+                             f"(pass overwrite=True to replace)")
         _REGISTRY[name] = spec
-    plan_cache_clear()
+    plan_cache_clear()   # plans embed the backend name; don't serve stale ones
     return spec
 
 
-def register_attention_backend(name: str,
-                               fn: AttentionBackendFn) -> AttentionBackendSpec:
+def unregister_backend(name: str) -> None:
+    with _registry_lock:
+        _REGISTRY.pop(name, None)
+    plan_cache_clear()
+
+
+def register_attention_backend(name: str, fn: AttentionBackendFn, *,
+                               overwrite: bool = False
+                               ) -> AttentionBackendSpec:
     spec = AttentionBackendSpec(name, fn)
     with _registry_lock:
-        if name in _ATTN_REGISTRY:
-            raise ValueError(f"attention backend {name!r} already registered")
+        if name in _ATTN_REGISTRY and not overwrite:
+            raise ValueError(f"attention backend {name!r} already registered "
+                             f"(pass overwrite=True to replace)")
         _ATTN_REGISTRY[name] = spec
     return spec
+
+
+def unregister_attention_backend(name: str) -> None:
+    with _registry_lock:
+        _ATTN_REGISTRY.pop(name, None)
+
+
+def _builtins() -> None:
+    # The built-ins are registered by repro_torch.core.api at import.
+    import repro_torch.core.api  # noqa: F401
+
+
+def registered_backends() -> Tuple[str, ...]:
+    _builtins()
+    return tuple(sorted(_REGISTRY))
+
+
+def registered_attention_backends() -> Tuple[str, ...]:
+    _builtins()
+    return tuple(sorted(_ATTN_REGISTRY))
 
 
 def _lookup(registry: dict, name: str, what: str):
     spec = registry.get(name)
     if spec is None:
-        # The built-ins are registered by repro_torch.core.api at import.
-        import repro_torch.core.api  # noqa: F401
+        _builtins()
         spec = registry.get(name)
     if spec is None:
         raise ValueError(f"unknown {what} backend {name!r}; registered: "
@@ -276,6 +307,7 @@ class ExecutionPlan:
     mode: Optional[str]              # "dc"/"dm"; None for layout-free backends
     layout: Optional[L.BlockLayout]
     policy: GemmPolicy
+    device_type: str = "cpu"         # the device the plan was made for
 
 
 _SYSMODEL_DTYPE = {torch.int8: "int8", torch.int16: "int16",
@@ -299,22 +331,68 @@ def _plan_cached(M: int, N: int, K: int, dtype: torch.dtype,
     backend = policy.resolved_backend(device_type)
     spec = get_backend_spec(backend)
     if not spec.needs_layout:
-        return ExecutionPlan(M, N, K, dtype, backend, None, None, policy)
+        return ExecutionPlan(M, N, K, dtype, backend, None, None, policy,
+                             device_type)
     mode = policy.mode
     if mode == "auto":
         mode = _auto_mode(M, N, K, dtype)
     layout = L.choose_layout(M, N, K, dtype, mode=mode)
     layout = dataclasses.replace(layout, bm=bm_for(M, dtype, device_type))
-    return ExecutionPlan(M, N, K, dtype, backend, mode, layout, policy)
+    return ExecutionPlan(M, N, K, dtype, backend, mode, layout, policy,
+                         device_type)
 
 
 def plan(M: int, N: int, K: int, dtype: torch.dtype,
          policy: Optional[GemmPolicy] = None,
-         device: Device = "cpu") -> ExecutionPlan:
-    """Resolve ``policy`` for one GEMM problem; memoized on all arguments."""
-    return _plan_cached(int(M), int(N), int(K), dtype,
-                        policy if policy is not None else GemmPolicy(),
-                        _device_type(device))
+         device: Device = "cpu", *, validate: bool = False) -> ExecutionPlan:
+    """Resolve ``policy`` for one GEMM problem; memoized on all arguments.
+
+    ``validate=True`` also runs the resolved block choice through the
+    static contract checker (``repro_torch/analysis``): the layout is
+    instantiated as the registered :class:`KernelContract` of the kernel
+    the plan dispatches to on ``device`` — the card's launch for a CUDA
+    device (or ``meta``), worked out without a card — and checked for
+    coverage, bounds and race violations before anything executes. Raises
+    :class:`~repro_torch.analysis.kernel_contracts.ContractViolationError`
+    on a bad plan.
+    """
+    p = _plan_cached(int(M), int(N), int(K), dtype,
+                     policy if policy is not None else GemmPolicy(),
+                     _device_type(device))
+    if validate:
+        _validate_plan(p)
+    return p
+
+
+def _validate_plan(p: ExecutionPlan) -> None:
+    """Check a resolved plan's block geometry against the contract of the
+    kernel it dispatches to on its device."""
+    if p.layout is None:
+        return                      # layout-free backend (torch): no contract
+    from repro_torch.analysis.kernel_contracts import (ContractViolationError,
+                                                       check_contract,
+                                                       get_contract_builder)
+    blk = p.layout
+    nbm, nbn, nbk = L.cdiv(p.M, blk.bm), L.cdiv(p.N, blk.bn), L.cdiv(p.K,
+                                                                     blk.bk)
+    device = "cpu" if p.device_type not in CARD_TYPES else "cuda"
+    if p.backend == "blockflow":
+        contract = get_contract_builder("blockflow")(
+            nbm=nbm, nbn=nbn, nbk=nbk, device=device)
+    else:
+        fused = p.policy.weight_dtype == "int8"
+        contract = get_contract_builder("matrixflow_gemm")(
+            a_shape=(nbm, nbk, blk.bm, blk.bk),
+            b_shape=(nbn, nbk, blk.bk, blk.bn), blk=blk, fused=fused,
+            device=device, dtype=torch.int8 if fused else p.dtype)
+    violations = check_contract(contract)
+    if violations:
+        raise ContractViolationError(violations)
+
+
+def plan_cache_info():
+    """Hits/misses of the process-wide plan cache (functools CacheInfo)."""
+    return _plan_cached.cache_info()
 
 
 def plan_cache_clear() -> None:

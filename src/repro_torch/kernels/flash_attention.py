@@ -46,15 +46,22 @@ the route the card would take, records that launch and its least work
 (``roofline.launch_cost``, every key in memory: positions are data) in the
 active cost ledger, and returns an empty ``meta`` result. Nothing launches
 there, so the launch counters do not move: they count real launches only.
+
+:func:`flash_attention_contract` (registered as ``"flash_attention"``)
+states each route's launch grid and the rows and keys every CTA reads and
+writes, for the static checker (``analysis/kernel_contracts.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.kernel_contracts import (KernelContract,
+                                                   OperandSpec, Precondition,
+                                                   register_contract, require)
 from repro_torch.kernels import _build
 from repro_torch.kernels.forward_only import refuse_grad
 from repro_torch.roofline import analysis as RA
@@ -126,6 +133,28 @@ def split_count(B: int, Hkv: int, n_keys: int) -> int:
     most = max(1, n_keys // MIN_SPLIT_KEYS)
     return max(1, min(MAX_SPLITS, most, round(SPLIT_TARGET_CTAS / pairs)))
 
+
+
+def attention_preconditions(H: int, Hkv: int) -> Tuple[Precondition, ...]:
+    """The GQA guard of every attention kernel (K3, K4, K5)."""
+    return (Precondition.check(
+        "GQA head divisibility", Hkv >= 1 and H % Hkv == 0,
+        f"H={H} query heads must be a multiple of Hkv={Hkv}"),)
+
+
+def launch_preconditions(D: int, Dv: int, route: str,
+                         splits: int) -> Tuple[Precondition, ...]:
+    """The head dims K3 is built for and the split count it takes: the
+    guards the wrapper raises on the card and the contract states."""
+    return (
+        Precondition.check(
+            "instantiated head dims", (D, Dv) in HEAD_DIM_PAIRS,
+            f"head dims ({D}, {Dv}): the flash attention kernel is built for "
+            f"(head_dim, v head_dim) in {HEAD_DIM_PAIRS}"),
+        Precondition.check(
+            "split count", route != "split" or 1 <= splits <= MAX_SPLITS,
+            f"split count {splits} outside 1..{MAX_SPLITS}"),
+    )
 
 
 def _lib() -> ctypes.CDLL:
@@ -234,8 +263,7 @@ def flash_attention(
     """
     B, Sq, H, D = q.shape
     _, Sk, Hkv, Dv = v.shape
-    if Hkv < 1 or H % Hkv:
-        raise ValueError(f"H={H} query heads must be a multiple of Hkv={Hkv}")
+    require(*attention_preconditions(H, Hkv))
     if tuple(k.shape) != (B, Sk, Hkv, D) or v.shape[0] != B:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} disagree on (B, Sk, Hkv, D)")
@@ -251,20 +279,15 @@ def flash_attention(
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"no flash attention kernel for device {dev}")
     check_dtypes(q, k, v, "flash attention")
-    if (D, Dv) not in HEAD_DIM_PAIRS:
-        raise ValueError(
-            f"head dims ({D}, {Dv}): the flash attention kernel is built for "
-            f"(head_dim, v head_dim) in {HEAD_DIM_PAIRS}")
+    route = route_for(q.dtype, Sq, H // Hkv, k.dtype)
+    splits = split_count(B, Hkv, Sk) if route == "split" else 0
+    require(*launch_preconditions(D, Dv, route, splits))
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    route = route_for(q.dtype, Sq, H // Hkv, k.dtype)
     out_dtype = q.dtype
     if route == "cuda_cores":
         q = q.float()                # bf16 q over fp32 K/V: exact
-    splits = split_count(B, Hkv, Sk) if route == "split" else 0
-    if route == "split" and not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"split count {splits} outside 1..{MAX_SPLITS}")
     if dev.type == "meta":
         RA.record_launch("flash_attention", route, B=B, Sq=Sq, Sk=Sk, H=H,
                          Hkv=Hkv, D=D, Dv=Dv, dtype=out_dtype,
@@ -303,3 +326,156 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+# ---------------------------------------------------------------------------
+# The launch grids, stated for the static checker
+# ---------------------------------------------------------------------------
+
+# Rows a CTA holds (csrc/attn_mma.cuh: kRowsTile, kSplitRows; the CUDA-core
+# kernel's kMaxRows), and the keys of one step of a CTA's key walk: the
+# split route cuts the keys in 16-key tiles (attn_mma.cuh:374-377), the
+# CUDA-core kernel stages BLOCK_K keys.
+ROWS_TILE = 64
+KEY_TILE = 16
+
+
+def attention_tiles(route: str, rows: int, n_keys: int, splits: int,
+                    *, paged: bool = False, page_size: int = 0):
+    """(rows a CTA holds, CTAs along blockIdx.x, the key unit of a step,
+    ``share(z)`` → the [lo, hi) keys rank z of a cluster walks) of one
+    launch of the attention kernels on ``route``: the arithmetic of
+    ``attn_mma.cuh::attend`` (:332-:377) and of the CUDA-core kernels."""
+    nz = max(splits, 1)
+    if route in ("rows", "split"):
+        t = ROWS_TILE if route == "rows" and not paged else SPLIT_ROWS
+        unit = min(KEY_TILE, page_size) if paged else KEY_TILE
+        tiles16 = -(-n_keys // KEY_TILE)
+
+        def share(z):
+            if route != "split":
+                return 0, n_keys
+            return (tiles16 * z // nz * KEY_TILE,
+                    min(tiles16 * (z + 1) // nz * KEY_TILE, n_keys))
+    else:
+        t, unit = SPLIT_ROWS, page_size if paged else BLOCK_K
+
+        def share(z):
+            return 0, n_keys
+    return t, -(-rows // t), unit, share
+
+
+def attention_contract(kernel: str, *, B, H, Hkv, Sq, D, Dv, route,
+                       splits, n_keys, kv_operands, pre,
+                       page_size: int = 0) -> KernelContract:
+    """The card's contract of one launch of K3, K4 or K5 on ``route``.
+
+    Grid (blockIdx.z = b, blockIdx.y = g, the row tile, the rank z of its
+    cluster, the key steps), blockIdx.x = tile * splits + z
+    (``attn_mma.cuh`` :332-:337; the CUDA-core kernels' x = tile,
+    ``flash_attention.cu``:183-:187, ``paged_attention.cu``:126-:130):
+    CTA (tile, z) of (b, g) holds flat rows tile * T .. + T - 1 (query
+    position r // rep, head g * rep + r % rep) and walks the keys of its
+    share in steps of ``unit`` keys. The output tile is revisited along the
+    key steps and, on the split route, along the cluster's ranks, which
+    add their partials (``attn_mma.cuh``:649-:667). ``kv_operands(b, g,
+    col0)`` gives the K/V-side operands' blocks at a step's first key."""
+    rep = H // Hkv if Hkv >= 1 and H % Hkv == 0 else 1
+    rows = Sq * rep
+    T, n_tiles, unit, share = attention_tiles(
+        route, rows, n_keys, splits, paged=kernel == "paged_attention",
+        page_size=page_size)
+    nz = max(splits, 1)
+    steps = max(-(-(hi - lo) // unit) for lo, hi in map(share, range(nz)))
+
+    def key(b, g, t, z, s):
+        lo, hi = share(z)
+        col0 = lo + s * unit
+        return col0 if col0 < hi else None
+
+    def row_map(b, g, t, z, s):
+        return (b, g, t, 0)
+
+    operands = [
+        OperandSpec("q_positions", "input", (B, 1), (1, Sq),
+                    lambda b, g, t, z, s: (b, 0)),
+        OperandSpec("kv_valid_len", "input", (B,), (1,),
+                    lambda b, g, t, z, s: (b,)),
+        OperandSpec("q", "input", (B, Hkv, n_tiles, 1), (1, 1, T, D),
+                    row_map),
+    ]
+    for name, nblocks, block, fn, expected in kv_operands:
+        def kv_map(b, g, t, z, s, fn=fn):
+            col0 = key(b, g, t, z, s)
+            return None if col0 is None else fn(b, g, col0)
+        operands.append(OperandSpec(name, "input", nblocks, block, kv_map,
+                                    expected_blocks=expected))
+    operands.append(OperandSpec("o", "output", (B, Hkv, n_tiles, 1),
+                                (1, 1, T, Dv), row_map,
+                                reduction_axes=(3, 4)))
+    return KernelContract(
+        kernel=kernel, grid=(B, Hkv, n_tiles, nz, steps),
+        operands=tuple(operands),
+        dimension_semantics=("parallel", "parallel", "parallel", "cluster",
+                             "arbitrary"),
+        preconditions=pre, cluster=nz,
+        description=f"{kernel} {route} ({T} rows a CTA, splits={splits}, "
+                    f"{unit}-key steps)")
+
+
+@register_contract("flash_attention")
+def flash_attention_contract(*, B, H, Hkv, Sq, Sk, D, Dv,
+                             block_q: int = 128, block_k: int = 128,
+                             device="cuda",
+                             dtype: torch.dtype = torch.bfloat16,
+                             kv_dtype: Optional[torch.dtype] = None
+                             ) -> KernelContract:
+    """Contract of :func:`flash_attention` for one logical shape: q of
+    ``dtype`` over K/V of ``kv_dtype`` (default q's).
+
+    For a CUDA device, the launch on the route :func:`route_for` names
+    (:func:`attention_contract`; ``block_q``/``block_k`` are the
+    reference's and do not apply: the kernels' tiles are fixed); for the
+    CPU, the reference's grid (B, H, nq, nk) over ``block_q`` x
+    ``block_k`` blocks, o revisited along the key axis."""
+    pre = attention_preconditions(H, Hkv)
+    rep = H // Hkv if Hkv >= 1 and H % Hkv == 0 else 1
+    if torch.device(device).type == "cpu":
+        bq, bk = min(block_q, Sq), min(block_k, Sk)
+        nq, nk = -(-Sq // bq), -(-Sk // bk)
+        operands = (
+            OperandSpec("q_positions", "input", (B, nq, 1), (1, bq, 1),
+                        lambda b, h, i, j: (b, i, 0)),
+            OperandSpec("kv_valid_len", "input", (B, 1), (1, 1),
+                        lambda b, h, i, j: (b, 0)),
+            OperandSpec("q", "input", (B, H, nq, 1), (1, 1, bq, D),
+                        lambda b, h, i, j: (b, h, i, 0)),
+            OperandSpec("k", "input", (B, Hkv, nk, 1), (1, 1, bk, D),
+                        lambda b, h, i, j: (b, h // rep, j, 0)),
+            OperandSpec("v", "input", (B, Hkv, nk, 1), (1, 1, bk, Dv),
+                        lambda b, h, i, j: (b, h // rep, j, 0)),
+            OperandSpec("o", "output", (B, H, nq, 1), (1, 1, bq, Dv),
+                        lambda b, h, i, j: (b, h, i, 0),
+                        reduction_axes=(3,)),
+        )
+        return KernelContract(
+            kernel="flash_attention", grid=(B, H, nq, nk), operands=operands,
+            dimension_semantics=("parallel", "parallel", "parallel",
+                                 "arbitrary"),
+            preconditions=pre,
+            description="plain online-softmax attention, K innermost")
+    route = route_for(dtype, Sq, rep, kv_dtype or dtype)
+    splits = split_count(B, Hkv, Sk) if route == "split" else 0
+    pre += launch_preconditions(D, Dv, route, splits)
+    pre += (Precondition.check(
+        "keys to attend", Sk > 0,
+        f"Sk={Sk}: no keys, and the wrapper returns zeros without a "
+        f"launch"),)
+    _, _, unit, _ = attention_tiles(route, Sq * rep, Sk, splits)
+    nk = -(-Sk // unit)
+    kv = tuple((name, (B, nk, Hkv, 1), (1, unit, 1, d), (lambda b, g, col0:
+                (b, col0 // unit, g, 0)), None)
+               for name, d in (("k", D), ("v", Dv)))
+    return attention_contract("flash_attention", B=B, H=H, Hkv=Hkv, Sq=Sq,
+                              D=D, Dv=Dv, route=route, splits=splits,
+                              n_keys=Sk, kv_operands=kv, pre=pre)

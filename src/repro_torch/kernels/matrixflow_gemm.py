@@ -39,6 +39,10 @@ the route the card would take, records that launch and its least work
 (``roofline.launch_cost`` of the logical ``problem``) in the active cost
 ledger, and returns an empty ``meta`` result. Nothing launches there, so
 the launch counters above do not move: they count real launches only.
+
+:func:`gemm_contract` (registered as ``"matrixflow_gemm"``, K2 with
+``fused=True``) states each route's launch grid and the block every CTA
+reads and writes, for the static checker (``analysis/kernel_contracts.py``).
 """
 from __future__ import annotations
 
@@ -47,6 +51,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.kernel_contracts import (KernelContract,
+                                                   OperandSpec, Precondition,
+                                                   register_contract, require)
 from repro_torch.core import layout as L
 from repro_torch.kernels import _build
 from repro_torch.kernels.forward_only import refuse_grad
@@ -160,18 +167,45 @@ def _check_operands(a_bm: torch.Tensor, b_bm: torch.Tensor,
         raise ValueError(f"operands on {a_bm.device} and {b_bm.device}")
 
 
-def _check_launch(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
-    """What the CUDA kernels take beyond :func:`_check_operands` (on
-    ``meta``: all but the alignment of storage it does not have)."""
-    if a_bm.device.type not in ("cuda", "meta"):
-        raise ValueError(f"no MatrixFlow GEMM for device {a_bm.device}")
-    bm, bk, bn = a_bm.shape[-2], a_bm.shape[-1], b_bm.shape[-1]
-    if bm not in L.BM_CHOICES or bn not in L.BN_CHOICES or bk % L.K_SLICE:
-        raise ValueError(
+def launch_preconditions(a_shape, b_shape, dtype: torch.dtype,
+                         out_dtype: torch.dtype, *, dequant: bool = False,
+                         batch: int = 0) -> Tuple[Precondition, ...]:
+    """The block geometry, dtypes and batch the CUDA kernels take (K2 with
+    ``dequant``; ``batch`` problems, 0 for an unbatched call): the guards
+    the wrappers raise and :func:`gemm_contract` states for the card."""
+    bm, bk, bn = a_shape[-2], a_shape[-1], b_shape[-1]
+    route = route_for(dtype, bm, dequant=dequant)
+    if dequant:
+        pairs_ok = out_dtype in _DEQUANT_OUT
+        pairs_msg = (f"the dequant kernel writes {_DEQUANT_OUT}, not "
+                     f"{out_dtype}")
+    else:
+        pairs_ok = (dtype, out_dtype) in _PAIRS
+        pairs_msg = (f"the kernel takes {sorted(map(str, _PAIRS))} (input, "
+                     f"output) dtypes, not ({dtype}, {out_dtype})")
+    return (
+        Precondition.check(
+            "instantiated block geometry",
+            bm in L.BM_CHOICES and bn in L.BN_CHOICES and bk % L.K_SLICE == 0,
             f"block geometry (bm={bm}, bn={bn}, bk={bk}) is not one the "
             f"kernel instantiates: bm in {L.BM_CHOICES}, bn in "
             f"{L.BN_CHOICES}, bk a multiple of {L.K_SLICE} "
-            f"(core/layout.py::choose_layout picks these)")
+            f"(core/layout.py::choose_layout picks these)"),
+        Precondition.check("instantiated dtypes", pairs_ok, pairs_msg),
+        Precondition.check(
+            "batched route", not batch or (route != "mma"
+                                           and 1 <= batch <= MAX_BATCH),
+            f"a batch of {batch} problems at bm={bm}: batched launches take "
+            f"the wgmma and cuda_core routes and 1..{MAX_BATCH} problems"),
+    )
+
+
+def _check_launch(a_bm: torch.Tensor, b_bm: torch.Tensor) -> None:
+    """What the CUDA kernels take of the operands' placement beyond
+    :func:`_check_operands` and :func:`launch_preconditions` (on ``meta``:
+    all but the alignment of storage it does not have)."""
+    if a_bm.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no MatrixFlow GEMM for device {a_bm.device}")
     if not (a_bm.is_contiguous() and b_bm.is_contiguous()):
         raise ValueError("block-major operands must be contiguous")
     if a_bm.device.type == "cuda" and (a_bm.data_ptr() % 16
@@ -221,18 +255,12 @@ def matrixflow_gemm_block_major(
     if a_bm.device.type == "cpu":
         return plain(a_bm, b_bm, out_dtype=out_dtype)
     _check_launch(a_bm, b_bm)
-    if (a_bm.dtype, out_dtype) not in _PAIRS:
-        raise ValueError(f"the kernel takes {sorted(map(str, _PAIRS))} "
-                         f"(input, output) dtypes, not ({a_bm.dtype}, "
-                         f"{out_dtype})")
     G = a_bm.shape[0] if batched else 1
+    require(*launch_preconditions(a_bm.shape, b_bm.shape, a_bm.dtype,
+                                  out_dtype, batch=G if batched else 0))
     nbm, nbk, bm, bk = a_bm.shape[-4:]
     nbn, bn = b_bm.shape[-4], b_bm.shape[-1]
     route = route_for(a_bm.dtype, bm)
-    if batched and (route == "mma" or not 1 <= G <= MAX_BATCH):
-        raise ValueError(f"a batch of {G} problems at bm={bm}: batched "
-                         f"launches take the wgmma and cuda_core routes and "
-                         f"1..{MAX_BATCH} problems")
     c_bm = torch.empty((*a_bm.shape[:-4], nbm, nbn, bm, bn),
                        dtype=out_dtype, device=a_bm.device)
     if a_bm.device.type == "meta":
@@ -308,9 +336,8 @@ def matrixflow_gemm_dequant(
         return plain(a_bm, b_bm, out_dtype=out_dtype, scale_a=scale_a,
                      scale_b=scale_b)
     _check_launch(a_bm, b_bm)
-    if out_dtype not in _DEQUANT_OUT:
-        raise ValueError(f"the dequant kernel writes {_DEQUANT_OUT}, not "
-                         f"{out_dtype}")
+    require(*launch_preconditions(a_bm.shape, b_bm.shape, a_bm.dtype,
+                                  out_dtype, dequant=True))
     sa, sb = (None if sc is None else sc.float().contiguous()
               for sc in (scale_a, scale_b))
     c_bm = torch.empty((nbm, nbn, bm, bn), dtype=out_dtype,
@@ -340,3 +367,179 @@ def matrixflow_gemm_dequant(
 matrixflow_gemm_dequant.launches = 0
 matrixflow_gemm_dequant.wgmma_launches = 0
 matrixflow_gemm_dequant.mma_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The launch grids, stated for the static checker
+# ---------------------------------------------------------------------------
+
+def gemm_preconditions(a_shape, b_shape, blk: L.BlockLayout):
+    """The reference's entry guards (``repro/kernels/matrixflow_gemm.py::
+    gemm_preconditions``): the K stream the operands walk, and blocks that
+    match the layout."""
+    nbm, nbk, bm, bk = a_shape[-4:]
+    nbn, nbk2, bk2, bn = b_shape[-4:]
+    return (
+        Precondition.check(
+            "A/B K-stream agreement",
+            (nbk, bk) == (nbk2, bk2),
+            f"block-major operands disagree on the K stream: a_bm "
+            f"{tuple(a_shape)} walks {nbk} blocks of bk={bk}, b_bm "
+            f"{tuple(b_shape)} walks {nbk2} blocks of bk={bk2}"),
+        Precondition.check(
+            "blocks match layout",
+            (bm, bn, bk) == (blk.bm, blk.bn, blk.bk),
+            f"operand blocks (bm={bm}, bn={bn}, bk={bk}) do not match the "
+            f"BlockLayout (bm={blk.bm}, bn={blk.bn}, bk={blk.bk}); "
+            f"re-layout with core.layout.to_block_major_* under this blk"),
+    )
+
+
+def _cpu_contract(nbm, nbn, nbk, bm, bn, bk, fused, pre) -> KernelContract:
+    """The plain version's geometry, the reference's grid (nbm, nbn, nbk)
+    with the K stream innermost and sequential."""
+    operands = [
+        OperandSpec("a_bm", "input", (nbm, nbk, 1, 1), (1, 1, bm, bk),
+                    lambda i, j, k: (i, k, 0, 0)),
+        OperandSpec("b_bm", "input", (nbn, nbk, 1, 1), (1, 1, bk, bn),
+                    lambda i, j, k: (j, k, 0, 0)),
+        OperandSpec("c_bm", "output", (nbm, nbn, 1, 1), (1, 1, bm, bn),
+                    lambda i, j, k: (i, j, 0, 0), reduction_axes=(2,)),
+    ]
+    if fused:
+        operands += [
+            OperandSpec("scale_a", "input", (nbm, 1), (bm, 1),
+                        lambda i, j, k: (i, 0)),
+            OperandSpec("scale_b", "input", (1, nbn), (1, bn),
+                        lambda i, j, k: (0, j)),
+        ]
+    return KernelContract(
+        kernel="matrixflow_gemm", grid=(nbm, nbn, nbk),
+        operands=tuple(operands),
+        dimension_semantics=("parallel", "parallel", "arbitrary"),
+        preconditions=pre,
+        description="plain Algorithm 1 (kernels/ref.py::block_matmul_ref)")
+
+
+@register_contract("matrixflow_gemm")
+def gemm_contract(*, a_shape, b_shape, blk: L.BlockLayout,
+                  fused: bool = False, device="cuda",
+                  dtype: Optional[torch.dtype] = None,
+                  batch: int = 0) -> KernelContract:
+    """Contract of one K1 launch (K2's with ``fused``) over block-major
+    operands ``a_shape`` (nbm, nbk, bm, bk) and ``b_shape`` (nbn, nbk, bk,
+    bn) of ``dtype`` (default bf16; int8 for K2), ``batch`` problems in
+    one launch (0: unbatched).
+
+    For a CUDA device the grid is the launch's, on the route
+    :func:`route_for` names, tiled by :func:`tc_tile`, with the loops a CTA
+    walks innermost; for the CPU, the reference's grid (nbm, nbn, nbk) of
+    the plain version. C is revisited along the K stream, and on the
+    ``mma`` route along the split axis, whose CTAs form one cluster."""
+    nbm, nbk, bm, bk = a_shape[-4:]
+    nbn, _, _, bn = b_shape[-4:]
+    dtype = dtype or (torch.int8 if fused else torch.bfloat16)
+    out_dtype = torch.float32 if fused else acc_dtype_for(dtype)
+    pre = gemm_preconditions(a_shape, b_shape, blk)
+    if torch.device(device).type == "cpu":
+        return _cpu_contract(nbm, nbn, nbk, bm, bn, bk, fused, pre)
+    pre += launch_preconditions(a_shape, b_shape, dtype, out_dtype,
+                                dequant=fused, batch=batch)
+    G = max(batch, 1)
+    route = route_for(dtype, bm, dequant=fused)
+    gm, tn, splits = (tc_tile(bm, bn, nbm, nbn, nbk, bk)
+                      if route != "cuda_core" and bn in L.BN_CHOICES
+                      else (1, bn, 1))
+    gn = tn // bn
+    spb = bk // L.K_SLICE if bk % L.K_SLICE == 0 else 1
+    total = nbk * spb
+    if route == "cuda_core":
+        # mf_gemm_kernel: grid (nbn, nbm, batch) at csrc/matrixflow_gemm.cu
+        # :233; C block (i = blockIdx.y, j = blockIdx.x) of problem z =
+        # blockIdx.z (:216, :223), the whole K stream walked by the CTA
+        # (gemm_tile, :134-:137)
+        grid = (nbn, nbm, G, nbk)
+        sem = ("parallel", "parallel", "parallel", "arbitrary")
+        a_map = lambda x, y, z, k: (z, y, k, 0, 0)
+        b_map = lambda x, y, z, k: (z, x, k, 0, 0)
+        c_map = lambda x, y, z, k: (z, y, x, 0, 0)
+        a_blocks, b_blocks = (G, nbm, nbk, 1, 1), (G, nbn, nbk, 1, 1)
+        red, cluster = (3,), 1
+    elif route == "wgmma":
+        # mf_gemm_wgmma_kernel (K2: mf_gemm_dequant_wgmma_kernel): grid
+        # (ceil(nbn / gn), ceil(nbm / GM), batch) at :661 (:1152); CTA (x,
+        # y) owns C blocks i0 + wg, j0 + jj with i0 = blockIdx.y * GM, j0 =
+        # blockIdx.x * gn at :410 (:885); a block past nbm or nbn reads
+        # zeros and is not written (ok = i < nbm, :426; ok = j < nbn, :437;
+        # :479, :486); the K stream in slices, kb = step / spb at :420
+        grid = (L.cdiv(nbn, gn), L.cdiv(nbm, gm), G, gm, gn, nbk)
+        sem = ("parallel",) * 5 + ("arbitrary",)
+
+        def a_map(x, y, z, wg, jj, k):
+            i = y * gm + wg
+            return (z, i, k, 0, 0) if i < nbm else None
+
+        def b_map(x, y, z, wg, jj, k):
+            j = x * gn + jj
+            return (z, j, k, 0, 0) if j < nbn else None
+
+        def c_map(x, y, z, wg, jj, k):
+            i, j = y * gm + wg, x * gn + jj
+            return (z, i, j, 0, 0) if i < nbm and j < nbn else None
+        a_blocks, b_blocks = (G, nbm, nbk, 1, 1), (G, nbn, nbk, 1, 1)
+        red, cluster = (5,), 1
+    else:
+        # mf_gemm_mma_kernel (K2: mf_gemm_dequant_mma_kernel): grid (nbn,
+        # nbm, splits) at :673, the splits CTAs of one C block one cluster
+        # (:678-:681); CTA (j, i, z) at :533 (:1030) takes the z-th of
+        # splits even shares [lo, hi) of the K stream's 32-deep slices
+        # (:535-:536), slice g = lo + s at kb = g / spb, kc = g - kb * spb
+        # while g < hi (:548-:549, :561-:562); the cluster adds the
+        # partial tiles, CTA z writing its share of C (:638-:642)
+        def share(z):
+            return total * z // splits, total * (z + 1) // splits
+        steps = max(hi - lo for lo, hi in map(share, range(splits)))
+        grid = (nbn, nbm, splits, steps)
+        sem = ("parallel", "parallel", "cluster", "arbitrary")
+
+        def a_map(x, y, z, s):
+            lo, hi = share(z)
+            g = lo + s
+            return (0, y, g // spb, 0, g % spb) if g < hi else None
+
+        def b_map(x, y, z, s):
+            lo, hi = share(z)
+            g = lo + s
+            return (0, x, g // spb, g % spb, 0) if g < hi else None
+
+        def c_map(x, y, z, s):
+            return (0, y, x, 0, 0)
+        a_blocks, b_blocks = (1, nbm, nbk, 1, spb), (1, nbn, nbk, spb, 1)
+        red, cluster = (2, 3), splits
+    a_block = (1, 1, 1, bm, bk if a_blocks[-1] == 1 else L.K_SLICE)
+    b_block = (1, 1, 1, bk if b_blocks[-2] == 1 else L.K_SLICE, bn)
+    operands = [
+        OperandSpec("a_bm", "input", a_blocks, a_block, a_map),
+        OperandSpec("b_bm", "input", b_blocks, b_block, b_map),
+        OperandSpec("c_bm", "output", (G, nbm, nbn, 1, 1), (1, 1, 1, bm, bn),
+                    c_map, reduction_axes=red),
+    ]
+    if fused:
+        # the row and channel scales of C block (i, j), read at its flush
+        def sa_map(*pt):
+            c = c_map(*pt)
+            return None if c is None else (c[1],)
+
+        def sb_map(*pt):
+            c = c_map(*pt)
+            return None if c is None else (c[2],)
+        operands += [
+            OperandSpec("scale_a", "input", (nbm,), (bm,), sa_map),
+            OperandSpec("scale_b", "input", (nbn,), (bn,), sb_map),
+        ]
+    kernel = "matrixflow_gemm_dequant" if fused else "matrixflow_gemm"
+    return KernelContract(
+        kernel="matrixflow_gemm", grid=grid, operands=tuple(operands),
+        dimension_semantics=sem, preconditions=pre, cluster=cluster,
+        description=f"{kernel} {route} (gm={gm}, tn={tn}, splits={splits}"
+                    f"{f', batch={batch}' if batch else ''})")

@@ -36,18 +36,28 @@ the route the card would take, records that launch and its least work
 the active cost ledger, and returns an empty ``meta`` result. Nothing
 launches there, so the launch counters do not move: they count real
 launches only.
+
+:func:`paged_attention_contract` (registered as ``"paged_attention"``)
+states each route's launch grid and the pages every CTA reads through the
+block table, for the static checker (``analysis/kernel_contracts.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.kernel_contracts import (KernelContract,
+                                                   OperandSpec, Precondition,
+                                                   register_contract, require)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (MAX_SPLITS, MIXED_ROUTE,
                                                  ROUTES, _aligned,
+                                                 attention_contract,
+                                                 attention_preconditions,
                                                  check_dtypes, route_for,
                                                  split_count)
 from repro_torch.kernels.forward_only import refuse_grad
@@ -135,18 +145,37 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, q_positions,
     return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def check_tc_geometry(route: str, ps: int, D: int, Dv: int, nb: int) -> None:
-    """Raise unless the tensor-core kernels (K4 over bf16 pools, K5 over
-    int8 pools, both with bf16 q) take this geometry; any geometry passes
-    on ``cuda_cores``. No fallback: a bf16 call they refuse raises."""
-    if route in ("rows", "split") and (
-            ps not in TC_PAGE_SIZES or D % TC_HEAD_DIM_STEP or Dv != D
-            or nb > MAX_TABLE):
-        raise ValueError(
+def launch_preconditions(route: str, ps: int, D: int, Dv: int, nb: int,
+                         splits: int = 1) -> Tuple[Precondition, ...]:
+    """The geometry the card's kernels take: the CUDA-core kernel's limits,
+    the tensor-core kernels' (K4 over bf16 pools, K5 over int8 pools, both
+    with bf16 q) on their routes, and the split count. The guards the
+    wrapper raises and the contract states."""
+    tc = route in ("rows", "split")
+    return (
+        Precondition.check(
+            "kernel limits", ps <= MAX_PAGE_SIZE and max(D, Dv) <= MAX_HEAD_DIM,
+            f"page_size={ps}, head dims ({D}, {Dv}) exceed the kernel's "
+            f"limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM})"),
+        Precondition.check(
+            "tensor-core geometry",
+            not tc or (ps in TC_PAGE_SIZES and not D % TC_HEAD_DIM_STEP
+                       and Dv == D and nb <= MAX_TABLE),
             f"page_size={ps}, head dims ({D}, {Dv}), {nb} table entries: the "
             f"bf16 kernels take page_size in {TC_PAGE_SIZES}, equal head dims "
             f"a multiple of {TC_HEAD_DIM_STEP} up to {MAX_HEAD_DIM} and at "
-            f"most {MAX_TABLE} entries")
+            f"most {MAX_TABLE} entries"),
+        Precondition.check(
+            "split count", route != "split" or 1 <= splits <= MAX_SPLITS,
+            f"split count {splits} outside 1..{MAX_SPLITS}"),
+    )
+
+
+def check_tc_geometry(route: str, ps: int, D: int, Dv: int, nb: int) -> None:
+    """Raise unless the tensor-core kernels take this geometry; any
+    geometry passes on ``cuda_cores``. No fallback: a bf16 call they
+    refuse raises."""
+    require(launch_preconditions(route, ps, D, Dv, nb)[1])
 
 
 def paged_attention(
@@ -177,8 +206,7 @@ def paged_attention(
     refuse_grad("paged_attention (K4/K5)", q, k_pages, v_pages)
     B, Sq, H, D = q.shape
     P, ps, Hkv, Dv = v_pages.shape
-    if Hkv < 1 or H % Hkv:
-        raise ValueError(f"H={H} query heads must be a multiple of Hkv={Hkv}")
+    require(*attention_preconditions(H, Hkv))
     if tuple(k_pages.shape[:3]) != (P, ps, Hkv):
         raise ValueError(f"k_pages {tuple(k_pages.shape)} and v_pages "
                          f"{tuple(v_pages.shape)} disagree on (P, ps, Hkv)")
@@ -227,20 +255,14 @@ def paged_attention(
     elif q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int8 pools take fp32 or bf16 q, got {q.dtype}")
     rep = H // Hkv
-    if ps > MAX_PAGE_SIZE or max(D, Dv) > MAX_HEAD_DIM:
-        raise ValueError(
-            f"page_size={ps}, head dims ({D}, {Dv}) exceed the kernel's "
-            f"limits ({MAX_PAGE_SIZE}, {MAX_HEAD_DIM})")
     route = route_for(q.dtype, Sq, rep, None if quantized else
                       k_pages.dtype)
     tc = route in ("rows", "split")       # the tensor-core instances
+    splits = split_count(B, Hkv, nb * ps) if route == "split" else 0
+    require(*launch_preconditions(route, ps, D, Dv, nb, splits))
     out_dtype = q.dtype
     if route == "cuda_cores":
         q = q.float()                # bf16 q over fp32 pools: exact
-    check_tc_geometry(route, ps, D, Dv, nb)
-    splits = split_count(B, Hkv, nb * ps) if route == "split" else 0
-    if route == "split" and not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"split count {splits} outside 1..{MAX_SPLITS}")
     scales = kv_scales or ()
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     *zip(("k_scales", "v_scales"), scales)):
@@ -251,7 +273,9 @@ def paged_attention(
                          name="paged_attention_int8" if quantized else None,
                          B=B, Sq=Sq, H=H, Hkv=Hkv,
                          D=D, page_size=ps, n_blocks=nb, dtype=out_dtype,
-                         kv_dtype=k_pages.dtype)
+                         kv_dtype=k_pages.dtype,
+                         kv_scales=None if kv_scales is None else tuple(
+                             tuple(sc.shape) for sc in kv_scales))
         return torch.empty((B, Sq, H, Dv), dtype=out_dtype, device=dev)
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
@@ -303,6 +327,116 @@ paged_attention.launches_int8 = 0   # K5: int8 pools (no bf16-K/V route)
 paged_attention.launches_int8_by_route = dict.fromkeys(
     (r for r in ROUTES if r != MIXED_ROUTE), 0)
 
+
+
+# ---------------------------------------------------------------------------
+# The launch grids, stated for the static checker
+# ---------------------------------------------------------------------------
+
+def paged_preconditions(H, Hkv, k_pages_shape, v_pages_shape, nb):
+    """The reference's entry guards (``repro/kernels/paged_attention.py::
+    paged_preconditions``): GQA groups, one pool geometry for K and V, a
+    populated block table (the wrapper returns zeros for nb == 0 without a
+    launch)."""
+    P, ps, Hkv_v = v_pages_shape[0], v_pages_shape[1], v_pages_shape[2]
+    return attention_preconditions(H, Hkv) + (
+        Precondition.check(
+            "K/V pool agreement",
+            tuple(k_pages_shape[:3]) == (P, ps, Hkv_v),
+            f"k_pages {tuple(k_pages_shape)} and v_pages "
+            f"{tuple(v_pages_shape)} disagree on (P, page_size, Hkv); the "
+            f"pools must be allocated as one paged cache"),
+        Precondition.check(
+            "populated block table", nb > 0,
+            f"block table has {nb} blocks: the grid's key axis would have "
+            f"zero extent and the flush step would never run (the caller "
+            f"must short-circuit nb == 0 to zeros)"),
+    )
+
+
+@register_contract("paged_attention")
+def paged_attention_contract(*, B, Sq, H, Hkv, D, Dv, P, page_size,
+                             block_tables, block_q: int = 128,
+                             quantized: bool = False, device="cuda",
+                             dtype: torch.dtype = torch.bfloat16,
+                             kv_dtype: Optional[torch.dtype] = None
+                             ) -> KernelContract:
+    """Contract of :func:`paged_attention` for one concrete block table
+    ``block_tables`` (B, nb): q of ``dtype`` over pools of ``kv_dtype``
+    (default: int8 when ``quantized``, else q's dtype).
+
+    The checker evaluates the index maps against the table, so an
+    out-of-range page id is a bounds violation and pool coverage narrows
+    to the pages the table references (distractor pages are dead by
+    design); every entry is taken as read, lengths being data. For a CUDA
+    device, the launch on the route :func:`route_for` names
+    (``flash_attention.attention_contract``: the tensor-core routes hold
+    one m16 tile a CTA and step through min(16, page_size) keys, the
+    CUDA-core route a page; ``csrc/paged_attention.cu``:320, :357,
+    :161-:167); for the CPU, the reference's grid (B, H, nq, nb) over
+    ``block_q`` rows and pages."""
+    bt = np.asarray(block_tables, dtype=np.int64)
+    nb = bt.shape[1] if bt.ndim == 2 else 0
+    rep = H // Hkv if Hkv >= 1 and H % Hkv == 0 else 1
+    ps = page_size
+    pre = paged_preconditions(H, Hkv, (P, ps, Hkv, D), (P, ps, Hkv, Dv), nb)
+    referenced = frozenset(
+        (int(bt[b, j]), 0, hk, 0)
+        for b in range(bt.shape[0]) for j in range(nb) for hk in range(Hkv))
+    scale_blocks = frozenset((p, hk) for (p, _z, hk, _w) in referenced)
+    if torch.device(device).type == "cpu":
+        bq = min(block_q, Sq)
+        nq = -(-Sq // bq)
+        operands = [
+            OperandSpec("q_positions", "input", (B, nq, 1), (1, bq, 1),
+                        lambda b, h, i, j: (b, i, 0)),
+            OperandSpec("q", "input", (B, nq, H, 1), (1, bq, 1, D),
+                        lambda b, h, i, j: (b, i, h, 0)),
+            OperandSpec("k_pages", "input", (P, 1, Hkv, 1), (1, ps, 1, D),
+                        lambda b, h, i, j: (bt[b, j], 0, h // rep, 0),
+                        expected_blocks=referenced),
+            OperandSpec("v_pages", "input", (P, 1, Hkv, 1), (1, ps, 1, Dv),
+                        lambda b, h, i, j: (bt[b, j], 0, h // rep, 0),
+                        expected_blocks=referenced),
+            OperandSpec("o", "output", (B, nq, H, 1), (1, bq, 1, Dv),
+                        lambda b, h, i, j: (b, i, h, 0),
+                        reduction_axes=(3,)),
+        ]
+        if quantized:
+            operands += [
+                OperandSpec(name, "input", (P, Hkv), (1, 1),
+                            lambda b, h, i, j: (bt[b, j], h // rep),
+                            expected_blocks=scale_blocks)
+                for name in ("k_scales", "v_scales")]
+        return KernelContract(
+            kernel="paged_attention", grid=(B, H, nq, nb),
+            operands=tuple(operands),
+            dimension_semantics=("parallel", "parallel", "parallel",
+                                 "arbitrary"),
+            preconditions=pre,
+            description="plain block-table attention, one page a step")
+    kv_dtype = kv_dtype or (torch.int8 if quantized else dtype)
+    quantized = kv_dtype == torch.int8
+    route = route_for(dtype, Sq, rep, None if quantized else kv_dtype)
+    splits = split_count(B, Hkv, nb * ps) if route == "split" else 0
+    pre += launch_preconditions(route, ps, D, Dv, nb, splits)
+
+    def page(b, col0):
+        return int(bt[b, col0 // ps])
+
+    kv = [(name, (P, 1, Hkv, 1), (1, ps, 1, d),
+           lambda b, g, col0: (page(b, col0), 0, g, 0), referenced)
+          for name, d in (("k_pages", D), ("v_pages", Dv))]
+    kv.append(("block_tables", (B, max(nb, 1)), (1, 1),
+               lambda b, g, col0: (b, col0 // ps), None))
+    if quantized:
+        kv += [(name, (P, Hkv), (1, 1),
+                lambda b, g, col0: (page(b, col0), g), scale_blocks)
+               for name in ("k_scales", "v_scales")]
+    return attention_contract(
+        "paged_attention", B=B, H=H, Hkv=Hkv, Sq=Sq, D=D, Dv=Dv,
+        route=route, splits=splits, n_keys=nb * ps, kv_operands=kv, pre=pre,
+        page_size=ps)
 
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,

@@ -5,13 +5,19 @@ on the CPU.
 ``block_matmul_ref`` is the paper's Algorithm 1 over block-major operands,
 as ``repro/core/blockflow.py`` renders it: output block (i, j) accumulates
 A_bm[i, k] @ B_bm[j, k] with K innermost and is written once. Integer
-operands accumulate in float64, which is exact for int8 products summed
-over any K below 2**37, and works on both devices (CUDA has no integer
-matmul). With ``scale_a``/``scale_b`` it is the W8A8 GEMM: the finished
-int32 block is rescaled at its flush (``core/quant.py``).
+operands accumulate exactly: in int64 on the CPU, in float64 on CUDA
+(which has no integer matmul; float64 is exact for int8 products summed
+over any K below 2**37), so both devices give the same integers. With
+``scale_a``/``scale_b`` it is the W8A8 GEMM: the finished int32 block is
+rescaled at its flush (``core/quant.py``).
 
 ``ssd_ref`` is the Mamba-2 SSD recurrence one step at a time, the oracle;
 ``ssd_chunked_ref`` is the chunked scan the SSD kernel computes.
+
+:func:`blockflow_contract` (registered as ``"blockflow"``) states
+Algorithm 1's block addressing for the static checker
+(``analysis/kernel_contracts.py``): the ``blockflow`` GEMM backend runs
+:func:`block_matmul_ref`.
 """
 from __future__ import annotations
 
@@ -19,21 +25,31 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.kernel_contracts import (KernelContract,
+                                                   OperandSpec,
+                                                   register_contract)
+
 
 def acc_dtype_for(dtype: torch.dtype) -> torch.dtype:
     """The paper's MAC accumulator policy: int32 for integers, else fp32."""
     return torch.float32 if dtype.is_floating_point else torch.int32
 
 
-def _work_dtype(acc: torch.dtype) -> torch.dtype:
-    return torch.float32 if acc == torch.float32 else torch.float64
+def work_dtype(acc: torch.dtype, device) -> torch.dtype:
+    """The dtype products accumulate in: fp32 for fp operands; for integer
+    ones an exact type, int64 on the CPU and float64 on CUDA (no integer
+    matmul there)."""
+    if acc == torch.float32:
+        return torch.float32
+    return torch.int64 if torch.device(device).type == "cpu" \
+        else torch.float64
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = A @ B on row-major operands with the accumulator policy."""
     acc = acc_dtype_for(a.dtype)
-    work = _work_dtype(acc)
+    work = work_dtype(acc, a.device)
     return torch.matmul(a.to(work), b.to(work)).to(out_dtype or acc)
 
 
@@ -70,7 +86,7 @@ def block_matmul_ref(a_bm: torch.Tensor, b_bm: torch.Tensor, *,
             f"block-major operands disagree on the K stream: a_bm "
             f"{tuple(a_bm.shape)} vs b_bm {tuple(b_bm.shape)}")
     acc = acc_dtype_for(a_bm.dtype)
-    work = _work_dtype(acc)
+    work = work_dtype(acc, a_bm.device)
     c = torch.zeros((*lead, nbm, nbn, bm, bn), dtype=work,
                     device=a_bm.device)
     for k in range(nbk):               # the K stream, innermost in Alg. 1
@@ -85,6 +101,28 @@ def block_matmul_ref(a_bm: torch.Tensor, b_bm: torch.Tensor, *,
     sb = _pad_scales(scale_b, nbn * bn, c.device).reshape(1, nbn, 1, bn)
     c = c.to(torch.int32).float() * sa * sb
     return c.to(out_dtype or torch.float32)
+
+
+@register_contract("blockflow")
+def blockflow_contract(*, nbm, nbn, nbk, device="cuda") -> KernelContract:
+    """Contract of :func:`block_matmul_ref`'s dataflow (Algorithm 1), the
+    ``blockflow`` backend's on every device: output block (i, j)
+    accumulates along k — the declared reduction axis, the loop above —
+    and every A/B block is streamed where the paper's dc/dm orders place
+    it. Nothing here is a launch, so ``device`` changes nothing."""
+    operands = (
+        OperandSpec("a_bm", "input", (nbm, nbk), (1, 1),
+                    lambda i, j, k: (i, k)),
+        OperandSpec("b_bm", "input", (nbn, nbk), (1, 1),
+                    lambda i, j, k: (j, k)),
+        OperandSpec("c_bm", "output", (nbm, nbn), (1, 1),
+                    lambda i, j, k: (i, j), reduction_axes=(2,)),
+    )
+    return KernelContract(
+        kernel="blockflow", grid=(nbm, nbn, nbk), operands=operands,
+        dimension_semantics=("parallel", "parallel", "arbitrary"),
+        description="paper Algorithm 1, the plain PyTorch rendering (K "
+                    "stream innermost)")
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -25,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -229,10 +229,13 @@ def bound(cost: Dict, hw: HW = HW()) -> Tuple[float, str]:
 
 class CostLedger:
     """Launches, FLOPs by type and bytes of the kernel launches recorded
-    while it is active (:func:`use_ledger`)."""
+    while it is active (:func:`use_ledger`), and each launch's record
+    (kernel, route and the shapes the wrapper passed: ``records``, which
+    the serving steps' lint reads)."""
 
     def __init__(self):
         self.launches: Dict[str, Dict[str, int]] = {}
+        self.records: List[Dict] = []
         # launches also counted under a mark (K1's "batched", "backward")
         self.marked: Dict[str, Dict[str, int]] = {}
         self.flops_by_dtype: Dict[str, float] = {}
@@ -240,7 +243,9 @@ class CostLedger:
         self.transcendentals = 0.0
 
     def add(self, kernel: str, route: str, cost: Dict,
-            marks: Tuple[str, ...] = ()) -> None:
+            marks: Tuple[str, ...] = (),
+            shapes: Optional[Mapping] = None) -> None:
+        self.records.append(dict(shapes or {}, kernel=kernel, route=route))
         by_route = self.launches.setdefault(kernel, {})
         by_route[route] = by_route.get(route, 0) + 1
         for m in marks:
@@ -283,4 +288,4 @@ def record_launch(kernel: str, route: str, *, name: Optional[str] = None,
     stack = getattr(_state, "ledgers", None)
     if stack:
         stack[-1].add(name or kernel, route,
-                      launch_cost(kernel, route, **shapes), marks)
+                      launch_cost(kernel, route, **shapes), marks, shapes)

@@ -12,6 +12,7 @@ The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_cuda.py; here the routes those shapes take there (a pure
 function of shapes) are checked.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ cancel, the masked-prefill contract (admitting a slot leaves every other
 slot's cache untouched, compared against the JAX engine's caches), and
 the cache-less dense forward through the paged policy's flash fallback.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2169,3 +2169,71 @@ def test_meta_launch_counts_equal_real_calls(cuda):
            for r in ("rows", "split", "cuda_cores")} \
         | {f"ssd_scan_{r}" for r in ("walk", "chunks", "cuda_cores")} \
         <= routes
+
+
+# ---------------------------------------------------------------------------
+# The static-analysis gate on the card (chip_smoke.py phase 29): the
+# coverage probe at the parity cells, the ops facade
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_analysis_probe_parity_cells(cuda):
+    """Each contract of the card sweep's parity cells (K1/K2 of the
+    matrixflow backend at the parity shapes, K3 at every head dim it is
+    built for, K4 and K5 through the parity block tables) held to its
+    ``.cu``: launched through the raw binding into outputs filled with a
+    sentinel, every element the contract marks written was overwritten and
+    agrees with the plain version."""
+    from repro_torch.analysis import probe as PR
+    from repro_torch.analysis import sweep as SW
+    entries = SW.sweep_gemm(["matrixflow"], device="cuda") \
+        + SW.sweep_attention(device="cuda")
+    assert all(e.ok for e in entries)
+    cells = PR.sweep_cells(entries)
+    cells.append(("K1 mma split", "matrixflow_gemm",
+                  PR.gemm_cell(8, 576, 1536, torch.bfloat16, bm=16)))
+    out = PR.run_probe(cells)
+    assert {"matrixflow_gemm/wgmma", "matrixflow_gemm/mma",
+            "matrixflow_gemm/cuda_core", "flash_attention/rows",
+            "flash_attention/split", "flash_attention/cuda_cores",
+            "paged_attention/rows", "paged_attention/split",
+            "paged_attention/cuda_cores"} <= set(out["cells"])
+
+
+@pytest.mark.cuda
+def test_analysis_ops_facade_matches_plain(cuda):
+    """kernels/ops.py on CUDA tensors: each function launches its kernel
+    once (its wrapper's counter moves by one, no other kernel's) and
+    agrees with its plain reference (impl="ref")."""
+    from repro_torch.analysis import probe as PR
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bf = torch.bfloat16
+    a = torch.randn((8, 576), generator=gen, device=cuda).to(bf)
+    b = torch.randn((576, 1536), generator=gen, device=cuda).to(bf)
+    blk = L.BlockLayout(64, 128, 576)
+    a_bm, b_bm = (L.to_block_major_a(a, blk.bm, blk.bk),
+                  L.to_block_major_b(b, blk.bk, blk.bn))
+    q = torch.randn((8, 1, 9, 64), generator=gen, device=cuda).to(bf)
+    kv = torch.randn((8, 256, 3, 64), generator=gen, device=cuda).to(bf)
+    x = torch.randn((1, 384, 8, 64), generator=gen, device=cuda).to(bf)
+    dt = 0.01 + 0.1 * torch.rand((1, 384, 8), generator=gen, device=cuda)
+    A = -(0.5 + torch.rand(8, generator=gen, device=cuda))
+    Bc = (torch.randn((1, 384, 128), generator=gen, device=cuda) / 8).to(bf)
+    wrappers = {"gemm": (MF.matrixflow_gemm_block_major, PR.TOLS),
+                "mha": (FA.flash_attention, PR.ATTN_TOLS),
+                "ssd": (K6.ssd_scan, PR.SSD_TOLS)}
+    for fn, args, kw, key in (
+            (ops.gemm, (a, b), {}, "gemm"),
+            (ops.gemm_preformatted, (a_bm, b_bm), dict(blk=blk), "gemm"),
+            (ops.mha, (q, kv, kv), {}, "mha"),
+            (ops.ssd, (x, dt, A, Bc, Bc), {}, "ssd")):
+        counted = {n: w.launches for n, (w, _) in wrappers.items()}
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert {n: w.launches - counted[n] for n, (w, _) in wrappers.items()} \
+            == {n: int(n == key) for n in wrappers}, fn.__name__
+        atol, rtol = wrappers[key][1]["bfloat16"]
+        want = fn(*args, **kw, impl="ref").float()
+        assert bool((got.float() - want).abs().le(atol + rtol * want.abs())
+                    .all()), fn.__name__

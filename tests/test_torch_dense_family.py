@@ -12,6 +12,7 @@ decode) and over contiguous caches; qwen2's greedy streams through the
 port's paged engine equal the JAX engine's, preempted or not, and a
 preempted request's stream equals its solo stream.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import dataclasses
 
 import jax

@@ -15,6 +15,7 @@ steps on the mesh log the one-device Trainer's losses.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 
 import jax

@@ -27,6 +27,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 import contextlib
 import os
@@ -45,7 +46,9 @@ from repro.models import transformer as JT
 from repro.serving.engine import make_decode_step as jmake_decode_step
 from repro_torch.configs.registry import ARCHS, get_config, get_smoke_config
 from repro_torch.core import api
-from repro_torch.core.plan import AttentionPolicy, GemmPolicy
+from repro_torch.core.plan import (AttentionPolicy, GemmPolicy,
+                                   unregister_attention_backend,
+                                   unregister_backend)
 from repro_torch.distributed import tp as TP
 from repro_torch.distributed.launch import spawn
 from repro_torch.kernels import flash_attention as FA
@@ -187,9 +190,13 @@ def _spy():
 
     api.register_backend("spy_matrixflow", lambda *a: None, block_fn=block)
     api.register_attention_backend("spy_fused", attention)
-    with api.use_policy(GemmPolicy(backend="spy_matrixflow")), \
-            api.use_attention_policy(AttentionPolicy(backend="spy_fused")):
-        yield calls
+    try:
+        with api.use_policy(GemmPolicy(backend="spy_matrixflow")), \
+                api.use_attention_policy(AttentionPolicy(backend="spy_fused")):
+            yield calls
+    finally:       # the registries are process-wide: leave them as found
+        unregister_backend("spy_matrixflow")
+        unregister_attention_backend("spy_fused")
 
 
 def test_meta_launches_equal_cpu_run(decode):

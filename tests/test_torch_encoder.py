@@ -7,6 +7,7 @@ a seeded numpy generator and hand the same tree to both packages. fp32
 agrees within tests/parity.py's TOLS["float32"]; the layer tests also run
 bf16 within TOLS["bfloat16"].
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import dataclasses
 
 import jax

@@ -21,6 +21,7 @@ TP=2 serving holds the banks whole.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 
 import jax

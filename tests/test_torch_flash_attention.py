@@ -14,6 +14,7 @@ by tests/test_torch_cuda.py; here the pure functions of shapes that pick
 its routes on the card (``route_for``, ``split_count``) and the build's
 hash of its shared header are checked.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ JAX engine and the port's over its engine (``serving_pair``, plain
 ``asyncio.run`` as the reference tests use); every stream must be equal,
 and equal to the engine's own submit()/step() stream.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import asyncio
 
 import pytest

@@ -23,6 +23,7 @@ dbrx-132b's on the 2 × 16 × 16 mesh with its pod all-reduce.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 import math
 

@@ -7,6 +7,7 @@ mode over tests/parity.py's SHAPES × fp32/bf16/int8 with its TOLS (int8
 exact). The ``cuda``-marked test holds the CUDA kernel against the plain
 version and skips without a card.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -17,6 +17,7 @@ runs its paged kernel in interpret mode; its GEMMs run on ``xla`` for fp
 weights and ``blockflow`` for W8A8. The port runs on the CPU, where its
 kernel wrappers run their plain versions.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ JAX ``_paged_cache_update``.
   written token by token, in chunks or in bulk (the invariant
   preempt/resume rests on; tests/test_kv_quant.py proves it for JAX).
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

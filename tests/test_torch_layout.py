@@ -1,6 +1,7 @@
 """The port's block-major layouts (repro_torch/core/layout.py) against the
 JAX package's (repro/core/layout.py): the transforms must be bitwise the
 same for any block geometry, on the ragged shapes that exercise padding."""
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

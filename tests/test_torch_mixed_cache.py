@@ -28,6 +28,7 @@ streams below agree all the same.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ the residual adds, the paged kernel's p) and the differences compound over
 the layers: its bound, |Δ| <= BF16_ATOL + BF16_RTOL·|logit|, is stated
 below for logits of magnitude ~0.5.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

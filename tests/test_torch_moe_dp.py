@@ -16,6 +16,7 @@ global batch that do not divide over the data axis raise.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 
 import jax

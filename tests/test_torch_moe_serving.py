@@ -21,6 +21,7 @@ dispatch group (bucket padding and other requests' rows included), so
 these streams are held to the JAX engine's on the same batches, not to
 solo runs.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import json
 import os
 import subprocess

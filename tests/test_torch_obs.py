@@ -11,6 +11,7 @@ and the port's with ``Observability()`` on (``serving_pair``): the same
 counters and gauges, the same trace events in the same order (times
 masked), request traces holding exactly each stream's tokens.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import asyncio
 import json
 

@@ -11,6 +11,7 @@ against the plain version on the card by tests/test_torch_cuda.py; here
 the routes its bf16 pools take on the card (a pure function of shapes)
 are checked.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ forward and the gradient of sum(out²) within 1e-4 of
 (``tests/torch_mesh_ranks.py::pipeline_rank``)."""
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,7 @@ smoke configs (2 layers, vocab 64) with the JAX init:
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 
 import jax

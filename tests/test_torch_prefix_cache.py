@@ -10,6 +10,7 @@ serve the same prompts through the JAX engine and the port's engine
 (``serving_pair``): greedy streams token-identical, the same hits, forks
 and evictions, and the pool invariants on the port.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import numpy as np
 import pytest
 import serving_pair as SP

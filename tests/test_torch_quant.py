@@ -6,6 +6,7 @@ in fp32 ``x / s`` and clip to [−127, 127]. The inputs include exact .5
 ties on the grid, all-zero rows and channels (scale 1), and late KV rows
 past ``KV_HEADROOM`` (clipped, not wrapped).
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ blocks included) plus a decode-like row of K = 1536 sums past 2^24, where
 the int32 → fp32 conversion rounds. The ``cuda``-marked twins live in
 tests/test_torch_cuda.py.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

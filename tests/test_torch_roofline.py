@@ -8,6 +8,7 @@ a bert-base forward (operations); K3 0.023 ms a bert-base forward; K4
 0.009 ms a decode step; K6 0.995 ms a mamba2-1.3b 8 × 384 prefill."""
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import numpy as np
 import pytest
 

@@ -8,6 +8,7 @@ the port runs on the CPU, where its kernel wrappers run their plain
 versions. Covered: batched generate(), submit/step with more requests than
 slots, and a pool small enough to force preemption and resume.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import dataclasses
 
 import jax

@@ -19,6 +19,7 @@ against the live JAX package.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

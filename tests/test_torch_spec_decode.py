@@ -10,6 +10,7 @@ and contiguous (``fused``) caches, int8 KV pages, under the prefix cache
 and under preemption, with the same accepted, rejected and rolled-back
 counts; and they equal the port's own streams with speculation off.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import asyncio
 
 import pytest

@@ -10,6 +10,7 @@ Served shapes: mamba2-1.3b (H 64, P 64, N 128) prefills of 8 x 384 (Q 128),
 1 x 4096; zamba2-2.7b (H 80, N 64) at 8 x 64; the engine tests' Q 37.
 The kernels themselves run on the card only (tests/test_torch_cuda.py).
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ fp32. On the CPU the wrapper runs the plain version and launches nothing;
 the CUDA kernel is held against the plain version on the card by
 tests/test_torch_cuda.py.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

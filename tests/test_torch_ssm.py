@@ -8,6 +8,7 @@ the two frameworks (conv, silu, the gated norm, the residual adds) and are
 held to test_torch_model.py's bf16 bound. Inputs are made with numpy from
 a seed. On the CPU the SSD scan runs its plain version.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ streams token-identical to the JAX engine built the same way
 ::test_ssm_submit_stream_unaffected_by_bucketing build theirs with the
 default ServeConfig).
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ through the W8A8 route, the JAX engine's on ``blockflow``) greedy streams
 are equal, or part only after an int8 value the packages rounded to either
 side of a .5 tie from an ulp apart (tests/int8_flips.py).
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import numpy as np
 import pytest

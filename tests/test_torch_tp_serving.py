@@ -18,6 +18,7 @@ unsharded ``api.matmul`` / ``api.linear`` / ``api.attention`` (and the
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 
 import jax

@@ -19,6 +19,7 @@ row.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 
 import jax

@@ -32,6 +32,7 @@ the CPU at smoke shapes, fp32 unless a test says otherwise:
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import dataclasses
 import os
 import signal

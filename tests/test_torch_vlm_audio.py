@@ -14,6 +14,7 @@ The JAX reference calls are jitted whole, each test compiling its own
 under the policies active at its first call: eager JAX compiles every op
 anew at each new shape, several times slower here.
 """
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ each codebook: its loss keeps the gather and equals the one-device loss.
 """
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import concurrent.futures
 
 import jax

@@ -4,6 +4,7 @@ Table 3 and every GEMM and elementwise op of their workloads, field by
 field, and the system model's Table 3 speedups computed from each."""
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 import dataclasses
 
 import pytest

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a rank)
 
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.convert import from_jax_params
