@@ -498,6 +498,9 @@ def kernel_wrappers():
             "matrixflow_gemm_backward": (k1, "backward_launches"),
             "paged_attention": (pa, "launches"),
             "flash_attention": (fa, "launches"),
+            # K3's launches that write the log-sum-exp too (a KV cache cut
+            # over the sequence)
+            "flash_attention_lse": (fa, "lse_launches"),
             # K3 and K4 by route: bf16 on the tensor cores (rows: more than
             # 16 rows a CTA; split: decode), fp32 on the CUDA cores
             **{f"flash_attention_{r}": (fa.launches_by_route, r)
@@ -3351,10 +3354,83 @@ def run_train_phase(cfg):
     busy, host = device_busy_ms(lambda: step_fn(params, opt, batch), 2)
     res["profiled_step"] = dict(device_busy_ms=busy, host_wall_ms=host,
                                 idle_share=1 - busy / host)
+    res["dots"] = run_dots_step(cfg, params, opt, batch, resumed.opt_cfg,
+                                tc, per_step)
     del outs, params, opt
     log(f"training step: bitwise repeatable {res['step_bitwise_repeatable']}; "
         f"K1 launches {({r: {k: c[k] for k in K1_TRAIN} for r, c in per_step.items()})}; "
         f"device busy {busy:.1f} ms of {host:.1f} ms host wall (profiled)")
+    return res
+
+
+def run_dots_step(cfg, params, opt, batch, opt_cfg, tc, per_step):
+    """Phase 20's remat "dots" step: from one state and batch, the loss
+    and every gradient under "full" and "dots" (within GEMM_TOLS, and
+    whether bitwise equal); K1's launches of a train step under "dots"
+    (``per_step`` gains them) equal to those with remat off; each policy's
+    train step: device busy time, peak memory above the state, and the
+    dry run's temporaries of the same step on ``meta``."""
+    from repro_torch.core import api
+    from repro_torch.core.plan import UNFUSED, GemmPolicy
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.loop import make_train_step
+
+    atol, rtol = GEMM_TOLS["bfloat16"]
+    grads, res = {}, {}
+    for policy in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
+            (loss, _), g = ST.value_and_grad(
+                lambda p: T.lm_loss(p, c, batch), params)
+        grads[policy] = (loss, tree_leaves(g))
+        step = make_train_step(c, opt_cfg, tc)
+        reset_counts()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        launches = counts()
+        if policy == "dots":
+            per_step["remat dots"] = launches
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        busy, host = device_busy_ms(lambda: step(params, opt, batch), 1)
+        dry = DR.run_step(c, "train", TRAIN_BATCH, TRAIN_SEQ)
+        res[policy] = dict(
+            loss=float(loss), k1_launches={k: launches[k] for k in K1_TRAIN},
+            device_busy_ms=busy, host_wall_ms=host,
+            peak_mem_above_state_bytes=peak,
+            dry_run_temp_bytes=dry["memory"]["temp_size_in_bytes"],
+            dry_run_k1_launches=DR.launch_counters(dry)["matrixflow_gemm"])
+    (lf, gf), (ld, gd) = grads["full"], grads["dots"]
+    check_close("dots loss", ld, lf, atol, rtol)
+    err = max(check_close(f"dots grad {i}", b, a, atol, rtol)
+              for i, (a, b) in enumerate(zip(gf, gd)))
+    res["bitwise"] = bool(torch.equal(lf, ld)) and all(
+        torch.equal(a, b) for a, b in zip(gf, gd))
+    res["grad_max_abs_diff"] = err
+    k1 = {p: per_step[p]["matrixflow_gemm"]
+          for p in ("remat on", "remat off", "remat dots")}
+    if k1["remat dots"] != k1["remat off"]:
+        fail(f"training dots: K1 launches a step {k1}: dots must launch as "
+             f"often as remat off (no GEMM in the recompute)")
+    if res["dots"]["dry_run_k1_launches"] != k1["remat dots"]:
+        fail(f"training dots: the dry run counts "
+             f"{res['dots']['dry_run_k1_launches']} K1 launches, the card "
+             f"{k1['remat dots']}")
+    res["k1_launches_a_step"] = k1
+    log(f"training remat dots vs full (one step): bitwise {res['bitwise']}, "
+        f"grads max |d| {err:.3e}; K1 launches a step {k1}; "
+        + "; ".join(f"{p}: device busy {r['device_busy_ms']:.1f} ms of "
+                    f"{r['host_wall_ms']:.1f} ms host, peak "
+                    f"{r['peak_mem_above_state_bytes'] / 2**30:.3f} GiB above"
+                    f" the state, dry-run temporaries "
+                    f"{r['dry_run_temp_bytes'] / 2**30:.3f} GiB"
+                    for p, r in res.items() if p in ("full", "dots")))
     return res
 
 
@@ -3520,7 +3596,10 @@ def run_mixed_phase(cfg):
 
 TP_ARCH = "qwen3-8b"
 TP_WORLD = 2
-TP_LAYERS = 2                  # of qwen3-8b's 36, at full width: the time
+TP_LAYERS = 1                  # of qwen3-8b's 36, at full width: the time
+# phases 24 and 26 (TP and FSDP training): two layers, so a fault across
+# the stacked layers' leaves, gathers or slices can show
+TP_TRAIN_LAYERS = 2
 TP_PROMPT, TP_GEN = 32, 16     # phase 23's bf16 streams: SLOTS prompts
 TP_DECODE_STEPS = 8            # timed decode steps, SLOTS requests live
 TP_PIPE = dict(layers_per_stage=2, mu=4, mb=8, d=1024)   # phase 23's GPipe
@@ -3535,13 +3614,13 @@ TP_PAGED = dict(backend="paged", page_size=PAGE)
 TP_RANKS_TIMEOUT_S, TP_COLLECTIVE_TIMEOUT_S = 240, 120
 
 
-def tp_config(dtype):
-    """qwen3-8b at full width and TP_LAYERS layers with the sharding
+def tp_config(dtype, layers=TP_LAYERS):
+    """qwen3-8b at full width and ``layers`` layers with the sharding
     overrides cleared, as the reference's TP runner builds its model
     (tests/tp_serving_runner.py::build), so the heads and the KV pools
     split: 16 query and 4 KV heads a rank at TP=2."""
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS,
+    return dataclasses.replace(get_config(TP_ARCH), n_layers=layers,
                                sharding_overrides=(), dtype=dtype)
 
 
@@ -4294,7 +4373,7 @@ def tp_train_rank(rank, world, root, ref_params, ref_mu):
     from repro_torch.models import transformer as T
 
     mesh = make_host_mesh(model=world)
-    cfg = tp_config("float32")
+    cfg = tp_config("float32", TP_TRAIN_LAYERS)
     with TP.use_tp(ST.tp_context(cfg, mesh)):
         vocab_parallel = T.vocab_parallel(cfg)
     init = tp_params(cfg, mesh)
@@ -4306,7 +4385,7 @@ def tp_train_rank(rank, world, root, ref_params, ref_mu):
     del init, ref_params, ref_mu
     gc.collect()
     torch.cuda.empty_cache()
-    cfg16 = tp_config("bfloat16")
+    cfg16 = tp_config("bfloat16", TP_TRAIN_LAYERS)
     p16 = tp_params(cfg16, mesh)
     tp_train_step(cfg16, p16, mesh)                    # warm-up
     bf16 = tp_train_step(cfg16, p16, mesh)
@@ -4328,14 +4407,14 @@ def one_device_train_steps():
     if not _ONE_DEVICE:
         from repro_torch.optim.adamw import tree_leaves
         t0 = time.perf_counter()
-        cfg = tp_config("float32")
+        cfg = tp_config("float32", TP_TRAIN_LAYERS)
         params = tp_params(cfg, None)
         one = tp_train_step(cfg, params, None)
         del params
         ref_params, ref_mu = one.pop("params"), one.pop("mu")
         gc.collect()
         torch.cuda.empty_cache()
-        cfg16 = tp_config("bfloat16")
+        cfg16 = tp_config("bfloat16", TP_TRAIN_LAYERS)
         p16 = tp_params(cfg16, None)
         tp_train_step(cfg16, p16, None)                    # warm-up
         one16 = tp_train_step(cfg16, p16, None)
@@ -4419,7 +4498,7 @@ def run_tp_train_phase():
            "bf16_step_ms_ranks": [rk["bf16"]["wall_ms"] for rk in ranks],
            "collectives_per_step": {"fp32": r0["fp32"]["collectives"],
                                     "bf16": r0["bf16"]["collectives"]}}
-    log(f"tp-train {TP_ARCH} ({TP_LAYERS} layers, full width, B "
+    log(f"tp-train {TP_ARCH} ({TP_TRAIN_LAYERS} layers, full width, B "
         f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}) at tp{TP_WORLD}, vocab-parallel "
         f"loss: fp32 loss rel |d| {res['fp32_loss_rel_diff']}, grad norm "
         f"(one device, ranks) {res['fp32_grad_norm']}, worst gradient leaf "
@@ -4494,7 +4573,7 @@ def fsdp_rank(rank, world, root, ref_params, model):
     from repro_torch.optim.adamw import tree_leaves
 
     mesh = make_host_mesh(model=model)
-    cfg = tp_config("float32")
+    cfg = tp_config("float32", TP_TRAIN_LAYERS)
     init = tp_params(cfg, mesh)
     held = 3 * sum(t.numel() * t.element_size() for t in tree_leaves(init))
     torch.cuda.reset_peak_memory_stats()
@@ -4510,7 +4589,7 @@ def fsdp_rank(rank, world, root, ref_params, model):
     torch.cuda.empty_cache()
     res = {"fp32": out}
     if model == 1:               # one step: the fp32 step warmed the ranks
-        cfg16 = tp_config("bfloat16")
+        cfg16 = tp_config("bfloat16", TP_TRAIN_LAYERS)
         p16 = tp_params(cfg16, mesh)
         bf16 = tp_train_step(cfg16, p16, mesh)
         bf16.pop("params")
@@ -4546,7 +4625,7 @@ def run_fsdp_phase():
     torch.cuda.empty_cache()
     res = {"one_device_state_bytes": od["state_bytes"],
            "batch": [TP_TRAIN_BATCH, TP_TRAIN_SEQ]}
-    cfg = tp_config("float32")
+    cfg = tp_config("float32", TP_TRAIN_LAYERS)
     for model in (1, 2):
         name = f"dp{FSDP_DATA}" + ("" if model == 1 else f"_tp{model}")
         world = FSDP_DATA * model
@@ -4603,7 +4682,7 @@ def run_fsdp_phase():
                                      for rk in ranks],
             "bf16_step_ms_ranks": [rk["bf16"]["wall_ms"] for rk in ranks
                                    if "bf16" in rk]}
-        log(f"fsdp {TP_ARCH} ({TP_LAYERS} layers, full width, B "
+        log(f"fsdp {TP_ARCH} ({TP_TRAIN_LAYERS} layers, full width, B "
             f"{TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}) on {name}: fp32 loss rel "
             f"|d| {res[name]['fp32_loss_rel_diff']}, grad norm (one "
             f"device, ranks) {res[name]['fp32_grad_norm']}, params max |d| "
@@ -4937,6 +5016,7 @@ def run_ep_phase():
 # ---------------------------------------------------------------------------
 
 POD_BATCH, POD_SEQ = 8, 128
+POD_LAYERS = 10                # of smollm-135m's 30, at full width: the time
 # (pod, data, model) of the two meshes, four ranks each: FSDP over data
 # with the pod axis; compression with the amax over the model cut
 POD_MESHES = {"pod2_dp2": ((2, 1), False), "pod2_tp2": ((2, 2), True)}
@@ -4946,9 +5026,10 @@ POD_TIE = 1e-4
 
 
 def pod_config():
-    """smollm-135m at full width and depth, fp32."""
+    """smollm-135m at full width, POD_LAYERS layers, fp32."""
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config(ARCH), dtype="float32")
+    return dataclasses.replace(get_config(ARCH), dtype="float32",
+                               n_layers=POD_LAYERS)
 
 
 def quantization_ties(grads):
@@ -4998,7 +5079,7 @@ def pod_rank(rank, world, root, refs, ties):
 
 
 def run_pod_phase():
-    """Phase 28. smollm-135m at full width and depth, B POD_BATCH x
+    """Phase 28. smollm-135m at full width, POD_LAYERS layers, B POD_BATCH x
     POD_SEQ, one fp32 AdamW step: on one device, plain and with
     ``compress_grads``; then four ranks of the card on (pod 2, data 2,
     model 1), FSDP over data, held to the plain step, and on (pod 2, data
@@ -5081,7 +5162,8 @@ def run_pod_phase():
             "mu_tie_partings": [rk[name]["mu_tie_partings"]
                                 for rk in ranks]}
         pod_ar = got["by_axes"].get("all_reduce:pod")
-        log(f"pod {ARCH} (full, B {POD_BATCH} x {POD_SEQ}) on {name}"
+        log(f"pod {ARCH} ({POD_LAYERS} layers, full width, B {POD_BATCH} x "
+            f"{POD_SEQ}) on {name}"
             f"{' with compress_grads' if compress else ''}: fp32 loss rel "
             f"|d| {res[name]['fp32_loss_rel_diff']}, grad norm (one device, "
             f"ranks) {res[name]['fp32_grad_norm']}, params max |d| "
@@ -5328,6 +5410,543 @@ def run_analysis_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: KV caches cut over the sequence (long_500k) and K3's
+# log-sum-exp
+# ---------------------------------------------------------------------------
+
+LONG_SEQ = 524288                    # long_500k's cache, one row
+# zamba2-2.7b at full width, 2 and 1 shared-attention groups of its 9
+LONG_LAYERS = {"bfloat16": 12, "float32": 6}
+# written lengths: the decode writes at 524,280.. in rank 1's half, both
+# ranks holding visible keys; at 100,000.. in rank 0's, rank 1's half past
+# every row's valid length
+LONG_LENS = {"both see keys": 524280, "rank 1 sees none": 100000}
+LONG_STEPS = 4
+LONG_WORLD = 2                       # mesh (data 2, model 1)
+LONG_SEED = 30
+# bf16, after step 0: the cut's logits at a step at most this many times
+# as far from one device's as the one-device control's (K3's keys over
+# half the cluster CTAs). Readings (H100, 700 W), the cut's max |d| over
+# the control's at a step: at most 1.25 on random caches; 1.0-3.08 on
+# these caches (0.145 against 0.047 at step 3 of "both see keys", the
+# states parted by then; 0.082 against 0.039 at step 1 of the other)
+LONG_CONTROL_FACTOR = 4
+# K3 with its log-sum-exp at zamba2's shared block (H = Hkv = 32, D 80):
+# (name, Sq, keys, dtype): a decode over the one-device cache and over a
+# rank's half, a 64-row prefill chunk (rows), fp32 (the CUDA cores)
+LSE_CELLS = (("split, one device", 1, LONG_SEQ, "bfloat16"),
+             ("split, a rank", 1, LONG_SEQ // LONG_WORLD, "bfloat16"),
+             ("rows, prefill 64", 64, 4096, "bfloat16"),
+             ("cuda cores", 1, 65536, "float32"))
+# out of a phase 30(a) cell: max |kernel - plain| at most this share of
+# the plain output's RMS, beside ATTN_TOLS (bf16 rounds the largest
+# values, about 4 RMS, by up to 0.008 RMS on each side)
+LSE_OUT_RMS = 0.05
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of ``fn`` (CUDA events; for a plain version
+    whose Python loop over key blocks takes seconds a call)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+# the planted keys' scores: from LSE_SCORES[0] at head 0 to LSE_SCORES[1]
+# at the last, the other half's key LSE_SCORE_GAP below; the random keys'
+# log-sum-exp over a half is about log(keys / 2) + 0.5 (10.9 to 13.0)
+LSE_SCORES = (14.0, 24.0)
+LSE_SCORE_GAP = 3.0
+LSE_PLANT_STEP = 31                  # columns between two rows' planted keys
+
+
+def lse_inputs(gen, Sq, Sk, H, Hkv, D, dt):
+    """q, k, v of a phase 30(a) cell, random with planted keys: for every
+    query row r and KV head h, a key in each half of the columns (r *
+    LSE_PLANT_STEP + 7 and Sk/2 + r * LSE_PLANT_STEP + 11, visible to
+    every row) scaled from q so that its score is s_h (spread over
+    LSE_SCORES) in one half and s_h - LSE_SCORE_GAP in the other, the
+    halves alternating with h, each with a value of its own (2 x randn).
+    So the answer depends on the kernel: one half holds most of a row's
+    mass, the halves' log-sum-exps differ by units, the rows' lse spread
+    over ten, and the output is of the planted values' size."""
+    g = H // Hkv
+    q = torch.randn((1, Sq, H, D), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((1, Sk, Hkv, D), generator=gen, device="cuda")
+            for _ in range(2))
+    qf = q.float()[0, :, ::g]                               # (Sq, Hkv, D)
+    lo, hi = LSE_SCORES
+    s = lo + (hi - lo) * torch.arange(Hkv, device="cuda") / max(Hkv - 1, 1)
+    first_high = (torch.arange(Hkv, device="cuda") % 2 == 0)
+    rows = torch.arange(Sq, device="cuda") * LSE_PLANT_STEP
+    for cols, high in ((rows + 7, first_high),
+                       (rows + Sk // 2 + 11, ~first_high)):
+        score = torch.where(high, s, s - LSE_SCORE_GAP)     # (Hkv,)
+        alpha = score / (D ** -0.5 * (qf * qf).sum(-1))     # (Sq, Hkv)
+        k[0, cols] = alpha[..., None] * qf
+        v[0, cols] = 2 * torch.randn((Sq, Hkv, D), generator=gen,
+                                     device="cuda")
+    return q, k.to(dt), v.to(dt)
+
+
+def within(got, want, atol, rtol) -> bool:
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def run_lse_kernel_phase(timer):
+    """Phase 30(a). K3 with ``return_lse=True`` at LSE_CELLS on the route
+    its chooser names, over planted keys (:func:`lse_inputs`): out and lse
+    held to the plain version within ATTN_TOLS, out also within
+    LSE_OUT_RMS of its own RMS, and the lse less its row's mean over the
+    heads within ATTN_TOLS; at a decode, the two halves' launches merged
+    (``tp.merge_stack``) held to the one launch. Planted faults must fail
+    those gates: a zero output, one constant lse, the halves merged with
+    equal weights. Its time beside the plain version's, SDPA's (the
+    normalized output alone) and the bound of this data (every key
+    visible to the decode rows, the prefill's causal pairs; the lse's
+    fp32 write counted)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels import flash_attention as FA
+
+    cfg = get_config(ZAMBA)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(LONG_SEED)
+    rows = []
+    for name, Sq, Sk, dtype_name in LSE_CELLS:
+        dt = getattr(torch, dtype_name)
+        atol, rtol = ATTN_TOLS[dtype_name]
+        q, k, v = lse_inputs(gen, Sq, Sk, H, Hkv, D, dt)
+        cell = (f"flash_attention lse {name} Sq={Sq} Sk={Sk} H={H} "
+                f"Hkv={Hkv} D={D} {dtype_name}")
+        before = counts()
+        got, lse = FA.flash_attention(q, k, v, return_lse=True)
+        route = route_taken(before, counts(), "flash_attention")
+        if route != FA.route_for(dt, Sq, H // Hkv):
+            fail(f"{cell}: ran route {route}")
+        qpos = (torch.arange(Sq, device="cuda") + (Sk - Sq)).expand(
+            1, Sq).to(torch.int32)
+        kvl = torch.full((1,), Sk, dtype=torch.int32, device="cuda")
+
+        plain = []                   # one call, timed: seconds at 512k keys
+        t_p = once_ms(lambda: plain.append(FA.flash_attention_plain(
+            q, k, v, qpos, kvl, causal=True, scale=D ** -0.5, soft_cap=None,
+            return_lse=True)))
+        want, want_lse = plain.pop()
+        err = check_close(f"{cell} out", got, want, atol, rtol)
+        err_lse = check_close(f"{cell} lse", lse, want_lse, atol, rtol)
+        rms = float(want.float().pow(2).mean().sqrt())
+        if err > LSE_OUT_RMS * rms:
+            fail(f"{cell} out: max |kernel - plain| = {err:.3e} exceeds "
+                 f"{LSE_OUT_RMS} x the plain output's RMS {rms:.3e}")
+
+        def centred(x):
+            return x - x.mean(dim=-1, keepdim=True)
+        err_c = check_close(f"{cell} lse less its row mean", centred(lse),
+                            centred(want_lse), atol, rtol)
+        spread = float(want_lse.amax(-1).sub(want_lse.amin(-1)).min())
+        faults = {"zero output": within(torch.zeros_like(want), want, atol,
+                                        rtol),
+                  "constant lse": within(centred(torch.full_like(
+                      want_lse, float(want_lse.mean()))), centred(want_lse),
+                      atol, rtol)}
+        t_k = timer.ms(lambda: FA.flash_attention(q, k, v, return_lse=True))
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        cols = torch.arange(Sk, device="cuda")
+        vis = cols[None, :] <= qpos[0, :, None]              # (Sq, Sk)
+        mask = None if bool(vis.all()) else vis[None, None]
+        t_lib = timer.ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
+        b_ms, b_by = bound_ms("flash_attention", route, B=1, Sq=Sq, Sk=Sk,
+                              H=H, Hkv=Hkv, D=D, Dv=D, dtype=dt, keys=Sk,
+                              pairs=int(vis.sum()), lse=True)
+        merge_err = lse_gap = None
+        if Sq == 1:                  # two cuts of the keys, merged
+            half = Sk // 2
+            parts = [FA.flash_attention(q, k[:, sl], v[:, sl], return_lse=True)
+                     for sl in (slice(0, half), slice(half, Sk))]
+            o_r = torch.stack([o for o, _ in parts])
+            lse_r = torch.stack([x for _, x in parts])
+            merged = TP.merge_stack(o_r, lse_r)
+            merge_err = check_close(f"{cell} two cuts merged",
+                                    merged.to(dt), got, atol, rtol)
+            lse_gap = float((lse_r[0] - lse_r[1]).abs().min())
+            faults["equal-weight merge"] = within(
+                o_r.float().mean(dim=0).to(dt), got, atol, rtol)
+        passed = [f for f, ok in faults.items() if ok]
+        if passed:
+            fail(f"{cell}: planted faults pass the gates: {passed}")
+        rows.append(dict(cell=cell, dtype=dtype_name, path=name, uses=1,
+                         route=route, max_abs_err=max(err, err_lse),
+                         lse_max_abs_err=err_lse,
+                         lse_less_row_mean_max_abs_err=err_c, out_rms=rms,
+                         lse_row_spread_min=spread, halves_lse_gap_min=lse_gap,
+                         planted_faults_caught=sorted(faults), ms=t_k,
+                         plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
+                         bound_by=b_by,
+                         two_cuts_merged_max_abs_err=merge_err))
+        log(f"{cell}: route {route} max|d| out {err:.2e} (RMS {rms:.3f}) "
+            f"lse {err_lse:.2e} (less row mean {err_c:.2e}; rows spread "
+            f"over >= {spread:.2f}) two cuts merged {merge_err} (halves' "
+            f"lse apart by >= {lse_gap}); planted faults caught "
+            f"{sorted(faults)}; kernel {t_k:.4f} ms plain {t_p:.1f} ms sdpa "
+            f"{t_lib:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        del q, k, v, qs, ks, vs, got, lse, want, want_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def long_config(dtype_name):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(ZAMBA),
+                               n_layers=LONG_LAYERS[dtype_name],
+                               dtype=dtype_name)
+
+
+def long_caches(cfg, length, ctx=None):
+    """zamba2's decode caches of one row at ``length`` written tokens of
+    LONG_SEQ, drawn on the card from LONG_SEED (every SSD layer's conv and
+    SSD state, every shared-attention group's K/V; the sink column zero):
+    the same on every process; with a rank's context, its cut of them
+    (``tp.shard_caches``: no 10 GB crosses processes)."""
+    from repro_torch.distributed import tp as TP
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(LONG_SEED)
+    caches = T.init_caches(cfg, 1, LONG_SEQ, cfg.dtype, "cuda")
+    half = LONG_SEQ // LONG_WORLD
+    for c in caches:
+        if "k" in c:
+            for name in ("k", "v"):
+                c[name][:, :LONG_SEQ].normal_(generator=gen)
+            # the halves differ, so the merge's weights decide the output:
+            # the second's keys at half the scale (less of a row's mass),
+            # each half's values about a mean of its own
+            c["k"][:, half:LONG_SEQ].mul_(0.5)
+            for sl in (slice(0, half), slice(half, LONG_SEQ)):
+                c["v"][:, sl].add_(torch.randn(
+                    c["v"].shape[2:], generator=gen,
+                    device="cuda").to(c["v"].dtype))
+            c["len"].fill_(length)
+        else:
+            for t in c["conv"].values():
+                t.normal_(generator=gen)
+            c["state"].normal_(generator=gen).mul_(0.1)
+    if ctx is None:
+        return caches
+    cut = TP.shard_caches(caches, ctx, shard_kv=False)
+    del caches
+    torch.cuda.empty_cache()
+    return cut
+
+
+def long_decode(cfg, params, caches, ctx, length, feed=None):
+    """LONG_STEPS decode steps of one row from ``length``, through the
+    serving decode step over contiguous caches (K3): logits and greedy
+    tokens a step, each step's wall time, and the collectives of step 2;
+    ``feed`` gives each step's input token (another run's greedy stream),
+    else the previous step's argmax."""
+    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.distributed import tp as TP
+    from repro_torch.serving.engine import make_decode_step
+    step = make_decode_step(cfg, attn=AttentionPolicy(backend="fused"),
+                            tpctx=ctx)
+    tok = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((1, 1), length, dtype=torch.int32, device="cuda")
+    logits, toks, step_ms, coll = [], [], [], None
+    with torch.no_grad():
+        for i in range(LONG_STEPS):
+            if feed is not None and i:
+                tok.fill_(int(feed[i - 1]))
+            TP.collectives.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = step(params, tok, pos, caches)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                coll = TP.collectives.snapshot()
+                coll["by_axes"] = TP.collectives.by_axes(
+                    ctx.mesh if ctx is not None else None)
+            tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+            logits.append(lg.float())
+            toks.append(int(tok))
+            pos = pos + 1
+    return torch.cat(logits).cpu(), toks, step_ms, coll, caches
+
+
+def kv_bytes(caches, real=False):
+    """Bytes of the caches' K/V (``real``: without the sink column)."""
+    n = 0
+    for c in caches:
+        for name in ("k", "v"):
+            if name in c:
+                t = c[name][:, :-1] if real else c[name]
+                n += t.numel() * t.element_size()
+    return n
+
+
+def long_rank(rank, world, root, feeds):
+    """One rank of phase 30(b) on cuda:0, mesh (data 2, model 1) under
+    the long_500k rules: each dtype's decode from its cut of every case's
+    caches, fed the one-device greedy tokens (``feeds``); its K/V bytes,
+    the launches and collectives of a step; a live lint of the step."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.analysis import trace_lint
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import make_decode_step
+
+    mesh = make_host_mesh()
+    out = {"coords": dict(mesh.coords)}
+    for dtype_name in LONG_LAYERS:
+        cfg = long_config(dtype_name)
+        ctx = ST.serve_context(cfg, mesh, SHAPES["long_500k"])
+        params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+        for case, length in LONG_LENS.items():
+            caches = long_caches(cfg, length, ctx)
+            offsets = [int(c["seq_offset"]) for c in caches if "k" in c]
+            reset_counts()
+            lg, toks, step_ms, coll, caches = long_decode(
+                cfg, params, caches, ctx, length, feeds[dtype_name][case])
+            torch.cuda.synchronize()
+            out[(dtype_name, case)] = dict(
+                logits=lg, tokens=toks, step_ms=step_ms, collectives=coll,
+                kv_bytes=kv_bytes(caches), kv_bytes_real=kv_bytes(caches,
+                                                                  True),
+                offsets=offsets, launches=counts(),
+                lens=[int(c["len"][0]) for c in caches if "k" in c])
+            if dtype_name == "bfloat16" and case == next(iter(LONG_LENS)):
+                step = make_decode_step(
+                    cfg, attn=AttentionPolicy(backend="fused"), tpctx=ctx)
+                tok = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+                pos = torch.full((1, 1), length + LONG_STEPS,
+                                 dtype=torch.int32, device="cuda")
+                out["lint"] = [str(f) for f in trace_lint.lint_step(
+                    step, params, tok, pos, caches, path="long decode")]
+            del caches
+            if dtype_name == "bfloat16":
+                # planted fault: the ranks' partials merged with equal
+                # weights, whatever their log-sum-exps; its logits must
+                # fail the bf16 gate (:func:`long_bf16_over`)
+                real_merge = TP.merge_stack
+                TP.merge_stack = lambda o_r, lse_r: o_r.float().mean(dim=0)
+                try:
+                    out[(dtype_name, case, "fault")] = long_decode(
+                        cfg, params, long_caches(cfg, length, ctx), ctx,
+                        length, feeds[dtype_name][case])[0]
+                finally:
+                    TP.merge_stack = real_merge
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_bf16_over(diff, cdiff, ok) -> list:
+    """The steps at which bf16 logits fail phase 30(b)'s gate (``diff``,
+    ``cdiff``: (steps, vocab) |logits - one device's| of the cut and of
+    the one-device control; ``ok``: the cut's elements within GEMM_TOLS).
+    Step 0 starts from the state one device starts from: every logit
+    within GEMM_TOLS. Later steps start from states that bf16 rounding
+    has parted (one device against itself leaves GEMM_TOLS there): max
+    |d| at most LONG_CONTROL_FACTOR times that step's control."""
+    d, c = diff.amax(dim=1).tolist(), cdiff.amax(dim=1).tolist()
+    return [i for i in range(len(d))
+            if (not bool(ok[i].all()) if i == 0
+                else d[i] > LONG_CONTROL_FACTOR * c[i])]
+
+
+def run_long_phase():
+    """Phase 30. (a) K3's log-sum-exp against its plain version
+    (:func:`run_lse_kernel_phase`); (b) zamba2-2.7b at full width, its
+    caches at LONG_SEQ drawn on the card: LONG_STEPS decode steps on one
+    device, then on LONG_WORLD gloo ranks of the card whose caches are cut
+    over data (the long_500k rules), each rank fed the one-device tokens:
+    fp32 (LONG_LAYERS) logits within GEMM_TOLS and tokens equal; bf16
+    logits within GEMM_TOLS at step 0 and, once bf16 rounding has parted
+    the states, no farther from one device's than LONG_CONTROL_FACTOR
+    times a one-device control's at each step (K3's keys split over half
+    the CTAs: another merge order; fed the same tokens, whose own must not
+    part), the elements outside GEMM_TOLS counted and parted tokens
+    printed; a planted fault (the ranks' partials merged with equal
+    weights) must fail that gate; each
+    rank's K/V columns half of one device's; a step's collectives equal
+    to the dry run's; (c) the cut decode step linted live on rank 0."""
+    import tempfile
+
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    res = {"kernels": run_lse_kernel_phase(Timer())}
+    t_a = time.perf_counter() - t0
+    one, feeds, control = {}, {}, {}
+    for dtype_name in LONG_LAYERS:
+        cfg = long_config(dtype_name)
+        params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+        feeds[dtype_name] = {}
+        for case, length in LONG_LENS.items():
+            caches = long_caches(cfg, length)
+            reset_counts()
+            lg, toks, step_ms, _, caches = long_decode(cfg, params, caches,
+                                                       None, length)
+            one[(dtype_name, case)] = dict(
+                logits=lg, tokens=toks, step_ms=step_ms,
+                kv_bytes=kv_bytes(caches), kv_bytes_real=kv_bytes(caches,
+                                                                  True),
+                launches=read_counts(f"long one device {dtype_name} {case}",
+                                     ("flash_attention",),
+                                     allowed=CUDA_CORE_COUNTERS))
+            feeds[dtype_name][case] = toks
+            del caches
+            # control: the same decode, fed the same tokens, with K3's keys
+            # split over half the cluster CTAs (another merge order)
+            real_split = FA.split_count
+            FA.split_count = lambda *a: max(1, real_split(*a) // 2)
+            try:
+                ctrl, ctrl_toks, _, _, caches = long_decode(
+                    cfg, params, long_caches(cfg, length), None, length,
+                    toks)
+            finally:
+                FA.split_count = real_split
+            if ctrl_toks != toks:
+                fail(f"long {ZAMBA} {dtype_name} {case}: the one-device "
+                     f"control's tokens {ctrl_toks} part from one device's "
+                     f"{toks}")
+            control[(dtype_name, case)] = ctrl
+            del caches
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_long_") as work:
+        ranks = spawn(long_rank, LONG_WORLD, (str(ROOT), feeds),
+                      workdir=work, timeout_s=TP_RANKS_TIMEOUT_S,
+                      collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t1
+    res["cases"] = {}
+    problems = []                  # every case is printed before a failure
+    for (dtype_name, case), ref in one.items():
+        atol, rtol = GEMM_TOLS[dtype_name]
+        cfg = long_config(dtype_name)
+        d = DR.run_step(cfg, "decode", 1, LONG_SEQ,
+                        mesh=Mesh.abstract((LONG_WORLD, 1), ("data", "model")),
+                        shape_name="long_500k")
+        row = {"one_device": {k: v for k, v in ref.items()
+                              if k != "logits"}, "ranks": []}
+        for r, rk in enumerate(ranks):
+            got = rk[(dtype_name, case)]
+            tag = f"long {ZAMBA} {dtype_name} {case} rank {r}"
+            diff = (got["logits"] - ref["logits"]).abs()
+            ok = diff <= atol + rtol * ref["logits"].abs()
+            cdiff = (control[(dtype_name, case)] - ref["logits"]).abs()
+            c_ok = cdiff <= atol + rtol * ref["logits"].abs()
+            parted = [i for i, (a, b) in enumerate(zip(got["tokens"],
+                                                       ref["tokens"]))
+                      if a != b]
+            if dtype_name == "float32" and not bool(ok.all()):
+                problems.append(
+                    f"{tag}: logits max |d| {float(diff.max()):.3e} from "
+                    f"one device's exceed atol={atol} rtol={rtol}")
+            fault = {}
+            if dtype_name == "bfloat16":
+                over = long_bf16_over(diff, cdiff, ok)
+                if over:
+                    problems.append(
+                        f"{tag}: logits max |d| by step "
+                        f"{diff.amax(dim=1).tolist()} from one device's "
+                        f"fail the bf16 gate at steps {over} (step 0 within"
+                        f" GEMM_TOLS, later {LONG_CONTROL_FACTOR} x the "
+                        f"one-device control's {cdiff.amax(dim=1).tolist()})")
+                fdiff = (rk[(dtype_name, case, "fault")]
+                         - ref["logits"]).abs()
+                f_ok = fdiff <= atol + rtol * ref["logits"].abs()
+                fault = dict(max_abs_diff_by_step=fdiff.amax(dim=1).tolist(),
+                             outside_tols=(~f_ok).sum(dim=1).tolist(),
+                             failing_steps=long_bf16_over(fdiff, cdiff, f_ok))
+                if not fault["failing_steps"]:
+                    problems.append(
+                        f"{tag}: the planted fault (an equal-weight merge) "
+                        f"passes the bf16 gate: {fault}")
+            if dtype_name == "float32" and parted:
+                problems.append(
+                    f"{tag}: greedy tokens {got['tokens']} part from one "
+                    f"device's {ref['tokens']}")
+            if 2 * got["kv_bytes_real"] != ref["kv_bytes_real"]:
+                problems.append(
+                    f"{tag}: K/V columns {got['kv_bytes_real']} B are not "
+                    f"half of one device's {ref['kv_bytes_real']} B")
+            c = got["collectives"]
+            if d["collectives_by_axes"] != c["by_axes"] \
+                    or d["collective_counts"] != c["calls"]:
+                problems.append(
+                    f"{tag}: a step's collectives {c} differ from the dry "
+                    f"run's ({d['collective_counts']}, "
+                    f"{d['collectives_by_axes']})")
+            check_counts(tag, got["launches"], ("matrixflow_gemm",
+                                                 "flash_attention",
+                                                 "flash_attention_lse"),
+                         allowed=CUDA_CORE_COUNTERS)
+            row["ranks"].append(dict(
+                {k: v for k, v in got.items() if k != "logits"},
+                logits_max_abs_diff=float(diff.max()), parted_steps=parted,
+                logits_max_abs_diff_by_step=diff.amax(dim=1).tolist(),
+                outside_tols=int((~ok).sum()),
+                control_max_abs_diff_by_step=cdiff.amax(dim=1).tolist(),
+                control_outside_tols=int((~c_ok).sum()),
+                equal_weight_merge_fault=fault))
+            log(f"{tag}: logits max |d| by step {diff.amax(dim=1).tolist()} "
+                f"({(~ok).sum(dim=1).tolist()} of {ok.shape[1]} outside "
+                f"GEMM_TOLS; one-device control "
+                f"{cdiff.amax(dim=1).tolist()}, {(~c_ok).sum(dim=1).tolist()}"
+                f" outside; max |logit| "
+                f"{ref['logits'].abs().amax(dim=1).tolist()}), tokens "
+                f"{got['tokens']} (one device {ref['tokens']}; parted at "
+                f"{parted}), K/V {got['kv_bytes']} B (one device "
+                f"{ref['kv_bytes']} B), offsets {got['offsets']}, lens "
+                f"{got['lens']}, planted equal-weight merge {fault}, "
+                f"step {statistics.median(got['step_ms']):.1f}"
+                f" ms (one device {statistics.median(ref['step_ms']):.1f}), "
+                f"collectives a step {c['by_axes']} (dry run "
+                f"{d['collectives_by_axes']})")
+        res["cases"][f"{dtype_name} {case}"] = row
+    if problems:
+        fail("; ".join(problems))
+    lint = ranks[0]["lint"]
+    if lint:
+        fail(f"long decode (rank 0, live): lint findings {lint}")
+    res["lint_findings"] = lint
+    res["launches"] = {f"{n} {case} rank {r}": rk[(n, case)]["launches"]
+                       for r, rk in enumerate(ranks)
+                       for n, case in one}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"long: phase {res['seconds']:.1f} s ((a) {t_a:.1f} s, ranks "
+        f"{t_ranks:.1f} s); lint on rank 0 live: {lint or 'no findings'}")
+    return res
+
+
 def slice_paths(report) -> dict:
     """The launch counts of phases 20, 22, 23, 24, 26, 27, 28 and 29's
     paths, by path. Of the slice entries of the kernels line
@@ -5371,6 +5990,8 @@ def slice_paths(report) -> dict:
     if "analysis" in report:
         out["analysis lint live"] = report["analysis"]["lint_launches"]
         out["analysis ops facade"] = report["analysis"]["facade_launches"]
+    for name, c in report.get("long", {}).get("launches", {}).items():
+        out[f"long {ZAMBA} {name} decode"] = c
     return out
 
 
@@ -5427,6 +6048,13 @@ def slice_entries(report) -> list:
                   [r for r in report["mixed_kernels"] if r["kernel"] == kern],
                   "float32 q, bfloat16 KV", "decode step", ("prefill",),
                   prefix="mixed dtypes")
+    if "long" in report:          # K3 with its log-sum-exp (phase 30)
+        entry("flash_attention_lse", "flash_attention_lse",
+              "flash_attention", "src/repro/kernels/flash_attention.py:199",
+              report["long"]["kernels"], "bfloat16", "split, a rank",
+              ("split, one device", "rows, prefill 64"), prefix="long ")
+        out[-1]["float32"] = aggregate(report["long"]["kernels"], "float32",
+                                       "cuda cores")
     if "tp_kernels" in report:
         tk, tp = report["tp_kernels"], f"tp{TP_WORLD} "
         rank = tp_rank_config().name
@@ -5548,6 +6176,15 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
+    if sys.argv[1:2] == ["--long"]:           # phase 30 alone
+        report["long"] = run_long_phase()
+        (OUT_DIR / "chip_smoke_long.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        print(json.dumps({"kernels": slice_entries(report)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     if sys.argv[1:2] == ["--analysis"]:       # phase 29 alone
         report["analysis"] = run_analysis_phase()
         (OUT_DIR / "chip_smoke_analysis.json").write_text(
@@ -5664,7 +6301,10 @@ def main() -> None:
     report["roofline"] = run_roofline_phase(report)
     begin("analysis")
     report["analysis"] = run_analysis_phase()
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    begin("long")
+    report["long"] = run_long_phase()
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
+                                                        default=str))
 
     by_path = {"paged serving": report["serving"]["launches"],
                **{f"{n} forward": report["encoders"][n]["launches"]

@@ -278,9 +278,12 @@ def probe_attention(name: str, kernel: str, cell: Dict,
         route = FA.route_for(q.dtype, Sq, rep, k.dtype)
         splits = FA.split_count(B, Hkv, Sk) if route == "split" else 0
         qp, kl = FA._resolve(qpos, kvl, B, Sq, Sk, q.device)
+        lse = _poisoned((B, Sq, H), torch.float32) if cell.get("lse") \
+            else None
         lib = FA._lib()
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-                kl.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv,
+                kl.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, Sq, Sk, H, Hkv,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale, 0.0,
                 int(causal), s)
         if route in ("rows", "split"):
@@ -289,10 +292,50 @@ def probe_attention(name: str, kernel: str, cell: Dict,
             err = lib.flash_attention(FA._KV_CODES[k.dtype], D, Dv, *args)
         _launched(err, lib.fa_error_string, f"{name} ({route})")
         want = FA.flash_attention_plain(q, k, v, qp, kl, causal=causal,
-                                        scale=scale, soft_cap=None)
+                                        scale=scale, soft_cap=None,
+                                        return_lse=lse is not None)
+        if lse is not None:
+            want, want_lse = want
+            e = check_lse(f"{name} lse", lse, want_lse,
+                          lse_mask(contract, route, splits, B, Sq, H, Hkv,
+                                   Dv), *ATTN_TOLS[_name(q.dtype)])
+            return route, max(e, check_written(
+                name, out, want, row_mask(contract, B, Sq, H, Hkv, Dv),
+                *ATTN_TOLS[_name(q.dtype)]))
     return route, check_written(name, out, want,
                                 row_mask(contract, B, Sq, H, Hkv, Dv),
                                 *ATTN_TOLS[_name(q.dtype)])
+
+
+def lse_mask(contract, route: str, splits: int, B: int, Sq: int, H: int,
+             Hkv: int, Dv: int) -> torch.Tensor:
+    """The (B, Sq, H) log-sum-exps K3's contract marks written: the rows
+    of each written ``lse`` segment (``flash_attention.lse_segment_rows``)."""
+    from repro_torch.kernels import flash_attention as FA
+    rep = H // Hkv
+    T = next(o for o in contract.operands if o.name == "o").block_shape[2]
+    mask = torch.zeros((B, Sq, H), dtype=torch.bool)
+    for b, g, t, z in touched_blocks(contract, "lse"):
+        for r in FA.lse_segment_rows(route, z, splits, Dv, T):
+            if t * T + r < Sq * rep:
+                s, h = (t * T + r) // rep, g * rep + (t * T + r) % rep
+                mask[b, s, h] = True
+    return mask.cuda()
+
+
+def check_lse(name: str, got: torch.Tensor, want: torch.Tensor,
+              mask: torch.Tensor, atol: float, rtol: float) -> float:
+    """:func:`check_written` for log-sum-exps, whose rows that see no key
+    hold -inf: those must be -inf on both sides."""
+    dead = torch.isneginf(want)
+    if bool((mask & dead & ~torch.isneginf(got)).any()):
+        raise ProbeError(f"{name}: a row that sees no key got a finite "
+                         f"log-sum-exp")
+    live = mask & ~dead
+    if not bool(live.any()):
+        return 0.0
+    return check_written(name, got.where(~torch.isneginf(got), float("nan")),
+                         want, live, atol, rtol)
 
 
 # ---------------------------------------------------------------------------

@@ -364,6 +364,58 @@ def sweep_configs(archs: Optional[Sequence[str]] = None,
     return entries
 
 
+# K3 with its log-sum-exp at a rank's shape of a cut cache: the cell whose
+# rules cut a KV cache's sequence (zamba2-2.7b at long_500k on the 16 x 16
+# mesh: 2 of its 32 heads a rank, 32,768 of 524,288 keys), on each route:
+# the decode step (split), a 64-row prefill chunk (rows) and fp32 (the CUDA
+# cores).
+LSE_ARCH, LSE_SHAPE, LSE_PREFILL = "zamba2-2.7b", "long_500k", 64
+
+
+def lse_rank_shape(arch: str = LSE_ARCH, shape_name: str = LSE_SHAPE):
+    """(B, H, Hkv, D, keys) a rank of the production mesh attends with
+    over its cut of the cell's KV caches (``tp.seq_cut``,
+    ``tp.head_sharding``, the cell's rules)."""
+    from repro_torch.configs.registry import SHAPES, get_config
+    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import Mesh, production_mesh_shape
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    ctx = ST.serve_context(cfg, Mesh.abstract(*production_mesh_shape()),
+                           shape)
+    cut = TP.seq_cut(ctx, "k", (shape.batch, shape.seq, cfg.n_kv_heads,
+                                cfg.head_dim))
+    _, shard_kv = TP.head_sharding(ctx, cfg.n_heads, cfg.n_kv_heads)
+    mp = ctx.model_size if shard_kv else 1
+    return (shape.batch, cfg.n_heads // mp, cfg.n_kv_heads // mp,
+            cfg.head_dim, cut.cols if cut is not None else shape.seq)
+
+
+def sweep_lse(device: str = "cuda") -> List[SweepEntry]:
+    """Contract-check K3 with its log-sum-exp output at
+    :func:`lse_rank_shape` on each route."""
+    import torch
+    flash = get_contract_builder("flash_attention")
+    B, H, Hkv, D, keys = lse_rank_shape()
+    entries = []
+    for tag, Sq, dt in (("decode", 1, torch.bfloat16),
+                        (f"prefill {LSE_PREFILL}", LSE_PREFILL,
+                         torch.bfloat16),
+                        ("decode fp32", 1, torch.float32)):
+        if not _card(device) and dt != torch.float32:
+            continue
+        cell = dict(B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=keys, D=D, Dv=D,
+                    block_q=128, block_k=128, device=device, dtype=dt,
+                    lse=True)
+        entries.append(_entry(
+            "flash_attention",
+            f"lse {LSE_ARCH} {LSE_SHAPE} rank {tag} H={H} Hkv={Hkv} D={D} "
+            f"keys={keys}", flash(**cell),
+            attention_route("flash_attention", dt, Sq, H // Hkv, dt, device),
+            cell))
+    return entries
+
+
 def count_by_route(entries: Sequence[SweepEntry]) -> Dict[str, int]:
     """Contract instances by kernel and route ("kernel/route")."""
     return dict(sorted(Counter(
@@ -381,6 +433,7 @@ def run_sweep(*, gemm_backends: Optional[Sequence[str]] = None,
     entries += sweep_attention(device=device)
     if include_configs:
         entries += sweep_configs(device=device)
+        entries += sweep_lse(device=device)
     n_bad = 0
     for e in entries:
         status = "OK " if e.ok else "FAIL"

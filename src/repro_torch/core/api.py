@@ -45,15 +45,28 @@ trains on its own kernel, as the reference's ``blockflow`` backend trains
 through its plain Algorithm 1. A batched rhs (..., K, N) runs as one
 batched launch (the reference's ``vmap``). A packed weight under autograd
 raises: its blocks are not a parameter.
+
+Saved products (``remat_policy="dots"``, the reference's
+``jax.checkpoint_policies.checkpoint_dots``): while a :class:`SavedDots`
+record is active (:func:`saving_dots`, inside a remat block's function)
+the block's first run keeps every product's output, and its recompute in
+the backward gets them back in order instead of computing them again: K1's
+autograd Function through :meth:`SavedDots.product`, and the aten products
+(``mm``, ``bmm``) of the ``torch`` backend, the unfused attention's
+einsums and the MoE banks through :func:`saved_products`. The recomputed
+graph still saves its operands, so the backward runs as under a full
+recompute.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 import warnings
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import layout as L
 from repro_torch.core import plan as P
@@ -76,6 +89,7 @@ __all__ = [
     "matmul", "linear", "attention", "use_policy", "current_policy",
     "use_attention_policy", "current_attention_policy", "prefers_einsum",
     "resolved_backend", "resolved_attention_backend",
+    "SavedDots", "saving_dots", "saved_products",
 ]
 
 _state = threading.local()
@@ -132,6 +146,110 @@ def resolved_attention_backend(device,
     paged)."""
     return (policy or current_attention_policy()).resolved_backend(
         device, pageable=pageable)
+
+
+# ---------------------------------------------------------------------------
+# Saved products (remat_policy="dots")
+# ---------------------------------------------------------------------------
+
+class SavedDots:
+    """The product outputs of one remat block, kept from its first run
+    for its recompute (``remat_policy="dots"``).
+
+    The first run under :func:`saving_dots` records each product's output
+    in call order; a later run replays them from the first, each checked
+    against the shape and dtype the recompute asks for (a mismatch raises:
+    nothing is computed in its place), and frees them when it ends (the
+    recompute may stop early, once every saved tensor is back)."""
+
+    def __init__(self):
+        self._outs = []
+        self._next: Optional[int] = None     # None: the first run records
+        self._recorded = False
+
+    def _start(self) -> None:
+        if self._recorded:
+            self._next = 0
+
+    def _stop(self) -> None:
+        if self._next is None:
+            self._recorded = True
+        else:
+            self._outs, self._next = [], None
+
+    def product(self, shape, dtype: torch.dtype,
+                compute: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """``compute()``'s output (shape ``shape``, dtype ``dtype``),
+        recorded on the first run; on a replay, the recorded one."""
+        if self._next is None:
+            out = compute()
+            self._outs.append(out.detach())
+            return out
+        if self._next >= len(self._outs):
+            raise RuntimeError(
+                f"remat_policy='dots': the recompute asks for product "
+                f"{self._next}, the forward saved {len(self._outs)}")
+        out = self._outs[self._next]
+        if tuple(out.shape) != tuple(shape) or out.dtype != dtype:
+            raise RuntimeError(
+                f"remat_policy='dots': product {self._next} was saved as "
+                f"{tuple(out.shape)} {out.dtype}; the recompute asks for "
+                f"{tuple(shape)} {dtype}")
+        self._next += 1
+        return out.detach()
+
+
+def active_dots() -> Optional[SavedDots]:
+    """The record of the remat block running on this thread, if any."""
+    return getattr(_state, "dots", None)
+
+
+@contextlib.contextmanager
+def saving_dots(record: Optional[SavedDots]):
+    """Run the enclosed block's products through ``record`` (None: no
+    record; the products compute). Entered inside the block's function,
+    so it holds on whichever thread runs the recompute."""
+    prev = active_dots()
+    _state.dots = record
+    if record is not None:
+        record._start()
+    try:
+        yield record
+    finally:
+        if record is not None:
+            record._stop()
+        _state.dots = prev
+
+
+_ATEN_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.bmm)
+
+
+class _SavedProductsMode(TorchDispatchMode):
+    """``mm`` and ``bmm`` through the active :class:`SavedDots`; every
+    other op as it is."""
+
+    def __init__(self, record: SavedDots):
+        super().__init__()
+        self.record = record
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.overloadpacket not in _ATEN_PRODUCTS:
+            return func(*args, **kwargs)
+        a, b = args[0], args[1]
+        return self.record.product((*a.shape[:-1], b.shape[-1]), a.dtype,
+                                   lambda: func(*args, **kwargs))
+
+
+def saved_products():
+    """A context in which the aten products of a call (an einsum, the
+    ``torch`` backend's matmul) go through the active :class:`SavedDots`;
+    nothing when no record is active. The products' autograd nodes are
+    made as without it, so their backward is unchanged."""
+    record = active_dots()
+    if record is None:
+        return contextlib.nullcontext()
+    return _SavedProductsMode(record)
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +344,11 @@ class _BlockMajorMatmul(torch.autograd.Function):
     def forward(ctx, a, b, pol, out_dtype):
         ctx.save_for_backward(a, b)
         ctx.pol = pol
-        return _block_major(a, b, pol, out_dtype)
+        dots = active_dots()
+        if dots is None:
+            return _block_major(a, b, pol, out_dtype)
+        return dots.product((*a.shape[:-1], b.shape[-1]), out_dtype,
+                            lambda: _block_major(a, b, pol, out_dtype))
 
     @staticmethod
     def backward(ctx, dc):
@@ -284,8 +406,9 @@ def matmul(a: torch.Tensor, b: Union[torch.Tensor, PackedWeight], *,
     K = a.shape[-1]
     if spec.batched and not packed:
         M = a.numel() // K if a.dim() > 1 else 1
-        return spec.fn(a, b, plan(M, b.shape[-1], K, a.dtype, pol, a.device),
-                       out_dtype)
+        with saved_products():
+            return spec.fn(a, b, plan(M, b.shape[-1], K, a.dtype, pol,
+                                      a.device), out_dtype)
     if packed and needs_grad(a):
         raise ValueError(
             f"a {type(b).__name__} under autograd on GEMM backend "
@@ -360,14 +483,17 @@ def prefers_einsum(device, policy: Optional[GemmPolicy] = None) -> bool:
 
 
 def _unfused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
-                       soft_cap, block_tables=None, kv_scales=None):
+                       soft_cap, block_tables=None, kv_scales=None,
+                       return_lse=False):
     """The reference's einsum + host-softmax baseline (the paper's §4.4
     split: GEMMs on the accelerator, softmax on the host), differentiable.
     GQA by repeating each kv head over its group; the score and value
     contractions follow the ambient GEMM policy: einsum (fp32 scores) on a
     batched backend, else the batched block-major GEMM over the (B, Hkv,
     rep) problems, scores in fp32. Probabilities are rounded to v's dtype
-    before P·V, whose result is v's dtype. Fully masked rows are zeros."""
+    before P·V, whose result is v's dtype. Fully masked rows are zeros.
+    ``return_lse`` also returns each row's log-sum-exp of its visible
+    scores (B, Sq, H) fp32, -inf where it sees none."""
     _reject_paged("unfused", block_tables, kv_scales)
     B, Sq, H, Dk = q.shape
     T, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -375,7 +501,8 @@ def _unfused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
     qg = q.reshape(B, Sq, Hkv, rep, Dk)
     einsum = prefers_einsum(q.device)
     if einsum:
-        logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k.float())
+        with saved_products():
+            logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k.float())
     else:  # fold (B, Hkv, rep) into one batch of problems
         qm = qg.permute(0, 2, 3, 1, 4).reshape(B * H, Sq, Dk)
         km = (k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
@@ -391,35 +518,48 @@ def _unfused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
         valid = valid & (kv_pos <= q_positions[:, :, None])     # (B, Sq, T)
     valid = valid.expand(B, Sq, T)[:, None, None]         # (B, 1, 1, Sq, T)
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    lse = None
+    if return_lse:                    # (B, Hkv, rep, Sq) -> (B, Sq, H)
+        lse = torch.where(valid.any(dim=-1), torch.logsumexp(logits, dim=-1),
+                          torch.full_like(logits[..., 0], -math.inf))
+        lse = lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
     probs = torch.softmax(logits, dim=-1)                 # host-side op
     probs = torch.where(valid, probs, torch.zeros_like(probs))
     if einsum:
-        out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(v.dtype), v)
+        with saved_products():
+            out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(v.dtype), v)
     else:
         pm = probs.reshape(B * H, Sq, T).to(v.dtype)
         vm = (v.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
               .reshape(B * H, T, Dv))
         out = matmul(pm, vm).reshape(B, Hkv, rep, Sq, Dv).permute(0, 3, 1, 2,
                                                                   4)
-    return out.reshape(B, Sq, H, Dv)
+    out = out.reshape(B, Sq, H, Dv)
+    return (out, lse) if return_lse else out
 
 
 def _fused_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
-                     soft_cap, block_tables=None, kv_scales=None):
+                     soft_cap, block_tables=None, kv_scales=None,
+                     return_lse=False):
     _reject_paged("fused", block_tables, kv_scales)
     return FA.flash_attention(q, k, v, q_positions, kv_valid_len,
-                              causal=causal, scale=scale, soft_cap=soft_cap)
+                              causal=causal, scale=scale, soft_cap=soft_cap,
+                              return_lse=return_lse)
 
 
 def _paged_attention(q, k, v, *, q_positions, kv_valid_len, causal, scale,
-                     soft_cap, block_tables=None, kv_scales=None):
+                     soft_cap, block_tables=None, kv_scales=None,
+                     return_lse=False):
     if block_tables is None:       # dense operands: the flash kernel
         if kv_scales is not None:
             raise ValueError("kv_scales belong to int8 page pools; dense "
                              "operands have no pages (pass block_tables)")
         return FA.flash_attention(q, k, v, q_positions, kv_valid_len,
                                   causal=causal, scale=scale,
-                                  soft_cap=soft_cap)
+                                  soft_cap=soft_cap, return_lse=return_lse)
+    if return_lse:
+        raise ValueError("page pools return no log-sum-exp: they are never "
+                         "cut over the sequence")
     return PA.paged_attention(q, k, v, block_tables, q_positions,
                               kv_valid_len, kv_scales=kv_scales,
                               causal=causal, scale=scale, soft_cap=soft_cap)
@@ -436,7 +576,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               soft_cap: Optional[float] = None,
               block_tables: Optional[torch.Tensor] = None,
               kv_scales=None,
-              policy: Optional[AttentionPolicy] = None) -> torch.Tensor:
+              policy: Optional[AttentionPolicy] = None,
+              return_lse: bool = False):
     """Scaled-dot-product attention through the active AttentionPolicy.
 
     q (B, Sq, H, Dk); dense k/v (B, T, Hkv, D) or, with ``block_tables``
@@ -444,16 +585,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     visible to query i iff ``j < kv_valid_len[b]`` and, when causal,
     ``j <= q_positions[b, i]``; rows with no visible key are zeros. int8
     pools carry ``kv_scales=(k_scales, v_scales)``, fp32 (P, Hkv) each;
-    only the ``paged`` backend takes them.
+    only the ``paged`` backend takes them. ``return_lse`` (dense K/V
+    only) returns (out, lse): lse (B, Sq, H) fp32, each row's log-sum-exp
+    of its visible scores, -inf where it sees none.
     """
     pol = policy if policy is not None else current_attention_policy()
     spec = P.get_attention_backend_spec(pol.resolved_backend(q.device))
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    extra = dict(return_lse=True) if return_lse else {}
     return spec.fn(q, k, v, q_positions=q_positions,
                    kv_valid_len=kv_valid_len, causal=causal, scale=scale,
                    soft_cap=soft_cap, block_tables=block_tables,
-                   kv_scales=kv_scales)
+                   kv_scales=kv_scales, **extra)
 
 
 # ---------------------------------------------------------------------------

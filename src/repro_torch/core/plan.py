@@ -173,7 +173,8 @@ class ShardingPolicy:
     (``launch/mesh.py``; consumed by ``distributed/tp.py``).
 
     data_axis    mesh axis for data parallelism (the batch dim; serving
-                 keeps weights and caches whole along it).
+                 keeps weights whole along it, and caches but where the
+                 cache rules cut a KV cache's sequence: ``act_kv_seq``).
     model_axis   mesh axis for tensor parallelism: QKV/up projections
                  column-parallel, out/down projections row-parallel with an
                  all-reduce on the contraction, attention and KV-pool heads

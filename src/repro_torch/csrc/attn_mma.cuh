@@ -88,6 +88,15 @@
 // lo = bf16(p' - hi), and P.V runs two mma a k16 step, which carries p' to
 // 2^-18 relative (the product with an int8 V is exact).
 //
+// Log-sum-exp (K3 only, Params::lse not null): each row's m + log(l) over
+// its visible keys, fp32, -inf for a row that sees none; what a caller
+// needs to merge partial attentions over disjoint key ranges (a KV cache
+// cut over the sequence, models/layers.py). Written once a row: on the
+// rows route by the quad lane tq == 0 that holds it; on the split route
+// by thread `row` of the CTA (nz = 1) or, in the cluster merge, by the
+// rank whose share of the (16, Dv) tile holds the row's first element.
+// A null pointer leaves every route as it was (K4 and K5 pass none).
+//
 // Page pools: a row's result must not depend on the route. A request that
 // is preempted is re-prefilled (rows) over keys it decoded (split), and its
 // stream stays identical to a solo run's, and a prefix-cache hit's to a
@@ -170,7 +179,14 @@ struct Params {
   float scale, soft_cap;          // soft_cap <= 0: none
   int causal;
   int splits;                     // split route: CTAs of a cluster sharing a row tile
+  float* lse;                     // (B, Sq, H) fp32, contiguous: each row's m + log(l)
+                                  // (-inf: no visible key); null: not written (K4, K5)
 };
+
+// A row's log-sum-exp from its running max m and sum l of exp(s - m).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __uint_as_float(0xff800000u);  // -inf
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -577,16 +593,18 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
   for (int i = 0; i < 2; ++i) lsum[i] = quad_sum(lsum[i]);
 
   // fragment (j, e) of acc: row a (e < 2) or b, dim 8 j + 2 tq + e % 2
-  auto out_row = [&](int r) {
+  auto row_index = [&](int r) {               // (b, s, h) of the row, flat
     const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
-    return p.out + ((static_cast<long long>(b) * p.Sq + s) * p.H + h) * Dv;
+    return (static_cast<long long>(b) * p.Sq + s) * p.H + h;
   };
+  auto out_row = [&](int r) { return p.out + row_index(r) * Dv; };
   if (!kTile) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (!(i ? ok_b : ok_a)) continue;
       // one division a row (a row with no key: acc = 0, so 0 * 1e30 = 0)
       const float inv = 1.f / fmaxf(lsum[i], 1e-30f);
+      if (p.lse && tq == 0) p.lse[row_index(r0 + gq + 8 * i)] = row_lse(m[i], lsum[i]);
       bf16* o = out_row(r0 + gq + 8 * i) + 2 * tq;
 #pragma unroll
       for (int j = 0; j < Dv / 8; ++j)
@@ -632,6 +650,7 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
     cta_m[tid] = mc;
     cta_l[tid] = lc;
     cta_inv[tid] = 1.f / fmaxf(lc, 1e-30f);
+    if (nz == 1 && p.lse && tid < n_rows) p.lse[row_index(tid)] = row_lse(mc, lc);
   }
   __syncthreads();
   for (int e = tid; e < 16 * Dv; e += kThreads) {
@@ -663,6 +682,8 @@ __device__ __forceinline__ void attend(const Params& p, Src& src, uint8_t* smem)
       lc += cluster.map_shared_rank(cta_l, u)[r] * wu;
     }
     out_row(r)[e % Dv] = __float2bfloat16(a / fmaxf(lc, 1e-30f));
+    // the row's lse: by the rank whose share holds the row's first element
+    if (p.lse && e % Dv == 0) p.lse[row_index(r)] = row_lse(mc, lc);
   }
   cluster.sync();                               // no rank leaves while another still reads it
 }

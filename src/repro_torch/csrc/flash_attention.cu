@@ -9,7 +9,10 @@
 //   contiguous); out (B, Sq, H, Dv). Dv = D but for MLA (deepseek-v2: D
 //   192 = 128 nope + 64 rope dims, Dv 128, v a strided view of the
 //   up-projection);
-//   q_positions (B, Sq) int32 (-1 = masked row); kv_valid_len (B,) int32.
+//   q_positions (B, Sq) int32 (-1 = masked row); kv_valid_len (B,) int32;
+//   lse (B, Sq, H) fp32 or null: each row's log-sum-exp m + log(l) of its
+//   visible scores, -inf where it sees none (what merges partial
+//   attentions over a KV cache cut over the sequence; attn_mma.cuh).
 //   Key col is visible to query row i iff col < min(kv_valid_len[b], Sk)
 //   and, when causal, col <= q_positions[b, i]. fp32 scores s = q.k * scale
 //   (soft-capped as cap * tanh(s / cap) when cap > 0), fp32 running max and
@@ -169,7 +172,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                   const KV* __restrict__ v, const int* __restrict__ q_positions,
                   const int* __restrict__ kv_valid_len, T* __restrict__ out,
-                  int Sq, int Sk, int H, int Hkv, Strides qst, Strides kst,
+                  float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                  Strides qst, Strides kst,
                   Strides vst, float scale, float soft_cap, int causal) {
   static_assert(D % 4 == 0 && D <= 192 && Dv % 4 == 0 && Dv <= 128,
                 "head dims: multiples of 4, q/k up to 192, v up to 128");
@@ -312,7 +316,10 @@ flash_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     if (r >= n_rows) continue;
     const int s = (row0 + r) / rep, h = g * rep + (row0 + r) % rep;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<long long>(b) * Sq + s) * H + h) * Dv;
+    const long long row = (static_cast<long long>(b) * Sq + s) * H + h;
+    // m[i] and l[i] are the same in every lane (warp_max, warp_sum)
+    if (lse && lane == 0) lse[row] = am::row_lse(m[i], l[i]);
+    T* o = out + row * Dv;
 #pragma unroll
     for (int u = 0; u < kDPerLane; ++u) {
       const int d = lane + 32 * u;
@@ -323,7 +330,7 @@ flash_attn_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
 template <typename T, typename KV, int D, int Dv>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
-                   const int* kvlen, void* out, int B, int Sq, int Sk, int H,
+                   const int* kvlen, void* out, float* lse, int B, int Sq, int Sk, int H,
                    int Hkv, Strides qs, Strides ks, Strides vs, float scale,
                    float soft_cap, int causal, cudaStream_t stream) {
   constexpr int smem = FpSmem<D, Dv>::kBytes;
@@ -333,7 +340,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
   const dim3 grid((Sq * (H / Hkv) + kMaxRows - 1) / kMaxRows, Hkv, B);
   flash_attn_kernel<T, KV, D, Dv><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-      qpos, kvlen, static_cast<T*>(out), Sq, Sk, H, Hkv, qs, ks, vs, scale,
+      qpos, kvlen, static_cast<T*>(out), lse, Sq, Sk, H, Hkv, qs, ks, vs, scale,
       soft_cap, causal);
   return cudaGetLastError();
 }
@@ -386,12 +393,13 @@ cudaError_t launch_tc(const am::Params& p, const void* k, const void* v, int B, 
 // p.astype(v.dtype)); q and the output are fp32 either way.
 // (head_dim, v_head_dim): (64, 64), (80, 80), (128, 128) or MLA's
 // (192, 128). Strides are in elements; the output is a contiguous (B, Sq,
-// H, v_head_dim) tensor. H / Hkv must be an integer. soft_cap <= 0 means
-// none. Returns a cudaError_t; asynchronous on `stream`.
+// H, v_head_dim) tensor, lse a contiguous (B, Sq, H) fp32 one or null.
+// H / Hkv must be an integer. soft_cap <= 0 means none. Returns a
+// cudaError_t; asynchronous on `stream`.
 extern "C" int flash_attention(int kv_code, int head_dim, int v_head_dim, const void* q,
                                const void* k, const void* v,
                                const int* q_positions, const int* kv_valid_len,
-                               void* out, int B, int Sq, int Sk, int H, int Hkv,
+                               void* out, float* lse, int B, int Sq, int Sk, int H, int Hkv,
                                long long q_sb, long long q_ss, long long q_sh,
                                long long k_sb, long long k_ss, long long k_sh,
                                long long v_sb, long long v_ss, long long v_sh,
@@ -402,7 +410,7 @@ extern "C" int flash_attention(int kv_code, int head_dim, int v_head_dim, const 
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(KV, D, Dv)                                                           \
-  return launch<float, KV, D, Dv>(q, k, v, q_positions, kv_valid_len, out, B, Sq, Sk, H, \
+  return launch<float, KV, D, Dv>(q, k, v, q_positions, kv_valid_len, out, lse, B, Sq, Sk, H, \
                                   Hkv, qs, ks, vs, scale, soft_cap, causal, s)
 #define FA_DIMS(KV)                                                      \
   if (head_dim == 64 && v_head_dim == 64) FA_LAUNCH(KV, 64, 64);         \
@@ -421,12 +429,13 @@ extern "C" int flash_attention(int kv_code, int head_dim, int v_head_dim, const 
 // each m16 tile of rows of a (kv head, batch row). (head_dim, v_head_dim)
 // as for flash_attention; H / Hkv any integer. q_positions may be null (the
 // bottom-right default, s + Sk - Sq) and kv_valid_len null (Sk); a given
-// kv_valid_len is clamped to Sk here. Strides, output and return as for
-// flash_attention.
+// kv_valid_len is clamped to Sk here. Strides, output, lse and return as
+// for flash_attention.
 extern "C" int flash_attention_tc(int head_dim, int v_head_dim, int splits, const void* q,
                                   const void* k,
                                   const void* v, const int* q_positions,
-                                  const int* kv_valid_len, void* out, int B, int Sq, int Sk,
+                                  const int* kv_valid_len, void* out, float* lse, int B,
+                                  int Sq, int Sk,
                                   int H, int Hkv, long long q_sb, long long q_ss,
                                   long long q_sh, long long k_sb, long long k_ss,
                                   long long k_sh, long long v_sb, long long v_ss,
@@ -436,7 +445,7 @@ extern "C" int flash_attention_tc(int head_dim, int v_head_dim, int splits, cons
   if (Hkv < 1 || H % Hkv || splits < 0 || splits > am::kMaxSplits) return cudaErrorInvalidValue;
   const am::Params p{static_cast<const am::bf16*>(q), q_sb, q_ss, q_sh, q_positions,
                      kv_valid_len, static_cast<am::bf16*>(out), Sq, H, Hkv, Sk, Sk - Sq,
-                     scale, soft_cap, causal, splits};
+                     scale, soft_cap, causal, splits, lse};
   const Strides ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_TC(D, Dv)                                                       \

@@ -53,6 +53,37 @@ DEFAULT_RULES: Dict[str, MeshAxes] = {
 }
 
 
+# A cache leaf's logical axes by its name, right-aligned: the reference's
+# ``launch/steps.py::_CACHE_DIM_RULES``. ``act_kv_seq`` (the sequence of a
+# contiguous KV cache, or of MLA's latent cache) maps to no mesh axis by
+# default; the ``long_500k`` cells put it on ``data`` and the ``kvseq``
+# perf arm on ``model`` (``launch/steps.py::make_rules``).
+CACHE_DIM_RULES: Dict[str, Tuple[Optional[str], ...]] = {
+    "k": ("act_batch", "act_kv_seq", "act_kv_heads", None),
+    "v": ("act_batch", "act_kv_seq", "act_kv_heads", None),
+    "ckv": ("act_batch", "act_kv_seq", None),
+    "krope": ("act_batch", "act_kv_seq", None),
+    "len": ("act_batch",),
+    "x": ("act_batch", None, "act_mlp"),      # conv state
+    "B": ("act_batch", None, None),
+    "C": ("act_batch", None, None),
+    "state": ("act_batch", "act_heads", None, None),
+}
+
+
+def cache_spec(rules: "ShardingRules", name: Optional[str],
+               shape: Sequence[int]) -> Spec:
+    """The spec of cache leaf ``name`` of the reference's ``shape`` (a
+    contiguous cache's sequence without the port's sink column), right
+    aligned by :data:`CACHE_DIM_RULES`; leading dims replicate, and a
+    leaf with no rule replicates whole."""
+    dims = CACHE_DIM_RULES.get(name)
+    if dims is None:
+        return (None,) * len(shape)
+    pad = (None,) * (len(shape) - len(dims))
+    return rules.spec(pad + tuple(dims), tuple(shape))
+
+
 def mesh_sizes(mesh) -> Dict[str, int]:
     """{axis name: size} of any mesh with ``axis_names`` and ``shape`` (a
     mapping of name to size, or sizes in axis order)."""

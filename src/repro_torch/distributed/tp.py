@@ -17,7 +17,12 @@ collective itself:
     output (int32 for int8), an ``all_reduce`` over the model group sums
     the partials, and then comes the cast and the bias, added once.
   * **attention** runs on the rank's head slice; paged pools and int8
-    scales hold the rank's KV heads (:func:`head_sharding`).
+    scales hold the rank's KV heads (:func:`head_sharding`). A contiguous
+    KV cache whose sequence the cache rules cut (``act_kv_seq``: over
+    ``data`` for the ``long_500k`` cells) holds the rank's columns
+    (:func:`seq_cut`); attention runs K3 over them with its log-sum-exp
+    and merges the ranks' partials over that axis's group (one
+    ``all_gather``).
   * **experts** (training only): a rank holds its experts' slice of the
     MoE banks, runs them on its experts' slots of the dispatch buffer and
     sums its part of the combine over the model group
@@ -66,7 +71,7 @@ import torch.distributed as dist
 from repro_torch.core import api
 from repro_torch.core.plan import PackedWeight, QuantizedPackedWeight, \
     ShardingPolicy
-from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.distributed.sharding import ShardingRules, cache_spec
 from repro_torch.kernels.forward_only import needs_grad
 from repro_torch.launch.mesh import AbstractGroup
 from repro_torch.models.module import is_axis_leaf
@@ -76,6 +81,8 @@ __all__ = [
     "kv_group_slice", "take_kv_heads",
     "linear", "matmul", "attention", "embed", "conform_heads",
     "param_cut", "shard_params", "unshard_params", "shard_caches",
+    "SeqCut", "seq_cut", "seq_group", "latent_cut", "merge_partials",
+    "merge_stack",
     "head_units", "all_reduce",
     "all_reduce_max", "all_gather", "reduce_scatter", "broadcast", "gather",
     "on_slice", "to_ranks", "sum_over_ranks", "expert_slice",
@@ -714,8 +721,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               block_tables: Optional[torch.Tensor] = None,
               kv_scales=None,
               kv_slice: Optional[Tuple[int, int]] = None,
+              seq_offset: Optional[torch.Tensor] = None,
               policy=None) -> torch.Tensor:
-    """api.attention with heads sharded over the model axis.
+    """api.attention with heads sharded over the model axis and, with
+    ``seq_offset``, keys cut over the sequence.
 
     q is (B, Sq, H, D); k/v are dense (B, T, Hkv, D) or, with
     ``block_tables``, page pools (P, page_size, Hkv, D): the head dim is
@@ -727,6 +736,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     GQA layer whose KV heads stay replicated) q is the rank's query heads
     and k/v the KV heads of its groups. The output holds the rank's query
     heads when they shard, else all of them.
+
+    ``seq_offset`` (the 0-d ``seq_offset`` of a cache cut by
+    :func:`seq_cut`) says that k/v hold the rank's columns ``[offset,
+    offset + T/n)`` of the T, ``kv_valid_len`` and ``q_positions`` the
+    global ones: attention runs over the rank's columns with the local
+    valid length ``clamp(len - offset, 0, T/n)`` and positions ``q_pos -
+    offset`` (all on the device), returning its log-sum-exp, and the
+    ranks' partials are merged over the group of the axes that cut the
+    cache (:func:`seq_group`, :func:`merge_partials`).
     """
     ctx = current_tp()
     H, Hkv = heads
@@ -752,11 +770,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _local(s, -1, Hkv, ctx, "int8 pool scale")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return api.attention(q, k, v, q_positions=q_positions,
-                         kv_valid_len=kv_valid_len, causal=causal,
-                         scale=scale, soft_cap=soft_cap,
-                         block_tables=block_tables, kv_scales=kv_scales,
-                         policy=policy)
+    if seq_offset is None:
+        return api.attention(q, k, v, q_positions=q_positions,
+                             kv_valid_len=kv_valid_len, causal=causal,
+                             scale=scale, soft_cap=soft_cap,
+                             block_tables=block_tables, kv_scales=kv_scales,
+                             policy=policy)
+    if block_tables is not None:
+        raise ValueError("tp: page pools are never cut over the sequence")
+    cols = k.shape[1]
+    group = seq_group(ctx, (k.shape[0], cols, Hkv, k.shape[3]))
+    off = seq_offset.to(kv_valid_len.dtype)
+    local_len = torch.clamp(kv_valid_len - off, 0, cols)
+    local_pos = q_positions - seq_offset.to(q_positions.dtype)
+    out, lse = api.attention(q, k, v, q_positions=local_pos,
+                             kv_valid_len=local_len, causal=causal,
+                             scale=scale, soft_cap=soft_cap, policy=policy,
+                             return_lse=True)
+    return merge_partials(out, lse, group)
 
 
 # ---------------------------------------------------------------------------
@@ -859,31 +890,170 @@ def unshard_params(params, axes_tree, ctx: Optional[TPContext], *,
 
 _KV_LEAVES = ("k", "v", "kp", "vp")
 _KV_SCALE_LEAVES = ("k_scale", "v_scale")
+_LATENT_LEAVES = ("ckv", "krope")
+
+
+# ---------------------------------------------------------------------------
+# KV caches cut over the sequence (act_kv_seq)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SeqCut:
+    """A contiguous cache's sequence cut over mesh ``axes``: this rank,
+    ``index`` of ``n``, holds the columns ``[index * cols, (index + 1) *
+    cols)`` of the ``n * cols``, then a sink column of its own."""
+
+    axes: Tuple[str, ...]
+    index: int
+    n: int
+    cols: int
+
+    @property
+    def offset(self) -> int:
+        return self.index * self.cols
+
+
+def seq_group(ctx: Optional[TPContext], local: Sequence[int]):
+    """The group over which attention merges on a rank's cut of a cache:
+    that of the axes :func:`seq_cut` cut it over. ``local`` is the rank's
+    (B, columns, global KV heads, D); its global length is stated as one
+    every span of the mesh divides, so the axes are the cut's own."""
+    cut = None if ctx is None or ctx.mesh is None else seq_cut(
+        ctx, "k", (local[0], local[1] * ctx.mesh.size, *local[2:]))
+    if cut is None:
+        raise ValueError("tp: a KV cache cut over the sequence, but the "
+                         "active rules give its act_kv_seq no mesh axis "
+                         "of its own")
+    group = ctx.mesh.group(cut.axes)
+    if group is None:
+        raise ValueError(f"tp: the mesh has no group of axes {cut.axes}")
+    return group
+
+
+def seq_cut(ctx: Optional[TPContext], name: str, shape: Sequence[int]
+            ) -> Optional[SeqCut]:
+    """How the rank holds a contiguous cache leaf ``name`` ("k", "v", or
+    MLA's "ckv", "krope") of the reference's global ``shape`` (B, T, ...):
+    cut over the axes that ``steps.cache_shardings`` (``sharding.
+    cache_spec``) gives its ``act_kv_seq`` dim, else None (no context, no
+    axis, T not divisible, or the axis taken by the KV heads, which the
+    spec's duplicate-axis rule ranks first)."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    axes = cache_spec(ctx.rules, name, shape)[1]
+    if axes is None:
+        return None
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    index, n = ctx.mesh.span(axes)
+    if n == 1:
+        return None
+    return SeqCut(axes, index, n, shape[1] // n)
+
+
+def cut_sequence(t: torch.Tensor, cut: SeqCut) -> torch.Tensor:
+    """The rank's columns of a whole (B, T + 1, ...) cache leaf (the last
+    column the sink) and a sink column of its own, in a tensor of its
+    own."""
+    return torch.cat([t[:, cut.offset:cut.offset + cut.cols],
+                      t[:, -1:]], dim=1)
+
+
+def seq_offset_tensor(cut: SeqCut, device) -> torch.Tensor:
+    """A cut cache's ``seq_offset`` entry: the first global column it
+    holds, 0-d int32 on the cache's device (the cache update and attention
+    shift positions by it without reading it on the host)."""
+    return torch.tensor(cut.offset, dtype=torch.int32, device=device)
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, group
+                   ) -> torch.Tensor:
+    """The attention over every rank's keys from each rank's attention
+    over its own (``out`` (B, Sq, H, Dv), ``lse`` (B, Sq, H) fp32): one
+    ``all_gather`` of both, then in fp32 ``L = logsumexp_r lse_r`` and
+    ``o = Σ_r exp(lse_r - L) o_r`` in rank order, cast to ``out``'s dtype.
+    Every rank computes the same from the same gathered bits; a rank whose
+    rows see no key (lse = -inf) adds nothing, and a row no rank sees is
+    zeros."""
+    if _group_size(group) == 1:
+        return out
+    both = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    parts = all_gather(both, 0, group)                # (n, B, Sq, H, Dv + 1)
+    return merge_stack(parts[..., :-1], parts[..., -1]).to(out.dtype)
+
+
+def merge_stack(o_r: torch.Tensor, lse_r: torch.Tensor) -> torch.Tensor:
+    """The merge of :func:`merge_partials` over the leading dim of (n, B,
+    Sq, H, Dv) partial outputs and their (n, B, Sq, H) log-sum-exps, in
+    fp32."""
+    o_r, lse_r = o_r.float(), lse_r.float()
+    top = lse_r.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lse_r - top)                        # exp(-inf) = 0
+    total = w.sum(dim=0)
+    return (w[..., None] * o_r).sum(dim=0) / total.clamp(min=1e-30)[..., None]
 
 
 def shard_caches(caches, ctx: Optional[TPContext], *, shard_kv: bool):
-    """The rank's caches: K/V leaves (dense ``k``/``v`` or paged
-    ``kp``/``vp``) cut to the rank's KV heads (axis -2) when ``shard_kv``,
-    int8 pools' ``k_scale``/``v_scale`` on theirs (the last axis); lengths,
-    the MLA latent and SSM state stay whole. ``shard_kv`` must be the
-    :func:`head_sharding` decision for the model's (H, Hkv)."""
-    if not _active(ctx) or not shard_kv:
+    """The rank's caches, from whole ones: K/V leaves (dense ``k``/``v``
+    or paged ``kp``/``vp``) cut to the rank's KV heads (axis -2) when
+    ``shard_kv``, int8 pools' ``k_scale``/``v_scale`` on theirs (the last
+    axis); a contiguous cache's ``k``/``v`` also cut to the rank's columns
+    where :func:`seq_cut` cuts them (then the cache gains its
+    ``seq_offset``); lengths, the MLA latent and SSM state stay whole.
+    ``shard_kv`` must be the :func:`head_sharding` decision for the
+    model's (H, Hkv)."""
+    heads = _active(ctx) and shard_kv
+    if ctx is None:
         return caches
     mp, r = ctx.model_size, ctx.rank
+
+    def cut_node(node):
+        out = {}
+        cut = None
+        if "k" in node and "v" in node and node["k"].dim() == 4:
+            k = node["k"]
+            cut = seq_cut(ctx, "k", (k.shape[0], k.shape[1] - 1,
+                                     *k.shape[2:]))
+        widths = {n: node[n].shape[-1] for n in _LATENT_LEAVES if n in node}
+        if widths:
+            t = node[next(iter(widths))]
+            if latent_cut(ctx, t.shape[0], t.shape[1] - 1, widths):
+                raise NotImplementedError(latent_cut_message())
+        for key, val in node.items():
+            if isinstance(val, (dict, list)):
+                out[key] = rec(val)
+                continue
+            if cut is not None and key in ("k", "v"):
+                val = cut_sequence(val, cut)
+            if heads and key in _KV_LEAVES and val.dim() >= 4:
+                val = shard_dim(val, -2, r, mp)
+            elif heads and key in _KV_SCALE_LEAVES and val.dim() >= 2:
+                val = shard_dim(val, -1, r, mp)
+            out[key] = val
+        if cut is not None:
+            out["seq_offset"] = seq_offset_tensor(cut, node["k"].device)
+        return out
 
     def rec(node):
         if isinstance(node, list):
             return [rec(v) for v in node]
-        out = {}
-        for key, val in node.items():
-            if isinstance(val, (dict, list)):
-                out[key] = rec(val)
-            elif key in _KV_LEAVES and val.dim() >= 4:
-                out[key] = shard_dim(val, -2, r, mp)
-            elif key in _KV_SCALE_LEAVES and val.dim() >= 2:
-                out[key] = shard_dim(val, -1, r, mp)
-            else:
-                out[key] = val
-        return out
+        return cut_node(node)
 
     return rec(caches)
+
+
+def latent_cut(ctx: Optional[TPContext], batch: int, seq: int,
+               widths: Dict[str, int]) -> bool:
+    """Whether the rules of ``ctx`` cut MLA's latent cache over the
+    sequence: its leaves (``widths``: "ckv" and "krope" to their last
+    dims) at the reference's (batch, seq, width). The port keeps the
+    latent whole and refuses such a cut (:func:`latent_cut_message`)."""
+    return any(seq_cut(ctx, name, (batch, seq, w)) is not None
+               for name, w in widths.items())
+
+
+def latent_cut_message() -> str:
+    return ("MLA's latent cache (ckv, krope) cut over the sequence "
+            "(act_kv_seq) is not ported: every rank up-projects K and V "
+            "for its query heads from the whole latent (ROADMAP.md queue "
+            "1, item 13)")

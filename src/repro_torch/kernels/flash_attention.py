@@ -13,7 +13,8 @@ for CUDA tensors it launches the kernel or raises.
 
 On the card the kernel takes one of three routes (:func:`route_for`),
 each counted in ``flash_attention.launches_by_route``, their sum in
-``flash_attention.launches``:
+``flash_attention.launches`` (those with the log-sum-exp also in
+``flash_attention.lse_launches``):
 
   ``rows``        bf16, Sq > 1 and rows = Sq x rep > 16 (encoders, prefill
                   buckets, chunks): mma.sync on the tensor cores, 64 rows
@@ -36,6 +37,11 @@ Another CUDA dtype pair raises.
 Rows are flat on every route (query position x the heads sharing a kv
 head, in that order), so any GQA group fits: granite-20b's 48 query heads
 on one kv head make a decode row of three m16 tiles.
+
+``return_lse=True`` also returns each row's log-sum-exp ``m + log(l)``
+over its visible keys, (B, Sq, H) fp32 (-inf where a row sees no key),
+written by the kernel on every route: what merges the partial attentions
+of a KV cache cut over the sequence (``distributed/tp.py::attention``).
 
 :func:`route_for` and :func:`split_count` also pick the routes of the
 paged kernel's bf16 instances (``kernels/paged_attention.py``), which run
@@ -162,7 +168,8 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention.argtypes is None:
         vp, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                         ctypes.c_longlong)
-        common = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+        # q, k, v, q_positions, kv_valid_len, out, lse, then the shapes
+        common = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                   ll, ll, ll, ll, ll, ll, ll, ll, ll, f, f, i, vp]
         # head_dim, v_head_dim (and splits)
         lib.flash_attention.argtypes = [i, i, i, *common]
@@ -176,13 +183,15 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_plain(q, k, v, q_positions, kv_valid_len, *,
                           causal: bool, scale: float,
-                          soft_cap: Optional[float]) -> torch.Tensor:
+                          soft_cap: Optional[float],
+                          return_lse: bool = False):
     """The kernel's recurrence in PyTorch (the plain version).
 
     Arguments as :func:`flash_attention` after its defaults are resolved
     (``kv_valid_len`` clamped to Sk). Keys in blocks of BLOCK_K; fp32 online
     softmax, p zeroed where invalid, p rounded to v's dtype before P·V,
-    flush by max(l, 1e-30).
+    flush by max(l, 1e-30). With ``return_lse`` also each row's m + log(l)
+    (B, Sq, H) fp32, -inf where l = 0.
     """
     B, Sq, H, D = q.shape
     Sk, Hkv, Dv = v.shape[1], v.shape[2], v.shape[3]
@@ -213,7 +222,12 @@ def flash_attention_plain(q, k, v, q_positions, kv_valid_len, *,
                                         vb.float().permute(0, 2, 1, 3))
         m = m_new
     out = acc / torch.clamp(l_sum, min=1e-30)
-    return out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    out = out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    if not return_lse:
+        return out
+    lse = torch.where(l_sum > 0, m + torch.log(l_sum),
+                      torch.full_like(l_sum, -math.inf))
+    return out, lse[..., 0].permute(0, 2, 1).contiguous()
 
 
 def _resolve(q_positions, kv_valid_len, B: int, Sq: int, Sk: int, dev):
@@ -250,8 +264,11 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     soft_cap: Optional[float] = None,
-) -> torch.Tensor:
-    """Flash attention over dense K/V; returns (B, Sq, H, Dv) in q's dtype.
+    return_lse: bool = False,
+):
+    """Flash attention over dense K/V; returns (B, Sq, H, Dv) in q's dtype,
+    and with ``return_lse`` also (B, Sq, H) fp32: each row's log-sum-exp
+    of its visible scores, -inf where it sees none.
     fp32 or bf16 q over fp32 or bf16 K/V (:func:`route_for`); forward-only
     (it raises under autograd: ``kernels/forward_only.py``).
 
@@ -271,11 +288,14 @@ def flash_attention(
     dev = q.device
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if Sk == 0:
-        return torch.zeros((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+        out = torch.zeros((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+        return (out, torch.full((B, Sq, H), -math.inf, device=dev)) \
+            if return_lse else out
     if dev.type == "cpu":
         return flash_attention_plain(
             q, k, v, *_resolve(q_positions, kv_valid_len, B, Sq, Sk, dev),
-            causal=causal, scale=scale, soft_cap=soft_cap)
+            causal=causal, scale=scale, soft_cap=soft_cap,
+            return_lse=return_lse)
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"no flash attention kernel for device {dev}")
     check_dtypes(q, k, v, "flash attention")
@@ -291,8 +311,10 @@ def flash_attention(
     if dev.type == "meta":
         RA.record_launch("flash_attention", route, B=B, Sq=Sq, Sk=Sk, H=H,
                          Hkv=Hkv, D=D, Dv=Dv, dtype=out_dtype,
-                         kv_dtype=k.dtype)
-        return torch.empty((B, Sq, H, Dv), dtype=out_dtype, device=dev)
+                         kv_dtype=k.dtype, lse=return_lse)
+        out = torch.empty((B, Sq, H, Dv), dtype=out_dtype, device=dev)
+        return (out, torch.empty((B, Sq, H), device=dev)) if return_lse \
+            else out
     tc = route in ("rows", "split")
     if not tc:
         q_positions, kv_valid_len = _resolve(q_positions, kv_valid_len, B, Sq,
@@ -304,11 +326,12 @@ def flash_attention(
                  for t in (q_positions, kv_valid_len))
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Sq, H), device=dev) if return_lse else None
     lib = _lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if qpos is None else qpos.data_ptr(),
-            None if kvl is None else kvl.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, H, Hkv,
+            None if kvl is None else kvl.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, Hkv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(scale),
             float(soft_cap or 0.0), int(causal),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -321,11 +344,15 @@ def flash_attention(
                            f"{lib.fa_error_string(err).decode()}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
+    if return_lse:
+        flash_attention.lse_launches += 1
+        return out.to(out_dtype), lse
     return out.to(out_dtype)
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.lse_launches = 0      # of them, with the log-sum-exp
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +361,7 @@ flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 # Rows a CTA holds (csrc/attn_mma.cuh: kRowsTile, kSplitRows; the CUDA-core
 # kernel's kMaxRows), and the keys of one step of a CTA's key walk: the
-# split route cuts the keys in 16-key tiles (attn_mma.cuh:374-377), the
+# split route cuts the keys in 16-key tiles (attn_mma.cuh:390-393), the
 # CUDA-core kernel stages BLOCK_K keys.
 ROWS_TILE = 64
 KEY_TILE = 16
@@ -345,7 +372,7 @@ def attention_tiles(route: str, rows: int, n_keys: int, splits: int,
     """(rows a CTA holds, CTAs along blockIdx.x, the key unit of a step,
     ``share(z)`` → the [lo, hi) keys rank z of a cluster walks) of one
     launch of the attention kernels on ``route``: the arithmetic of
-    ``attn_mma.cuh::attend`` (:332-:377) and of the CUDA-core kernels."""
+    ``attn_mma.cuh::attend`` (:348-:393) and of the CUDA-core kernels."""
     nz = max(splits, 1)
     if route in ("rows", "split"):
         t = ROWS_TILE if route == "rows" and not paged else SPLIT_ROWS
@@ -365,21 +392,43 @@ def attention_tiles(route: str, rows: int, n_keys: int, splits: int,
     return t, -(-rows // t), unit, share
 
 
+def lse_segment_rows(route: str, z: int, splits: int, Dv: int,
+                     tile_rows: int) -> range:
+    """The rows of a CTA's tile whose log-sum-exp split rank ``z`` writes:
+    on the split route with a cluster (``splits`` > 1), the rows whose
+    first output element lies in the rank's share ``[16 Dv z / nz, 16 Dv
+    (z + 1) / nz)`` of the (16, Dv) tile (``csrc/attn_mma.cuh``:686, the
+    cluster merge); else every row of the tile, by the CTA itself
+    (``attn_mma.cuh``:607 on the rows route, :653 on the split route
+    without a cluster, ``flash_attention.cu``:321 on the CUDA cores)."""
+    if route != "split" or splits <= 1:
+        return range(tile_rows)
+    lo, hi = (SPLIT_ROWS * Dv * z // splits,
+              SPLIT_ROWS * Dv * (z + 1) // splits)
+    return range(-(-lo // Dv), -(-hi // Dv))
+
+
 def attention_contract(kernel: str, *, B, H, Hkv, Sq, D, Dv, route,
                        splits, n_keys, kv_operands, pre,
-                       page_size: int = 0) -> KernelContract:
+                       page_size: int = 0, lse: bool = False
+                       ) -> KernelContract:
     """The card's contract of one launch of K3, K4 or K5 on ``route``.
 
     Grid (blockIdx.z = b, blockIdx.y = g, the row tile, the rank z of its
     cluster, the key steps), blockIdx.x = tile * splits + z
-    (``attn_mma.cuh`` :332-:337; the CUDA-core kernels' x = tile,
-    ``flash_attention.cu``:183-:187, ``paged_attention.cu``:126-:130):
+    (``attn_mma.cuh`` :348-:353; the CUDA-core kernels' x = tile,
+    ``flash_attention.cu``:187-:191, ``paged_attention.cu``:126-:130):
     CTA (tile, z) of (b, g) holds flat rows tile * T .. + T - 1 (query
     position r // rep, head g * rep + r % rep) and walks the keys of its
     share in steps of ``unit`` keys. The output tile is revisited along the
     key steps and, on the split route, along the cluster's ranks, which
-    add their partials (``attn_mma.cuh``:649-:667). ``kv_operands(b, g,
-    col0)`` gives the K/V-side operands' blocks at a step's first key."""
+    add their partials (``attn_mma.cuh``:668-:688). ``kv_operands(b, g,
+    col0)`` gives the K/V-side operands' blocks at a step's first key.
+
+    With ``lse`` (K3's log-sum-exp output) each (b, g, tile) holds one
+    ``lse`` segment a cluster rank, :func:`lse_segment_rows`: written
+    once, after the key walk, by the rank the kernel assigns its rows
+    (the whole tile by its one CTA off the split route's clusters)."""
     rep = H // Hkv if Hkv >= 1 and H % Hkv == 0 else 1
     rows = Sq * rep
     T, n_tiles, unit, share = attention_tiles(
@@ -413,6 +462,14 @@ def attention_contract(kernel: str, *, B, H, Hkv, Sq, D, Dv, route,
     operands.append(OperandSpec("o", "output", (B, Hkv, n_tiles, 1),
                                 (1, 1, T, Dv), row_map,
                                 reduction_axes=(3, 4)))
+    if lse:
+        seg = max(len(lse_segment_rows(route, z, splits, Dv, T))
+                  for z in range(nz))
+
+        def lse_map(b, g, t, z, s):
+            return (b, g, t, z) if s == steps - 1 else None
+        operands.append(OperandSpec("lse", "output", (B, Hkv, n_tiles, nz),
+                                    (1, 1, seg, 1), lse_map))
     return KernelContract(
         kernel=kernel, grid=(B, Hkv, n_tiles, nz, steps),
         operands=tuple(operands),
@@ -428,10 +485,11 @@ def flash_attention_contract(*, B, H, Hkv, Sq, Sk, D, Dv,
                              block_q: int = 128, block_k: int = 128,
                              device="cuda",
                              dtype: torch.dtype = torch.bfloat16,
-                             kv_dtype: Optional[torch.dtype] = None
-                             ) -> KernelContract:
+                             kv_dtype: Optional[torch.dtype] = None,
+                             lse: bool = False) -> KernelContract:
     """Contract of :func:`flash_attention` for one logical shape: q of
-    ``dtype`` over K/V of ``kv_dtype`` (default q's).
+    ``dtype`` over K/V of ``kv_dtype`` (default q's); ``lse``: the launch
+    writes each row's log-sum-exp too (``return_lse=True``).
 
     For a CUDA device, the launch on the route :func:`route_for` names
     (:func:`attention_contract`; ``block_q``/``block_k`` are the
@@ -457,7 +515,9 @@ def flash_attention_contract(*, B, H, Hkv, Sq, Sk, D, Dv,
             OperandSpec("o", "output", (B, H, nq, 1), (1, 1, bq, Dv),
                         lambda b, h, i, j: (b, h, i, 0),
                         reduction_axes=(3,)),
-        )
+        ) + ((OperandSpec("lse", "output", (B, H, nq), (1, 1, bq),
+                          lambda b, h, i, j: (b, h, i) if j == nk - 1
+                          else None),) if lse else ())
         return KernelContract(
             kernel="flash_attention", grid=(B, H, nq, nk), operands=operands,
             dimension_semantics=("parallel", "parallel", "parallel",
@@ -478,4 +538,4 @@ def flash_attention_contract(*, B, H, Hkv, Sq, Sk, D, Dv,
                for name, d in (("k", D), ("v", Dv)))
     return attention_contract("flash_attention", B=B, H=H, Hkv=Hkv, Sq=Sq,
                               D=D, Dv=Dv, route=route, splits=splits,
-                              n_keys=Sk, kv_operands=kv, pre=pre)
+                              n_keys=Sk, kv_operands=kv, pre=pre, lse=lse)

@@ -10,8 +10,13 @@ function — the train step with AdamW, the prefill step or the decode step
 one rank's shapes: rank 0 of ``Mesh.abstract`` of the 16×16 (or 2×16×16)
 mesh, its params cut by ``tp.shard_params`` (a train cell's also over
 data, and its MoE banks by their experts over model:
-``steps.rank_params``), its caches holding its KV heads, its rows of the
-batch (over pod x data). Nothing is allocated and nothing launches,
+``steps.rank_params``), its caches holding its KV heads and, where the
+cell's rules cut a KV cache's sequence (``long_500k``: ``act_kv_seq`` over
+data), its columns, its rows of the batch (over pod x data). A train
+cell runs under the config's ``remat_policy`` ("dots" keeps every
+product's output for the recompute: no K1 launch there, and the saved
+outputs count among the temporaries). Nothing is allocated and nothing
+launches,
 so this entry point needs no card: ``meta`` is asked for by name, which
 keeps the port's rule that an entry point runs on the card unless the
 caller asks for another device.
@@ -33,10 +38,12 @@ What is counted:
   * the collectives of ``distributed/tp.py`` over the abstract mesh's
     groups, by kind and bytes, and by the axes each went over (the train
     step's all-reduce over ``pod``; its amax reduces under
-    ``--compress-grads``);
+    ``--compress-grads``; at ``long_500k`` the ``all_gather`` over ``data``
+    that merges each cut cache's attention);
   * memory: the arguments the rank holds (params, optimizer state, its
-    batch and caches), the step's outputs, and the peak of the bytes the
-    step allocates while it runs (``temp_size_in_bytes``).
+    batch and caches; ``kv_cache_bytes``, its K/V alone), the step's
+    outputs, and the peak of the bytes the step allocates while it runs
+    (``temp_size_in_bytes``).
 
 The eager port walks every layer, so the reference's depth-1 / depth-2
 body probe (XLA counts a scanned body once) is not needed, and
@@ -78,6 +85,7 @@ from repro_torch.configs.registry import (SHAPES, all_cells, cell_applicable,
 from repro_torch.core import api
 from repro_torch.core.plan import (UNFUSED, AttentionPolicy, PackedWeight,
                                    QuantizedPackedWeight)
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tp as TP
 from repro_torch.launch import specs as SP
 from repro_torch.launch import steps as ST
@@ -241,6 +249,13 @@ def _tree_bytes(tree) -> int:
     return 0
 
 
+def _kv_bytes(caches) -> int:
+    """Bytes of the caches' K/V (contiguous ``k``/``v`` with their sink
+    column, MLA's latent, page pools), as the rank holds them."""
+    return sum(_nbytes(t) for c in caches or () for name, t in c.items()
+               if name in ("k", "v", "ckv", "krope", "kp", "vp"))
+
+
 def _sink_bytes(caches) -> int:
     """Bytes of the caches' write sinks: the column past ``max_len`` of a
     contiguous cache, the page past the pool of a paged one (and its int8
@@ -332,12 +347,27 @@ def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
         parts.append(dict(part="batch", detail=(
             f"{batch} rows do not divide over the data axes: every rank "
             f"holds them all")))
-    if shape_name == "long_500k":
-        parts.append(dict(part="long-context cache", detail=(
-            "whole on every rank: the reference shards the cache's sequence "
-            "and the SSD state's heads over data (act_kv_seq); the port "
-            "does not shard a cache's sequence")))
     return parts
+
+
+def _check_batch_and_cache_specs(cfg: ModelConfig, ctx, mesh, batch: int,
+                                 rows: int, seq: int) -> None:
+    """Raise where the rank's rows of the batch (cut over pod x data) and
+    its cut of a KV cache's sequence take the same mesh axis: the cache
+    spec then holds every row whole (the sequence ranks first), the batch
+    spec only the rank's."""
+    if ctx is None or rows == batch:
+        return
+    cut = TP.seq_cut(ctx, "k", (batch, seq, cfg.n_kv_heads, cfg.head_dim))
+    batch_axes = {a for a in ("pod", "data") if mesh.axis_size(a) > 1}
+    if cut is not None and set(cut.axes) & batch_axes:
+        bspec = ctx.rules.spec(["act_batch", None], (batch, seq))
+        cspec = shd.cache_spec(ctx.rules, "k", (batch, seq, cfg.n_kv_heads,
+                                                cfg.head_dim))
+        raise ValueError(
+            f"the batch spec {bspec} cuts {batch} rows over {sorted(batch_axes)}"
+            f" and the KV cache spec {cspec} cuts the sequence over "
+            f"{cut.axes} with every row whole: both cannot hold")
 
 
 def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
@@ -358,15 +388,22 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     from the reference."""
     model = 1 if mesh is None else mesh.axis_size("model")
     n_rows_axes = 1 if mesh is None else mesh.size // model
-    ctx = None
-    if model > 1:
-        over = dict(cfg.overrides_dict())
-        if shape_name == "long_500k":
-            over.setdefault("act_kv_seq", "data")
-        over.update(rules_overrides or {})
-        ctx = TP.make_context(mesh, overrides=over)
+    # the cell's rules: long_500k cuts the KV caches' sequence over data
+    ctx = ST.serve_context(cfg, mesh, SHAPES.get(shape_name),
+                           rules_overrides)
     rows = batch // n_rows_axes if batch % n_rows_axes == 0 else batch
     parts = _placement_parts(cfg, mesh, shape_name, kind, batch, rows)
+    if kind in ("prefill", "decode"):
+        _check_batch_and_cache_specs(cfg, ctx, mesh, batch, rows, seq)
+        if cfg.is_mla and TP.latent_cut(ctx, rows, seq,
+                                        T.latent_widths(cfg)):
+            parts.append(dict(part="MLA latent cache", detail=(
+                "whole on every rank: the rules cut its sequence "
+                "(act_kv_seq), which the port does not port for the latent "
+                "(ckv, krope; ROADMAP.md queue 1, item 13)")))
+            ctx = ST.serve_context(cfg, mesh, SHAPES.get(shape_name),
+                                   dict(rules_overrides or {},
+                                        act_kv_seq=None))
     fsdp = kind == "train" and mesh is not None and mesh.axis_size("data") > 1
     if kind == "train":            # FSDP over data, slices over model
         params = ST.rank_params(cfg, T.init_model(cfg, device=META), mesh)
@@ -498,6 +535,7 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
         "collectives_by_axes": by_axes,
         "launches": ledger.launches,
         "launches_marked": ledger.marked,
+        "kv_cache_bytes": _kv_bytes(caches),
         "roofline": terms,
         "fsdp": fsdp,
         "parts_from_reference": parts,

@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.registry import ShapeCell
+from repro_torch.core.plan import ShardingPolicy
 from repro_torch.distributed import fsdp as FSDP
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tp as TP
@@ -341,30 +342,15 @@ def batch_shardings(batch_specs, rules: shd.ShardingRules):
     return _tree(one, batch_specs)
 
 
-_CACHE_DIM_RULES = {
-    "k": ("act_batch", "act_kv_seq", "act_kv_heads", None),
-    "v": ("act_batch", "act_kv_seq", "act_kv_heads", None),
-    "ckv": ("act_batch", "act_kv_seq", None),
-    "krope": ("act_batch", "act_kv_seq", None),
-    "len": ("act_batch",),
-    "x": ("act_batch", None, "act_mlp"),      # conv state
-    "B": ("act_batch", None, None),
-    "C": ("act_batch", None, None),
-    "state": ("act_batch", "act_heads", None, None),
-}
-
-
 def cache_shardings(cache_specs, rules: shd.ShardingRules):
-    """Right-aligned role-based specs by each leaf's innermost key; leading
-    dims replicate, and a leaf with no rule replicates whole."""
+    """Right-aligned role-based specs by each leaf's innermost key
+    (``sharding.CACHE_DIM_RULES``, ``sharding.cache_spec``); leading dims
+    replicate, and a leaf with no rule replicates whole. A contiguous KV
+    cache's ``k``/``v`` sequence is cut on the axis this gives
+    ``act_kv_seq`` (``tp.seq_cut``, ``transformer.init_caches``)."""
     def one(path, leaf):
-        shape = tuple(leaf.shape)
         name = next((k for k in reversed(path) if isinstance(k, str)), None)
-        dims = _CACHE_DIM_RULES.get(name)
-        if dims is None:
-            return (None,) * len(shape)
-        pad = (None,) * (len(shape) - len(dims))
-        return rules.spec(pad + tuple(dims), shape)
+        return shd.cache_spec(rules, name, tuple(leaf.shape))
     return _tree(one, cache_specs)
 
 
@@ -400,11 +386,26 @@ def opt_shardings(param_shardings_tree, rules: shd.ShardingRules):
             "step": ()}
 
 
+def serve_context(cfg: ModelConfig, mesh, shape: Optional[ShapeCell] = None,
+                  extra_overrides: Optional[Dict] = None
+                  ) -> Optional[TP.TPContext]:
+    """The TP context of serving ``cfg`` on ``mesh`` under the rules of
+    ``shape``'s cell (:func:`make_rules`: ``long_500k`` cuts the KV caches'
+    sequence over data), whatever the model axis's size; None without a
+    mesh. ``init_caches(tpctx=)`` and the serving steps take it."""
+    if mesh is None:
+        return None
+    return TP.TPContext(mesh=mesh,
+                        rules=make_rules(cfg, mesh, shape, extra_overrides),
+                        policy=ShardingPolicy())
+
+
 def make_rules(cfg: ModelConfig, mesh, shape: Optional[ShapeCell] = None,
                extra_overrides: Optional[Dict] = None) -> shd.ShardingRules:
     overrides = cfg.overrides_dict()
     if shape is not None and shape.name == "long_500k":
-        # SP for the huge decode context: shard cache seq + SSM state heads
+        # the huge decode context: the KV caches' sequence over data (the
+        # SSD state keeps act_heads, which this does not touch)
         overrides.setdefault("act_kv_seq", "data")
     if extra_overrides:
         overrides.update(extra_overrides)

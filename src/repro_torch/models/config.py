@@ -59,9 +59,11 @@ class ModelConfig:
     # distribution
     sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
     remat: bool = True
-    # remat policy: "full" (recompute everything), "dots" (save MXU dot
-    # outputs, recompute elementwise — trades a little memory for a lot of
-    # recompute traffic; §Perf hillclimb H3), "none" ≡ remat=False
+    # remat policy: "full" (recompute the whole block), "dots" (keep every
+    # product's output — K1's, the torch backend's, the unfused
+    # attention's einsums, the MoE banks' — and recompute the rest:
+    # no GEMM in the recompute, a block's product outputs held until its
+    # backward; models/transformer.py::_use_remat), "none" ≡ remat=False
     remat_policy: str = "full"
     # scan-over-layers keeps compile time flat in depth (production default).
     # The dry-run sets False: XLA's cost_analysis counts a while-loop body

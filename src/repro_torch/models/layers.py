@@ -106,16 +106,25 @@ def init_attention(gen, cfg: ModelConfig, dtype, device):
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                         device):
+                         device, seq_cut=None):
     """Contiguous K/V of ``max_len`` positions per batch row, plus one more
     column at index ``max_len`` that attention never reads: the write sink
     for masked prefill positions (the TPU version drops those writes out of
     range; torch has no dropping scatter, and a sink keeps the write free
-    of a host sync). ``len`` (B,) counts the positions written per row."""
-    shape = (batch, max_len + 1, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    of a host sync). ``len`` (B,) counts the positions written per row.
+
+    With ``seq_cut`` (``tp.seq_cut``: the sequence cut over a mesh axis)
+    the rank holds its ``seq_cut.cols`` columns and a sink of its own, and
+    the cache carries ``seq_offset``, its first global column (0-d int32);
+    ``len`` stays global."""
+    cols = max_len if seq_cut is None else seq_cut.cols
+    shape = (batch, cols + 1, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if seq_cut is not None:
+        cache["seq_offset"] = TP.seq_offset_tensor(seq_cut, device)
+    return cache
 
 
 def _written_per_row(positions: torch.Tensor, len_dtype) -> torch.Tensor:
@@ -134,19 +143,31 @@ def _contiguous_cache_update(cache, new, positions):
     position by a one-hot select, as the reference does; a position −1
     row matches no column and writes nothing. Either way a masked row
     leaves its cache and ``len`` untouched. The rows are cast to the
-    cache's dtype (an fp32 model may serve from a bf16 cache)."""
+    cache's dtype (an fp32 model may serve from a bf16 cache).
+
+    A cache cut over the sequence (``cache["seq_offset"]``, its first
+    global column) takes global positions: each lands at ``position -
+    offset`` where that is one of the rank's T/n columns; elsewhere a
+    prefill column goes to the rank's sink and a decode row writes
+    nothing. ``len`` advances on every rank by the written count."""
     B, S = positions.shape
     T = cache[next(iter(new))].shape[1] - 1
     new = {name: t.to(cache[name].dtype) for name, t in new.items()}
+    if "seq_offset" in cache:         # global positions -> the rank's columns
+        local = positions - cache["seq_offset"].to(positions.dtype)
+        mine = (positions >= 0) & (local >= 0) & (local < T)
+        positions_w = torch.where(mine, local, torch.full_like(local, -1))
+    else:
+        positions_w = positions
     if S > 1:
         rows = torch.arange(B, device=positions.device)[:, None].expand(B, S)
-        cols = torch.where(positions >= 0, positions,
-                           torch.full_like(positions, T)).long()
+        cols = torch.where(positions_w >= 0, positions_w,
+                           torch.full_like(positions_w, T)).long()
         for name, t in new.items():
             cache[name][rows, cols] = t
     else:
         at_pos = (torch.arange(T + 1, device=positions.device)[None, :]
-                  == positions)                               # (B, T+1)
+                  == positions_w)                             # (B, T+1)
         for name, t in new.items():
             mask = at_pos.reshape(B, T + 1, *[1] * (t.dim() - 2))
             cache[name] = torch.where(mask, t, cache[name])
@@ -278,7 +299,9 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     out = TP.attention(q, kv_k, kv_v, q_positions=positions,
                        kv_valid_len=kv_valid, causal=cfg.causal,
                        scale=1.0 / math.sqrt(dh), block_tables=bt,
-                       kv_scales=kv_scales, heads=(H, Hkv), kv_slice=kv_slice)
+                       kv_scales=kv_scales, heads=(H, Hkv), kv_slice=kv_slice,
+                       seq_offset=None if cache is None
+                       else cache.get("seq_offset"))
     # row-parallel under TP: the contraction over the rank's heads, summed
     y = TP.linear(out.reshape(B, S, -1), p["wo"], axes=("heads", "embed"),
                   units=H, full=(H * dh, D))
@@ -548,10 +571,12 @@ def moe(p, cfg: ModelConfig, x):
     slot_for_flat = torch.empty_like(slot).scatter_(1, order, slot)
 
     h = buf[:, :-1].reshape(G, El, C, D)
-    gi = torch.einsum("gecd,edf->gecf", h, p["wi"]).to(x.dtype)
+    with api.saved_products():        # remat "dots" keeps the banks' outputs
+        gi = torch.einsum("gecd,edf->gecf", h, p["wi"]).to(x.dtype)
     g_, u = gi.chunk(2, dim=-1)
     hh = torch.nn.functional.silu(g_) * u
-    out = torch.einsum("gecf,efd->gecd", hh, p["wo"]).to(x.dtype)
+    with api.saved_products():
+        out = torch.einsum("gecf,efd->gecd", hh, p["wo"]).to(x.dtype)
     out = torch.cat([out.reshape(G, trash, D),
                      torch.zeros((G, 1, D), dtype=x.dtype, device=dev)], 1)
 

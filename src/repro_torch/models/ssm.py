@@ -23,7 +23,7 @@ from repro_torch.kernels.forward_only import needs_grad
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.module import dense_init, norm_init
+from repro_torch.models.module import _normal, dense_init, norm_init
 
 
 def init_ssd(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Dict:
@@ -33,9 +33,9 @@ def init_ssd(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Dict:
     d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     H, K = cfg.ssm_heads, cfg.ssm_conv
 
-    def conv(ch):
-        w = torch.randn((K, ch), generator=gen, dtype=torch.float32)
-        return (w / math.sqrt(K)).to(dtype).to(device)
+    def conv(ch):          # drawn on the generator's device, as the rest
+        return (_normal(gen, (K, ch), device) / math.sqrt(K)).to(
+            dtype).to(device)
 
     return {
         "w_z": dense_init(gen, d, di, dtype, device),

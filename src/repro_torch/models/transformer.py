@@ -201,15 +201,15 @@ def _use_remat(cfg: ModelConfig, caches) -> bool:
     """Whether blocks recompute their activations in the backward pass:
     ``cfg.remat`` unless ``remat_policy`` is "none", and only for a
     cache-less forward under autograd (a serving step has no backward).
-    ``"dots"`` (save the GEMM outputs) is not ported."""
+    ``"full"`` recomputes the whole block; ``"dots"`` (the reference's
+    ``checkpoint_dots``) recomputes it with every product's output kept
+    from the forward (``api.SavedDots``): no GEMM runs in the recompute."""
     if not cfg.remat or cfg.remat_policy == "none" or caches is not None \
             or not torch.is_grad_enabled():
         return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
-            f"blocks ('full') or nothing ('none'); saving the GEMM outputs "
-            f"('dots') is not ported (ROADMAP.md queue 3)")
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: 'full', "
+                         f"'dots' or 'none'")
     return True
 
 
@@ -256,10 +256,14 @@ def forward(params, cfg: ModelConfig, batch, *,
     def recompute(p, path, c, cache):
         # the backward pass (and so the recompute) may run on autograd's
         # device thread, where the thread-local policies and contexts are
-        # the defaults
+        # the defaults; under "dots" the block's record of its products
+        # lives here, one a call of the block
+        dots = api.SavedDots() if cfg.remat_policy == "dots" else None
+
         def run(x_):
             with api.use_policy(gemm), api.use_attention_policy(attn), \
-                    TP.use_tp(tpctx), FSDP.use_fsdp(fsctx):
+                    TP.use_tp(tpctx), FSDP.use_fsdp(fsctx), \
+                    api.saving_dots(dots):
                 return apply(p, path, c, x_, cache)
         return run
 
@@ -354,6 +358,11 @@ def _rank_kv_cfg(cfg: ModelConfig, tpctx) -> ModelConfig:
         cfg, n_kv_heads=cfg.n_kv_heads // tpctx.model_size)
 
 
+def latent_widths(cfg: ModelConfig) -> Dict[str, int]:
+    """The last dims of MLA's latent cache leaves, by name."""
+    return {"ckv": cfg.kv_lora_rank, "krope": cfg.qk_rope_head_dim}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device, tpctx=None) -> List[Dict]:
     """Decoder caches, one per layer: a contiguous (batch, max_len) KV cache
@@ -364,26 +373,34 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     hybrid's list holds its SSD layers' caches, then one KV cache per group
     for the shared attention block (the reference's ``{"scan": (ssm,
     attn)}``). Under a TP context (``tpctx``) KV caches hold the rank's
-    KV heads."""
+    KV heads and, where the context's cache rules cut their sequence
+    (``act_kv_seq``; ``tp.seq_cut``, from the reference's (batch, max_len,
+    n_kv_heads, head_dim)), the rank's columns. MLA's latent cache is not
+    cut: under rules that would cut it this raises NotImplementedError
+    (ROADMAP.md queue 1, item 13)."""
     check_supported(cfg)
     if cfg.family in ENCODER_FAMILIES:
         raise ValueError(f"{cfg.name}: KV caches serve the decoder families; "
                          f"family {cfg.family!r} is an encoder")
     dtype = torch_dtype(dtype)
     kv_cfg = _rank_kv_cfg(cfg, tpctx)
-    if cfg.family not in SSD_FAMILIES:
-        if cfg.is_mla:
-            return [Lyr.init_mla_cache(cfg, batch, max_len, dtype, device)
-                    for _ in range(cfg.n_layers)]
-        return [Lyr.init_attention_cache(kv_cfg, batch, max_len, dtype,
-                                         device)
+    if cfg.is_mla:
+        if TP.latent_cut(tpctx, batch, max_len, latent_widths(cfg)):
+            raise NotImplementedError(TP.latent_cut_message())
+        return [Lyr.init_mla_cache(cfg, batch, max_len, dtype, device)
                 for _ in range(cfg.n_layers)]
+    cut = TP.seq_cut(tpctx, "k", (batch, max_len, cfg.n_kv_heads,
+                                  cfg.head_dim))
+
+    def kv_cache():
+        return Lyr.init_attention_cache(kv_cfg, batch, max_len, dtype,
+                                        device, seq_cut=cut)
+    if cfg.family not in SSD_FAMILIES:
+        return [kv_cache() for _ in range(cfg.n_layers)]
     caches = [SSM.init_ssd_cache(cfg, batch, dtype, device)
               for _ in range(cfg.n_layers)]
     n_groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
-    return caches + [Lyr.init_attention_cache(kv_cfg, batch, max_len, dtype,
-                                              device)
-                     for _ in range(n_groups)]
+    return caches + [kv_cache() for _ in range(n_groups)]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,

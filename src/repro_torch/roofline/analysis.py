@@ -140,7 +140,9 @@ def launch_cost(kernel: str, route: str, **s) -> Dict:
       flash_attention          B, Sq, Sk, H, Hkv, D, dtype[, Dv (D),
                                kv_dtype (dtype), keys (B·Sk: the keys read
                                per kv head, summed over rows), pairs
-                               (B·Sq·Sk: the visible (query, key) pairs)]
+                               (B·Sq·Sk: the visible (query, key) pairs),
+                               lse (False: the fp32 log-sum-exp of each
+                               (row, head) written too)]
       paged_attention          B, Sq, H, Hkv, D, page_size, n_blocks, dtype
                                (q's)[, kv_dtype (dtype; int8 pools carry
                                fp32 scales per page and head), pages
@@ -176,7 +178,8 @@ def launch_cost(kernel: str, route: str, **s) -> Dict:
                     transcendentals=float(H * pairs),
                     bytes=(D + Dv) * keys * Hkv * _itemsize(kv)
                     + B * Sq * H * (D + Dv) * _itemsize(dt)
-                    + 4 * (B * Sq + B),
+                    + 4 * (B * Sq + B) + (4 * B * Sq * H if s.get("lse")
+                                          else 0),
                     dtype=_ROUTE_DTYPE.get(route, dt))
     if kernel == "paged_attention":
         B, Sq, H, Hkv, D, ps, nb = (s[k] for k in ("B", "Sq", "H", "Hkv", "D",

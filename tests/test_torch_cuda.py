@@ -631,6 +631,47 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(FLASH_CASES), ids=str)
+def test_flash_attention_lse_matches_plain(cuda, dtype, case, splits,
+                                           monkeypatch):
+    """K3 with ``return_lse=True`` on every route (the split route also
+    over clusters of 3 and 8 CTAs): out and lse within ATTN_TOLS of the
+    plain version, lse -inf exactly where a row sees no key, and the
+    output bitwise the launch without lse."""
+    B, Sq, Sk, H, Hkv, D, causal, starts, lens = FLASH_CASES[case]
+    route = FA.route_for(getattr(torch, dtype), Sq, H // Hkv)
+    if splits is not None:
+        if route != "split":
+            pytest.skip("a split count applies to the split route")
+        monkeypatch.setattr(FA, "split_count", lambda *a: splits)
+    q, k, v, qpos, kvl = _flash_inputs(cuda, dtype, B, Sq, Sk, H, Hkv, D,
+                                       starts, lens)
+    before = FA.flash_attention.lse_launches
+    got, lse = FA.flash_attention(q, k, v, qpos, kvl, causal=causal,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.lse_launches == before + 1
+    assert torch.equal(got, FA.flash_attention(q, k, v, qpos, kvl,
+                                               causal=causal))
+    qpos_r = qpos if qpos is not None else (
+        torch.arange(Sq, device=cuda) + (Sk - Sq)).expand(B, Sq).to(torch.int32)
+    kvl_r = kvl if kvl is not None else torch.full(
+        (B,), Sk, dtype=torch.int32, device=cuda)
+    want, want_lse = FA.flash_attention_plain(
+        q, k, v, qpos_r, kvl_r, causal=causal, scale=D ** -0.5,
+        soft_cap=None, return_lse=True)
+    atol, rtol = ATTN_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    dead = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_flash_attention_soft_cap_and_strided_cache(cuda):
     """A soft-cap, and K/V read as views of a (B, T + 1, Hkv, D) contiguous
     serving cache sliced to T (no copy): the same as contiguous operands."""

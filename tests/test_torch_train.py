@@ -410,13 +410,6 @@ def test_remat_recompute_keeps_the_forward_policies():
         assert torch.equal(a, b)
 
 
-def test_remat_dots_not_ported():
-    _, cfg, _, params, batch, _, _ = _case("smollm-135m")
-    with pytest.raises(NotImplementedError, match="dots"):
-        _port_grads(dataclasses.replace(cfg, remat_policy="dots"), params,
-                    batch, "matrixflow")
-
-
 # ---------------------------------------------------------------------------
 # The K1 Function, the batched rhs and the unfused attention
 # ---------------------------------------------------------------------------

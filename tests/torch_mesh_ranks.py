@@ -818,3 +818,114 @@ def pod_all_reduce_bytes(cfg, mesh):
     held = ST.rank_params(cfg, T.init_model(cfg, device="meta"), mesh)
     return 4 * sum(t.numel() for t, cut in FSDP.leaves_with_cuts(
         held, FSDP.make_context(cfg, mesh)) if cut is not None)
+
+
+# ---------------------------------------------------------------------------
+# KV caches cut over the sequence (act_kv_seq over data, the long_500k
+# rules): zamba2's shared-attention caches at smoke width
+# ---------------------------------------------------------------------------
+
+KVSEQ_MAX_LEN = 64            # two ranks: columns [0, 32) and [32, 64)
+# each row's written length: row 0 writes in rank 1's half and both ranks
+# see keys (long_500k's len 524,280); row 1 writes in rank 0's and rank 1
+# sees nothing (len 100,000); row 2 crosses from rank 0's half to rank 1's
+KVSEQ_LENS = (56, 12, 30)
+KVSEQ_STEPS = 4
+
+
+def kvseq_config():
+    return get_smoke_config("zamba2-2.7b", vocab=64, dtype="float32")
+
+
+def kvseq_state(cfg, seed=5):
+    """Numpy caches of a zamba2 decode at :data:`KVSEQ_LENS`: every SSD
+    layer's conv and SSD state, every shared-attention group's K/V (B, T,
+    Hkv, D) and length, drawn from ``seed``; and the first tokens."""
+    rng = np.random.default_rng(seed)
+    B, K = len(KVSEQ_LENS), cfg.ssm_conv
+
+    def draw(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    ssd = [{"conv": {"x": draw(B, K - 1, cfg.d_inner),
+                     "B": draw(B, K - 1, cfg.ssm_state),
+                     "C": draw(B, K - 1, cfg.ssm_state)},
+            "state": draw(B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                          scale=0.1)}
+           for _ in range(cfg.n_layers)]
+    shape = (B, KVSEQ_MAX_LEN, cfg.n_kv_heads, cfg.head_dim)
+    attn = [{"k": draw(*shape), "v": draw(*shape),
+             "len": np.asarray(KVSEQ_LENS, np.int32)}
+            for _ in range(cfg.n_layers // cfg.attn_every)]
+    tokens = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+    return ssd, attn, tokens
+
+
+def kvseq_port_caches(ssd, attn):
+    """The port's whole caches from :func:`kvseq_state`: a sink column
+    after each K/V."""
+    def sink(a):
+        return torch.from_numpy(np.concatenate(
+            [a, np.zeros_like(a[:, :1])], axis=1))
+    return ([{"conv": {k: torch.from_numpy(v) for k, v in c["conv"].items()},
+              "state": torch.from_numpy(c["state"])} for c in ssd]
+            + [{"k": sink(c["k"]), "v": sink(c["v"]),
+                "len": torch.from_numpy(c["len"].copy())} for c in attn])
+
+
+def kvseq_decode(cfg, params, caches, tokens, ctx, attn_policy):
+    """KVSEQ_STEPS greedy decode steps through the serving decode step
+    from the caches at their lengths: (logits per step, tokens)."""
+    from repro_torch.serving.engine import make_decode_step
+    step = make_decode_step(cfg, attn=attn_policy, tpctx=ctx)
+    tok = torch.from_numpy(tokens)
+    pos = torch.as_tensor(KVSEQ_LENS, dtype=torch.int32)[:, None]
+    logits, toks = [], []
+    with torch.no_grad():
+        for _ in range(KVSEQ_STEPS):
+            lg, caches = step(params, tok, pos, caches)
+            tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+            logits.append(lg.float().numpy())
+            toks.append(tok[:, 0].numpy())
+            pos = pos + 1
+    return np.stack(logits), np.stack(toks), caches
+
+
+def kvseq_rank(rank, world, params_np, policies):
+    """This rank's decode over its half of every K/V cache (mesh (data 2,
+    model 1) under the long_500k rules): logits and tokens per policy,
+    the collectives of one step, the K/V bytes it holds and its caches'
+    lengths after the steps."""
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.launch import steps as ST
+    cfg = kvseq_config()
+    mesh = make_host_mesh()
+    ctx = ST.serve_context(cfg, mesh, SHAPES["long_500k"])
+    params = from_jax_params(params_np, cfg)
+    ssd, attn, tokens = kvseq_state(cfg)
+    out = {}
+    for name in policies:
+        policy = AttentionPolicy(backend=name)
+        caches = TP.shard_caches(kvseq_port_caches(ssd, attn), ctx,
+                                 shard_kv=False)
+        made = _init_caches(cfg, len(KVSEQ_LENS), KVSEQ_MAX_LEN, ctx)
+        TP.collectives.reset()
+        lg, toks, caches = kvseq_decode(cfg, params, caches, tokens, ctx,
+                                        policy)
+        kv = [c for c in caches if "k" in c]
+        out[name] = dict(
+            logits=lg, tokens=toks,
+            collectives=TP.collectives.by_axes(mesh),
+            kv_bytes=sum(c[n].numel() * c[n].element_size()
+                         for c in kv for n in ("k", "v")),
+            offsets=[int(c["seq_offset"]) for c in kv],
+            lens=[c["len"].numpy() for c in kv],
+            init_shapes=[tuple(c["k"].shape) for c in made if "k" in c],
+            init_offsets=[int(c["seq_offset"]) for c in made if "k" in c])
+    return out
+
+
+def _init_caches(cfg, batch, max_len, ctx):
+    from repro_torch.models import transformer as T
+    return T.init_caches(cfg, batch, max_len, cfg.param_dtype, "cpu",
+                         tpctx=ctx)
