@@ -49,21 +49,24 @@ CUDA toolkit. Phases, each fatal on failure:
              and flash attention must both launch; logits finite. Then
              bert-base in fp32, kernel path on the card against the plain
              path on the CPU, logits within LOGIT_TOL.
-6. contiguous serving — full-width smollm-135m served from contiguous KV
+6. contiguous serving — full-width smollm-135m (10 of its 30 layers,
+             SERVE_CUT_LAYERS) served from contiguous KV
              caches (AttentionPolicy("fused")): 12 requests through
              submit/step in bf16, all complete, the GEMM and flash kernels
-             launched; then generate(). In fp32 (4 of 30 layers) the same
+             launched; then generate(). In fp32 (2 of 30 layers) the same
              prompts' greedy streams equal the paged engine's on the card
              and the CPU plain path's, or first diverge where the plain
              top-2 margin is below LOGIT_TOL.
-7. int8 serving — full-width smollm-135m in bf16 with weight_dtype="int8"
+7. int8 serving — full-width smollm-135m (10 of its 30 layers) in bf16
+             with weight_dtype="int8"
              (every projection and the head through the W8A8 GEMM, K2) and
              kv_dtype="int8" (int8 pages through K5): the same 12 requests x
              32 tokens under the 24-page pool, all complete with preemption,
              K2 launched on both tensor-core routes (wgmma at prefill, mma
              at decode) and K5 on both (rows, split), neither on the CUDA
              cores, K1 and K4 not; a preempted request's stream
-             equals its solo stream. Then fp32 at full width, the card
+             equals its solo stream. Then fp32 at full width, 2 of the 30
+             layers, the card
              against the CPU plain path: greedy streams equal, or parting
              where the plain top-2 margin is below LOGIT_TOL or after an
              int8 value the two runs rounded differently from an ulp apart
@@ -71,7 +74,7 @@ CUDA toolkit. Phases, each fatal on failure:
              noise: W8A8 and the frozen KV page scales amplify one such
              rounding into a whole quantization step).
 
-8. SSM serving — full-width mamba2-1.3b (16 of 48 layers, d_model 2048, 64 SSD
+8. SSM serving — full-width mamba2-1.3b (8 of 48 layers, d_model 2048, 64 SSD
              heads x 64, N 128) in bf16 from contiguous caches under the
              default ServeConfig, whose policy resolves to fused: generate() of 8 prompts x 384 tokens (Q 128, the
              state carried over 3 chunks) x 16 tokens; then a single-slot
@@ -81,17 +84,17 @@ CUDA toolkit. Phases, each fatal on failure:
              SSD state zeroed). K1 and the SSD scan (K6) launched, K6 on
              its tensor-core walk route and never on the CUDA cores, the
              paged kernels (K4, K5) not.
-9. hybrid serving — full-width zamba2-2.7b (18 of 54 SSD layers, d_model 2560,
+9. hybrid serving — full-width zamba2-2.7b (12 of 54 SSD layers, d_model 2560,
              one shared attention block every 6 at head_dim 80) in bf16:
              generate() of 8 prompts x 64 tokens x 16 tokens under the fused
              policy; K1, K3 and K6 (walk) launched, K4 and K5 not.
-10. SSM parity — fp32, full width cut in depth (mamba2 to 4 layers, zamba2
+10. SSM parity — fp32, full width cut in depth (mamba2 to 2 layers, zamba2
              to 6, one attention group): the card against the CPU plain
-             path, prefill of 2 prompts (200 and 64 tokens) and 8 decode
+             path, prefill of 2 prompts (200 and 64 tokens) and 4 decode
              steps fed the same tokens, logits within LOGIT_TOL at every
              step, greedy tokens equal or differing only where the plain
              top-2 margin is below LOGIT_TOL.
-11. serving features — smollm-135m at full width, 4 of its 30 layers
+11. serving features — smollm-135m at full width, 2 of its 30 layers
              (FEATURES_LAYERS), bf16, paged (page 16), 8 slots: (a) the prefix cache (12 requests on one 48-token
              system prompt, two parting inside its third page; a 24-page
              pool with watermark 2), in bf16 and with int8 KV: hits, COW
@@ -114,7 +117,7 @@ CUDA toolkit. Phases, each fatal on failure:
              with NULL_OBS printed. Then fp32 at full width: prefix-on
              streams equal prefix-off, spec streams equal non-spec, or
              first part where the plain top-2 margin is below LOGIT_TOL.
-12. stream identity — smollm-135m and qwen2-1.5b at full width, 4
+12. stream identity — smollm-135m and qwen2-1.5b at full width, 2
              layers each (IDENTITY_LAYERS), in bf16, paged (page 16), 8
              slots, fp pools and int8 KV: 12 requests under the 24-page
              pool, every preempted request's stream equal to its solo
@@ -122,27 +125,27 @@ CUDA toolkit. Phases, each fatal on failure:
              prefix cache on equal to off. Zero streams may part.
              (``python3 chip_smoke.py --identity [arch ...]`` runs this
              phase alone.)
-13-15. the rest of the dense family — qwen2-1.5b (QKV biases; 4 of 28
-             layers), qwen3-8b (q/k RMSNorm; 4 of 36 layers) and
-             granite-20b (MQA, group 48, GELU MLP; 4 of 52 layers), full
+13-15. the rest of the dense family — qwen2-1.5b (QKV biases; 2 of 28
+             layers), qwen3-8b (q/k RMSNorm; 2 of 36 layers) and
+             granite-20b (MQA, group 48, GELU MLP; 2 of 52 layers), full
              width, bf16 weights drawn on the card from a seed: paged
              serving with preemption (K4 at head_dim 128), contiguous
              serving (K3 at head_dim 128, groups 6, 4 and 48), int8 KV
              (K5; qwen2 and granite, qwen2 with W8A8 weights through K2),
              each 12 requests x 32 tokens then generate(); qwen2 through
-             phase 12's identity (10 of its layers);
-             then fp32 at 4, 2 and 2 layers, the card against the CPU plain
+             phase 12's identity (2 of its layers);
+             then fp32 at 2, 1 and 1 layers, the card against the CPU plain
              path within LOGIT_TOL (phase 4).
 16-19. the model zoo's last four at full width, bf16 weights drawn on the
-             card: internvl2-76b (4 of 80 layers; 64 / 8 heads x 128):
+             card: internvl2-76b (2 of 80 layers; 64 / 8 heads x 128):
              paged serving with preemption (K4, group 8) and contiguous
              serving (K3), the VLM forward over B 2 x (256 stub image
              embeddings ⊕ 64 tokens) with no cache (K3 rows), then that
              prompt prefilled into contiguous caches and 8 greedy steps;
-             musicgen-medium (12 of 48 layers, 24 x 64 MHA, 4 codebooks):
+             musicgen-medium (4 of 48 layers, 24 x 64 MHA, 4 codebooks):
              forward over contiguous (K3) and paged (K4) caches, prefill 8 x
              64 frames then 32 greedy steps, argmax per codebook; dbrx-132b
-             (4 of 40 layers; 16 experts top-4, 48 / 8 heads x 128): paged
+             (2 of 40 layers; 16 experts top-4, 48 / 8 heads x 128): paged
              with preemption, contiguous, W8A8 weights + int8 KV (K2, K5),
              each then generate(); deepseek-v2-236b (its dense layer and 2
              of 59 MoE layers; MLA at q/k head dim 192, v 128; 160 experts
@@ -150,22 +153,22 @@ CUDA toolkit. Phases, each fatal on failure:
              policy (K3's (192, 128) instance, split at decode and rows at
              prefill). The MoE expert banks run as torch products (the
              reference's jnp.einsum); the routers through K1. Then fp32 at
-             1, 4, 1 and 2 layers (deepseek: the dense layer + 1 MoE layer),
-             the weights drawn on the card and held on the host, the card
+             1, 2, 1 and 2 layers (deepseek: the dense layer + 1 MoE layer)
+             and 2 greedy steps (ZOO_PARITY_STEPS), the weights drawn on the card and held on the host, the card
              against the CPU plain path within LOGIT_TOL (phase 4; the VLM
              behind its image prefix, musicgen per codebook, deepseek over
              contiguous caches). (``python3 chip_smoke.py --zoo [arch ...]``
              runs these phases alone.)
 20. training — full-width smollm-135m (30 layers) in bf16, trained by the
-             port's Trainer: B 8 x 128 tokens from TokenPipeline, 10 steps
+             port's Trainer: B 8 x 128 tokens from TokenPipeline, 4 steps
              with remat on, unfused attention, every GEMM through K1: its
              forward, its backward (dA = dC.Wt, dW = At.dC, K1 launches
              counted apart) and its batch grid (the attention's score and
              value products, 72 problems a launch); K2-K6 never launched.
              Every loss finite, the last below the first; per-step host
              wall time, tokens/s, and one profiled step's device busy
-             time printed. A checkpoint at step 5; a fresh Trainer
-             resumes there and reaches step 10 with losses bitwise the
+             time printed. A checkpoint at step 2; a fresh Trainer
+             resumes there and reaches step 4 with losses bitwise the
              uninterrupted run's (and whether one step repeats bitwise is
              printed); K1's launches of one step with remat on and off.
 21. fp32 train step — 2 of the 30 layers at full width, TF32 off: one
@@ -221,7 +224,8 @@ CUDA toolkit. Phases, each fatal on failure:
              to the dry run's on ``Mesh.abstract``, K1 by route and its
              peak allocation printed; then a bf16 forward and backward
              timed on one device and a rank. (``--ep`` runs it alone.)
-28. pod axis — smollm-135m at full width and depth, B 8 x 128, one fp32
+28. pod axis — smollm-135m at full width, 10 of its 30 layers, B 8
+             x 128, one fp32
              AdamW step on one device, plain and with ``compress_grads``;
              then four ranks on (pod 2, data 2, model 1) with FSDP over
              data, held to the plain step, and on (pod 2, data 1, model
@@ -256,6 +260,31 @@ CUDA toolkit. Phases, each fatal on failure:
              gemm_preformatted, mha, ssd) against its plain versions, each
              call moving its wrapper's counter by one. Its seconds are
              printed. (``--analysis`` runs it alone.)
+30. long context — KV caches cut over the sequence (long_500k's
+             rules): (a) K3 with its log-sum-exp at zamba2's shared block
+             (H = Hkv = 32, D 80) over planted keys, against its plain
+             version, three planted faults failing; (b) zamba2-2.7b at
+             full width (12 of 54 layers in bf16: two shared-attention
+             groups; 6 in fp32) over
+             524,288-column caches, decode on one device and on two gloo
+             ranks whose K/V columns are cut over data. (``--long`` runs
+             it alone.)
+31. MLA latent cut — (a) K3 at MLA's (192, 128) with its log-sum-exp
+             (split over a rank's 16,384 and one device's 32,768 columns,
+             rows at a 64-row chunk; H = 128) over planted keys, the same
+             gates; (b) deepseek-v2-236b at full width (its dense layer
+             and 1 MoE layer in bf16, the dense layer in fp32) over a
+             latent cache of 2 rows x 32,768 columns (8,192 in fp32): a
+             64-token prefill chunk across the ranks' boundary and 4
+             decode steps on one device, then on two gloo ranks on (data
+             1, model 2) under the kvseq arm's act_kv_seq -> model, each
+             rank holding half the latent's columns and wkv_b whole,
+             gathering the queries and merging every head's partials over
+             model; held to one device (fp32 within GEMM_TOLS, tokens
+             equal; bf16 as phase 30 holds it, an equal-weight merge
+             failing at the chunk), every step's all-gathers the closed
+             form, a decode step's collectives the dry run's. Its seconds
+             are printed. (``--mla-cut`` runs it alone.)
 
 The kernel phases (2) also hold the W8A8 GEMM (K2) bitwise against its
 plain version at smollm-135m's decode and prefill GEMMs and bert-base's
@@ -296,8 +325,8 @@ up-projection, with SDPA (Ev != E) as its yardstick; K4 at the same three
 models' shapes, K5 at dbrx's.
 
 Every kernel counter is set to 0 just before each path (3, 5-9, each
-run of 11, 12, each serving run of 13-15 and 16-19, 20 and each serving
-run of 22) is
+run of 11, 12, each serving run of 13-15 and 16-19, 20, each serving
+run of 22, and each decode of 30 and 31, on one device and on a rank) is
 driven and read just after; a kernel of the path that never launched fails
 it. K1-K6 are counted per route too: every bf16 path must have launched
 K1 on wgmma and never on mma.sync (or, with int8 weights, K2 on both
@@ -353,8 +382,10 @@ PROMPT_BUCKET = 64           # prompts of 16..64 tokens → a 64-column bucket
 N_REQUESTS = 12
 GEN_LEN = 32
 CACHE_PAGES = 24             # < 8 slots x 6 pages: decode growth preempts
-CONTIG_FP32_LAYERS = 4       # phase 6's fp32 streams: the CPU plain path's time
-FEATURES_LAYERS = 4          # phases 11 and 22 (of 30): the run's time
+CONTIG_FP32_LAYERS = 2       # phase 6's fp32 streams: the CPU plain path's time
+INT8_PARITY_LAYERS = 2       # phase 7's fp32 card-vs-CPU run (of 30): its time
+SERVE_CUT_LAYERS = 10        # phases 6 and 7's bf16 serving (of 30): the time
+FEATURES_LAYERS = 2          # phase 11 (of 30): the run's time
 MIXED_LAYERS = 4
 SPEC_K, SPEC_K8 = 4, 8       # draft budgets: verify at Sq 5 (split), 9 (rows)
 # The encoder path: the paper's models at full published width.
@@ -363,6 +394,7 @@ BERT_SEQ = 128
 VIT_SEQ = 197                # 196 patches + the class token
 PARITY_BATCH = 2             # bert-base fp32, card vs CPU
 PARITY_PROMPT, PARITY_STEPS = 24, 8   # decoders' fp32 greedy, card vs CPU
+ZOO_PARITY_STEPS = 2         # phases 16-19: the CPU's steps through 5-17 GiB
 N_IMAGE_TOKENS = 256         # internvl2's stub frontend: patch embeddings
 # The SSM paths: full-width mamba2-1.3b and zamba2-2.7b, contiguous caches.
 MAMBA, ZAMBA = "mamba2-1.3b", "zamba2-2.7b"
@@ -372,11 +404,11 @@ SSM_GEN = 16
 MAMBA_PROMPT = 384           # Q 128: the state carried over three chunks
 SOLO_PROMPTS = (200, 131)    # Q 100 over two chunks; Q 1 over 131
 ZAMBA_PROMPT = 64
-SSM_PARITY = {MAMBA: (4, 200), ZAMBA: (6, 64)}   # layers, prompt tokens
-# layers served (of 48 and 54; zamba2: three shared-attention groups):
+SSM_PARITY = {MAMBA: (2, 200), ZAMBA: (6, 64)}   # layers, prompt tokens
+# layers served (of 48 and 54; zamba2: two shared-attention groups):
 # the run's time
-SSM_SERVE_LAYERS = {MAMBA: 16, ZAMBA: 18}
-SSM_PARITY_STEPS = 8
+SSM_SERVE_LAYERS = {MAMBA: 8, ZAMBA: 12}
+SSM_PARITY_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -1675,10 +1707,11 @@ def compare_greedy(tag, toks_g, lg_g, toks_c, lg_c):
     return errs, diverged
 
 
-def run_parity_phase(cfg, tag="parity", paged=True):
+def run_parity_phase(cfg, tag="parity", paged=True, steps=PARITY_STEPS):
     """fp32 at full width, ``cfg``'s depth (phase 4): the card's kernel
     path against the CPU plain path through greedy_run (2 rows of
-    PARITY_PROMPT tokens, the VLM's behind its image embeddings), over
+    PARITY_PROMPT tokens, the VLM's behind its image embeddings, then
+    ``steps`` greedy steps), over
     paged caches or, ``paged`` False, contiguous ones. The weights are
     drawn on the card (seconds, where the host's draw takes minutes at
     billions of parameters) and held on the host."""
@@ -1694,13 +1727,13 @@ def run_parity_phase(cfg, tag="parity", paged=True):
     host_gib = sum(t.numel() * t.element_size() for t in tree_tensors(
         cpu_params)) / 2**30
     batch = greedy_batch(cfg, np.random.default_rng(3), 2, PARITY_PROMPT)
-    toks_g, lg_g, _ = greedy_run(cfg32, gpu_params, "cuda", batch,
-                                 PARITY_STEPS, paged)
+    toks_g, lg_g, _ = greedy_run(cfg32, gpu_params, "cuda", batch, steps,
+                                 paged)
     del gpu_params
     gc.collect()
     torch.cuda.empty_cache()
-    toks_c, lg_c, _ = greedy_run(cfg32, cpu_params, "cpu", batch,
-                                 PARITY_STEPS, paged)
+    toks_c, lg_c, _ = greedy_run(cfg32, cpu_params, "cpu", batch, steps,
+                                 paged)
     del cpu_params
     errs, diverged = compare_greedy(tag, toks_g, lg_g, toks_c, lg_c)
     res = dict(layers=cfg.n_layers, paged=paged, host_weights_gib=host_gib,
@@ -2023,7 +2056,8 @@ def run_int8_serving_phase(cfg):
                stats=stats)
 
     # fp32: the card's int8 path against the CPU plain path
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=INT8_PARITY_LAYERS)
     batch = greedy_batch(cfg, np.random.default_rng(13), 2, PARITY_PROMPT)
     runs = {}
     t0 = time.perf_counter()
@@ -2057,7 +2091,8 @@ def run_int8_serving_phase(cfg):
                               streams_equal=parted is None,
                               first_divergence=parted, first_tie_flip=flip,
                               seconds=time.perf_counter() - t0)
-    log(f"int8 parity fp32 full width (W8A8 + int8 KV): logits max|d| per "
+    log(f"int8 parity fp32 full width, {INT8_PARITY_LAYERS} layers (W8A8 + "
+        f"int8 KV): logits max|d| per "
         f"step {[f'{e:.2e}' for e in errs]}; streams "
         f"{'equal' if parted is None else f'part at {parted}'}; first int8 "
         f"value rounded differently: {flip}")
@@ -2635,7 +2670,7 @@ def run_features_phase(cfg):
 # (phase 13), each cut to its first IDENTITY_LAYERS layers at full width
 # for the run's time (a row's bits do not depend on the depth).
 IDENTITY_ARCHS = ("smollm-135m", "qwen2-1.5b")
-IDENTITY_LAYERS = 4
+IDENTITY_LAYERS = 2
 
 
 def solo_streams(cfg, params, prompts, rids, kv_dtype):
@@ -2718,12 +2753,12 @@ def run_identity_phase(cfg, params):
 # ---------------------------------------------------------------------------
 
 # arch: (layers served, None for the published depth — cut for the run's
-# time: 4 of 28, 4 of 36, 4 of 52; layers of the fp32 card-vs-CPU
+# time: 2 of 28, 2 of 36, 2 of 52; layers of the fp32 card-vs-CPU
 # parity; the int8 run: None, "kv" (int8 KV pages) or "w8a8" (W8A8
 # weights and int8 KV pages))
-DENSE_MODELS = {"qwen2-1.5b": (4, 4, "w8a8"),
-                "qwen3-8b": (4, 2, None),
-                "granite-20b": (4, 2, "kv")}
+DENSE_MODELS = {"qwen2-1.5b": (2, 2, "w8a8"),
+                "qwen3-8b": (2, 1, None),
+                "granite-20b": (2, 1, "kv")}
 
 
 def serve_dense(tag, cfg, params, required, **kw):
@@ -2805,7 +2840,8 @@ def run_dense_phase(arch, layers, parity_layers, int8):
     gc.collect()
     torch.cuda.empty_cache()
     res["parity"] = run_parity_phase(
-        dataclasses.replace(full, n_layers=parity_layers), f"{arch} parity")
+        dataclasses.replace(full, n_layers=parity_layers), f"{arch} parity",
+        steps=ZOO_PARITY_STEPS if arch in ZOO_MODELS else PARITY_STEPS)
     return res
 
 
@@ -2818,7 +2854,7 @@ VLM, AUDIO, DBRX, DEEPSEEK = ("internvl2-76b", "musicgen-medium", "dbrx-132b",
 # arch: (layers on the card, None for the published depth; layers of the
 # fp32 card-vs-CPU parity). deepseek's count includes its leading dense
 # layer: 1 + 2 MoE layers on the card, 1 + 1 in parity.
-ZOO_MODELS = {VLM: (4, 1), AUDIO: (12, 4), DBRX: (4, 1), DEEPSEEK: (3, 2)}
+ZOO_MODELS = {VLM: (2, 1), AUDIO: (4, 2), DBRX: (2, 1), DEEPSEEK: (3, 2)}
 VLM_TEXT, VLM_STEPS = 64, 8
 AUDIO_PROMPT, AUDIO_STEPS = 64, 32
 
@@ -2928,15 +2964,15 @@ def run_vlm_phase():
     torch.cuda.empty_cache()
     res["parity"] = run_parity_phase(
         dataclasses.replace(cfg, n_layers=ZOO_MODELS[VLM][1]),
-        f"{VLM} parity", paged=True)
+        f"{VLM} parity", paged=True, steps=ZOO_PARITY_STEPS)
     return res
 
 
 def run_audio_phase():
-    """musicgen-medium (phase 17), 12 of its 48 layers: prefill 8 x 64
+    """musicgen-medium (phase 17), 4 of its 48 layers: prefill 8 x 64
     frames of 4 codebooks, then AUDIO_STEPS greedy steps (argmax per
     codebook) through forward over contiguous caches (K3) and over paged
-    caches through a shuffled block table (K4); fp32 parity at 4 layers."""
+    caches through a shuffled block table (K4); fp32 parity at 2 layers."""
     cfg = zoo_config(AUDIO)
     params, gib = zoo_params(cfg)
     pack_in_place(params)
@@ -2952,7 +2988,7 @@ def run_audio_phase():
     torch.cuda.empty_cache()
     res["parity"] = run_parity_phase(
         dataclasses.replace(cfg, n_layers=ZOO_MODELS[AUDIO][1]),
-        f"{AUDIO} parity", paged=True)
+        f"{AUDIO} parity", paged=True, steps=ZOO_PARITY_STEPS)
     return res
 
 
@@ -2973,7 +3009,7 @@ def run_mla_phase():
     torch.cuda.empty_cache()
     res["parity"] = run_parity_phase(
         dataclasses.replace(cfg, n_layers=ZOO_MODELS[DEEPSEEK][1]),
-        f"{DEEPSEEK} parity", paged=False)
+        f"{DEEPSEEK} parity", paged=False, steps=ZOO_PARITY_STEPS)
     return res
 
 
@@ -2997,7 +3033,7 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 128       # B 8 x 128 tokens from TokenPipeline
 # ln V (10.81 -> 10.95 on an H100; the same on the CPU at smoke width,
 # where 512 ids fall 10.86 -> 8.57). The model keeps its full vocabulary.
 TRAIN_DATA_VOCAB = 512
-TRAIN_STEPS, TRAIN_CKPT = 10, 5       # a checkpoint at step 5, resumed
+TRAIN_STEPS, TRAIN_CKPT = 4, 2        # a checkpoint at step 2, resumed
 TRAIN_LR, TRAIN_WARMUP = 3e-3, 5
 TRAIN_FP32_LAYERS, TRAIN_FP32_BATCH = 2, 4
 # AdamW's first step moves a weight by lr x g / (|g| + eps), about lr
@@ -3367,9 +3403,10 @@ def run_dots_step(cfg, params, opt, batch, opt_cfg, tc, per_step):
     """Phase 20's remat "dots" step: from one state and batch, the loss
     and every gradient under "full" and "dots" (within GEMM_TOLS, and
     whether bitwise equal); K1's launches of a train step under "dots"
-    (``per_step`` gains them) equal to those with remat off; each policy's
-    train step: device busy time, peak memory above the state, and the
-    dry run's temporaries of the same step on ``meta``."""
+    (``per_step`` gains them) equal to those with remat off and to the
+    dry run's of the same step on ``meta``; each policy's train step:
+    device busy time and peak memory above the state; the dry run's
+    temporaries of the "dots" step."""
     from repro_torch.core import api
     from repro_torch.core.plan import UNFUSED, GemmPolicy
     from repro_torch.launch import dryrun as DR
@@ -3399,13 +3436,16 @@ def run_dots_step(cfg, params, opt, batch, opt_cfg, tc, per_step):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         busy, host = device_busy_ms(lambda: step(params, opt, batch), 1)
-        dry = DR.run_step(c, "train", TRAIN_BATCH, TRAIN_SEQ)
         res[policy] = dict(
             loss=float(loss), k1_launches={k: launches[k] for k in K1_TRAIN},
             device_busy_ms=busy, host_wall_ms=host,
-            peak_mem_above_state_bytes=peak,
-            dry_run_temp_bytes=dry["memory"]["temp_size_in_bytes"],
-            dry_run_k1_launches=DR.launch_counters(dry)["matrixflow_gemm"])
+            peak_mem_above_state_bytes=peak)
+        if policy == "dots":       # the dry run of the step it checks
+            dry = DR.run_step(c, "train", TRAIN_BATCH, TRAIN_SEQ)
+            res[policy].update(
+                dry_run_temp_bytes=dry["memory"]["temp_size_in_bytes"],
+                dry_run_k1_launches=DR.launch_counters(dry)[
+                    "matrixflow_gemm"])
     (lf, gf), (ld, gd) = grads["full"], grads["dots"]
     check_close("dots loss", ld, lf, atol, rtol)
     err = max(check_close(f"dots grad {i}", b, a, atol, rtol)
@@ -3428,9 +3468,10 @@ def run_dots_step(cfg, params, opt, batch, opt_cfg, tc, per_step):
         + "; ".join(f"{p}: device busy {r['device_busy_ms']:.1f} ms of "
                     f"{r['host_wall_ms']:.1f} ms host, peak "
                     f"{r['peak_mem_above_state_bytes'] / 2**30:.3f} GiB above"
-                    f" the state, dry-run temporaries "
-                    f"{r['dry_run_temp_bytes'] / 2**30:.3f} GiB"
-                    for p, r in res.items() if p in ("full", "dots")))
+                    f" the state"
+                    for p, r in res.items() if p in ("full", "dots"))
+        + f"; dots dry-run temporaries "
+        f"{res['dots']['dry_run_temp_bytes'] / 2**30:.3f} GiB")
     return res
 
 
@@ -4248,10 +4289,15 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
     within GEMM_TOLS["float32"] wherever the one-device update is
     settled, TP_TRAIN_SETTLED) and, given ``ref_mu``, first moment (the
     worst leaf's relative distance). Given ``ties`` (a compressed step:
-    masks like the params of the elements whose one-device gradient lies
-    at an int8 rounding tie, :func:`quantization_ties`), an element
-    outside the tolerance at a tie is counted apart (``tie_partings``,
-    ``mu_tie_partings``) and left out of the moment's distance, not held. Every element of the model is some rank's, so the ranks
+    the one-device |g| / scale like the params, :func:`quantization_ties`),
+    an element outside the tolerance at an int8 rounding tie (within
+    POD_TIE of a half-integer) is counted apart (``tie_partings``,
+    ``mu_tie_partings``) and left out of the moment's distance, not held;
+    the largest parting outside the ties of the first moment's worst leaf
+    is reported (``mu_worst_parting``: the leaf, the element's |g| /
+    scale, its distance from the half-integer and the int8 quanta it parts
+    by; ``leaf_partings`` and ``count``, the elements of the leaf and of
+    every leaf outside the ties that part by half a quantum or more). Every element of the model is some rank's, so the ranks
     together hold every param to the one-device step's."""
     from repro_torch.launch import steps as ST
     from repro_torch.optim import AdamWConfig, cosine_schedule
@@ -4265,8 +4311,10 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
     lr = float(cosine_schedule(torch.zeros((), dtype=torch.int32),
                                base_lr=TP_TRAIN_LR, warmup=100, total=10))
     wd = AdamWConfig().weight_decay
-    tie_cut = [None] * len(tree_leaves(ref)) if ties is None else \
+    ratio_cut = [None] * len(tree_leaves(ref)) if ties is None else \
         tree_leaves(ST.rank_params(cfg, ties, mesh))
+    tie_cut = [None if r is None else tie_distance(r) < POD_TIE
+               for r in ratio_cut]
     worst = worst_settled = moved = 0.0
     bad = unsettled = n = tied = 0
     for got, want, was, tie in zip(tree_leaves(out.pop("params")),
@@ -4288,23 +4336,43 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
         moved = max(moved, float((want - was).abs().max()))
         n += got.numel()
     del ref
-    grad_rel, mu_tied = None, 0
+    grad_rel, mu_tied, mu_worst, mu_parted = None, 0, None, 0
     if ref_mu is not None:
         grad_rel = 0.0
-        for got, want, tie in zip(
+        for leaf, (got, want, tie, r) in enumerate(zip(
                 tree_leaves(mu), tree_leaves(ST.rank_params(cfg, ref_mu, mesh)),
-                tie_cut):
+                tie_cut, ratio_cut)):
             d = got - want
             if tie is not None:      # a tie rounded the other way: one step
-                mu_tied += int(((d.abs() > atol + rtol * want.abs())
-                                & tie).sum())
+                outside = d.abs() > atol + rtol * want.abs()
+                mu_tied += int((outside & tie).sum())
                 d = torch.where(tie, torch.zeros_like(d), d)
+                # one int8 step of this leaf's first moment
+                q = torch.round(r.flatten()).clamp(min=1)
+                step = float((want.abs().flatten() / q).max())
+                away = d.abs().flatten()
+                mu_parted += int((away > 0.5 * step).sum())
+                rel = float(torch.linalg.vector_norm(d)
+                            / torch.linalg.vector_norm(want))
+                i = int(away.argmax())
+                if float(away[i]) > 0 and (mu_worst is None
+                                           or rel > mu_worst["leaf_rel_diff"]):
+                    mu_worst = dict(
+                        leaf=leaf, shape=list(got.shape), index=i,
+                        g_over_scale=float(r.flatten()[i]),
+                        tie_distance=float(tie_distance(r.flatten()[i])),
+                        abs_diff=float(away[i]),
+                        quanta=float(away[i]) / step if step else None,
+                        leaf_partings=int((away > 0.5 * step).sum()),
+                        leaf_rel_diff=rel)
             grad_rel = max(grad_rel, float(torch.linalg.vector_norm(d)
                                            / torch.linalg.vector_norm(want)))
     return dict(grad_leaf_max_rel_diff=grad_rel, param_max_abs_diff=worst,
                 settled_param_max_abs_diff=worst_settled,
                 params_outside_tol=bad, unsettled_outside_tol=unsettled,
-                tie_partings=tied, mu_tie_partings=mu_tied, param_count=n,
+                tie_partings=tied, mu_tie_partings=mu_tied,
+                mu_worst_parting=mu_worst and dict(mu_worst, count=mu_parted),
+                param_count=n,
                 one_device_step_max_abs=moved)
 
 
@@ -4324,7 +4392,8 @@ def check_adamw_gate(tag, f, one):
             not f["grad_leaf_max_rel_diff"] <= TP_TRAIN_GRAD_RTOL:
         fail(f"{tag}: a gradient leaf (AdamW's first moment) "
              f"{f['grad_leaf_max_rel_diff']:.3e} of its norm from the "
-             f"one-device step's (> {TP_TRAIN_GRAD_RTOL})")
+             f"one-device step's (> {TP_TRAIN_GRAD_RTOL}); largest parting "
+             f"outside the int8 ties {f.get('mu_worst_parting')}")
     if f["params_outside_tol"] or f["unsettled_outside_tol"] > \
             TP_TRAIN_UNSETTLED * f["param_count"]:
         fail(f"{tag}: {f['params_outside_tol']} params whose update is "
@@ -5033,17 +5102,21 @@ def pod_config():
 
 
 def quantization_ties(grads):
-    """Masks like ``grads`` (one device's) of the elements whose g /
-    scale lies within POD_TIE of a half-integer, the scale the step's
-    (``steps._grad_amax``: a layer's leaf scaled as the reference's
-    stacked tensor)."""
+    """|g| / scale of every element of ``grads`` (one device's), the
+    scale the step's (``steps._grad_amax``: a layer's leaf scaled as the
+    reference's stacked tensor): an element within POD_TIE of a
+    half-integer is at an int8 rounding tie (:func:`tie_distance`)."""
     from repro_torch.launch import steps as ST
     from repro_torch.optim.adamw import tree_map
 
-    def one(g, amax):
-        r = g.abs() / (torch.clamp(amax, min=1e-12) / 127.0)
-        return (r - torch.floor(r) - 0.5).abs() < POD_TIE
-    return tree_map(one, grads, ST._grad_amax(grads, None, None))
+    return tree_map(lambda g, amax: g.abs() / (torch.clamp(amax, min=1e-12)
+                                               / 127.0),
+                    grads, ST._grad_amax(grads, None, None))
+
+
+def tie_distance(r):
+    """How far each |g| / scale of ``r`` lies from a half-integer."""
+    return (r - torch.floor(r) - 0.5).abs()
 
 
 def pod_rank(rank, world, root, refs, ties):
@@ -5051,7 +5124,7 @@ def pod_rank(rank, world, root, refs, ties):
     step (compressed on the second) from its share of the seeded weights,
     held to the one-device step (``refs``: the plain and the compressed
     step's (params, first moment); ``ties``: the compressed step's
-    rounding ties; through CUDA IPC)."""
+    |g| / scale, :func:`quantization_ties`; through CUDA IPC)."""
     sys.path.insert(0, str(Path(root) / "src"))
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5160,7 +5233,9 @@ def run_pod_phase():
                 rk[name]["grad_leaf_max_rel_diff"] for rk in ranks],
             "tie_partings": [rk[name]["tie_partings"] for rk in ranks],
             "mu_tie_partings": [rk[name]["mu_tie_partings"]
-                                for rk in ranks]}
+                                for rk in ranks],
+            "mu_worst_parting": [rk[name]["mu_worst_parting"]
+                                 for rk in ranks]}
         pod_ar = got["by_axes"].get("all_reduce:pod")
         log(f"pod {ARCH} ({POD_LAYERS} layers, full width, B {POD_BATCH} x "
             f"{POD_SEQ}) on {name}"
@@ -5170,7 +5245,9 @@ def run_pod_phase():
             f"{res[name]['fp32_param_max_abs_diff']}, worst first-moment "
             f"leaf rel |d| {res[name]['fp32_grad_leaf_max_rel_diff']}, "
             f"partings at ties (params) {res[name]['tie_partings']} (first "
-            f"moment) {res[name]['mu_tie_partings']}; pod all-reduce (rank 0) {pod_ar} "
+            f"moment) {res[name]['mu_tie_partings']}, largest first-moment "
+            f"parting outside them {res[name]['mu_worst_parting']}; pod "
+            f"all-reduce (rank 0) {pod_ar} "
             f"vs dry run {d['collectives_by_axes'].get('all_reduce:pod')}; "
             f"collectives by axes {got['by_axes']}; K1 rank 0 "
             f"{got['k1']}")
@@ -5432,13 +5509,19 @@ LONG_SEED = 30
 # these caches (0.145 against 0.047 at step 3 of "both see keys", the
 # states parted by then; 0.082 against 0.039 at step 1 of the other)
 LONG_CONTROL_FACTOR = 4
-# K3 with its log-sum-exp at zamba2's shared block (H = Hkv = 32, D 80):
-# (name, Sq, keys, dtype): a decode over the one-device cache and over a
-# rank's half, a 64-row prefill chunk (rows), fp32 (the CUDA cores)
-LSE_CELLS = (("split, one device", 1, LONG_SEQ, "bfloat16"),
-             ("split, a rank", 1, LONG_SEQ // LONG_WORLD, "bfloat16"),
-             ("rows, prefill 64", 64, 4096, "bfloat16"),
-             ("cuda cores", 1, 65536, "float32"))
+# K3 with its log-sum-exp, (arch, name, Sq, keys, dtype): at zamba2's
+# shared block (H = Hkv = 32, D 80; phase 30(a)) a decode over the
+# one-device cache and over a rank's half, a 64-row prefill chunk (rows),
+# fp32 (the CUDA cores); at deepseek-v2's MLA (H = Hkv = 128, q/k 192, v
+# 128; phase 31(a)) a decode over a rank's 16,384 latent columns and over
+# one device's 32,768, a 64-row prefill chunk over a rank's columns
+LSE_CELLS = ((ZAMBA, "split, one device", 1, LONG_SEQ, "bfloat16"),
+             (ZAMBA, "split, a rank", 1, LONG_SEQ // LONG_WORLD, "bfloat16"),
+             (ZAMBA, "rows, prefill 64", 64, 4096, "bfloat16"),
+             (ZAMBA, "cuda cores", 1, 65536, "float32"),
+             (DEEPSEEK, "mla split, a rank", 1, 16384, "bfloat16"),
+             (DEEPSEEK, "mla split, one device", 1, 32768, "bfloat16"),
+             (DEEPSEEK, "mla rows, prefill 64", 64, 16384, "bfloat16"))
 # out of a phase 30(a) cell: max |kernel - plain| at most this share of
 # the plain output's RMS, beside ATTN_TOLS (bf16 rounds the largest
 # values, about 4 RMS, by up to 0.008 RMS on each side)
@@ -5466,8 +5549,9 @@ LSE_SCORE_GAP = 3.0
 LSE_PLANT_STEP = 31                  # columns between two rows' planted keys
 
 
-def lse_inputs(gen, Sq, Sk, H, Hkv, D, dt):
-    """q, k, v of a phase 30(a) cell, random with planted keys: for every
+def lse_inputs(gen, Sq, Sk, H, Hkv, D, Dv, dt):
+    """q, k, v of a phase 30(a) cell (q/k head dim D, v Dv), random with
+    planted keys: for every
     query row r and KV head h, a key in each half of the columns (r *
     LSE_PLANT_STEP + 7 and Sk/2 + r * LSE_PLANT_STEP + 11, visible to
     every row) scaled from q so that its score is s_h (spread over
@@ -5478,8 +5562,8 @@ def lse_inputs(gen, Sq, Sk, H, Hkv, D, dt):
     over ten, and the output is of the planted values' size."""
     g = H // Hkv
     q = torch.randn((1, Sq, H, D), generator=gen, device="cuda").to(dt)
-    k, v = (torch.randn((1, Sk, Hkv, D), generator=gen, device="cuda")
-            for _ in range(2))
+    k = torch.randn((1, Sk, Hkv, D), generator=gen, device="cuda")
+    v = torch.randn((1, Sk, Hkv, Dv), generator=gen, device="cuda")
     qf = q.float()[0, :, ::g]                               # (Sq, Hkv, D)
     lo, hi = LSE_SCORES
     s = lo + (hi - lo) * torch.arange(Hkv, device="cuda") / max(Hkv - 1, 1)
@@ -5490,7 +5574,7 @@ def lse_inputs(gen, Sq, Sk, H, Hkv, D, dt):
         score = torch.where(high, s, s - LSE_SCORE_GAP)     # (Hkv,)
         alpha = score / (D ** -0.5 * (qf * qf).sum(-1))     # (Sq, Hkv)
         k[0, cols] = alpha[..., None] * qf
-        v[0, cols] = 2 * torch.randn((Sq, Hkv, D), generator=gen,
+        v[0, cols] = 2 * torch.randn((Sq, Hkv, Dv), generator=gen,
                                      device="cuda")
     return q, k.to(dt), v.to(dt)
 
@@ -5500,8 +5584,9 @@ def within(got, want, atol, rtol) -> bool:
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
-def run_lse_kernel_phase(timer):
-    """Phase 30(a). K3 with ``return_lse=True`` at LSE_CELLS on the route
+def run_lse_kernel_phase(timer, arch=ZAMBA):
+    """Phase 30(a) (phase 31(a) with ``arch`` deepseek-v2-236b). K3 with
+    ``return_lse=True`` at ``arch``'s LSE_CELLS on the route
     its chooser names, over planted keys (:func:`lse_inputs`): out and lse
     held to the plain version within ATTN_TOLS, out also within
     LSE_OUT_RMS of its own RMS, and the lse less its row's mean over the
@@ -5516,17 +5601,21 @@ def run_lse_kernel_phase(timer):
     from repro_torch.distributed import tp as TP
     from repro_torch.kernels import flash_attention as FA
 
-    cfg = get_config(ZAMBA)
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cfg = get_config(arch)
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    D, Dv = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim) \
+        if cfg.is_mla else (cfg.head_dim, cfg.head_dim)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(LONG_SEED)
     rows = []
-    for name, Sq, Sk, dtype_name in LSE_CELLS:
+    for cell_arch, name, Sq, Sk, dtype_name in LSE_CELLS:
+        if cell_arch != arch:
+            continue
         dt = getattr(torch, dtype_name)
         atol, rtol = ATTN_TOLS[dtype_name]
-        q, k, v = lse_inputs(gen, Sq, Sk, H, Hkv, D, dt)
+        q, k, v = lse_inputs(gen, Sq, Sk, H, Hkv, D, Dv, dt)
         cell = (f"flash_attention lse {name} Sq={Sq} Sk={Sk} H={H} "
-                f"Hkv={Hkv} D={D} {dtype_name}")
+                f"Hkv={Hkv} D={D} Dv={Dv} {dtype_name}")
         before = counts()
         got, lse = FA.flash_attention(q, k, v, return_lse=True)
         route = route_taken(before, counts(), "flash_attention")
@@ -5565,7 +5654,7 @@ def run_lse_kernel_phase(timer):
         mask = None if bool(vis.all()) else vis[None, None]
         t_lib = timer.ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
         b_ms, b_by = bound_ms("flash_attention", route, B=1, Sq=Sq, Sk=Sk,
-                              H=H, Hkv=Hkv, D=D, Dv=D, dtype=dt, keys=Sk,
+                              H=H, Hkv=Hkv, D=D, Dv=Dv, dtype=dt, keys=Sk,
                               pairs=int(vis.sum()), lse=True)
         merge_err = lse_gap = None
         if Sq == 1:                  # two cuts of the keys, merged
@@ -5798,7 +5887,7 @@ def run_long_phase():
     from repro_torch.models import transformer as T
 
     t0 = time.perf_counter()
-    res = {"kernels": run_lse_kernel_phase(Timer())}
+    res = {"kernels": run_lse_kernel_phase(Timer(), ZAMBA)}
     t_a = time.perf_counter() - t0
     one, feeds, control = {}, {}, {}
     for dtype_name in LONG_LAYERS:
@@ -5947,6 +6036,376 @@ def run_long_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: MLA's latent cache cut over the sequence (deepseek-v2-236b under
+# the kvseq arm's act_kv_seq -> model) and K3 at (192, 128) with its
+# log-sum-exp
+# ---------------------------------------------------------------------------
+
+MLA_CUT_WORLD = 2                    # mesh (data 1, model 2)
+MLA_CUT_RULES = {"act_kv_seq": "model"}
+# by dtype: (layers, latent columns, each row's written length). bf16: the
+# dense layer and 1 MoE layer over decode_32k's 32,768 columns, row 0's
+# prefill chunk crossing the ranks' boundary (16,352..16,415), row 1's in
+# rank 0's half (rank 1 sees none of row 1); fp32: the dense layer alone
+# over 8,192 columns, the rows placed alike
+MLA_CUT = {"bfloat16": (2, 32768, (16352, 10000)),
+           "float32": (1, 8192, (4064, 2500))}
+MLA_CUT_CHUNK = 64                   # the prefill chunk, then the steps
+MLA_CUT_STEPS = 4
+MLA_CUT_SEED = 31
+
+
+def mla_cut_config(dtype_name):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(DEEPSEEK),
+                               n_layers=MLA_CUT[dtype_name][0],
+                               dtype=dtype_name)
+
+
+def mla_cut_caches(cfg, ctx=None):
+    """deepseek's latent caches of MLA_CUT's rows and columns at their
+    written lengths, drawn on the card from MLA_CUT_SEED (the sink column
+    zero): the same on every process; with a rank's context, its cut of
+    them (``tp.shard_caches``). The halves differ, so the merge's weights
+    decide the output: the second's latent at half the scale (smaller
+    scores), each half's about a mean of its own (values about a mean of
+    their own once up-projected)."""
+    from repro_torch.distributed import tp as TP
+    from repro_torch.models import transformer as T
+    _, seq, lens = MLA_CUT[cfg.dtype]
+    gen = torch.Generator(device="cuda").manual_seed(MLA_CUT_SEED)
+    caches = T.init_caches(cfg, len(lens), seq, cfg.dtype, "cuda")
+    half = seq // MLA_CUT_WORLD
+    for c in caches:
+        for name in ("ckv", "krope"):
+            t = c[name]
+            t[:, :seq].normal_(generator=gen)
+            t[:, half:seq].mul_(0.5)
+            for sl in (slice(0, half), slice(half, seq)):
+                t[:, sl].add_(torch.randn(t.shape[2:], generator=gen,
+                                          device="cuda").to(t.dtype))
+        c["len"].copy_(torch.tensor(lens, dtype=c["len"].dtype))
+    if ctx is None:
+        return caches
+    cut = TP.shard_caches(caches, ctx, shard_kv=False)
+    del caches
+    torch.cuda.empty_cache()
+    return cut
+
+
+def mla_cut_serve(cfg, params, caches, ctx, feed=None):
+    """The serving steps over contiguous latent caches (K3 at (192, 128)):
+    a MLA_CUT_CHUNK-token prefill chunk from each row's length, then
+    MLA_CUT_STEPS greedy decode steps; logits (1 + steps, B, vocab) and
+    greedy tokens a step, each step's wall time and collectives. ``feed``
+    gives each decode step's input tokens (another run's greedy stream),
+    else the previous step's argmax."""
+    from repro_torch.core.plan import AttentionPolicy
+    from repro_torch.distributed import tp as TP
+    from repro_torch.serving.engine import make_decode_step, \
+        make_prefill_step
+    _, _, lens = MLA_CUT[cfg.dtype]
+    B = len(lens)
+    attn = AttentionPolicy(backend="fused")
+    prefill = make_prefill_step(cfg, attn=attn, tpctx=ctx)
+    decode = make_decode_step(cfg, attn=attn, tpctx=ctx)
+    rng = np.random.default_rng(MLA_CUT_SEED)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab, (B, MLA_CUT_CHUNK))
+                             .astype(np.int32)).cuda()
+    pos = (torch.tensor(lens, dtype=torch.int32, device="cuda")[:, None]
+           + torch.arange(MLA_CUT_CHUNK, dtype=torch.int32, device="cuda"))
+    logits, toks, step_ms, coll = [], [], [], []
+    with torch.no_grad():
+        for i in range(1 + MLA_CUT_STEPS):
+            TP.collectives.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                lg, caches = prefill(params, {"tokens": chunk,
+                                              "positions": pos}, caches)
+                pos = pos[:, -1:] + 1
+            else:
+                if feed is not None:
+                    tok = torch.tensor(feed[i - 1], dtype=torch.int32,
+                                       device="cuda")[:, None]
+                lg, caches = decode(params, tok, pos, caches)
+                pos = pos + 1
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            c = TP.collectives.snapshot()
+            c["by_axes"] = TP.collectives.by_axes(
+                ctx.mesh if ctx is not None else None)
+            coll.append(c)
+            tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+            logits.append(lg.float())
+            toks.append(tok[:, 0].tolist())
+    return torch.stack(logits).cpu(), toks, step_ms, coll, caches
+
+
+def latent_bytes(caches, real=False):
+    """Bytes of the latent caches (``real``: without the sink column)."""
+    return sum((c[n][:, :-1] if real else c[n]).numel()
+               * c[n].element_size() for c in caches
+               for n in ("ckv", "krope"))
+
+
+def mla_cut_gathers(cfg, Sq):
+    """The closed form of a step's all-gathers over model, a layer: the
+    rank's queries of its heads to every head (B x Sq x H x 192 in the
+    model's dtype), then the merge's partials (2 ranks x B x Sq x H x (128
+    + 1) fp32): (calls, bytes)."""
+    B, H = len(MLA_CUT[cfg.dtype][2]), cfg.n_heads
+    D = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    es = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    per_layer = (B * Sq * H * D * es
+                 + MLA_CUT_WORLD * B * Sq * H * (cfg.v_head_dim + 1) * 4)
+    return 2 * cfg.n_layers, per_layer * cfg.n_layers
+
+
+def mla_cut_kernels(dtype_name):
+    """(required, allowed) launch counters of a phase 31 run: bf16 on the
+    tensor cores, K3 on both routes (rows at the chunk, split at decode);
+    fp32 on the CUDA cores."""
+    if dtype_name == "bfloat16":
+        return K1_BF16 + K3_BF16, ()
+    return ("matrixflow_gemm", "flash_attention"), CUDA_CORE_COUNTERS
+
+
+def mla_cut_rank(rank, world, root, feeds):
+    """One rank of phase 31 on cuda:0, mesh (data 1, model 2) under the
+    kvseq arm's rules: each dtype's prefill and decode over its cut of the
+    latent caches, fed the one-device greedy tokens (``feeds``): logits,
+    tokens, the collectives of every step, its latent bytes, the launches
+    and its peak allocation; bf16 again with the ranks' partials merged
+    with equal weights (a planted fault)."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.distributed import tp as TP
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import param_axes
+
+    mesh = make_host_mesh(model=MLA_CUT_WORLD)
+    out = {"coords": dict(mesh.coords)}
+    for dtype_name in MLA_CUT:
+        cfg = mla_cut_config(dtype_name)
+        ctx = ST.serve_context(cfg, mesh, extra_overrides=MLA_CUT_RULES)
+        whole = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+        params = TP.shard_params(whole, param_axes(cfg), ctx,
+                                 units=TP.head_units(cfg))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        caches = mla_cut_caches(cfg, ctx)
+        offsets = [int(c["seq_offset"]) for c in caches]
+        reset_counts()
+        lg, toks, step_ms, coll, caches = mla_cut_serve(
+            cfg, params, caches, ctx, feeds[dtype_name])
+        torch.cuda.synchronize()
+        attn = params["dense_layer0"]["attn"]
+        out[dtype_name] = dict(
+            logits=lg, tokens=toks, step_ms=step_ms, collectives=coll,
+            latent_bytes=latent_bytes(caches), latent_bytes_real=latent_bytes(
+                caches, True), offsets=offsets, launches=counts(),
+            lens=[c["len"].tolist() for c in caches],
+            wkv_b=list(attn["wkv_b"].shape), wq_b=list(attn["wq_b"].shape),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del caches
+        if dtype_name == "bfloat16":
+            # planted fault: the ranks' partials merged with equal weights,
+            # whatever their log-sum-exps; it must fail the bf16 gate
+            real_merge = TP.merge_stack
+            TP.merge_stack = lambda o_r, lse_r: o_r.float().mean(dim=0)
+            try:
+                out[(dtype_name, "fault")] = mla_cut_serve(
+                    cfg, params, mla_cut_caches(cfg, ctx), ctx,
+                    feeds[dtype_name])[0]
+            finally:
+                TP.merge_stack = real_merge
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_mla_cut_phase():
+    """Phase 31. (a) K3 at (192, 128) with its log-sum-exp against its
+    plain version (:func:`run_lse_kernel_phase` at deepseek's LSE_CELLS);
+    (b) deepseek-v2-236b at full width (MLA_CUT's layers), its latent
+    caches drawn on the card: a prefill chunk and MLA_CUT_STEPS decode
+    steps on one device, then on MLA_CUT_WORLD gloo ranks of the card
+    whose latent is cut over model with the query heads (the kvseq arm's
+    rules: each rank up-projects its own columns for every head through a
+    whole wkv_b, gathers the queries, merges over model), each rank fed the
+    one-device tokens: fp32 logits within GEMM_TOLS and tokens equal;
+    bf16 logits within GEMM_TOLS at step 0 (the prefill) and after it no
+    farther from one device's than LONG_CONTROL_FACTOR times a one-device
+    control's (each decode's keys over two cluster CTAs; its own tokens
+    must not part); a planted fault (an equal-weight merge) must fail that
+    gate; each rank's latent columns half of one device's; every step's
+    all-gathers the closed form (:func:`mla_cut_gathers`), a decode step's
+    collectives the dry run's."""
+    import tempfile
+
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    res = {"kernels": run_lse_kernel_phase(Timer(), DEEPSEEK)}
+    t_a = time.perf_counter() - t0
+    one, feeds, control = {}, {}, {}
+    for dtype_name in MLA_CUT:
+        cfg = mla_cut_config(dtype_name)
+        params = T.init_model(cfg, seed=0, device="cuda", draw_device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        lg, toks, step_ms, _, caches = mla_cut_serve(
+            cfg, params, mla_cut_caches(cfg), None)
+        one[dtype_name] = dict(
+            logits=lg, tokens=toks, step_ms=step_ms,
+            latent_bytes=latent_bytes(caches),
+            latent_bytes_real=latent_bytes(caches, True),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=read_counts(f"mla cut one device {dtype_name}",
+                                 *mla_cut_kernels(dtype_name)))
+        feeds[dtype_name] = toks[:-1]
+        del caches
+        if not bool(torch.isfinite(lg).all()):
+            fail(f"mla cut one device {dtype_name}: logits not finite")
+        # control: the same steps fed the same tokens, each decode's keys
+        # over two cluster CTAs (B x Hkv pairs fill the SMs: one CTA a
+        # pair otherwise), another merge order
+        real_split = FA.split_count
+        FA.split_count = lambda *a: 2
+        try:
+            ctrl, ctrl_toks, _, _, _ = mla_cut_serve(
+                cfg, params, mla_cut_caches(cfg), None, toks[:-1])
+        finally:
+            FA.split_count = real_split
+        if ctrl_toks != toks:
+            fail(f"mla cut {DEEPSEEK} {dtype_name}: the one-device "
+                 f"control's tokens {ctrl_toks} part from one device's "
+                 f"{toks}")
+        control[dtype_name] = ctrl
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mla_cut_") as work:
+        ranks = spawn(mla_cut_rank, MLA_CUT_WORLD, (str(ROOT), feeds),
+                      workdir=work, timeout_s=TP_RANKS_TIMEOUT_S,
+                      collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t1
+    res["cases"] = {}
+    problems = []                  # every case is printed before a failure
+    for dtype_name, ref in one.items():
+        atol, rtol = GEMM_TOLS[dtype_name]
+        cfg = mla_cut_config(dtype_name)
+        _, seq, lens = MLA_CUT[dtype_name]
+        d = DR.run_step(cfg, "decode", len(lens), seq,
+                        mesh=Mesh.abstract((1, MLA_CUT_WORLD),
+                                           ("data", "model")),
+                        rules_overrides=MLA_CUT_RULES)
+        want_ag = [mla_cut_gathers(cfg, MLA_CUT_CHUNK if i == 0 else 1)
+                   for i in range(1 + MLA_CUT_STEPS)]
+        ref_lg = ref["logits"].flatten(1)          # (steps, B x vocab)
+        row = {"one_device": {k: v for k, v in ref.items()
+                              if k != "logits"}, "ranks": []}
+        cdiff = (control[dtype_name].flatten(1) - ref_lg).abs()
+        for r, rk in enumerate(ranks):
+            got = rk[dtype_name]
+            tag = f"mla cut {DEEPSEEK} {dtype_name} rank {r}"
+            diff = (got["logits"].flatten(1) - ref_lg).abs()
+            ok = diff <= atol + rtol * ref_lg.abs()
+            parted = [i for i, (a, b) in enumerate(zip(got["tokens"],
+                                                       ref["tokens"]))
+                      if a != b]
+            if dtype_name == "float32" and (not bool(ok.all()) or parted):
+                problems.append(
+                    f"{tag}: logits max |d| by step "
+                    f"{diff.amax(dim=1).tolist()} from one device's "
+                    f"(atol={atol} rtol={rtol}), tokens {got['tokens']} "
+                    f"(one device {ref['tokens']})")
+            fault = {}
+            if dtype_name == "bfloat16":
+                over = long_bf16_over(diff, cdiff, ok)
+                if over:
+                    problems.append(
+                        f"{tag}: logits max |d| by step "
+                        f"{diff.amax(dim=1).tolist()} from one device's "
+                        f"fail the bf16 gate at steps {over} (step 0 within"
+                        f" GEMM_TOLS, later {LONG_CONTROL_FACTOR} x the "
+                        f"one-device control's {cdiff.amax(dim=1).tolist()})")
+                fdiff = (rk[(dtype_name, "fault")].flatten(1) - ref_lg).abs()
+                f_ok = fdiff <= atol + rtol * ref_lg.abs()
+                fault = dict(max_abs_diff_by_step=fdiff.amax(dim=1).tolist(),
+                             outside_tols=(~f_ok).sum(dim=1).tolist(),
+                             failing_steps=long_bf16_over(fdiff, cdiff, f_ok))
+                if 0 not in fault["failing_steps"]:
+                    problems.append(
+                        f"{tag}: the planted fault (an equal-weight merge) "
+                        f"passes the bf16 gate at step 0: {fault}")
+            if 2 * got["latent_bytes_real"] != ref["latent_bytes_real"]:
+                problems.append(
+                    f"{tag}: latent columns {got['latent_bytes_real']} B are "
+                    f"not half of one device's {ref['latent_bytes_real']} B")
+            ag = [(c["by_axes"].get("all_gather:model", {}).get("calls", 0),
+                   c["by_axes"].get("all_gather:model", {}).get("bytes", 0))
+                  for c in got["collectives"]]
+            if ag != want_ag:
+                problems.append(f"{tag}: all-gathers a step {ag}, closed "
+                                f"form {want_ag}")
+            c = got["collectives"][2]
+            if d["collectives_by_axes"] != c["by_axes"] \
+                    or d["collective_counts"] != c["calls"]:
+                problems.append(
+                    f"{tag}: a decode step's collectives {c} differ from the "
+                    f"dry run's ({d['collective_counts']}, "
+                    f"{d['collectives_by_axes']})")
+            required, allowed = mla_cut_kernels(dtype_name)
+            check_counts(tag, got["launches"],
+                         required + ("flash_attention_lse",), allowed)
+            row["ranks"].append(dict(
+                {k: v for k, v in got.items() if k != "logits"},
+                logits_max_abs_diff_by_step=diff.amax(dim=1).tolist(),
+                outside_tols=(~ok).sum(dim=1).tolist(), parted_steps=parted,
+                control_max_abs_diff_by_step=cdiff.amax(dim=1).tolist(),
+                equal_weight_merge_fault=fault, all_gathers_closed_form=want_ag))
+            log(f"{tag}: logits max |d| by step {diff.amax(dim=1).tolist()} "
+                f"({(~ok).sum(dim=1).tolist()} of {ok.shape[1]} outside "
+                f"GEMM_TOLS; one-device control {cdiff.amax(dim=1).tolist()}"
+                f"), tokens {got['tokens']} (one device {ref['tokens']}; "
+                f"parted at {parted}), latent {got['latent_bytes']} B (one "
+                f"device {ref['latent_bytes']} B), offsets {got['offsets']}, "
+                f"wkv_b {got['wkv_b']} wq_b {got['wq_b']}, planted "
+                f"equal-weight merge {fault}, decode step "
+                f"{statistics.median(got['step_ms'][1:]):.1f} ms (one device "
+                f"{statistics.median(ref['step_ms'][1:]):.1f}), prefill "
+                f"{got['step_ms'][0]:.1f} ms ({ref['step_ms'][0]:.1f}), "
+                f"all-gathers a step {ag} (closed form {want_ag}), a decode "
+                f"step's collectives {c['by_axes']} (dry run "
+                f"{d['collectives_by_axes']}), peak {got['peak_gib']:.2f} GiB "
+                f"(one device {ref['peak_gib']:.2f}), launches "
+                f"{ {k: v for k, v in got['launches'].items() if v} }")
+        res["cases"][dtype_name] = row
+    if problems:
+        fail("; ".join(problems))
+    res["launches"] = {f"{n} rank {r}": rk[n]["launches"]
+                       for r, rk in enumerate(ranks) for n in one}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"mla cut: phase {res['seconds']:.1f} s ((a) {t_a:.1f} s, ranks "
+        f"{t_ranks:.1f} s)")
+    return res
+
+
 def slice_paths(report) -> dict:
     """The launch counts of phases 20, 22, 23, 24, 26, 27, 28 and 29's
     paths, by path. Of the slice entries of the kernels line
@@ -5992,6 +6451,8 @@ def slice_paths(report) -> dict:
         out["analysis ops facade"] = report["analysis"]["facade_launches"]
     for name, c in report.get("long", {}).get("launches", {}).items():
         out[f"long {ZAMBA} {name} decode"] = c
+    for name, c in report.get("mla_cut", {}).get("launches", {}).items():
+        out[f"mla cut {DEEPSEEK} {name} prefill + decode"] = c
     return out
 
 
@@ -6052,9 +6513,19 @@ def slice_entries(report) -> list:
         entry("flash_attention_lse", "flash_attention_lse",
               "flash_attention", "src/repro/kernels/flash_attention.py:199",
               report["long"]["kernels"], "bfloat16", "split, a rank",
-              ("split, one device", "rows, prefill 64"), prefix="long ")
+              ("split, one device", "rows, prefill 64"),
+              prefix=("long ", "mla cut "))
         out[-1]["float32"] = aggregate(report["long"]["kernels"], "float32",
                                        "cuda cores")
+    if "mla_cut" in report:       # its (192, 128) instance (phase 31)
+        entry("flash_attention_lse_d192", "flash_attention_lse",
+              "flash_attention", "src/repro/kernels/flash_attention.py:199",
+              report["mla_cut"]["kernels"], "bfloat16", "mla split, a rank",
+              ("mla split, one device", "mla rows, prefill 64"),
+              prefix="mla cut ")
+        out[-1]["launches_by_route"] = {
+            r: sum(c[f"flash_attention_{r}"] for p, c in paths.items()
+                   if p.startswith("mla cut ")) for r in ATTN_ROUTES}
     if "tp_kernels" in report:
         tk, tp = report["tp_kernels"], f"tp{TP_WORLD} "
         rank = tp_rank_config().name
@@ -6185,6 +6656,15 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
+    if sys.argv[1:2] == ["--mla-cut"]:        # phase 31 alone
+        report["mla_cut"] = run_mla_cut_phase()
+        (OUT_DIR / "chip_smoke_mla_cut.json").write_text(
+            json.dumps(report, indent=1, default=str))
+        print(json.dumps({"kernels": slice_entries(report)}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     if sys.argv[1:2] == ["--analysis"]:       # phase 29 alone
         report["analysis"] = run_analysis_phase()
         (OUT_DIR / "chip_smoke_analysis.json").write_text(
@@ -6253,9 +6733,11 @@ def main() -> None:
     begin("encoders")
     report["encoders"] = run_encoder_phase(bert, vit)
     begin("contiguous")
-    report["contiguous"] = run_contiguous_phase(cfg)
+    report["contiguous"] = run_contiguous_phase(
+        dataclasses.replace(cfg, n_layers=SERVE_CUT_LAYERS))
     begin("int8_serving")
-    report["int8_serving"] = run_int8_serving_phase(cfg)
+    report["int8_serving"] = run_int8_serving_phase(
+        dataclasses.replace(cfg, n_layers=SERVE_CUT_LAYERS))
     begin("mamba2_serving")
     report["mamba2_serving"] = run_ssm_serving_phase(
         dataclasses.replace(mamba, n_layers=SSM_SERVE_LAYERS[MAMBA]),
@@ -6303,6 +6785,8 @@ def main() -> None:
     report["analysis"] = run_analysis_phase()
     begin("long")
     report["long"] = run_long_phase()
+    begin("mla_cut")
+    report["mla_cut"] = run_mla_cut_phase()
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))
 

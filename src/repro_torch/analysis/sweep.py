@@ -364,55 +364,76 @@ def sweep_configs(archs: Optional[Sequence[str]] = None,
     return entries
 
 
-# K3 with its log-sum-exp at a rank's shape of a cut cache: the cell whose
-# rules cut a KV cache's sequence (zamba2-2.7b at long_500k on the 16 x 16
-# mesh: 2 of its 32 heads a rank, 32,768 of 524,288 keys), on each route:
+# K3 with its log-sum-exp at a rank's shape of a cut cache, on each route:
 # the decode step (split), a 64-row prefill chunk (rows) and fp32 (the CUDA
-# cores).
+# cores). The cells whose rules cut a cache's sequence: zamba2-2.7b at
+# long_500k on the 16 x 16 mesh (2 of its 32 heads a rank, 32,768 of
+# 524,288 keys) and deepseek-v2-236b's latent at decode_32k under the
+# kvseq arm's act_kv_seq -> model (8 rows a rank, every one of its 128
+# heads at (192, 128), 2,048 of 32,768 keys).
 LSE_ARCH, LSE_SHAPE, LSE_PREFILL = "zamba2-2.7b", "long_500k", 64
+LSE_CELLS = ((LSE_ARCH, LSE_SHAPE, None),
+             ("deepseek-v2-236b", "decode_32k", {"act_kv_seq": "model"}))
 
 
-def lse_rank_shape(arch: str = LSE_ARCH, shape_name: str = LSE_SHAPE):
+def lse_rank_shape(arch: str = LSE_ARCH, shape_name: str = LSE_SHAPE,
+                   overrides: Optional[Dict] = None):
     """(B, H, Hkv, D, keys) a rank of the production mesh attends with
     over its cut of the cell's KV caches (``tp.seq_cut``,
-    ``tp.head_sharding``, the cell's rules)."""
+    ``tp.head_sharding``, the cell's rules with ``overrides``): its rows
+    of the batch, its heads (MLA: every head where the latent's cut
+    takes the model axis, ``tp.latent_up_whole``), the q/k head dim and
+    its columns."""
     from repro_torch.configs.registry import SHAPES, get_config
     from repro_torch.distributed import tp as TP
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import Mesh, production_mesh_shape
+    from repro_torch.models import transformer as T
     cfg, shape = get_config(arch), SHAPES[shape_name]
-    ctx = ST.serve_context(cfg, Mesh.abstract(*production_mesh_shape()),
-                           shape)
-    cut = TP.seq_cut(ctx, "k", (shape.batch, shape.seq, cfg.n_kv_heads,
-                                cfg.head_dim))
+    mesh = Mesh.abstract(*production_mesh_shape())
+    ctx = ST.serve_context(cfg, mesh, shape, overrides)
+    cut = T.cache_seq_cut(cfg, shape.batch, shape.seq, ctx)
+    rows = mesh.size // ctx.model_size
+    B = shape.batch // rows if shape.batch % rows == 0 else shape.batch
     _, shard_kv = TP.head_sharding(ctx, cfg.n_heads, cfg.n_kv_heads)
-    mp = ctx.model_size if shard_kv else 1
-    return (shape.batch, cfg.n_heads // mp, cfg.n_kv_heads // mp,
-            cfg.head_dim, cut.cols if cut is not None else shape.seq)
+    if cfg.is_mla:
+        mp = 1 if TP.latent_up_whole(ctx) or not shard_kv \
+            else ctx.model_size
+        D = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    else:
+        mp = ctx.model_size if shard_kv else 1
+        D = cfg.head_dim
+    return (B, cfg.n_heads // mp, cfg.n_kv_heads // mp, D,
+            cut.cols if cut is not None else shape.seq)
 
 
 def sweep_lse(device: str = "cuda") -> List[SweepEntry]:
     """Contract-check K3 with its log-sum-exp output at
-    :func:`lse_rank_shape` on each route."""
+    :func:`lse_rank_shape` of each of :data:`LSE_CELLS` on each route."""
     import torch
+    from repro_torch.configs.registry import get_config
     flash = get_contract_builder("flash_attention")
-    B, H, Hkv, D, keys = lse_rank_shape()
     entries = []
-    for tag, Sq, dt in (("decode", 1, torch.bfloat16),
-                        (f"prefill {LSE_PREFILL}", LSE_PREFILL,
-                         torch.bfloat16),
-                        ("decode fp32", 1, torch.float32)):
-        if not _card(device) and dt != torch.float32:
-            continue
-        cell = dict(B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=keys, D=D, Dv=D,
-                    block_q=128, block_k=128, device=device, dtype=dt,
-                    lse=True)
-        entries.append(_entry(
-            "flash_attention",
-            f"lse {LSE_ARCH} {LSE_SHAPE} rank {tag} H={H} Hkv={Hkv} D={D} "
-            f"keys={keys}", flash(**cell),
-            attention_route("flash_attention", dt, Sq, H // Hkv, dt, device),
-            cell))
+    for arch, shape_name, overrides in LSE_CELLS:
+        B, H, Hkv, D, keys = lse_rank_shape(arch, shape_name, overrides)
+        cfg = get_config(arch)
+        Dv = cfg.v_head_dim if cfg.is_mla else D
+        for tag, Sq, dt in (("decode", 1, torch.bfloat16),
+                            (f"prefill {LSE_PREFILL}", LSE_PREFILL,
+                             torch.bfloat16),
+                            ("decode fp32", 1, torch.float32)):
+            if not _card(device) and dt != torch.float32:
+                continue
+            cell = dict(B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=keys, D=D, Dv=Dv,
+                        block_q=128, block_k=128, device=device, dtype=dt,
+                        lse=True)
+            entries.append(_entry(
+                "flash_attention",
+                f"lse {arch} {shape_name} rank {tag} B={B} H={H} "
+                f"Hkv={Hkv} D={D} Dv={Dv} keys={keys}", flash(**cell),
+                attention_route("flash_attention", dt, Sq, H // Hkv, dt,
+                                device),
+                cell))
     return entries
 
 

@@ -22,7 +22,10 @@ collective itself:
     ``data`` for the ``long_500k`` cells) holds the rank's columns
     (:func:`seq_cut`); attention runs K3 over them with its log-sum-exp
     and merges the ranks' partials over that axis's group (one
-    ``all_gather``).
+    ``all_gather``). MLA's latent cache is cut alike; where its cut and
+    the query heads share the model axis, a rank holds the up-projection
+    ``wkv_b`` whole (:func:`latent_up_whole`), gathers the queries and
+    runs every head over its own columns.
   * **experts** (training only): a rank holds its experts' slice of the
     MoE banks, runs them on its experts' slots of the dispatch buffer and
     sums its part of the combine over the model group
@@ -81,8 +84,8 @@ __all__ = [
     "kv_group_slice", "take_kv_heads",
     "linear", "matmul", "attention", "embed", "conform_heads",
     "param_cut", "shard_params", "unshard_params", "shard_caches",
-    "SeqCut", "seq_cut", "seq_group", "latent_cut", "merge_partials",
-    "merge_stack",
+    "SeqCut", "seq_cut", "seq_group", "cut_attention", "merge_partials",
+    "merge_stack", "latent_up_whole",
     "head_units", "all_reduce",
     "all_reduce_max", "all_gather", "reduce_scatter", "broadcast", "gather",
     "on_slice", "to_ranks", "sum_over_ranks", "expert_slice",
@@ -739,12 +742,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``seq_offset`` (the 0-d ``seq_offset`` of a cache cut by
     :func:`seq_cut`) says that k/v hold the rank's columns ``[offset,
-    offset + T/n)`` of the T, ``kv_valid_len`` and ``q_positions`` the
-    global ones: attention runs over the rank's columns with the local
-    valid length ``clamp(len - offset, 0, T/n)`` and positions ``q_pos -
-    offset`` (all on the device), returning its log-sum-exp, and the
-    ranks' partials are merged over the group of the axes that cut the
-    cache (:func:`seq_group`, :func:`merge_partials`).
+    offset + T/n)`` of the T: :func:`cut_attention` over the group of the
+    axes that cut the cache (:func:`seq_group`).
     """
     ctx = current_tp()
     H, Hkv = heads
@@ -778,8 +777,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              policy=policy)
     if block_tables is not None:
         raise ValueError("tp: page pools are never cut over the sequence")
+    group = seq_group(ctx, "k", (k.shape[0], k.shape[1], Hkv, k.shape[3]))
+    return cut_attention(q, k, v, q_positions=q_positions,
+                         kv_valid_len=kv_valid_len, seq_offset=seq_offset,
+                         group=group, causal=causal, scale=scale,
+                         soft_cap=soft_cap, policy=policy)
+
+
+def cut_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_positions: torch.Tensor, kv_valid_len: torch.Tensor,
+                  seq_offset: torch.Tensor, group, causal: bool = True,
+                  scale: Optional[float] = None,
+                  soft_cap: Optional[float] = None,
+                  policy=None) -> torch.Tensor:
+    """Attention of q over every rank's keys, from the rank's columns of
+    a cache cut over the sequence: k/v (B, T/n, Hkv, D) hold the columns
+    ``[offset, offset + T/n)`` (``seq_offset``, 0-d), ``kv_valid_len`` and
+    ``q_positions`` are global. Attention runs over the rank's columns
+    with the local valid length ``clamp(len - offset, 0, T/n)`` and
+    positions ``q_pos - offset`` (all on the device), returning its
+    log-sum-exp, and the ranks' partials merge over ``group``
+    (:func:`merge_partials`). The heads are whatever q, k and v hold."""
     cols = k.shape[1]
-    group = seq_group(ctx, (k.shape[0], cols, Hkv, k.shape[3]))
     off = seq_offset.to(kv_valid_len.dtype)
     local_len = torch.clamp(kv_valid_len - off, 0, cols)
     local_pos = q_positions - seq_offset.to(q_positions.dtype)
@@ -800,6 +819,22 @@ def head_units(cfg) -> Dict[str, int]:
 
 
 _WHOLE_SUBTREES = ("ssd",)   # models/ssm.py runs its params whole
+_LATENT_UP = "wkv_b"         # MLA's up-projection of the latent cache
+
+
+def latent_up_whole(ctx: Optional[TPContext]) -> bool:
+    """Whether a rank holds MLA's up-projection ``wkv_b`` whole: the rules
+    cut the latent cache's sequence (``act_kv_seq``) over the model axis,
+    which the query heads take too, so each rank up-projects every head
+    over its own columns (``models/layers.py::mla_attention``). The
+    reference's GSPMD placement keeps it cut by heads."""
+    return _active(ctx) and ctx.wants_model("act_kv_seq")
+
+
+def _whole_keys(ctx: TPContext) -> Tuple[str, ...]:
+    """The param keys whose subtree a rank holds whole."""
+    return _WHOLE_SUBTREES + ((_LATENT_UP,) if latent_up_whole(ctx)
+                              else ())
 
 
 def _cut_bank(axes, experts: bool) -> bool:
@@ -831,6 +866,7 @@ def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
         return params
     units = units or {}
     mp, r = ctx.model_size, ctx.rank
+    whole_keys = _whole_keys(ctx)
 
     def rec(p, a, full, whole):
         if is_axis_leaf(a):
@@ -849,7 +885,7 @@ def shard_params(params, axes_tree, ctx: Optional[TPContext], *,
                     f"{tuple(full.shape)} nor its rank slice over {mp}")
             return p
         if isinstance(a, dict):
-            return {k: rec(p[k], v, full[k], whole or k in _WHOLE_SUBTREES)
+            return {k: rec(p[k], v, full[k], whole or k in whole_keys)
                     for k, v in a.items()}
         return [rec(pi, ai, fi, whole) for pi, ai, fi in zip(p, a, full)]
 
@@ -869,6 +905,7 @@ def unshard_params(params, axes_tree, ctx: Optional[TPContext], *,
     if not _active(ctx):
         return params
     units = units or {}
+    whole_keys = _whole_keys(ctx)
 
     def rec(p, a, full, whole):
         if is_axis_leaf(a):
@@ -881,7 +918,7 @@ def unshard_params(params, axes_tree, ctx: Optional[TPContext], *,
             return _gather(p.detach(), cut[0], full.shape[cut[0]], ctx,
                            cut[1])
         if isinstance(a, dict):
-            return {k: rec(p[k], v, full[k], whole or k in _WHOLE_SUBTREES)
+            return {k: rec(p[k], v, full[k], whole or k in whole_keys)
                     for k, v in a.items()}
         return [rec(pi, ai, fi, whole) for pi, ai, fi in zip(p, a, full)]
 
@@ -913,13 +950,15 @@ class SeqCut:
         return self.index * self.cols
 
 
-def seq_group(ctx: Optional[TPContext], local: Sequence[int]):
+def seq_group(ctx: Optional[TPContext], name: str, local: Sequence[int]):
     """The group over which attention merges on a rank's cut of a cache:
-    that of the axes :func:`seq_cut` cut it over. ``local`` is the rank's
-    (B, columns, global KV heads, D); its global length is stated as one
-    every span of the mesh divides, so the axes are the cut's own."""
+    that of the axes :func:`seq_cut` cut its leaf ``name`` over. ``local``
+    is the leaf's shape as the rank holds it, global but for its columns
+    (dim 1: "k" (B, columns, global KV heads, D), "ckv" (B, columns,
+    kv_lora_rank)); its global length is stated as one every span of the
+    mesh divides, so the axes are the cut's own."""
     cut = None if ctx is None or ctx.mesh is None else seq_cut(
-        ctx, "k", (local[0], local[1] * ctx.mesh.size, *local[2:]))
+        ctx, name, (local[0], local[1] * ctx.mesh.size, *local[2:]))
     if cut is None:
         raise ValueError("tp: a KV cache cut over the sequence, but the "
                          "active rules give its act_kv_seq no mesh axis "
@@ -997,11 +1036,11 @@ def shard_caches(caches, ctx: Optional[TPContext], *, shard_kv: bool):
     """The rank's caches, from whole ones: K/V leaves (dense ``k``/``v``
     or paged ``kp``/``vp``) cut to the rank's KV heads (axis -2) when
     ``shard_kv``, int8 pools' ``k_scale``/``v_scale`` on theirs (the last
-    axis); a contiguous cache's ``k``/``v`` also cut to the rank's columns
-    where :func:`seq_cut` cuts them (then the cache gains its
-    ``seq_offset``); lengths, the MLA latent and SSM state stay whole.
-    ``shard_kv`` must be the :func:`head_sharding` decision for the
-    model's (H, Hkv)."""
+    axis); a contiguous cache's ``k``/``v``, or MLA's latent ``ckv`` /
+    ``krope``, also cut to the rank's columns where :func:`seq_cut` cuts
+    them (then the cache gains its ``seq_offset``); lengths and SSM state
+    stay whole. ``shard_kv`` must be the :func:`head_sharding` decision
+    for the model's (H, Hkv)."""
     heads = _active(ctx) and shard_kv
     if ctx is None:
         return caches
@@ -1009,21 +1048,20 @@ def shard_caches(caches, ctx: Optional[TPContext], *, shard_kv: bool):
 
     def cut_node(node):
         out = {}
-        cut = None
+        cut, cols = None, ()
         if "k" in node and "v" in node and node["k"].dim() == 4:
-            k = node["k"]
-            cut = seq_cut(ctx, "k", (k.shape[0], k.shape[1] - 1,
-                                     *k.shape[2:]))
-        widths = {n: node[n].shape[-1] for n in _LATENT_LEAVES if n in node}
-        if widths:
-            t = node[next(iter(widths))]
-            if latent_cut(ctx, t.shape[0], t.shape[1] - 1, widths):
-                raise NotImplementedError(latent_cut_message())
+            cols = ("k", "v")
+        elif all(n in node for n in _LATENT_LEAVES):
+            cols = _LATENT_LEAVES
+        if cols:
+            t = node[cols[0]]
+            cut = seq_cut(ctx, cols[0], (t.shape[0], t.shape[1] - 1,
+                                         *t.shape[2:]))
         for key, val in node.items():
             if isinstance(val, (dict, list)):
                 out[key] = rec(val)
                 continue
-            if cut is not None and key in ("k", "v"):
+            if cut is not None and key in cols:
                 val = cut_sequence(val, cut)
             if heads and key in _KV_LEAVES and val.dim() >= 4:
                 val = shard_dim(val, -2, r, mp)
@@ -1031,7 +1069,7 @@ def shard_caches(caches, ctx: Optional[TPContext], *, shard_kv: bool):
                 val = shard_dim(val, -1, r, mp)
             out[key] = val
         if cut is not None:
-            out["seq_offset"] = seq_offset_tensor(cut, node["k"].device)
+            out["seq_offset"] = seq_offset_tensor(cut, node[cols[0]].device)
         return out
 
     def rec(node):
@@ -1040,20 +1078,3 @@ def shard_caches(caches, ctx: Optional[TPContext], *, shard_kv: bool):
         return cut_node(node)
 
     return rec(caches)
-
-
-def latent_cut(ctx: Optional[TPContext], batch: int, seq: int,
-               widths: Dict[str, int]) -> bool:
-    """Whether the rules of ``ctx`` cut MLA's latent cache over the
-    sequence: its leaves (``widths``: "ckv" and "krope" to their last
-    dims) at the reference's (batch, seq, width). The port keeps the
-    latent whole and refuses such a cut (:func:`latent_cut_message`)."""
-    return any(seq_cut(ctx, name, (batch, seq, w)) is not None
-               for name, w in widths.items())
-
-
-def latent_cut_message() -> str:
-    return ("MLA's latent cache (ckv, krope) cut over the sequence "
-            "(act_kv_seq) is not ported: every rank up-projects K and V "
-            "for its query heads from the whole latent (ROADMAP.md queue "
-            "1, item 13)")

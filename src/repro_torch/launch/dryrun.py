@@ -249,6 +249,16 @@ def _tree_bytes(tree) -> int:
     return 0
 
 
+def _leaves_named(tree, name: str) -> List:
+    """Every leaf of ``tree`` held under the key ``name``, in order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in ([v] if k == name else _leaves_named(v, name))]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_named(v, name)]
+    return []
+
+
 def _kv_bytes(caches) -> int:
     """Bytes of the caches' K/V (contiguous ``k``/``v`` with their sink
     column, MLA's latent, page pools), as the rank holds them."""
@@ -358,12 +368,12 @@ def _check_batch_and_cache_specs(cfg: ModelConfig, ctx, mesh, batch: int,
     spec only the rank's."""
     if ctx is None or rows == batch:
         return
-    cut = TP.seq_cut(ctx, "k", (batch, seq, cfg.n_kv_heads, cfg.head_dim))
+    leaf = T.cache_leaf(cfg, batch, seq)
+    cut = TP.seq_cut(ctx, *leaf)
     batch_axes = {a for a in ("pod", "data") if mesh.axis_size(a) > 1}
     if cut is not None and set(cut.axes) & batch_axes:
         bspec = ctx.rules.spec(["act_batch", None], (batch, seq))
-        cspec = shd.cache_spec(ctx.rules, "k", (batch, seq, cfg.n_kv_heads,
-                                                cfg.head_dim))
+        cspec = shd.cache_spec(ctx.rules, *leaf)
         raise ValueError(
             f"the batch spec {bspec} cuts {batch} rows over {sorted(batch_axes)}"
             f" and the KV cache spec {cspec} cuts the sequence over "
@@ -395,15 +405,6 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     parts = _placement_parts(cfg, mesh, shape_name, kind, batch, rows)
     if kind in ("prefill", "decode"):
         _check_batch_and_cache_specs(cfg, ctx, mesh, batch, rows, seq)
-        if cfg.is_mla and TP.latent_cut(ctx, rows, seq,
-                                        T.latent_widths(cfg)):
-            parts.append(dict(part="MLA latent cache", detail=(
-                "whole on every rank: the rules cut its sequence "
-                "(act_kv_seq), which the port does not port for the latent "
-                "(ckv, krope; ROADMAP.md queue 1, item 13)")))
-            ctx = ST.serve_context(cfg, mesh, SHAPES.get(shape_name),
-                                   dict(rules_overrides or {},
-                                        act_kv_seq=None))
     fsdp = kind == "train" and mesh is not None and mesh.axis_size("data") > 1
     if kind == "train":            # FSDP over data, slices over model
         params = ST.rank_params(cfg, T.init_model(cfg, device=META), mesh)
@@ -411,6 +412,16 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
         params = TP.shard_params(T.init_model(cfg, device=META),
                                  param_axes(cfg), ctx,
                                  units=TP.head_units(cfg))
+    if cfg.is_mla and TP.latent_up_whole(ctx):
+        held = _leaves_named(params, "wkv_b")
+        parts.append(dict(part="MLA up-projection wkv_b", detail=(
+            f"whole on every rank of the model axis, {_tree_bytes(held)} B "
+            f"a rank ({len(held)} layers of {tuple(held[0].shape)}), where "
+            f"the reference cuts it by heads: the rules cut the latent "
+            f"cache's sequence over the model axis (act_kv_seq), which the "
+            f"query heads take too, so a rank up-projects every head over "
+            f"its own columns, gathers the queries and keeps its heads of "
+            f"the merged attention")))
     if pack_weights:
         params = api.pack_model_weights(params)
     dt = cfg.param_dtype

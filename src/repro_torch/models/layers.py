@@ -326,16 +326,22 @@ def init_mla(gen, cfg: ModelConfig, dtype, device):
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                   device):
+                   device, seq_cut=None):
     """The latent cache: the normalized KV latent ``ckv`` (B, max_len + 1,
     kv_lora_rank) and the roped key part ``krope`` (B, max_len + 1,
     qk_rope_head_dim), each with the sink column of
-    :func:`init_attention_cache`, and ``len`` (B,)."""
-    return {"ckv": torch.zeros((batch, max_len + 1, cfg.kv_lora_rank),
-                               dtype=dtype, device=device),
-            "krope": torch.zeros((batch, max_len + 1, cfg.qk_rope_head_dim),
-                                 dtype=dtype, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    :func:`init_attention_cache`, and ``len`` (B,). With ``seq_cut``
+    (``tp.seq_cut`` of ``ckv``) the rank holds its columns and a sink of
+    its own, and ``seq_offset``, as :func:`init_attention_cache` does."""
+    cols = max_len if seq_cut is None else seq_cut.cols
+    cache = {"ckv": torch.zeros((batch, cols + 1, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+             "krope": torch.zeros((batch, cols + 1, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if seq_cut is not None:
+        cache["seq_offset"] = TP.seq_offset_tensor(seq_cut, device)
+    return cache
 
 
 def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
@@ -344,7 +350,16 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     (updated in place) or none. K and V are up-projected per head from the
     whole cache on every call, as the reference does; the cache itself
     stays compressed. q and k have qk_nope_head_dim + qk_rope_head_dim
-    dims, v has v_head_dim. Returns (y, cache)."""
+    dims, v has v_head_dim. Returns (y, cache).
+
+    Under TP the query heads, ``wq_b``'s and ``wkv_b``'s columns and
+    ``wo``'s rows are cut by heads. A latent cut over the sequence
+    (``cache["seq_offset"]``) holds the rank's columns: the rank
+    up-projects only those and K3 runs over them with its log-sum-exp,
+    merged over the cut's group (``tp.cut_attention``). Where the cut
+    takes the model axis too (``tp.latent_up_whole``), the rank holds
+    ``wkv_b`` whole, gathers the queries of every head, runs every head
+    over its columns, and keeps its own heads of the merge for ``wo``."""
     if block_tables is not None:
         raise NotImplementedError(
             "paged KV caches cover GQA attention only; the MLA latent cache "
@@ -353,9 +368,9 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     r, rq = cfg.kv_lora_rank, cfg.q_lora_rank
-    # Under TP the up-projections are column-parallel per head slice (the
-    # latent cache stays whole on every rank) and wo row-parallel.
-    shard_h, _ = TP.head_sharding(TP.current_tp(), H, H)
+    ctx = TP.current_tp()
+    shard_h, _ = TP.head_sharding(ctx, H, H)
+    up_whole = TP.latent_up_whole(ctx)
     q = rmsnorm(p["q_norm"], api.linear(x, p["wq_a"]))
     q = TP.linear(q, p["wq_b"], axes=("kv_lora", "heads"), units=H,
                   full=(rq, H * (dn + dr)))
@@ -365,29 +380,47 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     c_kv = rmsnorm(p["kv_norm"], ckv[..., :r])
     k_rope = rope(ckv[..., r:][:, :, None, :], positions,
                   cfg.rope_theta)[:, :, 0]
+    seq_offset = None
     if cache is not None:
         cache = _contiguous_cache_update(
             cache, {"ckv": c_kv, "krope": k_rope}, positions)
         T = cache["ckv"].shape[1] - 1          # the sink column stays unread
         c_all, kr_all = cache["ckv"][:, :T], cache["krope"][:, :T]
-        kv_valid = cache["len"]
+        kv_valid, seq_offset = cache["len"], cache.get("seq_offset")
     else:
         c_all, kr_all = c_kv, k_rope
         kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    kv = TP.linear(c_all, p["wkv_b"], axes=("kv_lora", "heads"), units=H,
-                   full=(r, H * (dn + dv)))
-    kv = TP.conform_heads(
-        kv.reshape(B, kv.shape[1], -1, dn + dv), H, shard_h)
+    every_head = up_whole and shard_h and seq_offset is not None
+    if up_whole:                   # wkv_b whole: every head's K and V
+        kv = api.linear(c_all, p["wkv_b"])
+    else:
+        kv = TP.linear(c_all, p["wkv_b"], axes=("kv_lora", "heads"),
+                       units=H, full=(r, H * (dn + dv)))
+    kv = kv.reshape(B, kv.shape[1], -1, dn + dv)
+    if not every_head:
+        kv = TP.conform_heads(kv, H, shard_h)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     # the one rope key, shared by every head: a rank of sliced heads reads
     # it for its heads only, so its gradient is summed over the group
     kr = TP.to_ranks(kr_all) if shard_h else kr_all
     k = torch.cat([k_nope, kr[:, :, None, :].expand(
         *k_nope.shape[:3], dr)], dim=-1)
-    out = TP.attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                       q_positions=positions, kv_valid_len=kv_valid,
-                       causal=True, scale=1.0 / math.sqrt(dn + dr),
-                       heads=(H, H))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = 1.0 / math.sqrt(dn + dr)
+    if seq_offset is None:
+        out = TP.attention(q, k, v, q_positions=positions,
+                           kv_valid_len=kv_valid, causal=True, scale=scale,
+                           heads=(H, H))
+    else:
+        if every_head:             # the cut and the heads share model
+            q = TP.all_gather(q, 2, ctx.group)
+        group = TP.seq_group(ctx, "ckv", (B, c_all.shape[1], r))
+        out = TP.cut_attention(q, k, v, q_positions=positions,
+                               kv_valid_len=kv_valid, seq_offset=seq_offset,
+                               group=group, causal=True, scale=scale)
+        if every_head:             # this rank's heads for the row-parallel wo
+            out = out.narrow(2, ctx.rank * (H // ctx.model_size),
+                             H // ctx.model_size)
     y = TP.linear(out.reshape(B, S, -1), p["wo"], axes=("heads", "embed"),
                   units=H, full=(H * dv, D))
     return y, cache

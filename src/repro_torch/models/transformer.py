@@ -358,9 +358,20 @@ def _rank_kv_cfg(cfg: ModelConfig, tpctx) -> ModelConfig:
         cfg, n_kv_heads=cfg.n_kv_heads // tpctx.model_size)
 
 
-def latent_widths(cfg: ModelConfig) -> Dict[str, int]:
-    """The last dims of MLA's latent cache leaves, by name."""
-    return {"ckv": cfg.kv_lora_rank, "krope": cfg.qk_rope_head_dim}
+def cache_leaf(cfg: ModelConfig, batch: int, max_len: int):
+    """(name, the reference's global shape) of the leaf that holds a
+    decoder's contiguous cache columns: MLA's latent ``ckv`` (batch,
+    max_len, kv_lora_rank), else ``k`` (batch, max_len, n_kv_heads,
+    head_dim)."""
+    if cfg.is_mla:
+        return "ckv", (batch, max_len, cfg.kv_lora_rank)
+    return "k", (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+
+
+def cache_seq_cut(cfg: ModelConfig, batch: int, max_len: int, tpctx):
+    """``tp.seq_cut`` of a decoder's contiguous cache (:func:`cache_leaf`)
+    under the TP context ``tpctx``."""
+    return TP.seq_cut(tpctx, *cache_leaf(cfg, batch, max_len))
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -375,22 +386,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     attn)}``). Under a TP context (``tpctx``) KV caches hold the rank's
     KV heads and, where the context's cache rules cut their sequence
     (``act_kv_seq``; ``tp.seq_cut``, from the reference's (batch, max_len,
-    n_kv_heads, head_dim)), the rank's columns. MLA's latent cache is not
-    cut: under rules that would cut it this raises NotImplementedError
-    (ROADMAP.md queue 1, item 13)."""
+    n_kv_heads, head_dim); MLA's latent from ``ckv``'s (batch, max_len,
+    kv_lora_rank): :func:`cache_seq_cut`), the rank's columns."""
     check_supported(cfg)
     if cfg.family in ENCODER_FAMILIES:
         raise ValueError(f"{cfg.name}: KV caches serve the decoder families; "
                          f"family {cfg.family!r} is an encoder")
     dtype = torch_dtype(dtype)
     kv_cfg = _rank_kv_cfg(cfg, tpctx)
+    cut = cache_seq_cut(cfg, batch, max_len, tpctx)
     if cfg.is_mla:
-        if TP.latent_cut(tpctx, batch, max_len, latent_widths(cfg)):
-            raise NotImplementedError(TP.latent_cut_message())
-        return [Lyr.init_mla_cache(cfg, batch, max_len, dtype, device)
+        return [Lyr.init_mla_cache(cfg, batch, max_len, dtype, device,
+                                   seq_cut=cut)
                 for _ in range(cfg.n_layers)]
-    cut = TP.seq_cut(tpctx, "k", (batch, max_len, cfg.n_kv_heads,
-                                  cfg.head_dim))
 
     def kv_cache():
         return Lyr.init_attention_cache(kv_cfg, batch, max_len, dtype,

@@ -979,6 +979,40 @@ def test_mla_split_route_at_forced_split_counts(cuda, monkeypatch, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 2, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_MLA_CASES), ids=str)
+def test_mla_lse_matches_plain(cuda, monkeypatch, case, dtype, splits):
+    """K3 with ``return_lse=True`` at (192, 128), as a rank of a latent cut
+    over the sequence runs it, on every route (split also over clusters of
+    2, 3 and 8 CTAs, where a row's lse is written by the rank whose share of
+    the (16, 128) tile holds its first element): out and lse within
+    ATTN_TOLS of the plain version, lse -inf exactly where a row sees no
+    key, the output bitwise the launch without lse."""
+    q, k, v, pos, kvl = _mla_inputs(cuda, dtype, *_MLA_CASES[case])
+    if splits is not None:
+        if FA.route_for(q.dtype, q.shape[1], 1) != "split":
+            pytest.skip("a split count applies to the split route")
+        monkeypatch.setattr(FA, "split_count", lambda *a: splits)
+    before = FA.flash_attention.lse_launches
+    got, lse = FA.flash_attention(q, k, v, pos, kvl, return_lse=True)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.lse_launches == before + 1
+    assert lse.shape == q.shape[:3]
+    assert torch.equal(got, FA.flash_attention(q, k, v, pos, kvl))
+    want, want_lse = FA.flash_attention_plain(
+        q, k, v, pos, kvl, causal=True, scale=192 ** -0.5, soft_cap=None,
+        return_lse=True)
+    atol, rtol = ATTN_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    dead = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    torch.testing.assert_close(lse[~dead], want_lse[~dead], atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_mla_rows_and_split_routes_each_match_plain(cuda):
     """Each position of a 64-column MLA prefill (rows) and a decode step at
     that position over the same keys (split) both hold the plain

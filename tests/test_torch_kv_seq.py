@@ -21,8 +21,8 @@ single-device path. CPU, smoke shapes, fp32; tolerances ``ATTN_TOLS`` /
   bytes of caches a rank and counts the merge's all_gathers; smollm at
   decode_32k under ``{"act_kv_seq": "model"}`` cuts on model; the batch
   and the cache specs that cannot both hold raise;
-* MLA's latent cache under a cutting rule raises (ROADMAP.md queue 1,
-  item 13), and the dry run lists it;
+* MLA's latent cache under the kvseq arm is cut, and the dry run lists
+  ``wkv_b`` held whole (the cut itself: ``tests/test_torch_mla_seq.py``);
 * K3's contract with the log-sum-exp output.
 """
 from __future__ import annotations
@@ -319,22 +319,28 @@ def test_dry_run_raises_where_batch_and_cache_specs_cannot_both_hold():
                     shape_name="long_500k")
 
 
-def test_mla_latent_cache_cut_raises_and_the_dry_run_lists_it():
-    cfg = get_smoke_config("deepseek-v2-236b", n_layers=2)
-    ctx = ST.serve_context(cfg, Mesh.abstract((1, 2), ("data", "model")),
-                           extra_overrides={"act_kv_seq": "model"})
-    with pytest.raises(NotImplementedError, match="ckv, krope"):
-        T.init_caches(cfg, 2, 64, "float32", "cpu", tpctx=ctx)
-    whole = T.init_caches(cfg, 2, 64, "float32", "cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TP.shard_caches(whole, ctx, shard_kv=False)
-    cfg = dataclasses.replace(cfg, qk_nope_head_dim=128, qk_rope_head_dim=64,
+def test_mla_latent_cache_cut_and_the_dry_run_holds_wkv_b_whole():
+    """Under the kvseq arm deepseek's smoke rank holds half the latent
+    (MLA's cut: tests/test_torch_mla_seq.py), and the dry run's parts from
+    the reference name wkv_b held whole (2 layers of kv_lora_rank x H x
+    256, bf16), no longer the latent."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b",
+                                               n_layers=2),
+                              qk_nope_head_dim=128, qk_rope_head_dim=64,
                               v_head_dim=128)
-    res = DR.run_step(cfg, "decode", 2, 64, attention=AttentionPolicy(
-        "fused"), mesh=Mesh.abstract((1, 2), ("data", "model")),
-        shape_name="decode_32k", rules_overrides={"act_kv_seq": "model"})
-    assert any(p["part"] == "MLA latent cache"
-               for p in res["parts_from_reference"])
+    mesh = Mesh.abstract((1, 2), ("data", "model"))
+    got = DR.run_step(cfg, "decode", 2, 64, attention=FUSED, mesh=mesh,
+                      shape_name="decode_32k",
+                      rules_overrides={"act_kv_seq": "model"})
+    whole = DR.run_step(cfg, "decode", 2, 64, attention=FUSED, mesh=mesh,
+                        shape_name="decode_32k")
+    assert got["kv_cache_bytes"] * 65 == whole["kv_cache_bytes"] * 33
+    parts = {p["part"]: p for p in got["parts_from_reference"]}
+    assert "MLA latent cache" not in parts
+    wkv_b = cfg.n_layers * cfg.kv_lora_rank * cfg.n_heads * 256 * 2
+    assert f"{wkv_b} B a rank" in parts["MLA up-projection wkv_b"]["detail"]
+    assert "MLA up-projection wkv_b" not in {
+        p["part"] for p in whole["parts_from_reference"]}
 
 
 # ---------------------------------------------------------------------------

@@ -929,3 +929,128 @@ def _init_caches(cfg, batch, max_len, ctx):
     from repro_torch.models import transformer as T
     return T.init_caches(cfg, batch, max_len, cfg.param_dtype, "cpu",
                          tpctx=ctx)
+
+
+# ---------------------------------------------------------------------------
+# MLA's latent cache cut over the sequence: deepseek's smoke config, the
+# latent's 64 columns in two halves
+# ---------------------------------------------------------------------------
+
+MLASEQ_MAX_LEN = 64           # two ranks: columns [0, 32) and [32, 64)
+MLASEQ_CHUNK = 8
+MLASEQ_STEPS = 4
+# mesh (data, model), the rules' overrides, each row's written length. On
+# (1, 2) the cut shares model with the query heads: row 0's prefill chunk
+# crosses from rank 0's half to rank 1's, row 1 stays in rank 0's (rank 1
+# sees none of it) with its last two columns bucket padding. On (2, 1) the
+# cut takes data, the heads model: long_500k's one row crosses too.
+MLASEQ_CASES = {"model": ((1, 2), {"act_kv_seq": "model"}, (28, 5)),
+                "data": ((2, 1), {"act_kv_seq": "data"}, (29,))}
+
+
+def mlaseq_config():
+    return get_smoke_config("deepseek-v2-236b", n_layers=2, vocab=64,
+                            dtype="float32")
+
+
+def mlaseq_state(cfg, lens, seed=7):
+    """Numpy inputs of a prefill chunk then decode steps over latent
+    caches at ``lens``: every layer's ``ckv`` (B, T, kv_lora_rank) and
+    ``krope`` (B, T, rope dim), the two halves' columns drawn apart; the
+    chunk's tokens, positions (row 1's last two columns -1) and each
+    row's last real column."""
+    rng = np.random.default_rng(seed)
+    B, T, half = len(lens), MLASEQ_MAX_LEN, MLASEQ_MAX_LEN // 2
+
+    def draw(width):
+        a = rng.standard_normal((B, T, width)).astype(np.float32)
+        a[:, half:] = 0.5 * a[:, half:] + 0.5
+        return a
+    latent = [{"ckv": draw(cfg.kv_lora_rank),
+               "krope": draw(cfg.qk_rope_head_dim),
+               "len": np.asarray(lens, np.int32)}
+              for _ in range(cfg.n_layers)]
+    tokens = rng.integers(0, cfg.vocab, (B, MLASEQ_CHUNK)).astype(np.int32)
+    pos = (np.asarray(lens, np.int32)[:, None]
+           + np.arange(MLASEQ_CHUNK, dtype=np.int32))
+    last = np.full((B,), MLASEQ_CHUNK - 1, np.int64)
+    if B > 1:
+        pos[1, -2:] = -1
+        last[1] = MLASEQ_CHUNK - 3
+    return latent, tokens, pos, last
+
+
+def mlaseq_port_caches(latent):
+    """The port's whole latent caches: a sink column after each."""
+    def sink(a):
+        return torch.from_numpy(np.concatenate(
+            [a, np.zeros_like(a[:, :1])], axis=1))
+    return [{"ckv": sink(c["ckv"]), "krope": sink(c["krope"]),
+             "len": torch.from_numpy(c["len"].copy())} for c in latent]
+
+
+def mlaseq_serve(cfg, params, caches, state, ctx, attn_policy):
+    """The chunk's prefill, then MLASEQ_STEPS greedy decode steps,
+    through the serving steps: (logits (1 + steps, B, vocab), tokens
+    (1 + steps, B), caches)."""
+    from repro_torch.serving.engine import make_decode_step, \
+        make_prefill_step
+    _, tokens, pos, last = state
+    prefill = make_prefill_step(cfg, attn=attn_policy, tpctx=ctx)
+    decode = make_decode_step(cfg, attn=attn_policy, tpctx=ctx)
+    logits = []
+    with torch.no_grad():
+        lg, caches = prefill(params, {
+            "tokens": torch.from_numpy(tokens),
+            "positions": torch.from_numpy(pos),
+            "last_cols": torch.from_numpy(last)}, caches)
+        nxt = torch.from_numpy(pos[np.arange(len(last)), last] + 1)[:, None]
+        toks = []
+        for i in range(MLASEQ_STEPS + 1):
+            if i:
+                lg, caches = decode(params, tok, nxt, caches)
+                nxt = nxt + 1
+            tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+            logits.append(lg.float().numpy())
+            toks.append(tok[:, 0].numpy())
+    return np.stack(logits), np.stack(toks), caches
+
+
+def mlaseq_rank(rank, world, params_np, policies):
+    """This rank's prefill and decode over its half of every latent
+    cache, for each case of :data:`MLASEQ_CASES` and attention policy:
+    logits, tokens, the collectives of the run, its caches' offsets and
+    shapes (cut whole caches and ``init_caches``), the up-projection's
+    shape as it holds it."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.module import param_axes
+    cfg = mlaseq_config()
+    whole = from_jax_params(params_np, cfg)
+    out = {}
+    for case, (shape, overrides, lens) in MLASEQ_CASES.items():
+        mesh = make_host_mesh(model=shape[1])
+        ctx = ST.serve_context(cfg, mesh, extra_overrides=overrides)
+        params = TP.shard_params(whole, param_axes(cfg), ctx,
+                                 units=TP.head_units(cfg))
+        state = mlaseq_state(cfg, lens)
+        for name in policies:
+            caches = TP.shard_caches(mlaseq_port_caches(state[0]), ctx,
+                                     shard_kv=False)
+            made = _init_caches(cfg, len(lens), MLASEQ_MAX_LEN, ctx)
+            TP.collectives.reset()
+            lg, toks, caches = mlaseq_serve(
+                cfg, params, caches, state, ctx,
+                AttentionPolicy(backend=name))
+            out[case, name] = dict(
+                logits=lg, tokens=toks,
+                collectives=TP.collectives.by_axes(mesh),
+                offsets=[int(c["seq_offset"]) for c in caches],
+                shapes=[(tuple(c["ckv"].shape), tuple(c["krope"].shape))
+                        for c in caches],
+                init=[(tuple(c["ckv"].shape), int(c["seq_offset"]))
+                      for c in made],
+                ckv=[c["ckv"][:, :-1].numpy() for c in caches],
+                lens=[c["len"].numpy() for c in caches],
+                wkv_b=tuple(params["layers"][0]["attn"]["wkv_b"].shape),
+                wq_b=tuple(params["layers"][0]["attn"]["wq_b"].shape))
+    return out
