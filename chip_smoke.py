@@ -224,7 +224,7 @@ CUDA toolkit. Phases, each fatal on failure:
              to the dry run's on ``Mesh.abstract``, K1 by route and its
              peak allocation printed; then a bf16 forward and backward
              timed on one device and a rank. (``--ep`` runs it alone.)
-28. pod axis — smollm-135m at full width, 10 of its 30 layers, B 8
+28. pod axis — smollm-135m at full width, 4 of its 30 layers, B 8
              x 128, one fp32
              AdamW step on one device, plain and with ``compress_grads``;
              then four ranks on (pod 2, data 2, model 1) with FSDP over
@@ -4240,37 +4240,53 @@ def tp_train_batch(cfg, batch=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ):
 
 
 def tp_train_step(cfg, params, mesh, lr=TP_TRAIN_LR, batch=None,
-                  compress=False):
+                  compress=False, overrides=None):
     """One make_train_step_fn step (AdamW, unfused attention, every GEMM
-    through K1; int8 gradients with ``compress``) of ``params`` (a rank's
-    slices on ``mesh``) on ``batch`` (default :func:`tp_train_batch`):
-    the new params, loss, gradient norm, the step's launches and
-    collectives (also by the axes each went over) and its first moment
-    (the clipped gradient, scaled by 1 - b1) and its host wall time."""
+    through K1; int8 gradients with ``compress``; the rules
+    ``overrides`` on the config's) of ``params`` (a rank's slices on
+    ``mesh``) on ``batch`` (default :func:`tp_train_batch`): the new
+    params, loss, gradient norm, the step's launches and collectives (also
+    by the axes each went over), its first moment (the clipped gradient,
+    scaled by 1 - b1), its host wall time, and the bytes of the blocks'
+    inputs that remat saves (the tensors handed to
+    ``torch.utils.checkpoint``)."""
     from repro_torch.core import api
     from repro_torch.core.plan import UNFUSED, GemmPolicy
     from repro_torch.distributed import tp as TP
     from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init
 
     step = ST.make_train_step_fn(
         cfg, AdamWConfig(lr=lr, compress_grads=compress), total_steps=10,
-        mesh=mesh)
+        mesh=mesh, rules_overrides=overrides)
     batch = tp_train_batch(cfg) if batch is None else batch
     opt = adamw_init(params)
+    saved = [0]
+    checkpoint = T.checkpoint
+
+    def counted(fn, *args, **kw):
+        saved[0] += sum(a.numel() * a.element_size() for a in args
+                        if torch.is_tensor(a))
+        return checkpoint(fn, *args, **kw)
     torch.cuda.synchronize()
     reset_counts()
     TP.collectives.reset()
     t0 = time.perf_counter()
-    with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
-        new, opt, met = step(params, opt, batch)
+    T.checkpoint = counted
+    try:
+        with api.use_policy(GemmPolicy()), api.use_attention_policy(UNFUSED):
+            new, opt, met = step(params, opt, batch)
+    finally:
+        T.checkpoint = checkpoint
     loss = float(met["loss"])
     torch.cuda.synchronize()
     return dict(params=new, mu=opt["mu"], loss=loss,
                 grad_norm=float(met["grad_norm"]),
                 launches=counts(), collectives=TP.collectives.snapshot(),
                 by_axes=TP.collectives.by_axes(mesh),
-                wall_ms=(time.perf_counter() - t0) * 1e3)
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                saved_block_input_bytes=saved[0])
 
 
 def k1_by_direction(c):
@@ -4282,17 +4298,26 @@ def k1_by_direction(c):
             "batched": c["matrixflow_gemm_batched"]}
 
 
-def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
+def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None,
+               tie_dr=None, measure=None):
     """A rank's fp32 step (``out``: tp_train_step's, from its cut
     ``init``) held leaf by leaf against the one-device step's params
     (``ref_params``, cut to the rank's share by ``steps.rank_params``:
     within GEMM_TOLS["float32"] wherever the one-device update is
     settled, TP_TRAIN_SETTLED) and, given ``ref_mu``, first moment (the
-    worst leaf's relative distance). Given ``ties`` (a compressed step:
-    the one-device |g| / scale like the params, :func:`quantization_ties`),
-    an element outside the tolerance at an int8 rounding tie (within
-    POD_TIE of a half-integer) is counted apart (``tie_partings``,
-    ``mu_tie_partings``) and left out of the moment's distance, not held;
+    worst leaf's relative distance). Given ``measure`` (the one-device
+    |g| / scale of a compressed step, :func:`quantization_ties`) on a step
+    without compression, each leaf's largest parting of an element's
+    |g| / scale is returned (``r_parting_by_leaf``, read off the first
+    moment). Given ``ties`` (a compressed step: the one-device |g| / scale
+    like the params) and ``tie_dr`` (that ``r_parting_by_leaf`` of the
+    same mesh without compression; required), an element outside the
+    tolerance at an int8 rounding tie (within :func:`tie_window` of a
+    half-integer) is counted apart (``tie_partings``: params outside the
+    tolerance; ``mu_tie_partings``: first-moment elements parted by half
+    an int8 step or more, the eight farthest from their half-integer
+    listed in ``mu_tie_elements`` with the steps they part by) and left
+    out of the moment's distance, not held;
     the largest parting outside the ties of the first moment's worst leaf
     is reported (``mu_worst_parting``: the leaf, the element's |g| /
     scale, its distance from the half-integer and the int8 quanta it parts
@@ -4311,10 +4336,14 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
     lr = float(cosine_schedule(torch.zeros((), dtype=torch.int32),
                                base_lr=TP_TRAIN_LR, warmup=100, total=10))
     wd = AdamWConfig().weight_decay
+    if ties is not None and tie_dr is None:
+        raise ValueError("a compressed step's ties need tie_dr, the "
+                         "partings of |g| / scale on its mesh without "
+                         "compression")
     ratio_cut = [None] * len(tree_leaves(ref)) if ties is None else \
         tree_leaves(ST.rank_params(cfg, ties, mesh))
-    tie_cut = [None if r is None else tie_distance(r) < POD_TIE
-               for r in ratio_cut]
+    tie_cut = [None if r is None else tie_distance(r) < tie_window(dr)
+               for r, dr in zip(ratio_cut, tie_dr or [None] * len(ratio_cut))]
     worst = worst_settled = moved = 0.0
     bad = unsettled = n = tied = 0
     for got, want, was, tie in zip(tree_leaves(out.pop("params")),
@@ -4337,19 +4366,35 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
         n += got.numel()
     del ref
     grad_rel, mu_tied, mu_worst, mu_parted = None, 0, None, 0
+    r_parting, tie_elements = None, []
     if ref_mu is not None:
         grad_rel = 0.0
-        for leaf, (got, want, tie, r) in enumerate(zip(
+        measured = [None] * len(tie_cut) if measure is None else \
+            tree_leaves(ST.rank_params(cfg, measure, mesh))
+        r_parting = [] if measure is not None else None
+        for leaf, (got, want, tie, r, m) in enumerate(zip(
                 tree_leaves(mu), tree_leaves(ST.rank_params(cfg, ref_mu, mesh)),
-                tie_cut, ratio_cut)):
+                tie_cut, ratio_cut, measured)):
             d = got - want
+            if m is not None:        # |g| / scale's parting, no compression
+                # |mu| / r: the leaf's scale, times the clip and 1 - beta1
+                unit = float(want.abs().max()) / float(m.max())
+                r_parting.append(float(d.abs().max()) / unit if unit
+                                 else 0.0)
             if tie is not None:      # a tie rounded the other way: one step
-                outside = d.abs() > atol + rtol * want.abs()
-                mu_tied += int((outside & tie).sum())
-                d = torch.where(tie, torch.zeros_like(d), d)
                 # one int8 step of this leaf's first moment
                 q = torch.round(r.flatten()).clamp(min=1)
                 step = float((want.abs().flatten() / q).max())
+                parted = (d.abs() > 0.5 * step) & tie
+                mu_tied += int(parted.sum())
+                for i in torch.nonzero(parted.flatten())[:, 0]:
+                    ri = r.flatten()[i]
+                    tie_elements.append(dict(
+                        leaf=leaf, index=int(i), g_over_scale=float(ri),
+                        tie_distance=float(tie_distance(ri)),
+                        window=tie_window(tie_dr[leaf]),
+                        quanta=float(d.flatten()[i].abs()) / step))
+                d = torch.where(tie, torch.zeros_like(d), d)
                 away = d.abs().flatten()
                 mu_parted += int((away > 0.5 * step).sum())
                 rel = float(torch.linalg.vector_norm(d)
@@ -4361,16 +4406,20 @@ def adamw_gate(cfg, mesh, out, init, ref_params, ref_mu=None, ties=None):
                         leaf=leaf, shape=list(got.shape), index=i,
                         g_over_scale=float(r.flatten()[i]),
                         tie_distance=float(tie_distance(r.flatten()[i])),
+                        window=tie_window(tie_dr[leaf]),
                         abs_diff=float(away[i]),
                         quanta=float(away[i]) / step if step else None,
                         leaf_partings=int((away > 0.5 * step).sum()),
                         leaf_rel_diff=rel)
             grad_rel = max(grad_rel, float(torch.linalg.vector_norm(d)
                                            / torch.linalg.vector_norm(want)))
+    tie_elements.sort(key=lambda e: -e["tie_distance"])
     return dict(grad_leaf_max_rel_diff=grad_rel, param_max_abs_diff=worst,
                 settled_param_max_abs_diff=worst_settled,
                 params_outside_tol=bad, unsettled_outside_tol=unsettled,
                 tie_partings=tied, mu_tie_partings=mu_tied,
+                mu_tie_elements=tie_elements[:8],
+                r_parting_by_leaf=r_parting,
                 mu_worst_parting=mu_worst and dict(mu_worst, count=mu_parted),
                 param_count=n,
                 one_device_step_max_abs=moved)
@@ -4388,6 +4437,11 @@ def check_adamw_gate(tag, f, one):
             atol + rtol * abs(one["grad_norm"]):
         fail(f"{tag}: fp32 grad norm {f['grad_norm']} vs one device "
              f"{one['grad_norm']} (outside GEMM_TOLS['float32'])")
+    over = [e for e in f.get("mu_tie_elements", ())
+            if e["quanta"] > POD_TIE_QUANTA]
+    if over:
+        fail(f"{tag}: a first-moment element at an int8 tie parts by more "
+             f"than one rounding ({over})")
     if f["grad_leaf_max_rel_diff"] is not None and \
             not f["grad_leaf_max_rel_diff"] <= TP_TRAIN_GRAD_RTOL:
         fail(f"{tag}: a gradient leaf (AdamW's first moment) "
@@ -5085,13 +5139,33 @@ def run_ep_phase():
 # ---------------------------------------------------------------------------
 
 POD_BATCH, POD_SEQ = 8, 128
-POD_LAYERS = 10                # of smollm-135m's 30, at full width: the time
-# (pod, data, model) of the two meshes, four ranks each: FSDP over data
-# with the pod axis; compression with the amax over the model cut
-POD_MESHES = {"pod2_dp2": ((2, 1), False), "pod2_tp2": ((2, 2), True)}
-# an element whose one-device g / scale lies within this of a half-integer
-# may round to the other int8 value on a rank (another order of fp32 sums)
-POD_TIE = 1e-4
+POD_LAYERS = 4                 # of smollm-135m's 30, at full width: the time
+# (pod, data, model) of the meshes, four ranks each: FSDP over data with
+# the pod axis; the model cut without compression, then with it and the
+# amax over the model cut (pod_rank runs them in this order)
+POD_MESHES = {"pod2_dp2": ((2, 1), False), "pod2_tp2_plain": ((2, 2), False),
+              "pod2_tp2": ((2, 2), True)}
+# An element whose one-device r = |g| / scale lies within tie_window(dr)
+# of a half-integer may round to the other int8 value on a rank, whose
+# fp32 sums run in another order. Its r parts from one device's through g
+# and through the scale. g's part is measured in the same run, a leaf at a
+# time: dr, the leaf's largest parting of an element's r in the step
+# without compression on the same mesh, whose sums the compressed step
+# repeats before it quantizes (adamw_gate's r_parting_by_leaf). An fp32
+# sum's error follows the magnitude of its terms, not of the element, so
+# dr is taken over every element, in r's own units. The scale's part is r
+# / 127 times the amax element's parting of r: no more than about dr
+# again. The fixed predecessor, 1e-4 in r, missed a tie at r 14.50015
+# (1.507e-4 from the half-integer) at 4 layers.
+POD_TIE_FACTOR = 2.0
+# a tie rounded the other way parts by one int8 step (1.0000004 measured)
+POD_TIE_QUANTA = 1.5
+
+
+def tie_window(dr):
+    """The distance from a half-integer within which a leaf's |g| / scale
+    may round the other way, given its measured largest parting ``dr``."""
+    return POD_TIE_FACTOR * dr
 
 
 def pod_config():
@@ -5104,8 +5178,8 @@ def pod_config():
 def quantization_ties(grads):
     """|g| / scale of every element of ``grads`` (one device's), the
     scale the step's (``steps._grad_amax``: a layer's leaf scaled as the
-    reference's stacked tensor): an element within POD_TIE of a
-    half-integer is at an int8 rounding tie (:func:`tie_distance`)."""
+    reference's stacked tensor): an element within :func:`tie_window` of
+    a half-integer is at an int8 rounding tie (:func:`tie_distance`)."""
     from repro_torch.launch import steps as ST
     from repro_torch.optim.adamw import tree_map
 
@@ -5121,10 +5195,11 @@ def tie_distance(r):
 
 def pod_rank(rank, world, root, refs, ties):
     """One rank of phase 28 on cuda:0: on each mesh of POD_MESHES the fp32
-    step (compressed on the second) from its share of the seeded weights,
+    step (compressed on the last) from its share of the seeded weights,
     held to the one-device step (``refs``: the plain and the compressed
     step's (params, first moment); ``ties``: the compressed step's
-    |g| / scale, :func:`quantization_ties`; through CUDA IPC)."""
+    |g| / scale, :func:`quantization_ties`; through CUDA IPC); the
+    compressed step's tie window from the plain step's on its mesh."""
     sys.path.insert(0, str(Path(root) / "src"))
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5133,16 +5208,20 @@ def pod_rank(rank, world, root, refs, ties):
 
     cfg = pod_config()
     batch = tp_train_batch(cfg, POD_BATCH, POD_SEQ)
-    out = {}
+    out, r_parting = {}, {}
     for name, ((pod, model), compress) in POD_MESHES.items():
         mesh = make_host_mesh(pod=pod, model=model)
         init = tp_params(cfg, mesh)
         f = tp_train_step(cfg, init, mesh, batch=batch, compress=compress)
         ref_params, ref_mu = refs[compress]
         f.update(adamw_gate(cfg, mesh, f, init, ref_params, ref_mu,
-                            ties=ties if compress else None),
+                            ties=ties if compress else None,
+                            tie_dr=r_parting.get((pod, model)),
+                            measure=None if compress else ties),
                  k1=k1_by_direction(f["launches"]),
                  coords=dict(mesh.coords))
+        if not compress:
+            r_parting[pod, model] = f["r_parting_by_leaf"]
         out[name] = f
         del init, ref_params, ref_mu
         gc.collect()
@@ -5155,10 +5234,11 @@ def run_pod_phase():
     """Phase 28. smollm-135m at full width, POD_LAYERS layers, B POD_BATCH x
     POD_SEQ, one fp32 AdamW step: on one device, plain and with
     ``compress_grads``; then four ranks of the card on (pod 2, data 2,
-    model 1), FSDP over data, held to the plain step, and on (pod 2, data
-    1, model 2) with compression, the amax reduced over the model cut,
-    held to the compressed step (an element outside the tolerance only at
-    a recorded quantization tie); each as phase 24 holds its ranks (loss,
+    model 1), FSDP over data, held to the plain step, on (pod 2, data 1,
+    model 2) held to it too, and there with compression, the amax reduced
+    over the model cut, held to the compressed step (an element outside
+    the tolerance only at a quantization tie, within :func:`tie_window`
+    of a half-integer); each as phase 24 holds its ranks (loss,
     grad norm, params, and the first moment, which carries the
     dequantized gradient itself: each leaf's ||mu - mu_one|| / ||mu_one||
     within TP_TRAIN_GRAD_RTOL, the recorded ties left out); rank 0's collectives, by kind and by the axes each
@@ -5235,7 +5315,11 @@ def run_pod_phase():
             "mu_tie_partings": [rk[name]["mu_tie_partings"]
                                 for rk in ranks],
             "mu_worst_parting": [rk[name]["mu_worst_parting"]
-                                 for rk in ranks]}
+                                 for rk in ranks],
+            "mu_tie_elements": [rk[name]["mu_tie_elements"]
+                                for rk in ranks],
+            "r_parting_max": [max(rk[name]["r_parting_by_leaf"] or [None])
+                              for rk in ranks]}
         pod_ar = got["by_axes"].get("all_reduce:pod")
         log(f"pod {ARCH} ({POD_LAYERS} layers, full width, B {POD_BATCH} x "
             f"{POD_SEQ}) on {name}"
@@ -5246,13 +5330,204 @@ def run_pod_phase():
             f"leaf rel |d| {res[name]['fp32_grad_leaf_max_rel_diff']}, "
             f"partings at ties (params) {res[name]['tie_partings']} (first "
             f"moment) {res[name]['mu_tie_partings']}, largest first-moment "
-            f"parting outside them {res[name]['mu_worst_parting']}; pod "
+            f"parting outside them {res[name]['mu_worst_parting']}, "
+            f"first-moment partings at ties {res[name]['mu_tie_elements']}, "
+            f"largest parting of |g| / scale (no compression) "
+            f"{res[name]['r_parting_max']}; pod "
             f"all-reduce (rank 0) {pod_ar} "
             f"vs dry run {d['collectives_by_axes'].get('all_reduce:pod')}; "
             f"collectives by axes {got['by_axes']}; K1 rank 0 "
             f"{got['k1']}")
     res["seconds"] = time.perf_counter() - t0
     log(f"pod: phase {res['seconds']:.1f} s ({t_ranks:.1f} s ranks)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 32: sequence parallelism (act_seq -> model) in the train step
+# ---------------------------------------------------------------------------
+
+SEQPAR_RULES = {"act_seq": "model"}     # the reference's seqpar arm
+# (b): smollm-135m at full width (9 heads: attention whole on every rank),
+# SEQPAR_SMOLLM_LAYERS of its 30, remat "dots" (the seqpar_dots arm), on
+# (data 2, model 2), B SEQPAR_SMOLLM_BATCH x TP_TRAIN_SEQ
+SEQPAR_SMOLLM_LAYERS = 4
+SEQPAR_SMOLLM_BATCH = 4
+
+
+def seqpar_config(dtype):
+    """(b)'s smollm-135m: full width, SEQPAR_SMOLLM_LAYERS layers, remat
+    "dots"."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(ARCH), dtype=dtype,
+                               n_layers=SEQPAR_SMOLLM_LAYERS,
+                               remat_policy="dots")
+
+
+def seqpar_check(tag, cfg, f, mesh, rows, seq):
+    """A rank's sequence-parallel step ``f``: its collectives over model
+    equal the closed form and the dry run's on ``meta`` at the same
+    shapes (every axis, kinds and bytes), its saved block inputs are the
+    rank's 1/mp of the sequence, and K1 ran wgmma or the CUDA cores,
+    nothing else."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import Mesh
+    sys.path.insert(0, str(ROOT / "tests"))
+    from seqpar_form import closed_form
+    mp = mesh.axis_size("model")
+    e = torch.empty((), dtype=cfg.param_dtype).element_size()
+    want = closed_form(cfg, rows, seq, mesh.axis_size("data"), mp, e)
+    got = {k: (v["calls"], v["bytes"]) for k, v in f["by_axes"].items()
+           if k.endswith(":model")}
+    if got != {f"{k}:model": v for k, v in want.items()}:
+        fail(f"{tag}: collectives over model {got} differ from the closed "
+             f"form {want}")
+    d = DR.run_step(cfg, "train", rows * mesh.axis_size("data"), seq,
+                    mesh=Mesh.abstract((mesh.axis_size("data"), mp),
+                                       ("data", "model")),
+                    rules_overrides=SEQPAR_RULES)
+    if d["collectives_by_axes"] != f["by_axes"]:
+        fail(f"{tag}: collectives {f['by_axes']} differ from the dry run's "
+             f"on Mesh.abstract ({d['collectives_by_axes']})")
+    saved = cfg.n_layers * rows * (seq // mp) * cfg.d_model * e
+    if f["saved_block_input_bytes"] != saved:
+        fail(f"{tag}: remat saved {f['saved_block_input_bytes']} B of block "
+             f"inputs, not the rank's rows' {saved}")
+    if f["launches"]["matrixflow_gemm_mma"]:
+        fail(f"{tag}: K1 took mma")
+    return dict(closed_form=want, dry_run_by_axes=d["collectives_by_axes"],
+                saved_block_input_bytes_whole_sequence=saved * mp)
+
+
+def seqpar_rank(rank, world, root, refs, rows):
+    """One rank of phase 32 on cuda:0. ``world`` 2, (a): qwen3-8b's fp32
+    step on (model 2) under SEQPAR_RULES, from its slices of phase 24's
+    seeded weights, held to phase 24's one-device step (``refs``: its
+    params and first moment through CUDA IPC); then a bf16 step timed
+    after a warm-up. ``world`` 4, (b): smollm-135m's fp32 step on (data 2,
+    model 2) held to its one-device step (``refs``), then a bf16 step.
+    ``rows`` is a data rank's rows of the batch."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model=2)
+    small = world == 4
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = seqpar_config(dtype) if small else \
+            tp_config(dtype, TP_TRAIN_LAYERS)
+        batch = tp_train_batch(cfg, rows * mesh.axis_size("data"))
+        init = tp_params(cfg, mesh)
+        if dtype == "bfloat16":          # warm-up: the step is timed
+            tp_train_step(cfg, init, mesh, batch=batch,
+                          overrides=SEQPAR_RULES)
+        f = tp_train_step(cfg, init, mesh, batch=batch,
+                          overrides=SEQPAR_RULES)
+        if dtype == "float32":
+            f.update(adamw_gate(cfg, mesh, f, init, *refs))
+            release_shared(*refs)
+        f.pop("params", None)
+        f.pop("mu", None)
+        f.update(seqpar_check(f"seqpar rank {rank} {dtype}", cfg, f, mesh,
+                              rows, TP_TRAIN_SEQ),
+                 k1=k1_by_direction(f["launches"]),
+                 coords=dict(mesh.coords))
+        out[dtype] = f
+        del init
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_seqpar_phase():
+    """Phase 32. The reference's seqpar arm (``act_seq -> model``) in
+    ``make_train_step_fn``: the residual stream a rank's 1/2 of the
+    sequence, a block's input gathered over it and its row-parallel
+    output reduce-scattered, K1 forward and backward on every projection.
+    (a) qwen3-8b at full width, TP_TRAIN_LAYERS layers, phase 24's batch
+    and weights, on (model 2): the fp32 step held to phase 24's
+    one-device step (:func:`check_adamw_gate`: loss, grad norm, every
+    gradient leaf within TP_TRAIN_GRAD_RTOL, every param), the bf16 step's
+    loss and grad norm within GEMM_TOLS["bfloat16"] of one device's. (b)
+    smollm-135m at SEQPAR_SMOLLM_LAYERS layers with remat "dots" on
+    (data 2, model 2), held alike to its own one-device step. Every rank:
+    collectives over model equal to the closed form and to the dry run's
+    on meta, the saved block inputs its rows' (:func:`seqpar_check`)."""
+    import tempfile
+
+    from repro_torch.distributed.launch import spawn
+
+    t0 = time.perf_counter()
+    od = one_device_train_steps()
+    res = {"rules": SEQPAR_RULES}
+    cfg = seqpar_config("float32")
+    batch = tp_train_batch(cfg, SEQPAR_SMOLLM_BATCH)
+    params = tp_params(cfg, None)
+    small = tp_train_step(cfg, params, None, batch=batch)
+    del params
+    small16 = tp_train_step(seqpar_config("bfloat16"), tp_params(
+        seqpar_config("bfloat16"), None), None, batch=tp_train_batch(
+            seqpar_config("bfloat16"), SEQPAR_SMOLLM_BATCH))
+    small16.pop("params")
+    small16.pop("mu")
+    runs = {"a": (TP_WORLD, (od["ref_params"], od["ref_mu"]),
+                  TP_TRAIN_BATCH, od["fp32"], od["bf16"]),
+            "b": (4, (small.pop("params"), small.pop("mu")),
+                  SEQPAR_SMOLLM_BATCH // 2, small, small16)}
+    for name, (world, refs, rows, one, one16) in runs.items():
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as work:
+            ranks = spawn(seqpar_rank, world, (str(ROOT), refs, rows),
+                          workdir=work, timeout_s=TP_RANKS_TIMEOUT_S,
+                          collective_timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+        del refs
+        gc.collect()
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        atol, rtol = GEMM_TOLS["bfloat16"]
+        for r, rk in enumerate(ranks):
+            check_adamw_gate(f"seqpar {name} rank {r}", rk["float32"], one)
+            b = rk["bfloat16"]
+            for k in ("loss", "grad_norm"):
+                if not abs(b[k] - one16[k]) <= atol + rtol * abs(one16[k]):
+                    fail(f"seqpar {name} rank {r}: bf16 {k} {b[k]} vs one "
+                         f"device {one16[k]} (outside GEMM_TOLS)")
+            check_counts(f"seqpar {name} rank {r} bf16 step", b["launches"],
+                         K1_TRAIN)
+        r0 = ranks[0]
+        res[name] = {
+            "seconds": time.perf_counter() - t1, "world": world,
+            "batch": [rows * (world // 2), TP_TRAIN_SEQ], "ranks": ranks,
+            "one_device": {"fp32": {k: one[k] for k in (
+                "loss", "grad_norm", "saved_block_input_bytes")},
+                "bf16": {k: one16[k] for k in (
+                    "loss", "grad_norm", "wall_ms",
+                    "saved_block_input_bytes")}}}
+        log(f"seqpar ({name}) {'smollm-135m' if world == 4 else TP_ARCH} on "
+            f"{dict(r0['float32']['coords'])} x {world} ranks: fp32 loss "
+            f"{[rk['float32']['loss'] for rk in ranks]} vs {one['loss']}, "
+            f"grad norm {[rk['float32']['grad_norm'] for rk in ranks]} vs "
+            f"{one['grad_norm']}, worst gradient leaf rel |d| "
+            f"{[rk['float32']['grad_leaf_max_rel_diff'] for rk in ranks]}, "
+            f"params max |d| "
+            f"{[rk['float32']['param_max_abs_diff'] for rk in ranks]}; bf16 "
+            f"loss {[rk['bfloat16']['loss'] for rk in ranks]} vs "
+            f"{one16['loss']}, step "
+            f"{[round(rk['bfloat16']['wall_ms'], 1) for rk in ranks]} ms vs "
+            f"{one16['wall_ms']:.1f}; per rank: K1 "
+            f"{[rk[d]['k1'] for rk in ranks for d in ('float32', 'bfloat16')]}"
+            f"; collectives {[rk[d]['by_axes'] for rk in ranks for d in ('float32', 'bfloat16')]}"
+            f" (closed form {r0['float32']['closed_form']}, "
+            f"{r0['bfloat16']['closed_form']}); saved block inputs "
+            f"{[rk[d]['saved_block_input_bytes'] for rk in ranks for d in ('float32', 'bfloat16')]}"
+            f" B vs one device's {one['saved_block_input_bytes']}, "
+            f"{one16['saved_block_input_bytes']}; "
+            f"{res[name]['seconds']:.1f} s")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"seqpar: phase {res['seconds']:.1f} s")
     return res
 
 
@@ -6446,6 +6721,12 @@ def slice_paths(report) -> dict:
         for r, rk in enumerate(report.get("pod", {}).get(name, {})
                                .get("ranks", [])):
             out[f"pod {name} rank {r} fp32 step"] = rk["launches"]
+    for name in ("a", "b"):
+        for r, rk in enumerate(report.get("seqpar", {}).get(name, {})
+                               .get("ranks", [])):
+            for dtype in ("float32", "bfloat16"):
+                out[f"seqpar ({name}) rank {r} {dtype} step"] = \
+                    rk[dtype]["launches"]
     if "analysis" in report:
         out["analysis lint live"] = report["analysis"]["lint_launches"]
         out["analysis ops facade"] = report["analysis"]["facade_launches"]
@@ -6615,10 +6896,13 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return
-    if sys.argv[1:2] in (["--tp-train"], ["--fsdp"], ["--ep"], ["--pod"]):
-        # phase 24, 26, 27 or 28 alone
+    if sys.argv[1:2] in (["--tp-train"], ["--fsdp"], ["--ep"], ["--pod"],
+                         ["--seqpar"]):
+        # phase 24, 26, 27, 28 or 32 alone
         if sys.argv[1] == "--tp-train":
             report["tp_train"] = run_tp_train_phase()
+        elif sys.argv[1] == "--seqpar":
+            report["seqpar"] = run_seqpar_phase()
         elif sys.argv[1] == "--fsdp":
             report["fsdp"] = run_fsdp_phase()
         elif sys.argv[1] == "--ep":
@@ -6772,6 +7056,8 @@ def main() -> None:
     report["tp"] = run_tp_phase()
     begin("tp_train")
     report["tp_train"] = run_tp_train_phase()
+    begin("seqpar")           # phase 32, while phase 24's first moment lives
+    report["seqpar"] = run_seqpar_phase()
     begin("fsdp")
     report["fsdp"] = run_fsdp_phase()
     release_one_device_train_steps()

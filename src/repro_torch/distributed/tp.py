@@ -30,6 +30,20 @@ collective itself:
     MoE banks, runs them on its experts' slots of the dispatch buffer and
     sums its part of the combine over the model group
     (:func:`expert_slice`, ``models/layers.py::moe``).
+  * **sequence parallelism** (the rules put ``act_seq`` on the model
+    axis, :func:`seq_parallel`): the residual stream between blocks is
+    the rank's contiguous 1/mp of the sequence. A block gathers its
+    normed input over the sequence (:func:`seq_gather`: an
+    ``all_gather``, whose backward reduce-scatters), runs its interior as
+    above on every row, and returns the rank's rows: a row-parallel
+    output is reduce-scattered over the sequence (:func:`sum_to_rows`,
+    whose backward all-gathers), a whole weight's output is cut to the
+    rank's rows (:func:`rows`). Inside a block each rank's gradient of a
+    replicated activation is then its share, which the gather's
+    reduce-scatter sums, so :func:`to_ranks` sums nothing there; a leaf
+    that every rank holds whole gets the gradient of the rank's rows,
+    which the train step sums over the model group
+    (``launch/steps.py``).
   * **gathers**, where a sharded output meets an unsharded consumer: the
     LM head's vocab slice before sampling, a Q/K/V projection whose
     columns shard while attention stays replicated (:func:`conform_heads`)
@@ -55,8 +69,9 @@ group.
 
 Training runs the same call sites under autograd: the collectives are
 ``torch.autograd.Function`` s (:class:`_SumOverRanks`, :class:`_ToRanks`,
-:class:`_Gather`) whose backward is the collective a rank's gradient
-needs, issued through :func:`all_reduce`, so it is counted too.
+:class:`_Gather`, :class:`_SeqGather`, :class:`_SeqScatter`) whose
+backward is the collective a rank's gradient needs, issued through the
+counted functions above.
 
 Without a context, or with a model axis of 1, every wrapper is the plain
 ``api`` call, so the model code routes through this module unconditionally.
@@ -86,6 +101,8 @@ __all__ = [
     "param_cut", "shard_params", "unshard_params", "shard_caches",
     "SeqCut", "seq_cut", "seq_group", "cut_attention", "merge_partials",
     "merge_stack", "latent_up_whole",
+    "seq_parallel", "with_seq_parallel", "seq_gather", "sum_to_rows",
+    "rows", "row_mask", "row_mean",
     "head_units", "all_reduce",
     "all_reduce_max", "all_gather", "reduce_scatter", "broadcast", "gather",
     "on_slice", "to_ranks", "sum_over_ranks", "expert_slice",
@@ -281,16 +298,51 @@ class _ToRanks(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     """The exact gather of :func:`gather` forward; backward, the rank's
-    slice of the (replicated, so identical) gradient of the whole."""
+    slice of the (replicated, so identical) gradient of the whole — under
+    sequence parallelism each rank's gradient of the whole is its share,
+    so the shares are summed first."""
 
     @staticmethod
     def forward(ctx, t, dim, full, ctx_tp, blocks):
         ctx.cut = (dim, ctx_tp.rank, ctx_tp.model_size, blocks)
+        ctx.group = ctx_tp.group if ctx_tp.seq_parallel else None
         return _gather(t, dim, full, ctx_tp, blocks)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.group is not None:
+            g = all_reduce(_fresh(g), ctx.group)
         return shard_dim(g, *ctx.cut), None, None, None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather over the sequence (dim 1) forward, reduce-scatter
+    backward: the rank's rows of the residual stream, whole for a block's
+    interior; each rank's gradient of the whole is its share."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_gather(t, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, 1, ctx.group), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Reduce-scatter over the sequence (dim 1) forward, all-gather
+    backward: a rank's partial sum over every row (a row-parallel
+    product) to the rank's rows of the sum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return reduce_scatter(t, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, 1, ctx.group), None
 
 
 def _sum_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
@@ -298,17 +350,21 @@ def _sum_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
         else all_reduce(t, group)
 
 
-def _to_ranks(t: torch.Tensor, group) -> torch.Tensor:
-    return _ToRanks.apply(t, group) if needs_grad(t) else t
+def _to_ranks(t: torch.Tensor, ctx: "TPContext") -> torch.Tensor:
+    if ctx.seq_parallel or not needs_grad(t):
+        return t        # each rank's gradient stays its share (SP)
+    return _ToRanks.apply(t, ctx.group)
 
 
 def to_ranks(t: torch.Tensor) -> torch.Tensor:
     """``t``, replicated over the active context's model group, as an
     input that each rank consumes only in part: identity forward, its
     gradient summed over the group backward (:class:`_ToRanks`); ``t``
-    itself without an active model axis."""
+    itself without an active model axis, and under sequence parallelism,
+    where a block's gradients are each rank's share until the gather that
+    began it sums them."""
     ctx = current_tp()
-    return _to_ranks(t, ctx.group) if _active(ctx) else t
+    return _to_ranks(t, ctx) if _active(ctx) else t
 
 
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
@@ -357,6 +413,9 @@ class TPContext:
     mesh: Any
     rules: ShardingRules
     policy: ShardingPolicy
+    # the residual stream is the rank's rows of the sequence: set for one
+    # forward by ``transformer.forward`` (:func:`with_seq_parallel`)
+    seq_parallel: bool = False
 
     @property
     def model_axis(self) -> str:
@@ -426,6 +485,99 @@ def use_tp(ctx: Optional[TPContext]):
 
 def _active(ctx: Optional[TPContext]) -> bool:
     return ctx is not None and ctx.model_size > 1
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism (act_seq over the model axis)
+# ---------------------------------------------------------------------------
+
+def seq_parallel(ctx: Optional[TPContext], S: int, B: int = 1,
+                 D: int = 1) -> bool:
+    """Whether the rules cut a (B, S, D) residual stream's sequence over
+    the model axis: ``ctx.rules.spec(("act_batch", "act_seq",
+    "act_embed"), (B, S, D))`` names it for the sequence — so a sequence
+    that does not divide (decode's S = 1) stays whole, as the spec's
+    fallback keeps it. A sequence cut over another axis raises."""
+    if not _active(ctx):
+        return False
+    axes = ctx.rules.spec(("act_batch", "act_seq", "act_embed"),
+                          (B, S, D))[1]
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    if axes and axes != (ctx.model_axis,):
+        raise NotImplementedError(
+            f"act_seq -> {axes}: the port cuts the sequence over the model "
+            f"axis alone (the reference's seqpar arm)")
+    return bool(axes)
+
+
+def with_seq_parallel(ctx: TPContext) -> TPContext:
+    """``ctx`` for a forward whose residual stream is the rank's rows."""
+    return dataclasses.replace(ctx, seq_parallel=True)
+
+
+def _sp() -> Optional[TPContext]:
+    ctx = current_tp()
+    return ctx if ctx is not None and ctx.seq_parallel else None
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence (dim 1) of the residual stream from the rank's
+    rows under sequence parallelism (:class:`_SeqGather`); ``x`` itself
+    otherwise."""
+    ctx = _sp()
+    if ctx is None:
+        return x
+    if needs_grad(x):
+        return _SeqGather.apply(x, ctx.group)
+    return all_gather(x, 1, ctx.group)
+
+
+def sum_to_rows(t: torch.Tensor) -> torch.Tensor:
+    """A rank's part of a sum over the model group, (B, S, ...) over every
+    row, as the residual stream holds it: the rank's rows of the sum under
+    sequence parallelism (a reduce-scatter over the sequence,
+    :class:`_SeqScatter`), else the whole sum (an all-reduce)."""
+    ctx = current_tp()
+    if not _active(ctx):
+        return t
+    if not ctx.seq_parallel:
+        return _sum_over_ranks(t, ctx.group)
+    if needs_grad(t):
+        return _SeqScatter.apply(t, ctx.group)
+    return reduce_scatter(t, 1, ctx.group)
+
+
+def rows(t: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of a whole (B, S, ...) tensor that every rank
+    computed alike, under sequence parallelism (no collective; the
+    gradient of the other rows is zero here, and theirs on their ranks);
+    ``t`` itself otherwise."""
+    ctx = _sp()
+    if ctx is None:
+        return t
+    return shard_dim(t, 1, ctx.rank, ctx.model_size)
+
+
+def row_mask(S: int, device) -> torch.Tensor:
+    """(S,) True on the rank's rows of a sequence of S cut over the
+    active context's model axis."""
+    ctx = current_tp()
+    n = S // ctx.model_size
+    j = torch.arange(S, device=device)
+    return (j >= ctx.rank * n) & (j < (ctx.rank + 1) * n)
+
+
+def row_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean over dims (0, 1) of a whole (B, S, ...) tensor that every
+    rank computed alike. Under sequence parallelism it is the sum of the
+    ranks' sums over their own rows (an all-reduce, identity backward), so
+    each rank's gradient reaches only its rows, as a block's gradients
+    are each rank's share."""
+    ctx = _sp()
+    if ctx is None:
+        return t.mean(dim=(0, 1))
+    n = t.shape[0] * t.shape[1]
+    return _sum_over_ranks(rows(t).sum(dim=(0, 1)), ctx.group) / n
 
 
 
@@ -577,8 +729,7 @@ def conform_heads(t: torch.Tensor, n_heads: int, local: bool
     if not _active(ctx) or (t.shape[2] == n_heads) != local:
         return t
     if local:
-        return shard_dim(_to_ranks(t, ctx.group), 2, ctx.rank,
-                         ctx.model_size)
+        return shard_dim(_to_ranks(t, ctx), 2, ctx.rank, ctx.model_size)
     return gather(t, 2, n_heads, ctx)
 
 
@@ -605,6 +756,7 @@ def linear(x: torch.Tensor, w, bias=None, *,
            units: Optional[int] = None,
            blocks: int = 1,
            gather_out: bool = False,
+           seq_out: bool = False,
            policy=None) -> torch.Tensor:
     """y = x @ w (+ bias) over the active TP context.
 
@@ -620,12 +772,20 @@ def linear(x: torch.Tensor, w, bias=None, *,
     model group, then cast, then the bias once. Falls back to
     :func:`api.linear` with no context, a model axis of 1, a packed
     weight, a weight that is not 2-D, or no dim to shard.
+
+    ``seq_out``: y is a block's output to the residual stream, (B, S, N)
+    over the whole sequence. Under sequence parallelism it comes back as
+    the rank's rows: a row-parallel product's partial sums reduce-scattered
+    over the sequence (:func:`sum_to_rows`), a whole weight's product cut
+    to them (:func:`rows`); x is then already the whole sequence (the
+    block gathered it).
     """
     ctx = current_tp()
     if (not _active(ctx)
             or isinstance(w, (PackedWeight, QuantizedPackedWeight))
             or getattr(w, "ndim", 0) != 2):
-        return api.linear(x, w, bias, policy=policy)
+        y = api.linear(x, w, bias, policy=policy)
+        return rows(y) if seq_out else y
     K, N = full
     cut = param_cut(ctx, axes, full,
                     None if units is None else dict.fromkeys(axes, units),
@@ -633,23 +793,27 @@ def linear(x: torch.Tensor, w, bias=None, *,
 
     if cut is not None and cut[0] == 1:
         # column parallel: the full-K contraction of the rank's columns
+        if seq_out and ctx.seq_parallel:
+            raise ValueError("tp: a column-parallel output is no block's "
+                             "output to the residual stream")
         w = _local(w, 1, N, ctx, "weight")
         if bias is not None:
             bias = _local(bias, 0, N, ctx, "bias")
-        y = api.linear(_to_ranks(x, ctx.group), w, bias, policy=policy)
+        y = api.linear(_to_ranks(x, ctx), w, bias, policy=policy)
         return gather(y, -1, N, ctx, blocks) if gather_out else y
 
     if cut is not None:
         # row parallel: partial products summed in fp32 before the cast
+        if ctx.seq_parallel and not seq_out:
+            raise ValueError("tp: under sequence parallelism a row-parallel "
+                             "product is a block's output (seq_out)")
         w = _local(w, 0, K, ctx, "weight")
         if x.shape[-1] == K:
-            x = shard_dim(_to_ranks(x, ctx.group), -1, ctx.rank,
-                          ctx.model_size)
+            x = shard_dim(_to_ranks(x, ctx), -1, ctx.rank, ctx.model_size)
         x = _local(x, -1, K, ctx, "input")
         out_dtype = torch.promote_types(x.dtype, w.dtype)
         acc = torch.float32 if out_dtype.is_floating_point else None
-        y = _sum_over_ranks(api.matmul(x, w, policy=policy, out_dtype=acc),
-                            ctx.group)
+        y = sum_to_rows(api.matmul(x, w, policy=policy, out_dtype=acc))
         if acc is not None:
             y = y.to(out_dtype)
         return y if bias is None else y + bias
@@ -657,7 +821,8 @@ def linear(x: torch.Tensor, w, bias=None, *,
     if tuple(w.shape) != (K, N):
         raise ValueError(f"tp: a replicated weight is whole: got "
                          f"{tuple(w.shape)} for {(K, N)}")
-    return api.linear(x, w, bias, policy=policy)
+    y = api.linear(x, w, bias, policy=policy)
+    return rows(y) if seq_out else y
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -670,22 +835,37 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
                   policy=policy)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, *, vocab: int
-          ) -> torch.Tensor:
-    """``table[tokens]`` for a ``("vocab", "embed")`` table of ``vocab``
-    rows, as this rank holds it: with the vocab sharded, each rank looks
-    up the tokens of its slice, zeros elsewhere, and an all-reduce sums
-    the rows — exact, every row comes from one rank."""
+def embed(table: torch.Tensor, tokens: torch.Tensor, *, vocab: int,
+          prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``table[tokens]`` (B, S, D) for a ``("vocab", "embed")`` table of
+    ``vocab`` rows, as this rank holds it, after ``prefix`` (B, S_e, D)
+    columns when given (the VLM's image embeddings): with the vocab
+    sharded, each rank looks up the tokens of its slice, zeros elsewhere,
+    and an all-reduce sums the rows — exact, every row comes from one
+    rank. Under sequence parallelism the result is the rank's rows of the
+    sequence: the sum is a reduce-scatter over it (the prefix added on the
+    model group's first rank alone), and a whole table's lookup is cut to
+    them (:func:`rows`)."""
     ctx = current_tp()
     if not _active(ctx) or param_cut(
             ctx, ("vocab", "embed"), (vocab, table.shape[1])) is None:
-        return table[tokens]
+        out = table[tokens]
+        if prefix is not None:
+            out = torch.cat([prefix.to(out.dtype), out], dim=1)
+        return rows(out)
     n = _local(table, 0, vocab, ctx, "embedding table").shape[0]
     local = tokens - ctx.rank * n
     inside = (local >= 0) & (local < n)
-    rows = table[local.clamp(0, n - 1)]
-    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    return _sum_over_ranks(rows, ctx.group)
+    found = table[local.clamp(0, n - 1)]
+    found = torch.where(inside[..., None], found, torch.zeros_like(found))
+    if prefix is None:
+        return sum_to_rows(found)
+    if not ctx.seq_parallel:
+        return torch.cat([prefix.to(found.dtype), sum_to_rows(found)], dim=1)
+    prefix = prefix.to(found.dtype)
+    if ctx.rank:
+        prefix = torch.zeros_like(prefix)
+    return sum_to_rows(torch.cat([prefix, found], dim=1))
 
 
 def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor

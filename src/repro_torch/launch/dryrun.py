@@ -360,6 +360,68 @@ def _placement_parts(cfg: ModelConfig, mesh, shape_name, kind, batch,
     return parts
 
 
+def _seq_parts(cfg: ModelConfig, ctx, batch: int, seq: int
+               ) -> List[Dict[str, str]]:
+    """Under sequence parallelism (``tp.seq_parallel``): each interior
+    tensor that the reference constrains by its rules (``shard(...)`` at
+    the sites named) and the port places otherwise. The port gathers a
+    block's input over the sequence and runs the interior on every row,
+    cut by heads, d_ff or vocab where its weights are (Megatron SP), while
+    the reference's spec cuts the sequence wherever the feature dim leaves
+    the model axis free."""
+    if ctx is None or not TP.seq_parallel(ctx, seq, batch, cfg.d_model):
+        return []
+    rules, m = ctx.rules, ctx.model_axis
+    b = rules.spec(("act_batch",), (batch,))[0]
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shard_q, shard_kv = TP.head_sharding(ctx, H, Hkv)
+    kv_slice = TP.kv_group_slice(ctx, H, Hkv)
+    ssd = cfg.family in T.SSD_FAMILIES
+    blocks = not ssd or cfg.attn_every        # attention + MLP blocks
+    sites = []
+    if blocks and not cfg.is_mla:
+        q_cut = m if shard_q or kv_slice is not None else None
+        sites += [("q", "models/layers.py:216",
+                   ("act_batch", "act_seq", "act_heads", None),
+                   (batch, seq, H, dh), (b, None, q_cut, None))]
+        sites += [(n, f"models/layers.py:{line}",
+                   ("act_batch", "act_seq", "act_kv_heads", None),
+                   (batch, seq, Hkv, dh), (b, None, m if shard_kv else None,
+                                           None))
+                  for n, line in (("k", 217), ("v", 218))]
+    if blocks and (not cfg.is_moe or cfg.n_shared_experts
+                   or cfg.first_dense_layers):
+        f = cfg.d_ff
+        glu = 2 if cfg.mlp_act == "swiglu" else 1
+        h_cut = TP.param_cut(ctx, ("embed", "mlp"), (D, glu * f),
+                             blocks=glu) is not None
+        sites.append(("MLP hidden h", "models/layers.py:454",
+                      ("act_batch", "act_seq", "act_mlp"), (batch, seq, f),
+                      (b, None, m if h_cut else None)))
+    if ssd:
+        sites += [(f"SSD {n}", f"models/ssm.py:{line}",
+                   ("act_batch", "act_seq", "act_mlp"),
+                   (batch, seq, cfg.d_inner), (b, None, None))
+                  for n, line in (("xc", 169), ("y", 197))]
+    V = cfg.vocab * max(cfg.n_codebooks, 1)
+    v_cut = TP.param_cut(ctx, ("embed", "vocab"), (D, V)) is not None
+    sites.append(("logits", "models/transformer.py:307",
+                  ("act_batch", "act_seq", "act_vocab"), (batch, seq, V),
+                  (b, None, m if v_cut else None)))
+    parts = []
+    for name, site, logical, shape, port in sites:
+        ref = tuple(rules.spec(logical, shape))
+        if ref != port:
+            how = (" (whole; each rank reads its query groups' KV heads, "
+                   "tp.kv_group_slice)" if name in ("k", "v") and kv_slice
+                   else "")
+            parts.append(dict(part=f"sequence parallelism: {name}", detail=(
+                f"the reference's spec at src/repro/{site} is {ref}; the "
+                f"port gathers the block's input over the sequence and "
+                f"holds {port}{how}")))
+    return parts
+
+
 def _check_batch_and_cache_specs(cfg: ModelConfig, ctx, mesh, batch: int,
                                  rows: int, seq: int) -> None:
     """Raise where the rank's rows of the batch (cut over pod x data) and
@@ -435,11 +497,13 @@ def run_step(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
                 "check_trainable refuses it); counted as the plain scan, "
                 "the CPU's training route")))
         # the step cuts its rows over pod x data
+        parts += _seq_parts(cfg, ctx, batch, seq)
         glob = SP.token_specs(cfg, rows * n_rows_axes if rows != batch
                               else batch, seq)
         opt = adamw_init(params)
         step = ST.make_train_step_fn(
-            cfg, AdamWConfig(compress_grads=compress_grads), mesh=mesh)
+            cfg, AdamWConfig(compress_grads=compress_grads), mesh=mesh,
+            rules_overrides=rules_overrides)
         args = (params, opt, ST.data_shard(glob, mesh))
 
         def call():
@@ -574,7 +638,12 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     """The cell's step on ``meta`` at rank 0 of the abstract production
     mesh (``compress_grads``: a train cell's step compresses its
     gradients to int8). ``skip_body_probe`` is the reference's flag,
-    accepted and ignored (the eager port walks every layer)."""
+    accepted and ignored (the eager port walks every layer).
+    ``rules_overrides`` layer on the config's rules, as the reference's
+    ``benchmarks/hillclimb.py`` arms set them: ``{"act_seq": "model"}``
+    (``seqpar``) runs a train cell sequence-parallel; an ``act_batch``
+    rule (``batch2d``) raises NotImplementedError."""
+    ST.check_ported_rules(dict(rules_overrides or {}))
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if not cell_applicable(cfg, shape):

@@ -26,6 +26,13 @@ them (:func:`rank_params`):
     backward tensor-parallel (``distributed/tp.py``'s collectives under
     autograd), the loss vocab-parallel.
 
+Under sequence parallelism (``rules_overrides={"act_seq": "model"}``,
+the reference's ``seqpar`` arm) the model axis also cuts the residual
+stream's sequence (``models/transformer.py``): a leaf that every rank
+holds whole is then applied by each rank to its own rows, so its
+gradient is the rank's share, and one all-reduce over the model group
+sums those shares before the clip (:func:`_sum_whole_over_model`).
+
 The clip's global gradient norm sums each leaf's squares over the axes
 that cut it (:func:`_grad_norm`), and AdamW runs on the cuts, so its
 moments inherit them; int8 gradient compression takes each leaf's scale
@@ -98,12 +105,45 @@ def all_reduce_mean(tree, group, n: int):
     return tree_map(lambda t: out[id(t)], tree)
 
 
-def tp_context(cfg: ModelConfig, mesh) -> Optional[TP.TPContext]:
+# The reference's activation rules that the port places as the reference
+# does: act_batch over pod x data (``fsdp.BATCH_AXES``), nothing else.
+PORTED_ACT_BATCH = shd.DEFAULT_RULES["act_batch"]
+
+
+def merged_overrides(cfg: ModelConfig, overrides: Optional[Dict] = None
+                     ) -> Dict:
+    """The config's own sharding overrides with ``overrides`` on top, as
+    :func:`make_rules` merges them; raises NotImplementedError for an
+    ``act_batch`` rule other than the default, which the port does not
+    place (the reference's ``batch2d`` and ``kvseq_batch2d`` arms,
+    ``benchmarks/hillclimb.py:51``; ROADMAP queue 1, item 14)."""
+    merged = cfg.overrides_dict()
+    if overrides:
+        merged.update(overrides)
+    check_ported_rules(merged)
+    return merged
+
+
+def check_ported_rules(overrides: Dict) -> None:
+    """Raise NotImplementedError for a rule the port does not place."""
+    batch = overrides.get("act_batch", PORTED_ACT_BATCH)
+    if batch != PORTED_ACT_BATCH:
+        raise NotImplementedError(
+            f"act_batch -> {batch!r} (the reference's batch2d arm, "
+            f"benchmarks/hillclimb.py:51) is not ported: the port cuts the "
+            f"batch over {PORTED_ACT_BATCH!r} alone (ROADMAP queue 1, "
+            f"item 14)")
+
+
+def tp_context(cfg: ModelConfig, mesh, overrides: Optional[Dict] = None
+               ) -> Optional[TP.TPContext]:
     """The TP context of a mesh whose ``model`` axis spans more than one
-    rank, under the config's own sharding overrides; else None."""
+    rank, under the config's own sharding overrides and ``overrides`` on
+    top (:func:`merged_overrides`); else None."""
+    merged = merged_overrides(cfg, overrides)
     if mesh is None or mesh.axis_size("model") == 1:
         return None
-    return TP.make_context(mesh, overrides=cfg.overrides_dict())
+    return TP.make_context(mesh, overrides=merged)
 
 
 def rank_params(cfg: ModelConfig, params, mesh):
@@ -152,16 +192,41 @@ def rank_state(cfg: ModelConfig, state, mesh):
     return _map_state(lambda t: rank_params(cfg, t, mesh), state)
 
 
+def _cuts(grads, shapes, fsctx: Optional[FSDP.FSDPContext]):
+    """(gradient, its cut over data or None, whether the model axis cuts
+    it) of every leaf."""
+    for (g, cut), full in zip(FSDP.leaves_with_cuts(grads, fsctx),
+                              tree_leaves(shapes)):
+        yield g, cut, any(g.shape[i] != full.shape[i] for i in range(g.dim())
+                          if cut is None or i != cut.dim)
+
+
+def _sum_whole_over_model(grads, shapes, tpctx: TP.TPContext,
+                          fsctx: Optional[FSDP.FSDPContext]):
+    """Under sequence parallelism: the gradients of the leaves that the
+    model axis does not cut (norms, whole weights, a row-parallel bias),
+    each rank's the share of its rows, summed over the model group in one
+    all-reduce of their fp32 concatenation."""
+    whole = [g for g, _, on_model in _cuts(grads, shapes, fsctx)
+             if not on_model]
+    if not whole:
+        return grads
+    flat = TP.all_reduce(torch.cat([t.reshape(-1).float() for t in whole]),
+                         tpctx.group)
+    new, i = {}, 0
+    for t in whole:
+        new[id(t)] = flat[i:i + t.numel()].reshape(t.shape).to(t.dtype)
+        i += t.numel()
+    return tree_map(lambda g: new.get(id(g), g), grads)
+
+
 def _grad_norm(grads, shapes, tpctx: Optional[TP.TPContext],
                fsctx: Optional[FSDP.FSDPContext]) -> torch.Tensor:
     """The global norm of the whole gradients from a rank's: each leaf's
     squares summed over the axes that cut it — data and model, one of
     them, or (a leaf replicated on both) none, counted once."""
     sums = {(d, m): [] for d in (False, True) for m in (False, True)}
-    for (g, cut), full in zip(FSDP.leaves_with_cuts(grads, fsctx),
-                              tree_leaves(shapes)):
-        on_model = any(g.shape[i] != full.shape[i] for i in range(g.dim())
-                       if cut is None or i != cut.dim)
+    for g, cut, on_model in _cuts(grads, shapes, fsctx):
         sums[cut is not None, on_model].append(torch.sum(g.float() ** 2))
     dev = tree_leaves(grads)[0].device
     part = {k: torch.stack(v).sum() if v else
@@ -240,10 +305,22 @@ def _check_held(params, shapes, fsctx: FSDP.FSDPContext) -> None:
                 f"adamw_init of them")
 
 
+def _contexts(cfg: ModelConfig, mesh, overrides: Optional[Dict]):
+    """The TP and FSDP contexts of a train step on ``mesh`` and the
+    params' global shapes (``meta``; None on one device)."""
+    tpctx = tp_context(cfg, mesh, overrides)
+    fsctx = FSDP.make_context(cfg, mesh)
+    shapes = None
+    if tpctx is not None or fsctx is not None:
+        shapes = T.init_model(cfg, device="meta")
+    return tpctx, fsctx, shapes
+
+
 def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                        total_steps: int = 10000, microbatches: int = 1,
                        mesh=None, *, base_lr: Optional[float] = None,
-                       warmup: int = 100, aux_weight: float = 0.01):
+                       warmup: int = 100, aux_weight: float = 0.01,
+                       rules_overrides: Optional[Dict] = None):
     """One optimizer step: (params, opt_state, batch) → (params,
     opt_state, metrics). With ``microbatches`` > 1 the batch is split
     along its first dim and the gradients are summed in fp32 and averaged —
@@ -265,14 +342,51 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     (default ``opt_cfg.lr``) and warms up over ``warmup`` steps, fixed at
     100 as in the reference (a reference caveat, ROADMAP.md; the
     ``Trainer`` passes its own); ``aux_weight`` scales the experts' loss.
-    The multi-microbatch metrics report ``aux`` as 0."""
+    The multi-microbatch metrics report ``aux`` as 0.
+
+    ``rules_overrides`` layer on the config's own rules
+    (:func:`merged_overrides`): ``{"act_seq": "model"}`` runs the step
+    sequence-parallel wherever the batch's sequence divides over the
+    model axis (:func:`_sum_whole_over_model`); an ``act_batch`` rule
+    raises."""
     opt_cfg = opt_cfg or AdamWConfig()
     base_lr = opt_cfg.lr if base_lr is None else base_lr
-    tpctx = tp_context(cfg, mesh)
-    fsctx = FSDP.make_context(cfg, mesh)
-    shapes = None
-    if tpctx is not None or fsctx is not None:
-        shapes = T.init_model(cfg, device="meta")
+    tpctx, fsctx, shapes = _contexts(cfg, mesh, rules_overrides)
+    grads_of = _grads_fn(cfg, microbatches, mesh, tpctx, fsctx, shapes,
+                         aux_weight)
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = grads_of(params, batch)
+        lr = cosine_schedule(opt_state["step"], base_lr=base_lr,
+                             warmup=warmup, total=total_steps)
+        gnorm = None if shapes is None else _grad_norm(grads, shapes,
+                                                       tpctx, fsctx)
+        amax = _grad_amax(grads, tpctx, fsctx) if opt_cfg.compress_grads \
+            else None
+        params, opt_state, om, _ = adamw_update(params, grads, opt_state,
+                                                opt_cfg, lr, gnorm=gnorm,
+                                                amax=amax)
+        return params, opt_state, dict(metrics, loss=loss, lr=lr, **om)
+
+    return train_step
+
+
+def make_grad_fn(cfg: ModelConfig, microbatches: int = 1, mesh=None, *,
+                 aux_weight: float = 0.01,
+                 rules_overrides: Optional[Dict] = None):
+    """The gradients that :func:`make_train_step_fn`'s AdamW takes:
+    (params, batch) → ((loss, metrics), grads), the global batch's on a
+    ``mesh`` (``params`` this rank's cuts, ``batch`` the global batch),
+    each rank holding its cut of each leaf's gradient."""
+    return _grads_fn(cfg, microbatches, mesh,
+                     *_contexts(cfg, mesh, rules_overrides), aux_weight)
+
+
+def _grads_fn(cfg: ModelConfig, microbatches: int, mesh,
+              tpctx: Optional[TP.TPContext],
+              fsctx: Optional[FSDP.FSDPContext], shapes, aux_weight: float):
+    """:func:`make_grad_fn` under contexts the caller built
+    (:func:`_contexts`)."""
 
     def grad_of(params, batch):
         with TP.use_tp(tpctx), FSDP.use_fsdp(fsctx):
@@ -280,7 +394,7 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                 lambda p: T.lm_loss(p, cfg, batch, aux_weight=aux_weight),
                 params)
 
-    def train_step(params, opt_state, batch):
+    def grads_of(params, batch):
         if fsctx is not None:
             _check_held(params, shapes, fsctx)
         batch = data_shard(batch, mesh)
@@ -302,21 +416,16 @@ def make_train_step_fn(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             grads = tree_map(lambda g: g * scale, grads)
             loss = loss * scale
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+        with TP.use_tp(tpctx):
+            sp = T.seq_parallel(cfg, batch)
+        if sp:
+            grads = _sum_whole_over_model(grads, shapes, tpctx, fsctx)
         if fsctx is not None:
             grads, (loss, metrics) = _average_over_batch(
                 grads, (loss, metrics), fsctx)
-        lr = cosine_schedule(opt_state["step"], base_lr=base_lr,
-                             warmup=warmup, total=total_steps)
-        gnorm = None if shapes is None else _grad_norm(grads, shapes,
-                                                       tpctx, fsctx)
-        amax = _grad_amax(grads, tpctx, fsctx) if opt_cfg.compress_grads \
-            else None
-        params, opt_state, om, _ = adamw_update(params, grads, opt_state,
-                                                opt_cfg, lr, gnorm=gnorm,
-                                                amax=amax)
-        return params, opt_state, dict(metrics, loss=loss, lr=lr, **om)
+        return (loss, metrics), grads
 
-    return train_step
+    return grads_of
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +511,9 @@ def serve_context(cfg: ModelConfig, mesh, shape: Optional[ShapeCell] = None,
 
 def make_rules(cfg: ModelConfig, mesh, shape: Optional[ShapeCell] = None,
                extra_overrides: Optional[Dict] = None) -> shd.ShardingRules:
+    """The rules of ``cfg`` on ``mesh`` for ``shape``'s cell, with
+    ``extra_overrides`` on top; an ``act_batch`` rule raises
+    (:func:`check_ported_rules`)."""
     overrides = cfg.overrides_dict()
     if shape is not None and shape.name == "long_500k":
         # the huge decode context: the KV caches' sequence over data (the
@@ -409,4 +521,5 @@ def make_rules(cfg: ModelConfig, mesh, shape: Optional[ShapeCell] = None,
         overrides.setdefault("act_kv_seq", "data")
     if extra_overrides:
         overrides.update(extra_overrides)
+    check_ported_rules(overrides)
     return shd.ShardingRules(mesh, overrides)

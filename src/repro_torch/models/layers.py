@@ -11,6 +11,12 @@ paged kernel over page pools, the flash kernel over dense K/V). The call
 sites the reference routes through tensor parallelism go through
 ``distributed/tp.py``, which is the plain ``api`` call without a TP
 context; under one, heads, d_ff and the caches are the rank's slices.
+
+Under sequence parallelism (``tp.seq_parallel``) a layer takes and
+returns the rank's rows of the sequence: attention, MLA, the MLP and the
+experts gather their input over the sequence first (``tp.seq_gather``)
+and hand back the rank's rows of their output (``linear(seq_out=True)``,
+``tp.rows``); the norms run on the rank's rows. Positions stay global.
 """
 from __future__ import annotations
 
@@ -252,6 +258,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     ``"k_scale"`` and ``"v_scale"``), a contiguous ``{"k", "v", "len"}``
     cache, or None (self-attention over x, causal per cfg).
     Returns (y, cache); a cache is updated in place (its dict entries)."""
+    x = TP.seq_gather(x)
     B, S, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     # Under TP: Q/K/V column-parallel (whole heads), then each brought to
@@ -279,6 +286,10 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
     k = rope(k, positions, cfg.rope_theta)
     if kv_slice is not None:
         k, v = TP.take_kv_heads(k, kv_slice), TP.take_kv_heads(v, kv_slice)
+    elif shard_q and not shard_kv:
+        # MQA: each rank's query heads read the one whole K/V head, so
+        # each rank's gradient of it is partial (summed backward)
+        k, v = TP.to_ranks(k), TP.to_ranks(v)
     kv_scales = None
     if cache is None:
         kv_k, kv_v, bt = k, v, None
@@ -304,7 +315,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, cache=None,
                        else cache.get("seq_offset"))
     # row-parallel under TP: the contraction over the rank's heads, summed
     y = TP.linear(out.reshape(B, S, -1), p["wo"], axes=("heads", "embed"),
-                  units=H, full=(H * dh, D))
+                  units=H, full=(H * dh, D), seq_out=True)
     return y, cache
 
 
@@ -364,6 +375,7 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
         raise NotImplementedError(
             "paged KV caches cover GQA attention only; the MLA latent cache "
             "stays contiguous (docs/serving.md)")
+    x = TP.seq_gather(x)
     B, S, D = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -422,7 +434,7 @@ def mla_attention(p, cfg: ModelConfig, x, *, positions, cache=None,
             out = out.narrow(2, ctx.rank * (H // ctx.model_size),
                              H // ctx.model_size)
     y = TP.linear(out.reshape(B, S, -1), p["wo"], axes=("heads", "embed"),
-                  units=H, full=(H * dv, D))
+                  units=H, full=(H * dv, D), seq_out=True)
     return y, cache
 
 
@@ -443,12 +455,15 @@ def init_mlp(gen, cfg: ModelConfig, dtype, device, d_ff=None, d_in=None):
             "bo": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def mlp(p, cfg: ModelConfig, x, d_ff=None):
+def mlp(p, cfg: ModelConfig, x, d_ff=None, *, whole: bool = False):
     """``d_ff`` defaults to the config's (MoE's shared experts pass their
     summed width). Under TP the up (and gate) projection is
     column-parallel — SwiGLU's gate ‖ up weight sliced half by half, so
     the activation is the rank's slice of d_ff — and the down projection
-    row-parallel."""
+    row-parallel. ``whole``: under sequence parallelism x is the whole
+    sequence already (MoE's shared experts), not the rank's rows."""
+    if not whole:
+        x = TP.seq_gather(x)
     D, f = x.shape[-1], d_ff or cfg.d_ff
     if cfg.mlp_act == "swiglu":
         gate, up = TP.linear(x, p["wi"], axes=("embed", "mlp"),
@@ -460,7 +475,7 @@ def mlp(p, cfg: ModelConfig, x, d_ff=None):
             TP.linear(x, p["wi"], p["bi"], axes=("embed", "mlp"),
                       full=(D, f)), approximate="tanh")
     return TP.linear(h, p["wo"], p.get("bo"), axes=("mlp", "embed"),
-                     full=(f, D))
+                     full=(f, D), seq_out=True)
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +573,16 @@ def moe(p, cfg: ModelConfig, x):
     combine are each read here only for the rank's own experts, so their
     gradients are summed over the group (``tp.to_ranks``); the router's
     ``xt`` and the aux loss's ``probs`` are read whole and are not.
+
+    Under sequence parallelism x is the rank's rows: it is gathered over
+    the sequence before routing (the reference keeps the sequence whole
+    there, its ``layers.py:511``), so the dispatch groups are the
+    baseline's; the output is the rank's rows (the partial outputs of
+    expert parallelism reduce-scattered over the sequence), and the aux
+    loss's mean of ``probs`` is the sum of the ranks' sums over their own
+    rows (``tp.row_mean``).
     """
+    x = TP.seq_gather(x)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
     T = B * S
@@ -576,8 +600,8 @@ def moe(p, cfg: ModelConfig, x):
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     density = FSDP.mean_over_data(torch.nn.functional.one_hot(
         ids[..., 0], E).float().mean(dim=(0, 1)))
-    aux = E * torch.mean(density * FSDP.mean_over_data(probs.mean(
-        dim=(0, 1))))
+    aux = E * torch.mean(density * FSDP.mean_over_data(TP.row_mean(
+        probs.reshape(B, S, E))))
 
     # dispatch, every group at once: flat pair i = (token i // k, choice)
     flat_e = ids.reshape(G, t * k)
@@ -630,9 +654,9 @@ def moe(p, cfg: ModelConfig, x):
     else:
         contrib = rows(slot_for_flat).reshape(G, t, k, D)
         y = torch.sum(contrib * gate[..., None].to(x.dtype), dim=2)
-    if ep:
-        y = TP.sum_over_ranks(y.float()).to(x.dtype)
+    y = y.reshape(B, S, D)
+    y = TP.sum_to_rows(y.float()).to(x.dtype) if ep else TP.rows(y)
     if cfg.n_shared_experts:
-        y = y + mlp(p["shared"], cfg, xt,
+        y = y + mlp(p["shared"], cfg, x, whole=True,
                     d_ff=cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff))
-    return y.reshape(B, S, D), aux
+    return y, aux

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import api
+from repro_torch.distributed import tp as TP
 from repro_torch.kernels.forward_only import needs_grad
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models.config import ModelConfig
@@ -118,7 +119,11 @@ def ssd_block(p, cfg: ModelConfig, x: torch.Tensor, *,
     step runs the decode recurrence; a longer prefill runs the chunked scan
     and stores its final state, which assumes the cache is fresh (as the
     reference does: a prefill continuing an earlier one would need an
-    initial-state term). Returns (y, cache)."""
+    initial-state term). Returns (y, cache). Under sequence parallelism
+    (``tp.seq_parallel``) x is the rank's rows of the sequence: the block
+    gathers them, runs whole on every rank (its params are whole, as the
+    reference's ``tp.linear`` runs them) and returns the rank's rows."""
+    x = TP.seq_gather(x)
     B, S, _ = x.shape
     di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     z = api.linear(x, p["w_z"])
@@ -144,7 +149,7 @@ def ssd_block(p, cfg: ModelConfig, x: torch.Tensor, *,
         cache["state"] = state
     y = y + xc * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, di) * F.silu(z)
-    return api.linear(rmsnorm(p["norm"], y), p["w_out"]), cache
+    return TP.rows(api.linear(rmsnorm(p["norm"], y), p["w_out"])), cache
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int, dtype, device) -> Dict:

@@ -24,6 +24,14 @@ the recompute; the embedding table, the final norm and the head are
 gathered where they are used. Under a model axis the loss is
 vocab-parallel: the logits stay the rank's vocab columns, as the
 reference keeps them sharded over ``act_vocab``.
+
+Sequence parallelism: where the rules cut the residual stream's sequence
+over the model axis (``act_seq``, ``tp.seq_parallel``), a cache-less
+forward holds the rank's contiguous 1/mp of the sequence between blocks —
+the embedding's output, every block's output (which remat saves), the
+final norm's input — and gathers the rows whole before the head, whose
+logits keep the sequence whole as the reference's spec does. A serving
+step whose sequence the rules would cut raises.
 """
 from __future__ import annotations
 
@@ -156,24 +164,31 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def seq_columns(batch) -> int:
+    """The columns of a batch's sequence: its tokens', its embeddings',
+    or (vlm) both."""
+    embeds, tokens = batch.get("embeds"), batch.get("tokens")
+    return (0 if embeds is None else embeds.shape[1]) + \
+        (0 if tokens is None else tokens.shape[1])
+
+
 def embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """Token embeddings; ``batch["embeds"]`` (B, S_e, d_model) — the
     reference's stubbed modality frontend: ViT's patch embeddings alone,
     the VLM's image embeddings followed by the text tokens' (S_e + S
     columns); for (B, S, n_codebooks) tokens (audio) the per-codebook
-    embeddings summed."""
+    embeddings summed. Under sequence parallelism, the rank's rows of
+    them."""
     embeds, tokens = batch.get("embeds"), batch.get("tokens")
-    if embeds is not None:
-        if tokens is None:
-            return embeds
-        t = TP.embed(FSDP.gathered(params["embed"], "embed"), tokens,
-                     vocab=cfg.vocab)
-        return torch.cat([embeds.to(t.dtype), t], dim=1)    # vlm: img ⊕ text
+    if embeds is not None and tokens is None:
+        return TP.rows(embeds)
     if cfg.n_codebooks:
         table = FSDP.gathered(params["embed_cb"], "embed_cb")
-        return sum(table[c][tokens[..., c]] for c in range(cfg.n_codebooks))
+        return TP.rows(sum(table[c][tokens[..., c]]
+                           for c in range(cfg.n_codebooks)))
+    # vlm: img ⊕ text
     return TP.embed(FSDP.gathered(params["embed"], "embed"), tokens,
-                    vocab=cfg.vocab)
+                    vocab=cfg.vocab, prefix=embeds)
 
 
 def _apply_block(p, cfg: ModelConfig, x, *, positions, cache=None,
@@ -232,9 +247,32 @@ def forward(params, cfg: ModelConfig, batch, *,
     reference). ``cfg.remat`` recomputes each block in the backward pass
     (:func:`_use_remat`). Under a model axis the vocab-parallel head's
     logits are gathered whole for sampling; ``gather_logits=False`` keeps
-    the rank's vocab columns (:func:`lm_loss`)."""
+    the rank's vocab columns (:func:`lm_loss`). Under sequence
+    parallelism (:func:`seq_parallel`) the blocks run on the rank's rows."""
+    ctx = TP.current_tp()
+    if seq_parallel(cfg, batch):
+        if caches is not None:
+            raise NotImplementedError(
+                "act_seq -> model would cut a serving step's sequence over "
+                "the model axis; sequence parallelism is ported for "
+                "training and cache-less forwards (decode's one column "
+                "stays whole)")
+        ctx = TP.with_seq_parallel(ctx)
+    with TP.use_tp(ctx):
+        return _forward(params, cfg, batch, caches, last_cols, gather_logits)
+
+
+def seq_parallel(cfg: ModelConfig, batch) -> bool:
+    """Whether the active rules cut ``batch``'s residual stream over the
+    model axis (``tp.seq_parallel`` of its columns)."""
+    return TP.seq_parallel(TP.current_tp(), seq_columns(batch),
+                           D=cfg.d_model)
+
+
+def _forward(params, cfg: ModelConfig, batch, caches, last_cols,
+             gather_logits):
     x = embed_tokens(params, cfg, batch)
-    B, S = x.shape[:2]
+    B, S = x.shape[0], seq_columns(batch)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -290,10 +328,13 @@ def forward(params, cfg: ModelConfig, batch, *,
             # follow the L layer caches, one per group
             x, _ = block(("shared_attn",), cfg, x,
                          cache(L + i // cfg.attn_every))
+    final_norm = FSDP.gathered(params["final_norm"], "final_norm")
     if last_cols is not None:
-        x = x[torch.arange(B, device=x.device), last_cols][:, None]
-    x = Lyr.apply_norm(cfg, FSDP.gathered(params["final_norm"], "final_norm"),
-                       x)
+        x = TP.seq_gather(x)[torch.arange(B, device=x.device),
+                             last_cols][:, None]
+        x = Lyr.apply_norm(cfg, final_norm, x)
+    else:        # the rank's rows normed, then the whole sequence (SP)
+        x = TP.seq_gather(Lyr.apply_norm(cfg, final_norm, x))
     # vocab-column-parallel under TP, gathered whole for sampling
     logits = TP.linear(x, FSDP.gathered(params["head"], "head"),
                        axes=("embed", "vocab"),
@@ -322,8 +363,15 @@ def lm_loss(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
     the VLM's image-embedding columns predict nothing; explicit
     ``batch["labels"]`` label every text column. Under a model axis the
     cross-entropy is vocab-parallel (:func:`vocab_parallel`,
-    ``tp.vocab_parallel_nll``). Returns (loss, {"ce", "aux"})."""
+    ``tp.vocab_parallel_nll``). Under sequence parallelism a loss that is
+    not vocab-parallel sums each rank's own rows and then the ranks' sums
+    (``tp.row_mask``), so each rank's gradient reaches its rows alone, as
+    a block's gradients are each rank's share. Returns (loss, {"ce",
+    "aux"})."""
     sharded = vocab_parallel(cfg)
+    own = None
+    if not sharded and seq_parallel(cfg, batch):
+        own = TP.row_mask(seq_columns(batch), batch["tokens"].device)
     logits, _, aux = forward(params, cfg, batch, gather_logits=not sharded)
     tokens = batch["tokens"]
     if cfg.n_codebooks:
@@ -337,14 +385,23 @@ def lm_loss(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
         if labels is None:
             labels = tokens[:, 1:]
             lg = logits[:, n_img:-1]
+            own = None if own is None else own[n_img:-1]
         else:
             lg = logits[:, n_img:]
+            own = None if own is None else own[n_img:]
+    if cfg.n_codebooks and own is not None:
+        own = own[:-1, None]                  # (S - 1, 1) over codebooks
     if sharded:
         nll = TP.vocab_parallel_nll(lg, labels)
     else:
         logp = torch.log_softmax(lg.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels.long()[..., None])
-    loss = torch.mean(nll)
+    if own is None:
+        loss = torch.mean(nll)
+    else:
+        loss = TP.sum_over_ranks(torch.where(own[..., None], nll,
+                                             torch.zeros_like(nll)).sum()) \
+            / nll.numel()
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 

@@ -1054,3 +1054,79 @@ def mlaseq_rank(rank, world, params_np, policies):
                 wkv_b=tuple(params["layers"][0]["attn"]["wkv_b"].shape),
                 wq_b=tuple(params["layers"][0]["attn"]["wq_b"].shape))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism (act_seq over model) in the train step
+# ---------------------------------------------------------------------------
+
+SEQPAR = {"act_seq": "model"}
+SEQPAR_ARCHS = ("smollm-135m", "qwen3-8b", "granite-20b", "dbrx-132b",
+                "deepseek-v2-236b", "zamba2-2.7b")
+
+
+def seqpar_config(arch, **kw):
+    return get_smoke_config(arch, n_layers=2, vocab=64, dtype="float32",
+                            **kw)
+
+
+def seqpar_grads(cfg, params, batch, mesh, overrides):
+    """The gradients of ``make_train_step_fn``'s AdamW (``steps.
+    make_grad_fn``) and the step's loss and grad norm, from the whole
+    ``params`` cut to this rank's share on ``mesh`` under ``overrides``,
+    on the global ``batch``: the gradients gathered whole, whether the
+    step ran sequence-parallel and its collectives."""
+    from repro_torch.core.plan import UNFUSED
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    held = ST.rank_params(cfg, params, mesh)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with api.use_policy(GemmPolicy(backend="matrixflow")), \
+            api.use_attention_policy(UNFUSED):
+        TP.collectives.reset()
+        (loss, _), grads = ST.make_grad_fn(
+            cfg, mesh=mesh, rules_overrides=overrides)(held, tb)
+        coll = TP.collectives.by_axes(mesh)
+        step = ST.make_train_step_fn(cfg, AdamWConfig(lr=DP_LR),
+                                     total_steps=10, mesh=mesh,
+                                     rules_overrides=overrides)
+        _, _, m = step(held, adamw_init(held), tb)
+    with TP.use_tp(ST.tp_context(cfg, mesh, overrides)):
+        sp = T.seq_parallel(cfg, ST.data_shard(tb, mesh))
+    return {"loss": float(loss), "step_loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "seq_parallel": sp,
+            "collectives": coll,
+            "grads": _leaves_np(ST.full_params(cfg, grads, mesh))}
+
+
+def seqpar_rank(rank, world, params_np, batches):
+    """On the (data 2, model 2) mesh, for each config of
+    :data:`SEQPAR_ARCHS` and each named global batch: the gradients under
+    ``act_seq -> model`` and under the config's own rules (the baseline
+    TP step). A batch whose halves are equal gives both data rows the same
+    rows, so it runs the model-2 pair alone. Besides, for smollm-135m: a
+    sequence that does not divide over model (falls back to whole) and
+    remat "dots" under sequence parallelism; for qwen3-8b, "dots"."""
+    import dataclasses
+    mesh = make_host_mesh(model=2)
+    out = {}
+    for arch in SEQPAR_ARCHS:
+        cfg = seqpar_config(arch)
+        params = from_jax_params(params_np[arch], cfg)
+        for name in ("tp2", "dp2tp2"):
+            for rules in ("seqpar", "baseline"):
+                out[arch, name, rules] = seqpar_grads(
+                    cfg, params, batches[name], mesh,
+                    SEQPAR if rules == "seqpar" else None)
+        if arch in ("smollm-135m", "qwen3-8b"):
+            dots = dataclasses.replace(cfg, remat_policy="dots")
+            out[arch, "dp2tp2", "seqpar_dots"] = seqpar_grads(
+                dots, params, batches["dp2tp2"], mesh, SEQPAR)
+    cfg = seqpar_config("smollm-135m")
+    params = from_jax_params(params_np["smollm-135m"], cfg)
+    for rules in ("seqpar", "baseline"):
+        out["smollm-135m", "odd", rules] = seqpar_grads(
+            cfg, params, batches["odd"], mesh,
+            SEQPAR if rules == "seqpar" else None)
+    return out
